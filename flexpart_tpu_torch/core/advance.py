@@ -1,0 +1,477 @@
+"""The particle advance: one lsynctime update for all particles.
+
+Port of ``flexpart_tpu/core/advance.py`` in fixed-step mode (CTL<0,
+``method=0``): quad-table met sampling, Hanna/Langevin PBL turbulence with
+the exact OU discretization (turbswitch on and off, any ``ifine``, no
+CBL), constant-diffusivity free troposphere / stratosphere, mesoscale
+fluctuations, windalign, the double-single position update, cyclic and
+pole boundary conditions and the Petterssen corrector.  Options outside
+this slice (adaptive stepping, CBL, nests, polar caps, tile mode,
+settling, turboff, the legacy-RNG path) raise ``NotImplementedError``.
+
+Scalars (time weights, the interval, grid constants) are float32 values
+computed with numpy ``float32`` arithmetic and held in Python floats, so
+the tensor ops see exactly the operands XLA sees.
+
+Draws: every draw site takes its numbers either from ``draws`` (a dict
+keyed by the JAX tags 6, 1, 2, 3, 4 with the JAX shapes), which the
+parity tests fill with JAX's own draws, or from ``rng.normals`` keyed by
+(seed, step, tag) with the global particle index as counter.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..constants import D_STRAT, D_TROP, PI180, TURBMESOSCALE
+from ..met.fields import ZFields
+from . import rng
+from .hanna import hanna, hanna1
+from .interp import (StepTablesQuad, build_step_tables_quad, horiz_weights,
+                     interp_wind_short_quad, sample_all_quad, vert_weights)
+from .state import Particles, ds_add
+
+f32 = np.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    """Static configuration of the advance (the JAX fields; only the
+    fixed-step values of this slice are accepted, see ``check``)."""
+    nx: int
+    ny: int
+    nz: int
+    xglobal: bool
+    ldirect: int
+    turbswitch: bool
+    ifine: int
+    method: int
+    turboff: bool = False
+    settling: bool = False
+    cblflag: bool = False
+    nests: tuple = ()
+    polar: bool = False
+    tile_mode: bool = False
+    met_bf16: bool = True
+
+    def check(self) -> None:
+        unsupported = {
+            "method=1 (adaptive stepping)": self.method != 0,
+            "cblflag (skewed CBL)": self.cblflag,
+            "nests": bool(self.nests),
+            "polar caps": self.polar,
+            "tile_mode": self.tile_mode,
+            "settling": self.settling,
+            "turboff": self.turboff,
+        }
+        bad = [k for k, v in unsupported.items() if v]
+        if bad:
+            raise NotImplementedError(
+                "not ported yet (outside the fixed-step slice): "
+                + ", ".join(bad))
+        if self.ifine < 1:
+            raise ValueError("ifine must be >= 1")
+
+    @property
+    def table_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.met_bf16 else torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class StepParams:
+    """Run scalars of the advance, float32 values in Python floats."""
+    dx: float
+    dy: float
+    ylat0: float
+    dxconst: float
+    dyconst: float
+    lsynctime: float      # positive interval length [s]
+    fine: float           # 1/ifine
+    lwindinterv: float
+
+    @classmethod
+    def make(cls, dx, dy, ylat0, dxconst, dyconst, lsynctime, fine,
+             lwindinterv=3600) -> "StepParams":
+        def v(x):
+            return float(f32(x))
+        return cls(v(dx), v(dy), v(ylat0), v(dxconst), v(dyconst),
+                   v(abs(lsynctime)), v(fine), v(lwindinterv))
+
+
+@dataclasses.dataclass
+class StepDiag:
+    n_active: torch.Tensor    # () int32
+    n_exited: torch.Tensor
+    nan_count: torch.Tensor
+
+
+DRAW_ROWS = {6: 6, 1: 2, 3: 3, 4: 3}     # tag 2 has ifine rows
+
+
+def _time_weights(itime: int, memtime0: int, memtime1: int,
+                  prm: StepParams, cfg: StepConfig):
+    """(tw0, tw1, ew0, ew1, endtime): the interval-start and Petterssen
+    end-time weights, in float32 as advance.f90:1278-1287 computes them."""
+    dt1 = f32(itime - memtime0)
+    dt2 = f32(memtime1 - itime)
+    dtt = f32(1.0) / (dt1 + dt2)
+    endtime = itime + int(prm.lsynctime) * cfg.ldirect
+    edt1 = f32(endtime - memtime0)
+    edt2 = f32(memtime1 - endtime)
+    edtt = f32(1.0) / max(edt1 + edt2, f32(1e-6))
+    return (float(dt2 * dtt), float(dt1 * dtt), float(edt2 * edtt),
+            float(edt1 * edtt), endtime)
+
+
+def _ou_update(vel, rnd, sig, dt_over_tl):
+    """Exact/linearized OU velocity update with the 0.5 switch
+    (advance.f90:371-384)."""
+    lin = (1.0 - dt_over_tl) * vel + rnd * sig * torch.sqrt(2.0 * dt_over_tl)
+    r = torch.exp(-dt_over_tl)
+    exact = r * vel + rnd * sig * torch.sqrt(torch.clamp(1.0 - r * r, min=0.0))
+    return torch.where(dt_over_tl < 0.5, lin, exact)
+
+
+def _reflect_pbl(z, delz, h):
+    """Ground/hmix reflection and forbidden-state flag
+    (advance.f90:476-491); ``jnp.fmod`` is ``torch.fmod``."""
+    delz = torch.where(torch.abs(delz) > h, torch.fmod(delz, h), delz)
+    below = delz < -z
+    above = delz > (h - z)
+    znew = torch.where(below, -z - delz,
+                       torch.where(above, -z - delz + 2.0 * h, z + delz))
+    icbt = torch.where(below | above, -1, 1).to(torch.int8)
+    return znew, icbt
+
+
+def _pbl_vertical(cfg: StepConfig, prm: StepParams, z, wp, icbt, h, ust,
+                  wst, ol, rho, drhodz, rnd_w, dt: float):
+    """The ifine vertical Langevin substeps (advance.f90:396-498), without
+    CBL.  ``dtftlw`` and everything derived from it is computed once from
+    the interval-start turbulence, as the reference does.
+    Returns (z, wp, icbt)."""
+    turb_fn = hanna if cfg.turbswitch else hanna1
+    rhoaux = drhodz / rho
+    dtf = float(f32(dt) * f32(prm.fine))
+    turb = turb_fn(z, h, ust, wst, ol)
+    dtftlw = dtf / turb.tlw
+    rw = torch.exp(-dtftlw)
+    rnd_exact = torch.sqrt(torch.clamp(1.0 - rw * rw, min=0.0))
+    rnd_lin = torch.sqrt(2.0 * dtftlw)
+    use_lin = dtftlw < 0.5
+    for i in range(cfg.ifine):
+        icbtf = icbt.to(torch.float32)
+        if cfg.turbswitch:
+            lin = ((1.0 - dtftlw) * wp + rnd_w[i] * rnd_lin
+                   + dtf * (turb.dsigwdz + rhoaux * turb.sigw))
+            exact = (rw * wp + rnd_w[i] * rnd_exact
+                     + turb.tlw * (1.0 - rw) * (turb.dsigwdz + rhoaux * turb.sigw))
+            wp_new = torch.where(use_lin, lin, exact) * icbtf
+            delz = wp_new * turb.sigw * dtf
+        else:
+            wp_new = (rw * wp
+                      + rnd_w[i] * rnd_exact * turb.sigw
+                      + turb.tlw * (1.0 - rw)
+                      * (turb.dsigw2dz + rhoaux * turb.sigw ** 2)) * icbtf
+            delz = wp_new * dtf
+        z, icbt = _reflect_pbl(z, delz, h)
+        wp = wp_new
+        if i != cfg.ifine - 1:
+            turb = turb_fn(z, h, ust, wst, ol)   # hanna_short refresh
+    return z, wp, icbt
+
+
+def _apply_bcs(cfg: StepConfig, prm: StepParams, x_hi, x_lo, y_hi, y_lo):
+    """Cyclic longitude + pole mirroring for global grids; exit detection
+    (advance.f90:784-808).  ``jnp.mod`` is ``torch.remainder``."""
+    x = x_hi + x_lo
+    y = y_hi + y_lo
+    nxm = float(cfg.nx - 1)
+    nym = float(cfg.ny - 1)
+    eps = float(f32(cfg.nx / 3.0e5))
+    if cfg.xglobal:
+        xw = torch.where(x >= nxm, x - nxm, x)
+        xw = torch.where(x < 0.0, x + nxm, xw)
+        xw = torch.where(xw <= eps, torch.full_like(xw, eps), xw)
+        xw = torch.where(torch.abs(xw - nxm) <= eps,
+                         torch.full_like(xw, float(f32(nxm) - f32(eps))), xw)
+        crossed_s = y < 0.0
+        crossed_n = y > nym
+        xw = torch.where(crossed_s | crossed_n,
+                         torch.remainder(xw * prm.dx + 180.0, 360.0) / prm.dx,
+                         xw)
+        yw = torch.where(crossed_s, -y, y)
+        yw = torch.where(crossed_n, 2.0 * nym - yw, yw)
+        x_changed = xw != x
+        y_changed = yw != y
+        zero = torch.zeros_like(x_lo)
+        x_hi = torch.where(x_changed, xw, x_hi)
+        x_lo = torch.where(x_changed, zero, x_lo)
+        y_hi = torch.where(y_changed, yw, y_hi)
+        y_lo = torch.where(y_changed, zero, y_lo)
+        exited = (xw < 0.0) | (xw >= nxm) | (yw < 0.0) | (yw > nym)
+        return x_hi, x_lo, y_hi, y_lo, exited
+    exited = (x < 0.0) | (x >= nxm) | (y < 0.0) | (y > nym)
+    return x_hi, x_lo, y_hi, y_lo, exited
+
+
+def _draw_source(key: rng.Key, draws, n: int, offset: int, device,
+                 ifine: int):
+    rows = {**DRAW_ROWS, 2: ifine}
+
+    def draw(tag: int) -> torch.Tensor:
+        if draws is None:
+            return rng.normals(key, (rows[tag], n), tag, offset, device=device)
+        d = draws[tag]
+        if tuple(d.shape) != (rows[tag], n) or d.device != torch.device(device) \
+                or d.dtype != torch.float32:
+            raise ValueError(f"injected draws for tag {tag}: expected "
+                             f"float32 {(rows[tag], n)} on {device}, got "
+                             f"{d.dtype} {tuple(d.shape)} on {d.device}")
+        return d
+    return draw
+
+
+def advance_all(p: Particles, z0: ZFields, z1: ZFields, itime: int,
+                memtime0: int, memtime1: int, key: rng.Key,
+                cfg: StepConfig, prm: StepParams,
+                tables: StepTablesQuad | None = None,
+                draws: dict | None = None, offset: int = 0):
+    """Advance every scheduled particle by one lsynctime interval.
+
+    ``offset`` is the global index of particle 0 (the draw counter);
+    ``tables`` may be shared across chunks (``advance_chunked`` does).
+    Returns (particles, StepDiag); exited particles get active=False."""
+    cfg.check()
+    n = p.capacity
+    dev = p.device
+    scheduled = p.active
+    tw0, tw1, ew0, ew1, endtime = _time_weights(itime, memtime0, memtime1,
+                                                prm, cfg)
+    if tables is None:
+        tables = build_step_tables_quad(z0, z1, tw0, tw1, ew0, ew1,
+                                        dtype=cfg.table_dtype)
+    draw = _draw_source(key, draws, n, offset, dev, cfg.ifine)
+
+    x = p.x
+    y = p.y
+    z = p.z
+    height = z0.height
+    hw = horiz_weights(x, y, cfg.nx, cfg.ny, cfg.xglobal)
+    indz, dz1 = vert_weights(z, height)
+    h, tropop, ust, wst, ol, wind = sample_all_quad(tables, hw, indz, dz1,
+                                                    x, y, cfg.nx, cfg.ny)
+    u, v, w = wind.u, wind.v, wind.w
+
+    dt = prm.lsynctime
+    pbl = (z / h) <= 1.0
+    htop_eps = float(f32(100.0 * cfg.nx / 3.0e5))
+    htop = height[-1] - htop_eps
+    in_trop = z < tropop
+    in_trans = (~in_trop) & (z < tropop + 1000.0)
+    turb_fn = hanna if cfg.turbswitch else hanna1
+
+    # -------- newly released particles (initialize.f90:110-219) --------
+    fresh = scheduled & ((p.itramem == itime) | (itime == 0))
+    rnd_i = draw(6)
+    turb_i = turb_fn(z, h, ust, wst, ol)
+    up_i = torch.where(pbl, rnd_i[0] * turb_i.sigu, rnd_i[0] * 0.3)
+    vp_i = torch.where(pbl, rnd_i[1] * turb_i.sigv, rnd_i[1] * 0.3)
+    wp_raw = rnd_i[2] if cfg.turbswitch else rnd_i[2] * turb_i.sigw
+    wp_i = torch.where(pbl, wp_raw, torch.zeros_like(wp_raw))
+    usig_i = rnd_i[3] * wind.usig * TURBMESOSCALE
+    vsig_i = rnd_i[4] * wind.vsig * TURBMESOSCALE
+    wsig_i = rnd_i[5] * wind.wsig * TURBMESOSCALE
+    p_up = torch.where(fresh, up_i, p.up)
+    p_vp = torch.where(fresh, vp_i, p.vp)
+    p_wp = torch.where(fresh, wp_i, p.wp)
+    p_usig = torch.where(fresh, usig_i, p.usig)
+    p_vsig = torch.where(fresh, vsig_i, p.vsig)
+    p_wsig = torch.where(fresh, wsig_i, p.wsig)
+    p_cbt = torch.where(fresh, torch.ones_like(p.cbt), p.cbt)
+
+    ldirf = float(cfg.ldirect)
+
+    # ---------------- fixed-step PBL branch (advance.f90:276-615) -------
+    rnd_h = draw(1)
+    rnd_w = draw(2)
+    turb0 = turb_fn(z, h, ust, wst, ol)
+    up_pbl = _ou_update(p_up, rnd_h[0], turb0.sigu, dt / turb0.tlu)
+    vp_pbl = _ou_update(p_vp, rnd_h[1], turb0.sigv, dt / turb0.tlv)
+
+    z_pbl, wp_pbl, icbt = _pbl_vertical(
+        cfg, prm, z, p_wp, p_cbt, h, ust, wst, ol, wind.rho, wind.drhodz,
+        rnd_w, dt)
+    daw_pbl = up_pbl * dt
+    dcw_pbl = vp_pbl * dt
+    w_eff = w
+
+    dxs_pbl = u * dt
+    dys_pbl = v * dt
+    z_pbl = z_pbl + w_eff * dt * ldirf
+    z_pbl = torch.minimum(z_pbl, htop)
+    hm = h - 1e-9
+    z_pbl = torch.where(z_pbl < 0.0, torch.minimum(hm, -z_pbl), z_pbl)
+
+    # ------ free troposphere / stratosphere (advance.f90:629-708) ------
+    rnd_ft = draw(3)
+    weight = torch.clamp((z - tropop) / 1000.0, 0.0, 1.0)
+    uxscale_t = float(np.sqrt(f32(2.0 * D_TROP) / f32(dt)))
+    uxscale_tr = torch.sqrt(float(f32(2.0 * D_TROP) / f32(dt)) * (1.0 - weight))
+    wpscale_tr = torch.sqrt(float(f32(2.0 * D_STRAT) / f32(dt)) * weight)
+    wpscale_s = float(np.sqrt(f32(2.0 * D_STRAT) / f32(dt)))
+
+    zero = torch.zeros_like(z)
+    ux = torch.where(in_trop, rnd_ft[0] * uxscale_t,
+                     torch.where(in_trans, rnd_ft[0] * uxscale_tr, zero))
+    vy = torch.where(in_trop, rnd_ft[1] * uxscale_t,
+                     torch.where(in_trans, rnd_ft[1] * uxscale_tr, zero))
+    wp_ft = torch.where(in_trop, zero,
+                        torch.where(in_trans,
+                                    rnd_ft[2] * wpscale_tr + D_STRAT / 1000.0,
+                                    rnd_ft[2] * wpscale_s))
+
+    dxs_ft = (u + ux) * dt
+    dys_ft = (v + vy) * dt
+    z_ft = z + (w_eff + wp_ft) * dt * ldirf
+    z_ft = torch.where(z_ft < 0.0, torch.minimum(hm, -z_ft), z_ft)
+
+    # ---------------- merge branches ----------------
+    dxsave = torch.where(pbl, dxs_pbl, dxs_ft)
+    dysave = torch.where(pbl, dys_pbl, dys_ft)
+    dawsave = torch.where(pbl, daw_pbl, zero)
+    dcwsave = torch.where(pbl, dcw_pbl, zero)
+    z_new = torch.where(pbl, z_pbl, z_ft)
+    up_new = torch.where(pbl, up_pbl, p_up)
+    vp_new = torch.where(pbl, vp_pbl, p_vp)
+    wp_new = torch.where(pbl, wp_pbl, wp_ft)
+    icbt = torch.where(pbl, icbt, p_cbt)
+    u_ref, v_ref, w_ref = u, v, w_eff
+
+    # ------------ mesoscale fluctuations (advance.f90:720-738) ------------
+    rnd_m = draw(4)
+    r = f32(np.exp(f32(-2.0) * f32(prm.lsynctime) / f32(prm.lwindinterv)))
+    rs = float(np.sqrt(f32(1.0) - r * r))
+    r = float(r)
+    usig_new = r * p_usig + rs * rnd_m[0] * wind.usig * TURBMESOSCALE
+    vsig_new = r * p_vsig + rs * rnd_m[1] * wind.vsig * TURBMESOSCALE
+    wsig_new = r * p_wsig + rs * rnd_m[2] * wind.wsig * TURBMESOSCALE
+    lsync = prm.lsynctime
+    dxsave = dxsave + usig_new * lsync
+    dysave = dysave + vsig_new * lsync
+    z_new = z_new + wsig_new * lsync
+    z_new = torch.abs(z_new)
+
+    # ------- windalign + metric position update (advance.f90:747-799) -------
+    ffinv = 1.0 / torch.clamp(torch.sqrt(u_ref * u_ref + v_ref * v_ref),
+                              min=1e-30)
+    sinphi, cosphi = v_ref * ffinv, u_ref * ffinv
+    ux_t = cosphi * dawsave - sinphi * dcwsave
+    vy_t = sinphi * dawsave + cosphi * dcwsave
+    dxsave = dxsave + ux_t
+    dysave = dysave + vy_t
+
+    cosfact = prm.dxconst / torch.cos((y * prm.dy + prm.ylat0) * PI180)
+    x_hi, x_lo = ds_add(p.x_hi, p.x_lo, dxsave * cosfact * ldirf)
+    y_hi, y_lo = ds_add(p.y_hi, p.y_lo, dysave * prm.dyconst * ldirf)
+
+    x_hi, x_lo, y_hi, y_lo, exited = _apply_bcs(cfg, prm, x_hi, x_lo,
+                                                y_hi, y_lo)
+    z_new = torch.minimum(z_new, htop)
+
+    # ---------------- Petterssen corrector (advance.f90:816-986) ------------
+    can_pett = (~exited) if abs(endtime) <= abs(memtime1) \
+        else torch.zeros_like(exited)
+    xn = x_hi + x_lo
+    yn = y_hi + y_lo
+    hw2 = horiz_weights(xn, yn, cfg.nx, cfg.ny, cfg.xglobal)
+    indz2, dz1_2 = vert_weights(z_new, height)
+    u2, v2, w2 = interp_wind_short_quad(tables.rowsE, hw2, indz2, dz1_2,
+                                        cfg.nx, cfg.ny)
+    du = (u2 - u_ref) / 2.0
+    dv = (v2 - v_ref) / 2.0
+    dw = (w2 - w_ref) / 2.0
+    dtl = prm.lsynctime
+
+    z_corr = z_new + dw * dtl * ldirf
+    z_corr = torch.where(z_corr < 0.0, torch.minimum(hm, -z_corr), z_corr)
+    cosfact2 = prm.dxconst / torch.cos((yn * prm.dy + prm.ylat0) * PI180)
+    xc_hi, xc_lo = ds_add(x_hi, x_lo, du * cosfact2 * dtl * ldirf)
+    yc_hi, yc_lo = ds_add(y_hi, y_lo, dv * prm.dyconst * dtl * ldirf)
+    xc_hi, xc_lo, yc_hi, yc_lo, exited2 = _apply_bcs(cfg, prm, xc_hi, xc_lo,
+                                                     yc_hi, yc_lo)
+
+    x_hi = torch.where(can_pett, xc_hi, x_hi)
+    x_lo = torch.where(can_pett, xc_lo, x_lo)
+    y_hi = torch.where(can_pett, yc_hi, y_hi)
+    y_lo = torch.where(can_pett, yc_lo, y_lo)
+    z_new = torch.where(can_pett, z_corr, z_new)
+    exited = exited | (can_pett & exited2)
+    z_new = torch.minimum(z_new, htop)
+
+    # ---------------- write back (masked on scheduled) ----------------
+    keep = scheduled & (~exited)
+
+    def sel(new, old):
+        return torch.where(scheduled, new, old)
+
+    itra_new = torch.full_like(p.itra, itime + int(prm.lsynctime) * cfg.ldirect)
+    new_p = p.replace(
+        x_hi=sel(x_hi, p.x_hi), x_lo=sel(x_lo, p.x_lo),
+        y_hi=sel(y_hi, p.y_hi), y_lo=sel(y_lo, p.y_lo),
+        z=sel(z_new, p.z),
+        up=sel(up_new, p_up), vp=sel(vp_new, p_vp), wp=sel(wp_new, p_wp),
+        usig=sel(usig_new, p_usig), vsig=sel(vsig_new, p_vsig),
+        wsig=sel(wsig_new, p_wsig),
+        cbt=torch.where(scheduled, icbt, p_cbt).to(torch.int8),
+        itra=torch.where(scheduled, itra_new, p.itra),
+        active=torch.where(scheduled, keep, p.active),
+    )
+    i32 = torch.int32
+    diag = StepDiag(
+        n_active=new_p.active.sum(dtype=i32),
+        n_exited=(scheduled & exited).sum(dtype=i32),
+        # only the CBL branch (not ported) can produce a non-finite wp
+        nan_count=torch.zeros((), dtype=i32, device=dev),
+    )
+    return new_p, diag
+
+
+def advance_chunked(p: Particles, z0: ZFields, z1: ZFields, itime: int,
+                    memtime0: int, memtime1: int, key: rng.Key,
+                    cfg: StepConfig, prm: StepParams, n_chunks: int,
+                    draws: dict | None = None):
+    """``advance_all`` over particle chunks with the tables built once.
+
+    Unlike JAX's ``fold_in(key, chunk)``, the draw counter is the global
+    particle index, so without injected draws the result does not depend
+    on ``n_chunks``.  Injected draws are (rows, N) and sliced per chunk."""
+    cfg.check()
+    n = p.capacity
+    if n % n_chunks:
+        raise ValueError(f"capacity {n} not divisible by {n_chunks} chunks")
+    b = n // n_chunks
+    tw0, tw1, ew0, ew1, _ = _time_weights(itime, memtime0, memtime1, prm, cfg)
+    tables = build_step_tables_quad(z0, z1, tw0, tw1, ew0, ew1,
+                                    dtype=cfg.table_dtype)
+    parts, diags = [], []
+    for i in range(n_chunks):
+        a = i * b
+        d = None if draws is None else {t: v[:, a:a + b] for t, v in draws.items()}
+        pi, di = advance_all(p.rows(a, a + b), z0, z1, itime, memtime0,
+                             memtime1, key, cfg, prm, tables=tables, draws=d,
+                             offset=a)
+        parts.append(pi)
+        diags.append(di)
+    p2 = parts[0] if n_chunks == 1 else Particles.cat(parts)
+
+    def total(name):
+        return torch.stack([getattr(d, name) for d in diags]).sum(
+            dtype=torch.int32)
+
+    return p2, StepDiag(n_active=total("n_active"),
+                        n_exited=total("n_exited"),
+                        nan_count=total("nan_count"))
