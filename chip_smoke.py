@@ -10,15 +10,22 @@ the port's stock forward step on the card, in phases:
   1. device   — card name and power limit, torch and CUDA versions;
   2. build    — nvcc for every kernel source, all started together;
   3. kernels  — each kernel against its plain PyTorch twin on the card, at
-                the main path's shapes, with its time and the twin's;
+                the main path's shapes, with its time, the twin's, its
+                bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s,
+                whichever is larger) and, where one PyTorch call computes
+                the same function, that call's time;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
-                with the same draws;
+                with the same draws; and the advance kernel with its draws
+                made in registers against the same kernel fed the normals
+                kernel's draws, bitwise;
   5. main     — the main path at full width: uniform-wind met on the
-                361x181x30 grid, 10 x 2**20 particles in 2**19 chunks, the
-                720x360x3 output grid, 14 steps of 900 s (the last three
-                sample with the 4-point kernel); launch counts are reset
-                just before and read just after.
+                361x181x30 grid, 10 x 2**20 particles, the 720x360x3
+                output grid, 14 steps of 900 s (the last three sample with
+                the 4-point kernel); launch counts are reset just before
+                and read just after;
+  6. profile  — two more steady steps under torch.profiler: CUDA launches
+                per step, device time by kernel, device busy share.
 
 Prints one JSON object per phase, then a {"kernels": [...]} line, the
 nvidia-smi name/power line, and as the last line
@@ -47,6 +54,29 @@ LSYNC = 900
 K1_SHAPE = (6, 2 ** 19)
 K1_ATOL = 5e-6
 K3_RTOL = 1e-5
+# K4 against the plain advance: positions in grid units, z in metres (plus
+# 1e-4 relative), velocities and mesoscale memories in m/s.  The two run
+# the same float32 operations in the same order and have agreed bitwise on
+# the H100; the room is for a toolkit whose expf/powf/cosf differ by an ulp
+# from the ones torch was built with, which a 900 s step multiplies.  cbt
+# and active hinge on comparisons of such floats: at most K4_FLAG_SHARE of
+# the particles may differ there.
+K4_XY_ATOL = 1e-4
+K4_Z_ATOL, K4_Z_RTOL = 1e-2, 1e-4
+K4_V_ATOL, K4_V_RTOL = 1e-5, 1e-4
+K4_FLAG_SHARE = 1e-5
+# the card's peaks (NVIDIA H100 SXM data sheet) for the kernels' bounds
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# operations per element, counted from the sources (a Philox draw with its
+# Box-Muller transform is about 175; K4 makes 6 per steady particle)
+K1_OPS_PER_DRAW = 175
+K2_OPS_PER_LANE = 12
+K3_OPS_PER_PARTICLE = 60
+K4_OPS_PER_PARTICLE = 1800
+K4_CASES = {"stock": dict(turbswitch=False, ifine=1, met_bf16=True),
+            "turb_ifine4": dict(turbswitch=True, ifine=4, met_bf16=True),
+            "f32_tables": dict(turbswitch=False, ifine=1, met_bf16=False)}
 
 
 def emit(obj) -> None:
@@ -78,6 +108,16 @@ def cuda_ms(fn, reps: int = 10) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the float32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=int(n_bytes), bound_operations=int(n_ops))
 
 
 # ----------------------------------------------------------------- setup --
@@ -119,16 +159,162 @@ def bench_particles(n: int, device, seed: int, old_fraction: float = 0.0):
                      mass=torch.full((n, 1), 1.0 / n, device=device))
 
 
-def step_setup(grid):
+def edge_particles(n: int, device, seed: int, itime: int, hmix_at):
+    """bench_particles with what the advance branches on: half the
+    particles released at ``itime`` (fresh), 1/64 not scheduled, the first
+    4096 spread along the poles and the date line, and a quarter moved
+    below the local mixing height ``hmix_at(particles)`` so that every
+    boundary-layer branch is taken."""
+    import torch
+    p = bench_particles(n, device, seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+
+    def u(lo, hi, m=n):
+        return torch.rand(m, generator=gen, device=device) * (hi - lo) + lo
+
+    x, y = p.x_hi.clone(), p.y_hi.clone()
+    m = 1024
+    y[0:m] = u(0.0, 0.02, m)                  # south pole
+    y[m:2 * m] = u(179.98, 180.0, m)          # north pole
+    x[2 * m:3 * m] = u(0.0, 0.01, m)          # date line, west side
+    x[3 * m:4 * m] = u(359.99, 360.0, m)      # date line, east side
+    fresh = u(0.0, 1.0) < 0.5
+    p = p.replace(x_hi=x, y_hi=y)
+    z = torch.where(u(0.0, 1.0) < 0.25, u(0.0, 1.0) * hmix_at(p), p.z)
+    return p.replace(
+        z=z, x_lo=u(-1e-6, 1e-6), y_lo=u(-1e-6, 1e-6),
+        itramem=torch.where(fresh, itime, itime - 7200).to(torch.int32),
+        itra=torch.full_like(p.itra, itime),
+        up=u(-1.0, 1.0), vp=u(-1.0, 1.0), wp=u(-1.0, 1.0),
+        usig=u(-0.3, 0.3), vsig=u(-0.3, 0.3), wsig=u(-0.01, 0.01),
+        cbt=torch.where(u(0.0, 1.0) < 0.1, -1, 1).to(torch.int8),
+        active=u(0.0, 1.0) >= 1.0 / 64)
+
+
+def compare_particles(pk, pp, what: str, nxm: float) -> dict:
+    """K4's particles against the plain advance's, by the K4_* tolerances.
+    Positions are compared where both kept the particle (one that left the
+    grid is dropped wherever it went), x as a distance on the cyclic axis."""
+    import torch
+    n = pk.capacity
+    both = pk.active & pp.active
+    ddx = (pk.x - pp.x).abs()
+    dx = float(torch.minimum(ddx, nxm - ddx)[both].max())
+    dy = float((pk.y - pp.y).abs()[both].max())
+    check(dx <= K4_XY_ATOL and dy <= K4_XY_ATOL,
+          f"{what}: x/y differ by {dx}/{dy}")
+    dz = (pk.z - pp.z).abs()
+    check(bool(torch.all(dz <= K4_Z_ATOL + K4_Z_RTOL * pp.z.abs())),
+          f"{what}: z differs by {float(dz.max())}")
+    dv = 0.0
+    for f in ("up", "vp", "wp", "usig", "vsig", "wsig"):
+        d = (getattr(pk, f) - getattr(pp, f)).abs()
+        check(bool(torch.all(d <= K4_V_ATOL + K4_V_RTOL * getattr(pp, f).abs())),
+              f"{what}: {f} differs by {float(d.max())}")
+        dv = max(dv, float(d.max()))
+    check(torch.equal(pk.itra, pp.itra), f"{what}: itra differs")
+    flags = {f: int((getattr(pk, f) != getattr(pp, f)).sum())
+             for f in ("cbt", "active")}
+    for f, c in flags.items():
+        check(c <= K4_FLAG_SHARE * n, f"{what}: {f} differs for {c} of {n}")
+    return dict(max_dx=dx, max_dy=dy, max_dz=float(dz.max()), max_dv=dv,
+                cbt_differ=flags["cbt"], active_differ=flags["active"])
+
+
+def check_same_bits(pa, pb, what: str) -> None:
+    import torch
+    from flexpart_tpu_torch.core.advance import OUT_FIELDS
+    for f in OUT_FIELDS:
+        a, b = getattr(pa, f), getattr(pb, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        check(torch.equal(a, b), f"{what}: {f} differs in "
+              f"{int((a != b).sum())} particles")
+
+
+def sample_met(p, height, tables, cfg):
+    """(h, tropop, ust, wst, ol, wind) at the particles, plain version."""
+    from flexpart_tpu_torch.core import interp
+    hw = interp.horiz_weights(p.x, p.y, cfg.nx, cfg.ny, cfg.xglobal)
+    indz, dz1 = interp.vert_weights(p.z, height)
+    return interp.sample_all_quad(tables, hw, indz, dz1, p.x, p.y,
+                                  cfg.nx, cfg.ny)
+
+
+# the branches of the advance that a comparison must have entered
+K4_BRANCHES = ("fresh", "pbl", "neutral", "unstable", "stable",
+               "unstable_zeta_lt_0.03", "unstable_zeta_lt_0.4",
+               "unstable_zeta_lt_0.96", "unstable_zeta_ge_0.96",
+               "tlw_z_lt_ol", "tlw_zeta_lt_0.1", "tlw_else", "reflected",
+               "troposphere", "transition", "stratosphere", "unscheduled",
+               "date_line_wrapped", "pole_mirrored")
+
+
+def branch_counts(p, p_out, height, tables, cfg, itime: int) -> dict:
+    """How many scheduled particles of ``p`` enter each branch of the
+    advance, from the plain version's own predicates; ``p_out`` is the
+    plain version's result (``reflected``: a boundary-layer particle whose
+    last substep bounced off the ground or the mixing height;
+    ``pole_mirrored``: x moved by half the globe; ``exited``, a handful of
+    particles at most on a global grid, is reported and not required)."""
+    import torch
+    from flexpart_tpu_torch.core import hanna
+    h, tropop, _, _, ol, _ = sample_met(p, height, tables, cfg)
+    on = p.active
+    pbl = on & ((p.z / h) <= 1.0)
+    free = on & ~pbl
+    neutral, unstable, stable = hanna._regimes(h, hanna._small_ol(ol))
+    zeta = torch.clamp(p.z / h, 0.0, 1.0)
+    un = pbl & unstable
+    nxm = float(cfg.nx - 1)
+    kept = on & p_out.active
+    jump = (p_out.x - p.x).abs()
+    cyclic = torch.minimum(jump, nxm - jump)
+    masks = {
+        "fresh": on & ((p.itramem == itime) | (itime == 0)),
+        "pbl": pbl, "neutral": pbl & neutral, "unstable": un,
+        "stable": pbl & stable,
+        "unstable_zeta_lt_0.03": un & (zeta < 0.03),
+        "unstable_zeta_lt_0.4": un & (zeta >= 0.03) & (zeta < 0.4),
+        "unstable_zeta_lt_0.96": un & (zeta >= 0.4) & (zeta < 0.96),
+        "unstable_zeta_ge_0.96": un & (zeta >= 0.96),
+        "tlw_z_lt_ol": un & (p.z < ol.abs()),
+        "tlw_zeta_lt_0.1": un & (p.z >= ol.abs()) & (zeta < 0.1),
+        "tlw_else": un & (p.z >= ol.abs()) & (zeta >= 0.1),
+        "reflected": pbl & (p_out.cbt == -1),
+        "troposphere": free & (p.z < tropop),
+        "transition": free & (p.z >= tropop) & (p.z < tropop + 1000.0),
+        "stratosphere": free & (p.z >= tropop + 1000.0),
+        "unscheduled": ~on,
+        "date_line_wrapped": kept & (jump > 0.75 * nxm),
+        "pole_mirrored": kept & (cyclic > 0.25 * nxm),
+        "exited": on & ~p_out.active,
+    }
+    return {k: int(v.sum()) for k, v in masks.items()}
+
+
+def unique_rows(p, height, cfg) -> int:
+    """Table rows that the particles' cells name (each needs reading once)."""
+    import torch
+    from flexpart_tpu_torch.core import interp
+    hw = interp.horiz_weights(p.x, p.y, cfg.nx, cfg.ny, cfg.xglobal)
+    indz, _ = interp.vert_weights(p.z, height)
+    rows = interp._cell_rowid(hw, indz, cfg.nx, cfg.ny)[p.active]
+    return int(torch.unique(rows).numel())
+
+
+def step_setup(grid, **cfg_kw):
     from flexpart_tpu_torch.config import OutGrid
     from flexpart_tpu_torch.core.advance import StepConfig, StepParams
     from flexpart_tpu_torch.grid.conccalc import ConcConfig
     from flexpart_tpu_torch.grid.outgrid import OutputGridGeometry
+    kw = {**K4_CASES["stock"], **cfg_kw}
     cfg = StepConfig(nx=grid.nx, ny=grid.ny, nz=grid.nlev, xglobal=True,
-                     ldirect=1, turbswitch=False, ifine=1, method=0)
+                     ldirect=1, method=0, **kw)
     prm = StepParams.make(dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0,
                           dxconst=grid.dxconst, dyconst=grid.dyconst,
-                          lsynctime=LSYNC, fine=1.0)
+                          lsynctime=LSYNC, fine=1.0 / kw["ifine"])
     og = OutGrid(outlon0=-180.0, outlat0=-90.0, numxgrid=720, numygrid=360,
                  dxout=0.5, dyout=0.5, outheights=(100.0, 1000.0, 50000.0))
     geo = OutputGridGeometry(og, grid)
@@ -170,8 +356,12 @@ def phase_kernels(device, grid) -> dict:
     ms = cuda_ms(lambda: rng.normals_cuda(rows, cols, k0, k1, off, device), 50)
     plain_ms = cuda_ms(lambda: rng.normals_plain(rows, cols, k0, k1, off,
                                                  device), 5)
+    library_ms = cuda_ms(lambda: torch.randn(K1_SHAPE, device=device)
+                         .clamp_(-3.0, 3.0), 50)
     res["normals"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          mean=mean, std=std)
+                          library_ms=library_ms, mean=mean, std=std,
+                          **bound(4 * rows * cols,
+                                  K1_OPS_PER_DRAW * rows * cols))
 
     # K2: the step tables at the bench grid, f32 and bf16, bitwise
     z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
@@ -198,10 +388,16 @@ def phase_kernels(device, grid) -> dict:
             f3d0, f3d1, f2d0, f2d1, *tw, dt), 10),
             cuda_ms(lambda: interp.quad_tables_plain(
                 f3d0, f3d1, f2d0, f2d1, *tw, dt), 3))
+    # 5 wind fields and 5 surface fields of two times in, two bf16 tables out
+    n_rows = (grid.nlev - 1) * grid.ny * grid.nx
+    k2_in = 2 * 4 * (5 * grid.nlev + 5) * grid.ny * grid.nx
     res["quad_tables"] = dict(max_abs_err=k2_err, ms=times[torch.bfloat16][0],
                               plain_ms=times[torch.bfloat16][1],
+                              library_ms=None,
                               f32_ms=times[torch.float32][0],
-                              f32_plain_ms=times[torch.float32][1])
+                              f32_plain_ms=times[torch.float32][1],
+                              **bound(k2_in + 2 * 2 * 64 * n_rows,
+                                      K2_OPS_PER_LANE * 2 * 64 * n_rows))
     del z0, z1
 
     # K3: sampling of 10 x 2**20 particles, both paths
@@ -230,10 +426,108 @@ def phase_kernels(device, grid) -> dict:
             gk.view(-1, 1), p, 14400, lage, oh, 1.0, None, cfg), 10),
             cuda_ms(lambda: cc.conccalc_plain(
                 gp.view(-1, 1), p, 14400, lage, oh, 1.0, None, cfg), 3))
+    # 41 B of particle state in, the grid read and written once (atomics
+    # on top are not counted)
     res["conccalc"] = dict(max_abs_err=worst, ms=k3_ms[True][0],
-                           plain_ms=k3_ms[True][1],
+                           plain_ms=k3_ms[True][1], library_ms=None,
                            single_index_ms=k3_ms[False][0],
-                           single_index_plain_ms=k3_ms[False][1])
+                           single_index_plain_ms=k3_ms[False][1],
+                           **bound(41 * N_MAIN + 2 * 4 * gk.numel(),
+                                   K3_OPS_PER_PARTICLE * N_MAIN))
+    del p, gk, gp
+    torch.cuda.empty_cache()
+    res["advance"] = kernel_advance(device, grid)
+    return res
+
+
+def kernel_advance(device, grid) -> dict:
+    """K4 against the plain advance on the card: three configurations at
+    one 2**19 chunk of edge_particles with injected draws, each required
+    to enter every branch of the advance; then the main path's
+    configuration at the main path's shape, each side making its own draws
+    from the same key (K4 in registers, the plain version through the
+    normals kernel), with K4 also timed on injected draws, on the same
+    particles sorted by height and on none scheduled (a plain copy)."""
+    import torch
+    from flexpart_tpu_torch.core import advance, interp, rng
+    z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
+    itime, mem1 = 3600, 10800
+    key = rng.Key(4321, 4)
+    nxm = float(grid.nx - 1)
+
+    def setup(**kw):
+        cfg, prm, *_ = step_setup(grid, **kw)
+        tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+        tables = interp.build_step_tables_quad(z0, z1, *tw,
+                                               dtype=cfg.table_dtype)
+        a = advance.advance_args(cfg, prm, itime, 0, mem1)
+
+        def runs(p, draws, offset):
+            args = (p, z0.height, tables, a, key, cfg)
+            return (lambda: advance.advance_all_cuda(*args, draws, offset),
+                    lambda: advance.advance_all_plain(*args, draws, offset),
+                    lambda: advance.advance_all_cuda(*args, None, offset))
+        return cfg, tables, runs
+
+    def make_draws(cfg, n, offset):
+        return {tag: rng.normals(key, (rows, n), tag, offset, device=device)
+                for tag, rows in {**advance.DRAW_ROWS, 2: cfg.ifine}.items()}
+
+    res = {"cases": {}}
+    offset = 5 * CHUNK
+    for name, kw in K4_CASES.items():
+        cfg, tables, runs = setup(**kw)
+        p = edge_particles(CHUNK, device, 21, itime, lambda q: sample_met(
+            q, z0.height, tables, cfg)[0])
+        draws = make_draws(cfg, CHUNK, offset)
+        kernel, plain, in_registers = runs(p, draws, offset)
+        (pk, dk), (pp, dp) = kernel(), plain()
+        torch.cuda.synchronize()
+        case = compare_particles(pk, pp, f"K4 {name}", nxm)
+        for f in ("n_active", "n_exited"):
+            check(abs(int(getattr(dk, f)) - int(getattr(dp, f)))
+                  <= K4_FLAG_SHARE * CHUNK, f"K4 {name}: {f} differs")
+        check_same_bits(in_registers()[0], pk,
+                        f"K4 {name}: draws in registers vs injected")
+        branches = branch_counts(p, pp, z0.height, tables, cfg, itime)
+        for b in K4_BRANCHES:
+            check(branches[b] > 0,
+                  f"K4 {name}: no test particle enters branch {b}")
+        case.update(n_active=int(dk.n_active), n_exited=int(dk.n_exited),
+                    branches=branches,
+                    ms=cuda_ms(in_registers, 20), plain_ms=cuda_ms(plain, 3))
+        res["cases"][name] = case
+        del p, draws, pk, pp, kernel, plain, in_registers, runs, tables
+        torch.cuda.empty_cache()
+
+    cfg, tables, runs = setup()
+    p = bench_particles(N_MAIN, device, seed=3, old_fraction=1.0)  # steady
+    _, plain, in_registers = runs(p, None, 0)
+    (pk, _), (pp, _) = in_registers(), plain()
+    torch.cuda.synchronize()
+    full = compare_particles(pk, pp, "K4 at the main path's shape", nxm)
+    # 54 B of state in, 50 B out, each table row that a particle's cell
+    # names read once (128 B of the start table, 48 B of the end table)
+    row_b = 128 if cfg.met_bf16 else 256
+    rows0 = unique_rows(p, z0.height, cfg)
+    rows1 = unique_rows(pk, z0.height, cfg)
+    res.update(full, n=N_MAIN, unique_rows=rows0, unique_rows_end=rows1,
+               max_abs_err=max(full["max_dx"], full["max_dy"]),
+               branches=branch_counts(p, pp, z0.height, tables, cfg, itime),
+               ms=cuda_ms(in_registers, 10), plain_ms=cuda_ms(plain, 2),
+               library_ms=None,
+               **bound(104 * N_MAIN + row_b * rows0 + row_b * 3 // 8 * rows1,
+                       K4_OPS_PER_PARTICLE * N_MAIN))
+    del pk, pp, plain
+    # where K4's time goes: the same launch without the generator, with
+    # neighbouring threads gathering neighbouring rows, and with no work
+    res["injected_draws_ms"] = cuda_ms(
+        runs(p, make_draws(cfg, N_MAIN, 0), 0)[0], 10)
+    torch.cuda.empty_cache()
+    res["sorted_by_z_ms"] = cuda_ms(
+        runs(p.replace(z=torch.sort(p.z).values), None, 0)[2], 10)
+    res["none_scheduled_ms"] = cuda_ms(
+        runs(p.replace(active=torch.zeros_like(p.active)), None, 0)[2], 10)
     return res
 
 
@@ -264,42 +558,42 @@ def phase_step(device, grid) -> dict:
     acc = cc.conccalc(acc, pk, z0, itime + LSYNC, lage, 1.0, ccfg, oh)
     gk = acc.gridunc
 
-    # plain twins: the same loop with the twin tables and twin sampling
+    # plain twins: the chunk loop with the twin tables and twin sampling
     tw0, tw1, ew0, ew1, _ = advance._time_weights(itime, 0, mem1, prm, cfg)
     tables = interp.quad_tables_plain(z0.f3d, z1.f3d, z0.f2d, z1.f2d, tw0,
                                       tw1, ew0, ew1, cfg.table_dtype)
+    a = advance.advance_args(cfg, prm, itime, 0, mem1)
     parts = []
     for c in range(n_chunks):
-        a, b = c * CHUNK, (c + 1) * CHUNK
-        q, _ = advance.advance_all(p.rows(a, b), z0, z1, itime, 0, mem1, key,
-                                   cfg, prm, tables=tables,
-                                   draws={t: v[:, a:b] for t, v in draws.items()},
-                                   offset=a)
+        lo, hi = c * CHUNK, (c + 1) * CHUNK
+        q, _ = advance.advance_all_plain(
+            p.rows(lo, hi), z0.height, tables, a, key, cfg,
+            {t: v[:, lo:hi] for t, v in draws.items()}, lo)
         parts.append(q)
     pp = Particles.cat(parts)
     gp = zero_accumulators(geo, 1, 1, device=device).gridunc
     cc.conccalc_plain(gp.view(-1, 1), pp, itime + LSYNC, lage, oh, 1.0, None,
                       ccfg)
 
-    dx = float(((pk.x - pp.x).abs()).max())
-    dy = float(((pk.y - pp.y).abs()).max())
-    dz = (pk.z - pp.z).abs()
-    check(dx <= 1e-4 and dy <= 1e-4, f"step: x/y differ by {dx}/{dy}")
-    check(bool(torch.all(dz <= 1e-2 + 1e-4 * pp.z.abs())),
-          f"step: z differs by {float(dz.max())}")
-    for f in ("cbt", "active", "itra"):
-        check(torch.equal(getattr(pk, f), getattr(pp, f)), f"step: {f} differs")
+    res = compare_particles(pk, pp, "step", float(grid.nx - 1))
     check(int(dk.n_active) == n and int(dk.nan_count) == 0, "step: lost particles")
     gd = (gk - gp).abs()
     check(bool(torch.all(gd <= K3_RTOL * gp.abs())), "step: gridunc differs")
     check(abs(float(gk.sum()) - 1.0) < 1e-3, f"step: sampled mass {float(gk.sum())}")
-    return dict(n=n, max_dx=dx, max_dy=dy, max_dz=float(dz.max()),
+
+    # the device function against K1: K4 drawing in registers gives bitwise
+    # the particles of K4 fed rng.normals' draws for the same key
+    p_reg, _ = advance.advance_chunked(p, z0, z1, itime, 0, mem1, key, cfg,
+                                       prm, n_chunks)
+    check_same_bits(p_reg, pk, "step: draws in registers vs the normals kernel's")
+    return dict(n=n, **res, in_register_draws_bitwise=True,
                 gridunc_max_abs_err=float(gd.max()), mass=float(gk.sum()))
 
 
-def phase_main(device, grid, kernels) -> dict:
+def phase_main(device, grid, kernels) -> tuple[dict, dict]:
     """The bench.py step at full width, 14 steps; launch counts reset just
-    before and read just after."""
+    before and read just after.  Then the profile of two more steps.
+    Returns (main, profile)."""
     import torch
     from flexpart_tpu_torch.core import advance, rng
     from flexpart_tpu_torch.grid import conccalc as cc
@@ -314,17 +608,22 @@ def phase_main(device, grid, kernels) -> dict:
     finite = torch.ones((), dtype=torch.bool, device=device)
     diags, step_s = [], []
 
+    def one_step(i: int):
+        nonlocal p, acc
+        it = i * LSYNC
+        p, diag = advance.advance_chunked(p, z0, z0, it, 0, 86400,
+                                          rng.Key(2, i), cfg, prm, n_chunks)
+        c = ccfg.replace(kernel_possible=cc.kernel_possible_at(it + LSYNC, 0))
+        acc = conc(acc, p, z0, it + LSYNC, lage, 1.0, c)
+        return diag
+
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
     t_all = time.perf_counter()
     for i in range(MAIN_STEPS):
         t0 = time.perf_counter()
-        it = i * LSYNC
-        p, diag = advance.advance_chunked(p, z0, z0, it, 0, 86400,
-                                          rng.Key(2, i), cfg, prm, n_chunks)
-        c = ccfg.replace(kernel_possible=cc.kernel_possible_at(it + LSYNC, 0))
-        acc = conc(acc, p, z0, it + LSYNC, lage, 1.0, c)
+        diag = one_step(i)
         finite &= (torch.isfinite(p.x).all() & torch.isfinite(p.y).all()
                    & torch.isfinite(p.z).all())
         diags.append(diag)
@@ -340,17 +639,57 @@ def phase_main(device, grid, kernels) -> dict:
     total = float(acc.gridunc.sum(dtype=torch.float64))
     check(abs(total - MAIN_STEPS) <= 1e-3 * MAIN_STEPS,
           f"main: sampled mass {total} != {MAIN_STEPS}")
-    for name, c in launches.items():
-        check(c > 0, f"main: kernel {name} was never launched")
+    # the draws of the main path are made inside the advance kernel; the
+    # stand-alone normals kernel is launched by the other phases
+    for name in ("advance", "quad_tables", "conccalc"):
+        check(launches[name] > 0, f"main: kernel {name} was never launched")
     steady = step_s[1:]
     rate = N_MAIN * len(steady) / sum(steady)
-    return dict(n=N_MAIN, steps=MAIN_STEPS, n_chunks=n_chunks,
-                wall_s=wall, first_step_s=step_s[0],
-                steady_step_s=sum(steady) / len(steady),
-                particle_steps_per_s=rate, sampled_mass=total,
-                kernel_steps=sum(cc.kernel_possible_at(i * LSYNC + LSYNC, 0)
-                                 for i in range(MAIN_STEPS)),
-                launches=launches)
+    res = dict(n=N_MAIN, steps=MAIN_STEPS, n_chunks=n_chunks,
+               advance_launches_per_step=launches["advance"] / MAIN_STEPS,
+               wall_s=wall, first_step_s=step_s[0],
+               steady_step_s=sum(steady) / len(steady),
+               steady_step_min_s=min(steady), steady_step_max_s=max(steady),
+               particle_steps_per_s=rate, sampled_mass=total,
+               kernel_steps=sum(cc.kernel_possible_at(i * LSYNC + LSYNC, 0)
+                                for i in range(MAIN_STEPS)),
+               launches=launches)
+
+    def steps(first: int, count: int):
+        for i in range(first, first + count):
+            one_step(i)
+        torch.cuda.synchronize()
+
+    return res, profile_steps(steps, MAIN_STEPS, 2)
+
+
+def profile_steps(steps, first: int, count: int) -> dict:
+    """``count`` more steady steps under torch.profiler: CUDA kernels per
+    step, device time by kernel and the share of the window the card was
+    busy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        steps(first, count)
+    t0 = time.perf_counter()
+    steps(first + count, count)
+    unprofiled = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:     # device-side rows only
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((e.key, e.count, us / 1e3))
+    rows.sort(key=lambda r: -r[2])
+    device_ms = sum(r[2] for r in rows)
+    return dict(steps=count, unprofiled_step_s=unprofiled / count,
+                cuda_kernels_per_step=sum(r[1] for r in rows) / count,
+                device_ms_per_step=device_ms / count,
+                device_busy_share=device_ms / 1e3 / unprofiled,
+                top=[dict(name=k[:60], calls=c / count, ms=ms / count)
+                     for k, c, ms in rows[:8]])
 
 
 # ------------------------------------------------------------------ main --
@@ -392,19 +731,32 @@ def main() -> int:
     emit({"phase": "step", "seconds": time.perf_counter() - t0, **sres})
     torch.cuda.empty_cache()
 
-    mres = phase_main(device, grid, kernels)
-    emit({"phase": "main", **mres, "device": name, "power_limit": smi})
+    normals_other = _build.NORMALS.launches
+    mres, pres = phase_main(device, grid, kernels)
+    emit({"phase": "main", **mres,
+          "cuda_kernels_per_step": pres["cuda_kernels_per_step"],
+          "device": name, "power_limit": smi})
+    emit({"phase": "profile", **pres, "device": name, "power_limit": smi})
 
+    # launches: the main path's own count.  The normals kernel is not
+    # launched there: its generator, fp::normal_at, runs inside the advance
+    # kernel's one launch; the stand-alone kernel serves rng.normals.
     src = "flexpart_tpu_torch/csrc/{}.cu"
     replaces = {"normals": ("flexpart_tpu/core/rng.py:61", "pallas"),
                 "quad_tables": ("flexpart_tpu/core/interp.py:457", "XLA"),
-                "conccalc": ("flexpart_tpu/grid/conccalc.py:78", "XLA")}
+                "conccalc": ("flexpart_tpu/grid/conccalc.py:78", "XLA"),
+                "advance": ("flexpart_tpu/core/advance.py:768", "XLA")}
+    extra = {"normals": {
+        "on_main_path_as": "fp::normal_at of flexpart_tpu_torch/csrc/"
+                           "philox_normal.cuh, inlined into advance.cu",
+        "launches_other_phases": normals_other}}
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": src.format(k.name),
          "replaces": replaces[k.name][0], "tpu_route": replaces[k.name][1],
          "launches": mres["launches"][k.name],
-         "max_abs_err": kres[k.name]["max_abs_err"],
-         "ms": kres[k.name]["ms"], "plain_ms": kres[k.name]["plain_ms"]}
+         **{f: kres[k.name][f] for f in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}, **extra.get(k.name, {})}
         for k in kernels]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

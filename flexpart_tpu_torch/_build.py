@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 built when this module is imported: a kernel is built at its first launch
 (or by ``build_all``, which starts one ``nvcc`` per source at once), into
 ``build/kernels/`` beside the package, under a name that carries the hash
-of its source and flags, so a changed source is rebuilt.
+of its source, of every ``csrc/`` header it includes and of the flags, so a
+changed source or header is rebuilt.
 
 Flags: ``-fmad=false`` keeps every ``a*b+c`` as two roundings, as the
 plain PyTorch twins and XLA compute it (the double-single ``ds_add`` and
@@ -21,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -31,6 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -64,13 +67,27 @@ class Kernel:
     def source(self) -> Path:
         return CSRC / f"{self.name}.cu"
 
+    def sources(self) -> list[Path]:
+        """The ``.cu`` file and, after it, every ``csrc/`` header it
+        includes with quotes (transitively), each once."""
+        found = [self.source]
+        for f in found:
+            for name in _INCLUDE.findall(f.read_text()):
+                inc = CSRC / name
+                if inc not in found:
+                    found.append(inc)
+        return found
+
     def _lib_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes())
+        h = hashlib.sha256()
+        for f in self.sources():
+            h.update(f.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
     def _compile_cmd(self, out: Path) -> list[str]:
-        return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
+        return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
+                str(self.source)]
 
     def _load(self, path: Path) -> None:
         lib = ctypes.CDLL(str(path))
@@ -159,4 +176,21 @@ CONCCALC = Kernel("conccalc", "fp_conccalc", [
     P,                 # stream
 ])
 
-KERNELS = (NORMALS, QUAD_TABLES, CONCCALC)
+ADVANCE = Kernel("advance", "fp_advance", [
+    P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
+    P, P,                 # itra, itramem (n,) i32
+    P, P, P, P, P, P,     # up, vp, wp, usig, vsig, wsig (n,) f32
+    P, P,                 # cbt (n,) i8, active (n,) bool
+    P, P, P, P, P,        # out: x_hi, x_lo, y_hi, y_lo, z
+    P,                    # out: itra
+    P, P, P, P, P, P,     # out: up, vp, wp, usig, vsig, wsig
+    P, P,                 # out: cbt, active
+    P, P, P, P, P,        # injected draws for tags 6, 1, 2, 3, 4, or all NULL
+    P, P,                 # rows, rowsE (R, 64) bf16 or f32
+    P,                    # height (nz,) f32
+    P,                    # counts (2,) i32: active, exited (accumulated into)
+    P,                    # AdvanceArgs (host struct, core/advance.py)
+    P,                    # stream
+])
+
+KERNELS = (NORMALS, QUAD_TABLES, CONCCALC, ADVANCE)

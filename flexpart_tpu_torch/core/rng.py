@@ -14,6 +14,14 @@ by contract (deterministic per key/tag/shape, distinct streams per tag,
 Columns are particles: the counter's first word is the *global* particle
 index (``offset`` + column), so a chunked advance draws the same numbers
 as an unchunked one.
+
+Where the draws are made: on the CPU the advance calls ``normals`` (the
+plain twin) and consumes tensors.  On a CUDA device the advance kernel
+(``csrc/advance.cu``) makes the same numbers in registers, through the
+device function of ``csrc/philox_normal.cuh`` that K1 is built from, with
+the key of ``Key.philox_key(tag)`` and the counter (offset + column, row,
+0, 0); K1 itself then serves the callers that want draws as a tensor (the
+advance's parity mode, the tests).
 """
 
 from __future__ import annotations

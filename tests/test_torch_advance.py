@@ -181,3 +181,129 @@ def test_outside_slice_raises(setup):
         cfg = type(tcfg)(**{**tcfg.__dict__, **bad})
         with pytest.raises(NotImplementedError):
             cfg.check()
+
+
+def _port_particles(p):
+    return interop.particles_from_numpy(
+        {k: np.asarray(v) for k, v in p._asdict().items()}, "cpu")
+
+
+@pytest.mark.parametrize("offset", [0, 3 * N + 17])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_own_draws_are_rng_normals_by_tag_row_and_global_index(setup, name,
+                                                               offset):
+    """With ``draws=None`` the plain advance consumes exactly
+    ``rng.normals(key, (rows, n), tag, offset)`` per tag: the (tag, row,
+    global particle index) map that the CUDA kernel reproduces in
+    registers.  Bitwise."""
+    grid, _, (t0, t1), p = setup
+    kw = CONFIGS[name]
+    _, _, tcfg, tprm = _cfgs(grid, kw)
+    tp = _port_particles(p)
+    key = trng.Key(31, 2)
+    rows = {**tadv.DRAW_ROWS, 2: kw["ifine"]}
+    assert set(rows) == set(tadv.DRAW_TAGS)
+    injected = {t: trng.normals(key, (r, N), t, offset, device="cpu")
+                for t, r in rows.items()}
+    a, da = tadv.advance_all(tp, t0, t1, LSYNC, 0, MEM1, key, tcfg, tprm,
+                             offset=offset)
+    b, db = tadv.advance_all(tp, t0, t1, LSYNC, 0, MEM1, key, tcfg, tprm,
+                             draws=injected, offset=offset)
+    a, b = interop.particles_to_numpy(a), interop.particles_to_numpy(b)
+    for f in a:
+        np.testing.assert_array_equal(a[f], b[f], err_msg=f)
+    assert int(da.n_active) == int(db.n_active)
+    other = tadv.advance_all(tp, t0, t1, LSYNC, 0, MEM1, key, tcfg, tprm,
+                             offset=offset + 1)[0]
+    assert not np.array_equal(interop.particles_to_numpy(other)["up"], a["up"])
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_advance_args_are_the_plain_path_scalars(setup, name):
+    """``advance_args`` holds exactly the float32 values the reference
+    expressions give (each computed here anew, in numpy float32 where the
+    reference computes in float32 and in double where it rounds once)."""
+    grid = setup[0]
+    kw = CONFIGS[name]
+    jcfg, jprm, tcfg, tprm = _cfgs(grid, kw)
+    f32 = np.float32
+    itime = 2 * LSYNC
+    a = tadv.advance_args(tcfg, tprm, itime, 0, MEM1)
+    dt = f32(LSYNC)
+    r = f32(np.exp(f32(-2.0) * dt / f32(3600)))
+    nxm = grid.nx - 1
+    eps = f32(grid.nx / 3.0e5)
+    want = dict(
+        dt=dt, dtf=dt * f32(1.0 / kw["ifine"]), ldirf=f32(1.0),
+        htop_eps=f32(100.0 * grid.nx / 3.0e5),
+        c_trop=f32(2.0 * 50.0) / dt, c_strat=f32(2.0 * 0.1) / dt,
+        uxscale_t=np.sqrt(f32(2.0 * 50.0) / dt),
+        wpscale_s=np.sqrt(f32(2.0 * 0.1) / dt),
+        d_strat_1000=f32(0.1 / 1000.0), r_meso=r,
+        rs_meso=np.sqrt(f32(1.0) - r * r), turbmeso=f32(0.16),
+        pi180=f32(np.pi / 180.0), dx=f32(grid.dx), dy=f32(grid.dy),
+        ylat0=f32(grid.ylat0), dxconst=f32(grid.dxconst),
+        dyconst=f32(grid.dyconst), nxm=f32(nxm), nym=f32(grid.ny - 1),
+        two_nym=f32(2.0 * (grid.ny - 1)), eps_bc=eps,
+        nxm_eps=f32(nxm) - eps)
+    floats = [n for n, t in a._fields_ if t is tadv.ctypes.c_float]
+    assert sorted(want) == sorted(floats)
+    for k, v in want.items():
+        assert isinstance(v, np.floating) and v.dtype == f32, k
+        assert f32(getattr(a, k)) == v and getattr(a, k) == float(v), k
+    ints = dict(nx=grid.nx, ny=grid.ny, nz=grid.nlev, xglobal=1,
+                turbswitch=int(kw["turbswitch"]), ifine=kw["ifine"],
+                table_bf16=int(kw["met_bf16"]), can_pett=1, itime=itime,
+                itra_new=itime + LSYNC, n=0, offset=0)
+    for k, v in ints.items():
+        assert getattr(a, k) == v, k
+    assert list(a.key) == [0] * 10
+    # the interval that ends after the met window takes no corrector
+    assert tadv.advance_args(tcfg, tprm, MEM1, 0, MEM1).can_pett == 0
+    # the same constants as the JAX package's
+    from flexpart_tpu import constants as jconst
+    assert (jconst.D_TROP, jconst.D_STRAT, jconst.TURBMESOSCALE) == (
+        50.0, 0.1, 0.16)
+    tw = tadv._time_weights(itime, 0, MEM1, tprm, tcfg)
+    dt1, dt2 = f32(itime), f32(MEM1 - itime)
+    assert tw[:2] == (float(dt2 * (f32(1.0) / (dt1 + dt2))),
+                      float(dt1 * (f32(1.0) / (dt1 + dt2))))
+    assert tw[4] == a.itra_new
+
+
+def test_unknown_device_raises(setup):
+    """A tensor that is neither on the CPU nor on a CUDA device raises; it
+    does not fall to the plain version."""
+    grid, _, (t0, t1), p = setup
+    _, _, tcfg, tprm = _cfgs(grid, CONFIGS["stock"])
+    tp = _port_particles(p)
+    meta = type(tp)(**{f: getattr(tp, f).to("meta") for f in
+                       tp.__dataclass_fields__})
+    for fn in (tadv.advance_all,
+               lambda *a: tadv.advance_chunked(*a, 2)):
+        with pytest.raises(ValueError, match="device"):
+            fn(meta, t0, t1, 0, 0, MEM1, trng.Key(1, 0), tcfg, tprm)
+
+
+def test_cuda_particles_never_take_the_plain_version(setup, monkeypatch):
+    """The dispatch is by device type alone: ``cuda`` goes to the kernel
+    launcher (which raises here, where no kernel can be built), never to
+    ``advance_all_plain``."""
+    grid, _, (t0, t1), p = setup
+    _, _, tcfg, tprm = _cfgs(grid, CONFIGS["stock"])
+    tp = _port_particles(p)
+    calls = []
+
+    class FakeCuda:
+        type = "cuda"
+
+    monkeypatch.setattr(type(tp), "device", property(lambda self: FakeCuda()))
+    monkeypatch.setattr(tadv, "advance_all_plain",
+                        lambda *a, **k: calls.append("plain"))
+    monkeypatch.setattr(tadv, "advance_all_cuda",
+                        lambda *a, **k: calls.append("cuda") or (None, None))
+    tables = tadv.build_step_tables_quad(t0, t1, 0.5, 0.5, 0.5, 0.5)
+    tadv.advance_all(tp, t0, t1, 0, 0, MEM1, trng.Key(1, 0), tcfg, tprm,
+                     tables=tables)
+    tadv.advance_chunked(tp, t0, t1, 0, 0, MEM1, trng.Key(1, 0), tcfg, tprm, 4)
+    assert calls == ["cuda", "cuda"]     # chunked: one launch, not four
