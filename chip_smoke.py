@@ -13,19 +13,29 @@ the port's stock forward step on the card, in phases:
                 the main path's shapes, with its time, the twin's, its
                 bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s,
                 whichever is larger) and, where one PyTorch call computes
-                the same function, that call's time;
+                the same function, that call's time; the cell-order sort
+                must give a permutation in key order that moves every
+                field bitwise, and the advance must commute with it;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
                 with the same draws; and the advance kernel with its draws
                 made in registers against the same kernel fed the normals
                 kernel's draws, bitwise;
-  5. main     — the main path at full width: uniform-wind met on the
+  5. reorder  — what the cell order is worth and how fast it decays: the
+                advance and the sampling timed 0 to 64 steps after a sort,
+                the sort timed on a shuffled and on a nearly ordered
+                ensemble, on SyntheticMet and on the main path's uniform
+                wind, and from these the device time per step for a sort
+                every 1, 2, 4, ... 64 steps;
+  6. main     — the main path at full width: uniform-wind met on the
                 361x181x30 grid, 10 x 2**20 particles, the 720x360x3
-                output grid, 14 steps of 900 s (the last three sample with
-                the 4-point kernel); launch counts are reset just before
-                and read just after;
-  6. profile  — two more steady steps under torch.profiler: CUDA launches
-                per step, device time by kernel, device busy share.
+                output grid, 33 steps of 900 s (from the twelfth on they
+                sample with the 4-point kernel), the particles sorted by
+                cell every REORDER_EVERY = 16 steps; launch counts are
+                reset just before and read just after;
+  7. profile  — REORDER_EVERY more steady steps (one sort among them)
+                under torch.profiler: CUDA launches per step, device time
+                by kernel with the sort's share, device busy share.
 
 Prints one JSON object per phase, then a {"kernels": [...]} line, the
 nvidia-smi name/power line, and as the last line
@@ -49,7 +59,9 @@ BENCH_GRID = dict(nx=361, ny=181, nlev=30, dx=1.0, dy=1.0, xlon0=-180.0,
 N_MAIN = 10 * 2 ** 20
 CHUNK = 2 ** 19
 N_STEP4 = 2 ** 20
-MAIN_STEPS = 14
+MAIN_STEPS = 33          # step 0 warms up; 32 steady steps, two sorts
+DECAY_STEPS = 64         # steps followed after a sort in the reorder phase
+SORT_INTERVALS = (1, 2, 4, 8, 16, 32, 64)
 LSYNC = 900
 K1_SHAPE = (6, 2 ** 19)
 K1_ATOL = 5e-6
@@ -74,6 +86,7 @@ K1_OPS_PER_DRAW = 175
 K2_OPS_PER_LANE = 12
 K3_OPS_PER_PARTICLE = 60
 K4_OPS_PER_PARTICLE = 1800
+K5_OPS_PER_PARTICLE = 60
 K4_CASES = {"stock": dict(turbswitch=False, ifine=1, met_bf16=True),
             "turb_ifine4": dict(turbswitch=True, ifine=4, met_bf16=True),
             "f32_tables": dict(turbswitch=False, ifine=1, met_bf16=False)}
@@ -222,10 +235,12 @@ def compare_particles(pk, pp, what: str, nxm: float) -> dict:
                 cbt_differ=flags["cbt"], active_differ=flags["active"])
 
 
-def check_same_bits(pa, pb, what: str) -> None:
+def check_same_bits(pa, pb, what: str, fields=None) -> None:
+    """Bitwise equality of the named particle fields (default: the fields
+    the advance writes)."""
     import torch
     from flexpart_tpu_torch.core.advance import OUT_FIELDS
-    for f in OUT_FIELDS:
+    for f in fields or OUT_FIELDS:
         a, b = getattr(pa, f), getattr(pb, f)
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
@@ -375,7 +390,8 @@ def phase_kernels(device, grid) -> dict:
         for name in ("rows", "rowsE"):
             x, y = getattr(tk, name), getattr(tp, name)
             check(x.shape == y.shape == ((grid.nlev - 1) * grid.ny * grid.nx,
-                                         64), f"K2 {name} shape {x.shape}")
+                                         64 if name == "rows" else 32),
+                  f"K2 {name} shape {x.shape}")
             bits = torch.int16 if dt == torch.bfloat16 else torch.int32
             diff = x.view(bits) != y.view(bits)
             lanes = torch.nonzero(diff.any(dim=0)).flatten().tolist()
@@ -388,7 +404,8 @@ def phase_kernels(device, grid) -> dict:
             f3d0, f3d1, f2d0, f2d1, *tw, dt), 10),
             cuda_ms(lambda: interp.quad_tables_plain(
                 f3d0, f3d1, f2d0, f2d1, *tw, dt), 3))
-    # 5 wind fields and 5 surface fields of two times in, two bf16 tables out
+    # 5 wind fields and 5 surface fields of two times in, the bf16 tables
+    # out: 64 lanes of rows and 32 of rowsE per cell
     n_rows = (grid.nlev - 1) * grid.ny * grid.nx
     k2_in = 2 * 4 * (5 * grid.nlev + 5) * grid.ny * grid.nx
     res["quad_tables"] = dict(max_abs_err=k2_err, ms=times[torch.bfloat16][0],
@@ -396,8 +413,8 @@ def phase_kernels(device, grid) -> dict:
                               library_ms=None,
                               f32_ms=times[torch.float32][0],
                               f32_plain_ms=times[torch.float32][1],
-                              **bound(k2_in + 2 * 2 * 64 * n_rows,
-                                      K2_OPS_PER_LANE * 2 * 64 * n_rows))
+                              **bound(k2_in + 2 * (64 + 32) * n_rows,
+                                      K2_OPS_PER_LANE * (64 + 32) * n_rows))
     del z0, z1
 
     # K3: sampling of 10 x 2**20 particles, both paths
@@ -437,6 +454,8 @@ def phase_kernels(device, grid) -> dict:
     del p, gk, gp
     torch.cuda.empty_cache()
     res["advance"] = kernel_advance(device, grid)
+    torch.cuda.empty_cache()
+    res["reorder"] = kernel_reorder(device, grid)
     return res
 
 
@@ -446,10 +465,12 @@ def kernel_advance(device, grid) -> dict:
     to enter every branch of the advance; then the main path's
     configuration at the main path's shape, each side making its own draws
     from the same key (K4 in registers, the plain version through the
-    normals kernel), with K4 also timed on injected draws, on the same
-    particles sorted by height and on none scheduled (a plain copy)."""
+    normals kernel).  K4's time is taken on the ensemble in cell order, as
+    the main path keeps it, and also on the unordered ensemble, on
+    injected draws, on the same particles sorted by height and on none
+    scheduled (a plain copy)."""
     import torch
-    from flexpart_tpu_torch.core import advance, interp, rng
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
     z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
     itime, mem1 = 3600, 10800
     key = rng.Key(4321, 4)
@@ -511,16 +532,20 @@ def kernel_advance(device, grid) -> dict:
     row_b = 128 if cfg.met_bf16 else 256
     rows0 = unique_rows(p, z0.height, cfg)
     rows1 = unique_rows(pk, z0.height, cfg)
+    ordered = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
     res.update(full, n=N_MAIN, unique_rows=rows0, unique_rows_end=rows1,
                max_abs_err=max(full["max_dx"], full["max_dy"]),
                branches=branch_counts(p, pp, z0.height, tables, cfg, itime),
-               ms=cuda_ms(in_registers, 10), plain_ms=cuda_ms(plain, 2),
+               ms=cuda_ms(runs(ordered, None, 0)[2], 10),
+               unordered_ms=cuda_ms(in_registers, 10),
+               plain_ms=cuda_ms(plain, 2),
                library_ms=None,
                **bound(104 * N_MAIN + row_b * rows0 + row_b * 3 // 8 * rows1,
                        K4_OPS_PER_PARTICLE * N_MAIN))
-    del pk, pp, plain
-    # where K4's time goes: the same launch without the generator, with
-    # neighbouring threads gathering neighbouring rows, and with no work
+    del pk, pp, plain, ordered
+    # where K4's time goes on the unordered ensemble: the same launch
+    # without the generator, with neighbouring threads gathering
+    # neighbouring rows, and with no work
     res["injected_draws_ms"] = cuda_ms(
         runs(p, make_draws(cfg, N_MAIN, 0), 0)[0], 10)
     torch.cuda.empty_cache()
@@ -528,6 +553,166 @@ def kernel_advance(device, grid) -> dict:
         runs(p.replace(z=torch.sort(p.z).values), None, 0)[2], 10)
     res["none_scheduled_ms"] = cuda_ms(
         runs(p.replace(active=torch.zeros_like(p.active)), None, 0)[2], 10)
+    return res
+
+
+def check_sorted(p, q, perm, height, cfg, what: str) -> None:
+    """The cell-order sort's contract: ``perm`` names every slot once, every
+    field of ``q`` is ``p[perm]`` bitwise, the keys of ``q`` never decrease
+    and the particles that are not scheduled come last."""
+    import torch
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.core.state import FIELDS
+    n = p.capacity
+    check(perm.shape == (n,) and int(perm.min()) >= 0 and int(perm.max()) < n,
+          f"{what}: perm out of range")
+    seen = torch.zeros(n, dtype=torch.int32, device=perm.device)
+    seen.index_add_(0, perm.long(), torch.ones_like(seen))
+    check(bool((seen == 1).all()), f"{what}: perm is not a permutation, "
+          f"{int((seen != 1).sum())} slots named 0 or several times")
+    check_same_bits(q, reorder.apply_perm(p, perm), f"{what}: out vs in[perm]",
+                    FIELDS)
+    keys = reorder.cell_keys(q, height, cfg)
+    check(bool((keys[1:] >= keys[:-1]).all()), f"{what}: keys decrease at "
+          f"{int((keys[1:] < keys[:-1]).sum())} places")
+    n_on = int(p.active.sum())
+    check(bool(q.active[:n_on].all()) and not bool(q.active[n_on:].any()),
+          f"{what}: unscheduled particles are not last")
+
+
+def kernel_reorder(device, grid) -> dict:
+    """K5 against its contract and its plain version on the card: at one
+    2**19 chunk of edge_particles (1/64 not scheduled), where K4 on K5's
+    output with the injected draws permuted alike must equal K4 on the
+    unordered input, permuted, bitwise; and at the main path's shape, timed
+    on the shuffled ensemble and as the main path gives it, REORDER_EVERY
+    steps after a sort."""
+    import torch
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    from flexpart_tpu_torch.core.state import FIELDS
+    z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
+    itime, mem1 = 3600, 10800
+    cfg, prm, *_ = step_setup(grid)
+    tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
+    a = advance.advance_args(cfg, prm, itime, 0, mem1)
+    key = rng.Key(4321, 4)
+    height = z0.height
+
+    def k4(p, draws=None, k=key):
+        return advance.advance_all_cuda(p, height, tables, a, k, cfg, draws, 0)[0]
+
+    p = edge_particles(CHUNK, device, 21, itime, lambda q: sample_met(
+        q, height, tables, cfg)[0])
+    q, perm = reorder.reorder_by_cell_cuda(p, height, cfg)
+    torch.cuda.synchronize()
+    check_sorted(p, q, perm, height, cfg, "K5 edge particles")
+    q_plain, perm_plain = reorder.reorder_by_cell_plain(p, height, cfg)
+    check_sorted(p, q_plain, perm_plain, height, cfg, "K5 plain version")
+    check(torch.equal(reorder.cell_keys(q, height, cfg),
+                      reorder.cell_keys(q_plain, height, cfg)),
+          "K5 and its plain version order the cells differently")
+    draws = {tag: rng.normals(key, (rows, CHUNK), tag, device=device)
+             for tag, rows in {**advance.DRAW_ROWS, 2: cfg.ifine}.items()}
+    idx = perm.long()
+    draws_q = {t: d[:, idx].contiguous() for t, d in draws.items()}
+    check_same_bits(k4(q, draws_q), reorder.apply_perm(k4(p, draws), perm),
+                    "K4 on K5's output vs K4 on the unordered input, permuted")
+    n_unscheduled = int((~p.active).sum())
+    del p, q, q_plain, draws, draws_q
+    torch.cuda.empty_cache()
+
+    p = bench_particles(N_MAIN, device, seed=3, old_fraction=1.0)
+    q, perm = reorder.reorder_by_cell_cuda(p, height, cfg)
+    check_sorted(p, q, perm, height, cfg, "K5 at the main path's shape")
+    shuffled_ms = cuda_ms(lambda: reorder.reorder_by_cell_cuda(p, height, cfg), 3)
+    del p, perm
+    for s in range(reorder.REORDER_EVERY):
+        q = k4(q, k=rng.Key(4321, 10 + s))
+    r, perm = reorder.reorder_by_cell_cuda(q, height, cfg)
+    check_sorted(q, r, perm, height, cfg,
+                 f"K5 {reorder.REORDER_EVERY} steps after a sort")
+    moved = float((perm != torch.arange(N_MAIN, dtype=torch.int32,
+                                        device=device)).float().mean())
+    del r, perm
+    keys = reorder.cell_keys(q, height, cfg)
+    n_bytes = 2 * sum(getattr(q, f).numel() * getattr(q, f).element_size()
+                      for f in FIELDS) + 4 * N_MAIN + 4 * grid.nlev
+    # every field read once and written once, perm written; keys and bins
+    # are scratch
+    return dict(
+        max_abs_err=0.0, n=N_MAIN, steps_after_sort=reorder.REORDER_EVERY,
+        slots_moved_share=moved, edge_unscheduled=n_unscheduled,
+        ms=cuda_ms(lambda: reorder.reorder_by_cell_cuda(q, height, cfg), 10),
+        plain_ms=cuda_ms(lambda: reorder.reorder_by_cell_plain(q, height, cfg), 2),
+        library_ms=None, shuffled_ms=shuffled_ms,
+        argsort_of_keys_ms=cuda_ms(lambda: torch.argsort(keys), 3),
+        **bound(n_bytes, K5_OPS_PER_PARTICLE * N_MAIN))
+
+
+def phase_reorder(device, grid) -> dict:
+    """What the cell order is worth and how fast it decays.  On SyntheticMet
+    and on the main path's uniform wind: K4 and K3 (4-point path) on the
+    unordered bench ensemble, then right after a sort and after each of
+    DECAY_STEPS further steps, K5 on the shuffled ensemble and 0 and each of
+    SORT_INTERVALS steps after a sort; from these the device time of K4 +
+    K3 + K5 per step for a sort every 1, 2, ... 64 steps."""
+    import torch
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    from flexpart_tpu_torch.grid import conccalc as cc
+    from flexpart_tpu_torch.grid.outgrid import zero_accumulators
+    cfg, prm, og, geo, ccfg = step_setup(grid)
+    ccfg = ccfg.replace(kernel_possible=True)
+    lage = torch.tensor([999999999], dtype=torch.int32, device=device)
+    oh = torch.tensor(og.outheights, dtype=torch.float32, device=device)
+    flat = zero_accumulators(geo, 1, 1, device=device).gridunc.view(-1, 1)
+    itime = 3600
+    res = {"reorder_every": reorder.REORDER_EVERY}
+    for kind in ("synthetic", "uniform"):
+        if kind == "synthetic":
+            z0, z1 = met_fields(kind, grid, device, (0.0, 10800.0))
+            mem1 = 10800
+        else:
+            (z0,) = met_fields(kind, grid, device)
+            z1, mem1 = z0, 86400
+        tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+        tables = interp.build_step_tables_quad(z0, z1, *tw,
+                                               dtype=cfg.table_dtype)
+        a = advance.advance_args(cfg, prm, itime, 0, mem1)
+        height = z0.height
+
+        def k4(p, s=0):
+            return advance.advance_all_cuda(p, height, tables, a,
+                                            rng.Key(55, s), cfg, None, 0)[0]
+
+        def k3_ms(p):
+            return cuda_ms(lambda: cc.conccalc_cuda(
+                flat, p, itime + LSYNC, lage, oh, 1.0, None, ccfg), 5)
+
+        def k5_ms(p):
+            return cuda_ms(lambda: reorder.reorder_by_cell_cuda(
+                p, height, cfg), 3)
+
+        # one step first: the particles are old enough for the 4-point path
+        p = k4(bench_particles(N_MAIN, device, seed=3, old_fraction=1.0), 99)
+        out = dict(k4_unordered_ms=cuda_ms(lambda: k4(p), 5),
+                   k3_unordered_ms=k3_ms(p), k5_shuffled_ms=k5_ms(p),
+                   k4_ms=[], k3_ms=[], k5_ms={})
+        p, _ = reorder.reorder_by_cell_cuda(p, height, cfg)
+        for s in range(DECAY_STEPS + 1):
+            out["k4_ms"].append(cuda_ms(lambda: k4(p), 5))
+            out["k3_ms"].append(k3_ms(p))
+            if s in (0,) + SORT_INTERVALS:
+                out["k5_ms"][str(s)] = k5_ms(p)
+            p = k4(p, s)
+        out["unordered_ms_per_step"] = (out["k4_unordered_ms"]
+                                        + out["k3_unordered_ms"])
+        out["ms_per_step_if_sorted_every"] = {
+            str(e): (sum(out["k4_ms"][:e]) + sum(out["k3_ms"][:e])
+                     + out["k5_ms"][str(e)]) / e for e in SORT_INTERVALS}
+        res[kind] = out
+        del p, tables, z0, z1
+        torch.cuda.empty_cache()
     return res
 
 
@@ -591,14 +776,16 @@ def phase_step(device, grid) -> dict:
 
 
 def phase_main(device, grid, kernels) -> tuple[dict, dict]:
-    """The bench.py step at full width, 14 steps; launch counts reset just
+    """The bench.py step at full width, MAIN_STEPS steps with a sort every
+    REORDER_EVERY; launch counts reset just
     before and read just after.  Then the profile of two more steps.
     Returns (main, profile)."""
     import torch
-    from flexpart_tpu_torch.core import advance, rng
+    from flexpart_tpu_torch.core import advance, reorder, rng
     from flexpart_tpu_torch.grid import conccalc as cc
     from flexpart_tpu_torch.grid.outgrid import zero_accumulators
     cfg, prm, og, geo, ccfg = step_setup(grid)
+    every = reorder.REORDER_EVERY
     (z0,) = met_fields("uniform", grid, device)
     p = bench_particles(N_MAIN, device, seed=0)
     conc = cc.make_conccalc(og.outheights)
@@ -611,6 +798,8 @@ def phase_main(device, grid, kernels) -> tuple[dict, dict]:
     def one_step(i: int):
         nonlocal p, acc
         it = i * LSYNC
+        if i % every == 0:
+            p, _ = reorder.reorder_by_cell(p, z0.height, cfg)
         p, diag = advance.advance_chunked(p, z0, z0, it, 0, 86400,
                                           rng.Key(2, i), cfg, prm, n_chunks)
         c = ccfg.replace(kernel_possible=cc.kernel_possible_at(it + LSYNC, 0))
@@ -641,12 +830,16 @@ def phase_main(device, grid, kernels) -> tuple[dict, dict]:
           f"main: sampled mass {total} != {MAIN_STEPS}")
     # the draws of the main path are made inside the advance kernel; the
     # stand-alone normals kernel is launched by the other phases
-    for name in ("advance", "quad_tables", "conccalc"):
+    for name in ("advance", "quad_tables", "conccalc", "reorder"):
         check(launches[name] > 0, f"main: kernel {name} was never launched")
+    check(launches["reorder"] == len(range(0, MAIN_STEPS, every)),
+          f"main: {launches['reorder']} sorts in {MAIN_STEPS} steps")
     steady = step_s[1:]
     rate = N_MAIN * len(steady) / sum(steady)
     res = dict(n=N_MAIN, steps=MAIN_STEPS, n_chunks=n_chunks,
                advance_launches_per_step=launches["advance"] / MAIN_STEPS,
+               reorder_every=every,
+               steady_steps_with_a_sort=len(range(every, MAIN_STEPS, every)),
                wall_s=wall, first_step_s=step_s[0],
                steady_step_s=sum(steady) / len(steady),
                steady_step_min_s=min(steady), steady_step_max_s=max(steady),
@@ -660,13 +853,19 @@ def phase_main(device, grid, kernels) -> tuple[dict, dict]:
             one_step(i)
         torch.cuda.synchronize()
 
-    return res, profile_steps(steps, MAIN_STEPS, 2)
+    # a window of `every` steps holds exactly one sort
+    return res, profile_steps(steps, MAIN_STEPS, every)
+
+
+# the device functions of csrc/reorder.cu, as the profiler names them
+SORT_KERNELS = ("key_hist_kernel", "scan_tile_sums_kernel", "scan_sums_kernel",
+                "scan_tiles_kernel", "rank_kernel", "gather_kernel")
 
 
 def profile_steps(steps, first: int, count: int) -> dict:
     """``count`` more steady steps under torch.profiler: CUDA kernels per
-    step, device time by kernel and the share of the window the card was
-    busy."""
+    step, device time by kernel (the sort's kernels also summed) and the
+    share of the window the card was busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -684,12 +883,15 @@ def profile_steps(steps, first: int, count: int) -> dict:
         rows.append((e.key, e.count, us / 1e3))
     rows.sort(key=lambda r: -r[2])
     device_ms = sum(r[2] for r in rows)
+    sort = [r for r in rows if any(w in r[0] for w in SORT_KERNELS)]
     return dict(steps=count, unprofiled_step_s=unprofiled / count,
                 cuda_kernels_per_step=sum(r[1] for r in rows) / count,
                 device_ms_per_step=device_ms / count,
                 device_busy_share=device_ms / 1e3 / unprofiled,
+                sort_kernels_per_step=sum(r[1] for r in sort) / count,
+                sort_ms_per_step=sum(r[2] for r in sort) / count,
                 top=[dict(name=k[:60], calls=c / count, ms=ms / count)
-                     for k, c, ms in rows[:8]])
+                     for k, c, ms in rows[:12]])
 
 
 # ------------------------------------------------------------------ main --
@@ -731,6 +933,12 @@ def main() -> int:
     emit({"phase": "step", "seconds": time.perf_counter() - t0, **sres})
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    rres = phase_reorder(device, grid)
+    emit({"phase": "reorder", "seconds": time.perf_counter() - t0, **rres,
+          "device": name, "power_limit": smi})
+    torch.cuda.empty_cache()
+
     normals_other = _build.NORMALS.launches
     mres, pres = phase_main(device, grid, kernels)
     emit({"phase": "main", **mres,
@@ -745,7 +953,10 @@ def main() -> int:
     replaces = {"normals": ("flexpart_tpu/core/rng.py:61", "pallas"),
                 "quad_tables": ("flexpart_tpu/core/interp.py:457", "XLA"),
                 "conccalc": ("flexpart_tpu/grid/conccalc.py:78", "XLA"),
-                "advance": ("flexpart_tpu/core/advance.py:768", "XLA")}
+                "advance": ("flexpart_tpu/core/advance.py:768", "XLA"),
+                # the JAX package keeps no particle order; its tiles mode
+                # moves particles between slots here
+                "reorder": ("flexpart_tpu/parallel/domain.py:151", "none")}
     extra = {"normals": {
         "on_main_path_as": "fp::normal_at of flexpart_tpu_torch/csrc/"
                            "philox_normal.cuh, inlined into advance.cu",

@@ -154,7 +154,7 @@ QUAD_TABLES = Kernel("quad_tables", "fp_quad_tables", [
     I, I, I,    # nz, ny, nx
     F, F, F, F,  # tw0, tw1, ew0, ew1
     I,          # out_bf16 (0: f32 rows)
-    P, P,       # rows, rowsE (R, 64)
+    P, P,       # rows (R, 64), rowsE (R, 32)
     P,          # stream
 ])
 
@@ -186,11 +186,24 @@ ADVANCE = Kernel("advance", "fp_advance", [
     P, P, P, P, P, P,     # out: up, vp, wp, usig, vsig, wsig
     P, P,                 # out: cbt, active
     P, P, P, P, P,        # injected draws for tags 6, 1, 2, 3, 4, or all NULL
-    P, P,                 # rows, rowsE (R, 64) bf16 or f32
+    P, P,                 # rows (R, 64), rowsE (R, 32) bf16 or f32
     P,                    # height (nz,) f32
     P,                    # counts (2,) i32: active, exited (accumulated into)
     P,                    # AdvanceArgs (host struct, core/advance.py)
     P,                    # stream
 ])
 
-KERNELS = (NORMALS, QUAD_TABLES, CONCCALC, ADVANCE)
+REORDER = Kernel("reorder", "fp_reorder", [
+    P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
+    P,                    # active (n,) bool
+    P,                    # height (nz,) f32
+    I, I, I, I,           # n, nx, ny, nz
+    P,                    # scratch: keys (n,) i32
+    P,                    # scratch: bins (R + 1,) i32, zeroed by the caller
+    P,                    # scratch: tile sums of the scan, i32
+    P,                    # out: perm (n,) i32
+    P,                    # ReorderFields (host struct, core/reorder.py)
+    P,                    # stream
+])
+
+KERNELS = (NORMALS, QUAD_TABLES, CONCCALC, ADVANCE, REORDER)

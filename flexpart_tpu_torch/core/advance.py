@@ -43,7 +43,8 @@ from ..constants import D_STRAT, D_TROP, PI180, TURBMESOSCALE
 from ..met.fields import ZFields
 from . import rng
 from .hanna import hanna, hanna1
-from .interp import (StepTablesQuad, build_step_tables_quad, horiz_weights,
+from .interp import (ROWS_E_LANES, ROWS_LANES, StepTablesQuad,
+                     build_step_tables_quad, horiz_weights,
                      interp_wind_short_quad, sample_all_quad, true_div,
                      vert_weights)
 from .state import Particles, ds_add
@@ -378,13 +379,14 @@ def advance_all_cuda(p: Particles, height: torch.Tensor,
             raise ValueError(f"K4: particle field {name} must be contiguous "
                              f"{dt} ({n},) on {dev}")
     r = (cfg.nz - 1) * cfg.ny * cfg.nx
-    for name in ("rows", "rowsE"):
+    for name, lanes in (("rows", ROWS_LANES), ("rowsE", ROWS_E_LANES)):
         t = getattr(tables, name)
         if t.device != dev or t.dtype != cfg.table_dtype \
-                or t.shape != (r, 64) or not t.is_contiguous() \
+                or t.shape != (r, lanes) or not t.is_contiguous() \
                 or t.data_ptr() % 16:
             raise ValueError(f"K4: table {name} must be contiguous, 16-byte "
-                             f"aligned {cfg.table_dtype} ({r}, 64) on {dev}")
+                             f"aligned {cfg.table_dtype} ({r}, {lanes}) on "
+                             f"{dev}")
     if height.device != dev or height.dtype != torch.float32 \
             or height.shape != (cfg.nz,) or not height.is_contiguous():
         raise ValueError(f"K4: height must be float32 ({cfg.nz},) on {dev}")

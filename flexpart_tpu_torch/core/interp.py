@@ -23,6 +23,8 @@ from ..met.fields import (ZFields, F3_U, F3_V, F3_W, F3_RHO, F3_DRHODZ,
                           F2_HMIX, F2_OLI, F2_TROPO, F2_USTAR, F2_WSTAR)
 
 _WIND_FIELDS = (F3_U, F3_V, F3_W, F3_RHO, F3_DRHODZ)
+ROWS_LANES = 64      # one 128 B bf16 row per cell
+ROWS_E_LANES = 32    # 24 used: two 32 B sectors per cell in bf16
 
 
 @dataclasses.dataclass
@@ -87,7 +89,8 @@ class StepTablesQuad:
     """Per-step quad-corner row tables (see csrc/quad_tables.cu for the
     lane layout, which is the JAX package's)."""
     rows: torch.Tensor    # (R, 64), R = (nz-1)*ny*nx
-    rowsE: torch.Tensor   # (R, 64), lanes 24-63 zero
+    rowsE: torch.Tensor   # (R, 32): the end-time u, v, w pairs, lanes 24-31
+                          # zero (the JAX table pads to 64 lanes)
 
 
 def true_div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -143,15 +146,15 @@ def quad_tables_plain(f3d0, f3d1, f2d0, f2d1, tw0: float, tw1: float,
         lanes.append(_cell_sigma8(f3d0[f], f3d1[f]))
     zero = torch.zeros_like(lanes[0])
     lanes.append(zero)
-    rows = torch.stack(lanes, dim=-1).to(dtype).reshape(-1, 64)
+    rows = torch.stack(lanes, dim=-1).to(dtype).reshape(-1, ROWS_LANES)
 
     lanes_e = []
     for f in (F3_U, F3_V, F3_W):
         blend = f3d0[f] * ew0 + f3d1[f] * ew1
         for lev in (0, 1):
             lanes_e.extend(_corners4(blend[lev:lev + nzp]))
-    lanes_e.extend([zero] * 40)
-    rows_e = torch.stack(lanes_e, dim=-1).to(dtype).reshape(-1, 64)
+    lanes_e.extend([zero] * (ROWS_E_LANES - len(lanes_e)))
+    rows_e = torch.stack(lanes_e, dim=-1).to(dtype).reshape(-1, ROWS_E_LANES)
     return StepTablesQuad(rows=rows, rowsE=rows_e)
 
 
@@ -170,8 +173,8 @@ def quad_tables_cuda(f3d0, f3d1, f2d0, f2d1, tw0: float, tw1: float,
         raise ValueError("K2: mismatched field shapes")
     nz, ny, nx = f3d0.shape[1:]
     r = (nz - 1) * ny * nx
-    rows = torch.empty((r, 64), dtype=dtype, device=f3d0.device)
-    rows_e = torch.empty((r, 64), dtype=dtype, device=f3d0.device)
+    rows = torch.empty((r, ROWS_LANES), dtype=dtype, device=f3d0.device)
+    rows_e = torch.empty((r, ROWS_E_LANES), dtype=dtype, device=f3d0.device)
     with torch.cuda.device(f3d0.device):
         stream = torch.cuda.current_stream(f3d0.device).cuda_stream
         _build.QUAD_TABLES(f3d0.data_ptr(), f3d1.data_ptr(), f2d0.data_ptr(),

@@ -18,21 +18,33 @@
 // troposphere / stratosphere above it; mesoscale memory; windalign and the
 // metric factor; the double-single position update and the cyclic / pole
 // boundary conditions; the Petterssen corrector with a second gather from
-// the end-time table (lanes 0-23 only); masked write-back into new arrays;
+// the (R, 32) end-time table (lanes 0-23); masked write-back into new arrays;
 // and the active / exited counts by one ballot and one atomicAdd per warp.
 // A thread branches where the plain version computes both sides and
 // selects; the selected value is the same.
 //
-// Bound on the H100: bytes.  Per particle 54 B of state read, 50 B written,
-// one 128 B bf16 row (256 B in f32) and 48 B of the end-time row (two
-// 32 B sectors): about 300 B, 3.1 GB for 10,485,760 particles, 0.94 ms at
-// 3.35 TB/s (0.36 ms if a table row that many particles name is counted
-// once).  Both tables (242.5 MB each in bf16) exceed the 50 MB L2, so the
-// gathers go to device memory by sector and are not coalesced.  The
-// arithmetic (at most 15 Philox calls of 10 rounds with logf/cosf/sqrtf,
-// the expf/powf of Hanna) is about two thousand operations per thread.
+// Bound on the H100: bytes.  Per particle 54 B of state read and 50 B
+// written, and each table row that some particle names read once: one
+// 128 B row of the start table (256 B in f32) and 48 B, two 32 B sectors,
+// of the 64 B row of the end-time table.  For 10,485,760 particles in
+// 575,056 cells that is 1.19 GB, 0.36 ms at 3.35 TB/s.  Both tables (243
+// and 121 MB in bf16) exceed the 50 MB L2, so what a gather costs depends
+// on which rows the neighbouring threads name.  The arithmetic (at most 15
+// Philox calls of 10 rounds with logf/cosf/sqrtf, the expf/powf of Hanna)
+// is about two thousand operations per thread.
 //
-// Design: rows are read with 16-byte loads, a bf16 row widened to f32 by a
+// Design.  Locality comes from the order of the particles, not from the
+// kernel: the caller keeps them sorted by met cell (reorder.cu, every few
+// steps), with the key this kernel gathers by (fp::cell_row of
+// cell_index.cuh, shared with the sort).  A warp's 32 row ids then fall in
+// a few rows, the gathers are served by L1 and L2, and the boundary-layer
+// particles (low levels, the slowest key) fill whole warps, so Hanna and
+// the substep loop no longer run for a few threads of many warps.  On an
+// unordered ensemble the kernel gives the same particles, slower: each
+// thread then pulls its six sectors from device memory alone.  Sharing a
+// row inside the warp by hand (one loader per distinct row and shuffles)
+// was tried and is not used: the cache does it without a single shuffle.
+// Rows are read with 16-byte loads, a bf16 row widened to f32 by a
 // 16-bit shift (exact); the height column sits in shared memory for the
 // level search; every gather index is clamped first, NaN included.  The
 // three draws that every particle takes, whatever its branch, are made at
@@ -52,6 +64,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cell_index.cuh"
 #include "philox_normal.cuh"
 
 #define F(x) static_cast<float>(x)
@@ -132,15 +145,10 @@ __device__ __forceinline__ float tmax(float a, float b) {
 __device__ __forceinline__ float clamp_min(float x, float lo) {
   return x < lo ? lo : x;
 }
-__device__ __forceinline__ float clamp(float x, float lo, float hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-
-// int floor(x) clipped to [0, hi], total for any float input (NaN -> 0).
-__device__ __forceinline__ int floor_index(float x, int hi) {
-  const float f = fminf(fmaxf(floorf(x), 0.0f), static_cast<float>(hi));
-  return min(max(static_cast<int>(f), 0), hi);
-}
+using fp::clamp;
+using fp::Horiz;
+using fp::horiz_weights;
+using fp::vert_weights;
 
 // Error-free two-sum accumulate (core/state.py::ds_add); the intrinsics
 // are never contracted or reassociated.
@@ -154,48 +162,13 @@ __device__ __forceinline__ void ds_add(float& hi, float& lo, float d) {
   hi = hi2;
 }
 
-struct Horiz {
-  int ix, jy;
-  float p4[4];
-};
-
-__device__ __forceinline__ Horiz horiz_weights(float x, float y, int nx, int ny) {
-  Horiz hw;
-  hw.ix = floor_index(x, nx - 2);
-  hw.jy = floor_index(y, ny - 2);
-  const float ddx = clamp(x - static_cast<float>(hw.ix), 0.0f, 1.0f);
-  const float ddy = clamp(y - static_cast<float>(hw.jy), 0.0f, 1.0f);
-  const float rddx = 1.0f - ddx;
-  const float rddy = 1.0f - ddy;
-  hw.p4[0] = rddx * rddy;
-  hw.p4[1] = ddx * rddy;
-  hw.p4[2] = rddx * ddy;
-  hw.p4[3] = ddx * ddy;
-  return hw;
-}
-
-// searchsorted(height, z, right=True) - 1 clamped to [0, nz-2], and the
-// upper-level weight.
-__device__ __forceinline__ void vert_weights(const float* sh_height, int nz,
-                                             float z, int& indz, float& dz1) {
-  int lo = 0, hi = nz;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (!(sh_height[mid] > z)) lo = mid + 1; else hi = mid;
-  }
-  indz = min(max(lo - 1, 0), nz - 2);
-  const float h0 = sh_height[indz];
-  const float h1 = sh_height[indz + 1];
-  dz1 = clamp((z - h0) / (h1 - h0), 0.0f, 1.0f);
-}
-
-// Lanes 8*group .. 8*group+7 of one table row, as f32.
-template <bool BF16>
+// Lanes 8*group .. 8*group+7 of one row of a table of LANES lanes, as f32.
+template <bool BF16, int LANES>
 __device__ __forceinline__ void load8(const void* table, size_t row, int group,
                                       float* out) {
   if (BF16) {
     const uint4 q = __ldg(reinterpret_cast<const uint4*>(
-        static_cast<const char*>(table) + row * 128) + group);
+        static_cast<const char*>(table) + row * (2 * LANES)) + group);
     out[0] = __uint_as_float(q.x << 16);
     out[1] = __uint_as_float(q.x & 0xFFFF0000u);
     out[2] = __uint_as_float(q.y << 16);
@@ -206,7 +179,7 @@ __device__ __forceinline__ void load8(const void* table, size_t row, int group,
     out[7] = __uint_as_float(q.w & 0xFFFF0000u);
   } else {
     const float4* p = reinterpret_cast<const float4*>(
-        static_cast<const char*>(table) + row * 256) + 2 * group;
+        static_cast<const char*>(table) + row * (4 * LANES)) + 2 * group;
     const float4 a = __ldg(p);
     const float4 b = __ldg(p + 1);
     out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
@@ -441,11 +414,10 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
       int indz;
       float dz1;
       vert_weights(sh_height, a.nz, z, indz, dz1);
-      const size_t row = static_cast<size_t>(indz) * (a.ny * a.nx)
-                         + static_cast<size_t>(hw.jy) * a.nx + hw.ix;
+      const size_t row = fp::cell_row(indz, hw.jy, hw.ix, a.ny, a.nx);
       float g[64];
 #pragma unroll
-      for (int k = 0; k < 8; ++k) load8<BF16>(rows, row, k, &g[8 * k]);
+      for (int k = 0; k < 8; ++k) load8<BF16, 64>(rows, row, k, &g[8 * k]);
 
       const float u = field2(g, 0, hw.p4, dz1);
       const float v = field2(g, 1, hw.p4, dz1);
@@ -620,11 +592,10 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
         int indz2;
         float dz2;
         vert_weights(sh_height, a.nz, z_new, indz2, dz2);
-        const size_t row2 = static_cast<size_t>(indz2) * (a.ny * a.nx)
-                            + static_cast<size_t>(hw2.jy) * a.nx + hw2.ix;
+        const size_t row2 = fp::cell_row(indz2, hw2.jy, hw2.ix, a.ny, a.nx);
         float e[24];
 #pragma unroll
-        for (int k = 0; k < 3; ++k) load8<BF16>(rowsE, row2, k, &e[8 * k]);
+        for (int k = 0; k < 3; ++k) load8<BF16, 32>(rowsE, row2, k, &e[8 * k]);
         const float du = (field2(e, 0, hw2.p4, dz2) - u) / 2.0f;
         const float dv = (field2(e, 1, hw2.p4, dz2) - v) / 2.0f;
         const float dw = (field2(e, 2, hw2.p4, dz2) - w) / 2.0f;

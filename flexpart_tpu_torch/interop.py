@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from .core.advance import StepConfig, StepParams
-from .core.interp import StepTablesQuad
+from .core.interp import ROWS_E_LANES, StepTablesQuad
 from .core.state import FIELDS, Particles
 from .grid.outgrid import Accumulators
 from .met.fields import ZFields
@@ -102,5 +102,8 @@ def accumulators_to_numpy(acc: Accumulators) -> dict[str, np.ndarray]:
 
 
 def tables_from_numpy(t, device) -> StepTablesQuad:
+    """The JAX tables; its ``rowsE`` pads the 24 end-time lanes to 64, the
+    port's to ``ROWS_E_LANES``."""
+    rows_e = np.asarray(_get(t, "rowsE"))[:, :ROWS_E_LANES]
     return StepTablesQuad(rows=to_tensor(_get(t, "rows"), device),
-                          rowsE=to_tensor(_get(t, "rowsE"), device))
+                          rowsE=to_tensor(rows_e, device))

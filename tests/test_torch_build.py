@@ -5,7 +5,9 @@ signature corrupts memory silently, and no compiler runs on the CPU, so
 the signatures are parsed from ``csrc/*.cu`` and held against
 ``_build.py``: the same number of arguments, each of the same kind
 (pointer, int, int64, uint32, float).  The ``AdvanceArgs`` struct that K4
-receives by pointer is held field for field against its ctypes mirror.
+receives by pointer and the ``ReorderFields`` struct that K5 receives are
+held field for field against their ctypes mirrors, and the lane counts of
+the two quad tables against the strides that K2 writes and K4 reads.
 A kernel's library name must change with its source and with every
 header the source includes, or a changed header is never rebuilt.
 """
@@ -19,7 +21,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from flexpart_tpu_torch import _build  # noqa: E402
-from flexpart_tpu_torch.core import advance  # noqa: E402
+from flexpart_tpu_torch.core import advance, interp, reorder, state  # noqa: E402
 
 KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
          ctypes.c_int64: "int64", ctypes.c_uint32: "uint32",
@@ -53,7 +55,11 @@ def _kernel(name):
 
 
 def test_four_kernels():
-    assert KERNEL_NAMES == ["normals", "quad_tables", "conccalc", "advance"]
+    """The four kernels of the stock step, and the cell-order sort."""
+    assert KERNEL_NAMES == ["normals", "quad_tables", "conccalc", "advance",
+                            "reorder"]
+    for k in _build.KERNELS:
+        assert k.source.is_file() and k.launches == 0 and k._fn is None
 
 
 @pytest.mark.parametrize("name", KERNEL_NAMES)
@@ -82,6 +88,78 @@ def test_library_name_follows_source_and_headers(name, tmp_path, monkeypatch):
     other = next(f for f in sorted(csrc.iterdir()) if f not in files)
     other.write_text(other.read_text() + "\n// changed\n")
     assert k._lib_path().name in seen     # another kernel's file: no rebuild
+
+
+def test_build_directory_is_ignored_by_git():
+    """Every kernel is built at first use into build/kernels/, which git
+    ignores and which no import creates."""
+    root = _build.BUILD_DIR.parent.parent
+    assert _build.BUILD_DIR == root / "build" / "kernels"
+    assert "build/" in (root / ".gitignore").read_text().split()
+    for k in _build.KERNELS:
+        assert k._lib_path().parent == _build.BUILD_DIR
+        assert k._lib_path().name.startswith(f"lib{k.name}-")
+
+
+def test_advance_and_reorder_share_the_cell_header():
+    """K5's sort key is K4's row id: both take the cell of a particle from
+    the device functions of one header, and neither keeps its own copy."""
+    for name in ("advance", "reorder"):
+        k = _kernel(name)
+        assert _build.CSRC / "cell_index.cuh" in k.sources()
+        text = _strip_comments(k.source.read_text())
+        assert "fp::cell_row(" in text
+        assert "vert_weights(" in text and "horiz_weights(" in text
+        assert not re.search(r"__device__[^;{]*\b(horiz_weights|vert_weights"
+                             r"|floor_index|cell_row)\s*\(", text)
+    header = (_build.CSRC / "cell_index.cuh").read_text()
+    for fn in ("horiz_weights", "vert_weights", "floor_index", "cell_row"):
+        assert re.search(r"__device__[^;{]*\b%s\s*\(" % fn, header), fn
+
+
+def test_table_strides_match_the_sources():
+    """``rows`` has 64 lanes and ``rowsE`` 32: the strides K2 stores with,
+    the strides K4 gathers with, and the shapes the wrappers allocate and
+    check."""
+    assert (interp.ROWS_LANES, interp.ROWS_E_LANES) == (64, 32)
+    k2 = _strip_comments(_build.QUAD_TABLES.source.read_text())
+    assert re.search(r"store8\(rows \+ \(row0 \+ c\) \* %d \+ v \* 8"
+                     % interp.ROWS_LANES, k2)
+    assert re.search(r"store8\(rowsE \+ \(row0 \+ c\) \* %d \+ v \* 8"
+                     % interp.ROWS_E_LANES, k2)
+    # 8 lanes per store: 8 stores fill a row of rows, 4 a row of rowsE
+    assert "it < ncell * %d" % (interp.ROWS_LANES // 8) in k2
+    assert "it < ncell * %d" % (interp.ROWS_E_LANES // 8) in k2
+    k4 = _strip_comments(_build.ADVANCE.source.read_text())
+    assert "load8<BF16, %d>(rows, row, k," % interp.ROWS_LANES in k4
+    assert "load8<BF16, %d>(rowsE, row2, k," % interp.ROWS_E_LANES in k4
+    assert "row * (2 * LANES)" in k4 and "row * (4 * LANES)" in k4
+    # K4 reads 8 groups of 8 lanes of rows and 3 of rowsE (lanes 0-23)
+    assert re.search(r"for \(int k = 0; k < 8; \+\+k\) load8<BF16, 64>", k4)
+    assert re.search(r"for \(int k = 0; k < 3; \+\+k\) load8<BF16, 32>", k4)
+
+
+def test_reorder_fields_struct_matches_the_source():
+    text = _strip_comments(_build.REORDER.source.read_text())
+    n = int(re.search(r"constexpr\s+int\s+NFIELDS\s*=\s*(\d+)\s*;",
+                      text).group(1))
+    assert n == len(state.FIELDS)
+    body = re.search(r"struct\s+ReorderFields\s*\{(.*?)\};", text,
+                     re.S).group(1)
+    parsed = [re.fullmatch(r"(.+?)\s*(\w+)\[NFIELDS\]", d.strip()).groups()
+              for d in body.split(";") if d.strip()]
+    assert parsed == [("const void*", "src"), ("void*", "dst"),
+                      ("int", "width")]
+    c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+               "int": ctypes.c_int}
+    fields = [(name, t._type_, t._length_)
+              for name, t in reorder.ReorderFields._fields_]
+    assert fields == [(name, c_types[c], n) for c, name in parsed]
+    # the scan tile of the wrapper's scratch is the kernel's
+    m = re.search(r"constexpr\s+int\s+SCAN_ITEMS\s*=\s*(\d+)\s*;", text)
+    t = re.search(r"constexpr\s+int\s+THREADS\s*=\s*(\d+)\s*;", text)
+    assert int(m.group(1)) * int(t.group(1)) == reorder.SCAN_TILE
+    assert "SCAN_TILE = THREADS * SCAN_ITEMS" in text
 
 
 def test_normals_and_advance_share_the_philox_header():

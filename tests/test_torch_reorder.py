@@ -1,0 +1,253 @@
+"""The cell-order sort of the port (plain version of kernel K5).
+
+``reorder_by_cell`` is a layout step that the JAX package does not have:
+it permutes the particle slots so that particles of one met cell are
+neighbours.  What must hold, all bitwise unless said:
+
+  * the result is ``in[perm]`` for a permutation ``perm`` (every slot
+    once), its keys never decrease, particles that are not scheduled come
+    last, and a sorted ensemble is left as it is;
+  * the key is the row of the quad tables that the advance gathers for
+    the particle (``sample_all_quad``'s own row id);
+  * the advance commutes with the permutation when the injected draws are
+    permuted alike: ``advance(p[perm], d[:, perm]) == advance(p, d)[perm]``;
+  * the sampled grid of the reordered ensemble equals the original's
+    within rtol 1e-6 (only the order of the float additions into a cell
+    changes), and equals the JAX ``conccalc`` of the unordered ensemble
+    within the tolerance of ``tests/test_torch_conccalc.py`` (rtol 1e-6,
+    atol 1e-12).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from flexpart_tpu import met as jmet  # noqa: E402
+from flexpart_tpu.config import OutGrid  # noqa: E402
+from flexpart_tpu.core import state as jstate  # noqa: E402
+from flexpart_tpu.grid import conccalc as jcc  # noqa: E402
+from flexpart_tpu.grid import outgrid as jog  # noqa: E402
+from flexpart_tpu_torch import interop  # noqa: E402
+from flexpart_tpu_torch.core import advance as tadv  # noqa: E402
+from flexpart_tpu_torch.core import interp as tinterp  # noqa: E402
+from flexpart_tpu_torch.core import reorder  # noqa: E402
+from flexpart_tpu_torch.core import rng as trng  # noqa: E402
+from flexpart_tpu_torch.core.state import FIELDS  # noqa: E402
+from flexpart_tpu_torch.grid import conccalc as tcc  # noqa: E402
+from flexpart_tpu_torch.grid import outgrid as tog  # noqa: E402
+from flexpart_tpu_torch.met.synthetic import make_grid  # noqa: E402
+
+N = 3000
+MEM1 = 10800
+ITIME = 3600
+OG = OutGrid(outlon0=-60.0, outlat0=-30.0, numxgrid=48, numygrid=30,
+             dxout=2.5, dyout=2.0, outheights=(300.0, 2000.0, 10000.0))
+CONFIGS = {"stock": dict(turbswitch=False, ifine=1, met_bf16=True),
+           "turb_ifine4": dict(turbswitch=True, ifine=4, met_bf16=False)}
+
+
+@pytest.fixture(scope="module")
+def setup():
+    grid = jmet.make_grid(nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)
+    m = jmet.SyntheticMet(grid)
+    zs = []
+    for t in (0.0, float(MEM1)):
+        eta = m.fetch(t)
+        h = jmet.compute_heights(grid, eta)
+        zs.append(jmet.calcpar(grid, eta, jmet.process_eta(grid, eta, h)))
+    tz = [interop.zfields_from_numpy({k: np.asarray(v) for k, v in
+                                      z._asdict().items()}, "cpu") for z in zs]
+    return grid, zs, tz
+
+
+def _jax_particles(grid, seed=5):
+    """Particles over the whole grid, a tenth not scheduled, two species,
+    half of them released at ITIME (fresh), every field distinct per slot
+    so that a wrong gather shows."""
+    rs = np.random.default_rng(seed)
+    # x on a 2**-12 lattice: exact products on the output grid, as in
+    # tests/test_torch_conccalc.py
+    x = (np.round(rs.uniform(0.0, grid.nx - 1.0, N) * 4096) / 4096)
+    y = (np.round(rs.uniform(0.3, grid.ny - 1.3, N) * 4096) / 4096)
+    p = jstate.empty_particles(N, nspec=2)
+    f32 = np.float32
+    return p._replace(
+        x_hi=jnp.asarray(x.astype(f32)), y_hi=jnp.asarray(y.astype(f32)),
+        z=jnp.asarray(rs.uniform(5.0, 14000.0, N).astype(f32)),
+        itra=jnp.full(N, ITIME, jnp.int32),
+        itramem=jnp.asarray(np.where(rs.uniform(size=N) < 0.5, ITIME,
+                                     ITIME - 14400).astype(np.int32)),
+        npoint=jnp.zeros(N, jnp.int32),
+        nclass=jnp.asarray(rs.integers(0, 2, N).astype(np.int32)),
+        idt=jnp.asarray(rs.integers(1, 900, N).astype(np.int32)),
+        itrasplit=jnp.asarray(rs.integers(0, 99999, N).astype(np.int32)),
+        up=jnp.asarray(rs.normal(size=N).astype(f32)),
+        vp=jnp.asarray(rs.normal(size=N).astype(f32)),
+        wp=jnp.asarray(rs.normal(size=N).astype(f32)),
+        usig=jnp.asarray(rs.normal(size=N).astype(f32) * 0.3),
+        vsig=jnp.asarray(rs.normal(size=N).astype(f32) * 0.3),
+        wsig=jnp.asarray(rs.normal(size=N).astype(f32) * 0.01),
+        cbt=jnp.asarray(np.where(rs.uniform(size=N) < 0.2, -1, 1).astype(np.int8)),
+        active=jnp.asarray(rs.uniform(size=N) < 0.9),
+        mass=jnp.asarray(rs.uniform(0.5, 1.5, (N, 2)).astype(f32)),
+        mass0=jnp.asarray(rs.uniform(0.5, 1.5, (N, 2)).astype(f32)),
+        xscav=jnp.asarray(rs.uniform(0.0, 1.0, (N, 2)).astype(f32)))
+
+
+def _port_particles(jp):
+    return interop.particles_from_numpy(
+        {k: np.asarray(v) for k, v in jp._asdict().items()}, "cpu")
+
+
+def _step_config(grid, **kw):
+    return tadv.StepConfig(nx=grid.nx, ny=grid.ny, nz=grid.nlev, xglobal=True,
+                           ldirect=1, method=0, **kw)
+
+
+def _assert_same_bits(a, b, what=""):
+    for f in FIELDS:
+        np.testing.assert_array_equal(
+            interop.to_numpy(getattr(a, f)), interop.to_numpy(getattr(b, f)),
+            err_msg=f"{what} {f}")
+
+
+def test_reorder_is_a_permutation_in_key_order(setup):
+    grid, _, (t0, _) = setup
+    cfg = _step_config(grid, **CONFIGS["stock"])
+    p = _port_particles(_jax_particles(grid))
+    q, perm = reorder.reorder_by_cell(p, t0.height, cfg)
+    assert perm.dtype == torch.int32 and perm.shape == (N,)
+    assert sorted(perm.tolist()) == list(range(N))
+    _assert_same_bits(q, reorder.apply_perm(p, perm), "out != in[perm]")
+    keys = reorder.cell_keys(q, t0.height, cfg)
+    assert bool((keys[1:] >= keys[:-1]).all())
+    n_on = int(p.active.sum())
+    assert 0 < n_on < N
+    assert bool(q.active[:n_on].all()) and not bool(q.active[n_on:].any())
+    n_rows = (grid.nlev - 1) * grid.ny * grid.nx
+    assert bool((keys[:n_on] < n_rows).all())
+    assert bool((keys[n_on:] == n_rows).all())
+    # many cells hold several particles and many particles change slot
+    assert len(set(keys[:n_on].tolist())) < n_on
+    assert int((perm != torch.arange(N, dtype=torch.int32)).sum()) > N // 2
+
+
+def test_reorder_leaves_an_ordered_ensemble_alone(setup):
+    grid, _, (t0, _) = setup
+    cfg = _step_config(grid, **CONFIGS["stock"])
+    p = _port_particles(_jax_particles(grid))
+    q, _ = reorder.reorder_by_cell(p, t0.height, cfg)
+    q2, perm2 = reorder.reorder_by_cell(q, t0.height, cfg)
+    assert perm2.tolist() == list(range(N))
+    _assert_same_bits(q2, q, "second sort")
+
+
+def test_key_is_the_row_the_advance_gathers(setup):
+    """The sort key of a scheduled particle is the row id that
+    ``sample_all_quad`` and ``interp_wind_short_quad`` gather."""
+    grid, _, (t0, _) = setup
+    cfg = _step_config(grid, **CONFIGS["stock"])
+    p = _port_particles(_jax_particles(grid))
+    hw = tinterp.horiz_weights(p.x, p.y, cfg.nx, cfg.ny, cfg.xglobal)
+    indz, _ = tinterp.vert_weights(p.z, t0.height)
+    row = tinterp._cell_rowid(hw, indz, cfg.nx, cfg.ny)
+    keys = reorder.cell_keys(p, t0.height, cfg)
+    on = p.active
+    assert torch.equal(keys[on], row[on])
+    assert int(keys[on].min()) >= 0
+    assert int(keys.max()) == (cfg.nz - 1) * cfg.ny * cfg.nx
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_advance_commutes_with_the_permutation(setup, name):
+    grid, _, (t0, t1) = setup
+    kw = CONFIGS[name]
+    cfg = _step_config(grid, **kw)
+    prm = tadv.StepParams.make(dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0,
+                               dxconst=grid.dxconst, dyconst=grid.dyconst,
+                               lsynctime=900, fine=1.0 / kw["ifine"])
+    p = _port_particles(_jax_particles(grid))
+    q, perm = reorder.reorder_by_cell(p, t0.height, cfg)
+    key = trng.Key(8, 1)
+    rows = {**tadv.DRAW_ROWS, 2: kw["ifine"]}
+    draws = {t: trng.normals(key, (r, N), t, device="cpu")
+             for t, r in rows.items()}
+    idx = perm.long()
+    draws_q = {t: d[:, idx].contiguous() for t, d in draws.items()}
+    tw = tadv._time_weights(ITIME, 0, MEM1, prm, cfg)[:4]
+    tables = tinterp.build_step_tables_quad(t0, t1, *tw, dtype=cfg.table_dtype)
+    a = tadv.advance_args(cfg, prm, ITIME, 0, MEM1)
+    out_p, dp = tadv.advance_all_plain(p, t0.height, tables, a, key, cfg,
+                                       draws, 0)
+    out_q, dq = tadv.advance_all_plain(q, t0.height, tables, a, key, cfg,
+                                       draws_q, 0)
+    _assert_same_bits(out_q, reorder.apply_perm(out_p, perm), name)
+    assert int(dp.n_active) == int(dq.n_active) > 0
+    assert int(dp.n_exited) == int(dq.n_exited)
+    # the step did move the particles, fresh and old
+    assert not torch.equal(out_p.z, p.z)
+
+
+@pytest.mark.parametrize("old", [False, True])
+def test_conccalc_of_the_reordered_ensemble(setup, old):
+    grid, (jz, _), (tz, _) = setup
+    tgrid = make_grid(nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)
+    jgeo = jog.OutputGridGeometry(OG, grid)
+    tgeo = tog.OutputGridGeometry(OG, tgrid)
+    kw = dict(nxg=jgeo.nxg, nyg=jgeo.nyg, nzg=jgeo.nzg, npointspec=1,
+              nclassunc=2, nage=2, dxout=OG.dxout, dyout=OG.dyout,
+              xoutshift=jgeo.xoutshift, youtshift=jgeo.youtshift,
+              dx_met=grid.dx, dy_met=grid.dy, ind_samp=0, kernel_possible=old)
+    lage = np.asarray([7200, 999999], np.int32)
+    jp = _jax_particles(grid)
+    p = _port_particles(jp)
+    cfg = _step_config(grid, **CONFIGS["stock"])
+    q, _ = reorder.reorder_by_cell(p, tz.height, cfg)
+
+    def sample(particles):
+        acc = tog.zero_accumulators(tgeo, 2, 1, 2, 2, device="cpu")
+        acc = tcc.make_conccalc(OG.outheights)(
+            acc, particles, tz, ITIME, torch.as_tensor(lage), 0.5,
+            tcc.ConcConfig(**kw))
+        return acc.gridunc.numpy()
+
+    g_p, g_q = sample(p), sample(q)
+    assert g_p.sum() > 0.0
+    np.testing.assert_allclose(g_q, g_p, rtol=1e-6, atol=1e-12)
+    jacc = jog.zero_accumulators(jgeo, 2, 1, 2, 2)
+    jacc = jcc.make_conccalc(OG.outheights)(
+        jacc, jp, jz, jnp.int32(ITIME), jnp.asarray(lage), jnp.float32(0.5),
+        jcc.ConcConfig(**kw))
+    np.testing.assert_allclose(g_q, np.asarray(jacc.gridunc), rtol=1e-6,
+                               atol=1e-12)
+
+
+def test_unknown_device_raises(setup):
+    grid, _, (t0, _) = setup
+    cfg = _step_config(grid, **CONFIGS["stock"])
+    p = _port_particles(_jax_particles(grid))
+    meta = type(p)(**{f: getattr(p, f).to("meta") for f in FIELDS})
+    with pytest.raises(ValueError, match="device"):
+        reorder.reorder_by_cell(meta, t0.height, cfg)
+
+
+def test_cuda_particles_never_take_the_plain_version(setup, monkeypatch):
+    """Dispatch is by device type alone: ``cuda`` goes to the kernel
+    launcher, never to ``reorder_by_cell_plain``."""
+    grid, _, (t0, _) = setup
+    cfg = _step_config(grid, **CONFIGS["stock"])
+    p = _port_particles(_jax_particles(grid))
+    calls = []
+
+    class FakeCuda:
+        type = "cuda"
+
+    monkeypatch.setattr(type(p), "device", property(lambda self: FakeCuda()))
+    monkeypatch.setattr(reorder, "reorder_by_cell_plain",
+                        lambda *a: calls.append("plain"))
+    monkeypatch.setattr(reorder, "reorder_by_cell_cuda",
+                        lambda *a: calls.append("cuda") or (None, None))
+    reorder.reorder_by_cell(p, t0.height, cfg)
+    assert calls == ["cuda"]

@@ -11,6 +11,11 @@ units; z rtol 1e-4, atol 1e-2 m); the mask and counters exactly; gridunc
 within rtol 1e-5 per cell plus an atol of 1e-5 of the largest cell (the
 4-point weights move linearly with positions that differ in the last
 bits), and its total to 1e-6 (mass is conserved on both sides).
+
+One case sorts the port's particles by met cell before every step
+(``core/reorder.py``), with JAX's draws carried along with their
+particles: the sort is a layout step, so every particle must end where
+JAX puts it, to the same tolerances, once the slots are mapped back.
 """
 import pathlib
 import re
@@ -34,6 +39,7 @@ from flexpart_tpu.grid import conccalc as jcc  # noqa: E402
 from flexpart_tpu.grid import outgrid as jog  # noqa: E402
 from flexpart_tpu_torch import interop  # noqa: E402
 from flexpart_tpu_torch.core import advance as tadv  # noqa: E402
+from flexpart_tpu_torch.core import reorder as treorder  # noqa: E402
 from flexpart_tpu_torch.core import rng as trng  # noqa: E402
 from flexpart_tpu_torch.grid import conccalc as tcc  # noqa: E402
 from flexpart_tpu_torch.grid import outgrid as tog  # noqa: E402
@@ -90,7 +96,11 @@ def _jax_slice(p0):
     return out, np.asarray(acc.gridunc), draws
 
 
-def _port_slice(p0, draws):
+def _port_slice(p0, draws, reorder=False):
+    """The port's three steps.  With ``reorder`` the particles are sorted
+    by cell before every step; ``order[slot]`` is then the slot the
+    particle started in, the draws follow their particles, and the
+    returned particles are mapped back to the starting slots."""
     grid = tsyn.make_grid(**GRID)
     eta = tsyn.uniform_wind_met(grid, u=10.0, v=1.0).fetch(0.0, "cpu")
     z0 = tcalcpar.calcpar(grid, eta, tvt.process_eta(
@@ -111,18 +121,26 @@ def _port_slice(p0, draws):
     acc = tog.zero_accumulators(geo, 1, 1, 1, 1, device="cpu")
     lage = torch.tensor([999999999], dtype=torch.int32)
     p, out = p0, []
+    order = torch.arange(N)
     for i, it in enumerate(STEPS):
-        d = {t: torch.as_tensor(v) for t, v in draws[i].items()}
+        if reorder:
+            p, perm = treorder.reorder_by_cell(p, z0.height, cfg)
+            order = order[perm.long()]
+        d = {t: torch.as_tensor(v)[:, order].contiguous()
+             for t, v in draws[i].items()}
         p, diag = tadv.advance_chunked(p, z0, z0, it, 0, 86400,
                                        trng.Key(2, i), cfg, prm, N_CHUNKS,
                                        draws=d)
         cc = ccfg.replace(kernel_possible=tcc.kernel_possible_at(it + 900, 0))
         acc = conc(acc, p, z0, it + 900, lage, 1.0, cc)
-        out.append((p, diag))
+        out.append((treorder.apply_perm(p, torch.argsort(order)), diag))
+    if reorder:     # the sort did move particles, and kept them in key order
+        assert int((order != torch.arange(N)).sum()) > N // 2
     return out, acc.gridunc.numpy()
 
 
-def test_stock_step_matches_jax():
+@pytest.fixture(scope="module")
+def jax_run():
     rs = np.random.default_rng(0)
     p = jstate.empty_particles(N)
     p = p._replace(
@@ -134,7 +152,12 @@ def test_stock_step_matches_jax():
     jout, jgrid, draws = _jax_slice(p)
     tp0 = interop.particles_from_numpy(
         {k: np.asarray(v) for k, v in p._asdict().items()}, "cpu")
-    tout, tgrid = _port_slice(tp0, draws)
+    return tp0, jout, jgrid, draws
+
+
+def _assert_port_matches_jax(jax_run, reorder):
+    tp0, jout, jgrid, draws = jax_run
+    tout, tgrid = _port_slice(tp0, draws, reorder)
     for k, ((jp, jd), (tp, td)) in enumerate(zip(jout, tout)):
         a = interop.particles_to_numpy(tp)
         b = {f: np.asarray(v) for f, v in jp._asdict().items()}
@@ -152,6 +175,14 @@ def test_stock_step_matches_jax():
     assert abs(tgrid.sum() - jgrid.sum()) <= 1e-6 * jgrid.sum()
     # every particle is in the global grid below 50 km: all mass sampled
     assert abs(tgrid.sum() - len(STEPS)) < 1e-3 * len(STEPS)
+
+
+def test_stock_step_matches_jax(jax_run):
+    _assert_port_matches_jax(jax_run, reorder=False)
+
+
+def test_stock_step_with_reorder_matches_jax(jax_run):
+    _assert_port_matches_jax(jax_run, reorder=True)
 
 
 def test_port_runs_without_jax():
