@@ -13,9 +13,17 @@ the port's stock forward step on the card, in phases:
                 the main path's shapes, with its time, the twin's, its
                 bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s,
                 whichever is larger) and, where one PyTorch call computes
-                the same function, that call's time; the cell-order sort
-                must give a permutation in key order that moves every
-                field bitwise, and the advance must commute with it;
+                the same function, that call's time (the normals kernel
+                and its library call take some 10 us, less than a launch
+                costs the host, so both are timed as replays of a CUDA
+                graph of 50 launches); the sampling on both paths, on an
+                unordered and on a cell-ordered ensemble, all particles
+                old and half of them, with the global atomics it would
+                make without its per-warp sums (the (particle, target)
+                pairs) and with them (the distinct (warp, target) pairs);
+                the cell-order sort must give a permutation in key order
+                that moves every field bitwise, and the advance must
+                commute with it;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
                 with the same draws; and the advance kernel with its draws
@@ -80,11 +88,18 @@ K4_FLAG_SHARE = 1e-5
 # the card's peaks (NVIDIA H100 SXM data sheet) for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# operations per element, counted from the sources (a Philox draw with its
-# Box-Muller transform is about 175; K4 makes 6 per steady particle)
-K1_OPS_PER_DRAW = 175
+# operations per element, counted from the sources.  A draw: a quarter of
+# a Philox call (10 rounds of 2 multiply-high, 2 multiply-low, 4 xor and 2
+# add: 100) and half a Box-Muller pair (2 shifts, 2 conversions, logf about
+# 25, sqrtf about 10, sincosf about 40, 5 multiplies and subtractions, 8 for
+# the clips: about 95), with the stores and the loop about 80; the six rows
+# of K1_SHAPE take two calls and three pairs.  It was 175 while each draw
+# had a Philox call and a logf/sqrtf/cosf of its own.  A sampled particle:
+# 60 for its cell and weights and, on the 4-point path, four rounds of a
+# warp match and a shuffle loop of about 60 each.
+K1_OPS_PER_DRAW = 80
 K2_OPS_PER_LANE = 12
-K3_OPS_PER_PARTICLE = 60
+K3_OPS_PER_PARTICLE = 300
 K4_OPS_PER_PARTICLE = 1800
 K5_OPS_PER_PARTICLE = 60
 K4_CASES = {"stock": dict(turbswitch=False, ifine=1, met_bf16=True),
@@ -116,6 +131,20 @@ def cuda_ms(fn, reps: int = 10) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def cuda_graph_ms(fn, reps: int = 50) -> float:
+    """Mean device time of fn() in ms when ``reps`` calls are captured into
+    one CUDA graph and replayed: for a kernel shorter than the host takes to
+    launch it, which event timing around a Python loop cannot see."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 5) / reps
 
 
 def check(cond: bool, what: str) -> None:
@@ -345,7 +374,7 @@ def step_setup(grid, **cfg_kw):
 def phase_kernels(device, grid) -> dict:
     """Each kernel against its plain twin at the main path's shapes."""
     import torch
-    from flexpart_tpu_torch.core import interp, rng
+    from flexpart_tpu_torch.core import interp, reorder, rng
     from flexpart_tpu_torch.grid import conccalc as cc
     from flexpart_tpu_torch.grid.outgrid import zero_accumulators
     res = {}
@@ -368,13 +397,24 @@ def phase_kernels(device, grid) -> dict:
     mean, std = float(a.mean()), float(a.std())
     check(abs(mean) < 0.02 and abs(std - 1.0) < 0.02,
           f"K1 moments mean={mean} std={std}")
-    ms = cuda_ms(lambda: rng.normals_cuda(rows, cols, k0, k1, off, device), 50)
+    for r in (1, 2, 3, 5):        # the last Philox call of a column, cut short
+        check(torch.equal(rng.normals_cuda(r, 4096, k0, k1, off, device),
+                          zk[:r, :4096]), f"K1 ({r}, n) is not rows 0-{r - 1}")
+
+    def kernel():
+        return rng.normals_cuda(rows, cols, k0, k1, off, device)
+
+    def library():
+        return torch.randn(K1_SHAPE, device=device).clamp_(-3.0, 3.0)
+
+    ms = cuda_graph_ms(kernel)
+    library_ms = cuda_graph_ms(library)
     plain_ms = cuda_ms(lambda: rng.normals_plain(rows, cols, k0, k1, off,
                                                  device), 5)
-    library_ms = cuda_ms(lambda: torch.randn(K1_SHAPE, device=device)
-                         .clamp_(-3.0, 3.0), 50)
     res["normals"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           library_ms=library_ms, mean=mean, std=std,
+                          ms_with_launch=cuda_ms(kernel, 50),
+                          library_ms_with_launch=cuda_ms(library, 50),
                           **bound(4 * rows * cols,
                                   K1_OPS_PER_DRAW * rows * cols))
 
@@ -415,43 +455,73 @@ def phase_kernels(device, grid) -> dict:
                               f32_plain_ms=times[torch.float32][1],
                               **bound(k2_in + 2 * (64 + 32) * n_rows,
                                       K2_OPS_PER_LANE * (64 + 32) * n_rows))
+    height = z0.height
     del z0, z1
 
-    # K3: sampling of 10 x 2**20 particles, both paths
-    _, _, og, geo, ccfg = step_setup(grid)
-    p = bench_particles(N_MAIN, device, seed=7, old_fraction=0.5)
-    p = p.replace(itra=torch.full_like(p.itra, 14400),
-                  itramem=p.itramem + 14400 - 3600)
+    # K3: sampling of 10 x 2**20 particles: both paths, on an unordered and
+    # on a cell-ordered ensemble, all particles old enough for the 4-point
+    # kernel and half of them.  Float atomics, now after per-warp sums,
+    # order the additions differently in every run: hence a relative
+    # tolerance.
+    cfg, _, og, geo, ccfg = step_setup(grid)
     lage = torch.tensor([999999999], dtype=torch.int32, device=device)
     oh = torch.tensor(og.outheights, dtype=torch.float32, device=device)
+    gk = zero_accumulators(geo, 1, 1, device=device).gridunc
+    gp = torch.zeros_like(gk)
+    grid_rows = gk.numel()
+    warp = torch.arange(N_MAIN, device=device) // cc.K3_GROUP
     worst = 0.0
-    k3_ms = {}
-    for kp in (False, True):
-        cfg = ccfg.replace(kernel_possible=kp)
-        gk = zero_accumulators(geo, 1, 1, device=device).gridunc
-        gp = zero_accumulators(geo, 1, 1, device=device).gridunc
-        cc.conccalc_cuda(gk.view(-1, 1), p, 14400, lage, oh, 1.0, None, cfg)
-        cc.conccalc_plain(gp.view(-1, 1), p, 14400, lage, oh, 1.0, None, cfg)
-        d = (gk - gp).abs()
-        worst = max(worst, float(d.max()))
-        check(bool(torch.all(d <= K3_RTOL * gp.abs())),
-              f"K3 kernel_possible={kp} exceeds rtol {K3_RTOL}: "
-              f"max rel {float((d / gp.abs().clamp(min=1e-30)).max())}")
-        check(abs(float(gk.sum()) - float(gp.sum())) <= 1e-5 * float(gp.sum()),
-              "K3 total differs")
-        k3_ms[kp] = (cuda_ms(lambda: cc.conccalc_cuda(
-            gk.view(-1, 1), p, 14400, lage, oh, 1.0, None, cfg), 10),
-            cuda_ms(lambda: cc.conccalc_plain(
-                gp.view(-1, 1), p, 14400, lage, oh, 1.0, None, cfg), 3))
+    k3 = {}
+    for old in (1.0, 0.5):
+        p = bench_particles(N_MAIN, device, seed=7, old_fraction=old)
+        p = p.replace(itra=torch.full_like(p.itra, 14400),
+                      itramem=p.itramem + 14400 - 3600)
+        for order in ("unordered", "ordered"):
+            if order == "ordered":
+                p = reorder.reorder_by_cell_cuda(p, height, cfg)[0]
+            for kp in (False, True):
+                c = ccfg.replace(kernel_possible=kp)
+                args = (p, 14400, lage, oh, 1.0, None, c)
+                what = (f"K3 {'4-point' if kp else 'single-index'} path, "
+                        f"{order}, {old} old")
+                gk.zero_()
+                gp.zero_()
+                cc.conccalc_cuda(gk.view(-1, 1), *args)
+                cc.conccalc_plain(gp.view(-1, 1), *args)
+                d = (gk - gp).abs()
+                worst = max(worst, float(d.max()))
+                check(bool(torch.all(d <= K3_RTOL * gp.abs())),
+                      f"{what} exceeds rtol {K3_RTOL}: max rel "
+                      f"{float((d / gp.abs().clamp(min=1e-30)).max())}")
+                check(abs(float(gk.sum()) - float(gp.sum()))
+                      <= 1e-5 * float(gp.sum()), f"{what}: total differs")
+                # the global atomics: one per pair without the per-warp
+                # sums, one per distinct (warp, target) with them
+                lin, valid, _ = cc.conccalc_pairs(grid_rows, *args)
+                pairs = (warp[:, None] * grid_rows + lin)[valid]
+                case = dict(
+                    pairs=int(pairs.numel()),
+                    warp_target_pairs=int(torch.unique(pairs).numel()))
+                del lin, valid, pairs
+                check(0 < case["warp_target_pairs"] <= case["pairs"],
+                      f"{what}: {case} pairs")
+                case.update(
+                    ms=cuda_ms(lambda: cc.conccalc_cuda(gk.view(-1, 1), *args),
+                               10),
+                    plain_ms=cuda_ms(lambda: cc.conccalc_plain(
+                        gp.view(-1, 1), *args), 3))
+                k3[f"{'kernel' if kp else 'single'}_{order}_"
+                   f"{'all' if old == 1.0 else 'half'}_old"] = case
+    # the main path's steady step: the 4-point path on ordered, old particles.
     # 41 B of particle state in, the grid read and written once (atomics
     # on top are not counted)
-    res["conccalc"] = dict(max_abs_err=worst, ms=k3_ms[True][0],
-                           plain_ms=k3_ms[True][1], library_ms=None,
-                           single_index_ms=k3_ms[False][0],
-                           single_index_plain_ms=k3_ms[False][1],
+    steady = k3["kernel_ordered_all_old"]
+    res["conccalc"] = dict(max_abs_err=worst, ms=steady["ms"],
+                           plain_ms=steady["plain_ms"], library_ms=None,
+                           cases=k3,
                            **bound(41 * N_MAIN + 2 * 4 * gk.numel(),
                                    K3_OPS_PER_PARTICLE * N_MAIN))
-    del p, gk, gp
+    del p, gk, gp, warp
     torch.cuda.empty_cache()
     res["advance"] = kernel_advance(device, grid)
     torch.cuda.empty_cache()
@@ -947,8 +1017,9 @@ def main() -> int:
     emit({"phase": "profile", **pres, "device": name, "power_limit": smi})
 
     # launches: the main path's own count.  The normals kernel is not
-    # launched there: its generator, fp::normal_at, runs inside the advance
-    # kernel's one launch; the stand-alone kernel serves rng.normals.
+    # launched there: its generator (fp::normal_words, fp::normal_pair) runs
+    # inside the advance kernel's one launch; the stand-alone kernel serves
+    # rng.normals.
     src = "flexpart_tpu_torch/csrc/{}.cu"
     replaces = {"normals": ("flexpart_tpu/core/rng.py:61", "pallas"),
                 "quad_tables": ("flexpart_tpu/core/interp.py:457", "XLA"),
@@ -958,9 +1029,16 @@ def main() -> int:
                 # moves particles between slots here
                 "reorder": ("flexpart_tpu/parallel/domain.py:151", "none")}
     extra = {"normals": {
-        "on_main_path_as": "fp::normal_at of flexpart_tpu_torch/csrc/"
-                           "philox_normal.cuh, inlined into advance.cu",
-        "launches_other_phases": normals_other}}
+        "on_main_path_as": "fp::normal_words and fp::normal_pair of "
+                           "flexpart_tpu_torch/csrc/philox_normal.cuh, "
+                           "inlined into advance.cu",
+        "launches_other_phases": normals_other},
+        "conccalc": {
+            # of the steady step's case: the 4-point path, ordered, all old
+            "global_atomics_without_warp_sums":
+                kres["conccalc"]["cases"]["kernel_ordered_all_old"]["pairs"],
+            "global_atomics": kres["conccalc"]["cases"]
+                ["kernel_ordered_all_old"]["warp_target_pairs"]}}
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": src.format(k.name),
          "replaces": replaces[k.name][0], "tpu_route": replaces[k.name][1],

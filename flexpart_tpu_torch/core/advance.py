@@ -25,8 +25,9 @@ keyed by the JAX tags 6, 1, 2, 3, 4 with the JAX shapes), which the
 parity tests fill with JAX's own draws, or from the Philox stream keyed by
 (seed, step, tag) with the global particle index as counter.  On the CPU
 that stream comes from ``rng.normals`` as tensors; on a CUDA device K4
-makes the same numbers in registers at the draw sites (the device function
-of ``csrc/philox_normal.cuh`` that K1 is built from), so they never touch
+makes the same numbers in registers at the draw sites (the device functions
+of ``csrc/philox_normal.cuh`` that K1 is built from: four rows of a tag
+from one Philox call, two from one Box-Muller radius), so they never touch
 device memory, and a thread draws only what its branch consumes.
 """
 

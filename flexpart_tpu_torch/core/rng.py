@@ -13,15 +13,19 @@ by contract (deterministic per key/tag/shape, distinct streams per tag,
 
 Columns are particles: the counter's first word is the *global* particle
 index (``offset`` + column), so a chunked advance draws the same numbers
-as an unchunked one.
+as an unchunked one.  Rows come four to a Philox call: rows 4q .. 4q+3 of a
+column are made from the four words of counter (index, q, 0, 0).  Words
+(0, 1) are one Box-Muller radius and angle and give rows 4q (cos) and 4q+1
+(sin); words (2, 3) give rows 4q+2 and 4q+3 alike.  A row count that is no
+multiple of four takes the leading rows of the next multiple.
 
 Where the draws are made: on the CPU the advance calls ``normals`` (the
 plain twin) and consumes tensors.  On a CUDA device the advance kernel
 (``csrc/advance.cu``) makes the same numbers in registers, through the
-device function of ``csrc/philox_normal.cuh`` that K1 is built from, with
-the key of ``Key.philox_key(tag)`` and the counter (offset + column, row,
-0, 0); K1 itself then serves the callers that want draws as a tensor (the
-advance's parity mode, the tests).
+device functions of ``csrc/philox_normal.cuh`` that K1 is built from, with
+the key of ``Key.philox_key(tag)`` and the counter (offset + column,
+row // 4, 0, 0); K1 itself then serves the callers that want draws as a
+tensor (the advance's parity mode, the tests).
 """
 
 from __future__ import annotations
@@ -41,6 +45,9 @@ PHILOX_W0 = 0x9E3779B9
 PHILOX_W1 = 0xBB67AE85
 _TWO_PI_F32 = float(np.float32(2.0 * np.pi))
 _2M24 = 2.0 ** -24
+# the lane layout of a draw (csrc/philox_normal.cuh holds the same numbers)
+ROWS_PER_BLOCK = 4      # rows made by one Philox call
+ROWS_PER_PAIR = 2       # rows made by one Box-Muller radius
 
 
 def _splitmix64(x: int) -> int:
@@ -96,16 +103,20 @@ def normals_plain(rows: int, cols: int, k0: int, k1: int, offset: int,
     """Plain PyTorch twin of K1: same counters, same Philox words, same
     transform."""
     i64 = torch.int64
+    blocks = -(-rows // ROWS_PER_BLOCK)
     col = (torch.arange(cols, dtype=i64, device=device) + offset) & _MASK32
-    row = torch.arange(rows, dtype=i64, device=device)
-    c0 = col[None, :].expand(rows, cols)
-    c1 = row[:, None].expand(rows, cols)
-    zero = torch.zeros((rows, cols), dtype=i64, device=device)
-    w0, w1, _, _ = philox4x32_10(c0, c1, zero, zero, k0, k1)
-    u1 = 1.0 - (w0 >> 8).to(torch.float32) * _2M24
-    u2 = (w1 >> 8).to(torch.float32) * _2M24
+    blk = torch.arange(blocks, dtype=i64, device=device)
+    c0 = col[None, :].expand(blocks, cols)
+    c1 = blk[:, None].expand(blocks, cols)
+    zero = torch.zeros((blocks, cols), dtype=i64, device=device)
+    w = torch.stack(philox4x32_10(c0, c1, zero, zero, k0, k1), dim=1)
+    # (blocks, pair, cols): words (0, 1) and (2, 3) are a radius and an angle
+    u1 = 1.0 - (w[:, 0::2] >> 8).to(torch.float32) * _2M24
+    u2 = (w[:, 1::2] >> 8).to(torch.float32) * _2M24
     r = torch.sqrt(-2.0 * torch.log(u1))
-    z = r * torch.cos(_TWO_PI_F32 * u2)
+    angle = _TWO_PI_F32 * u2
+    z = torch.stack([r * torch.cos(angle), r * torch.sin(angle)], dim=2)
+    z = z.reshape(blocks * ROWS_PER_BLOCK, cols)[:rows]
     return torch.clamp(z, -3.0, 3.0)
 
 

@@ -6,9 +6,10 @@
 // program, and the chain of several hundred eager tensor ops per particle
 // chunk that the plain PyTorch version (core/advance.py::advance_all_plain)
 // makes of it.  It also takes in the draws of K1: the Philox normals are
-// made in registers through fp::normal_at (philox_normal.cuh) at the draw
-// sites, with the counters and keys core/rng.py::normals would use, so no
-// draw is written to or read from device memory.
+// made in registers through fp::normal_words and fp::normal_pair
+// (philox_normal.cuh) at the draw sites, with the counters and keys
+// core/rng.py::normals would use, so no draw is written to or read from
+// device memory.
 //
 // What a thread does: load the particle's SoA state; bilinear and vertical
 // weights; ONE row gather of the (R, 64) quad table and the 15-field
@@ -29,9 +30,10 @@
 // of the 64 B row of the end-time table.  For 10,485,760 particles in
 // 575,056 cells that is 1.19 GB, 0.36 ms at 3.35 TB/s.  Both tables (243
 // and 121 MB in bf16) exceed the 50 MB L2, so what a gather costs depends
-// on which rows the neighbouring threads name.  The arithmetic (at most 15
-// Philox calls of 10 rounds with logf/cosf/sqrtf, the expf/powf of Hanna)
-// is about two thousand operations per thread.
+// on which rows the neighbouring threads name.  The arithmetic (two
+// Philox calls of 10 rounds and three or four logf/sqrtf/sincosf for a
+// steady particle, five and eight for a fresh one in the boundary layer,
+// the expf/powf of Hanna) is one to two thousand operations per thread.
 //
 // Design.  Locality comes from the order of the particles, not from the
 // kernel: the caller keeps them sorted by met cell (reorder.cu, every few
@@ -49,7 +51,9 @@
 // level search; every gather index is clamped first, NaN included.  The
 // three draws that every particle takes, whatever its branch, are made at
 // one place with the key chosen per thread, so a warp that holds boundary-
-// layer and free-troposphere particles runs the generator once.  The
+// layer and free-troposphere particles runs the generator once; a draw
+// site asks for the rows of one tag together, since four rows cost one
+// Philox call and two rows one Box-Muller radius.  The
 // arithmetic follows the plain version operation for operation so that the
 // two agree to rounding: the build uses -fmad=false, double-single sums use
 // the non-contracting intrinsics, every Python float of the plain version
@@ -368,20 +372,19 @@ __device__ __forceinline__ bool apply_bcs(const AdvanceArgs& a, float& x_hi,
   return (xw < 0.0f) || (xw >= a.nxm) || (yw < 0.0f) || (yw > a.nym);
 }
 
-// One draw for particle i: read from the injected (rows, n) array, or made
-// in registers from the key.
-__device__ __forceinline__ float draw_at(const float* injected, uint32_t k0,
-                                         uint32_t k1, const AdvanceArgs& a,
-                                         long long i, int row) {
-  if (injected != nullptr)
-    return injected[static_cast<size_t>(row) * a.n + i];
-  return fp::normal_at(k0, k1, a.offset + i, static_cast<uint32_t>(row));
+// Draw `row` of particle i from an injected (rows, n) array.
+__device__ __forceinline__ float injected_at(const float* d,
+                                             const AdvanceArgs& a, long long i,
+                                             int row) {
+  return d[static_cast<size_t>(row) * a.n + i];
 }
 
-// Draw `row` of draw site `site` (tags 6, 1, 2, 3, 4; a constant).
-__device__ __forceinline__ float draw(const Draws& dr, const AdvanceArgs& a,
-                                      int site, long long i, int row) {
-  return draw_at(dr.d[site], a.key[2 * site], a.key[2 * site + 1], a, i, row);
+// The Philox words of rows 4 * block .. 4 * block + 3 of particle i at draw
+// site `site` (0-4 for the tags 6, 1, 2, 3, 4), for fp::normal_pair.
+__device__ __forceinline__ void site_words(uint32_t w[4], const AdvanceArgs& a,
+                                           int site, long long i,
+                                           uint32_t block) {
+  fp::normal_words(w, a.key[2 * site], a.key[2 * site + 1], a.offset + i, block);
 }
 
 template <bool BF16, bool TS>
@@ -395,6 +398,8 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
   __syncthreads();
 
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // parity mode: all five draw pointers are given, or none
+  const bool injected = dr.d[0] != nullptr;
   bool keep = false;
   bool exited = false;
   if (i < a.n) {
@@ -446,12 +451,23 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
       // newly released particles (initialize.f90:110-219)
       const bool fresh = (in.itramem[i] == a.itime) || (a.itime == 0);
       if (fresh) {
-        const float r0 = draw(dr, a, 0, i, 0);
-        const float r1 = draw(dr, a, 0, i, 1);
-        const float r2 = draw(dr, a, 0, i, 2);
-        const float r3 = draw(dr, a, 0, i, 3);
-        const float r4 = draw(dr, a, 0, i, 4);
-        const float r5 = draw(dr, a, 0, i, 5);
+        // tag 6 rows 0-5: two Philox calls, three radii
+        float r0, r1, r2, r3, r4, r5;
+        if (injected) {
+          r0 = injected_at(dr.d[0], a, i, 0);
+          r1 = injected_at(dr.d[0], a, i, 1);
+          r2 = injected_at(dr.d[0], a, i, 2);
+          r3 = injected_at(dr.d[0], a, i, 3);
+          r4 = injected_at(dr.d[0], a, i, 4);
+          r5 = injected_at(dr.d[0], a, i, 5);
+        } else {
+          uint32_t w6[4];
+          site_words(w6, a, 0, i, 0);
+          fp::normal_pair(w6[0], w6[1], r0, r1);
+          fp::normal_pair(w6[2], w6[3], r2, r3);
+          site_words(w6, a, 0, i, 1);
+          fp::normal_pair(w6[0], w6[1], r4, r5);
+        }
         if (pbl) {
           up = r0 * t0.sigu;
           vp = r1 * t0.sigv;
@@ -472,19 +488,31 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
       // stratosphere) and row 2 (above the troposphere).  They are made at
       // one place with the site chosen per thread, so that a warp holding
       // both kinds of particle runs the generator once, not once per branch.
+      // Above the boundary layer all three rows come from one Philox call
+      // (tag 3, block 0); in it d0, d1 from tag 1's block 0 and d2 from tag
+      // 2's, whose words `pw` the substep loop goes on reading.
       const bool in_trop = z < tropop;
       const bool in_trans = !in_trop && (z < tropop + 1000.0f);
-      float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f;
-      if (pbl || in_trop || in_trans) {
+      const bool need01 = pbl || in_trop || in_trans;
+      const bool need2 = pbl || !in_trop;
+      float d0 = 0.0f, d1 = 0.0f, d2 = 0.0f, d2_odd = 0.0f;
+      uint32_t pw[4] = {0u, 0u, 0u, 0u};
+      if (injected) {
         const float* from = pbl ? dr.d[1] : dr.d[3];
-        const uint32_t k0 = pbl ? a.key[2] : a.key[6];
-        const uint32_t k1 = pbl ? a.key[3] : a.key[7];
-        d0 = draw_at(from, k0, k1, a, i, 0);
-        d1 = draw_at(from, k0, k1, a, i, 1);
+        if (need01) {
+          d0 = injected_at(from, a, i, 0);
+          d1 = injected_at(from, a, i, 1);
+        }
+        if (need2)
+          d2 = pbl ? injected_at(dr.d[2], a, i, 0) : injected_at(from, a, i, 2);
+      } else {
+        site_words(pw, a, pbl ? 1 : 3, i, 0u);
+        if (need01) fp::normal_pair(pw[0], pw[1], d0, d1);
+        if (need2) {
+          if (pbl) site_words(pw, a, 2, i, 0u);
+          fp::normal_pair(pbl ? pw[0] : pw[2], pbl ? pw[1] : pw[3], d2, d2_odd);
+        }
       }
-      if (pbl || !in_trop)
-        d2 = draw_at(pbl ? dr.d[2] : dr.d[3], pbl ? a.key[4] : a.key[6],
-                     pbl ? a.key[5] : a.key[7], a, i, pbl ? 0 : 2);
 
       float dxsave, dysave, dawsave, dcwsave;
       if (pbl) {
@@ -504,7 +532,22 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
         Turb t = t0;
         float zz = z;
         for (int s = 0; s < a.ifine; ++s) {
-          const float rnd = s == 0 ? d2 : draw(dr, a, 2, i, s);
+          // tag 2 row s: row 0 is d2; an odd row was made with the even
+          // row before it; every fourth row starts a new Philox call
+          float rnd = d2;
+          if (s > 0) {
+            if (injected) {
+              rnd = injected_at(dr.d[2], a, i, s);
+            } else if (s % fp::ROWS_PER_PAIR) {
+              rnd = d2_odd;
+            } else {
+              if (s % fp::ROWS_PER_BLOCK == 0)
+                site_words(pw, a, 2, i,
+                           static_cast<uint32_t>(s / fp::ROWS_PER_BLOCK));
+              const bool hi = (s % fp::ROWS_PER_BLOCK) != 0;
+              fp::normal_pair(hi ? pw[2] : pw[0], hi ? pw[3] : pw[1], rnd, d2_odd);
+            }
+          }
           const float icbtf = static_cast<float>(cbt);
           float wp_new, delz;
           if (TS) {
@@ -564,9 +607,22 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
       }
 
       // mesoscale fluctuations (advance.f90:720-738)
-      usig = a.r_meso * usig + ((a.rs_meso * draw(dr, a, 4, i, 0)) * usig_m) * a.turbmeso;
-      vsig = a.r_meso * vsig + ((a.rs_meso * draw(dr, a, 4, i, 1)) * vsig_m) * a.turbmeso;
-      wsig = a.r_meso * wsig + ((a.rs_meso * draw(dr, a, 4, i, 2)) * wsig_m) * a.turbmeso;
+      // tag 4 rows 0-2: one Philox call, two radii
+      float m0, m1, m2;
+      if (injected) {
+        m0 = injected_at(dr.d[4], a, i, 0);
+        m1 = injected_at(dr.d[4], a, i, 1);
+        m2 = injected_at(dr.d[4], a, i, 2);
+      } else {
+        uint32_t w4[4];
+        float unused;
+        site_words(w4, a, 4, i, 0u);
+        fp::normal_pair(w4[0], w4[1], m0, m1);
+        fp::normal_pair(w4[2], w4[3], m2, unused);
+      }
+      usig = a.r_meso * usig + ((a.rs_meso * m0) * usig_m) * a.turbmeso;
+      vsig = a.r_meso * vsig + ((a.rs_meso * m1) * vsig_m) * a.turbmeso;
+      wsig = a.r_meso * wsig + ((a.rs_meso * m2) * wsig_m) * a.turbmeso;
       dxsave = dxsave + usig * dt;
       dysave = dysave + vsig * dt;
       z_new = fabsf(z_new + wsig * dt);

@@ -8,6 +8,12 @@ twin ``conccalc_plain`` on the CPU.  Both add into ``acc.gridunc`` in
 place (JAX returns a new array) and return ``acc`` with ``outnum``
 advanced.  Out-of-range cells are dropped: the twin filters the JAX 2**30
 sentinel before ``index_add_``, the kernel skips it.
+
+K3 sums in two levels: the ``K3_GROUP`` consecutive particles of a warp
+first add up, in registers, the values that go to the same row of
+``gridunc``, and one lane sends one global atomic per distinct row, so
+particles kept in cell order (``core/reorder.py``) cost a fraction of the
+global atomics that their pairs number; ``conccalc_pairs`` names the pairs.
 """
 
 from __future__ import annotations
@@ -24,6 +30,10 @@ from ..met.fields import ZFields, F3_RHO
 from .outgrid import Accumulators
 
 _SENTINEL = 2 ** 30
+# consecutive particles whose pairs K3 sums before its global atomics (a
+# warp of csrc/conccalc.cu, one thread per particle)
+K3_GROUP = 32
+K3_MAX_ROWS = 0xFFFFFFFF - 32     # MAX_ROWS of csrc/conccalc.cu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,11 +88,14 @@ def _rho_at_particles(p: Particles, zf: ZFields) -> torch.Tensor:
     return rho_lo * (1.0 - dz1) + rho_hi * dz1
 
 
-def conccalc_plain(flat: torch.Tensor, p: Particles, itime: int,
+def conccalc_pairs(rows: int, p: Particles, itime: int,
                    lage: torch.Tensor, outheight: torch.Tensor,
                    weight: float, rhoi: torch.Tensor | None,
-                   cfg: ConcConfig) -> None:
-    """Plain twin of K3: accumulate into ``flat`` (rows, nspec) in place."""
+                   cfg: ConcConfig):
+    """What each particle adds to a flat gridunc of ``rows`` rows: target
+    rows ``lin`` (N, T) int64, their validity (N, T) and the values
+    (N, T, nspec), T = 1 on the single-index path and 4 on the kernel
+    path."""
     n = p.capacity
     live = p.active & (p.itra == itime)
     x, y, z = p.x, p.y, p.z
@@ -109,7 +122,6 @@ def conccalc_plain(flat: torch.Tensor, p: Particles, itime: int,
     kp = p.npoint if cfg.ioutputforeachrelease else torch.zeros_like(p.npoint)
     cell = (((nage_idx * cfg.nclassunc + p.nclass) * cfg.npointspec + kp)
             * cfg.nzg + kz)
-    rows = flat.shape[0]
 
     if not cfg.kernel_possible:
         in_grid = (ix >= 0) & (ix < cfg.nxg) & (jy >= 0) & (jy < cfg.nyg)
@@ -117,8 +129,7 @@ def conccalc_plain(flat: torch.Tensor, p: Particles, itime: int,
         valid = live & in_z & in_grid & (lin >= 0) & (lin < rows)
         m = p.mass / rhoi[:, None] if rhoi is not None else p.mass
         contrib = m * weight
-        flat.index_add_(0, lin[valid], contrib[valid])
-        return
+        return lin[:, None], valid[:, None], contrib[:, None, :]
 
     ddx = xl - ix
     ddy = yl - jy
@@ -132,7 +143,7 @@ def conccalc_plain(flat: torch.Tensor, p: Particles, itime: int,
     cy = torch.stack([jy, jyp, jy, jyp], dim=1)
     w4 = torch.stack([wx * wy, wx * (1 - wy), (1 - wx) * wy,
                       (1 - wx) * (1 - wy)], dim=1)
-    one_hot = torch.zeros((n, 4), dtype=torch.float32, device=flat.device)
+    one_hot = torch.zeros((n, 4), dtype=torch.float32, device=p.device)
     one_hot[:, 0] = 1.0
     w4 = torch.where(direct[:, None], one_hot, w4)
     in_grid = (cx >= 0) & (cx < cfg.nxg) & (cy >= 0) & (cy < cfg.nyg)
@@ -141,6 +152,16 @@ def conccalc_plain(flat: torch.Tensor, p: Particles, itime: int,
              & (lin >= 0) & (lin < rows))
     wr = w4 / rhoi[:, None] if rhoi is not None else w4
     contrib = (wr[..., None] * p.mass[:, None, :]) * weight      # (N, 4, ns)
+    return lin, valid, contrib
+
+
+def conccalc_plain(flat: torch.Tensor, p: Particles, itime: int,
+                   lage: torch.Tensor, outheight: torch.Tensor,
+                   weight: float, rhoi: torch.Tensor | None,
+                   cfg: ConcConfig) -> None:
+    """Plain twin of K3: accumulate into ``flat`` (rows, nspec) in place."""
+    lin, valid, contrib = conccalc_pairs(flat.shape[0], p, itime, lage,
+                                         outheight, weight, rhoi, cfg)
     flat.index_add_(0, lin[valid], contrib[valid])
 
 
@@ -165,6 +186,9 @@ def conccalc_cuda(flat: torch.Tensor, p: Particles, itime: int,
                              f"{dt} with {n} rows on {dev}")
     if p.mass.shape[1] != flat.shape[1]:
         raise ValueError("K3: mass species do not match gridunc")
+    if flat.shape[0] > K3_MAX_ROWS:
+        raise ValueError(f"K3 matches gridunc rows by a 32-bit index: "
+                         f"{flat.shape[0]} rows exceed {K3_MAX_ROWS}")
     for t, dt, name in ((lage, i32, "lage"), (outheight, f32, "outheight"),
                         (flat, f32, "gridunc")):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():

@@ -307,3 +307,33 @@ def test_cuda_particles_never_take_the_plain_version(setup, monkeypatch):
                      tables=tables)
     tadv.advance_chunked(tp, t0, t1, 0, 0, MEM1, trng.Key(1, 0), tcfg, tprm, 4)
     assert calls == ["cuda", "cuda"]     # chunked: one launch, not four
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_own_draws_equal_injected_normals(setup, name):
+    """The plain advance drawing for itself equals the plain advance fed
+    ``rng.normals`` of the same key, tag by tag, with the rows each site
+    reads (as the advance kernel's draws in registers must equal the
+    normals kernel's): bitwise, at a chunk offset."""
+    grid, _, (t0, t1), p = setup
+    kw = CONFIGS[name]
+    _, _, tcfg, tprm = _cfgs(grid, kw)
+    tp = interop.particles_from_numpy(
+        {k: np.asarray(v) for k, v in p._asdict().items()}, "cpu")
+    key = trng.Key(31, 6)
+    offset = 3 * N
+    rows = {**tadv.DRAW_ROWS, 2: kw["ifine"]}
+    assert set(rows) == set(tadv.DRAW_TAGS)
+    draws = {t: trng.normals(key, (r, N), t, offset, device="cpu")
+             for t, r in rows.items()}
+    own, d_own = tadv.advance_all(tp, t0, t1, LSYNC, 0, MEM1, key, tcfg,
+                                  tprm, offset=offset)
+    fed, d_fed = tadv.advance_all(tp, t0, t1, LSYNC, 0, MEM1, key, tcfg,
+                                  tprm, draws=draws, offset=offset)
+    for f in tadv.OUT_FIELDS:
+        np.testing.assert_array_equal(getattr(own, f).numpy(),
+                                      getattr(fed, f).numpy(), err_msg=f)
+    assert int(d_own.n_active) == int(d_fed.n_active)
+    other, _ = tadv.advance_all(tp, t0, t1, LSYNC, 0, MEM1, key, tcfg, tprm,
+                                offset=0)
+    assert not np.array_equal(other.up.numpy(), own.up.numpy())

@@ -21,7 +21,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from flexpart_tpu_torch import _build  # noqa: E402
-from flexpart_tpu_torch.core import advance, interp, reorder, state  # noqa: E402
+from flexpart_tpu_torch.core import advance, interp, reorder, rng, state  # noqa: E402
+from flexpart_tpu_torch.grid import conccalc  # noqa: E402
 
 KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
          ctypes.c_int64: "int64", ctypes.c_uint32: "uint32",
@@ -168,7 +169,50 @@ def test_normals_and_advance_share_the_philox_header():
     for name in ("normals", "advance"):
         text = _kernel(name).source.read_text()
         assert "philox4x32_10(" not in text.replace("fp::", "")
-        assert "fp::normal_at(" in text
+        assert "logf(" not in text and "sincosf(" not in text
+        assert "fp::normal_words(" in text and "fp::normal_pair(" in text
+
+
+def test_philox_lane_layout_matches_the_plain_version():
+    """Four rows to a Philox call, two to a radius; words (0, 1) make the
+    first pair of rows and (2, 3) the second, cos before sin: the header,
+    the stand-alone kernel and ``core/rng.py`` say the same."""
+    header = _strip_comments((_build.CSRC / "philox_normal.cuh").read_text())
+    for name, value in (("ROWS_PER_BLOCK", rng.ROWS_PER_BLOCK),
+                        ("ROWS_PER_PAIR", rng.ROWS_PER_PAIR)):
+        m = re.search(r"constexpr\s+int\s+%s\s*=\s*(\d+)\s*;" % name, header)
+        assert int(m.group(1)) == value, name
+    assert (rng.ROWS_PER_BLOCK, rng.ROWS_PER_PAIR) == (4, 2)
+    assert re.search(r"w\[1\] = block;", header)
+    assert re.search(r"z_even = fminf\(fmaxf\(r \* c,", header)
+    assert re.search(r"z_odd = fminf\(fmaxf\(r \* s,", header)
+    assert "sincosf(two_pi * u2, &s, &c)" in header
+    assert "cosf(" not in header.replace("sincosf(", "")
+    k1 = _strip_comments(_build.NORMALS.source.read_text())
+    assert "row += fp::ROWS_PER_BLOCK" in k1
+    assert "row / fp::ROWS_PER_BLOCK" in k1
+    assert "fp::normal_pair(w[0], w[1], z0, z1)" in k1
+    assert "fp::normal_pair(w[2], w[3], z0, z1)" in k1
+
+
+def test_conccalc_sums_per_warp():
+    """K3 sums the pairs of one warp before its global atomics: one thread
+    per particle, so ``K3_GROUP`` consecutive particles, which is what the
+    count of (warp, target) pairs on the card assumes."""
+    text = _strip_comments(_build.CONCCALC.source.read_text())
+    assert conccalc.K3_GROUP == 32
+    threads = int(re.search(r"constexpr\s+int\s+THREADS\s*=\s*(\d+)\s*;",
+                            text).group(1))
+    assert threads % conccalc.K3_GROUP == 0
+    assert "blockIdx.x) * THREADS + threadIdx.x" in text
+    assert "(n + THREADS - 1) / THREADS" in text
+    assert "threadIdx.x & %du" % (conccalc.K3_GROUP - 1) in text
+    assert "__match_any_sync(" in text and "__shfl_sync(" in text
+    assert "__shared__" not in text
+    assert "MAX_ROWS = 0x%Xll - 32;" % 0xFFFFFFFF in text
+    assert conccalc.K3_MAX_ROWS == 0xFFFFFFFF - 32
+    assert "rows > MAX_ROWS" in text
+    assert text.count("atomicAdd(") == 1
 
 
 def test_advance_args_struct_matches_the_source():
