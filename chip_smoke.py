@@ -21,9 +21,11 @@ the port's stock forward step on the card, in phases:
                 old and half of them, with the global atomics it would
                 make without its per-warp sums (the (particle, target)
                 pairs) and with them (the distinct (warp, target) pairs);
-                the cell-order sort must give a permutation in key order
-                that moves every field bitwise, and the advance must
-                commute with it;
+                the cell-order sort must give the stable argsort of the
+                cell keys as its permutation and the plain version's
+                particles, bitwise, on four inputs (shuffled, 16 steps
+                after a sort, every slot unscheduled, a release step) and
+                twice in a row, and the advance must commute with it;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
                 with the same draws; and the advance kernel with its draws
@@ -43,7 +45,23 @@ the port's stock forward step on the card, in phases:
                 reset just before and read just after;
   7. profile  — REORDER_EVERY more steady steps (one sort among them)
                 under torch.profiler: CUDA launches per step, device time
-                by kernel with the sort's share, device busy share.
+                by kernel with the sort's share, device busy share;
+  8. sim      — the port's Simulation.run at full width: 10 x 2**20
+                particles released from one box over the first hour, three
+                hours on SyntheticMet on a 361x141x30 grid that stops at 70
+                degrees, hourly npz (and netCDF where h5py imports) output;
+                twice with one seed: the runs must end in bitwise equal
+                particles, all particles active, the mass recovered from
+                the last file 1 within 1e-3.  The first run carries no
+                probe and is timed as a whole; the second, under
+                torch.profiler and synchronised at the top of every step,
+                gives the section timers, the step time during and after
+                the release, the device time of each kernel per call, the
+                sorts, and the share of active particles out of cell order
+                at the top of each step, and keeps the ensemble and the met
+                fields of one release step and of one steady step: on
+                those, K2, K5, K3 and K4 (injected draws) are held against
+                their plain versions at the kernels phase's tolerances.
 
 Prints one JSON object per phase, then a {"kernels": [...]} line, the
 nvidia-smi name/power line, and as the last line
@@ -627,36 +645,59 @@ def kernel_advance(device, grid) -> dict:
 
 
 def check_sorted(p, q, perm, height, cfg, what: str) -> None:
-    """The cell-order sort's contract: ``perm`` names every slot once, every
-    field of ``q`` is ``p[perm]`` bitwise, the keys of ``q`` never decrease
-    and the particles that are not scheduled come last."""
+    """The cell-order sort's contract: ``perm`` is the stable argsort of the
+    cell keys, bitwise (so it names every slot once, the keys of ``q`` never
+    decrease, equal keys keep their slot order and the particles that are
+    not scheduled come last), and every field of ``q`` is ``p[perm]``
+    bitwise."""
     import torch
     from flexpart_tpu_torch.core import reorder
     from flexpart_tpu_torch.core.state import FIELDS
     n = p.capacity
-    check(perm.shape == (n,) and int(perm.min()) >= 0 and int(perm.max()) < n,
-          f"{what}: perm out of range")
-    seen = torch.zeros(n, dtype=torch.int32, device=perm.device)
-    seen.index_add_(0, perm.long(), torch.ones_like(seen))
-    check(bool((seen == 1).all()), f"{what}: perm is not a permutation, "
-          f"{int((seen != 1).sum())} slots named 0 or several times")
-    check_same_bits(q, reorder.apply_perm(p, perm), f"{what}: out vs in[perm]",
+    check(perm.shape == (n,) and perm.dtype == torch.int32,
+          f"{what}: perm is {perm.dtype} {tuple(perm.shape)}")
+    want = torch.argsort(reorder.cell_keys(p, height, cfg), stable=True)
+    differ = int((perm.long() != want).sum())
+    check(differ == 0, f"{what}: perm differs from the stable argsort of the "
+          f"keys in {differ} of {n} slots")
+    check_same_bits(q, reorder.apply_perm(p, want), f"{what}: out vs in[perm]",
                     FIELDS)
-    keys = reorder.cell_keys(q, height, cfg)
-    check(bool((keys[1:] >= keys[:-1]).all()), f"{what}: keys decrease at "
-          f"{int((keys[1:] < keys[:-1]).sum())} places")
     n_on = int(p.active.sum())
     check(bool(q.active[:n_on].all()) and not bool(q.active[n_on:].any()),
           f"{what}: unscheduled particles are not last")
 
 
+def release_step_particles(n: int, n_fresh: int, device, seed: int):
+    """What the sort meets on a release step: ``n_fresh`` particles just
+    woken inside a 2 x 2 degree box, in the last slots (a schedule is built
+    in box order), and every other slot not scheduled yet."""
+    import torch
+    p = bench_particles(n, device, seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 2)
+
+    def u(lo, hi):
+        return torch.rand(n_fresh, generator=gen, device=device) * (hi - lo) + lo
+
+    x, y, z = p.x_hi.clone(), p.y_hi.clone(), p.z.clone()
+    x[n - n_fresh:] = u(180.0, 182.0)
+    y[n - n_fresh:] = u(130.0, 132.0)
+    z[n - n_fresh:] = u(50.0, 500.0)
+    active = torch.zeros_like(p.active)
+    active[n - n_fresh:] = True
+    return p.replace(x_hi=x, y_hi=y, z=z, active=active)
+
+
 def kernel_reorder(device, grid) -> dict:
-    """K5 against its contract and its plain version on the card: at one
-    2**19 chunk of edge_particles (1/64 not scheduled), where K4 on K5's
-    output with the injected draws permuted alike must equal K4 on the
-    unordered input, permuted, bitwise; and at the main path's shape, timed
-    on the shuffled ensemble and as the main path gives it, REORDER_EVERY
-    steps after a sort."""
+    """K5 against its plain version on the card.  At one 2**19 chunk of
+    edge_particles (1/64 not scheduled): K4 on K5's output with the injected
+    draws permuted alike must equal K4 on the unordered input, permuted,
+    bitwise.  At the main path's shape, on four inputs (the shuffled
+    ensemble; the main path's, REORDER_EVERY steps after a sort; every slot
+    unscheduled; a release step): ``perm`` must equal the stable argsort of
+    the keys and every field the plain version's, bitwise, and a second
+    launch must give the same ``perm``; each input is timed beside the
+    plain version, ``torch.argsort`` of its keys, and its bound."""
     import torch
     from flexpart_tpu_torch.core import advance, interp, reorder, rng
     from flexpart_tpu_torch.core.state import FIELDS
@@ -677,11 +718,6 @@ def kernel_reorder(device, grid) -> dict:
     q, perm = reorder.reorder_by_cell_cuda(p, height, cfg)
     torch.cuda.synchronize()
     check_sorted(p, q, perm, height, cfg, "K5 edge particles")
-    q_plain, perm_plain = reorder.reorder_by_cell_plain(p, height, cfg)
-    check_sorted(p, q_plain, perm_plain, height, cfg, "K5 plain version")
-    check(torch.equal(reorder.cell_keys(q, height, cfg),
-                      reorder.cell_keys(q_plain, height, cfg)),
-          "K5 and its plain version order the cells differently")
     draws = {tag: rng.normals(key, (rows, CHUNK), tag, device=device)
              for tag, rows in {**advance.DRAW_ROWS, 2: cfg.ifine}.items()}
     idx = perm.long()
@@ -689,35 +725,63 @@ def kernel_reorder(device, grid) -> dict:
     check_same_bits(k4(q, draws_q), reorder.apply_perm(k4(p, draws), perm),
                     "K4 on K5's output vs K4 on the unordered input, permuted")
     n_unscheduled = int((~p.active).sum())
-    del p, q, q_plain, draws, draws_q
+    del p, q, draws, draws_q
     torch.cuda.empty_cache()
 
-    p = bench_particles(N_MAIN, device, seed=3, old_fraction=1.0)
-    q, perm = reorder.reorder_by_cell_cuda(p, height, cfg)
-    check_sorted(p, q, perm, height, cfg, "K5 at the main path's shape")
-    shuffled_ms = cuda_ms(lambda: reorder.reorder_by_cell_cuda(p, height, cfg), 3)
-    del p, perm
+    # every field read once and written once, perm written; the pairs and
+    # the digit counts are scratch.  On a shuffled ensemble every field of a
+    # particle comes from a 32 B sector of its own.
+    shuffled = bench_particles(N_MAIN, device, seed=3, old_fraction=1.0)
+    widths = [getattr(shuffled, f)[0].numel() * getattr(shuffled, f).element_size()
+              for f in FIELDS]
+    n_bytes = (2 * sum(widths) + 4) * N_MAIN + 4 * grid.nlev
+    sector_bytes = (sum(32 * -(-w // 32) for w in widths) + sum(widths) + 4) \
+        * N_MAIN
+    ordered = reorder.reorder_by_cell_cuda(shuffled, height, cfg)[0]
     for s in range(reorder.REORDER_EVERY):
-        q = k4(q, k=rng.Key(4321, 10 + s))
-    r, perm = reorder.reorder_by_cell_cuda(q, height, cfg)
-    check_sorted(q, r, perm, height, cfg,
-                 f"K5 {reorder.REORDER_EVERY} steps after a sort")
-    moved = float((perm != torch.arange(N_MAIN, dtype=torch.int32,
-                                        device=device)).float().mean())
-    del r, perm
-    keys = reorder.cell_keys(q, height, cfg)
-    n_bytes = 2 * sum(getattr(q, f).numel() * getattr(q, f).element_size()
-                      for f in FIELDS) + 4 * N_MAIN + 4 * grid.nlev
-    # every field read once and written once, perm written; keys and bins
-    # are scratch
+        ordered = k4(ordered, k=rng.Key(4321, 10 + s))
+    inputs = {
+        "shuffled": shuffled,
+        "ordered": ordered,
+        "all_unscheduled": shuffled.replace(
+            active=torch.zeros_like(shuffled.active)),
+        "release_step": release_step_particles(N_MAIN, N_STEP4, device, 3),
+    }
+    del shuffled, ordered
+    cases = {}
+    for name, p in inputs.items():
+        what = f"K5 at the main path's shape, {name}"
+        q, perm = reorder.reorder_by_cell_cuda(p, height, cfg)
+        check_sorted(p, q, perm, height, cfg, what)
+        q_plain, perm_plain = reorder.reorder_by_cell_plain(p, height, cfg)
+        check(torch.equal(perm, perm_plain), f"{what}: perm vs the plain version's")
+        check_same_bits(q, q_plain, f"{what}: fields vs the plain version's",
+                        FIELDS)
+        del q, q_plain, perm_plain
+        check(torch.equal(reorder.reorder_by_cell_cuda(p, height, cfg)[1], perm),
+              f"{what}: two launches give different perms")
+        keys = reorder.cell_keys(p, height, cfg)
+        cases[name] = dict(
+            scheduled=int(p.active.sum()),
+            occupied_bins=int(torch.unique(keys).numel()),
+            slots_moved_share=float((perm != torch.arange(
+                N_MAIN, dtype=torch.int32, device=device)).float().mean()),
+            ms=cuda_ms(lambda: reorder.reorder_by_cell_cuda(p, height, cfg), 5),
+            plain_ms=cuda_ms(lambda: reorder.reorder_by_cell_plain(
+                p, height, cfg), 2),
+            library_ms=cuda_ms(lambda: torch.argsort(keys, stable=True), 3),
+            **bound(n_bytes, K5_OPS_PER_PARTICLE * N_MAIN))
+        del keys, perm
+        torch.cuda.empty_cache()
+    cases["shuffled"]["sector_bound_ms"] = sector_bytes / HBM_BYTES_PER_S * 1e3
+    steady = cases["ordered"]
     return dict(
         max_abs_err=0.0, n=N_MAIN, steps_after_sort=reorder.REORDER_EVERY,
-        slots_moved_share=moved, edge_unscheduled=n_unscheduled,
-        ms=cuda_ms(lambda: reorder.reorder_by_cell_cuda(q, height, cfg), 10),
-        plain_ms=cuda_ms(lambda: reorder.reorder_by_cell_plain(q, height, cfg), 2),
-        library_ms=None, shuffled_ms=shuffled_ms,
-        argsort_of_keys_ms=cuda_ms(lambda: torch.argsort(keys), 3),
-        **bound(n_bytes, K5_OPS_PER_PARTICLE * N_MAIN))
+        edge_unscheduled=n_unscheduled, cases=cases,
+        **{f: steady[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by", "bound_bytes",
+                                  "bound_operations", "slots_moved_share")},
+        shuffled_ms=cases["shuffled"]["ms"])
 
 
 def phase_reorder(device, grid) -> dict:
@@ -928,30 +992,38 @@ def phase_main(device, grid, kernels) -> tuple[dict, dict]:
 
 
 # the device functions of csrc/reorder.cu, as the profiler names them
-SORT_KERNELS = ("key_hist_kernel", "scan_tile_sums_kernel", "scan_sums_kernel",
-                "scan_tiles_kernel", "rank_kernel", "gather_kernel")
+SORT_KERNELS = ("key_kernel", "digit_count_kernel", "scan_tile_sums_kernel",
+                "scan_sums_kernel", "scan_tiles_kernel", "scatter_kernel",
+                "gather_kernel")
 
 
-def profile_steps(steps, first: int, count: int) -> dict:
-    """``count`` more steady steps under torch.profiler: CUDA kernels per
-    step, device time by kernel (the sort's kernels also summed) and the
-    share of the window the card was busy."""
+def device_rows(prof) -> list:
+    """(kernel name, launches, device ms) of a torch.profiler profile, the
+    device-side rows only, longest first."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        steps(first, count)
-    t0 = time.perf_counter()
-    steps(first + count, count)
-    unprofiled = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:     # device-side rows only
+        if e.device_type != DeviceType.CUDA:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
         rows.append((e.key, e.count, us / 1e3))
     rows.sort(key=lambda r: -r[2])
+    return rows
+
+
+def profile_steps(steps, first: int, count: int) -> dict:
+    """``count`` more steady steps under torch.profiler: CUDA kernels per
+    step, device time by kernel (the sort's kernels also summed) and the
+    share of the window the card was busy."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        steps(first, count)
+    t0 = time.perf_counter()
+    steps(first + count, count)
+    unprofiled = time.perf_counter() - t0
+    rows = device_rows(prof)
     device_ms = sum(r[2] for r in rows)
     sort = [r for r in rows if any(w in r[0] for w in SORT_KERNELS)]
     return dict(steps=count, unprofiled_step_s=unprofiled / count,
@@ -962,6 +1034,346 @@ def profile_steps(steps, first: int, count: int) -> dict:
                 sort_ms_per_step=sum(r[2] for r in sort) / count,
                 top=[dict(name=k[:60], calls=c / count, ms=ms / count)
                      for k, c, ms in rows[:12]])
+
+
+
+# ------------------------------------------------------------ Simulation --
+
+SIM_GRID = dict(nx=361, ny=141, nlev=30, dx=1.0, dy=1.0, xlon0=-180.0,
+                ylat0=-70.0)
+SIM_HOURS = 3
+SIM_DIR = ROOT / "build" / "sim_smoke"
+
+
+def sim_setup(outdir, device, write_netcdf: bool, **kw):
+    """The port's Simulation at full width: 10 x 2**20 particles released
+    from a 2 x 2 degree box over the first hour, three hours of 900 s steps
+    on SyntheticMet, on a cyclic 1-degree grid that stops at 70 degrees (no
+    polar cap), hourly output on the main phase's 0.5-degree, 3-layer grid
+    cut to the met grid's latitudes."""
+    from flexpart_tpu_torch import Simulation, SyntheticMet, make_grid
+    from flexpart_tpu_torch.config import (Command, OutGrid, ReleaseBox,
+                                           Releases, Species)
+    grid = make_grid(**SIM_GRID)
+    cmd = Command(ibdate=20200101, ibtime=0, iedate=20200101,
+                  ietime=SIM_HOURS * 10000, lsynctime=LSYNC, loutstep=3600,
+                  loutaver=3600, loutsample=900, lconvection=0, lsubgrid=0)
+    box = ReleaseBox(idate1=20200101, itime1=0, idate2=20200101, itime2=10000,
+                     lon1=0.0, lon2=2.0, lat1=40.0, lat2=42.0, z1=50.0,
+                     z2=500.0, mass=(1.0,), parts=N_MAIN)
+    og = OutGrid(outlon0=-180.0, outlat0=-70.0, numxgrid=720, numygrid=280,
+                 dxout=0.5, dyout=0.5, outheights=(100.0, 1000.0, 50000.0))
+    return Simulation(cmd=cmd, releases=Releases(species=(Species(),),
+                                                 boxes=(box,)),
+                      grid=grid, met_backend=SyntheticMet(grid), outgrid=og,
+                      outdir=str(outdir), device=device,
+                      write_netcdf=write_netcdf, **kw)
+
+
+def sim_kernel_checks(sim, snap, what: str) -> dict:
+    """K2, K5, K4 and K3 against their plain versions on the tensors that
+    one step of ``Simulation.run`` gave them: ``snap`` is (istep, itime,
+    particles after the step's release and before its sort, z0, z1, mt0,
+    mt1) as the step probe saw them.  The order is the step's: the tables
+    of its time weights, the sort, then on the sorted particles the
+    sampling (the step's own path and the 4-point path) and the advance
+    with the step's key, fed injected draws on both sides and once more
+    with its draws made in registers.  Tolerances as in the kernels phase,
+    but for the sampling, which is held to the float64 sum of its pairs;
+    every check is fatal."""
+    import torch
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    from flexpart_tpu_torch.core.state import FIELDS
+    from flexpart_tpu_torch.grid import conccalc as cc
+    istep, itime, p, z0, z1, mt0, mt1 = snap
+    cfg, prm, device = sim.step_cfg, sim.step_prm, sim.device
+    height = z0.height
+    n = p.capacity
+    res = dict(istep=istep, itime=itime, scheduled=int(p.active.sum()),
+               occupied_met_cells=unique_rows(p, height, cfg))
+
+    # K2: bitwise
+    tw = advance._time_weights(itime, mt0, mt1, prm, cfg)[:4]
+    targs = (z0.f3d, z1.f3d, z0.f2d, z1.f2d, *tw, cfg.table_dtype)
+    tk = interp.quad_tables_cuda(*targs)
+    tp = interp.quad_tables_plain(*targs)
+    bits = torch.int16 if cfg.table_dtype == torch.bfloat16 else torch.int32
+    for name in ("rows", "rowsE"):
+        x, y = getattr(tk, name), getattr(tp, name)
+        differ = int((x.view(bits) != y.view(bits)).sum())
+        check(x.shape == y.shape and differ == 0,
+              f"{what}: K2 {name} differs from the plain version in "
+              f"{differ} values")
+    res["quad_tables"] = dict(
+        max_abs_err=0.0, ms=cuda_ms(lambda: interp.quad_tables_cuda(*targs), 10),
+        plain_ms=cuda_ms(lambda: interp.quad_tables_plain(*targs), 3))
+
+    # K5: perm and every field bitwise, twice
+    q, perm = reorder.reorder_by_cell_cuda(p, height, cfg)
+    check_sorted(p, q, perm, height, cfg, f"{what}: K5")
+    q_plain, perm_plain = reorder.reorder_by_cell_plain(p, height, cfg)
+    check(torch.equal(perm, perm_plain), f"{what}: K5 perm vs the plain version's")
+    check_same_bits(q, q_plain, f"{what}: K5 fields vs the plain version's",
+                    FIELDS)
+    check(torch.equal(reorder.reorder_by_cell_cuda(p, height, cfg)[1], perm),
+          f"{what}: K5 gives two perms on one input")
+    del q_plain, perm_plain
+    res["reorder"] = dict(
+        max_abs_err=0.0,
+        slots_moved_share=float((perm != torch.arange(
+            n, dtype=torch.int32, device=device)).float().mean()),
+        ms=cuda_ms(lambda: reorder.reorder_by_cell_cuda(p, height, cfg), 5),
+        plain_ms=cuda_ms(lambda: reorder.reorder_by_cell_plain(p, height, cfg),
+                         2))
+    del perm
+
+    # K3 on the sorted particles, as the step samples them
+    step_ccfg = sim._ccfg_at(itime, sim.conc_cfg)
+    oh = torch.tensor(sim.outgrid.outheights, dtype=torch.float32,
+                      device=device)
+    rhoi = cc._rho_at_particles(q, z1) if step_ccfg.ind_samp == -1 else None
+    gk = torch.zeros_like(sim.acc.gridunc)
+    gp = torch.zeros_like(gk)
+    flat_k, flat_p = gk.view(-1, q.nspec), gp.view(-1, q.nspec)
+    res["conccalc"] = {}
+    for kp in sorted({step_ccfg.kernel_possible, True}):
+        c = step_ccfg.replace(kernel_possible=kp)
+        args = (q, itime, sim.lage, oh, 1.0, rhoi, c)
+        path = "4-point" if kp else "single-index"
+        gk.zero_()
+        gp.zero_()
+        cc.conccalc_cuda(flat_k, *args)
+        cc.conccalc_plain(flat_p, *args)
+        # A plume puts up to 10**6 equal contributions into one output
+        # cell, and float32 additions in different orders then differ by
+        # more than the kernels phase's rtol (the plain version's
+        # index_add_ adds them one by one).  So both are held to the
+        # float64 sum of the same pairs: any order of m float32 additions
+        # of non-negative terms stays within m * 2**-24 of it, relatively,
+        # and a cell of few pairs is held as tightly as in the kernels phase.
+        lin, valid, contrib = cc.conccalc_pairs(flat_k.shape[0], *args)
+        lin, contrib = lin[valid], contrib[valid]
+        ref = torch.zeros(flat_k.shape, dtype=torch.float64, device=device)
+        ref.index_add_(0, lin, contrib.double())
+        pairs = torch.zeros(flat_k.shape[0], dtype=torch.int64, device=device)
+        pairs.index_add_(0, lin, torch.ones_like(lin))
+        del lin, valid, contrib
+        rtol = torch.clamp(pairs.double() * 2.0 ** -24, min=K3_RTOL)[:, None]
+        check(float(ref.sum()) > 0.0, f"{what}: K3 {path} samples nothing")
+        rel = {}
+        for who, flat in (("kernel", flat_k), ("plain", flat_p)):
+            d = (flat.double() - ref).abs()
+            rel[who] = float((d / ref.clamp(min=1e-300)).max())
+            check(bool(torch.all(d <= rtol * ref)),
+                  f"{what}: K3 {path} path, {who}: a cell is further from "
+                  f"the float64 sum of its pairs than their count allows, "
+                  f"max rel {rel[who]}")
+        res["conccalc"][path] = dict(
+            the_steps_own_path=kp == step_ccfg.kernel_possible,
+            max_abs_err=float((flat_k.double() - ref).abs().max()),
+            max_rel_err_vs_f64=rel["kernel"],
+            plain_max_rel_err_vs_f64=rel["plain"],
+            total_rel_err_vs_f64=abs(float(flat_k.sum(dtype=torch.float64))
+                                     / float(ref.sum()) - 1.0),
+            cells_hit=int((pairs != 0).sum()),
+            most_pairs_in_a_cell=int(pairs.max()),
+            ms=cuda_ms(lambda: cc.conccalc_cuda(flat_k, *args), 10),
+            plain_ms=cuda_ms(lambda: cc.conccalc_plain(flat_p, *args), 3))
+        del ref, pairs, rtol, d
+    del gk, gp, flat_k, flat_p
+
+    # K4 on the sorted particles with the step's key
+    key = rng.Key(sim.seed, istep)
+    a = advance.advance_args(cfg, prm, itime, mt0, mt1)
+    draws = {tag: rng.normals(key, (rows, n), tag, device=device)
+             for tag, rows in {**advance.DRAW_ROWS, 2: cfg.ifine}.items()}
+
+    def kernel(d=draws):
+        return advance.advance_all_cuda(q, height, tk, a, key, cfg, d, 0)
+
+    def plain():
+        return advance.advance_all_plain(q, height, tp, a, key, cfg, draws, 0)
+
+    (pk, dk), (pp, dp) = kernel(), plain()
+    torch.cuda.synchronize()
+    k4 = compare_particles(pk, pp, f"{what}: K4", float(cfg.nx - 1))
+    for f in ("n_active", "n_exited"):
+        check(abs(int(getattr(dk, f)) - int(getattr(dp, f)))
+              <= K4_FLAG_SHARE * n, f"{what}: K4 {f} differs")
+    check_same_bits(kernel(None)[0], pk,
+                    f"{what}: K4 draws in registers vs injected")
+    branches = branch_counts(q, pp, height, tp, cfg, itime)
+    del pk, pp
+    res["advance"] = dict(
+        **k4, max_abs_err=max(k4["max_dx"], k4["max_dy"]),
+        n_active=int(dk.n_active), n_exited=int(dk.n_exited),
+        branches=branches, ms=cuda_ms(lambda: kernel(None), 10),
+        plain_ms=cuda_ms(plain, 2))
+    del draws
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_sim(device, kernels) -> dict:
+    """``Simulation.run`` on the card, twice with one seed.  The first run
+    carries no probe and never waits for the card inside a step: it is
+    timed as a whole, and its launch counts are the path's.  The second
+    runs under torch.profiler with the section timers synchronised and a
+    probe at the top of every step, after the step's release and before
+    its sort if it has one: the probe waits for the card and reads the
+    host clock, takes the share of active particles whose cell key is
+    below their left neighbour's, and keeps the ensemble and the met
+    fields of one release step and of one steady step.  The two runs must
+    end in bitwise equal particles; then every kernel is held against its
+    plain version on the two kept steps (``sim_kernel_checks``)."""
+    import shutil
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.core.state import FIELDS
+    try:
+        import h5py  # noqa: F401
+        netcdf = True
+    except ImportError:
+        netcdf = False
+    shutil.rmtree(SIM_DIR, ignore_errors=True)
+    nsteps = SIM_HOURS * 3600 // LSYNC
+
+    # --- run A: timed as a whole, no probe ---
+    t_setup = time.perf_counter()
+    sim = sim_setup(SIM_DIR / "a", device, netcdf)
+    setup_s = time.perf_counter() - t_setup
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    for name in ("advance", "quad_tables", "conccalc", "reorder"):
+        check(launches[name] > 0, f"sim: kernel {name} was never launched")
+    check(launches["advance"] == nsteps and launches["quad_tables"] == nsteps,
+          f"sim: {launches} launches in {nsteps} steps")
+    check(launches["reorder"] == sim.n_sorts, "sim: sorts and K5 launches differ")
+    pa = sim.particles
+    check(int(pa.active.sum()) == N_MAIN,
+          f"sim: {int(pa.active.sum())} of {N_MAIN} particles active")
+    for f in ("x_hi", "x_lo", "y_hi", "y_lo", "z", "up", "vp", "wp"):
+        check(bool(torch.isfinite(getattr(pa, f)).all()), f"sim: {f} not finite")
+    check(sim.timings["particle_steps"] > 0 and sim._prefetch_failures == 0,
+          "sim: no particle steps, or the met reader failed")
+
+    # the files of the recipe, with its names and shapes
+    out = SIM_DIR / "a"
+    dates = (out / "dates").read_text().split()
+    check(dates == ["20200101013000", "20200101023000"], f"sim: dates {dates}")
+    npz = sorted(q.name for q in out.glob("grid_conc_*.npz"))
+    check(npz == [f"grid_conc_{d}.npz" for d in dates], f"sim: npz {npz}")
+    check(len(list(out.glob("grid_conc_*.nc"))) == int(netcdf), "sim: nc files")
+    last = np.load(out / npz[-1])
+    conc_a = last["conc"]
+    check(conc_a.shape == (1, 1, 1, 3, 280, 720), f"sim: conc {conc_a.shape}")
+    check(bool(np.isfinite(conc_a).all()), "sim: conc not finite")
+    mass = float((conc_a[0, 0, 0] * sim.geo.volume).sum() / 1e12)
+    check(abs(mass - 1.0) < 1e-3, f"sim: mass fraction {mass}")
+    timers_a = {k: v for k, v in sim.timings.items()}
+    sorts_a = sim.n_sorts
+    del sim
+
+    # --- run B: profiled and probed ---
+    sim = sim_setup(SIM_DIR / "b", device, False, profile=True)
+    release_steps = sorted(t // LSYNC for t in sim._release_times)
+    # a step in the middle of the release (an active plume, a block just
+    # woken in the last slots, the rest unscheduled) and the last step
+    # that advances, long after it
+    keep = {release_steps[len(release_steps) // 2]: "release step",
+            nsteps - 1: "steady step"}
+    check(len(keep) == 2 and nsteps - 1 > release_steps[-1],
+          f"sim: release steps {release_steps} leave no steady step to keep")
+    stamps, shares, snaps = [], [], {}
+
+    def probe(istep, itime):
+        torch.cuda.synchronize()
+        t_in = time.perf_counter()
+        p = sim.particles
+        z0, z1, mt0, mt1 = sim._fields_for(itime)
+        keys = reorder.cell_keys(p, z0.height, sim.step_cfg)
+        below = (keys[1:] < keys[:-1]) & p.active[1:]
+        shares.append(torch.stack([below.sum(), p.active.sum()]))
+        if istep in keep:
+            snaps[keep[istep]] = (istep, itime, p, z0, z1, mt0, mt1)
+        torch.cuda.synchronize()
+        stamps.append((t_in, time.perf_counter()))
+
+    sim._step_probe = probe
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.run()
+        torch.cuda.synchronize()
+    pb = sim.particles
+    check_same_bits(pa, pb, "sim: two runs with one seed", FIELDS)
+    conc_b = np.load(SIM_DIR / "b" / npz[-1])["conc"]
+    worst = float(np.abs(conc_a - conc_b).max())
+    check(bool(np.all(np.abs(conc_a - conc_b) <= K3_RTOL * np.abs(conc_a))),
+          f"sim: conc of two runs with one seed differs by {worst}")
+    check(sim.n_sorts == sorts_a, "sim: the two runs sorted differently")
+    rows = device_rows(prof)
+    del prof, pa, pb
+
+    def per_launch(words, n):
+        hit = [r for r in rows if any(w in r[0] for w in words)]
+        return dict(ms_total=sum(r[2] for r in hit),
+                    kernels=sum(r[1] for r in hit),
+                    ms_per_call=sum(r[2] for r in hit) / max(n, 1), calls=n)
+
+    counts = torch.stack(shares).cpu().numpy()
+    out_of_order = [float(b) / max(int(a), 1) for b, a in counts]
+    report = sim.timers.report()
+    # stamps[i]: the host clock as the probe of step i of run B began and
+    # ended, the card idle both times; a step lasts from the end of its
+    # probe to the beginning of the next
+    first_steady = release_steps[-1] + 1
+    step_s = np.array([stamps[i + 1][0] - stamps[i][1]
+                       for i in range(len(stamps) - 1)])
+    steady, release = step_s[first_steady:], step_s[:first_steady]
+    check(set(snaps) == set(keep.values()), f"sim: kept steps {list(snaps)}")
+    on_sim_inputs = {name.replace(" ", "_"): sim_kernel_checks(
+        sim, snap, f"sim {name} {snap[0]}") for name, snap in snaps.items()}
+    snaps.clear()
+    res = dict(
+        n=N_MAIN, steps=nsteps, netcdf=netcdf, setup_s=setup_s,
+        release_steps=release_steps, sorts=sorts_a, launches=launches,
+        # run A: no probe, no wait for the card inside a step
+        run_s=run_s, particle_steps=timers_a["particle_steps"],
+        particle_steps_per_s_whole_run=timers_a["particle_steps"] / run_s,
+        section_seconds_unsynced={k: v for k, v in timers_a.items()
+                                  if k not in ("particle_steps",)},
+        mass_fraction=mass, conc_two_runs_max_abs_diff=worst,
+        two_runs_bitwise_equal=True,
+        # run B: under the profiler, synchronised at the top of every step
+        synced_first_step_s=float(release[0]),
+        synced_release_step_s=[float(x) for x in release[1:]],
+        synced_steady_step_s=[float(x) for x in steady],
+        synced_steady_step_mean_s=float(steady.mean()),
+        # all N_MAIN particles are active on every step after the last release
+        synced_steady_particle_steps_per_s=float(
+            N_MAIN * len(steady) / steady.sum()),
+        active_out_of_order_share=out_of_order,
+        active_per_step=[int(a) for _, a in counts],
+        section_table_synced=report.splitlines(),
+        device_per_call={
+            "advance": per_launch(("advance_kernel",), nsteps),
+            "quad_tables": per_launch(("quad_tables_kernel",), nsteps),
+            "conccalc": per_launch(("conccalc_kernel",), launches["conccalc"]),
+            "reorder": per_launch(SORT_KERNELS, sorts_a)},
+        device_ms_all_kernels=sum(r[2] for r in rows),
+        top=[dict(name=k[:60], calls=c, ms=ms) for k, c, ms in rows[:10]],
+        kernels_on_sim_inputs=on_sim_inputs)
+    del sim
+    shutil.rmtree(SIM_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
 
 
 # ------------------------------------------------------------------ main --
@@ -1015,6 +1427,15 @@ def main() -> int:
           "cuda_kernels_per_step": pres["cuda_kernels_per_step"],
           "device": name, "power_limit": smi})
     emit({"phase": "profile", **pres, "device": name, "power_limit": smi})
+    del pres
+    torch.cuda.empty_cache()
+
+    # the launches of the kernels line stay the main phase's; the sim phase
+    # resets the counts for its own run and reports them in its line
+    t0 = time.perf_counter()
+    simres = phase_sim(device, kernels)
+    emit({"phase": "sim", "seconds": time.perf_counter() - t0, **simres,
+          "device": name, "power_limit": smi})
 
     # launches: the main path's own count.  The normals kernel is not
     # launched there: its generator (fp::normal_words, fp::normal_pair) runs
@@ -1028,7 +1449,14 @@ def main() -> int:
                 # the JAX package keeps no particle order; its tiles mode
                 # moves particles between slots here
                 "reorder": ("flexpart_tpu/parallel/domain.py:151", "none")}
-    extra = {"normals": {
+    k5 = kres["reorder"]["cases"]
+    extra = {"reorder": {
+        # per input: K5, the plain version, torch.argsort of the keys, the
+        # byte bound; the shuffled input's bound by 32 B sectors beside it
+        "inputs": {n: {f: c[f] for f in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms") } for n, c in k5.items()},
+        "shuffled_sector_bound_ms": k5["shuffled"]["sector_bound_ms"]},
+        "normals": {
         "on_main_path_as": "fp::normal_words and fp::normal_pair of "
                            "flexpart_tpu_torch/csrc/philox_normal.cuh, "
                            "inlined into advance.cu",
@@ -1039,10 +1467,21 @@ def main() -> int:
                 kres["conccalc"]["cases"]["kernel_ordered_all_old"]["pairs"],
             "global_atomics": kres["conccalc"]["cases"]
                 ["kernel_ordered_all_old"]["warp_target_pairs"]}}
+    # each kernel against its plain version on the two steps kept from the
+    # sim phase (the sampling: the step's own path)
+    for kname in ("quad_tables", "conccalc", "advance", "reorder"):
+        on_sim = {}
+        for step, r in simres["kernels_on_sim_inputs"].items():
+            r = r[kname]
+            if kname == "conccalc":
+                r = next(c for c in r.values() if c["the_steps_own_path"])
+            on_sim[step] = {f: r[f] for f in ("max_abs_err", "ms", "plain_ms")}
+        extra.setdefault(kname, {})["sim_inputs"] = on_sim
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": src.format(k.name),
          "replaces": replaces[k.name][0], "tpu_route": replaces[k.name][1],
          "launches": mres["launches"][k.name],
+         "launches_sim": simres["launches"][k.name],
          **{f: kres[k.name][f] for f in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")}, **extra.get(k.name, {})}

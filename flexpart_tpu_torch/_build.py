@@ -198,9 +198,9 @@ REORDER = Kernel("reorder", "fp_reorder", [
     P,                    # active (n,) bool
     P,                    # height (nz,) f32
     I, I, I, I,           # n, nx, ny, nz
-    P,                    # scratch: keys (n,) i32
-    P,                    # scratch: bins (R + 1,) i32, zeroed by the caller
-    P,                    # scratch: tile sums of the scan, i32
+    P, P, P, P,           # scratch: keys a, b and slots a, b, (n,) i32 each
+    P, I,                 # scratch: digit counts (radix * blocks,) i32, length
+    P, I,                 # scratch: tile sums of the scan, i32, length
     P,                    # out: perm (n,) i32
     P,                    # ReorderFields (host struct, core/reorder.py)
     P,                    # stream

@@ -23,3 +23,4 @@ HMIXMAX = 4500.0         # maximum PBL height [m]
 D_TROP = 50.0            # horizontal diffusivity, free troposphere [m2/s]
 D_STRAT = 0.1            # vertical diffusivity, stratosphere [m2/s]
 TURBMESOSCALE = 0.16     # mesoscale wind fluctuation factor
+NI = 11                  # number of particle diameter classes

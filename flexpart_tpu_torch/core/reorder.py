@@ -12,22 +12,27 @@ gathers hit the caches instead of device memory.
 from the ``horiz_weights`` / ``vert_weights`` the advance uses); particles
 that are not scheduled (``active`` false) get the key ``R`` and go last.
 It returns new particles and the permutation, ``out.f == in.f[perm]`` for
-every field ``f``, bitwise.  Order inside a cell is free: the sort need
-not be stable, and on a CUDA device it is not (ranks are taken with
-atomics), so two runs may order a cell's particles differently.
+every field ``f``, bitwise.  The sort is stable: particles with the same
+key keep their slot order, so ``perm`` equals
+``torch.argsort(cell_keys, stable=True)`` on every input and is a function
+of the ensemble alone.
 
-Two versions: ``reorder_by_cell_plain`` (``argsort`` + ``index_select``)
-runs for CPU tensors; ``reorder_by_cell_cuda`` launches kernel K5
-(``csrc/reorder.cu``), a counting sort written by hand, for CUDA tensors.
+Two versions: ``reorder_by_cell_plain`` (stable ``argsort`` +
+``index_select``) runs for CPU tensors; ``reorder_by_cell_cuda`` launches
+kernel K5 (``csrc/reorder.cu``), a least-significant-digit radix sort
+written by hand in which no atomic decides a place, for CUDA tensors.  The
+two give the same ``perm`` and the same particles, bit for bit.
 ``reorder_by_cell`` picks by the device and never falls from one to the
 other.
 
 The draw counter of the advance is the slot index, so a reordered
-ensemble consumes an equally valid, different stream; with injected draws
-permuted alike the advance commutes with the permutation bitwise.
+ensemble consumes an equally valid, different stream; because ``perm`` is a
+function of the ensemble, a run stays a function of its seed.  With
+injected draws permuted alike the advance commutes with the permutation
+bitwise.
 
 The caller of the step decides when to sort: every ``REORDER_EVERY``
-steps.
+steps, and when a release has woken particles out of cell order.
 """
 
 from __future__ import annotations
@@ -47,7 +52,12 @@ from .state import FIELDS, Particles
 # and it would leave newly released particles out of order for longer.
 # PERF.md section 6 has the readings.
 REORDER_EVERY = 16
-SCAN_TILE = 2048     # bins per block of K5's scan (csrc/reorder.cu)
+# What sizes K5's scratch (csrc/reorder.cu): entries per block of its
+# scan, pairs per block of a radix pass, and the widest digit.  The kernel
+# plans its passes itself and refuses scratch that is too short for them.
+SCAN_TILE = 2048
+SORT_TILE = 4096
+MAX_DIGIT_BITS = 8
 
 
 class ReorderFields(ctypes.Structure):
@@ -86,8 +96,10 @@ def reorder_by_cell_plain(p: Particles, height: torch.Tensor, cfg):
 
 
 def reorder_by_cell_cuda(p: Particles, height: torch.Tensor, cfg):
-    """K5 launch: key + histogram, exclusive scan of the bins, rank by
-    atomics, one gather pass over all fields.  Returns (particles, perm)."""
+    """K5 launch: the keys, as many radix passes as the largest key needs
+    (digit counts per block, their exclusive scan, a stable scatter of the
+    (key, slot) pairs), one gather pass over all fields.  Returns
+    (particles, perm)."""
     n = p.capacity
     dev = p.device
     n_rows = (cfg.nz - 1) * cfg.ny * cfg.nx
@@ -120,17 +132,24 @@ def reorder_by_cell_cuda(p: Particles, height: torch.Tensor, cfg):
     perm = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return p, perm
-    keys = torch.empty(n, dtype=torch.int32, device=dev)
-    bins = torch.zeros(n_rows + 1, dtype=torch.int32, device=dev)
-    sums = torch.empty((n_rows + SCAN_TILE) // SCAN_TILE, dtype=torch.int32,
+    n_counts = (1 << MAX_DIGIT_BITS) * (-(-n // SORT_TILE))
+    if n_counts >= 2 ** 31:
+        raise ValueError("K5 indexes its digit counts with int32")
+    # scratch: the (key, slot) pairs of two passes, the [digit][block]
+    # counts of the widest digit and the tile sums of their scan
+    pairs = torch.empty((4, n), dtype=torch.int32, device=dev)
+    counts = torch.empty(n_counts, dtype=torch.int32, device=dev)
+    sums = torch.empty(-(-n_counts // SCAN_TILE), dtype=torch.int32,
                        device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.REORDER(p.x_hi.data_ptr(), p.x_lo.data_ptr(),
                        p.y_hi.data_ptr(), p.y_lo.data_ptr(), p.z.data_ptr(),
                        p.active.data_ptr(), height.data_ptr(), n, cfg.nx,
-                       cfg.ny, cfg.nz, keys.data_ptr(), bins.data_ptr(),
-                       sums.data_ptr(), perm.data_ptr(),
+                       cfg.ny, cfg.nz,
+                       *(pairs[k].data_ptr() for k in range(4)),
+                       counts.data_ptr(), counts.numel(), sums.data_ptr(),
+                       sums.numel(), perm.data_ptr(),
                        ctypes.addressof(fields), stream)
     return Particles(**out), perm
 

@@ -1,11 +1,13 @@
-"""Carry state between the JAX package and the port.
+"""Carry state and configuration between the JAX package and the port.
 
 The JAX side hands its pytrees over as numpy arrays (``np.asarray`` on
 each leaf, done by the caller), so this module never imports jax.  Each
 ``*_from_numpy`` takes an object with the JAX field attributes (a JAX
 NamedTuple whose leaves are numpy arrays, or a dict) and returns the
 port's dataclass with tensors on ``device``; each ``*_to_numpy`` goes
-back to a dict of numpy arrays.
+back to a dict of numpy arrays.  Each ``*_from_jax`` rebuilds one of the
+JAX package's configuration dataclasses as the port's, field by field,
+and ``simulation_from_jax`` a whole ``Simulation``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import config as _config
 from .core.advance import StepConfig, StepParams
 from .core.interp import ROWS_E_LANES, StepTablesQuad
 from .core.state import FIELDS, Particles
@@ -107,3 +110,58 @@ def tables_from_numpy(t, device) -> StepTablesQuad:
     rows_e = np.asarray(_get(t, "rowsE"))[:, :ROWS_E_LANES]
     return StepTablesQuad(rows=to_tensor(_get(t, "rows"), device),
                           rowsE=to_tensor(rows_e, device))
+
+
+def _by_fields(cls, obj, **override):
+    """``cls`` built from the like-named fields of ``obj``."""
+    kw = {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)}
+    kw.update(override)
+    return cls(**kw)
+
+
+def command_from_jax(cmd) -> _config.Command:
+    return _by_fields(_config.Command, cmd)
+
+
+def outgrid_from_jax(og) -> _config.OutGrid:
+    return _by_fields(_config.OutGrid, og,
+                      outheights=tuple(float(h) for h in og.outheights))
+
+
+def ageclasses_from_jax(ac) -> _config.AgeClasses:
+    return _by_fields(_config.AgeClasses, ac)
+
+
+def releases_from_jax(rel) -> _config.Releases:
+    return _config.Releases(
+        species=tuple(_by_fields(_config.Species, s) for s in rel.species),
+        boxes=tuple(_by_fields(_config.ReleaseBox, b) for b in rel.boxes))
+
+
+def metgrid_from_jax(grid):
+    from .met.grid import MetGrid
+    return _by_fields(MetGrid, grid)
+
+
+def simulation_from_jax(sim, device, met_backend=None, outdir=None):
+    """The port's ``Simulation`` with the configuration of a JAX one.  The
+    met backend is not carried over (its ``fetch`` returns JAX arrays):
+    ``met_backend`` is the port's, by default ``SyntheticMet`` on the same
+    grid.  ``outdir`` defaults to the JAX run's."""
+    from .met.synthetic import SyntheticMet
+    from .run.simulation import Simulation
+    grid = metgrid_from_jax(sim.grid)
+    if met_backend is None:
+        met_backend = SyntheticMet(grid)
+    own = {"cmd", "releases", "grid", "met_backend", "outgrid", "ageclasses",
+           "outdir", "device"}
+    rest = {f.name: getattr(sim, f.name)
+            for f in dataclasses.fields(Simulation)
+            if f.name not in own and hasattr(sim, f.name)}
+    return Simulation(
+        cmd=command_from_jax(sim.cmd),
+        releases=releases_from_jax(sim.releases), grid=grid,
+        met_backend=met_backend, outgrid=outgrid_from_jax(sim.outgrid),
+        ageclasses=ageclasses_from_jax(sim.ageclasses),
+        outdir=sim.outdir if outdir is None else outdir, device=device,
+        **rest)

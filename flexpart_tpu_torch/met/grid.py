@@ -53,6 +53,10 @@ class MetGrid:
         return bkz
 
     @property
+    def nxfield(self) -> int:
+        return self.nx - 1 if self.xglobal else self.nx
+
+    @property
     def dxconst(self) -> float:
         """m -> grid-units conversion in x at the equator [gu/m]."""
         return 180.0 / (self.dx * R_EARTH * PI)
@@ -68,6 +72,13 @@ class MetGrid:
     @functools.cached_property
     def lats(self) -> np.ndarray:
         return self.ylat0 + np.arange(self.ny) * self.dy
+
+    def lonlat_to_grid(self, lon, lat):
+        """Geographic coords -> mother-grid units (coordtrafo.f90)."""
+        x = (np.asarray(lon) - self.xlon0) / self.dx
+        if self.xglobal:
+            x = np.mod(x, self.nx - 1)
+        return x, (np.asarray(lat) - self.ylat0) / self.dy
 
 
 def hybrid_coefficients(nlev: int, ptop: float = 10.0,

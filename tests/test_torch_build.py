@@ -163,6 +163,38 @@ def test_reorder_fields_struct_matches_the_source():
     assert "SCAN_TILE = THREADS * SCAN_ITEMS" in text
 
 
+def test_reorder_radix_constants_match_the_source():
+    """The wrapper sizes K5's digit counts by ``SORT_TILE`` and
+    ``MAX_DIGIT_BITS`` and hands the kernel their length; the kernel plans
+    its passes from the grid itself."""
+    text = _strip_comments(_build.REORDER.source.read_text())
+
+    def const(name):
+        return int(re.search(r"constexpr\s+int\s+%s\s*=\s*(\d+)\s*;" % name,
+                             text).group(1))
+    threads, rounds = const("THREADS"), const("ROUNDS")
+    assert "WARPS = THREADS / 32" in text
+    assert "WARP_ITEMS = 32 * ROUNDS" in text
+    assert "SORT_TILE = WARPS * WARP_ITEMS" in text
+    assert "MAX_RADIX = 1 << MAX_DIGIT_BITS" in text
+    assert reorder.SORT_TILE == threads // 32 * 32 * rounds
+    assert reorder.MAX_DIGIT_BITS == const("MAX_DIGIT_BITS")
+    # no atomic on device memory decides a place: the only atomic is the
+    # block's shared-memory digit count
+    assert text.count("atomicAdd(") == 1
+    assert "atomicAdd(&sh_count[digit]" in text
+    # the plan is made in one place, from the largest key, as the numpy
+    # emulation of tests/test_torch_reorder.py makes it; no caller hands
+    # one in, and scratch shorter than the plan needs is refused
+    assert "while ((n_rows >> bits) != 0) ++bits;" in text
+    assert "*passes = (bits + MAX_DIGIT_BITS - 1) / MAX_DIGIT_BITS;" in text
+    assert "*digit_bits = (bits + *passes - 1) / *passes;" in text
+    assert "radix_plan(n_rows, &passes, &digit_bits);" in text
+    assert not re.search(r"fp_reorder\([^)]*\bint passes\b", text)
+    assert "n_counts > counts_len || tiles > sums_len" in text
+    assert not hasattr(reorder, "radix_plan")
+
+
 def test_normals_and_advance_share_the_philox_header():
     for name in ("normals", "advance"):
         assert _build.CSRC / "philox_normal.cuh" in _kernel(name).sources()

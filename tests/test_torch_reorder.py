@@ -4,9 +4,15 @@
 it permutes the particle slots so that particles of one met cell are
 neighbours.  What must hold, all bitwise unless said:
 
-  * the result is ``in[perm]`` for a permutation ``perm`` (every slot
-    once), its keys never decrease, particles that are not scheduled come
-    last, and a sorted ensemble is left as it is;
+  * the result is ``in[perm]`` for ``perm`` the stable argsort of the keys
+    (every slot once, keys never decrease, equal keys keep their slot
+    order), particles that are not scheduled come last, and a sorted
+    ensemble is left as it is; this on the four inputs a run feeds the
+    sort: a shuffled ensemble, a nearly ordered one, every slot
+    unscheduled, and a release step;
+  * the rank that kernel K5 computes (digit passes over tiles of pairs
+    with per-warp counters, emulated here in numpy with K5's constants)
+    is that stable argsort;
   * the key is the row of the quad tables that the advance gathers for
     the particle (``sample_all_quad``'s own row id);
   * the advance commutes with the permutation when the injected draws are
@@ -17,6 +23,8 @@ neighbours.  What must hold, all bitwise unless said:
     within the tolerance of ``tests/test_torch_conccalc.py`` (rtol 1e-6,
     atol 1e-12).
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,7 +37,7 @@ from flexpart_tpu.config import OutGrid  # noqa: E402
 from flexpart_tpu.core import state as jstate  # noqa: E402
 from flexpart_tpu.grid import conccalc as jcc  # noqa: E402
 from flexpart_tpu.grid import outgrid as jog  # noqa: E402
-from flexpart_tpu_torch import interop  # noqa: E402
+from flexpart_tpu_torch import _build, interop  # noqa: E402
 from flexpart_tpu_torch.core import advance as tadv  # noqa: E402
 from flexpart_tpu_torch.core import interp as tinterp  # noqa: E402
 from flexpart_tpu_torch.core import reorder  # noqa: E402
@@ -124,6 +132,11 @@ def test_reorder_is_a_permutation_in_key_order(setup):
     q, perm = reorder.reorder_by_cell(p, t0.height, cfg)
     assert perm.dtype == torch.int32 and perm.shape == (N,)
     assert sorted(perm.tolist()) == list(range(N))
+    # stable: equal keys keep their slot order, so perm is the one stable
+    # argsort of the keys
+    keys_in = reorder.cell_keys(p, t0.height, cfg).numpy()
+    np.testing.assert_array_equal(perm.numpy(),
+                                  np.argsort(keys_in, kind="stable"))
     _assert_same_bits(q, reorder.apply_perm(p, perm), "out != in[perm]")
     keys = reorder.cell_keys(q, t0.height, cfg)
     assert bool((keys[1:] >= keys[:-1]).all())
@@ -255,3 +268,143 @@ def test_cuda_particles_never_take_the_plain_version(setup, monkeypatch):
                         lambda *a: calls.append("cuda") or (None, None))
     reorder.reorder_by_cell(p, t0.height, cfg)
     assert calls == ["cuda"]
+
+
+def _four_inputs(grid, t0, cfg):
+    """The inputs of the card's check at a small size."""
+    p = _port_particles(_jax_particles(grid))
+    ordered, _ = reorder.reorder_by_cell(p, t0.height, cfg)
+    # nearly ordered: some particles moved on by a cell or a layer
+    rs = np.random.default_rng(11)
+    ordered = ordered.replace(
+        x_hi=ordered.x_hi + torch.as_tensor(
+            (rs.uniform(size=N) < 0.2) * 0.75, dtype=torch.float32),
+        z=ordered.z * torch.as_tensor(
+            1.0 + 0.3 * (rs.uniform(size=N) < 0.1), dtype=torch.float32))
+    nobody = p.replace(active=torch.zeros_like(p.active))
+    fresh = torch.zeros_like(p.active)
+    fresh[-N // 8:] = True
+    release = p.replace(
+        active=fresh,
+        x_hi=torch.where(fresh, 18.0 + 0.2 * (p.x_hi / grid.nx), p.x_hi),
+        y_hi=torch.where(fresh, 11.0 + 0.2 * (p.y_hi / grid.ny), p.y_hi),
+        z=torch.where(fresh, 50.0 + p.z / 30.0, p.z))
+    return {"shuffled": p, "ordered": ordered, "all_unscheduled": nobody,
+            "release_step": release}
+
+
+def _cu_const(name):
+    """A ``constexpr int`` of csrc/reorder.cu given as a number."""
+    text = (_build.CSRC / "reorder.cu").read_text()
+    return int(re.search(r"constexpr\s+int\s+%s\s*=\s*(\d+)\s*;" % name,
+                         text).group(1))
+
+
+# K5's tiling, from its source: pairs per warp and per block of a pass
+MAX_DIGIT_BITS = _cu_const("MAX_DIGIT_BITS")
+WARP_ITEMS = 32 * _cu_const("ROUNDS")
+SORT_TILE = _cu_const("THREADS") // 32 * WARP_ITEMS
+
+
+def _radix_plan(n_rows):
+    """``radix_plan`` of csrc/reorder.cu: (passes, digit_bits), the fewest
+    passes of at most ``MAX_DIGIT_BITS`` bits that cover the largest key,
+    ``n_rows``, with the bits spread evenly over them."""
+    bits = 1
+    while n_rows >> bits:
+        bits += 1
+    passes = (bits + MAX_DIGIT_BITS - 1) // MAX_DIGIT_BITS
+    return passes, (bits + passes - 1) // passes
+
+
+def _radix_perm(keys, n_rows, tile=SORT_TILE, warp_items=WARP_ITEMS):
+    """K5's rank in numpy: ``_radix_plan`` passes; in each a block owns
+    ``tile`` consecutive pairs and each of its warps ``warp_items``, read
+    32 at a time; the place of a pair is the scanned [digit][block] count
+    plus the pairs of its digit in earlier warps of the block, in earlier
+    rounds of its warp and in lower lanes of its round."""
+    passes, bits = _radix_plan(n_rows)
+    radix = 1 << bits
+    n = len(keys)
+    keys = np.asarray(keys, np.int64)
+    slots = np.arange(n)
+    n_blocks = -(-n // tile)
+    for p in range(passes):
+        digit = (keys >> (p * bits)) & (radix - 1)
+        counts = np.zeros((radix, n_blocks), np.int64)
+        for b in range(n_blocks):
+            counts[:, b] = np.bincount(digit[b * tile:(b + 1) * tile],
+                                       minlength=radix)
+        flat = counts.reshape(-1)
+        offsets = (np.cumsum(flat) - flat).reshape(radix, n_blocks)
+        place = np.empty(n, np.int64)
+        for b in range(n_blocks):
+            nxt = offsets[:, b].copy()      # next free place per digit
+            for w0 in range(b * tile, min((b + 1) * tile, n), warp_items):
+                for r0 in range(w0, min(w0 + warp_items, n), 32):
+                    d = digit[r0:r0 + 32]
+                    for lane, dl in enumerate(d):
+                        place[r0 + lane] = nxt[dl] + int((d[:lane] == dl).sum())
+                    np.add.at(nxt, d, 1)
+        out_k, out_s = np.empty_like(keys), np.empty_like(slots)
+        out_k[place], out_s[place] = keys, slots
+        keys, slots = out_k, out_s
+    return slots
+
+
+@pytest.mark.parametrize("name", ["shuffled", "ordered", "all_unscheduled",
+                                  "release_step"])
+def test_plain_sort_is_stable_on_what_a_run_feeds_it(setup, name):
+    grid, _, (t0, _) = setup
+    cfg = _step_config(grid, **CONFIGS["stock"])
+    p = _four_inputs(grid, t0, cfg)[name]
+    keys = reorder.cell_keys(p, t0.height, cfg).numpy()
+    q, perm = reorder.reorder_by_cell_plain(p, t0.height, cfg)
+    want = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(perm.numpy(), want)
+    _assert_same_bits(q, reorder.apply_perm(p, torch.as_tensor(want)), name)
+    sorted_keys = keys[want]
+    same = sorted_keys[1:] == sorted_keys[:-1]
+    assert same.any()        # there are equal keys to keep in order ...
+    assert (np.diff(want)[same] > 0).all()      # ... and they are
+    n_on = int(p.active.sum())
+    assert not bool(q.active[n_on:].any())
+    expect_bins = {"all_unscheduled": 1}.get(name)
+    if expect_bins:
+        assert len(set(keys.tolist())) == expect_bins
+    if name == "release_step":
+        assert len(set(keys.tolist())) < 20 and n_on == N // 8
+
+
+@pytest.mark.parametrize("name", ["shuffled", "ordered", "all_unscheduled",
+                                  "release_step"])
+@pytest.mark.parametrize("tile,warp_items", [(SORT_TILE, WARP_ITEMS),
+                                             (256, 64)])
+def test_radix_rank_emulation_is_the_stable_argsort(setup, name, tile,
+                                                    warp_items):
+    """K5's tiling, and a smaller one that gives this ensemble a dozen
+    blocks of four warps so that every term of the rank is exercised."""
+    grid, _, (t0, _) = setup
+    cfg = _step_config(grid, **CONFIGS["stock"])
+    p = _four_inputs(grid, t0, cfg)[name]
+    keys = reorder.cell_keys(p, t0.height, cfg).numpy()
+    n_rows = (cfg.nz - 1) * cfg.ny * cfg.nx
+    got = _radix_perm(keys, n_rows, tile, warp_items)
+    np.testing.assert_array_equal(got, np.argsort(keys, kind="stable"))
+
+
+@pytest.mark.parametrize("n_rows,plan", [
+    (1, (1, 1)), (255, (1, 8)), (256, (2, 5)), (9842, (2, 7)),
+    (1894890, (3, 7)), (2 ** 24 - 1, (3, 8)), (2 ** 24, (4, 7)),
+    (2 ** 28, (4, 8)), (2 ** 31 - 2, (4, 8))])
+def test_radix_plan_covers_the_largest_key(n_rows, plan):
+    """Every int32 key is covered, no pass is spared, the last shift stays
+    inside an int32 key, and the wrapper's scratch holds the widest digit's
+    counts (the kernel takes the lengths and refuses shorter ones)."""
+    passes, bits = _radix_plan(n_rows)
+    assert (passes, bits) == plan
+    assert bits <= MAX_DIGIT_BITS and n_rows >> (passes * bits) == 0
+    assert passes == 1 or n_rows >> ((passes - 1) * MAX_DIGIT_BITS)
+    assert (passes - 1) * bits < 31
+    assert (MAX_DIGIT_BITS, SORT_TILE) == (reorder.MAX_DIGIT_BITS,
+                                           reorder.SORT_TILE)
