@@ -25,7 +25,15 @@ the port's stock forward step on the card, in phases:
                 cell keys as its permutation and the plain version's
                 particles, bitwise, on four inputs (shuffled, 16 steps
                 after a sort, every slot unscheduled, a release step) and
-                twice in a row, and the advance must commute with it;
+                twice in a row, and the advance must commute with it; the
+                advance's POLAR instantiation on 10 x 2**20 particles over
+                the whole sphere (both caps, some crossing a pole); the
+                convection columns (K6) on SyntheticMet's two met times
+                and on the moist-unstable sounding at every column, each
+                through five steps of the flux memory's feedback, and the
+                redistribution (K7) of 10 x 2**20 particles against both
+                cases' matrices, with injected uniforms and its own, z
+                bitwise and the moved counts equal;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
                 with the same draws; and the advance kernel with its draws
@@ -46,22 +54,29 @@ the port's stock forward step on the card, in phases:
   7. profile  — REORDER_EVERY more steady steps (one sort among them)
                 under torch.profiler: CUDA launches per step, device time
                 by kernel with the sort's share, device busy share;
-  8. sim      — the port's Simulation.run at full width: 10 x 2**20
+  8. sim      — the port's Simulation.run at full width with the default
+                Command (convection and subgrid orography on): 10 x 2**20
                 particles released from one box over the first hour, three
-                hours on SyntheticMet on a 361x141x30 grid that stops at 70
-                degrees, hourly npz (and netCDF where h5py imports) output;
-                twice with one seed: the runs must end in bitwise equal
-                particles, all particles active, the mass recovered from
-                the last file 1 within 1e-3.  The first run carries no
+                hours on SyntheticMet on the 361x181x30 grid, which reaches
+                the poles (the advance's POLAR instantiation), hourly npz
+                (and netCDF where h5py imports) output on the 720x360x3
+                grid; twice with one seed: the runs must end in bitwise
+                equal particles, all particles active, the mass recovered
+                from the last file 1 within 1e-3; per step, the columns
+                that convect and the particles convection moved.  The first run carries no
                 probe and is timed as a whole; the second, under
                 torch.profiler and synchronised at the top of every step,
                 gives the section timers, the step time during and after
                 the release, the device time of each kernel per call, the
                 sorts, and the share of active particles out of cell order
-                at the top of each step, and keeps the ensemble and the met
-                fields of one release step and of one steady step: on
-                those, K2, K5, K3 and K4 (injected draws) are held against
-                their plain versions at the kernels phase's tolerances.
+                at the top of each step, and keeps the ensemble, the met
+                fields and the flux memory of one release step and of one
+                steady step: on those, K2, K5, K6, K7, K3 and K4 (injected
+                draws) are held against their plain versions at the kernels
+                phase's tolerances, and K7 once more with the step's
+                particles put in its convecting columns (the plume lies
+                outside SyntheticMet's convecting bands), where it must
+                move some.
 
 Prints one JSON object per phase, then a {"kernels": [...]} line, the
 nvidia-smi name/power line, and as the last line
@@ -120,6 +135,27 @@ K2_OPS_PER_LANE = 12
 K3_OPS_PER_PARTICLE = 300
 K4_OPS_PER_PARTICLE = 1800
 K5_OPS_PER_PARTICLE = 60
+# K6 against its plain pipeline: every float output within this share of
+# its largest magnitude, the flags exactly.  Both add each level sum in
+# level order and spell every operation alike, and have agreed bitwise on
+# the H100; the room is for a toolkit whose expf/logf/powf differ by an ulp
+# from the ones torch was built with.
+K6_SHARE = 1e-5
+CONV_TW = (0.75, 0.25)      # the step's time weights in the kernels phase
+CONV_SPINUP = 5             # steps of cbmf feedback before the comparison
+# operations of K6 per column, counted from csrc/convection.cu: the
+# entrainment row and the normalisation scan (about 60 per (i, j)), the
+# flux sums (MENT's two column prefix sums and the three row sums of
+# M above, FUP and FDOWN: 5 per (i, j)), the rows of fmassfrac (4 per
+# (i, j)), the profiles and the lifted parcel (about 200 per level)
+def k6_ops_per_column(L1: int) -> int:
+    return 69 * L1 ** 2 + 200 * L1
+
+
+K7_OPS_PER_PARTICLE = 30    # the column, the level search's setup, the store
+K7_OPS_PER_LIVE_LEVEL = 12  # the level search and the cumulative row
+K4_POLAR_OPS = 150          # per cap particle: the six transcendentals and
+#                             the plane arithmetic, at both call sites
 K4_CASES = {"stock": dict(turbswitch=False, ifine=1, met_bf16=True),
             "turb_ifine4": dict(turbswitch=True, ifine=4, met_bf16=True),
             "f32_tables": dict(turbswitch=False, ifine=1, met_bf16=False)}
@@ -134,6 +170,26 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def registers_by_entry(build_log: str) -> dict:
+    """{kernel entry: registers} from nvcc's -Xptxas -v lines; a template
+    instantiation is named by its bool arguments (advance_kernel<1,0,1>
+    is BF16, not TS, POLAR)."""
+    import re
+    out, entry = {}, None
+    for ln in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+            base = re.search(r"\d([a-z][a-z_]*_kernel)", name)
+            flags = re.findall(r"Lb([01])E", name)
+            entry = (base.group(1) if base else name) \
+                + (f"<{','.join(flags)}>" if flags else "")
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry is not None:
+            out[entry] = int(m.group(1))
+    return out
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -544,6 +600,10 @@ def phase_kernels(device, grid) -> dict:
     res["advance"] = kernel_advance(device, grid)
     torch.cuda.empty_cache()
     res["reorder"] = kernel_reorder(device, grid)
+    torch.cuda.empty_cache()
+    res["advance"]["polar"] = kernel_advance_polar(device, grid)
+    torch.cuda.empty_cache()
+    res["convection"], res["redist"] = kernel_convection(device, grid)
     return res
 
 
@@ -642,6 +702,314 @@ def kernel_advance(device, grid) -> dict:
     res["none_scheduled_ms"] = cuda_ms(
         runs(p.replace(active=torch.zeros_like(p.active)), None, 0)[2], 10)
     return res
+
+
+def sphere_particles(n: int, device, seed: int, itime: int, nx: int,
+                     ny: int):
+    """bench_particles spread over the whole sphere: x in [0, nx - 1), y in
+    [0, ny - 1], a quarter released at ``itime`` (fresh), the first
+    2**16 within 0.15 degrees of a pole (half north, half south), a
+    quarter of those within 0.01 degrees, so that some cross it within a
+    step."""
+    import torch
+    p = bench_particles(n, device, seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 3)
+
+    def u(lo, hi, m=n):
+        return torch.rand(m, generator=gen, device=device) * (hi - lo) + lo
+
+    y = u(0.0, ny - 1.0)
+    m = 2 ** 15
+    y[:m] = u(ny - 1.15, ny - 1.0, m)
+    y[m:2 * m] = u(0.0, 0.15, m)
+    # a kilometre from the pole, where a step's turbulence carries across
+    y[:m // 4] = u(ny - 1.01, ny - 1.0, m // 4)
+    y[m:m + m // 4] = u(0.0, 0.01, m // 4)
+    fresh = u(0.0, 1.0) < 0.25
+    return p.replace(x_hi=u(0.0, nx - 1.0), y_hi=y,
+                     itramem=torch.where(fresh, itime, itime - 7200)
+                     .to(torch.int32),
+                     itra=torch.full_like(p.itra, itime))
+
+
+def kernel_advance_polar(device, grid) -> dict:
+    """K4's POLAR instantiation against the plain advance on 10 x 2**20
+    particles over the whole sphere, both caps included, with injected
+    draws; with its draws made in registers against itself fed K1's,
+    bitwise.  The particles in the north cap, in the south cap and those
+    that cross a pole within the step must be > 0.  Timed unordered and
+    in cell order, beside the stock instantiation on the same particles."""
+    import torch
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
+    itime, mem1 = 3600, 10800
+    key = rng.Key(4321, 6)
+    nxm = float(grid.nx - 1)
+    cfg, prm, *_ = step_setup(grid, polar=True)
+    stock = step_setup(grid)[0]
+    tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
+    a = advance.advance_args(cfg, prm, itime, 0, mem1)
+    a_stock = advance.advance_args(stock, prm, itime, 0, mem1)
+    check(a.polar == 1 and a_stock.polar == 0, "K4 polar: polar flags")
+    p = sphere_particles(N_MAIN, device, 31, itime, grid.nx, grid.ny)
+    draws = {tag: rng.normals(key, (rows, N_MAIN), tag, device=device)
+             for tag, rows in {**advance.DRAW_ROWS, 2: cfg.ifine}.items()}
+
+    def run(q, d, args=a, c=cfg):
+        return advance.advance_all_cuda(q, z0.height, tables, args, key, c,
+                                        d, 0)
+
+    (pk, dk) = run(p, draws)
+    (pp, dp) = advance.advance_all_plain(p, z0.height, tables, a, key, cfg,
+                                         draws, 0)
+    torch.cuda.synchronize()
+    res = compare_particles(pk, pp, "K4 POLAR", nxm)
+    for f in ("n_active", "n_exited"):
+        check(abs(int(getattr(dk, f)) - int(getattr(dp, f)))
+              <= K4_FLAG_SHARE * N_MAIN, f"K4 POLAR: {f} differs")
+    check_same_bits(run(p, None)[0], pk,
+                    "K4 POLAR: draws in registers vs injected")
+    bitwise = all(torch.equal(getattr(pk, f), getattr(pp, f))
+                  for f in ("x_hi", "x_lo", "y_hi", "y_lo", "z"))
+    lat = grid.ylat0 + p.y * grid.dy
+    north, south = p.active & (lat > 75.0), p.active & (lat < -75.0)
+    jump = (pp.x - p.x).abs()
+    crossed = (north | south) & pp.active & (torch.minimum(jump, nxm - jump)
+                                             > 0.25 * nxm)
+    counts = dict(north_cap=int(north.sum()), south_cap=int(south.sum()),
+                  pole_crossings=int(crossed.sum()),
+                  exited=int((p.active & ~pp.active).sum()))
+    for b in ("north_cap", "south_cap", "pole_crossings"):
+        check(counts[b] > 0, f"K4 POLAR: no test particle enters {b}")
+    n_cap = counts["north_cap"] + counts["south_cap"]
+    row_b = 128 if cfg.met_bf16 else 256
+    rows0 = unique_rows(p, z0.height, cfg)
+    rows1 = unique_rows(pk, z0.height, cfg)
+    del pk, pp, draws
+    torch.cuda.empty_cache()
+    ordered = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
+    res.update(
+        bitwise=bitwise, branches=counts, n=N_MAIN, library_ms=None,
+        max_abs_err=max(res["max_dx"], res["max_dy"]),
+        ms=cuda_ms(lambda: run(ordered, None), 10),
+        unordered_ms=cuda_ms(lambda: run(p, None), 10),
+        stock_ms_same_particles=cuda_ms(
+            lambda: run(ordered, None, a_stock, stock), 10),
+        plain_ms=cuda_ms(lambda: advance.advance_all_plain(
+            p, z0.height, tables, a, key, cfg, None, 0), 2),
+        **bound(104 * N_MAIN + row_b * rows0 + row_b * 3 // 8 * rows1,
+                K4_OPS_PER_PARTICLE * N_MAIN + K4_POLAR_OPS * n_cap))
+    return res
+
+
+def sounding_eta(grid, device):
+    """The moist-unstable sounding of tests/test_convection.py::_soundings
+    at every column of ``grid``, on the grid's own eta levels at ps =
+    101325 Pa: T falls 6.5 K/km from 300 K (floor 200 K) with z = -7500 m
+    ln(p/ps), q = 0.92 q_sat(p, T) exp(-z / 3000 m) with the port's
+    f_qvsat; tt2 = 302 K, td2 = 300 K.  Returns the (ps, tth, qvh, tt2,
+    td2) tensors K6 takes."""
+    import numpy as np
+    import torch
+    from flexpart_tpu_torch.met.thermo import f_qvsat
+    ps = 101325.0
+    p = np.asarray(grid.akz) + np.asarray(grid.bkz) * ps
+    z = -7500.0 * np.log(np.maximum(p, 1.0) / ps)
+    t = np.maximum(300.0 - 6.5e-3 * z, 200.0)
+    qsat = f_qvsat(torch.as_tensor(p), torch.as_tensor(t)).numpy()
+    q = 0.92 * qsat * np.exp(-z / 3000.0)
+    shape = (grid.ny, grid.nx)
+
+    def col(v):
+        return torch.as_tensor(np.asarray(v, np.float32)[:, None, None]
+                               .repeat(grid.ny, 1).repeat(grid.nx, 2),
+                               device=device).contiguous()
+
+    def flat(v):
+        return torch.full(shape, v, dtype=torch.float32, device=device)
+
+    return (flat(ps), col(t), col(q), flat(302.0), flat(300.0))
+
+
+def check_convection(kern, fields, cbmf, what: str, tw=CONV_TW) -> tuple:
+    """K6 against its plain pipeline on the same fields and time weights:
+    (kernel's outputs, plain outputs, the comparison)."""
+    import torch
+    from flexpart_tpu_torch.physics import convection as cv
+    k = cv.convection_cuda(kern, fields, *tw, cbmf, float(LSYNC))
+    p = cv.convection_plain(kern, fields, *tw, cbmf, float(LSYNC))
+    torch.cuda.synchronize()
+    worst, differ = 0.0, 0
+    for f in cv.ConvectionFields._fields:
+        a, b = getattr(k, f), getattr(p, f)
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{what}: K6 {f} is {a.dtype} {tuple(a.shape)}")
+        if not b.dtype.is_floating_point:
+            n = int((a != b).sum())
+            check(n == 0, f"{what}: K6 {f} differs in {n} columns")
+            continue
+        d = (a - b).abs()
+        check(bool(torch.isfinite(a).all()), f"{what}: K6 {f} not finite")
+        tol = K6_SHARE * float(b.abs().max())
+        check(bool(torch.all(d <= tol)),
+              f"{what}: K6 {f} differs by {float(d.max())} > {tol}")
+        worst = max(worst, float(d.max()))
+        differ += int((a != b).sum())
+    return k, p, dict(max_abs_err=worst, values_differ=differ,
+                      convecting_columns=int(k.lconv.sum()),
+                      columns=int(k.lconv.numel()))
+
+
+def redist_args(conv, kern, grid, itime: int = 0) -> tuple:
+    """The arguments of redist_cuda / redist_plain after the key."""
+    return (conv.fmassfrac, conv.rlevmass, conv.phconv, conv.sub,
+            conv.uvzlev, conv.pconv, conv.tconv, conv.lconv, LSYNC, itime,
+            kern.nl, grid.nx, grid.ny)
+
+
+def check_redist(p, key, conv, kern, grid, rn, what: str,
+                 itime: int = 0) -> dict:
+    """K7 against redist_plain on the same particles and matrices:
+    z bitwise and the moved counts equal.  Both sum each cumulative row in
+    level order and spell every operation alike, so any difference is a
+    fault (a level is chosen by a comparison: one ulp in a cumulative
+    fraction moves a particle to another level)."""
+    import torch
+    from flexpart_tpu_torch.physics import convection as cv
+    args = redist_args(conv, kern, grid, itime)
+    qk, mk = cv.redist_cuda(p, key, *args, rn=rn)
+    qp, mp = cv.redist_plain(p, key, *args, rn=rn)
+    torch.cuda.synchronize()
+    n = p.capacity
+    d = (qk.z - qp.z).abs()
+    differ = int((qk.z.view(torch.int32) != qp.z.view(torch.int32)).sum())
+    check(differ == 0, f"{what}: K7 z differs from the plain version's for "
+          f"{differ} of {n} particles, by up to {float(d.max())} m")
+    check(int(mk) == int(mp),
+          f"{what}: K7 moved {int(mk)}, the plain version {int(mp)}")
+    check(bool(torch.isfinite(qk.z).all()), f"{what}: K7 z not finite")
+    return dict(moved=int(mk), plain_moved=int(mp), z_differ=differ,
+                max_abs_err=float(d.max()))
+
+
+def k7_bound(p, conv, kern, grid, itime: int = 0) -> dict:
+    """K7's least time on these inputs: the particle state read (25 B) and
+    z written (4 B) once, the flags of every column once, and, for the
+    particles that convection may move (scheduled, in a convecting
+    column), each distinct column's profiles and each distinct matrix row
+    once."""
+    import torch
+    L1 = kern.L1
+    ix = torch.clamp(torch.round(p.x).long(), 0, grid.nx - 1)
+    jy = torch.clamp(torch.round(p.y).long(), 0, grid.ny - 1)
+    col = jy * grid.nx + ix
+    live = p.active & (p.itra == itime) & conv.lconv[col]
+    uvz = conv.uvzlev[col[live]]
+    lev = torch.clamp((uvz[:, 1:L1] < p.z[live][:, None]).sum(1), 0, L1 - 1)
+    cols = int(torch.unique(col[live]).numel())
+    rows = int(torch.unique(col[live] * L1 + lev).numel())
+    n_bytes = (29 * p.capacity + conv.lconv.numel()
+               + cols * 4 * (2 * (L1 + 1) + 5 * L1) + rows * 4 * L1)
+    n_ops = K7_OPS_PER_PARTICLE * p.capacity \
+        + K7_OPS_PER_LIVE_LEVEL * L1 * int(live.sum())
+    return dict(live=int(live.sum()), live_columns=cols, **bound(n_bytes,
+                                                                 n_ops))
+
+
+def kernel_convection(device, grid) -> tuple[dict, dict]:
+    """K6 and K7 against their plain versions at full width.  K6 on two
+    cases of the bench grid, each through CONV_SPINUP steps of the
+    cloud-base mass flux feedback, compared at every step: SyntheticMet's
+    two met times (about a sixth of the columns convect), and the
+    moist-unstable sounding at every column (all convect, every branch of
+    the scheme is entered).  K7 on 10 x 2**20 particles against the
+    matrices of both cases, with injected uniforms and with its own; the
+    sounding case must move particles."""
+    import torch
+    from flexpart_tpu_torch.core import rng
+    from flexpart_tpu_torch.met import synthetic
+    from flexpart_tpu_torch.physics import convection as cv
+    kern = cv.make_convection_kernel(grid)
+    C, L1 = grid.nx * grid.ny, kern.L1
+    met = synthetic.SyntheticMet(grid)
+    eta = ("ps", "tth", "qvh", "tt2", "td2")
+    e0, e1 = (met.fetch(t, device) for t in (0.0, 3600.0))
+    sound = sounding_eta(grid, device)
+    cases = {"synthetic": tuple(getattr(e0, n) for n in eta)
+             + tuple(getattr(e1, n) for n in eta),
+             "sounding": sound + sound}
+    del e0, e1
+    k6, k7, last = {}, {}, {}
+    for name, fields in cases.items():
+        cbmf = torch.zeros(C, dtype=torch.float32, device=device)
+        steps = []
+        for s in range(CONV_SPINUP):
+            k, p, cmp_ = check_convection(kern, fields, cbmf,
+                                          f"K6 {name} step {s}")
+            steps.append(cmp_)
+            cbmf = p.cbmf
+        last[name] = (k, cbmf)
+        k6[name] = dict(
+            steps=steps, convecting_columns=steps[-1]["convecting_columns"],
+            max_abs_err=max(c["max_abs_err"] for c in steps),
+            values_differ=sum(c["values_differ"] for c in steps),
+            nctop_max=int(k.nctop.max()),
+            ms=cuda_ms(lambda: cv.convection_cuda(kern, fields, *CONV_TW,
+                                                  cbmf, float(LSYNC)), 10),
+            plain_ms=cuda_ms(lambda: cv.convection_plain(
+                kern, fields, *CONV_TW, cbmf, float(LSYNC)), 2))
+        del k, p
+    check(k6["synthetic"]["convecting_columns"] > 0,
+          "K6: no column of SyntheticMet convects")
+    check(k6["sounding"]["convecting_columns"] == C,
+          f"K6: {k6['sounding']['convecting_columns']} of {C} columns "
+          "convect on the moist-unstable sounding")
+    # in: per column and met time the L1 profile levels of tth and qvh and
+    # ps, tt2, td2, then cbmf, and the grid's coefficients (akz, bkz at L1
+    # levels, akm, bkm at L1 + 1); out: fmassfrac, four profiles of L1, two
+    # of L1 + 1, cbmf, nctop and the flags
+    k6_bytes = 4 * C * (2 * (2 * L1 + 3) + 1) + 4 * (4 * L1 + 2) \
+        + C * (4 * (L1 * L1 + 4 * L1 + 2 * (L1 + 1) + 2) + 1)
+    conv_res = dict(
+        nl=kern.nl, L1=L1, columns=C, cases=k6, library_ms=None,
+        library="none",
+        max_abs_err=max(c["max_abs_err"] for c in k6.values()),
+        ms=k6["synthetic"]["ms"], plain_ms=k6["synthetic"]["plain_ms"],
+        all_convecting_ms=k6["sounding"]["ms"],
+        **bound(k6_bytes, k6_ops_per_column(L1) * C))
+
+    p = bench_particles(N_MAIN, device, seed=13)
+    key = rng.Key(4321, 7)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(17)
+    rn = torch.rand(N_MAIN, generator=gen, device=device)
+    for name, (conv, _) in last.items():
+        case = {}
+        for draw, u in (("injected", rn), ("in_registers", None)):
+            case[draw] = check_redist(p, key, conv, kern, grid, u,
+                                      f"K7 {name}, {draw} uniforms")
+        args = redist_args(conv, kern, grid)
+        case.update(
+            k7_bound(p, conv, kern, grid),
+            ms=cuda_ms(lambda: cv.redist_cuda(p, key, *args), 10),
+            plain_ms=cuda_ms(lambda: cv.redist_plain(p, key, *args), 2))
+        k7[name] = case
+    check(k7["sounding"]["in_registers"]["moved"] > 0
+          and k7["sounding"]["injected"]["moved"] > 0,
+          "K7: no particle moved on the convecting case")
+    steady = k7["synthetic"]
+    redist_res = dict(
+        n=N_MAIN, cases=k7, library_ms=None, library="none",
+        max_abs_err=max(c[d]["max_abs_err"] for c in k7.values()
+                        for d in ("injected", "in_registers")),
+        moved=k7["sounding"]["in_registers"]["moved"],
+        ms=steady["ms"], plain_ms=steady["plain_ms"],
+        all_convecting_ms=k7["sounding"]["ms"],
+        **{f: steady[f] for f in ("bound_ms", "bound_by", "bound_bytes",
+                                  "bound_operations")})
+    return conv_res, redist_res
 
 
 def check_sorted(p, q, perm, height, cfg, what: str) -> None:
@@ -1039,29 +1407,29 @@ def profile_steps(steps, first: int, count: int) -> dict:
 
 # ------------------------------------------------------------ Simulation --
 
-SIM_GRID = dict(nx=361, ny=141, nlev=30, dx=1.0, dy=1.0, xlon0=-180.0,
-                ylat0=-70.0)
+SIM_GRID = BENCH_GRID      # global, to the poles: the polar caps are on
 SIM_HOURS = 3
 SIM_DIR = ROOT / "build" / "sim_smoke"
 
 
 def sim_setup(outdir, device, write_netcdf: bool, **kw):
-    """The port's Simulation at full width: 10 x 2**20 particles released
+    """The port's Simulation at full width with the default Command
+    (convection and subgrid orography on): 10 x 2**20 particles released
     from a 2 x 2 degree box over the first hour, three hours of 900 s steps
-    on SyntheticMet, on a cyclic 1-degree grid that stops at 70 degrees (no
-    polar cap), hourly output on the main phase's 0.5-degree, 3-layer grid
-    cut to the met grid's latitudes."""
+    on SyntheticMet, on the main phase's global 1-degree grid, which
+    reaches the poles (the advance takes its polar-cap update), hourly
+    output on the main phase's 0.5-degree, 3-layer grid."""
     from flexpart_tpu_torch import Simulation, SyntheticMet, make_grid
     from flexpart_tpu_torch.config import (Command, OutGrid, ReleaseBox,
                                            Releases, Species)
     grid = make_grid(**SIM_GRID)
     cmd = Command(ibdate=20200101, ibtime=0, iedate=20200101,
                   ietime=SIM_HOURS * 10000, lsynctime=LSYNC, loutstep=3600,
-                  loutaver=3600, loutsample=900, lconvection=0, lsubgrid=0)
+                  loutaver=3600, loutsample=900)
     box = ReleaseBox(idate1=20200101, itime1=0, idate2=20200101, itime2=10000,
                      lon1=0.0, lon2=2.0, lat1=40.0, lat2=42.0, z1=50.0,
                      z2=500.0, mass=(1.0,), parts=N_MAIN)
-    og = OutGrid(outlon0=-180.0, outlat0=-70.0, numxgrid=720, numygrid=280,
+    og = OutGrid(outlon0=-180.0, outlat0=-90.0, numxgrid=720, numygrid=360,
                  dxout=0.5, dyout=0.5, outheights=(100.0, 1000.0, 50000.0))
     return Simulation(cmd=cmd, releases=Releases(species=(Species(),),
                                                  boxes=(box,)),
@@ -1071,21 +1439,29 @@ def sim_setup(outdir, device, write_netcdf: bool, **kw):
 
 
 def sim_kernel_checks(sim, snap, what: str) -> dict:
-    """K2, K5, K4 and K3 against their plain versions on the tensors that
-    one step of ``Simulation.run`` gave them: ``snap`` is (istep, itime,
-    particles after the step's release and before its sort, z0, z1, mt0,
-    mt1) as the step probe saw them.  The order is the step's: the tables
-    of its time weights, the sort, then on the sorted particles the
-    sampling (the step's own path and the 4-point path) and the advance
-    with the step's key, fed injected draws on both sides and once more
-    with its draws made in registers.  Tolerances as in the kernels phase,
-    but for the sampling, which is held to the float64 sum of its pairs;
-    every check is fatal."""
+    """K2, K5, K6, K7, K3 and K4 against their plain versions on the
+    tensors that one step of ``Simulation.run`` gave them: ``snap`` is
+    (istep, itime, particles after the step's release and before its sort,
+    z0, z1, mt0, mt1, the raw fields of both met times, the flux memory
+    cbmf) as the step probe saw them.  The order is the step's: the tables
+    of its time weights, the sort, the convection columns of its time
+    weights, the redistribution of the sorted particles with the step's
+    key (injected uniforms, and once more its own, which must give the
+    same particles; and with those particles put in the step's convecting
+    columns, where some must move), then on the redistributed particles
+    the sampling (the
+    step's own path and the 4-point path) and the advance with the step's
+    key, fed injected draws on both sides and once more with its draws made
+    in registers.  Tolerances as in the kernels phase, but for the
+    sampling, which is held to the float64 sum of its pairs; every check
+    is fatal."""
+    import numpy as np
     import torch
     from flexpart_tpu_torch.core import advance, interp, reorder, rng
     from flexpart_tpu_torch.core.state import FIELDS
     from flexpart_tpu_torch.grid import conccalc as cc
-    istep, itime, p, z0, z1, mt0, mt1 = snap
+    from flexpart_tpu_torch.physics import convection as cv
+    istep, itime, p, z0, z1, mt0, mt1, eta0, eta1, cbmf = snap
     cfg, prm, device = sim.step_cfg, sim.step_prm, sim.device
     height = z0.height
     n = p.capacity
@@ -1126,6 +1502,58 @@ def sim_kernel_checks(sim, snap, what: str) -> dict:
         plain_ms=cuda_ms(lambda: reorder.reorder_by_cell_plain(p, height, cfg),
                          2))
     del perm
+
+    # K6 at the step's time weights and flux memory, then K7 on the sorted
+    # particles with the step's key; the step goes on with K7's particles
+    kern = sim.conv_kernel
+    fields = tuple(getattr(e, name) for e in (eta0, eta1)
+                   for name in ("ps", "tth", "qvh", "tt2", "td2"))
+    dt1, dt2 = float(itime - mt0), float(mt1 - itime)
+    dtt = 1.0 / (dt1 + dt2)
+    tw = (float(np.float32(dt2 * dtt)), float(np.float32(dt1 * dtt)))
+    conv, _, k6 = check_convection(kern, fields, cbmf, f"{what}:", tw)
+    res["convection"] = dict(
+        **k6, ms=cuda_ms(lambda: cv.convection_cuda(kern, fields, *tw, cbmf,
+                                                    float(LSYNC)), 10),
+        plain_ms=cuda_ms(lambda: cv.convection_plain(kern, fields, *tw,
+                                                     cbmf, float(LSYNC)), 2))
+    key = rng.Key(sim.seed, istep)
+    k0, k1 = key.philox_key(cv.REDIST_TAG)
+    own = rng.uniforms_plain(n, k0, k1, device)
+    k7 = check_redist(q, key, conv, kern, sim.grid, own,
+                      f"{what}: K7 injected", itime)
+    args7 = redist_args(conv, kern, sim.grid, itime)
+    q_in = q
+    q_inj, m_inj = cv.redist_cuda(q_in, key, *args7, rn=own)
+    q, m_reg = cv.redist_cuda(q_in, key, *args7)
+    check_same_bits(q, q_inj, f"{what}: K7 uniforms in registers vs "
+                    "rng.uniforms_plain's", ("z",))
+    check(int(m_reg) == int(m_inj), f"{what}: K7 moved counts differ")
+    # The step's plume lies outside SyntheticMet's convecting bands, so K7
+    # finds no live particle in it.  So K7 is held once more on the step's
+    # own matrices with the same particles put at the centres of the
+    # convecting columns (slot s in the s-th of them, round robin), all
+    # scheduled, their z kept: they must move.
+    cols = torch.nonzero(conv.lconv).flatten().to(torch.int32)
+    check(cols.numel() > 0, f"{what}: no column convects")
+    at = cols[torch.arange(n, device=device) % cols.numel()]
+    zero = torch.zeros_like(q_in.x_lo)
+    q_live = q_in.replace(
+        x_hi=(at % sim.grid.nx).float(), x_lo=zero,
+        y_hi=(at // sim.grid.nx).float(), y_lo=zero,
+        itra=torch.full_like(q_in.itra, itime),
+        active=torch.ones_like(q_in.active))
+    k7_live = check_redist(q_live, key, conv, kern, sim.grid, own,
+                           f"{what}: K7 on convecting columns", itime)
+    check(k7_live["moved"] > 0, f"{what}: K7 moved no particle of the "
+          "step's convecting columns")
+    res["redist"] = dict(
+        **k7, **k7_bound(q_in, conv, kern, sim.grid, itime),
+        on_convecting_columns=dict(
+            **k7_live, **k7_bound(q_live, conv, kern, sim.grid, itime)),
+        ms=cuda_ms(lambda: cv.redist_cuda(q_in, key, *args7), 10),
+        plain_ms=cuda_ms(lambda: cv.redist_plain(q_in, key, *args7), 2))
+    del q_in, q_inj, q_live, conv, fields
 
     # K3 on the sorted particles, as the step samples them
     step_ccfg = sim._ccfg_at(itime, sim.conc_cfg)
@@ -1222,10 +1650,12 @@ def phase_sim(device, kernels) -> dict:
     probe at the top of every step, after the step's release and before
     its sort if it has one: the probe waits for the card and reads the
     host clock, takes the share of active particles whose cell key is
-    below their left neighbour's, and keeps the ensemble and the met
-    fields of one release step and of one steady step.  The two runs must
-    end in bitwise equal particles; then every kernel is held against its
-    plain version on the two kept steps (``sim_kernel_checks``)."""
+    below their left neighbour's, and keeps the ensemble, the met fields
+    (processed and raw) and the convective flux memory of one release step
+    and of one steady step.  The two runs must end in bitwise equal
+    particles; then every kernel is held against its plain version on the
+    two kept steps (``sim_kernel_checks``).  Per step of run A: the
+    columns that convect and the particles that convection moved."""
     import shutil
     import numpy as np
     import torch
@@ -1252,10 +1682,19 @@ def phase_sim(device, kernels) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
-    for name in ("advance", "quad_tables", "conccalc", "reorder"):
+    for name in ("advance", "quad_tables", "conccalc", "reorder",
+                 "convection", "redist"):
         check(launches[name] > 0, f"sim: kernel {name} was never launched")
     check(launches["advance"] == nsteps and launches["quad_tables"] == nsteps,
           f"sim: {launches} launches in {nsteps} steps")
+    # convection runs on every step, the last (which does not advance) too
+    check(launches["convection"] == launches["redist"] == nsteps + 1,
+          f"sim: {launches} convection launches in {nsteps + 1} steps")
+    check(sim.step_cfg.polar and sim.conv_kernel is not None
+          and sim.cmd.lsubgrid == 1, "sim: not the default Command's path")
+    conv_counts = torch.stack(sim.convection_counts).cpu().numpy()
+    check(bool((conv_counts[:, 0] > 0).all()), "sim: a step had no "
+          "convecting column")
     check(launches["reorder"] == sim.n_sorts, "sim: sorts and K5 launches differ")
     pa = sim.particles
     check(int(pa.active.sum()) == N_MAIN,
@@ -1274,7 +1713,7 @@ def phase_sim(device, kernels) -> dict:
     check(len(list(out.glob("grid_conc_*.nc"))) == int(netcdf), "sim: nc files")
     last = np.load(out / npz[-1])
     conc_a = last["conc"]
-    check(conc_a.shape == (1, 1, 1, 3, 280, 720), f"sim: conc {conc_a.shape}")
+    check(conc_a.shape == (1, 1, 1, 3, 360, 720), f"sim: conc {conc_a.shape}")
     check(bool(np.isfinite(conc_a).all()), "sim: conc not finite")
     mass = float((conc_a[0, 0, 0] * sim.geo.volume).sum() / 1e12)
     check(abs(mass - 1.0) < 1e-3, f"sim: mass fraction {mass}")
@@ -1303,7 +1742,9 @@ def phase_sim(device, kernels) -> dict:
         below = (keys[1:] < keys[:-1]) & p.active[1:]
         shares.append(torch.stack([below.sum(), p.active.sum()]))
         if istep in keep:
-            snaps[keep[istep]] = (istep, itime, p, z0, z1, mt0, mt1)
+            snaps[keep[istep]] = (istep, itime, p, z0, z1, mt0, mt1,
+                                  sim._get_eta(mt0), sim._get_eta(mt1),
+                                  sim.cbmf)
         torch.cuda.synchronize()
         stamps.append((t_in, time.perf_counter()))
 
@@ -1361,12 +1802,18 @@ def phase_sim(device, kernels) -> dict:
             N_MAIN * len(steady) / steady.sum()),
         active_out_of_order_share=out_of_order,
         active_per_step=[int(a) for _, a in counts],
+        # run A, per step (the last, which does not advance, included)
+        convecting_columns_per_step=[int(c) for c in conv_counts[:, 0]],
+        convection_moved_per_step=[int(m) for m in conv_counts[:, 1]],
+        columns=SIM_GRID["nx"] * SIM_GRID["ny"],
         section_table_synced=report.splitlines(),
         device_per_call={
             "advance": per_launch(("advance_kernel",), nsteps),
             "quad_tables": per_launch(("quad_tables_kernel",), nsteps),
             "conccalc": per_launch(("conccalc_kernel",), launches["conccalc"]),
-            "reorder": per_launch(SORT_KERNELS, sorts_a)},
+            "reorder": per_launch(SORT_KERNELS, sorts_a),
+            "convection": per_launch(("convection_kernel",), nsteps + 1),
+            "redist": per_launch(("redist_kernel",), nsteps + 1)},
         device_ms_all_kernels=sum(r[2] for r in rows),
         top=[dict(name=k[:60], calls=c, ms=ms) for k, c, ms in rows[:10]],
         kernels_on_sim_inputs=on_sim_inputs)
@@ -1401,7 +1848,9 @@ def main() -> int:
     build_s = _build.build_all(kernels)
     ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
                       if "registers" in ln] for k in kernels}
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+          "registers": {k.name: registers_by_entry(k.build_log)
+                        for k in kernels}})
 
     grid = make_grid(**BENCH_GRID)
     t0 = time.perf_counter()
@@ -1448,7 +1897,10 @@ def main() -> int:
                 "advance": ("flexpart_tpu/core/advance.py:768", "XLA"),
                 # the JAX package keeps no particle order; its tiles mode
                 # moves particles between slots here
-                "reorder": ("flexpart_tpu/parallel/domain.py:151", "none")}
+                "reorder": ("flexpart_tpu/parallel/domain.py:151", "none"),
+                "convection": ("flexpart_tpu/physics/convection.py:379",
+                               "XLA"),
+                "redist": ("flexpart_tpu/physics/convection.py:453", "XLA")}
     k5 = kres["reorder"]["cases"]
     extra = {"reorder": {
         # per input: K5, the plain version, torch.argsort of the keys, the
@@ -1466,10 +1918,23 @@ def main() -> int:
             "global_atomics_without_warp_sums":
                 kres["conccalc"]["cases"]["kernel_ordered_all_old"]["pairs"],
             "global_atomics": kres["conccalc"]["cases"]
-                ["kernel_ordered_all_old"]["warp_target_pairs"]}}
+                ["kernel_ordered_all_old"]["warp_target_pairs"]},
+        # the POLAR instantiation on the whole sphere; main keeps it off
+        "advance": {"polar": {f: kres["advance"]["polar"][f] for f in (
+            "ms", "unordered_ms", "stock_ms_same_particles", "plain_ms",
+            "bound_ms", "bound_by", "max_abs_err", "bitwise", "branches")}},
+        "convection": {f: kres["convection"][f] for f in (
+            "library", "all_convecting_ms", "nl", "L1", "columns")},
+        "redist": {f: kres["redist"][f] for f in (
+            "library", "all_convecting_ms", "moved")}}
+    for kname in ("convection", "redist"):
+        extra[kname]["convecting_columns"] = {
+            n: c["convecting_columns"]
+            for n, c in kres["convection"]["cases"].items()}
     # each kernel against its plain version on the two steps kept from the
     # sim phase (the sampling: the step's own path)
-    for kname in ("quad_tables", "conccalc", "advance", "reorder"):
+    for kname in ("quad_tables", "conccalc", "advance", "reorder",
+                  "convection", "redist"):
         on_sim = {}
         for step, r in simres["kernels_on_sim_inputs"].items():
             r = r[kname]

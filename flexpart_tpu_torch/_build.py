@@ -138,7 +138,7 @@ def build_all(kernels: list[Kernel]) -> float:
     return time.perf_counter() - t0
 
 
-# --- the kernels of the stock step (argument lists match csrc/*.cu) ---
+# --- the kernels of the run (argument lists match csrc/*.cu) ---
 
 NORMALS = Kernel("normals", "fp_normals", [
     P,          # out (rows, cols) f32
@@ -206,4 +206,31 @@ REORDER = Kernel("reorder", "fp_reorder", [
     P,                    # stream
 ])
 
-KERNELS = (NORMALS, QUAD_TABLES, CONCCALC, ADVANCE, REORDER)
+CONVECTION = Kernel("convection", "fp_convection", [
+    P, P, P, P, P,        # met time 0: ps (ny, nx), tth, qvh (nlev, ny, nx), tt2, td2
+    P, P, P, P, P,        # met time 1: the same
+    P, P, P, P,           # akz, bkz, akm, bkm (nlev,) f32
+    P,                    # cbmf of the previous step (C,) f32
+    I, I, I,              # C columns, nlev, nl (L1 = nl + 1 profile levels)
+    F, F, F,              # tw0, tw1, delt
+    P, P, P, P, P, P, P,  # out: fmassfrac, rlevmass, phconv, pconv, tconv, sub, uvzlev
+    P, P, P,              # out: lconv (C,) bool, nctop (C,) i32, cbmf (C,) f32
+    P,                    # stream
+])
+
+REDIST = Kernel("redist", "fp_redist", [
+    P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
+    P, P,                 # itra (n,) i32, active (n,) bool
+    P, P, P, P, P, P, P,  # fmassfrac, rlevmass, phconv, sub, uvzlev, pconv, tconv
+    P,                    # lconv (C,) bool
+    P,                    # injected uniforms (n,) f32, or NULL: Philox in registers
+    I, I, I, I, I,        # n, nx, ny, L1, itime
+    F,                    # lsynctime
+    U32, U32,             # philox key words
+    P,                    # out: z (n,) f32
+    P,                    # moved count (1,) i32, accumulated into
+    P,                    # stream
+])
+
+KERNELS = (NORMALS, QUAD_TABLES, CONCCALC, ADVANCE, REORDER, CONVECTION,
+           REDIST)

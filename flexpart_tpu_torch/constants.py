@@ -16,6 +16,7 @@ GA = 9.81                # gravitational acceleration [m/s^2]
 CPA = 1004.6             # specific heat of dry air [J/kg/K]
 PI180 = PI / 180.0
 KARMAN = 0.40
+KAPPA = 0.286            # poisson exponent for potential temperature
 
 CONVKE = 2.0             # share of kinetic energy usable for lifting
 HMIXMIN = 100.0          # minimum PBL height [m]

@@ -4,10 +4,11 @@ Port of ``flexpart_tpu/core/advance.py`` in fixed-step mode (CTL<0,
 ``method=0``): quad-table met sampling, Hanna/Langevin PBL turbulence with
 the exact OU discretization (turbswitch on and off, any ``ifine``, no
 CBL), constant-diffusivity free troposphere / stratosphere, mesoscale
-fluctuations, windalign, the double-single position update, cyclic and
-pole boundary conditions and the Petterssen corrector.  Options outside
-this slice (adaptive stepping, CBL, nests, polar caps, tile mode,
-settling, turboff, the legacy-RNG path) raise ``NotImplementedError``.
+fluctuations, windalign, the double-single position update, the
+polar-stereographic update inside the polar caps, cyclic and pole
+boundary conditions and the Petterssen corrector.  Options outside this
+slice (adaptive stepping, CBL, nests, tile mode, settling, turboff, the
+legacy-RNG path) raise ``NotImplementedError``.
 
 Two versions of the same function: ``advance_all_plain``, plain PyTorch
 ops, runs for CPU tensors; ``advance_all_cuda`` launches kernel K4
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..constants import D_STRAT, D_TROP, PI180, TURBMESOSCALE
+from ..constants import D_STRAT, D_TROP, PI, PI180, R_EARTH, TURBMESOSCALE
 from ..met.fields import ZFields
 from . import rng
 from .hanna import hanna, hanna1
@@ -78,7 +79,6 @@ class StepConfig:
             "method=1 (adaptive stepping)": self.method != 0,
             "cblflag (skewed CBL)": self.cblflag,
             "nests": bool(self.nests),
-            "polar caps": self.polar,
             "tile_mode": self.tile_mode,
             "settling": self.settling,
             "turboff": self.turboff,
@@ -107,14 +107,16 @@ class StepParams:
     lsynctime: float      # positive interval length [s]
     fine: float           # 1/ifine
     lwindinterv: float
+    xlon0: float = -180.0  # grid lon origin (the polar-cap projection;
+    #                        the JAX package's xlon0_pol)
 
     @classmethod
     def make(cls, dx, dy, ylat0, dxconst, dyconst, lsynctime, fine,
-             lwindinterv=3600) -> "StepParams":
+             lwindinterv=3600, xlon0=-180.0) -> "StepParams":
         def v(x):
             return float(f32(x))
         return cls(v(dx), v(dy), v(ylat0), v(dxconst), v(dyconst),
-                   v(abs(lsynctime)), v(fine), v(lwindinterv))
+                   v(abs(lsynctime)), v(fine), v(lwindinterv), v(xlon0))
 
 
 @dataclasses.dataclass
@@ -147,6 +149,7 @@ class AdvanceArgs(ctypes.Structure):
         ("turbswitch", ctypes.c_int),
         ("ifine", ctypes.c_int),
         ("table_bf16", ctypes.c_int),
+        ("polar", ctypes.c_int),
         ("can_pett", ctypes.c_int),
         ("itime", ctypes.c_int),
         ("itra_new", ctypes.c_int),
@@ -167,6 +170,7 @@ class AdvanceArgs(ctypes.Structure):
         ("dx", ctypes.c_float),
         ("dy", ctypes.c_float),
         ("ylat0", ctypes.c_float),
+        ("xlon0", ctypes.c_float),
         ("dxconst", ctypes.c_float),
         ("dyconst", ctypes.c_float),
         ("nxm", ctypes.c_float),
@@ -209,7 +213,7 @@ def advance_args(cfg: StepConfig, prm: StepParams, itime: int, memtime0: int,
     return AdvanceArgs(
         nx=cfg.nx, ny=cfg.ny, nz=cfg.nz, xglobal=int(cfg.xglobal),
         turbswitch=int(cfg.turbswitch), ifine=cfg.ifine,
-        table_bf16=int(cfg.met_bf16),
+        table_bf16=int(cfg.met_bf16), polar=int(cfg.polar),
         can_pett=int(abs(endtime) <= abs(memtime1)),
         itime=itime, itra_new=endtime,
         dt=float(dt), dtf=float(dt * f32(prm.fine)), ldirf=float(cfg.ldirect),
@@ -219,7 +223,8 @@ def advance_args(cfg: StepConfig, prm: StepParams, itime: int, memtime0: int,
         d_strat_1000=float(f32(D_STRAT / 1000.0)),
         r_meso=float(r), rs_meso=float(np.sqrt(f32(1.0) - r * r)),
         turbmeso=float(f32(TURBMESOSCALE)), pi180=float(f32(PI180)),
-        dx=prm.dx, dy=prm.dy, ylat0=prm.ylat0, dxconst=prm.dxconst,
+        dx=prm.dx, dy=prm.dy, ylat0=prm.ylat0, xlon0=prm.xlon0,
+        dxconst=prm.dxconst,
         dyconst=prm.dyconst, nxm=nxm, nym=nym, two_nym=2.0 * nym,
         eps_bc=float(eps), nxm_eps=float(f32(nxm) - eps))
 
@@ -319,6 +324,82 @@ def _apply_bcs(cfg: StepConfig, a: AdvanceArgs, x_hi, x_lo, y_hi, y_lo):
         return x_hi, x_lo, y_hi, y_lo, exited
     exited = (x < 0.0) | (x >= nxm) | (y < 0.0) | (y > nym)
     return x_hi, x_lo, y_hi, y_lo, exited
+
+
+SWITCHNORTH = 75.0       # polar-cap latitude thresholds (par_mod.f90:123)
+SWITCHSOUTH = -75.0
+
+
+def _polar_update(a: AdvanceArgs, x, y, dxsave, dysave):
+    """Polar-stereographic position update for particles poleward of
+    +-75 deg (advance.f90:754-778; the JAX package's ``_polar_update``
+    outside tiles mode): the geographic (east, north) displacement
+    ``dxsave, dysave`` [m] is rotated into the plane of the tangent polar
+    stereographic map at the particle's longitude, scaled by the map
+    factor m = sec^2((90-|lat|)/2), applied in plane coordinates rho =
+    2R tan((90-|lat|)/2) and mapped back.  Returns (x_new, y_new,
+    north_mask, south_mask) in grid units; both caps are computed for
+    every particle and the caller selects (K4 computes a particle's own
+    cap only).  The six transcendentals are torch's sin, cos, tan, hypot,
+    atan and atan2, which K4 calls as sinf, cosf, tanf, hypotf, atanf
+    and atan2f; every division by a number is a true division."""
+    ldirf = a.ldirf
+    lon = (a.xlon0 + x * a.dx) * a.pi180
+    lat = (a.ylat0 + y * a.dy) * a.pi180
+    north = lat > SWITCHNORTH * PI180
+    south = lat < SWITCHSOUTH * PI180
+
+    sinl, cosl = torch.sin(lon), torch.cos(lon)
+    two_r = 2.0 * R_EARTH
+
+    # ---- north pole plane: X = rho sin(lon), Y = -rho cos(lon) ----
+    half_n = (PI / 4.0) - lat / 2.0              # (90 - lat)/2
+    rho_n = two_r * torch.tan(half_n)
+    c_n = torch.cos(half_n)
+    m_n = _scalar_div(1.0, c_n * c_n)            # map factor
+    dxp = (dxsave * cosl - dysave * sinl) * m_n * ldirf
+    dyp = (dxsave * sinl + dysave * cosl) * m_n * ldirf
+    xpl = rho_n * sinl + dxp
+    ypl = -rho_n * cosl + dyp
+    rho2 = torch.hypot(xpl, ypl)
+    lat_n = PI / 2.0 - 2.0 * torch.atan(true_div(rho2, two_r))
+    lon_n = torch.atan2(xpl, -ypl)
+
+    # ---- south pole plane: X = rho sin(lon), Y = +rho cos(lon) ----
+    half_s = (PI / 4.0) + lat / 2.0              # (90 + lat)/2
+    rho_s = two_r * torch.tan(half_s)
+    c_s = torch.cos(half_s)
+    m_s = _scalar_div(1.0, c_s * c_s)
+    dxs = (dxsave * cosl + dysave * sinl) * m_s * ldirf
+    dys = (-dxsave * sinl + dysave * cosl) * m_s * ldirf
+    xps = rho_s * sinl + dxs
+    yps = rho_s * cosl + dys
+    rho2s = torch.hypot(xps, yps)
+    lat_s = -(PI / 2.0) + 2.0 * torch.atan(true_div(rho2s, two_r))
+    lon_s = torch.atan2(xps, yps)
+
+    lat_new = true_div(torch.where(north, lat_n, lat_s), a.pi180)
+    lon_new = true_div(torch.where(north, lon_n, lon_s), a.pi180)
+    # back to grid units; wrap with the grid's cyclic width nx - 1, as
+    # _apply_bcs does
+    xg = true_div(lon_new - a.xlon0, a.dx)
+    xg = torch.where(xg < 0.0, xg + a.nxm, xg)
+    xg = torch.where(xg >= a.nxm, xg - a.nxm, xg)
+    yg = true_div(lat_new - a.ylat0, a.dy)
+    return xg, yg, north, south
+
+
+def _apply_polar(cfg: StepConfig, a: AdvanceArgs, x, y, dxs, dys, x_hi, x_lo,
+                 y_hi, y_lo):
+    """The position of a particle inside a polar cap from ``_polar_update``
+    (low parts zeroed), every other particle's untouched."""
+    if not cfg.polar:
+        return x_hi, x_lo, y_hi, y_lo
+    xg, yg, north, south = _polar_update(a, x, y, dxs, dys)
+    pol = north | south
+    zero = torch.zeros_like(x_lo)
+    return (torch.where(pol, xg, x_hi), torch.where(pol, zero, x_lo),
+            torch.where(pol, yg, y_hi), torch.where(pol, zero, y_lo))
 
 
 def _check_draws(draws: dict | None, n: int, device, ifine: int) -> None:
@@ -553,6 +634,9 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
                           torch.cos((y * a.dy + a.ylat0) * a.pi180))
     x_hi, x_lo = ds_add(p.x_hi, p.x_lo, dxsave * cosfact * ldirf)
     y_hi, y_lo = ds_add(p.y_hi, p.y_lo, dysave * a.dyconst * ldirf)
+    # stereographic update inside the polar caps (advance.f90:754-778)
+    x_hi, x_lo, y_hi, y_lo = _apply_polar(cfg, a, x, y, dxsave, dysave,
+                                          x_hi, x_lo, y_hi, y_lo)
 
     x_hi, x_lo, y_hi, y_lo, exited = _apply_bcs(cfg, a, x_hi, x_lo,
                                                 y_hi, y_lo)
@@ -577,6 +661,9 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
                            torch.cos((yn * a.dy + a.ylat0) * a.pi180))
     xc_hi, xc_lo = ds_add(x_hi, x_lo, du * cosfact2 * dtl * ldirf)
     yc_hi, yc_lo = ds_add(y_hi, y_lo, dv * a.dyconst * dtl * ldirf)
+    xc_hi, xc_lo, yc_hi, yc_lo = _apply_polar(cfg, a, xn, yn, du * dtl,
+                                              dv * dtl, xc_hi, xc_lo, yc_hi,
+                                              yc_lo)
     xc_hi, xc_lo, yc_hi, yc_lo, exited2 = _apply_bcs(cfg, a, xc_hi, xc_lo,
                                                      yc_hi, yc_lo)
 

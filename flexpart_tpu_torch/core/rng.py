@@ -120,6 +120,17 @@ def normals_plain(rows: int, cols: int, k0: int, k1: int, offset: int,
     return torch.clamp(z, -3.0, 3.0)
 
 
+def uniforms_plain(n: int, k0: int, k1: int, device) -> torch.Tensor:
+    """(n,) uniforms in [0, 1): word 0 of Philox4x32-10(counter (i, 0, 0,
+    0)), its top 24 bits times 2**-24, as ``fp::uniform24`` of
+    ``csrc/philox_normal.cuh`` makes them in the redistribution kernel."""
+    i64 = torch.int64
+    col = torch.arange(n, dtype=i64, device=device)
+    zero = torch.zeros(n, dtype=i64, device=device)
+    w0 = philox4x32_10(col, zero, zero, zero, k0, k1)[0]
+    return (w0 >> 8).to(torch.float32) * _2M24
+
+
 def normals_cuda(rows: int, cols: int, k0: int, k1: int, offset: int,
                  device) -> torch.Tensor:
     """K1 launch: (rows, cols) float32 on ``device`` (a CUDA device)."""

@@ -17,8 +17,10 @@
 // turbulence and the Langevin update with its ifine vertical substeps and
 // reflection in the boundary layer, or the constant-diffusivity free
 // troposphere / stratosphere above it; mesoscale memory; windalign and the
-// metric factor; the double-single position update and the cyclic / pole
-// boundary conditions; the Petterssen corrector with a second gather from
+// metric factor; the double-single position update, the polar-stereographic
+// update inside the polar caps (the POLAR instantiation only) and the
+// cyclic / pole boundary conditions; the Petterssen corrector with a second
+// gather from
 // the (R, 32) end-time table (lanes 0-23); masked write-back into new arrays;
 // and the active / exited counts by one ballot and one atomicAdd per warp.
 // A thread branches where the plain version computes both sides and
@@ -65,6 +67,15 @@
 //
 // Parity mode: when the five draw pointers are given, the draws are read
 // from those (rows, n) arrays instead of being made in registers.
+//
+// Polar caps: a grid that is cyclic and reaches beyond 75 degrees takes the
+// POLAR instantiation, which replaces the position of a particle poleward
+// of +-75 degrees, at the predictor and at the corrector, by the update on
+// a tangent polar-stereographic plane (polar_update: sin, cos, tan, hypot,
+// atan and atan2 of the longitude and half colatitude, as sinf, cosf, tanf,
+// hypotf, atanf and atan2f, the functions torch's CUDA kernels call).  A
+// thread computes its own cap only.  The stock instantiation compiles none
+// of it and keeps its registers.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -84,6 +95,7 @@ struct AdvanceArgs {
   int turbswitch;
   int ifine;
   int table_bf16;
+  int polar;           // the grid takes the polar-cap update (POLAR)
   int can_pett;        // host decision: the interval ends inside the met window
   int itime;
   int itra_new;
@@ -104,6 +116,7 @@ struct AdvanceArgs {
   float dx;
   float dy;
   float ylat0;
+  float xlon0;         // grid lon origin of the polar-cap projection
   float dxconst;
   float dyconst;
   float nxm;           // nx - 1
@@ -114,6 +127,12 @@ struct AdvanceArgs {
 };
 
 namespace {
+
+constexpr double PI = 3.14159265358979323846;
+constexpr double PI180 = PI / 180.0;
+constexpr double R_EARTH = 6.371e6;
+constexpr double SWITCHNORTH = 75.0;    // polar-cap thresholds (par_mod.f90:123)
+constexpr double SWITCHSOUTH = -75.0;
 
 struct PIn {
   const float *x_hi, *x_lo, *y_hi, *y_lo, *z;
@@ -372,6 +391,59 @@ __device__ __forceinline__ bool apply_bcs(const AdvanceArgs& a, float& x_hi,
   return (xw < 0.0f) || (xw >= a.nxm) || (yw < 0.0f) || (yw > a.nym);
 }
 
+// Polar-stereographic position update inside the caps (advance.f90:754-778;
+// core/advance.py::_polar_update): a particle at (x, y) poleward of +-75
+// degrees that moved (dxs, dys) metres east and north is moved on the
+// tangent plane of its pole, and (x_hi, x_lo, y_hi, y_lo) become its new
+// position with zero low parts.  Particles outside the caps are untouched.
+__device__ __forceinline__ void polar_update(const AdvanceArgs& a, float x,
+                                             float y, float dxs, float dys,
+                                             float& x_hi, float& x_lo,
+                                             float& y_hi, float& y_lo) {
+  const float lat = (a.ylat0 + y * a.dy) * a.pi180;
+  const bool north = lat > F(SWITCHNORTH * PI180);
+  if (!north && !(lat < F(SWITCHSOUTH * PI180))) return;
+  const float lon = (a.xlon0 + x * a.dx) * a.pi180;
+  const float sinl = sinf(lon);
+  const float cosl = cosf(lon);
+  float lat_new, lon_new;
+  if (north) {
+    // X = rho sin(lon), Y = -rho cos(lon)
+    const float half = F(PI / 4.0) - lat / 2.0f;
+    const float rho = F(2.0 * R_EARTH) * tanf(half);
+    const float ch = cosf(half);
+    const float m = 1.0f / (ch * ch);
+    const float dxp = ((dxs * cosl - dys * sinl) * m) * a.ldirf;
+    const float dyp = ((dxs * sinl + dys * cosl) * m) * a.ldirf;
+    const float xpl = rho * sinl + dxp;
+    const float ypl = (-rho) * cosl + dyp;
+    lat_new = F(PI / 2.0) - 2.0f * atanf(hypotf(xpl, ypl) / F(2.0 * R_EARTH));
+    lon_new = atan2f(xpl, -ypl);
+  } else {
+    // X = rho sin(lon), Y = +rho cos(lon)
+    const float half = F(PI / 4.0) + lat / 2.0f;
+    const float rho = F(2.0 * R_EARTH) * tanf(half);
+    const float ch = cosf(half);
+    const float m = 1.0f / (ch * ch);
+    const float dxp = ((dxs * cosl + dys * sinl) * m) * a.ldirf;
+    const float dyp = (((-dxs) * sinl + dys * cosl) * m) * a.ldirf;
+    const float xps = rho * sinl + dxp;
+    const float yps = rho * cosl + dyp;
+    lat_new = F(-(PI / 2.0)) + 2.0f * atanf(hypotf(xps, yps) / F(2.0 * R_EARTH));
+    lon_new = atan2f(xps, yps);
+  }
+  lat_new = lat_new / a.pi180;
+  lon_new = lon_new / a.pi180;
+  // back to grid units, wrapped with the cyclic width nx - 1
+  float xg = (lon_new - a.xlon0) / a.dx;
+  xg = xg < 0.0f ? xg + a.nxm : xg;
+  xg = xg >= a.nxm ? xg - a.nxm : xg;
+  x_hi = xg;
+  x_lo = 0.0f;
+  y_hi = (lat_new - a.ylat0) / a.dy;
+  y_lo = 0.0f;
+}
+
 // Draw `row` of particle i from an injected (rows, n) array.
 __device__ __forceinline__ float injected_at(const float* d,
                                              const AdvanceArgs& a, long long i,
@@ -387,7 +459,7 @@ __device__ __forceinline__ void site_words(uint32_t w[4], const AdvanceArgs& a,
   fp::normal_words(w, a.key[2 * site], a.key[2 * site + 1], a.offset + i, block);
 }
 
-template <bool BF16, bool TS>
+template <bool BF16, bool TS, bool POLAR>
 __global__ void __launch_bounds__(256)
 advance_kernel(const PIn in, const POut out, const Draws dr,
                const void* __restrict__ rows, const void* __restrict__ rowsE,
@@ -637,6 +709,7 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
       const float cosfact = a.dxconst / cosf((y * a.dy + a.ylat0) * a.pi180);
       ds_add(x_hi, x_lo, (dxsave * cosfact) * a.ldirf);
       ds_add(y_hi, y_lo, (dysave * a.dyconst) * a.ldirf);
+      if (POLAR) polar_update(a, x, y, dxsave, dysave, x_hi, x_lo, y_hi, y_lo);
       exited = apply_bcs(a, x_hi, x_lo, y_hi, y_lo);
       z_new = tmin(z_new, htop);
 
@@ -659,6 +732,7 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
         const float cosfact2 = a.dxconst / cosf((yn * a.dy + a.ylat0) * a.pi180);
         ds_add(x_hi, x_lo, ((du * cosfact2) * dt) * a.ldirf);
         ds_add(y_hi, y_lo, ((dv * a.dyconst) * dt) * a.ldirf);
+        if (POLAR) polar_update(a, xn, yn, du * dt, dv * dt, x_hi, x_lo, y_hi, y_lo);
         exited = apply_bcs(a, x_hi, x_lo, y_hi, y_lo);
         z_new = tmin(z_corr, htop);
       }
@@ -714,9 +788,17 @@ extern "C" int fp_advance(
   const Draws dr = {{d6, d1, d2, d3, d4}};
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((a.n + threads - 1) / threads);
-  auto kern = a.table_bf16
-      ? (a.turbswitch ? advance_kernel<true, true> : advance_kernel<true, false>)
-      : (a.turbswitch ? advance_kernel<false, true> : advance_kernel<false, false>);
+  auto kern = a.polar
+      ? (a.table_bf16
+             ? (a.turbswitch ? advance_kernel<true, true, true>
+                             : advance_kernel<true, false, true>)
+             : (a.turbswitch ? advance_kernel<false, true, true>
+                             : advance_kernel<false, false, true>))
+      : (a.table_bf16
+             ? (a.turbswitch ? advance_kernel<true, true, false>
+                             : advance_kernel<true, false, false>)
+             : (a.turbswitch ? advance_kernel<false, true, false>
+                             : advance_kernel<false, false, false>));
   kern<<<blocks, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
       in, out, dr, rows, rowsE, height, counts, a);
   return static_cast<int>(cudaGetLastError());

@@ -1,7 +1,8 @@
 // Clipped N(0,1) draws from a counter-based Philox4x32-10, as device
 // functions: the draw backend shared by the stand-alone normals kernel
 // (normals.cu) and the fused advance kernel (advance.cu), which makes its
-// draws in registers so that they never touch device memory.
+// draws in registers so that they never touch device memory; the
+// redistribution kernel (redist.cu) takes its uniforms from it too.
 //
 // A draw depends on nothing but (key, global particle index, row).  Rows
 // come four to a Philox call: rows 4q .. 4q+3 of a particle are made from
@@ -68,6 +69,12 @@ __device__ __forceinline__ void normal_words(uint32_t w[4], uint32_t k0,
   w[2] = 0u;
   w[3] = 0u;
   philox4x32_10(w, k0, k1);
+}
+
+// One word -> a uniform in [0, 1) from its top 24 bits (exact int->float),
+// as core/rng.py::uniforms_plain makes it.
+__device__ __forceinline__ float uniform24(uint32_t w) {
+  return static_cast<float>(w >> 8) * 5.9604644775390625e-08f;
 }
 
 // One pair of words -> the two clipped normals of a pair of rows.

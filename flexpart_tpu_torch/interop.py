@@ -78,10 +78,15 @@ def zfields_to_numpy(z: ZFields) -> dict[str, np.ndarray]:
             for f in dataclasses.fields(z)}
 
 
+# the port's StepParams fields that the JAX package names otherwise
+_STEP_PARAM_NAMES = {"xlon0": "xlon0_pol"}
+
+
 def step_params_from_numpy(prm) -> StepParams:
     names = [f.name for f in dataclasses.fields(StepParams)]
-    return StepParams(**{k: float(np.asarray(_get(prm, k)).reshape(-1)[0])
-                         for k in names})
+    return StepParams(**{
+        k: float(np.asarray(_get(prm, _STEP_PARAM_NAMES.get(k, k)))
+                 .reshape(-1)[0]) for k in names})
 
 
 def step_config_from_jax(cfg) -> StepConfig:
@@ -144,10 +149,12 @@ def metgrid_from_jax(grid):
 
 
 def simulation_from_jax(sim, device, met_backend=None, outdir=None):
-    """The port's ``Simulation`` with the configuration of a JAX one.  The
-    met backend is not carried over (its ``fetch`` returns JAX arrays):
-    ``met_backend`` is the port's, by default ``SyntheticMet`` on the same
-    grid.  ``outdir`` defaults to the JAX run's."""
+    """The port's ``Simulation`` with the configuration of a JAX one and
+    its convective flux memory ``cbmf`` (the particles are the port's own
+    release schedule, equal to the JAX one's).  The met backend is not
+    carried over (its ``fetch`` returns JAX arrays): ``met_backend`` is the
+    port's, by default ``SyntheticMet`` on the same grid.  ``outdir``
+    defaults to the JAX run's."""
     from .met.synthetic import SyntheticMet
     from .run.simulation import Simulation
     grid = metgrid_from_jax(sim.grid)
@@ -158,10 +165,13 @@ def simulation_from_jax(sim, device, met_backend=None, outdir=None):
     rest = {f.name: getattr(sim, f.name)
             for f in dataclasses.fields(Simulation)
             if f.name not in own and hasattr(sim, f.name)}
-    return Simulation(
+    out = Simulation(
         cmd=command_from_jax(sim.cmd),
         releases=releases_from_jax(sim.releases), grid=grid,
         met_backend=met_backend, outgrid=outgrid_from_jax(sim.outgrid),
         ageclasses=ageclasses_from_jax(sim.ageclasses),
         outdir=sim.outdir if outdir is None else outdir, device=device,
         **rest)
+    if getattr(sim, "cbmf", None) is not None and out.cbmf is not None:
+        out.cbmf = to_tensor(np.asarray(sim.cbmf, np.float32), out.device)
+    return out

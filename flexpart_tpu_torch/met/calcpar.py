@@ -1,7 +1,7 @@
 """Boundary-layer parameters over the whole grid.
 
-Port of ``flexpart_tpu/met/calcpar.py`` for hybrid-eta met without
-subgrid orography (``lsubgrid`` and ``pressure_levels`` raise, as does a
+Port of ``flexpart_tpu/met/calcpar.py`` for hybrid-eta met, with or
+without subgrid orography (``pressure_levels`` raises, as does a
 dry-deposition ``vdep_kernel``).  Every column runs the same fixed-shape
 masked computation; "first True" searches are ``argmax`` over an int
 cast, which returns the first maximal index as ``jnp.argmax`` does.
@@ -179,8 +179,6 @@ def calcpar(grid: MetGrid, eta, z: ZFields, lsubgrid: bool = False,
             vdep_kernel=None) -> ZFields:
     """Fill the calcpar surface fields (ustar, 1/L, hmix, w*, tropopause)
     of a processed ZFields; runs on the device of ``eta``."""
-    if lsubgrid:
-        raise NotImplementedError("subgrid-orography hmix is not ported yet")
     if vdep_kernel is not None:
         raise NotImplementedError("dry-deposition velocities are not ported yet")
     if grid.pressure_levels:
@@ -197,9 +195,14 @@ def calcpar(grid: MetGrid, eta, z: ZFields, lsubgrid: bool = False,
     ol = obukhov_length(eta.ps, eta.tt2, eta.td2, tlev, ustar, eta.sshf, plev1)
     oli = torch.where(ol != 0.0, 1.0 / ol, torch.full_like(ol, 99999.0))
 
-    hmix, wstar, _ = richardson_hmix(akz, bkz, eta.ps, ustar, eta.tth,
-                                     eta.qvh, eta.uuh, eta.vvh, eta.sshf,
-                                     eta.tt2, eta.td2)
+    hmix, wstar, hmixplus = richardson_hmix(akz, bkz, eta.ps, ustar, eta.tth,
+                                            eta.qvh, eta.uuh, eta.vvh, eta.sshf,
+                                            eta.tt2, eta.td2)
+    if lsubgrid:
+        # subgrid orography lifts the mixing height by the excess
+        # orography, at most by what the kinetic energy allows
+        # (richardson.f90's hmixplus)
+        hmix = hmix + torch.minimum(eta.excessoro, hmixplus)
     hmix = torch.clamp(hmix, HMIXMIN, HMIXMAX)
     tropo = tropopause_height(akz, bkz, eta.ps, eta.tt2, eta.td2, eta.tth,
                               eta.qvh, lats)

@@ -57,6 +57,16 @@ class MetGrid:
         return self.nx - 1 if self.xglobal else self.nx
 
     @property
+    def nglobal(self) -> bool:
+        """The grid reaches the north pole (its top row is the pole)."""
+        return self.xglobal and (self.ylat0 + (self.ny - 1) * self.dy > 89.0)
+
+    @property
+    def sglobal(self) -> bool:
+        """The grid reaches the south pole."""
+        return self.xglobal and (self.ylat0 < -89.0)
+
+    @property
     def dxconst(self) -> float:
         """m -> grid-units conversion in x at the equator [gu/m]."""
         return 180.0 / (self.dx * R_EARTH * PI)

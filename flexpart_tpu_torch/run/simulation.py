@@ -2,9 +2,11 @@
 
 Port of ``flexpart_tpu/run/simulation.py``: the forward (``ldirect=1``),
 serial, one-device path with the fixed step (``ctl < 0``) and species that
-neither deposit nor decay.  Every option outside that path raises
-``NotImplementedError`` naming it when the ``Simulation`` is built; none is
-skipped silently.
+neither deposit nor decay, with the defaults of ``Command``: convection
+(``lconvection=1``), subgrid orography (``lsubgrid=1``) and, on a cyclic
+grid beyond 75 degrees, the polar caps.  Every option outside that path
+raises ``NotImplementedError`` naming it when the ``Simulation`` is built;
+none is skipped silently.
 
 Host-side control loop; all per-particle compute stays on the device.
 Per sync interval (timemanager.f90:152-712):
@@ -16,6 +18,10 @@ Per sync interval (timemanager.f90:152-712):
   3. keep the particles in met-cell order (core/reorder.py): a sort every
      ``REORDER_EVERY`` steps and on every step in which a release woke
      particles;
+  3b. convective redistribution (physics/convection.py; timemanager.f90:
+     258-263): the Emanuel scheme over every grid column (K6 on a CUDA
+     device), then the particles' draws against their column's
+     displacement matrix (K7);
   4. sample concentrations into the device accumulator (conccalc) on the
      loutsample cadence with the reference's half-weight edge rule
      (timemanager.f90:350-365);
@@ -53,9 +59,11 @@ from ..grid.outgrid import (Accumulators, OutputGridGeometry,
                             density_outgrid, oro_outgrid, zero_accumulators)
 from ..io.writer import OutputWriter
 from ..met.calcpar import calcpar
+from ..met.calcpv import calcpv
 from ..met.fields import F3_RHO
 from ..met.grid import MetGrid
 from ..met.verttransform import compute_heights, process_eta
+from ..physics.convection import make_convection_kernel, redist_particles
 from ..utils.dates import add_seconds
 from ..utils.profile import SectionTimers
 
@@ -98,14 +106,8 @@ class Simulation:
         """Raise for every option whose code is not ported yet."""
         cmd = self.cmd
         species = self.releases.species
-        top_lat = self.grid.ylat0 + (self.grid.ny - 1) * self.grid.dy
         span = abs(cmd.ideltas)
         unported = {
-            "lconvection=1 (convection)": cmd.lconvection == 1,
-            "polar (a cyclic grid that reaches beyond 75 degrees)":
-                bool(self.grid.xglobal
-                     and (top_lat > 75.0 or self.grid.ylat0 < -75.0)),
-            "lsubgrid=1 (subgrid orography)": cmd.lsubgrid == 1,
             "ldirect=-1 (backward runs)": cmd.ldirect != 1,
             "mdomainfill (domain filling)": cmd.mdomainfill != 0,
             "ipin=1 (warm start)": cmd.ipin == 1,
@@ -155,17 +157,31 @@ class Simulation:
         self.geo = OutputGridGeometry(self.outgrid, self.grid)
         nage = self.ageclasses.nageclass
 
+        top_lat = self.grid.ylat0 + (self.grid.ny - 1) * self.grid.dy
         self.step_cfg = StepConfig(
             nx=self.grid.nx, ny=self.grid.ny, nz=self.grid.nlev,
             xglobal=self.grid.xglobal, ldirect=cmd.ldirect,
             turbswitch=cmd.turbswitch, ifine=cmd.ifine_eff,
-            method=cmd.method, met_bf16=self.met_bf16)
+            method=cmd.method, met_bf16=self.met_bf16,
+            polar=bool(self.grid.xglobal
+                       and (top_lat > 75.0 or self.grid.ylat0 < -75.0)))
         self.step_cfg.check()
         self.step_prm = StepParams.make(
             dx=self.grid.dx, dy=self.grid.dy, ylat0=self.grid.ylat0,
             dxconst=self.grid.dxconst, dyconst=self.grid.dyconst,
             lsynctime=cmd.lsynctime, fine=cmd.fine,
-            lwindinterv=self.wind_interval)
+            lwindinterv=self.wind_interval, xlon0=self.grid.xlon0)
+        # convection: the grid's kernel, and the cloud-base mass flux
+        # memory of every column, kept on the device between steps
+        self.conv_kernel = None
+        self.cbmf: torch.Tensor | None = None
+        if cmd.lconvection == 1:
+            self.conv_kernel = make_convection_kernel(self.grid)
+            self.cbmf = torch.zeros(self.grid.ny * self.grid.nx,
+                                    dtype=torch.float32, device=dev)
+        # per convection step, on the device: (convecting columns, moved
+        # particles); summed into timings at the end of the run
+        self.convection_counts: list[torch.Tensor] = []
         self.conc_cfg = ConcConfig(
             nxg=self.geo.nxg, nyg=self.geo.nyg, nzg=self.geo.nzg,
             npointspec=self.numpoint if cmd.ioutputforeachrelease else 1,
@@ -222,10 +238,12 @@ class Simulation:
         self.nan_count = 0               # CBL redraws; the CBL is not ported
         self.n_sorts = 0
         # tests only: `_draws_hook(istep, origin)` returns the advance's
-        # injected draws for this step, already in slot order; `origin[k]`
-        # is the schedule slot of the particle now in slot k (kept only
-        # while a hook is set)
+        # injected draws for this step, already in slot order, and
+        # `_redist_hook(istep, origin)` the convective redistribution's
+        # uniforms; `origin[k]` is the schedule slot of the particle now in
+        # slot k (kept only while a hook is set)
         self._draws_hook: Callable | None = None
+        self._redist_hook: Callable | None = None
         self._origin: torch.Tensor | None = None
         # measurements only: called with (istep, itime) at the top of each
         # step, after the release and before the sort, to look at the
@@ -439,15 +457,13 @@ class Simulation:
         return self._buf[tsec][0]
 
     def _process_field(self, tsec: int, eta):
-        """Device-side processing of one fetched met time: verttransform +
-        calcpar.  Returns the (z, eta) buffer entry.  Safe to call from
-        the prefetch worker thread once the height grid exists.
-
-        ``pvh=None``: the potential vorticity (``calcpv``) is not ported,
-        so ``F3_PV`` stays zero.  Nothing on this path reads it; the
-        particle dumps and the domain fill, which do, are refused."""
-        z = process_eta(self.grid, eta, self._height, pvh=None,
-                        use_clwc=self.use_clwc)
+        """Device-side processing of one fetched met time: calcpv +
+        verttransform + calcpar.  Returns the (z, eta) buffer entry (the
+        convection reads the raw eta-level profiles, convmix.f90:168-189).
+        Safe to call from the prefetch worker thread once the height grid
+        exists."""
+        z = process_eta(self.grid, eta, self._height,
+                        pvh=calcpv(self.grid, eta), use_clwc=self.use_clwc)
         z = calcpar(self.grid, eta, z, lsubgrid=bool(self.cmd.lsubgrid))
         return (z, eta)
 
@@ -506,9 +522,46 @@ class Simulation:
             self.particles, perm = reorder.reorder_by_cell(
                 self.particles, height, self.step_cfg)
         self.n_sorts += 1
-        if self._draws_hook is not None:
+        if self._draws_hook is not None or self._redist_hook is not None:
             idx = perm.long()
             self._origin = idx if self._origin is None else self._origin[idx]
+
+    def _slot_origin(self) -> torch.Tensor:
+        """The schedule slot of the particle in each slot (tests' hooks)."""
+        if self._origin is None:
+            self._origin = torch.arange(self.particles.capacity,
+                                        device=self.device)
+        return self._origin
+
+    def _convect(self, istep: int, itime: int, mt0: int, mt1: int):
+        """Convective redistribution (timemanager.f90:258-263 -> convmix,
+        calcmatrix, convect, redist): the scheme over every grid column at
+        the step's time weights, then each scheduled particle's draw
+        against its column's matrix.  The raw fields of both met times
+        come from the buffer, handed over from the reader's stream like
+        the processed ones.  Nothing is read back: the convecting columns
+        and the moved particles are kept on the device."""
+        cmd = self.cmd
+        e0, e1 = self._get_eta(mt0), self._get_eta(mt1)
+        dt1 = float(itime - mt0)
+        dt2 = float(mt1 - itime)
+        dtt = 1.0 / (dt1 + dt2)
+        conv = self.conv_kernel(
+            e0.ps, e0.tth, e0.qvh, e0.tt2, e0.td2,
+            e1.ps, e1.tth, e1.qvh, e1.tt2, e1.td2,
+            float(np.float32(dt2 * dtt)), float(np.float32(dt1 * dtt)),
+            self.cbmf, float(np.float32(abs(cmd.lsynctime))))
+        self.cbmf = conv.cbmf
+        rn = None
+        if self._redist_hook is not None:
+            rn = self._redist_hook(istep, self._slot_origin())
+        self.particles, moved = redist_particles(
+            self.particles, rng.Key(self.seed, istep), conv.fmassfrac,
+            conv.rlevmass, conv.phconv, conv.sub, conv.uvzlev, conv.pconv,
+            conv.tconv, conv.lconv, cmd.lsynctime, itime,
+            nl=self.conv_kernel.nl, nx=self.grid.nx, ny=self.grid.ny, rn=rn)
+        self.convection_counts.append(torch.stack(
+            [conv.lconv.sum(dtype=torch.int32), moved]))
 
     def _run(self, progress: bool = False):
         cmd = self.cmd
@@ -546,6 +599,11 @@ class Simulation:
                     or itime in self._release_times:
                 self._sort(z0.height)
 
+            # convective redistribution (timemanager.f90:258-263)
+            if self.conv_kernel is not None:
+                with self.timers.section("convection"):
+                    self._convect(istep, itime, mt0, mt1)
+
             # sampling (timemanager.f90:350-365)
             if (loutstart <= itime <= loutend
                     and (itime - loutstart) % loutsample == 0):
@@ -574,10 +632,7 @@ class Simulation:
             t0 = _time.perf_counter()
             draws = None
             if self._draws_hook is not None:
-                if self._origin is None:
-                    self._origin = torch.arange(self.particles.capacity,
-                                                device=self.device)
-                draws = self._draws_hook(istep, self._origin)
+                draws = self._draws_hook(istep, self._slot_origin())
             with self.timers.section("advance"):
                 self.particles, diag = advance_all(
                     self.particles, z0, z1, itime, mt0, mt1,
@@ -603,6 +658,9 @@ class Simulation:
         self.last_itime = itime
         self.timings.update(self.timers.seconds)
         self.timings["particle_steps"] = int(particle_steps)
+        if self.convection_counts:
+            self.timings["convection_moved"] = int(
+                torch.stack(self.convection_counts)[:, 1].sum())
         self.timings["wall"] = _time.perf_counter() - t_wall0
         if self.profile:
             report = self.timers.report(extra={

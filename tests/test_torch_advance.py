@@ -175,7 +175,7 @@ def test_chunking_does_not_change_the_port(setup):
 def test_outside_slice_raises(setup):
     grid = setup[0]
     _, _, tcfg, _ = _cfgs(grid, CONFIGS["stock"])
-    for bad in (dict(method=1), dict(cblflag=True), dict(polar=True),
+    for bad in (dict(method=1), dict(cblflag=True),
                 dict(tile_mode=True), dict(settling=True),
                 dict(nests=((5, 5),))):
         cfg = type(tcfg)(**{**tcfg.__dict__, **bad})
@@ -242,7 +242,8 @@ def test_advance_args_are_the_plain_path_scalars(setup, name):
         d_strat_1000=f32(0.1 / 1000.0), r_meso=r,
         rs_meso=np.sqrt(f32(1.0) - r * r), turbmeso=f32(0.16),
         pi180=f32(np.pi / 180.0), dx=f32(grid.dx), dy=f32(grid.dy),
-        ylat0=f32(grid.ylat0), dxconst=f32(grid.dxconst),
+        ylat0=f32(grid.ylat0), xlon0=f32(grid.xlon0),
+        dxconst=f32(grid.dxconst),
         dyconst=f32(grid.dyconst), nxm=f32(nxm), nym=f32(grid.ny - 1),
         two_nym=f32(2.0 * (grid.ny - 1)), eps_bc=eps,
         nxm_eps=f32(nxm) - eps)
@@ -253,7 +254,8 @@ def test_advance_args_are_the_plain_path_scalars(setup, name):
         assert f32(getattr(a, k)) == v and getattr(a, k) == float(v), k
     ints = dict(nx=grid.nx, ny=grid.ny, nz=grid.nlev, xglobal=1,
                 turbswitch=int(kw["turbswitch"]), ifine=kw["ifine"],
-                table_bf16=int(kw["met_bf16"]), can_pett=1, itime=itime,
+                table_bf16=int(kw["met_bf16"]), polar=0, can_pett=1,
+                itime=itime,
                 itra_new=itime + LSYNC, n=0, offset=0)
     for k, v in ints.items():
         assert getattr(a, k) == v, k

@@ -9,7 +9,9 @@ receives by pointer and the ``ReorderFields`` struct that K5 receives are
 held field for field against their ctypes mirrors, and the lane counts of
 the two quad tables against the strides that K2 writes and K4 reads.
 A kernel's library name must change with its source and with every
-header the source includes, or a changed header is never rebuilt.
+header the source includes, or a changed header is never rebuilt.  K4's
+``POLAR`` instantiation, K6's level limit and K7's uniform draw and
+rounding are held against what the Python side assumes.
 """
 import ctypes
 import re
@@ -23,6 +25,7 @@ torch.set_num_threads(2)
 from flexpart_tpu_torch import _build  # noqa: E402
 from flexpart_tpu_torch.core import advance, interp, reorder, rng, state  # noqa: E402
 from flexpart_tpu_torch.grid import conccalc  # noqa: E402
+from flexpart_tpu_torch.physics import convection  # noqa: E402
 
 KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
          ctypes.c_int64: "int64", ctypes.c_uint32: "uint32",
@@ -56,9 +59,10 @@ def _kernel(name):
 
 
 def test_four_kernels():
-    """The four kernels of the stock step, and the cell-order sort."""
+    """The four kernels of the stock step, the cell-order sort, and the
+    two of the convection: the columns (K6) and the redistribution (K7)."""
     assert KERNEL_NAMES == ["normals", "quad_tables", "conccalc", "advance",
-                            "reorder"]
+                            "reorder", "convection", "redist"]
     for k in _build.KERNELS:
         assert k.source.is_file() and k.launches == 0 and k._fn is None
 
@@ -269,3 +273,61 @@ def test_advance_args_struct_matches_the_source():
     assert fields == parsed
     assert len(advance.DRAW_TAGS) * 2 == dict(
         (n, c) for n, _, c in parsed)["key"]
+
+
+def test_advance_polar_is_an_instantiation_of_its_own():
+    """The polar-cap update is compiled only into the ``POLAR``
+    instantiations of K4, at the predictor and at the corrector, and the
+    launcher picks them by ``AdvanceArgs.polar``; the update calls the
+    six functions of the plain version's torch ops."""
+    text = _strip_comments(_build.ADVANCE.source.read_text())
+    assert "template <bool BF16, bool TS, bool POLAR>" in text
+    assert text.count("if (POLAR) polar_update(") == 2
+    assert "if (POLAR) polar_update(a, x, y, dxsave, dysave," in text
+    assert "if (POLAR) polar_update(a, xn, yn, du * dt, dv * dt," in text
+    assert "a.polar" in text
+    # the four (table type, turbswitch) instantiations, with and without
+    for polar in ("true", "false"):
+        assert text.count(f", {polar}>") == 4
+    body = re.search(r"void polar_update\((.*?)\n}\n", text, re.S).group(1)
+    for fn in ("sinf(", "cosf(", "tanf(", "hypotf(", "atanf(", "atan2f("):
+        assert fn in body, fn
+    assert "sincosf(" not in body and "__sinf(" not in body
+    assert ("polar", ctypes.c_int) in advance.AdvanceArgs._fields_
+    assert ("xlon0", ctypes.c_float) in advance.AdvanceArgs._fields_
+
+
+def test_convection_level_limit_matches_the_source():
+    """K6 refuses a grid whose profile levels its shared memory cannot hold,
+    and the wrapper states the same limit; at the limit a column's shared
+    memory fits in the 232,448 bytes a block may have."""
+    text = _strip_comments(_build.CONVECTION.source.read_text())
+    m = re.search(r"constexpr\s+int\s+MAX_LEVELS\s*=\s*(\d+)\s*;", text)
+    assert int(m.group(1)) == convection.K6_MAX_LEVELS
+    nvec = int(re.search(r"constexpr\s+int\s+NVEC\s*=\s*(\d+)\s*;",
+                         text).group(1))
+    assert "(NVEC * L1 + 3 * (L1 + 1) + 3 * L1 * L1) * sizeof(float)" in text
+    L1 = convection.K6_MAX_LEVELS
+    shared = (nvec * L1 + 3 * (L1 + 1) + 3 * L1 * L1) * 4 + 4 * L1
+    assert shared + 256 <= 232448
+    assert "L1 > MAX_LEVELS" in text
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in text
+
+
+def test_redist_rounds_half_to_even_and_draws_word_zero():
+    """K7 rounds a position to its column as ``jnp.round``/``torch.round``
+    do (``rintf``, never ``roundf``), and its uniform is ``fp::uniform24``
+    of word 0 of the particle's Philox call, as ``rng.uniforms_plain``
+    makes it; ``philox_normal.cuh`` holds the one definition."""
+    k7 = _kernel("redist")
+    assert _build.CSRC / "philox_normal.cuh" in k7.sources()
+    text = _strip_comments(k7.source.read_text())
+    assert "rintf(" in text and "roundf(" not in text
+    assert "fp::normal_words(w, k0, k1, i, 0u);" in text
+    assert "rn = fp::uniform24(w[0]);" in text
+    header = _strip_comments((_build.CSRC / "philox_normal.cuh").read_text())
+    assert re.search(r"uniform24\(uint32_t w\) \{\s*return "
+                     r"static_cast<float>\(w >> 8\) \* "
+                     r"5\.9604644775390625e-08f;", header)
+    assert rng._2M24 == 5.9604644775390625e-08
+    assert convection.REDIST_TAG == 1000000

@@ -7,6 +7,16 @@ log/exp/pow implementations differ by an ulp or two, and the cumulative
 height integral carries those ulps up the column.  The per-column
 Richardson level must be identical: a flip there would move hmix by a
 whole layer, which no tolerance may absorb.
+
+``calcpv`` (potential vorticity on the eta levels) on a global grid with
+both polar caps and on a regional one: within 1e-4 of each grid's largest
+|PV| (theta's ``pow``, the neighbour interpolation on the isentrope and
+the zonal mean of the cap rows round differently; measured 2.3e-5 and
+1.0e-5).  ``calcpar(lsubgrid=True)`` adds the excess orography, capped by
+``hmixplus``, to the mixing height: the other fields within rtol 1e-5,
+``hmix`` within 5e-5 (``hmixplus`` is a wind speed over the root of a
+Brunt-Vaisala frequency from a small temperature difference, and it is
+added where it is below the 50 m of excess orography; measured 1.5e-5).
 """
 import functools
 
@@ -100,3 +110,64 @@ def test_richardson_level_identical():
         t["qvh"], t["uuh"], t["vvh"], t["sshf"], t["tt2"], t["td2"])
     # a level flip moves h by >= 1/20 of a layer (tens of metres)
     np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), rtol=RTOL)
+
+
+@pytest.mark.parametrize("kind", ["global", "regional"])
+def test_calcpv_matches_jax(kind):
+    from flexpart_tpu.met.calcpv import calcpv as jcalcpv
+    from flexpart_tpu_torch.met.calcpv import calcpv
+    if kind == "global":
+        kw = dict(nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)
+    else:
+        kw = dict(nx=30, ny=20, nlev=12, dx=2.0, dy=2.0, xlon0=-20.0,
+                  ylat0=20.0)
+    jgrid, tgrid = jmet.make_grid(**kw), make_grid(**kw)
+    assert (tgrid.xglobal, tgrid.nglobal, tgrid.sglobal) == (
+        jgrid.xglobal, jgrid.nglobal, jgrid.sglobal) == ((kind == "global",)
+                                                         * 3)
+    jeta = jmet.SyntheticMet(jgrid).fetch(3600.0)
+    teta = SyntheticMet(tgrid).fetch(3600.0, "cpu")
+    a, b = calcpv(tgrid, teta).numpy(), np.asarray(jcalcpv(jgrid, jeta))
+    assert a.shape == b.shape == (kw["nlev"], kw["ny"], kw["nx"])
+    assert a.dtype == np.float32
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())
+    if kind == "global":
+        # the cap rows hold the zonal mean of the row next to them
+        for cap, nb in ((0, 1), (-1, -2)):
+            np.testing.assert_allclose(a[:, cap, :], a[:, nb, :].mean(
+                axis=-1, keepdims=True).repeat(kw["nx"], -1), rtol=1e-6)
+
+
+def test_process_eta_takes_calcpv():
+    """The port's Simulation hands ``calcpv``'s field to ``process_eta``:
+    ``F3_PV`` is that field on the height grid, not zero."""
+    from flexpart_tpu_torch.met.calcpv import calcpv
+    jgrid, jeta, jh, th, jz, _ = _both("synthetic")
+    tgrid = make_grid(nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)
+    teta = SyntheticMet(tgrid).fetch(3600.0, "cpu")
+    from flexpart_tpu.met.calcpv import calcpv as jcalcpv
+    jz_pv = jmet.process_eta(jgrid, jeta, jh, pvh=jcalcpv(jgrid, jeta))
+    tz_pv = process_eta(tgrid, teta, th, pvh=calcpv(tgrid, teta))
+    a, b = tz_pv.f3d[tf.F3_PV].numpy(), np.asarray(jz_pv.f3d)[tf.F3_PV]
+    assert np.abs(a).max() > 0.0
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())
+
+
+def test_calcpar_lsubgrid_matches_jax():
+    jgrid, jeta, jh, th, _, _ = _both("synthetic")
+    tgrid = make_grid(nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)
+    teta = SyntheticMet(tgrid).fetch(3600.0, "cpu")
+    jz = jmet.calcpar(jgrid, jeta, jmet.process_eta(jgrid, jeta, jh),
+                      lsubgrid=True)
+    tz = tcalcpar.calcpar(tgrid, teta, process_eta(tgrid, teta, th),
+                          lsubgrid=True)
+    tz0 = tcalcpar.calcpar(tgrid, teta, process_eta(tgrid, teta, th))
+    f2j, f2t = np.asarray(jz.f2d), tz.f2d.numpy()
+    for name, k in F2.items():
+        np.testing.assert_allclose(f2t[k], f2j[k],
+                                   rtol=5e-5 if name == "HMIX" else RTOL,
+                                   atol=1e-30, err_msg=f"f2d {name}")
+    # SyntheticMet's excess orography is 50 m: hmix rises where the cap
+    # allows it
+    lift = f2t[tf.F2_HMIX] - tz0.f2d[tf.F2_HMIX].numpy()
+    assert lift.max() > 0.0 and lift.min() >= 0.0 and lift.max() <= 50.0 + 1e-3

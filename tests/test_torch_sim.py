@@ -5,9 +5,11 @@ One JAX run per file (module-scoped: it pays the XLA compile of the
 advance).  The verification recipe of both packages — a 2 x 2 degree box
 of 1008 particles released over the first hour, three hours of 900 s steps,
 hourly output on a 60 x 40 x 3 grid — with ``lconvection=0``,
-``lsubgrid=0`` and a cyclic met grid that stops at 70 degrees, because the
-port refuses convection, subgrid orography and polar caps for now, goes
-through both packages on the CPU.
+``lsubgrid=0`` and a cyclic met grid that stops at 70 degrees (no polar
+cap), the configuration that holds the advance, the release, the sort and
+the writers against JAX without convection, subgrid orography or caps,
+goes through both packages on the CPU.  The recipe verbatim, with all
+three, is ``tests/test_torch_default_run.py``.
 
 Equal: the release schedule bitwise, the active count, ``dates``, the
 names, shapes and dtypes in the npz files, the variables of the netCDF file
@@ -381,9 +383,6 @@ def test_age_classes_terminate_like_jax(tmp_path):
 
 
 REFUSED = {
-    "lconvection": dict(cmd_kw=dict(lconvection=1)),
-    "polar": dict(grid=dict(nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)),
-    "lsubgrid": dict(cmd_kw=dict(lsubgrid=1)),
     "ldirect": dict(cmd_kw=dict(ldirect=-1)),
     "mdomainfill": dict(cmd_kw=dict(mdomainfill=1)),
     "ipin": dict(cmd_kw=dict(ipin=1)),
@@ -417,8 +416,6 @@ REFUSED = {
 @pytest.mark.parametrize("option", list(REFUSED))
 def test_unported_option_is_refused_by_name(option, tmp_path):
     kw = dict(REFUSED[option])
-    if "grid" in kw:
-        kw["grid"] = make_grid(**kw["grid"])
     species = kw.pop("species", None)
     if species is not None:
         cmd, rel, og = _config(tconfig)
