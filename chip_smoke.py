@@ -40,6 +40,13 @@ the port's stock forward step on the card, in phases:
                 bitwise and the moved counts equal, as drawn and in cell
                 order (K5, the run's order), the sorted result equal to
                 the unsorted one through perm, each timed beside its bound;
+                the deposition kernels on 10 x 2**20 particles over the
+                globe with two species: the wet pass (K9) and the decay
+                and dry pass (K10) against their plain chains, bitwise,
+                on SyntheticMet's fields and on the same fields with every
+                cloud class and a temperature across the ice ramp, as
+                drawn and in cell order, and the deposit scatter (K8) of
+                both deposits against the float64 sum of its pairs;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
                 with the same draws; and the advance kernel with its draws
@@ -61,14 +68,21 @@ the port's stock forward step on the card, in phases:
                 under torch.profiler: CUDA launches per step, device time
                 by kernel with the sort's share, device busy share;
   8. sim      — the port's Simulation.run at full width with the default
-                Command (convection and subgrid orography on): 10 x 2**20
-                particles released from one box over the first hour, three
+                Command (convection and subgrid orography on) and two
+                species, the default tracer and a Cs-137-like aerosol that
+                decays and deposits wet and dry (no settling): 10 x 2**20
+                particles released over the first hour from one box at
+                40-42 N (both species) and a second in SyntheticMet's
+                storm band (the aerosol only, where it rains), three
                 hours on SyntheticMet on the 361x181x30 grid, which reaches
                 the poles (the advance's POLAR instantiation), hourly npz
                 (and netCDF where h5py imports) output on the 720x360x3
                 grid; twice with one seed: the runs must end in bitwise
-                equal particles, all particles active, the mass recovered
-                from the last file 1 within 1e-3; per step, the columns
+                equal particles, all particles active, the tracer's mass
+                recovered from the last file 1 within 1e-3, the aerosol's
+                wet and dry deposits above 0 and its budget (airborne +
+                wet + dry = released) within 1e-3, the deposition grids
+                of the two runs within rtol 1e-5; per step, the columns
                 that convect and the particles convection moved.  The first run carries no
                 probe and is timed as a whole; the second, under
                 torch.profiler and synchronised at the top of every step,
@@ -77,9 +91,11 @@ the port's stock forward step on the card, in phases:
                 sorts, and the share of active particles out of cell order
                 at the top of each step, and keeps the ensemble, the met
                 fields and the flux memory of one release step and of one
-                steady step: on those, K2, K5, K6, K7, K3 and K4 (injected
-                draws) are held against their plain versions at the kernels
-                phase's tolerances, and K7 once more with the step's
+                steady step: on those, K9, K10, K8, K2, K5, K6, K7, K3 and
+                K4 (injected draws) are held against their plain versions
+                at the kernels phase's tolerances (K9 once more with the
+                step's particles put in the storm band where fewer than 1%
+                of the active ones are scavenged), and K7 once more with the step's
                 particles put in its convecting columns (the plume lies
                 outside SyntheticMet's convecting bands), where it must
                 move some, as put and in cell order, each timed beside
@@ -163,6 +179,29 @@ K7_OPS_PER_PARTICLE = 30    # the column, the level search's setup, the store
 K7_OPS_PER_LIVE_LEVEL = 12  # the level search and the cumulative row
 K4_POLAR_OPS = 150          # per cap particle: the six transcendentals and
 #                             the plane arithmetic, at both call sites
+# the deposition kernels (K8-K10).  K9 and K10 run the plain versions'
+# float32 operations in their order with the same expf/powf/sqrtf, and are
+# held bitwise; where a toolkit's powf or expf differs by an ulp from the
+# one torch was built with, each value must stay within the rtol below and
+# the differing values are counted.  K8's float atomics are held against
+# the float64 sum of its pairs: within max(pairs in the cell * 2**-24,
+# K8_RTOL).  Operations, counted from the sources: K8 as K3 (a sampled
+# particle's four rounds of a warp match and a shuffle loop); K9 the
+# bilinear sums, the level search and the cloud fraction (about 200), a
+# species' powf or two powf and a sqrtf, the in-cloud rule and two expf
+# (about 150); K10 the weights (about 40), a species' two or three expf
+# and the products (about 60).
+K8_RTOL = 1e-5
+K9_RTOL = 1e-5
+K10_RTOL = 1e-5
+K8_OPS_PER_PARTICLE = 300
+K9_OPS_PER_PARTICLE = 200
+K9_OPS_PER_SPECIES = 150
+K10_OPS_PER_PARTICLE = 40
+K10_OPS_PER_SPECIES = 60
+# the sim phase holds K9 once more in the storm band where fewer than this
+# share of a kept step's active particles is scavenged
+SIM_MIN_RAINED = 0.01
 K4_CASES = {"stock": dict(turbswitch=False, ifine=1, met_bf16=True),
             "turb_ifine4": dict(turbswitch=True, ifine=4, met_bf16=True),
             "f32_tables": dict(turbswitch=False, ifine=1, met_bf16=False)}
@@ -611,6 +650,8 @@ def phase_kernels(device, grid) -> dict:
     res["advance"]["polar"] = kernel_advance_polar(device, grid)
     torch.cuda.empty_cache()
     res["convection"], res["redist"] = kernel_convection(device, grid)
+    torch.cuda.empty_cache()
+    res.update(kernel_deposition(device, grid))
     return res
 
 
@@ -1079,6 +1120,353 @@ def kernel_convection(device, grid) -> tuple[dict, dict]:
     return conv_res, redist_res
 
 
+# ------------------------------------------------------------ deposition --
+
+def depo_species():
+    """The deposition kernels' species in the kernels phase: an I-131-like
+    aerosol without settling (below-cloud rain and snow, in-cloud CCN and
+    IN, a constant dry velocity, an 8-day half-life) and an SO2-like gas
+    (below-cloud A * P**B, the Henry rule in cloud, a constant dry
+    velocity, no decay)."""
+    from flexpart_tpu_torch.config import Species
+    return (Species(name="I-131", decay_halflife=8.02 * 86400.0,
+                    crain_aero=1.0, csnow_aero=1.0, ccn_aero=0.9,
+                    in_aero=0.1, dquer=0.4, dryvel=1.0e-3),
+            Species(name="SO2", weta_gas=1.0e-4, wetb_gas=0.62, henry=1.0e5,
+                    dryvel=0.01))
+
+
+def depo_particles(n: int, device, seed: int, grid, nspec: int = 2):
+    """n particles over the whole sphere at 0-3000 m, a third of them below
+    2 HREF (30 m), 1/32 inactive, released over the last three hours, with
+    nspec masses of 1/n and their released masses a bit larger; every
+    1000th has kept less than minmass of the released mass."""
+    import torch
+    from flexpart_tpu_torch.core.state import empty_particles
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def u(lo, hi, shape=(n,)):
+        return torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
+
+    low = u(0.0, 1.0) < 1.0 / 3.0
+    mass = u(0.5, 1.5, (n, nspec)) / n
+    mass0 = mass * u(1.0, 1.5, (n, nspec))
+    spent = torch.arange(n, device=device) % 1000 == 0
+    mass = torch.where(spent[:, None], mass0 * 1.0e-5, mass)
+    p = empty_particles(n, nspec, device=device)
+    return p.replace(
+        x_hi=u(0.0, grid.nx - 1.0), y_hi=u(0.0, grid.ny - 1.0),
+        x_lo=u(-1e-6, 1e-6), y_lo=u(-1e-6, 1e-6),
+        z=torch.where(low, u(0.0, 30.0), u(0.0, 3000.0)),
+        itra=torch.full((n,), 10800, dtype=torch.int32, device=device),
+        itramem=u(0.0, 10800.0).to(torch.int32),
+        active=u(0.0, 1.0) >= 1.0 / 32, mass=mass, mass0=mass0)
+
+
+def all_classes_met(zf, device, seed: int):
+    """zf with every cloud class 0-5 (SyntheticMet's clouds start at level 1
+    and are 0-3: no below-cloud cell) and temperatures of 245-280 K (its
+    cloud levels stay above 273 K: no ice, no snow), from a seed."""
+    import torch
+    from flexpart_tpu_torch.met.fields import F3_TT
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    clouds = torch.randint(0, 6, zf.clouds.shape, generator=gen,
+                           device=device).to(torch.int8)
+    f3d = zf.f3d.clone()
+    f3d[F3_TT] = torch.rand(f3d[F3_TT].shape, generator=gen,
+                            device=device) * 35.0 + 245.0
+    return zf.replace(clouds=clouds, f3d=f3d)
+
+
+def bits_or_close(k, p, rtol: float, what: str) -> dict:
+    """A kernel's float32 output against its plain version's: bitwise, or
+    every value within ``rtol`` of the plain one; the count of values whose
+    bits differ is reported either way."""
+    import torch
+    differ = int((k.view(torch.int32) != p.view(torch.int32)).sum())
+    err = float((k - p).abs().max()) if k.numel() else 0.0
+    if differ:
+        check(bool(torch.all((k - p).abs() <= rtol * p.abs())),
+              f"{what}: {differ} values differ, beyond rtol {rtol}: max abs "
+              f"{err}")
+    return dict(values_differ=differ, max_abs_err=err)
+
+
+def check_wetdepo(p, zf, wet, msp, ldeltat: int, what: str) -> dict:
+    """K9 against the plain chain (wetscav_all_plain + apply_wetdepo_plain)
+    on the card: the mass and the deposit, bitwise or within K9_RTOL; the
+    share of the active particles that each species scavenges."""
+    import torch
+    from flexpart_tpu_torch.physics import massupdate as mu
+    from flexpart_tpu_torch.physics import wetdepo as wd
+    qk, dk = wd.wetdepo_cuda(p, zf, LSYNC, ldeltat, wet, msp)
+    lam, grf = wd.wetscav_all_plain(p, zf, wet, False)
+    qp, dp = mu.apply_wetdepo_plain(p, lam, grf, LSYNC, ldeltat, msp)
+    torch.cuda.synchronize()
+    m = bits_or_close(qk.mass, qp.mass, K9_RTOL, f"{what}: K9 mass")
+    d = bits_or_close(dk, dp, K9_RTOL, f"{what}: K9 deposit")
+    n_on = max(int(p.active.sum()), 1)
+    return dict(values_differ=m["values_differ"] + d["values_differ"],
+                max_abs_err=max(m["max_abs_err"], d["max_abs_err"]),
+                bitwise=m["values_differ"] + d["values_differ"] == 0,
+                scavenged_share=[float((lam[s] > 0).sum()) / n_on
+                                 for s in range(lam.shape[0])],
+                deposit=dk)
+
+
+def check_drydepo(p, vdep, msp, ldeltat: int, what: str) -> dict:
+    """K10 against apply_decay_drydep_plain on the card: mass and deposit
+    bitwise or within K10_RTOL, the active mask equal."""
+    import torch
+    from flexpart_tpu_torch.physics import massupdate as mu
+    qk, dk = mu.decay_drydep_cuda(p, vdep, LSYNC, ldeltat, msp, True)
+    qp, dp = mu.apply_decay_drydep_plain(p, vdep, LSYNC, ldeltat, msp, True)
+    torch.cuda.synchronize()
+    m = bits_or_close(qk.mass, qp.mass, K10_RTOL, f"{what}: K10 mass")
+    d = bits_or_close(dk, dp, K10_RTOL, f"{what}: K10 deposit")
+    ended = int((p.active & ~qp.active).sum())
+    check(torch.equal(qk.active, qp.active), f"{what}: K10 active differs in "
+          f"{int((qk.active != qp.active).sum())} particles")
+    return dict(values_differ=m["values_differ"] + d["values_differ"],
+                max_abs_err=max(m["max_abs_err"], d["max_abs_err"]),
+                bitwise=m["values_differ"] + d["values_differ"] == 0,
+                ended_by_minmass=ended,
+                depositing_share=float((dp > 0).any(dim=0).sum())
+                / max(int(p.active.sum()), 1), deposit=dk)
+
+
+def check_depo_scatter(p, deposit, itime: int, lage, ccfg, what: str) -> dict:
+    """K8 against the float64 sum of its own pairs: any order of m float32
+    additions of non-negative terms stays within m * 2**-24 of it,
+    relatively, so a cell of m pairs is held within max(m * 2**-24,
+    K8_RTOL); the plain version (index_add_, one float atomic per pair) is
+    held to the same rule.  With the pairs and the (warp, target) pairs,
+    the global atomics without and with the per-warp sums."""
+    import torch
+    from flexpart_tpu_torch.physics import wetdepo as wd
+    nspec = deposit.shape[0]
+    rows = ccfg.nage * ccfg.nclassunc * ccfg.npointspec * ccfg.nyg * ccfg.nxg
+    dev = deposit.device
+    flat_k = torch.zeros((rows, nspec), dtype=torch.float32, device=dev)
+    flat_p = torch.zeros_like(flat_k)
+    wd.depo_scatter_cuda(flat_k, deposit, p, itime, lage, ccfg)
+    nage_idx = wd.depo_age_class(p, itime, lage, ccfg.nage)
+    kp = (p.npoint if ccfg.ioutputforeachrelease
+          else torch.zeros_like(p.npoint)).long()
+    wd.depo_scatter_plain(flat_p, deposit, p, nage_idx, kp, ccfg)
+    lin, valid, contrib = wd.depo_pairs(rows, deposit, p, nage_idx, kp, ccfg)
+    warp = torch.arange(p.capacity, device=dev)[:, None] // 32
+    wt = (warp * rows + lin)[valid]
+    n_pairs, n_wt = int(wt.numel()), int(torch.unique(wt).numel())
+    del warp, wt
+    lin, contrib = lin[valid], contrib[valid]
+    ref = torch.zeros((rows, nspec), dtype=torch.float64, device=dev)
+    ref.index_add_(0, lin, contrib.double())
+    pairs = torch.zeros(rows, dtype=torch.int64, device=dev)
+    pairs.index_add_(0, lin, torch.ones_like(lin))
+    del lin, valid, contrib
+    rtol = torch.clamp(pairs.double() * 2.0 ** -24, min=K8_RTOL)[:, None]
+    check(float(ref.sum()) > 0.0, f"{what}: K8 deposits nothing")
+    rel = {}
+    for who, flat in (("kernel", flat_k), ("plain", flat_p)):
+        d = (flat.double() - ref).abs()
+        rel[who] = float((d / ref.clamp(min=1e-300)).max())
+        check(bool(torch.all(d <= rtol * ref)),
+              f"{what}: K8 {who}: a cell is further from the float64 sum of "
+              f"its pairs than their count allows, max rel {rel[who]}")
+    out = dict(max_abs_err=float((flat_k.double() - ref).abs().max()),
+               max_rel_err_vs_f64=rel["kernel"],
+               plain_max_rel_err_vs_f64=rel["plain"],
+               total_rel_err_vs_f64=abs(float(flat_k.sum(dtype=torch.float64))
+                                        / float(ref.sum()) - 1.0),
+               pairs=n_pairs, warp_target_pairs=n_wt,
+               cells_hit=int((pairs != 0).sum()),
+               most_pairs_in_a_cell=int(pairs.max()))
+    out["ms"] = cuda_ms(lambda: wd.depo_scatter_cuda(
+        flat_k, deposit, p, itime, lage, ccfg), 10)
+    out["plain_ms"] = cuda_ms(lambda: wd.depo_scatter_plain(
+        flat_p, deposit, p, nage_idx, kp, ccfg), 3)
+    return out
+
+
+def depo_bounds(n: int, nspec: int, zf, ccfg) -> dict:
+    """The three deposition kernels' bounds: each input read once, each
+    output written once, and their operations, counted from the sources."""
+    nz, ny, nx = zf.clouds.shape
+    rows = ccfg.nage * ccfg.nclassunc * ccfg.npointspec * ccfg.nyg * ccfg.nxg
+    # K9: positions, z, active, mass in and out, the deposit out; the four
+    # surface planes, the cloud classes, the temperature and the heights
+    k9 = bound(n * (21 + 12 * nspec) + 16 * ny * nx + 5 * nz * ny * nx
+               + 4 * nz, n * (K9_OPS_PER_PARTICLE + K9_OPS_PER_SPECIES * nspec))
+    # K10: positions, z, active in and out, mass and mass0 in, mass and the
+    # deposit out; the velocity field
+    k10 = bound(n * (22 + 16 * nspec) + 4 * nspec * ny * nx,
+                n * (K10_OPS_PER_PARTICLE + K10_OPS_PER_SPECIES * nspec))
+    # K8: positions, itramem, npoint, nclass, active, the deposit; the grid
+    # read and written once (atomics on top are not counted)
+    k8 = bound(n * (29 + 4 * nspec) + 2 * 4 * rows * nspec,
+               n * K8_OPS_PER_PARTICLE)
+    return dict(wetdepo=k9, drydepo=k10, depo_scatter=k8)
+
+
+def kernel_deposition(device, grid) -> dict:
+    """K9, K10 and K8 against their plain versions on 10 x 2**20 particles
+    over the globe, two species, on SyntheticMet's fields (the in-cloud
+    rules; its clouds rain on level 1 in the storm bands) and on the same
+    fields with every cloud class and a temperature across the ice ramp
+    (every rule), each as drawn and in cell order (K5, the run's order),
+    each timed beside its bound.  The deposit scatter takes K9's and K10's
+    deposits.  Returns {"wetdepo", "drydepo", "depo_scatter"}."""
+    import torch
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.physics import massupdate as mu
+    from flexpart_tpu_torch.physics import wetdepo as wd
+    cfg, _, og, geo, ccfg = step_setup(grid)
+    species = depo_species()
+    wet = tuple(wd.WetSpecies.from_species(s) for s in species)
+    msp = mu.MassSpecies(decay=tuple(s.decay for s in species),
+                         drydep=tuple(s.drydep for s in species))
+    (z0,) = met_fields("synthetic", grid, device, (3600.0,))
+    fields = {"synthetic": z0, "all_classes": all_classes_met(z0, device, 21)}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(22)
+    vdep = torch.rand((len(species), grid.ny, grid.nx), generator=gen,
+                      device=device) * 0.02
+    p = depo_particles(N_MAIN, device, 23, grid)
+    orders = {"as_drawn": p,
+              "cell_ordered": reorder.reorder_by_cell_cuda(p, z0.height,
+                                                           cfg)[0]}
+    lage = torch.tensor([3600, 999999999], dtype=torch.int32, device=device)
+    ccfg = ccfg.replace(nage=2)
+    ldeltat = 2700
+    k9, k10, k8 = {}, {}, {}
+    deposits = {}
+    for oname, q in orders.items():
+        for fname, zf in fields.items():
+            r = check_wetdepo(q, zf, wet, msp, ldeltat,
+                              f"K9 {fname}, {oname}")
+            deposits[("wet", fname, oname)] = r.pop("deposit")
+            r["ms"] = cuda_ms(lambda: wd.wetdepo_cuda(
+                q, zf, LSYNC, ldeltat, wet, msp), 10)
+            r["plain_ms"] = cuda_ms(lambda: mu.apply_wetdepo_plain(
+                q, *wd.wetscav_all_plain(q, zf, wet, False), LSYNC, ldeltat,
+                msp), 3)
+            k9[f"{fname}_{oname}"] = r
+        r = check_drydepo(q, vdep, msp, ldeltat, f"K10 {oname}")
+        deposits[("dry", oname)] = r.pop("deposit")
+        r["ms"] = cuda_ms(lambda: mu.decay_drydep_cuda(
+            q, vdep, LSYNC, ldeltat, msp, True), 10)
+        r["plain_ms"] = cuda_ms(lambda: mu.apply_decay_drydep_plain(
+            q, vdep, LSYNC, ldeltat, msp, True), 3)
+        k10[oname] = r
+        for kind, dep in (("wet", deposits[("wet", "all_classes", oname)]),
+                          ("dry", deposits[("dry", oname)])):
+            k8[f"{kind}_{oname}"] = check_depo_scatter(
+                q, dep, 10800, lage, ccfg, f"K8 {kind}, {oname}")
+    # every rule scavenged somewhere: both species on the cloud classes of
+    # SyntheticMet (in cloud) and on every class (below cloud too)
+    for name, r in k9.items():
+        check(min(r["scavenged_share"]) > 0.0,
+              f"K9 {name}: a species scavenged nothing: {r['scavenged_share']}")
+    for name, r in k10.items():
+        check(r["ended_by_minmass"] > 0 and r["depositing_share"] > 0.1,
+              f"K10 {name}: {r['ended_by_minmass']} ended, "
+              f"{r['depositing_share']} depositing")
+    del deposits, orders, p
+    bounds = depo_bounds(N_MAIN, len(species), z0, ccfg)
+    out = {}
+    for name, cases, main in (("wetdepo", k9, "synthetic_cell_ordered"),
+                              ("drydepo", k10, "cell_ordered"),
+                              ("depo_scatter", k8, "dry_cell_ordered")):
+        m = cases[main]
+        out[name] = dict(
+            max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+            ms=m["ms"], plain_ms=m["plain_ms"], library_ms=None,
+            ms_case=main, cases=cases, **bounds[name])
+        if name != "depo_scatter":
+            out[name]["bitwise"] = all(c["bitwise"] for c in cases.values())
+            out[name]["values_differ"] = sum(c["values_differ"]
+                                             for c in cases.values())
+    torch.cuda.empty_cache()
+    return out
+
+
+def storm_band_particles(p, zf, device):
+    """The step's particles put where SyntheticMet rains from a cloud on
+    level 1 (class 2 or 3, large-scale or convective rate at least 0.01),
+    slot s in the s-th such cell, round robin, halfway between levels 1
+    and 2, all active: the wet-deposition kernel's in-cloud rules must
+    scavenge them."""
+    import torch
+    from flexpart_tpu_torch.met.fields import F2_CONVPREC, F2_LSPREC
+    ny, nx = zf.clouds.shape[1:]
+    rain = (zf.f2d[F2_LSPREC] >= 0.01) | (zf.f2d[F2_CONVPREC] >= 0.01)
+    cells = torch.nonzero((zf.clouds[1] > 1) & rain
+                          & (torch.arange(nx, device=device) < nx - 1)
+                          & (torch.arange(ny, device=device)[:, None]
+                             < ny - 1))
+    check(cells.shape[0] > 0, "no cell rains from a cloud on level 1")
+    n = p.capacity
+    at = cells[torch.arange(n, device=device) % cells.shape[0]]
+    zero = torch.zeros_like(p.x_lo)
+    zmid = 0.5 * (zf.height[1] + zf.height[2])
+    return p.replace(x_hi=at[:, 1].float() + 0.5, x_lo=zero,
+                     y_hi=at[:, 0].float() + 0.5, y_lo=zero,
+                     z=torch.full_like(p.z, float(zmid)),
+                     active=torch.ones_like(p.active))
+
+
+def sim_depo_checks(sim, snap, what: str) -> dict:
+    """K9, K10 and K8 against their plain versions on one kept step of
+    ``Simulation.run``: the step's particles (after its release, before
+    its sort), its met field nearest itime - lsync/2 (K9) and its later
+    field's deposition velocities (K10), its ldeltat; K8 on both deposits,
+    the wet one at itime and the dry one at itime + lsync, against the
+    float64 sum of its pairs.  Where fewer than SIM_MIN_RAINED of the
+    active particles are scavenged, K9 once more on them put in the storm
+    band (``storm_band_particles``), where it must scavenge."""
+    import torch
+    from flexpart_tpu_torch.physics import massupdate as mu
+    from flexpart_tpu_torch.physics import wetdepo as wd
+    istep, itime, p, z0, z1, mt0, mt1 = snap[:7]
+    loutnext = 3600 * max(1, -(-itime // 3600))
+    ldeltat = itime - (loutnext - 3600)
+    interp_t = itime - LSYNC // 2
+    zw = z0 if abs(mt0 - interp_t) < abs(mt1 - interp_t) else z1
+    wet, msp = sim.wet_species, sim.mass_species
+    res = {}
+    r9 = check_wetdepo(p, zw, wet, msp, ldeltat, f"{what}: K9")
+    wdep = r9.pop("deposit")
+    r9["ms"] = cuda_ms(lambda: wd.wetdepo_cuda(p, zw, LSYNC, ldeltat, wet,
+                                               msp), 10)
+    r9["plain_ms"] = cuda_ms(lambda: mu.apply_wetdepo_plain(
+        p, *wd.wetscav_all_plain(p, zw, wet, False), LSYNC, ldeltat, msp), 3)
+    rained = max(r9["scavenged_share"])
+    if rained < SIM_MIN_RAINED:
+        q = storm_band_particles(p, zw, sim.device)
+        r9["in_the_storm_band"] = s = check_wetdepo(
+            q, zw, wet, msp, ldeltat, f"{what}: K9 in the storm band")
+        s.pop("deposit")
+        check(max(s["scavenged_share"]) > SIM_MIN_RAINED,
+              f"{what}: K9 scavenged nothing in the storm band")
+    res["wetdepo"] = r9
+    r10 = check_drydepo(p, z1.vdep, msp, ldeltat, f"{what}: K10")
+    ddep = r10.pop("deposit")
+    r10["ms"] = cuda_ms(lambda: mu.decay_drydep_cuda(
+        p, z1.vdep, LSYNC, ldeltat, msp, True), 10)
+    r10["plain_ms"] = cuda_ms(lambda: mu.apply_decay_drydep_plain(
+        p, z1.vdep, LSYNC, ldeltat, msp, True), 3)
+    res["drydepo"] = r10
+    res["depo_scatter"] = {
+        "wet": check_depo_scatter(p, wdep, itime, sim.lage, sim.conc_cfg,
+                                  f"{what}: K8 wet"),
+        "dry": check_depo_scatter(p, ddep, itime + LSYNC, sim.lage,
+                                  sim.conc_cfg, f"{what}: K8 dry")}
+    return res
+
+
 def check_sorted(p, q, perm, height, cfg, what: str) -> None:
     """The cell-order sort's contract: ``perm`` is the stable argsort of the
     cell keys, bitwise (so it names every slot once, the keys of ``q`` never
@@ -1477,40 +1865,62 @@ def profile_steps(steps, first: int, count: int) -> dict:
 SIM_GRID = BENCH_GRID      # global, to the poles: the polar caps are on
 SIM_HOURS = 3
 SIM_DIR = ROOT / "build" / "sim_smoke"
+# the second box of the sim phase, in SyntheticMet's storm band, where the
+# clouds of level 1 rain (the first box's plume at 40-42 N meets no cloud)
+N_STORM = 2 ** 20
+STORM_BOX = dict(lon1=28.0, lon2=30.0, lat1=50.0, lat2=52.0)
+
+
+def sim_species():
+    """The sim phase's species: the default tracer, and a Cs-137-like
+    aerosol without settling (no density): below-cloud rain and snow
+    efficiencies, in-cloud CCN and IN efficiencies, a constant dry
+    velocity of 1 mm/s and Cs-137's half-life of 30.17 years."""
+    from flexpart_tpu_torch.config import Species
+    return (Species(),
+            Species(name="CS-137", decay_halflife=30.17 * 365.25 * 86400.0,
+                    crain_aero=1.0, csnow_aero=1.0, ccn_aero=0.9,
+                    in_aero=0.1, dquer=0.4, dryvel=1.0e-3))
 
 
 def sim_setup(outdir, device, write_netcdf: bool, **kw):
     """The port's Simulation at full width with the default Command
     (convection and subgrid orography on): 10 x 2**20 particles released
-    from a 2 x 2 degree box over the first hour, three hours of 900 s steps
-    on SyntheticMet, on the main phase's global 1-degree grid, which
-    reaches the poles (the advance takes its polar-cap update), hourly
-    output on the main phase's 0.5-degree, 3-layer grid."""
+    over the first hour from a 2 x 2 degree box at 40-42 N (both species,
+    one unit of mass each; N_MAIN - N_STORM particles) and from a second
+    one in the storm band (STORM_BOX: the Cs-137-like species only, one
+    unit; N_STORM particles), three hours of 900 s steps on SyntheticMet,
+    on the main phase's global 1-degree grid, which reaches the poles (the
+    advance takes its polar-cap update), hourly output on the main
+    phase's 0.5-degree, 3-layer grid, one output per release box."""
     from flexpart_tpu_torch import Simulation, SyntheticMet, make_grid
     from flexpart_tpu_torch.config import (Command, OutGrid, ReleaseBox,
-                                           Releases, Species)
+                                           Releases)
     grid = make_grid(**SIM_GRID)
     cmd = Command(ibdate=20200101, ibtime=0, iedate=20200101,
                   ietime=SIM_HOURS * 10000, lsynctime=LSYNC, loutstep=3600,
                   loutaver=3600, loutsample=900)
-    box = ReleaseBox(idate1=20200101, itime1=0, idate2=20200101, itime2=10000,
-                     lon1=0.0, lon2=2.0, lat1=40.0, lat2=42.0, z1=50.0,
-                     z2=500.0, mass=(1.0,), parts=N_MAIN)
+    when = dict(idate1=20200101, itime1=0, idate2=20200101, itime2=10000,
+                z1=50.0, z2=500.0)
+    boxes = (ReleaseBox(lon1=0.0, lon2=2.0, lat1=40.0, lat2=42.0,
+                        mass=(1.0, 1.0), parts=N_MAIN - N_STORM, **when),
+             ReleaseBox(**STORM_BOX, mass=(0.0, 1.0), parts=N_STORM, **when))
     og = OutGrid(outlon0=-180.0, outlat0=-90.0, numxgrid=720, numygrid=360,
                  dxout=0.5, dyout=0.5, outheights=(100.0, 1000.0, 50000.0))
-    return Simulation(cmd=cmd, releases=Releases(species=(Species(),),
-                                                 boxes=(box,)),
+    return Simulation(cmd=cmd, releases=Releases(species=sim_species(),
+                                                 boxes=boxes),
                       grid=grid, met_backend=SyntheticMet(grid), outgrid=og,
                       outdir=str(outdir), device=device,
                       write_netcdf=write_netcdf, **kw)
 
 
 def sim_kernel_checks(sim, snap, what: str) -> dict:
-    """K2, K5, K6, K7, K3 and K4 against their plain versions on the
-    tensors that one step of ``Simulation.run`` gave them: ``snap`` is
-    (istep, itime, particles after the step's release and before its sort,
-    z0, z1, mt0, mt1, the raw fields of both met times, the flux memory
-    cbmf) as the step probe saw them.  The order is the step's: the tables
+    """K9, K10, K8, K2, K5, K6, K7, K3 and K4 against their plain versions
+    on the tensors that one step of ``Simulation.run`` gave them: ``snap``
+    is (istep, itime, particles after the step's release and before its
+    sort, z0, z1, mt0, mt1, the raw fields of both met times, the flux
+    memory cbmf) as the step probe saw them.  First the deposition kernels
+    (``sim_depo_checks``); then, in the step's order: the tables
     of its time weights, the sort, the convection columns of its time
     weights, the redistribution of the sorted particles with the step's
     key (injected uniforms, and once more its own, which must give the
@@ -1534,6 +1944,9 @@ def sim_kernel_checks(sim, snap, what: str) -> dict:
     n = p.capacity
     res = dict(istep=istep, itime=itime, scheduled=int(p.active.sum()),
                occupied_met_cells=unique_rows(p, height, cfg))
+    # the deposition kernels first: the step's wet pass comes before its
+    # release and sort (the particles woken by the release are live here)
+    res.update(sim_depo_checks(sim, snap, what))
 
     # K2: bitwise
     tw = advance._time_weights(itime, mt0, mt1, prm, cfg)[:4]
@@ -1762,10 +2175,16 @@ def phase_sim(device, kernels) -> dict:
     run_s = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
     for name in ("advance", "quad_tables", "conccalc", "reorder",
-                 "convection", "redist"):
+                 "convection", "redist", "wetdepo", "drydepo",
+                 "depo_scatter"):
         check(launches[name] > 0, f"sim: kernel {name} was never launched")
     check(launches["advance"] == nsteps and launches["quad_tables"] == nsteps,
           f"sim: {launches} launches in {nsteps} steps")
+    # wet deposition on every step but the first, decay and dry deposition
+    # after every advance, a deposit scatter after each
+    check(launches["wetdepo"] == launches["drydepo"] == nsteps
+          and launches["depo_scatter"] == 2 * nsteps,
+          f"sim: {launches} deposition launches in {nsteps} steps")
     # convection runs on every step, the last (which does not advance) too
     check(launches["convection"] == launches["redist"] == nsteps + 1,
           f"sim: {launches} convection launches in {nsteps + 1} steps")
@@ -1792,10 +2211,32 @@ def phase_sim(device, kernels) -> dict:
     check(len(list(out.glob("grid_conc_*.nc"))) == int(netcdf), "sim: nc files")
     last = np.load(out / npz[-1])
     conc_a = last["conc"]
-    check(conc_a.shape == (1, 1, 1, 3, 360, 720), f"sim: conc {conc_a.shape}")
+    # (species, release box, age class, level, y, x)
+    check(conc_a.shape == (2, 2, 1, 3, 360, 720), f"sim: conc {conc_a.shape}")
     check(bool(np.isfinite(conc_a).all()), "sim: conc not finite")
     mass = float((conc_a[0, 0, 0] * sim.geo.volume).sum() / 1e12)
     check(abs(mass - 1.0) < 1e-3, f"sim: mass fraction {mass}")
+    check(float(np.abs(conc_a[0, 1]).max()) == 0.0,
+          "sim: the storm box released the first species")
+    for k in ("wet", "dry"):
+        check(last[k].shape == (2, 2, 1, 360, 720)
+              and bool(np.isfinite(last[k]).all()), f"sim: npz {k}")
+    # species 2: deposited wet and dry, and its budget: airborne + wet +
+    # dry = released (2.0) within 1e-3 (Cs-137 decays by 8e-6 in 3 h)
+    wet_a = sim.acc.wetgridunc.clone()
+    dry_a = sim.acc.drygridunc.clone()
+    for k, g in (("wet", wet_a), ("dry", dry_a)):
+        check(float(g[..., 0].abs().sum()) == 0.0,
+              f"sim: the tracer has a {k} deposit")
+    budget = dict(
+        released=2.0,
+        airborne=float(pa.mass[pa.active, 1].sum(dtype=torch.float64)),
+        wet=float(wet_a[..., 1].sum(dtype=torch.float64)),
+        dry=float(dry_a[..., 1].sum(dtype=torch.float64)))
+    budget["sum"] = budget["airborne"] + budget["wet"] + budget["dry"]
+    check(budget["wet"] > 0.0 and budget["dry"] > 0.0,
+          f"sim: species 2 deposits {budget}")
+    check(abs(budget["sum"] - 2.0) <= 1e-3 * 2.0, f"sim: budget {budget}")
     timers_a = {k: v for k, v in sim.timings.items()}
     sorts_a = sim.n_sorts
     del sim
@@ -1833,6 +2274,17 @@ def phase_sim(device, kernels) -> dict:
         torch.cuda.synchronize()
     pb = sim.particles
     check_same_bits(pa, pb, "sim: two runs with one seed", FIELDS)
+    # the deposition grids: K8's float atomics add in another order in
+    # every run
+    depo_diff = {}
+    for k, ga, gb in (("wet", wet_a, sim.acc.wetgridunc),
+                      ("dry", dry_a, sim.acc.drygridunc)):
+        d = (ga - gb).abs()
+        depo_diff[k] = float(d.max())
+        check(bool(torch.all(d <= K8_RTOL * ga.abs())),
+              f"sim: {k} grids of two runs with one seed differ by "
+              f"{depo_diff[k]}")
+    del wet_a, dry_a
     conc_b = np.load(SIM_DIR / "b" / npz[-1])["conc"]
     worst = float(np.abs(conc_a - conc_b).max())
     check(bool(np.all(np.abs(conc_a - conc_b) <= K3_RTOL * np.abs(conc_a))),
@@ -1870,6 +2322,8 @@ def phase_sim(device, kernels) -> dict:
         section_seconds_unsynced={k: v for k, v in timers_a.items()
                                   if k not in ("particle_steps",)},
         mass_fraction=mass, conc_two_runs_max_abs_diff=worst,
+        species2_budget=budget,
+        depo_grids_two_runs_max_abs_diff=depo_diff,
         two_runs_bitwise_equal=True,
         # run B: under the profiler, synchronised at the top of every step
         synced_first_step_s=float(release[0]),
@@ -1892,7 +2346,11 @@ def phase_sim(device, kernels) -> dict:
             "conccalc": per_launch(("conccalc_kernel",), launches["conccalc"]),
             "reorder": per_launch(SORT_KERNELS, sorts_a),
             "convection": per_launch(("convection_kernel",), nsteps + 1),
-            "redist": per_launch(("redist_kernel",), nsteps + 1)},
+            "redist": per_launch(("redist_kernel",), nsteps + 1),
+            "wetdepo": per_launch(("wetdepo_kernel",), nsteps),
+            "drydepo": per_launch(("drydepo_kernel",), nsteps),
+            "depo_scatter": per_launch(("depo_grid_kernel",),
+                                       2 * nsteps)},
         device_ms_all_kernels=sum(r[2] for r in rows),
         top=[dict(name=k[:60], calls=c, ms=ms) for k, c, ms in rows[:10]],
         kernels_on_sim_inputs=on_sim_inputs)
@@ -1979,7 +2437,12 @@ def main() -> int:
                 "reorder": ("flexpart_tpu/parallel/domain.py:151", "none"),
                 "convection": ("flexpart_tpu/physics/convection.py:379",
                                "XLA"),
-                "redist": ("flexpart_tpu/physics/convection.py:453", "XLA")}
+                "redist": ("flexpart_tpu/physics/convection.py:453", "XLA"),
+                "depo_scatter": ("flexpart_tpu/physics/wetdepo.py:168",
+                                 "XLA"),
+                # wetscav_all, and apply_wetdepo at massupdate.py:32
+                "wetdepo": ("flexpart_tpu/physics/wetdepo.py:75", "XLA"),
+                "drydepo": ("flexpart_tpu/physics/massupdate.py:54", "XLA")}
     k5 = kres["reorder"]["cases"]
     extra = {"reorder": {
         # per input: K5, the plain version, torch.argsort of the keys, the
@@ -2024,14 +2487,30 @@ def main() -> int:
     # each kernel against its plain version on the two steps kept from the
     # sim phase (the sampling: the step's own path)
     for kname in ("quad_tables", "conccalc", "advance", "reorder",
-                  "convection", "redist"):
+                  "convection", "redist", "wetdepo", "drydepo",
+                  "depo_scatter"):
         on_sim = {}
         for step, r in simres["kernels_on_sim_inputs"].items():
             r = r[kname]
             if kname == "conccalc":
                 r = next(c for c in r.values() if c["the_steps_own_path"])
-            on_sim[step] = {f: r[f] for f in ("max_abs_err", "ms", "plain_ms")}
+            pick = ("max_abs_err", "ms", "plain_ms")
+            if kname == "depo_scatter":      # the wet and the dry deposit
+                on_sim[step] = {k: {f: c[f] for f in pick}
+                                for k, c in r.items()}
+            else:
+                on_sim[step] = {f: r[f] for f in pick}
         extra.setdefault(kname, {})["sim_inputs"] = on_sim
+    # K8-K10: the cases of the kernels phase (ms is the run's case: cell
+    # order; K9 on SyntheticMet, K8 the dry deposit)
+    for kname in ("wetdepo", "drydepo", "depo_scatter"):
+        extra[kname]["ms_case"] = kres[kname]["ms_case"]
+        extra[kname]["cases"] = {
+            n: {f: c[f] for f in ("ms", "plain_ms", "max_abs_err")
+                if f in c} for n, c in kres[kname]["cases"].items()}
+        for f in ("bitwise", "values_differ"):
+            if f in kres[kname]:
+                extra[kname][f] = kres[kname][f]
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": src.format(k.name),
          "replaces": replaces[k.name][0], "tpu_route": replaces[k.name][1],

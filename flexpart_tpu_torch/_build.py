@@ -245,9 +245,51 @@ REDIST = Kernel("redist", "fp_redist", [
     P,                    # stream
 ])
 
+DEPO_SCATTER = Kernel("depo_scatter", "fp_depo_scatter", [
+    P, P, P, P,           # x_hi, x_lo, y_hi, y_lo (n,) f32
+    P, P, P,              # itramem, npoint, nclass (n,) i32
+    P,                    # active (n,) bool
+    P,                    # deposit (nspec, n) f32
+    P, I,                 # lage (nage,) i32, nage
+    I, I, I, I, I, I,     # n, nspec, nxg, nyg, npointspec, nclassunc
+    F, F, F, F, F, F,     # dx_met, dy_met, xoutshift, youtshift, dxout, dyout
+    I, I,                 # itime, ioutputforeachrelease
+    I64,                  # rows of the flat grid (index bound)
+    P,                    # grid (rows, nspec) f32, accumulated into
+    P,                    # stream
+])
+
+WETDEPO = Kernel("wetdepo", "fp_wetdepo", [
+    P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
+    P,                    # active (n,) bool
+    P,                    # mass (n, nspec) f32
+    P, P, P,              # lsprec, convprec, tcc planes (ny, nx) f32
+    P,                    # clouds (nz, ny, nx) i8
+    P,                    # temperature plane of f3d (nz, ny, nx) f32
+    P,                    # height (nz,) f32
+    I, I, I,              # nz, ny, nx
+    P,                    # WetSpec[MAX_SPECIES] (host array, physics/wetdepo.py)
+    I, I,                 # n, nspec
+    I, I,                 # |ltsample|, |ldeltat|
+    P, P,                 # out: mass (n, nspec), deposit (nspec, n) f32
+    P,                    # stream
+])
+
+DRYDEPO = Kernel("drydepo", "fp_drydepo", [
+    P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
+    P,                    # active (n,) bool
+    P, P,                 # mass, mass0 (n, nspec) f32
+    P, I, I,              # vdep (nspec, ny, nx) f32 or NULL, ny, nx
+    P,                    # DrySpec[MAX_SPECIES] (host array, physics/massupdate.py)
+    I, I,                 # n, nspec
+    I, I, F,              # |lsynctime|, |ldeltat|, minmass
+    P, P, P,              # out: mass (n, nspec), active (n,), deposit (nspec, n)
+    P,                    # stream
+])
+
 # fp_convection_layout(nl, out): out (4,) i32 gets K6's shared bytes per
 # column, columns per block, resident blocks per SM and registers per thread
 LAYOUT = [I, P]
 
 KERNELS = (NORMALS, QUAD_TABLES, CONCCALC, ADVANCE, REORDER, CONVECTION,
-           REDIST)
+           REDIST, DEPO_SCATTER, WETDEPO, DRYDEPO)

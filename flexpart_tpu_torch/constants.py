@@ -24,4 +24,7 @@ HMIXMAX = 4500.0         # maximum PBL height [m]
 D_TROP = 50.0            # horizontal diffusivity, free troposphere [m2/s]
 D_STRAT = 0.1            # vertical diffusivity, stratosphere [m2/s]
 TURBMESOSCALE = 0.16     # mesoscale wind fluctuation factor
+HREF = 15.0              # reference height for dry deposition [m]
+INCLOUD_RATIO = 6.2      # in-cloud scavenging ratio (par_mod.f90:95)
+NUMCLASS = 13            # number of landuse classes
 NI = 11                  # number of particle diameter classes

@@ -72,6 +72,23 @@ def vert_weights(z, height):
     return indz, dz1
 
 
+def gather_corners_2d_ln(f2d, field_ids, hw: HorizWeights) -> torch.Tensor:
+    """(F2, ny, nx) -> (F, 4, N) corner values, corner dim leading
+    (``flexpart_tpu/core/interp.py:80-90``)."""
+    nf, ny, nx = f2d.shape
+    flat = f2d.reshape(nf, ny * nx)[list(field_ids)]
+    return flat[:, hw.idx4]
+
+
+def interp_2d(f2d, field_ids, hw: HorizWeights) -> torch.Tensor:
+    """Bilinear 2-D interpolation: (F, N) (``core/interp.py:93-96`` there).
+    The four corner terms are added left to right (``_sum4``), the order
+    the deposition kernels use; JAX's ``jnp.sum`` over the corner axis may
+    add them in another order."""
+    vals = gather_corners_2d_ln(f2d, field_ids, hw) * hw.p4[None]
+    return _sum4([vals[:, c] for c in range(4)])
+
+
 @dataclasses.dataclass
 class WindInterp:
     u: torch.Tensor

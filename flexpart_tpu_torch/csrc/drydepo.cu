@@ -1,0 +1,152 @@
+// K10: the decay and dry-deposition pass, per particle the deposition
+// probability, decay, the decay-corrected deposit and minmass termination.
+//
+// Replaces: flexpart_tpu/physics/massupdate.py::apply_decay_drydep
+// (timemanager.f90:643-686, interpol_vdep.f90), which JAX leaves to XLA as
+// some 30 operations over (particles, species), for the fixed step
+// (t_below = None).  For each particle the thread interpolates each
+// depositing species' velocity bilinearly (horiz_weights with xglobal =
+// False), takes prob = 1 - exp(-vdep * dt / (2 HREF)) below 2 HREF and 0
+// above, multiplies the mass by (1 - prob) * exp(-dt * decay), writes the
+// removed part times the decay correction exp(|ldeltat| * decay) as the
+// deposit (zero for an inactive particle), and ends the particle where no
+// species keeps minmass of its released mass (a species released with no
+// mass counts as kept).  An inactive particle keeps its mass.
+//
+// Arithmetic: the plain version's operations in its order, one rounding
+// each (built with -fmad=false), with the expf that torch's elementwise
+// kernels call on the card, so that the two agree bit for bit.
+//
+// Bound on the H100: 54 B per particle at two species (positions, z,
+// active in and out, mass and mass0 in, mass out, the deposit out), 0.17 ms
+// for 10.5M particles; the velocity field it gathers is a few MB in L2.
+//
+// Design: one thread per particle, every species in a loop over a struct
+// array passed by value (MAX_SPECIES of them); all outputs out of place.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int MAX_SPECIES = 32;
+constexpr float TWO_HREF = 30.0f;          // 2 * HREF, HREF = 15 m
+
+// one species' constants (physics/massupdate.py DrySpec)
+struct DrySpec {
+  float dec;      // decay constant [1/s], <= 0 off
+  int drydep;     // the species deposits dry
+};
+
+struct Specs {
+  DrySpec s[MAX_SPECIES];
+};
+
+struct In {
+  const float *x_hi, *x_lo, *y_hi, *y_lo, *z;
+  const bool* active;
+  const float *mass, *mass0;               // (n, nspec)
+  const float* vdep;                       // (nspec, ny, nx) or NULL
+};
+
+struct Cfg {
+  int ny, nx, n, nspec, lsynctime, ldeltat;
+  float minmass;
+};
+
+__device__ __forceinline__ float clamp01(float v) {
+  return v < 0.0f ? 0.0f : (v > 1.0f ? 1.0f : v);
+}
+
+__global__ void __launch_bounds__(THREADS)
+drydepo_kernel(const In in, const Cfg c, const Specs sp,
+               float* __restrict__ mass_out, bool* __restrict__ active_out,
+               float* __restrict__ deposit) {
+  const int p = blockIdx.x * THREADS + threadIdx.x;
+  if (p >= c.n) return;
+  const bool active = in.active[p];
+  const float z = in.z[p];
+  const float dt = static_cast<float>(c.lsynctime);
+  const float ldt = static_cast<float>(c.ldeltat);
+
+  // horiz_weights(x, y, nx, ny, xglobal=False), when there is a field
+  int idx[4] = {0, 0, 0, 0};
+  float p4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (in.vdep != nullptr) {
+    const float x = in.x_hi[p] + in.x_lo[p];
+    const float y = in.y_hi[p] + in.y_lo[p];
+    const int ix = static_cast<int>(fminf(fmaxf(floorf(x), 0.0f),
+                                          static_cast<float>(c.nx - 2)));
+    const int jy = static_cast<int>(fminf(fmaxf(floorf(y), 0.0f),
+                                          static_cast<float>(c.ny - 2)));
+    const float ddx = clamp01(x - static_cast<float>(ix));
+    const float ddy = clamp01(y - static_cast<float>(jy));
+    const float rddx = 1.0f - ddx;
+    const float rddy = 1.0f - ddy;
+    p4[0] = rddx * rddy;
+    p4[1] = ddx * rddy;
+    p4[2] = rddx * ddy;
+    p4[3] = ddx * ddy;
+    const int jyp = jy + 1 < c.ny - 1 ? jy + 1 : c.ny - 1;
+    idx[0] = jy * c.nx + ix;
+    idx[1] = jy * c.nx + ix + 1;
+    idx[2] = jyp * c.nx + ix;
+    idx[3] = jyp * c.nx + ix + 1;
+  }
+  const long long plane = static_cast<long long>(c.ny) * c.nx;
+
+  bool keep = false;
+  float xmax = 0.0f;
+  for (int s = 0; s < c.nspec; ++s) {
+    const DrySpec& w = sp.s[s];
+    const float decf = w.dec > 0.0f ? expf(-dt * w.dec) : 1.0f;
+    float prob = 0.0f;
+    if (w.drydep && in.vdep != nullptr && z < TWO_HREF) {
+      const float* f = in.vdep + s * plane;
+      const float vd = ((f[idx[0]] * p4[0] + f[idx[1]] * p4[1]) +
+                        f[idx[2]] * p4[2]) + f[idx[3]] * p4[3];
+      prob = 1.0f - expf((-vd * dt) / TWO_HREF);
+    }
+    const long long k = static_cast<long long>(p) * c.nspec + s;
+    const float m = in.mass[k];
+    const float drydep = (m * prob) * decf;
+    const float new_mass = (m * (1.0f - prob)) * decf;
+    const float corr = w.dec > 0.0f ? expf(ldt * w.dec) : 1.0f;
+    deposit[static_cast<long long>(s) * c.n + p] = active ? drydep * corr : 0.0f;
+    mass_out[k] = active ? new_mass : m;
+    // the largest share of the released mass left, as torch.amax: a NaN wins
+    const float m0 = in.mass0[k];
+    const float frac = m0 > 0.0f ? new_mass / m0 : 1.0f;
+    if (s == 0 || frac != frac || (xmax == xmax && frac > xmax)) xmax = frac;
+  }
+  keep = xmax >= c.minmass;
+  active_out[p] = active && keep;
+}
+
+}  // namespace
+
+extern "C" int fp_drydepo(const float* x_hi, const float* x_lo,
+                          const float* y_hi, const float* y_lo,
+                          const float* z, const bool* active,
+                          const float* mass, const float* mass0,
+                          const float* vdep, int ny, int nx,
+                          const void* specs_in, int n, int nspec,
+                          int lsynctime, int ldeltat, float minmass,
+                          float* mass_out, bool* active_out, float* deposit,
+                          void* stream) {
+  if (n <= 0) return 0;
+  if (nspec < 1 || nspec > MAX_SPECIES ||
+      (vdep != nullptr && (ny < 2 || nx < 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Specs sp{};
+  // the host array of DrySpec (a void pointer: the struct's type is local
+  // to this file, and a C function with it in its signature is not exported)
+  const DrySpec* specs = static_cast<const DrySpec*>(specs_in);
+  for (int s = 0; s < nspec; ++s) sp.s[s] = specs[s];
+  const In in = {x_hi, x_lo, y_hi, y_lo, z, active, mass, mass0, vdep};
+  const Cfg c{ny, nx, n, nspec, lsynctime, ldeltat, minmass};
+  const int blocks = (n + THREADS - 1) / THREADS;
+  drydepo_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      in, c, sp, mass_out, active_out, deposit);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,223 @@
+// K9: the wet-deposition pass, per particle the scavenging coefficient of
+// every species, the mass it removes and the decay-corrected deposit.
+//
+// Replaces: flexpart_tpu/physics/wetdepo.py::wetscav_all (get_wetscav.f90)
+// and flexpart_tpu/physics/massupdate.py::apply_wetdepo (wetdepo.f90:
+// 102-138), which JAX leaves to XLA as some 80 elementwise operations over
+// the particles and 15 over (particles, species).  For each particle the
+// thread interpolates the large-scale and convective precipitation and the
+// cloud cover bilinearly, reads the cloud class and the temperature of
+// its cell (the column is the truncation of x, the level
+// the one below z), finds the precipitating fraction of the cell, and for
+// each species picks the below-cloud rule (gas A * P**B, or the aerosol
+// rain / snow polynomial) or the in-cloud rule (aerosol CCN/IN activation,
+// or gas Henry partitioning) that the species' constants select, as the
+// Python `if`s of the JAX function select them.  It removes
+// mass * (1 - exp(-lambda * dt)) * fraction, keeps the rest where it
+// exceeds the smallest normal float, and writes the deposit times the decay
+// correction exp(|ldeltat| * decay), zero for an inactive particle.
+//
+// Arithmetic: the plain version's operations in its order, one rounding
+// each (built with -fmad=false), with the functions torch's elementwise
+// kernels call on the card (expf, powf, sqrtf), so that the two agree bit
+// for bit.  The host folds the constants as the JAX package folds them
+// (WetSpec below).  x ** 2 of the ice fraction is x * x there and here.
+//
+// Bound on the H100: 45 B per particle at two species (positions, z,
+// active, mass in and out, the deposit out), 0.14 ms for 10.5M particles;
+// the met planes it gathers (4 surface planes, the cloud classes and the
+// temperature) are a few MB that stay in the L2 cache.
+//
+// Design: one thread per particle, every species in a loop over a struct
+// array passed by value (MAX_SPECIES of them); the mass is written out of
+// place.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int MAX_SPECIES = 32;
+constexpr float TINY = 1.17549435e-38f;     // finfo(float32).tiny
+constexpr float INCLOUD_RATIO = 6.2f;
+
+// one species' constants, folded on the host (physics/wetdepo.py WetSpec)
+struct WetSpec {
+  int below;      // 0 none, 1 gas A * P**B, 2 aerosol rain / snow
+  int incloud;    // 0 none, 1 aerosol CCN / IN, 2 gas Henry
+  int rain, snow; // the aerosol's rain and snow terms exist
+  float weta, wetb;
+  float rain_eff, rain_base, rain_c5;
+  float snow_eff, snow_base, snow_c5;
+  float ccn, in_;
+  float henry_r;  // float32(henry * (R_AIR / 3500)), folded in float64
+  float dec;      // decay constant [1/s], <= 0 off
+};
+
+struct Specs {
+  WetSpec s[MAX_SPECIES];
+};
+
+struct In {
+  const float *x_hi, *x_lo, *y_hi, *y_lo, *z;
+  const bool* active;
+  const float* mass;                      // (n, nspec)
+  const float *lsp, *convp, *tcc;         // (ny, nx) planes of f2d
+  const int8_t* clouds;                   // (nz, ny, nx)
+  const float* tt;                        // (nz, ny, nx) plane of f3d
+  const float* height;                    // (nz,)
+};
+
+struct Cfg {
+  int nz, ny, nx, n, nspec, ltsample, ldeltat;
+};
+
+// clamp(v, lo) and clamp(v, lo, hi) as torch's, a NaN passing through
+__device__ __forceinline__ float at_least(float v, float lo) {
+  return v < lo ? lo : v;
+}
+
+__device__ __forceinline__ float clamp01(float v) {
+  return v < 0.0f ? 0.0f : (v > 1.0f ? 1.0f : v);
+}
+
+// interp_2d's sum of the four corner terms, left to right
+__device__ __forceinline__ float bilinear(const float* f, const int* idx,
+                                          const float* p4) {
+  return ((f[idx[0]] * p4[0] + f[idx[1]] * p4[1]) + f[idx[2]] * p4[2]) +
+         f[idx[3]] * p4[3];
+}
+
+__device__ __forceinline__ float below_aerosol(float eff, float base, float c5,
+                                               float prec) {
+  return eff * powf(10.0f, base + c5 * sqrtf(prec));
+}
+
+__global__ void __launch_bounds__(THREADS)
+wetdepo_kernel(const In in, const Cfg c, const Specs sp,
+               float* __restrict__ mass_out, float* __restrict__ deposit) {
+  const int p = blockIdx.x * THREADS + threadIdx.x;
+  if (p >= c.n) return;
+  const float x = in.x_hi[p] + in.x_lo[p];
+  const float y = in.y_hi[p] + in.y_lo[p];
+  const float z = in.z[p];
+  const bool active = in.active[p];
+
+  // horiz_weights(x, y, nx, ny, xglobal=False)
+  int ix = static_cast<int>(fminf(fmaxf(floorf(x), 0.0f),
+                                  static_cast<float>(c.nx - 2)));
+  int jy = static_cast<int>(fminf(fmaxf(floorf(y), 0.0f),
+                                  static_cast<float>(c.ny - 2)));
+  const float ddx = clamp01(x - static_cast<float>(ix));
+  const float ddy = clamp01(y - static_cast<float>(jy));
+  const float rddx = 1.0f - ddx;
+  const float rddy = 1.0f - ddy;
+  const float p4[4] = {rddx * rddy, ddx * rddy, rddx * ddy, ddx * ddy};
+  const int jyp = jy + 1 < c.ny - 1 ? jy + 1 : c.ny - 1;
+  const int idx[4] = {jy * c.nx + ix, jy * c.nx + ix + 1, jyp * c.nx + ix,
+                      jyp * c.nx + ix + 1};
+  const float lsp = bilinear(in.lsp, idx, p4);
+  const float convp = bilinear(in.convp, idx, p4);
+  const float cc = at_least(bilinear(in.tcc, idx, p4), 1e-10f);
+
+  // the cell: the column by truncation, the level below z
+  int tx = static_cast<int>(x);
+  int ty = static_cast<int>(y);
+  tx = tx < 0 ? 0 : (tx > c.nx - 1 ? c.nx - 1 : tx);
+  ty = ty < 0 ? 0 : (ty > c.ny - 1 ? c.ny - 1 : ty);
+  int hz = -1;                               // searchsorted(side="right") - 1
+  for (int k = 0; k < c.nz; ++k) hz += (in.height[k] <= z) ? 1 : 0;
+  hz = hz < 0 ? 0 : (hz > c.nz - 2 ? c.nz - 2 : hz);
+  const int cell3 = (hz * c.ny + ty) * c.nx + tx;
+  const int clouds_v = in.clouds[cell3];
+  const float act_temp = in.tt[cell3];
+
+  const bool raining = (lsp >= 0.01f) || (convp >= 0.01f);
+  const bool in_cloudy = clouds_v > 1;
+
+  // the precipitating fraction of the cell
+  const float LFR[5] = {0.5f, 0.65f, 0.8f, 0.9f, 0.95f};
+  const float CFR[5] = {0.4f, 0.55f, 0.7f, 0.8f, 0.9f};
+  const int i_l = (lsp >= 1.0f) + (lsp >= 3.0f) + (lsp >= 8.0f) + (lsp >= 20.0f);
+  const int i_c =
+      (convp >= 1.0f) + (convp >= 3.0f) + (convp >= 8.0f) + (convp >= 20.0f);
+  const float tot = at_least(lsp + convp, 1e-30f);
+  const float grf =
+      at_least(cc * (lsp * LFR[i_l] + convp * CFR[i_c]) / tot, 0.05f);
+  const float prec = (lsp + convp) / grf;
+
+  const bool below = clouds_v >= 4;
+  const bool incl = in_cloudy && !below;
+  // the cloud water from the rate (the column cloud water of readclouds,
+  // use_clwc, is not ported)
+  const float cl = 0.2f * powf(prec, 0.36f);   // 1e6 * 2e-7
+  const float t = (act_temp - 273.0f) / 20.0f;
+  float ice = clamp01(t * t);
+  ice = act_temp <= 253.0f ? 1.0f : ice;
+  ice = act_temp >= 273.0f ? 0.0f : ice;
+  const float liq = at_least(1.0f - ice, 0.0f);
+  const bool valid = active && raining && in_cloudy;
+  const float lts = static_cast<float>(c.ltsample);
+  const float ldt = static_cast<float>(c.ldeltat);
+
+  for (int s = 0; s < c.nspec; ++s) {
+    const WetSpec& w = sp.s[s];
+    float lam = 0.0f;
+    if (w.below == 1) {
+      lam = below ? w.weta * powf(prec, w.wetb) : lam;
+    } else if (w.below == 2) {
+      const float rain =
+          w.rain ? below_aerosol(w.rain_eff, w.rain_base, w.rain_c5, prec) : 0.0f;
+      const float snow =
+          w.snow ? below_aerosol(w.snow_eff, w.snow_base, w.snow_c5, prec) : 0.0f;
+      lam = below ? (act_temp >= 273.0f ? rain : snow) : lam;
+    }
+    if (w.incloud != 0) {
+      float s_i;
+      if (w.incloud == 1) {
+        s_i = (liq * w.ccn + ice * w.in_) / at_least(cl, 1e-30f);
+      } else {
+        const float cle = (1.0f - cl) / (w.henry_r * act_temp) + cl;
+        s_i = 1.0f / cle;
+      }
+      lam = incl ? (INCLOUD_RATIO * s_i) * (prec / 3.6e6f) : lam;
+    }
+    lam = valid ? lam : 0.0f;
+
+    const float m = in.mass[static_cast<long long>(p) * c.nspec + s];
+    const float wetdep = (m * (1.0f - expf(-lam * lts))) * grf;
+    const float rest = m - wetdep;
+    mass_out[static_cast<long long>(p) * c.nspec + s] = rest > TINY ? rest : 0.0f;
+    const float corr = w.dec > 0.0f ? expf(ldt * w.dec) : 1.0f;
+    deposit[static_cast<long long>(s) * c.n + p] = active ? wetdep * corr : 0.0f;
+  }
+}
+
+}  // namespace
+
+extern "C" int fp_wetdepo(const float* x_hi, const float* x_lo,
+                          const float* y_hi, const float* y_lo,
+                          const float* z, const bool* active,
+                          const float* mass, const float* lsp,
+                          const float* convp, const float* tcc,
+                          const int8_t* clouds, const float* tt,
+                          const float* height, int nz, int ny, int nx,
+                          const void* specs_in, int n, int nspec,
+                          int ltsample, int ldeltat, float* mass_out,
+                          float* deposit, void* stream) {
+  if (n <= 0) return 0;
+  if (nspec < 0 || nspec > MAX_SPECIES || nz < 2 || ny < 2 || nx < 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Specs sp{};
+  // the host array of WetSpec (a void pointer: the struct's type is local
+  // to this file, and a C function with it in its signature is not exported)
+  const WetSpec* specs = static_cast<const WetSpec*>(specs_in);
+  for (int s = 0; s < nspec; ++s) sp.s[s] = specs[s];
+  const In in = {x_hi, x_lo, y_hi, y_lo, z, active, mass, lsp, convp,
+                 tcc, clouds, tt, height};
+  const Cfg c{nz, ny, nx, n, nspec, ltsample, ldeltat};
+  const int blocks = (n + THREADS - 1) / THREADS;
+  wetdepo_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      in, c, sp, mass_out, deposit);
+  return static_cast<int>(cudaGetLastError());
+}

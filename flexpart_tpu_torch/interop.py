@@ -148,8 +148,16 @@ def metgrid_from_jax(grid):
     return _by_fields(MetGrid, grid)
 
 
+def drydep_tables_from_jax(td):
+    """The JAX package's ``DrydepTables`` (numpy already) as the port's."""
+    from .physics.drydepo import DrydepTables
+    return DrydepTables(**{f.name: np.array(getattr(td, f.name), copy=True)
+                           for f in dataclasses.fields(DrydepTables)})
+
+
 def simulation_from_jax(sim, device, met_backend=None, outdir=None):
-    """The port's ``Simulation`` with the configuration of a JAX one and
+    """The port's ``Simulation`` with the configuration of a JAX one (the
+    deposition fields ``options_dir`` and ``minmass`` among the rest) and
     its convective flux memory ``cbmf`` (the particles are the port's own
     release schedule, equal to the JAX one's).  The met backend is not
     carried over (its ``fetch`` returns JAX arrays): ``met_backend`` is the

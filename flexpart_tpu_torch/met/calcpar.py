@@ -178,9 +178,12 @@ def tropopause_height(akz, bkz, ps, tt2, td2, tth, qvh, lats):
 def calcpar(grid: MetGrid, eta, z: ZFields, lsubgrid: bool = False,
             vdep_kernel=None) -> ZFields:
     """Fill the calcpar surface fields (ustar, 1/L, hmix, w*, tropopause)
-    of a processed ZFields; runs on the device of ``eta``."""
-    if vdep_kernel is not None:
-        raise NotImplementedError("dry-deposition velocities are not ported yet")
+    of a processed ZFields; runs on the device of ``eta``.
+
+    vdep_kernel: optional dry-deposition-velocity function from
+    ``physics.drydepo`` (``make_vdep_kernel`` or ``constant_vdep_kernel``);
+    when given, the per-species vdep field is computed as calcpar.f90:
+    170-186 does."""
     if grid.pressure_levels:
         raise NotImplementedError(
             "pressure-level (GFS) met is not ported yet; hybrid eta only")
@@ -212,4 +215,10 @@ def calcpar(grid: MetGrid, eta, z: ZFields, lsubgrid: bool = False,
     f2d[F2_HMIX] = hmix
     f2d[F2_WSTAR] = wstar
     f2d[F2_TROPO] = tropo
-    return z.replace(f2d=f2d)
+    z = z.replace(f2d=f2d)
+    if vdep_kernel is not None:
+        rh = ew(eta.td2) / ew(eta.tt2)          # calcpar.f90:172-175
+        z = z.replace(vdep=vdep_kernel(ustar, eta.tt2, rh, eta.ps, oli,
+                                       eta.ssr, eta.lsprec + eta.convprec,
+                                       eta.sd))
+    return z

@@ -1,12 +1,13 @@
 """The simulation run loop — scheduler equivalent of timemanager.f90.
 
 Port of ``flexpart_tpu/run/simulation.py``: the forward (``ldirect=1``),
-serial, one-device path with the fixed step (``ctl < 0``) and species that
-neither deposit nor decay, with the defaults of ``Command``: convection
-(``lconvection=1``), subgrid orography (``lsubgrid=1``) and, on a cyclic
-grid beyond 75 degrees, the polar caps.  Every option outside that path
-raises ``NotImplementedError`` naming it when the ``Simulation`` is built;
-none is skipped silently.
+serial, one-device path with the fixed step (``ctl < 0``), with the
+defaults of ``Command``: convection (``lconvection=1``), subgrid orography
+(``lsubgrid=1``) and, on a cyclic grid beyond 75 degrees, the polar caps;
+species may decay and deposit, wet and dry, as long as they do not settle
+(an aerosol with a density).  Every option outside that path raises
+``NotImplementedError`` naming it when the ``Simulation`` is built; none is
+skipped silently.
 
 Host-side control loop; all per-particle compute stays on the device.
 Per sync interval (timemanager.f90:152-712):
@@ -14,6 +15,10 @@ Per sync interval (timemanager.f90:152-712):
   1. keep two processed wind fields buffered around itime (getfields.f90
      double buffer; here: backend fetch + process_eta/calcpar, the next
      field read and processed by one background thread);
+  1b. wet deposition over the interval ending at itime (physics/wetdepo.py,
+     K9 and the deposit scatter K8 on a CUDA device; timemanager.f90:
+     164-169) and the decay of the deposition grids (timemanager.f90:
+     269-304);
   2. activate scheduled releases (mask flip, core/release.py);
   3. keep the particles in met-cell order (core/reorder.py): a sort every
      ``REORDER_EVERY`` steps and on every step in which a release woke
@@ -28,6 +33,9 @@ Per sync interval (timemanager.f90:152-712):
   5. at averaging-interval end: normalize (factor3d, concoutput.f90:210-221),
      copy to host, write, zero the concentration accumulator;
   6. advance all particles one lsynctime (core/advance.py);
+  6b. decay, dry deposition and minmass termination
+     (physics/massupdate.py, K10 and K8 on a CUDA device;
+     timemanager.f90:643-686);
   7. terminate particles older than the last age class.
 
 On a CUDA device a step that neither samples nor writes never waits for
@@ -63,7 +71,13 @@ from ..met.calcpv import calcpv
 from ..met.fields import F3_RHO
 from ..met.grid import MetGrid
 from ..met.verttransform import compute_heights, process_eta
+from ..physics import setup_drydep
 from ..physics.convection import make_convection_kernel, redist_particles
+from ..physics.drydepo import constant_vdep_kernel, make_vdep_kernel
+from ..physics.massupdate import (MassSpecies, apply_decay_drydep,
+                                  decay_deposition_grids)
+from ..physics.wetdepo import WetSpecies, depo_scatter, wet_deposition
+from ..utils.cpu import warm_vector_math
 from ..utils.dates import add_seconds
 from ..utils.profile import SectionTimers
 
@@ -86,6 +100,8 @@ class Simulation:
     use_clwc: bool = False
     write_netcdf: bool = True
     write_npz: bool = True
+    options_dir: str | None = None   # dir with IGBP/surfdata/surfdepo files
+    minmass: float = 1.0e-4          # termination threshold (par_mod.f90)
     checkpoint_at: int | None = None
     receptors: tuple = ()
     outgrid_nest: Any = None
@@ -122,9 +138,6 @@ class Simulation:
             "mquasilag (quasi-Lagrangian dumps)": cmd.mquasilag != 0,
             "itsplit (particle splitting inside the run)":
                 cmd.itsplit < span,
-            "wet deposition species": any(s.wetdep for s in species),
-            "dry deposition species": any(s.drydep for s in species),
-            "decay species": any(s.decay > 0 for s in species),
             "OH reaction species": any(s.ohreact for s in species),
             "settling species": any(
                 s.density > 0.0 and s.dquer > 0.0 for s in species),
@@ -151,6 +164,11 @@ class Simulation:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Simulation(device='cuda') needs a CUDA "
                                "device; pass device='cpu' to run on the CPU")
+        if self.device.type == "cpu":
+            # MKL's vector math picks its path at each function's first
+            # call; made by several threads at once (the intra-op threads,
+            # the met reader) it can come out inexact (utils/cpu.py)
+            warm_vector_math()
         dev = self.device
         self.nspec = self.releases.nspec
         self.numpoint = self.releases.numpoint
@@ -237,6 +255,20 @@ class Simulation:
         self.timers = SectionTimers(device_sync=self.profile, device=dev)
         self.nan_count = 0               # CBL redraws; the CBL is not ported
         self.n_sorts = 0
+
+        # --- deposition / decay setup (wetdepo.f90, getvdep.f90 chain) ---
+        species = self.releases.species
+        self.wet_species = tuple(WetSpecies.from_species(s) for s in species)
+        self.any_wetdep = any(w.wetdep for w in self.wet_species)
+        self.any_drydep = any(s.drydep for s in species)
+        self.mass_species = MassSpecies(
+            decay=tuple(s.decay for s in species),
+            drydep=tuple(s.drydep for s in species),
+            minmass=self.minmass)
+        self.any_decay = any(s.decay > 0 for s in species)
+        self._decay_arr = torch.as_tensor([s.decay for s in species],
+                                          dtype=torch.float32, device=dev)
+        self._vdep_kernel = None        # built lazily (needs the lsm field)
         # tests only: `_draws_hook(istep, origin)` returns the advance's
         # injected draws for this step, already in slot order, and
         # `_redist_hook(istep, origin)` the convective redistribution's
@@ -359,7 +391,8 @@ class Simulation:
             tf0 = _time.perf_counter()
             eta = self._fetch_raw(tsec)
             self.timers.add("getfields_fetch_bg", _time.perf_counter() - tf0)
-            if self._height is None:
+            if self._height is None or (self.any_drydep
+                                        and self._vdep_kernel is None):
                 out = "raw", eta
             else:
                 tp0 = _time.perf_counter()
@@ -461,11 +494,31 @@ class Simulation:
         verttransform + calcpar.  Returns the (z, eta) buffer entry (the
         convection reads the raw eta-level profiles, convmix.f90:168-189).
         Safe to call from the prefetch worker thread once the height grid
-        exists."""
+        and the vdep kernel exist."""
+        self._ensure_vdep_kernel(eta)
         z = process_eta(self.grid, eta, self._height,
                         pvh=calcpv(self.grid, eta), use_clwc=self.use_clwc)
-        z = calcpar(self.grid, eta, z, lsubgrid=bool(self.cmd.lsubgrid))
+        z = calcpar(self.grid, eta, z, lsubgrid=bool(self.cmd.lsubgrid),
+                    vdep_kernel=self._vdep_kernel)
         return (z, eta)
+
+    def _ensure_vdep_kernel(self, eta):
+        """The dry-deposition velocity function of the run, built at the
+        first met read: the Wesely tables of ``options_dir`` for a gas with
+        a diffusivity (or a sized aerosol), else the constant ``dryvel``
+        field (getvdep.f90:196-203)."""
+        if self._vdep_kernel is not None or not self.any_drydep:
+            return
+        species = self.releases.species
+        needs_tables = any(s.reldiff > 0 or (s.density > 0 and s.dquer > 0)
+                           for s in species)
+        if needs_tables and self.options_dir is not None:
+            mmdd = self.cmd.bdate.month * 100 + self.cmd.bdate.day
+            td = setup_drydep(self.options_dir, self.grid, species,
+                              eta.lsm.cpu().numpy(), mmdd)
+            self._vdep_kernel = make_vdep_kernel(td)
+        else:
+            self._vdep_kernel = constant_vdep_kernel(species)
 
     def _get_eta(self, tsec: int):
         self._get_field(tsec)
@@ -586,6 +639,32 @@ class Simulation:
             itime = istep * lsync
             z0, z1, mt0, mt1 = self._fields_for(itime)
 
+            # interval since the deposited mass's decay reference time
+            # (wetdepo.f90:57-62)
+            if itime <= loutnext:
+                ldeltat = itime - (loutnext - cmd.loutstep)
+            else:
+                ldeltat = itime - loutnext
+
+            # wet deposition over the interval ending at itime
+            # (timemanager.f90:164-169; the field nearest itime - lsync/2)
+            if self.any_wetdep and istep > 0:
+                with self.timers.section("wetdepo"):
+                    interp_t = itime - lsync // 2
+                    zw = z0 if abs(mt0 - interp_t) < abs(mt1 - interp_t) \
+                        else z1
+                    self.particles, wdep = wet_deposition(
+                        self.particles, zw, lsync, ldeltat, self.wet_species,
+                        self.mass_species)
+                    self._scatter_depo(self.acc.wetgridunc, wdep, itime)
+
+            # radioactive decay of deposited mass on the output grids
+            # (timemanager.f90:269-304)
+            if self.any_decay and istep > 0:
+                decay_deposition_grids(self.acc.wetgridunc,
+                                       self.acc.drygridunc, self._decay_arr,
+                                       lsync)
+
             # releases
             self.particles = activate(self.particles, itime)
 
@@ -646,6 +725,17 @@ class Simulation:
                 self.timings["advance_first_s"] = round(
                     _time.perf_counter() - t0, 2)
 
+            # decay + dry deposition + minmass (timemanager.f90:643-686)
+            if self.any_drydep or self.any_decay:
+                with self.timers.section("drydepo"):
+                    vdep = z1.vdep if self.any_drydep else None
+                    self.particles, ddep = apply_decay_drydep(
+                        self.particles, vdep, lsync, ldeltat,
+                        self.mass_species, has_vdep=self.any_drydep)
+                    if self.any_drydep:
+                        self._scatter_depo(self.acc.drygridunc, ddep,
+                                           itime + lsync)
+
             # age-class termination (timemanager.f90:701-707)
             if max_age is not None:
                 age = torch.abs((itime + lsync) - self.particles.itramem)
@@ -672,6 +762,14 @@ class Simulation:
             (Path(self.outdir) / "profile.txt").write_text(report + "\n")
         return self.particles
 
+    def _scatter_depo(self, grid: torch.Tensor, deposit: torch.Tensor,
+                      itime: int) -> None:
+        """Kernel scatter of per-particle deposits onto a deposition grid,
+        in place (wet/drydepokernel.f90), each particle in its age class at
+        ``itime``."""
+        depo_scatter(grid, deposit, self.particles, itime, self.lage,
+                     self.conc_cfg)
+
     # ----- output (concoutput.f90 analog) -----
     def _outnum(self) -> float:
         """Sample count of the open averaging window: one scalar read from
@@ -696,6 +794,22 @@ class Simulation:
         conc = np.moveaxis(conc, -1, 0).transpose(0, 2, 1, 3, 4, 5)
         unc = np.moveaxis(unc, -1, 0).transpose(0, 2, 1, 3, 4, 5)
 
+        # cumulative wet/dry deposition in 1e-12 kg/m2
+        # (concoutput.f90 wetgrid: factor 1e12/area, no outnum division)
+        wet = dry = None
+        if self.any_wetdep or self.any_drydep:
+            area = self.geo.area
+            afac = np.where(area > 0.0, 1.0e12 / np.maximum(area, 1e-30),
+                            0.0)                   # (ny, nx)
+
+            def dep2out(g):  # (nage,nclass,kp,ny,nx,ks) -> (ks,kp,nage,...)
+                d = np.asarray(g).sum(axis=1)       # over nclass
+                d = np.moveaxis(d, -1, 0).transpose(0, 2, 1, 3, 4)
+                return d * afac[None, None, None]
+
+            wet = dep2out(acc["wetgridunc"])
+            dry = dep2out(acc["drygridunc"])
+
         when = add_seconds(self.cmd.bdate, itime)
         # air density at output layers for the pptv conversion
         # (concoutput.f90:156-196; newest time level = memind(2))
@@ -704,7 +818,7 @@ class Simulation:
             _, z1o, _, _ = self._fields_for(itime)
             rho_out = density_outgrid(self.geo, interop.to_numpy(z1o.height),
                                       interop.to_numpy(z1o.f3d[F3_RHO]))
-        self.writer.write(when, conc, unc, wet=None, dry=None,
+        self.writer.write(when, conc, unc, wet=wet, dry=dry,
                           rho_out=rho_out)
         # concentrations reset each output window; deposition grids are
         # cumulative over the run (concoutput.f90 never zeroes wetgridunc)

@@ -1,1 +1,1 @@
-"""Dates and section timers."""
+"""Dates, section timers and the CPU's vector-math warm-up."""

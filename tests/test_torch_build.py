@@ -11,21 +11,28 @@ the two quad tables against the strides that K2 writes and K4 reads.
 A kernel's library name must change with its source and with every
 header the source includes, or a changed header is never rebuilt.  K4's
 ``POLAR`` instantiation, K6's level limit and K7's uniform draw and
-rounding are held against what the Python side assumes.
+rounding are held against what the Python side assumes, and so are the
+species structs that K9 and K10 take by value and K8's row limit.
+``setup_drydep`` reads FLEXPART's landuse and Wesely files as the JAX
+package does.
 """
 import ctypes
 import re
 import shutil
 
+import numpy as np
+
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
+from flexpart_tpu_torch.utils.cpu import warm_vector_math  # noqa: E402
+warm_vector_math()
 
 from flexpart_tpu_torch import _build  # noqa: E402
 from flexpart_tpu_torch.core import advance, interp, reorder, rng, state  # noqa: E402
 from flexpart_tpu_torch.grid import conccalc  # noqa: E402
-from flexpart_tpu_torch.physics import convection  # noqa: E402
+from flexpart_tpu_torch.physics import convection, massupdate, wetdepo  # noqa: E402
 
 KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
          ctypes.c_int64: "int64", ctypes.c_uint32: "uint32",
@@ -59,10 +66,13 @@ def _kernel(name):
 
 
 def test_four_kernels():
-    """The four kernels of the stock step, the cell-order sort, and the
-    two of the convection: the columns (K6) and the redistribution (K7)."""
+    """The four kernels of the stock step, the cell-order sort, the two of
+    the convection: the columns (K6) and the redistribution (K7), and the
+    three of deposition: the deposit scatter (K8), the wet pass (K9) and
+    the decay and dry pass (K10)."""
     assert KERNEL_NAMES == ["normals", "quad_tables", "conccalc", "advance",
-                            "reorder", "convection", "redist"]
+                            "reorder", "convection", "redist",
+                            "depo_scatter", "wetdepo", "drydepo"]
     for k in _build.KERNELS:
         assert k.source.is_file() and k.launches == 0 and k._fn is None
 
@@ -384,3 +394,102 @@ def test_redist_rounds_half_to_even_and_draws_word_zero():
                      r"5\.9604644775390625e-08f;", header)
     assert rng._2M24 == 5.9604644775390625e-08
     assert convection.REDIST_TAG == 1000000
+
+
+def _struct_fields(text, name):
+    """[(field, ctypes type)] of ``struct name { ... };`` in a source,
+    declarations like ``float a, b;`` spread into their fields."""
+    body = re.search(r"struct\s+%s\s*\{(.*?)\};" % name, text, re.S).group(1)
+    c_types = {"int": ctypes.c_int, "float": ctypes.c_float}
+    out = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if not decl:
+            continue
+        ctype, names = decl.split(None, 1)
+        out += [(n.strip(), c_types[ctype]) for n in names.split(",")]
+    return out
+
+
+@pytest.mark.parametrize("kernel,struct,mirror", [
+    ("wetdepo", "WetSpec", wetdepo.WetSpec),
+    ("drydepo", "DrySpec", massupdate.DrySpec)])
+def test_species_structs_match_the_sources(kernel, struct, mirror):
+    """K9 and K10 copy MAX_SPECIES of these host structs into their
+    parameters: the ctypes mirror must match field for field, and both
+    sides must agree on MAX_SPECIES."""
+    text = _strip_comments(_kernel(kernel).source.read_text())
+    assert _struct_fields(text, struct) == list(mirror._fields_)
+    m = re.search(r"constexpr int MAX_SPECIES = (\d+);", text)
+    assert int(m.group(1)) == massupdate.MAX_SPECIES
+
+
+def test_deposition_kernels_call_the_plain_versions_functions():
+    """K9 and K10 call the accurate expf/powf/sqrtf that torch's
+    elementwise kernels call on the card, never the fast intrinsics."""
+    for name, calls in (("wetdepo", ("expf(", "powf(", "sqrtf(")),
+                        ("drydepo", ("expf(",))):
+        text = _strip_comments(_kernel(name).source.read_text())
+        for c in calls:
+            assert c in text, (name, c)
+        assert not re.search(r"__(exp|pow|log|sqrt)f?\w*\(", text), name
+    wet = _strip_comments(_build.WETDEPO.source.read_text())
+    # the column of the cloud lookup is a truncation, not a floor
+    assert "static_cast<int>(x)" in wet
+
+
+def test_depo_scatter_sums_per_warp_like_conccalc():
+    """K8 takes K3's per-warp sums (a match on the 32-bit row, one atomic
+    per group and species), no shared-memory table, the same row limit,
+    and the reference's corner order."""
+    text = _strip_comments(_build.DEPO_SCATTER.source.read_text())
+    assert "__match_any_sync" in text and "__shared__" not in text
+    m = re.search(r"MAX_ROWS = (0x[0-9A-F]+)ll - (\d+);", text)
+    assert int(m.group(1), 16) - int(m.group(2)) == wetdepo.K8_MAX_ROWS \
+        == conccalc.K3_MAX_ROWS
+    corners = re.findall(r"cx\[(\d)\] = (\w+);\s*cy\[\d\] = (\w+);", text)
+    assert [(c, x, y) for c, x, y in corners] == [
+        ("0", "ix", "jy"), ("1", "ixp", "jyp"), ("2", "ixp", "jy"),
+        ("3", "ix", "jyp")]
+
+
+def _write_options(d, rs):
+    """IGBP_int1.dat, surfdata.t and surfdepo.t in FLEXPART's formats."""
+    raw = rs.integers(0, 256, (1200, 600, 3)).astype(np.uint8)
+    raw[:5] = 0                               # cells without inventory
+    raw.tofile(d / "IGBP_int1.dat")
+    lines = ["surface data: roughness length per landuse class"] * 4
+    for k in range(13):
+        lines.append(f"{'class %d' % (k + 1):<45}{rs.uniform(0.001, 1.5):.4f}")
+    (d / "surfdata.t").write_text("\n".join(lines) + "\n")
+    lines = [f"header line {k}" for k in range(16)]
+    for season in range(5):
+        lines.append(f"season {season + 1}")
+        for row in ("ri", "rluh", "rac", "rgssh", "rgsoh", "rclsh", "rcloh"):
+            vals = rs.uniform(1.0, 5000.0, 13).round()
+            vals[rs.uniform(size=13) < 0.2] = 9999.0
+            lines.append(f"{row:<8}" + "".join(f"{v:8.0f}." for v in vals))
+    (d / "surfdepo.t").write_text("\n".join(lines) + "\n")
+
+
+def test_setup_drydep_reads_flexpart_files_like_jax(tmp_path):
+    from flexpart_tpu.config import Species
+    from flexpart_tpu.met import make_grid
+    from flexpart_tpu.physics import setup_drydep as jax_setup_drydep
+    from flexpart_tpu_torch import physics
+    rs = np.random.default_rng(4)
+    _write_options(tmp_path, rs)
+    grid = make_grid(nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)
+    species = (Species(name="SO2", reldiff=1.9, henry=1.0e5, f0=0.1),
+               Species(name="AERO", density=2500.0, dquer=0.8, dsigma=1.8),
+               Species(name="CONST", dryvel=0.004))
+    lsm = (rs.uniform(size=(19, 37)) < 0.4).astype(np.float32)
+    j = jax_setup_drydep(tmp_path, grid, species, lsm, 715)
+    t = physics.setup_drydep(tmp_path, grid, species, lsm, 715)
+    assert type(t).__module__ == "flexpart_tpu_torch.physics.drydepo"
+    for f in j.__dataclass_fields__:
+        np.testing.assert_array_equal(getattr(t, f), getattr(j, f), f)
+    # the files were read: infinite resistances, several classes a cell
+    assert (t.rac == 1.0e25).any() and (t.xlanduse > 0).sum(-1).max() > 1
+    assert not hasattr(physics, "wetdepo") or isinstance(
+        physics.wetdepo, type(physics))      # a submodule, never shadowed

@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
+from flexpart_tpu_torch.utils.cpu import warm_vector_math  # noqa: E402
+warm_vector_math()
 
 from flexpart_tpu import met as jmet  # noqa: E402
 from flexpart_tpu.config import OutGrid  # noqa: E402

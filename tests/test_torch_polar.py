@@ -23,6 +23,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
+from flexpart_tpu_torch.utils.cpu import warm_vector_math  # noqa: E402
+warm_vector_math()
 
 from flexpart_tpu.constants import R_EARTH  # noqa: E402
 from flexpart_tpu.core import StepConfig as JStepConfig  # noqa: E402

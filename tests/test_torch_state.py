@@ -8,6 +8,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
+from flexpart_tpu_torch.utils.cpu import warm_vector_math  # noqa: E402
+warm_vector_math()
 
 import jax.numpy as jnp  # noqa: E402
 from flexpart_tpu.core import state as jstate  # noqa: E402
@@ -83,3 +85,19 @@ def test_copied_constants_match_the_jax_package():
     og = dict(outlon0=-1.0, outlat0=2.0, numxgrid=3, numygrid=4, dxout=0.5,
               dyout=0.25, outheights=(10.0, 20.0))
     assert tconfig.OutGrid(**og).numzgrid == jconfig.OutGrid(**og).numzgrid
+
+
+def test_warm_vector_math_keeps_the_thread_count():
+    """The warm-up of torch's MKL vector math (``utils/cpu.py``: each
+    function's first call of the process made on one thread) names only
+    functions torch has, and leaves torch's intra-op threads as it found
+    them."""
+    from flexpart_tpu_torch.utils.cpu import VML_FUNCTIONS
+    before = torch.get_num_threads()
+    torch.set_num_threads(3)
+    try:
+        warm_vector_math()
+        assert torch.get_num_threads() == 3
+    finally:
+        torch.set_num_threads(before)
+    assert all(callable(getattr(torch, name)) for name in VML_FUNCTIONS)
