@@ -46,7 +46,10 @@ the port's stock forward step on the card, in phases:
                 on SyntheticMet's fields and on the same fields with every
                 cloud class and a temperature across the ice ramp, as
                 drawn and in cell order, and the deposit scatter (K8) of
-                both deposits against the float64 sum of its pairs;
+                both deposits against the float64 sum of its pairs, and on
+                two plumes in the sim phase's first release box (every
+                particle depositing, and 5% of them), with index_add_ of
+                its pairs as its library call;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
                 with the same draws; and the advance kernel with its draws
@@ -186,19 +189,21 @@ K4_POLAR_OPS = 150          # per cap particle: the six transcendentals and
 # the differing values are counted.  K8's float atomics are held against
 # the float64 sum of its pairs: within max(pairs in the cell * 2**-24,
 # K8_RTOL).  Operations, counted from the sources: K8 as K3 (a sampled
-# particle's four rounds of a warp match and a shuffle loop); K9 the
-# bilinear sums, the level search and the cloud fraction (about 200), a
-# species' powf or two powf and a sqrtf, the in-cloud rule and two expf
-# (about 150); K10 the weights (about 40), a species' two or three expf
-# and the products (about 60).
+# particle's four rounds of a warp match and a shuffle loop); K10 the
+# weights (about 40), a species' two or three expf and the products (about
+# 60).  K9's are read from the compiled kernel (k9_bound): the
+# instructions of its own code for every particle, and those of each
+# scavenging path's function for every (particle, species) that calls it.
 K8_RTOL = 1e-5
 K9_RTOL = 1e-5
 K10_RTOL = 1e-5
 K8_OPS_PER_PARTICLE = 300
-K9_OPS_PER_PARTICLE = 200
-K9_OPS_PER_SPECIES = 150
 K10_OPS_PER_PARTICLE = 40
 K10_OPS_PER_SPECIES = 60
+# the functions of csrc/wetdepo.cu that a scavenged particle calls: each
+# rule, the cloud water and the removal
+K9_PATHS = ("lam_below_gas", "lam_below_aerosol", "cloud_water",
+            "lam_in_cloud_aerosol", "lam_in_cloud_gas", "wet_removal")
 # the sim phase holds K9 once more in the storm band where fewer than this
 # share of a kept step's active particles is scavenged
 SIM_MIN_RAINED = 0.01
@@ -1164,6 +1169,37 @@ def depo_particles(n: int, device, seed: int, grid, nspec: int = 2):
         active=u(0.0, 1.0) >= 1.0 / 32, mass=mass, mass0=mass0)
 
 
+def plume_particles(n: int, device, seed: int, grid):
+    """n particles inside the sim phase's first release box (40-42 N, 0-2 E,
+    the lowest 2 km), all active, released over the last three hours (two
+    age classes at 10800 s), and two deposits: ``plume_dense`` (species 0
+    zero, species 1 positive for every particle) and ``plume_sparse``
+    (species 1 positive for 5% of them).  The deposit scatter (K8) on a
+    plume: a few output cells, each taking the pairs of some 10**5-10**6
+    particles."""
+    import torch
+    from flexpart_tpu_torch.core.state import empty_particles
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def u(lo, hi):
+        return torch.rand(n, generator=gen, device=device) * (hi - lo) + lo
+
+    x0 = (0.0 - grid.xlon0) / grid.dx
+    y0 = (40.0 - grid.ylat0) / grid.dy
+    p = empty_particles(n, 2, device=device).replace(
+        x_hi=u(x0, x0 + 2.0 / grid.dx), y_hi=u(y0, y0 + 2.0 / grid.dy),
+        x_lo=u(-1e-6, 1e-6), y_lo=u(-1e-6, 1e-6), z=u(0.0, 2000.0),
+        itra=torch.full((n,), 10800, dtype=torch.int32, device=device),
+        itramem=u(0.0, 10800.0).to(torch.int32),
+        active=torch.ones(n, dtype=torch.bool, device=device))
+    dep = u(0.5, 1.5) / n
+    zero = torch.zeros_like(dep)
+    sparse = torch.where(u(0.0, 1.0) < 0.05, dep, zero)
+    return p, {"plume_dense": torch.stack([zero, dep]),
+               "plume_sparse": torch.stack([zero, sparse])}
+
+
 def all_classes_met(zf, device, seed: int):
     """zf with every cloud class 0-5 (SyntheticMet's clouds start at level 1
     and are 0-3: no below-cloud cell) and temperatures of 245-280 K (its
@@ -1242,8 +1278,8 @@ def check_depo_scatter(p, deposit, itime: int, lage, ccfg, what: str) -> dict:
     additions of non-negative terms stays within m * 2**-24 of it,
     relatively, so a cell of m pairs is held within max(m * 2**-24,
     K8_RTOL); the plain version (index_add_, one float atomic per pair) is
-    held to the same rule.  With the pairs and the (warp, target) pairs,
-    the global atomics without and with the per-warp sums."""
+    held to the same rule, and the library call (index_add_ of the
+    kernel's own valid pairs) is timed beside both."""
     import torch
     from flexpart_tpu_torch.physics import wetdepo as wd
     nspec = deposit.shape[0]
@@ -1257,11 +1293,13 @@ def check_depo_scatter(p, deposit, itime: int, lage, ccfg, what: str) -> dict:
           else torch.zeros_like(p.npoint)).long()
     wd.depo_scatter_plain(flat_p, deposit, p, nage_idx, kp, ccfg)
     lin, valid, contrib = wd.depo_pairs(rows, deposit, p, nage_idx, kp, ccfg)
-    warp = torch.arange(p.capacity, device=dev)[:, None] // 32
-    wt = (warp * rows + lin)[valid]
-    n_pairs, n_wt = int(wt.numel()), int(torch.unique(wt).numel())
-    del warp, wt
     lin, contrib = lin[valid], contrib[valid]
+    n_pairs = int(lin.numel())
+    # the library call: index_add_ of the kernel's own valid pairs, made
+    # outside the timed region (the scatter half of the function)
+    flat_l = torch.zeros_like(flat_k)
+    library_ms = cuda_ms(lambda: flat_l.index_add_(0, lin, contrib), 3)
+    del flat_l
     ref = torch.zeros((rows, nspec), dtype=torch.float64, device=dev)
     ref.index_add_(0, lin, contrib.double())
     pairs = torch.zeros(rows, dtype=torch.int64, device=dev)
@@ -1281,25 +1319,112 @@ def check_depo_scatter(p, deposit, itime: int, lage, ccfg, what: str) -> dict:
                plain_max_rel_err_vs_f64=rel["plain"],
                total_rel_err_vs_f64=abs(float(flat_k.sum(dtype=torch.float64))
                                         / float(ref.sum()) - 1.0),
-               pairs=n_pairs, warp_target_pairs=n_wt,
-               cells_hit=int((pairs != 0).sum()),
+               pairs=n_pairs, cells_hit=int((pairs != 0).sum()),
                most_pairs_in_a_cell=int(pairs.max()))
     out["ms"] = cuda_ms(lambda: wd.depo_scatter_cuda(
         flat_k, deposit, p, itime, lage, ccfg), 10)
     out["plain_ms"] = cuda_ms(lambda: wd.depo_scatter_plain(
         flat_p, deposit, p, nage_idx, kp, ccfg), 3)
+    out["library_ms"] = library_ms
     return out
 
 
-def depo_bounds(n: int, nspec: int, zf, ccfg) -> dict:
-    """The three deposition kernels' bounds: each input read once, each
-    output written once, and their operations, counted from the sources."""
+def sass_paths(kernel, functions) -> dict:
+    """Instructions of a kernel's own code and of each of its named
+    __noinline__ functions, read from the compiled library: each function's
+    bytes from the cubin's symbol table (cuobjdump -elf), its instructions
+    from cuobjdump -sass, NOPs aside.  The kernel's own code runs up to its
+    first function; the toolkit's slow paths (division, reciprocal, square
+    root), which run only for special inputs, are counted in none."""
+    import re
+    starts = {}
+    for ln in kernel.cuobjdump("-elf").splitlines():
+        m = re.match(r"\s*0x[0-9a-f]+\s+(0x[0-9a-f]+|0)\s+(0x[0-9a-f]+|0)"
+                     r"\s+\S+\s+\S+\s+\S+\s+(\$\S+)\s*$", ln)
+        if m and int(m.group(2), 16) > 0:
+            starts[m.group(3)] = (int(m.group(1), 16), int(m.group(2), 16))
+    code = [(int(a, 16), op) for a, op in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9._]*)",
+        kernel.cuobjdump("-sass"))]
+
+    def count(lo, hi):
+        return sum(1 for a, op in code if lo <= a < hi and op != "NOP")
+
+    out = {"kernel": count(0, min(v for v, _ in starts.values()))}
+    for f in functions:
+        hit = [vs for name, vs in starts.items()
+               if re.search(r"\d%sE" % f, name)]
+        check(len(hit) == 1, f"{kernel.name}: function {f} not found once "
+              f"in the compiled kernel: {sorted(starts)}")
+        out[f] = count(hit[0][0], hit[0][0] + hit[0][1])
+    return out
+
+
+def k9_path_calls(p, zf, wet, msp) -> dict:
+    """How often K9's paths run on these inputs: the active particles it
+    rains on (which read z and their cell), and per function of K9_PATHS
+    the (particle, species) that call it: a scavenged particle (active,
+    raining, in or below a cloud) calls the rule its cell and the species
+    select, then the removal, and in cloud the cloud water once."""
+    import torch
+    from flexpart_tpu_torch.core.interp import (horiz_weights, interp_2d,
+                                                vert_weights)
+    from flexpart_tpu_torch.met.fields import F2_CONVPREC, F2_LSPREC, F3_TT
+    from flexpart_tpu_torch.physics import wetdepo as wd
+    ny, nx = zf.f2d.shape[1:]
+    lsp, convp = interp_2d(zf.f2d, (F2_LSPREC, F2_CONVPREC),
+                           horiz_weights(p.x, p.y, nx, ny, False))
+    ix = torch.clamp(p.x.to(torch.int32), 0, nx - 1).long()
+    jy = torch.clamp(p.y.to(torch.int32), 0, ny - 1).long()
+    hz = vert_weights(p.z, zf.height)[0].long()
+    clouds = zf.clouds[hz, jy, ix]
+    rained = p.active & ((lsp >= 0.01) | (convp >= 0.01))
+    valid = rained & (clouds > 1)
+    below, incl = valid & (clouds >= 4), valid & (clouds < 4)
+    warm = zf.f3d[F3_TT][hz, jy, ix] >= 273.0
+    n_below, n_incl = int(below.sum()), int(incl.sum())
+    n_warm = int((below & warm).sum())
+    calls = dict.fromkeys(K9_PATHS, 0)
+    specs = wd.wet_specs(wet, msp)
+    for s in range(len(wet)):
+        w = specs[s]
+        if w.below == 1:
+            calls["lam_below_gas"] += n_below
+        elif w.below == 2:
+            calls["lam_below_aerosol"] += (n_warm * w.rain
+                                           + (n_below - n_warm) * w.snow)
+        if w.incloud:
+            calls["lam_in_cloud_aerosol" if w.incloud == 1
+                  else "lam_in_cloud_gas"] += n_incl
+    calls["wet_removal"] = sum(v for k, v in calls.items()
+                               if k.startswith("lam_"))
+    if any(specs[s].incloud for s in range(len(wet))):
+        calls["cloud_water"] = n_incl
+    return dict(active_raining=int(rained.sum()), **calls)
+
+
+def k9_bound(p, zf, wet, msp, instructions) -> dict:
+    """K9's least time on these inputs.  Bytes: positions, active, mass in
+    and out and the deposit out of every particle, z of the active ones it
+    rains on; the four surface planes, the cloud classes, the temperature
+    and the heights.  Operations: ``instructions`` (``sass_paths``) of the
+    kernel's own code for every particle and of each path's function for
+    every call these inputs make (``k9_path_calls``)."""
+    calls = k9_path_calls(p, zf, wet, msp)
+    n, nspec = p.capacity, p.nspec
     nz, ny, nx = zf.clouds.shape
+    n_bytes = (n * (17 + 12 * nspec) + 4 * calls["active_raining"]
+               + 16 * ny * nx + 5 * nz * ny * nx + 4 * nz)
+    n_ops = instructions["kernel"] * n + sum(
+        instructions[f] * calls[f] for f in K9_PATHS)
+    return dict(path_calls=calls, **bound(n_bytes, n_ops))
+
+
+def depo_bounds(n: int, nspec: int, zf, ccfg) -> dict:
+    """K10's and K8's bounds: each input read once, each output written
+    once, and their operations, counted from the sources."""
+    ny, nx = zf.clouds.shape[1:]
     rows = ccfg.nage * ccfg.nclassunc * ccfg.npointspec * ccfg.nyg * ccfg.nxg
-    # K9: positions, z, active, mass in and out, the deposit out; the four
-    # surface planes, the cloud classes, the temperature and the heights
-    k9 = bound(n * (21 + 12 * nspec) + 16 * ny * nx + 5 * nz * ny * nx
-               + 4 * nz, n * (K9_OPS_PER_PARTICLE + K9_OPS_PER_SPECIES * nspec))
     # K10: positions, z, active in and out, mass and mass0 in, mass and the
     # deposit out; the velocity field
     k10 = bound(n * (22 + 16 * nspec) + 4 * nspec * ny * nx,
@@ -1308,7 +1433,7 @@ def depo_bounds(n: int, nspec: int, zf, ccfg) -> dict:
     # read and written once (atomics on top are not counted)
     k8 = bound(n * (29 + 4 * nspec) + 2 * 4 * rows * nspec,
                n * K8_OPS_PER_PARTICLE)
-    return dict(wetdepo=k9, drydepo=k10, depo_scatter=k8)
+    return dict(drydepo=k10, depo_scatter=k8)
 
 
 def kernel_deposition(device, grid) -> dict:
@@ -1320,6 +1445,7 @@ def kernel_deposition(device, grid) -> dict:
     each timed beside its bound.  The deposit scatter takes K9's and K10's
     deposits.  Returns {"wetdepo", "drydepo", "depo_scatter"}."""
     import torch
+    from flexpart_tpu_torch import _build
     from flexpart_tpu_torch.core import reorder
     from flexpart_tpu_torch.physics import massupdate as mu
     from flexpart_tpu_torch.physics import wetdepo as wd
@@ -1343,11 +1469,13 @@ def kernel_deposition(device, grid) -> dict:
     ldeltat = 2700
     k9, k10, k8 = {}, {}, {}
     deposits = {}
+    k9_ops = sass_paths(_build.WETDEPO, K9_PATHS)
     for oname, q in orders.items():
         for fname, zf in fields.items():
             r = check_wetdepo(q, zf, wet, msp, ldeltat,
                               f"K9 {fname}, {oname}")
             deposits[("wet", fname, oname)] = r.pop("deposit")
+            r.update(k9_bound(q, zf, wet, msp, k9_ops))
             r["ms"] = cuda_ms(lambda: wd.wetdepo_cuda(
                 q, zf, LSYNC, ldeltat, wet, msp), 10)
             r["plain_ms"] = cuda_ms(lambda: mu.apply_wetdepo_plain(
@@ -1365,6 +1493,12 @@ def kernel_deposition(device, grid) -> dict:
                           ("dry", deposits[("dry", oname)])):
             k8[f"{kind}_{oname}"] = check_depo_scatter(
                 q, dep, 10800, lage, ccfg, f"K8 {kind}, {oname}")
+    # K8 on a plume in cell order (the run's order): sim's first release box
+    q, plume_deposits = plume_particles(N_MAIN, device, 24, grid)
+    q = reorder.reorder_by_cell_cuda(q, z0.height, cfg)[0]
+    for kind, dep in plume_deposits.items():
+        k8[kind] = check_depo_scatter(q, dep, 10800, lage, ccfg, f"K8 {kind}")
+    del q, plume_deposits
     # every rule scavenged somewhere: both species on the cloud classes of
     # SyntheticMet (in cloud) and on every class (below cloud too)
     for name, r in k9.items():
@@ -1376,6 +1510,9 @@ def kernel_deposition(device, grid) -> dict:
               f"{r['depositing_share']} depositing")
     del deposits, orders, p
     bounds = depo_bounds(N_MAIN, len(species), z0, ccfg)
+    k9_main = k9["synthetic_cell_ordered"]
+    bounds["wetdepo"] = {f: k9_main[f] for f in (
+        "bound_ms", "bound_by", "bound_bytes", "bound_operations")}
     out = {}
     for name, cases, main in (("wetdepo", k9, "synthetic_cell_ordered"),
                               ("drydepo", k10, "cell_ordered"),
@@ -1383,12 +1520,14 @@ def kernel_deposition(device, grid) -> dict:
         m = cases[main]
         out[name] = dict(
             max_abs_err=max(c["max_abs_err"] for c in cases.values()),
-            ms=m["ms"], plain_ms=m["plain_ms"], library_ms=None,
+            ms=m["ms"], plain_ms=m["plain_ms"],
+            library_ms=m.get("library_ms"),
             ms_case=main, cases=cases, **bounds[name])
         if name != "depo_scatter":
             out[name]["bitwise"] = all(c["bitwise"] for c in cases.values())
             out[name]["values_differ"] = sum(c["values_differ"]
                                              for c in cases.values())
+    out["wetdepo"]["instructions"] = k9_ops
     torch.cuda.empty_cache()
     return out
 
@@ -1428,6 +1567,7 @@ def sim_depo_checks(sim, snap, what: str) -> dict:
     active particles are scavenged, K9 once more on them put in the storm
     band (``storm_band_particles``), where it must scavenge."""
     import torch
+    from flexpart_tpu_torch import _build
     from flexpart_tpu_torch.physics import massupdate as mu
     from flexpart_tpu_torch.physics import wetdepo as wd
     istep, itime, p, z0, z1, mt0, mt1 = snap[:7]
@@ -1439,6 +1579,8 @@ def sim_depo_checks(sim, snap, what: str) -> dict:
     res = {}
     r9 = check_wetdepo(p, zw, wet, msp, ldeltat, f"{what}: K9")
     wdep = r9.pop("deposit")
+    r9.update(k9_bound(p, zw, wet, msp, sass_paths(_build.WETDEPO,
+                                                   K9_PATHS)))
     r9["ms"] = cuda_ms(lambda: wd.wetdepo_cuda(p, zw, LSYNC, ldeltat, wet,
                                                msp), 10)
     r9["plain_ms"] = cuda_ms(lambda: mu.apply_wetdepo_plain(
@@ -2506,11 +2648,18 @@ def main() -> int:
     for kname in ("wetdepo", "drydepo", "depo_scatter"):
         extra[kname]["ms_case"] = kres[kname]["ms_case"]
         extra[kname]["cases"] = {
-            n: {f: c[f] for f in ("ms", "plain_ms", "max_abs_err")
+            n: {f: c[f] for f in ("ms", "plain_ms", "library_ms",
+                                  "max_abs_err", "pairs", "cells_hit",
+                                  "most_pairs_in_a_cell")
                 if f in c} for n, c in kres[kname]["cases"].items()}
         for f in ("bitwise", "values_differ"):
             if f in kres[kname]:
                 extra[kname][f] = kres[kname][f]
+    # K9's operation count: the compiled kernel's instructions per path and
+    # the calls of the run's case
+    extra["wetdepo"]["instructions"] = kres["wetdepo"]["instructions"]
+    extra["wetdepo"]["path_calls"] = kres["wetdepo"]["cases"][
+        kres["wetdepo"]["ms_case"]]["path_calls"]
     emit({"kernels": [
         {"name": k.name, "route": "cuda", "source": src.format(k.name),
          "replaces": replaces[k.name][0], "tpu_route": replaces[k.name][1],

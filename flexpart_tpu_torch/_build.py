@@ -109,6 +109,17 @@ class Kernel:
         fn.restype = I
         return fn
 
+    def cuobjdump(self, *flags: str) -> str:
+        """``cuobjdump`` of this kernel's library (built on first use):
+        ``-sass`` for the instructions the card runs, ``-elf`` for the
+        cubin's symbol table."""
+        if self._fn is None:
+            build_all([self])
+        tool = Path(_nvcc()).parent / "cuobjdump"
+        return subprocess.run([str(tool), *flags, self._lib._name],
+                              capture_output=True, text=True,
+                              check=True).stdout
+
     def __call__(self, *args) -> None:
         """Launch on the current stream; raise if the launch failed."""
         if self._fn is None:

@@ -30,13 +30,30 @@
 //
 // Design: one thread per particle, every species in a loop over a struct
 // array passed by value (MAX_SPECIES of them); the mass is written out of
-// place.
+// place.  The work follows the data: where the plain version selects, the
+// kernel branches.  A particle that is not scavenged (inactive, not
+// raining, or not in or below a cloud: most of them) takes the light path:
+// lambda = 0 there, so expf(-0 * dt) == 1 and the removed mass is
+// (m * 0) * fraction, the plain version's value for every m and fraction;
+// it reads no cloud class, temperature or level unless it is active and it
+// rains, and calls no powf, sqrtf or expf.  A scavenged particle computes,
+// per species, only the rule that its cell and the species select, and the
+// cloud water once, where an in-cloud rule needs it.  Each rule, the cloud
+// water and the removal are functions of their own (__noinline__), so
+// that the compiled kernel shows each path's instructions apart (the
+// bound's operation count reads them).  The decay corrections are the
+// same for every particle: each block computes them once.  The level is
+// torch.searchsorted's binary search (right=True), so it finds the plain
+// version's level for any height and z.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int THREADS = 256;
+// resident blocks per SM that the registers must allow (32 registers: a
+// full SM, which the gathers of a cell-ordered ensemble want)
+constexpr int MIN_BLOCKS = 8;
 constexpr int MAX_SPECIES = 32;
 constexpr float TINY = 1.17549435e-38f;     // finfo(float32).tiny
 constexpr float INCLOUD_RATIO = 6.2f;
@@ -88,19 +105,70 @@ __device__ __forceinline__ float bilinear(const float* f, const int* idx,
          f[idx[3]] * p4[3];
 }
 
-__device__ __forceinline__ float below_aerosol(float eff, float base, float c5,
-                                               float prec) {
+// --- the scavenged paths: one function each ---
+
+// below cloud, a gas: A * P**B
+__device__ __noinline__ float lam_below_gas(float weta, float wetb,
+                                            float prec) {
+  return weta * powf(prec, wetb);
+}
+
+// below cloud, an aerosol's rain or snow term: eff * 10**(base + c5 sqrt P)
+__device__ __noinline__ float lam_below_aerosol(float eff, float base,
+                                                float c5, float prec) {
   return eff * powf(10.0f, base + c5 * sqrtf(prec));
 }
 
-__global__ void __launch_bounds__(THREADS)
+// the cloud water from the rate (the column cloud water of readclouds,
+// use_clwc, is not ported)
+__device__ __noinline__ float cloud_water(float prec) {
+  return 0.2f * powf(prec, 0.36f);             // 1e6 * 2e-7
+}
+
+// in cloud, an aerosol: CCN / IN activation by the ice fraction
+__device__ __noinline__ float lam_in_cloud_aerosol(float ccn, float in_,
+                                                   float act_temp, float cl,
+                                                   float prec) {
+  const float t = (act_temp - 273.0f) / 20.0f;
+  float ice = clamp01(t * t);
+  ice = act_temp <= 253.0f ? 1.0f : ice;
+  ice = act_temp >= 273.0f ? 0.0f : ice;
+  const float liq = at_least(1.0f - ice, 0.0f);
+  const float s_i = (liq * ccn + ice * in_) / at_least(cl, 1e-30f);
+  return (INCLOUD_RATIO * s_i) * (prec / 3.6e6f);
+}
+
+// in cloud, a gas: Henry partitioning
+__device__ __noinline__ float lam_in_cloud_gas(float henry_r, float act_temp,
+                                               float cl, float prec) {
+  const float cle = (1.0f - cl) / (henry_r * act_temp) + cl;
+  const float s_i = 1.0f / cle;
+  return (INCLOUD_RATIO * s_i) * (prec / 3.6e6f);
+}
+
+// the mass a scavenged species loses
+__device__ __noinline__ float wet_removal(float m, float lam, float lts,
+                                         float grf) {
+  return (m * (1.0f - expf(-lam * lts))) * grf;
+}
+
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 wetdepo_kernel(const In in, const Cfg c, const Specs sp,
                float* __restrict__ mass_out, float* __restrict__ deposit) {
-  const int p = blockIdx.x * THREADS + threadIdx.x;
-  if (p >= c.n) return;
+  // exp(|ldeltat| * decay): the same for every particle, made once per
+  // block while the particles' loads are in flight
+  __shared__ float corr[MAX_SPECIES];
+  if (static_cast<int>(threadIdx.x) < c.nspec) {
+    const float dec = sp.s[threadIdx.x].dec;
+    corr[threadIdx.x] =
+        dec > 0.0f ? expf(static_cast<float>(c.ldeltat) * dec) : 1.0f;
+  }
+  // a thread past the end reads the last particle and stores nothing
+  const int q = blockIdx.x * THREADS + threadIdx.x;
+  const bool inside = q < c.n;
+  const int p = inside ? q : c.n - 1;
   const float x = in.x_hi[p] + in.x_lo[p];
   const float y = in.y_hi[p] + in.y_lo[p];
-  const float z = in.z[p];
   const bool active = in.active[p];
 
   // horiz_weights(x, y, nx, ny, xglobal=False)
@@ -120,21 +188,6 @@ wetdepo_kernel(const In in, const Cfg c, const Specs sp,
   const float convp = bilinear(in.convp, idx, p4);
   const float cc = at_least(bilinear(in.tcc, idx, p4), 1e-10f);
 
-  // the cell: the column by truncation, the level below z
-  int tx = static_cast<int>(x);
-  int ty = static_cast<int>(y);
-  tx = tx < 0 ? 0 : (tx > c.nx - 1 ? c.nx - 1 : tx);
-  ty = ty < 0 ? 0 : (ty > c.ny - 1 ? c.ny - 1 : ty);
-  int hz = -1;                               // searchsorted(side="right") - 1
-  for (int k = 0; k < c.nz; ++k) hz += (in.height[k] <= z) ? 1 : 0;
-  hz = hz < 0 ? 0 : (hz > c.nz - 2 ? c.nz - 2 : hz);
-  const int cell3 = (hz * c.ny + ty) * c.nx + tx;
-  const int clouds_v = in.clouds[cell3];
-  const float act_temp = in.tt[cell3];
-
-  const bool raining = (lsp >= 0.01f) || (convp >= 0.01f);
-  const bool in_cloudy = clouds_v > 1;
-
   // the precipitating fraction of the cell
   const float LFR[5] = {0.5f, 0.65f, 0.8f, 0.9f, 0.95f};
   const float CFR[5] = {0.4f, 0.55f, 0.7f, 0.8f, 0.9f};
@@ -144,52 +197,84 @@ wetdepo_kernel(const In in, const Cfg c, const Specs sp,
   const float tot = at_least(lsp + convp, 1e-30f);
   const float grf =
       at_least(cc * (lsp * LFR[i_l] + convp * CFR[i_c]) / tot, 0.05f);
-  const float prec = (lsp + convp) / grf;
 
+  // the cell, where it matters: the column by truncation, the level below z
+  const bool raining = (lsp >= 0.01f) || (convp >= 0.01f);
+  int cell3 = 0, clouds_v = 0;
+  if (active && raining) {
+    const float z = in.z[p];
+    int tx = static_cast<int>(x);
+    int ty = static_cast<int>(y);
+    tx = tx < 0 ? 0 : (tx > c.nx - 1 ? c.nx - 1 : tx);
+    ty = ty < 0 ? 0 : (ty > c.ny - 1 ? c.ny - 1 : ty);
+    int lo = 0, hi = c.nz;                   // searchsorted(side="right")
+    while (lo < hi) {
+      const int mid = lo + ((hi - lo) >> 1);
+      if (!(in.height[mid] > z)) lo = mid + 1; else hi = mid;
+    }
+    int hz = lo - 1;
+    hz = hz < 0 ? 0 : (hz > c.nz - 2 ? c.nz - 2 : hz);
+    cell3 = (hz * c.ny + ty) * c.nx + tx;
+    clouds_v = in.clouds[cell3];
+  }
+  const bool valid = clouds_v > 1;           // active, raining, in or below a cloud
+  const long long row = static_cast<long long>(p) * c.nspec;
+  __syncthreads();                           // corr
+  if (!inside) return;
+
+  if (!valid) {
+    for (int s = 0; s < c.nspec; ++s) {
+      const float m = in.mass[row + s];
+      const float wetdep = (m * 0.0f) * grf;
+      const float rest = m - wetdep;
+      mass_out[row + s] = rest > TINY ? rest : 0.0f;
+      deposit[static_cast<long long>(s) * c.n + p] =
+          active ? wetdep * corr[s] : 0.0f;
+    }
+    return;
+  }
+
+  const float act_temp = in.tt[cell3];
   const bool below = clouds_v >= 4;
-  const bool incl = in_cloudy && !below;
-  // the cloud water from the rate (the column cloud water of readclouds,
-  // use_clwc, is not ported)
-  const float cl = 0.2f * powf(prec, 0.36f);   // 1e6 * 2e-7
-  const float t = (act_temp - 273.0f) / 20.0f;
-  float ice = clamp01(t * t);
-  ice = act_temp <= 253.0f ? 1.0f : ice;
-  ice = act_temp >= 273.0f ? 0.0f : ice;
-  const float liq = at_least(1.0f - ice, 0.0f);
-  const bool valid = active && raining && in_cloudy;
+  const float prec = (lsp + convp) / grf;
   const float lts = static_cast<float>(c.ltsample);
-  const float ldt = static_cast<float>(c.ldeltat);
-
+  float cl = 0.0f;
+  bool have_cl = false;
   for (int s = 0; s < c.nspec; ++s) {
     const WetSpec& w = sp.s[s];
     float lam = 0.0f;
-    if (w.below == 1) {
-      lam = below ? w.weta * powf(prec, w.wetb) : lam;
-    } else if (w.below == 2) {
-      const float rain =
-          w.rain ? below_aerosol(w.rain_eff, w.rain_base, w.rain_c5, prec) : 0.0f;
-      const float snow =
-          w.snow ? below_aerosol(w.snow_eff, w.snow_base, w.snow_c5, prec) : 0.0f;
-      lam = below ? (act_temp >= 273.0f ? rain : snow) : lam;
-    }
-    if (w.incloud != 0) {
-      float s_i;
-      if (w.incloud == 1) {
-        s_i = (liq * w.ccn + ice * w.in_) / at_least(cl, 1e-30f);
-      } else {
-        const float cle = (1.0f - cl) / (w.henry_r * act_temp) + cl;
-        s_i = 1.0f / cle;
+    bool rule = false;
+    if (below) {
+      if (w.below == 1) {
+        lam = lam_below_gas(w.weta, w.wetb, prec);
+        rule = true;
+      } else if (w.below == 2) {
+        if (act_temp >= 273.0f) {
+          if (w.rain) {
+            lam = lam_below_aerosol(w.rain_eff, w.rain_base, w.rain_c5, prec);
+            rule = true;
+          }
+        } else if (w.snow) {
+          lam = lam_below_aerosol(w.snow_eff, w.snow_base, w.snow_c5, prec);
+          rule = true;
+        }
       }
-      lam = incl ? (INCLOUD_RATIO * s_i) * (prec / 3.6e6f) : lam;
+    } else if (w.incloud != 0) {
+      if (!have_cl) {
+        cl = cloud_water(prec);
+        have_cl = true;
+      }
+      lam = w.incloud == 1
+                ? lam_in_cloud_aerosol(w.ccn, w.in_, act_temp, cl, prec)
+                : lam_in_cloud_gas(w.henry_r, act_temp, cl, prec);
+      rule = true;
     }
-    lam = valid ? lam : 0.0f;
-
-    const float m = in.mass[static_cast<long long>(p) * c.nspec + s];
-    const float wetdep = (m * (1.0f - expf(-lam * lts))) * grf;
+    const float m = in.mass[row + s];
+    // without a rule lambda is 0: the light path's value
+    const float wetdep = rule ? wet_removal(m, lam, lts, grf) : (m * 0.0f) * grf;
     const float rest = m - wetdep;
-    mass_out[static_cast<long long>(p) * c.nspec + s] = rest > TINY ? rest : 0.0f;
-    const float corr = w.dec > 0.0f ? expf(ldt * w.dec) : 1.0f;
-    deposit[static_cast<long long>(s) * c.n + p] = active ? wetdep * corr : 0.0f;
+    mass_out[row + s] = rest > TINY ? rest : 0.0f;
+    deposit[static_cast<long long>(s) * c.n + p] = wetdep * corr[s];
   }
 }
 

@@ -12,8 +12,8 @@ of each computation:
   and temperature lookup, the scavenging coefficient of every species, the
   mass removal and the decay-corrected deposit, in one launch) and kernel
   K8 (``csrc/depo_scatter.cu``: the 4-point uniform-kernel scatter-add of
-  a deposit onto the 2-D wet or dry grid, with K3's per-warp sums), which
-  run for CUDA tensors.
+  a deposit onto the 2-D wet or dry grid, summed per warp and per block in
+  shared memory before its atomics), which run for CUDA tensors.
 
 ``wet_deposition`` and ``depo_scatter`` pick by device and never fall from
 one to the other.
@@ -408,6 +408,8 @@ def depo_scatter_cuda(flat: torch.Tensor, deposit: torch.Tensor,
             or not deposit.is_contiguous():
         raise ValueError(f"K8: deposit must be contiguous float32 "
                          f"({nspec}, {n}) on {dev}")
+    if not 1 <= nspec <= MAX_SPECIES:
+        raise ValueError(f"K8 takes 1 to {MAX_SPECIES} species")
     if flat.shape[0] > K8_MAX_ROWS:
         raise ValueError(f"K8 matches grid rows by a 32-bit index: "
                          f"{flat.shape[0]} rows exceed {K8_MAX_ROWS}")

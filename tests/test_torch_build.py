@@ -12,7 +12,8 @@ A kernel's library name must change with its source and with every
 header the source includes, or a changed header is never rebuilt.  K4's
 ``POLAR`` instantiation, K6's level limit and K7's uniform draw and
 rounding are held against what the Python side assumes, and so are the
-species structs that K9 and K10 take by value and K8's row limit.
+species structs that K9 and K10 take by value, K8's row and species
+limits, and K9's level search and light path.
 ``setup_drydep`` reads FLEXPART's landuse and Wesely files as the JAX
 package does.
 """
@@ -438,19 +439,131 @@ def test_deposition_kernels_call_the_plain_versions_functions():
     assert "static_cast<int>(x)" in wet
 
 
-def test_depo_scatter_sums_per_warp_like_conccalc():
-    """K8 takes K3's per-warp sums (a match on the 32-bit row, one atomic
-    per group and species), no shared-memory table, the same row limit,
-    and the reference's corner order."""
+def test_depo_scatter_rows_corners_and_limits_match_the_wrapper():
+    """K8 matches the lanes of a warp on the 32-bit grid row, refuses a grid
+    of more rows than ``K8_MAX_ROWS`` (K3's limit), takes the reference's
+    corners and weights in its order, and takes at most the wrapper's
+    ``MAX_SPECIES`` species (its tables in shared memory hold nspec values
+    a row); the key of a free slot and of a lane without a pair lies above
+    every row."""
     text = _strip_comments(_build.DEPO_SCATTER.source.read_text())
-    assert "__match_any_sync" in text and "__shared__" not in text
+    assert "__match_any_sync(FULL, valid ? row : EMPTY)" in text
+    assert "const unsigned row = static_cast<unsigned>(lin);" in text
     m = re.search(r"MAX_ROWS = (0x[0-9A-F]+)ll - (\d+);", text)
     assert int(m.group(1), 16) - int(m.group(2)) == wetdepo.K8_MAX_ROWS \
         == conccalc.K3_MAX_ROWS
-    corners = re.findall(r"cx\[(\d)\] = (\w+);\s*cy\[\d\] = (\w+);", text)
-    assert [(c, x, y) for c, x, y in corners] == [
-        ("0", "ix", "jy"), ("1", "ixp", "jyp"), ("2", "ixp", "jy"),
-        ("3", "ix", "jyp")]
+    assert "rows > MAX_ROWS" in text
+    assert "constexpr unsigned EMPTY = 0xFFFFFFFFu;" in text
+    assert wetdepo.K8_MAX_ROWS < 0xFFFFFFFF
+    m = re.search(r"constexpr int MAX_SPECIES = (\d+);", text)
+    assert int(m.group(1)) == massupdate.MAX_SPECIES == wetdepo.MAX_SPECIES
+    # corner j takes ixp where hx and jyp where hy, and the other weight
+    hx = re.search(r"const bool hx = j == (\d) \|\| j == (\d);", text)
+    hy = re.search(r"const bool hy = j == (\d) \|\| j == (\d);", text)
+    assert "const int cx = hx ? ixp : ix;" in text
+    assert "const int cy = hy ? jyp : jy;" in text
+    assert "const float wj = (hx ? 1.0f - wx : wx) * (hy ? 1.0f - wy : wy);" \
+        in text
+    corners = [("ixp" if str(j) in hx.groups() else "ix",
+                "jyp" if str(j) in hy.groups() else "jy") for j in range(4)]
+    assert corners == [("ix", "jy"), ("ixp", "jyp"), ("ixp", "jy"),
+                       ("ix", "jyp")]
+    assert "for (int j = 0; j < 4; ++j)" in text
+
+
+def _kernel_level(height, z):
+    """K9's level search, step for step: torch.searchsorted's binary search
+    (right=True) on the card, then the clamp of ``vert_weights``."""
+    lo, hi = 0, len(height)
+    while lo < hi:
+        mid = lo + ((hi - lo) >> 1)
+        if not height[mid] > z:
+            lo = mid + 1
+        else:
+            hi = mid
+    return min(max(lo - 1, 0), len(height) - 2)
+
+
+def test_wetdepo_level_search_is_the_plain_versions():
+    """K9 finds the level below z by the same binary search as
+    ``torch.searchsorted(height, z, right=True)`` and clamps it as
+    ``interp.vert_weights`` does: the same level for ascending heights and
+    for z below, above, on and between the levels and NaN."""
+    text = _strip_comments(_build.WETDEPO.source.read_text())
+    assert "int lo = 0, hi = c.nz;" in text
+    assert "const int mid = lo + ((hi - lo) >> 1);" in text
+    assert "if (!(in.height[mid] > z)) lo = mid + 1; else hi = mid;" in text
+    assert "hz = hz < 0 ? 0 : (hz > c.nz - 2 ? c.nz - 2 : hz);" in text
+    rs = np.random.default_rng(3)
+    for nz in (2, 3, 15, 30):
+        height = np.concatenate([[0.0], np.cumsum(rs.uniform(5, 500, nz - 1))]
+                                ).astype(np.float32)
+        z = np.concatenate([rs.uniform(-10.0, height[-1] + 100.0, 200),
+                            height, [np.nan, -np.inf, np.inf]]
+                           ).astype(np.float32)
+        want, _ = interp.vert_weights(torch.as_tensor(z),
+                                      torch.as_tensor(height))
+        got = [_kernel_level(height, v) for v in z]
+        assert got == want.tolist()
+
+
+def test_wetdepo_light_path_is_the_plain_value_without_lambda():
+    """A particle K9 does not scavenge takes the light path: the removed
+    mass is ``(m * 0.0f) * grf``, the plain chain's value with lambda = 0,
+    bit for bit, also for a negative, infinite or NaN mass and a NaN or
+    infinite fraction; the rest and the deposit follow as in the plain
+    chain."""
+    text = _strip_comments(_build.WETDEPO.source.read_text())
+    assert text.count("(m * 0.0f) * grf") == 2
+    vals = np.float32([0.0, -0.0, 1e-30, 0.5, 3.0, -2.0, np.inf, -np.inf,
+                       np.nan, 1e38])
+    m, grf = (torch.as_tensor(a.ravel()) for a in np.meshgrid(
+        vals, np.float32([0.05, 0.7, 1.0, np.nan, np.inf, 20.0])))
+    n = m.numel()
+    p = state.empty_particles(n, 1, device="cpu").replace(
+        mass=m[:, None].clone(), active=torch.ones(n, dtype=torch.bool))
+    sp = massupdate.MassSpecies(decay=(0.0,), drydep=(False,))
+    q, dep = massupdate.apply_wetdepo_plain(
+        p, torch.zeros((1, n)), grf, 900, 2700, sp)
+    light = (m * 0.0) * grf
+    rest = m - light
+    kept = torch.where(rest > massupdate.TINY, rest, torch.zeros_like(rest))
+    assert torch.equal(q.mass[:, 0].view(torch.int32), kept.view(torch.int32))
+    assert torch.equal(dep[0].view(torch.int32), (light * 1.0).view(torch.int32))
+
+
+def test_sass_paths_counts_each_function_from_the_symbol_table():
+    """K9's operation count reads the compiled kernel: the kernel's own code
+    up to its first function, each named function's byte range from the
+    cubin's symbol table, NOPs aside; the toolkit's slow paths in none."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    elf = """.section .symtab
+ index           value           size      info    other  shndx    name
+   0               0               0        0        0      0     (null)
+ 0x1               0           0x100      0x2     0x10    0xa     _Z6kernelv
+ 0x7            0x60            0x30      0x2        0    0xa     $_Z6kernelv$_ZN2ns13lam_below_gasEfff
+ 0x8            0x90            0x20     0x22        0    0xa     $__internal_0_$__cuda_sm20_rcp_rn_f32_slowpath
+"""
+    ops = ["MOV R1, c[0x0][0x28]", "@!P0 BRA 0x50", "FADD R2, R3, R4",
+           "NOP", "CALL.REL.NOINC 0x60", "EXIT",
+           "FMUL R2, R2, R5", "@P1 MUFU.EX2 R2, R2", "RET.REL.NODEC R4 0x0",
+           "FFMA R2, R2, R3, R4", "RET.REL.NODEC R4 0x0"]
+    sass = "\n".join("        /*%04x*/                   %s ;  /* 0x0 */"
+                      % (16 * i, op) for i, op in enumerate(ops))
+
+    class Kernel:
+        name = "k"
+
+        def cuobjdump(self, flag):
+            return elf if flag == "-elf" else sass
+
+    assert chip_smoke.sass_paths(Kernel(), ("lam_below_gas",)) == {
+        "kernel": 5, "lam_below_gas": 3}
+    with pytest.raises(AssertionError, match="cloud_water"):
+        chip_smoke.sass_paths(Kernel(), ("cloud_water",))
 
 
 def _write_options(d, rs):

@@ -29,9 +29,11 @@ chain within rtol 1e-5 plus two ulps of 1 times mass x grfraction: 1 -
 exp(-lambda dt) cancels where lambda dt is small.
 
 The deposit scatter: particles with nage, nclass and release index > 1,
-inactive ones, and some outside the output grid, on a 2**-12 lattice so
-that XLA's FMA in ``x * dx_met + xoutshift`` changes no bit; rtol 1e-6
-(only the order of the float additions into a cell differs).
+inactive ones, on a 2**-12 lattice so that XLA's FMA in ``x * dx_met +
+xoutshift`` changes no bit; spread over the output grid and past its
+edges, or as a plume in a handful of output cells with mostly zero
+deposits (K8's hard case); rtol 1e-6 (only the order of the float
+additions into a cell differs).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -188,13 +190,18 @@ OG = OutGrid(outlon0=-60.0, outlat0=-30.0, numxgrid=48, numygrid=30,
              dxout=2.5, dyout=2.0, outheights=(300.0, 2000.0, 10000.0))
 
 
-def test_depo_scatter_matches_jax(fields):
+@pytest.mark.parametrize("layout", ["spread", "plume"])
+def test_depo_scatter_matches_jax(fields, layout):
     grid = fields[0]
     jgeo = jog.OutputGridGeometry(OG, grid)
     rs = np.random.default_rng(5)
     nage, nclass, npoint = 2, 2, 3
-    lon = rs.uniform(-65.0, 65.0, N)          # straddles every edge
-    lat = rs.uniform(-35.0, 35.0, N)
+    if layout == "spread":
+        lon = rs.uniform(-65.0, 65.0, N)      # straddles every edge
+        lat = rs.uniform(-35.0, 35.0, N)
+    else:                                     # a plume in a few output cells
+        lon = rs.uniform(10.0, 12.4, N)
+        lat = rs.uniform(4.2, 7.8, N)
     x = (np.round((lon - grid.xlon0) / grid.dx * 4096) / 4096).astype(np.float32)
     y = (np.round((lat - grid.ylat0) / grid.dy * 4096) / 4096).astype(np.float32)
     p = jstate.empty_particles(N, nspec=2)._replace(
@@ -203,6 +210,9 @@ def test_depo_scatter_matches_jax(fields):
         npoint=jnp.asarray(rs.integers(0, npoint, N).astype(np.int32)),
         active=jnp.asarray(rs.uniform(size=N) < 0.9))
     deposit = rs.uniform(0.0, 1.0, (2, N)).astype(np.float32)
+    if layout == "plume":                     # mostly zero: the tracer and 95%
+        deposit[0] = 0.0
+        deposit[1] *= rs.uniform(size=N) < 0.05
     nage_idx = rs.integers(0, nage, N).astype(np.int32)
     kp = np.array(p.npoint)
     scatter = jwd.make_depokernel(
@@ -228,9 +238,17 @@ def test_depo_scatter_matches_jax(fields):
                                    torch.as_tensor(deposit), tp,
                                    torch.as_tensor(nage_idx).long(),
                                    torch.as_tensor(kp).long(), cfg)
-    assert 0 < int(valid.sum()) < 4 * int(tp.active.sum())
     assert not bool(valid[~tp.active].any())
-    assert 0.0 < float(tgrid.sum()) < float(deposit.sum())
+    active = tp.active.numpy()
+    if layout == "spread":
+        assert 0 < int(valid.sum()) < 4 * int(active.sum())
+        assert 0.0 < float(tgrid.sum()) < float(deposit.sum())
+    else:                 # every corner in the grid, a handful of cells hit
+        assert int(valid.sum()) == 4 * int(active.sum())
+        assert 0 < int((tgrid != 0).any(-1).sum()) <= 2 * 2 * 3 * 25
+        assert float(tgrid[..., 0].abs().sum()) == 0.0
+        np.testing.assert_allclose(float(tgrid.sum()),
+                                   float(deposit[:, active].sum()), rtol=1e-5)
 
     # the dispatch on the CPU: the age class from itime and lage, as the JAX
     # Simulation's _scatter_depo takes it
@@ -251,3 +269,49 @@ def test_depo_scatter_matches_jax(fields):
     assert out is tgrid
     np.testing.assert_allclose(tgrid.numpy(), jgrid, rtol=1e-6, atol=1e-12)
     assert float(tgrid[0].sum()) > 0.0 and float(tgrid[1].sum()) > 0.0
+
+
+def test_k9_path_counts_follow_the_plain_chain(fields):
+    """The operation count of K9's bound (``chip_smoke.k9_path_calls``):
+    the (particle, species) that take each scavenging rule, counted from
+    the cell lookup, are those the plain chain gives a lambda > 0, rule by
+    rule; the removal runs once for each."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    grid, _, tz = fields
+    tp = _port(_particles(grid, seed=3))
+    tsp = tuple(twd.WetSpecies.from_species(s) for s in SPECIES.values())
+    msp = tmu.MassSpecies(decay=(0.0,) * len(SPECIES),
+                          drydep=(False,) * len(SPECIES))
+    calls = chip_smoke.k9_path_calls(tp, tz, tsp, msp)
+    lam, _ = twd.wetscav_all_plain(tp, tz, tsp, False)
+    hit = (lam > 0).sum(1).tolist()
+    # below_gas, below_aerosol, in_cloud_aerosol, in_cloud_gas (A * P**B
+    # below cloud, Henry in cloud), none
+    assert calls["lam_below_aerosol"] == hit[1] > 0
+    assert calls["lam_in_cloud_aerosol"] == hit[2] == calls["cloud_water"] > 0
+    assert calls["lam_below_gas"] + calls["lam_in_cloud_gas"] \
+        == hit[0] + hit[3]
+    assert calls["lam_below_gas"] == 2 * hit[0] > 0
+    assert hit[4] == 0
+    assert calls["wet_removal"] == int((lam > 0).sum())
+    assert calls["active_raining"] >= int((lam > 0).any(0).sum())
+
+
+def test_depo_scatter_kernel_takes_at_most_max_species(fields):
+    """K8's tables in shared memory hold a row's species: its wrapper
+    refuses more than MAX_SPECIES before it launches anything."""
+    n = 64
+    tp = interop.particles_from_numpy(
+        {f: np.asarray(getattr(jstate.empty_particles(n, nspec=1), f))
+         for f in jstate.Particles._fields}, "cpu")
+    nspec = tmu.MAX_SPECIES + 1
+    cfg = tcc.ConcConfig(nxg=4, nyg=3, nzg=1, npointspec=1, nclassunc=1,
+                         nage=1, dxout=1.0, dyout=1.0, xoutshift=0.0,
+                         youtshift=0.0, dx_met=1.0, dy_met=1.0, ind_samp=0)
+    with pytest.raises(ValueError, match="species"):
+        twd.depo_scatter_cuda(torch.zeros((12, nspec)),
+                              torch.zeros((nspec, n)), tp, 0,
+                              torch.zeros(1, dtype=torch.int32), cfg)
