@@ -49,7 +49,15 @@ the port's stock forward step on the card, in phases:
                 both deposits against the float64 sum of its pairs, and on
                 two plumes in the sim phase's first release box (every
                 particle depositing, and 5% of them), with index_add_ of
-                its pairs as its library call;
+                its pairs as its library call (K3's too, on the pairs of
+                each of its cases); the advance's SETTLING instantiation
+                beside the stock one on the same 10 x 2**20 particles, a
+                third of them a settling aerosol; the decay and dry pass's
+                T_BELOW instantiation beside it on the same particles; and
+                the adaptive step (K11) on 10 x 2**20 particles over the
+                boundary layer of the whole sphere, as drawn and in cell
+                order, with its passes, its warp efficiency and its bound
+                from the compiled kernel's instructions per pass;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
                 with the same draws; and the advance kernel with its draws
@@ -102,7 +110,20 @@ the port's stock forward step on the card, in phases:
                 particles put in its convecting columns (the plume lies
                 outside SyntheticMet's convecting bands), where it must
                 move some, as put and in cell order, each timed beside
-                its bound.
+                its bound;
+  9. sim_adaptive — Simulation.run at full width with Command(ctl=5.0)
+                (the adaptive step: K11 every step, K4 never) and two boxes
+                of one species each, so that the aerosol settles: the
+                tracer from 40-42 N and a Cs-137-like aerosol with a density
+                (about 7 mm/s) from the storm band; three hours, twice with
+                one seed: bitwise equal particles, the aerosol's budget
+                within 1e-3 and deposits above 0, the tracer's mass
+                recovered; the passes per boundary-layer particle and the
+                warp efficiency of every step (run B); K11, K4 SETTLING and
+                K10 T_BELOW against their plain versions on a release step
+                and a steady step, and K11 once more without settling on
+                the same particles and key: the aerosol ends lower, the
+                tracer the same.
 
 Prints one JSON object per phase, then a {"kernels": [...]} line, the
 nvidia-smi name/power line, and as the last line
@@ -147,6 +168,12 @@ K4_FLAG_SHARE = 1e-5
 # the card's peaks (NVIDIA H100 SXM data sheet) for the kernels' bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the rate at which the card runs instructions: one a clock on each of
+# its 16,896 float32 lanes (132 SMs x 4 schedulers x 32), the float32 peak
+# without its count of two operations per fused multiply-add.  A count of
+# SASS instructions (K11, K4's SETTLING) is held against it: the kernels
+# build with -fmad=false, and no instruction takes less than a lane-clock.
+INSTRUCTIONS_PER_S = F32_OPS_PER_S / 2
 # operations per element, counted from the sources.  A draw: a quarter of
 # a Philox call (10 rounds of 2 multiply-high, 2 multiply-low, 4 xor and 2
 # add: 100) and half a Box-Muller pair (2 shifts, 2 conversions, logf about
@@ -182,6 +209,12 @@ K7_OPS_PER_PARTICLE = 30    # the column, the level search's setup, the store
 K7_OPS_PER_LIVE_LEVEL = 12  # the level search and the cumulative row
 K4_POLAR_OPS = 150          # per cap particle: the six transcendentals and
 #                             the plane arithmetic, at both call sites
+# K4's SETTLING instantiation and K11, the adaptive step, against their
+# plain twins: every output bitwise (they run the same float32 operations,
+# -fmad=false, and make the same draws, K11 those of each pass).  Settling's
+# work in K4 and K11's per pass are read from the compiled kernels
+# (settling_instructions, k11_instructions); the rest of a particle's work
+# is K4's.
 # the deposition kernels (K8-K10).  K9 and K10 run the plain versions'
 # float32 operations in their order with the same expf/powf/sqrtf, and are
 # held bitwise; where a toolkit's powf or expf differs by an ulp from the
@@ -277,14 +310,18 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
+def bound(n_bytes: float, n_ops: float, n_instructions: float = 0) -> dict:
     """The least time the card could take: the larger of bytes over the
-    memory rate and operations over the float32 rate."""
+    memory rate and operations over the float32 rate, plus instructions
+    read from a compiled kernel over the rate the card runs them."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bound_bytes=int(n_bytes), bound_operations=int(n_ops))
+    t_ops = (n_ops / F32_OPS_PER_S + n_instructions / INSTRUCTIONS_PER_S) * 1e3
+    out = dict(bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_bytes=int(n_bytes), bound_operations=int(n_ops))
+    if n_instructions:
+        out["bound_instructions"] = int(n_instructions)
+    return out
 
 
 # ----------------------------------------------------------------- setup --
@@ -622,12 +659,19 @@ def phase_kernels(device, grid) -> dict:
                       <= 1e-5 * float(gp.sum()), f"{what}: total differs")
                 # the global atomics: one per pair without the per-warp
                 # sums, one per distinct (warp, target) with them
-                lin, valid, _ = cc.conccalc_pairs(grid_rows, *args)
+                lin, valid, contrib = cc.conccalc_pairs(grid_rows, *args)
                 pairs = (warp[:, None] * grid_rows + lin)[valid]
                 case = dict(
                     pairs=int(pairs.numel()),
                     warp_target_pairs=int(torch.unique(pairs).numel()))
-                del lin, valid, pairs
+                # the library call: index_add_ of the kernel's own valid
+                # pairs, made outside the timed region (the scatter half)
+                lin_v, con_v = lin[valid], contrib[valid]
+                del lin, valid, contrib, pairs
+                flat_l = torch.zeros_like(gk.view(-1, 1))
+                case["library_ms"] = cuda_ms(
+                    lambda: flat_l.index_add_(0, lin_v, con_v), 10)
+                del lin_v, con_v, flat_l
                 check(0 < case["warp_target_pairs"] <= case["pairs"],
                       f"{what}: {case} pairs")
                 case.update(
@@ -642,8 +686,8 @@ def phase_kernels(device, grid) -> dict:
     # on top are not counted)
     steady = k3["kernel_ordered_all_old"]
     res["conccalc"] = dict(max_abs_err=worst, ms=steady["ms"],
-                           plain_ms=steady["plain_ms"], library_ms=None,
-                           cases=k3,
+                           plain_ms=steady["plain_ms"],
+                           library_ms=steady["library_ms"], cases=k3,
                            **bound(41 * N_MAIN + 2 * 4 * gk.numel(),
                                    K3_OPS_PER_PARTICLE * N_MAIN))
     del p, gk, gp, warp
@@ -653,6 +697,10 @@ def phase_kernels(device, grid) -> dict:
     res["reorder"] = kernel_reorder(device, grid)
     torch.cuda.empty_cache()
     res["advance"]["polar"] = kernel_advance_polar(device, grid)
+    torch.cuda.empty_cache()
+    res["advance"]["settling"] = kernel_advance_settling(device, grid)
+    torch.cuda.empty_cache()
+    res["advance_adaptive"] = kernel_advance_adaptive(device, grid)
     torch.cuda.empty_cache()
     res["convection"], res["redist"] = kernel_convection(device, grid)
     torch.cuda.empty_cache()
@@ -854,6 +902,457 @@ def kernel_advance_polar(device, grid) -> dict:
             p, z0.height, tables, a, key, cfg, None, 0), 2),
         **bound(104 * N_MAIN + row_b * rows0 + row_b * 3 // 8 * rows1,
                 K4_OPS_PER_PARTICLE * N_MAIN + K4_POLAR_OPS * n_cap))
+    return res
+
+
+def aerosol_species():
+    """The settling species of the sim_adaptive phase and the advance's
+    settling cases: the default tracer and a Cs-137-like aerosol with a
+    density (2500 kg/m3, 10 um: about 7 mm/s), which rain, snow, CCN and IN
+    scavenge, a constant dry velocity of 1 mm/s and Cs-137's half-life."""
+    from flexpart_tpu_torch.config import Species
+    return (Species(),
+            Species(name="CS-137", decay_halflife=30.17 * 365.25 * 86400.0,
+                    crain_aero=1.0, csnow_aero=1.0, ccn_aero=0.9,
+                    in_aero=0.1, density=2500.0, dquer=10.0, dsigma=1.25,
+                    dryvel=1.0e-3))
+
+
+def settling_params(grid, **cfg_kw):
+    """(cfg, prm) of an advance with aerosol_species' settling parameters,
+    as the Simulation fills them."""
+    from flexpart_tpu_torch.core.advance import StepConfig, StepParams
+    sp = aerosol_species()
+    scs = [s.size_classes() for s in sp]
+    kw = {**K4_CASES["stock"], "method": 0, **cfg_kw}
+    cfg = StepConfig(nx=grid.nx, ny=grid.ny, nz=grid.nlev, xglobal=True,
+                     ldirect=1, **kw)
+    prm = StepParams.make(
+        dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0, dxconst=grid.dxconst,
+        dyconst=grid.dyconst, lsynctime=LSYNC, fine=1.0 / cfg.ifine,
+        ctl=5.0 if cfg.method == 1 else -5.0,
+        sp_density=[max(s.density, -1.0) for s in sp],
+        sp_dquer=[s.dquer for s in sp],
+        sp_cunningham=[c.cunningham if c else 0.0 for c in scs],
+        sp_vsetaver=[c.vsetaver if c else 0.0 for c in scs])
+    return cfg, prm
+
+
+def with_species(p, device, seed: int, aerosol_share: float):
+    """p carrying two species, one per particle: the aerosol (species 1)
+    for ``aerosol_share`` of them, the tracer for the rest."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    n = p.capacity
+    aero = torch.rand(n, generator=gen, device=device) < aerosol_share
+    m = torch.zeros((n, 2), dtype=torch.float32, device=device)
+    m[:, 0] = torch.where(aero, 0.0, 1.0 / n)
+    m[:, 1] = torch.where(aero, 1.0 / n, 0.0)
+    return p.replace(mass=m, mass0=m.clone())
+
+
+def differing_particles(pk, pp, fields) -> int:
+    """Particles with a field whose bits differ between two results."""
+    import torch
+    bad = torch.zeros(pk.capacity, dtype=torch.bool, device=pk.x_hi.device)
+    for f in fields:
+        a, b = getattr(pk, f), getattr(pp, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        bad |= a != b
+    return int(bad.sum())
+
+
+def settle_cells(p, height, cfg) -> int:
+    """(level, column) cells whose two levels of temperature and density
+    settling reads: the start level and column of every particle."""
+    import torch
+    from flexpart_tpu_torch.core import interp
+    nix = torch.clamp(torch.round(p.x).to(torch.int32), 0, cfg.nx - 1).long()
+    njy = torch.clamp(torch.round(p.y).to(torch.int32), 0, cfg.ny - 1).long()
+    indz, _ = interp.vert_weights(p.z, height)
+    key = (indz.long() * cfg.ny + njy) * cfg.nx + nix
+    return int(torch.unique(key[p.active]).numel())
+
+
+def kernel_advance_settling(device, grid) -> dict:
+    """K4's SETTLING instantiation beside the stock one on the same 10 x
+    2**20 particles (steady, bench.py's start, a third of them the
+    aerosol), each making its draws in registers: against the plain
+    advance with the same key, bitwise (the differing particles counted);
+    its time in cell order and as drawn, the stock K4's on the same
+    particles, and its bound: K4's bytes, mass0, and the two levels of
+    temperature and density of each cell it reads; K4's operations and, per
+    aerosol particle, settling's instructions in the compiled kernel
+    (settling_instructions) over the instruction rate."""
+    import torch
+    from flexpart_tpu_torch import _build
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
+    itime, mem1 = 3600, 10800
+    key = rng.Key(4321, 8)
+    cfg, prm = settling_params(grid, settling=True, polar=True)
+    stock = settling_params(grid, polar=True)[0]
+    tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
+    a = advance.advance_args(cfg, prm, itime, 0, mem1)
+    a_stock = advance.advance_args(stock, prm, itime, 0, mem1)
+    settle = advance.settle_met(z0, cfg)
+    check(a.settling == 1 and a_stock.settling == 0, "K4 settling: flags")
+    p = with_species(bench_particles(N_MAIN, device, seed=5,
+                                     old_fraction=1.0), device, 6, 1.0 / 3)
+
+    def run(q, args=a, c=cfg, s=settle):
+        return advance.advance_all_cuda(q, z0.height, tables, args, key, c,
+                                        None, 0, s)
+
+    (pk, _), (pp, _) = run(p), advance.advance_all_plain(
+        p, z0.height, tables, a, key, cfg, None, 0, settle)
+    torch.cuda.synchronize()
+    res = compare_particles(pk, pp, "K4 SETTLING", float(grid.nx - 1))
+    differ = differing_particles(pk, pp, advance.OUT_FIELDS)
+    check(differ == 0, f"K4 SETTLING differs from its plain version in "
+          f"{differ} particles")
+    ps = run(p, a_stock, stock, None)[0]
+    aero = p.mass0[:, 1] > 0.0
+    # settling only moves the aerosol: the tracer's particles are the stock
+    # instantiation's, bitwise
+    moved = float((ps.z - pk.z)[aero & pk.active].mean())
+    check(torch.equal(pk.z[~aero], ps.z[~aero]),
+          "K4 SETTLING: the tracer's particles differ from the stock K4's")
+    check(moved > 0.0, f"K4 SETTLING: the aerosol does not sink ({moved})")
+    cells = settle_cells(p, z0.height, cfg)
+    row_b = 128 if cfg.met_bf16 else 256
+    rows0 = unique_rows(p, z0.height, cfg)
+    rows1 = unique_rows(pk, z0.height, cfg)
+    n_aero = int((aero & p.active).sum())
+    ins = settling_instructions(_build.ADVANCE, cfg.met_bf16, cfg.polar)
+    del pk, pp, ps
+    ordered = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
+    res.update(
+        n=N_MAIN, aerosol_particles=n_aero, differing_particles=differ,
+        settling_instructions=ins,
+        bitwise=differ == 0, max_abs_err=max(res["max_dx"], res["max_dy"]),
+        aerosol_mean_drop_against_stock_m=moved, settle_cells=cells,
+        ms=cuda_ms(lambda: run(ordered), 10),
+        unordered_ms=cuda_ms(lambda: run(p), 10),
+        stock_ms_same_particles=cuda_ms(
+            lambda: run(ordered, a_stock, stock, None), 10),
+        plain_ms=cuda_ms(lambda: advance.advance_all_plain(
+            p, z0.height, tables, a, key, cfg, None, 0, settle), 2),
+        library_ms=None,
+        **bound(104 * N_MAIN + 8 * N_MAIN + row_b * rows0
+                + row_b * 3 // 8 * rows1 + 16 * cells,
+                K4_OPS_PER_PARTICLE * N_MAIN,
+                ins["per_particle"] * n_aero))
+    return res
+
+
+def boundary_layer_particles(n: int, device, seed: int, grid, itime: int,
+                             hmix_at):
+    """bench_particles spread over the whole sphere and put in the boundary
+    layer: seven in eight below the local mixing height ``hmix_at``, the
+    rest up to 3 km above it; a quarter released at ``itime`` (fresh), the
+    others with an adaptive step of 0-300 s from an earlier step and
+    velocities of earlier steps; a third the aerosol of aerosol_species."""
+    import torch
+    p = bench_particles(n, device, seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 5)
+
+    def u(lo, hi):
+        return torch.rand(n, generator=gen, device=device) * (hi - lo) + lo
+
+    p = p.replace(x_hi=u(0.0, grid.nx - 1.0), y_hi=u(0.0, grid.ny - 1.0))
+    h = hmix_at(p)
+    below = u(0.0, 1.0) < 7.0 / 8.0
+    fresh = u(0.0, 1.0) < 0.25
+    p = p.replace(
+        z=torch.where(below, u(0.0, 1.0) * h, h + u(0.0, 3000.0)),
+        itramem=torch.where(fresh, itime, itime - 7200).to(torch.int32),
+        itra=torch.full_like(p.itra, itime),
+        idt=u(0.0, 300.0).to(torch.int32),
+        up=u(-1.0, 1.0), vp=u(-1.0, 1.0), wp=u(-1.0, 1.0),
+        usig=u(-0.3, 0.3), vsig=u(-0.3, 0.3), wsig=u(-0.01, 0.01))
+    return with_species(p, device, seed + 6, 1.0 / 3)
+
+
+def warp_efficiency(passes) -> dict:
+    """How the lanes of K11's warps (32 consecutive particles) share their
+    passes: over warps with a pass, the mean of (mean passes / max passes
+    of its lanes, zero-pass lanes included); the passes per particle that
+    takes any (mean, p99, max)."""
+    import torch
+    n = passes.numel() // 32 * 32
+    w = passes[:n].reshape(-1, 32).float()
+    mx = w.max(dim=1).values
+    some = mx > 0
+    eff = float((w.mean(dim=1)[some] / mx[some]).mean()) if some.any() \
+        else 0.0
+    took = passes[passes > 0].float()
+    q = float(torch.quantile(took[:2 ** 24], 0.99)) if took.numel() else 0.0
+    return dict(warp_efficiency=eff,
+                particles_in_the_loop=int(took.numel()),
+                passes_mean=float(took.mean()) if took.numel() else 0.0,
+                passes_p99=q, passes_max=int(passes.max()),
+                passes_total=int(passes.sum(dtype=torch.int64)))
+
+
+def sass_instantiation(kernel, template: str, flags) -> tuple:
+    """The SASS of the one instantiation of the kernel template
+    ``template`` in ``kernel``'s library whose bool template arguments are
+    ``flags`` (as in registers_by_entry): its name and its instructions as
+    (address, opcode, predicated, branch target or None), labels
+    resolved."""
+    import re
+    want = "".join(f"Lb{int(f)}E" for f in flags)
+    funcs, cur = {}, None
+    for ln in kernel.cuobjdump("-sass").splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = []
+            continue
+        if cur is not None:
+            funcs[cur].append(ln)
+    hit = [f for f in funcs if re.search(r"\d%sI%sE" % (template, want), f)]
+    check(len(hit) == 1, f"{kernel.name}: instantiation {want} of "
+          f"{template} not found once in {sorted(funcs)}")
+    code, labels, pending = [], {}, []
+    for ln in funcs[hit[0]]:
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9._]*)(.*)", ln)
+        if not m:
+            continue
+        addr, pred, op, rest = (int(m.group(1), 16), m.group(2), m.group(3),
+                                m.group(4))
+        for lab in pending:
+            labels[lab] = addr
+        pending = []
+        target = None
+        if op.startswith("BRA"):
+            operands = rest.split(";")[0]
+            lab = re.search(r"\((\.L_x_\d+)\)", operands)
+            hexes = re.findall(r"0x([0-9a-f]+)", operands)
+            target = lab.group(1) if lab else (int(hexes[-1], 16) if hexes
+                                               else None)
+        code.append((addr, op, bool(pred) and pred.strip() != "@PT", target))
+    code = [(a, op, c, labels.get(t, t) if isinstance(t, str) else t)
+            for a, op, c, t in code]
+    return hit[0], code
+
+
+def sass_path(code, lo: int, hi: int, pick=min) -> int:
+    """Instructions (NOPs aside) on the cheapest (``pick`` min) or dearest
+    (max) path from the instruction at address ``lo`` to the one at ``hi``,
+    both counted, along the forward edges between them: a branch goes to
+    its target and, predicated, on to the next instruction; an unpredicated
+    EXIT, RET or branch ends or leaves the straight line.  A loop inside
+    the range is passed once (its back edge is not an edge here); a call
+    counts as one instruction."""
+    best = {lo: 0}
+    for k, (addr, op, cond, target) in enumerate(code):
+        if addr < lo or addr not in best:
+            continue
+        c = best[addr] + (op != "NOP")
+        if addr == hi:
+            return c
+        nxt = code[k + 1][0] if k + 1 < len(code) else None
+        succ = []
+        if op.startswith("BRA"):
+            if target is not None and addr < target <= hi:
+                succ.append(target)
+            if cond:
+                succ.append(nxt)
+        elif op.startswith(("EXIT", "RET", "BPT")):
+            if cond:
+                succ.append(nxt)
+        else:
+            succ.append(nxt)
+        for t in succ:
+            if t is not None and t <= hi:
+                best[t] = pick(best[t], c) if t in best else c
+    raise AssertionError(f"no path from {lo:#x} to {hi:#x}")
+
+
+def k11_instructions(kernel, entry_flags, ifine: int) -> dict:
+    """K11's instructions per pass, read from the compiled kernel: in the
+    SASS of the instantiation a run takes (``entry_flags``: table type,
+    turbswitch, polar, settling; the uniform turbswitch branch is compiled
+    away), the loop of passes is the widest backward branch and the loop of
+    the ifine substeps the widest one inside it.  A pass is the loop's
+    cheapest path from its head to its back edge (``sass_path``: at each
+    branch of the data, the Hanna regime, the OU form, the drag regime of
+    settling, a gas, the draws a substep takes, the cheaper side), with the
+    substep loop's once (the last substep, whose Hanna refresh is skipped)
+    and its body, Hanna's refresh included, ifine - 1 times more.  The
+    dearest path is given beside it; the toolkit's slow paths are calls."""
+    name, code = sass_instantiation(kernel, "advance_adaptive_kernel",
+                                    entry_flags)
+    back = [(t, a) for a, op, _, t in code
+            if op.startswith("BRA") and t is not None and t < a]
+    check(bool(back), "K11: no loop found in the compiled kernel")
+    outer = max(back, key=lambda b: b[1] - b[0])
+    inner = [b for b in back if outer[0] <= b[0] and b[1] < outer[1]]
+    check(bool(inner), "K11: no substep loop inside the loop of passes")
+    sub = max(inner, key=lambda b: b[1] - b[0])
+    out = {"entry": name[:80],
+           "kernel": sum(1 for _, op, _, _ in code if op != "NOP"),
+           "pass_loop": sum(1 for a, op, _, _ in code
+                            if outer[0] <= a <= outer[1] and op != "NOP"),
+           "substep_loop": sum(1 for a, op, _, _ in code
+                               if sub[0] <= a <= sub[1] and op != "NOP")}
+    for tag, pick in (("cheapest", min), ("dearest", max)):
+        once = sass_path(code, *outer, pick)
+        body = sass_path(code, *sub, pick)
+        out[f"per_pass_{tag}"] = once + (ifine - 1) * body
+        out[f"substep_{tag}"] = body
+    return out
+
+
+def settling_instructions(kernel, bf16: bool, polar: bool) -> dict:
+    """Settling's instructions in K4, read from the compiled kernel: those
+    of the SETTLING instantiation beyond the stock one with the same table
+    type and polar flag (turbswitch off), NOPs aside: the species search,
+    the column's two levels of temperature and density, the viscosity and
+    the drag loop, whose body counts once (it runs five times) with both
+    sides of its branches."""
+    n = {}
+    for settle in (False, True):
+        _, code = sass_instantiation(kernel, "advance_kernel",
+                                     (bf16, False, polar, settle))
+        n[settle] = sum(1 for _, op, _, _ in code if op != "NOP")
+    return dict(stock=n[False], settling=n[True],
+                per_particle=n[True] - n[False])
+
+
+def k11_bound(p, pk, passes, height, cfg, a, instructions) -> dict:
+    """K11's least time on these inputs.  Bytes: K4's state, idt and mass0
+    read, K4's outputs, idt, t_below and the pass count written; each
+    start row once (64 lanes, as K4), whose lanes 0-39 the first pass
+    gathers again; per later pass k one row of 40 lanes for each distinct
+    column of the particles still in the loop (its level may differ, so
+    this is a floor); each end row of rowsE once (24 lanes) for the
+    particles that take the corrector.  The free troposphere's and the final
+    sample's rows lie in the particle's start column and are not charged.
+    Operations: K4's (float32 operations) for each particle that takes no
+    pass, whose step is K4's above the boundary layer, and per pass the
+    cheapest path's instructions (k11_instructions) over the instruction rate;
+    the start and the end of a particle that takes passes are not
+    charged."""
+    import torch
+    from flexpart_tpu_torch.core import interp
+    row_b = 2 if cfg.met_bf16 else 4
+    n = p.capacity
+    total = int(passes.sum(dtype=torch.int64))
+    rows0 = unique_rows(p, height, cfg)
+    hw = interp.horiz_weights(p.x, p.y, cfg.nx, cfg.ny, cfg.xglobal)
+    col = (hw.jy.long() * cfg.nx + hw.ix.long())
+    later = sum(int(torch.unique(col[passes > k]).numel())
+                for k in range(1, int(passes.max()) + 1))
+    pett = pk.replace(active=pk.active & (pk.idt == LSYNC))
+    rows_e = unique_rows(pett, height, cfg) if a.can_pett else 0
+    per_pass = instructions["per_pass_cheapest"]
+    no_pass = n - int((passes > 0).sum())
+    n_bytes = (n * (58 + 4 * p.nspec + 62) + 64 * row_b * rows0
+               + 40 * row_b * later + 24 * row_b * rows_e)
+    return dict(instructions_per_pass=per_pass, later_pass_columns=later,
+                **bound(n_bytes, K4_OPS_PER_PARTICLE * no_pass,
+                        per_pass * total))
+
+
+def check_adaptive(q, height, tables, a, key, cfg, settle, what: str):
+    """K11 against the plain advance on the card with the same key (K11's
+    draws made in registers, the plain version's by K1, pass by pass):
+    every output, idt included, t_below, the passes and the counts, bitwise;
+    the K4 tolerances are held as well and the largest differences
+    reported."""
+    import copy
+    import torch
+    from flexpart_tpu_torch.core import advance
+    (pk, dk) = advance.advance_adaptive_cuda(q, height, tables, copy.copy(a),
+                                             key, cfg, None, 0, settle)
+    (pp, dp) = advance.advance_all_plain(q, height, tables, copy.copy(a), key,
+                                         cfg, None, 0, settle)
+    torch.cuda.synchronize()
+    res = compare_particles(pk, pp, f"{what}: K11", float(cfg.nx - 1))
+    differ = differing_particles(pk, pp, advance.ADAPTIVE_OUT_FIELDS)
+    check(differ == 0, f"{what}: K11 differs from its plain version in "
+          f"{differ} particles (idt: "
+          f"{int((pk.idt != pp.idt).sum())})")
+    check(torch.equal(dk.passes, dp.passes), f"{what}: K11 passes differ in "
+          f"{int((dk.passes != dp.passes).sum())} particles")
+    check(torch.equal(dk.t_below.view(torch.int32),
+                      dp.t_below.view(torch.int32)),
+          f"{what}: K11 t_below differs")
+    for f in ("n_active", "n_exited", "nan_count"):
+        check(int(getattr(dk, f)) == int(getattr(dp, f)),
+              f"{what}: K11 {f} differs")
+    res.update(differing_particles=differ, bitwise=differ == 0,
+               max_abs_err=max(res["max_dx"], res["max_dy"]),
+               n_active=int(dk.n_active), **warp_efficiency(dk.passes))
+    return res, pk, dk
+
+
+def kernel_advance_adaptive(device, grid) -> dict:
+    """K11, the adaptive step of the sim_adaptive phase's configuration
+    (ctl 5, turbswitch, ifine 4, settling, the polar caps), on 10 x 2**20
+    particles spread over the boundary layer of the whole sphere: against
+    the plain advance (check_adaptive) as drawn and in cell order (K5, the
+    run's order), each timed, with the passes and the warp efficiency of
+    each order and the bound from the compiled kernel's instructions per
+    pass (k11_instructions)."""
+    import copy
+    import torch
+    from flexpart_tpu_torch import _build
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
+    itime, mem1 = 3600, 10800
+    key = rng.Key(4321, 9)
+    cfg, prm = settling_params(grid, turbswitch=True, ifine=4, method=1,
+                               settling=True, polar=True)
+    tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
+    a = advance.advance_args(cfg, prm, itime, 0, mem1)
+    settle = advance.settle_met(z0, cfg)
+    p = boundary_layer_particles(N_MAIN, device, 41, grid, itime,
+                                 lambda q: sample_met(q, z0.height, tables,
+                                                      cfg)[0])
+    ordered = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
+    ins = k11_instructions(_build.ADVANCE_ADAPTIVE, (
+        cfg.met_bf16, cfg.turbswitch, cfg.polar, cfg.settling), cfg.ifine)
+    res = {"instructions": ins, "cases": {}}
+    for name, q in (("as_drawn", p), ("cell_ordered", ordered)):
+        r, pk, dk = check_adaptive(q, z0.height, tables, a, key, cfg, settle,
+                                   f"K11 {name}")
+        r.update(k11_bound(q, pk, dk.passes, z0.height, cfg, a, ins))
+        del pk
+        r["ms"] = cuda_ms(lambda: advance.advance_adaptive_cuda(
+            q, z0.height, tables, copy.copy(a), key, cfg, None, 0, settle),
+            10)
+        if name == "cell_ordered":
+            r["plain_ms"] = cuda_ms(lambda: advance.advance_all_plain(
+                q, z0.height, tables, copy.copy(a), key, cfg, None, 0,
+                settle), 1)
+        res["cases"][name] = r
+        del dk
+        torch.cuda.empty_cache()
+    check(res["cases"]["as_drawn"]["particles_in_the_loop"] > N_MAIN // 2,
+          "K11: fewer than half of the particles took a pass")
+    m = res["cases"]["cell_ordered"]
+    res.update({f: m[f] for f in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
+        "bound_operations", "bound_instructions", "warp_efficiency",
+        "passes_mean", "passes_p99", "passes_max")}, library_ms=None,
+        n=N_MAIN,
+        unordered_ms=res["cases"]["as_drawn"]["ms"],
+        bitwise=all(c["bitwise"] for c in res["cases"].values()),
+        max_abs_err=max(c["max_abs_err"] for c in res["cases"].values()))
     return res
 
 
@@ -1252,13 +1751,17 @@ def check_wetdepo(p, zf, wet, msp, ldeltat: int, what: str) -> dict:
                 deposit=dk)
 
 
-def check_drydepo(p, vdep, msp, ldeltat: int, what: str) -> dict:
+def check_drydepo(p, vdep, msp, ldeltat: int, what: str,
+                  t_below=None) -> dict:
     """K10 against apply_decay_drydep_plain on the card: mass and deposit
-    bitwise or within K10_RTOL, the active mask equal."""
+    bitwise or within K10_RTOL, the active mask equal; with ``t_below``
+    its T_BELOW instantiation (the adaptive step's window)."""
     import torch
     from flexpart_tpu_torch.physics import massupdate as mu
-    qk, dk = mu.decay_drydep_cuda(p, vdep, LSYNC, ldeltat, msp, True)
-    qp, dp = mu.apply_decay_drydep_plain(p, vdep, LSYNC, ldeltat, msp, True)
+    qk, dk = mu.decay_drydep_cuda(p, vdep, LSYNC, ldeltat, msp, True,
+                                  t_below)
+    qp, dp = mu.apply_decay_drydep_plain(p, vdep, LSYNC, ldeltat, msp, True,
+                                         t_below)
     torch.cuda.synchronize()
     m = bits_or_close(qk.mass, qp.mass, K10_RTOL, f"{what}: K10 mass")
     d = bits_or_close(dk, dp, K10_RTOL, f"{what}: K10 deposit")
@@ -1467,7 +1970,7 @@ def kernel_deposition(device, grid) -> dict:
     lage = torch.tensor([3600, 999999999], dtype=torch.int32, device=device)
     ccfg = ccfg.replace(nage=2)
     ldeltat = 2700
-    k9, k10, k8 = {}, {}, {}
+    k9, k10, k8, k10_tb = {}, {}, {}, {}
     deposits = {}
     k9_ops = sass_paths(_build.WETDEPO, K9_PATHS)
     for oname, q in orders.items():
@@ -1489,6 +1992,21 @@ def kernel_deposition(device, grid) -> dict:
         r["plain_ms"] = cuda_ms(lambda: mu.apply_decay_drydep_plain(
             q, vdep, LSYNC, ldeltat, msp, True), 3)
         k10[oname] = r
+        # the T_BELOW instantiation on the same particles: whole seconds
+        # below 2 HREF of an adaptive step, 0 for the particles that
+        # started above 30 m and for a third of the rest
+        tb = torch.where((q.z < 30.0) & (torch.rand(
+            q.capacity, generator=gen, device=device) < 2.0 / 3.0),
+            torch.rand(q.capacity, generator=gen, device=device) * 900.0,
+            torch.zeros_like(q.z)).trunc()
+        r = check_drydepo(q, vdep, msp, ldeltat, f"K10 T_BELOW {oname}", tb)
+        r.pop("deposit")
+        r["ms"] = cuda_ms(lambda: mu.decay_drydep_cuda(
+            q, vdep, LSYNC, ldeltat, msp, True, tb), 10)
+        r["k10_ms_same_particles"] = k10[oname]["ms"]
+        r["plain_ms"] = cuda_ms(lambda: mu.apply_decay_drydep_plain(
+            q, vdep, LSYNC, ldeltat, msp, True, tb), 3)
+        k10_tb[oname] = r
         for kind, dep in (("wet", deposits[("wet", "all_classes", oname)]),
                           ("dry", deposits[("dry", oname)])):
             k8[f"{kind}_{oname}"] = check_depo_scatter(
@@ -1528,6 +2046,18 @@ def kernel_deposition(device, grid) -> dict:
             out[name]["values_differ"] = sum(c["values_differ"]
                                              for c in cases.values())
     out["wetdepo"]["instructions"] = k9_ops
+    # K10 T_BELOW: K10's bytes and 4 B of t_below per particle; its
+    # operations K10's (every depositing particle gathers its velocity)
+    m = k10_tb["cell_ordered"]
+    out["drydepo"]["t_below"] = dict(
+        ms=m["ms"], plain_ms=m["plain_ms"],
+        k10_ms_same_particles=m["k10_ms_same_particles"],
+        unordered_ms=k10_tb["as_drawn"]["ms"], library_ms=None,
+        bitwise=all(c["bitwise"] for c in k10_tb.values()),
+        values_differ=sum(c["values_differ"] for c in k10_tb.values()),
+        max_abs_err=max(c["max_abs_err"] for c in k10_tb.values()),
+        **bound(bounds["drydepo"]["bound_bytes"] + 4 * N_MAIN,
+                bounds["drydepo"]["bound_operations"]))
     torch.cuda.empty_cache()
     return out
 
@@ -2215,6 +2745,9 @@ def sim_kernel_checks(sim, snap, what: str) -> dict:
         # and a cell of few pairs is held as tightly as in the kernels phase.
         lin, valid, contrib = cc.conccalc_pairs(flat_k.shape[0], *args)
         lin, contrib = lin[valid], contrib[valid]
+        flat_l = torch.zeros_like(flat_k)
+        library_ms = cuda_ms(lambda: flat_l.index_add_(0, lin, contrib), 10)
+        del flat_l
         ref = torch.zeros(flat_k.shape, dtype=torch.float64, device=device)
         ref.index_add_(0, lin, contrib.double())
         pairs = torch.zeros(flat_k.shape[0], dtype=torch.int64, device=device)
@@ -2240,7 +2773,8 @@ def sim_kernel_checks(sim, snap, what: str) -> dict:
             cells_hit=int((pairs != 0).sum()),
             most_pairs_in_a_cell=int(pairs.max()),
             ms=cuda_ms(lambda: cc.conccalc_cuda(flat_k, *args), 10),
-            plain_ms=cuda_ms(lambda: cc.conccalc_plain(flat_p, *args), 3))
+            plain_ms=cuda_ms(lambda: cc.conccalc_plain(flat_p, *args), 3),
+            library_ms=library_ms)
         del ref, pairs, rtol, d
     del gk, gp, flat_k, flat_p
 
@@ -2502,6 +3036,324 @@ def phase_sim(device, kernels) -> dict:
     return res
 
 
+# ------------------------------------------------- the adaptive Simulation --
+
+SIM_ADAPTIVE_HOURS = 3
+SIM_ADAPTIVE_DIR = ROOT / "build" / "sim_adaptive_smoke"
+
+
+def sim_adaptive_setup(outdir, device, write_netcdf: bool, n: int = N_MAIN,
+                       n_storm: int = N_STORM, **kw):
+    """The port's Simulation at full width with ``Command(ctl=5.0)`` (the
+    adaptive step: turbswitch on, ifine 4, mintime 1 s; convection and
+    subgrid orography on, as in the sim phase), ``n`` = 10 x 2**20
+    particles from two boxes of one species each, so that the reference's
+    rule turns settling on: the tracer from 40-42 N, 0-2 E (n - n_storm
+    particles) and the settling aerosol of aerosol_species from STORM_BOX
+    (n_storm particles), both over the first hour at 50-500 m; the sim
+    phase's grid, hours and output."""
+    from flexpart_tpu_torch import Simulation, SyntheticMet, make_grid
+    from flexpart_tpu_torch.config import (Command, OutGrid, ReleaseBox,
+                                           Releases)
+    grid = make_grid(**SIM_GRID)
+    cmd = Command(ibdate=20200101, ibtime=0, iedate=20200101,
+                  ietime=SIM_ADAPTIVE_HOURS * 10000, lsynctime=LSYNC,
+                  loutstep=3600, loutaver=3600, loutsample=900, ctl=5.0)
+    when = dict(idate1=20200101, itime1=0, idate2=20200101, itime2=10000,
+                z1=50.0, z2=500.0)
+    boxes = (ReleaseBox(lon1=0.0, lon2=2.0, lat1=40.0, lat2=42.0,
+                        mass=(1.0, 0.0), parts=n - n_storm, **when),
+             ReleaseBox(**STORM_BOX, mass=(0.0, 1.0), parts=n_storm, **when))
+    og = OutGrid(outlon0=-180.0, outlat0=-90.0, numxgrid=720, numygrid=360,
+                 dxout=0.5, dyout=0.5, outheights=(100.0, 1000.0, 50000.0))
+    return Simulation(cmd=cmd, releases=Releases(species=aerosol_species(),
+                                                 boxes=boxes),
+                      grid=grid, met_backend=SyntheticMet(grid), outgrid=og,
+                      outdir=str(outdir), device=device,
+                      write_netcdf=write_netcdf, **kw)
+
+
+def sim_adaptive_checks(sim, snap, what: str) -> dict:
+    """K11, K4 SETTLING and K10 T_BELOW against their plain versions on one
+    kept step of the adaptive ``Simulation.run``: the step's particles
+    (after its release, before its sort) put in cell order as the run puts
+    them, its tables, its key.  K11 (check_adaptive), and once more without
+    settling on the same particles and key: the aerosol ends lower by
+    settling alone and the tracer's particles are the same, bitwise; K4's
+    SETTLING instantiation, the fixed step of the same species, on the
+    same particles; K10's T_BELOW instantiation with K11's t_below and the
+    step's deposition velocities.  Each timed beside its plain version."""
+    import copy
+    import torch
+    from flexpart_tpu_torch import _build
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    from flexpart_tpu_torch.physics import massupdate as mu
+    istep, itime, p, z0, z1, mt0, mt1 = snap[:7]
+    cfg, prm = sim.step_cfg, sim.step_prm
+    height = z0.height
+    check(cfg.method == 1 and cfg.settling and cfg.polar,
+          f"{what}: not the adaptive, settling, polar step")
+    q = reorder.reorder_by_cell_cuda(p, height, cfg)[0]
+    tw = advance._time_weights(itime, mt0, mt1, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(z0, z1, *tw,
+                                           dtype=cfg.table_dtype)
+    a = advance.advance_args(cfg, prm, itime, mt0, mt1)
+    key = rng.Key(sim.seed, istep)
+    settle = advance.settle_met(z0, cfg)
+    res = dict(istep=istep, itime=itime, scheduled=int(q.active.sum()))
+    r, pk, dk = check_adaptive(q, height, tables, a, key, cfg, settle,
+                               f"{what}: K11")
+    ins = k11_instructions(_build.ADVANCE_ADAPTIVE, (
+        cfg.met_bf16, cfg.turbswitch, cfg.polar, cfg.settling), cfg.ifine)
+    r.update(k11_bound(q, pk, dk.passes, height, cfg, a, ins))
+    del pk
+    r["ms"] = cuda_ms(lambda: advance.advance_adaptive_cuda(
+        q, height, tables, copy.copy(a), key, cfg, None, 0, settle), 10)
+    r["plain_ms"] = cuda_ms(lambda: advance.advance_all_plain(
+        q, height, tables, copy.copy(a), key, cfg, None, 0, settle), 1)
+    # settling alone: the same step without it
+    flat_cfg = type(cfg)(**{**cfg.__dict__, "settling": False})
+    flat = advance.advance_adaptive_cuda(
+        q, height, tables, advance.advance_args(flat_cfg, prm, itime, mt0,
+                                                mt1),
+        key, flat_cfg, None, 0, None)[0]
+    on = advance.advance_adaptive_cuda(q, height, tables, copy.copy(a), key,
+                                       cfg, None, 0, settle)[0]
+    aero = q.active & (advance.settling_species(q.mass0) == 1)
+    tracer = q.active & ~aero
+    check(torch.equal(on.z[tracer], flat.z[tracer]),
+          f"{what}: the tracer's particles change with settling")
+    r["aerosol_drop_by_settling_m"] = float((flat.z - on.z)[aero].mean())
+    check(r["aerosol_drop_by_settling_m"] > 0.0,
+          f"{what}: the aerosol does not sink: {r['aerosol_drop_by_settling_m']}")
+    del flat, on
+    res["advance_adaptive"] = r
+
+    # K4 SETTLING: the fixed step of the same run's species
+    fcfg = type(cfg)(**{**cfg.__dict__, "method": 0, "turbswitch": False,
+                        "ifine": 1})
+    fprm = type(prm)(**{**prm.__dict__, "ctl": -5.0, "fine": 1.0})
+    fa = advance.advance_args(fcfg, fprm, itime, mt0, mt1)
+    (pk, _), (pp, _) = (
+        advance.advance_all_cuda(q, height, tables, copy.copy(fa), key, fcfg,
+                                 None, 0, settle),
+        advance.advance_all_plain(q, height, tables, copy.copy(fa), key, fcfg,
+                                  None, 0, settle))
+    torch.cuda.synchronize()
+    k4 = compare_particles(pk, pp, f"{what}: K4 SETTLING", float(cfg.nx - 1))
+    k4["differing_particles"] = differing_particles(pk, pp,
+                                                    advance.OUT_FIELDS)
+    check(k4["differing_particles"] == 0, f"{what}: K4 SETTLING differs from "
+          f"its plain version in {k4['differing_particles']} particles")
+    k4["max_abs_err"] = max(k4["max_dx"], k4["max_dy"])
+    k4["ms"] = cuda_ms(lambda: advance.advance_all_cuda(
+        q, height, tables, copy.copy(fa), key, fcfg, None, 0, settle), 10)
+    k4["plain_ms"] = cuda_ms(lambda: advance.advance_all_plain(
+        q, height, tables, copy.copy(fa), key, fcfg, None, 0, settle), 2)
+    del pk, pp
+    res["advance_settling"] = k4
+
+    # K10 T_BELOW with the step's window
+    loutnext = 3600 * max(1, -(-itime // 3600))
+    ldeltat = itime - (loutnext - 3600)
+    msp = sim.mass_species
+    r10 = check_drydepo(q, z1.vdep, msp, ldeltat, f"{what}: K10 T_BELOW",
+                        dk.t_below)
+    r10.pop("deposit")
+    r10["ms"] = cuda_ms(lambda: mu.decay_drydep_cuda(
+        q, z1.vdep, LSYNC, ldeltat, msp, True, dk.t_below), 10)
+    r10["plain_ms"] = cuda_ms(lambda: mu.apply_decay_drydep_plain(
+        q, z1.vdep, LSYNC, ldeltat, msp, True, dk.t_below), 3)
+    r10["below_2href_share"] = float((dk.t_below > 0).float().mean())
+    res["drydepo_t_below"] = r10
+    del dk
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_sim_adaptive(device, kernels) -> dict:
+    """``Simulation.run`` with the adaptive step and a settling aerosol on
+    the card, twice with one seed, as the sim phase: run A carries no probe
+    and is timed as a whole, its launch counts are the path's (K11 every
+    step, K4 never); run B under torch.profiler, synchronised and probed
+    at the top of every step, keeps one release step and one steady step
+    (sim_adaptive_checks) and each step's pass counts (the advance's
+    StepDiag.passes, in the run's slot order: the warp efficiency).  The
+    two runs must end in bitwise equal particles; the aerosol's budget
+    (airborne + wet + dry = released) must hold within 1e-3 and it must
+    deposit wet and dry; the tracer's mass is recovered from the last file
+    within 1e-3."""
+    import shutil
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from flexpart_tpu_torch.core import advance
+    from flexpart_tpu_torch.core.state import FIELDS
+    from flexpart_tpu_torch.run import simulation as simmod
+    shutil.rmtree(SIM_ADAPTIVE_DIR, ignore_errors=True)
+    nsteps = SIM_ADAPTIVE_HOURS * 3600 // LSYNC
+
+    # --- run A: timed as a whole, no probe ---
+    t_setup = time.perf_counter()
+    sim = sim_adaptive_setup(SIM_ADAPTIVE_DIR / "a", device, False)
+    setup_s = time.perf_counter() - t_setup
+    check(sim.step_cfg.method == 1 and sim.step_cfg.settling
+          and sim.step_cfg.turbswitch and sim.step_cfg.ifine == 4,
+          f"sim_adaptive: {sim.step_cfg}")
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    for name in ("advance_adaptive", "quad_tables", "conccalc", "reorder",
+                 "convection", "redist", "wetdepo", "drydepo",
+                 "depo_scatter"):
+        check(launches[name] > 0,
+              f"sim_adaptive: kernel {name} was never launched")
+    check(launches["advance_adaptive"] == nsteps and launches["advance"] == 0
+          and launches["drydepo"] == nsteps
+          and launches["depo_scatter"] == 2 * nsteps,
+          f"sim_adaptive: {launches} launches in {nsteps} steps")
+    check(launches["reorder"] == sim.n_sorts,
+          "sim_adaptive: sorts and K5 launches differ")
+    pa = sim.particles
+    check(int(pa.active.sum()) == N_MAIN,
+          f"sim_adaptive: {int(pa.active.sum())} of {N_MAIN} active")
+    for f in ("x_hi", "x_lo", "y_hi", "y_lo", "z", "up", "vp", "wp"):
+        check(bool(torch.isfinite(getattr(pa, f)).all()),
+              f"sim_adaptive: {f} not finite")
+    out = SIM_ADAPTIVE_DIR / "a"
+    npz = sorted(q.name for q in out.glob("grid_conc_*.npz"))
+    check(len(npz) == SIM_ADAPTIVE_HOURS - 1, f"sim_adaptive: npz {npz}")
+    conc_a = np.load(out / npz[-1])["conc"]
+    check(bool(np.isfinite(conc_a).all()), "sim_adaptive: conc not finite")
+    mass = float((conc_a[0, 0, 0] * sim.geo.volume).sum() / 1e12)
+    check(abs(mass - 1.0) < 1e-3, f"sim_adaptive: tracer mass {mass}")
+    wet_a = sim.acc.wetgridunc.clone()
+    dry_a = sim.acc.drygridunc.clone()
+    budget = dict(
+        released=1.0,
+        airborne=float(pa.mass[pa.active, 1].sum(dtype=torch.float64)),
+        wet=float(wet_a[..., 1].sum(dtype=torch.float64)),
+        dry=float(dry_a[..., 1].sum(dtype=torch.float64)))
+    budget["sum"] = budget["airborne"] + budget["wet"] + budget["dry"]
+    check(budget["wet"] > 0.0 and budget["dry"] > 0.0,
+          f"sim_adaptive: the aerosol deposits {budget}")
+    check(abs(budget["sum"] - 1.0) <= 1e-3, f"sim_adaptive: budget {budget}")
+    sp = advance.settling_species(pa.mass0)
+    descent = {}
+    for name, s in (("tracer", 0), ("aerosol", 1)):
+        m = pa.active & (sp == s)
+        descent[name] = dict(
+            mean_z_m=float(pa.z[m].mean()),
+            mean_descent_from_release_m=275.0 - float(pa.z[m].mean()),
+            mean_idt_s=float(pa.idt[m].float().mean()))
+    sorts_a = sim.n_sorts
+    timers_a = dict(sim.timings)
+    del sim
+
+    # --- run B: profiled and probed, the pass counts of every step ---
+    sim = sim_adaptive_setup(SIM_ADAPTIVE_DIR / "b", device, False,
+                             profile=True)
+    release_steps = sorted(t // LSYNC for t in sim._release_times)
+    keep = {release_steps[len(release_steps) // 2]: "release step",
+            nsteps - 1: "steady step"}
+    snaps, passes = {}, []
+
+    def probe(istep, itime):
+        if istep in keep:
+            z0, z1, mt0, mt1 = sim._fields_for(itime)
+            snaps[keep[istep]] = (istep, itime, sim.particles, z0, z1, mt0,
+                                  mt1)
+
+    def counted(*args, **kw):
+        p, diag = inner(*args, **kw)
+        passes.append(diag.passes.clone())
+        return p, diag
+
+    inner = simmod.advance_all
+    sim._step_probe = probe
+    simmod.advance_all = counted
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sim.run()
+            torch.cuda.synchronize()
+    finally:
+        simmod.advance_all = inner
+    check_same_bits(pa, sim.particles, "sim_adaptive: two runs with one seed",
+                    FIELDS)
+    depo_diff = {}
+    for k, ga, gb in (("wet", wet_a, sim.acc.wetgridunc),
+                      ("dry", dry_a, sim.acc.drygridunc)):
+        d = (ga - gb).abs()
+        depo_diff[k] = float(d.max())
+        check(bool(torch.all(d <= K8_RTOL * ga.abs())),
+              f"sim_adaptive: {k} grids of two runs differ by {depo_diff[k]}")
+    check(sim.n_sorts == sorts_a, "sim_adaptive: the runs sorted differently")
+    del wet_a, dry_a, pa
+    rows = device_rows(prof)
+    del prof
+    device_ms = sum(r[2] for r in rows)
+
+    def per_launch(words, n):
+        hit = [r for r in rows if any(w in r[0] for w in words)]
+        ms = sum(r[2] for r in hit)
+        return dict(ms_total=ms, ms_per_call=ms / max(n, 1), calls=n,
+                    device_share=ms / max(device_ms, 1e-9))
+
+    per_step = [warp_efficiency(q) for q in passes]
+    allp = torch.cat([q[q > 0] for q in passes])
+    steps_pass = dict(
+        passes_per_pbl_particle_mean=float(allp.float().mean()),
+        passes_per_pbl_particle_p99=float(torch.quantile(
+            allp[torch.randperm(allp.numel(), device=allp.device)[:2 ** 24]]
+            .float(), 0.99)),
+        passes_per_pbl_particle_max=int(allp.max()),
+        warp_efficiency_per_step=[s["warp_efficiency"] for s in per_step],
+        warp_efficiency_mean=float(np.mean([s["warp_efficiency"]
+                                            for s in per_step])))
+    del passes, allp
+    check(set(snaps) == set(keep.values()),
+          f"sim_adaptive: kept steps {list(snaps)}")
+    on_inputs = {name.replace(" ", "_"): sim_adaptive_checks(
+        sim, snap, f"sim_adaptive {name} {snap[0]}")
+        for name, snap in snaps.items()}
+    snaps.clear()
+    res = dict(
+        n=N_MAIN, steps=nsteps, hours=SIM_ADAPTIVE_HOURS, setup_s=setup_s,
+        run_s=run_s, particle_steps=timers_a["particle_steps"],
+        particle_steps_per_s_whole_run=timers_a["particle_steps"] / run_s,
+        section_seconds_unsynced={k: v for k, v in timers_a.items()
+                                  if k != "particle_steps"},
+        launches=launches, sorts=sorts_a, release_steps=release_steps,
+        two_runs_bitwise_equal=True, depo_grids_two_runs_max_abs_diff=depo_diff,
+        tracer_mass_fraction=mass, aerosol_budget=budget, descent=descent,
+        **steps_pass,
+        device_ms_all_kernels=device_ms,
+        device_per_call={
+            "advance_adaptive": per_launch(("advance_adaptive_kernel",),
+                                           nsteps),
+            "drydepo_t_below": per_launch(("drydepo_kernel",), nsteps),
+            "quad_tables": per_launch(("quad_tables_kernel",), nsteps),
+            "conccalc": per_launch(("conccalc_kernel",),
+                                   launches["conccalc"]),
+            "reorder": per_launch(SORT_KERNELS, sorts_a),
+            "convection": per_launch(("convection_kernel",), nsteps + 1),
+            "redist": per_launch(("redist_kernel",), nsteps + 1),
+            "wetdepo": per_launch(("wetdepo_kernel",), nsteps),
+            "depo_scatter": per_launch(("depo_grid_kernel",), 2 * nsteps)},
+        top=[dict(name=k[:60], calls=c, ms=ms) for k, c, ms in rows[:10]],
+        kernels_on_sim_adaptive_inputs=on_inputs)
+    del sim
+    shutil.rmtree(SIM_ADAPTIVE_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
@@ -2565,6 +3417,11 @@ def main() -> int:
     emit({"phase": "sim", "seconds": time.perf_counter() - t0, **simres,
           "device": name, "power_limit": smi})
 
+    t0 = time.perf_counter()
+    adres = phase_sim_adaptive(device, kernels)
+    emit({"phase": "sim_adaptive", "seconds": time.perf_counter() - t0,
+          **adres, "device": name, "power_limit": smi})
+
     # launches: the main path's own count.  The normals kernel is not
     # launched there: its generator (fp::normal_words, fp::normal_pair) runs
     # inside the advance kernel's one launch; the stand-alone kernel serves
@@ -2584,7 +3441,11 @@ def main() -> int:
                                  "XLA"),
                 # wetscav_all, and apply_wetdepo at massupdate.py:32
                 "wetdepo": ("flexpart_tpu/physics/wetdepo.py:75", "XLA"),
-                "drydepo": ("flexpart_tpu/physics/massupdate.py:54", "XLA")}
+                "drydepo": ("flexpart_tpu/physics/massupdate.py:54", "XLA"),
+                # advance_all with method=1: _adaptive_interval (:430-660),
+                # _ldt_formula (:414) and the first step (:936-954)
+                "advance_adaptive": ("flexpart_tpu/core/advance.py:430",
+                                     "XLA")}
     k5 = kres["reorder"]["cases"]
     extra = {"reorder": {
         # per input: K5, the plain version, torch.argsort of the keys, the
@@ -2606,7 +3467,45 @@ def main() -> int:
         # the POLAR instantiation on the whole sphere; main keeps it off
         "advance": {"polar": {f: kres["advance"]["polar"][f] for f in (
             "ms", "unordered_ms", "stock_ms_same_particles", "plain_ms",
-            "bound_ms", "bound_by", "max_abs_err", "bitwise", "branches")}},
+            "bound_ms", "bound_by", "max_abs_err", "bitwise", "branches")},
+            # the SETTLING instantiation beside the stock one on the same
+            # particles, and on the sim_adaptive phase's kept steps
+            "settling": {
+                **{f: kres["advance"]["settling"][f] for f in (
+                    "ms", "unordered_ms", "stock_ms_same_particles",
+                    "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                    "bitwise", "differing_particles",
+                    "aerosol_mean_drop_against_stock_m", "library_ms",
+                    "settling_instructions", "bound_bytes",
+                    "bound_operations", "bound_instructions")},
+                "sim_adaptive_inputs": {
+                    s: {f: r["advance_settling"][f] for f in (
+                        "ms", "plain_ms", "max_abs_err",
+                        "differing_particles")}
+                    for s, r in adres["kernels_on_sim_adaptive_inputs"]
+                    .items()}}},
+        # K11: the spread ensemble in cell order (ms) and as drawn, its
+        # passes and warp efficiency, the compiled kernel's instructions per
+        # pass, its time per call in the sim_adaptive run and on its kept
+        # steps
+        "advance_adaptive": {
+            **{f: kres["advance_adaptive"][f] for f in (
+                "unordered_ms", "bitwise", "warp_efficiency", "passes_mean",
+                "passes_p99", "passes_max", "instructions", "bound_bytes",
+                "bound_operations", "bound_instructions")},
+            "unordered_warp_efficiency": kres["advance_adaptive"]["cases"]
+            ["as_drawn"]["warp_efficiency"],
+            "sim_adaptive": {f: adres[f] for f in (
+                "passes_per_pbl_particle_mean", "passes_per_pbl_particle_p99",
+                "passes_per_pbl_particle_max", "warp_efficiency_mean")},
+            "sim_adaptive_per_call": adres["device_per_call"]
+            ["advance_adaptive"],
+            "sim_adaptive_inputs": {
+                s: {f: r["advance_adaptive"][f] for f in (
+                    "ms", "plain_ms", "max_abs_err", "differing_particles",
+                    "warp_efficiency", "passes_mean", "passes_max",
+                    "bound_ms", "bound_by", "aerosol_drop_by_settling_m")}
+                for s, r in adres["kernels_on_sim_adaptive_inputs"].items()}},
         # K6: SyntheticMet (ms) and the sounding, every column convecting
         # (all_convecting_ms); its layout on this card; the taller grids
         "convection": {
@@ -2636,7 +3535,8 @@ def main() -> int:
             r = r[kname]
             if kname == "conccalc":
                 r = next(c for c in r.values() if c["the_steps_own_path"])
-            pick = ("max_abs_err", "ms", "plain_ms")
+            pick = ("max_abs_err", "ms", "plain_ms") + (
+                ("library_ms",) if kname == "conccalc" else ())
             if kname == "depo_scatter":      # the wet and the dry deposit
                 on_sim[step] = {k: {f: c[f] for f in pick}
                                 for k, c in r.items()}
@@ -2655,6 +3555,15 @@ def main() -> int:
         for f in ("bitwise", "values_differ"):
             if f in kres[kname]:
                 extra[kname][f] = kres[kname][f]
+    # K10's T_BELOW instantiation beside K10 on the same particles, per call
+    # in the sim_adaptive run and on its kept steps
+    extra["drydepo"]["t_below"] = {
+        **kres["drydepo"]["t_below"],
+        "sim_adaptive_per_call": adres["device_per_call"]["drydepo_t_below"],
+        "sim_adaptive_inputs": {
+            s: {f: r["drydepo_t_below"][f] for f in (
+                "ms", "plain_ms", "max_abs_err", "values_differ", "bitwise")}
+            for s, r in adres["kernels_on_sim_adaptive_inputs"].items()}}
     # K9's operation count: the compiled kernel's instructions per path and
     # the calls of the run's case
     extra["wetdepo"]["instructions"] = kres["wetdepo"]["instructions"]
@@ -2665,6 +3574,7 @@ def main() -> int:
          "replaces": replaces[k.name][0], "tpu_route": replaces[k.name][1],
          "launches": mres["launches"][k.name],
          "launches_sim": simres["launches"][k.name],
+         "launches_sim_adaptive": adres["launches"][k.name],
          **{f: kres[k.name][f] for f in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")}, **extra.get(k.name, {})}

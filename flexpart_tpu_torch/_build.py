@@ -169,6 +169,7 @@ NORMALS = Kernel("normals", "fp_normals", [
     I, I,       # rows, cols
     U32, U32,   # philox key words
     I64,        # counter offset (global particle index of column 0)
+    U32,        # pass of the adaptive advance (counter word 2; 0 elsewhere)
     P,          # stream
 ])
 
@@ -212,6 +213,27 @@ ADVANCE = Kernel("advance", "fp_advance", [
     P, P, P, P, P,        # injected draws for tags 6, 1, 2, 3, 4, or all NULL
     P, P,                 # rows (R, 64), rowsE (R, 32) bf16 or f32
     P,                    # height (nz,) f32
+    P, P, P,              # settling: mass0 (n, nspec), tt, rho (nz, ny, nx) f32, or NULL
+    P,                    # counts (2,) i32: active, exited (accumulated into)
+    P,                    # AdvanceArgs (host struct, core/advance.py)
+    P,                    # stream
+])
+
+ADVANCE_ADAPTIVE = Kernel("advance_adaptive", "fp_advance_adaptive", [
+    P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
+    P, P,                 # itra, itramem (n,) i32
+    P, P, P, P, P, P,     # up, vp, wp, usig, vsig, wsig (n,) f32
+    P, P,                 # cbt (n,) i8, active (n,) bool
+    P,                    # idt (n,) i32
+    P, P, P, P, P,        # out: x_hi, x_lo, y_hi, y_lo, z
+    P,                    # out: itra
+    P, P, P, P, P, P,     # out: up, vp, wp, usig, vsig, wsig
+    P, P,                 # out: cbt, active
+    P,                    # out: idt
+    P, P,                 # out: t_below (n,) f32, passes (n,) i32
+    P, P,                 # rows (R, 64), rowsE (R, 32) bf16 or f32
+    P,                    # height (nz,) f32
+    P, P, P,              # settling: mass0 (n, nspec), tt, rho (nz, ny, nx) f32, or NULL
     P,                    # counts (2,) i32: active, exited (accumulated into)
     P,                    # AdvanceArgs (host struct, core/advance.py)
     P,                    # stream
@@ -291,6 +313,7 @@ DRYDEPO = Kernel("drydepo", "fp_drydepo", [
     P,                    # active (n,) bool
     P, P,                 # mass, mass0 (n, nspec) f32
     P, I, I,              # vdep (nspec, ny, nx) f32 or NULL, ny, nx
+    P,                    # t_below (n,) f32 or NULL (the fixed step's rule)
     P,                    # DrySpec[MAX_SPECIES] (host array, physics/massupdate.py)
     I, I,                 # n, nspec
     I, I, F,              # |lsynctime|, |ldeltat|, minmass
@@ -303,4 +326,4 @@ DRYDEPO = Kernel("drydepo", "fp_drydepo", [
 LAYOUT = [I, P]
 
 KERNELS = (NORMALS, QUAD_TABLES, CONCCALC, ADVANCE, REORDER, CONVECTION,
-           REDIST, DEPO_SCATTER, WETDEPO, DRYDEPO)
+           REDIST, DEPO_SCATTER, WETDEPO, DRYDEPO, ADVANCE_ADAPTIVE)

@@ -1,20 +1,25 @@
 """The particle advance: one lsynctime update for all particles.
 
-Port of ``flexpart_tpu/core/advance.py`` in fixed-step mode (CTL<0,
-``method=0``): quad-table met sampling, Hanna/Langevin PBL turbulence with
-the exact OU discretization (turbswitch on and off, any ``ifine``, no
-CBL), constant-diffusivity free troposphere / stratosphere, mesoscale
-fluctuations, windalign, the double-single position update, the
-polar-stereographic update inside the polar caps, cyclic and pole
-boundary conditions and the Petterssen corrector.  Options outside this
-slice (adaptive stepping, CBL, nests, tile mode, settling, turboff, the
-legacy-RNG path) raise ``NotImplementedError``.
+Port of ``flexpart_tpu/core/advance.py``, fixed step (CTL<0, ``method=0``)
+and adaptive step (CTL>0, ``method=1``): quad-table met sampling,
+Hanna/Langevin PBL turbulence with the exact OU discretization (turbswitch
+on and off, any ``ifine``, no CBL), constant-diffusivity free troposphere /
+stratosphere, mesoscale fluctuations, gravitational settling, ``turboff``,
+windalign, the double-single position update, the polar-stereographic
+update inside the polar caps, cyclic and pole boundary conditions and the
+Petterssen corrector.  The adaptive step runs the boundary layer in a loop
+of passes of per-particle length (``_adaptive_interval_plain``) and returns
+the seconds each particle spent below 2 HREF (``StepDiag.t_below``).
+Options outside the port so far (CBL, nests, tile mode, the legacy-RNG
+path) raise ``NotImplementedError``.
 
 Two versions of the same function: ``advance_all_plain``, plain PyTorch
-ops, runs for CPU tensors; ``advance_all_cuda`` launches kernel K4
-(``csrc/advance.cu``), one thread per particle and one launch for all
-particles, for CUDA tensors.  ``advance_all`` picks by the device of the
-particles and never falls from one to the other.
+ops, runs for CPU tensors; for CUDA tensors ``advance_all_cuda`` launches
+kernel K4 (``csrc/advance.cu``, the fixed step) and
+``advance_adaptive_cuda`` kernel K11 (``csrc/advance_adaptive.cu``, the
+adaptive step), one thread per particle and one launch for all particles.
+``advance_all`` picks by the device of the particles and never falls from
+one to the other.
 
 Scalars (time weights, the interval, grid constants) are float32 values
 computed with numpy ``float32`` arithmetic on the host and held in Python
@@ -22,9 +27,11 @@ floats, so the tensor ops see exactly the operands XLA sees;
 ``advance_args`` packs them into the struct both versions read.
 
 Draws: every draw site takes its numbers either from ``draws`` (a dict
-keyed by the JAX tags 6, 1, 2, 3, 4 with the JAX shapes), which the
+keyed by the JAX tags 6, 1, 2, 3, 4 with the JAX shapes; in the adaptive
+step tags 1 and 2 carry a leading pass axis, (K, rows, n)), which the
 parity tests fill with JAX's own draws, or from the Philox stream keyed by
-(seed, step, tag) with the global particle index as counter.  On the CPU
+(seed, step, tag) with the global particle index and, for the adaptive
+step's tags 1 and 2, the pass as counter.  On the CPU
 that stream comes from ``rng.normals`` as tensors; on a CUDA device K4
 makes the same numbers in registers at the draw sites (the device functions
 of ``csrc/philox_normal.cuh`` that K1 is built from: four rows of a tag
@@ -41,23 +48,29 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..constants import D_STRAT, D_TROP, PI, PI180, R_EARTH, TURBMESOSCALE
-from ..met.fields import ZFields
+from ..constants import (D_STRAT, D_TROP, GA, PI, PI180, R_EARTH,
+                         TURBMESOSCALE)
+from ..met.fields import F3_RHO, F3_TT, ZFields
 from . import rng
 from .hanna import hanna, hanna1
-from .interp import (ROWS_E_LANES, ROWS_LANES, StepTablesQuad,
-                     build_step_tables_quad, horiz_weights,
+from .interp import (ROWS_E_LANES, ROWS_LANES, HorizWeights, StepTablesQuad,
+                     _cell_rowid, build_step_tables_quad, horiz_weights,
                      interp_wind_short_quad, sample_all_quad, true_div,
-                     vert_weights)
+                     vert_weights, wind10_quad)
 from .state import Particles, ds_add
 
 f32 = np.float32
 
 
+# species whose settling parameters the kernels take (MAX_SPECIES of
+# csrc/advance_common.cuh)
+MAX_SPECIES = 32
+
+
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """Static configuration of the advance (the JAX fields; only the
-    fixed-step values of this slice are accepted, see ``check``)."""
+    """Static configuration of the advance (the JAX fields; what the port
+    does not have yet is refused by ``check``)."""
     nx: int
     ny: int
     nz: int
@@ -69,6 +82,7 @@ class StepConfig:
     turboff: bool = False
     settling: bool = False
     cblflag: bool = False
+    mintime: float = 1.0        # minimum adaptive substep [s] (par_mod)
     nests: tuple = ()
     polar: bool = False
     tile_mode: bool = False
@@ -76,29 +90,36 @@ class StepConfig:
 
     def check(self) -> None:
         unsupported = {
-            "method=1 (adaptive stepping)": self.method != 0,
             "cblflag (skewed CBL)": self.cblflag,
             "nests": bool(self.nests),
             "tile_mode": self.tile_mode,
-            "settling": self.settling,
-            "turboff": self.turboff,
         }
         bad = [k for k, v in unsupported.items() if v]
         if bad:
             raise NotImplementedError(
-                "not ported yet (outside the fixed-step slice): "
+                "not ported yet (outside the port's advance): "
                 + ", ".join(bad))
+        if self.method not in (0, 1):
+            raise ValueError("method must be 0 (fixed) or 1 (adaptive)")
         if self.ifine < 1:
             raise ValueError("ifine must be >= 1")
+        if self.method == 1 and not self.mintime > 0.0:
+            raise ValueError("the adaptive step needs mintime > 0")
 
     @property
     def table_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.met_bf16 else torch.float32
 
 
+SPECIES_PARAMS = ("sp_density", "sp_dquer", "sp_cunningham", "sp_vsetaver")
+
+
 @dataclasses.dataclass(frozen=True)
 class StepParams:
-    """Run scalars of the advance, float32 values in Python floats."""
+    """Run scalars of the advance, float32 values in Python floats; the
+    species' settling parameters are tuples of them, one per species
+    (get_settling.f90; the settling species of a particle is the first one
+    it carries release mass of, advance.f90:518-531)."""
     dx: float
     dy: float
     ylat0: float
@@ -109,14 +130,27 @@ class StepParams:
     lwindinterv: float
     xlon0: float = -180.0  # grid lon origin (the polar-cap projection;
     #                        the JAX package's xlon0_pol)
+    ctl: float = -5.0     # TL/dt ratio (> 0: the adaptive step)
+    sp_density: tuple = (-1.0,)
+    sp_dquer: tuple = (0.0,)          # [um]
+    sp_cunningham: tuple = (0.0,)
+    sp_vsetaver: tuple = (0.0,)
 
     @classmethod
     def make(cls, dx, dy, ylat0, dxconst, dyconst, lsynctime, fine,
-             lwindinterv=3600, xlon0=-180.0) -> "StepParams":
+             lwindinterv=3600, xlon0=-180.0, ctl=-5.0, sp_density=-1.0,
+             sp_dquer=0.0, sp_cunningham=0.0,
+             sp_vsetaver=0.0) -> "StepParams":
         def v(x):
             return float(f32(x))
+
+        def vec(x):   # species vectors: a number -> (1,), a sequence -> (nspec,)
+            return tuple(float(s) for s in np.atleast_1d(
+                np.asarray(x, np.float32)))
         return cls(v(dx), v(dy), v(ylat0), v(dxconst), v(dyconst),
-                   v(abs(lsynctime)), v(fine), v(lwindinterv), v(xlon0))
+                   v(abs(lsynctime)), v(fine), v(lwindinterv), v(xlon0),
+                   v(ctl), vec(sp_density), vec(sp_dquer),
+                   vec(sp_cunningham), vec(sp_vsetaver))
 
 
 @dataclasses.dataclass
@@ -124,10 +158,17 @@ class StepDiag:
     n_active: torch.Tensor    # () int32
     n_exited: torch.Tensor
     nan_count: torch.Tensor
+    #: the adaptive step only: per particle the seconds spent below 2 HREF
+    #: this interval (advance.f90:582-599), the dry-deposition window that
+    #: apply_decay_drydep takes, and the passes of the substep loop that the
+    #: particle took (0 outside the boundary layer and if not scheduled)
+    t_below: torch.Tensor | None = None
+    passes: torch.Tensor | None = None
 
 
 DRAW_ROWS = {6: 6, 1: 2, 3: 3, 4: 3}     # tag 2 has ifine rows
 DRAW_TAGS = (6, 1, 2, 3, 4)               # K4's draw sites, in this order
+PASS_TAGS = (1, 2)        # the adaptive step draws these once per pass
 # the particle fields the advance rewrites (K4's outputs, in its order)
 OUT_FIELDS = ("x_hi", "x_lo", "y_hi", "y_lo", "z", "itra", "up", "vp", "wp",
               "usig", "vsig", "wsig", "cbt", "active")
@@ -178,6 +219,19 @@ class AdvanceArgs(ctypes.Structure):
         ("two_nym", ctypes.c_float),
         ("eps_bc", ctypes.c_float),
         ("nxm_eps", ctypes.c_float),
+        ("method", ctypes.c_int),
+        ("turboff", ctypes.c_int),
+        ("settling", ctypes.c_int),
+        ("nspec", ctypes.c_int),
+        ("fine", ctypes.c_float),
+        ("ctl", ctypes.c_float),
+        ("mintime", ctypes.c_float),
+        ("two_d_trop", ctypes.c_float),
+        ("two_d_strat", ctypes.c_float),
+        ("sp_density", ctypes.c_float * MAX_SPECIES),
+        ("sp_dquer", ctypes.c_float * MAX_SPECIES),
+        ("sp_cunningham", ctypes.c_float * MAX_SPECIES),
+        ("sp_vsetaver", ctypes.c_float * MAX_SPECIES),
     ]
 
 
@@ -210,6 +264,13 @@ def advance_args(cfg: StepConfig, prm: StepParams, itime: int, memtime0: int,
     eps = f32(cfg.nx / 3.0e5)
     nxm = float(cfg.nx - 1)
     nym = float(cfg.ny - 1)
+    nspec = len(prm.sp_density)
+    if any(len(getattr(prm, f)) != nspec for f in SPECIES_PARAMS):
+        raise ValueError("the species' settling parameters differ in length")
+    if cfg.settling and nspec > MAX_SPECIES:
+        raise ValueError(f"settling takes at most {MAX_SPECIES} species")
+    sp = {f: (ctypes.c_float * MAX_SPECIES)(*getattr(prm, f)[:MAX_SPECIES])
+          for f in SPECIES_PARAMS}
     return AdvanceArgs(
         nx=cfg.nx, ny=cfg.ny, nz=cfg.nz, xglobal=int(cfg.xglobal),
         turbswitch=int(cfg.turbswitch), ifine=cfg.ifine,
@@ -226,7 +287,12 @@ def advance_args(cfg: StepConfig, prm: StepParams, itime: int, memtime0: int,
         dx=prm.dx, dy=prm.dy, ylat0=prm.ylat0, xlon0=prm.xlon0,
         dxconst=prm.dxconst,
         dyconst=prm.dyconst, nxm=nxm, nym=nym, two_nym=2.0 * nym,
-        eps_bc=float(eps), nxm_eps=float(f32(nxm) - eps))
+        eps_bc=float(eps), nxm_eps=float(f32(nxm) - eps),
+        method=cfg.method, turboff=int(cfg.turboff),
+        settling=int(cfg.settling), nspec=nspec, fine=prm.fine, ctl=prm.ctl,
+        mintime=float(f32(cfg.mintime)),
+        two_d_trop=float(f32(2.0 * D_TROP)),
+        two_d_strat=float(f32(2.0 * D_STRAT)), **sp)
 
 
 def _scalar_div(a: float, b: torch.Tensor) -> torch.Tensor:
@@ -257,16 +323,92 @@ def _reflect_pbl(z, delz, h):
     return znew, icbt
 
 
+def _viscosity(t):
+    """Sutherland's law (dynamic_viscosity.f90), in JAX's operation order."""
+    return _scalar_div(1.827e-5 * (291.15 + 120.0), t + 120.0) \
+        * torch.pow(true_div(t, 291.15), 1.5)
+
+
+def _settling_velocity(dquer_um, density, cunningham, vsetaver, temp, rhoa):
+    """Iterative Reynolds/Cd settling velocity (get_settling.f90:100-127),
+    five fixed iterations; every species parameter is per particle (already
+    gathered).  Negative (downward) [m/s]; 0 for gases (density <= 0)."""
+    vis_kin = _viscosity(temp) / rhoa
+    d_m = true_div(dquer_um, 1.0e6)
+
+    def cd_of(re):
+        re = torch.clamp(re, min=1e-12)
+        return torch.where(re < 1.917, _scalar_div(24.0, re),
+                           torch.where(re < 500.0,
+                                       _scalar_div(18.5, torch.pow(re, 0.6)),
+                                       torch.full_like(re, 0.44)))
+
+    settl = vsetaver.expand_as(temp)
+    reynolds = d_m * torch.abs(settl) / vis_kin
+    dens_pos = torch.clamp(density, min=0.0)
+    for _ in range(5):
+        c_d = cd_of(reynolds)
+        settl = -torch.sqrt((4.0 * GA) * d_m * dens_pos * cunningham
+                            / (3.0 * c_d * rhoa))
+        reynolds = d_m * torch.abs(settl) / vis_kin
+    return torch.where(density > 0.0, settl, torch.zeros_like(settl))
+
+
+def settling_species(mass0: torch.Tensor) -> torch.Tensor:
+    """The settling species of each particle: the first species it carries
+    release mass of (``argmax(mass0 > 1e-30)``), 0 if none."""
+    return torch.argmax((mass0 > 1e-30).to(torch.int32), dim=1)
+
+
+def _particle_settling(a: "AdvanceArgs", mass0, temp, rhoa):
+    """Per-particle settling velocity with the parameters of its settling
+    species (``_particle_settling`` of the JAX package)."""
+    nsp = settling_species(mass0)
+    dev = temp.device
+
+    def gathered(name):
+        vals = torch.tensor(list(getattr(a, name))[:a.nspec],
+                            dtype=torch.float32, device=dev)
+        return vals[nsp]
+    return _settling_velocity(gathered("sp_dquer"), gathered("sp_density"),
+                              gathered("sp_cunningham"),
+                              gathered("sp_vsetaver"), temp, rhoa)
+
+
+def _settle_fn(cfg: StepConfig, a: "AdvanceArgs", x, y, height, tt, rho,
+               mass0):
+    """Settling at a height ``zc`` in the particle's nearest grid column
+    (round half to even, clipped), linear in z between the two levels of
+    the temperature and air density of the interval's first met time,
+    unblended (advance.py:966-981 of the JAX package; get_settling is
+    called with the un-updated position)."""
+    nix = torch.clamp(torch.round(x).to(torch.int32), 0, cfg.nx - 1).long()
+    njy = torch.clamp(torch.round(y).to(torch.int32), 0, cfg.ny - 1).long()
+    plane = cfg.ny * cfg.nx
+    col = njy * cfg.nx + nix
+    tt_f, rho_f = tt.reshape(-1), rho.reshape(-1)
+
+    def fn(zc):
+        indz, dz1 = vert_weights(zc, height)
+        lin = indz.long() * plane + col
+        temp = tt_f[lin] * (1.0 - dz1) + tt_f[lin + plane] * dz1
+        rhoa = rho_f[lin] * (1.0 - dz1) + rho_f[lin + plane] * dz1
+        return _particle_settling(a, mass0, temp, rhoa)
+    return fn
+
+
 def _pbl_vertical(cfg: StepConfig, z, wp, icbt, h, ust, wst, ol, rho, drhodz,
-                  rnd_w, dtf: float):
+                  rnd_w, dtf):
     """The ifine vertical Langevin substeps (advance.f90:396-498), without
     CBL.  ``dtftlw`` and everything derived from it is computed once from
-    the interval-start turbulence, as the reference does.
-    Returns (z, wp, icbt)."""
+    the interval-start turbulence, as the reference does.  ``dtf`` is the
+    fixed step's number or the adaptive pass's per-particle tensor.
+    Returns (z, wp, icbt, the turbulence of the last refresh)."""
     turb_fn = hanna if cfg.turbswitch else hanna1
     rhoaux = drhodz / rho
     turb = turb_fn(z, h, ust, wst, ol)
-    dtftlw = _scalar_div(dtf, turb.tlw)
+    dtftlw = (_scalar_div(dtf, turb.tlw) if isinstance(dtf, float)
+              else dtf / turb.tlw)
     rw = torch.exp(-dtftlw)
     rnd_exact = torch.sqrt(torch.clamp(1.0 - rw * rw, min=0.0))
     rnd_lin = torch.sqrt(2.0 * dtftlw)
@@ -286,11 +428,60 @@ def _pbl_vertical(cfg: StepConfig, z, wp, icbt, h, ust, wst, ol, rho, drhodz,
                       + turb.tlw * (1.0 - rw)
                       * (turb.dsigw2dz + rhoaux * turb.sigw ** 2)) * icbtf
             delz = wp_new * dtf
+        if cfg.turboff:
+            wp_new = torch.zeros_like(wp_new)
+            delz = torch.zeros_like(delz)
         z, icbt = _reflect_pbl(z, delz, h)
         wp = wp_new
         if i != cfg.ifine - 1:
             turb = turb_fn(z, h, ust, wst, ol)   # hanna_short refresh
-    return z, wp, icbt
+    return z, wp, icbt, turb
+
+
+def _f32_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 toward zero, saturating, NaN -> 0: the conversion
+    the kernels make (``__float2int_rz``); a bare ``.to(int32)`` of a value
+    out of range is undefined on the CPU."""
+    big = x >= 2147483648.0
+    small = x <= -2147483648.0
+    safe = torch.where(big | small | torch.isnan(x), torch.zeros_like(x), x)
+    out = safe.to(torch.int32)
+    out = torch.where(big, torch.full_like(out, 2147483647), out)
+    return torch.where(small, torch.full_like(out, -2147483648), out)
+
+
+def _ldt_formula(cfg: StepConfig, a: "AdvanceArgs", turb, wp, h):
+    """The next adaptive step: ldt = trunc(min(...) * ctl), at least
+    mintime (advance.f90:504-510)."""
+    if cfg.turbswitch:
+        lim = torch.minimum(
+            torch.minimum(turb.tlw,
+                          h / torch.clamp(2.0 * torch.abs(wp * turb.sigw),
+                                          min=1e-5)),
+            _scalar_div(0.5, torch.clamp(torch.abs(turb.dsigwdz), min=1e-10)))
+    else:
+        lim = torch.minimum(turb.tlw,
+                            h / torch.clamp(2.0 * torch.abs(wp), min=1e-5))
+    return torch.clamp(torch.trunc(lim * a.ctl), min=a.mintime)
+
+
+def _initial_idt(cfg: StepConfig, a: "AdvanceArgs", turb, wp, h, pbl):
+    """The first adaptive step of a newly released particle
+    (initialize.f90:155-162,191): the ldt formula at its start, capped by
+    600 s in the hanna1 form; the whole interval above the boundary layer."""
+    if cfg.turbswitch:
+        lim = torch.minimum(
+            torch.minimum(turb.tlw,
+                          h / torch.clamp(2.0 * torch.abs(wp * turb.sigw),
+                                          min=1e-5)),
+            _scalar_div(0.5, torch.clamp(torch.abs(turb.dsigwdz), min=1e-10)))
+    else:
+        lim = torch.clamp(
+            torch.minimum(turb.tlw,
+                          h / torch.clamp(2.0 * torch.abs(wp), min=1e-5)),
+            max=600.0)
+    idt = torch.clamp(torch.trunc(lim * a.ctl), min=a.mintime)
+    return _f32_to_i32(torch.where(pbl, idt, torch.full_like(idt, a.dt)))
 
 
 def _apply_bcs(cfg: StepConfig, a: AdvanceArgs, x_hi, x_lo, y_hi, y_lo):
@@ -402,17 +593,36 @@ def _apply_polar(cfg: StepConfig, a: AdvanceArgs, x, y, dxs, dys, x_hi, x_lo,
             torch.where(pol, yg, y_hi), torch.where(pol, zero, y_lo))
 
 
-def _check_draws(draws: dict | None, n: int, device, ifine: int) -> None:
+def _check_draws(draws: dict | None, n: int, device, cfg: StepConfig) -> int:
+    """Check injected draws against the shapes the advance reads; return
+    the passes they cover (the adaptive step's leading axis of tags 1 and
+    2; 0 without draws)."""
     if draws is None:
-        return
-    rows = {**DRAW_ROWS, 2: ifine}
+        return 0
+    rows = {**DRAW_ROWS, 2: cfg.ifine}
+    passes = None
     for tag in DRAW_TAGS:
         d = draws[tag]
-        if tuple(d.shape) != (rows[tag], n) or d.device != torch.device(device) \
-                or d.dtype != torch.float32:
+        want = (rows[tag], n)
+        if cfg.method == 1 and tag in PASS_TAGS:
+            k = d.shape[0] if d.dim() == 3 else -1
+            passes = k if passes is None else min(passes, k)
+            want = (k,) + want
+        if tuple(d.shape) != want or d.device != torch.device(device) \
+                or d.dtype != torch.float32 or (passes is not None
+                                                and passes < 1):
             raise ValueError(f"injected draws for tag {tag}: expected "
-                             f"float32 {(rows[tag], n)} on {device}, got "
+                             f"float32 {want} on {device}, got "
                              f"{d.dtype} {tuple(d.shape)} on {d.device}")
+    return passes or 0
+
+
+def settle_met(z0: ZFields, cfg: StepConfig):
+    """The two fields settling reads, the temperature and the air density
+    of the interval's first met time, or None without settling."""
+    if not cfg.settling:
+        return None
+    return z0.f3d[F3_TT], z0.f3d[F3_RHO]
 
 
 def advance_all(p: Particles, z0: ZFields, z1: ZFields, itime: int,
@@ -420,8 +630,9 @@ def advance_all(p: Particles, z0: ZFields, z1: ZFields, itime: int,
                 cfg: StepConfig, prm: StepParams,
                 tables: StepTablesQuad | None = None,
                 draws: dict | None = None, offset: int = 0):
-    """Advance every scheduled particle by one lsynctime interval: K4 for
-    particles on a CUDA device, the plain version for particles on the CPU.
+    """Advance every scheduled particle by one lsynctime interval: K4 (the
+    fixed step) or K11 (the adaptive step) for particles on a CUDA device,
+    the plain version for particles on the CPU.
 
     ``offset`` is the global index of particle 0 (the draw counter);
     ``tables`` may be shared across chunks (``advance_chunked`` does).
@@ -436,43 +647,95 @@ def advance_all(p: Particles, z0: ZFields, z1: ZFields, itime: int,
         tables = build_step_tables_quad(z0, z1, tw0, tw1, ew0, ew1,
                                         dtype=cfg.table_dtype)
     a = advance_args(cfg, prm, itime, memtime0, memtime1)
-    run = advance_all_cuda if dev.type == "cuda" else advance_all_plain
-    return run(p, z0.height, tables, a, key, cfg, draws, offset)
+    if dev.type == "cuda":
+        run = advance_adaptive_cuda if cfg.method == 1 else advance_all_cuda
+    else:
+        run = advance_all_plain
+    return run(p, z0.height, tables, a, key, cfg, draws, offset,
+               settle_met(z0, cfg))
 
 
-def advance_all_cuda(p: Particles, height: torch.Tensor,
-                     tables: StepTablesQuad, a: AdvanceArgs, key: rng.Key,
-                     cfg: StepConfig, draws: dict | None, offset: int):
-    """K4 launch: the whole advance of all ``p.capacity`` particles in one
-    kernel, out of place.  ``draws`` None: the kernel makes its draws in
-    registers from ``key``; else it reads the injected (rows, n) arrays."""
+def _check_inputs(p: Particles, height, tables, cfg: StepConfig, settle,
+                  fields, what: str) -> None:
+    """The kernels' inputs: contiguous tensors of the right type and shape
+    on the particles' device."""
     n = p.capacity
     dev = p.device
     i32 = torch.int32
-    if n >= 2 ** 31:
-        raise ValueError("K4 indexes particles with int32")
-    want = {"itra": i32, "itramem": i32, "cbt": torch.int8,
+    want = {"itra": i32, "itramem": i32, "idt": i32, "cbt": torch.int8,
             "active": torch.bool}
-    for name in _IN_FIELDS:
+    for name in fields:
         t = getattr(p, name)
         dt = want.get(name, torch.float32)
         if t.device != dev or t.dtype != dt or not t.is_contiguous() \
                 or t.shape != (n,):
-            raise ValueError(f"K4: particle field {name} must be contiguous "
-                             f"{dt} ({n},) on {dev}")
+            raise ValueError(f"{what}: particle field {name} must be "
+                             f"contiguous {dt} ({n},) on {dev}")
     r = (cfg.nz - 1) * cfg.ny * cfg.nx
     for name, lanes in (("rows", ROWS_LANES), ("rowsE", ROWS_E_LANES)):
         t = getattr(tables, name)
         if t.device != dev or t.dtype != cfg.table_dtype \
                 or t.shape != (r, lanes) or not t.is_contiguous() \
                 or t.data_ptr() % 16:
-            raise ValueError(f"K4: table {name} must be contiguous, 16-byte "
-                             f"aligned {cfg.table_dtype} ({r}, {lanes}) on "
-                             f"{dev}")
+            raise ValueError(f"{what}: table {name} must be contiguous, "
+                             f"16-byte aligned {cfg.table_dtype} ({r}, "
+                             f"{lanes}) on {dev}")
     if height.device != dev or height.dtype != torch.float32 \
             or height.shape != (cfg.nz,) or not height.is_contiguous():
-        raise ValueError(f"K4: height must be float32 ({cfg.nz},) on {dev}")
-    _check_draws(draws, n, dev, cfg.ifine)
+        raise ValueError(f"{what}: height must be float32 ({cfg.nz},) on "
+                         f"{dev}")
+    if cfg.settling:
+        if settle is None:
+            raise ValueError(f"{what}: settling needs the temperature and "
+                             "density fields (settle_met)")
+        for t in settle:
+            if t.device != dev or t.dtype != torch.float32 \
+                    or t.shape != (cfg.nz, cfg.ny, cfg.nx) \
+                    or not t.is_contiguous():
+                raise ValueError(f"{what}: settling fields must be "
+                                 f"contiguous float32 ({cfg.nz}, {cfg.ny}, "
+                                 f"{cfg.nx}) on {dev}")
+        m0 = p.mass0
+        if m0.device != dev or m0.dtype != torch.float32 \
+                or not m0.is_contiguous() or m0.dim() != 2 \
+                or m0.shape[0] != n:
+            raise ValueError(f"{what}: mass0 must be contiguous float32 "
+                             f"({n}, nspec) on {dev}")
+
+
+def _settle_ptrs(p: Particles, a: AdvanceArgs, settle):
+    """(mass0, temperature, density) pointers for the kernels, NULL without
+    settling."""
+    if not a.settling:
+        return None, None, None
+    if p.nspec != a.nspec:
+        raise ValueError(f"{p.nspec} species of mass, {a.nspec} of settling "
+                         "parameters")
+    return p.mass0.data_ptr(), settle[0].data_ptr(), settle[1].data_ptr()
+
+
+def advance_all_cuda(p: Particles, height: torch.Tensor,
+                     tables: StepTablesQuad, a: AdvanceArgs, key: rng.Key,
+                     cfg: StepConfig, draws: dict | None, offset: int,
+                     settle=None):
+    """K4 launch: the whole fixed-step advance of all ``p.capacity``
+    particles in one kernel, out of place.  ``draws`` None: the kernel makes
+    its draws in registers from ``key``; else it reads the injected
+    (rows, n) arrays.  ``settle``: ``settle_met``'s fields (K4's
+    ``SETTLING`` instantiation)."""
+    if cfg.method != 0:
+        raise ValueError("K4 is the fixed step; the adaptive step is K11 "
+                         "(advance_adaptive_cuda)")
+    n = p.capacity
+    dev = p.device
+    i32 = torch.int32
+    if n >= 2 ** 31:
+        raise ValueError("K4 indexes particles with int32")
+    if cfg.settling and cfg.turbswitch:
+        raise ValueError("K4 settles with turbswitch off only (a fixed step "
+                         "has ctl <= 0, so turbswitch is off in every run)")
+    _check_inputs(p, height, tables, cfg, settle, _IN_FIELDS, "K4")
+    _check_draws(draws, n, dev, cfg)
     zero = torch.zeros((), dtype=i32, device=dev)
     if n == 0:
         return p, StepDiag(n_active=zero, n_exited=zero, nan_count=zero)
@@ -494,28 +757,213 @@ def advance_all_cuda(p: Particles, height: torch.Tensor,
                        *(out[f].data_ptr() for f in OUT_FIELDS),
                        *injected, tables.rows.data_ptr(),
                        tables.rowsE.data_ptr(), height.data_ptr(),
+                       *_settle_ptrs(p, a, settle),
                        counts.data_ptr(), ctypes.addressof(a), stream)
     # only the CBL branch (not ported) can produce a non-finite wp
     return p.replace(**out), StepDiag(n_active=counts[0], n_exited=counts[1],
                                       nan_count=zero)
 
 
+# K11's particle fields: K4's and the adaptive step memory idt
+ADAPTIVE_IN_FIELDS = _IN_FIELDS + ("idt",)
+ADAPTIVE_OUT_FIELDS = OUT_FIELDS + ("idt",)
+
+
+def advance_adaptive_cuda(p: Particles, height: torch.Tensor,
+                          tables: StepTablesQuad, a: AdvanceArgs,
+                          key: rng.Key, cfg: StepConfig, draws: dict | None,
+                          offset: int, settle=None):
+    """K11 launch: the whole adaptive-step advance of all ``p.capacity``
+    particles in one kernel, out of place, a loop of passes inside each
+    thread, its draws made in registers (tags 1 and 2 with the pass in the
+    Philox counter).  K11 reads no injected draws: ``draws`` must be None
+    (the plain version takes them)."""
+    if cfg.method != 1:
+        raise ValueError("K11 is the adaptive step; the fixed step is K4 "
+                         "(advance_all_cuda)")
+    if draws is not None:
+        raise ValueError("K11 makes its draws in registers; injected draws "
+                         "are read by the plain version (particles on the "
+                         "CPU)")
+    n = p.capacity
+    dev = p.device
+    i32 = torch.int32
+    if n >= 2 ** 31:
+        raise ValueError("K11 indexes particles with int32")
+    _check_inputs(p, height, tables, cfg, settle, ADAPTIVE_IN_FIELDS, "K11")
+    zero = torch.zeros((), dtype=i32, device=dev)
+    out = {f: torch.empty_like(getattr(p, f)) for f in ADAPTIVE_OUT_FIELDS}
+    t_below = torch.empty(n, dtype=torch.float32, device=dev)
+    passes = torch.empty(n, dtype=i32, device=dev)
+    if n == 0:
+        return p, StepDiag(n_active=zero, n_exited=zero, nan_count=zero,
+                           t_below=t_below, passes=passes)
+    a.n = n
+    a.offset = offset
+    for s, tag in enumerate(DRAW_TAGS):
+        a.key[2 * s], a.key[2 * s + 1] = key.philox_key(tag)
+    counts = torch.zeros(2, dtype=i32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.ADVANCE_ADAPTIVE(
+            *(getattr(p, f).data_ptr() for f in ADAPTIVE_IN_FIELDS),
+            *(out[f].data_ptr() for f in ADAPTIVE_OUT_FIELDS),
+            t_below.data_ptr(), passes.data_ptr(),
+            tables.rows.data_ptr(), tables.rowsE.data_ptr(),
+            height.data_ptr(), *_settle_ptrs(p, a, settle),
+            counts.data_ptr(), ctypes.addressof(a), stream)
+    # only the CBL branch (not ported) can produce a non-finite wp
+    return p.replace(**out), StepDiag(
+        n_active=counts[0], n_exited=counts[1], nan_count=zero,
+        t_below=t_below, passes=passes)
+
+
+def _adaptive_interval_plain(cfg: StepConfig, a: AdvanceArgs, tables, hw,
+                             height, h, tropop, ust, wst, ol, z, up, vp, wp,
+                             icbt, idt, pbl0, scheduled, settle, draw,
+                             draw_pass, inject_passes: int):
+    """The adaptive interval (method=1; advance.f90:276-720;
+    ``_adaptive_interval`` of the JAX package): a loop of passes that ends
+    when no particle is active in it.  A particle is active while it is
+    scheduled, started in the boundary layer, has time left and is not
+    above h; each pass re-samples u, v, w, rho and drhodz at its z in the
+    frozen horizontal stencil (``wind10_quad``), advances the horizontal OU
+    velocities and the ifine vertical substeps with the pass's draws, picks
+    the next step, settles, clamps at the top, counts the time below 2 HREF
+    before the ground reflection and reflects.  A particle that rose above
+    h, or started above it, finishes the interval with one free-troposphere
+    step.  Each pass computes every particle and keeps the results of the
+    active ones, as JAX's masked loop does.  Returns a dict of the
+    interval's results."""
+    n = z.shape[0]
+    dev = z.device
+    turb_fn = hanna if cfg.turbswitch else hanna1
+    f32t = torch.float32
+    lsync = torch.full((n,), a.dt, dtype=f32t, device=dev)
+    zero = torch.zeros(n, dtype=f32t, device=dev)
+    st = dict(remaining=torch.where(pbl0, lsync, zero),
+              ldt=torch.clamp(idt.to(f32t), min=a.mintime),
+              z=z, up=up, vp=vp, wp=wp, icbt=icbt,
+              u=zero, v=zero, w=zero, daw=zero, dcw=zero, dxs=zero,
+              dys=zero, t_below=zero)
+    passes = torch.zeros(n, dtype=torch.int32, device=dev)
+    htop = height[-1] - a.htop_eps
+    k = 0
+    while True:
+        act = scheduled & pbl0 & (st["remaining"] > 0.0) & (st["z"] <= h)
+        if not bool(act.any()):
+            break
+        if inject_passes and k >= inject_passes:
+            raise ValueError(f"injected draws cover {inject_passes} passes; "
+                             f"{int(act.sum())} particles need more")
+        dt_i = torch.where(act, torch.minimum(st["ldt"], st["remaining"]),
+                           zero)
+        indz, dz1 = vert_weights(st["z"], height)
+        u, v, w, rhoa, drho = wind10_quad(tables.rows, hw, indz, dz1,
+                                          cfg.nx, cfg.ny)
+        turb = turb_fn(st["z"], h, ust, wst, ol)
+        rh = draw_pass(1, k)
+        up2 = _ou_update(st["up"], rh[0], turb.sigu, dt_i / turb.tlu)
+        vp2 = _ou_update(st["vp"], rh[1], turb.sigv, dt_i / turb.tlv)
+        z2, wp2, icbt2, turb_f = _pbl_vertical(
+            cfg, st["z"], st["wp"], st["icbt"], h, ust, wst, ol, rhoa, drho,
+            draw_pass(2, k), dt_i * a.fine)
+        ldt2 = _ldt_formula(cfg, a, turb_f, wp2, h)
+        w_eff = w if settle is None else w + settle(st["z"])
+        z3 = z2 + w_eff * dt_i * a.ldirf
+        z3 = torch.minimum(z3, htop)
+        # the deposition window (advance.f90:582-599): after the vertical
+        # update, before the ground reflection
+        t_below2 = st["t_below"] + torch.where(z3 < 2.0 * 15.0, dt_i, zero)
+        z3 = torch.where(z3 < 0.0, torch.minimum(h - 1e-9, -z3), z3)
+        new = dict(remaining=torch.clamp(st["remaining"] - dt_i, min=0.0),
+                   ldt=ldt2, z=z3, up=up2, vp=vp2, wp=wp2, icbt=icbt2,
+                   u=u, v=v, w=w_eff, daw=st["daw"] + up2 * dt_i,
+                   dcw=st["dcw"] + vp2 * dt_i, dxs=st["dxs"] + u * dt_i,
+                   dys=st["dys"] + v * dt_i, t_below=t_below2)
+        # every field of the carry is taken where the particle is active,
+        # kept where it is not (the JAX loop's sel)
+        for f, val in new.items():
+            st[f] = torch.where(act, val, st[f])
+        passes = passes + act.to(torch.int32)
+        k += 1
+
+    # ---- free-troposphere completion (advance.f90:629-708, goto 700):
+    # particles that started above the boundary layer (the whole interval)
+    # or left it with time to spare
+    zc = st["z"]
+    dt_ft = torch.where(pbl0, st["remaining"], lsync)
+    ft = dt_ft > 0.0
+    indz, dz1 = vert_weights(zc, height)
+    u_f, v_f, w_f, _, _ = wind10_quad(tables.rows, hw, indz, dz1,
+                                      cfg.nx, cfg.ny)
+    in_trop = zc < tropop
+    in_trans = (~in_trop) & (zc < tropop + 1000.0)
+    dt_s = torch.clamp(dt_ft, min=1e-6)
+    c_trop = _scalar_div(a.two_d_trop, dt_s)
+    c_strat = _scalar_div(a.two_d_strat, dt_s)
+    weight = torch.clamp(true_div(zc - tropop, 1000.0), 0.0, 1.0)
+    uxscale_tr = torch.sqrt(c_trop * (1.0 - weight))
+    wpscale_tr = torch.sqrt(c_strat * weight)
+    rft = draw(3)
+    ux = torch.where(in_trop, rft[0] * torch.sqrt(c_trop),
+                     torch.where(in_trans, rft[0] * uxscale_tr, zero))
+    vy = torch.where(in_trop, rft[1] * torch.sqrt(c_trop),
+                     torch.where(in_trans, rft[1] * uxscale_tr, zero))
+    wp_ft = torch.where(in_trop, zero,
+                        torch.where(in_trans,
+                                    rft[2] * wpscale_tr + a.d_strat_1000,
+                                    rft[2] * torch.sqrt(c_strat)))
+    if cfg.turboff:
+        ux, vy, wp_ft = zero, zero, zero
+    w_eff_f = w_f if settle is None else w_f + settle(zc)
+    dxs = torch.where(ft, st["dxs"] + (u_f + ux) * dt_ft, st["dxs"])
+    dys = torch.where(ft, st["dys"] + (v_f + vy) * dt_ft, st["dys"])
+    z_ft = zc + (w_eff_f + wp_ft) * dt_ft * a.ldirf
+    z_ft = torch.where(z_ft < 0.0, torch.minimum(h - 1e-9, -z_ft), z_ft)
+    ldt = torch.where(ft, torch.clamp(dt_ft, min=a.mintime), st["ldt"])
+    zc = torch.where(ft, z_ft, zc)
+
+    # ---- the mesoscale sigmas at the final z (advance.f90:601-605)
+    indz_f, _ = vert_weights(zc, height)
+    g = tables.rows[_cell_rowid(hw, indz_f, cfg.nx, cfg.ny)][:, 60:63] \
+        .to(f32t)
+    return dict(z=zc, up=st["up"], vp=st["vp"],
+                wp=torch.where(ft, wp_ft, st["wp"]), icbt=st["icbt"],
+                idt=_f32_to_i32(ldt), dxs=dxs, dys=dys, daw=st["daw"],
+                dcw=st["dcw"], u=torch.where(ft, u_f, st["u"]),
+                v=torch.where(ft, v_f, st["v"]),
+                w=torch.where(ft, w_eff_f, st["w"]),
+                usig=g[:, 0], vsig=g[:, 1], wsig=g[:, 2],
+                t_below=st["t_below"], passes=passes)
+
+
 def advance_all_plain(p: Particles, height: torch.Tensor,
                       tables: StepTablesQuad, a: AdvanceArgs, key: rng.Key,
-                      cfg: StepConfig, draws: dict | None, offset: int):
-    """The plain PyTorch version of K4: the same function in eager tensor
-    ops, both sides of every branch computed and selected."""
+                      cfg: StepConfig, draws: dict | None, offset: int,
+                      settle=None):
+    """The plain PyTorch version of K4 and K11: the same function in eager
+    tensor ops, both sides of every branch computed and selected."""
     n = p.capacity
     dev = p.device
     scheduled = p.active
     itime = a.itime
     rows = {**DRAW_ROWS, 2: cfg.ifine}
-    _check_draws(draws, n, dev, cfg.ifine)
+    inject_passes = _check_draws(draws, n, dev, cfg)
+    if cfg.settling and settle is None:
+        raise ValueError("settling needs the temperature and density "
+                         "fields (settle_met)")
 
     def draw(tag: int) -> torch.Tensor:
         if draws is not None:
             return draws[tag]
         return rng.normals(key, (rows[tag], n), tag, offset, device=dev)
+
+    def draw_pass(tag: int, k: int) -> torch.Tensor:
+        if draws is not None:
+            return draws[tag][k]
+        return rng.normals(key, (rows[tag], n), tag, offset, device=dev,
+                           pass_index=k)
 
     x = p.x
     y = p.y
@@ -532,6 +980,10 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
     in_trop = z < tropop
     in_trans = (~in_trop) & (z < tropop + 1000.0)
     turb_fn = hanna if cfg.turbswitch else hanna1
+    settle_at = None
+    if cfg.settling:
+        settle_at = _settle_fn(cfg, a, x, y, height, settle[0], settle[1],
+                               p.mass0)
 
     # -------- newly released particles (initialize.f90:110-219) --------
     fresh = scheduled & ((p.itramem == itime) | (itime == 0))
@@ -541,6 +993,9 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
     vp_i = torch.where(pbl, rnd_i[1] * turb_i.sigv, rnd_i[1] * 0.3)
     wp_raw = rnd_i[2] if cfg.turbswitch else rnd_i[2] * turb_i.sigw
     wp_i = torch.where(pbl, wp_raw, torch.zeros_like(wp_raw))
+    if cfg.turboff:
+        up_i, vp_i, wp_i = (torch.zeros_like(up_i), torch.zeros_like(vp_i),
+                            torch.zeros_like(wp_i))
     usig_i = rnd_i[3] * wind.usig * a.turbmeso
     vsig_i = rnd_i[4] * wind.vsig * a.turbmeso
     wsig_i = rnd_i[5] * wind.wsig * a.turbmeso
@@ -551,71 +1006,108 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
     p_vsig = torch.where(fresh, vsig_i, p.vsig)
     p_wsig = torch.where(fresh, wsig_i, p.wsig)
     p_cbt = torch.where(fresh, torch.ones_like(p.cbt), p.cbt)
+    p_idt = p.idt
+    if cfg.method == 1:
+        p_idt = torch.where(fresh, _initial_idt(cfg, a, turb_i, wp_i, h, pbl),
+                            p.idt)
 
     ldirf = a.ldirf
-
-    # ---------------- fixed-step PBL branch (advance.f90:276-615) -------
-    rnd_h = draw(1)
-    rnd_w = draw(2)
-    turb0 = turb_fn(z, h, ust, wst, ol)
-    up_pbl = _ou_update(p_up, rnd_h[0], turb0.sigu,
-                        _scalar_div(dt, turb0.tlu))
-    vp_pbl = _ou_update(p_vp, rnd_h[1], turb0.sigv,
-                        _scalar_div(dt, turb0.tlv))
-
-    z_pbl, wp_pbl, icbt = _pbl_vertical(
-        cfg, z, p_wp, p_cbt, h, ust, wst, ol, wind.rho, wind.drhodz, rnd_w,
-        a.dtf)
-    daw_pbl = up_pbl * dt
-    dcw_pbl = vp_pbl * dt
-    w_eff = w
-
-    dxs_pbl = u * dt
-    dys_pbl = v * dt
-    z_pbl = z_pbl + w_eff * dt * ldirf
-    z_pbl = torch.minimum(z_pbl, htop)
-    hm = h - 1e-9
-    z_pbl = torch.where(z_pbl < 0.0, torch.minimum(hm, -z_pbl), z_pbl)
-
-    # ------ free troposphere / stratosphere (advance.f90:629-708) ------
-    rnd_ft = draw(3)
-    weight = torch.clamp(true_div(z - tropop, 1000.0), 0.0, 1.0)
-    uxscale_tr = torch.sqrt(a.c_trop * (1.0 - weight))
-    wpscale_tr = torch.sqrt(a.c_strat * weight)
-
     zero = torch.zeros_like(z)
-    ux = torch.where(in_trop, rnd_ft[0] * a.uxscale_t,
-                     torch.where(in_trans, rnd_ft[0] * uxscale_tr, zero))
-    vy = torch.where(in_trop, rnd_ft[1] * a.uxscale_t,
-                     torch.where(in_trans, rnd_ft[1] * uxscale_tr, zero))
-    wp_ft = torch.where(in_trop, zero,
-                        torch.where(in_trans,
-                                    rnd_ft[2] * wpscale_tr + a.d_strat_1000,
-                                    rnd_ft[2] * a.wpscale_s))
+    hm = h - 1e-9
+    t_below = passes = None
+    if cfg.method == 1:
+        # ------------ the adaptive interval (advance.f90:276-720) ---------
+        res = _adaptive_interval_plain(
+            cfg, a, tables, hw, height, h, tropop, ust, wst, ol, z, p_up,
+            p_vp, p_wp, p_cbt, p_idt, pbl, scheduled, settle_at, draw,
+            draw_pass, inject_passes)
+        z_new = torch.minimum(res["z"], htop)
+        up_new, vp_new, wp_new = res["up"], res["vp"], res["wp"]
+        icbt = res["icbt"]
+        idt_new = res["idt"]
+        dxsave, dysave = res["dxs"], res["dys"]
+        dawsave, dcwsave = res["daw"], res["dcw"]
+        if cfg.turboff:
+            up_new, vp_new, dawsave, dcwsave = zero, zero, zero, zero
+        # the last-interpolated wind (w with its settling) for windalign
+        # and the corrector
+        u_ref, v_ref, w_ref = res["u"], res["v"], res["w"]
+        usig_w, vsig_w, wsig_w = res["usig"], res["vsig"], res["wsig"]
+        settling = zero if settle_at is None else settle_at(z_new)
+        # only a step of the whole interval takes the corrector (:829)
+        pett_gate = idt_new.to(torch.float32) == dt
+        t_below, passes = res["t_below"], res["passes"]
+    else:
+        # ---------------- fixed-step PBL branch (advance.f90:276-615) ---
+        rnd_h = draw(1)
+        rnd_w = draw(2)
+        turb0 = turb_fn(z, h, ust, wst, ol)
+        up_pbl = _ou_update(p_up, rnd_h[0], turb0.sigu,
+                            _scalar_div(dt, turb0.tlu))
+        vp_pbl = _ou_update(p_vp, rnd_h[1], turb0.sigv,
+                            _scalar_div(dt, turb0.tlv))
+        if cfg.turboff:
+            up_pbl, vp_pbl = zero, zero
 
-    dxs_ft = (u + ux) * dt
-    dys_ft = (v + vy) * dt
-    z_ft = z + (w_eff + wp_ft) * dt * ldirf
-    z_ft = torch.where(z_ft < 0.0, torch.minimum(hm, -z_ft), z_ft)
+        z_pbl, wp_pbl, icbt, _ = _pbl_vertical(
+            cfg, z, p_wp, p_cbt, h, ust, wst, ol, wind.rho, wind.drhodz,
+            rnd_w, a.dtf)
+        daw_pbl = up_pbl * dt
+        dcw_pbl = vp_pbl * dt
+        settling = zero if settle_at is None else settle_at(z)
+        w_eff = w + settling
 
-    # ---------------- merge branches ----------------
-    dxsave = torch.where(pbl, dxs_pbl, dxs_ft)
-    dysave = torch.where(pbl, dys_pbl, dys_ft)
-    dawsave = torch.where(pbl, daw_pbl, zero)
-    dcwsave = torch.where(pbl, dcw_pbl, zero)
-    z_new = torch.where(pbl, z_pbl, z_ft)
-    up_new = torch.where(pbl, up_pbl, p_up)
-    vp_new = torch.where(pbl, vp_pbl, p_vp)
-    wp_new = torch.where(pbl, wp_pbl, wp_ft)
-    icbt = torch.where(pbl, icbt, p_cbt)
-    u_ref, v_ref, w_ref = u, v, w_eff
+        dxs_pbl = u * dt
+        dys_pbl = v * dt
+        z_pbl = z_pbl + w_eff * dt * ldirf
+        z_pbl = torch.minimum(z_pbl, htop)
+        z_pbl = torch.where(z_pbl < 0.0, torch.minimum(hm, -z_pbl), z_pbl)
+
+        # ------ free troposphere / stratosphere (advance.f90:629-708) ----
+        rnd_ft = draw(3)
+        weight = torch.clamp(true_div(z - tropop, 1000.0), 0.0, 1.0)
+        uxscale_tr = torch.sqrt(a.c_trop * (1.0 - weight))
+        wpscale_tr = torch.sqrt(a.c_strat * weight)
+
+        ux = torch.where(in_trop, rnd_ft[0] * a.uxscale_t,
+                         torch.where(in_trans, rnd_ft[0] * uxscale_tr, zero))
+        vy = torch.where(in_trop, rnd_ft[1] * a.uxscale_t,
+                         torch.where(in_trans, rnd_ft[1] * uxscale_tr, zero))
+        wp_ft = torch.where(in_trop, zero,
+                            torch.where(in_trans,
+                                        rnd_ft[2] * wpscale_tr
+                                        + a.d_strat_1000,
+                                        rnd_ft[2] * a.wpscale_s))
+        if cfg.turboff:
+            ux, vy, wp_ft = zero, zero, zero
+
+        dxs_ft = (u + ux) * dt
+        dys_ft = (v + vy) * dt
+        z_ft = z + (w_eff + wp_ft) * dt * ldirf
+        z_ft = torch.where(z_ft < 0.0, torch.minimum(hm, -z_ft), z_ft)
+
+        # ---------------- merge branches ----------------
+        dxsave = torch.where(pbl, dxs_pbl, dxs_ft)
+        dysave = torch.where(pbl, dys_pbl, dys_ft)
+        dawsave = torch.where(pbl, daw_pbl, zero)
+        dcwsave = torch.where(pbl, dcw_pbl, zero)
+        z_new = torch.where(pbl, z_pbl, z_ft)
+        up_new = torch.where(pbl, up_pbl, p_up)
+        vp_new = torch.where(pbl, vp_pbl, p_vp)
+        wp_new = torch.where(pbl, wp_pbl, wp_ft)
+        icbt = torch.where(pbl, icbt, p_cbt)
+        u_ref, v_ref, w_ref = u, v, w_eff
+        usig_w, vsig_w, wsig_w = wind.usig, wind.vsig, wind.wsig
+        pett_gate = None
 
     # ------------ mesoscale fluctuations (advance.f90:720-738) ------------
     rnd_m = draw(4)
     r, rs = a.r_meso, a.rs_meso
-    usig_new = r * p_usig + rs * rnd_m[0] * wind.usig * a.turbmeso
-    vsig_new = r * p_vsig + rs * rnd_m[1] * wind.vsig * a.turbmeso
-    wsig_new = r * p_wsig + rs * rnd_m[2] * wind.wsig * a.turbmeso
+    usig_new = r * p_usig + rs * rnd_m[0] * usig_w * a.turbmeso
+    vsig_new = r * p_vsig + rs * rnd_m[1] * vsig_w * a.turbmeso
+    wsig_new = r * p_wsig + rs * rnd_m[2] * wsig_w * a.turbmeso
+    if cfg.turboff:
+        usig_new, vsig_new, wsig_new = zero, zero, zero
     dxsave = dxsave + usig_new * dt
     dysave = dysave + vsig_new * dt
     z_new = z_new + wsig_new * dt
@@ -644,12 +1136,16 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
 
     # ---------------- Petterssen corrector (advance.f90:816-986) ------------
     can_pett = (~exited) if a.can_pett else torch.zeros_like(exited)
+    if pett_gate is not None:
+        can_pett = can_pett & pett_gate
     xn = x_hi + x_lo
     yn = y_hi + y_lo
     hw2 = horiz_weights(xn, yn, cfg.nx, cfg.ny, cfg.xglobal)
     indz2, dz1_2 = vert_weights(z_new, height)
     u2, v2, w2 = interp_wind_short_quad(tables.rowsE, hw2, indz2, dz1_2,
                                         cfg.nx, cfg.ny)
+    if settle_at is not None:
+        w2 = w2 + settling
     du = (u2 - u_ref) / 2.0
     dv = (v2 - v_ref) / 2.0
     dw = (w2 - w_ref) / 2.0
@@ -694,11 +1190,17 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
         active=torch.where(scheduled, keep, p.active),
     )
     i32 = torch.int32
+    if cfg.method == 1:
+        # the next adaptive step is stored back (timemanager passes idt
+        # inout); t_below is the deposition window of scheduled particles
+        new_p = new_p.replace(idt=torch.where(scheduled, idt_new, p.idt))
+        t_below = torch.where(scheduled, t_below, zero)
     diag = StepDiag(
         n_active=new_p.active.sum(dtype=i32),
         n_exited=(scheduled & exited).sum(dtype=i32),
         # only the CBL branch (not ported) can produce a non-finite wp
         nan_count=torch.zeros((), dtype=i32, device=dev),
+        t_below=t_below, passes=passes,
     )
     return new_p, diag
 
@@ -707,14 +1209,15 @@ def advance_chunked(p: Particles, z0: ZFields, z1: ZFields, itime: int,
                     memtime0: int, memtime1: int, key: rng.Key,
                     cfg: StepConfig, prm: StepParams, n_chunks: int,
                     draws: dict | None = None):
-    """``advance_all`` with the tables built once: one K4 launch over all
-    particles on a CUDA device (the kernel holds no temporaries, so there
+    """``advance_all`` with the tables built once: one kernel launch over all
+    particles on a CUDA device (the kernels hold no temporaries, so there
     is nothing to chunk), ``n_chunks`` calls of the plain version on the
     CPU, which bounds its temporaries.
 
     Unlike JAX's ``fold_in(key, chunk)``, the draw counter is the global
     particle index, so without injected draws the result does not depend
-    on ``n_chunks``.  Injected draws are (rows, N) and sliced per chunk."""
+    on ``n_chunks``.  Injected draws are (rows, N) (the adaptive step's
+    tags 1 and 2: (K, rows, N)) and sliced per chunk."""
     cfg.check()
     n = p.capacity
     if n % n_chunks:
@@ -729,7 +1232,7 @@ def advance_chunked(p: Particles, z0: ZFields, z1: ZFields, itime: int,
     parts, diags = [], []
     for i in range(n_chunks):
         lo = i * b
-        d = None if draws is None else {t: v[:, lo:lo + b]
+        d = None if draws is None else {t: v[..., lo:lo + b]
                                         for t, v in draws.items()}
         pi, di = advance_all(p.rows(lo, lo + b), z0, z1, itime, memtime0,
                              memtime1, key, cfg, prm, tables=tables, draws=d,
@@ -742,6 +1245,11 @@ def advance_chunked(p: Particles, z0: ZFields, z1: ZFields, itime: int,
         return torch.stack([getattr(d, name) for d in diags]).sum(
             dtype=torch.int32)
 
+    def joined(name):
+        vals = [getattr(d, name) for d in diags]
+        return None if vals[0] is None else torch.cat(vals)
+
     return p2, StepDiag(n_active=total("n_active"),
                         n_exited=total("n_exited"),
-                        nan_count=total("nan_count"))
+                        nan_count=total("nan_count"),
+                        t_below=joined("t_below"), passes=joined("passes"))

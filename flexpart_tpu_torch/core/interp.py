@@ -3,8 +3,9 @@
 Port of the production path of ``flexpart_tpu/core/interp.py``: the
 per-step quad-corner row tables (``build_step_tables_quad``, kernel K2 on
 CUDA) and the single-index row gather that samples them
-(``sample_all_quad``, ``interp_wind_short_quad``).  The legacy, paired and
-blended variants belong to a later slice.
+(``sample_all_quad``, ``interp_wind_short_quad``, and the adaptive step's
+``wind10_quad``).  The legacy, paired and blended variants belong to a
+later slice.
 
 Index hygiene: JAX clamps out-of-range gather indices silently, torch
 raises on the CPU and asserts on CUDA.  ``horiz_weights`` clamps in float
@@ -259,6 +260,19 @@ def sample_all_quad(tables: StepTablesQuad, hw: HorizWeights, indz, dz1,
     (h, tropop, ust, wst, ol, WindInterp)."""
     g = tables.rows[_cell_rowid(hw, indz, nx, ny)].to(torch.float32)
     return _reduce_stencil15(g, hw, dz1, x, y)
+
+
+def wind10_quad(rows, hw: HorizWeights, indz, dz1, nx: int, ny: int):
+    """u, v, w, rho, drhodz only, from lanes 0-39 of the quad table: the
+    adaptive step's per-pass vertical re-sampling at a frozen horizontal
+    stencil (``core/interp.py:562-572`` there)."""
+    g = rows[_cell_rowid(hw, indz, nx, ny)][:, :40].to(torch.float32)
+    val = []
+    for f in range(5):
+        lev0 = _dot4(g, (2 * f) * 4, hw.p4)
+        lev1 = _dot4(g, (2 * f + 1) * 4, hw.p4)
+        val.append(lev0 * (1.0 - dz1) + lev1 * dz1)
+    return tuple(val)
 
 
 def interp_wind_short_quad(rowsE, hw: HorizWeights, indz, dz1,

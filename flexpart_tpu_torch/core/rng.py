@@ -1,10 +1,11 @@
 """Counter-based normal draws: the port of ``core/rng.py``'s draw backend.
 
-``normals(key, shape, tag, offset=0, device=...)`` gives clipped N(0,1)
-draws that depend only on (key, tag, global column index, row).  On a
-CUDA device they come from kernel K1 (``csrc/normals.cu``, a Philox4x32-10
-written by hand); on the CPU from ``normals_plain``, its twin, which
-computes the same Philox words with int64 tensors.
+``normals(key, shape, tag, offset=0, device=..., pass_index=0)`` gives
+clipped N(0,1) draws that depend only on (key, tag, global column index,
+row, pass).  On a CUDA device they come from kernel K1
+(``csrc/normals.cu``, a Philox4x32-10 written by hand); on the CPU from
+``normals_plain``, its twin, which computes the same Philox words with
+int64 tensors.
 
 The JAX package's default stream is threefry and its Pallas stream is the
 TPU hardware PRNG; neither can be reproduced here, so parity with JAX is
@@ -14,7 +15,9 @@ by contract (deterministic per key/tag/shape, distinct streams per tag,
 Columns are particles: the counter's first word is the *global* particle
 index (``offset`` + column), so a chunked advance draws the same numbers
 as an unchunked one.  Rows come four to a Philox call: rows 4q .. 4q+3 of a
-column are made from the four words of counter (index, q, 0, 0).  Words
+column are made from the four words of counter (index, q, pass, 0), where
+``pass`` is the pass of the adaptive advance's substep loop (tags 1 and 2
+there) and 0 for every other draw.  Words
 (0, 1) are one Box-Muller radius and angle and give rows 4q (cos) and 4q+1
 (sin); words (2, 3) give rows 4q+2 and 4q+3 alike.  A row count that is no
 multiple of four takes the leading rows of the next multiple.
@@ -24,7 +27,7 @@ plain twin) and consumes tensors.  On a CUDA device the advance kernel
 (``csrc/advance.cu``) makes the same numbers in registers, through the
 device functions of ``csrc/philox_normal.cuh`` that K1 is built from, with
 the key of ``Key.philox_key(tag)`` and the counter (offset + column,
-row // 4, 0, 0); K1 itself then serves the callers that want draws as a
+row // 4, pass, 0); K1 itself then serves the callers that want draws as a
 tensor (the advance's parity mode, the tests).
 """
 
@@ -99,7 +102,7 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
 
 
 def normals_plain(rows: int, cols: int, k0: int, k1: int, offset: int,
-                  device) -> torch.Tensor:
+                  device, pass_index: int = 0) -> torch.Tensor:
     """Plain PyTorch twin of K1: same counters, same Philox words, same
     transform."""
     i64 = torch.int64
@@ -108,8 +111,10 @@ def normals_plain(rows: int, cols: int, k0: int, k1: int, offset: int,
     blk = torch.arange(blocks, dtype=i64, device=device)
     c0 = col[None, :].expand(blocks, cols)
     c1 = blk[:, None].expand(blocks, cols)
+    c2 = torch.full((blocks, cols), pass_index & _MASK32, dtype=i64,
+                    device=device)
     zero = torch.zeros((blocks, cols), dtype=i64, device=device)
-    w = torch.stack(philox4x32_10(c0, c1, zero, zero, k0, k1), dim=1)
+    w = torch.stack(philox4x32_10(c0, c1, c2, zero, k0, k1), dim=1)
     # (blocks, pair, cols): words (0, 1) and (2, 3) are a radius and an angle
     u1 = 1.0 - (w[:, 0::2] >> 8).to(torch.float32) * _2M24
     u2 = (w[:, 1::2] >> 8).to(torch.float32) * _2M24
@@ -132,21 +137,23 @@ def uniforms_plain(n: int, k0: int, k1: int, device) -> torch.Tensor:
 
 
 def normals_cuda(rows: int, cols: int, k0: int, k1: int, offset: int,
-                 device) -> torch.Tensor:
+                 device, pass_index: int = 0) -> torch.Tensor:
     """K1 launch: (rows, cols) float32 on ``device`` (a CUDA device)."""
     out = torch.empty((rows, cols), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
-        _build.NORMALS(out.data_ptr(), rows, cols, k0, k1, offset, stream)
+        _build.NORMALS(out.data_ptr(), rows, cols, k0, k1, offset,
+                       pass_index & _MASK32, stream)
     return out
 
 
 def normals(key: Key, shape, tag: int = 0, offset: int = 0, *,
-            device) -> torch.Tensor:
+            device, pass_index: int = 0) -> torch.Tensor:
     """Clipped N(0,1) draws of ``shape`` (the last axis is the particle
-    axis) on ``device``: K1 on CUDA, the plain twin on the CPU."""
+    axis) on ``device``: K1 on CUDA, the plain twin on the CPU.
+    ``pass_index`` is the pass of the adaptive advance's substep loop."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     cols = shape[-1]
     rows = 1
@@ -155,9 +162,9 @@ def normals(key: Key, shape, tag: int = 0, offset: int = 0, *,
     k0, k1 = key.philox_key(tag)
     device = torch.device(device)
     if device.type == "cuda":
-        z = normals_cuda(rows, cols, k0, k1, offset, device)
+        z = normals_cuda(rows, cols, k0, k1, offset, device, pass_index)
     elif device.type == "cpu":
-        z = normals_plain(rows, cols, k0, k1, offset, device)
+        z = normals_plain(rows, cols, k0, k1, offset, device, pass_index)
     else:
         raise ValueError(f"no normals backend for device {device}")
     return z.reshape(shape)

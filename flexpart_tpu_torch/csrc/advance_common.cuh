@@ -1,0 +1,770 @@
+// The device functions of the particle advance, shared by the fixed step
+// (K4, advance.cu) and the adaptive step (K11, advance_adaptive.cu): the run
+// scalars, the table loads and the stencil sums, Hanna turbulence, the OU
+// update, the ground reflection, the polar-stereographic update, the cyclic
+// and pole boundary conditions, gravitational settling, and the parts of a
+// step that both advances share: its start (the row gather and the
+// stencil), a fresh particle's velocities, the ifine vertical substeps of
+// the boundary layer, the free troposphere's turbulent terms, the
+// mesoscale draws and the end of the step (mesoscale memory, windalign,
+// the double-single position update, the polar caps, the boundary
+// conditions and the Petterssen corrector).  Each is the plain version's arithmetic
+// in its order (core/advance.py, core/hanna.py, core/interp.py); the
+// kernels build with -fmad=false.
+#pragma once
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "cell_index.cuh"
+#include "philox_normal.cuh"
+
+#define F(x) static_cast<float>(x)
+
+// Run scalars; mirrored field for field by core/advance.py::AdvanceArgs.
+struct AdvanceArgs {
+  long long offset;    // global index of particle 0 (the draw counter)
+  int n;
+  int nx;
+  int ny;
+  int nz;
+  int xglobal;
+  int turbswitch;
+  int ifine;
+  int table_bf16;
+  int polar;           // the grid takes the polar-cap update (POLAR)
+  int can_pett;        // host decision: the interval ends inside the met window
+  int itime;
+  int itra_new;
+  uint32_t key[10];    // (k0, k1) for the draw tags 6, 1, 2, 3, 4
+  float dt;            // lsynctime
+  float dtf;           // f32(dt) * f32(fine)
+  float ldirf;
+  float htop_eps;
+  float c_trop;        // f32(2 D_TROP) / f32(dt)
+  float c_strat;       // f32(2 D_STRAT) / f32(dt)
+  float uxscale_t;     // sqrt(c_trop)
+  float wpscale_s;     // sqrt(c_strat)
+  float d_strat_1000;  // D_STRAT / 1000
+  float r_meso;
+  float rs_meso;
+  float turbmeso;
+  float pi180;
+  float dx;
+  float dy;
+  float ylat0;
+  float xlon0;         // grid lon origin of the polar-cap projection
+  float dxconst;
+  float dyconst;
+  float nxm;           // nx - 1
+  float nym;           // ny - 1
+  float two_nym;
+  float eps_bc;
+  float nxm_eps;       // f32(nxm) - f32(eps_bc)
+  int method;          // 0: the fixed step (K4), 1: the adaptive step (K11)
+  int turboff;         // every turbulent term zeroed
+  int settling;        // gravitational settling (the SETTLING instantiations)
+  int nspec;           // species of mass0 and of the settling parameters
+  float fine;          // 1 / ifine
+  float ctl;           // TL / dt of the adaptive step
+  float mintime;       // shortest adaptive step [s]
+  float two_d_trop;    // f32(2 D_TROP)
+  float two_d_strat;   // f32(2 D_STRAT)
+  float sp_density[32];     // per species (MAX_SPECIES) settling parameters
+  float sp_dquer[32];
+  float sp_cunningham[32];
+  float sp_vsetaver[32];
+};
+
+constexpr int MAX_SPECIES = 32;   // the arrays of AdvanceArgs
+
+namespace {
+
+constexpr double PI = 3.14159265358979323846;
+constexpr double PI180 = PI / 180.0;
+constexpr double R_EARTH = 6.371e6;
+constexpr double SWITCHNORTH = 75.0;    // polar-cap thresholds (par_mod.f90:123)
+constexpr double SWITCHSOUTH = -75.0;
+constexpr double GA = 9.81;             // constants.py
+constexpr float TWO_HREF = 30.0f;       // the deposition layer, 2 * 15 m
+
+struct PIn {
+  const float *x_hi, *x_lo, *y_hi, *y_lo, *z;
+  const int *itra, *itramem;
+  const float *up, *vp, *wp, *usig, *vsig, *wsig;
+  const int8_t* cbt;
+  const uint8_t* active;
+};
+
+struct POut {
+  float *x_hi, *x_lo, *y_hi, *y_lo, *z;
+  int* itra;
+  float *up, *vp, *wp, *usig, *vsig, *wsig;
+  int8_t* cbt;
+  uint8_t* active;
+};
+
+struct Draws {
+  const float* d[5];   // tags 6, 1, 2, 3, 4; all null: draw in registers
+};
+
+struct Turb {
+  float sigu, sigv, sigw, dsigwdz, dsigw2dz, tlu, tlv, tlw;
+};
+
+// torch.minimum / clamp semantics: a NaN operand comes through.
+__device__ __forceinline__ float tmin(float a, float b) {
+  return (a != a || a < b) ? a : b;
+}
+__device__ __forceinline__ float tmax(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return x < lo ? lo : x;
+}
+using fp::clamp;
+using fp::Horiz;
+using fp::horiz_weights;
+using fp::vert_weights;
+
+// Error-free two-sum accumulate (core/state.py::ds_add); the intrinsics
+// are never contracted or reassociated.
+__device__ __forceinline__ void ds_add(float& hi, float& lo, float d) {
+  const float s = __fadd_rn(hi, d);
+  const float bb = __fsub_rn(s, hi);
+  const float err = __fadd_rn(__fsub_rn(hi, __fsub_rn(s, bb)), __fsub_rn(d, bb));
+  const float lo2 = __fadd_rn(lo, err);
+  const float hi2 = __fadd_rn(s, lo2);
+  lo = __fsub_rn(lo2, __fsub_rn(hi2, s));
+  hi = hi2;
+}
+
+// Lanes 8*group .. 8*group+7 of one row of a table of LANES lanes, as f32.
+template <bool BF16, int LANES>
+__device__ __forceinline__ void load8(const void* table, size_t row, int group,
+                                      float* out) {
+  if (BF16) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(
+        static_cast<const char*>(table) + row * (2 * LANES)) + group);
+    out[0] = __uint_as_float(q.x << 16);
+    out[1] = __uint_as_float(q.x & 0xFFFF0000u);
+    out[2] = __uint_as_float(q.y << 16);
+    out[3] = __uint_as_float(q.y & 0xFFFF0000u);
+    out[4] = __uint_as_float(q.z << 16);
+    out[5] = __uint_as_float(q.z & 0xFFFF0000u);
+    out[6] = __uint_as_float(q.w << 16);
+    out[7] = __uint_as_float(q.w & 0xFFFF0000u);
+  } else {
+    const float4* p = reinterpret_cast<const float4*>(
+        static_cast<const char*>(table) + row * (4 * LANES)) + 2 * group;
+    const float4 a = __ldg(p);
+    const float4 b = __ldg(p + 1);
+    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+  }
+}
+
+// sum_c g[base+c] * p4[c], corners left to right.
+__device__ __forceinline__ float dot4(const float* g, int base, const float* p4) {
+  return ((g[base] * p4[0] + g[base + 1] * p4[1]) + g[base + 2] * p4[2])
+         + g[base + 3] * p4[3];
+}
+
+// One wind-like field: two levels of four corners at g[8f..8f+7].
+__device__ __forceinline__ float field2(const float* g, int f, const float* p4,
+                                        float dz1) {
+  const float lev0 = dot4(g, 8 * f, p4);
+  const float lev1 = dot4(g, 8 * f + 4, p4);
+  return lev0 * (1.0f - dz1) + lev1 * dz1;
+}
+
+__device__ __forceinline__ float small_ol(float ol) {
+  if (fabsf(ol) < F(1e-6)) {
+    const float s = ol > 0.0f ? 1.0f : (ol < 0.0f ? -1.0f : 0.0f);
+    return s * F(1e-6) + F(1e-12);
+  }
+  return ol;
+}
+
+// Unstable-regime TL_w (hanna.f90:76-83).
+__device__ __forceinline__ float tlw_unstable(float z, float zeta, float ol,
+                                              float h, float sigw) {
+  sigw = clamp_min(sigw, F(1.0e-6));
+  if (z < fabsf(ol))
+    return (F(0.1) * z) / (sigw * (F(0.55) - F(0.38) * fabsf(z / ol)));
+  if (zeta < F(0.1)) return (F(0.59) * z) / sigw;
+  return ((F(0.15) * h) / sigw) * (1.0f - expf(-5.0f * zeta));
+}
+
+// core/hanna.py::hanna (TS) and ::hanna1 (!TS): only the particle's own
+// stability regime is computed.
+template <bool TS>
+__device__ Turb hanna(float z, float h, float ust, float wst, float ol) {
+  const float zeta = clamp(z / h, 0.0f, 1.0f);
+  ust = clamp_min(ust, F(1.0e-4));
+  const float ols = small_ol(ol);
+  const bool neutral = h / fabsf(ols) < 1.0f;
+  const bool unstable = !neutral && ols < 0.0f;
+  Turb t;
+  t.dsigwdz = 0.0f;
+  t.dsigw2dz = 0.0f;
+  if (neutral) {
+    const float corr = z / ust;
+    float tl;
+    if (TS) {
+      t.sigu = F(1.0e-2) + (2.0f * ust) * expf(F(-3.0e-4) * corr);
+      const float sigw_n0 = (F(1.3) * ust) * expf(F(-2.0e-4) * corr);
+      t.dsigwdz = F(-2.0e-4) * sigw_n0;
+      t.sigw = sigw_n0 + F(1.0e-2);
+    } else {
+      t.sigu = clamp_min((2.0f * ust) * expf(F(-3.0e-4) * corr), F(1.0e-5));
+      t.sigw = clamp_min((F(1.3) * ust) * expf(F(-2.0e-4) * corr), F(1.0e-5));
+      t.dsigw2dz = (F(-6.76e-4) * ust) * expf(F(-4.0e-4) * corr);
+    }
+    tl = ((0.5f * z) / t.sigw) / (1.0f + F(1.5e-3) * corr);
+    t.sigv = t.sigw;
+    t.tlu = tl;
+    t.tlv = tl;
+    t.tlw = tl;
+  } else if (unstable) {
+    const float base = 12.0f - (0.5f * h) / ols;
+    if (TS) {
+      const float zeta_c = clamp_min(zeta, F(1.0e-3));
+      t.sigu = F(1.0e-2) + ust * powf(base, F(1.0 / 3.0));
+      const float p23 = powf(zeta_c, F(2.0 / 3.0));
+      t.sigw = sqrtf(clamp_min(
+                   ((F(1.2) * (wst * wst)) * (1.0f - F(0.9) * zeta)) * p23
+                       + (F(1.8) - F(1.4) * zeta) * (ust * ust),
+                   F(1e-12))) + F(1.0e-2);
+      t.dsigwdz = ((0.5f / t.sigw) / h)
+                  * (F(-1.4) * (ust * ust)
+                     + (wst * wst) * (F(0.8) * powf(zeta_c, F(-1.0 / 3.0))
+                                      - F(1.8) * p23));
+    } else {
+      t.sigu = clamp_min(ust * powf(base, F(1.0 / 3.0)), F(1.0e-6));
+      const float zeta_c = clamp_min(zeta, F(1.0e-4));
+      const float a = clamp_min(3.0f * zeta_c - ols / h, F(1e-8));
+      // sigw profile: s1 below 0.03, min(s1, s2) below 0.4, s3 below 0.96,
+      // then the constant s4
+      const bool low = zeta < F(0.03);
+      const bool mid = !low && zeta < F(0.4);
+      float fac = F(0.37);
+      float ds = 0.0f;
+      if (low || mid) {
+        fac = F(0.96) * powf(a, F(1.0 / 3.0));
+        const float s2 = mid ? F(0.763) * powf(zeta_c, F(0.175)) : 0.0f;
+        if (low || fac < s2) {
+          ds = (((F(1.8432) * wst) * wst) / h) * powf(a, F(-1.0 / 3.0));
+        } else {
+          fac = s2;
+          ds = (((F(0.203759) * wst) * wst) / h) * powf(zeta_c, F(-0.65));
+        }
+      } else if (zeta < F(0.96)) {
+        const float omz = clamp_min(1.0f - zeta, F(1e-6));
+        fac = F(0.722) * powf(omz, F(0.207));
+        ds = (((F(-0.215812) * wst) * wst) / h) * powf(omz, F(-0.586));
+      }
+      t.sigw = clamp_min(wst * fac, F(1.0e-6));
+      t.dsigw2dz = ds;
+    }
+    t.sigv = t.sigu;
+    t.tlu = (F(0.15) * h) / t.sigu;
+    t.tlv = t.tlu;
+    t.tlw = tlw_unstable(z, zeta, ols, h, t.sigw);
+  } else {
+    const float omz = 1.0f - zeta;
+    float tlu_s;
+    if (TS) {
+      const float zeta_c = clamp_min(zeta, F(1.0e-3));
+      t.sigu = F(1.0e-2) + (2.0f * ust) * omz;
+      t.sigv = F(1.0e-2) + (F(1.3) * ust) * omz;
+      t.dsigwdz = (F(-1.3) * ust) / h;
+      tlu_s = ((F(0.15) * h) / clamp_min(t.sigu, F(1e-6))) * sqrtf(zeta_c);
+      t.tlw = ((F(0.1) * h) / clamp_min(t.sigv, F(1e-6)))
+              * powf(zeta_c, F(0.8));
+    } else {
+      const float zeta_c = clamp_min(zeta, F(1e-8));
+      t.sigu = clamp_min((2.0f * ust) * omz, F(1.0e-6));
+      t.sigv = clamp_min((F(1.3) * ust) * omz, F(1.0e-6));
+      t.dsigw2dz = (((F(3.38) * ust) * ust) * (zeta - 1.0f)) / h;
+      tlu_s = ((F(0.15) * h) / t.sigu) * sqrtf(zeta_c);
+      t.tlw = ((F(0.1) * h) / t.sigv) * powf(zeta_c, F(0.8));
+    }
+    t.sigw = t.sigv;
+    t.tlu = tlu_s;
+    t.tlv = F(0.467) * tlu_s;
+  }
+  t.tlu = clamp_min(t.tlu, 10.0f);
+  t.tlv = clamp_min(t.tlv, 10.0f);
+  t.tlw = clamp_min(t.tlw, 30.0f);
+  if (TS && t.dsigwdz == 0.0f) t.dsigwdz = F(1.0e-10);
+  return t;
+}
+
+// Exact/linearized OU velocity update with the 0.5 switch
+// (advance.f90:371-384).
+__device__ __forceinline__ float ou_update(float vel, float rnd, float sig,
+                                           float dt_over_tl) {
+  if (dt_over_tl < 0.5f)
+    return (1.0f - dt_over_tl) * vel
+           + (rnd * sig) * sqrtf(2.0f * dt_over_tl);
+  const float r = expf(-dt_over_tl);
+  return r * vel + (rnd * sig) * sqrtf(clamp_min(1.0f - r * r, 0.0f));
+}
+
+// z < 0 -> min(hm, -z): the ground reflection of the position update.
+__device__ __forceinline__ float reflect_ground(float z, float hm) {
+  return z < 0.0f ? tmin(hm, -z) : z;
+}
+
+// Cyclic longitude + pole mirroring for global grids; exit detection
+// (advance.f90:784-808).  Returns exited.
+__device__ __forceinline__ bool apply_bcs(const AdvanceArgs& a, float& x_hi,
+                                          float& x_lo, float& y_hi,
+                                          float& y_lo) {
+  const float x = x_hi + x_lo;
+  const float y = y_hi + y_lo;
+  if (!a.xglobal)
+    return (x < 0.0f) || (x >= a.nxm) || (y < 0.0f) || (y > a.nym);
+  float xw = x >= a.nxm ? x - a.nxm : x;
+  xw = x < 0.0f ? x + a.nxm : xw;
+  xw = xw <= a.eps_bc ? a.eps_bc : xw;
+  xw = fabsf(xw - a.nxm) <= a.eps_bc ? a.nxm_eps : xw;
+  const bool crossed_s = y < 0.0f;
+  const bool crossed_n = y > a.nym;
+  if (crossed_s || crossed_n) {
+    // torch.remainder: fmod, then the divisor is added when the signs differ
+    float m = fmodf(xw * a.dx + 180.0f, 360.0f);
+    if (m != 0.0f && m < 0.0f) m += 360.0f;
+    xw = m / a.dx;
+  }
+  float yw = crossed_s ? -y : y;
+  yw = crossed_n ? a.two_nym - yw : yw;
+  if (xw != x) { x_hi = xw; x_lo = 0.0f; }
+  if (yw != y) { y_hi = yw; y_lo = 0.0f; }
+  return (xw < 0.0f) || (xw >= a.nxm) || (yw < 0.0f) || (yw > a.nym);
+}
+
+// Polar-stereographic position update inside the caps (advance.f90:754-778;
+// core/advance.py::_polar_update): a particle at (x, y) poleward of +-75
+// degrees that moved (dxs, dys) metres east and north is moved on the
+// tangent plane of its pole, and (x_hi, x_lo, y_hi, y_lo) become its new
+// position with zero low parts.  Particles outside the caps are untouched.
+__device__ __forceinline__ void polar_update(const AdvanceArgs& a, float x,
+                                             float y, float dxs, float dys,
+                                             float& x_hi, float& x_lo,
+                                             float& y_hi, float& y_lo) {
+  const float lat = (a.ylat0 + y * a.dy) * a.pi180;
+  const bool north = lat > F(SWITCHNORTH * PI180);
+  if (!north && !(lat < F(SWITCHSOUTH * PI180))) return;
+  const float lon = (a.xlon0 + x * a.dx) * a.pi180;
+  const float sinl = sinf(lon);
+  const float cosl = cosf(lon);
+  float lat_new, lon_new;
+  if (north) {
+    // X = rho sin(lon), Y = -rho cos(lon)
+    const float half = F(PI / 4.0) - lat / 2.0f;
+    const float rho = F(2.0 * R_EARTH) * tanf(half);
+    const float ch = cosf(half);
+    const float m = 1.0f / (ch * ch);
+    const float dxp = ((dxs * cosl - dys * sinl) * m) * a.ldirf;
+    const float dyp = ((dxs * sinl + dys * cosl) * m) * a.ldirf;
+    const float xpl = rho * sinl + dxp;
+    const float ypl = (-rho) * cosl + dyp;
+    lat_new = F(PI / 2.0) - 2.0f * atanf(hypotf(xpl, ypl) / F(2.0 * R_EARTH));
+    lon_new = atan2f(xpl, -ypl);
+  } else {
+    // X = rho sin(lon), Y = +rho cos(lon)
+    const float half = F(PI / 4.0) + lat / 2.0f;
+    const float rho = F(2.0 * R_EARTH) * tanf(half);
+    const float ch = cosf(half);
+    const float m = 1.0f / (ch * ch);
+    const float dxp = ((dxs * cosl + dys * sinl) * m) * a.ldirf;
+    const float dyp = (((-dxs) * sinl + dys * cosl) * m) * a.ldirf;
+    const float xps = rho * sinl + dxp;
+    const float yps = rho * cosl + dyp;
+    lat_new = F(-(PI / 2.0)) + 2.0f * atanf(hypotf(xps, yps) / F(2.0 * R_EARTH));
+    lon_new = atan2f(xps, yps);
+  }
+  lat_new = lat_new / a.pi180;
+  lon_new = lon_new / a.pi180;
+  // back to grid units, wrapped with the cyclic width nx - 1
+  float xg = (lon_new - a.xlon0) / a.dx;
+  xg = xg < 0.0f ? xg + a.nxm : xg;
+  xg = xg >= a.nxm ? xg - a.nxm : xg;
+  x_hi = xg;
+  x_lo = 0.0f;
+  y_hi = (lat_new - a.ylat0) / a.dy;
+  y_lo = 0.0f;
+}
+
+// Sutherland's law (dynamic_viscosity.f90), core/advance.py::_viscosity.
+__device__ __forceinline__ float viscosity(float t) {
+  return (F(1.827e-5 * (291.15 + 120.0)) / (t + 120.0f))
+         * powf(t / F(291.15), 1.5f);
+}
+
+// The iterative Reynolds/Cd settling velocity of get_settling.f90:100-127,
+// five fixed iterations (core/advance.py::_settling_velocity); negative, 0
+// for a gas (density <= 0).
+__device__ float settling_velocity(float dquer, float density, float cunningham,
+                                   float vsetaver, float temp, float rhoa) {
+  if (!(density > 0.0f)) return 0.0f;
+  const float vis_kin = viscosity(temp) / rhoa;
+  const float d_m = dquer / F(1.0e6);
+  float settl = vsetaver;
+  float reynolds = (d_m * fabsf(settl)) / vis_kin;
+  const float dens_pos = density < 0.0f ? 0.0f : density;
+  for (int it = 0; it < 5; ++it) {
+    const float re = clamp_min(reynolds, F(1e-12));
+    const float c_d = re < F(1.917) ? 24.0f / re
+                      : (re < 500.0f ? F(18.5) / powf(re, F(0.6)) : F(0.44));
+    settl = -sqrtf((((F(4.0 * GA) * d_m) * dens_pos) * cunningham)
+                   / ((3.0f * c_d) * rhoa));
+    reynolds = (d_m * fabsf(settl)) / vis_kin;
+  }
+  return settl;
+}
+
+// What settling needs of a particle for its whole step: its nearest grid
+// column (round half to even, clipped) and its settling species, the
+// first one it carries release mass of (core/advance.py::_settle_fn and
+// settling_species).
+struct Settle {
+  int col;
+  int sp;
+};
+
+__device__ __forceinline__ Settle settle_setup(const AdvanceArgs& a,
+                                               const float* mass0, long long i,
+                                               float x, float y) {
+  Settle s;
+  const int nix = min(max(__float2int_rn(x), 0), a.nx - 1);
+  const int njy = min(max(__float2int_rn(y), 0), a.ny - 1);
+  s.col = njy * a.nx + nix;
+  s.sp = 0;
+  for (int k = 0; k < a.nspec; ++k) {
+    if (mass0[i * a.nspec + k] > F(1e-30)) { s.sp = k; break; }
+  }
+  return s;
+}
+
+// The settling velocity at height zc in the particle's column: temperature
+// and density of the interval's first met time, linear in z.
+__device__ __forceinline__ float settle_at(const AdvanceArgs& a, const Settle& s,
+                                           const float* __restrict__ tt,
+                                           const float* __restrict__ rho,
+                                           const float* sh_height, float zc) {
+  int indz;
+  float dz1;
+  vert_weights(sh_height, a.nz, zc, indz, dz1);
+  const size_t plane = static_cast<size_t>(a.ny) * a.nx;
+  const size_t lin = static_cast<size_t>(indz) * plane + s.col;
+  const float temp = __ldg(tt + lin) * (1.0f - dz1) + __ldg(tt + lin + plane) * dz1;
+  const float rhoa = __ldg(rho + lin) * (1.0f - dz1) + __ldg(rho + lin + plane) * dz1;
+  return settling_velocity(a.sp_dquer[s.sp], a.sp_density[s.sp],
+                           a.sp_cunningham[s.sp], a.sp_vsetaver[s.sp], temp,
+                           rhoa);
+}
+
+// Draw `row` of particle i from an injected (rows, n) array (K4's parity
+// mode).
+__device__ __forceinline__ float injected_at(const float* d,
+                                             const AdvanceArgs& a, long long i,
+                                             int row) {
+  return d[static_cast<size_t>(row) * a.n + i];
+}
+
+// The Philox words of rows 4 * block .. 4 * block + 3 of particle i at draw
+// site `site` (0-4 for the tags 6, 1, 2, 3, 4) in pass `pass` (0 but in the
+// adaptive step's loop), for fp::normal_pair.
+__device__ __forceinline__ void site_words(uint32_t w[4], const AdvanceArgs& a,
+                                           int site, long long i,
+                                           uint32_t block, uint32_t pass = 0u) {
+  fp::normal_words(w, a.key[2 * site], a.key[2 * site + 1], a.offset + i, block,
+                   pass);
+}
+
+// What the start of a step reads of the particle's cell: ONE row gather of
+// the (R, 64) quad table at (x, y, z) and the stencil sums.
+struct Start {
+  Horiz hw;
+  float u, v, w, rho, drhodz;      // at z
+  float usig_m, vsig_m, wsig_m;    // mesoscale sigmas of the cell
+  float h, tropop, ust, wst, ol;
+};
+
+template <bool BF16>
+__device__ __forceinline__ Start step_start(const AdvanceArgs& a,
+                                            const void* __restrict__ rows,
+                                            const float* sh_height, float x,
+                                            float y, float z) {
+  Start s;
+  s.hw = horiz_weights(x, y, a.nx, a.ny);
+  int indz;
+  float dz1;
+  vert_weights(sh_height, a.nz, z, indz, dz1);
+  const size_t row = fp::cell_row(indz, s.hw.jy, s.hw.ix, a.ny, a.nx);
+  float g[64];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) load8<BF16, 64>(rows, row, k, &g[8 * k]);
+
+  s.u = field2(g, 0, s.hw.p4, dz1);
+  s.v = field2(g, 1, s.hw.p4, dz1);
+  s.w = field2(g, 2, s.hw.p4, dz1);
+  s.rho = field2(g, 3, s.hw.p4, dz1);
+  s.drhodz = field2(g, 4, s.hw.p4, dz1);
+  s.usig_m = g[60];
+  s.vsig_m = g[61];
+  s.wsig_m = g[62];
+  s.h = clamp_min(tmax(tmax(tmax(g[40], g[41]), g[42]), g[43]), 1.0f);
+  const bool ix_n = (x - static_cast<float>(s.hw.ix)) >= 0.5f;
+  const bool iy_n = (y - static_cast<float>(s.hw.jy)) >= 0.5f;
+  s.tropop = iy_n ? (ix_n ? g[47] : g[46]) : (ix_n ? g[45] : g[44]);
+  s.ust = dot4(g, 48, s.hw.p4);
+  s.wst = dot4(g, 52, s.hw.p4);
+  const float oliaux = dot4(g, 56, s.hw.p4);
+  s.ol = oliaux != 0.0f ? 1.0f / oliaux : 99999.0f;
+  return s;
+}
+
+// A newly released particle (initialize.f90:110-219): its turbulent
+// velocities from tag 6 rows 0-2 (in the boundary layer from the
+// turbulence t0 at its height), its mesoscale memory from rows 3-5 and
+// cbt = 1.  Tag 6 rows 0-5 are two Philox calls and three radii.
+template <bool TS>
+__device__ __forceinline__ void fresh_state(const AdvanceArgs& a,
+                                            const Draws& dr, bool injected,
+                                            long long i, bool pbl,
+                                            const Turb& t0, const Start& s,
+                                            float& up, float& vp, float& wp,
+                                            float& usig, float& vsig,
+                                            float& wsig, int& cbt) {
+  float r0, r1, r2, r3, r4, r5;
+  if (injected) {
+    r0 = injected_at(dr.d[0], a, i, 0);
+    r1 = injected_at(dr.d[0], a, i, 1);
+    r2 = injected_at(dr.d[0], a, i, 2);
+    r3 = injected_at(dr.d[0], a, i, 3);
+    r4 = injected_at(dr.d[0], a, i, 4);
+    r5 = injected_at(dr.d[0], a, i, 5);
+  } else {
+    uint32_t w6[4];
+    site_words(w6, a, 0, i, 0);
+    fp::normal_pair(w6[0], w6[1], r0, r1);
+    fp::normal_pair(w6[2], w6[3], r2, r3);
+    site_words(w6, a, 0, i, 1);
+    fp::normal_pair(w6[0], w6[1], r4, r5);
+  }
+  if (pbl) {
+    up = r0 * t0.sigu;
+    vp = r1 * t0.sigv;
+    wp = TS ? r2 : r2 * t0.sigw;
+  } else {
+    up = r0 * F(0.3);
+    vp = r1 * F(0.3);
+    wp = 0.0f;
+  }
+  if (a.turboff) {
+    up = 0.0f;
+    vp = 0.0f;
+    wp = 0.0f;
+  }
+  usig = (r3 * s.usig_m) * a.turbmeso;
+  vsig = (r4 * s.vsig_m) * a.turbmeso;
+  wsig = (r5 * s.wsig_m) * a.turbmeso;
+  cbt = 1;
+}
+
+// The ifine vertical Langevin substeps of the boundary layer
+// (advance.f90:396-498) over dtf = dt / ifine each, from the turbulence t
+// at the start height and the density gradient term rhoaux: zz, wp and cbt
+// are advanced in place with the ground/hmix reflection.  Tag 2 row s of
+// pass `pass` is the substep's draw: row 0 is d2; an odd row was made with
+// the even row before it (d2_odd); every fourth row starts a new Philox
+// call into pw, which holds the words of row 0's call.  `injected` reads
+// row s from d2in instead (K4's parity mode).  Hanna is refreshed at zz
+// between substeps, not after the last; that last refresh is returned
+// (the adaptive step's next ldt reads it).
+template <bool TS>
+__device__ __forceinline__ Turb pbl_substeps(
+    const AdvanceArgs& a, const float* d2in, bool injected, long long i,
+    uint32_t pass, Turb t, float rhoaux, float dtf, float d2, float d2_odd,
+    uint32_t pw[4], float h, float ust, float wst, float ol, float& zz,
+    float& wp, int& cbt) {
+  const float dtftlw = dtf / t.tlw;
+  const float rw = expf(-dtftlw);
+  const float rnd_exact = sqrtf(clamp_min(1.0f - rw * rw, 0.0f));
+  const float rnd_lin = sqrtf(2.0f * dtftlw);
+  const bool use_lin = dtftlw < 0.5f;
+  for (int s = 0;; ++s) {
+    float rnd = d2;
+    if (s > 0) {
+      if (injected) {
+        rnd = injected_at(d2in, a, i, s);
+      } else if (s % fp::ROWS_PER_PAIR) {
+        rnd = d2_odd;
+      } else {
+        if (s % fp::ROWS_PER_BLOCK == 0)
+          site_words(pw, a, 2, i, static_cast<uint32_t>(s / fp::ROWS_PER_BLOCK),
+                     pass);
+        const bool hi = (s % fp::ROWS_PER_BLOCK) != 0;
+        fp::normal_pair(hi ? pw[2] : pw[0], hi ? pw[3] : pw[1], rnd, d2_odd);
+      }
+    }
+    const float icbtf = static_cast<float>(cbt);
+    float wp_new, delz;
+    if (TS) {
+      const float drift = t.dsigwdz + rhoaux * t.sigw;
+      const float sel = use_lin
+          ? ((1.0f - dtftlw) * wp + rnd * rnd_lin) + dtf * drift
+          : (rw * wp + rnd * rnd_exact) + (t.tlw * (1.0f - rw)) * drift;
+      wp_new = sel * icbtf;
+      delz = (wp_new * t.sigw) * dtf;
+    } else {
+      wp_new = ((rw * wp + (rnd * rnd_exact) * t.sigw)
+                + (t.tlw * (1.0f - rw))
+                      * (t.dsigw2dz + rhoaux * (t.sigw * t.sigw)))
+               * icbtf;
+      delz = wp_new * dtf;
+    }
+    if (a.turboff) {
+      wp_new = 0.0f;
+      delz = 0.0f;
+    }
+    // ground/hmix reflection and forbidden-state flag (advance.f90:476-491)
+    if (fabsf(delz) > h) delz = fmodf(delz, h);
+    const bool below = delz < -zz;
+    const bool above = delz > (h - zz);
+    zz = below ? (-zz - delz)
+               : (above ? ((-zz - delz) + 2.0f * h) : (zz + delz));
+    cbt = (below || above) ? -1 : 1;
+    wp = wp_new;
+    if (s == a.ifine - 1) break;
+    t = hanna<TS>(zz, h, ust, wst, ol);
+  }
+  return t;
+}
+
+// The turbulent terms of a free-troposphere / stratosphere step
+// (advance.f90:629-708) at height z from the draws d0-d2: (ux, vy) in the
+// troposphere and the transition layer, wp_ft in the transition layer and
+// the stratosphere; c_trop = 2 D_TROP / dt and c_strat = 2 D_STRAT / dt of
+// the step, uxscale_t and wpscale_s their square roots.
+__device__ __forceinline__ void free_trop_terms(
+    const AdvanceArgs& a, bool in_trop, bool in_trans, float z, float tropop,
+    float d0, float d1, float d2, float c_trop, float c_strat,
+    float uxscale_t, float wpscale_s, float& ux, float& vy, float& wp_ft) {
+  ux = 0.0f;
+  vy = 0.0f;
+  wp_ft = 0.0f;
+  if (in_trop) {
+    ux = d0 * uxscale_t;
+    vy = d1 * uxscale_t;
+  } else if (in_trans) {
+    const float weight = clamp((z - tropop) / 1000.0f, 0.0f, 1.0f);
+    const float uxscale_tr = sqrtf(c_trop * (1.0f - weight));
+    const float wpscale_tr = sqrtf(c_strat * weight);
+    ux = d0 * uxscale_tr;
+    vy = d1 * uxscale_tr;
+    wp_ft = d2 * wpscale_tr + a.d_strat_1000;
+  } else {
+    wp_ft = d2 * wpscale_s;
+  }
+  if (a.turboff) {
+    ux = 0.0f;
+    vy = 0.0f;
+    wp_ft = 0.0f;
+  }
+}
+
+// The mesoscale draws of a step, tag 4 rows 0-2: one Philox call, two
+// radii.
+__device__ __forceinline__ void meso_draws(const AdvanceArgs& a,
+                                           const Draws& dr, bool injected,
+                                           long long i, float& m0, float& m1,
+                                           float& m2) {
+  if (injected) {
+    m0 = injected_at(dr.d[4], a, i, 0);
+    m1 = injected_at(dr.d[4], a, i, 1);
+    m2 = injected_at(dr.d[4], a, i, 2);
+  } else {
+    uint32_t w4[4];
+    float unused;
+    site_words(w4, a, 4, i, 0u);
+    fp::normal_pair(w4[0], w4[1], m0, m1);
+    fp::normal_pair(w4[2], w4[3], m2, unused);
+  }
+}
+
+// The end of a step, after the boundary layer or the free troposphere:
+// the mesoscale memory (draws m0-m2), windalign with the reference wind
+// (u_ref, v_ref, w_ref), the metric position update, the polar caps, the
+// boundary conditions and the Petterssen corrector with the end-time
+// table, whose vertical wind takes `settl_pett` in the SETTLING
+// instantiations (the corrector runs where the interval ends in the met
+// window, the particle stayed and `pett_gate`).  Returns exited.
+template <bool BF16, bool POLAR, bool SETTLING>
+__device__ __forceinline__ bool finish_step(
+    const AdvanceArgs& a, const void* __restrict__ rowsE, const float* sh_height,
+    float x, float y, float& x_hi, float& x_lo, float& y_hi, float& y_lo,
+    float& z_new, float dxsave, float dysave, float dawsave, float dcwsave,
+    float u, float v, float w, float settl_pett, float& usig, float& vsig,
+    float& wsig, float usig_m, float vsig_m, float wsig_m, float m0, float m1,
+    float m2, float hm, float htop, bool pett_gate) {
+  const float dt = a.dt;
+  // mesoscale fluctuations (advance.f90:720-738)
+  usig = a.r_meso * usig + ((a.rs_meso * m0) * usig_m) * a.turbmeso;
+  vsig = a.r_meso * vsig + ((a.rs_meso * m1) * vsig_m) * a.turbmeso;
+  wsig = a.r_meso * wsig + ((a.rs_meso * m2) * wsig_m) * a.turbmeso;
+  if (a.turboff) {
+    usig = 0.0f;
+    vsig = 0.0f;
+    wsig = 0.0f;
+  }
+  dxsave = dxsave + usig * dt;
+  dysave = dysave + vsig * dt;
+  z_new = fabsf(z_new + wsig * dt);
+
+  // windalign + metric position update (advance.f90:747-799)
+  const float ffinv = 1.0f / clamp_min(sqrtf(u * u + v * v), F(1e-30));
+  const float sinphi = v * ffinv;
+  const float cosphi = u * ffinv;
+  dxsave = dxsave + (cosphi * dawsave - sinphi * dcwsave);
+  dysave = dysave + (sinphi * dawsave + cosphi * dcwsave);
+
+  const float cosfact = a.dxconst / cosf((y * a.dy + a.ylat0) * a.pi180);
+  ds_add(x_hi, x_lo, (dxsave * cosfact) * a.ldirf);
+  ds_add(y_hi, y_lo, (dysave * a.dyconst) * a.ldirf);
+  if (POLAR) polar_update(a, x, y, dxsave, dysave, x_hi, x_lo, y_hi, y_lo);
+  bool exited = apply_bcs(a, x_hi, x_lo, y_hi, y_lo);
+  z_new = tmin(z_new, htop);
+
+  // Petterssen corrector (advance.f90:816-986)
+  if (a.can_pett && !exited && pett_gate) {
+    const float xn = x_hi + x_lo;
+    const float yn = y_hi + y_lo;
+    const Horiz hw2 = horiz_weights(xn, yn, a.nx, a.ny);
+    int indz2;
+    float dz2;
+    vert_weights(sh_height, a.nz, z_new, indz2, dz2);
+    const size_t row2 = fp::cell_row(indz2, hw2.jy, hw2.ix, a.ny, a.nx);
+    float e[24];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) load8<BF16, 32>(rowsE, row2, k, &e[8 * k]);
+    const float du = (field2(e, 0, hw2.p4, dz2) - u) / 2.0f;
+    const float dv = (field2(e, 1, hw2.p4, dz2) - v) / 2.0f;
+    float w2 = field2(e, 2, hw2.p4, dz2);
+    if (SETTLING) w2 = w2 + settl_pett;
+    const float dw = (w2 - w) / 2.0f;
+    const float z_corr = reflect_ground(z_new + (dw * dt) * a.ldirf, hm);
+    const float cosfact2 = a.dxconst / cosf((yn * a.dy + a.ylat0) * a.pi180);
+    ds_add(x_hi, x_lo, ((du * cosfact2) * dt) * a.ldirf);
+    ds_add(y_hi, y_lo, ((dv * a.dyconst) * dt) * a.ldirf);
+    if (POLAR) polar_update(a, xn, yn, du * dt, dv * dt, x_hi, x_lo, y_hi, y_lo);
+    exited = apply_bcs(a, x_hi, x_lo, y_hi, y_lo);
+    z_new = tmin(z_corr, htop);
+  }
+  return exited;
+}
+
+}  // namespace

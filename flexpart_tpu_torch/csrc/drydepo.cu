@@ -3,11 +3,14 @@
 //
 // Replaces: flexpart_tpu/physics/massupdate.py::apply_decay_drydep
 // (timemanager.f90:643-686, interpol_vdep.f90), which JAX leaves to XLA as
-// some 30 operations over (particles, species), for the fixed step
-// (t_below = None).  For each particle the thread interpolates each
-// depositing species' velocity bilinearly (horiz_weights with xglobal =
-// False), takes prob = 1 - exp(-vdep * dt / (2 HREF)) below 2 HREF and 0
-// above, multiplies the mass by (1 - prob) * exp(-dt * decay), writes the
+// some 30 operations over (particles, species).  For each particle the
+// thread interpolates each depositing species' velocity bilinearly
+// (horiz_weights with xglobal = False), takes prob = 1 - exp(-vdep * dt /
+// (2 HREF)) below 2 HREF and 0 above after a fixed step, or, after an
+// adaptive step (the T_BELOW instantiation, massupdate.py:79-80), prob =
+// 1 - exp(-vdep * t_below / (2 HREF)) with the seconds t_below the particle
+// spent below 2 HREF and no height test; multiplies the mass by
+// (1 - prob) * exp(-dt * decay), writes the
 // removed part times the decay correction exp(|ldeltat| * decay) as the
 // deposit (zero for an inactive particle), and ends the particle where no
 // species keeps minmass of its released mass (a species released with no
@@ -19,7 +22,8 @@
 //
 // Bound on the H100: 54 B per particle at two species (positions, z,
 // active in and out, mass and mass0 in, mass out, the deposit out), 0.17 ms
-// for 10.5M particles; the velocity field it gathers is a few MB in L2.
+// for 10.5M particles, 4 B more with t_below; the velocity field it
+// gathers is a few MB in L2.
 //
 // Design: one thread per particle, every species in a loop over a struct
 // array passed by value (MAX_SPECIES of them); all outputs out of place.
@@ -47,6 +51,7 @@ struct In {
   const bool* active;
   const float *mass, *mass0;               // (n, nspec)
   const float* vdep;                       // (nspec, ny, nx) or NULL
+  const float* t_below;                    // (n,): the T_BELOW instantiation
 };
 
 struct Cfg {
@@ -58,6 +63,7 @@ __device__ __forceinline__ float clamp01(float v) {
   return v < 0.0f ? 0.0f : (v > 1.0f ? 1.0f : v);
 }
 
+template <bool T_BELOW>
 __global__ void __launch_bounds__(THREADS)
 drydepo_kernel(const In in, const Cfg c, const Specs sp,
                float* __restrict__ mass_out, bool* __restrict__ active_out,
@@ -68,6 +74,7 @@ drydepo_kernel(const In in, const Cfg c, const Specs sp,
   const float z = in.z[p];
   const float dt = static_cast<float>(c.lsynctime);
   const float ldt = static_cast<float>(c.ldeltat);
+  const float tb = T_BELOW ? in.t_below[p] : 0.0f;
 
   // horiz_weights(x, y, nx, ny, xglobal=False), when there is a field
   int idx[4] = {0, 0, 0, 0};
@@ -101,11 +108,11 @@ drydepo_kernel(const In in, const Cfg c, const Specs sp,
     const DrySpec& w = sp.s[s];
     const float decf = w.dec > 0.0f ? expf(-dt * w.dec) : 1.0f;
     float prob = 0.0f;
-    if (w.drydep && in.vdep != nullptr && z < TWO_HREF) {
+    if (w.drydep && in.vdep != nullptr && (T_BELOW || z < TWO_HREF)) {
       const float* f = in.vdep + s * plane;
       const float vd = ((f[idx[0]] * p4[0] + f[idx[1]] * p4[1]) +
                         f[idx[2]] * p4[2]) + f[idx[3]] * p4[3];
-      prob = 1.0f - expf((-vd * dt) / TWO_HREF);
+      prob = 1.0f - expf((-vd * (T_BELOW ? tb : dt)) / TWO_HREF);
     }
     const long long k = static_cast<long long>(p) * c.nspec + s;
     const float m = in.mass[k];
@@ -130,7 +137,8 @@ extern "C" int fp_drydepo(const float* x_hi, const float* x_lo,
                           const float* z, const bool* active,
                           const float* mass, const float* mass0,
                           const float* vdep, int ny, int nx,
-                          const void* specs_in, int n, int nspec,
+                          const float* t_below, const void* specs_in, int n,
+                          int nspec,
                           int lsynctime, int ldeltat, float minmass,
                           float* mass_out, bool* active_out, float* deposit,
                           void* stream) {
@@ -143,10 +151,12 @@ extern "C" int fp_drydepo(const float* x_hi, const float* x_lo,
   // to this file, and a C function with it in its signature is not exported)
   const DrySpec* specs = static_cast<const DrySpec*>(specs_in);
   for (int s = 0; s < nspec; ++s) sp.s[s] = specs[s];
-  const In in = {x_hi, x_lo, y_hi, y_lo, z, active, mass, mass0, vdep};
+  const In in = {x_hi, x_lo, y_hi, y_lo, z, active, mass, mass0, vdep,
+                 t_below};
   const Cfg c{ny, nx, n, nspec, lsynctime, ldeltat, minmass};
   const int blocks = (n + THREADS - 1) / THREADS;
-  drydepo_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kern = t_below != nullptr ? drydepo_kernel<true> : drydepo_kernel<false>;
+  kern<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       in, c, sp, mass_out, active_out, deposit);
   return static_cast<int>(cudaGetLastError());
 }

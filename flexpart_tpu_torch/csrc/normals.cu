@@ -13,11 +13,12 @@
 // parity mode of the advance, the tests).
 //
 // Key = (seed_lo, seed_hi ^ mix(step, tag)), made by the Python wrapper.
-// Counter = (column + offset, row / 4, 0, 0): column is the particle
-// index, so a draw depends only on (key, tag, global particle index, row)
-// and chunking the particles never changes the stream.  One Philox call
-// gives the four rows 4q .. 4q+3 of a column, one Box-Muller radius two of
-// them (philox_normal.cuh has the layout).
+// Counter = (column + offset, row / 4, pass, 0): column is the particle
+// index, so a draw depends only on (key, tag, global particle index, row,
+// pass) and chunking the particles never changes the stream; `pass` is the
+// adaptive advance's pass of the substep loop (0 for every other draw).
+// One Philox call gives the four rows 4q .. 4q+3 of a column, one
+// Box-Muller radius two of them (philox_normal.cuh has the layout).
 //
 // Bound on the H100: the 4 output bytes per draw (store bandwidth) and the
 // generator's arithmetic are about level: a quarter of a Philox call and
@@ -34,7 +35,8 @@
 namespace {
 
 __global__ void normals_kernel(float* __restrict__ out, int rows, int cols,
-                               uint32_t k0, uint32_t k1, long long offset) {
+                               uint32_t k0, uint32_t k1, long long offset,
+                               uint32_t pass) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= cols) return;
   float* __restrict__ o = out + col;
@@ -42,7 +44,7 @@ __global__ void normals_kernel(float* __restrict__ out, int rows, int cols,
   for (int row = 0; row < rows; row += fp::ROWS_PER_BLOCK) {
     uint32_t w[4];
     fp::normal_words(w, k0, k1, col + offset,
-                     static_cast<uint32_t>(row / fp::ROWS_PER_BLOCK));
+                     static_cast<uint32_t>(row / fp::ROWS_PER_BLOCK), pass);
     float z0, z1;
     fp::normal_pair(w[0], w[1], z0, z1);
     o[row * stride] = z0;
@@ -58,11 +60,12 @@ __global__ void normals_kernel(float* __restrict__ out, int rows, int cols,
 }  // namespace
 
 extern "C" int fp_normals(float* out, int rows, int cols, uint32_t k0,
-                          uint32_t k1, long long offset, void* stream) {
+                          uint32_t k1, long long offset, uint32_t pass,
+                          void* stream) {
   if (cols <= 0 || rows <= 0) return 0;
   const int threads = 256;
   const int blocks = (cols + threads - 1) / threads;
   normals_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      out, rows, cols, k0, k1, offset);
+      out, rows, cols, k0, k1, offset, pass);
   return static_cast<int>(cudaGetLastError());
 }

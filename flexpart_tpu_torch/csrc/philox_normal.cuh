@@ -4,11 +4,12 @@
 // draws in registers so that they never touch device memory; the
 // redistribution kernel (redist.cu) takes its uniforms from it too.
 //
-// A draw depends on nothing but (key, global particle index, row).  Rows
-// come four to a Philox call: rows 4q .. 4q+3 of a particle are made from
-// the four words of counter = (global index, q, 0, 0) under key =
+// A draw depends on nothing but (key, global particle index, row, pass).
+// Rows come four to a Philox call: rows 4q .. 4q+3 of a particle are made
+// from the four words of counter = (global index, q, pass, 0) under key =
 // (seed_lo, seed_hi ^ mix(step, tag)), which core/rng.py::Key.philox_key
-// makes.  Words (0, 1) give rows 4q and 4q+1, words (2, 3) rows 4q+2 and
+// makes.  `pass` is 0 but for the adaptive advance (advance_adaptive.cu),
+// whose pass k of the substep loop draws tags 1 and 2 with pass = k.  Words (0, 1) give rows 4q and 4q+1, words (2, 3) rows 4q+2 and
 // 4q+3: each pair of words is one Box-Muller radius and angle, whose cos
 // branch is the even row and whose sin branch is the odd row.  Skipping a
 // draw therefore changes no other draw, one Philox call serves four rows
@@ -59,14 +60,16 @@ __device__ __forceinline__ uint32_t counter_word(long long global_index) {
       static_cast<unsigned long long>(global_index) & 0xFFFFFFFFull);
 }
 
-// The four words that make rows 4 * block .. 4 * block + 3 of one particle.
+// The four words that make rows 4 * block .. 4 * block + 3 of one particle
+// in pass `pass` of the adaptive advance (0 everywhere else).
 __device__ __forceinline__ void normal_words(uint32_t w[4], uint32_t k0,
                                              uint32_t k1,
                                              long long global_index,
-                                             uint32_t block) {
+                                             uint32_t block,
+                                             uint32_t pass = 0u) {
   w[0] = counter_word(global_index);
   w[1] = block;
-  w[2] = 0u;
+  w[2] = pass;
   w[3] = 0u;
   philox4x32_10(w, k0, k1);
 }

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from . import config as _config
-from .core.advance import StepConfig, StepParams
+from .core.advance import SPECIES_PARAMS, StepConfig, StepParams
 from .core.interp import ROWS_E_LANES, StepTablesQuad
 from .core.state import FIELDS, Particles
 from .grid.outgrid import Accumulators
@@ -83,10 +83,16 @@ _STEP_PARAM_NAMES = {"xlon0": "xlon0_pol"}
 
 
 def step_params_from_numpy(prm) -> StepParams:
-    names = [f.name for f in dataclasses.fields(StepParams)]
-    return StepParams(**{
-        k: float(np.asarray(_get(prm, _STEP_PARAM_NAMES.get(k, k)))
-                 .reshape(-1)[0]) for k in names})
+    """The JAX StepParams (numpy leaves) -> the port's: a scalar field as a
+    float, each species' settling parameter as a tuple of floats, one per
+    species."""
+    out = {}
+    for f in dataclasses.fields(StepParams):
+        a = np.asarray(_get(prm, _STEP_PARAM_NAMES.get(f.name, f.name)),
+                       np.float32).reshape(-1)
+        out[f.name] = (tuple(float(v) for v in a)
+                       if f.name in SPECIES_PARAMS else float(a[0]))
+    return StepParams(**out)
 
 
 def step_config_from_jax(cfg) -> StepConfig:

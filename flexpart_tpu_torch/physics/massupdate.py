@@ -18,7 +18,10 @@ half of kernel K9, whose wrapper lives in ``physics/wetdepo.py``.
 Every quantity is an (N, nspec) / (nspec, N) tensor op; the species
 constants are host numbers.  Both versions return new tensors (JAX's arrays
 are immutable); ``decay_deposition_grids`` multiplies the grids in place.
-Only the fixed step is ported: ``t_below`` (adaptive stepping) raises.
+The dry-deposition probability takes the fixed step's rule (below 2 HREF
+for the whole interval) or, after an adaptive step, the seconds the
+particle spent below 2 HREF (``t_below``; K10's ``T_BELOW``
+instantiation on a CUDA device).
 """
 
 from __future__ import annotations
@@ -78,13 +81,16 @@ def apply_wetdepo_plain(p: Particles, lam: torch.Tensor,
 
 
 def apply_decay_drydep_plain(p: Particles, vdep_field, lsynctime: int,
-                             ldeltat: int, sp: MassSpecies, has_vdep: bool):
+                             ldeltat: int, sp: MassSpecies, has_vdep: bool,
+                             t_below=None):
     """Radioactive decay + dry-deposition mass removal + minmass
-    termination (``massupdate.py:54-103`` there, the fixed-step rule).
+    termination (``massupdate.py:54-103`` there).
 
     vdep_field: (nspec, ny, nx) deposition velocities of the current wind
-    field, bilinear at the particle, or None.  Returns (particles,
-    drydeposit (nspec, N))."""
+    field, bilinear at the particle, or None.  t_below: None (the fixed
+    step: prob where z < 2 HREF) or the adaptive step's (N,) seconds below
+    2 HREF (prob = 1 - exp(-vd t_below / 2 HREF), no z mask).  Returns
+    (particles, drydeposit (nspec, N))."""
     n = p.capacity
     nspec = p.nspec
     dt = float(abs(lsynctime))
@@ -93,9 +99,13 @@ def apply_decay_drydep_plain(p: Particles, vdep_field, lsynctime: int,
         ny_m, nx_m = vdep_field.shape[1], vdep_field.shape[2]
         hw = horiz_weights(p.x, p.y, nx_m, ny_m, False)
         vd = interp_2d(vdep_field, range(nspec), hw)          # (nspec, N)
-        prob = torch.where(p.z[None, :] < 2.0 * HREF,
-                           1.0 - torch.exp(true_div(-vd * dt, 2.0 * HREF)),
-                           torch.zeros_like(vd))
+        if t_below is not None:
+            prob = 1.0 - torch.exp(true_div(-vd * t_below[None, :],
+                                            2.0 * HREF))
+        else:
+            prob = torch.where(p.z[None, :] < 2.0 * HREF,
+                               1.0 - torch.exp(true_div(-vd * dt, 2.0 * HREF)),
+                               torch.zeros_like(vd))
     else:
         prob = torch.zeros((nspec, n), dtype=torch.float32, device=p.device)
     drydep_mask = torch.as_tensor(np.asarray(sp.drydep, bool),
@@ -124,9 +134,9 @@ class DrySpec(ctypes.Structure):
 
 
 def decay_drydep_cuda(p: Particles, vdep_field, lsynctime: int, ldeltat: int,
-                      sp: MassSpecies, has_vdep: bool):
+                      sp: MassSpecies, has_vdep: bool, t_below=None):
     """K10 launch: one thread per particle, mass, active and the deposit
-    written out of place."""
+    written out of place; with ``t_below`` its ``T_BELOW`` instantiation."""
     n, nspec, dev = p.capacity, p.nspec, p.device
     if nspec > MAX_SPECIES:
         raise ValueError(f"K10 takes at most {MAX_SPECIES} species")
@@ -158,6 +168,11 @@ def decay_drydep_cuda(p: Particles, vdep_field, lsynctime: int, ldeltat: int,
         if ny < 2 or nx < 2 or ny * nx >= 2 ** 31:
             raise ValueError("K10: vdep needs 2 to 2**31 - 1 cells per "
                              "species, at least 2 x 2")
+    if t_below is not None and (
+            t_below.device != dev or t_below.dtype != torch.float32
+            or tuple(t_below.shape) != (n,) or not t_below.is_contiguous()):
+        raise ValueError(f"K10: t_below must be contiguous float32 ({n},) "
+                         f"on {dev}")
     specs = (DrySpec * MAX_SPECIES)()
     for s in range(nspec):
         specs[s].dec = float(sp.decay[s])
@@ -174,6 +189,7 @@ def decay_drydep_cuda(p: Particles, vdep_field, lsynctime: int, ldeltat: int,
             p.y_lo.data_ptr(), p.z.data_ptr(), p.active.data_ptr(),
             p.mass.data_ptr(), p.mass0.data_ptr(),
             vdep_field.data_ptr() if has_vdep else None, ny, nx,
+            None if t_below is None else t_below.data_ptr(),
             ctypes.addressof(specs), n, nspec, abs(int(lsynctime)),
             abs(int(ldeltat)), float(np.float32(sp.minmass)),
             mass.data_ptr(), active.data_ptr(), deposit.data_ptr(), stream)
@@ -185,18 +201,14 @@ def apply_decay_drydep(p: Particles, vdep_field, lsynctime: int,
                        t_below=None):
     """Decay, dry deposition and minmass termination of every particle: K10
     on a CUDA device, the plain version on the CPU.  ``t_below`` is the
-    adaptive step's time below 2*HREF (``massupdate.py:88-90`` there): not
-    ported with the fixed step."""
-    if t_below is not None:
-        raise NotImplementedError(
-            "t_below (dry deposition over adaptive substeps) is not ported "
-            "yet; the fixed step passes None")
+    adaptive step's time below 2*HREF (``massupdate.py:79-80`` there), None
+    after a fixed step."""
     dev = p.device
     run = {"cuda": decay_drydep_cuda,
            "cpu": apply_decay_drydep_plain}.get(dev.type)
     if run is None:
         raise ValueError(f"no decay/dry-deposition backend for device {dev}")
-    return run(p, vdep_field, lsynctime, ldeltat, sp, has_vdep)
+    return run(p, vdep_field, lsynctime, ldeltat, sp, has_vdep, t_below)
 
 
 def decay_deposition_grids(wetgridunc: torch.Tensor,

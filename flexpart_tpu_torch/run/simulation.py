@@ -1,13 +1,14 @@
 """The simulation run loop — scheduler equivalent of timemanager.f90.
 
 Port of ``flexpart_tpu/run/simulation.py``: the forward (``ldirect=1``),
-serial, one-device path with the fixed step (``ctl < 0``), with the
-defaults of ``Command``: convection (``lconvection=1``), subgrid orography
-(``lsubgrid=1``) and, on a cyclic grid beyond 75 degrees, the polar caps;
-species may decay and deposit, wet and dry, as long as they do not settle
-(an aerosol with a density).  Every option outside that path raises
-``NotImplementedError`` naming it when the ``Simulation`` is built; none is
-skipped silently.
+serial, one-device path with the fixed step (``ctl < 0``) or the adaptive
+step (``ctl > 0``), with the defaults of ``Command``: convection
+(``lconvection=1``), subgrid orography (``lsubgrid=1``) and, on a cyclic
+grid beyond 75 degrees, the polar caps; species may decay, deposit wet and
+dry, and settle (an aerosol with a density, where every release box emits
+one species, as the reference rules); ``turboff`` switches the turbulence
+off.  Every option outside that path raises ``NotImplementedError`` naming
+it when the ``Simulation`` is built; none is skipped silently.
 
 Host-side control loop; all per-particle compute stays on the device.
 Per sync interval (timemanager.f90:152-712):
@@ -32,10 +33,12 @@ Per sync interval (timemanager.f90:152-712):
      (timemanager.f90:350-365);
   5. at averaging-interval end: normalize (factor3d, concoutput.f90:210-221),
      copy to host, write, zero the concentration accumulator;
-  6. advance all particles one lsynctime (core/advance.py);
+  6. advance all particles one lsynctime (core/advance.py: K4 for the
+     fixed step, K11 for the adaptive step on a CUDA device);
   6b. decay, dry deposition and minmass termination
      (physics/massupdate.py, K10 and K8 on a CUDA device;
-     timemanager.f90:643-686);
+     timemanager.f90:643-686); after an adaptive step the dry deposition
+     takes the seconds each particle spent below 2 HREF;
   7. terminate particles older than the last age class.
 
 On a CUDA device a step that neither samples nor writes never waits for
@@ -139,11 +142,7 @@ class Simulation:
             "itsplit (particle splitting inside the run)":
                 cmd.itsplit < span,
             "OH reaction species": any(s.ohreact for s in species),
-            "settling species": any(
-                s.density > 0.0 and s.dquer > 0.0 for s in species),
             "cblflag (skewed CBL turbulence)": cmd.cblflag == 1,
-            "ctl > 0 (adaptive time step)": cmd.ctl_eff > 0.0,
-            "turboff": self.turboff,
             "legacy_rng": self.legacy_rng,
             "distributed": self.distributed is not None,
             "write_fortran": self.write_fortran,
@@ -154,7 +153,7 @@ class Simulation:
         bad = [name for name, on in unported.items() if on]
         if bad:
             raise NotImplementedError(
-                "not ported yet (outside the forward fixed-step run): "
+                "not ported yet (outside the port's forward run): "
                 + "; ".join(bad))
 
     def __post_init__(self):
@@ -175,12 +174,21 @@ class Simulation:
         self.geo = OutputGridGeometry(self.outgrid, self.grid)
         nage = self.ageclasses.nageclass
 
+        # settling is off if any release point emits more than one species
+        # (readreleases.f90:610-624); otherwise each particle settles with
+        # its own species' parameters (advance.f90:518-531)
+        lsettling = all(sum(1 for m in box.mass if m > 1e-9) <= 1
+                        for box in self.releases.boxes)
+        sp_scs = [s.size_classes() for s in self.releases.species]
+        any_settle = any(s.density > 0.0 and c is not None
+                         for s, c in zip(self.releases.species, sp_scs))
         top_lat = self.grid.ylat0 + (self.grid.ny - 1) * self.grid.dy
         self.step_cfg = StepConfig(
             nx=self.grid.nx, ny=self.grid.ny, nz=self.grid.nlev,
             xglobal=self.grid.xglobal, ldirect=cmd.ldirect,
             turbswitch=cmd.turbswitch, ifine=cmd.ifine_eff,
-            method=cmd.method, met_bf16=self.met_bf16,
+            method=cmd.method, settling=lsettling and any_settle,
+            turboff=self.turboff, met_bf16=self.met_bf16,
             polar=bool(self.grid.xglobal
                        and (top_lat > 75.0 or self.grid.ylat0 < -75.0)))
         self.step_cfg.check()
@@ -188,7 +196,13 @@ class Simulation:
             dx=self.grid.dx, dy=self.grid.dy, ylat0=self.grid.ylat0,
             dxconst=self.grid.dxconst, dyconst=self.grid.dyconst,
             lsynctime=cmd.lsynctime, fine=cmd.fine,
-            lwindinterv=self.wind_interval, xlon0=self.grid.xlon0)
+            lwindinterv=self.wind_interval, xlon0=self.grid.xlon0,
+            ctl=cmd.ctl_eff,
+            sp_density=[max(s.density, -1.0)
+                        for s in self.releases.species],
+            sp_dquer=[s.dquer for s in self.releases.species],
+            sp_cunningham=[c.cunningham if c else 0.0 for c in sp_scs],
+            sp_vsetaver=[c.vsetaver if c else 0.0 for c in sp_scs])
         # convection: the grid's kernel, and the cloud-base mass flux
         # memory of every column, kept on the device between steps
         self.conv_kernel = None
@@ -270,7 +284,8 @@ class Simulation:
                                           dtype=torch.float32, device=dev)
         self._vdep_kernel = None        # built lazily (needs the lsm field)
         # tests only: `_draws_hook(istep, origin)` returns the advance's
-        # injected draws for this step, already in slot order, and
+        # injected draws for this step, already in slot order (the
+        # adaptive step's tags 1 and 2 with a leading pass axis), and
         # `_redist_hook(istep, origin)` the convective redistribution's
         # uniforms; `origin[k]` is the schedule slot of the particle now in
         # slot k (kept only while a hook is set)
@@ -717,6 +732,10 @@ class Simulation:
                     self.particles, z0, z1, itime, mt0, mt1,
                     rng.Key(self.seed, istep), self.step_cfg,
                     self.step_prm, draws=draws)
+            # the adaptive step's dry-deposition window; no sort runs
+            # between the advance and the dry deposition, so its slots are
+            # the particles'
+            t_below = diag.t_below
             n_act = diag.n_active
             particle_steps += n_act
             if "advance_first_s" not in self.timings:
@@ -731,7 +750,8 @@ class Simulation:
                     vdep = z1.vdep if self.any_drydep else None
                     self.particles, ddep = apply_decay_drydep(
                         self.particles, vdep, lsync, ldeltat,
-                        self.mass_species, has_vdep=self.any_drydep)
+                        self.mass_species, has_vdep=self.any_drydep,
+                        t_below=t_below)
                     if self.any_drydep:
                         self._scatter_depo(self.acc.drygridunc, ddep,
                                            itime + lsync)

@@ -177,8 +177,7 @@ def test_chunking_does_not_change_the_port(setup):
 def test_outside_slice_raises(setup):
     grid = setup[0]
     _, _, tcfg, _ = _cfgs(grid, CONFIGS["stock"])
-    for bad in (dict(method=1), dict(cblflag=True),
-                dict(tile_mode=True), dict(settling=True),
+    for bad in (dict(cblflag=True), dict(tile_mode=True),
                 dict(nests=((5, 5),))):
         cfg = type(tcfg)(**{**tcfg.__dict__, **bad})
         with pytest.raises(NotImplementedError):
@@ -248,7 +247,9 @@ def test_advance_args_are_the_plain_path_scalars(setup, name):
         dxconst=f32(grid.dxconst),
         dyconst=f32(grid.dyconst), nxm=f32(nxm), nym=f32(grid.ny - 1),
         two_nym=f32(2.0 * (grid.ny - 1)), eps_bc=eps,
-        nxm_eps=f32(nxm) - eps)
+        nxm_eps=f32(nxm) - eps, fine=f32(1.0 / kw["ifine"]), ctl=f32(-5.0),
+        mintime=f32(1.0), two_d_trop=f32(2.0 * 50.0),
+        two_d_strat=f32(2.0 * 0.1))
     floats = [n for n, t in a._fields_ if t is tadv.ctypes.c_float]
     assert sorted(want) == sorted(floats)
     for k, v in want.items():
@@ -258,10 +259,14 @@ def test_advance_args_are_the_plain_path_scalars(setup, name):
                 turbswitch=int(kw["turbswitch"]), ifine=kw["ifine"],
                 table_bf16=int(kw["met_bf16"]), polar=0, can_pett=1,
                 itime=itime,
-                itra_new=itime + LSYNC, n=0, offset=0)
+                itra_new=itime + LSYNC, n=0, offset=0, method=0, turboff=0,
+                settling=0, nspec=1)
     for k, v in ints.items():
         assert getattr(a, k) == v, k
     assert list(a.key) == [0] * 10
+    # one species without settling parameters (a gas: density -1)
+    assert (a.sp_density[0], a.sp_dquer[0], a.sp_cunningham[0],
+            a.sp_vsetaver[0]) == (-1.0, 0.0, 0.0, 0.0)
     # the interval that ends after the met window takes no corrector
     assert tadv.advance_args(tcfg, tprm, MEM1, 0, MEM1).can_pett == 0
     # the same constants as the JAX package's

@@ -66,14 +66,20 @@ def _kernel(name):
     return next(k for k in _build.KERNELS if k.name == name)
 
 
+def _all_sources(kernel):
+    """A kernel's source and the headers it includes, comments stripped."""
+    return "\n".join(_strip_comments(f.read_text()) for f in kernel.sources())
+
+
 def test_four_kernels():
     """The four kernels of the stock step, the cell-order sort, the two of
-    the convection: the columns (K6) and the redistribution (K7), and the
+    the convection: the columns (K6) and the redistribution (K7), the
     three of deposition: the deposit scatter (K8), the wet pass (K9) and
-    the decay and dry pass (K10)."""
+    the decay and dry pass (K10), and the adaptive step (K11)."""
     assert KERNEL_NAMES == ["normals", "quad_tables", "conccalc", "advance",
                             "reorder", "convection", "redist",
-                            "depo_scatter", "wetdepo", "drydepo"]
+                            "depo_scatter", "wetdepo", "drydepo",
+                            "advance_adaptive"]
     for k in _build.KERNELS:
         assert k.source.is_file() and k.launches == 0 and k._fn is None
 
@@ -123,7 +129,10 @@ def test_advance_and_reorder_share_the_cell_header():
     for name in ("advance", "reorder"):
         k = _kernel(name)
         assert _build.CSRC / "cell_index.cuh" in k.sources()
-        text = _strip_comments(k.source.read_text())
+        # the kernel's source and its own headers (K4's start is in
+        # advance_common.cuh)
+        text = "\n".join(_strip_comments(f.read_text()) for f in k.sources()
+                         if f.name != "cell_index.cuh")
         assert "fp::cell_row(" in text
         assert "vert_weights(" in text and "horiz_weights(" in text
         assert not re.search(r"__device__[^;{]*\b(horiz_weights|vert_weights"
@@ -146,13 +155,28 @@ def test_table_strides_match_the_sources():
     # 8 lanes per store: 8 stores fill a row of rows, 4 a row of rowsE
     assert "it < ncell * %d" % (interp.ROWS_LANES // 8) in k2
     assert "it < ncell * %d" % (interp.ROWS_E_LANES // 8) in k2
-    k4 = _strip_comments(_build.ADVANCE.source.read_text())
+    k4 = _all_sources(_build.ADVANCE)
     assert "load8<BF16, %d>(rows, row, k," % interp.ROWS_LANES in k4
     assert "load8<BF16, %d>(rowsE, row2, k," % interp.ROWS_E_LANES in k4
     assert "row * (2 * LANES)" in k4 and "row * (4 * LANES)" in k4
     # K4 reads 8 groups of 8 lanes of rows and 3 of rowsE (lanes 0-23)
     assert re.search(r"for \(int k = 0; k < 8; \+\+k\) load8<BF16, 64>", k4)
     assert re.search(r"for \(int k = 0; k < 3; \+\+k\) load8<BF16, 32>", k4)
+    # K11: the whole row at the start, per pass lanes 0-39 (wind10_quad's
+    # five fields), lanes 0-23 for the free troposphere, group 7 (lanes
+    # 56-63, the sigmas 60-62) at the end, and K4's corrector
+    k11 = _all_sources(_build.ADVANCE_ADAPTIVE)
+    assert "step_start<BF16>(a, rows, sh_height, x, y, z)" in k11
+    assert re.search(r"for \(int k = 0; k < 8; \+\+k\) load8<BF16, 64>"
+                     r"\(rows, row, k,", k11)
+    assert re.search(r"for \(int q = 0; q < 5; \+\+q\) load8<BF16, 64>"
+                     r"\(rows, rk, q,", k11)
+    assert re.search(r"for \(int q = 0; q < 3; \+\+q\) load8<BF16, 64>"
+                     r"\(rows, rf, q,", k11)
+    assert "load8<BF16, 64>(rows, fp::cell_row(ize, hw.jy, hw.ix, a.ny, " \
+           "a.nx), 7, ge);" in k11
+    assert "ge[4], ge[5],\n          ge[6]," in k11
+    assert "finish_step<BF16, POLAR, SETTLING>(" in k11
 
 
 def test_reorder_fields_struct_matches_the_source():
@@ -211,10 +235,13 @@ def test_reorder_radix_constants_match_the_source():
 
 
 def test_normals_and_advance_share_the_philox_header():
-    for name in ("normals", "advance"):
+    for name in ("normals", "advance", "advance_adaptive"):
         assert _build.CSRC / "philox_normal.cuh" in _kernel(name).sources()
-    for name in ("normals", "advance"):
-        text = _kernel(name).source.read_text()
+    for name in ("normals", "advance", "advance_adaptive"):
+        # the kernel's source and its own headers (K4 and K11 draw through
+        # the device functions of advance_common.cuh)
+        text = "\n".join(f.read_text() for f in _kernel(name).sources()
+                         if f.name != "philox_normal.cuh")
         assert "philox4x32_10(" not in text.replace("fp::", "")
         assert "logf(" not in text and "sincosf(" not in text
         assert "fp::normal_words(" in text and "fp::normal_pair(" in text
@@ -263,7 +290,11 @@ def test_conccalc_sums_per_warp():
 
 
 def test_advance_args_struct_matches_the_source():
-    text = _strip_comments(_build.ADVANCE.source.read_text())
+    """K4 and K11 take the one ``AdvanceArgs`` of their shared header."""
+    for k in (_build.ADVANCE, _build.ADVANCE_ADAPTIVE):
+        assert _build.CSRC / "advance_common.cuh" in k.sources()
+        assert "struct AdvanceArgs" not in k.source.read_text()
+    text = _strip_comments((_build.CSRC / "advance_common.cuh").read_text())
     body = re.search(r"struct\s+AdvanceArgs\s*\{(.*?)\};", text, re.S).group(1)
     c_types = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
                "uint32_t": ctypes.c_uint32, "float": ctypes.c_float}
@@ -284,6 +315,10 @@ def test_advance_args_struct_matches_the_source():
     assert fields == parsed
     assert len(advance.DRAW_TAGS) * 2 == dict(
         (n, c) for n, _, c in parsed)["key"]
+    m = re.search(r"constexpr int MAX_SPECIES = (\d+);", text)
+    assert int(m.group(1)) == advance.MAX_SPECIES
+    for f in advance.SPECIES_PARAMS:
+        assert dict((n, c) for n, _, c in parsed)[f] == advance.MAX_SPECIES
 
 
 def test_advance_polar_is_an_instantiation_of_its_own():
@@ -291,15 +326,20 @@ def test_advance_polar_is_an_instantiation_of_its_own():
     instantiations of K4, at the predictor and at the corrector, and the
     launcher picks them by ``AdvanceArgs.polar``; the update calls the
     six functions of the plain version's torch ops."""
-    text = _strip_comments(_build.ADVANCE.source.read_text())
-    assert "template <bool BF16, bool TS, bool POLAR>" in text
+    text = _all_sources(_build.ADVANCE)
+    assert "template <bool BF16, bool TS, bool POLAR, bool SETTLING>" in text
     assert text.count("if (POLAR) polar_update(") == 2
     assert "if (POLAR) polar_update(a, x, y, dxsave, dysave," in text
     assert "if (POLAR) polar_update(a, xn, yn, du * dt, dv * dt," in text
     assert "a.polar" in text
-    # the four (table type, turbswitch) instantiations, with and without
+    # the four (table type, turbswitch) instantiations of the stock step
+    # with and without, and settling's two table types with and without
+    inst = re.findall(r"advance_kernel<(\w+), (\w+), (\w+), (\w+)>", text)
+    assert len(set(inst)) == len(inst) == 12
     for polar in ("true", "false"):
-        assert text.count(f", {polar}>") == 4
+        assert sum(i[2] == polar for i in inst) == 6
+    # settling only with turbswitch off: every fixed step of a run
+    assert all(i[1] == "false" for i in inst if i[3] == "true")
     body = re.search(r"void polar_update\((.*?)\n}\n", text, re.S).group(1)
     for fn in ("sinf(", "cosf(", "tanf(", "hypotf(", "atanf(", "atan2f("):
         assert fn in body, fn
@@ -564,6 +604,85 @@ def test_sass_paths_counts_each_function_from_the_symbol_table():
         "kernel": 5, "lam_below_gas": 3}
     with pytest.raises(AssertionError, match="cloud_water"):
         chip_smoke.sass_paths(Kernel(), ("cloud_water",))
+
+
+def _sass_function(name, ops):
+    lines = ["\t\tFunction : %s" % name]
+    lines += ["        /*%04x*/                   %s ;  /* 0x0 */"
+              % (16 * i, op) for i, op in enumerate(ops)]
+    return "\n".join(lines)
+
+
+def test_k11_instructions_count_the_cheapest_pass():
+    """K11's operations per pass read the instantiation a run takes: the
+    widest backward branch is the loop of passes, the widest inside it the
+    substep loop; a pass is the cheapest path from the loop's head to its
+    back edge, which leaves the substep loop by its exit (the last
+    substep), plus ifine - 1 times the substep loop's cheapest body; NOPs
+    aside, each branch of the data on its cheaper side."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    ops = ["MOV R1, c[0x0][0x28]", "ISETP.GE.AND P0, PT, R0, R2, PT",
+           "@P0 BRA 0xf0",
+           "FADD R2, R3, R4",          # 0x30: the loop of passes
+           "@P1 BRA 0x70",             # a branch of the data
+           "FMUL R2, R2, R5", "FMUL R2, R2, R5",
+           "FADD R3, R3, R2",          # 0x70: the substep loop
+           "@P2 BRA 0xc0",             # the last substep leaves it
+           "MUFU.EX2 R4, R4", "FMUL R4, R4, R2",
+           "BRA 0x70",                 # 0xb0: the substeps' back edge
+           "FADD R5, R5, R3", "NOP",
+           "@P3 BRA 0x30",             # 0xe0: the passes' back edge
+           "EXIT"]
+    other = ["MOV R1, c[0x0][0x28]", "BRA 0x0", "EXIT"]
+    pre = "_ZN52_GLOBAL__N__x_advance_adaptive_cu_y23advance_adaptive_kernel"
+    sass = "\n".join([
+        _sass_function(pre + "ILb1ELb0ELb1ELb1EEvN_3PInEPKiN_4POutE", other),
+        _sass_function(pre + "ILb1ELb1ELb1ELb1EEvN_3PInEPKiN_4POutE", ops)])
+
+    class Kernel:
+        name = "advance_adaptive"
+
+        def cuobjdump(self, flag):
+            return sass
+
+    got = chip_smoke.k11_instructions(Kernel(), (True, True, True, True), 4)
+    assert got["kernel"] == 15 and got["pass_loop"] == 11
+    assert got["substep_loop"] == 5
+    assert (got["substep_cheapest"], got["substep_dearest"]) == (5, 5)
+    assert got["per_pass_cheapest"] == 6 + 3 * 5
+    assert got["per_pass_dearest"] == 8 + 3 * 5
+    with pytest.raises(AssertionError, match="Lb0ELb0E"):
+        chip_smoke.k11_instructions(Kernel(), (True, False, False, True), 4)
+
+
+def test_settling_instructions_are_the_instantiations_difference():
+    """Settling's instructions in K4: the SETTLING instantiation's beyond
+    the stock one of the same table type and polar flag, NOPs aside."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    pre = "_ZN52_GLOBAL__N__x_advance_cu_y14advance_kernel"
+    sass = "\n".join([
+        _sass_function(pre + "ILb1ELb0ELb1ELb0EEvN_3PInE",
+                       ["MOV R1, R2", "NOP", "EXIT"]),
+        _sass_function(pre + "ILb1ELb0ELb1ELb1EEvN_3PInE",
+                       ["MOV R1, R2", "MUFU.LG2 R3, R3", "FMUL R3, R3, R4",
+                        "NOP", "EXIT"]),
+        _sass_function(pre + "ILb0ELb0ELb1ELb1EEvN_3PInE",
+                       ["MOV R1, R2", "EXIT"])])
+
+    class Kernel:
+        name = "advance"
+
+        def cuobjdump(self, flag):
+            return sass
+
+    assert chip_smoke.settling_instructions(Kernel(), True, True) == {
+        "stock": 2, "settling": 4, "per_particle": 2}
 
 
 def _write_options(d, rs):

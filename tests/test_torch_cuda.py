@@ -47,3 +47,91 @@ def test_k6_layout_query_leaves_a_larger_launch_running(card):
         if a.dtype.is_floating_point:
             a, b = a.view(torch.int32), b.view(torch.int32)
         assert torch.equal(a, b), f
+
+
+@pytest.mark.parametrize("method", [0, 1])
+def test_settling_and_adaptive_kernels_equal_their_plain_versions(card,
+                                                                  method):
+    """K4's SETTLING instantiation (method 0) and K11 (method 1, settling
+    and the polar caps on) against ``advance_all_plain`` on the card, which
+    draws with K1 (the adaptive step's pass by pass): every output bitwise,
+    K4 also fed K1's draws (K11 reads none and refuses them); K10's
+    T_BELOW instantiation on K11's window."""
+    import copy
+    from flexpart_tpu_torch.core import advance as adv
+    from flexpart_tpu_torch.core import interp, rng
+    from flexpart_tpu_torch.core.state import empty_particles
+    from flexpart_tpu_torch.met import calcpar, synthetic, verttransform
+    from flexpart_tpu_torch.physics import massupdate as mu
+    grid = synthetic.make_grid(nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)
+    met = synthetic.SyntheticMet(grid)
+    zs = []
+    for t in (0.0, 10800.0):
+        eta = met.fetch(t, card)
+        h = verttransform.compute_heights(grid, eta)
+        zs.append(calcpar.calcpar(grid, eta,
+                                  verttransform.process_eta(grid, eta, h)))
+    n = 2 ** 16
+    gen = torch.Generator(device=card).manual_seed(5)
+
+    def u(lo, hi):
+        return torch.rand(n, generator=gen, device=card) * (hi - lo) + lo
+
+    mass0 = torch.zeros((n, 2), device=card)
+    first = u(0.0, 1.0) < 0.5
+    mass0[first, 0] = 1.0
+    mass0[~first, 1] = 1.0
+    p = empty_particles(n, 2, device=card).replace(
+        x_hi=u(0.0, grid.nx - 1.0), y_hi=u(0.0, grid.ny - 1.0),
+        z=u(5.0, 2500.0), active=u(0.0, 1.0) < 0.97,
+        itra=torch.zeros(n, dtype=torch.int32, device=card),
+        itramem=torch.where(u(0.0, 1.0) < 0.5, 900, -3600).to(torch.int32),
+        mass=mass0.clone(), mass0=mass0)
+    cfg = adv.StepConfig(nx=grid.nx, ny=grid.ny, nz=grid.nlev, xglobal=True,
+                         ldirect=1, turbswitch=method == 1,
+                         ifine=4 if method else 1, method=method,
+                         settling=True, polar=True)
+    prm = adv.StepParams.make(
+        dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0, dxconst=grid.dxconst,
+        dyconst=grid.dyconst, lsynctime=900, fine=1.0 / cfg.ifine,
+        ctl=5.0 if method else -5.0, sp_density=[2500.0, -1.0],
+        sp_dquer=[10.0, 0.0], sp_cunningham=[1.02, 0.0],
+        sp_vsetaver=[-0.007, 0.0])
+    tw = adv._time_weights(900, 0, 10800, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(zs[0], zs[1], *tw,
+                                           dtype=cfg.table_dtype)
+    a = adv.advance_args(cfg, prm, 900, 0, 10800)
+    key = rng.Key(11, 3)
+    settle = adv.settle_met(zs[0], cfg)
+    kernel = adv.advance_adaptive_cuda if method else adv.advance_all_cuda
+    rows = {**adv.DRAW_ROWS, 2: cfg.ifine}
+    draws = {t: rng.normals(key, (r, n), t, device=card)
+             for t, r in rows.items()}
+    if method:
+        with pytest.raises(ValueError, match="in registers"):
+            kernel(p, zs[0].height, tables, copy.copy(a), key, cfg, draws, 0,
+                   settle)
+    runs = [kernel(p, zs[0].height, tables, copy.copy(a), key, cfg, d, 0,
+                   settle) for d in ((None,) if method else (None, draws))]
+    pp, dp = adv.advance_all_plain(p, zs[0].height, tables, copy.copy(a), key,
+                                   cfg, None, 0, settle)
+    torch.cuda.synchronize()
+    for pk, dk in runs:
+        for f in adv.ADAPTIVE_OUT_FIELDS:
+            x, y = getattr(pk, f), getattr(pp, f)
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            assert torch.equal(x, y), f
+        if method:
+            assert torch.equal(dk.t_below, dp.t_below)
+            assert torch.equal(dk.passes, dp.passes)
+    if method:
+        vdep = torch.rand((2, grid.ny, grid.nx), generator=gen,
+                          device=card) * 0.01
+        sp = mu.MassSpecies(decay=(0.0, 1e-6), drydep=(True, True))
+        k10 = mu.decay_drydep_cuda(p, vdep, 900, 600, sp, True, dp.t_below)
+        pl = mu.apply_decay_drydep_plain(p, vdep, 900, 600, sp, True,
+                                         dp.t_below)
+        assert torch.equal(k10[0].mass.view(torch.int32),
+                           pl[0].mass.view(torch.int32))
+        assert torch.equal(k10[1].view(torch.int32), pl[1].view(torch.int32))

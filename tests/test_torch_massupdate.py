@@ -120,13 +120,6 @@ def test_apply_decay_drydep_matches_jax(has_vdep):
         assert float(tdep.abs().sum()) == 0.0
 
 
-def test_t_below_is_not_ported():
-    tp = _port(_particles())
-    with pytest.raises(NotImplementedError, match="t_below"):
-        tmu.apply_decay_drydep(tp, None, 900, 0, tmu.MassSpecies(**SP),
-                               has_vdep=False, t_below=torch.zeros(N))
-
-
 def test_decay_deposition_grids_matches_jax():
     rs = np.random.default_rng(3)
     shape = (2, 1, 3, 8, 9, 2)

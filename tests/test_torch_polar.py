@@ -10,11 +10,11 @@ against ``flexpart_tpu/core/advance.py``.
   pole; measured 7.6e-6 in x, 3.8e-6 in y), the cap masks exactly.
 * The four cases of ``tests/test_polar.py`` on the port's advance, with
   the JAX package's assertions.  The JAX tests switch turbulence off
-  (``turboff``), which the port refuses; the port is fed draws that are all
-  zero instead, which at 5 km in the free troposphere of a wind field
-  without variance gives the same deterministic advection.  After the
-  steps, the port's positions are also held against the JAX run's, within
-  1e-3 grid units (40 steps of the transcendentals' ulps).
+  (``turboff``), and so does the port, which is also fed draws that are
+  all zero: at 5 km in the free troposphere of a wind field without
+  variance that is deterministic advection.  After the steps, the port's
+  positions are also held against the JAX run's, within 1e-3 grid units
+  (40 steps of the transcendentals' ulps).
 """
 import jax
 import jax.numpy as jnp
@@ -58,7 +58,7 @@ def setup(u=10.0, v=0.0, met_factory=None):
     jprm = JStepParams.make(dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0,
                             xlon0=grid.xlon0, dxconst=grid.dxconst,
                             dyconst=grid.dyconst, lsynctime=900, fine=1.0)
-    tcfg = interop.step_config_from_jax(jcfg._replace(turboff=False))
+    tcfg = interop.step_config_from_jax(jcfg)
     tprm = interop.step_params_from_numpy(jprm)
     tz = interop.zfields_from_numpy(
         {k: np.asarray(v) for k, v in zf._asdict().items()}, "cpu")

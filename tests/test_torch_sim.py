@@ -399,16 +399,7 @@ REFUSED = {
     "mquasilag": dict(cmd_kw=dict(mquasilag=1)),
     "itsplit": dict(cmd_kw=dict(itsplit=3600)),
     "OH reaction": dict(species=dict(ohcconst=1e-12)),
-    "settling": dict(species=dict(density=2000.0, dquer=1.0, dsigma=1.5)),
-    # a Cs-137 aerosol deposits and decays in the port, but with a density
-    # it settles, which is not ported yet
-    "settling species": dict(species=dict(
-        name="CS-137", decay_halflife=9.5e8, crain_aero=1.0,
-        csnow_aero=1.0, ccn_aero=0.9, in_aero=0.1, density=2500.0,
-        dquer=0.4, dsigma=1.5, dryvel=1.0e-3)),
     "cblflag": dict(cmd_kw=dict(cblflag=1)),
-    "ctl > 0": dict(cmd_kw=dict(ctl=5.0)),
-    "turboff": dict(turboff=True),
     "legacy_rng": dict(legacy_rng=True),
     "distributed": dict(distributed="dp"),
     "write_fortran": dict(write_fortran=True),
