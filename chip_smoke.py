@@ -56,8 +56,12 @@ the port's stock forward step on the card, in phases:
                 T_BELOW instantiation beside it on the same particles; and
                 the adaptive step (K11) on 10 x 2**20 particles over the
                 boundary layer of the whole sphere, as drawn and in cell
-                order, with its passes, its warp efficiency and its bound
-                from the compiled kernel's instructions per pass;
+                order, with its passes, the lane efficiency of its refilled
+                lanes beside the warp efficiency that one thread per
+                particle would have, and its bound from the compiled
+                kernel's instructions per pass body; and on the edges of
+                the refill: 17, 257 and 10,000 particles, 2**16 that all
+                start above h, one with the most passes among 63 with none;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
                 with the same draws; and the advance kernel with its draws
@@ -118,8 +122,9 @@ the port's stock forward step on the card, in phases:
                 (about 7 mm/s) from the storm band; three hours, twice with
                 one seed: bitwise equal particles, the aerosol's budget
                 within 1e-3 and deposits above 0, the tracer's mass
-                recovered; the passes per boundary-layer particle and the
-                warp efficiency of every step (run B); K11, K4 SETTLING and
+                recovered; the passes per boundary-layer particle, K11's
+                lane efficiency and the warp efficiency of every step (run
+                B); K11, K4 SETTLING and
                 K10 T_BELOW against their plain versions on a release step
                 and a steady step, and K11 once more without settling on
                 the same particles and key: the aerosol ends lower, the
@@ -256,12 +261,13 @@ def nvidia_smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def registers_by_entry(build_log: str) -> dict:
-    """{kernel entry: registers} from nvcc's -Xptxas -v lines; a template
-    instantiation is named by its bool arguments (advance_kernel<1,0,1>
-    is BF16, not TS, POLAR)."""
+def ptxas_by_entry(build_log: str) -> dict:
+    """{kernel entry: registers, stack frame, spill stores and loads in
+    bytes} from nvcc's -Xptxas -v lines; a template instantiation is named
+    by its bool arguments (advance_kernel<1,0,1> is BF16, not TS,
+    POLAR)."""
     import re
-    out, entry = {}, None
+    out, entry, props = {}, None, None
     for ln in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
@@ -270,9 +276,22 @@ def registers_by_entry(build_log: str) -> dict:
             flags = re.findall(r"Lb([01])E", name)
             entry = (base.group(1) if base else name) \
                 + (f"<{','.join(flags)}>" if flags else "")
+            out[entry] = {"mangled": name}
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and entry is not None and props == out[entry]["mangled"]:
+            out[entry].update(stack=int(m[1]), spill_stores=int(m[2]),
+                              spill_loads=int(m[3]))
         m = re.search(r"Used (\d+) registers", ln)
         if m and entry is not None:
-            out[entry] = int(m.group(1))
+            out[entry]["registers"] = int(m[1])
+    for v in out.values():
+        v.pop("mangled")
     return out
 
 
@@ -1079,10 +1098,13 @@ def boundary_layer_particles(n: int, device, seed: int, grid, itime: int,
 
 
 def warp_efficiency(passes) -> dict:
-    """How the lanes of K11's warps (32 consecutive particles) share their
-    passes: over warps with a pass, the mean of (mean passes / max passes
-    of its lanes, zero-pass lanes included); the passes per particle that
-    takes any (mean, p99, max)."""
+    """How the lanes of warps of 32 consecutive particles, one thread each,
+    would share their passes (K11 without its pool): ``warp_efficiency``,
+    over warps with a pass, the mean of (mean passes / max passes of its
+    lanes, zero-pass lanes included); ``warp_efficiency_pooled``, the
+    passes over the lane iterations such warps issue (32 x each warp's max,
+    a last partial warp as a full one), pooled as K11's lane_efficiency
+    is; the passes per particle that takes any (mean, p99, max)."""
     import torch
     n = passes.numel() // 32 * 32
     w = passes[:n].reshape(-1, 32).float()
@@ -1090,20 +1112,26 @@ def warp_efficiency(passes) -> dict:
     some = mx > 0
     eff = float((w.mean(dim=1)[some] / mx[some]).mean()) if some.any() \
         else 0.0
+    issued = 32 * (int(mx.sum()) + (int(passes[n:].max())
+                                    if passes.numel() > n else 0))
+    total = int(passes.sum(dtype=torch.int64))
     took = passes[passes > 0].float()
     q = float(torch.quantile(took[:2 ** 24], 0.99)) if took.numel() else 0.0
     return dict(warp_efficiency=eff,
+                warp_efficiency_pooled=total / issued if issued else 0.0,
+                warp_lane_iterations=issued,
                 particles_in_the_loop=int(took.numel()),
                 passes_mean=float(took.mean()) if took.numel() else 0.0,
                 passes_p99=q, passes_max=int(passes.max()),
-                passes_total=int(passes.sum(dtype=torch.int64)))
+                passes_total=total)
 
 
 def sass_instantiation(kernel, template: str, flags) -> tuple:
     """The SASS of the one instantiation of the kernel template
     ``template`` in ``kernel``'s library whose bool template arguments are
-    ``flags`` (as in registers_by_entry): its name and its instructions as
-    (address, opcode, predicated, branch target or None), labels
+    ``flags`` (as in ptxas_by_entry): its name and its instructions as
+    (address, opcode, conditional: predicated, a BRA.DIV or a branch on a
+    predicate operand; branch target or None; operands), labels
     resolved."""
     import re
     want = "".join(f"Lb{int(f)}E" for f in flags)
@@ -1135,31 +1163,36 @@ def sass_instantiation(kernel, template: str, flags) -> tuple:
             labels[lab] = addr
         pending = []
         target = None
+        cond = bool(pred) and pred.strip() != "@PT"
+        operands = rest.split(";")[0].strip()
         if op.startswith("BRA"):
-            operands = rest.split(";")[0]
+            # BRA.DIV (taken when the warp is diverged) and a branch on a
+            # predicate operand fall through as well
+            cond = cond or ".DIV" in op or bool(
+                re.match(r"!?U?P[0-6]\b", operands))
             lab = re.search(r"\((\.L_x_\d+)\)", operands)
             hexes = re.findall(r"0x([0-9a-f]+)", operands)
             target = lab.group(1) if lab else (int(hexes[-1], 16) if hexes
                                                else None)
-        code.append((addr, op, bool(pred) and pred.strip() != "@PT", target))
-    code = [(a, op, c, labels.get(t, t) if isinstance(t, str) else t)
-            for a, op, c, t in code]
+        code.append((addr, op, cond, target, operands))
+    code = [(a, op, c, labels.get(t, t) if isinstance(t, str) else t, o)
+            for a, op, c, t, o in code]
     return hit[0], code
 
 
-def sass_path(code, lo: int, hi: int, pick=min) -> int:
-    """Instructions (NOPs aside) on the cheapest (``pick`` min) or dearest
-    (max) path from the instruction at address ``lo`` to the one at ``hi``,
-    both counted, along the forward edges between them: a branch goes to
-    its target and, predicated, on to the next instruction; an unpredicated
-    EXIT, RET or branch ends or leaves the straight line.  A loop inside
-    the range is passed once (its back edge is not an edge here); a call
-    counts as one instruction."""
+def sass_path(code, lo: int, hi: int, pick=min, free=frozenset()) -> int:
+    """Instructions (NOPs and the addresses in ``free`` aside) on the
+    cheapest (``pick`` min) or dearest (max) path from the instruction at
+    address ``lo`` to the one at ``hi``, both counted, along the forward
+    edges between them: a branch goes to its target and, predicated, on to
+    the next instruction; an unpredicated EXIT, RET or branch ends or
+    leaves the straight line.  A loop inside the range is passed once (its
+    back edge is not an edge here); a call counts as one instruction."""
     best = {lo: 0}
-    for k, (addr, op, cond, target) in enumerate(code):
+    for k, (addr, op, cond, target, _) in enumerate(code):
         if addr < lo or addr not in best:
             continue
-        c = best[addr] + (op != "NOP")
+        c = best[addr] + (op != "NOP" and addr not in free)
         if addr == hi:
             return c
         nxt = code[k + 1][0] if k + 1 < len(code) else None
@@ -1180,37 +1213,144 @@ def sass_path(code, lo: int, hi: int, pick=min) -> int:
     raise AssertionError(f"no path from {lo:#x} to {hi:#x}")
 
 
+# K11's pool: a row of THREADS 32-bit words for each field of a particle
+K11_POOL_ROW_BYTES = 256 * 4
+
+
+def k11_pool_traffic(code, lo: int, hi: int) -> dict:
+    """The instructions in [lo, hi] of K11's compiled pass body that move a
+    particle between the block's pool and the registers, which the design
+    adds and a pass's own work does not need: the load of ``order[t]`` and
+    the store of ``in_loop[p]`` (the shared loads and stores narrower than a
+    word: the pass's own shared loads are float heights), and the loads and
+    stores whose address register derives from ``order[t]``, i.e. from the
+    slot p.  Derivation is followed in address order: a register an
+    arithmetic instruction writes derives from p if one of its sources does
+    (a predicated write keeps what the register held); what a load
+    returns does not.  Returns their addresses and the pool words (the
+    offsets / K11_POOL_ROW_BYTES) stored and loaded; every such access must
+    sit on a row boundary."""
+    import re
+
+    def regs(text):
+        return {int(r) for r in re.findall(r"\bR(\d+)\b", text)}
+
+    def widths(op):
+        return 4 if ".128" in op else 2 if (".64" in op or ".WIDE" in op) \
+            else 1
+
+    from_slot, traffic, stored, loaded = set(), set(), set(), set()
+    for addr, op, cond, _, operands in code:
+        if not lo <= addr <= hi:
+            continue
+        shared = op.startswith(("LDS", "STS"))
+        if shared and re.search(r"\.(U|S)(8|16)\b", op):
+            traffic.add(addr)
+            if op.startswith("LDS"):
+                dest = min(regs(operands.split(",")[0]), default=None)
+                if dest is not None:
+                    from_slot.add(dest)
+            continue
+        if shared:
+            m = re.search(r"\[R(\d+)(?:\+(-?0x[0-9a-f]+))?\]", operands)
+            if m and int(m.group(1)) in from_slot:
+                off = int(m.group(2), 16) if m.group(2) else 0
+                check(off % K11_POOL_ROW_BYTES == 0, f"K11: a pool access "
+                      f"at {addr:#x} off a row: {op} {operands}")
+                traffic.add(addr)
+                (stored if op.startswith("STS") else loaded).add(
+                    off // K11_POOL_ROW_BYTES)
+            if op.startswith("STS"):
+                continue
+        parts = operands.split(",", 1)
+        dest = re.fullmatch(r"R(\d+)(?:\.64)?", parts[0].strip())
+        if dest is None:
+            continue
+        written = set(range(int(dest.group(1)),
+                            int(dest.group(1)) + widths(op)))
+        derived = not shared and bool(
+            regs(parts[1] if len(parts) > 1 else "") & from_slot)
+        if derived:
+            from_slot |= written
+        elif not cond:
+            from_slot -= written
+    return dict(addresses=traffic, stored=sorted(stored),
+                loaded=sorted(loaded))
+
+
 def k11_instructions(kernel, entry_flags, ifine: int) -> dict:
     """K11's instructions per pass, read from the compiled kernel: in the
     SASS of the instantiation a run takes (``entry_flags``: table type,
     turbswitch, polar, settling; the uniform turbswitch branch is compiled
-    away), the loop of passes is the widest backward branch and the loop of
-    the ifine substeps the widest one inside it.  A pass is the loop's
-    cheapest path from its head to its back edge (``sass_path``: at each
+    away), the loop of iterations is the widest backward branch of the
+    kernel's body (up to its first unconditional EXIT; the compiler puts
+    the slow paths of a vote after it), and the substep loop the widest
+    loop inside it.  Before the substep loop lie the dealing of the
+    particles still in the loop to the lanes (a ballot, the block's last
+    barrier) and the branch that takes a thread past the count over the
+    pass to the end of the iteration; the pass body runs from the
+    instruction after that branch to the loop's back edge.  A pass is the cheapest path (``sass_path``: at each
     branch of the data, the Hanna regime, the OU form, the drag regime of
-    settling, a gas, the draws a substep takes, the cheaper side), with the
-    substep loop's once (the last substep, whose Hanna refresh is skipped)
-    and its body, Hanna's refresh included, ifine - 1 times more.  The
-    dearest path is given beside it; the toolkit's slow paths are calls."""
+    settling, a gas, the draws a substep takes, the cheaper side) from
+    there to the substep loop's head and on through the loop once (the
+    last substep, whose Hanna refresh is skipped) to the back edge, plus
+    the substep loop's cheapest body, Hanna's refresh included, ifine - 1
+    times more.  Not counted as pass work: the dealing, a particle's start
+    and end, and in the pass body the moves between the pool and the
+    registers (k11_pool_traffic), which are reported beside it.  The
+    dearest path is given too; the toolkit's slow paths are calls."""
     name, code = sass_instantiation(kernel, "advance_adaptive_kernel",
                                     entry_flags)
-    back = [(t, a) for a, op, _, t in code
-            if op.startswith("BRA") and t is not None and t < a]
+    body_end = min((a for a, op, cond, _, _ in code
+                    if op.startswith("EXIT") and not cond),
+                   default=code[-1][0])
+    back = [(t, a) for a, op, _, t, _ in code
+            if op.startswith("BRA") and t is not None and t < a <= body_end]
     check(bool(back), "K11: no loop found in the compiled kernel")
     outer = max(back, key=lambda b: b[1] - b[0])
-    inner = [b for b in back if outer[0] <= b[0] and b[1] < outer[1]]
-    check(bool(inner), "K11: no substep loop inside the loop of passes")
-    sub = max(inner, key=lambda b: b[1] - b[0])
-    out = {"entry": name[:80],
-           "kernel": sum(1 for _, op, _, _ in code if op != "NOP"),
-           "pass_loop": sum(1 for a, op, _, _ in code
-                            if outer[0] <= a <= outer[1] and op != "NOP"),
-           "substep_loop": sum(1 for a, op, _, _ in code
-                               if sub[0] <= a <= sub[1] and op != "NOP")}
+    inside = [b for b in back if outer[0] <= b[0] and b[1] < outer[1]]
+    check(bool(inside), "K11: no substep loop inside the loop of iterations")
+    sub = max(inside, key=lambda b: b[1] - b[0])
+    bars = [a for a, op, _, _, _ in code
+            if op.startswith("BAR") and outer[0] <= a < sub[0]]
+    check(bool(bars), "K11: no barrier before the pass body")
+    check(any(outer[0] <= a < max(bars) and op.startswith("VOTE")
+              for a, op, _, _, _ in code),
+          "K11: no ballot deals the particles before the pass body")
+    skip = [k for k, (a, op, cond, t, _) in enumerate(code)
+            if max(bars) < a < sub[0] and op.startswith("BRA") and cond
+            and ".DIV" not in op and t is not None
+            and sub[1] < t <= outer[1]]
+    check(bool(skip), "K11: no branch takes a thread past the pass body")
+    first = code[skip[0] + 1][0]
+    pool = k11_pool_traffic(code, first, outer[1])
+    check(pool["stored"] == list(range(len(pool["stored"]))) and
+          len(pool["stored"]) >= 1, f"K11: the pass stores pool words "
+          f"{pool['stored']}, not the first ones")
+
+    def count(lo, hi):
+        return sum(1 for a, op, _, _, _ in code
+                   if lo <= a <= hi and op != "NOP")
+
+    out = {"entry": name[:80], "kernel": count(0, code[-1][0]),
+           "iteration_loop": count(*outer),
+           "dealing": count(outer[0], first - 1),
+           "pass_body": count(first, outer[1]),
+           "substep_loop": count(*sub),
+           "pool_moves_in_pass_body": len(pool["addresses"]),
+           "pool_words_stored": len(pool["stored"]),
+           "pool_words_loaded": len(pool["loaded"]),
+           "calls_in_pass_body": sum(1 for a, op, _, _, _ in code
+                                     if first <= a <= outer[1]
+                                     and op.startswith("CALL"))}
+    head = sum(1 for a, op, _, _, _ in code if a == sub[0] and op != "NOP")
     for tag, pick in (("cheapest", min), ("dearest", max)):
-        once = sass_path(code, *outer, pick)
-        body = sass_path(code, *sub, pick)
-        out[f"per_pass_{tag}"] = once + (ifine - 1) * body
+        for what, free in (("", pool["addresses"]),
+                           ("_with_pool_moves", frozenset())):
+            once = (sass_path(code, first, sub[0], pick, free)
+                    + sass_path(code, sub[0], outer[1], pick, free) - head)
+            body = sass_path(code, *sub, pick, free)
+            out[f"per_pass_{tag}{what}"] = once + (ifine - 1) * body
         out[f"substep_{tag}"] = body
     return out
 
@@ -1226,7 +1366,7 @@ def settling_instructions(kernel, bf16: bool, polar: bool) -> dict:
     for settle in (False, True):
         _, code = sass_instantiation(kernel, "advance_kernel",
                                      (bf16, False, polar, settle))
-        n[settle] = sum(1 for _, op, _, _ in code if op != "NOP")
+        n[settle] = sum(1 for _, op, _, _, _ in code if op != "NOP")
     return dict(stock=n[False], settling=n[True],
                 per_particle=n[True] - n[False])
 
@@ -1266,7 +1406,8 @@ def k11_bound(p, pk, passes, height, cfg, a, instructions) -> dict:
                         per_pass * total))
 
 
-def check_adaptive(q, height, tables, a, key, cfg, settle, what: str):
+def check_adaptive(q, height, tables, a, key, cfg, settle, what: str,
+                   offset: int = 0):
     """K11 against the plain advance on the card with the same key (K11's
     draws made in registers, the plain version's by K1, pass by pass):
     every output, idt included, t_below, the passes and the counts, bitwise;
@@ -1276,9 +1417,9 @@ def check_adaptive(q, height, tables, a, key, cfg, settle, what: str):
     import torch
     from flexpart_tpu_torch.core import advance
     (pk, dk) = advance.advance_adaptive_cuda(q, height, tables, copy.copy(a),
-                                             key, cfg, None, 0, settle)
+                                             key, cfg, None, offset, settle)
     (pp, dp) = advance.advance_all_plain(q, height, tables, copy.copy(a), key,
-                                         cfg, None, 0, settle)
+                                         cfg, None, offset, settle)
     torch.cuda.synchronize()
     res = compare_particles(pk, pp, f"{what}: K11", float(cfg.nx - 1))
     differ = differing_particles(pk, pp, advance.ADAPTIVE_OUT_FIELDS)
@@ -1293,10 +1434,23 @@ def check_adaptive(q, height, tables, a, key, cfg, settle, what: str):
     for f in ("n_active", "n_exited", "nan_count"):
         check(int(getattr(dk, f)) == int(getattr(dp, f)),
               f"{what}: K11 {f} differs")
+    executed, issued = (int(v) for v in dk.lane_work)
+    check(executed == int(dk.passes.sum(dtype=torch.int64)),
+          f"{what}: K11 counted {executed} passes, its particles "
+          f"{int(dk.passes.sum(dtype=torch.int64))}")
     res.update(differing_particles=differ, bitwise=differ == 0,
                max_abs_err=max(res["max_dx"], res["max_dy"]),
-               n_active=int(dk.n_active), **warp_efficiency(dk.passes))
+               n_active=int(dk.n_active), **warp_efficiency(dk.passes),
+               **lane_efficiency(dk.lane_work))
     return res, pk, dk
+
+
+def lane_efficiency(lane_work) -> dict:
+    """K11's refilled lanes: the passes it executed over the lane
+    iterations it issued (32 per warp iteration that ran a pass)."""
+    executed, issued = (int(v) for v in lane_work)
+    return dict(lane_efficiency=executed / issued if issued else 0.0,
+                lane_iterations=issued)
 
 
 def kernel_advance_adaptive(device, grid) -> dict:
@@ -1344,16 +1498,65 @@ def kernel_advance_adaptive(device, grid) -> dict:
         torch.cuda.empty_cache()
     check(res["cases"]["as_drawn"]["particles_in_the_loop"] > N_MAIN // 2,
           "K11: fewer than half of the particles took a pass")
+    res["ragged"] = k11_ragged_cases(p, z0.height, tables, a, key, cfg,
+                                     settle)
     m = res["cases"]["cell_ordered"]
     res.update({f: m[f] for f in (
         "ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
         "bound_operations", "bound_instructions", "warp_efficiency",
-        "passes_mean", "passes_p99", "passes_max")}, library_ms=None,
+        "warp_efficiency_pooled", "lane_efficiency", "passes_mean",
+        "passes_p99", "passes_max")},
+        library_ms=None,
         n=N_MAIN,
         unordered_ms=res["cases"]["as_drawn"]["ms"],
         bitwise=all(c["bitwise"] for c in res["cases"].values()),
         max_abs_err=max(c["max_abs_err"] for c in res["cases"].values()))
     return res
+
+
+def k11_ragged_cases(p, height, tables, a, key, cfg, settle) -> dict:
+    """K11 against the plain advance (check_adaptive: bitwise, the passes,
+    t_below and the counts) on the edges of its refilled lanes, cut from the
+    spread ensemble ``p`` as drawn: 17 particles (fewer than a warp), 257
+    (a block and one), 10,000 (fewer than the card holds at once: 132 SMs
+    x 1,024 threads), 2**16 that all start above h (no pass), and the
+    particle with the most passes among 63 that take none: it sits on slot
+    5 (its own, if lower), and the draw counter's offset gives it its own
+    global index, so it takes the passes it takes in ``p``."""
+    import copy
+    import torch
+    from flexpart_tpu_torch.core import advance
+    from flexpart_tpu_torch.core.state import FIELDS, Particles
+
+    def take(idx):
+        return Particles(**{f: getattr(p, f)[idx] for f in FIELDS})
+
+    passes = advance.advance_adaptive_cuda(
+        p, height, tables, copy.copy(a), key, cfg, None, 0, settle)[1].passes
+    dev = passes.device
+    idle = torch.nonzero(p.active & (passes == 0)).flatten()
+    top = int(torch.argmax(passes))
+    check(idle.numel() >= 2 ** 16, f"K11: {idle.numel()} zero-pass particles")
+    cases = {f"n{k}": torch.arange(k, device=dev) for k in (17, 257, 10000)}
+    cases["above_h"] = idle[:2 ** 16]
+    pos = min(5, top)
+    cases["one_long_among_idle"] = torch.cat([
+        idle[:pos], torch.tensor([top], device=dev), idle[pos:63]])
+    out = {}
+    for name, idx in cases.items():
+        offset = top - pos if name == "one_long_among_idle" else 0
+        r, _, dk = check_adaptive(take(idx), height, tables, a, key, cfg,
+                                  settle, f"K11 ragged {name}", offset)
+        out[name] = {f: r[f] for f in ("bitwise", "differing_particles",
+                                       "n_active", "passes_total",
+                                       "lane_efficiency")}
+        out[name]["n"] = int(idx.numel())
+        out[name]["passes_max"] = int(dk.passes.max())
+    check(out["above_h"]["passes_total"] == 0, "K11: a particle above h "
+          "took a pass")
+    check(out["one_long_among_idle"]["passes_max"] == int(passes[top]) >= 8,
+          f"K11: the long particle took {out['one_long_among_idle']}")
+    return out
 
 
 def sounding_eta(grid, device):
@@ -3261,7 +3464,7 @@ def phase_sim_adaptive(device, kernels) -> dict:
     release_steps = sorted(t // LSYNC for t in sim._release_times)
     keep = {release_steps[len(release_steps) // 2]: "release step",
             nsteps - 1: "steady step"}
-    snaps, passes = {}, []
+    snaps, passes, lane_work = {}, [], []
 
     def probe(istep, itime):
         if istep in keep:
@@ -3272,6 +3475,7 @@ def phase_sim_adaptive(device, kernels) -> dict:
     def counted(*args, **kw):
         p, diag = inner(*args, **kw)
         passes.append(diag.passes.clone())
+        lane_work.append(diag.lane_work.clone())
         return p, diag
 
     inner = simmod.advance_all
@@ -3315,8 +3519,16 @@ def phase_sim_adaptive(device, kernels) -> dict:
         passes_per_pbl_particle_max=int(allp.max()),
         warp_efficiency_per_step=[s["warp_efficiency"] for s in per_step],
         warp_efficiency_mean=float(np.mean([s["warp_efficiency"]
-                                            for s in per_step])))
-    del passes, allp
+                                            for s in per_step])),
+        warp_efficiency_pooled_per_step=[s["warp_efficiency_pooled"]
+                                         for s in per_step],
+        warp_efficiency_pooled_run=sum(s["passes_total"] for s in per_step)
+        / sum(s["warp_lane_iterations"] for s in per_step),
+        lane_efficiency_per_step=[lane_efficiency(w)["lane_efficiency"]
+                                  for w in lane_work],
+        lane_efficiency_run=lane_efficiency(
+            torch.stack(lane_work).sum(dim=0))["lane_efficiency"])
+    del passes, allp, lane_work
     check(set(snaps) == set(keep.values()),
           f"sim_adaptive: kept steps {list(snaps)}")
     on_inputs = {name.replace(" ", "_"): sim_adaptive_checks(
@@ -3380,7 +3592,7 @@ def main() -> int:
     ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
                       if "registers" in ln] for k in kernels}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
-          "registers": {k.name: registers_by_entry(k.build_log)
+          "registers": {k.name: ptxas_by_entry(k.build_log)
                         for k in kernels}})
 
     grid = make_grid(**BENCH_GRID)
@@ -3490,21 +3702,27 @@ def main() -> int:
         # steps
         "advance_adaptive": {
             **{f: kres["advance_adaptive"][f] for f in (
-                "unordered_ms", "bitwise", "warp_efficiency", "passes_mean",
+                "unordered_ms", "bitwise", "lane_efficiency",
+                "warp_efficiency_pooled", "warp_efficiency", "passes_mean",
                 "passes_p99", "passes_max", "instructions", "bound_bytes",
-                "bound_operations", "bound_instructions")},
-            "unordered_warp_efficiency": kres["advance_adaptive"]["cases"]
-            ["as_drawn"]["warp_efficiency"],
+                "bound_operations", "bound_instructions", "ragged")},
+            **{f"unordered_{f}": kres["advance_adaptive"]["cases"]
+               ["as_drawn"][f] for f in ("lane_efficiency",
+                                         "warp_efficiency_pooled",
+                                         "warp_efficiency")},
             "sim_adaptive": {f: adres[f] for f in (
                 "passes_per_pbl_particle_mean", "passes_per_pbl_particle_p99",
-                "passes_per_pbl_particle_max", "warp_efficiency_mean")},
+                "passes_per_pbl_particle_max", "lane_efficiency_run",
+                "warp_efficiency_pooled_run", "warp_efficiency_mean")},
             "sim_adaptive_per_call": adres["device_per_call"]
             ["advance_adaptive"],
             "sim_adaptive_inputs": {
                 s: {f: r["advance_adaptive"][f] for f in (
                     "ms", "plain_ms", "max_abs_err", "differing_particles",
-                    "warp_efficiency", "passes_mean", "passes_max",
-                    "bound_ms", "bound_by", "aerosol_drop_by_settling_m")}
+                    "lane_efficiency", "warp_efficiency_pooled",
+                    "warp_efficiency", "passes_mean",
+                    "passes_max", "instructions_per_pass", "bound_ms",
+                    "bound_by", "aerosol_drop_by_settling_m")}
                 for s, r in adres["kernels_on_sim_adaptive_inputs"].items()}},
         # K6: SyntheticMet (ms) and the sounding, every column convecting
         # (all_convecting_ms); its layout on this card; the taller grids

@@ -235,6 +235,8 @@ ADVANCE_ADAPTIVE = Kernel("advance_adaptive", "fp_advance_adaptive", [
     P,                    # height (nz,) f32
     P, P, P,              # settling: mass0 (n, nspec), tt, rho (nz, ny, nx) f32, or NULL
     P,                    # counts (2,) i32: active, exited (accumulated into)
+    P,                    # work (2,) u64: passes executed, lane iterations
+                          # issued (accumulated into)
     P,                    # AdvanceArgs (host struct, core/advance.py)
     P,                    # stream
 ])

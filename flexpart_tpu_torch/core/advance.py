@@ -164,6 +164,9 @@ class StepDiag:
     #: particle took (0 outside the boundary layer and if not scheduled)
     t_below: torch.Tensor | None = None
     passes: torch.Tensor | None = None
+    #: K11 only: (passes executed, lane iterations issued) int64, whose
+    #: ratio is the lane efficiency of its refilled lanes
+    lane_work: torch.Tensor | None = None
 
 
 DRAW_ROWS = {6: 6, 1: 2, 3: 3, 4: 3}     # tag 2 has ifine rows
@@ -767,6 +770,7 @@ def advance_all_cuda(p: Particles, height: torch.Tensor,
 # K11's particle fields: K4's and the adaptive step memory idt
 ADAPTIVE_IN_FIELDS = _IN_FIELDS + ("idt",)
 ADAPTIVE_OUT_FIELDS = OUT_FIELDS + ("idt",)
+K11_WORK_WORDS = 2        # K11's work counters, unsigned 64-bit words
 
 
 def advance_adaptive_cuda(p: Particles, height: torch.Tensor,
@@ -774,10 +778,12 @@ def advance_adaptive_cuda(p: Particles, height: torch.Tensor,
                           key: rng.Key, cfg: StepConfig, draws: dict | None,
                           offset: int, settle=None):
     """K11 launch: the whole adaptive-step advance of all ``p.capacity``
-    particles in one kernel, out of place, a loop of passes inside each
-    thread, its draws made in registers (tags 1 and 2 with the pass in the
-    Philox counter).  K11 reads no injected draws: ``draws`` must be None
-    (the plain version takes them)."""
+    particles in one kernel, out of place: a block starts and ends 256
+    particles and, between, deals the ones still in the boundary layer's
+    loop to its first lanes, one pass each, until none is left; the draws
+    are made in registers (tags 1 and 2 with the pass in the Philox
+    counter).  K11 reads no injected draws: ``draws`` must be None (the
+    plain version takes them)."""
     if cfg.method != 1:
         raise ValueError("K11 is the adaptive step; the fixed step is K4 "
                          "(advance_all_cuda)")
@@ -803,6 +809,8 @@ def advance_adaptive_cuda(p: Particles, height: torch.Tensor,
     for s, tag in enumerate(DRAW_TAGS):
         a.key[2 * s], a.key[2 * s + 1] = key.philox_key(tag)
     counts = torch.zeros(2, dtype=i32, device=dev)
+    # the passes executed and the lane iterations issued (u64)
+    work = torch.zeros(K11_WORK_WORDS, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.ADVANCE_ADAPTIVE(
@@ -811,11 +819,11 @@ def advance_adaptive_cuda(p: Particles, height: torch.Tensor,
             t_below.data_ptr(), passes.data_ptr(),
             tables.rows.data_ptr(), tables.rowsE.data_ptr(),
             height.data_ptr(), *_settle_ptrs(p, a, settle),
-            counts.data_ptr(), ctypes.addressof(a), stream)
+            counts.data_ptr(), work.data_ptr(), ctypes.addressof(a), stream)
     # only the CBL branch (not ported) can produce a non-finite wp
     return p.replace(**out), StepDiag(
         n_active=counts[0], n_exited=counts[1], nan_count=zero,
-        t_below=t_below, passes=passes)
+        t_below=t_below, passes=passes, lane_work=work)
 
 
 def _adaptive_interval_plain(cfg: StepConfig, a: AdvanceArgs, tables, hw,

@@ -1,6 +1,8 @@
 // K11: the adaptive-step particle advance (CTL > 0, method = 1), one
-// lsynctime update of every scheduled particle in ONE launch, one thread
-// per particle and a loop of passes inside the thread.
+// lsynctime update of every scheduled particle in ONE launch: a block
+// starts 256 particles, one a thread, keeps them in a pool in shared memory
+// and deals the ones still in the boundary layer's loop to its first lanes,
+// one pass each, until none is left; then each thread ends its own.
 //
 // Replaces: flexpart_tpu/core/advance.py::advance_all with method=1
 // (advance.py:768-1256), its _adaptive_interval (:430-660), _ldt_formula
@@ -9,38 +11,65 @@
 // particle, and the plain version's loop of passes over the active particles
 // (core/advance.py::_adaptive_interval_plain).
 //
-// What a thread does: K4's start (step_start, the row gather of the (R, 64)
-// quad table and the 15-field stencil; fresh_state, a fresh particle's
-// velocities) and a fresh particle's first step idt; then, if the particle
-// starts in the boundary layer, passes while it has time left and is not
-// above h: its z re-sampled in the frozen horizontal stencil (lanes 0-39
-// of its cell's row, interp.py's wind10_quad), Hanna at z, the horizontal
-// OU update and K4's ifine vertical substeps (pbl_substeps) with the
-// pass's draws over dt_i = min(ldt, remaining), the next ldt =
-// max(trunc(min(...) * ctl), mintime), settling at the pass's z, the top
-// clamp, the seconds below 2 HREF (before the ground reflection) and the
-// ground reflection; then K4's free troposphere (free_trop_terms) for the
-// time left (the whole interval above the boundary layer); the mesoscale
-// sigmas of the final cell (lanes 60-62); and K4's end (finish_step:
-// mesoscale memory, windalign, the position update, the polar caps, the
-// boundary conditions, and the Petterssen corrector for a step of the whole
-// interval only, idt == lsynctime).  idt, t_below and the pass count are
-// written besides K4's outputs.  The shared device functions are in
-// advance_common.cuh.
+// What a particle goes through: its start (lane_start: K4's step_start,
+// the row gather of the (R, 64) quad table and the 15-field stencil;
+// fresh_state, a fresh particle's velocities, and its first step idt); if
+// it starts in the boundary layer, passes while it has time left and is
+// not above h (lane_pass: its z re-sampled in the frozen horizontal
+// stencil, lanes 0-39 of its cell's row, interp.py's wind10_quad; Hanna at
+// z; the horizontal OU update and K4's ifine vertical substeps,
+// pbl_substeps, with the pass's draws over dt_i = min(ldt, remaining); the
+// next ldt = max(trunc(min(...) * ctl), mintime); settling at the pass's z;
+// the top clamp; the seconds below 2 HREF, before the ground reflection;
+// the ground reflection); then its end (lane_end: K4's free troposphere,
+// free_trop_terms, for the time left, which is the whole interval above
+// the boundary layer; the mesoscale sigmas of the final cell, lanes 60-62;
+// K4's finish_step: mesoscale memory, windalign, the position update, the
+// polar caps, the boundary conditions, and the Petterssen corrector for a
+// step of the whole interval only, idt == lsynctime), written to its own
+// slot with idt, t_below and its pass count.  An unscheduled slot is
+// copied through.  The shared device functions are in advance_common.cuh.
 //
 // Draws: in registers from fp::normal_words with the pass in the Philox
 // counter, (global index, row / 4, pass, 0): a particle's numbers depend
-// only on (seed, step, tag, particle, pass), so the thread's own loop makes
-// what the plain version's loop over all particles makes (K1's draws of
-// pass k).  Tags 6, 3 and 4 are drawn as in K4 (pass 0).  K11 has no
-// parity mode: injected draws go to the plain version.
+// only on (seed, step, tag, particle, row, pass), never on the lane or the
+// iteration that runs its pass, so the block makes what the plain
+// version's loop over all particles makes (K1's draws of pass k).  Tags 6,
+// 3 and 4 are drawn as in K4 (pass 0).  K11 has no parity mode: injected
+// draws go to the plain version.
 //
 // Bound on the H100: chip_smoke.py's k11_bound, from the state bytes, the
-// rows the passes gather and the instructions of the passes' cheapest path
-// in the compiled loop (k11_instructions).
+// rows the passes gather and the instructions of the pass body's cheapest
+// path in the compiled kernel (k11_instructions: the dealing of the
+// particles, the starts, the ends and a pass's moves between the pool and
+// the registers are not counted as pass work).
 //
-// Design: the simple form.  The lanes of a warp take different numbers of
-// passes (warp divergence); chip_smoke.py measures the warp efficiency.
+// Design.  A boundary-layer particle takes 3-4 passes on average and up
+// to 8 or 9, a third of a run's particles none; one thread per particle
+// kept every lane of a warp until its longest lane was done (a warp
+// efficiency of 0.45 in a run).  Here the lanes that run a pass are
+// refilled every iteration from the block's pool: the particles still in
+// the loop, in slot order (a ballot per warp, the warps' counts summed),
+// go to threads 0, 1, ..., so ceil(count / 32) warps run the iteration and
+// the rest wait at the barrier, leaving the SM to other blocks.  Between
+// passes a particle's state (NWORDS words) lives in the pool, not in a
+// thread's registers; a pass loads it and stores the 16 words it changes.
+// The start and the end stay one thread per slot, so they run at full
+// width on neighbouring slots (coalesced, and in cell order the same few
+// rows for a warp), and slot order survives the dealing, so the passes'
+// gathers keep that locality too.  With the state out of the registers a
+// thread needs 64 of them, no spill, and an SM holds four blocks (32
+// warps; five or six spill and gain 2-4%).  Measured first and dropped
+// (PERF.md, section 6): resident warps refilling lanes from a global pool of
+// chunks, as the persistent threads of Aila and Laine, "Understanding the
+// efficiency of ray traversal on GPUs" (HPG 2009), fetch new rays.  There
+// a refill runs the whole start and end for the few lanes that take them,
+// and a warp's lanes hold particles from chunks far apart in slot order:
+// lane efficiency 0.8, but the spread ensemble twice as slow.  The active
+// and exited counts are reduced per warp, the passes executed and the lane
+// iterations issued (32 per warp that ran an iteration) per block: integer
+// sums, deterministic.
+//
 // turbswitch is a template flag, as in K4, so an instantiation holds one
 // form of Hanna and of the substep; turboff is a runtime field (a uniform
 // branch); the instantiations are (table type, turbswitch, polar,
@@ -56,7 +85,115 @@
 
 namespace {
 
+// Particles a block holds: the pool its warps refill their lanes from.
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+// Blocks an SM must hold (at most 64 registers a thread): 32 warps.
+constexpr int MIN_BLOCKS = 4;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+// What a kernel reads and writes besides the run scalars.
+struct Io {
+  PIn in;
+  const int* idt_in;
+  POut out;
+  int* idt_out;
+  float* t_below;
+  int* passes;
+  const void* rows;
+  const void* rowsE;
+  const float* height;
+  const float* mass0;
+  const float* tt3;
+  const float* rho3;
+};
+
+// A particle from its start to its end: the start's position, stencil and
+// boundary-layer scalars, its velocities and settling column, the pass
+// state and the sums of its displacements.
+struct Lane {
+  int i;
+  float x_hi, x_lo, y_hi, y_lo;
+  float up, vp, wp, usig, vsig, wsig;
+  int cbt;
+  Horiz hw;
+  float h, tropop, ust, wst, ol;
+  Settle st;
+  float zc, ldt, remaining, t_below;
+  uint32_t k;
+  float u_l, v_l, w_l, daw, dcw, dxs, dys;
+};
+
+// A Lane in shared memory, one 32-bit word a field (ints by their bits),
+// a row of THREADS words a field: what a block's particles keep between
+// passes.  Each field is named once, here, with its row: first the fields
+// a pass changes (PASS_FIELDS, which a pass stores back), then those it
+// only reads, then the start's position and sigmas, which only the end
+// reads (HELD_FIELDS).  Field `name` sits in row ROW_name, in the order of
+// the two lists.
+#define PASS_FIELDS(X)                                                     \
+  X(ZC, zc) X(LDT, ldt) X(REMAINING, remaining) X(T_BELOW, t_below)        \
+  X(K, k) X(UP, up) X(VP, vp) X(WP, wp) X(CBT, cbt) X(U_L, u_l)            \
+  X(V_L, v_l) X(W_L, w_l) X(DAW, daw) X(DCW, dcw) X(DXS, dxs) X(DYS, dys)
+#define HELD_FIELDS(X)                                                     \
+  X(IX, hw.ix) X(JY, hw.jy) X(P4_0, hw.p4[0]) X(P4_1, hw.p4[1])            \
+  X(P4_2, hw.p4[2]) X(P4_3, hw.p4[3]) X(H, h) X(UST, ust) X(WST, wst)     \
+  X(OL, ol) X(ST_COL, st.col) X(ST_SP, st.sp) X(TROPOP, tropop)           \
+  X(X_HI, x_hi) X(X_LO, x_lo) X(Y_HI, y_hi) X(Y_LO, y_lo) X(USIG, usig)  \
+  X(VSIG, vsig) X(WSIG, wsig)
+
+#define POOL_ROW(name, field) ROW_##name,
+enum PoolRow : int { PASS_FIELDS(POOL_ROW) HELD_FIELDS(POOL_ROW) NWORDS };
+#undef POOL_ROW
+// a field of Lane without a row, or with two, does not compile
+static_assert(sizeof(Lane) == (NWORDS + 1) * sizeof(float),
+              "every field of a Lane but i has one row of the pool");
+
+struct Pool {
+  float w[NWORDS][THREADS];
+};
+
+// The block's static shared memory: the pool, the in-loop flags, the order
+// of the particles in the loop and the per-warp counts.
+constexpr size_t STATIC_SHARED =
+    sizeof(Pool) + THREADS * (sizeof(unsigned char) + sizeof(short)) +
+    WARPS * sizeof(int);
+
+__device__ __forceinline__ void put(Pool& s, int f, int p, float v) { s.w[f][p] = v; }
+__device__ __forceinline__ void put(Pool& s, int f, int p, int v) {
+  s.w[f][p] = __int_as_float(v);
+}
+__device__ __forceinline__ void put(Pool& s, int f, int p, uint32_t v) {
+  s.w[f][p] = __int_as_float(static_cast<int>(v));
+}
+__device__ __forceinline__ void get(const Pool& s, int f, int p, float& v) { v = s.w[f][p]; }
+__device__ __forceinline__ void get(const Pool& s, int f, int p, int& v) {
+  v = __float_as_int(s.w[f][p]);
+}
+__device__ __forceinline__ void get(const Pool& s, int f, int p, uint32_t& v) {
+  v = static_cast<uint32_t>(__float_as_int(s.w[f][p]));
+}
+
+#define POOL_PUT(name, field) put(s, ROW_##name, p, L.field);
+#define POOL_GET(name, field) get(s, ROW_##name, p, L.field);
+
+__device__ __forceinline__ void store_pass(Pool& s, int p, const Lane& L) {
+  PASS_FIELDS(POOL_PUT)
+}
+
+__device__ __forceinline__ void store_lane(Pool& s, int p, const Lane& L) {
+  store_pass(s, p, L);
+  HELD_FIELDS(POOL_PUT)
+}
+
+__device__ __forceinline__ void load_lane(const Pool& s, int p, int i, Lane& L) {
+  L.i = i;
+  PASS_FIELDS(POOL_GET)
+  HELD_FIELDS(POOL_GET)
+}
+
+#undef POOL_PUT
+#undef POOL_GET
 
 // ldt = max(trunc(lim * ctl), mintime) (advance.f90:504-510); the first step
 // of a fresh particle caps lim by 600 s in the hanna1 form.
@@ -74,219 +211,338 @@ __device__ __forceinline__ float ldt_formula(const AdvanceArgs& a, const Turb& t
   return clamp_min(truncf(lim * a.ctl), a.mintime);
 }
 
+// An unscheduled slot: its state copied through, no pass, not active.
+__device__ __forceinline__ void copy_through(const Io& io, int i) {
+  io.out.x_hi[i] = io.in.x_hi[i];
+  io.out.x_lo[i] = io.in.x_lo[i];
+  io.out.y_hi[i] = io.in.y_hi[i];
+  io.out.y_lo[i] = io.in.y_lo[i];
+  io.out.z[i] = io.in.z[i];
+  io.out.itra[i] = io.in.itra[i];
+  io.out.up[i] = io.in.up[i];
+  io.out.vp[i] = io.in.vp[i];
+  io.out.wp[i] = io.in.wp[i];
+  io.out.usig[i] = io.in.usig[i];
+  io.out.vsig[i] = io.in.vsig[i];
+  io.out.wsig[i] = io.in.wsig[i];
+  io.out.cbt[i] = io.in.cbt[i];
+  io.out.active[i] = 0;
+  io.idt_out[i] = io.idt_in[i];
+  io.t_below[i] = 0.0f;
+  io.passes[i] = 0;
+}
+
+// The start of scheduled particle i (advance.f90:276; initialize.f90:110-219
+// and :155-162,191 for a fresh one).  Returns whether it takes a pass.  A
+// particle outside the boundary layer keeps the whole interval in
+// `remaining`, which its end spends in the free troposphere.
+template <bool BF16, bool TS, bool SETTLING>
+__device__ __forceinline__ bool lane_start(const AdvanceArgs& a, const Io& io,
+                                           const float* sh_height, int i,
+                                           Lane& L) {
+  const Draws in_registers = {{nullptr, nullptr, nullptr, nullptr, nullptr}};
+  L.i = i;
+  L.x_hi = io.in.x_hi[i];
+  L.x_lo = io.in.x_lo[i];
+  L.y_hi = io.in.y_hi[i];
+  L.y_lo = io.in.y_lo[i];
+  L.up = io.in.up[i];
+  L.vp = io.in.vp[i];
+  L.wp = io.in.wp[i];
+  L.usig = io.in.usig[i];
+  L.vsig = io.in.vsig[i];
+  L.wsig = io.in.wsig[i];
+  L.cbt = io.in.cbt[i];
+  int idt = io.idt_in[i];
+  const float x = L.x_hi + L.x_lo;
+  const float y = L.y_hi + L.y_lo;
+  const float z = io.in.z[i];
+  const Start s = step_start<BF16>(a, io.rows, sh_height, x, y, z);
+  L.hw = s.hw;
+  L.h = s.h;
+  L.tropop = s.tropop;
+  L.ust = s.ust;
+  L.wst = s.wst;
+  L.ol = s.ol;
+  const bool pbl = (z / s.h) <= 1.0f;
+  L.st = SETTLING ? settle_setup(a, io.mass0, i, x, y) : Settle{0, 0};
+  const bool fresh = (io.in.itramem[i] == a.itime) || (a.itime == 0);
+  if (fresh) {
+    Turb t0;
+    if (pbl) t0 = hanna<TS>(z, s.h, s.ust, s.wst, s.ol);
+    fresh_state<TS>(a, in_registers, false, i, pbl, t0, s, L.up, L.vp, L.wp,
+                    L.usig, L.vsig, L.wsig, L.cbt);
+    idt = __float2int_rz(pbl ? ldt_formula<TS>(a, t0, L.wp, s.h, true) : a.dt);
+  }
+  L.remaining = a.dt;
+  L.ldt = clamp_min(static_cast<float>(idt), a.mintime);
+  L.zc = z;
+  L.t_below = 0.0f;
+  L.k = 0;
+  L.u_l = 0.0f;
+  L.v_l = 0.0f;
+  L.w_l = 0.0f;
+  L.daw = 0.0f;
+  L.dcw = 0.0f;
+  L.dxs = 0.0f;
+  L.dys = 0.0f;
+  return pbl && L.remaining > 0.0f && L.zc <= L.h;
+}
+
+// One pass of the boundary layer (advance.f90:276-620).  Returns whether
+// the particle takes another.
+template <bool BF16, bool TS, bool SETTLING>
+__device__ __forceinline__ bool lane_pass(const AdvanceArgs& a, const Io& io,
+                                          const float* sh_height, Lane& L) {
+  const float htop = sh_height[a.nz - 1] - a.htop_eps;
+  const float hm = L.h - F(1e-9);
+  const float dt_i = tmin(L.ldt, L.remaining);
+  int iz;
+  float dz;
+  vert_weights(sh_height, a.nz, L.zc, iz, dz);
+  const size_t rk = fp::cell_row(iz, L.hw.jy, L.hw.ix, a.ny, a.nx);
+  float gk[40];
+#pragma unroll
+  for (int q = 0; q < 5; ++q) load8<BF16, 64>(io.rows, rk, q, &gk[8 * q]);
+  const float u = field2(gk, 0, L.hw.p4, dz);
+  const float v = field2(gk, 1, L.hw.p4, dz);
+  const float w = field2(gk, 2, L.hw.p4, dz);
+  const float rhoa = field2(gk, 3, L.hw.p4, dz);
+  const float drho = field2(gk, 4, L.hw.p4, dz);
+  const Turb t0 = hanna<TS>(L.zc, L.h, L.ust, L.wst, L.ol);
+
+  // the pass's draws: tag 1 rows 0, 1 (the horizontal OU update,
+  // advance.f90:369-384) and tag 2 row 0 (the first substep)
+  float d0, d1, d2, d2_odd;
+  uint32_t pw[4];
+  site_words(pw, a, 1, L.i, 0u, L.k);
+  fp::normal_pair(pw[0], pw[1], d0, d1);
+  site_words(pw, a, 2, L.i, 0u, L.k);
+  fp::normal_pair(pw[0], pw[1], d2, d2_odd);
+  const float up2 = ou_update(L.up, d0, t0.sigu, dt_i / t0.tlu);
+  const float vp2 = ou_update(L.vp, d1, t0.sigv, dt_i / t0.tlv);
+
+  // the ifine vertical substeps (advance.f90:391-498) over dt_i; the
+  // next step from the turbulence of the last refresh
+  float zz = L.zc;
+  const Turb t = pbl_substeps<TS>(a, nullptr, false, L.i, L.k, t0,
+                                  drho / rhoa, dt_i * a.fine, d2, d2_odd, pw,
+                                  L.h, L.ust, L.wst, L.ol, zz, L.wp, L.cbt);
+  const float ldt2 = ldt_formula<TS>(a, t, L.wp, L.h, false);
+  const float w_eff =
+      SETTLING ? w + settle_at(a, L.st, io.tt3, io.rho3, sh_height, L.zc) : w;
+  float z3 = zz + (w_eff * dt_i) * a.ldirf;
+  z3 = tmin(z3, htop);
+  // the deposition window (advance.f90:582-599): after the vertical
+  // update, before the ground reflection
+  if (z3 < TWO_HREF) L.t_below = L.t_below + dt_i;
+  z3 = reflect_ground(z3, hm);
+
+  L.remaining = clamp_min(L.remaining - dt_i, 0.0f);
+  L.ldt = ldt2;
+  L.zc = z3;
+  L.up = up2;
+  L.vp = vp2;
+  L.u_l = u;
+  L.v_l = v;
+  L.w_l = w_eff;
+  L.daw = L.daw + up2 * dt_i;
+  L.dcw = L.dcw + vp2 * dt_i;
+  L.dxs = L.dxs + u * dt_i;
+  L.dys = L.dys + v * dt_i;
+  ++L.k;
+  return L.remaining > 0.0f && L.zc <= L.h;
+}
+
+// The end of a particle: the free troposphere for the time left
+// (advance.f90:629-708), the mesoscale sigmas of the final cell
+// (:601-605), K4's end of the step, and its outputs.  Returns exited.
+template <bool BF16, bool POLAR, bool SETTLING>
+__device__ __forceinline__ bool lane_end(const AdvanceArgs& a, const Io& io,
+                                         const float* sh_height, Lane& L) {
+  const Draws in_registers = {{nullptr, nullptr, nullptr, nullptr, nullptr}};
+  const int i = L.i;
+  const float htop = sh_height[a.nz - 1] - a.htop_eps;
+  const float hm = L.h - F(1e-9);
+  float zc = L.zc;
+  float ldt = L.ldt;
+  float wp = L.wp;
+  float u_l = L.u_l, v_l = L.v_l, w_l = L.w_l;
+  float dxs = L.dxs, dys = L.dys;
+  const float dt_ft = L.remaining;
+  if (dt_ft > 0.0f) {
+    int iz;
+    float dz;
+    vert_weights(sh_height, a.nz, zc, iz, dz);
+    const size_t rf = fp::cell_row(iz, L.hw.jy, L.hw.ix, a.ny, a.nx);
+    float gf[24];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) load8<BF16, 64>(io.rows, rf, q, &gf[8 * q]);
+    const float u_f = field2(gf, 0, L.hw.p4, dz);
+    const float v_f = field2(gf, 1, L.hw.p4, dz);
+    const float w_f = field2(gf, 2, L.hw.p4, dz);
+    const bool in_trop = zc < L.tropop;
+    const bool in_trans = !in_trop && (zc < L.tropop + 1000.0f);
+    const float dt_s = clamp_min(dt_ft, F(1e-6));
+    const float c_trop = a.two_d_trop / dt_s;
+    const float c_strat = a.two_d_strat / dt_s;
+    // tag 3 rows 0-2: one Philox call
+    float f0, f1, f2, unused;
+    uint32_t w3[4];
+    site_words(w3, a, 3, i, 0u);
+    fp::normal_pair(w3[0], w3[1], f0, f1);
+    fp::normal_pair(w3[2], w3[3], f2, unused);
+    float ux, vy, wp_ft;
+    free_trop_terms(a, in_trop, in_trans, zc, L.tropop, f0, f1, f2, c_trop,
+                    c_strat, sqrtf(c_trop), sqrtf(c_strat), ux, vy, wp_ft);
+    const float w_eff_f =
+        SETTLING ? w_f + settle_at(a, L.st, io.tt3, io.rho3, sh_height, zc) : w_f;
+    dxs = dxs + (u_f + ux) * dt_ft;
+    dys = dys + (v_f + vy) * dt_ft;
+    zc = reflect_ground(zc + ((w_eff_f + wp_ft) * dt_ft) * a.ldirf, hm);
+    wp = wp_ft;
+    u_l = u_f;
+    v_l = v_f;
+    w_l = w_eff_f;
+    ldt = clamp_min(dt_ft, a.mintime);
+  }
+
+  // the mesoscale sigmas of the final cell (advance.f90:601-605)
+  int ize;
+  float dze;
+  vert_weights(sh_height, a.nz, zc, ize, dze);
+  float ge[8];
+  load8<BF16, 64>(io.rows, fp::cell_row(ize, L.hw.jy, L.hw.ix, a.ny, a.nx), 7,
+                  ge);
+  const int idt = __float2int_rz(ldt);
+  float z_new = tmin(zc, htop);
+  float up = L.up, vp = L.vp, daw = L.daw, dcw = L.dcw;
+  if (a.turboff) {
+    up = 0.0f;
+    vp = 0.0f;
+    daw = 0.0f;
+    dcw = 0.0f;
+  }
+  const float settl =
+      SETTLING ? settle_at(a, L.st, io.tt3, io.rho3, sh_height, z_new) : 0.0f;
+
+  float m0, m1, m2;
+  meso_draws(a, in_registers, false, i, m0, m1, m2);
+  float x_hi = L.x_hi, x_lo = L.x_lo, y_hi = L.y_hi, y_lo = L.y_lo;
+  float usig = L.usig, vsig = L.vsig, wsig = L.wsig;
+  // only a step of the whole interval takes the corrector
+  // (advance.f90:829)
+  const bool exited = finish_step<BF16, POLAR, SETTLING>(
+      a, io.rowsE, sh_height, L.x_hi + L.x_lo, L.y_hi + L.y_lo, x_hi, x_lo,
+      y_hi, y_lo, z_new, dxs, dys, daw, dcw, u_l, v_l, w_l, settl, usig, vsig,
+      wsig, ge[4], ge[5], ge[6], m0, m1, m2, hm, htop,
+      static_cast<float>(idt) == a.dt);
+  io.out.x_hi[i] = x_hi;
+  io.out.x_lo[i] = x_lo;
+  io.out.y_hi[i] = y_hi;
+  io.out.y_lo[i] = y_lo;
+  io.out.z[i] = z_new;
+  io.out.itra[i] = a.itra_new;
+  io.out.up[i] = up;
+  io.out.vp[i] = vp;
+  io.out.wp[i] = wp;
+  io.out.usig[i] = usig;
+  io.out.vsig[i] = vsig;
+  io.out.wsig[i] = wsig;
+  io.out.cbt[i] = static_cast<int8_t>(L.cbt);
+  io.out.active[i] = exited ? 0 : 1;
+  io.idt_out[i] = idt;
+  io.t_below[i] = L.t_below;
+  io.passes[i] = static_cast<int>(L.k);
+  return exited;
+}
+
+// counts: [0] += particles still active, [1] += particles that exited.
+// work: [0] += passes executed, [1] += lane iterations issued.
 template <bool BF16, bool TS, bool POLAR, bool SETTLING>
-__global__ void __launch_bounds__(THREADS)
-advance_adaptive_kernel(const PIn in, const int* __restrict__ idt_in,
-                        const POut out, int* __restrict__ idt_out,
-                        float* __restrict__ t_below_out,
-                        int* __restrict__ passes_out,
-                        const void* __restrict__ rows,
-                        const void* __restrict__ rowsE,
-                        const float* __restrict__ height,
-                        const float* __restrict__ mass0,
-                        const float* __restrict__ tt3,
-                        const float* __restrict__ rho3,
-                        int* __restrict__ counts, const AdvanceArgs a) {
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+advance_adaptive_kernel(const __grid_constant__ Io io,
+                        int* __restrict__ counts,
+                        unsigned long long* __restrict__ work,
+                        const __grid_constant__ AdvanceArgs a) {
   extern __shared__ float sh_height[];
-  for (int k = threadIdx.x; k < a.nz; k += blockDim.x) sh_height[k] = height[k];
+  __shared__ Pool pool;
+  __shared__ unsigned char in_loop[THREADS];
+  __shared__ short order[THREADS];
+  __shared__ int warp_count[WARPS];
+  for (int k = threadIdx.x; k < a.nz; k += blockDim.x) sh_height[k] = io.height[k];
   __syncthreads();
 
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const Draws in_registers = {{nullptr, nullptr, nullptr, nullptr, nullptr}};
-  bool keep = false;
-  bool exited = false;
+  const int t = threadIdx.x;
+  const unsigned lane = t & 31;
+  const int warp = t >> 5;
+  const long long i = static_cast<long long>(blockIdx.x) * THREADS + t;
+  // the start: thread t, slot i; its particle's state goes to the pool
+  bool holding = false;
+  bool looping = false;
   if (i < a.n) {
-    float x_hi = in.x_hi[i], x_lo = in.x_lo[i];
-    float y_hi = in.y_hi[i], y_lo = in.y_lo[i];
-    float z_new = in.z[i];
-    float up = in.up[i], vp = in.vp[i], wp = in.wp[i];
-    float usig = in.usig[i], vsig = in.vsig[i], wsig = in.wsig[i];
-    int cbt = in.cbt[i];
-    int itra = in.itra[i];
-    int idt = idt_in[i];
-    float t_below = 0.0f;
-    uint32_t k = 0;
-    const bool scheduled = in.active[i] != 0;
-    if (scheduled) {
-      const float x = x_hi + x_lo;
-      const float y = y_hi + y_lo;
-      const float z = z_new;
-      const Start s = step_start<BF16>(a, rows, sh_height, x, y, z);
-      const Horiz& hw = s.hw;
-      const float h = s.h;
-
-      const float dt = a.dt;
-      const bool pbl = (z / h) <= 1.0f;
-      const float htop = sh_height[a.nz - 1] - a.htop_eps;
-      const float hm = h - F(1e-9);
-      Settle st{0, 0};
-      if (SETTLING) st = settle_setup(a, mass0, i, x, y);
-
-      // newly released particles (initialize.f90:110-219) and their first
-      // adaptive step (initialize.f90:155-162,191)
-      const bool fresh = (in.itramem[i] == a.itime) || (a.itime == 0);
-      if (fresh) {
-        Turb t0;
-        if (pbl) t0 = hanna<TS>(z, h, s.ust, s.wst, s.ol);
-        fresh_state<TS>(a, in_registers, false, i, pbl, t0, s, up, vp, wp,
-                        usig, vsig, wsig, cbt);
-        idt = __float2int_rz(pbl ? ldt_formula<TS>(a, t0, wp, h, true) : dt);
-      }
-
-      // ---- the passes of the boundary layer (advance.f90:276-620)
-      float remaining = pbl ? dt : 0.0f;
-      float ldt = clamp_min(static_cast<float>(idt), a.mintime);
-      float zc = z;
-      float u_l = 0.0f, v_l = 0.0f, w_l = 0.0f;
-      float daw = 0.0f, dcw = 0.0f, dxs = 0.0f, dys = 0.0f;
-      while (pbl && remaining > 0.0f && zc <= h) {
-        const float dt_i = tmin(ldt, remaining);
-        int iz;
-        float dz;
-        vert_weights(sh_height, a.nz, zc, iz, dz);
-        const size_t rk = fp::cell_row(iz, hw.jy, hw.ix, a.ny, a.nx);
-        float gk[40];
-#pragma unroll
-        for (int q = 0; q < 5; ++q) load8<BF16, 64>(rows, rk, q, &gk[8 * q]);
-        const float u = field2(gk, 0, hw.p4, dz);
-        const float v = field2(gk, 1, hw.p4, dz);
-        const float w = field2(gk, 2, hw.p4, dz);
-        const float rhoa = field2(gk, 3, hw.p4, dz);
-        const float drho = field2(gk, 4, hw.p4, dz);
-        const Turb t0 = hanna<TS>(zc, h, s.ust, s.wst, s.ol);
-
-        // the pass's draws: tag 1 rows 0, 1 (the horizontal OU update,
-        // advance.f90:369-384) and tag 2 row 0 (the first substep)
-        float d0, d1, d2, d2_odd;
-        uint32_t pw[4];
-        site_words(pw, a, 1, i, 0u, k);
-        fp::normal_pair(pw[0], pw[1], d0, d1);
-        site_words(pw, a, 2, i, 0u, k);
-        fp::normal_pair(pw[0], pw[1], d2, d2_odd);
-        const float up2 = ou_update(up, d0, t0.sigu, dt_i / t0.tlu);
-        const float vp2 = ou_update(vp, d1, t0.sigv, dt_i / t0.tlv);
-
-        // the ifine vertical substeps (advance.f90:391-498) over dt_i; the
-        // next step from the turbulence of the last refresh
-        float zz = zc;
-        const Turb t = pbl_substeps<TS>(a, nullptr, false, i, k, t0,
-                                        drho / rhoa, dt_i * a.fine, d2,
-                                        d2_odd, pw, h, s.ust, s.wst, s.ol, zz,
-                                        wp, cbt);
-        const float ldt2 = ldt_formula<TS>(a, t, wp, h, false);
-        const float w_eff = SETTLING ? w + settle_at(a, st, tt3, rho3, sh_height, zc) : w;
-        float z3 = zz + (w_eff * dt_i) * a.ldirf;
-        z3 = tmin(z3, htop);
-        // the deposition window (advance.f90:582-599): after the vertical
-        // update, before the ground reflection
-        if (z3 < TWO_HREF) t_below = t_below + dt_i;
-        z3 = reflect_ground(z3, hm);
-
-        remaining = clamp_min(remaining - dt_i, 0.0f);
-        ldt = ldt2;
-        zc = z3;
-        up = up2;
-        vp = vp2;
-        u_l = u;
-        v_l = v;
-        w_l = w_eff;
-        daw = daw + up2 * dt_i;
-        dcw = dcw + vp2 * dt_i;
-        dxs = dxs + u * dt_i;
-        dys = dys + v * dt_i;
-        ++k;
-      }
-
-      // ---- the free troposphere for the time left (advance.f90:629-708)
-      const float dt_ft = pbl ? remaining : dt;
-      if (dt_ft > 0.0f) {
-        int iz;
-        float dz;
-        vert_weights(sh_height, a.nz, zc, iz, dz);
-        const size_t rf = fp::cell_row(iz, hw.jy, hw.ix, a.ny, a.nx);
-        float gf[24];
-#pragma unroll
-        for (int q = 0; q < 3; ++q) load8<BF16, 64>(rows, rf, q, &gf[8 * q]);
-        const float u_f = field2(gf, 0, hw.p4, dz);
-        const float v_f = field2(gf, 1, hw.p4, dz);
-        const float w_f = field2(gf, 2, hw.p4, dz);
-        const bool in_trop = zc < s.tropop;
-        const bool in_trans = !in_trop && (zc < s.tropop + 1000.0f);
-        const float dt_s = clamp_min(dt_ft, F(1e-6));
-        const float c_trop = a.two_d_trop / dt_s;
-        const float c_strat = a.two_d_strat / dt_s;
-        // tag 3 rows 0-2: one Philox call
-        float f0, f1, f2, unused;
-        uint32_t w3[4];
-        site_words(w3, a, 3, i, 0u);
-        fp::normal_pair(w3[0], w3[1], f0, f1);
-        fp::normal_pair(w3[2], w3[3], f2, unused);
-        float ux, vy, wp_ft;
-        free_trop_terms(a, in_trop, in_trans, zc, s.tropop, f0, f1, f2, c_trop,
-                        c_strat, sqrtf(c_trop), sqrtf(c_strat), ux, vy, wp_ft);
-        const float w_eff_f =
-            SETTLING ? w_f + settle_at(a, st, tt3, rho3, sh_height, zc) : w_f;
-        dxs = dxs + (u_f + ux) * dt_ft;
-        dys = dys + (v_f + vy) * dt_ft;
-        zc = reflect_ground(zc + ((w_eff_f + wp_ft) * dt_ft) * a.ldirf, hm);
-        wp = wp_ft;
-        u_l = u_f;
-        v_l = v_f;
-        w_l = w_eff_f;
-        ldt = clamp_min(dt_ft, a.mintime);
-      }
-
-      // ---- the mesoscale sigmas of the final cell (advance.f90:601-605)
-      int ize;
-      float dze;
-      vert_weights(sh_height, a.nz, zc, ize, dze);
-      float ge[8];
-      load8<BF16, 64>(rows, fp::cell_row(ize, hw.jy, hw.ix, a.ny, a.nx), 7, ge);
-      idt = __float2int_rz(ldt);
-      z_new = tmin(zc, htop);
-      if (a.turboff) {
-        up = 0.0f;
-        vp = 0.0f;
-        daw = 0.0f;
-        dcw = 0.0f;
-      }
-      const float settl = SETTLING ? settle_at(a, st, tt3, rho3, sh_height, z_new) : 0.0f;
-
-      float m0, m1, m2;
-      meso_draws(a, in_registers, false, i, m0, m1, m2);
-      // only a step of the whole interval takes the corrector
-      // (advance.f90:829)
-      exited = finish_step<BF16, POLAR, SETTLING>(
-          a, rowsE, sh_height, x, y, x_hi, x_lo, y_hi, y_lo, z_new, dxs, dys,
-          daw, dcw, u_l, v_l, w_l, settl, usig, vsig, wsig, ge[4], ge[5],
-          ge[6], m0, m1, m2, hm, htop, static_cast<float>(idt) == dt);
-      keep = !exited;
-      itra = a.itra_new;
+    if (io.in.active[i] == 0) {
+      copy_through(io, static_cast<int>(i));
+    } else {
+      Lane L;
+      looping = lane_start<BF16, TS, SETTLING>(a, io, sh_height,
+                                               static_cast<int>(i), L);
+      store_lane(pool, t, L);
+      holding = true;
     }
-    out.x_hi[i] = x_hi;
-    out.x_lo[i] = x_lo;
-    out.y_hi[i] = y_hi;
-    out.y_lo[i] = y_lo;
-    out.z[i] = z_new;
-    out.itra[i] = itra;
-    out.up[i] = up;
-    out.vp[i] = vp;
-    out.wp[i] = wp;
-    out.usig[i] = usig;
-    out.vsig[i] = vsig;
-    out.wsig[i] = wsig;
-    out.cbt[i] = static_cast<int8_t>(cbt);
-    out.active[i] = keep ? 1 : 0;
-    idt_out[i] = idt;
-    t_below_out[i] = t_below;
-    passes_out[i] = static_cast<int>(k);
   }
-  // counts[0] += particles still active, counts[1] += particles that exited
-  const unsigned kept = __ballot_sync(0xFFFFFFFFu, keep);
-  const unsigned gone = __ballot_sync(0xFFFFFFFFu, exited);
-  if ((threadIdx.x & 31) == 0) {
-    if (kept) atomicAdd(&counts[0], __popc(kept));
-    if (gone) atomicAdd(&counts[1], __popc(gone));
+  in_loop[t] = looping ? 1 : 0;
+
+  // the passes: each iteration the particles still in the loop, in slot
+  // order, are dealt to the first lanes of the block, one pass each
+  unsigned passes = 0, iters = 0;   // thread 0: the block's sums
+  for (;;) {
+    __syncthreads();
+    const unsigned mine = __ballot_sync(FULL, in_loop[t] != 0);
+    if (lane == 0) warp_count[warp] = __popc(mine);
+    __syncthreads();
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const int c = warp_count[w];
+      before += w < warp ? c : 0;
+      total += c;
+    }
+    if (total == 0) break;
+    if (in_loop[t]) order[before + __popc(mine & ((1u << lane) - 1u))] = t;
+    if (t == 0) {
+      passes += total;
+      iters += (total + 31) / 32;
+    }
+    __syncthreads();
+    if (t < total) {
+      const int p = order[t];
+      Lane L;
+      const long long ip = static_cast<long long>(blockIdx.x) * THREADS + p;
+      load_lane(pool, p, static_cast<int>(ip), L);
+      in_loop[p] = lane_pass<BF16, TS, SETTLING>(a, io, sh_height, L) ? 1 : 0;
+      store_pass(pool, p, L);
+    }
+  }
+
+  // the end: thread t, its own particle
+  int kept = 0, gone = 0;
+  if (holding) {
+    Lane L;
+    load_lane(pool, t, static_cast<int>(i), L);
+    const bool exited = lane_end<BF16, POLAR, SETTLING>(a, io, sh_height, L);
+    kept = exited ? 0 : 1;
+    gone = exited ? 1 : 0;
+  }
+  kept = __reduce_add_sync(FULL, kept);
+  gone = __reduce_add_sync(FULL, gone);
+  if (lane == 0) {
+    if (kept) atomicAdd(&counts[0], kept);
+    if (gone) atomicAdd(&counts[1], gone);
+  }
+  if (t == 0 && passes) {
+    atomicAdd(&work[0], static_cast<unsigned long long>(passes));
+    atomicAdd(&work[1], 32ull * iters);
   }
 }
 
@@ -303,21 +559,23 @@ extern "C" int fp_advance_adaptive(
     uint8_t* o_active, int* o_idt, float* t_below, int* passes,
     const void* rows, const void* rowsE, const float* height,
     const float* mass0, const float* tt, const float* rho, int* counts,
-    const AdvanceArgs* args, void* stream) {
+    unsigned long long* work, const AdvanceArgs* args, void* stream) {
   const AdvanceArgs a = *args;
   if (a.n <= 0) return 0;
+  // the heights beside the pool, within the 48 KB a block has by default
   const size_t shmem = static_cast<size_t>(a.nz) * sizeof(float);
-  if (a.nz < 2 || shmem > 48 * 1024 || a.ifine < 1 || a.method != 1 ||
-      !(a.mintime > 0.0f))
+  if (a.nz < 2 || shmem + STATIC_SHARED > 48 * 1024 || a.ifine < 1 ||
+      a.method != 1 || !(a.mintime > 0.0f) || work == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.settling && (a.nspec < 1 || a.nspec > MAX_SPECIES ||
                      mass0 == nullptr || tt == nullptr || rho == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const PIn in = {x_hi, x_lo, y_hi, y_lo, z, itra, itramem, up, vp, wp,
-                  usig, vsig, wsig, cbt, active};
-  const POut out = {o_x_hi, o_x_lo, o_y_hi, o_y_lo, o_z, o_itra, o_up, o_vp,
-                    o_wp, o_usig, o_vsig, o_wsig, o_cbt, o_active};
-  const unsigned blocks = static_cast<unsigned>((a.n + THREADS - 1) / THREADS);
+  const Io io = {{x_hi, x_lo, y_hi, y_lo, z, itra, itramem, up, vp, wp, usig,
+                  vsig, wsig, cbt, active},
+                 idt,
+                 {o_x_hi, o_x_lo, o_y_hi, o_y_lo, o_z, o_itra, o_up, o_vp,
+                  o_wp, o_usig, o_vsig, o_wsig, o_cbt, o_active},
+                 o_idt, t_below, passes, rows, rowsE, height, mass0, tt, rho};
   // the (table type, turbswitch, polar, settling) instantiations
   auto pick = [&](auto bf16) {
     constexpr bool B = decltype(bf16)::value;
@@ -332,8 +590,8 @@ extern "C" int fp_advance_adaptive(
                                    : advance_adaptive_kernel<B, false, false, false>));
   };
   auto kern = a.table_bf16 ? pick(std::true_type{}) : pick(std::false_type{});
+  const unsigned blocks = static_cast<unsigned>((a.n + THREADS - 1) / THREADS);
   kern<<<blocks, THREADS, shmem, static_cast<cudaStream_t>(stream)>>>(
-      in, idt, out, o_idt, t_below, passes, rows, rowsE, height, mass0, tt,
-      rho, counts, a);
+      io, counts, work, a);
   return static_cast<int>(cudaGetLastError());
 }

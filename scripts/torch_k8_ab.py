@@ -28,6 +28,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+import kernel_ab  # noqa: E402
 
 
 def main() -> int:
@@ -41,26 +42,16 @@ def main() -> int:
     if len(sys.argv) != 2 or not torch.cuda.is_available():
         raise SystemExit(__doc__)
     other_src = Path(sys.argv[1]).resolve()
-
-    class SourceKernel(_build.Kernel):
-        @property
-        def source(self) -> Path:
-            return other_src
-
     this = _build.DEPO_SCATTER
-    other = SourceKernel(this.name, this.symbol, this.argtypes)
+    other = kernel_ab.source_kernel(this, other_src)
     _build.build_all([this])
     _build.build_all([other])      # the same library if the sources agree
     device = torch.device("cuda", 0)
     smi = cs.nvidia_smi_line()
 
     def launch(kernel, flat, dep, p, itime, lage, ccfg):
-        saved = _build.DEPO_SCATTER
-        _build.DEPO_SCATTER = kernel
-        try:
+        with kernel_ab.swapped("DEPO_SCATTER", kernel):
             wd.depo_scatter_cuda(flat, dep, p, itime, lage, ccfg)
-        finally:
-            _build.DEPO_SCATTER = saved
 
     def ab(p, dep, itime, lage, ccfg) -> dict:
         rows = (ccfg.nage * ccfg.nclassunc * ccfg.npointspec * ccfg.nyg
@@ -85,11 +76,10 @@ def main() -> int:
         cs.check(bool(torch.all(d <= tol * a.abs())),
                  f"the two kernels differ: max abs {float(d.max())}")
         g = grids["this"]
-        times = {"other": [], "this": []}
-        for name, k in (("other", other), ("this", this), ("this", this),
-                        ("other", other)):
-            times[name].append(cs.cuda_ms(
-                lambda: launch(k, g, dep, p, itime, lage, ccfg), 10))
+        kernels = {"other": other, "this": this}
+        times = kernel_ab.in_turns(
+            lambda name: launch(kernels[name], g, dep, p, itime, lage, ccfg),
+            "this", ["other"], 10)
         return dict(other_ms=times["other"], this_ms=times["this"],
                     cells_hit=int((pairs > 0).sum()),
                     most_pairs_in_a_cell=int(pairs.max()),

@@ -166,16 +166,17 @@ def test_table_strides_match_the_sources():
     # five fields), lanes 0-23 for the free troposphere, group 7 (lanes
     # 56-63, the sigmas 60-62) at the end, and K4's corrector
     k11 = _all_sources(_build.ADVANCE_ADAPTIVE)
-    assert "step_start<BF16>(a, rows, sh_height, x, y, z)" in k11
+    assert "step_start<BF16>(a, io.rows, sh_height, x, y, z)" in k11
     assert re.search(r"for \(int k = 0; k < 8; \+\+k\) load8<BF16, 64>"
                      r"\(rows, row, k,", k11)
     assert re.search(r"for \(int q = 0; q < 5; \+\+q\) load8<BF16, 64>"
-                     r"\(rows, rk, q,", k11)
+                     r"\(io\.rows, rk, q,", k11)
     assert re.search(r"for \(int q = 0; q < 3; \+\+q\) load8<BF16, 64>"
-                     r"\(rows, rf, q,", k11)
-    assert "load8<BF16, 64>(rows, fp::cell_row(ize, hw.jy, hw.ix, a.ny, " \
-           "a.nx), 7, ge);" in k11
-    assert "ge[4], ge[5],\n          ge[6]," in k11
+                     r"\(io\.rows, rf, q,", k11)
+    assert re.search(r"load8<BF16, 64>\(io\.rows, fp::cell_row\(ize, "
+                     r"L\.hw\.jy, L\.hw\.ix, a\.ny, a\.nx\), 7,\s+ge\);",
+                     k11)
+    assert re.search(r"ge\[4\], ge\[5\],\s+ge\[6\],", k11)
     assert "finish_step<BF16, POLAR, SETTLING>(" in k11
 
 
@@ -615,47 +616,163 @@ def _sass_function(name, ops):
 
 def test_k11_instructions_count_the_cheapest_pass():
     """K11's operations per pass read the instantiation a run takes: the
-    widest backward branch is the loop of passes, the widest inside it the
-    substep loop; a pass is the cheapest path from the loop's head to its
-    back edge, which leaves the substep loop by its exit (the last
-    substep), plus ifine - 1 times the substep loop's cheapest body; NOPs
-    aside, each branch of the data on its cheaper side."""
+    widest backward branch of the kernel's body (a vote's slow path after
+    the EXIT is not one) is the loop of iterations, the widest loop inside
+    it the substep loop; after the dealing of the particles (a ballot, the
+    block's last barrier) a branch takes a thread past the count over the
+    pass, and the pass body opens after it; a pass is the cheapest path
+    from there to the substep loop's head, on through it by its exit (the
+    last substep) to the loop's back edge, plus ifine - 1 times the
+    substep loop's cheapest body; NOPs aside, each branch of the data on
+    its cheaper side, a BRA.DIV falling through.  Neither the dealing nor
+    the pool's moves count: the load of order[t], the loads and stores
+    addressed from the slot it gives, the store of the in-loop flag; a
+    load of the heights does, also from a register that held the slot's
+    address before it was written anew."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import chip_smoke
-    ops = ["MOV R1, c[0x0][0x28]", "ISETP.GE.AND P0, PT, R0, R2, PT",
-           "@P0 BRA 0xf0",
-           "FADD R2, R3, R4",          # 0x30: the loop of passes
-           "@P1 BRA 0x70",             # a branch of the data
-           "FMUL R2, R2, R5", "FMUL R2, R2, R5",
-           "FADD R3, R3, R2",          # 0x70: the substep loop
-           "@P2 BRA 0xc0",             # the last substep leaves it
+    ops = ["MOV R1, c[0x0][0x28]", "S2R R0, SR_TID.X",
+           "BAR.SYNC.DEFER_BLOCKING 0x0",   # 0x20: the loop of iterations
+           "VOTE.ANY R2, PT, P0",      # the particles still in the loop
+           "BAR.SYNC.DEFER_BLOCKING 0x0",
+           "@P1 BRA 0x270",            # none left: to the ends
+           "@P2 BRA 0x80",             # a branch of the dealing
+           "STS.U16 [R3], R0",         # the order
+           "BAR.SYNC.DEFER_BLOCKING 0x0",
+           "@!P3 VIADD R9, R9, 0x1",   # thread 0's sums
+           "@P4 BRA 0x250",            # a thread past the count: no pass
+           "LDS.U16 R8, [R8]",         # 0xb0, the pass body: order[t]
+           "PRMT R8, R8, 0x9910, RZ",
+           "IMAD R6, R8, 0x4, R7",     # the slot's row in the pool
+           "LDS R10, [R6]",            # its first word
+           "LDS R12, [R13+0x4]",       # a height
+           "LDS R11, [R6+0x400]",      # its second word
+           "BRA.DIV UR4, 0x290",       # taken only by a diverged warp
+           "@P6 BRA 0x140",            # a branch of the data
+           "FMUL R10, R10, R11",
+           "FADD R10, R10, R11",       # 0x140: the substep loop
+           "@P0 BRA 0x1d0",            # the last substep leaves it
            "MUFU.EX2 R4, R4", "FMUL R4, R4, R2",
-           "BRA 0x70",                 # 0xb0: the substeps' back edge
-           "FADD R5, R5, R3", "NOP",
-           "@P3 BRA 0x30",             # 0xe0: the passes' back edge
-           "EXIT"]
+           "@P1 BRA 0x1a0",            # a branch of the data
+           "FADD R4, R4, R2",
+           "FMUL R4, R4, R4", "NOP",
+           "BRA 0x140",                # 0x1c0: the substeps' back edge
+           "FADD R5, R5, R3",
+           "MOV R6, R12",              # no longer the slot's row
+           "LDS R15, [R6]",            # a height
+           "LEA R16, R8, R7, 0x2",
+           "STS [R16], R10",           # the words a pass changes
+           "STS [R16+0x400], R5",
+           "STS.U8 [R8+UR5], R4",      # in the loop or not
+           "NOP", "BSYNC B0",
+           "BRA 0x20",                 # 0x260: the loop's back edge
+           "REDG.E.ADD.STRONG.GPU [R4.64], R5",   # the ends, the counts
+           "EXIT",
+           "WARPSYNC.COLLECTIVE R22, 0x2c0",   # 0x290: a slow path
+           "VOTE.ANY R2, PT, P4", "ENDCOLLECTIVE",
+           "BRA 0x10"]                 # 0x2c0: wider than the loop
     other = ["MOV R1, c[0x0][0x28]", "BRA 0x0", "EXIT"]
     pre = "_ZN52_GLOBAL__N__x_advance_adaptive_cu_y23advance_adaptive_kernel"
-    sass = "\n".join([
-        _sass_function(pre + "ILb1ELb0ELb1ELb1EEvN_3PInEPKiN_4POutE", other),
-        _sass_function(pre + "ILb1ELb1ELb1ELb1EEvN_3PInEPKiN_4POutE", ops)])
+
+    def sass_of(ops):
+        return "\n".join([
+            _sass_function(pre + "ILb1ELb0ELb1ELb1EEvN_2IoEPiPyN_11Advance"
+                           "ArgsE", other),
+            _sass_function(pre + "ILb1ELb1ELb1ELb1EEvN_2IoEPiPyN_11Advance"
+                           "ArgsE", ops)])
 
     class Kernel:
         name = "advance_adaptive"
+        sass = sass_of(ops)
 
         def cuobjdump(self, flag):
-            return sass
+            return self.sass
 
-    got = chip_smoke.k11_instructions(Kernel(), (True, True, True, True), 4)
-    assert got["kernel"] == 15 and got["pass_loop"] == 11
-    assert got["substep_loop"] == 5
-    assert (got["substep_cheapest"], got["substep_dearest"]) == (5, 5)
-    assert got["per_pass_cheapest"] == 6 + 3 * 5
-    assert got["per_pass_dearest"] == 8 + 3 * 5
+    flags = (True, True, True, True)
+    _, code = chip_smoke.sass_instantiation(
+        Kernel(), "advance_adaptive_kernel", flags)
+    assert [c[2] for c in code if c[0] in (0x50, 0x110, 0x260)] == [
+        True, True, False]              # BRA.DIV falls through
+    pool = chip_smoke.k11_pool_traffic(code, 0xb0, 0x260)
+    assert sorted(pool["addresses"]) == [0xb0, 0xe0, 0x100, 0x210, 0x220,
+                                         0x230]
+    assert (pool["stored"], pool["loaded"]) == ([0, 1], [0, 1])
+    got = chip_smoke.k11_instructions(Kernel(), flags, 4)
+    assert (got["kernel"], got["iteration_loop"], got["dealing"],
+            got["pass_body"], got["substep_loop"]) == (43, 35, 9, 26, 8)
+    assert (got["pool_moves_in_pass_body"], got["pool_words_stored"],
+            got["pool_words_loaded"], got["calls_in_pass_body"]) == (
+        6, 2, 2, 0)
+    assert (got["substep_cheapest"], got["substep_dearest"]) == (7, 8)
+    assert got["per_pass_cheapest"] == (6 + 8 - 1) + 3 * 7
+    assert got["per_pass_cheapest_with_pool_moves"] == (9 + 11 - 1) + 3 * 7
+    assert got["per_pass_dearest"] == (7 + 8 - 1) + 3 * 8
+    assert got["per_pass_dearest_with_pool_moves"] == (10 + 11 - 1) + 3 * 8
     with pytest.raises(AssertionError, match="Lb0ELb0E"):
         chip_smoke.k11_instructions(Kernel(), (True, False, False, True), 4)
+    # a store of the slot off a row of the pool is not the pool's
+    k = Kernel()
+    k.sass = sass_of([o.replace("[R16+0x400]", "[R16+0x404]") for o in ops])
+    with pytest.raises(AssertionError, match="off a row"):
+        chip_smoke.k11_instructions(k, flags, 4)
+    # without the ballot no particle is dealt before the pass body
+    k.sass = sass_of([o.replace("VOTE.ANY R2, PT, P0", "MOV R2, R0")
+                      for o in ops])
+    with pytest.raises(AssertionError, match="no ballot"):
+        chip_smoke.k11_instructions(k, flags, 4)
+    # without the branch past the pass no thread skips it
+    k.sass = sass_of([o.replace("@P4 BRA 0x250", "MOV R9, R9") for o in ops])
+    with pytest.raises(AssertionError, match="past the pass body"):
+        chip_smoke.k11_instructions(k, flags, 4)
+
+
+def test_k11_work_counters_and_pool_match_the_source():
+    """K11's counters: the wrapper zeroes K11_WORK_WORDS int64 words, which
+    the kernel takes as ``unsigned long long* work`` after the counts and
+    indexes 0 (passes executed) and 1 (lane iterations issued);
+    StepDiag.lane_work is both.  The pool's two field lists name every
+    field of a Lane but its slot index once (the compiler holds the count
+    by the size of a Lane and refuses a field named twice), a pass stores
+    the first list back, and the block's order indexes fit a short."""
+    text = _strip_comments(_build.ADVANCE_ADAPTIVE.source.read_text())
+    sig = re.search(r'extern\s+"C"\s+int\s+fp_advance_adaptive\s*\((.*?)\)',
+                    text, re.S).group(1)
+    decls = [d.strip() for d in sig.split(",")]
+    at = decls.index("int* counts")
+    assert decls[at + 1] == "unsigned long long* work"
+    assert advance.K11_WORK_WORDS == 2
+    used = {int(k) for k in re.findall(r"work\[(\d)\]", text)}
+    assert used == set(range(advance.K11_WORK_WORDS))
+    threads = int(re.search(r"constexpr int THREADS = (\d+);", text)[1])
+    assert threads % 32 == 0 and threads <= 1024
+    assert "short order[THREADS]" in text
+
+    def fields(macro):
+        body = re.search(r"#define %s\(X\)(.*?)\n(?!\s*X\()" % macro,
+                         text.replace("\\\n", "\n"), re.S).group(1)
+        return re.findall(r"X\(\w+, ([\w.\[\]]+)\)", body)
+
+    members = []
+    lane = re.search(r"struct Lane \{(.*?)\};", text, re.S).group(1)
+    nested = {"Horiz": ["ix", "jy"] + [f"p4[{q}]" for q in range(4)],
+              "Settle": ["col", "sp"]}
+    for typ, names in re.findall(r"(\w+) ([\w, ]+);", lane):
+        for nm in (n.strip() for n in names.split(",")):
+            members += ([f"{nm}.{f}" for f in nested[typ]] if typ in nested
+                        else [nm])
+    pass_fields, held = fields("PASS_FIELDS"), fields("HELD_FIELDS")
+    assert len(pass_fields) == 16
+    assert sorted(pass_fields + held) == sorted(
+        m for m in members if m != "i")
+    for fn, lists in (("store_pass", ["PASS_FIELDS"]),
+                      ("store_lane", ["HELD_FIELDS"]),
+                      ("load_lane", ["PASS_FIELDS", "HELD_FIELDS"])):
+        body = re.search(r"void %s\(.*?\n}\n" % fn, text, re.S).group(0)
+        assert re.findall(r"([A-Z_]+_FIELDS)\(POOL_(?:PUT|GET)\)", body) \
+            == lists
+    assert "getenv" not in text
 
 
 def test_settling_instructions_are_the_instantiations_difference():

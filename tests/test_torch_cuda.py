@@ -49,20 +49,17 @@ def test_k6_layout_query_leaves_a_larger_launch_running(card):
         assert torch.equal(a, b), f
 
 
-@pytest.mark.parametrize("method", [0, 1])
-def test_settling_and_adaptive_kernels_equal_their_plain_versions(card,
-                                                                  method):
-    """K4's SETTLING instantiation (method 0) and K11 (method 1, settling
-    and the polar caps on) against ``advance_all_plain`` on the card, which
-    draws with K1 (the adaptive step's pass by pass): every output bitwise,
-    K4 also fed K1's draws (K11 reads none and refuses them); K10's
-    T_BELOW instantiation on K11's window."""
-    import copy
+def _advance_inputs(card, method: int, n: int = 2 ** 16):
+    """The advance of a settling, polar step on SyntheticMet's 37 x 19 x 15
+    grid: K4's SETTLING instantiation (method 0) or K11 (method 1,
+    turbswitch, ifine 4, ctl 5), ``n`` particles of two species at 5-2500
+    m, 97% scheduled, half fresh.  Returns (particles, ZFields of the two
+    met times, cfg, tables, args, key, settling fields, the generator,
+    grid)."""
     from flexpart_tpu_torch.core import advance as adv
     from flexpart_tpu_torch.core import interp, rng
     from flexpart_tpu_torch.core.state import empty_particles
     from flexpart_tpu_torch.met import calcpar, synthetic, verttransform
-    from flexpart_tpu_torch.physics import massupdate as mu
     grid = synthetic.make_grid(nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)
     met = synthetic.SyntheticMet(grid)
     zs = []
@@ -71,7 +68,6 @@ def test_settling_and_adaptive_kernels_equal_their_plain_versions(card,
         h = verttransform.compute_heights(grid, eta)
         zs.append(calcpar.calcpar(grid, eta,
                                   verttransform.process_eta(grid, eta, h)))
-    n = 2 ** 16
     gen = torch.Generator(device=card).manual_seed(5)
 
     def u(lo, hi):
@@ -101,8 +97,25 @@ def test_settling_and_adaptive_kernels_equal_their_plain_versions(card,
     tables = interp.build_step_tables_quad(zs[0], zs[1], *tw,
                                            dtype=cfg.table_dtype)
     a = adv.advance_args(cfg, prm, 900, 0, 10800)
-    key = rng.Key(11, 3)
-    settle = adv.settle_met(zs[0], cfg)
+    return (p, zs, cfg, tables, a, rng.Key(11, 3), adv.settle_met(zs[0], cfg),
+            gen, grid)
+
+
+@pytest.mark.parametrize("method", [0, 1])
+def test_settling_and_adaptive_kernels_equal_their_plain_versions(card,
+                                                                  method):
+    """K4's SETTLING instantiation (method 0) and K11 (method 1, settling
+    and the polar caps on) against ``advance_all_plain`` on the card, which
+    draws with K1 (the adaptive step's pass by pass): every output bitwise,
+    K4 also fed K1's draws (K11 reads none and refuses them); K10's
+    T_BELOW instantiation on K11's window."""
+    import copy
+    from flexpart_tpu_torch.core import advance as adv
+    from flexpart_tpu_torch.core import rng
+    from flexpart_tpu_torch.physics import massupdate as mu
+    p, zs, cfg, tables, a, key, settle, gen, grid = _advance_inputs(card,
+                                                                    method)
+    n = p.capacity
     kernel = adv.advance_adaptive_cuda if method else adv.advance_all_cuda
     rows = {**adv.DRAW_ROWS, 2: cfg.ifine}
     draws = {t: rng.normals(key, (r, n), t, device=card)
@@ -135,3 +148,61 @@ def test_settling_and_adaptive_kernels_equal_their_plain_versions(card,
         assert torch.equal(k10[0].mass.view(torch.int32),
                            pl[0].mass.view(torch.int32))
         assert torch.equal(k10[1].view(torch.int32), pl[1].view(torch.int32))
+
+
+K11_RAGGED = ("n17", "n257", "n10000", "above_h", "one_long_among_idle")
+
+
+@pytest.mark.parametrize("case", K11_RAGGED)
+def test_k11_refill_edges_equal_the_plain_version(card, case):
+    """K11's refilled lanes on ragged ensembles cut from the adaptive
+    step's inputs: fewer particles than a warp (17), a block and one (257),
+    fewer than the card holds at once (10,000), particles that all start
+    above h (no pass), and the particle with the most passes on slot 5
+    among 63 that take none (the draw counter's offset keeps its global
+    index).
+    Every output, t_below, the passes and the counts equal the plain
+    version's bit for bit; the kernel counts the passes its particles
+    took."""
+    import copy
+    from flexpart_tpu_torch.core import advance as adv
+    from flexpart_tpu_torch.core.state import FIELDS, Particles
+    p, zs, cfg, tables, a, key, settle, _, _ = _advance_inputs(card, 1)
+    height = zs[0].height
+    passes = adv.advance_adaptive_cuda(p, height, tables, copy.copy(a), key,
+                                       cfg, None, 0, settle)[1].passes
+    idle = torch.nonzero(p.active & (passes == 0)).flatten()
+    top = int(torch.argmax(passes))
+    pos = min(5, top)
+    offset = 0
+    if case.startswith("n"):
+        idx = torch.arange(int(case[1:]), device=card)
+    elif case == "above_h":
+        idx = idle[:4096]
+    else:
+        idx = torch.cat([idle[:pos], torch.tensor([top], device=card),
+                         idle[pos:63]])
+        offset = top - pos
+    q = Particles(**{f: getattr(p, f)[idx] for f in FIELDS})
+    pk, dk = adv.advance_adaptive_cuda(q, height, tables, copy.copy(a), key,
+                                       cfg, None, offset, settle)
+    pp, dp = adv.advance_all_plain(q, height, tables, copy.copy(a), key, cfg,
+                                   None, offset, settle)
+    torch.cuda.synchronize()
+    for f in adv.ADAPTIVE_OUT_FIELDS:
+        x, y = getattr(pk, f), getattr(pp, f)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), f
+    assert torch.equal(dk.t_below.view(torch.int32),
+                       dp.t_below.view(torch.int32))
+    assert torch.equal(dk.passes, dp.passes)
+    assert int(dk.n_active) == int(dp.n_active)
+    assert int(dk.n_exited) == int(dp.n_exited)
+    executed, issued = (int(v) for v in dk.lane_work)
+    assert executed == int(dk.passes.sum()) and issued >= executed
+    if case == "above_h":
+        assert idx.numel() == 4096 and executed == 0
+    if case == "one_long_among_idle":
+        assert int(dk.passes[pos]) == int(passes[top]) > 0
+        assert int(dk.passes.sum()) == int(passes[top])
