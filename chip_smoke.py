@@ -8,7 +8,10 @@ flexpart_tpu_torch/csrc/ at first use (into build/kernels/) and drives
 the port's stock forward step on the card, in phases:
 
   1. device   — card name and power limit, torch and CUDA versions;
-  2. build    — nvcc for every kernel source, all started together;
+  2. build    — nvcc for every kernel source, all started together (each
+                one's end in the line), then cuobjdump of the libraries
+                whose compiled code the bounds read, all at once and
+                before any timing (the `disassembly` line);
   3. kernels  — each kernel against its plain PyTorch twin on the card, at
                 the main path's shapes, with its time, the twin's, its
                 bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s,
@@ -62,6 +65,16 @@ the port's stock forward step on the card, in phases:
                 kernel's instructions per pass body; and on the edges of
                 the refill: 17, 257 and 10,000 particles, 2**16 that all
                 start above h, one with the most passes among 63 with none;
+                K11's CBL instantiation (the skewed convective boundary
+                layer, ifine 11) bitwise against its plain version on 10 x
+                2**20 boundary-layer particles, SyntheticMet's fields with
+                a strong CBL over the eastern half, in cell order (timed
+                as drawn too), beside the stock K11; K4's NESTS
+                instantiation with two nested windows, each with its own
+                jet (a third of the particles in the inner one, a third in
+                the outer one only), bitwise against its plain version
+                with injected draws, timed beside the stock K4 on the same
+                particles;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
                 with the same draws; and the advance kernel with its draws
@@ -128,7 +141,29 @@ the port's stock forward step on the card, in phases:
                 K10 T_BELOW against their plain versions on a release step
                 and a steady step, and K11 once more without settling on
                 the same particles and key: the aerosol ends lower, the
-                tracer the same.
+                tracer the same;
+ 10. sim_cbl  — sim_adaptive's run with Command(cblflag=1, ctl=5.0) (ifine
+                11, K11's CBL instantiation with settling), twice with one
+                seed: bitwise equal particles and NaN redraw counts, the
+                budget, the tracer's mass; per step the share of the
+                boundary-layer particles in the skewed zone and K11's lane
+                efficiency; K11 CBL bitwise against its plain version on
+                every 8th particle of a release step and a steady step;
+ 11. sim_nested — the sim phase's run with one SyntheticMet nest of 0.25
+                degrees over 10 W-20 E, 30-60 N with a stronger jet than
+                the mother's (the first box inside it, the storm box
+                outside), twice with one seed: bitwise equal particles,
+                the budget, the tracer's mass; per step the share of the
+                particles the nest samples; K2 per call (twice a step) and
+                K4 NESTS per call, K4 NESTS bitwise against its plain
+                version on a release step and a steady step;
+ 12. legacy   — the matched-RNG validation path (Simulation(legacy_rng=
+                True)) has no kernel and runs on the CPU only: on the card
+                the constructor and advance_all must refuse it by name.
+Every sim path (8-11) runs through one two-run check (run_twice): the
+launch counts of run A, each of its kernels launched and K5 once per sort,
+the particles, files and budget, and run B's particles, nan counts and
+sorts bitwise equal to run A's, its grids within the kernels' tolerances.
 
 Prints one JSON object per phase, then a {"kernels": [...]} line, the
 nvidia-smi name/power line, and as the last line
@@ -264,8 +299,9 @@ def nvidia_smi_line() -> str:
 def ptxas_by_entry(build_log: str) -> dict:
     """{kernel entry: registers, stack frame, spill stores and loads in
     bytes} from nvcc's -Xptxas -v lines; a template instantiation is named
-    by its bool arguments (advance_kernel<1,0,1> is BF16, not TS,
-    POLAR)."""
+    by its bool and int arguments (advance_kernel<1,0,1,0,0> is BF16, not
+    TS, POLAR, not SETTLING, not NESTS; K11's second argument is the
+    turbulence, 0 Hanna1, 1 TS, 2 CBL)."""
     import re
     out, entry, props = {}, None, None
     for ln in build_log.splitlines():
@@ -273,7 +309,7 @@ def ptxas_by_entry(build_log: str) -> dict:
         if m:
             name = m.group(1)
             base = re.search(r"\d([a-z][a-z_]*_kernel)", name)
-            flags = re.findall(r"Lb([01])E", name)
+            flags = re.findall(r"L[bi](\d+)E", name)
             entry = (base.group(1) if base else name) \
                 + (f"<{','.join(flags)}>" if flags else "")
             out[entry] = {"mangled": name}
@@ -345,8 +381,20 @@ def bound(n_bytes: float, n_ops: float, n_instructions: float = 0) -> dict:
 
 # ----------------------------------------------------------------- setup --
 
+_MET = {}
+
+
 def met_fields(kind: str, grid, device, times=(0.0,)):
-    """ZFields at each time, on one height grid taken from the first."""
+    """ZFields at each time, on one height grid taken from the first;
+    made once per (kind, grid, device, times) in a run (SyntheticMet's
+    fields are numpy work on the host), which no caller changes."""
+    key = (kind, repr(grid), str(device), tuple(times))
+    if key not in _MET:
+        _MET[key] = _met_fields(kind, grid, device, times)
+    return list(_MET[key])
+
+
+def _met_fields(kind: str, grid, device, times):
     from flexpart_tpu_torch.met import calcpar, synthetic, verttransform
     met = (synthetic.SyntheticMet(grid) if kind == "synthetic"
            else synthetic.uniform_wind_met(grid, u=10.0, v=1.0))
@@ -555,6 +603,7 @@ def step_setup(grid, **cfg_kw):
 def phase_kernels(device, grid) -> dict:
     """Each kernel against its plain twin at the main path's shapes."""
     import torch
+    t_start = time.perf_counter()
     from flexpart_tpu_torch.core import interp, reorder, rng
     from flexpart_tpu_torch.grid import conccalc as cc
     from flexpart_tpu_torch.grid.outgrid import zero_accumulators
@@ -711,19 +760,30 @@ def phase_kernels(device, grid) -> dict:
                                    K3_OPS_PER_PARTICLE * N_MAIN))
     del p, gk, gp, warp
     torch.cuda.empty_cache()
-    res["advance"] = kernel_advance(device, grid)
-    torch.cuda.empty_cache()
-    res["reorder"] = kernel_reorder(device, grid)
-    torch.cuda.empty_cache()
-    res["advance"]["polar"] = kernel_advance_polar(device, grid)
-    torch.cuda.empty_cache()
-    res["advance"]["settling"] = kernel_advance_settling(device, grid)
-    torch.cuda.empty_cache()
-    res["advance_adaptive"] = kernel_advance_adaptive(device, grid)
-    torch.cuda.empty_cache()
-    res["convection"], res["redist"] = kernel_convection(device, grid)
-    torch.cuda.empty_cache()
-    res.update(kernel_deposition(device, grid))
+    # host seconds of each part of the phase
+    seconds = {"normals_quad_tables_conccalc": time.perf_counter() - t_start}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn(device, grid)
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    res["advance"] = part("advance", kernel_advance)
+    res["reorder"] = part("reorder", kernel_reorder)
+    res["advance"]["polar"] = part("advance_polar", kernel_advance_polar)
+    res["advance"]["settling"] = part("advance_settling",
+                                      kernel_advance_settling)
+    res["advance_adaptive"] = part("advance_adaptive",
+                                   kernel_advance_adaptive)
+    res["advance_adaptive"]["cbl"] = part("advance_adaptive_cbl",
+                                          kernel_advance_cbl)
+    res["advance"]["nests"] = part("advance_nests", kernel_advance_nests)
+    res["convection"], res["redist"] = part("convection_redist",
+                                            kernel_convection)
+    res.update(part("deposition", kernel_deposition))
+    res["seconds_by_part"] = seconds
     return res
 
 
@@ -1126,24 +1186,39 @@ def warp_efficiency(passes) -> dict:
                 passes_total=total)
 
 
+_SASS_FUNCTIONS = {}
+
+
+def sass_functions(sass: str) -> dict:
+    """cuobjdump -sass text split by function: {mangled name: its lines},
+    split once per text in a run."""
+    import re
+    if sass not in _SASS_FUNCTIONS:
+        funcs, cur = {}, None
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                cur = m.group(1)
+                funcs[cur] = []
+                continue
+            if cur is not None:
+                funcs[cur].append(ln)
+        _SASS_FUNCTIONS[sass] = funcs
+    return _SASS_FUNCTIONS[sass]
+
+
 def sass_instantiation(kernel, template: str, flags) -> tuple:
     """The SASS of the one instantiation of the kernel template
-    ``template`` in ``kernel``'s library whose bool template arguments are
-    ``flags`` (as in ptxas_by_entry): its name and its instructions as
+    ``template`` in ``kernel``'s library whose template arguments are
+    ``flags`` (as in ptxas_by_entry; a bool argument is a Python bool, an
+    int one a Python int): its name and its instructions as
     (address, opcode, conditional: predicated, a BRA.DIV or a branch on a
     predicate operand; branch target or None; operands), labels
     resolved."""
     import re
-    want = "".join(f"Lb{int(f)}E" for f in flags)
-    funcs, cur = {}, None
-    for ln in kernel.cuobjdump("-sass").splitlines():
-        m = re.search(r"Function : (\S+)", ln)
-        if m:
-            cur = m.group(1)
-            funcs[cur] = []
-            continue
-        if cur is not None:
-            funcs[cur].append(ln)
+    want = "".join(f"Lb{int(f)}E" if isinstance(f, bool) else f"Li{f}E"
+                   for f in flags)
+    funcs = sass_functions(kernel.cuobjdump("-sass"))
     hit = [f for f in funcs if re.search(r"\d%sI%sE" % (template, want), f)]
     check(len(hit) == 1, f"{kernel.name}: instantiation {want} of "
           f"{template} not found once in {sorted(funcs)}")
@@ -1240,8 +1315,30 @@ def k11_pool_traffic(code, lo: int, hi: int) -> dict:
             else 1
 
     from_slot, traffic, stored, loaded = set(), set(), set(), set()
+    spilled = set()         # stack slots that hold a register derived from p
     for addr, op, cond, _, operands in code:
         if not lo <= addr <= hi:
+            continue
+        if op.startswith(("STL", "LDL")):
+            # a spill of a derived register, and its reload, stay derived
+            m = re.search(r"\[R1(?:\+(0x[0-9a-f]+))?\]", operands)
+            off = int(m.group(1), 16) if m and m.group(1) else 0
+            if op.startswith("STL"):
+                src = regs(operands.split("]", 1)[-1])
+                if src & from_slot:
+                    spilled.add(off)
+                elif not cond:
+                    spilled.discard(off)
+                continue
+            dest = re.fullmatch(r"R(\d+)(?:\.64)?",
+                                operands.split(",")[0].strip())
+            if dest is not None:
+                written = set(range(int(dest.group(1)),
+                                    int(dest.group(1)) + widths(op)))
+                if off in spilled:
+                    from_slot |= written
+                elif not cond:
+                    from_slot -= written
             continue
         shared = op.startswith(("LDS", "STS"))
         if shared and re.search(r"\.(U|S)(8|16)\b", op):
@@ -1278,11 +1375,17 @@ def k11_pool_traffic(code, lo: int, hi: int) -> dict:
                 loaded=sorted(loaded))
 
 
+def k11_entry(cfg) -> tuple:
+    """The template arguments of K11's instantiation for ``cfg``: table
+    type, turbulence (0 Hanna1, 1 TS, 2 CBL), polar, settling."""
+    return (cfg.met_bf16, 2 if cfg.cblflag else int(cfg.turbswitch),
+            cfg.polar, cfg.settling)
+
+
 def k11_instructions(kernel, entry_flags, ifine: int) -> dict:
     """K11's instructions per pass, read from the compiled kernel: in the
-    SASS of the instantiation a run takes (``entry_flags``: table type,
-    turbswitch, polar, settling; the uniform turbswitch branch is compiled
-    away), the loop of iterations is the widest backward branch of the
+    SASS of the instantiation a run takes (``entry_flags``: k11_entry's
+    table type, turbulence, polar, settling), the loop of iterations is the widest backward branch of the
     kernel's body (up to its first unconditional EXIT; the compiler puts
     the slow paths of a vote after it), and the substep loop the widest
     loop inside it.  Before the substep loop lie the dealing of the
@@ -1365,7 +1468,7 @@ def settling_instructions(kernel, bf16: bool, polar: bool) -> dict:
     n = {}
     for settle in (False, True):
         _, code = sass_instantiation(kernel, "advance_kernel",
-                                     (bf16, False, polar, settle))
+                                     (bf16, False, polar, settle, False))
         n[settle] = sum(1 for _, op, _, _, _ in code if op != "NOP")
     return dict(stock=n[False], settling=n[True],
                 per_particle=n[True] - n[False])
@@ -1407,19 +1510,25 @@ def k11_bound(p, pk, passes, height, cfg, a, instructions) -> dict:
 
 
 def check_adaptive(q, height, tables, a, key, cfg, settle, what: str,
-                   offset: int = 0):
+                   offset: int = 0, time_plain: bool = False):
     """K11 against the plain advance on the card with the same key (K11's
     draws made in registers, the plain version's by K1, pass by pass):
     every output, idt included, t_below, the passes and the counts, bitwise;
     the K4 tolerances are held as well and the largest differences
-    reported."""
+    reported.  ``time_plain``: the plain run of the check is timed by CUDA
+    events (``plain_ms``, one run without a warm-up), so that a slow plain
+    version runs once."""
     import copy
     import torch
     from flexpart_tpu_torch.core import advance
     (pk, dk) = advance.advance_adaptive_cuda(q, height, tables, copy.copy(a),
                                              key, cfg, None, offset, settle)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
     (pp, dp) = advance.advance_all_plain(q, height, tables, copy.copy(a), key,
                                          cfg, None, offset, settle)
+    stop.record()
     torch.cuda.synchronize()
     res = compare_particles(pk, pp, f"{what}: K11", float(cfg.nx - 1))
     differ = differing_particles(pk, pp, advance.ADAPTIVE_OUT_FIELDS)
@@ -1434,7 +1543,7 @@ def check_adaptive(q, height, tables, a, key, cfg, settle, what: str,
     for f in ("n_active", "n_exited", "nan_count"):
         check(int(getattr(dk, f)) == int(getattr(dp, f)),
               f"{what}: K11 {f} differs")
-    executed, issued = (int(v) for v in dk.lane_work)
+    executed, issued = (int(v) for v in dk.lane_work[:2])
     check(executed == int(dk.passes.sum(dtype=torch.int64)),
           f"{what}: K11 counted {executed} passes, its particles "
           f"{int(dk.passes.sum(dtype=torch.int64))}")
@@ -1442,13 +1551,15 @@ def check_adaptive(q, height, tables, a, key, cfg, settle, what: str,
                max_abs_err=max(res["max_dx"], res["max_dy"]),
                n_active=int(dk.n_active), **warp_efficiency(dk.passes),
                **lane_efficiency(dk.lane_work))
+    if time_plain:
+        res["plain_ms"] = start.elapsed_time(stop)
     return res, pk, dk
 
 
 def lane_efficiency(lane_work) -> dict:
     """K11's refilled lanes: the passes it executed over the lane
     iterations it issued (32 per warp iteration that ran a pass)."""
-    executed, issued = (int(v) for v in lane_work)
+    executed, issued = (int(v) for v in lane_work[:2])
     return dict(lane_efficiency=executed / issued if issued else 0.0,
                 lane_iterations=issued)
 
@@ -1478,8 +1589,7 @@ def kernel_advance_adaptive(device, grid) -> dict:
                                  lambda q: sample_met(q, z0.height, tables,
                                                       cfg)[0])
     ordered = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
-    ins = k11_instructions(_build.ADVANCE_ADAPTIVE, (
-        cfg.met_bf16, cfg.turbswitch, cfg.polar, cfg.settling), cfg.ifine)
+    ins = k11_instructions(_build.ADVANCE_ADAPTIVE, k11_entry(cfg), cfg.ifine)
     res = {"instructions": ins, "cases": {}}
     for name, q in (("as_drawn", p), ("cell_ordered", ordered)):
         r, pk, dk = check_adaptive(q, z0.height, tables, a, key, cfg, settle,
@@ -1511,6 +1621,295 @@ def kernel_advance_adaptive(device, grid) -> dict:
         unordered_ms=res["cases"]["as_drawn"]["ms"],
         bitwise=all(c["bitwise"] for c in res["cases"].values()),
         max_abs_err=max(c["max_abs_err"] for c in res["cases"].values()))
+    return res
+
+
+def convective_met(zf, nx_split: int):
+    """zf with the 2-D diagnostics of a strong convective boundary layer
+    over half the columns (tests/test_matched_rng.py::_make_convective):
+    hmix 1500 m, w* 1.8 m/s, L = -25 m from column ``nx_split`` east (-h/L
+    = 60: the skewed scheme), L = -1200 m west of it (-h/L = 1.25: the
+    Gaussian drift on the raw wp)."""
+    import torch
+    from flexpart_tpu_torch.met.fields import F2_HMIX, F2_OLI, F2_WSTAR
+    f2 = zf.f2d.clone()
+    oli = torch.full_like(f2[F2_OLI], 1.0 / -1200.0)
+    oli[:, nx_split:] = 1.0 / -25.0
+    f2[F2_HMIX] = 1500.0
+    f2[F2_WSTAR] = 1.8
+    f2[F2_OLI] = oli
+    return zf.replace(f2d=f2)
+
+
+CBL_IFINE = 11      # Command(cblflag=1, ctl=5).ifine_eff
+
+
+def cbl_params(grid, **cfg_kw):
+    """(cfg, prm) of the CBL's adaptive step as Command(cblflag=1, ctl=5)
+    makes it: turbswitch, ifine 11, the polar caps, no settling."""
+    return settling_params(grid, **{
+        "turbswitch": True, "ifine": CBL_IFINE, "method": 1,
+        "settling": False, "polar": True, "cblflag": True, **cfg_kw})
+
+
+def skewed_share(p, height, tables, cfg) -> float:
+    """The share of the scheduled boundary-layer particles whose column
+    takes the skewed scheme (-h/L > 5)."""
+    h, _, _, _, ol, _ = sample_met(p, height, tables, cfg)
+    pbl = p.active & (p.z / h <= 1.0)
+    zone = pbl & ((-h / ol) > 5.0)
+    return int(zone.sum()) / max(int(pbl.sum()), 1)
+
+
+def kernel_advance_cbl(device, grid) -> dict:
+    """K11's CBL instantiation (the skewed convective boundary layer of
+    sim_cbl: ctl 5, turbswitch, ifine 11, the polar caps) on 10 x 2**20
+    particles spread over the boundary layer of the sphere, SyntheticMet's
+    fields with a strong CBL over the eastern half (convective_met): against
+    the plain advance (check_adaptive: every output, idt, t_below, the
+    passes, the counts and nan_count, bitwise) in cell order, the run's
+    order, whose plain run gives ``plain_ms`` (the plain version takes
+    seconds here: it runs once); timed as drawn too, and beside the stock
+    K11 (TS, the same particles and fields) in both orders.
+    Its bound is k11_bound's from the CBL pass body's instructions
+    (k11_instructions), whose cheapest path takes the Gaussian side of
+    the zone test: the skewed functions, __noinline__ calls, are counted
+    apart (their cheapest paths, per call) and not charged."""
+    import copy
+    import torch
+    from flexpart_tpu_torch import _build
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    z0, z1 = (convective_met(z, grid.nx // 2) for z in
+              met_fields("synthetic", grid, device, (0.0, 10800.0)))
+    itime, mem1 = 3600, 10800
+    key = rng.Key(4321, 13)
+    cfg, prm = cbl_params(grid)
+    stock = advance.StepConfig(**{**cfg.__dict__, "cblflag": False})
+    tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
+    a = advance.advance_args(cfg, prm, itime, 0, mem1)
+    a_stock = advance.advance_args(stock, prm, itime, 0, mem1)
+    p = boundary_layer_particles(N_MAIN, device, 43, grid, itime,
+                                 lambda q: sample_met(q, z0.height, tables,
+                                                      cfg)[0])
+    ordered = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
+    ins = k11_instructions(_build.ADVANCE_ADAPTIVE, k11_entry(cfg), cfg.ifine)
+    entry = sass_instantiation(_build.ADVANCE_ADAPTIVE,
+                               "advance_adaptive_kernel", k11_entry(cfg))[0]
+    ins["skewed_calls"] = sass_paths(_build.ADVANCE_ADAPTIVE,
+                                     ("cbl_skewed_wp", "cbl_skew",
+                                      "cbl_fresh_wp"), within=entry)
+    res = {"instructions": ins, "cases": {},
+           "skewed_share": skewed_share(p, z0.height, tables, cfg)}
+    for name, q in (("as_drawn", p), ("cell_ordered", ordered)):
+        r = {}
+        if name == "cell_ordered":
+            r, pk, dk = check_adaptive(q, z0.height, tables, a, key, cfg,
+                                       None, f"K11 CBL {name}",
+                                       time_plain=True)
+            r.update(k11_bound(q, pk, dk.passes, z0.height, cfg, a, ins),
+                     nan_count=int(dk.nan_count))
+            del pk, dk
+        r["ms"] = cuda_ms(lambda: advance.advance_adaptive_cuda(
+            q, z0.height, tables, copy.copy(a), key, cfg, None, 0), 5)
+        r["stock_k11_ms"] = cuda_ms(lambda: advance.advance_adaptive_cuda(
+            q, z0.height, tables, copy.copy(a_stock), key, stock, None, 0), 5)
+        res["cases"][name] = r
+        torch.cuda.empty_cache()
+    m = res["cases"]["cell_ordered"]
+    check(m["particles_in_the_loop"] > N_MAIN // 2,
+          "K11 CBL: fewer than half of the particles took a pass")
+    check(0.2 < res["skewed_share"] < 0.8,
+          f"K11 CBL: {res['skewed_share']} of the boundary layer skewed")
+    res.update({f: m[f] for f in (
+        "ms", "stock_k11_ms", "plain_ms", "bound_ms", "bound_by",
+        "bound_bytes", "bound_operations", "bound_instructions",
+        "lane_efficiency", "passes_mean", "passes_max", "nan_count")},
+        library_ms=None, n=N_MAIN,
+        unordered_ms=res["cases"]["as_drawn"]["ms"],
+        bitwise=m["bitwise"], max_abs_err=m["max_abs_err"])
+    return res
+
+
+NEST_OUTER = dict(dx=0.5, dy=0.5, xlon0=-20.0, ylat0=20.0, nx=121, ny=101)
+NEST_INNER = dict(dx=0.25, dy=0.25, xlon0=-10.0, ylat0=30.0, nx=121, ny=121)
+# the nests' SyntheticMet jets (the mother's: 25 m/s): each grid's winds
+# and friction velocity differ, so that a particle sampled from the wrong
+# grid moves differently
+NEST_U_JET = {"outer": 35.0, "inner": 45.0}
+
+
+def nest_grid(grid, spec):
+    """A limited-area nest of ``spec`` on the mother's levels."""
+    from flexpart_tpu_torch.met import make_grid
+    return make_grid(nlev=grid.nlev, xglobal=False, **spec)
+
+
+def nest_fields(ngrid, height, device, times, u_jet: float):
+    """The nest's ZFields at each time, SyntheticMet with a jet of
+    ``u_jet``, processed onto the mother's height grid (the
+    verttransform_nests.f90 contract)."""
+    from flexpart_tpu_torch.met import calcpar, calcpv, synthetic
+    from flexpart_tpu_torch.met import verttransform
+    met = synthetic.SyntheticMet(ngrid, u_jet=u_jet)
+    out = []
+    for t in times:
+        eta = met.fetch(t, device)
+        out.append(calcpar.calcpar(ngrid, eta, verttransform.process_eta(
+            ngrid, eta, height, pvh=calcpv.calcpv(ngrid, eta))))
+    return out
+
+
+def nested_particles(n: int, device, seed: int, grid, itime: int, nests):
+    """bench_particles with a third inside the inner nest, a third in the
+    outer nest only and a third over the rest of the sphere; half of them
+    fresh."""
+    import torch
+    p = bench_particles(n, device, seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 9)
+
+    def u(lo, hi):
+        return torch.rand(n, generator=gen, device=device) * (hi - lo) + lo
+
+    def box(g, lo=0.1, hi=0.9):
+        return (u((g.xlon0 + lo * (g.nx - 1) * g.dx - grid.xlon0) / grid.dx,
+                  (g.xlon0 + hi * (g.nx - 1) * g.dx - grid.xlon0) / grid.dx),
+                u((g.ylat0 + lo * (g.ny - 1) * g.dy - grid.ylat0) / grid.dy,
+                  (g.ylat0 + hi * (g.ny - 1) * g.dy - grid.ylat0) / grid.dy))
+    outer, inner = nests
+    third = u(0.0, 3.0).long()
+    xi, yi = box(inner)
+    # the outer nest's southern strip lies outside the inner one
+    xo, _ = box(outer)
+    yo = u((outer.ylat0 + 0.05 * (outer.ny - 1) * outer.dy - grid.ylat0)
+           / grid.dy, (inner.ylat0 - 1.0 - grid.ylat0) / grid.dy)
+    x = torch.where(third == 0, xi, torch.where(third == 1, xo,
+                                                u(0.0, grid.nx - 1.0)))
+    y = torch.where(third == 0, yi, torch.where(third == 1, yo,
+                                                u(0.0, grid.ny - 1.0)))
+    fresh = u(0.0, 1.0) < 0.5
+    return p.replace(
+        x_hi=x, y_hi=y, z=u(10.0, 3000.0),
+        itramem=torch.where(fresh, itime, itime - 7200).to(torch.int32),
+        itra=torch.full_like(p.itra, itime),
+        up=u(-1.0, 1.0), vp=u(-1.0, 1.0), wp=u(-1.0, 1.0),
+        usig=u(-0.3, 0.3), vsig=u(-0.3, 0.3), wsig=u(-0.01, 0.01))
+
+
+def nest_rows(p, height, cfg, a, k: int, end: bool = False) -> int:
+    """Rows of nest k's table that the particles it holds name."""
+    import torch
+    from flexpart_tpu_torch.core import advance, interp
+    nnx, nny = cfg.nests[k]
+    idx = advance.nest_index(cfg, a, p.x, p.y)
+    held = p.active & (idx == k)
+    xt, yt = advance._nest_coords(a, k, p.x, p.y)
+    hw = interp.horiz_weights(xt, yt, nnx, nny, False)
+    indz, _ = interp.vert_weights(p.z, height)
+    rows = interp._cell_rowid(hw, indz, nnx, nny)[held]
+    return int(torch.unique(rows).numel())
+
+
+def kernel_advance_nests(device, grid) -> dict:
+    """K4's NESTS instantiation (sim_nested's configuration: the stock
+    step, the polar caps) with two nested windows, 0.5 degrees over
+    20 W-40 E, 20-70 N and 0.25 degrees over 10 W-20 E, 30-60 N, each with
+    its own jet (NEST_U_JET), on 10 x 2**20 particles, a third in the
+    inner nest, a third in the outer one only: against the plain advance
+    with K1's draws injected, every output bitwise (compare_particles'
+    K4 tolerances reported beside), in cell order, timed beside the stock
+    K4 on the same particles, whose positions must differ from K4
+    NESTS's for nearly every particle in a nest (the nests' winds are
+    used).  Bound: K4's bytes plus each nest row its particles name, 128 B
+    of the start table and 48 B of the end table."""
+    import torch
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    from flexpart_tpu_torch.run.simulation import nest_windows
+    from flexpart_tpu_torch.met import synthetic, verttransform
+    z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
+    height = verttransform.compute_heights(
+        grid, synthetic.SyntheticMet(grid).fetch(0.0, device))
+    nests = (nest_grid(grid, NEST_OUTER), nest_grid(grid, NEST_INNER))
+    zn = [nest_fields(g, height, device, (0.0, 10800.0), NEST_U_JET[w])
+          for g, w in zip(nests, ("outer", "inner"))]
+    itime, mem1 = 3600, 10800
+    key = rng.Key(4321, 19)
+    cfg, _, *_ = step_setup(grid, polar=True,
+                            nests=tuple((g.nx, g.ny) for g in nests))
+    prm = advance.StepParams.make(
+        dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0, dxconst=grid.dxconst,
+        dyconst=grid.dyconst, lsynctime=LSYNC, fine=1.0 / cfg.ifine,
+        **nest_windows(grid, nests))
+    stock = advance.StepConfig(**{**cfg.__dict__, "nests": ()})
+    tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
+    tables_n = tuple(interp.build_step_tables_quad(
+        zk[0], zk[1], *tw, dtype=cfg.table_dtype) for zk in zn)
+    a = advance.advance_args(cfg, prm, itime, 0, mem1)
+    a_stock = advance.advance_args(stock, prm, itime, 0, mem1)
+    drawn = nested_particles(N_MAIN, device, 47, grid, itime, nests)
+    p = reorder.reorder_by_cell_cuda(drawn, z0.height, cfg)[0]
+    idx = advance.nest_index(cfg, a, p.x, p.y)
+    share = {"inner": int((idx == 1).sum()) / N_MAIN,
+             "outer_only": int((idx == 0).sum()) / N_MAIN}
+    check(min(share.values()) > 0.25, f"K4 NESTS: nest shares {share}")
+    draws = {tag: rng.normals(key, (rows, N_MAIN), tag, 0, device=device)
+             for tag, rows in advance.draw_tags(cfg).items()}
+    args = (p, z0.height, tables, a, key, cfg)
+    pk, dk = advance.advance_all_cuda(*args, draws, 0, tables_n=tables_n)
+    pp, dp = advance.advance_all_plain(*args, draws, 0, tables_n=tables_n)
+    torch.cuda.synchronize()
+    res = compare_particles(pk, pp, "K4 NESTS", float(grid.nx - 1))
+    differ = differing_particles(pk, pp, advance.OUT_FIELDS)
+    check(differ == 0, f"K4 NESTS differs from its plain version in "
+          f"{differ} particles")
+    # the same draws through the stock K4: a particle a nest holds moves
+    # with the nest's winds, so its position differs
+    ps = advance.advance_all_cuda(p, z0.height, tables, a_stock, key, stock,
+                                  draws, 0)[0]
+    held = p.active & (idx >= 0)
+    moved = (pk.x != ps.x) | (pk.y != ps.y)
+    moved_share = int((moved & held).sum()) / max(int(held.sum()), 1)
+    check(moved_share > 0.9, f"K4 NESTS: only {moved_share} of the nests' "
+          "particles move otherwise than with the mother's met")
+    del ps
+    res.update(differing_particles=differ, bitwise=differ == 0,
+               max_abs_err=max(res["max_dx"], res["max_dy"]),
+               nest_share=share, n=N_MAIN,
+               nest_particles_moved_otherwise_share=moved_share)
+    check_same_bits(advance.advance_all_cuda(*args, None, 0,
+                                             tables_n=tables_n)[0],
+                    advance.advance_all_cuda(*args, None, 0,
+                                             tables_n=tables_n)[0],
+                    "K4 NESTS: twice")
+    rows = {"start": sum(nest_rows(p, z0.height, cfg, a, k)
+                         for k in range(len(nests))),
+            "end": sum(nest_rows(pk, z0.height, cfg, a, k)
+                       for k in range(len(nests)))}
+    row_b = 128 if cfg.met_bf16 else 256
+    rows0 = unique_rows(p, z0.height, cfg)
+    rows1 = unique_rows(pk, z0.height, cfg)
+    del pk, pp, draws
+    torch.cuda.empty_cache()
+    res.update(
+        ms=cuda_ms(lambda: advance.advance_all_cuda(
+            *args, None, 0, tables_n=tables_n), 10),
+        stock_k4_ms=cuda_ms(lambda: advance.advance_all_cuda(
+            p, z0.height, tables, a_stock, key, stock, None, 0), 10),
+        # what K5's mother-cell order is worth to the nests' gathers: the
+        # same particles as drawn
+        unordered_ms=cuda_ms(lambda: advance.advance_all_cuda(
+            drawn, z0.height, tables, a, key, cfg, None, 0,
+            tables_n=tables_n), 10),
+        stock_k4_unordered_ms=cuda_ms(lambda: advance.advance_all_cuda(
+            drawn, z0.height, tables, a_stock, key, stock, None, 0), 10),
+        plain_ms=cuda_ms(lambda: advance.advance_all_plain(
+            *args, None, 0, tables_n=tables_n), 2),
+        library_ms=None, nest_rows=rows,
+        **bound(104 * N_MAIN + row_b * (rows0 + rows["start"])
+                + row_b * 3 // 8 * (rows1 + rows["end"]),
+                K4_OPS_PER_PARTICLE * N_MAIN))
     return res
 
 
@@ -2035,13 +2434,15 @@ def check_depo_scatter(p, deposit, itime: int, lage, ccfg, what: str) -> dict:
     return out
 
 
-def sass_paths(kernel, functions) -> dict:
+def sass_paths(kernel, functions, within: str = "") -> dict:
     """Instructions of a kernel's own code and of each of its named
     __noinline__ functions, read from the compiled library: each function's
     bytes from the cubin's symbol table (cuobjdump -elf), its instructions
     from cuobjdump -sass, NOPs aside.  The kernel's own code runs up to its
     first function; the toolkit's slow paths (division, reciprocal, square
-    root), which run only for special inputs, are counted in none."""
+    root), which run only for special inputs, are counted in none.  In a
+    library of several instantiations each has its own copy of a function,
+    named after it: ``within`` is the instantiation's mangled name."""
     import re
     starts = {}
     for ln in kernel.cuobjdump("-elf").splitlines():
@@ -2059,7 +2460,7 @@ def sass_paths(kernel, functions) -> dict:
     out = {"kernel": count(0, min(v for v, _ in starts.values()))}
     for f in functions:
         hit = [vs for name, vs in starts.items()
-               if re.search(r"\d%sE" % f, name)]
+               if re.search(r"\d%sE" % f, name) and within in name]
         check(len(hit) == 1, f"{kernel.name}: function {f} not found once "
               f"in the compiled kernel: {sorted(starts)}")
         out[f] = count(hit[0][0], hit[0][0] + hit[0][1])
@@ -3013,37 +3414,89 @@ def sim_kernel_checks(sim, snap, what: str) -> dict:
     return res
 
 
-def phase_sim(device, kernels) -> dict:
-    """``Simulation.run`` on the card, twice with one seed.  The first run
-    carries no probe and never waits for the card inside a step: it is
-    timed as a whole, and its launch counts are the path's.  The second
-    runs under torch.profiler with the section timers synchronised and a
-    probe at the top of every step, after the step's release and before
-    its sort if it has one: the probe waits for the card and reads the
-    host clock, takes the share of active particles whose cell key is
-    below their left neighbour's, and keeps the ensemble, the met fields
-    (processed and raw) and the convective flux memory of one release step
-    and of one steady step.  The two runs must end in bitwise equal
-    particles; then every kernel is held against its plain version on the
-    two kept steps (``sim_kernel_checks``).  Per step of run A: the
-    columns that convect and the particles that convection moved."""
-    import shutil
+# the kernels every step of a fixed-step / adaptive sim path launches
+PATH_KERNELS = ("quad_tables", "conccalc", "reorder", "convection", "redist",
+                "wetdepo", "drydepo", "depo_scatter")
+FIXED_PATH_KERNELS = ("advance",) + PATH_KERNELS
+ADAPTIVE_PATH_KERNELS = ("advance_adaptive",) + PATH_KERNELS
+
+
+def kept_steps(sim, nsteps: int, what: str) -> dict:
+    """The two steps a sim path keeps for its kernel checks: one in the
+    middle of the release (an active plume, a block just woken in the last
+    slots, the rest unscheduled) and the last step that advances, long
+    after it.  Returns {step: name}."""
+    release_steps = sorted(t // LSYNC for t in sim._release_times)
+    keep = {release_steps[len(release_steps) // 2]: "release step",
+            nsteps - 1: "steady step"}
+    check(len(keep) == 2 and nsteps - 1 > release_steps[-1],
+          f"{what}: release steps {release_steps} leave no steady step")
+    return keep
+
+
+def sim_run_checks(sim, what: str, released: float) -> tuple:
+    """What every sim path holds after a run: particle steps were made and
+    the met reader never failed; all particles active and finite; the
+    tracer (species 0) deposits nothing and its mass is recovered from the
+    last file within 1e-3; the aerosol's (species 1) budget, airborne +
+    wet + dry = ``released``, within 1e-3, its deposits above zero.
+    Returns (the numbers, the last file's name, its conc)."""
+    import numpy as np
+    import torch
+    check(sim.timings["particle_steps"] > 0 and sim._prefetch_failures == 0,
+          f"{what}: no particle steps, or the met reader failed")
+    pa = sim.particles
+    check(int(pa.active.sum()) == N_MAIN,
+          f"{what}: {int(pa.active.sum())} of {N_MAIN} active")
+    for f in ("x_hi", "x_lo", "y_hi", "y_lo", "z", "up", "vp", "wp"):
+        check(bool(torch.isfinite(getattr(pa, f)).all()),
+              f"{what}: {f} not finite")
+    out = Path(sim.outdir)
+    npz = sorted(q.name for q in out.glob("grid_conc_*.npz"))
+    check(len(npz) >= 1, f"{what}: npz {npz}")
+    conc = np.load(out / npz[-1])["conc"]
+    check(bool(np.isfinite(conc).all()), f"{what}: conc not finite")
+    mass = float((conc[0, 0, 0] * sim.geo.volume).sum() / 1e12)
+    check(abs(mass - 1.0) < 1e-3, f"{what}: tracer mass {mass}")
+    grids = (("wet", sim.acc.wetgridunc), ("dry", sim.acc.drygridunc))
+    for k, g in grids:
+        check(float(g[..., 0].abs().sum()) == 0.0,
+              f"{what}: the tracer has a {k} deposit")
+    budget = dict(
+        released=released,
+        airborne=float(pa.mass[pa.active, 1].sum(dtype=torch.float64)),
+        **{k: float(g[..., 1].sum(dtype=torch.float64)) for k, g in grids})
+    budget["sum"] = budget["airborne"] + budget["wet"] + budget["dry"]
+    check(budget["wet"] > 0.0 and budget["dry"] > 0.0,
+          f"{what}: the aerosol deposits {budget}")
+    check(abs(budget["sum"] - released) <= 1e-3 * released,
+          f"{what}: budget {budget}")
+    return dict(tracer_mass_fraction=mass, aerosol_budget=budget), npz[-1], \
+        conc
+
+
+def run_twice(setup, kernels, what: str, released: float, path_kernels,
+              check_a=None, probe_fn=None, wrap=None):
+    """A Simulation path run twice with one seed, the one two-run check of
+    every sim path.  Run A (``setup("a")``) carries no probe and is timed
+    as a whole, its launch counts set to 0 just before and read just
+    after: each kernel of ``path_kernels`` must have been launched, K5 once
+    per sort; sim_run_checks holds its particles, files and budget, and
+    ``check_a(sim)`` (if given) adds the path's own checks and numbers.
+    Run B (``setup("b")``) runs under torch.profiler, with
+    ``probe_fn(sim)`` as its step probe (a probe may wait for the card)
+    and ``wrap(inner)`` around the run's advance_all.  The two runs must
+    end in bitwise equal particles, nan counts and sorts, their deposition
+    grids within K8's rtol (its float atomics add in another order in
+    every run) and their last conc within K3's.  Returns (sim B, its
+    profile rows, the numbers of the two runs)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from flexpart_tpu_torch.core import reorder
     from flexpart_tpu_torch.core.state import FIELDS
-    try:
-        import h5py  # noqa: F401
-        netcdf = True
-    except ImportError:
-        netcdf = False
-    shutil.rmtree(SIM_DIR, ignore_errors=True)
-    nsteps = SIM_HOURS * 3600 // LSYNC
-
-    # --- run A: timed as a whole, no probe ---
+    from flexpart_tpu_torch.run import simulation as simmod
     t_setup = time.perf_counter()
-    sim = sim_setup(SIM_DIR / "a", device, netcdf)
+    sim = setup("a")
     setup_s = time.perf_counter() - t_setup
     torch.cuda.synchronize()
     for k in kernels:
@@ -3053,10 +3506,169 @@ def phase_sim(device, kernels) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
-    for name in ("advance", "quad_tables", "conccalc", "reorder",
-                 "convection", "redist", "wetdepo", "drydepo",
-                 "depo_scatter"):
-        check(launches[name] > 0, f"sim: kernel {name} was never launched")
+    for name in path_kernels:
+        check(launches[name] > 0, f"{what}: kernel {name} was never launched")
+    check(launches["reorder"] == sim.n_sorts,
+          f"{what}: sorts and K5 launches differ")
+    checks, last, conc_a = sim_run_checks(sim, what, released)
+    a = dict(setup_s=setup_s, run_s=run_s, launches=launches,
+             particle_steps=sim.timings["particle_steps"],
+             particle_steps_per_s_whole_run=sim.timings["particle_steps"]
+             / run_s,
+             section_seconds_unsynced={k: v for k, v in sim.timings.items()
+                                       if k != "particle_steps"},
+             nan_count=sim.nan_count, sorts=sim.n_sorts, **checks)
+    if check_a is not None:
+        a.update(check_a(sim))
+    pa = sim.particles
+    wet_a = sim.acc.wetgridunc.clone()
+    dry_a = sim.acc.drygridunc.clone()
+    del sim
+    t0 = time.perf_counter()
+    sim = setup("b")
+    if probe_fn is not None:
+        sim._step_probe = probe_fn(sim)
+    inner = simmod.advance_all
+    if wrap is not None:
+        simmod.advance_all = wrap(inner)
+    try:
+        # the card's kernels only: recording every host op would slow the
+        # run's host side, which bounds it
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sim.run()
+            torch.cuda.synchronize()
+    finally:
+        simmod.advance_all = inner
+    a["run_b_s"] = time.perf_counter() - t0
+    check_same_bits(pa, sim.particles, f"{what}: two runs with one seed",
+                    FIELDS)
+    check(sim.nan_count == a["nan_count"],
+          f"{what}: nan_count {a['nan_count']} then {sim.nan_count}")
+    check(sim.n_sorts == a["sorts"], f"{what}: the two runs sorted "
+          "differently")
+    depo_diff = {}
+    for k, ga, gb in (("wet", wet_a, sim.acc.wetgridunc),
+                      ("dry", dry_a, sim.acc.drygridunc)):
+        d = (ga - gb).abs()
+        depo_diff[k] = float(d.max())
+        check(bool(torch.all(d <= K8_RTOL * ga.abs())),
+              f"{what}: {k} grids of two runs with one seed differ by "
+              f"{depo_diff[k]}")
+    conc_b = np.load(Path(sim.outdir) / last)["conc"]
+    worst = float(np.abs(conc_a - conc_b).max())
+    check(bool(np.all(np.abs(conc_a - conc_b) <= K3_RTOL * np.abs(conc_a))),
+          f"{what}: conc of two runs with one seed differs by {worst}")
+    a.update(two_runs_bitwise_equal=True, conc_two_runs_max_abs_diff=worst,
+             depo_grids_two_runs_max_abs_diff=depo_diff)
+    rows = device_rows(prof)
+    del prof, pa, wet_a, dry_a
+    # the device functions of each kernel, as the profiler names them
+    words = {"reorder": SORT_KERNELS, "depo_scatter": ("depo_grid_kernel",)}
+    for name in path_kernels:
+        check(any(w in r[0] for r in rows
+                  for w in words.get(name, (f"{name}_kernel",))),
+              f"{what}: the profile of run B holds no {name} kernel")
+    return sim, rows, a
+
+
+def per_launch_of(rows):
+    """(device ms of all kernels, per_launch(words, n)): the device time of
+    the profile rows whose name holds one of ``words``, per call of ``n``,
+    and its share of all."""
+    device_ms = sum(r[2] for r in rows)
+
+    def per_launch(words, n):
+        hit = [r for r in rows if any(w in r[0] for w in words)]
+        ms = sum(r[2] for r in hit)
+        return dict(ms_total=ms, kernels=sum(r[1] for r in hit),
+                    ms_per_call=ms / max(n, 1), calls=n,
+                    device_share=ms / max(device_ms, 1e-9))
+    return device_ms, per_launch
+
+
+def phase_sim(device, kernels) -> dict:
+    """``Simulation.run`` on the card, twice with one seed (run_twice).  Run
+    A carries no probe and never waits for the card inside a step: it is
+    timed as a whole, and its launch counts are the path's; its files must
+    have the recipe's names and shapes, and per step it counts the columns
+    that convect and the particles that convection moved.  Run B runs
+    under torch.profiler with the section timers synchronised and a probe
+    at the top of every step, after the step's release and before its
+    sort if it has one: the probe waits for the card and reads the host
+    clock, takes the share of active particles whose cell key is below
+    their left neighbour's, and keeps the ensemble, the met fields
+    (processed and raw) and the convective flux memory of one release step
+    and of one steady step (kept_steps); then every kernel is held against
+    its plain version on those two (``sim_kernel_checks``)."""
+    import shutil
+    import numpy as np
+    import torch
+    from flexpart_tpu_torch.core import reorder
+    try:
+        import h5py  # noqa: F401
+        netcdf = True
+    except ImportError:
+        netcdf = False
+    shutil.rmtree(SIM_DIR, ignore_errors=True)
+    nsteps = SIM_HOURS * 3600 // LSYNC
+    keep, stamps, shares, snaps = {}, [], [], {}
+
+    def setup(run):
+        sim = sim_setup(SIM_DIR / run, device, netcdf and run == "a",
+                        profile=run == "b")
+        keep.update(kept_steps(sim, nsteps, "sim"))
+        return sim
+
+    def check_a(sim):
+        check(sim.step_cfg.polar and sim.conv_kernel is not None
+              and sim.cmd.lsubgrid == 1, "sim: not the default Command's path")
+        conv_counts = torch.stack(sim.convection_counts).cpu().numpy()
+        check(bool((conv_counts[:, 0] > 0).all()), "sim: a step had no "
+              "convecting column")
+        # the files of the recipe, with its names and shapes
+        out = Path(sim.outdir)
+        dates = (out / "dates").read_text().split()
+        check(dates == ["20200101013000", "20200101023000"],
+              f"sim: dates {dates}")
+        npz = sorted(q.name for q in out.glob("grid_conc_*.npz"))
+        check(npz == [f"grid_conc_{d}.npz" for d in dates], f"sim: npz {npz}")
+        check(len(list(out.glob("grid_conc_*.nc"))) == int(netcdf),
+              "sim: nc files")
+        last = np.load(out / npz[-1])
+        # (species, release box, age class, level, y, x)
+        check(last["conc"].shape == (2, 2, 1, 3, 360, 720),
+              f"sim: conc {last['conc'].shape}")
+        check(float(np.abs(last["conc"][0, 1]).max()) == 0.0,
+              "sim: the storm box released the first species")
+        for k in ("wet", "dry"):
+            check(last[k].shape == (2, 2, 1, 360, 720)
+                  and bool(np.isfinite(last[k]).all()), f"sim: npz {k}")
+        return dict(convecting_columns_per_step=[int(c) for c in
+                                                 conv_counts[:, 0]],
+                    convection_moved_per_step=[int(m) for m in
+                                               conv_counts[:, 1]])
+
+    def probe_fn(sim):
+        def probe(istep, itime):
+            torch.cuda.synchronize()
+            t_in = time.perf_counter()
+            p = sim.particles
+            z0, z1, mt0, mt1 = sim._fields_for(itime)
+            keys = reorder.cell_keys(p, z0.height, sim.step_cfg)
+            below = (keys[1:] < keys[:-1]) & p.active[1:]
+            shares.append(torch.stack([below.sum(), p.active.sum()]))
+            if istep in keep:
+                snaps[keep[istep]] = (istep, itime, p, z0, z1, mt0, mt1,
+                                      sim._get_eta(mt0), sim._get_eta(mt1),
+                                      sim.cbmf)
+            torch.cuda.synchronize()
+            stamps.append((t_in, time.perf_counter()))
+        return probe
+
+    # species 2: one unit from each box (Cs-137 decays by 8e-6 in 3 h)
+    sim, rows, a = run_twice(setup, kernels, "sim", 2.0, FIXED_PATH_KERNELS,
+                             check_a, probe_fn)
+    launches = a["launches"]
     check(launches["advance"] == nsteps and launches["quad_tables"] == nsteps,
           f"sim: {launches} launches in {nsteps} steps")
     # wet deposition on every step but the first, decay and dry deposition
@@ -3067,120 +3679,12 @@ def phase_sim(device, kernels) -> dict:
     # convection runs on every step, the last (which does not advance) too
     check(launches["convection"] == launches["redist"] == nsteps + 1,
           f"sim: {launches} convection launches in {nsteps + 1} steps")
-    check(sim.step_cfg.polar and sim.conv_kernel is not None
-          and sim.cmd.lsubgrid == 1, "sim: not the default Command's path")
-    conv_counts = torch.stack(sim.convection_counts).cpu().numpy()
-    check(bool((conv_counts[:, 0] > 0).all()), "sim: a step had no "
-          "convecting column")
-    check(launches["reorder"] == sim.n_sorts, "sim: sorts and K5 launches differ")
-    pa = sim.particles
-    check(int(pa.active.sum()) == N_MAIN,
-          f"sim: {int(pa.active.sum())} of {N_MAIN} particles active")
-    for f in ("x_hi", "x_lo", "y_hi", "y_lo", "z", "up", "vp", "wp"):
-        check(bool(torch.isfinite(getattr(pa, f)).all()), f"sim: {f} not finite")
-    check(sim.timings["particle_steps"] > 0 and sim._prefetch_failures == 0,
-          "sim: no particle steps, or the met reader failed")
-
-    # the files of the recipe, with its names and shapes
-    out = SIM_DIR / "a"
-    dates = (out / "dates").read_text().split()
-    check(dates == ["20200101013000", "20200101023000"], f"sim: dates {dates}")
-    npz = sorted(q.name for q in out.glob("grid_conc_*.npz"))
-    check(npz == [f"grid_conc_{d}.npz" for d in dates], f"sim: npz {npz}")
-    check(len(list(out.glob("grid_conc_*.nc"))) == int(netcdf), "sim: nc files")
-    last = np.load(out / npz[-1])
-    conc_a = last["conc"]
-    # (species, release box, age class, level, y, x)
-    check(conc_a.shape == (2, 2, 1, 3, 360, 720), f"sim: conc {conc_a.shape}")
-    check(bool(np.isfinite(conc_a).all()), "sim: conc not finite")
-    mass = float((conc_a[0, 0, 0] * sim.geo.volume).sum() / 1e12)
-    check(abs(mass - 1.0) < 1e-3, f"sim: mass fraction {mass}")
-    check(float(np.abs(conc_a[0, 1]).max()) == 0.0,
-          "sim: the storm box released the first species")
-    for k in ("wet", "dry"):
-        check(last[k].shape == (2, 2, 1, 360, 720)
-              and bool(np.isfinite(last[k]).all()), f"sim: npz {k}")
-    # species 2: deposited wet and dry, and its budget: airborne + wet +
-    # dry = released (2.0) within 1e-3 (Cs-137 decays by 8e-6 in 3 h)
-    wet_a = sim.acc.wetgridunc.clone()
-    dry_a = sim.acc.drygridunc.clone()
-    for k, g in (("wet", wet_a), ("dry", dry_a)):
-        check(float(g[..., 0].abs().sum()) == 0.0,
-              f"sim: the tracer has a {k} deposit")
-    budget = dict(
-        released=2.0,
-        airborne=float(pa.mass[pa.active, 1].sum(dtype=torch.float64)),
-        wet=float(wet_a[..., 1].sum(dtype=torch.float64)),
-        dry=float(dry_a[..., 1].sum(dtype=torch.float64)))
-    budget["sum"] = budget["airborne"] + budget["wet"] + budget["dry"]
-    check(budget["wet"] > 0.0 and budget["dry"] > 0.0,
-          f"sim: species 2 deposits {budget}")
-    check(abs(budget["sum"] - 2.0) <= 1e-3 * 2.0, f"sim: budget {budget}")
-    timers_a = {k: v for k, v in sim.timings.items()}
-    sorts_a = sim.n_sorts
-    del sim
-
-    # --- run B: profiled and probed ---
-    sim = sim_setup(SIM_DIR / "b", device, False, profile=True)
-    release_steps = sorted(t // LSYNC for t in sim._release_times)
-    # a step in the middle of the release (an active plume, a block just
-    # woken in the last slots, the rest unscheduled) and the last step
-    # that advances, long after it
-    keep = {release_steps[len(release_steps) // 2]: "release step",
-            nsteps - 1: "steady step"}
-    check(len(keep) == 2 and nsteps - 1 > release_steps[-1],
-          f"sim: release steps {release_steps} leave no steady step to keep")
-    stamps, shares, snaps = [], [], {}
-
-    def probe(istep, itime):
-        torch.cuda.synchronize()
-        t_in = time.perf_counter()
-        p = sim.particles
-        z0, z1, mt0, mt1 = sim._fields_for(itime)
-        keys = reorder.cell_keys(p, z0.height, sim.step_cfg)
-        below = (keys[1:] < keys[:-1]) & p.active[1:]
-        shares.append(torch.stack([below.sum(), p.active.sum()]))
-        if istep in keep:
-            snaps[keep[istep]] = (istep, itime, p, z0, z1, mt0, mt1,
-                                  sim._get_eta(mt0), sim._get_eta(mt1),
-                                  sim.cbmf)
-        torch.cuda.synchronize()
-        stamps.append((t_in, time.perf_counter()))
-
-    sim._step_probe = probe
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sim.run()
-        torch.cuda.synchronize()
-    pb = sim.particles
-    check_same_bits(pa, pb, "sim: two runs with one seed", FIELDS)
-    # the deposition grids: K8's float atomics add in another order in
-    # every run
-    depo_diff = {}
-    for k, ga, gb in (("wet", wet_a, sim.acc.wetgridunc),
-                      ("dry", dry_a, sim.acc.drygridunc)):
-        d = (ga - gb).abs()
-        depo_diff[k] = float(d.max())
-        check(bool(torch.all(d <= K8_RTOL * ga.abs())),
-              f"sim: {k} grids of two runs with one seed differ by "
-              f"{depo_diff[k]}")
-    del wet_a, dry_a
-    conc_b = np.load(SIM_DIR / "b" / npz[-1])["conc"]
-    worst = float(np.abs(conc_a - conc_b).max())
-    check(bool(np.all(np.abs(conc_a - conc_b) <= K3_RTOL * np.abs(conc_a))),
-          f"sim: conc of two runs with one seed differs by {worst}")
-    check(sim.n_sorts == sorts_a, "sim: the two runs sorted differently")
-    rows = device_rows(prof)
-    del prof, pa, pb
-
-    def per_launch(words, n):
-        hit = [r for r in rows if any(w in r[0] for w in words)]
-        return dict(ms_total=sum(r[2] for r in hit),
-                    kernels=sum(r[1] for r in hit),
-                    ms_per_call=sum(r[2] for r in hit) / max(n, 1), calls=n)
-
+    sorts = a["sorts"]
+    device_ms, per_launch = per_launch_of(rows)
     counts = torch.stack(shares).cpu().numpy()
-    out_of_order = [float(b) / max(int(a), 1) for b, a in counts]
+    out_of_order = [float(b) / max(int(a_), 1) for b, a_ in counts]
     report = sim.timers.report()
+    release_steps = sorted(t // LSYNC for t in sim._release_times)
     # stamps[i]: the host clock as the probe of step i of run B began and
     # ended, the card idle both times; a step lasts from the end of its
     # probe to the beginning of the next
@@ -3193,17 +3697,9 @@ def phase_sim(device, kernels) -> dict:
         sim, snap, f"sim {name} {snap[0]}") for name, snap in snaps.items()}
     snaps.clear()
     res = dict(
-        n=N_MAIN, steps=nsteps, netcdf=netcdf, setup_s=setup_s,
-        release_steps=release_steps, sorts=sorts_a, launches=launches,
+        n=N_MAIN, steps=nsteps, netcdf=netcdf, release_steps=release_steps,
         # run A: no probe, no wait for the card inside a step
-        run_s=run_s, particle_steps=timers_a["particle_steps"],
-        particle_steps_per_s_whole_run=timers_a["particle_steps"] / run_s,
-        section_seconds_unsynced={k: v for k, v in timers_a.items()
-                                  if k not in ("particle_steps",)},
-        mass_fraction=mass, conc_two_runs_max_abs_diff=worst,
-        species2_budget=budget,
-        depo_grids_two_runs_max_abs_diff=depo_diff,
-        two_runs_bitwise_equal=True,
+        **a,
         # run B: under the profiler, synchronised at the top of every step
         synced_first_step_s=float(release[0]),
         synced_release_step_s=[float(x) for x in release[1:]],
@@ -3213,24 +3709,21 @@ def phase_sim(device, kernels) -> dict:
         synced_steady_particle_steps_per_s=float(
             N_MAIN * len(steady) / steady.sum()),
         active_out_of_order_share=out_of_order,
-        active_per_step=[int(a) for _, a in counts],
-        # run A, per step (the last, which does not advance, included)
-        convecting_columns_per_step=[int(c) for c in conv_counts[:, 0]],
-        convection_moved_per_step=[int(m) for m in conv_counts[:, 1]],
+        active_per_step=[int(a_) for _, a_ in counts],
         columns=SIM_GRID["nx"] * SIM_GRID["ny"],
         section_table_synced=report.splitlines(),
         device_per_call={
             "advance": per_launch(("advance_kernel",), nsteps),
             "quad_tables": per_launch(("quad_tables_kernel",), nsteps),
             "conccalc": per_launch(("conccalc_kernel",), launches["conccalc"]),
-            "reorder": per_launch(SORT_KERNELS, sorts_a),
+            "reorder": per_launch(SORT_KERNELS, sorts),
             "convection": per_launch(("convection_kernel",), nsteps + 1),
             "redist": per_launch(("redist_kernel",), nsteps + 1),
             "wetdepo": per_launch(("wetdepo_kernel",), nsteps),
             "drydepo": per_launch(("drydepo_kernel",), nsteps),
             "depo_scatter": per_launch(("depo_grid_kernel",),
                                        2 * nsteps)},
-        device_ms_all_kernels=sum(r[2] for r in rows),
+        device_ms_all_kernels=device_ms,
         top=[dict(name=k[:60], calls=c, ms=ms) for k, c, ms in rows[:10]],
         kernels_on_sim_inputs=on_sim_inputs)
     del sim
@@ -3246,7 +3739,7 @@ SIM_ADAPTIVE_DIR = ROOT / "build" / "sim_adaptive_smoke"
 
 
 def sim_adaptive_setup(outdir, device, write_netcdf: bool, n: int = N_MAIN,
-                       n_storm: int = N_STORM, **kw):
+                       n_storm: int = N_STORM, cmd_kw=None, **kw):
     """The port's Simulation at full width with ``Command(ctl=5.0)`` (the
     adaptive step: turbswitch on, ifine 4, mintime 1 s; convection and
     subgrid orography on, as in the sim phase), ``n`` = 10 x 2**20
@@ -3254,14 +3747,16 @@ def sim_adaptive_setup(outdir, device, write_netcdf: bool, n: int = N_MAIN,
     rule turns settling on: the tracer from 40-42 N, 0-2 E (n - n_storm
     particles) and the settling aerosol of aerosol_species from STORM_BOX
     (n_storm particles), both over the first hour at 50-500 m; the sim
-    phase's grid, hours and output."""
+    phase's grid, hours and output.  ``cmd_kw`` adds to the Command
+    (sim_cbl: cblflag=1)."""
     from flexpart_tpu_torch import Simulation, SyntheticMet, make_grid
     from flexpart_tpu_torch.config import (Command, OutGrid, ReleaseBox,
                                            Releases)
     grid = make_grid(**SIM_GRID)
     cmd = Command(ibdate=20200101, ibtime=0, iedate=20200101,
                   ietime=SIM_ADAPTIVE_HOURS * 10000, lsynctime=LSYNC,
-                  loutstep=3600, loutaver=3600, loutsample=900, ctl=5.0)
+                  loutstep=3600, loutaver=3600, loutsample=900, ctl=5.0,
+                  **(cmd_kw or {}))
     when = dict(idate1=20200101, itime1=0, idate2=20200101, itime2=10000,
                 z1=50.0, z2=500.0)
     boxes = (ReleaseBox(lon1=0.0, lon2=2.0, lat1=40.0, lat2=42.0,
@@ -3306,8 +3801,7 @@ def sim_adaptive_checks(sim, snap, what: str) -> dict:
     res = dict(istep=istep, itime=itime, scheduled=int(q.active.sum()))
     r, pk, dk = check_adaptive(q, height, tables, a, key, cfg, settle,
                                f"{what}: K11")
-    ins = k11_instructions(_build.ADVANCE_ADAPTIVE, (
-        cfg.met_bf16, cfg.turbswitch, cfg.polar, cfg.settling), cfg.ifine)
+    ins = k11_instructions(_build.ADVANCE_ADAPTIVE, k11_entry(cfg), cfg.ifine)
     r.update(k11_bound(q, pk, dk.passes, height, cfg, a, ins))
     del pk
     r["ms"] = cuda_ms(lambda: advance.advance_adaptive_cuda(
@@ -3376,139 +3870,68 @@ def sim_adaptive_checks(sim, snap, what: str) -> dict:
 
 def phase_sim_adaptive(device, kernels) -> dict:
     """``Simulation.run`` with the adaptive step and a settling aerosol on
-    the card, twice with one seed, as the sim phase: run A carries no probe
-    and is timed as a whole, its launch counts are the path's (K11 every
-    step, K4 never); run B under torch.profiler, synchronised and probed
-    at the top of every step, keeps one release step and one steady step
-    (sim_adaptive_checks) and each step's pass counts (the advance's
-    StepDiag.passes, in the run's slot order: the warp efficiency).  The
-    two runs must end in bitwise equal particles; the aerosol's budget
-    (airborne + wet + dry = released) must hold within 1e-3 and it must
-    deposit wet and dry; the tracer's mass is recovered from the last file
-    within 1e-3."""
+    the card, twice with one seed (run_twice, as the sim phase): run A's
+    launch counts are the path's (K11 every step, K4 never), with the
+    mean descent of each species; run B keeps one release step and one
+    steady step (kept_steps; sim_adaptive_checks) and each step's pass
+    counts (the advance's StepDiag.passes, in the run's slot order: the
+    warp efficiency) and K11's work counters (the lane efficiency)."""
     import shutil
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from flexpart_tpu_torch.core import advance
-    from flexpart_tpu_torch.core.state import FIELDS
-    from flexpart_tpu_torch.run import simulation as simmod
     shutil.rmtree(SIM_ADAPTIVE_DIR, ignore_errors=True)
     nsteps = SIM_ADAPTIVE_HOURS * 3600 // LSYNC
+    keep, snaps, passes, lane_work = {}, {}, [], []
 
-    # --- run A: timed as a whole, no probe ---
-    t_setup = time.perf_counter()
-    sim = sim_adaptive_setup(SIM_ADAPTIVE_DIR / "a", device, False)
-    setup_s = time.perf_counter() - t_setup
-    check(sim.step_cfg.method == 1 and sim.step_cfg.settling
-          and sim.step_cfg.turbswitch and sim.step_cfg.ifine == 4,
-          f"sim_adaptive: {sim.step_cfg}")
-    torch.cuda.synchronize()
-    for k in kernels:
-        k.launches = 0
-    t0 = time.perf_counter()
-    sim.run()
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
-    for name in ("advance_adaptive", "quad_tables", "conccalc", "reorder",
-                 "convection", "redist", "wetdepo", "drydepo",
-                 "depo_scatter"):
-        check(launches[name] > 0,
-              f"sim_adaptive: kernel {name} was never launched")
+    def setup(run):
+        sim = sim_adaptive_setup(SIM_ADAPTIVE_DIR / run, device, False,
+                                 profile=run == "b")
+        c = sim.step_cfg
+        check(c.method == 1 and c.settling and c.turbswitch and c.ifine == 4,
+              f"sim_adaptive: {c}")
+        keep.update(kept_steps(sim, nsteps, "sim_adaptive"))
+        return sim
+
+    def check_a(sim):
+        pa = sim.particles
+        sp = advance.settling_species(pa.mass0)
+        descent = {}
+        for name, s in (("tracer", 0), ("aerosol", 1)):
+            m = pa.active & (sp == s)
+            descent[name] = dict(
+                mean_z_m=float(pa.z[m].mean()),
+                mean_descent_from_release_m=275.0 - float(pa.z[m].mean()),
+                mean_idt_s=float(pa.idt[m].float().mean()))
+        npz = list(Path(sim.outdir).glob("grid_conc_*.npz"))
+        check(len(npz) == SIM_ADAPTIVE_HOURS - 1, f"sim_adaptive: npz {npz}")
+        return dict(descent=descent)
+
+    def probe_fn(sim):
+        def probe(istep, itime):
+            if istep in keep:
+                z0, z1, mt0, mt1 = sim._fields_for(itime)
+                snaps[keep[istep]] = (istep, itime, sim.particles, z0, z1,
+                                      mt0, mt1)
+        return probe
+
+    def wrap(inner):
+        def counted(*args, **kw):
+            p, diag = inner(*args, **kw)
+            passes.append(diag.passes.clone())
+            lane_work.append(diag.lane_work.clone())
+            return p, diag
+        return counted
+
+    # the aerosol: one unit from the storm box
+    sim, rows, a = run_twice(setup, kernels, "sim_adaptive", 1.0,
+                             ADAPTIVE_PATH_KERNELS, check_a, probe_fn, wrap)
+    launches = a["launches"]
     check(launches["advance_adaptive"] == nsteps and launches["advance"] == 0
           and launches["drydepo"] == nsteps
           and launches["depo_scatter"] == 2 * nsteps,
           f"sim_adaptive: {launches} launches in {nsteps} steps")
-    check(launches["reorder"] == sim.n_sorts,
-          "sim_adaptive: sorts and K5 launches differ")
-    pa = sim.particles
-    check(int(pa.active.sum()) == N_MAIN,
-          f"sim_adaptive: {int(pa.active.sum())} of {N_MAIN} active")
-    for f in ("x_hi", "x_lo", "y_hi", "y_lo", "z", "up", "vp", "wp"):
-        check(bool(torch.isfinite(getattr(pa, f)).all()),
-              f"sim_adaptive: {f} not finite")
-    out = SIM_ADAPTIVE_DIR / "a"
-    npz = sorted(q.name for q in out.glob("grid_conc_*.npz"))
-    check(len(npz) == SIM_ADAPTIVE_HOURS - 1, f"sim_adaptive: npz {npz}")
-    conc_a = np.load(out / npz[-1])["conc"]
-    check(bool(np.isfinite(conc_a).all()), "sim_adaptive: conc not finite")
-    mass = float((conc_a[0, 0, 0] * sim.geo.volume).sum() / 1e12)
-    check(abs(mass - 1.0) < 1e-3, f"sim_adaptive: tracer mass {mass}")
-    wet_a = sim.acc.wetgridunc.clone()
-    dry_a = sim.acc.drygridunc.clone()
-    budget = dict(
-        released=1.0,
-        airborne=float(pa.mass[pa.active, 1].sum(dtype=torch.float64)),
-        wet=float(wet_a[..., 1].sum(dtype=torch.float64)),
-        dry=float(dry_a[..., 1].sum(dtype=torch.float64)))
-    budget["sum"] = budget["airborne"] + budget["wet"] + budget["dry"]
-    check(budget["wet"] > 0.0 and budget["dry"] > 0.0,
-          f"sim_adaptive: the aerosol deposits {budget}")
-    check(abs(budget["sum"] - 1.0) <= 1e-3, f"sim_adaptive: budget {budget}")
-    sp = advance.settling_species(pa.mass0)
-    descent = {}
-    for name, s in (("tracer", 0), ("aerosol", 1)):
-        m = pa.active & (sp == s)
-        descent[name] = dict(
-            mean_z_m=float(pa.z[m].mean()),
-            mean_descent_from_release_m=275.0 - float(pa.z[m].mean()),
-            mean_idt_s=float(pa.idt[m].float().mean()))
-    sorts_a = sim.n_sorts
-    timers_a = dict(sim.timings)
-    del sim
-
-    # --- run B: profiled and probed, the pass counts of every step ---
-    sim = sim_adaptive_setup(SIM_ADAPTIVE_DIR / "b", device, False,
-                             profile=True)
-    release_steps = sorted(t // LSYNC for t in sim._release_times)
-    keep = {release_steps[len(release_steps) // 2]: "release step",
-            nsteps - 1: "steady step"}
-    snaps, passes, lane_work = {}, [], []
-
-    def probe(istep, itime):
-        if istep in keep:
-            z0, z1, mt0, mt1 = sim._fields_for(itime)
-            snaps[keep[istep]] = (istep, itime, sim.particles, z0, z1, mt0,
-                                  mt1)
-
-    def counted(*args, **kw):
-        p, diag = inner(*args, **kw)
-        passes.append(diag.passes.clone())
-        lane_work.append(diag.lane_work.clone())
-        return p, diag
-
-    inner = simmod.advance_all
-    sim._step_probe = probe
-    simmod.advance_all = counted
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            sim.run()
-            torch.cuda.synchronize()
-    finally:
-        simmod.advance_all = inner
-    check_same_bits(pa, sim.particles, "sim_adaptive: two runs with one seed",
-                    FIELDS)
-    depo_diff = {}
-    for k, ga, gb in (("wet", wet_a, sim.acc.wetgridunc),
-                      ("dry", dry_a, sim.acc.drygridunc)):
-        d = (ga - gb).abs()
-        depo_diff[k] = float(d.max())
-        check(bool(torch.all(d <= K8_RTOL * ga.abs())),
-              f"sim_adaptive: {k} grids of two runs differ by {depo_diff[k]}")
-    check(sim.n_sorts == sorts_a, "sim_adaptive: the runs sorted differently")
-    del wet_a, dry_a, pa
-    rows = device_rows(prof)
-    del prof
-    device_ms = sum(r[2] for r in rows)
-
-    def per_launch(words, n):
-        hit = [r for r in rows if any(w in r[0] for w in words)]
-        ms = sum(r[2] for r in hit)
-        return dict(ms_total=ms, ms_per_call=ms / max(n, 1), calls=n,
-                    device_share=ms / max(device_ms, 1e-9))
-
+    device_ms, per_launch = per_launch_of(rows)
     per_step = [warp_efficiency(q) for q in passes]
     allp = torch.cat([q[q > 0] for q in passes])
     steps_pass = dict(
@@ -3535,15 +3958,10 @@ def phase_sim_adaptive(device, kernels) -> dict:
         sim, snap, f"sim_adaptive {name} {snap[0]}")
         for name, snap in snaps.items()}
     snaps.clear()
+    sorts = a["sorts"]
     res = dict(
-        n=N_MAIN, steps=nsteps, hours=SIM_ADAPTIVE_HOURS, setup_s=setup_s,
-        run_s=run_s, particle_steps=timers_a["particle_steps"],
-        particle_steps_per_s_whole_run=timers_a["particle_steps"] / run_s,
-        section_seconds_unsynced={k: v for k, v in timers_a.items()
-                                  if k != "particle_steps"},
-        launches=launches, sorts=sorts_a, release_steps=release_steps,
-        two_runs_bitwise_equal=True, depo_grids_two_runs_max_abs_diff=depo_diff,
-        tracer_mass_fraction=mass, aerosol_budget=budget, descent=descent,
+        n=N_MAIN, steps=nsteps, hours=SIM_ADAPTIVE_HOURS,
+        release_steps=sorted(t // LSYNC for t in sim._release_times), **a,
         **steps_pass,
         device_ms_all_kernels=device_ms,
         device_per_call={
@@ -3553,7 +3971,7 @@ def phase_sim_adaptive(device, kernels) -> dict:
             "quad_tables": per_launch(("quad_tables_kernel",), nsteps),
             "conccalc": per_launch(("conccalc_kernel",),
                                    launches["conccalc"]),
-            "reorder": per_launch(SORT_KERNELS, sorts_a),
+            "reorder": per_launch(SORT_KERNELS, sorts),
             "convection": per_launch(("convection_kernel",), nsteps + 1),
             "redist": per_launch(("redist_kernel",), nsteps + 1),
             "wetdepo": per_launch(("wetdepo_kernel",), nsteps),
@@ -3566,9 +3984,299 @@ def phase_sim_adaptive(device, kernels) -> dict:
     return res
 
 
+SIM_CBL_DIR = ROOT / "build" / "sim_cbl_smoke"
+# sim_cbl's kept steps hold K11 CBL against its plain version on every
+# SIM_CBL_STRIDE-th particle of the step in cell order (the plain CBL takes
+# seconds at full width; the kernels phase holds it there once)
+SIM_CBL_STRIDE = 8
+
+
+def every_kth(p, k: int):
+    """Every ``k``-th particle of ``p``, in its order, as a new ensemble."""
+    from flexpart_tpu_torch.core.state import FIELDS, Particles
+    return Particles(**{f: getattr(p, f)[::k].contiguous() for f in FIELDS})
+
+
+def phase_sim_cbl(device, kernels) -> dict:
+    """``Simulation.run`` with the skewed convective boundary layer on the
+    card: sim_adaptive's two boxes with ``Command(cblflag=1, ctl=5)``
+    (ifine 11, turbswitch, the adaptive step: K11's CBL instantiation with
+    settling, as the aerosol box emits one species), 10 x 2**20 particles,
+    3 h on SyntheticMet, twice with one seed (run_twice: bitwise equal
+    particles and nan counts, the budget, the tracer's mass, the grids).
+    Per step of run B: the share of the boundary-layer particles in the
+    skewed zone (-h/L > 5) and K11's lane efficiency; on a release step
+    and on a steady step (kept_steps) K11 CBL against its plain version
+    (check_adaptive: bitwise, the passes, t_below, nan_count) on every
+    SIM_CBL_STRIDE-th particle, and K11 CBL timed on all of them."""
+    import copy
+    import shutil
+    import torch
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    shutil.rmtree(SIM_CBL_DIR, ignore_errors=True)
+    nsteps = SIM_ADAPTIVE_HOURS * 3600 // LSYNC
+    keep, snaps, shares, lane_work = {}, {}, [], []
+
+    def setup(run):
+        sim = sim_adaptive_setup(SIM_CBL_DIR / run, device, False,
+                                 cmd_kw=dict(cblflag=1))
+        c = sim.step_cfg
+        check(c.cblflag and c.method == 1 and c.turbswitch
+              and c.ifine == CBL_IFINE and c.settling,
+              f"sim_cbl: {c}")
+        keep.update(kept_steps(sim, nsteps, "sim_cbl"))
+        return sim
+
+    def probe_fn(sim):
+        def probe(istep, itime):
+            z0, z1, mt0, mt1 = sim._fields_for(itime)
+            tw = advance._time_weights(itime, mt0, mt1, sim.step_prm,
+                                       sim.step_cfg)[:4]
+            t = interp.build_step_tables_quad(
+                z0, z1, *tw, dtype=sim.step_cfg.table_dtype)
+            shares.append(skewed_share(sim.particles, z0.height, t,
+                                       sim.step_cfg))
+            if istep in keep:
+                snaps[keep[istep]] = (istep, itime, sim.particles, z0, z1,
+                                      mt0, mt1)
+        return probe
+
+    def wrap(inner):
+        def counted(*args, **kw):
+            p, diag = inner(*args, **kw)
+            lane_work.append(diag.lane_work.clone())
+            return p, diag
+        return counted
+
+    sim, rows, a = run_twice(setup, kernels, "sim_cbl", 1.0,
+                             ADAPTIVE_PATH_KERNELS, None, probe_fn, wrap)
+    launches = a["launches"]
+    check(launches["advance_adaptive"] == nsteps and launches["advance"] == 0,
+          f"sim_cbl: {launches} launches in {nsteps} steps")
+    device_ms, per_launch = per_launch_of(rows)
+    on_inputs = {}
+    for name, (istep, itime, p, z0, z1, mt0, mt1) in snaps.items():
+        cfg, prm = sim.step_cfg, sim.step_prm
+        q = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
+        tw = advance._time_weights(itime, mt0, mt1, prm, cfg)[:4]
+        tables = interp.build_step_tables_quad(z0, z1, *tw,
+                                               dtype=cfg.table_dtype)
+        ka = advance.advance_args(cfg, prm, itime, mt0, mt1)
+        key = rng.Key(sim.seed, istep)
+        settle = advance.settle_met(z0, cfg)
+        sub = every_kth(q, SIM_CBL_STRIDE)
+        r, pk, dk = check_adaptive(sub, z0.height, tables, ka, key, cfg,
+                                   settle, f"sim_cbl {name} {istep}: K11 CBL",
+                                   time_plain=True)
+        r.update(istep=istep, checked=sub.capacity,
+                 nan_count=int(dk.nan_count),
+                 ms=cuda_ms(lambda: advance.advance_adaptive_cuda(
+                     q, z0.height, tables, copy.copy(ka), key, cfg, None, 0,
+                     settle), 5))
+        del pk, dk, sub
+        on_inputs[name.replace(" ", "_")] = {
+            f: r[f] for f in ("istep", "checked", "ms", "plain_ms",
+                              "max_abs_err", "differing_particles",
+                              "bitwise", "nan_count", "lane_efficiency",
+                              "passes_mean", "passes_max")}
+    check(len(on_inputs) == 2, f"sim_cbl: kept steps {list(on_inputs)}")
+    check(max(shares) > 0.0, "sim_cbl: no boundary-layer particle skewed")
+    snaps.clear()
+    res = dict(
+        n=N_MAIN, steps=nsteps, hours=SIM_ADAPTIVE_HOURS, **a,
+        skewed_share_per_step=shares,
+        lane_efficiency_per_step=[lane_efficiency(w)["lane_efficiency"]
+                                  for w in lane_work],
+        lane_efficiency_run=lane_efficiency(
+            torch.stack(lane_work).sum(dim=0))["lane_efficiency"],
+        nan_redraws_per_step=[int(w[2]) for w in lane_work],
+        device_ms_all_kernels=device_ms,
+        device_per_call={
+            "advance_adaptive_cbl": per_launch(("advance_adaptive_kernel",),
+                                               nsteps),
+            # the probe builds the step's tables too: two builds a step
+            "quad_tables": per_launch(("quad_tables_kernel",), 2 * nsteps)},
+        kernels_on_sim_cbl_inputs=on_inputs)
+    del sim
+    shutil.rmtree(SIM_CBL_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+SIM_NESTED_DIR = ROOT / "build" / "sim_nested_smoke"
+# sim_nested's nest: 0.25 degrees over 10 W - 20 E, 30 - 60 N, with the
+# inner nest's jet of the kernels phase (the mother's: 25 m/s)
+SIM_NEST = dict(dx=0.25, dy=0.25, xlon0=-10.0, ylat0=30.0, nx=121, ny=121)
+
+
+def phase_sim_nested(device, kernels) -> dict:
+    """``Simulation.run`` with a nested met grid on the card: the sim
+    phase's configuration (the default Command, two species, convection)
+    with one SyntheticMet nest of 0.25 degrees over 10 W-20 E, 30-60 N on
+    the same 30 levels (121 x 121 columns) and a stronger jet than the
+    mother's (NEST_U_JET); the first box lies inside it, the storm box
+    outside.  Twice with one seed (run_twice); K2 runs once per grid per
+    step (mother and nest), K4 in its NESTS instantiation.  Per step of
+    run B the share of the particles the nest samples; on a release step
+    and a steady step (kept_steps) K4 NESTS against its plain version,
+    injected draws on both sides, every output bitwise, and its draws in
+    registers against the injected ones."""
+    import shutil
+    import torch
+    from flexpart_tpu_torch import SyntheticMet
+    from flexpart_tpu_torch.core import advance, reorder, rng
+    shutil.rmtree(SIM_NESTED_DIR, ignore_errors=True)
+    nsteps = SIM_HOURS * 3600 // LSYNC
+    keep, snaps, shares = {}, {}, []
+
+    def setup(run):
+        grid = nest_grid(make_sim_grid(), SIM_NEST)
+        sim = sim_setup(SIM_NESTED_DIR / run, device, False,
+                        met_nests=(SyntheticMet(
+                            grid, u_jet=NEST_U_JET["inner"]),))
+        check(sim.step_cfg.nests == ((grid.nx, grid.ny),)
+              and sim.step_cfg.method == 0, f"sim_nested: {sim.step_cfg}")
+        keep.update(kept_steps(sim, nsteps, "sim_nested"))
+        return sim
+
+    def probe_fn(sim):
+        def probe(istep, itime):
+            p = sim.particles
+            a = advance.advance_args(sim.step_cfg, sim.step_prm, itime, 0,
+                                     3600)
+            idx = advance.nest_index(sim.step_cfg, a, p.x, p.y)
+            shares.append(int((p.active & (idx >= 0)).sum())
+                          / max(int(p.active.sum()), 1))
+            if istep in keep:
+                z0, z1, mt0, mt1 = sim._fields_for(itime)
+                snaps[keep[istep]] = (istep, itime, p, z0, z1, mt0, mt1,
+                                      sim._get_nest(mt0), sim._get_nest(mt1))
+        return probe
+
+    # the aerosol: one unit from each box
+    sim, rows, a = run_twice(setup, kernels, "sim_nested", 2.0,
+                             FIXED_PATH_KERNELS, None, probe_fn)
+    launches = a["launches"]
+    check(launches["advance"] == nsteps
+          and launches["quad_tables"] == 2 * nsteps,
+          f"sim_nested: {launches} launches in {nsteps} steps")
+    check(max(shares) > 0.3, f"sim_nested: nest shares {shares}")
+    device_ms, per_launch = per_launch_of(rows)
+    on_inputs = {}
+    for name, (istep, itime, p, z0, z1, mt0, mt1, zn0, zn1) in snaps.items():
+        cfg, prm = sim.step_cfg, sim.step_prm
+        q = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
+        tw = advance._time_weights(itime, mt0, mt1, prm, cfg)[:4]
+        tables = interp_tables(z0, z1, tw, cfg)
+        tables_n = tuple(interp_tables(x, y, tw, cfg)
+                         for x, y in zip(zn0, zn1))
+        ka = advance.advance_args(cfg, prm, itime, mt0, mt1)
+        key = rng.Key(sim.seed, istep)
+        draws = {tag: rng.normals(key, (rows_, q.capacity), tag, 0,
+                                  device=device)
+                 for tag, rows_ in advance.draw_tags(cfg).items()}
+        args = (q, z0.height, tables, ka, key, cfg)
+        pk, _ = advance.advance_all_cuda(*args, draws, 0, tables_n=tables_n)
+        pp, _ = advance.advance_all_plain(*args, draws, 0, tables_n=tables_n)
+        torch.cuda.synchronize()
+        what = f"sim_nested {name}: K4 NESTS"
+        r = compare_particles(pk, pp, what, float(cfg.nx - 1))
+        r.update(istep=istep, max_abs_err=max(r["max_dx"], r["max_dy"]),
+                 differing_particles=differing_particles(
+                     pk, pp, advance.OUT_FIELDS))
+        check(r["differing_particles"] == 0, f"{what} differs from its plain "
+              f"version in {r['differing_particles']} particles")
+        check_same_bits(advance.advance_all_cuda(*args, None, 0,
+                                                 tables_n=tables_n)[0], pk,
+                        f"{what}, draws in registers vs injected")
+        del pk, pp, draws
+        r["ms"] = cuda_ms(lambda: advance.advance_all_cuda(
+            *args, None, 0, tables_n=tables_n), 10)
+        r["plain_ms"] = cuda_ms(lambda: advance.advance_all_plain(
+            *args, None, 0, tables_n=tables_n), 2)
+        on_inputs[name.replace(" ", "_")] = r
+    check(len(on_inputs) == 2, f"sim_nested: kept steps {list(on_inputs)}")
+    snaps.clear()
+    res = dict(
+        n=N_MAIN, steps=nsteps, hours=SIM_HOURS, nest=SIM_NEST,
+        nest_u_jet=NEST_U_JET["inner"], **a, nest_share_per_step=shares,
+        device_ms_all_kernels=device_ms,
+        device_per_call={
+            "advance_nests": per_launch(("advance_kernel",), nsteps),
+            "quad_tables": per_launch(("quad_tables_kernel",), 2 * nsteps)},
+        kernels_on_sim_nested_inputs=on_inputs)
+    del sim
+    shutil.rmtree(SIM_NESTED_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def make_sim_grid():
+    from flexpart_tpu_torch.met import make_grid
+    return make_grid(**SIM_GRID)
+
+
+def interp_tables(z0, z1, tw, cfg):
+    from flexpart_tpu_torch.core import interp
+    return interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
+
+
+def phase_legacy(device) -> dict:
+    """The legacy-RNG validation path (every draw of the advance from the
+    reference's rannumb table in the serial ran3 order) has no kernel and
+    runs on the CPU only, where tests/test_torch_matched_*.py hold it
+    against the advance.f90 oracles: on the card ``Simulation(legacy_rng=
+    True)`` must refuse it by name before it writes anything, and so must
+    ``advance_all`` with legacy draws on CUDA tensors."""
+    import shutil
+    import torch
+    from flexpart_tpu_torch import Simulation, SyntheticMet, make_grid
+    from flexpart_tpu_torch.config import (Command, OutGrid, ReleaseBox,
+                                           Releases, Species)
+    from flexpart_tpu_torch.core import advance, rng
+    from flexpart_tpu_torch.core.legacy import LegacyRnd
+    out = ROOT / "build" / "legacy_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    grid = make_grid(nx=73, ny=37, nlev=20, dx=5.0, dy=5.0)
+    cmd = Command(ibdate=20200101, ibtime=0, iedate=20200101, ietime=3000,
+                  lsynctime=LSYNC, loutstep=1800, loutaver=1800,
+                  loutsample=LSYNC)
+    box = ReleaseBox(idate1=20200101, itime1=0, idate2=20200101, itime2=0,
+                     lon1=0.0, lon2=2.0, lat1=40.0, lat2=42.0, z1=50.0,
+                     z2=500.0, mass=(1.0,), parts=1024)
+    og = OutGrid(outlon0=-60.0, outlat0=0.0, numxgrid=60, numygrid=40,
+                 dxout=2.0, dyout=2.0, outheights=(500.0, 2000.0, 50000.0))
+    refused = {}
+    try:
+        Simulation(cmd=cmd, releases=Releases(species=(Species(),),
+                                              boxes=(box,)),
+                   grid=grid, met_backend=SyntheticMet(grid), outgrid=og,
+                   outdir=str(out), device=device, legacy_rng=True)
+    except NotImplementedError as err:
+        refused["simulation"] = str(err)
+    check("legacy_rng" in refused.get("simulation", ""),
+          "legacy: Simulation(legacy_rng=True) on the card was not refused")
+    check(not out.exists(), "legacy: the refused run wrote its directory")
+    cfg, prm, *_ = step_setup(grid)
+    (z0,) = met_fields("uniform", grid, device)
+    p = bench_particles(1024, device, seed=3)
+    ones = torch.ones(p.capacity, dtype=torch.int32, device=device)
+    leg = LegacyRnd(table=torch.zeros(101, device=device), nrand_init=ones,
+                    nrand=ones)
+    try:
+        advance.advance_all(p, z0, z0, 0, 0, 3600, rng.Key(1, 0), cfg, prm,
+                            leg=leg)
+    except NotImplementedError as err:
+        refused["advance_all"] = str(err)
+    check("legacy" in refused.get("advance_all", ""),
+          "legacy: advance_all took legacy draws on the card")
+    return dict(refused_on_the_card=refused)
+
+
 # ------------------------------------------------------------------ main --
 
 def main() -> int:
+    t_script = time.perf_counter()
     if not (ROOT / "flexpart_tpu_torch" / "__init__.py").is_file():
         raise SystemExit("chip_smoke.py must run from a checkout of the repo "
                          "(flexpart_tpu_torch/ not found beside it)")
@@ -3591,9 +4299,24 @@ def main() -> int:
     build_s = _build.build_all(kernels)
     ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
                       if "registers" in ln] for k in kernels}
-    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas,
+    emit({"phase": "build", "seconds": build_s,
+          "nvcc_ended_s": {k.name: k.build_s for k in kernels},
+          "ptxas": ptxas,
           "registers": {k.name: ptxas_by_entry(k.build_log)
                         for k in kernels}})
+
+    # the disassembly the bounds read (k11_instructions,
+    # settling_instructions, sass_paths), all at once and before any
+    # timing: cuobjdump's processes would take the host's cores from the
+    # launches that a kernel's time includes
+    t0 = time.perf_counter()
+    dis = [(k, flag) for k in (_build.ADVANCE, _build.ADVANCE_ADAPTIVE,
+                               _build.WETDEPO) for flag in ("-sass", "-elf")]
+    for k, flag in dis:
+        k.cuobjdump(flag, wait=False)
+    for k, flag in dis:
+        k.cuobjdump(flag)
+    emit({"phase": "disassembly", "seconds": time.perf_counter() - t0})
 
     grid = make_grid(**BENCH_GRID)
     t0 = time.perf_counter()
@@ -3633,6 +4356,21 @@ def main() -> int:
     adres = phase_sim_adaptive(device, kernels)
     emit({"phase": "sim_adaptive", "seconds": time.perf_counter() - t0,
           **adres, "device": name, "power_limit": smi})
+
+    t0 = time.perf_counter()
+    cblres = phase_sim_cbl(device, kernels)
+    emit({"phase": "sim_cbl", "seconds": time.perf_counter() - t0,
+          **cblres, "device": name, "power_limit": smi})
+
+    t0 = time.perf_counter()
+    nres = phase_sim_nested(device, kernels)
+    emit({"phase": "sim_nested", "seconds": time.perf_counter() - t0,
+          **nres, "device": name, "power_limit": smi})
+
+    t0 = time.perf_counter()
+    lres = phase_legacy(device)
+    emit({"phase": "legacy", "seconds": time.perf_counter() - t0, **lres,
+          "device": name, "power_limit": smi})
 
     # launches: the main path's own count.  The normals kernel is not
     # launched there: its generator (fp::normal_words, fp::normal_pair) runs
@@ -3787,7 +4525,7 @@ def main() -> int:
     extra["wetdepo"]["instructions"] = kres["wetdepo"]["instructions"]
     extra["wetdepo"]["path_calls"] = kres["wetdepo"]["cases"][
         kres["wetdepo"]["ms_case"]]["path_calls"]
-    emit({"kernels": [
+    line = [
         {"name": k.name, "route": "cuda", "source": src.format(k.name),
          "replaces": replaces[k.name][0], "tpu_route": replaces[k.name][1],
          "launches": mres["launches"][k.name],
@@ -3796,7 +4534,47 @@ def main() -> int:
          **{f: kres[k.name][f] for f in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")}, **extra.get(k.name, {})}
-        for k in kernels]})
+        for k in kernels]
+    # the two instantiations of this slice's paths, each with the launches
+    # of its own path (its counts set to 0 just before the run)
+    cbl, nst = kres["advance_adaptive"]["cbl"], kres["advance"]["nests"]
+    pick = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    line += [
+        {"name": "advance_adaptive.cbl", "route": "cuda",
+         "source": src.format("advance_adaptive"),
+         # _pbl_vertical's cblflag branch (:321-381), core/cbl.py, the
+         # fresh particle's skewed draw (:904-916)
+         "replaces": "flexpart_tpu/core/advance.py:321", "tpu_route": "XLA",
+         "launches": cblres["launches"]["advance_adaptive"],
+         **{f: cbl[f] for f in pick},
+         **{f: cbl[f] for f in (
+             "stock_k11_ms", "unordered_ms", "bitwise", "nan_count",
+             "lane_efficiency", "passes_mean", "passes_max", "skewed_share",
+             "instructions", "bound_bytes", "bound_operations",
+             "bound_instructions")},
+         "sim_cbl_per_call": cblres["device_per_call"]
+         ["advance_adaptive_cbl"],
+         "sim_cbl_inputs": cblres["kernels_on_sim_cbl_inputs"]},
+        {"name": "advance.nests", "route": "cuda",
+         "source": src.format("advance"),
+         # advance_all's nest sampling (:841-866) and corrector (:1176-1189)
+         "replaces": "flexpart_tpu/core/advance.py:841", "tpu_route": "XLA",
+         "launches": nres["launches"]["advance"],
+         **{f: nst[f] for f in pick},
+         **{f: nst[f] for f in (
+             "stock_k4_ms", "unordered_ms", "stock_k4_unordered_ms",
+             "bitwise", "differing_particles", "nest_share", "nest_rows",
+             "nest_particles_moved_otherwise_share", "bound_bytes")},
+         "sim_nested_per_call": nres["device_per_call"]["advance_nests"],
+         "quad_tables_sim_nested_per_call":
+             nres["device_per_call"]["quad_tables"],
+         "sim_nested_inputs": {
+             s: {f: r[f] for f in ("ms", "plain_ms", "max_abs_err",
+                                   "differing_particles")}
+             for s, r in nres["kernels_on_sim_nested_inputs"].items()}}]
+    emit({"phase": "done", "seconds": time.perf_counter() - t_script})
+    emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -19,12 +19,14 @@ a run can show that its main path went through the kernel.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -61,8 +63,10 @@ class Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self.build_log = ""
+        self.build_s = None   # from build_all's start to its nvcc's end
         self._lib = None
         self._fn = None
+        self._disassembly = {}
 
     @property
     def source(self) -> Path:
@@ -109,16 +113,23 @@ class Kernel:
         fn.restype = I
         return fn
 
-    def cuobjdump(self, *flags: str) -> str:
+    def cuobjdump(self, *flags: str, wait: bool = True) -> str | None:
         """``cuobjdump`` of this kernel's library (built on first use):
         ``-sass`` for the instructions the card runs, ``-elf`` for the
-        cubin's symbol table."""
+        cubin's symbol table.  Run once per library and flags, in a
+        background thread (a library of many instantiations takes
+        seconds): ``wait=False`` starts it and returns None, and a later
+        call takes its output."""
         if self._fn is None:
             build_all([self])
-        tool = Path(_nvcc()).parent / "cuobjdump"
-        return subprocess.run([str(tool), *flags, self._lib._name],
-                              capture_output=True, text=True,
-                              check=True).stdout
+        key = (self._lib._name, flags)
+        with _DISASSEMBLY_LOCK:
+            job = self._disassembly.get(key)
+            if job is None:
+                job = _disassembler().submit(_cuobjdump, self._lib._name,
+                                             flags)
+                self._disassembly[key] = job
+        return job.result() if wait else None
 
     def __call__(self, *args) -> None:
         """Launch on the current stream; raise if the launch failed."""
@@ -131,9 +142,28 @@ class Kernel:
         self.launches += 1
 
 
+_DISASSEMBLY_LOCK = threading.Lock()
+_DISASSEMBLER = []
+
+
+def _disassembler() -> concurrent.futures.ThreadPoolExecutor:
+    """The threads that run cuobjdump, made on first use."""
+    if not _DISASSEMBLER:
+        _DISASSEMBLER.append(concurrent.futures.ThreadPoolExecutor(
+            max_workers=6, thread_name_prefix="cuobjdump"))
+    return _DISASSEMBLER[0]
+
+
+def _cuobjdump(lib: str, flags: tuple) -> str:
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    return subprocess.run([str(tool), *flags, lib], capture_output=True,
+                          text=True, check=True).stdout
+
+
 def build_all(kernels: list[Kernel]) -> float:
     """Build (or reuse) every kernel's library, one nvcc per source, all
-    started together.  Returns the wall seconds spent."""
+    started together (each kernel's ``build_s``: when its nvcc ended).
+    Returns the wall seconds spent."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pending = []
@@ -148,10 +178,18 @@ def build_all(kernels: list[Kernel]) -> float:
         proc = subprocess.Popen(k._compile_cmd(tmp), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         pending.append((k, proc, tmp, out))
+    def wait(k, proc):
+        k.build_log, _ = proc.communicate()
+        k.build_s = time.perf_counter() - t0
+
+    waiting = [threading.Thread(target=wait, args=(k, proc))
+               for k, proc, _, _ in pending]
+    for t in waiting:
+        t.start()
+    for t in waiting:
+        t.join()
     failed = []
     for k, proc, tmp, out in pending:
-        log, _ = proc.communicate()
-        k.build_log = log
         if proc.returncode != 0:
             failed.append(f"{k.source.name}:\n{log}")
             continue

@@ -125,12 +125,14 @@ def normals_plain(rows: int, cols: int, k0: int, k1: int, offset: int,
     return torch.clamp(z, -3.0, 3.0)
 
 
-def uniforms_plain(n: int, k0: int, k1: int, device) -> torch.Tensor:
-    """(n,) uniforms in [0, 1): word 0 of Philox4x32-10(counter (i, 0, 0,
-    0)), its top 24 bits times 2**-24, as ``fp::uniform24`` of
-    ``csrc/philox_normal.cuh`` makes them in the redistribution kernel."""
+def uniforms_plain(n: int, k0: int, k1: int, device,
+                   offset: int = 0) -> torch.Tensor:
+    """(n,) uniforms in [0, 1): word 0 of Philox4x32-10(counter (offset +
+    i, 0, 0, 0)), its top 24 bits times 2**-24, as ``fp::uniform24`` of
+    ``csrc/philox_normal.cuh`` makes them in the redistribution kernel and
+    in K11's CBL."""
     i64 = torch.int64
-    col = torch.arange(n, dtype=i64, device=device)
+    col = (torch.arange(n, dtype=i64, device=device) + offset) & _MASK32
     zero = torch.zeros(n, dtype=i64, device=device)
     w0 = philox4x32_10(col, zero, zero, zero, k0, k1)[0]
     return (w0 >> 8).to(torch.float32) * _2M24
@@ -147,6 +149,15 @@ def normals_cuda(rows: int, cols: int, k0: int, k1: int, offset: int,
         _build.NORMALS(out.data_ptr(), rows, cols, k0, k1, offset,
                        pass_index & _MASK32, stream)
     return out
+
+
+def uniforms(key: Key, n: int, tag: int, offset: int = 0, *,
+             device) -> torch.Tensor:
+    """(n,) uniforms in [0, 1) of ``tag`` for the particles offset ..
+    offset + n - 1 (the CBL's tag 7): ``uniforms_plain`` on any device;
+    the kernels that need them make them in registers."""
+    k0, k1 = key.philox_key(tag)
+    return uniforms_plain(n, k0, k1, torch.device(device), offset)
 
 
 def normals(key: Key, shape, tag: int = 0, offset: int = 0, *,

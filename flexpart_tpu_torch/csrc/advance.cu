@@ -89,6 +89,22 @@
 // hypotf, atanf and atan2f, the functions torch's CUDA kernels call).  A
 // thread computes its own cap only.  The stock instantiation compiles none
 // of it and keeps its registers.
+//
+// Nested met grids (the NESTS instantiations, turbswitch off as every
+// fixed step; flexpart_tpu/core/advance.py:841-866 and :1176-1189): for
+// each nest, outermost first, whose window (shrunk by nx / 3e5) holds the
+// particle, a second row gather from the nest's (R_n, 64) quad table at
+// the particle's nest coordinates (clamped to n - 1.001) replaces h, the
+// tropopause, u*, w*, L, the winds, density and sigmas of the start, so
+// the innermost nest that holds it wins; the corrector's end-time wind
+// comes likewise from the nest's (R_n, 32) table at the predicted
+// position.  The nests' tables and windows ride in AdvanceArgs (at most
+// MAX_NESTS, unrolled with constant indices).  Every nest is on the
+// mother's height grid, so the level and its weight are the mother's.
+// Bound: the stock one plus, per particle in a nest, one 128 B row of its
+// table and 48 B of its end-time row.  The particles stay in mother-cell
+// order (K5): a warp's particles are close in the mother grid, so they are
+// close in the nest too, and its nest rows are few and neighbouring.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -98,7 +114,7 @@
 
 namespace {
 
-template <bool BF16, bool TS, bool POLAR, bool SETTLING>
+template <bool BF16, bool TS, bool POLAR, bool SETTLING, bool NESTS>
 __global__ void __launch_bounds__(256)
 advance_kernel(const PIn in, const POut out, const Draws dr,
                const void* __restrict__ rows, const void* __restrict__ rowsE,
@@ -128,7 +144,8 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
       const float x = x_hi + x_lo;
       const float y = y_hi + y_lo;
       const float z = z_new;
-      const Start s = step_start<BF16>(a, rows, sh_height, x, y, z);
+      Start s = step_start<BF16>(a, rows, sh_height, x, y, z);
+      if (NESTS) sample_nests<BF16>(a, sh_height, x, y, z, s);
       const float h = s.h;
 
       const float dt = a.dt;
@@ -149,7 +166,7 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
       // newly released particles (initialize.f90:110-219)
       const bool fresh = (in.itramem[i] == a.itime) || (a.itime == 0);
       if (fresh)
-        fresh_state<TS>(a, dr, injected, i, pbl, t0, s, up, vp, wp, usig,
+        fresh_state<TS>(a, dr, injected, i, pbl, t0, s, z, up, vp, wp, usig,
                         vsig, wsig, cbt);
 
       // Every particle takes up to three draws here: in the PBL tag 1 rows
@@ -222,7 +239,7 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
       // mesoscale fluctuations (advance.f90:720-738)
       float m0, m1, m2;
       meso_draws(a, dr, injected, i, m0, m1, m2);
-      exited = finish_step<BF16, POLAR, SETTLING>(
+      exited = finish_step<BF16, POLAR, SETTLING, NESTS>(
           a, rowsE, sh_height, x, y, x_hi, x_lo, y_hi, y_lo, z_new, dxsave,
           dysave, dawsave, dcwsave, s.u, s.v, w_eff, settl, usig, vsig, wsig,
           s.usig_m, s.vsig_m, s.wsig_m, m0, m1, m2, hm, htop, true);
@@ -277,6 +294,14 @@ extern "C" int fp_advance(
   if (a.settling && (a.turbswitch || a.nspec < 1 || a.nspec > MAX_SPECIES ||
                      mass0 == nullptr || tt == nullptr || rho == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  // nests with turbswitch off only (every fixed step), each with its tables
+  if (a.cblflag || a.nnest < 0 || a.nnest > MAX_NESTS ||
+      (a.nnest > 0 && a.turbswitch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int k = 0; k < a.nnest; ++k)
+    if (a.nest_rows[k] == nullptr || a.nest_rows_e[k] == nullptr ||
+        a.nest_nx[k] < 2 || a.nest_ny[k] < 2)
+      return static_cast<int>(cudaErrorInvalidValue);
   const PIn in = {x_hi, x_lo, y_hi, y_lo, z, itra, itramem, up, vp, wp,
                   usig, vsig, wsig, cbt, active};
   const POut out = {o_x_hi, o_x_lo, o_y_hi, o_y_lo, o_z, o_itra, o_up, o_vp,
@@ -285,24 +310,37 @@ extern "C" int fp_advance(
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((a.n + threads - 1) / threads);
   // the eight (table type, turbswitch, polar) instantiations of the stock
-  // step, and settling's four (table type, polar) with turbswitch off
-  auto kern = a.settling
+  // step, settling's four (table type, polar) with turbswitch off, and the
+  // nests' eight (table type, polar, settling) with turbswitch off
+  auto nested = a.settling
       ? (a.polar
-             ? (a.table_bf16 ? advance_kernel<true, false, true, true>
-                             : advance_kernel<false, false, true, true>)
-             : (a.table_bf16 ? advance_kernel<true, false, false, true>
-                             : advance_kernel<false, false, false, true>))
+             ? (a.table_bf16 ? advance_kernel<true, false, true, true, true>
+                             : advance_kernel<false, false, true, true, true>)
+             : (a.table_bf16 ? advance_kernel<true, false, false, true, true>
+                             : advance_kernel<false, false, false, true, true>))
+      : (a.polar
+             ? (a.table_bf16 ? advance_kernel<true, false, true, false, true>
+                             : advance_kernel<false, false, true, false, true>)
+             : (a.table_bf16 ? advance_kernel<true, false, false, false, true>
+                             : advance_kernel<false, false, false, false, true>));
+  auto kern = a.nnest > 0 ? nested
+      : a.settling
+      ? (a.polar
+             ? (a.table_bf16 ? advance_kernel<true, false, true, true, false>
+                             : advance_kernel<false, false, true, true, false>)
+             : (a.table_bf16 ? advance_kernel<true, false, false, true, false>
+                             : advance_kernel<false, false, false, true, false>))
       : a.polar
       ? (a.table_bf16
-             ? (a.turbswitch ? advance_kernel<true, true, true, false>
-                             : advance_kernel<true, false, true, false>)
-             : (a.turbswitch ? advance_kernel<false, true, true, false>
-                             : advance_kernel<false, false, true, false>))
+             ? (a.turbswitch ? advance_kernel<true, true, true, false, false>
+                             : advance_kernel<true, false, true, false, false>)
+             : (a.turbswitch ? advance_kernel<false, true, true, false, false>
+                             : advance_kernel<false, false, true, false, false>))
       : (a.table_bf16
-             ? (a.turbswitch ? advance_kernel<true, true, false, false>
-                             : advance_kernel<true, false, false, false>)
-             : (a.turbswitch ? advance_kernel<false, true, false, false>
-                             : advance_kernel<false, false, false, false>));
+             ? (a.turbswitch ? advance_kernel<true, true, false, false, false>
+                             : advance_kernel<true, false, false, false, false>)
+             : (a.turbswitch ? advance_kernel<false, true, false, false, false>
+                             : advance_kernel<false, false, false, false, false>));
   kern<<<blocks, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
       in, out, dr, rows, rowsE, height, mass0, tt, rho, counts, a);
   return static_cast<int>(cudaGetLastError());

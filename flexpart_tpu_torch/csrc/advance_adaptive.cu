@@ -70,11 +70,30 @@
 // iterations issued (32 per warp that ran an iteration) per block: integer
 // sums, deterministic.
 //
-// turbswitch is a template flag, as in K4, so an instantiation holds one
-// form of Hanna and of the substep; turboff is a runtime field (a uniform
-// branch); the instantiations are (table type, turbswitch, polar,
-// settling).  The arithmetic is the plain version's, operation for
-// operation, built with -fmad=false.
+// The turbulence is a template value of three (HANNA1, TS, CBL), so an
+// instantiation holds one form of Hanna and of the substep; turboff is a
+// runtime field (a uniform branch); the instantiations are (table type,
+// turbulence, polar, settling), 24.  The arithmetic is the plain
+// version's, operation for operation, built with -fmad=false.
+//
+// The skewed convective boundary layer (the CBL instantiations; cblflag,
+// which forces turbswitch and the adaptive step;
+// flexpart_tpu/core/advance.py:321-381 and :904-916, core/cbl.py:31-200):
+// wp is the raw vertical velocity.  A fresh boundary-layer particle where
+// -h/L > 5 takes its wp from the skewed pdf with a uniform (tag 7) and a
+// normal (tag 8); in a pass, each substep with dtftlw < 0.5 runs the
+// bi-Gaussian drift and diffusion in the zone -h/L > 5 (a particle more
+// than six sigma from both Gaussians is redrawn with tag 40 + s of the
+// pass, its sign kept), the Gaussian drift on the raw velocity outside it,
+// and redraws a non-finite velocity from the substep's normal; each such
+// pass counts one NaN redraw, summed per block beside the passes (work[2]:
+// StepDiag.nan_count).  The bi-Gaussian parameters hold some sixty values
+// at once, so they and the drift are __noinline__ device functions
+// (advance_common.cuh: cbl_skew, cbl_skewed_wp, cbl_fresh_wp) called from
+// the pass body with a dozen arguments: the pool stays 36 words a particle
+// (raw wp in the wp word) and the stock instantiations do not see them.
+// Bound: chip_smoke.py reads the CBL pass body's instructions as it reads
+// K11's, the calls into the three functions included.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
@@ -88,8 +107,11 @@ namespace {
 // Particles a block holds: the pool its warps refill their lanes from.
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-// Blocks an SM must hold (at most 64 registers a thread): 32 warps.
+// Blocks an SM must hold (at most 64 registers a thread): 32 warps.  The
+// CBL's instantiations hold 3 (at most 85 registers): its skewed
+// functions are calls, across which the pass keeps its state.
 constexpr int MIN_BLOCKS = 4;
+constexpr int MIN_BLOCKS_CBL = 3;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
 // What a kernel reads and writes besides the run scalars.
@@ -236,7 +258,7 @@ __device__ __forceinline__ void copy_through(const Io& io, int i) {
 // and :155-162,191 for a fresh one).  Returns whether it takes a pass.  A
 // particle outside the boundary layer keeps the whole interval in
 // `remaining`, which its end spends in the free troposphere.
-template <bool BF16, bool TS, bool SETTLING>
+template <bool BF16, int TURB, bool SETTLING>
 __device__ __forceinline__ bool lane_start(const AdvanceArgs& a, const Io& io,
                                            const float* sh_height, int i,
                                            Lane& L) {
@@ -268,10 +290,11 @@ __device__ __forceinline__ bool lane_start(const AdvanceArgs& a, const Io& io,
   L.st = SETTLING ? settle_setup(a, io.mass0, i, x, y) : Settle{0, 0};
   const bool fresh = (io.in.itramem[i] == a.itime) || (a.itime == 0);
   if (fresh) {
+    constexpr bool TS = TURB != HANNA1;
     Turb t0;
     if (pbl) t0 = hanna<TS>(z, s.h, s.ust, s.wst, s.ol);
-    fresh_state<TS>(a, in_registers, false, i, pbl, t0, s, L.up, L.vp, L.wp,
-                    L.usig, L.vsig, L.wsig, L.cbt);
+    fresh_state<TURB>(a, in_registers, false, i, pbl, t0, s, z, L.up, L.vp,
+                      L.wp, L.usig, L.vsig, L.wsig, L.cbt);
     idt = __float2int_rz(pbl ? ldt_formula<TS>(a, t0, L.wp, s.h, true) : a.dt);
   }
   L.remaining = a.dt;
@@ -290,10 +313,13 @@ __device__ __forceinline__ bool lane_start(const AdvanceArgs& a, const Io& io,
 }
 
 // One pass of the boundary layer (advance.f90:276-620).  Returns whether
-// the particle takes another.
-template <bool BF16, bool TS, bool SETTLING>
+// the particle takes another; `nan` is set if the CBL redrew a non-finite
+// velocity in it.
+template <bool BF16, int TURB, bool SETTLING>
 __device__ __forceinline__ bool lane_pass(const AdvanceArgs& a, const Io& io,
-                                          const float* sh_height, Lane& L) {
+                                          const float* sh_height, Lane& L,
+                                          bool& nan) {
+  constexpr bool TS = TURB != HANNA1;
   const float htop = sh_height[a.nz - 1] - a.htop_eps;
   const float hm = L.h - F(1e-9);
   const float dt_i = tmin(L.ldt, L.remaining);
@@ -325,9 +351,10 @@ __device__ __forceinline__ bool lane_pass(const AdvanceArgs& a, const Io& io,
   // the ifine vertical substeps (advance.f90:391-498) over dt_i; the
   // next step from the turbulence of the last refresh
   float zz = L.zc;
-  const Turb t = pbl_substeps<TS>(a, nullptr, false, L.i, L.k, t0,
-                                  drho / rhoa, dt_i * a.fine, d2, d2_odd, pw,
-                                  L.h, L.ust, L.wst, L.ol, zz, L.wp, L.cbt);
+  const Turb t = pbl_substeps<TURB>(a, nullptr, false, L.i, L.k, t0,
+                                    drho / rhoa, dt_i * a.fine, d2, d2_odd,
+                                    pw, L.h, L.ust, L.wst, L.ol, zz, L.wp,
+                                    L.cbt, rhoa, drho, &nan);
   const float ldt2 = ldt_formula<TS>(a, t, L.wp, L.h, false);
   const float w_eff =
       SETTLING ? w + settle_at(a, L.st, io.tt3, io.rho3, sh_height, L.zc) : w;
@@ -458,9 +485,11 @@ __device__ __forceinline__ bool lane_end(const AdvanceArgs& a, const Io& io,
 }
 
 // counts: [0] += particles still active, [1] += particles that exited.
-// work: [0] += passes executed, [1] += lane iterations issued.
-template <bool BF16, bool TS, bool POLAR, bool SETTLING>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+// work: [0] += passes executed, [1] += lane iterations issued, [2] +=
+// passes in which the CBL redrew a non-finite velocity.
+template <bool BF16, int TURB, bool POLAR, bool SETTLING>
+__global__ void __launch_bounds__(THREADS,
+                                  TURB == CBL ? MIN_BLOCKS_CBL : MIN_BLOCKS)
 advance_adaptive_kernel(const __grid_constant__ Io io,
                         int* __restrict__ counts,
                         unsigned long long* __restrict__ work,
@@ -485,8 +514,8 @@ advance_adaptive_kernel(const __grid_constant__ Io io,
       copy_through(io, static_cast<int>(i));
     } else {
       Lane L;
-      looping = lane_start<BF16, TS, SETTLING>(a, io, sh_height,
-                                               static_cast<int>(i), L);
+      looping = lane_start<BF16, TURB, SETTLING>(a, io, sh_height,
+                                                 static_cast<int>(i), L);
       store_lane(pool, t, L);
       holding = true;
     }
@@ -496,6 +525,7 @@ advance_adaptive_kernel(const __grid_constant__ Io io,
   // the passes: each iteration the particles still in the loop, in slot
   // order, are dealt to the first lanes of the block, one pass each
   unsigned passes = 0, iters = 0;   // thread 0: the block's sums
+  int nans = 0;                     // this thread's passes with a NaN redraw
   for (;;) {
     __syncthreads();
     const unsigned mine = __ballot_sync(FULL, in_loop[t] != 0);
@@ -520,7 +550,10 @@ advance_adaptive_kernel(const __grid_constant__ Io io,
       Lane L;
       const long long ip = static_cast<long long>(blockIdx.x) * THREADS + p;
       load_lane(pool, p, static_cast<int>(ip), L);
-      in_loop[p] = lane_pass<BF16, TS, SETTLING>(a, io, sh_height, L) ? 1 : 0;
+      bool nan = false;
+      in_loop[p] = lane_pass<BF16, TURB, SETTLING>(a, io, sh_height, L, nan)
+                       ? 1 : 0;
+      if (TURB == CBL && nan) ++nans;
       store_pass(pool, p, L);
     }
   }
@@ -543,6 +576,11 @@ advance_adaptive_kernel(const __grid_constant__ Io io,
   if (t == 0 && passes) {
     atomicAdd(&work[0], static_cast<unsigned long long>(passes));
     atomicAdd(&work[1], 32ull * iters);
+  }
+  if (TURB == CBL) {
+    nans = __reduce_add_sync(FULL, nans);
+    if (lane == 0 && nans)
+      atomicAdd(&work[2], static_cast<unsigned long long>(nans));
   }
 }
 
@@ -576,20 +614,26 @@ extern "C" int fp_advance_adaptive(
                  {o_x_hi, o_x_lo, o_y_hi, o_y_lo, o_z, o_itra, o_up, o_vp,
                   o_wp, o_usig, o_vsig, o_wsig, o_cbt, o_active},
                  o_idt, t_below, passes, rows, rowsE, height, mass0, tt, rho};
-  // the (table type, turbswitch, polar, settling) instantiations
-  auto pick = [&](auto bf16) {
+  // the CBL's substeps draw with their own keys; it runs with turbswitch
+  if (a.cblflag && (!a.turbswitch || a.ifine > MAX_CBL_SUBSTEPS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the (table type, turbulence, polar, settling) instantiations
+  auto pick = [&](auto bf16, auto turb) {
     constexpr bool B = decltype(bf16)::value;
+    constexpr int T = decltype(turb)::value;
     return a.settling
-        ? (a.polar ? (a.turbswitch ? advance_adaptive_kernel<B, true, true, true>
-                                   : advance_adaptive_kernel<B, false, true, true>)
-                   : (a.turbswitch ? advance_adaptive_kernel<B, true, false, true>
-                                   : advance_adaptive_kernel<B, false, false, true>))
-        : (a.polar ? (a.turbswitch ? advance_adaptive_kernel<B, true, true, false>
-                                   : advance_adaptive_kernel<B, false, true, false>)
-                   : (a.turbswitch ? advance_adaptive_kernel<B, true, false, false>
-                                   : advance_adaptive_kernel<B, false, false, false>));
+        ? (a.polar ? advance_adaptive_kernel<B, T, true, true>
+                   : advance_adaptive_kernel<B, T, false, true>)
+        : (a.polar ? advance_adaptive_kernel<B, T, true, false>
+                   : advance_adaptive_kernel<B, T, false, false>);
   };
-  auto kern = a.table_bf16 ? pick(std::true_type{}) : pick(std::false_type{});
+  auto by_turb = [&](auto bf16) {
+    return a.cblflag ? pick(bf16, std::integral_constant<int, CBL>{})
+         : a.turbswitch ? pick(bf16, std::integral_constant<int, TS>{})
+                        : pick(bf16, std::integral_constant<int, HANNA1>{});
+  };
+  auto kern = a.table_bf16 ? by_turb(std::true_type{})
+                           : by_turb(std::false_type{});
   const unsigned blocks = static_cast<unsigned>((a.n + THREADS - 1) / THREADS);
   kern<<<blocks, THREADS, shmem, static_cast<cudaStream_t>(stream)>>>(
       io, counts, work, a);

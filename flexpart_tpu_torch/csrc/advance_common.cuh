@@ -8,9 +8,11 @@
 // the boundary layer, the free troposphere's turbulent terms, the
 // mesoscale draws and the end of the step (mesoscale memory, windalign,
 // the double-single position update, the polar caps, the boundary
-// conditions and the Petterssen corrector).  Each is the plain version's arithmetic
-// in its order (core/advance.py, core/hanna.py, core/interp.py); the
-// kernels build with -fmad=false.
+// conditions and the Petterssen corrector), the nests' sampling (K4's
+// NESTS instantiation) and the skewed convective boundary layer (K11's
+// CBL instantiation, core/cbl.py).  Each is the plain version's arithmetic
+// in its order (core/advance.py, core/cbl.py, core/hanna.py,
+// core/interp.py); the kernels build with -fmad=false.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -73,9 +75,33 @@ struct AdvanceArgs {
   float sp_dquer[32];
   float sp_cunningham[32];
   float sp_vsetaver[32];
+  int cblflag;              // the skewed CBL (K11's CBL instantiations)
+  uint32_t key_cbl[64];     // (k0, k1) of tags 40 + i, i < MAX_CBL_SUBSTEPS
+  uint32_t key_fresh[4];    // (k0, k1) of tags 7 and 8
+  int nnest;                // nested met grids, outermost first (NESTS)
+  float eps_nest;           // f32(nx / 3e5): the nest windows' margin
+  int nest_nx[4];           // per nest (MAX_NESTS) its shape,
+  int nest_ny[4];
+  float xln[4];             // its window in mother-grid units,
+  float yln[4];
+  float xrn[4];
+  float yrn[4];
+  float xresoln[4];         // the mother's dx, dy over its own,
+  float yresoln[4];
+  float nest_xmax[4];       // f32(nx - 1.001), f32(ny - 1.001)
+  float nest_ymax[4];
+  const void* nest_rows[4];     // and its quad tables
+  const void* nest_rows_e[4];
 };
 
-constexpr int MAX_SPECIES = 32;   // the arrays of AdvanceArgs
+constexpr int MAX_SPECIES = 32;       // the arrays of AdvanceArgs
+constexpr int MAX_NESTS = 4;
+constexpr int MAX_CBL_SUBSTEPS = 32;
+
+// The three forms of the boundary layer's turbulence: Hanna without
+// turbswitch, Hanna with it, and the skewed CBL (which Hanna's turbswitch
+// form feeds; cblflag forces turbswitch).
+enum Turbulence : int { HANNA1 = 0, TS = 1, CBL = 2 };
 
 namespace {
 
@@ -86,6 +112,10 @@ constexpr double SWITCHNORTH = 75.0;    // polar-cap thresholds (par_mod.f90:123
 constexpr double SWITCHSOUTH = -75.0;
 constexpr double GA = 9.81;             // constants.py
 constexpr float TWO_HREF = 30.0f;       // the deposition layer, 2 * 15 m
+constexpr double USURAD2 = 0.7071067812;    // core/cbl.py
+constexpr double USURAD2P = 0.3989422804;
+constexpr double COSTLUAR4 = 0.66667;
+constexpr float CBL_ZONE = 5.0f;            // -h/L of the skewed scheme
 
 struct PIn {
   const float *x_hi, *x_lo, *y_hi, *y_lo, *z;
@@ -494,16 +524,16 @@ struct Start {
 };
 
 template <bool BF16>
-__device__ __forceinline__ Start step_start(const AdvanceArgs& a,
-                                            const void* __restrict__ rows,
-                                            const float* sh_height, float x,
-                                            float y, float z) {
+__device__ __forceinline__ Start sample_start(const void* __restrict__ rows,
+                                              const float* sh_height, int nz,
+                                              int nx, int ny, float x, float y,
+                                              float z) {
   Start s;
-  s.hw = horiz_weights(x, y, a.nx, a.ny);
+  s.hw = horiz_weights(x, y, nx, ny);
   int indz;
   float dz1;
-  vert_weights(sh_height, a.nz, z, indz, dz1);
-  const size_t row = fp::cell_row(indz, s.hw.jy, s.hw.ix, a.ny, a.nx);
+  vert_weights(sh_height, nz, z, indz, dz1);
+  const size_t row = fp::cell_row(indz, s.hw.jy, s.hw.ix, ny, nx);
   float g[64];
 #pragma unroll
   for (int k = 0; k < 8; ++k) load8<BF16, 64>(rows, row, k, &g[8 * k]);
@@ -527,15 +557,253 @@ __device__ __forceinline__ Start step_start(const AdvanceArgs& a,
   return s;
 }
 
+template <bool BF16>
+__device__ __forceinline__ Start step_start(const AdvanceArgs& a,
+                                            const void* __restrict__ rows,
+                                            const float* sh_height, float x,
+                                            float y, float z) {
+  return sample_start<BF16>(rows, sh_height, a.nz, a.nx, a.ny, x, y, z);
+}
+
+// Inside nest k's window shrunk by eps_nest, and the nest's coordinates of
+// (x, y) clamped to [0, n - 1.001] (core/advance.py::_in_nest and
+// _nest_coords).  k is a constant of an unrolled loop.
+__device__ __forceinline__ bool in_nest(const AdvanceArgs& a, int k, float x,
+                                        float y) {
+  return (x > a.xln[k] + a.eps_nest) && (x < a.xrn[k] - a.eps_nest) &&
+         (y > a.yln[k] + a.eps_nest) && (y < a.yrn[k] - a.eps_nest);
+}
+
+__device__ __forceinline__ void nest_coords(const AdvanceArgs& a, int k,
+                                            float x, float y, float& xt,
+                                            float& yt) {
+  xt = clamp((x - a.xln[k]) * a.xresoln[k], 0.0f, a.nest_xmax[k]);
+  yt = clamp((y - a.yln[k]) * a.yresoln[k], 0.0f, a.nest_ymax[k]);
+}
+
+// The nests' met at the particle (core/advance.py::_sample_nests): for
+// each nest, outermost first, that holds (x, y), a second row gather from
+// its (R_n, 64) table replaces everything the start read but the mother's
+// stencil, so that the innermost nest that holds the particle wins.
+template <bool BF16>
+__device__ __forceinline__ void sample_nests(const AdvanceArgs& a,
+                                             const float* sh_height, float x,
+                                             float y, float z, Start& s) {
+#pragma unroll
+  for (int k = 0; k < MAX_NESTS; ++k) {
+    if (k < a.nnest && in_nest(a, k, x, y)) {
+      float xt, yt;
+      nest_coords(a, k, x, y, xt, yt);
+      const Start n = sample_start<BF16>(a.nest_rows[k], sh_height, a.nz,
+                                         a.nest_nx[k], a.nest_ny[k], xt, yt,
+                                         z);
+      const Horiz hw = s.hw;
+      s = n;
+      s.hw = hw;
+    }
+  }
+}
+
+// ---- The skewed convective boundary layer (core/cbl.py; cbl.f90,
+// re_initialize_particle.f90, initialize_cbl_vel.f90), K11's CBL
+// instantiations.  Each line is core/cbl.py's expression with its
+// left-to-right order made explicit; an integer power is products, the
+// others powf with the float exponent, a division a true division.  They
+// are __noinline__: the bi-Gaussian parameters hold some sixty values at
+// once, which inlined into the pass loop would take K11's registers.
+
+struct Skew {
+  float alu, blu, dalu, dblu, sa, sb, dsa, dsb, wa, wb, dwa, dwb;
+};
+
+// torch.sign(x) * |x| ** (1/3)
+__device__ __forceinline__ float cuberoot(float x) {
+  const float sg = static_cast<float>((0.0f < x) - (x < 0.0f));
+  return sg * powf(fabsf(x), F(1.0 / 3.0));
+}
+
+// The bi-Gaussian parameters (core/cbl.py::_skew_params).
+__device__ __noinline__ Skew cbl_skew(float z, float h, float wst, float sigw,
+                                      float dsigwdz, float ol) {
+  const float zeta = z / h;
+  const float mhol = (-h) / ol;
+  const float taper = sinf(((mhol + 10.0f) / 10.0f) * F(PI)) / 2.0f + 0.5f;
+  const float transition = mhol < 15.0f ? taper : 1.0f;
+  const float w2 = sigw * sigw;
+  const float dw2 = (2.0f * sigw) * dsigwdz;
+  const float omz = clamp_min(1.0f - zeta, 0.0f);
+  const float omz15 = powf(omz, 1.5f);
+  const float wst3 = (wst * wst) * wst;
+  const float w3 = ((((F(1.2) * zeta) * omz15) + F(1e-6)) * wst3) * transition;
+  const float dw3 =
+      (((F(1.2) * (omz15 - (zeta * 1.5f) * sqrtf(omz))) * wst3) / h) * transition;
+  const float w2_15 = powf(w2, 1.5f);
+  const float skew = w3 / w2_15;
+  const float skew2 = skew * skew;
+  const float dskew = ((dw3 * w2_15) - ((w3 * 1.5f) * sqrtf(w2)) * dw2)
+                      / ((w2 * w2) * w2);
+  const float radw2 = sqrtf(w2);
+  const float dradw2 = (0.5f * dw2) / sqrtf(w2);
+  const float fluarw = F(COSTLUAR4) * cuberoot(skew);
+  const float fluarw2 = fluarw * fluarw;
+  const bool nz = skew != 0.0f;
+  const float safe = nz ? skew : 1.0f;
+  const float dfluarw =
+      nz ? (F(COSTLUAR4 / 3.0) * cuberoot(1.0f / (safe * safe))) * dskew : 0.0f;
+  const float f2p1 = 1.0f + fluarw2;
+  const float f2p3 = 3.0f + fluarw2;
+  const float fl_s = nz ? fluarw : 1.0f;
+  const float f2p1_3 = (f2p1 * f2p1) * f2p1;
+  const float f2p3_2 = f2p3 * f2p3;
+  const float f2p1_15 = powf(f2p1, 1.5f);
+  const float tf = (2.0f * fluarw) * dfluarw;
+  const float rluarw = nz ? (f2p1_3 * skew2) / (f2p3_2 * fluarw2) : 0.0f;
+  const float xluarw = nz ? (f2p1_15 * skew) / (f2p3 * fl_s) : 0.0f;
+  const float den_r = f2p3_2 * fluarw2;
+  const float drluarw =
+      nz ? ((((((3.0f * (f2p1 * f2p1)) * tf) * skew2
+                + ((f2p1_3 * 2.0f) * skew) * dskew) * f2p3_2) * fluarw2
+             - (f2p1_3 * skew2)
+                   * ((((2.0f * f2p3) * tf) * fluarw2)
+                      + (((f2p3_2 * 2.0f) * fluarw) * dfluarw)))
+            / clamp_min(den_r * den_r, F(1e-30)))
+         : 0.0f;
+  const float den_x = f2p3 * fl_s;
+  const float dxluarw =
+      nz ? (((((1.5f * sqrtf(f2p1)) * tf) * skew + f2p1_15 * dskew) * f2p3) * fl_s
+            - (f2p1_15 * skew) * ((3.0f * dfluarw) + (3.0f * fluarw2) * dfluarw))
+               / clamp_min(den_x * den_x, F(1e-30))
+         : 0.0f;
+  const float s4r = sqrtf(4.0f + rluarw);
+  Skew k;
+  k.alu = 0.5f * (1.0f - xluarw / s4r);
+  k.blu = 1.0f - k.alu;
+  k.dalu = ((-0.5f) * ((dxluarw * s4r) - ((0.5f * xluarw) * drluarw) / s4r))
+           / (4.0f + rluarw);
+  k.dblu = -k.dalu;
+  const float al_s = clamp_min(k.alu, F(1e-6));
+  const float bl_s = clamp_min(k.blu, F(1e-6));
+  const float af = al_s * f2p1;
+  const float bf = bl_s * f2p1;
+  const float qa = sqrtf(bl_s / af);
+  const float qb = sqrtf(al_s / bf);
+  k.sa = radw2 * qa;
+  k.sb = radw2 * qb;
+  k.dsa = dradw2 * qa
+          + radw2 * ((0.5f / qa)
+                     * ((k.dblu * af
+                         - bl_s * (k.dalu * f2p1 + ((al_s * 2.0f) * fluarw) * dfluarw))
+                        / (af * af)));
+  k.dsb = dradw2 * qb
+          + radw2 * ((0.5f / qb)
+                     * ((k.dalu * bf
+                         - al_s * (k.dblu * f2p1 + ((bl_s * 2.0f) * fluarw) * dfluarw))
+                        / (bf * bf)));
+  k.wa = fluarw * k.sa;
+  k.wb = fluarw * k.sb;
+  k.dwa = dfluarw * k.sa + fluarw * k.dsa;
+  k.dwb = dfluarw * k.sb + fluarw * k.dsb;
+  return k;
+}
+
+// One substep's velocity in the skewed zone, dtftlw < 0.5
+// (core/advance.py::_pbl_vertical's CBL branch with core/cbl.py::cbl_terms):
+// the drift and diffusion from the raw wp; a particle more than six sigma
+// from both Gaussians is redrawn with its sign kept
+// (core/cbl.py::reinit_wp), from the two normals of tag 40 + s, words
+// (k0, k1), at `pass`.
+__device__ __noinline__ float cbl_skewed_wp(float wp, float z, float wst,
+                                            float h, float rho, float drhodz,
+                                            float sigw, float dsigwdz,
+                                            float tlw, float ol, float timedir,
+                                            float dtf, float rnd, float icbtf,
+                                            uint32_t k0, uint32_t k1,
+                                            long long global_index,
+                                            uint32_t pass) {
+  const Skew k = cbl_skew(z, h, wst, sigw, dsigwdz, ol);
+  const float dens = rho, ddens = drhodz;
+  const float alfa = ((2.0f * sigw) * sigw) / (3.0f * tlw);
+  const float wold = timedir * wp;
+  const float deltawa = wold - k.wa;
+  const float deltawb = wold + k.wb;
+  const float wold2 = wold * wold;
+  const float sa2 = k.sa * k.sa;
+  const float sb2 = k.sb * k.sb;
+  const bool rein = (fabsf(deltawa) > 6.0f * k.sa) && (fabsf(deltawb) > 6.0f * k.sb);
+  if (rein) {
+    float r0, r1;
+    uint32_t w[4];
+    fp::normal_words(w, k0, k1, global_index, 0u, pass);
+    fp::normal_pair(w[0], w[1], r0, r1);
+    const float sg = static_cast<float>((0.0f < wp) - (wp < 0.0f));
+    const bool updraft = sg * timedir > 0.0f;
+    const float u1 = r0 * k.sa + k.wa, d1 = r0 * k.sb - k.wb;
+    const float u2 = r1 * k.sa + k.wa, d2 = r1 * k.sb - k.wb;
+    const float w_up = u1 >= 0.0f ? u1 : (u2 >= 0.0f ? u2 : fabsf(u1));
+    const float w_dn = d1 <= 0.0f ? d1 : (d2 <= 0.0f ? d2 : -fabsf(d1));
+    return (updraft ? w_up : w_dn) * timedir;
+  }
+  const float ra = deltawa / k.sa;
+  const float rb = deltawb / k.sb;
+  const float pa = (F(USURAD2P) / k.sa) * expf(-0.5f * (ra * ra));
+  const float pb = (F(USURAD2P) / k.sb) * expf(-0.5f * (rb * rb));
+  const float ptot = clamp_min((dens * k.alu) * pa + (dens * k.blu) * pb, F(1e-30));
+  const float aperfa = (deltawa * F(USURAD2)) / k.sa;
+  const float aperfb = (deltawb * F(USURAD2)) / k.sb;
+  const float p1 = ((-0.5f) * ((((k.alu * dens) * k.dwa) + ((dens * k.wa) * k.dalu))
+                               + ((k.alu * k.wa) * ddens)))
+                   * erff(aperfa);
+  const float p2 =
+      (k.sa * (((((k.alu * dens) * k.dsa) * ((wold2 / sa2) + 1.0f)
+                 + (k.sa * dens) * k.dalu)
+                + (k.sa * ddens) * k.alu)
+               + (((k.alu * wold) * dens) / sa2) * ((k.sa * k.dwa) - (k.wa * k.dsa))))
+      * pa;
+  const float p3 = (0.5f * ((((k.blu * dens) * k.dwb) + ((k.wb * dens) * k.dblu))
+                            + ((k.wb * k.blu) * ddens)))
+                   * erff(aperfb);
+  const float p4 =
+      (k.sb * (((((k.blu * dens) * k.dsb) * ((wold2 / sb2) + 1.0f)
+                 + (k.sb * dens) * k.dblu)
+                + (k.sb * ddens) * k.blu)
+               + (((k.blu * wold) * dens) / sb2) * (((-k.sb) * k.dwb) + (k.wb * k.dsb))))
+      * pb;
+  const float phi = ((p1 + p2) + p3) + p4;
+  const float q = timedir * (((((k.alu * dens) * deltawa) / sa2) * pa)
+                             + ((((k.blu * dens) * deltawb) / sb2) * pb));
+  const float ath = (1.0f / ptot) * ((((-1.5f) * alfa) * q) + phi);
+  const float bth = sqrtf(3.0f * alfa);
+  return ((wp + ath * dtf) + (bth * rnd) * sqrtf(dtf)) * icbtf;
+}
+
+// A fresh particle's raw wp in the skewed zone (core/cbl.py::init_cbl_wp):
+// the uniform of tag 7 picks the updraft or the downdraft, the normal of
+// tag 8 draws in it.
+__device__ __noinline__ float cbl_fresh_wp(const AdvanceArgs& a, long long i,
+                                           float z, float h, float wst,
+                                           float sigw, float dsigwdz, float ol) {
+  const Skew k = cbl_skew(z, h, wst, sigw, dsigwdz, ol);
+  uint32_t w[4];
+  fp::normal_words(w, a.key_fresh[0], a.key_fresh[1], a.offset + i, 0u);
+  const float dcas = fp::uniform24(w[0]);
+  fp::normal_words(w, a.key_fresh[2], a.key_fresh[3], a.offset + i, 0u);
+  float dcas1, unused;
+  fp::normal_pair(w[0], w[1], dcas1, unused);
+  return (dcas <= k.alu ? dcas1 * k.sa + k.wa : dcas1 * k.sb - k.wb) * a.ldirf;
+}
+
 // A newly released particle (initialize.f90:110-219): its turbulent
 // velocities from tag 6 rows 0-2 (in the boundary layer from the
 // turbulence t0 at its height), its mesoscale memory from rows 3-5 and
-// cbt = 1.  Tag 6 rows 0-5 are two Philox calls and three radii.
-template <bool TS>
+// cbt = 1.  Tag 6 rows 0-5 are two Philox calls and three radii.  With the
+// CBL wp is raw: in the skewed zone from tags 7 and 8 (cbl_fresh_wp), else
+// row 2 times sigw.
+template <int TURB>
 __device__ __forceinline__ void fresh_state(const AdvanceArgs& a,
                                             const Draws& dr, bool injected,
                                             long long i, bool pbl,
                                             const Turb& t0, const Start& s,
+                                            float z,
                                             float& up, float& vp, float& wp,
                                             float& usig, float& vsig,
                                             float& wsig, int& cbt) {
@@ -558,7 +826,13 @@ __device__ __forceinline__ void fresh_state(const AdvanceArgs& a,
   if (pbl) {
     up = r0 * t0.sigu;
     vp = r1 * t0.sigv;
-    wp = TS ? r2 : r2 * t0.sigw;
+    if constexpr (TURB == CBL) {
+      wp = ((-s.h) / s.ol) > CBL_ZONE
+               ? cbl_fresh_wp(a, i, z, s.h, s.wst, t0.sigw, t0.dsigwdz, s.ol)
+               : r2 * t0.sigw;
+    } else {
+      wp = TURB == TS ? r2 : r2 * t0.sigw;
+    }
   } else {
     up = r0 * F(0.3);
     vp = r1 * F(0.3);
@@ -584,13 +858,20 @@ __device__ __forceinline__ void fresh_state(const AdvanceArgs& a,
 // call into pw, which holds the words of row 0's call.  `injected` reads
 // row s from d2in instead (K4's parity mode).  Hanna is refreshed at zz
 // between substeps, not after the last; that last refresh is returned
-// (the adaptive step's next ldt reads it).
-template <bool TS>
+// (the adaptive step's next ldt reads it).  With the CBL (K11 only) wp is
+// raw and, where dtftlw < 0.5, the skewed scheme runs in the zone -h/L > 5
+// (cbl_skewed_wp, with rho and drhodz) and the Gaussian drift on the raw
+// velocity outside it; a non-finite result is redrawn from the substep's
+// normal and sets `nan`; where dtftlw >= 0.5 the turbswitch form's exact
+// update runs on the raw wp (the reference's quirk).
+template <int TURB>
 __device__ __forceinline__ Turb pbl_substeps(
     const AdvanceArgs& a, const float* d2in, bool injected, long long i,
     uint32_t pass, Turb t, float rhoaux, float dtf, float d2, float d2_odd,
     uint32_t pw[4], float h, float ust, float wst, float ol, float& zz,
-    float& wp, int& cbt) {
+    float& wp, int& cbt, float rho = 0.0f, float drhodz = 0.0f,
+    bool* nan = nullptr) {
+  constexpr bool TSH = TURB != HANNA1;   // Hanna's turbswitch form
   const float dtftlw = dtf / t.tlw;
   const float rw = expf(-dtftlw);
   const float rnd_exact = sqrtf(clamp_min(1.0f - rw * rw, 0.0f));
@@ -613,19 +894,46 @@ __device__ __forceinline__ Turb pbl_substeps(
     }
     const float icbtf = static_cast<float>(cbt);
     float wp_new, delz;
-    if (TS) {
-      const float drift = t.dsigwdz + rhoaux * t.sigw;
-      const float sel = use_lin
-          ? ((1.0f - dtftlw) * wp + rnd * rnd_lin) + dtf * drift
-          : (rw * wp + rnd * rnd_exact) + (t.tlw * (1.0f - rw)) * drift;
-      wp_new = sel * icbtf;
-      delz = (wp_new * t.sigw) * dtf;
-    } else {
-      wp_new = ((rw * wp + (rnd * rnd_exact) * t.sigw)
-                + (t.tlw * (1.0f - rw))
-                      * (t.dsigw2dz + rhoaux * (t.sigw * t.sigw)))
-               * icbtf;
-      delz = wp_new * dtf;
+    bool skewed = false;   // the CBL's update took this substep
+    if constexpr (TURB == CBL) {
+      if (use_lin) {
+        float wpn;
+        if (((-h) / ol) > CBL_ZONE) {
+          wpn = cbl_skewed_wp(wp, zz, wst, h, rho, drhodz, t.sigw, t.dsigwdz,
+                              t.tlw, ol, a.ldirf, dtf, rnd, icbtf,
+                              a.key_cbl[2 * s], a.key_cbl[2 * s + 1],
+                              a.offset + i, pass);
+        } else {
+          const float sig = clamp_min(t.sigw, F(1e-6));
+          const float ath_g = (((-wp) / t.tlw + sig * t.dsigwdz)
+                               + ((wp * wp) / sig) * t.dsigwdz)
+                              + ((sig * sig) / rho) * drhodz;
+          wpn = ((wp + ath_g * dtf) + (sig * rnd) * rnd_lin) * icbtf;
+        }
+        if (!isfinite(wpn)) {
+          *nan = true;
+          wpn = clamp_min(t.sigw, F(1e-6)) * rnd;
+        }
+        wp_new = wpn;
+        delz = wp_new * dtf;
+        skewed = true;
+      }
+    }
+    if (!skewed) {
+      if (TSH) {
+        const float drift = t.dsigwdz + rhoaux * t.sigw;
+        const float sel = use_lin
+            ? ((1.0f - dtftlw) * wp + rnd * rnd_lin) + dtf * drift
+            : (rw * wp + rnd * rnd_exact) + (t.tlw * (1.0f - rw)) * drift;
+        wp_new = sel * icbtf;
+        delz = (wp_new * t.sigw) * dtf;
+      } else {
+        wp_new = ((rw * wp + (rnd * rnd_exact) * t.sigw)
+                  + (t.tlw * (1.0f - rw))
+                        * (t.dsigw2dz + rhoaux * (t.sigw * t.sigw)))
+                 * icbtf;
+        delz = wp_new * dtf;
+      }
     }
     if (a.turboff) {
       wp_new = 0.0f;
@@ -640,7 +948,7 @@ __device__ __forceinline__ Turb pbl_substeps(
     cbt = (below || above) ? -1 : 1;
     wp = wp_new;
     if (s == a.ifine - 1) break;
-    t = hanna<TS>(zz, h, ust, wst, ol);
+    t = hanna<TSH>(zz, h, ust, wst, ol);
   }
   return t;
 }
@@ -703,7 +1011,7 @@ __device__ __forceinline__ void meso_draws(const AdvanceArgs& a,
 // table, whose vertical wind takes `settl_pett` in the SETTLING
 // instantiations (the corrector runs where the interval ends in the met
 // window, the particle stayed and `pett_gate`).  Returns exited.
-template <bool BF16, bool POLAR, bool SETTLING>
+template <bool BF16, bool POLAR, bool SETTLING, bool NESTS = false>
 __device__ __forceinline__ bool finish_step(
     const AdvanceArgs& a, const void* __restrict__ rowsE, const float* sh_height,
     float x, float y, float& x_hi, float& x_lo, float& y_hi, float& y_lo,
@@ -751,9 +1059,36 @@ __device__ __forceinline__ bool finish_step(
     float e[24];
 #pragma unroll
     for (int k = 0; k < 3; ++k) load8<BF16, 32>(rowsE, row2, k, &e[8 * k]);
-    const float du = (field2(e, 0, hw2.p4, dz2) - u) / 2.0f;
-    const float dv = (field2(e, 1, hw2.p4, dz2) - v) / 2.0f;
-    float w2 = field2(e, 2, hw2.p4, dz2);
+    float du, dv, w2;
+    if (NESTS) {
+      // the corrector's end-time wind from the innermost nest that holds
+      // the predicted position (core/advance.py, the nests' rowsE)
+      float u2 = field2(e, 0, hw2.p4, dz2);
+      float v2 = field2(e, 1, hw2.p4, dz2);
+      w2 = field2(e, 2, hw2.p4, dz2);
+#pragma unroll
+      for (int k = 0; k < MAX_NESTS; ++k) {
+        if (k < a.nnest && in_nest(a, k, xn, yn)) {
+          float xt, yt;
+          nest_coords(a, k, xn, yn, xt, yt);
+          const Horiz hn = horiz_weights(xt, yt, a.nest_nx[k], a.nest_ny[k]);
+          const size_t rn = fp::cell_row(indz2, hn.jy, hn.ix, a.nest_ny[k],
+                                         a.nest_nx[k]);
+#pragma unroll
+          for (int q = 0; q < 3; ++q)
+            load8<BF16, 32>(a.nest_rows_e[k], rn, q, &e[8 * q]);
+          u2 = field2(e, 0, hn.p4, dz2);
+          v2 = field2(e, 1, hn.p4, dz2);
+          w2 = field2(e, 2, hn.p4, dz2);
+        }
+      }
+      du = (u2 - u) / 2.0f;
+      dv = (v2 - v) / 2.0f;
+    } else {
+      du = (field2(e, 0, hw2.p4, dz2) - u) / 2.0f;
+      dv = (field2(e, 1, hw2.p4, dz2) - v) / 2.0f;
+      w2 = field2(e, 2, hw2.p4, dz2);
+    }
     if (SETTLING) w2 = w2 + settl_pett;
     const float dw = (w2 - w) / 2.0f;
     const float z_corr = reflect_ground(z_new + (dw * dt) * a.ldirf, hm);

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from . import config as _config
-from .core.advance import SPECIES_PARAMS, StepConfig, StepParams
+from .core.advance import (NEST_PARAMS, SPECIES_PARAMS, StepConfig,
+                           StepParams)
 from .core.interp import ROWS_E_LANES, StepTablesQuad
 from .core.state import FIELDS, Particles
 from .grid.outgrid import Accumulators
@@ -84,14 +85,15 @@ _STEP_PARAM_NAMES = {"xlon0": "xlon0_pol"}
 
 def step_params_from_numpy(prm) -> StepParams:
     """The JAX StepParams (numpy leaves) -> the port's: a scalar field as a
-    float, each species' settling parameter as a tuple of floats, one per
-    species."""
+    float, each species' settling parameter and each nest's window as a
+    tuple of floats, one per species or nest."""
     out = {}
     for f in dataclasses.fields(StepParams):
         a = np.asarray(_get(prm, _STEP_PARAM_NAMES.get(f.name, f.name)),
                        np.float32).reshape(-1)
         out[f.name] = (tuple(float(v) for v in a)
-                       if f.name in SPECIES_PARAMS else float(a[0]))
+                       if f.name in SPECIES_PARAMS + NEST_PARAMS
+                       else float(a[0]))
     return StepParams(**out)
 
 

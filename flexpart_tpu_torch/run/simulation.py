@@ -7,8 +7,16 @@ step (``ctl > 0``), with the defaults of ``Command``: convection
 grid beyond 75 degrees, the polar caps; species may decay, deposit wet and
 dry, and settle (an aerosol with a density, where every release box emits
 one species, as the reference rules); ``turboff`` switches the turbulence
-off.  Every option outside that path raises ``NotImplementedError`` naming
-it when the ``Simulation`` is built; none is skipped silently.
+off; ``cblflag=1`` runs the skewed convective boundary layer (its NaN
+redraws summed in ``nan_count``); ``met_nests`` adds nested met grids
+that the advance samples where they hold a particle (convection,
+deposition and sampling stay on the mother grid, as in the reference);
+``legacy_rng`` is the reference's matched-RNG validation mode (every draw
+of the advance from the rannumb table in the reference's order, release
+positions from its ran1 order, no cell-order sorting; no kernel takes
+it, so it runs with ``device='cpu'`` only).  Every option
+outside that path raises ``NotImplementedError`` naming it when the
+``Simulation`` is built; none is skipped silently.
 
 Host-side control loop; all per-particle compute stays on the device.
 Per sync interval (timemanager.f90:152-712):
@@ -63,6 +71,7 @@ from .. import interop
 from ..config import AgeClasses, Command, OutGrid, Releases
 from ..core import reorder, rng
 from ..core.advance import StepConfig, StepParams, advance_all
+from ..core.legacy import LegacyRnd
 from ..core.release import activate, release_schedule_arrays
 from ..core.state import ITRA_INACTIVE, Particles
 from ..grid.conccalc import ConcConfig, kernel_possible_at, make_conccalc
@@ -83,8 +92,24 @@ from ..physics.wetdepo import WetSpecies, depo_scatter, wet_deposition
 from ..utils.cpu import warm_vector_math
 from ..utils.dates import add_seconds
 from ..utils.profile import SectionTimers
+from ..validation.depo_oracle import legacy_release
+from ..validation.legacy_rng import MAXRAND, NrandStream, Ran1, make_rannumb
 
 log = logging.getLogger("flexpart_tpu_torch")
+
+
+def nest_windows(mother: MetGrid, nests) -> dict:
+    """The StepParams windows of nested met grids, outermost first: each
+    nest's corners in mother-grid units and the mother's dx, dy over the
+    nest's (com_mod xln/xrn/xresoln)."""
+    g0 = mother
+    return dict(
+        xln=[(g.xlon0 - g0.xlon0) / g0.dx for g in nests],
+        yln=[(g.ylat0 - g0.ylat0) / g0.dy for g in nests],
+        xrn=[(g.xlon0 + (g.nx - 1) * g.dx - g0.xlon0) / g0.dx for g in nests],
+        yrn=[(g.ylat0 + (g.ny - 1) * g.dy - g0.ylat0) / g0.dy for g in nests],
+        xresoln=[g0.dx / g.dx for g in nests],
+        yresoln=[g0.dy / g.dy for g in nests])
 
 
 @dataclasses.dataclass
@@ -117,7 +142,19 @@ class Simulation:
     profile: bool = False            # named-section device timing table
     #                                  (mpif_mtime analog; utils/profile)
     trace_dir: str | None = None
-    legacy_rng: bool = False
+    legacy_rng: bool = False         # matched-RNG validation mode: every
+    #                                  draw of the advance from the
+    #                                  reference's rannumb table through the
+    #                                  serial ran3 nrand chase, release
+    #                                  positions in ran1 order
+    #                                  (core/legacy.py); no nests, and
+    #                                  device='cpu' only (no kernel)
+    legacy_seed: int = -7            # idummy seed of the legacy streams
+    legacy_trace: bool = False       # keep (itime, nrand bases, positions
+    #                                  before the step, active) per step in
+    #                                  self._legacy_trace, so that a test
+    #                                  can replay particles through the
+    #                                  scalar oracle with the same draws
     device: Any = "cuda"             # where the particles, the met fields
     #                                  and the accumulators live
 
@@ -132,7 +169,6 @@ class Simulation:
             "ipin=1 (warm start)": cmd.ipin == 1,
             "receptors": bool(self.receptors),
             "outgrid_nest (nested output)": self.outgrid_nest is not None,
-            "met_nests (nested met)": bool(self.met_nests),
             "iflux (gross fluxes)": cmd.iflux != 0,
             "linit_cond (initial-condition sensitivity)":
                 cmd.linit_cond != 0,
@@ -142,8 +178,6 @@ class Simulation:
             "itsplit (particle splitting inside the run)":
                 cmd.itsplit < span,
             "OH reaction species": any(s.ohreact for s in species),
-            "cblflag (skewed CBL turbulence)": cmd.cblflag == 1,
-            "legacy_rng": self.legacy_rng,
             "distributed": self.distributed is not None,
             "write_fortran": self.write_fortran,
             "checkpoint_at": self.checkpoint_at is not None,
@@ -160,6 +194,10 @@ class Simulation:
         cmd = self.cmd
         self._refuse_unported()
         self.device = torch.device(self.device)
+        if self.legacy_rng and self.device.type == "cuda":
+            raise NotImplementedError(
+                "legacy_rng on a CUDA device: the legacy-RNG validation path "
+                "has no kernel; pass device='cpu'")
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Simulation(device='cuda') needs a CUDA "
                                "device; pass device='cpu' to run on the CPU")
@@ -169,6 +207,12 @@ class Simulation:
             # the met reader) it can come out inexact (utils/cpu.py)
             warm_vector_math()
         dev = self.device
+        if self.legacy_rng and self.met_nests:
+            raise ValueError("legacy_rng does not support nests")
+        # nested met grids, outermost -> innermost (pathnames order,
+        # readpaths.f90:45-80); the advance picks a particle's innermost
+        # nest (advance.f90:167-175)
+        self.nest_grids = tuple(m.grid for m in self.met_nests)
         self.nspec = self.releases.nspec
         self.numpoint = self.releases.numpoint
         self.geo = OutputGridGeometry(self.outgrid, self.grid)
@@ -189,6 +233,8 @@ class Simulation:
             turbswitch=cmd.turbswitch, ifine=cmd.ifine_eff,
             method=cmd.method, settling=lsettling and any_settle,
             turboff=self.turboff, met_bf16=self.met_bf16,
+            cblflag=cmd.cblflag == 1,
+            nests=tuple((g.nx, g.ny) for g in self.nest_grids),
             polar=bool(self.grid.xglobal
                        and (top_lat > 75.0 or self.grid.ylat0 < -75.0)))
         self.step_cfg.check()
@@ -202,7 +248,9 @@ class Simulation:
                         for s in self.releases.species],
             sp_dquer=[s.dquer for s in self.releases.species],
             sp_cunningham=[c.cunningham if c else 0.0 for c in sp_scs],
-            sp_vsetaver=[c.vsetaver if c else 0.0 for c in sp_scs])
+            sp_vsetaver=[c.vsetaver if c else 0.0 for c in sp_scs],
+            **(nest_windows(self.grid, self.nest_grids)
+               if self.nest_grids else {}))
         # convection: the grid's kernel, and the cloud-base mass flux
         # memory of every column, kept on the device between steps
         self.conv_kernel = None
@@ -235,6 +283,8 @@ class Simulation:
             nclassunc=self.nclassunc, seed=self.seed)
         self._release_times = frozenset(
             int(t) for t in np.unique(sched["itra"]) if t != ITRA_INACTIVE)
+        if self.legacy_rng:
+            self._legacy_release_positions(sched)
         self.particles: Particles = interop.particles_from_numpy(sched, dev)
         # earliest scheduled release (s since bdate): the sampling kernel
         # (conccalc.f90:171 itage>10800) cannot trigger before
@@ -267,7 +317,7 @@ class Simulation:
         self._prefetch_failures = 0      # dead-reader visibility counter
         self.timings: dict[str, float] = {}
         self.timers = SectionTimers(device_sync=self.profile, device=dev)
-        self.nan_count = 0               # CBL redraws; the CBL is not ported
+        self.nan_count = 0               # CBL redraws (advance.f90:437)
         self.n_sorts = 0
 
         # --- deposition / decay setup (wetdepo.f90, getvdep.f90 chain) ---
@@ -375,14 +425,18 @@ class Simulation:
     # ----- met double buffer (getfields.f90:93-196 analog) -----
     def _fetch_raw(self, tsec: int):
         """Met read + assembly for one wind time (the host part of
-        getfields; the fields land on the device)."""
-        return self.met_backend.fetch(float(tsec), self.device)
+        getfields; the fields land on the device): the mother's fields and
+        a tuple of the nests' (empty without nests)."""
+        eta = self.met_backend.fetch(float(tsec), self.device)
+        etan = tuple(m.fetch(float(tsec), self.device)
+                     for m in self.met_nests)
+        return eta, etan
 
     def _prefetch_job(self, tsec: int, submitted=None):
         """Worker-thread body: the read and, once the height grid exists,
         the full processing pipeline, so the next field is buffer-ready
         when the step loop asks for it.  Returns ("processed", entry) or
-        ("raw", eta).
+        ("raw", (eta, etan)).
 
         On a CUDA device the worker runs on a stream of its own, so that
         its copies and kernels overlap the step loop's.  The hand-over
@@ -404,14 +458,14 @@ class Simulation:
             if submitted is not None:
                 self._met_stream.wait_event(submitted)
             tf0 = _time.perf_counter()
-            eta = self._fetch_raw(tsec)
+            raw = self._fetch_raw(tsec)
             self.timers.add("getfields_fetch_bg", _time.perf_counter() - tf0)
             if self._height is None or (self.any_drydep
                                         and self._vdep_kernel is None):
-                out = "raw", eta
+                out = "raw", raw
             else:
                 tp0 = _time.perf_counter()
-                out = "processed", self._process_field(tsec, eta)
+                out = "processed", self._process_field(tsec, *raw)
                 self.timers.add("getfields_proc_bg",
                                 _time.perf_counter() - tp0)
             if cuda:
@@ -453,11 +507,17 @@ class Simulation:
         if self._met_stream is None:
             return entry
         here = torch.cuda.current_stream(self.device)
-        for obj in entry:
+
+        def adopt(obj):
+            if isinstance(obj, (tuple, list)):
+                for o in obj:
+                    adopt(o)
+                return
             for f in dataclasses.fields(obj):
                 v = getattr(obj, f.name)
                 if isinstance(v, torch.Tensor):
                     v.record_stream(here)
+        adopt(entry)
         return entry
 
     def _get_field(self, tsec: int):
@@ -465,24 +525,25 @@ class Simulation:
             t0 = _time.perf_counter()
             fut = self._prefetch.pop(tsec, None)
             processed = None
-            eta = None
+            raw = None
             if fut is not None:
                 try:
                     tag, payload = fut.result()
                     if tag == "processed":
                         processed = self._adopt(payload)
-                        eta = payload[1]
+                        raw = payload[1], ()
                     else:
-                        eta = self._adopt((payload,))[0]
+                        raw = self._adopt(payload)
                 except Exception:
                     self._prefetch_failures += 1
                     log.warning("met prefetch for t=%ss died in the "
                                 "reader thread (failure #%d); reading "
                                 "synchronously", tsec,
                                 self._prefetch_failures, exc_info=True)
-                    eta = self._fetch_raw(tsec)
+                    raw = self._fetch_raw(tsec)
             else:
-                eta = self._fetch_raw(tsec)
+                raw = self._fetch_raw(tsec)
+            eta = raw[0]
             if self._height is None:
                 self._height = compute_heights(self.grid, eta)
                 # output-grid orography for the netCDF header (ORO var,
@@ -497,25 +558,32 @@ class Simulation:
                 farthest = max(self._buf, key=lambda k: abs(k - tsec))
                 del self._buf[farthest]
             self._buf[tsec] = (processed if processed is not None
-                               else self._process_field(tsec, eta))
+                               else self._process_field(tsec, *raw))
             dt_gf = _time.perf_counter() - t0
             self.timers.add("getfields", dt_gf)
             log.debug("getfields t=%ss: %.2fs blocked (%s)", tsec, dt_gf,
                       "prefetched" if processed is not None else "sync")
         return self._buf[tsec][0]
 
-    def _process_field(self, tsec: int, eta):
+    def _process_field(self, tsec: int, eta, etan=()):
         """Device-side processing of one fetched met time: calcpv +
-        verttransform + calcpar.  Returns the (z, eta) buffer entry (the
-        convection reads the raw eta-level profiles, convmix.f90:168-189).
-        Safe to call from the prefetch worker thread once the height grid
-        and the vdep kernel exist."""
+        verttransform + calcpar, of the mother and of each nest (onto the
+        mother's height grid, the verttransform_nests.f90 contract).
+        Returns the (z, eta, nests' z) buffer entry (the convection reads
+        the raw eta-level profiles, convmix.f90:168-189).  Safe to call
+        from the prefetch worker thread once the height grid and the vdep
+        kernel exist."""
         self._ensure_vdep_kernel(eta)
         z = process_eta(self.grid, eta, self._height,
                         pvh=calcpv(self.grid, eta), use_clwc=self.use_clwc)
         z = calcpar(self.grid, eta, z, lsubgrid=bool(self.cmd.lsubgrid),
                     vdep_kernel=self._vdep_kernel)
-        return (z, eta)
+        zn = tuple(
+            calcpar(g, e, process_eta(g, e, self._height, pvh=calcpv(g, e),
+                                      use_clwc=self.use_clwc),
+                    lsubgrid=bool(self.cmd.lsubgrid))
+            for g, e in zip(self.nest_grids, etan))
+        return (z, eta, zn)
 
     def _ensure_vdep_kernel(self, eta):
         """The dry-deposition velocity function of the run, built at the
@@ -538,6 +606,11 @@ class Simulation:
     def _get_eta(self, tsec: int):
         self._get_field(tsec)
         return self._buf[tsec][1]
+
+    def _get_nest(self, tsec: int):
+        """The nests' processed fields at a met time, outermost first."""
+        self._get_field(tsec)
+        return self._buf[tsec][2]
 
     def _ccfg_at(self, itime, base):
         """Sampling config for this step: the single-index direct-only
@@ -647,8 +720,16 @@ class Simulation:
         particle_steps = torch.zeros((), dtype=torch.int64,
                                      device=self.device)
         n_act = None
+        # the CBL's NaN redraws, summed on the device
+        nan_total = torch.zeros((), dtype=torch.int64, device=self.device)
         max_age = self.ageclasses.max_age
         itime = 0
+        if self.legacy_rng:
+            # one shared ran3 chain feeds the per-particle nrand bases in
+            # the reference's order (FLEXPART.f90:56-59, advance.f90:153)
+            self._legacy_table = torch.as_tensor(
+                make_rannumb(MAXRAND, self.legacy_seed), device=self.device)
+            self._legacy_stream = NrandStream(self.legacy_seed, MAXRAND)
 
         for istep in range(0, nsteps + 1):
             itime = istep * lsync
@@ -689,8 +770,10 @@ class Simulation:
             # nothing is read back from the device to decide.
             if self._step_probe is not None:
                 self._step_probe(istep, itime)
-            if istep % reorder.REORDER_EVERY == 0 \
-                    or itime in self._release_times:
+            # (the legacy path keeps the slot order: it is the order in
+            # which the reference consumes its random chain)
+            if not self.legacy_rng and (istep % reorder.REORDER_EVERY == 0
+                                        or itime in self._release_times):
                 self._sort(z0.height)
 
             # convective redistribution (timemanager.f90:258-263)
@@ -727,11 +810,16 @@ class Simulation:
             draws = None
             if self._draws_hook is not None:
                 draws = self._draws_hook(istep, self._slot_origin())
+            z0n = z1n = None
+            if self.nest_grids:
+                z0n, z1n = self._get_nest(mt0), self._get_nest(mt1)
+            leg = self._legacy_bases(itime) if self.legacy_rng else None
             with self.timers.section("advance"):
                 self.particles, diag = advance_all(
                     self.particles, z0, z1, itime, mt0, mt1,
                     rng.Key(self.seed, istep), self.step_cfg,
-                    self.step_prm, draws=draws)
+                    self.step_prm, draws=draws, z0n=z0n, z1n=z1n, leg=leg)
+            nan_total += diag.nan_count
             # the adaptive step's dry-deposition window; no sort runs
             # between the advance and the dry deposition, so its slots are
             # the particles'
@@ -766,6 +854,13 @@ class Simulation:
                 log.info("t=%8d s  particles=%8d", itime, int(n_act))
 
         self.last_itime = itime
+        self.nan_count = int(nan_total)
+        if self.nan_count > 0:
+            # the reference warns when the CBL redraws NaN velocities
+            # (timemanager.f90:714-727)
+            log.warning("CBL scheme redrew %d NaN velocities; reduce ifine "
+                        "if this is a non-negligible fraction of the "
+                        "particle count", self.nan_count)
         self.timings.update(self.timers.seconds)
         self.timings["particle_steps"] = int(particle_steps)
         if self.convection_counts:
@@ -781,6 +876,61 @@ class Simulation:
             log.info("per-section timings (device-synced):\n%s", report)
             (Path(self.outdir) / "profile.txt").write_text(report + "\n")
         return self.particles
+
+    def _legacy_release_positions(self, sched: dict) -> None:
+        """Replace the scheduled release positions with the reference's
+        ran1 order (releaseparticles.f90:147-193): per particle x, y,
+        nclass, z from one idummy chain across all boxes, box after box."""
+        ran1 = Ran1(self.legacy_seed)
+        xs, ys, ncl, zs = [], [], [], []
+        for b in self.releases.boxes:
+            bx = dict(lon1=b.lon1, lon2=b.lon2, lat1=b.lat1, lat2=b.lat2,
+                      z1=b.z1, z2=b.z2)
+            x, y, nc, z = legacy_release(
+                bx, b.parts, self.nclassunc, self.grid.xlon0,
+                self.grid.ylat0, self.grid.dx, self.grid.dy, ran1=ran1)
+            xs.append(x)
+            ys.append(y)
+            ncl.append(nc)
+            zs.append(z)
+        k = sum(len(x) for x in xs)
+        sched["x_hi"][:k] = np.concatenate(xs).astype(np.float32)
+        sched["x_lo"][:k] = 0.0
+        sched["y_hi"][:k] = np.concatenate(ys).astype(np.float32)
+        sched["y_lo"][:k] = 0.0
+        sched["z"][:k] = np.concatenate(zs).astype(np.float32)
+        sched["nclass"][:k] = np.concatenate(ncl).astype(np.int32)
+
+    def _legacy_bases(self, itime: int) -> LegacyRnd:
+        """The per-particle nrand bases of this step, consumed from the
+        shared ran3 chain in the reference's order: per particle in slot
+        order, initialize's draw (fresh particles only), then advance's
+        (timemanager.f90:553-611).  Reads the active mask from the
+        device."""
+        stream = self._legacy_stream
+        p = self.particles
+        active = p.active.cpu().numpy()
+        itramem = p.itramem.cpu().numpy()
+        n = active.shape[0]
+        ni = np.ones(n, np.int64)
+        na = np.ones(n, np.int64)
+        fresh = (itramem == itime) | (itime == 0)
+        for j in np.nonzero(active)[0]:
+            if fresh[j]:
+                ni[j] = stream.next_nrand()
+            na[j] = stream.next_nrand()
+        if self.legacy_trace:
+            if not hasattr(self, "_legacy_trace"):
+                self._legacy_trace = []
+            self._legacy_trace.append(dict(
+                itime=int(itime), ni=ni.copy(), na=na.copy(),
+                x=p.x.double().cpu().numpy(), y=p.y.double().cpu().numpy(),
+                z=p.z.cpu().numpy(), mass=p.mass.cpu().numpy(),
+                active=active.copy(), idt=p.idt.cpu().numpy()))
+        dev = self.device
+        return LegacyRnd(table=self._legacy_table,
+                         nrand_init=torch.as_tensor(ni, device=dev),
+                         nrand=torch.as_tensor(na, device=dev))
 
     def _scatter_depo(self, grid: torch.Tensor, deposit: torch.Tensor,
                       itime: int) -> None:

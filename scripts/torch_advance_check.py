@@ -1,0 +1,57 @@
+#!/usr/bin/env python3
+"""A short first check of the advance kernels on the card.
+
+    python3 scripts/torch_advance_check.py [n_particles] [check ...]
+
+Builds every kernel (one nvcc per source, all started together), prints
+the card's name and power limit, the build's seconds and the ptxas
+registers, stack and spills of each instantiation of K4 (advance.cu) and
+K11 (advance_adaptive.cu) (empty where build/kernels/ already held the
+libraries: nvcc did not run), then runs chip_smoke.py's checks of K11's CBL
+instantiation (``cbl``) and K4's NESTS instantiation (``nests``) against
+their plain versions at ``n_particles`` (default 2**20, a tenth of the
+main path's), each with its times, one JSON line per check.  A failed
+check raises.  This is the quick call to make after changing an advance
+kernel, before a whole chip_smoke.py run.
+"""
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def main() -> int:
+    import torch
+    import chip_smoke as cs
+    from flexpart_tpu_torch import _build
+    from flexpart_tpu_torch.met.synthetic import make_grid
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    args = sys.argv[1:]
+    n = int(args.pop(0)) if args and args[0].isdigit() else 2 ** 20
+    which = args or ["cbl", "nests"]
+    print(cs.nvidia_smi_line(), flush=True)
+    t0 = time.perf_counter()
+    _build.build_all(list(_build.KERNELS))
+    print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
+    for k in (_build.ADVANCE, _build.ADVANCE_ADAPTIVE):
+        print(json.dumps({k.name: cs.ptxas_by_entry(k.build_log)}),
+              flush=True)
+    cs.N_MAIN = n
+    grid = make_grid(**cs.BENCH_GRID)
+    device = torch.device("cuda", 0)
+    checks = {"cbl": cs.kernel_advance_cbl, "nests": cs.kernel_advance_nests}
+    for name in which:
+        t0 = time.perf_counter()
+        r = checks[name](device, grid)
+        r.pop("cases", None)
+        print(json.dumps({"check": name, "seconds": time.perf_counter() - t0,
+                          **r}, default=str), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

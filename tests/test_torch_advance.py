@@ -175,13 +175,23 @@ def test_chunking_does_not_change_the_port(setup):
 
 
 def test_outside_slice_raises(setup):
+    """What the port's advance does not take raises by name: tile mode
+    (``StepConfig.check``), the fixed step with the CBL on a CUDA tensor
+    (K4 has no CBL; ``advance_all_cuda`` refuses it before it looks at
+    the tensors), and nests with the adaptive step (as the reference)."""
     grid = setup[0]
-    _, _, tcfg, _ = _cfgs(grid, CONFIGS["stock"])
-    for bad in (dict(cblflag=True), dict(tile_mode=True),
-                dict(nests=((5, 5),))):
-        cfg = type(tcfg)(**{**tcfg.__dict__, **bad})
-        with pytest.raises(NotImplementedError):
-            cfg.check()
+    _, _, tcfg, tprm = _cfgs(grid, CONFIGS["stock"])
+    cfg = type(tcfg)(**{**tcfg.__dict__, "tile_mode": True})
+    with pytest.raises(NotImplementedError, match="tile_mode"):
+        cfg.check()
+    cbl = type(tcfg)(**{**tcfg.__dict__, "cblflag": True})
+    cbl.check()
+    with pytest.raises(NotImplementedError, match="cblflag"):
+        tadv.advance_all_cuda(None, None, None, None, None, cbl, None, 0)
+    nested = type(tcfg)(**{**tcfg.__dict__, "nests": ((5, 5),)})
+    nested.check()
+    with pytest.raises(ValueError, match="nested"):
+        type(tcfg)(**{**nested.__dict__, "method": 1}).check()
 
 
 def _port_particles(p):
@@ -249,7 +259,7 @@ def test_advance_args_are_the_plain_path_scalars(setup, name):
         two_nym=f32(2.0 * (grid.ny - 1)), eps_bc=eps,
         nxm_eps=f32(nxm) - eps, fine=f32(1.0 / kw["ifine"]), ctl=f32(-5.0),
         mintime=f32(1.0), two_d_trop=f32(2.0 * 50.0),
-        two_d_strat=f32(2.0 * 0.1))
+        two_d_strat=f32(2.0 * 0.1), eps_nest=eps)
     floats = [n for n, t in a._fields_ if t is tadv.ctypes.c_float]
     assert sorted(want) == sorted(floats)
     for k, v in want.items():
@@ -260,7 +270,7 @@ def test_advance_args_are_the_plain_path_scalars(setup, name):
                 table_bf16=int(kw["met_bf16"]), polar=0, can_pett=1,
                 itime=itime,
                 itra_new=itime + LSYNC, n=0, offset=0, method=0, turboff=0,
-                settling=0, nspec=1)
+                settling=0, nspec=1, cblflag=0, nnest=0)
     for k, v in ints.items():
         assert getattr(a, k) == v, k
     assert list(a.key) == [0] * 10

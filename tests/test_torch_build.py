@@ -298,7 +298,8 @@ def test_advance_args_struct_matches_the_source():
     text = _strip_comments((_build.CSRC / "advance_common.cuh").read_text())
     body = re.search(r"struct\s+AdvanceArgs\s*\{(.*?)\};", text, re.S).group(1)
     c_types = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
-               "uint32_t": ctypes.c_uint32, "float": ctypes.c_float}
+               "uint32_t": ctypes.c_uint32, "float": ctypes.c_float,
+               "const void*": ctypes.c_void_p}
     parsed = []
     for decl in body.split(";"):
         decl = decl.strip()
@@ -318,8 +319,20 @@ def test_advance_args_struct_matches_the_source():
         (n, c) for n, _, c in parsed)["key"]
     m = re.search(r"constexpr int MAX_SPECIES = (\d+);", text)
     assert int(m.group(1)) == advance.MAX_SPECIES
+    counts = dict((n, c) for n, _, c in parsed)
     for f in advance.SPECIES_PARAMS:
-        assert dict((n, c) for n, _, c in parsed)[f] == advance.MAX_SPECIES
+        assert counts[f] == advance.MAX_SPECIES
+    # the nests' windows, shapes and tables: MAX_NESTS of each; the CBL's
+    # keys: two words for each of MAX_CBL_SUBSTEPS tags and tags 7 and 8
+    m = re.search(r"constexpr int MAX_NESTS = (\d+);", text)
+    assert int(m.group(1)) == advance.MAX_NESTS
+    for f in advance.NEST_PARAMS + ("nest_nx", "nest_ny", "nest_xmax",
+                                    "nest_ymax", "nest_rows", "nest_rows_e"):
+        assert counts[f] == advance.MAX_NESTS, f
+    m = re.search(r"constexpr int MAX_CBL_SUBSTEPS = (\d+);", text)
+    assert int(m.group(1)) == advance.MAX_CBL_SUBSTEPS
+    assert counts["key_cbl"] == 2 * advance.MAX_CBL_SUBSTEPS
+    assert counts["key_fresh"] == 2 * len(advance.CBL_FRESH_TAGS)
 
 
 def test_advance_polar_is_an_instantiation_of_its_own():
@@ -328,19 +341,23 @@ def test_advance_polar_is_an_instantiation_of_its_own():
     launcher picks them by ``AdvanceArgs.polar``; the update calls the
     six functions of the plain version's torch ops."""
     text = _all_sources(_build.ADVANCE)
-    assert "template <bool BF16, bool TS, bool POLAR, bool SETTLING>" in text
+    assert ("template <bool BF16, bool TS, bool POLAR, bool SETTLING, "
+            "bool NESTS>") in text
     assert text.count("if (POLAR) polar_update(") == 2
     assert "if (POLAR) polar_update(a, x, y, dxsave, dysave," in text
     assert "if (POLAR) polar_update(a, xn, yn, du * dt, dv * dt," in text
     assert "a.polar" in text
     # the four (table type, turbswitch) instantiations of the stock step
-    # with and without, and settling's two table types with and without
-    inst = re.findall(r"advance_kernel<(\w+), (\w+), (\w+), (\w+)>", text)
-    assert len(set(inst)) == len(inst) == 12
+    # with and without, settling's two table types with and without, and
+    # the nests' (table type, settling) with and without
+    inst = re.findall(r"advance_kernel<(\w+), (\w+), (\w+), (\w+), (\w+)>",
+                      text)
+    assert len(set(inst)) == len(inst) == 20
     for polar in ("true", "false"):
-        assert sum(i[2] == polar for i in inst) == 6
-    # settling only with turbswitch off: every fixed step of a run
-    assert all(i[1] == "false" for i in inst if i[3] == "true")
+        assert sum(i[2] == polar for i in inst) == 10
+    # settling and nests only with turbswitch off: every fixed step of a run
+    assert all(i[1] == "false" for i in inst if "true" in (i[3], i[4]))
+    assert sum(i[4] == "true" for i in inst) == 8
     body = re.search(r"void polar_update\((.*?)\n}\n", text, re.S).group(1)
     for fn in ("sinf(", "cosf(", "tanf(", "hypotf(", "atanf(", "atan2f("):
         assert fn in body, fn
@@ -731,8 +748,9 @@ def test_k11_instructions_count_the_cheapest_pass():
 def test_k11_work_counters_and_pool_match_the_source():
     """K11's counters: the wrapper zeroes K11_WORK_WORDS int64 words, which
     the kernel takes as ``unsigned long long* work`` after the counts and
-    indexes 0 (passes executed) and 1 (lane iterations issued);
-    StepDiag.lane_work is both.  The pool's two field lists name every
+    indexes 0 (passes executed), 1 (lane iterations issued) and 2 (the
+    CBL's passes with a NaN redraw); StepDiag.lane_work is all three, and
+    the third is its nan_count.  The pool's two field lists name every
     field of a Lane but its slot index once (the compiler holds the count
     by the size of a Lane and refuses a field named twice), a pass stores
     the first list back, and the block's order indexes fit a short."""
@@ -742,7 +760,7 @@ def test_k11_work_counters_and_pool_match_the_source():
     decls = [d.strip() for d in sig.split(",")]
     at = decls.index("int* counts")
     assert decls[at + 1] == "unsigned long long* work"
-    assert advance.K11_WORK_WORDS == 2
+    assert advance.K11_WORK_WORDS == 3
     used = {int(k) for k in re.findall(r"work\[(\d)\]", text)}
     assert used == set(range(advance.K11_WORK_WORDS))
     threads = int(re.search(r"constexpr int THREADS = (\d+);", text)[1])
@@ -784,13 +802,15 @@ def test_settling_instructions_are_the_instantiations_difference():
     import chip_smoke
     pre = "_ZN52_GLOBAL__N__x_advance_cu_y14advance_kernel"
     sass = "\n".join([
-        _sass_function(pre + "ILb1ELb0ELb1ELb0EEvN_3PInE",
+        _sass_function(pre + "ILb1ELb0ELb1ELb0ELb0EEvN_3PInE",
                        ["MOV R1, R2", "NOP", "EXIT"]),
-        _sass_function(pre + "ILb1ELb0ELb1ELb1EEvN_3PInE",
+        _sass_function(pre + "ILb1ELb0ELb1ELb1ELb0EEvN_3PInE",
                        ["MOV R1, R2", "MUFU.LG2 R3, R3", "FMUL R3, R3, R4",
                         "NOP", "EXIT"]),
-        _sass_function(pre + "ILb0ELb0ELb1ELb1EEvN_3PInE",
-                       ["MOV R1, R2", "EXIT"])])
+        _sass_function(pre + "ILb0ELb0ELb1ELb1ELb0EEvN_3PInE",
+                       ["MOV R1, R2", "EXIT"]),
+        _sass_function(pre + "ILb1ELb0ELb1ELb1ELb1EEvN_3PInE",
+                       ["MOV R1, R2", "LDG R3, [R4]", "EXIT"])])
 
     class Kernel:
         name = "advance"
@@ -842,3 +862,43 @@ def test_setup_drydep_reads_flexpart_files_like_jax(tmp_path):
     assert (t.rac == 1.0e25).any() and (t.xlanduse > 0).sum(-1).max() > 1
     assert not hasattr(physics, "wetdepo") or isinstance(
         physics.wetdepo, type(physics))      # a submodule, never shadowed
+
+
+def test_k11_entry_names_the_turbulence_by_int():
+    """K11's second template argument is the turbulence as an int (0
+    Hanna1, 1 TS, 2 CBL): chip_smoke.k11_entry gives it from the config,
+    sass_instantiation mangles it as an int and ptxas_by_entry names the
+    CBL instantiation advance_adaptive_kernel<1,2,1,1>."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    base = dict(nx=10, ny=10, nz=5, xglobal=True, ldirect=1, ifine=11,
+                method=1, settling=True, polar=True)
+    cbl = advance.StepConfig(turbswitch=True, cblflag=True, **base)
+    ts = advance.StepConfig(turbswitch=True, **base)
+    assert chip_smoke.k11_entry(cbl) == (True, 2, True, True)
+    assert chip_smoke.k11_entry(ts) == (True, 1, True, True)
+    pre = "_ZN52_GLOBAL__N__x_advance_adaptive_cu_y23advance_adaptive_kernel"
+    sass = "\n".join([
+        _sass_function(pre + "ILb1ELi1ELb1ELb1EEvN_2IoE", ["EXIT"]),
+        _sass_function(pre + "ILb1ELi2ELb1ELb1EEvN_2IoE",
+                       ["MOV R1, R2", "EXIT"])])
+
+    class Kernel:
+        name = "advance_adaptive"
+
+        def cuobjdump(self, flag):
+            return sass
+
+    name, code = chip_smoke.sass_instantiation(
+        Kernel(), "advance_adaptive_kernel", chip_smoke.k11_entry(cbl))
+    assert "ILb1ELi2ELb1ELb1E" in name and len(code) == 2
+    log = ("ptxas info    : Compiling entry function '%sILb1ELi2ELb1ELb1EEv"
+           "N_2IoE' for 'sm_90a'\nptxas info    : Function properties for "
+           "%sILb1ELi2ELb1ELb1EEvN_2IoE\n    160 bytes stack frame, 82 bytes "
+           "spill stores, 84 bytes spill loads\nptxas info    : Used 80 "
+           "registers" % (pre, pre))
+    assert chip_smoke.ptxas_by_entry(log) == {
+        "advance_adaptive_kernel<1,2,1,1>": dict(
+            stack=160, spill_stores=82, spill_loads=84, registers=80)}

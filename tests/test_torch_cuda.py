@@ -199,10 +199,146 @@ def test_k11_refill_edges_equal_the_plain_version(card, case):
     assert torch.equal(dk.passes, dp.passes)
     assert int(dk.n_active) == int(dp.n_active)
     assert int(dk.n_exited) == int(dp.n_exited)
-    executed, issued = (int(v) for v in dk.lane_work)
+    # lane_work: passes executed, lane iterations issued, and the CBL's
+    # NaN redraws (none without the CBL)
+    executed, issued, nans = (int(v) for v in dk.lane_work)
     assert executed == int(dk.passes.sum()) and issued >= executed
+    assert nans == 0 == int(dk.nan_count)
     if case == "above_h":
         assert idx.numel() == 4096 and executed == 0
     if case == "one_long_among_idle":
         assert int(dk.passes[pos]) == int(passes[top]) > 0
         assert int(dk.passes.sum()) == int(passes[top])
+
+
+def test_k11_cbl_equals_the_plain_version(card):
+    """K11's CBL instantiation (turbswitch, ifine 11, settling and the polar
+    caps) against ``advance_all_plain`` on the card, on _advance_inputs'
+    particles with the skewed scheme over the eastern half (hmix 1500 m,
+    w* 1.8 m/s, L = -25 m; -1200 m in the west): every output, t_below,
+    the passes and nan_count bitwise."""
+    import copy
+    import dataclasses
+    from flexpart_tpu_torch.core import advance as adv
+    from flexpart_tpu_torch.core import interp
+    from flexpart_tpu_torch.met.fields import F2_HMIX, F2_OLI, F2_WSTAR
+    p, zs, cfg, _, _, key, settle, _, grid = _advance_inputs(card, 1)
+    conv = []
+    for zf in zs:
+        f2 = zf.f2d.clone()
+        f2[F2_HMIX] = 1500.0
+        f2[F2_WSTAR] = 1.8
+        f2[F2_OLI] = 1.0 / -1200.0
+        f2[F2_OLI][:, grid.nx // 2:] = 1.0 / -25.0
+        conv.append(zf.replace(f2d=f2))
+    cfg = dataclasses.replace(cfg, cblflag=True, ifine=11)
+    prm = adv.StepParams.make(
+        dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0, dxconst=grid.dxconst,
+        dyconst=grid.dyconst, lsynctime=900, fine=1.0 / 11, ctl=5.0,
+        sp_density=[2500.0, -1.0], sp_dquer=[10.0, 0.0],
+        sp_cunningham=[1.02, 0.0], sp_vsetaver=[-0.007, 0.0])
+    tw = adv._time_weights(900, 0, 10800, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(conv[0], conv[1], *tw,
+                                           dtype=cfg.table_dtype)
+    a = adv.advance_args(cfg, prm, 900, 0, 10800)
+    settle = adv.settle_met(conv[0], cfg)
+    pk, dk = adv.advance_adaptive_cuda(p, conv[0].height, tables,
+                                       copy.copy(a), key, cfg, None, 0, settle)
+    pp, dp = adv.advance_all_plain(p, conv[0].height, tables, copy.copy(a),
+                                   key, cfg, None, 0, settle)
+    torch.cuda.synchronize()
+    for f in adv.ADAPTIVE_OUT_FIELDS:
+        x, y = getattr(pk, f), getattr(pp, f)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), f
+    assert torch.equal(dk.t_below, dp.t_below)
+    assert torch.equal(dk.passes, dp.passes)
+    assert int(dk.nan_count) == int(dp.nan_count)
+    assert int(dk.lane_work[0]) == int(dk.passes.sum())
+
+
+def test_k4_nests_equal_the_plain_version(card):
+    """K4's NESTS instantiation with two nests of SyntheticMet on the 37 x
+    19 x 15 grid's levels (5 degrees over 40 W-60 E, 10-70 N and 2.5
+    degrees over 10 W-30 E, 30-60 N) against ``advance_all_plain`` with
+    K1's draws injected, and K4 with its draws in registers against the
+    same: every output bitwise; more than MAX_NESTS nests raise by name."""
+    import copy
+    import dataclasses
+    from flexpart_tpu_torch.core import advance as adv
+    from flexpart_tpu_torch.core import interp, rng
+    from flexpart_tpu_torch.met import calcpar, calcpv, synthetic
+    from flexpart_tpu_torch.met import verttransform
+    from flexpart_tpu_torch.run.simulation import nest_windows
+    p, zs, cfg, _, _, key, _, gen, grid = _advance_inputs(card, 0)
+    nests = (synthetic.make_grid(nx=21, ny=13, nlev=15, dx=5.0, dy=5.0,
+                                 xlon0=-40.0, ylat0=10.0, xglobal=False),
+             synthetic.make_grid(nx=17, ny=13, nlev=15, dx=2.5, dy=2.5,
+                                 xlon0=-10.0, ylat0=30.0, xglobal=False))
+    height = verttransform.compute_heights(
+        grid, synthetic.SyntheticMet(grid).fetch(0.0, card))
+    zn = []
+    # each nest's jet differs from the mother's and from the other nest's,
+    # so that a particle sampled from the wrong grid moves differently
+    for k, g in enumerate(nests):
+        met = synthetic.SyntheticMet(g, u_jet=35.0 + 10.0 * k)
+        zn.append([calcpar.calcpar(g, e, verttransform.process_eta(
+            g, e, height, pvh=calcpv.calcpv(g, e)))
+            for e in (met.fetch(t, card) for t in (0.0, 10800.0))])
+    cfg = dataclasses.replace(cfg, settling=False,
+                              nests=tuple((g.nx, g.ny) for g in nests))
+    prm = adv.StepParams.make(dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0,
+                              dxconst=grid.dxconst, dyconst=grid.dyconst,
+                              lsynctime=900, fine=1.0,
+                              **nest_windows(grid, nests))
+    n = p.capacity
+    u = torch.rand(n, generator=gen, device=card)
+    p = p.replace(x_hi=torch.where(u < 0.6, 14.0 + u * 10.0, p.x_hi),
+                  y_hi=torch.where(u < 0.6, 10.5 + u * 7.0, p.y_hi))
+    tw = adv._time_weights(900, 0, 10800, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(zs[0], zs[1], *tw,
+                                           dtype=cfg.table_dtype)
+    tables_n = tuple(interp.build_step_tables_quad(z[0], z[1], *tw,
+                                                   dtype=cfg.table_dtype)
+                     for z in zn)
+    a = adv.advance_args(cfg, prm, 900, 0, 10800)
+    assert int((adv.nest_index(cfg, a, p.x, p.y) == 1).sum()) > n // 10
+    draws = {t: rng.normals(key, (r, n), t, device=card)
+             for t, r in adv.draw_tags(cfg).items()}
+    args = (p, zs[0].height, tables)
+    runs = [adv.advance_all_cuda(*args, copy.copy(a), key, cfg, d, 0,
+                                 tables_n=tables_n) for d in (None, draws)]
+    pp, _ = adv.advance_all_plain(*args, copy.copy(a), key, cfg, draws, 0,
+                                  tables_n=tables_n)
+    torch.cuda.synchronize()
+    for pk, _ in runs:
+        for f in adv.OUT_FIELDS:
+            x, y = getattr(pk, f), getattr(pp, f)
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            assert torch.equal(x, y), f
+    many = dataclasses.replace(cfg, nests=cfg.nests * 3)
+    with pytest.raises(ValueError, match="MAX_NESTS"):
+        adv.advance_all_cuda(*args, copy.copy(a), key, many, None, 0,
+                             tables_n=tables_n * 3)
+
+
+def test_legacy_draws_on_the_card_are_refused(card):
+    """``advance_all`` refuses the legacy-RNG draws on CUDA tensors by name:
+    no kernel takes them, and the plain version is not run in their
+    place."""
+    import dataclasses
+    from flexpart_tpu_torch.core import advance as adv
+    from flexpart_tpu_torch.core.legacy import LegacyRnd
+    p, zs, cfg, _, _, key, _, _, grid = _advance_inputs(card, 0, n=1024)
+    cfg = dataclasses.replace(cfg, settling=False)
+    prm = adv.StepParams.make(dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0,
+                              dxconst=grid.dxconst, dyconst=grid.dyconst,
+                              lsynctime=900, fine=1.0)
+    ones = torch.ones(p.capacity, dtype=torch.int32, device=card)
+    leg = LegacyRnd(table=torch.zeros(101, device=card), nrand_init=ones,
+                    nrand=ones)
+    with pytest.raises(NotImplementedError, match="legacy"):
+        adv.advance_all(p, zs[0], zs[1], 900, 0, 10800, key, cfg, prm,
+                        leg=leg)

@@ -391,7 +391,6 @@ REFUSED = {
     "receptors": dict(receptors=(tconfig.Receptor("r", 1.0, 41.0),)),
     "outgrid_nest": dict(outgrid_nest=tconfig.OutGrid(
         0.0, 40.0, 4, 4, 0.5, 0.5, (100.0,))),
-    "met_nests": dict(met_nests=(object(),)),
     "iflux": dict(cmd_kw=dict(iflux=1)),
     "linit_cond": dict(cmd_kw=dict(linit_cond=1)),
     "ipout": dict(cmd_kw=dict(ipout=1)),
@@ -399,8 +398,6 @@ REFUSED = {
     "mquasilag": dict(cmd_kw=dict(mquasilag=1)),
     "itsplit": dict(cmd_kw=dict(itsplit=3600)),
     "OH reaction": dict(species=dict(ohcconst=1e-12)),
-    "cblflag": dict(cmd_kw=dict(cblflag=1)),
-    "legacy_rng": dict(legacy_rng=True),
     "distributed": dict(distributed="dp"),
     "write_fortran": dict(write_fortran=True),
     "checkpoint_at": dict(checkpoint_at=3600),
@@ -453,6 +450,19 @@ def test_cuda_is_the_default_device_and_is_not_replaced(tmp_path):
         Simulation(cmd=cmd, releases=rel, grid=grid,
                    met_backend=SyntheticMet(grid), outgrid=og,
                    outdir=str(tmp_path))
+
+
+def test_legacy_rng_on_cuda_is_refused_by_name(tmp_path):
+    """The legacy-RNG validation path has no kernel: on the card the
+    constructor refuses it by name (before it looks for a card), and
+    writes nothing."""
+    cmd, rel, og = _config(tconfig)
+    grid = make_grid(**GRID)
+    with pytest.raises(NotImplementedError, match="legacy_rng"):
+        Simulation(cmd=cmd, releases=rel, grid=grid,
+                   met_backend=SyntheticMet(grid), outgrid=og,
+                   outdir=str(tmp_path), device="cuda", legacy_rng=True)
+    assert not list(tmp_path.iterdir())
 
 
 def test_reader_failure_is_counted_and_read_again(tmp_path, caplog):

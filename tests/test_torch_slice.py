@@ -248,3 +248,42 @@ def test_no_jax_import_in_port():
     smoke = (ROOT / "chip_smoke.py").read_text()
     assert not pat.search(smoke)
     assert "flexpart_tpu." not in smoke.replace("flexpart_tpu_torch", "")
+
+
+def test_cbl_nests_and_legacy_modules_run_without_jax():
+    """core/cbl.py, core/legacy.py and validation/ import and run in a
+    fresh interpreter with neither jax nor flexpart_tpu loaded: the CBL
+    terms, the legacy table and a release, the oracle's parameters."""
+    for f in ("core/cbl.py", "core/legacy.py", "validation/oracle.py",
+              "validation/legacy_rng.py", "validation/depo_oracle.py"):
+        assert (ROOT / "flexpart_tpu_torch" / f).is_file(), f
+    code = """
+import sys, torch
+from flexpart_tpu_torch.core import cbl, legacy
+from flexpart_tpu_torch.validation import depo_oracle, legacy_rng, oracle
+n = 8
+z, h, wst = torch.full((n,), 500.0), torch.full((n,), 1500.0), torch.full((n,), 1.8)
+sig, ds, tl = torch.full((n,), 1.0), torch.full((n,), -1e-3), torch.full((n,), 200.0)
+ath, bth, rein = cbl.cbl_terms(torch.zeros(n), z, wst, h, torch.ones(n),
+                               torch.full((n,), -1e-4), sig, ds, tl,
+                               torch.full((n,), -25.0), 1)
+assert torch.isfinite(ath).all() and torch.isfinite(bth).all()
+tab = legacy_rng.make_rannumb(1000, -7)
+x, y, nc, zz = depo_oracle.legacy_release(
+    dict(lon1=0.0, lon2=2.0, lat1=40.0, lat2=42.0, z1=50.0, z2=500.0), 4, 1,
+    -180.0, -90.0, 1.0, 1.0)
+assert len(x) == 4 and tab.shape == (1001,)
+assert oracle.OracleParams(nx=3, ny=3, nz=3, xglobal=False, ldirect=1,
+                           turbswitch=True, ifine=1, lsynctime=900,
+                           lwindinterv=3600, dx=1.0, dy=1.0, ylat0=0.0,
+                           dxconst=1.0, dyconst=1.0).method == 0
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert "flexpart_tpu" not in sys.modules
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT),
+                            "OMP_NUM_THREADS": "2"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("ok")
