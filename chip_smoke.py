@@ -74,7 +74,18 @@ the port's stock forward step on the card, in phases:
                 jet (a third of the particles in the inner one, a third in
                 the outer one only), bitwise against its plain version
                 with injected draws, timed beside the stock K4 on the same
-                particles;
+                particles; and a backward run's kernels: K3's BKDEP
+                (times max(xscav, 0)) and COUNT instantiations within
+                K3's tolerance on 10 x 2**20 old particles with two
+                species, both paths, beside the stock K3 and index_add_
+                of their pairs; K7's BACKWARD instantiation (the
+                transposed matrix) bitwise on both convection cases; K9's
+                and K10's BKDEP instantiations (the scavenging factor of
+                a fresh particle) bitwise on the deposition particles,
+                half of them fresh; and the advance at ldirect = -1: stock
+                K4 and POLAR on 10 x 2**20 particles with injected draws,
+                K11 and K11 CBL on 2**20 boundary-layer particles, all
+                bitwise, each beside the forward instantiation;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
                 with the same draws; and the advance kernel with its draws
@@ -157,10 +168,25 @@ the port's stock forward step on the card, in phases:
                 particles the nest samples; K2 per call (twice a step) and
                 K4 NESTS per call, K4 NESTS bitwise against its plain
                 version on a release step and a steady step;
- 12. legacy   — the matched-RNG validation path (Simulation(legacy_rng=
+ 12. sim_backward — a backward Simulation.run (ldirect=-1) at full
+                width: 10 x 2**20 particles released over the last hour
+                from a receptor box in the storm band, the sim phase's two
+                species, three hours of 900 s steps back on the sim
+                phase's grid, convection on (K7 BACKWARD), hourly output
+                (grid_time_ netCDF, residence times in s), twice with one
+                seed: every kernel of the path launched, bitwise equal
+                particles, positive finite output, no deposit gridded, the
+                tracer's mass kept and the aerosol's depleted;
+ 13. sim_bkdep — one short backward run each of ind_receptor 3 (WETBKDEP,
+                K9 BKDEP) and 4 (DRYBKDEP, K10 BKDEP), 2**20 particles,
+                four steps: every factor assigned after the first step,
+                positive wet factors in the storm band, the dry factor the
+                species' dryvel, wetscav_precip.txt written, K3 BKDEP
+                sampling;
+ 14. legacy   — the matched-RNG validation path (Simulation(legacy_rng=
                 True)) has no kernel and runs on the CPU only: on the card
                 the constructor and advance_all must refuse it by name.
-Every sim path (8-11) runs through one two-run check (run_twice): the
+Every sim path (8-12) runs through one two-run check (run_twice): the
 launch counts of run A, each of its kernels launched and K5 once per sort,
 the particles, files and budget, and run B's particles, nan counts and
 sorts bitwise equal to run A's, its grids within the kernels' tolerances.
@@ -780,9 +806,17 @@ def phase_kernels(device, grid) -> dict:
     res["advance_adaptive"]["cbl"] = part("advance_adaptive_cbl",
                                           kernel_advance_cbl)
     res["advance"]["nests"] = part("advance_nests", kernel_advance_nests)
-    res["convection"], res["redist"] = part("convection_redist",
-                                            kernel_convection)
+    res["convection"], res["redist"], res["redist.backward"] = part(
+        "convection_redist", kernel_convection)
     res.update(part("deposition", kernel_deposition))
+    # the instantiations of a backward run (ldirect = -1)
+    back = part("advance_backward", kernel_advance_backward)
+    res["advance"]["backward"] = {k: back[f"advance_{k}"]
+                                  for k in ("stock", "polar")}
+    res["advance_adaptive"]["backward"] = {k: back[k] for k in (
+        "adaptive", "adaptive_cbl")}
+    res.update(part("conccalc_backward", kernel_conccalc_backward))
+    res.update(part("bkdep", kernel_bkdep))
     res["seconds_by_part"] = seconds
     return res
 
@@ -2025,17 +2059,19 @@ def redist_args(conv, kern, grid, itime: int = 0) -> tuple:
 
 
 def check_redist(p, key, conv, kern, grid, rn, what: str,
-                 itime: int = 0) -> dict:
+                 itime: int = 0, ldirect: int = 1) -> dict:
     """K7 against redist_plain on the same particles and matrices:
     z bitwise and the moved counts equal.  Both sum each cumulative row in
     level order and spell every operation alike, so any difference is a
     fault (a level is chosen by a comparison: one ulp in a cumulative
-    fraction moves a particle to another level)."""
+    fraction moves a particle to another level).  ``ldirect`` -1: K7's
+    BACKWARD instantiation against the plain version's transposed
+    matrix."""
     import torch
     from flexpart_tpu_torch.physics import convection as cv
     args = redist_args(conv, kern, grid, itime)
-    qk, mk = cv.redist_cuda(p, key, *args, rn=rn)
-    qp, mp = cv.redist_plain(p, key, *args, rn=rn)
+    qk, mk = cv.redist_cuda(p, key, *args, rn=rn, ldirect=ldirect)
+    qp, mp = cv.redist_plain(p, key, *args, rn=rn, ldirect=ldirect)
     torch.cuda.synchronize()
     n = p.capacity
     d = (qk.z - qp.z).abs()
@@ -2102,7 +2138,7 @@ def spin_up(kern, fields, C: int, device, what: str) -> tuple:
     return k, cbmf, steps
 
 
-def kernel_convection(device, grid) -> tuple[dict, dict]:
+def kernel_convection(device, grid) -> tuple[dict, dict, dict]:
     """K6 and K7 against their plain versions at full width.  K6 on both
     convection_cases of the bench grid (L1 = 26: one warp per column, a
     level per lane), each through CONV_SPINUP steps compared bitwise at
@@ -2114,14 +2150,16 @@ def kernel_convection(device, grid) -> tuple[dict, dict]:
     run gives K7), and the sorted particles' result held against the
     unsorted ones' mapped through ``perm`` (each particle's result must not
     depend on the lanes beside it); the sounding case must move
-    particles."""
+    particles.  K7's BACKWARD instantiation (a backward run's transposed
+    matrix) the same way on the cell-ordered particles, its own uniforms
+    and injected ones; it too must move particles on the sounding."""
     import torch
     from flexpart_tpu_torch.core import reorder, rng
     from flexpart_tpu_torch.met import synthetic
     from flexpart_tpu_torch.physics import convection as cv
     kern = cv.make_convection_kernel(grid)
     C, L1 = grid.nx * grid.ny, kern.L1
-    k6, k7, last = {}, {}, {}
+    k6, k7, k7b, last = {}, {}, {}, {}
     for name, fields in convection_cases(grid, device).items():
         k, cbmf, steps = spin_up(kern, fields, C, device, f"K6 {name}")
         last[name] = k
@@ -2203,10 +2241,23 @@ def kernel_convection(device, grid) -> tuple[dict, dict]:
         case["sorted_equals_unsorted_through_perm"] = True
         del zu, zs
         k7[name] = case
+        c = {draw: check_redist(q, key, conv, kern, grid, uu,
+                                f"K7 BACKWARD {name}, {draw} uniforms",
+                                ldirect=-1)
+             for draw, uu in (("injected", rn_q), ("in_registers", None))}
+        c.update(k7_bound(q, conv, kern, grid),
+                 ms=cuda_ms(lambda: cv.redist_cuda(q, key, *args,
+                                                   ldirect=-1), 10),
+                 plain_ms=cuda_ms(lambda: cv.redist_plain(q, key, *args,
+                                                          ldirect=-1), 2))
+        k7b[name] = c
     check(all(k7["sounding"][o][d]["moved"] > 0 for o in ("unordered",
                                                           "cell_ordered")
               for d in ("injected", "in_registers")),
           "K7: no particle moved on the convecting case")
+    check(all(k7b["sounding"][d]["moved"] > 0 for d in ("injected",
+                                                        "in_registers")),
+          "K7 BACKWARD: no particle moved on the convecting case")
     del p, q, perm, rn, rn_q, last
     steady = k7["synthetic"]["cell_ordered"]
     redist_res = dict(
@@ -2223,7 +2274,18 @@ def kernel_convection(device, grid) -> tuple[dict, dict]:
         all_convecting_unordered_ms=k7["sounding"]["unordered"]["ms"],
         **{f: steady[f] for f in ("bound_ms", "bound_by", "bound_bytes",
                                   "bound_operations")})
-    return conv_res, redist_res
+    # the backward run's case: SyntheticMet's matrices, cell order
+    back = k7b["synthetic"]
+    backward_res = dict(
+        n=N_MAIN, cases=k7b, library_ms=None, bitwise=True,
+        max_abs_err=max(c[d]["max_abs_err"] for c in k7b.values()
+                        for d in ("injected", "in_registers")),
+        moved=k7b["sounding"]["in_registers"]["moved"],
+        all_convecting_ms=k7b["sounding"]["ms"],
+        all_convecting_bound_ms=k7b["sounding"]["bound_ms"],
+        **{f: back[f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "bound_bytes", "bound_operations")})
+    return conv_res, redist_res, backward_res
 
 
 # ------------------------------------------------------------ deposition --
@@ -2441,18 +2503,22 @@ def sass_paths(kernel, functions, within: str = "") -> dict:
     from cuobjdump -sass, NOPs aside.  The kernel's own code runs up to its
     first function; the toolkit's slow paths (division, reciprocal, square
     root), which run only for special inputs, are counted in none.  In a
-    library of several instantiations each has its own copy of a function,
-    named after it: ``within`` is the instantiation's mangled name."""
+    library of several instantiations each has its own section, its code
+    followed by its own copy of each function, named after it: ``within``
+    is the instantiation's mangled name, and only its section is read."""
     import re
     starts = {}
     for ln in kernel.cuobjdump("-elf").splitlines():
         m = re.match(r"\s*0x[0-9a-f]+\s+(0x[0-9a-f]+|0)\s+(0x[0-9a-f]+|0)"
                      r"\s+\S+\s+\S+\s+\S+\s+(\$\S+)\s*$", ln)
-        if m and int(m.group(2), 16) > 0:
+        if m and int(m.group(2), 16) > 0 and within in m.group(3):
             starts[m.group(3)] = (int(m.group(1), 16), int(m.group(2), 16))
+    sass = kernel.cuobjdump("-sass")
+    if within:
+        sass = "\n".join(sass_functions(sass)[within])
     code = [(int(a, 16), op) for a, op in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9._]*)",
-        kernel.cuobjdump("-sass"))]
+        sass)]
 
     def count(lo, hi):
         return sum(1 for a, op in code if lo <= a < hi and op != "NOP")
@@ -2460,11 +2526,19 @@ def sass_paths(kernel, functions, within: str = "") -> dict:
     out = {"kernel": count(0, min(v for v, _ in starts.values()))}
     for f in functions:
         hit = [vs for name, vs in starts.items()
-               if re.search(r"\d%sE" % f, name) and within in name]
+               if re.search(r"\d%sE" % f, name)]
         check(len(hit) == 1, f"{kernel.name}: function {f} not found once "
               f"in the compiled kernel: {sorted(starts)}")
         out[f] = count(hit[0][0], hit[0][0] + hit[0][1])
     return out
+
+
+def k9_instructions() -> dict:
+    """sass_paths of K9's forward instantiation (its BKDEP one, the
+    backward runs' scavenging factor, has a section of its own)."""
+    from flexpart_tpu_torch import _build
+    entry = sass_instantiation(_build.WETDEPO, "wetdepo_kernel", (False,))[0]
+    return sass_paths(_build.WETDEPO, K9_PATHS, within=entry)
 
 
 def k9_path_calls(p, zf, wet, msp) -> dict:
@@ -2576,7 +2650,7 @@ def kernel_deposition(device, grid) -> dict:
     ldeltat = 2700
     k9, k10, k8, k10_tb = {}, {}, {}, {}
     deposits = {}
-    k9_ops = sass_paths(_build.WETDEPO, K9_PATHS)
+    k9_ops = k9_instructions()
     for oname, q in orders.items():
         for fname, zf in fields.items():
             r = check_wetdepo(q, zf, wet, msp, ldeltat,
@@ -2695,26 +2769,30 @@ def sim_depo_checks(sim, snap, what: str) -> dict:
     """K9, K10 and K8 against their plain versions on one kept step of
     ``Simulation.run``: the step's particles (after its release, before
     its sort), its met field nearest itime - lsync/2 (K9) and its later
-    field's deposition velocities (K10), its ldeltat; K8 on both deposits,
-    the wet one at itime and the dry one at itime + lsync, against the
-    float64 sum of its pairs.  Where fewer than SIM_MIN_RAINED of the
-    active particles are scavenged, K9 once more on them put in the storm
-    band (``storm_band_particles``), where it must scavenge."""
+    field's deposition velocities (K10), its ldeltat; lsync and the times
+    signed as the run's, negative backward.  K8 on both deposits, the wet
+    one at itime and the dry one at itime + lsync, against the float64 sum
+    of its pairs: forward only (a backward run grids no deposit).  Where
+    fewer than SIM_MIN_RAINED of the active particles are scavenged, K9
+    once more on them put in the storm band (``storm_band_particles``),
+    where it must scavenge."""
     import torch
     from flexpart_tpu_torch import _build
     from flexpart_tpu_torch.physics import massupdate as mu
     from flexpart_tpu_torch.physics import wetdepo as wd
     istep, itime, p, z0, z1, mt0, mt1 = snap[:7]
-    loutnext = 3600 * max(1, -(-itime // 3600))
-    ldeltat = itime - (loutnext - 3600)
-    interp_t = itime - LSYNC // 2
+    ld = sim.cmd.ldirect
+    # the run's output time and ldeltat (hourly output), mirrored forward
+    t = ld * itime
+    loutnext = 3600 * max(1, -(-t // 3600))
+    ldeltat = ld * (t - (loutnext - 3600))
+    interp_t = itime - ld * LSYNC // 2
     zw = z0 if abs(mt0 - interp_t) < abs(mt1 - interp_t) else z1
     wet, msp = sim.wet_species, sim.mass_species
     res = {}
     r9 = check_wetdepo(p, zw, wet, msp, ldeltat, f"{what}: K9")
     wdep = r9.pop("deposit")
-    r9.update(k9_bound(p, zw, wet, msp, sass_paths(_build.WETDEPO,
-                                                   K9_PATHS)))
+    r9.update(k9_bound(p, zw, wet, msp, k9_instructions()))
     r9["ms"] = cuda_ms(lambda: wd.wetdepo_cuda(p, zw, LSYNC, ldeltat, wet,
                                                msp), 10)
     r9["plain_ms"] = cuda_ms(lambda: mu.apply_wetdepo_plain(
@@ -2735,11 +2813,12 @@ def sim_depo_checks(sim, snap, what: str) -> dict:
     r10["plain_ms"] = cuda_ms(lambda: mu.apply_decay_drydep_plain(
         p, z1.vdep, LSYNC, ldeltat, msp, True), 3)
     res["drydepo"] = r10
-    res["depo_scatter"] = {
-        "wet": check_depo_scatter(p, wdep, itime, sim.lage, sim.conc_cfg,
-                                  f"{what}: K8 wet"),
-        "dry": check_depo_scatter(p, ddep, itime + LSYNC, sim.lage,
-                                  sim.conc_cfg, f"{what}: K8 dry")}
+    if ld == 1:
+        res["depo_scatter"] = {
+            "wet": check_depo_scatter(p, wdep, itime, sim.lage,
+                                      sim.conc_cfg, f"{what}: K8 wet"),
+            "dry": check_depo_scatter(p, ddep, itime + LSYNC, sim.lage,
+                                      sim.conc_cfg, f"{what}: K8 dry")}
     return res
 
 
@@ -3008,6 +3087,20 @@ def phase_step(device, grid) -> dict:
                 gridunc_max_abs_err=float(gd.max()), mass=float(gk.sum()))
 
 
+def counted_run(kernels, run):
+    """``run()`` with every launch count set to 0 just before it and read
+    just after, the card idle both times: (the launches by kernel, the
+    seconds it took)."""
+    import torch
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return {k.name: k.launches for k in kernels}, time.perf_counter() - t0
+
+
 def phase_main(device, grid, kernels) -> tuple[dict, dict]:
     """The bench.py step at full width, MAIN_STEPS steps with a sort every
     REORDER_EVERY; launch counts reset just
@@ -3039,20 +3132,18 @@ def phase_main(device, grid, kernels) -> tuple[dict, dict]:
         acc = conc(acc, p, z0, it + LSYNC, lage, 1.0, c)
         return diag
 
-    torch.cuda.synchronize()
-    for k in kernels:
-        k.launches = 0
-    t_all = time.perf_counter()
-    for i in range(MAIN_STEPS):
-        t0 = time.perf_counter()
-        diag = one_step(i)
-        finite &= (torch.isfinite(p.x).all() & torch.isfinite(p.y).all()
-                   & torch.isfinite(p.z).all())
-        diags.append(diag)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    wall = time.perf_counter() - t_all
-    launches = {k.name: k.launches for k in kernels}
+    def steps():
+        nonlocal finite
+        for i in range(MAIN_STEPS):
+            t0 = time.perf_counter()
+            diag = one_step(i)
+            finite &= (torch.isfinite(p.x).all() & torch.isfinite(p.y).all()
+                       & torch.isfinite(p.z).all())
+            diags.append(diag)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+
+    launches, wall = counted_run(kernels, steps)
 
     for i, d in enumerate(diags):
         check(int(d.n_active) == N_MAIN, f"main step {i}: n_active {int(d.n_active)}")
@@ -3190,6 +3281,155 @@ def sim_setup(outdir, device, write_netcdf: bool, **kw):
                       write_netcdf=write_netcdf, **kw)
 
 
+def on_convecting_columns(p, conv, grid, itime: int, what: str,
+                          every_level: bool = False):
+    """``p`` with slot s put at the centre of the s-th convecting column
+    of ``conv`` (round robin), every slot scheduled and released at
+    ``itime``: where K7 must move particles.  z kept, or with
+    ``every_level`` the middle of level (s // columns) mod L1 of its
+    column: backward, K7 moves a particle only where its level's mass came
+    from other levels (the updraft's detrainment levels, a downdraft's
+    base), which the low plume never reaches."""
+    import torch
+    cols = torch.nonzero(conv.lconv).flatten().to(torch.int32)
+    check(cols.numel() > 0, f"{what}: no column convects")
+    slot = torch.arange(p.capacity, device=cols.device)
+    at = cols[slot % cols.numel()]
+    z = p.z
+    if every_level:
+        L1 = conv.uvzlev.shape[1] - 1
+        lev = (slot // cols.numel()) % L1
+        uvz = conv.uvzlev[at.long()]
+        z = 0.5 * (uvz.gather(1, lev[:, None]) + uvz.gather(1, lev[:, None]
+                                                             + 1))[:, 0]
+    zero = torch.zeros_like(p.x_lo)
+    return p.replace(x_hi=(at % grid.nx).float(), x_lo=zero,
+                     y_hi=(at // grid.nx).float(), y_lo=zero,
+                     z=z.contiguous(), itra=torch.full_like(p.itra, itime),
+                     active=torch.ones_like(p.active))
+
+
+def sim_conccalc_checks(sim, q, z1, itime: int, what: str) -> dict:
+    """K3 against its plain version on the particles ``q`` that one step
+    of ``Simulation.run`` samples, on the step's own path and on the
+    4-point path, both held to the float64 sum of the same pairs."""
+    import torch
+    from flexpart_tpu_torch.grid import conccalc as cc
+    device = sim.device
+    step_ccfg = sim._ccfg_at(itime, sim.conc_cfg)
+    oh = torch.tensor(sim.outgrid.outheights, dtype=torch.float32,
+                      device=device)
+    rhoi = cc._rho_at_particles(q, z1) if step_ccfg.ind_samp == -1 else None
+    gk = torch.zeros_like(sim.acc.gridunc)
+    gp = torch.zeros_like(gk)
+    flat_k, flat_p = gk.view(-1, q.nspec), gp.view(-1, q.nspec)
+    res = {}
+    for kp in sorted({step_ccfg.kernel_possible, True}):
+        c = step_ccfg.replace(kernel_possible=kp)
+        args = (q, itime, sim.lage, oh, 1.0, rhoi, c)
+        path = "4-point" if kp else "single-index"
+        gk.zero_()
+        gp.zero_()
+        cc.conccalc_cuda(flat_k, *args)
+        cc.conccalc_plain(flat_p, *args)
+        # A plume puts up to 10**6 equal contributions into one output
+        # cell, and float32 additions in different orders then differ by
+        # more than the kernels phase's rtol (the plain version's
+        # index_add_ adds them one by one).  So both are held to the
+        # float64 sum of the same pairs: any order of m float32 additions
+        # of non-negative terms stays within m * 2**-24 of it, relatively,
+        # and a cell of few pairs is held as tightly as in the kernels phase.
+        lin, valid, contrib = cc.conccalc_pairs(flat_k.shape[0], *args)
+        lin, contrib = lin[valid], contrib[valid]
+        flat_l = torch.zeros_like(flat_k)
+        library_ms = cuda_ms(lambda: flat_l.index_add_(0, lin, contrib), 10)
+        del flat_l
+        ref = torch.zeros(flat_k.shape, dtype=torch.float64, device=device)
+        ref.index_add_(0, lin, contrib.double())
+        pairs = torch.zeros(flat_k.shape[0], dtype=torch.int64, device=device)
+        pairs.index_add_(0, lin, torch.ones_like(lin))
+        del lin, valid, contrib
+        rtol = torch.clamp(pairs.double() * 2.0 ** -24, min=K3_RTOL)[:, None]
+        check(float(ref.sum()) > 0.0, f"{what}: K3 {path} samples nothing")
+        rel = {}
+        for who, flat in (("kernel", flat_k), ("plain", flat_p)):
+            d = (flat.double() - ref).abs()
+            rel[who] = float((d / ref.clamp(min=1e-300)).max())
+            check(bool(torch.all(d <= rtol * ref)),
+                  f"{what}: K3 {path} path, {who}: a cell is further from "
+                  f"the float64 sum of its pairs than their count allows, "
+                  f"max rel {rel[who]}")
+        res[path] = dict(
+            the_steps_own_path=kp == step_ccfg.kernel_possible,
+            max_abs_err=float((flat_k.double() - ref).abs().max()),
+            max_rel_err_vs_f64=rel["kernel"],
+            plain_max_rel_err_vs_f64=rel["plain"],
+            total_rel_err_vs_f64=abs(float(flat_k.sum(dtype=torch.float64))
+                                     / float(ref.sum()) - 1.0),
+            cells_hit=int((pairs != 0).sum()),
+            most_pairs_in_a_cell=int(pairs.max()),
+            ms=cuda_ms(lambda: cc.conccalc_cuda(flat_k, *args), 10),
+            plain_ms=cuda_ms(lambda: cc.conccalc_plain(flat_p, *args), 3),
+            library_ms=library_ms)
+        del ref, pairs, rtol, d
+    return res
+
+
+def sim_backward_kernel_checks(sim, snap, what: str) -> dict:
+    """The kernels of a backward run's step against their plain versions
+    on the tensors that one step of ``Simulation.run`` gave them (``snap``
+    as in sim_kernel_checks): K9 and K10 (sim_depo_checks: no deposit is
+    gridded backward); on the particles in the step's cell order, K6 at
+    the step's time weights and flux memory, bitwise, and K7 BACKWARD with
+    the step's key, z bitwise and the moved counts equal, with injected
+    uniforms and with its own; once more on those particles put in the
+    step's convecting columns at every level, where some must move; then
+    K3 on the redistributed particles (sim_conccalc_checks)."""
+    import numpy as np
+    import torch
+    from flexpart_tpu_torch.core import reorder, rng
+    from flexpart_tpu_torch.physics import convection as cv
+    istep, itime, p, z0, z1, mt0, mt1, eta0, eta1, cbmf = snap
+    ld = sim.cmd.ldirect
+    check(ld == -1, f"{what}: not a backward run")
+    n, grid = p.capacity, sim.grid
+    res = dict(istep=istep, itime=itime, scheduled=int(p.active.sum()))
+    res.update(sim_depo_checks(sim, snap, what))
+    q = reorder.reorder_by_cell_cuda(p, z0.height, sim.step_cfg)[0]
+    kern = sim.conv_kernel
+    fields = tuple(getattr(e, name) for e in (eta0, eta1)
+                   for name in ("ps", "tth", "qvh", "tt2", "td2"))
+    dt1, dt2 = float(itime - mt0), float(mt1 - itime)
+    dtt = 1.0 / (dt1 + dt2)
+    tw = (float(np.float32(dt2 * dtt)), float(np.float32(dt1 * dtt)))
+    conv, _, res["convection"] = check_convection(kern, fields, cbmf,
+                                                  f"{what}:", tw)
+    key = rng.Key(sim.seed, istep)
+    own = rng.uniforms_plain(n, *key.philox_key(cv.REDIST_TAG), sim.device)
+    k7 = {draw: check_redist(q, key, conv, kern, grid, rn,
+                             f"{what}: K7 BACKWARD, {draw} uniforms", itime,
+                             ldirect=ld)
+          for draw, rn in (("injected", own), ("in_registers", None))}
+    q_live = on_convecting_columns(q, conv, grid, itime, f"{what}: K7",
+                                   every_level=True)
+    live = check_redist(q_live, key, conv, kern, grid, None,
+                        f"{what}: K7 BACKWARD on convecting columns", itime,
+                        ldirect=ld)
+    check(live["moved"] > 0, f"{what}: K7 BACKWARD moved no particle of "
+          "the step's convecting columns")
+    args7 = redist_args(conv, kern, grid, itime)
+    res["redist_backward"] = dict(
+        **k7, **k7_bound(q, conv, kern, grid, itime),
+        on_convecting_columns=dict(
+            **live, **k7_bound(q_live, conv, kern, grid, itime)))
+    del q_live
+    q = cv.redist_cuda(q, key, *args7, ldirect=ld)[0]
+    del conv, fields
+    res["conccalc"] = sim_conccalc_checks(sim, q, z1, itime, what)
+    torch.cuda.empty_cache()
+    return res
+
+
 def sim_kernel_checks(sim, snap, what: str) -> dict:
     """K9, K10, K8, K2, K5, K6, K7, K3 and K4 against their plain versions
     on the tensors that one step of ``Simulation.run`` gave them: ``snap``
@@ -3212,7 +3452,6 @@ def sim_kernel_checks(sim, snap, what: str) -> dict:
     import torch
     from flexpart_tpu_torch.core import advance, interp, reorder, rng
     from flexpart_tpu_torch.core.state import FIELDS
-    from flexpart_tpu_torch.grid import conccalc as cc
     from flexpart_tpu_torch.physics import convection as cv
     istep, itime, p, z0, z1, mt0, mt1, eta0, eta1, cbmf = snap
     cfg, prm, device = sim.step_cfg, sim.step_prm, sim.device
@@ -3286,19 +3525,10 @@ def sim_kernel_checks(sim, snap, what: str) -> dict:
                     "rng.uniforms_plain's", ("z",))
     check(int(m_reg) == int(m_inj), f"{what}: K7 moved counts differ")
     # The step's plume lies outside SyntheticMet's convecting bands, so K7
-    # finds no live particle in it.  So K7 is held once more on the step's
-    # own matrices with the same particles put at the centres of the
-    # convecting columns (slot s in the s-th of them, round robin), all
-    # scheduled, their z kept: they must move.
-    cols = torch.nonzero(conv.lconv).flatten().to(torch.int32)
-    check(cols.numel() > 0, f"{what}: no column convects")
-    at = cols[torch.arange(n, device=device) % cols.numel()]
-    zero = torch.zeros_like(q_in.x_lo)
-    q_live = q_in.replace(
-        x_hi=(at % sim.grid.nx).float(), x_lo=zero,
-        y_hi=(at // sim.grid.nx).float(), y_lo=zero,
-        itra=torch.full_like(q_in.itra, itime),
-        active=torch.ones_like(q_in.active))
+    # finds no live particle in it: it is held once more on the step's own
+    # matrices with the particles put in the convecting columns
+    q_live = on_convecting_columns(q_in, conv, sim.grid, itime,
+                                   f"{what}: K7")
     k7_live = check_redist(q_live, key, conv, kern, sim.grid, own,
                            f"{what}: K7 on convecting columns", itime)
     check(k7_live["moved"] > 0, f"{what}: K7 moved no particle of the "
@@ -3324,63 +3554,7 @@ def sim_kernel_checks(sim, snap, what: str) -> dict:
     del q_in, q_inj, q_live, q_live_sorted, conv, fields
 
     # K3 on the sorted particles, as the step samples them
-    step_ccfg = sim._ccfg_at(itime, sim.conc_cfg)
-    oh = torch.tensor(sim.outgrid.outheights, dtype=torch.float32,
-                      device=device)
-    rhoi = cc._rho_at_particles(q, z1) if step_ccfg.ind_samp == -1 else None
-    gk = torch.zeros_like(sim.acc.gridunc)
-    gp = torch.zeros_like(gk)
-    flat_k, flat_p = gk.view(-1, q.nspec), gp.view(-1, q.nspec)
-    res["conccalc"] = {}
-    for kp in sorted({step_ccfg.kernel_possible, True}):
-        c = step_ccfg.replace(kernel_possible=kp)
-        args = (q, itime, sim.lage, oh, 1.0, rhoi, c)
-        path = "4-point" if kp else "single-index"
-        gk.zero_()
-        gp.zero_()
-        cc.conccalc_cuda(flat_k, *args)
-        cc.conccalc_plain(flat_p, *args)
-        # A plume puts up to 10**6 equal contributions into one output
-        # cell, and float32 additions in different orders then differ by
-        # more than the kernels phase's rtol (the plain version's
-        # index_add_ adds them one by one).  So both are held to the
-        # float64 sum of the same pairs: any order of m float32 additions
-        # of non-negative terms stays within m * 2**-24 of it, relatively,
-        # and a cell of few pairs is held as tightly as in the kernels phase.
-        lin, valid, contrib = cc.conccalc_pairs(flat_k.shape[0], *args)
-        lin, contrib = lin[valid], contrib[valid]
-        flat_l = torch.zeros_like(flat_k)
-        library_ms = cuda_ms(lambda: flat_l.index_add_(0, lin, contrib), 10)
-        del flat_l
-        ref = torch.zeros(flat_k.shape, dtype=torch.float64, device=device)
-        ref.index_add_(0, lin, contrib.double())
-        pairs = torch.zeros(flat_k.shape[0], dtype=torch.int64, device=device)
-        pairs.index_add_(0, lin, torch.ones_like(lin))
-        del lin, valid, contrib
-        rtol = torch.clamp(pairs.double() * 2.0 ** -24, min=K3_RTOL)[:, None]
-        check(float(ref.sum()) > 0.0, f"{what}: K3 {path} samples nothing")
-        rel = {}
-        for who, flat in (("kernel", flat_k), ("plain", flat_p)):
-            d = (flat.double() - ref).abs()
-            rel[who] = float((d / ref.clamp(min=1e-300)).max())
-            check(bool(torch.all(d <= rtol * ref)),
-                  f"{what}: K3 {path} path, {who}: a cell is further from "
-                  f"the float64 sum of its pairs than their count allows, "
-                  f"max rel {rel[who]}")
-        res["conccalc"][path] = dict(
-            the_steps_own_path=kp == step_ccfg.kernel_possible,
-            max_abs_err=float((flat_k.double() - ref).abs().max()),
-            max_rel_err_vs_f64=rel["kernel"],
-            plain_max_rel_err_vs_f64=rel["plain"],
-            total_rel_err_vs_f64=abs(float(flat_k.sum(dtype=torch.float64))
-                                     / float(ref.sum()) - 1.0),
-            cells_hit=int((pairs != 0).sum()),
-            most_pairs_in_a_cell=int(pairs.max()),
-            ms=cuda_ms(lambda: cc.conccalc_cuda(flat_k, *args), 10),
-            plain_ms=cuda_ms(lambda: cc.conccalc_plain(flat_p, *args), 3),
-            library_ms=library_ms)
-        del ref, pairs, rtol, d
-    del gk, gp, flat_k, flat_p
+    res["conccalc"] = sim_conccalc_checks(sim, q, z1, itime, what)
 
     # K4 on the sorted particles with the step's key
     key = rng.Key(sim.seed, istep)
@@ -3426,7 +3600,7 @@ def kept_steps(sim, nsteps: int, what: str) -> dict:
     middle of the release (an active plume, a block just woken in the last
     slots, the rest unscheduled) and the last step that advances, long
     after it.  Returns {step: name}."""
-    release_steps = sorted(t // LSYNC for t in sim._release_times)
+    release_steps = sorted(abs(t) // LSYNC for t in sim._release_times)
     keep = {release_steps[len(release_steps) // 2]: "release step",
             nsteps - 1: "steady step"}
     check(len(keep) == 2 and nsteps - 1 > release_steps[-1],
@@ -3476,12 +3650,14 @@ def sim_run_checks(sim, what: str, released: float) -> tuple:
 
 
 def run_twice(setup, kernels, what: str, released: float, path_kernels,
-              check_a=None, probe_fn=None, wrap=None):
+              check_a=None, probe_fn=None, wrap=None,
+              run_checks=sim_run_checks):
     """A Simulation path run twice with one seed, the one two-run check of
     every sim path.  Run A (``setup("a")``) carries no probe and is timed
     as a whole, its launch counts set to 0 just before and read just
     after: each kernel of ``path_kernels`` must have been launched, K5 once
-    per sort; sim_run_checks holds its particles, files and budget, and
+    per sort; ``run_checks`` (sim_run_checks unless given: a backward run
+    has checks of its own) holds its particles, files and budget, and
     ``check_a(sim)`` (if given) adds the path's own checks and numbers.
     Run B (``setup("b")``) runs under torch.profiler, with
     ``probe_fn(sim)`` as its step probe (a probe may wait for the card)
@@ -3498,19 +3674,12 @@ def run_twice(setup, kernels, what: str, released: float, path_kernels,
     t_setup = time.perf_counter()
     sim = setup("a")
     setup_s = time.perf_counter() - t_setup
-    torch.cuda.synchronize()
-    for k in kernels:
-        k.launches = 0
-    t0 = time.perf_counter()
-    sim.run()
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    launches, run_s = counted_run(kernels, sim.run)
     for name in path_kernels:
         check(launches[name] > 0, f"{what}: kernel {name} was never launched")
     check(launches["reorder"] == sim.n_sorts,
           f"{what}: sorts and K5 launches differ")
-    checks, last, conc_a = sim_run_checks(sim, what, released)
+    checks, last, conc_a = run_checks(sim, what, released)
     a = dict(setup_s=setup_s, run_s=run_s, launches=launches,
              particle_steps=sim.timings["particle_steps"],
              particle_steps_per_s_whole_run=sim.timings["particle_steps"]
@@ -3562,8 +3731,11 @@ def run_twice(setup, kernels, what: str, released: float, path_kernels,
              depo_grids_two_runs_max_abs_diff=depo_diff)
     rows = device_rows(prof)
     del prof, pa, wet_a, dry_a
-    # the device functions of each kernel, as the profiler names them
-    words = {"reorder": SORT_KERNELS, "depo_scatter": ("depo_grid_kernel",)}
+    # the device functions of each kernel, as the profiler names them (an
+    # instantiation launched through an entry of its own by its template's)
+    words = {"reorder": SORT_KERNELS, "depo_scatter": ("depo_grid_kernel",),
+             **{k.name: (f"{k.kernel.name}_kernel",) for k in kernels
+                if hasattr(k, "kernel")}}
     for name in path_kernels:
         check(any(w in r[0] for r in rows
                   for w in words.get(name, (f"{name}_kernel",))),
@@ -4211,6 +4383,599 @@ def phase_sim_nested(device, kernels) -> dict:
     return res
 
 
+# ------------------------------------------------ backward runs: kernels --
+
+# the adaptive advance's backward checks (K11 and K11 CBL at ldirf = -1)
+# take a tenth of the main path's particles: the plain versions take 0.7 s
+# and 3 s at its full width, and K11 has been held at full width forward
+N_BACKWARD_ADAPTIVE = 2 ** 20
+# a backward step in the middle of a wind interval (the run's times count
+# down from 0): its start and the two met times around it
+BACK_ITIME, BACK_MEM0, BACK_MEM1 = -4500, -7200, -3600
+
+
+def backward(cfg):
+    """The same StepConfig with ldirect = -1 (AdvanceArgs.ldirf = -1)."""
+    from flexpart_tpu_torch.core.advance import StepConfig
+    return StepConfig(**{**cfg.__dict__, "ldirect": -1})
+
+
+def kernel_advance_backward(device, grid) -> dict:
+    """The advance of a backward run (ldirect = -1: AdvanceArgs.ldirf = -1
+    reverses the displacement, the Langevin equation's time direction and
+    the z update; the end time lies before itime) against the plain
+    advance, every output bitwise: stock K4 and its POLAR instantiation on
+    10 x 2**20 particles with K1's draws injected (edge_particles, which
+    enter every branch, and sphere_particles over both caps), each timed in
+    cell order beside the forward instantiation on the same particles; K11
+    (settling, as sim_adaptive) and K11 CBL (as sim_cbl, on convective_met)
+    on N_BACKWARD_ADAPTIVE boundary-layer particles with their draws made
+    in registers (check_adaptive).  The particles must move otherwise than
+    forward."""
+    import copy
+    import torch
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
+    itime, mem0, mem1 = BACK_ITIME, BACK_MEM0, BACK_MEM1
+    key = rng.Key(4321, 21)
+    res = {}
+    for name, kw in (("stock", {}), ("polar", {"polar": True})):
+        fwd, prm, *_ = step_setup(grid, **kw)
+        cfg = backward(fwd)
+        tw = advance._time_weights(itime, mem0, mem1, prm, cfg)[:4]
+        tables = interp.build_step_tables_quad(z0, z1, *tw,
+                                               dtype=cfg.table_dtype)
+        a = advance.advance_args(cfg, prm, itime, mem0, mem1)
+        a_fwd = advance.advance_args(fwd, prm, itime, mem0, mem1)
+        check(a.ldirf == -1.0 and a_fwd.ldirf == 1.0 and a.itra_new < itime,
+              f"K4 {name} backward: ldirf {a.ldirf}, end {a.itra_new}")
+        if name == "stock":
+            p = edge_particles(N_MAIN, device, 51, itime, lambda q: sample_met(
+                q, z0.height, tables, cfg)[0])
+        else:
+            p = sphere_particles(N_MAIN, device, 52, itime, grid.nx, grid.ny)
+        draws = {tag: rng.normals(key, (rows, N_MAIN), tag, device=device)
+                 for tag, rows in {**advance.DRAW_ROWS, 2: cfg.ifine}.items()}
+
+        def run(q, d=None, args=a, c=cfg):
+            return advance.advance_all_cuda(q, z0.height, tables, args, key,
+                                            c, d, 0)
+
+        (pk, _), (pp, _) = run(p, draws), advance.advance_all_plain(
+            p, z0.height, tables, a, key, cfg, draws, 0)
+        torch.cuda.synchronize()
+        r = compare_particles(pk, pp, f"K4 {name} backward",
+                              float(grid.nx - 1))
+        differ = differing_particles(pk, pp, advance.OUT_FIELDS)
+        check(differ == 0, f"K4 {name} backward differs from its plain "
+              f"version in {differ} particles")
+        check_same_bits(run(p)[0], pk, f"K4 {name} backward: draws in "
+                        "registers vs injected")
+        fw = run(p, draws, a_fwd, fwd)[0]
+        both = p.active & pk.active & fw.active
+        apart = float((pk.x - fw.x)[both].abs().mean())
+        check(apart > 0.0, f"K4 {name} backward moves as forward")
+        del pk, pp, fw, draws
+        q = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
+        r.update(differing_particles=differ, bitwise=True, n=N_MAIN,
+                 mean_x_apart_from_forward=apart,
+                 max_abs_err=max(r["max_dx"], r["max_dy"]),
+                 ms=cuda_ms(lambda: run(q), 10),
+                 forward_ms=cuda_ms(lambda: run(q, None, a_fwd, fwd), 10),
+                 plain_ms=cuda_ms(lambda: advance.advance_all_plain(
+                     q, z0.height, tables, a, key, cfg, None, 0), 2))
+        res[f"advance_{name}"] = r
+        del p, q, tables
+        torch.cuda.empty_cache()
+
+    for name, conv in (("adaptive", False), ("adaptive_cbl", True)):
+        zz0, zz1 = ((convective_met(z, grid.nx // 2) for z in (z0, z1))
+                    if conv else (z0, z1))
+        fwd, prm = (cbl_params(grid) if conv else settling_params(
+            grid, turbswitch=True, ifine=4, method=1, settling=True,
+            polar=True))
+        cfg = backward(fwd)
+        tw = advance._time_weights(itime, mem0, mem1, prm, cfg)[:4]
+        tables = interp.build_step_tables_quad(zz0, zz1, *tw,
+                                               dtype=cfg.table_dtype)
+        a = advance.advance_args(cfg, prm, itime, mem0, mem1)
+        a_fwd = advance.advance_args(fwd, prm, itime, mem0, mem1)
+        settle = advance.settle_met(zz0, cfg) if cfg.settling else None
+        p = boundary_layer_particles(N_BACKWARD_ADAPTIVE, device, 53, grid,
+                                     itime, lambda q: sample_met(
+                                         q, zz0.height, tables, cfg)[0])
+        q = reorder.reorder_by_cell_cuda(p, zz0.height, cfg)[0]
+        r, pk, dk = check_adaptive(q, zz0.height, tables, a, key, cfg, settle,
+                                   f"K11 {name} backward", time_plain=True)
+        check(int(dk.passes.sum()) > 0, f"K11 {name} backward: no pass")
+
+        def run(args, c):
+            return advance.advance_adaptive_cuda(
+                q, zz0.height, tables, copy.copy(args), key, c, None, 0,
+                settle)
+
+        fw = run(a_fwd, fwd)[0]
+        both = pk.active & fw.active
+        check(bool(((pk.x - fw.x).abs() > 0)[both].any()),
+              f"K11 {name} backward moves as forward")
+        r.update(n=N_BACKWARD_ADAPTIVE, nan_count=int(dk.nan_count),
+                 ms=cuda_ms(lambda: run(a, cfg), 5),
+                 forward_ms=cuda_ms(lambda: run(a_fwd, fwd), 5))
+        res[name] = r
+        del p, q, pk, dk, fw, tables
+        torch.cuda.empty_cache()
+    return res
+
+
+def backward_conccalc_particles(device, nspec: int = 2):
+    """The K3 phase's steady ensemble (old particles, cell order) with
+    ``nspec`` species and scavenging factors in [-0.5, 2): a fifth of them
+    negative, which a backward deposition run samples as 0."""
+    import torch
+    from flexpart_tpu_torch.core import reorder
+    p = bench_particles(N_MAIN, device, seed=7, old_fraction=1.0)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(71)
+    mass = torch.rand((N_MAIN, nspec), generator=gen, device=device) / N_MAIN
+    xscav = torch.rand((N_MAIN, nspec), generator=gen,
+                       device=device) * 2.5 - 0.5
+    p = p.replace(itra=torch.full_like(p.itra, 14400),
+                  itramem=p.itramem + 14400 - 3600, mass=mass,
+                  mass0=mass.clone(), xscav=xscav)
+    return p
+
+
+def kernel_conccalc_backward(device, grid) -> dict:
+    """K3's BKDEP instantiation (each species' value times max(xscav, 0))
+    and its COUNT instantiation (the particle count: 1, or the 4-point
+    weight) against conccalc_plain on 10 x 2**20 old particles with two
+    species in cell order, both sampling paths, within K3_RTOL (float
+    atomics); timed on the steady step's path (4-point) beside the stock
+    instantiation on the same particles, with index_add_ of each one's own
+    valid pairs as the library call (the scatter half)."""
+    import torch
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.grid import conccalc as cc
+    from flexpart_tpu_torch.grid.outgrid import zero_accumulators
+    cfg, _, og, geo, ccfg = step_setup(grid)
+    (z0,) = met_fields("synthetic", grid, device)
+    nspec = 2
+    p = reorder.reorder_by_cell_cuda(backward_conccalc_particles(device,
+                                                                 nspec),
+                                     z0.height, cfg)[0]
+    lage = torch.tensor([999999999], dtype=torch.int32, device=device)
+    oh = torch.tensor(og.outheights, dtype=torch.float32, device=device)
+    gk = zero_accumulators(geo, nspec, 1, device=device).gridunc
+    gp = torch.zeros_like(gk)
+    rows = gk.numel() // nspec
+    res = {}
+    for name, flags in (("conccalc.bkdep", dict(bkdep=True)),
+                        ("conccalc.count", dict(particle_count_output=True))):
+        cases = {}
+        for kp in (False, True):
+            c = ccfg.replace(kernel_possible=kp, **flags)
+            args = (p, 14400, lage, oh, 1.0, None, c)
+            what = f"K3 {name} {'4-point' if kp else 'single-index'} path"
+            gk.zero_()
+            gp.zero_()
+            cc.conccalc_cuda(gk.view(-1, nspec), *args)
+            cc.conccalc_plain(gp.view(-1, nspec), *args)
+            d = (gk - gp).abs()
+            check(bool(torch.all(d <= K3_RTOL * gp.abs())),
+                  f"{what} exceeds rtol {K3_RTOL}: max abs {float(d.max())}")
+            check(float(gp.sum()) > 0.0, f"{what}: nothing sampled")
+            lin, valid, contrib = cc.conccalc_pairs(rows, *args)
+            lin_v, con_v = lin[valid], contrib[valid]
+            del lin, valid, contrib
+            flat_l = torch.zeros_like(gk.view(-1, nspec))
+            case = dict(max_abs_err=float(d.max()), pairs=int(lin_v.numel()),
+                        library_ms=cuda_ms(
+                            lambda: flat_l.index_add_(0, lin_v, con_v), 10),
+                        ms=cuda_ms(lambda: cc.conccalc_cuda(
+                            gk.view(-1, nspec), *args), 10),
+                        stock_ms_same_particles=cuda_ms(
+                            lambda: cc.conccalc_cuda(
+                                gk.view(-1, nspec), *args[:-1],
+                                c.replace(bkdep=False,
+                                          particle_count_output=False)), 10),
+                        plain_ms=cuda_ms(lambda: cc.conccalc_plain(
+                            gp.view(-1, nspec), *args), 3))
+            del lin_v, con_v, flat_l
+            cases["kernel" if kp else "single"] = case
+        m = cases["kernel"]
+        # 37 B of particle state and the mass (4 B a species) in, BKDEP's
+        # xscav (4 B a species); COUNT reads no mass; the grid read and
+        # written once (atomics on top are not counted)
+        per = 37 + (8 * nspec if name.endswith("bkdep") else 0)
+        res[name] = dict(
+            {f: m[f] for f in ("ms", "plain_ms", "library_ms",
+                               "stock_ms_same_particles")},
+            max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+            cases=cases, n=N_MAIN, nspec=nspec,
+            **bound(per * N_MAIN + 2 * 4 * gk.numel(),
+                    K3_OPS_PER_PARTICLE * N_MAIN))
+    return res
+
+
+def bkdep_particles(p, device, seed: int):
+    """p with scavenging factors of a backward deposition run: half the
+    active particles fresh (xscav = -1, to be assigned), the rest 0.5."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    fresh = torch.rand(p.capacity, generator=gen, device=device) < 0.5
+    xs = torch.where(fresh[:, None], -1.0, 0.5).expand(-1, p.nspec)
+    return p.replace(xscav=xs.contiguous())
+
+
+def kernel_bkdep(device, grid) -> dict:
+    """K9's and K10's BKDEP instantiations (the scavenging factor of a
+    backward deposition run's fresh particles) against their plain
+    versions on the deposition phase's 10 x 2**20 particles with two
+    species, half of them fresh, in cell order: mass and xscav bitwise.
+    K9 BKDEP on SyntheticMet's fields and with every cloud class (some
+    factors must be positive, some masses zeroed); K10 BKDEP on a velocity
+    field of which a tenth is not positive (some masses zeroed)."""
+    import torch
+    from flexpart_tpu_torch import _build
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.physics import bkdep as bk
+    from flexpart_tpu_torch.physics import wetdepo as wd
+    cfg = step_setup(grid)[0]
+    species = depo_species()
+    wet = tuple(wd.WetSpecies.from_species(s) for s in species)
+    (z0,) = met_fields("synthetic", grid, device, (3600.0,))
+    fields = {"synthetic": z0, "all_classes": all_classes_met(z0, device, 21)}
+    p = bkdep_particles(depo_particles(N_MAIN, device, 23, grid), device, 24)
+    q = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
+    del p
+    fresh = q.active & (q.xscav[:, 0] < 0)
+    n_fresh = int(fresh.sum())
+
+    def held(k, pl, what):
+        # bitwise: bits_or_close with no tolerance
+        out = {f: bits_or_close(getattr(k, f), getattr(pl, f), 0.0,
+                                f"{what}: {f}") for f in ("mass", "xscav")}
+        return dict(max_abs_err=max(v["max_abs_err"] for v in out.values()),
+                    zeroed=int(((pl.mass == 0) & (q.mass != 0)).any(1).sum()),
+                    positive=int((fresh[:, None] & (pl.xscav > 0)).sum()))
+
+    k9 = {}
+    for fname, zf in fields.items():
+        what = f"K9 BKDEP {fname}"
+        k, pl = (bk.assign_wetbkdep_cuda(q, zf, wet),
+                 bk.assign_wetbkdep_plain(q, zf, wet))
+        torch.cuda.synchronize()
+        r = held(k, pl, what)
+        check(bool((k.xscav[fresh] >= 0).all()), f"{what}: a factor < 0")
+        check(r["positive"] > 0 and r["zeroed"] > 0, f"{what}: {r}")
+        r.update(ms=cuda_ms(lambda: bk.assign_wetbkdep_cuda(q, zf, wet), 10),
+                 plain_ms=cuda_ms(lambda: bk.assign_wetbkdep_plain(
+                     q, zf, wet), 3),
+                 k9_ms_same_particles=cuda_ms(lambda: wd.wetdepo_cuda(
+                     q, zf, LSYNC, 2700, wet, bk.MassSpecies(
+                         decay=(0.0, 0.0), drydep=(False, False))), 10))
+        k9[fname] = r
+        del k, pl
+    # bytes: active, mass and xscav in and out of every particle, the
+    # positions of the fresh ones, z of the fresh ones it rains on, the
+    # three surface planes it reads (lsp, convp, tcc), the cloud classes,
+    # the temperature and the heights; operations: the BKDEP section's own
+    # code per particle and each rule's per call
+    nz, ny, nx = z0.clouds.shape
+    entry = sass_instantiation(_build.WETDEPO, "wetdepo_kernel", (True,))[0]
+    paths = tuple(f for f in K9_PATHS if f != "wet_removal")
+    ins = sass_paths(_build.WETDEPO, paths, within=entry)
+    calls = k9_path_calls(q.replace(active=fresh), z0, wet,
+                          bk.MassSpecies(decay=(0.0, 0.0),
+                                         drydep=(False, False)))
+    n_ops = ins["kernel"] * N_MAIN + sum(ins[f] * calls[f] for f in paths)
+    k9_out = dict(k9["synthetic"], cases=k9, instructions=ins,
+                  path_calls=calls, n=N_MAIN, fresh=n_fresh, library_ms=None,
+                  bitwise=True,
+                  max_abs_err=max(c["max_abs_err"] for c in k9.values()),
+                  **bound(N_MAIN * (1 + 16 * 2) + 16 * n_fresh
+                          + 4 * calls["active_raining"] + 12 * ny * nx
+                          + 5 * nz * ny * nx + 4 * nz, n_ops))
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(25)
+    vdep = torch.rand((2, grid.ny, grid.nx), generator=gen,
+                      device=device) * 0.022 - 0.002
+    what = "K10 BKDEP"
+    k, pl = (bk.assign_drybkdep_cuda(q, vdep),
+             bk.assign_drybkdep_plain(q, vdep))
+    torch.cuda.synchronize()
+    r = held(k, pl, what)
+    check(r["positive"] > 0 and r["zeroed"] > 0, f"{what}: {r}")
+    del k, pl
+    k10_out = dict(
+        r, n=N_MAIN, fresh=n_fresh, library_ms=None, bitwise=True,
+        ms=cuda_ms(lambda: bk.assign_drybkdep_cuda(q, vdep), 10),
+        plain_ms=cuda_ms(lambda: bk.assign_drybkdep_plain(q, vdep), 3),
+        # active, mass and xscav in and out, the positions of the fresh
+        # particles; the velocities
+        **bound(N_MAIN * (1 + 16 * 2) + 16 * n_fresh
+                + 4 * 2 * grid.ny * grid.nx,
+                # the weights and each species' gather, fresh particles only
+                n_fresh * (K10_OPS_PER_PARTICLE + 10 * 2)))
+    return {"wetdepo.bkdep": k9_out, "drydepo.bkdep": k10_out}
+
+
+# -------------------------------------------- backward runs: Simulation --
+
+SIM_BACKWARD_DIR = ROOT / "build" / "sim_backward_smoke"
+SIM_BKDEP_DIR = ROOT / "build" / "sim_bkdep_smoke"
+# the kernels of a backward run's path: K7 takes its BACKWARD
+# instantiation, and no deposit is gridded (no K8)
+BACKWARD_PATH_KERNELS = ("advance", "quad_tables", "conccalc", "reorder",
+                         "convection", "redist.backward", "wetdepo",
+                         "drydepo")
+N_BKDEP = 2 ** 20
+BKDEP_STEPS = 4
+
+
+def sim_backward_setup(outdir, device, write_netcdf: bool, n: int = N_MAIN,
+                       hours: int = SIM_HOURS, ind_receptor: int = 1,
+                       release_hours: int = 1, lout: int = 3600, **kw):
+    """The port's Simulation of a backward run (``ldirect=-1``) at full
+    width: ``n`` = 10 x 2**20 particles released over the last
+    ``release_hours`` of the run (0: all at its end, the receptor time)
+    from a 2 x 2 degree receptor box at 50-500 m in SyntheticMet's storm
+    band (STORM_BOX, where its clouds rain), the sim phase's two species
+    (one unit of mass each; the aerosol is scavenged wet and dry, and
+    decays), ``hours`` of 900 s steps back from the run's end on the sim
+    phase's grid (convection, subgrid orography and the polar caps on),
+    output every ``lout`` seconds (hourly) on the 720x360x3 grid.
+    ``ind_receptor`` 3 and 4 are the backward deposition modes (WETBKDEP,
+    DRYBKDEP)."""
+    from flexpart_tpu_torch import Simulation, SyntheticMet, make_grid
+    from flexpart_tpu_torch.config import (Command, OutGrid, ReleaseBox,
+                                           Releases)
+    grid = make_grid(**SIM_GRID)
+    cmd = Command(ibdate=20200101, ibtime=0, iedate=20200101,
+                  ietime=hours * 10000, ldirect=-1, lsynctime=LSYNC,
+                  loutstep=lout, loutaver=lout, loutsample=900,
+                  ind_receptor=ind_receptor)
+    box = ReleaseBox(idate1=20200101, itime1=(hours - release_hours) * 10000,
+                     idate2=20200101, itime2=hours * 10000, z1=50.0,
+                     z2=500.0, mass=(1.0, 1.0), parts=n, **STORM_BOX)
+    og = OutGrid(outlon0=-180.0, outlat0=-90.0, numxgrid=720, numygrid=360,
+                 dxout=0.5, dyout=0.5, outheights=(100.0, 1000.0, 50000.0))
+    return Simulation(cmd=cmd, releases=Releases(species=sim_species(),
+                                                 boxes=(box,)),
+                      grid=grid, met_backend=SyntheticMet(grid), outgrid=og,
+                      outdir=str(outdir), device=device,
+                      write_netcdf=write_netcdf, **kw)
+
+
+def sim_backward_run_checks(sim, what: str, released: float) -> tuple:
+    """What a backward run holds after its end: particle steps were made
+    and the met reader never failed; every released particle active and
+    finite; the last file's residence times finite, not negative, positive
+    somewhere for each species; no deposit gridded; the tracer keeps its
+    mass (``released``), the aerosol has lost some to K9 and K10 and kept
+    most.  Returns (the numbers, the last file's name, its conc)."""
+    import numpy as np
+    import torch
+    check(sim.timings["particle_steps"] > 0 and sim._prefetch_failures == 0,
+          f"{what}: no particle steps, or the met reader failed")
+    pa = sim.particles
+    n = pa.capacity
+    check(int(pa.active.sum()) == n, f"{what}: {int(pa.active.sum())} of "
+          f"{n} active")
+    for f in ("x_hi", "x_lo", "y_hi", "y_lo", "z", "up", "vp", "wp", "mass"):
+        check(bool(torch.isfinite(getattr(pa, f)).all()),
+              f"{what}: {f} not finite")
+    out = Path(sim.outdir)
+    npz = sorted(q.name for q in out.glob("grid_conc_*.npz"))
+    check(len(npz) >= 1, f"{what}: npz {npz}")
+    conc = np.load(out / npz[-1])["conc"]
+    check(bool(np.isfinite(conc).all()) and float(conc.min()) >= 0.0,
+          f"{what}: conc not finite or negative")
+    peaks = [float(conc[s].max()) for s in range(conc.shape[0])]
+    for k, g in (("wet", sim.acc.wetgridunc), ("dry", sim.acc.drygridunc)):
+        check(float(g.abs().sum()) == 0.0, f"{what}: a {k} deposit gridded")
+    mass = [float(pa.mass[:, s].sum(dtype=torch.float64))
+            for s in range(pa.nspec)]
+    return dict(conc_max_per_species=peaks, airborne_mass=mass), \
+        npz[-1], conc
+
+
+def phase_sim_backward(device, kernels) -> dict:
+    """A backward ``Simulation.run`` on the card at full width
+    (sim_backward_setup), twice with one seed (run_twice, with
+    sim_backward_run_checks): every kernel of the backward path launched
+    (K7's BACKWARD instantiation, never the forward one; no deposit
+    scatter), the two runs bitwise equal, the files a backward run writes
+    (``grid_time_`` netCDF in seconds, the npz stem the reference keeps),
+    positive residence times; the tracer's mass kept, the aerosol's
+    depleted by the wet and the dry pass.  Run B's probe keeps one release
+    step and one steady step (kept_steps), and on each the path's kernels
+    are held against their plain versions (sim_backward_kernel_checks):
+    the receptor's plume misses SyntheticMet's convecting columns, so K7
+    BACKWARD is held there on those particles put in them too, where it
+    must move some."""
+    import shutil
+    import numpy as np
+    import torch
+    try:
+        import h5py  # noqa: F401
+        netcdf = True
+    except ImportError:
+        netcdf = False
+    shutil.rmtree(SIM_BACKWARD_DIR, ignore_errors=True)
+    nsteps = SIM_HOURS * 3600 // LSYNC
+    keep, snaps = {}, {}
+
+    def setup(run):
+        sim = sim_backward_setup(SIM_BACKWARD_DIR / run, device,
+                                 netcdf and run == "a", profile=run == "b")
+        keep.update(kept_steps(sim, nsteps, "sim_backward"))
+        return sim
+
+    def probe_fn(sim):
+        def probe(istep, itime):
+            if istep in keep:
+                z0, z1, mt0, mt1 = sim._fields_for(itime)
+                snaps[keep[istep]] = (istep, itime, sim.particles, z0, z1,
+                                      mt0, mt1, sim._get_eta(mt0),
+                                      sim._get_eta(mt1), sim.cbmf)
+        return probe
+
+    def check_a(sim):
+        check(sim.cmd.ldirect == -1 and sim.step_cfg.ldirect == -1
+              and sim.step_cfg.polar and sim.conv_kernel is not None
+              and sim.bkdep == 0, "sim_backward: not a backward run's path")
+        check(sorted(sim._release_times) == [-2700, -1800, -900, 0],
+              f"sim_backward: release times {sorted(sim._release_times)}")
+        out = Path(sim.outdir)
+        dates = (out / "dates").read_text().split()
+        check(dates == ["20200101013000", "20200101003000"],
+              f"sim_backward: dates {dates}")
+        npz = sorted(q.name for q in out.glob("grid_conc_*.npz"))
+        check(npz == sorted(f"grid_conc_{d}.npz" for d in dates),
+              f"sim_backward: npz {npz}")
+        nc = sorted(q.name for q in out.glob("grid_*.nc"))
+        check(nc == (["grid_time_20200101030000.nc"] if netcdf else []),
+              f"sim_backward: nc {nc}")
+        check(sim.writer.nc_meta["units"] == "s",
+              f"sim_backward: units {sim.writer.nc_meta['units']}")
+        first = np.load(out / npz[0])
+        check(first["conc"].shape == (2, 1, 1, 3, 360, 720),
+              f"sim_backward: conc {first['conc'].shape}")
+        # the deposition grids, written as the reference writes them, stay 0
+        check(not first["wet"].any() and not first["dry"].any(),
+              "sim_backward: the npz carry deposits")
+        return dict(dates=dates, units=sim.writer.nc_meta["units"])
+
+    sim, rows, a = run_twice(setup, kernels, "sim_backward", 1.0,
+                             BACKWARD_PATH_KERNELS, check_a, probe_fn,
+                             run_checks=sim_backward_run_checks)
+    launches = a["launches"]
+    check(launches["advance"] == launches["quad_tables"] == nsteps
+          and launches["wetdepo"] == launches["drydepo"] == nsteps
+          and launches["convection"] == launches["redist.backward"]
+          == nsteps + 1 and launches["redist"] == 0
+          and launches["depo_scatter"] == 0
+          and launches["conccalc.bkdep"] == 0,
+          f"sim_backward: {launches} launches in {nsteps} steps")
+    tracer, aerosol = a["airborne_mass"]
+    check(abs(tracer - 1.0) < 1e-3, f"sim_backward: tracer mass {tracer}")
+    check(0.5 < aerosol < 1.0 - 1e-6,
+          f"sim_backward: aerosol mass {aerosol} not depleted")
+    check(set(snaps) == set(keep.values()),
+          f"sim_backward: kept steps {list(snaps)}")
+    on_inputs = {name.replace(" ", "_"): sim_backward_kernel_checks(
+        sim, snap, f"sim_backward {name} {snap[0]}")
+        for name, snap in snaps.items()}
+    snaps.clear()
+    device_ms, per_launch = per_launch_of(rows)
+    res = dict(
+        n=N_MAIN, steps=nsteps, netcdf=netcdf, **a,
+        kernels_on_sim_backward_inputs=on_inputs,
+        device_ms_all_kernels=device_ms,
+        device_per_call={
+            "advance": per_launch(("advance_kernel",), nsteps),
+            "quad_tables": per_launch(("quad_tables_kernel",), nsteps),
+            "conccalc": per_launch(("conccalc_kernel",),
+                                   launches["conccalc"]),
+            "reorder": per_launch(SORT_KERNELS, a["sorts"]),
+            "convection": per_launch(("convection_kernel",), nsteps + 1),
+            "redist_backward": per_launch(("redist_kernel",), nsteps + 1),
+            "wetdepo": per_launch(("wetdepo_kernel",), nsteps),
+            "drydepo": per_launch(("drydepo_kernel",), nsteps)},
+        top=[dict(name=k[:60], calls=c, ms=ms) for k, c, ms in rows[:10]])
+    del sim
+    shutil.rmtree(SIM_BACKWARD_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_sim_bkdep(device, kernels) -> dict:
+    """The backward deposition modes through ``Simulation.run`` on the
+    card: one short run (BKDEP_STEPS steps of 900 s, N_BKDEP particles
+    released at the receptor time in the storm band, output every half
+    hour, sim_backward_setup)
+    of each of ``ind_receptor`` 3 (WETBKDEP: the full 0-20 km column, the
+    factor from K9 BKDEP) and 4 (DRYBKDEP: the 0-30 m layer, K10 BKDEP),
+    the launch counts set to 0 just before each and read just after.
+    After the first step (a probe at the top of the second) every factor
+    is assigned (xscav >= 0) and none is pending; WETBKDEP: the aerosol's
+    factor positive for some particles (its clouds rain there), the
+    tracer's 0 (it is not scavenged) and its mass zeroed, and
+    wetscav_precip.txt holds one line per met time read; DRYBKDEP: the
+    aerosol's factor its dryvel within rtol 1e-5; both sample through
+    K3 BKDEP into finite, non-negative residence times."""
+    import shutil
+    import numpy as np
+    import torch
+    res = {}
+    for mode, name in ((3, "wetbkdep"), (4, "drybkdep")):
+        out = SIM_BKDEP_DIR / name
+        shutil.rmtree(out, ignore_errors=True)
+        sim = sim_backward_setup(out, device, False, n=N_BKDEP, hours=1,
+                                 ind_receptor=mode, release_hours=0,
+                                 lout=1800)
+        check(sim.bkdep == mode and sim._bkdep_pending,
+              f"sim_bkdep {name}: bkdep {sim.bkdep}")
+        after_first = {}
+
+        def probe(istep, itime, s=sim, seen=after_first):
+            if istep == 1:
+                xs = s.particles.xscav[s.particles.active]
+                seen.update(min_xscav=float(xs.min()),
+                            pending=s._bkdep_pending)
+
+        sim._step_probe = probe
+        launches, run_s = counted_run(kernels, sim.run)
+        entry = "wetdepo.bkdep" if mode == 3 else "drydepo.bkdep"
+        check(launches[entry] == 1 and launches["conccalc.bkdep"] > 0
+              and launches["conccalc"] == 0
+              and launches["redist.backward"] == BKDEP_STEPS + 1,
+              f"sim_bkdep {name}: launches {launches}")
+        check(after_first.get("min_xscav", -1.0) >= 0.0
+              and after_first.get("pending") is False,
+              f"sim_bkdep {name}: after the first step {after_first}")
+        p = sim.particles
+        xs = p.xscav[p.active]
+        r = dict(run_s=run_s, launches=launches, **after_first,
+                 released=N_BKDEP, active=int(p.active.sum()),
+                 positive_factors=[int((xs[:, s] > 0).sum())
+                                   for s in range(p.nspec)])
+        if mode == 3:
+            check(r["positive_factors"][1] > 0,
+                  f"sim_bkdep {name}: no positive wet factor")
+            check(r["positive_factors"][0] == 0
+                  and float(p.mass[:, 0].abs().sum()) == 0.0,
+                  f"sim_bkdep {name}: the tracer kept a factor or mass")
+            # one line per release box and met time read
+            lines = (out / "wetscav_precip.txt").read_text().splitlines()
+            check(len(lines) >= 2 and all(len(ln.split()) == 6
+                                          for ln in lines),
+                  f"sim_bkdep {name}: wetscav_precip.txt {lines}")
+            r["precip_lines"] = lines
+        else:
+            dryvel = sim.releases.species[1].dryvel
+            err = float((xs[:, 1] - dryvel).abs().max())
+            check(err <= 1e-5 * dryvel,
+                  f"sim_bkdep {name}: factor off dryvel by {err}")
+            r["factor_max_abs_err_from_dryvel"] = err
+        npz = sorted(out.glob("grid_conc_*.npz"))
+        check(len(npz) >= 1, f"sim_bkdep {name}: no output")
+        conc = np.load(npz[-1])["conc"]
+        check(bool(np.isfinite(conc).all()) and float(conc.min()) >= 0.0
+              and float(conc[1].max()) > 0.0,
+              f"sim_bkdep {name}: conc not finite, negative or all 0")
+        r["conc_max_per_species"] = [float(conc[s].max())
+                                     for s in range(conc.shape[0])]
+        res[name] = r
+        del sim, p, xs
+        shutil.rmtree(out, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return res
+
+
 def make_sim_grid():
     from flexpart_tpu_torch.met import make_grid
     return make_grid(**SIM_GRID)
@@ -4297,6 +5062,8 @@ def main() -> int:
 
     kernels = list(_build.KERNELS)
     build_s = _build.build_all(kernels)
+    # every launch count: the kernels' and their instantiations' entries
+    counted = kernels + list(_build.ENTRIES)
     ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
                       if "registers" in ln] for k in kernels}
     emit({"phase": "build", "seconds": build_s,
@@ -4337,7 +5104,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     normals_other = _build.NORMALS.launches
-    mres, pres = phase_main(device, grid, kernels)
+    mres, pres = phase_main(device, grid, counted)
     emit({"phase": "main", **mres,
           "cuda_kernels_per_step": pres["cuda_kernels_per_step"],
           "device": name, "power_limit": smi})
@@ -4348,24 +5115,34 @@ def main() -> int:
     # the launches of the kernels line stay the main phase's; the sim phase
     # resets the counts for its own run and reports them in its line
     t0 = time.perf_counter()
-    simres = phase_sim(device, kernels)
+    simres = phase_sim(device, counted)
     emit({"phase": "sim", "seconds": time.perf_counter() - t0, **simres,
           "device": name, "power_limit": smi})
 
     t0 = time.perf_counter()
-    adres = phase_sim_adaptive(device, kernels)
+    adres = phase_sim_adaptive(device, counted)
     emit({"phase": "sim_adaptive", "seconds": time.perf_counter() - t0,
           **adres, "device": name, "power_limit": smi})
 
     t0 = time.perf_counter()
-    cblres = phase_sim_cbl(device, kernels)
+    cblres = phase_sim_cbl(device, counted)
     emit({"phase": "sim_cbl", "seconds": time.perf_counter() - t0,
           **cblres, "device": name, "power_limit": smi})
 
     t0 = time.perf_counter()
-    nres = phase_sim_nested(device, kernels)
+    nres = phase_sim_nested(device, counted)
     emit({"phase": "sim_nested", "seconds": time.perf_counter() - t0,
           **nres, "device": name, "power_limit": smi})
+
+    t0 = time.perf_counter()
+    bres = phase_sim_backward(device, counted)
+    emit({"phase": "sim_backward", "seconds": time.perf_counter() - t0,
+          **bres, "device": name, "power_limit": smi})
+
+    t0 = time.perf_counter()
+    kres_bk = phase_sim_bkdep(device, counted)
+    emit({"phase": "sim_bkdep", "seconds": time.perf_counter() - t0,
+          **kres_bk, "device": name, "power_limit": smi})
 
     t0 = time.perf_counter()
     lres = phase_legacy(device)
@@ -4525,12 +5302,29 @@ def main() -> int:
     extra["wetdepo"]["instructions"] = kres["wetdepo"]["instructions"]
     extra["wetdepo"]["path_calls"] = kres["wetdepo"]["cases"][
         kres["wetdepo"]["ms_case"]]["path_calls"]
+    # the advance of a backward run (ldirf = -1), bitwise against its plain
+    # version: stock K4 and POLAR, K11 and K11 CBL, each beside the
+    # forward instantiation on the same particles
+    extra["advance"]["backward"] = kres["advance"]["backward"]
+    extra["advance_adaptive"]["backward"] = kres["advance_adaptive"][
+        "backward"]
+    extra["redist"]["sim_backward_per_call"] = bres["device_per_call"][
+        "redist_backward"]
+
+    def path_launches(kname):
+        """A kernel's launches on the backward paths (sim_backward; each
+        of sim_bkdep's runs)."""
+        return {"launches_sim_backward": bres["launches"][kname],
+                "launches_sim_bkdep": {m: r["launches"][kname]
+                                       for m, r in kres_bk.items()}}
+
     line = [
         {"name": k.name, "route": "cuda", "source": src.format(k.name),
          "replaces": replaces[k.name][0], "tpu_route": replaces[k.name][1],
          "launches": mres["launches"][k.name],
          "launches_sim": simres["launches"][k.name],
          "launches_sim_adaptive": adres["launches"][k.name],
+         **path_launches(k.name),
          **{f: kres[k.name][f] for f in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")}, **extra.get(k.name, {})}
@@ -4547,6 +5341,7 @@ def main() -> int:
          # fresh particle's skewed draw (:904-916)
          "replaces": "flexpart_tpu/core/advance.py:321", "tpu_route": "XLA",
          "launches": cblres["launches"]["advance_adaptive"],
+         **path_launches("advance_adaptive"),
          **{f: cbl[f] for f in pick},
          **{f: cbl[f] for f in (
              "stock_k11_ms", "unordered_ms", "bitwise", "nan_count",
@@ -4561,6 +5356,7 @@ def main() -> int:
          # advance_all's nest sampling (:841-866) and corrector (:1176-1189)
          "replaces": "flexpart_tpu/core/advance.py:841", "tpu_route": "XLA",
          "launches": nres["launches"]["advance"],
+         **path_launches("advance"),
          **{f: nst[f] for f in pick},
          **{f: nst[f] for f in (
              "stock_k4_ms", "unordered_ms", "stock_k4_unordered_ms",
@@ -4573,6 +5369,40 @@ def main() -> int:
              s: {f: r[f] for f in ("ms", "plain_ms", "max_abs_err",
                                    "differing_particles")}
              for s, r in nres["kernels_on_sim_nested_inputs"].items()}}]
+    # the instantiations of the backward runs, launched through entries of
+    # their own (each counted apart): K7 BACKWARD on sim_backward's path,
+    # the BKDEP ones on sim_bkdep's; COUNT on no Simulation path (the
+    # reference never sets particle_count_output): its launches are the
+    # main phase's, as every kernel's, and it is held in the kernels phase
+    back = {
+        "redist.backward": ("redist", "flexpart_tpu/physics/convection.py:479",
+                            bres["launches"]["redist.backward"]),
+        "conccalc.bkdep": ("conccalc", "flexpart_tpu/grid/conccalc.py:144",
+                           sum(r["launches"]["conccalc.bkdep"]
+                               for r in kres_bk.values())),
+        "conccalc.count": ("conccalc", "flexpart_tpu/grid/conccalc.py:140",
+                           mres["launches"]["conccalc.count"]),
+        "wetdepo.bkdep": ("wetdepo", "flexpart_tpu/physics/bkdep.py:44",
+                          kres_bk["wetbkdep"]["launches"]["wetdepo.bkdep"]),
+        "drydepo.bkdep": ("drydepo", "flexpart_tpu/physics/bkdep.py:31",
+                          kres_bk["drybkdep"]["launches"]["drydepo.bkdep"])}
+    for ename, (lib, ref, n_launch) in back.items():
+        r = kres[ename]
+        line.append(
+            {"name": ename, "route": "cuda", "source": src.format(lib),
+             "replaces": ref, "tpu_route": "XLA", "launches": n_launch,
+             **path_launches(ename),
+             **({"on_a_path": "none: Simulation never sets "
+                 "particle_count_output, as the reference; conccalc() "
+                 "with it launches COUNT"} if ename == "conccalc.count"
+                else {}),
+             **{f: r[f] for f in pick},
+             **{f: r[f] for f in ("n", "bound_bytes", "bound_operations",
+                                  "stock_ms_same_particles",
+                                  "k9_ms_same_particles", "all_convecting_ms",
+                                  "all_convecting_bound_ms", "moved",
+                                  "instructions", "path_calls", "fresh",
+                                  "zeroed", "positive") if f in r}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_script})
     emit({"kernels": line})
     print(smi, flush=True)

@@ -12,8 +12,8 @@ stock forward step is
 
 and ``run.simulation.Simulation`` drives it from a configuration
 (``config``) through release (``core.release``), the cell-order sort
-(``core.reorder``) and the writers (``io``): forward, on one device, with
-the fixed step.
+(``core.reorder``) and the writers (``io``): forward or backward, on one
+device, with the fixed or the adaptive step.
 
 Design rules:
   * state is dataclasses of tensors with plain functions over them;

@@ -14,7 +14,12 @@ the bitwise table contract depend on it); ``--use_fast_math`` is never
 used, so ``logf``/``cosf``/``sqrtf`` are the accurate versions.
 
 Each ``Kernel`` counts its launches in ``launches`` (a plain integer), so
-a run can show that its main path went through the kernel.
+a run can show that its main path went through the kernel.  A template
+instantiation that a path launches on its own (K3's ``BKDEP`` and
+``COUNT``, K7's ``BACKWARD``, K9's and K10's ``BKDEP``) is an ``Entry``
+with a count of its own: the kernel's launcher, picked by its arguments
+(``xscav`` given, ``count``, ``backward``), counted in the entry's count
+and not in the kernel's.
 """
 
 from __future__ import annotations
@@ -131,14 +136,36 @@ class Kernel:
                 self._disassembly[key] = job
         return job.result() if wait else None
 
-    def __call__(self, *args) -> None:
-        """Launch on the current stream; raise if the launch failed."""
+    def launch(self, *args) -> None:
+        """Launch on the current stream; raise if the launch failed.
+        Counts nothing: a call of the kernel, or of one of its entries,
+        does."""
         if self._fn is None:
             build_all([self])
         err = self._fn(*args)
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
+
+    def __call__(self, *args) -> None:
+        """Launch on the current stream and count it; raise if the launch
+        failed."""
+        self.launch(*args)
+        self.launches += 1
+
+
+class Entry:
+    """A template instantiation of a kernel that a path launches on its
+    own: launched through the kernel's exported function, whose arguments
+    pick it, and counted apart from the kernel."""
+
+    def __init__(self, kernel: Kernel, name: str):
+        self.kernel = kernel
+        self.name = name
+        self.launches = 0
+
+    def __call__(self, *args) -> None:
+        self.kernel.launch(*args)
         self.launches += 1
 
 
@@ -191,7 +218,7 @@ def build_all(kernels: list[Kernel]) -> float:
     failed = []
     for k, proc, tmp, out in pending:
         if proc.returncode != 0:
-            failed.append(f"{k.source.name}:\n{log}")
+            failed.append(f"{k.source.name}:\n{k.build_log}")
             continue
         os.replace(tmp, out)
         k._load(out)
@@ -227,6 +254,8 @@ CONCCALC = Kernel("conccalc", "fp_conccalc", [
     P,                 # active (n,) bool
     P,                 # mass (n, nspec) f32
     P,                 # rhoi (n,) f32 or NULL (= 1)
+    P,                 # xscav (n, nspec) f32 or NULL: given, BKDEP
+    I,                 # count: 1, the COUNT instantiation
     P, I,              # lage (nage,) i32, nage
     P, I,              # outheight (nzg,) f32, nzg
     I, I, I, I, I,     # n, nspec, nxg, nyg, npointspec
@@ -313,6 +342,7 @@ REDIST = Kernel("redist", "fp_redist", [
     I, I, I, I, I,        # n, nx, ny, L1, itime
     F,                    # lsynctime
     U32, U32,             # philox key words
+    I,                    # backward: 1, the BACKWARD instantiation
     P,                    # out: z (n,) f32
     P,                    # moved count (1,) i32, accumulated into
     P,                    # stream
@@ -336,6 +366,7 @@ WETDEPO = Kernel("wetdepo", "fp_wetdepo", [
     P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
     P,                    # active (n,) bool
     P,                    # mass (n, nspec) f32
+    P,                    # xscav (n, nspec) f32 or NULL: given, BKDEP
     P, P, P,              # lsprec, convprec, tcc planes (ny, nx) f32
     P,                    # clouds (nz, ny, nx) i8
     P,                    # temperature plane of f3d (nz, ny, nx) f32
@@ -344,7 +375,9 @@ WETDEPO = Kernel("wetdepo", "fp_wetdepo", [
     P,                    # WetSpec[MAX_SPECIES] (host array, physics/wetdepo.py)
     I, I,                 # n, nspec
     I, I,                 # |ltsample|, |ldeltat|
+    F,                    # BKDEP: the released column's height [m]
     P, P,                 # out: mass (n, nspec), deposit (nspec, n) f32
+    P,                    # out: BKDEP's xscav (n, nspec) f32, or NULL
     P,                    # stream
 ])
 
@@ -352,14 +385,26 @@ DRYDEPO = Kernel("drydepo", "fp_drydepo", [
     P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
     P,                    # active (n,) bool
     P, P,                 # mass, mass0 (n, nspec) f32
+    P,                    # xscav (n, nspec) f32 or NULL: given, BKDEP
     P, I, I,              # vdep (nspec, ny, nx) f32 or NULL, ny, nx
     P,                    # t_below (n,) f32 or NULL (the fixed step's rule)
     P,                    # DrySpec[MAX_SPECIES] (host array, physics/massupdate.py)
     I, I,                 # n, nspec
     I, I, F,              # |lsynctime|, |ldeltat|, minmass
     P, P, P,              # out: mass (n, nspec), active (n,), deposit (nspec, n)
+    P,                    # out: BKDEP's xscav (n, nspec) f32, or NULL
     P,                    # stream
 ])
+
+# the instantiations of the backward runs (ldirect = -1)
+CONCCALC_BKDEP = Entry(CONCCALC, "conccalc.bkdep")      # xscav given
+CONCCALC_COUNT = Entry(CONCCALC, "conccalc.count")      # count = 1
+REDIST_BACKWARD = Entry(REDIST, "redist.backward")      # backward = 1
+WETDEPO_BKDEP = Entry(WETDEPO, "wetdepo.bkdep")         # xscav given
+DRYDEPO_BKDEP = Entry(DRYDEPO, "drydepo.bkdep")         # xscav given
+
+ENTRIES = (CONCCALC_BKDEP, CONCCALC_COUNT, REDIST_BACKWARD, WETDEPO_BKDEP,
+           DRYDEPO_BKDEP)
 
 # fp_convection_layout(nl, out): out (4,) i32 gets K6's shared bytes per
 # column, columns per block, resident blocks per SM and registers per thread

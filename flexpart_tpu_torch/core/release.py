@@ -63,11 +63,18 @@ def emission_time_factors(rel: Releases, box, grid: MetGrid,
 def release_schedule_arrays(rel: Releases, cmd: Command, grid: MetGrid,
                             capacity: int | None = None,
                             nclassunc: int = 1,
-                            seed: int = 42) -> dict[str, np.ndarray]:
+                            seed: int = 42,
+                            bkdep: int = 0) -> dict[str, np.ndarray]:
     """The full particle population as host arrays, one per field of
     ``state.FIELDS``, all inactive, with itra = sync-aligned release time.
     Slots past the scheduled particles keep the values of
-    ``empty_particles``."""
+    ``empty_particles``.
+
+    bkdep: the backward deposition modes 3 (WETBKDEP) and 4 (DRYBKDEP)
+    release every box over the full 0-20 km column and over the 0-2*href
+    layer (readcommand.f90:322-337), and mark the scavenging factor of a
+    released slot xscav = -1, to be assigned at the particle's first step
+    (``physics/bkdep.py``, timemanager.f90:565-598)."""
     t0 = cmd.bdate
     lsync = cmd.lsynctime * cmd.ldirect
     nspec = rel.nspec
@@ -78,7 +85,12 @@ def release_schedule_arrays(rel: Releases, cmd: Command, grid: MetGrid,
     for b_idx, box in enumerate(rel.boxes):
         x1, y1 = grid.lonlat_to_grid(box.lon1, box.lat1)
         x2, y2 = grid.lonlat_to_grid(box.lon2, box.lat2)
-        bz1, bz2 = box.z1, box.z2
+        if bkdep == 3:          # wet deposition sensitivity: full column
+            bz1, bz2 = 0.0, 20000.0
+        elif bkdep == 4:        # dry deposition sensitivity: 2*href layer
+            bz1, bz2 = 0.0, 30.0
+        else:
+            bz1, bz2 = box.z1, box.z2
 
         rt1 = int((box.start - t0).total_seconds()) * 1
         rt2 = int((box.end - t0).total_seconds()) * 1
@@ -184,6 +196,9 @@ def release_schedule_arrays(rel: Releases, cmd: Command, grid: MetGrid,
         return np.zeros(capacity, np.float32)
 
     m = filled(mass, 0.0, np.float32, nspec)
+    xscav = np.ones((capacity, nspec), np.float32)
+    if bkdep:
+        xscav[:total] = -1.0
     return dict(
         x_hi=filled(xs, 0.0, np.float32), x_lo=zeros(),
         y_hi=filled(ys, 0.0, np.float32), y_lo=zeros(),
@@ -198,7 +213,7 @@ def release_schedule_arrays(rel: Releases, cmd: Command, grid: MetGrid,
         usig=zeros(), vsig=zeros(), wsig=zeros(),
         cbt=np.ones(capacity, np.int8),
         mass=m, mass0=m.copy(),
-        xscav=np.ones((capacity, nspec), np.float32),
+        xscav=xscav,
         active=np.zeros(capacity, np.bool_),
     )
 
@@ -210,14 +225,9 @@ def build_release_schedule(rel: Releases, cmd: Command, grid: MetGrid,
                            bkdep: int = 0, *,
                            device: torch.device | str) -> Particles:
     """``release_schedule_arrays`` as particles on ``device`` (one copy per
-    field).  The backward deposition modes (``bkdep`` 3 and 4) are not
-    ported."""
-    if bkdep != 0:
-        raise NotImplementedError(
-            "bkdep (backward deposition release heights and xscav) is not "
-            "ported yet")
+    field)."""
     arrays = release_schedule_arrays(rel, cmd, grid, capacity, nclassunc,
-                                     seed)
+                                     seed, bkdep)
     return Particles(**{f: torch.as_tensor(a, device=device)
                         for f, a in arrays.items()})
 

@@ -8,6 +8,12 @@
 // four uniform-kernel weights (conccalc.f90:171-260), and adds
 // weight * mass / rho * sample_weight for every species into the flat
 // gridunc (rows = (nage, nclass, kp, nzg, nyg, nxg), species innermost).
+// Two template flags add the reference's other contributions
+// (conccalc.py:140-145,174-179): BKDEP multiplies each species' value by
+// max(xscav, 0), the scavenging factor of a backward deposition run (where
+// the launcher is given xscav); COUNT adds the particle count instead of
+// the mass, 1 on the single-index path and the weight on the 4-point path
+// (where it is given count = 1).  Neither changes the per-warp sums.
 // An index that falls outside the output grid or the accumulator is
 // skipped, the kernel's form of JAX's mode="drop" with the 2**30 sentinel.
 //
@@ -39,6 +45,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "at_least_zero.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -60,6 +68,7 @@ struct PIn {
   const int *itra, *itramem, *npoint, *nclass;
   const bool* active;
   const float *mass, *rhoi;
+  const float* xscav;                     // (n, nspec): BKDEP only
   const int* lage;
   const float* outheight;
 };
@@ -79,6 +88,7 @@ __device__ __forceinline__ float group_sum(unsigned peers, int most, float v,
   return sum;
 }
 
+template <bool BKDEP, bool COUNT>
 __global__ void __launch_bounds__(THREADS)
 conccalc_kernel(const PIn in, const Cfg c, float* __restrict__ grid) {
   const long long p = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
@@ -165,10 +175,19 @@ conccalc_kernel(const PIn in, const Cfg c, float* __restrict__ grid) {
     for (int s = 0; s < c.nspec; ++s) {
       float contrib = 0.0f;
       if (valid) {
-        // the two JAX paths round differently: mass / rho on the single-
-        // index path, (w / rho) * mass on the kernel path
-        const float m = in.mass[p * c.nspec + s];
-        contrib = (c.kernel_possible ? (w[j] / rho) * m : m / rho) * c.weight;
+        if constexpr (COUNT) {
+          // the particle count: ones on the single-index path, the
+          // weight on the kernel path
+          contrib = (c.kernel_possible ? w[j] : 1.0f) * c.weight;
+        } else {
+          // the two JAX paths round differently: mass / rho on the single-
+          // index path, (w / rho) * mass on the kernel path
+          const float m = in.mass[p * c.nspec + s];
+          float v = c.kernel_possible ? (w[j] / rho) * m : m / rho;
+          if constexpr (BKDEP)
+            v = v * fp::at_least_zero(in.xscav[p * c.nspec + s]);
+          contrib = v * c.weight;
+        }
       }
       const float sum = group_sum(peers, most, contrib, lane);
       if (valid && first) atomicAdd(grid + lin * c.nspec + s, sum);
@@ -184,6 +203,7 @@ extern "C" int fp_conccalc(const float* x_hi, const float* x_lo,
                            const int* itramem, const int* npoint,
                            const int* nclass, const bool* active,
                            const float* mass, const float* rhoi,
+                           const float* xscav, int count,
                            const int* lage, int nage, const float* outheight,
                            int nzg, int n, int nspec, int nxg, int nyg,
                            int npointspec, int nclassunc, float dx_met,
@@ -198,9 +218,14 @@ extern "C" int fp_conccalc(const float* x_hi, const float* x_lo,
         dx_met, dy_met, xoutshift, youtshift, dxout, dyout,
         itime, weight, kernel_possible, use_kernel, ioutputforeachrelease, rows};
   const PIn in = {x_hi, x_lo, y_hi, y_lo, z, itra, itramem, npoint, nclass,
-                  active, mass, rhoi, lage, outheight};
+                  active, mass, rhoi, xscav, lage, outheight};
   const int blocks = (n + THREADS - 1) / THREADS;
-  conccalc_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, c, gridunc);
+  // the instantiation: COUNT where asked, else BKDEP where the scavenging
+  // factors are given, else the mass
+  auto kern = count ? conccalc_kernel<false, true>
+                    : (xscav != nullptr ? conccalc_kernel<true, false>
+                                        : conccalc_kernel<false, false>);
+  kern<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(in, c,
+                                                                  gridunc);
   return static_cast<int>(cudaGetLastError());
 }

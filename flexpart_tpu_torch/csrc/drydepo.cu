@@ -27,8 +27,18 @@
 //
 // Design: one thread per particle, every species in a loop over a struct
 // array passed by value (MAX_SPECIES of them); all outputs out of place.
+//
+// The BKDEP instantiation (fp_drydepo with xscav given) replaces:
+// flexpart_tpu/physics/bkdep.py::assign_drybkdep, the scavenging factor of
+// a backward dry-deposition run (ind_receptor = 4, get_vdep_prob.f90:
+// 43-61): the same vdep gather, for every species of a fresh particle
+// (active, xscav < 0), writes xscav = max(vdep, 0) and zeroes the mass
+// where vdep is not above 0; every other particle keeps its xscav and its
+// mass.  It applies no decay and no deposition.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "at_least_zero.cuh"
 
 namespace {
 
@@ -52,6 +62,7 @@ struct In {
   const float *mass, *mass0;               // (n, nspec)
   const float* vdep;                       // (nspec, ny, nx) or NULL
   const float* t_below;                    // (n,): the T_BELOW instantiation
+  const float* xscav;                      // (n, nspec): BKDEP
 };
 
 struct Cfg {
@@ -63,18 +74,14 @@ __device__ __forceinline__ float clamp01(float v) {
   return v < 0.0f ? 0.0f : (v > 1.0f ? 1.0f : v);
 }
 
-template <bool T_BELOW>
+template <bool T_BELOW, bool BKDEP>
 __global__ void __launch_bounds__(THREADS)
 drydepo_kernel(const In in, const Cfg c, const Specs sp,
                float* __restrict__ mass_out, bool* __restrict__ active_out,
-               float* __restrict__ deposit) {
+               float* __restrict__ deposit, float* __restrict__ xscav_out) {
   const int p = blockIdx.x * THREADS + threadIdx.x;
   if (p >= c.n) return;
   const bool active = in.active[p];
-  const float z = in.z[p];
-  const float dt = static_cast<float>(c.lsynctime);
-  const float ldt = static_cast<float>(c.ldeltat);
-  const float tb = T_BELOW ? in.t_below[p] : 0.0f;
 
   // horiz_weights(x, y, nx, ny, xglobal=False), when there is a field
   int idx[4] = {0, 0, 0, 0};
@@ -102,6 +109,29 @@ drydepo_kernel(const In in, const Cfg c, const Specs sp,
   }
   const long long plane = static_cast<long long>(c.ny) * c.nx;
 
+  if constexpr (BKDEP) {
+    const long long row = static_cast<long long>(p) * c.nspec;
+    const bool fresh = active && in.xscav[row] < 0.0f;
+    for (int s = 0; s < c.nspec; ++s) {
+      const float m = in.mass[row + s];
+      if (!fresh) {
+        mass_out[row + s] = m;
+        xscav_out[row + s] = in.xscav[row + s];
+        continue;
+      }
+      const float* f = in.vdep + s * plane;
+      const float vd = ((f[idx[0]] * p4[0] + f[idx[1]] * p4[1]) +
+                        f[idx[2]] * p4[2]) + f[idx[3]] * p4[3];
+      xscav_out[row + s] = fp::at_least_zero(vd);
+      mass_out[row + s] = vd <= 0.0f ? 0.0f : m;
+    }
+    return;
+  }
+
+  const float z = in.z[p];
+  const float dt = static_cast<float>(c.lsynctime);
+  const float ldt = static_cast<float>(c.ldeltat);
+  const float tb = T_BELOW ? in.t_below[p] : 0.0f;
   bool keep = false;
   float xmax = 0.0f;
   for (int s = 0; s < c.nspec; ++s) {
@@ -132,31 +162,38 @@ drydepo_kernel(const In in, const Cfg c, const Specs sp,
 
 }  // namespace
 
+// xscav NULL: decay, dry deposition and minmass, the T_BELOW instantiation
+// where t_below is given; xscav (n, nspec) given: the BKDEP instantiation,
+// xscav in and out and the mass out, vdep required (z, mass0, t_below, the
+// species, the times, minmass, active_out and deposit unused)
 extern "C" int fp_drydepo(const float* x_hi, const float* x_lo,
                           const float* y_hi, const float* y_lo,
                           const float* z, const bool* active,
                           const float* mass, const float* mass0,
-                          const float* vdep, int ny, int nx,
-                          const float* t_below, const void* specs_in, int n,
-                          int nspec,
-                          int lsynctime, int ldeltat, float minmass,
-                          float* mass_out, bool* active_out, float* deposit,
-                          void* stream) {
+                          const float* xscav, const float* vdep, int ny,
+                          int nx, const float* t_below, const void* specs_in,
+                          int n, int nspec, int lsynctime, int ldeltat,
+                          float minmass, float* mass_out, bool* active_out,
+                          float* deposit, float* xscav_out, void* stream) {
   if (n <= 0) return 0;
+  const bool bkdep = xscav != nullptr;
   if (nspec < 1 || nspec > MAX_SPECIES ||
-      (vdep != nullptr && (ny < 2 || nx < 2)))
+      (vdep != nullptr && (ny < 2 || nx < 2)) || (bkdep && vdep == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Specs sp{};
   // the host array of DrySpec (a void pointer: the struct's type is local
   // to this file, and a C function with it in its signature is not exported)
   const DrySpec* specs = static_cast<const DrySpec*>(specs_in);
-  for (int s = 0; s < nspec; ++s) sp.s[s] = specs[s];
+  if (!bkdep)
+    for (int s = 0; s < nspec; ++s) sp.s[s] = specs[s];
   const In in = {x_hi, x_lo, y_hi, y_lo, z, active, mass, mass0, vdep,
-                 t_below};
+                 t_below, xscav};
   const Cfg c{ny, nx, n, nspec, lsynctime, ldeltat, minmass};
   const int blocks = (n + THREADS - 1) / THREADS;
-  auto kern = t_below != nullptr ? drydepo_kernel<true> : drydepo_kernel<false>;
+  auto kern = bkdep ? drydepo_kernel<false, true>
+                    : (t_below != nullptr ? drydepo_kernel<true, false>
+                                          : drydepo_kernel<false, false>);
   kern<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, c, sp, mass_out, active_out, deposit);
+      in, c, sp, mass_out, active_out, deposit, xscav_out);
   return static_cast<int>(cudaGetLastError());
 }

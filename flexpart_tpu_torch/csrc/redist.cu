@@ -3,8 +3,12 @@
 // Replaces: flexpart_tpu/physics/convection.py::redist_particles
 // (convection.py:453-547, redist.f90), which the JAX package leaves to XLA
 // as gathers of whole matrix rows and a cumulative sum per particle.  Its
-// plain PyTorch twin is physics/convection.py::redist_plain.  Forward runs
-// (ldirect = 1) only.
+// plain PyTorch twin is physics/convection.py::redist_plain.  A backward run
+// (ldirect = -1) draws against the transposed matrix (convection.py:
+// 479-480): its BACKWARD instantiation reads the column fmassfrac[col, :,
+// levold], stride L1, where a forward run reads the row fmassfrac[col,
+// levold, :]; the rest, the draw and the normalisation by the particle's
+// own level mass included, is the same.
 //
 // What a thread does: the grid column from its rounded position (rintf
 // rounds half to even, as jnp.round and torch.round do; roundf would not),
@@ -91,6 +95,7 @@ __device__ float wsub_at(const Conv& cv, size_t c1, size_t c2, int levi) {
   return (((-s_eff) * F(R_AIR)) * t_half) / tmax(phk * 100.0f, F(1e-3));
 }
 
+template <bool BACKWARD>
 __global__ void __launch_bounds__(256)
 redist_kernel(const PIn in, const Conv cv, const float* __restrict__ rn_in,
               int n, int nx, int ny, int L1, int itime, float lsync,
@@ -114,7 +119,10 @@ redist_kernel(const PIn in, const Conv cv, const float* __restrict__ rn_in,
         for (int k = 1; k < L1; ++k) levold += uvz[k] < z ? 1 : 0;
       const int up_old = min(levold + 1, L1);
       if (cv.lconv[col] && z < uvz[up_old]) {
-        const float* row = cv.fmassfrac + (c1 + levold) * L1;
+        // the matrix row of levold (forward), or its column (backward)
+        const float* row = BACKWARD ? cv.fmassfrac + c1 * L1 + levold
+                                    : cv.fmassfrac + (c1 + levold) * L1;
+        const size_t stride = BACKWARD ? L1 : 1;
         const float totmass = tmax(cv.rlevmass[c1 + levold], F(1e-30));
         float rn;
         if (rn_in != nullptr) {
@@ -129,19 +137,19 @@ redist_kernel(const PIn in, const Conv cv, const float* __restrict__ rn_in,
         int levnew = -1;
         float frac = 0.0f, ffrac_at = 0.0f, f_at = 0.0f, ffrac_old = 0.0f;
         for (int k = 0; k < L1; ++k) {
-          const float fk = row[k] / totmass;
+          const float fk = row[k * stride] / totmass;
           frac = k == 0 ? fk : frac + fk;
           if (k == levold) ffrac_old = frac;
           if (levnew < 0 && frac >= rn) {
             levnew = k;
             ffrac_at = frac;
-            f_at = row[k];
+            f_at = row[k * stride];
           }
         }
         if (levnew < 0) {
           levnew = levold;
           ffrac_at = ffrac_old;
-          f_at = row[levold];
+          f_at = row[levold * stride];
         }
         moved = levnew != levold;
         if (moved) {
@@ -187,7 +195,7 @@ extern "C" int fp_redist(
     const float* sub, const float* uvzlev, const float* pconv,
     const float* tconv, const uint8_t* lconv, const float* rn, int n, int nx,
     int ny, int L1, int itime, float lsync, uint32_t k0, uint32_t k1,
-    float* z_out, int* moved, void* stream) {
+    int backward, float* z_out, int* moved, void* stream) {
   if (n <= 0) return 0;
   if (L1 < 2 || nx < 1 || ny < 1) return static_cast<int>(cudaErrorInvalidValue);
   const PIn in = {x_hi, x_lo, y_hi, y_lo, z, itra, active};
@@ -197,7 +205,8 @@ extern "C" int fp_redist(
     return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
-  redist_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kern = backward ? redist_kernel<true> : redist_kernel<false>;
+  kern<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       in, cv, rn, n, nx, ny, L1, itime, lsync, k0, k1, z_out, moved);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,8 +45,19 @@
 // same for every particle: each block computes them once.  The level is
 // torch.searchsorted's binary search (right=True), so it finds the plain
 // version's level for any height and z.
+//
+// The BKDEP instantiation (fp_wetdepo with xscav given) replaces:
+// flexpart_tpu/physics/bkdep.py::assign_wetbkdep, the scavenging factor of
+// a backward wet-deposition run (ind_receptor = 3, timemanager.f90:
+// 565-598).  For a fresh particle (active, xscav < 0) it takes the same
+// lambda path per species and writes xscav = max(lambda * colh * fraction,
+// 0), colh the released column's height, and zeroes the mass where that
+// product is not above 0; it removes no mass and writes no deposit.  Every
+// other particle keeps its xscav and its mass.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "at_least_zero.cuh"
 
 namespace {
 
@@ -79,6 +90,7 @@ struct In {
   const float *x_hi, *x_lo, *y_hi, *y_lo, *z;
   const bool* active;
   const float* mass;                      // (n, nspec)
+  const float* xscav;                     // (n, nspec): BKDEP only
   const float *lsp, *convp, *tcc;         // (ny, nx) planes of f2d
   const int8_t* clouds;                   // (nz, ny, nx)
   const float* tt;                        // (nz, ny, nx) plane of f3d
@@ -87,6 +99,7 @@ struct In {
 
 struct Cfg {
   int nz, ny, nx, n, nspec, ltsample, ldeltat;
+  float colh;                             // BKDEP: the released column [m]
 };
 
 // clamp(v, lo) and clamp(v, lo, hi) as torch's, a NaN passing through
@@ -152,9 +165,21 @@ __device__ __noinline__ float wet_removal(float m, float lam, float lts,
   return (m * (1.0f - expf(-lam * lts))) * grf;
 }
 
+// BKDEP: the backward run's factor xscav of a fresh particle from lambda
+// (0 without a rule); the mass stays, or is zeroed where xscav is not > 0
+__device__ __forceinline__ void bkdep_factor(float lam, const Cfg& c,
+                                             float grf, float m,
+                                             float* mass_out, float* xs_out) {
+  const float xs_new = (lam * c.colh) * grf;
+  *xs_out = fp::at_least_zero(xs_new);
+  *mass_out = xs_new <= 0.0f ? 0.0f : m;
+}
+
+template <bool BKDEP>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 wetdepo_kernel(const In in, const Cfg c, const Specs sp,
-               float* __restrict__ mass_out, float* __restrict__ deposit) {
+               float* __restrict__ mass_out, float* __restrict__ deposit,
+               float* __restrict__ xscav_out) {
   // exp(|ldeltat| * decay): the same for every particle, made once per
   // block while the particles' loads are in flight
   __shared__ float corr[MAX_SPECIES];
@@ -169,7 +194,10 @@ wetdepo_kernel(const In in, const Cfg c, const Specs sp,
   const int p = inside ? q : c.n - 1;
   const float x = in.x_hi[p] + in.x_lo[p];
   const float y = in.y_hi[p] + in.y_lo[p];
-  const bool active = in.active[p];
+  // BKDEP: only a fresh particle takes the pass, the others keep their
+  // values
+  const bool active = in.active[p] &&
+                      (!BKDEP || in.xscav[static_cast<long long>(p) * c.nspec] < 0.0f);
 
   // horiz_weights(x, y, nx, ny, xglobal=False)
   int ix = static_cast<int>(fminf(fmaxf(floorf(x), 0.0f),
@@ -222,6 +250,19 @@ wetdepo_kernel(const In in, const Cfg c, const Specs sp,
   __syncthreads();                           // corr
   if (!inside) return;
 
+  if (BKDEP && !active) {
+    for (int s = 0; s < c.nspec; ++s) {
+      mass_out[row + s] = in.mass[row + s];
+      xscav_out[row + s] = in.xscav[row + s];
+    }
+    return;
+  }
+  if (BKDEP && !valid) {
+    for (int s = 0; s < c.nspec; ++s)
+      bkdep_factor(0.0f, c, grf, in.mass[row + s], mass_out + row + s,
+                   xscav_out + row + s);
+    return;
+  }
   if (!valid) {
     for (int s = 0; s < c.nspec; ++s) {
       const float m = in.mass[row + s];
@@ -270,6 +311,11 @@ wetdepo_kernel(const In in, const Cfg c, const Specs sp,
       rule = true;
     }
     const float m = in.mass[row + s];
+    if constexpr (BKDEP) {
+      bkdep_factor(rule ? lam : 0.0f, c, grf, m, mass_out + row + s,
+                   xscav_out + row + s);
+      continue;
+    }
     // without a rule lambda is 0: the light path's value
     const float wetdep = rule ? wet_removal(m, lam, lts, grf) : (m * 0.0f) * grf;
     const float rest = m - wetdep;
@@ -278,31 +324,43 @@ wetdepo_kernel(const In in, const Cfg c, const Specs sp,
   }
 }
 
+// the species' structs from the host array (a void pointer: the struct's
+// type is local to this file, and a C function with it in its signature is
+// not exported)
+Specs copy_specs(const void* specs_in, int nspec) {
+  Specs sp{};
+  const WetSpec* specs = static_cast<const WetSpec*>(specs_in);
+  for (int s = 0; s < nspec; ++s) sp.s[s] = specs[s];
+  return sp;
+}
+
 }  // namespace
 
+// xscav NULL: the wet pass, the mass and the deposit out; xscav (n, nspec)
+// given: the BKDEP instantiation, xscav in and out and the mass out, with
+// the released column's height colh (ltsample, ldeltat and deposit unused)
 extern "C" int fp_wetdepo(const float* x_hi, const float* x_lo,
                           const float* y_hi, const float* y_lo,
                           const float* z, const bool* active,
-                          const float* mass, const float* lsp,
-                          const float* convp, const float* tcc,
-                          const int8_t* clouds, const float* tt,
-                          const float* height, int nz, int ny, int nx,
-                          const void* specs_in, int n, int nspec,
-                          int ltsample, int ldeltat, float* mass_out,
-                          float* deposit, void* stream) {
+                          const float* mass, const float* xscav,
+                          const float* lsp, const float* convp,
+                          const float* tcc, const int8_t* clouds,
+                          const float* tt, const float* height, int nz,
+                          int ny, int nx, const void* specs_in, int n,
+                          int nspec, int ltsample, int ldeltat, float colh,
+                          float* mass_out, float* deposit, float* xscav_out,
+                          void* stream) {
   if (n <= 0) return 0;
-  if (nspec < 0 || nspec > MAX_SPECIES || nz < 2 || ny < 2 || nx < 2)
+  const bool bkdep = xscav != nullptr;
+  if (nspec < (bkdep ? 1 : 0) || nspec > MAX_SPECIES || nz < 2 || ny < 2 ||
+      nx < 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  Specs sp{};
-  // the host array of WetSpec (a void pointer: the struct's type is local
-  // to this file, and a C function with it in its signature is not exported)
-  const WetSpec* specs = static_cast<const WetSpec*>(specs_in);
-  for (int s = 0; s < nspec; ++s) sp.s[s] = specs[s];
-  const In in = {x_hi, x_lo, y_hi, y_lo, z, active, mass, lsp, convp,
-                 tcc, clouds, tt, height};
-  const Cfg c{nz, ny, nx, n, nspec, ltsample, ldeltat};
+  const In in = {x_hi, x_lo, y_hi, y_lo, z, active, mass, xscav, lsp,
+                 convp, tcc, clouds, tt, height};
+  const Cfg c{nz, ny, nx, n, nspec, ltsample, ldeltat, colh};
   const int blocks = (n + THREADS - 1) / THREADS;
-  wetdepo_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, c, sp, mass_out, deposit);
+  auto kern = bkdep ? wetdepo_kernel<true> : wetdepo_kernel<false>;
+  kern<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      in, c, copy_specs(specs_in, nspec), mass_out, deposit, xscav_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,11 @@ scatter-add is kernel K3 (``csrc/conccalc.cu``) on CUDA and the plain
 twin ``conccalc_plain`` on the CPU.  Both add into ``acc.gridunc`` in
 place (JAX returns a new array) and return ``acc`` with ``outnum``
 advanced.  Out-of-range cells are dropped: the twin filters the JAX 2**30
-sentinel before ``index_add_``, the kernel skips it.
+sentinel before ``index_add_``, the kernel skips it.  A backward deposition
+run (``ConcConfig.bkdep``) multiplies each species' contribution by
+max(xscav, 0), and ``particle_count_output`` adds the particle count (1,
+or the 4-point weight) instead of the mass: K3's ``BKDEP`` and ``COUNT``
+instantiations on CUDA.
 
 K3 sums in two levels: the ``K3_GROUP`` consecutive particles of a warp
 first add up, in registers, the values that go to the same row of
@@ -127,7 +131,12 @@ def conccalc_pairs(rows: int, p: Particles, itime: int,
         in_grid = (ix >= 0) & (ix < cfg.nxg) & (jy >= 0) & (jy < cfg.nyg)
         lin = cell * (cfg.nyg * cfg.nxg) + jy * cfg.nxg + ix
         valid = live & in_z & in_grid & (lin >= 0) & (lin < rows)
-        m = p.mass / rhoi[:, None] if rhoi is not None else p.mass
+        if cfg.particle_count_output:
+            m = torch.ones_like(p.mass)
+        else:
+            m = p.mass / rhoi[:, None] if rhoi is not None else p.mass
+            if cfg.bkdep:
+                m = m * _at_least_zero(p.xscav)
         contrib = m * weight
         return lin[:, None], valid[:, None], contrib[:, None, :]
 
@@ -150,9 +159,19 @@ def conccalc_pairs(rows: int, p: Particles, itime: int,
     lin = cell[:, None] * (cfg.nyg * cfg.nxg) + cy * cfg.nxg + cx
     valid = (live[:, None] & in_z[:, None] & in_grid & (w4 > 0)
              & (lin >= 0) & (lin < rows))
+    if cfg.particle_count_output:
+        contrib = w4[..., None].expand(n, 4, p.nspec) * weight
+        return lin, valid, contrib
     wr = w4 / rhoi[:, None] if rhoi is not None else w4
-    contrib = (wr[..., None] * p.mass[:, None, :]) * weight      # (N, 4, ns)
-    return lin, valid, contrib
+    contrib = wr[..., None] * p.mass[:, None, :]                 # (N, 4, ns)
+    if cfg.bkdep:
+        contrib = contrib * _at_least_zero(p.xscav)[:, None, :]
+    return lin, valid, contrib * weight
+
+
+def _at_least_zero(v: torch.Tensor) -> torch.Tensor:
+    """max(v, 0) as jnp.maximum, a NaN passing through."""
+    return torch.maximum(v, torch.zeros_like(v))
 
 
 def conccalc_plain(flat: torch.Tensor, p: Particles, itime: int,
@@ -169,7 +188,9 @@ def conccalc_cuda(flat: torch.Tensor, p: Particles, itime: int,
                   lage: torch.Tensor, outheight: torch.Tensor,
                   weight: float, rhoi: torch.Tensor | None,
                   cfg: ConcConfig) -> None:
-    """K3 launch: accumulate into ``flat`` (rows, nspec) in place."""
+    """K3 launch: accumulate into ``flat`` (rows, nspec) in place; its
+    ``COUNT`` instantiation for ``particle_count_output``, else its
+    ``BKDEP`` one for ``bkdep``, else the stock one."""
     if p.capacity == 0:
         return
     dev = flat.device
@@ -186,6 +207,12 @@ def conccalc_cuda(flat: torch.Tensor, p: Particles, itime: int,
                              f"{dt} with {n} rows on {dev}")
     if p.mass.shape[1] != flat.shape[1]:
         raise ValueError("K3: mass species do not match gridunc")
+    count = cfg.particle_count_output
+    bkdep = cfg.bkdep and not count
+    if bkdep and (p.xscav.device != dev or p.xscav.dtype != f32
+                  or tuple(p.xscav.shape) != tuple(p.mass.shape)
+                  or not p.xscav.is_contiguous()):
+        raise ValueError("K3: xscav must be contiguous float32 like mass")
     if flat.shape[0] > K3_MAX_ROWS:
         raise ValueError(f"K3 matches gridunc rows by a 32-bit index: "
                          f"{flat.shape[0]} rows exceed {K3_MAX_ROWS}")
@@ -200,14 +227,17 @@ def conccalc_cuda(flat: torch.Tensor, p: Particles, itime: int,
     def c(v):
         return float(np.float32(v))
 
+    kernel = (_build.CONCCALC_COUNT if count else
+              _build.CONCCALC_BKDEP if bkdep else _build.CONCCALC)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.CONCCALC(
+        kernel(
             p.x_hi.data_ptr(), p.x_lo.data_ptr(), p.y_hi.data_ptr(),
             p.y_lo.data_ptr(), p.z.data_ptr(), p.itra.data_ptr(),
             p.itramem.data_ptr(), p.npoint.data_ptr(), p.nclass.data_ptr(),
             p.active.data_ptr(), p.mass.data_ptr(),
             rhoi.data_ptr() if rhoi is not None else None,
+            p.xscav.data_ptr() if bkdep else None, int(count),
             lage.data_ptr(), cfg.nage, outheight.data_ptr(), cfg.nzg,
             n, flat.shape[1], cfg.nxg, cfg.nyg, cfg.npointspec,
             cfg.nclassunc, c(cfg.dx_met), c(cfg.dy_met), c(cfg.xoutshift),
@@ -221,10 +251,6 @@ def conccalc(acc: Accumulators, p: Particles, zf: ZFields, itime: int,
              lage: torch.Tensor, weight: float, cfg: ConcConfig,
              outheight: torch.Tensor) -> Accumulators:
     """One sampling pass: K3 on CUDA, the plain twin on the CPU."""
-    if cfg.particle_count_output or cfg.bkdep:
-        raise NotImplementedError(
-            "particle-count and backward-deposition sampling are not "
-            "ported yet")
     if cfg.ind_samp not in (0, -1):
         raise ValueError(f"ind_samp must be 0 or -1, not {cfg.ind_samp}")
     if lage.shape[0] < cfg.nage:

@@ -630,28 +630,30 @@ def convection_cuda(kern: ConvectionKernel, fields, tw0: float, tw1: float,
 def redist_particles(p: Particles, key: rng.Key, fmassfrac, rlevmass,
                      phconv_hpa, sub, uvzlev, pconv_hpa, tconv, lconv,
                      lsynctime: int, itime: int, nl: int, nx: int, ny: int,
-                     rn: torch.Tensor | None = None):
-    """redist.f90 for a forward run: the categorical draw of each live
-    particle's destination level from its column's matrix row, and
+                     rn: torch.Tensor | None = None, ldirect: int = 1):
+    """redist.f90: the categorical draw of each live particle's destination
+    level from its column's matrix row (a backward run, ``ldirect`` < 0,
+    from the transposed matrix's: the column of its level), and
     compensating subsidence for the others.  K7 for particles on a CUDA
-    device, the plain version on the CPU.  ``rn`` (n,) injects the uniform
-    draws; without it they come from the Philox stream of ``key`` under
-    ``REDIST_TAG`` (counter: the slot).  Returns (particles, moved count as
-    a () int32 tensor on the device)."""
+    device (its ``BACKWARD`` instantiation backward), the plain version on
+    the CPU.  ``rn`` (n,) injects the uniform draws; without it they come
+    from the Philox stream of ``key`` under ``REDIST_TAG`` (counter: the
+    slot).  Returns (particles, moved count as a () int32 tensor on the
+    device)."""
     dev = p.device
     run = {"cuda": redist_cuda, "cpu": redist_plain}.get(dev.type)
     if run is None:
         raise ValueError(f"no redistribution backend for device {dev}")
     return run(p, key, fmassfrac, rlevmass, phconv_hpa, sub, uvzlev,
-               pconv_hpa, tconv, lconv, lsynctime, itime, nl, nx, ny, rn)
+               pconv_hpa, tconv, lconv, lsynctime, itime, nl, nx, ny, rn,
+               ldirect)
 
 
 def redist_plain(p, key, fmassfrac, rlevmass, phconv_hpa, sub, uvzlev,
                  pconv_hpa, tconv, lconv, lsynctime, itime, nl, nx, ny,
-                 rn=None):
-    """The plain PyTorch version of K7 (the JAX function for ldirect = 1,
-    with the level sums in level order and the gathers clamped where JAX
-    clamps)."""
+                 rn=None, ldirect: int = 1):
+    """The plain PyTorch version of K7 (the JAX function, with the level
+    sums in level order and the gathers clamped where JAX clamps)."""
     L1 = nl + 1
     n = p.capacity
     dev = p.device
@@ -673,7 +675,10 @@ def redist_plain(p, key, fmassfrac, rlevmass, phconv_hpa, sub, uvzlev,
     in_dom = z < at(uvz_p, torch.clamp(levold + 1, max=L1))
     live = live & in_dom
 
-    row = fmassfrac[col, levold]                      # (N, L1)
+    if ldirect < 0:
+        row = fmassfrac[col, :, levold]               # transposed matrix
+    else:
+        row = fmassfrac[col, levold]                  # (N, L1)
     totmass = torch.clamp(rlevmass[col, levold], min=1e-30)
     frac = _seq_cumsum(row / totmass[:, None], 1)
     if rn is None:
@@ -746,9 +751,10 @@ def redist_plain(p, key, fmassfrac, rlevmass, phconv_hpa, sub, uvzlev,
 
 def redist_cuda(p, key, fmassfrac, rlevmass, phconv_hpa, sub, uvzlev,
                 pconv_hpa, tconv, lconv, lsynctime, itime, nl, nx, ny,
-                rn=None):
+                rn=None, ldirect: int = 1):
     """K7 launch: one thread per particle, z written out of place, the
-    moved count summed by one ballot and one atomic per warp."""
+    moved count summed by one ballot and one atomic per warp; its
+    ``BACKWARD`` instantiation for ``ldirect`` < 0."""
     L1 = nl + 1
     n = p.capacity
     dev = p.device
@@ -786,9 +792,11 @@ def redist_cuda(p, key, fmassfrac, rlevmass, phconv_hpa, sub, uvzlev,
         return p.replace(z=z_out), moved[0]
     k0, k1 = key.philox_key(REDIST_TAG)
     held = rn.contiguous() if rn is not None else None
+    backward = ldirect < 0
+    kernel = _build.REDIST_BACKWARD if backward else _build.REDIST
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.REDIST(
+        kernel(
             p.x_hi.data_ptr(), p.x_lo.data_ptr(), p.y_hi.data_ptr(),
             p.y_lo.data_ptr(), p.z.data_ptr(), p.itra.data_ptr(),
             p.active.data_ptr(), *(tensors[k].data_ptr() for k in (
@@ -796,5 +804,5 @@ def redist_cuda(p, key, fmassfrac, rlevmass, phconv_hpa, sub, uvzlev,
                 "tconv", "lconv")),
             None if held is None else held.data_ptr(),
             n, nx, ny, L1, itime, float(np.float32(lsynctime)), k0, k1,
-            z_out.data_ptr(), moved.data_ptr(), stream)
+            int(backward), z_out.data_ptr(), moved.data_ptr(), stream)
     return p.replace(z=z_out), moved[0]

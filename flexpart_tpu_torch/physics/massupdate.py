@@ -187,12 +187,13 @@ def decay_drydep_cuda(p: Particles, vdep_field, lsynctime: int, ldeltat: int,
         _build.DRYDEPO(
             p.x_hi.data_ptr(), p.x_lo.data_ptr(), p.y_hi.data_ptr(),
             p.y_lo.data_ptr(), p.z.data_ptr(), p.active.data_ptr(),
-            p.mass.data_ptr(), p.mass0.data_ptr(),
+            p.mass.data_ptr(), p.mass0.data_ptr(), None,
             vdep_field.data_ptr() if has_vdep else None, ny, nx,
             None if t_below is None else t_below.data_ptr(),
             ctypes.addressof(specs), n, nspec, abs(int(lsynctime)),
             abs(int(ldeltat)), float(np.float32(sp.minmass)),
-            mass.data_ptr(), active.data_ptr(), deposit.data_ptr(), stream)
+            mass.data_ptr(), active.data_ptr(), deposit.data_ptr(), None,
+            stream)
     return p.replace(mass=mass, active=active), deposit
 
 

@@ -304,12 +304,12 @@ def wetdepo_cuda(p: Particles, zf: ZFields, ltsample: int, ldeltat: int,
         _build.WETDEPO(
             p.x_hi.data_ptr(), p.x_lo.data_ptr(), p.y_hi.data_ptr(),
             p.y_lo.data_ptr(), p.z.data_ptr(), p.active.data_ptr(),
-            p.mass.data_ptr(), zf.f2d[F2_LSPREC].data_ptr(),
+            p.mass.data_ptr(), None, zf.f2d[F2_LSPREC].data_ptr(),
             zf.f2d[F2_CONVPREC].data_ptr(), zf.f2d[F2_TCC].data_ptr(),
             zf.clouds.data_ptr(), zf.f3d[F3_TT].data_ptr(),
             zf.height.data_ptr(), nz, ny, nx, ctypes.addressof(specs), n,
-            nspec, abs(int(ltsample)), abs(int(ldeltat)), mass.data_ptr(),
-            deposit.data_ptr(), stream)
+            nspec, abs(int(ltsample)), abs(int(ldeltat)), 0.0,
+            mass.data_ptr(), deposit.data_ptr(), None, stream)
     return p.replace(mass=mass), deposit
 
 

@@ -1,7 +1,9 @@
 """The simulation run loop — scheduler equivalent of timemanager.f90.
 
-Port of ``flexpart_tpu/run/simulation.py``: the forward (``ldirect=1``),
-serial, one-device path with the fixed step (``ctl < 0``) or the adaptive
+Port of ``flexpart_tpu/run/simulation.py``: the forward (``ldirect=1``) and
+backward (``ldirect=-1``: source-receptor sensitivities, with the backward
+deposition modes ``ind_receptor`` 3 and 4, physics/bkdep.py), serial,
+one-device path with the fixed step (``ctl < 0``) or the adaptive
 step (``ctl > 0``), with the defaults of ``Command``: convection
 (``lconvection=1``), subgrid orography (``lsubgrid=1``) and, on a cyclic
 grid beyond 75 degrees, the polar caps; species may decay, deposit wet and
@@ -23,12 +25,15 @@ Per sync interval (timemanager.f90:152-712):
 
   1. keep two processed wind fields buffered around itime (getfields.f90
      double buffer; here: backend fetch + process_eta/calcpar, the next
-     field read and processed by one background thread);
+     field read and processed by one background thread; a backward run
+     reads the fields before itime);
   1b. wet deposition over the interval ending at itime (physics/wetdepo.py,
      K9 and the deposit scatter K8 on a CUDA device; timemanager.f90:
      164-169) and the decay of the deposition grids (timemanager.f90:
-     269-304);
-  2. activate scheduled releases (mask flip, core/release.py);
+     269-304); a backward run removes the mass and grids no deposit;
+  2. activate scheduled releases (mask flip, core/release.py); in a
+     backward deposition run the factor xscav of each fresh particle
+     (physics/bkdep.py: K9 or K10 BKDEP on a CUDA device);
   3. keep the particles in met-cell order (core/reorder.py): a sort every
      ``REORDER_EVERY`` steps and on every step in which a release woke
      particles;
@@ -39,14 +44,16 @@ Per sync interval (timemanager.f90:152-712):
   4. sample concentrations into the device accumulator (conccalc) on the
      loutsample cadence with the reference's half-weight edge rule
      (timemanager.f90:350-365);
-  5. at averaging-interval end: normalize (factor3d, concoutput.f90:210-221),
-     copy to host, write, zero the concentration accumulator;
+  5. at averaging-interval end: normalize (factor3d, concoutput.f90:210-221;
+     |loutaver| / outnum backward), copy to host, write, zero the
+     concentration accumulator;
   6. advance all particles one lsynctime (core/advance.py: K4 for the
      fixed step, K11 for the adaptive step on a CUDA device);
   6b. decay, dry deposition and minmass termination
      (physics/massupdate.py, K10 and K8 on a CUDA device;
      timemanager.f90:643-686); after an adaptive step the dry deposition
-     takes the seconds each particle spent below 2 HREF;
+     takes the seconds each particle spent below 2 HREF; backward, the
+     deposit is not gridded;
   7. terminate particles older than the last age class.
 
 On a CUDA device a step that neither samples nor writes never waits for
@@ -85,6 +92,7 @@ from ..met.grid import MetGrid
 from ..met.verttransform import compute_heights, process_eta
 from ..physics import setup_drydep
 from ..physics.convection import make_convection_kernel, redist_particles
+from ..physics.bkdep import assign_drybkdep, assign_wetbkdep, write_precip
 from ..physics.drydepo import constant_vdep_kernel, make_vdep_kernel
 from ..physics.massupdate import (MassSpecies, apply_decay_drydep,
                                   decay_deposition_grids)
@@ -164,7 +172,6 @@ class Simulation:
         species = self.releases.species
         span = abs(cmd.ideltas)
         unported = {
-            "ldirect=-1 (backward runs)": cmd.ldirect != 1,
             "mdomainfill (domain filling)": cmd.mdomainfill != 0,
             "ipin=1 (warm start)": cmd.ipin == 1,
             "receptors": bool(self.receptors),
@@ -213,6 +220,13 @@ class Simulation:
         # readpaths.f90:45-80); the advance picks a particle's innermost
         # nest (advance.f90:167-175)
         self.nest_grids = tuple(m.grid for m in self.met_nests)
+        # backward deposition modes (readcommand.f90:316-339): 3 WETBKDEP,
+        # 4 DRYBKDEP; the factors are pending until every released
+        # particle has one
+        self.bkdep = (cmd.ind_receptor
+                      if cmd.ldirect < 0 and cmd.ind_receptor in (3, 4)
+                      else 0)
+        self._bkdep_pending = self.bkdep != 0
         self.nspec = self.releases.nspec
         self.numpoint = self.releases.numpoint
         self.geo = OutputGridGeometry(self.outgrid, self.grid)
@@ -270,7 +284,8 @@ class Simulation:
             xoutshift=self.geo.xoutshift, youtshift=self.geo.youtshift,
             dx_met=self.grid.dx, dy_met=self.grid.dy,
             ind_samp=cmd.ind_samp,
-            ioutputforeachrelease=bool(cmd.ioutputforeachrelease))
+            ioutputforeachrelease=bool(cmd.ioutputforeachrelease),
+            bkdep=self.bkdep != 0)
         self.conccalc = make_conccalc(self.outgrid.outheights)
         self.lage = torch.as_tensor(
             np.asarray(self.ageclasses.lage or (999999999,), np.int32),
@@ -280,7 +295,7 @@ class Simulation:
         # its release times say on which steps `activate` wakes particles
         sched = release_schedule_arrays(
             self.releases, cmd, self.grid, capacity=self.capacity,
-            nclassunc=self.nclassunc, seed=self.seed)
+            nclassunc=self.nclassunc, seed=self.seed, bkdep=self.bkdep)
         self._release_times = frozenset(
             int(t) for t in np.unique(sched["itra"]) if t != ITRA_INACTIVE)
         if self.legacy_rng:
@@ -289,9 +304,10 @@ class Simulation:
         # earliest scheduled release (s since bdate): the sampling kernel
         # (conccalc.f90:171 itage>10800) cannot trigger before
         # first_release + 3 h, so the sampler runs its single-index path
-        # until then (grid/conccalc.py kernel_possible_at)
+        # until then (grid/conccalc.py kernel_possible_at); None, the
+        # kernel always possible, for a backward run, as the reference
         self._first_release: int | None = None
-        if self.releases.boxes:
+        if cmd.ldirect > 0 and self.releases.boxes:
             self._first_release = min(
                 int((b.start - cmd.bdate).total_seconds())
                 for b in self.releases.boxes)
@@ -315,6 +331,7 @@ class Simulation:
         self._reader = None              # lazy background reader thread
         self._met_stream = None          # the reader's CUDA stream
         self._prefetch_failures = 0      # dead-reader visibility counter
+        self._precip_started = False     # wetscav_precip.txt begun
         self.timings: dict[str, float] = {}
         self.timers = SectionTimers(device_sync=self.profile, device=dev)
         self.nan_count = 0               # CBL redraws (advance.f90:437)
@@ -355,7 +372,14 @@ class Simulation:
         cmd = self.cmd
         rel = self.releases
         # output units (Stohl et al. 2005 table 1; output_units())
-        units = "ng m-3" if cmd.ind_receptor == 1 else "ng kg-1"
+        if cmd.ldirect == 1:
+            units = "ng m-3" if cmd.ind_receptor == 1 else "ng kg-1"
+        elif cmd.ind_source == 1:
+            units = "s" if cmd.ind_receptor == 1 else "s m3 kg-1"
+        else:
+            units = "s kg m-3" if cmd.ind_receptor == 1 else "s"
+        prefix = {3: "grid_wetdep_", 4: "grid_drydep_"}.get(
+            self.bkdep, "grid_conc_" if cmd.ldirect == 1 else "grid_time_")
         t0 = cmd.bdate
         relstart = [int((b.start - t0).total_seconds()) for b in rel.boxes]
         relend = [int((b.end - t0).total_seconds()) for b in rel.boxes]
@@ -377,7 +401,7 @@ class Simulation:
                 f0=float(s.f0), density=float(s.density),
                 dsigma=float(s.dsigma)))
         return {
-            "prefix": "grid_conc_",
+            "prefix": prefix,
             "units": units,
             "lage": list(self.ageclasses.lage or (999999999,)),
             "global": {
@@ -460,8 +484,10 @@ class Simulation:
             tf0 = _time.perf_counter()
             raw = self._fetch_raw(tsec)
             self.timers.add("getfields_fetch_bg", _time.perf_counter() - tf0)
-            if self._height is None or (self.any_drydep
-                                        and self._vdep_kernel is None):
+            # WETBKDEP processes each field on the step loop's thread,
+            # where it writes the release points' precipitation
+            if self._height is None or self.bkdep == 3 or (
+                    self.any_drydep and self._vdep_kernel is None):
                 out = "raw", raw
             else:
                 tp0 = _time.perf_counter()
@@ -544,6 +570,12 @@ class Simulation:
             else:
                 raw = self._fetch_raw(tsec)
             eta = raw[0]
+            if self.bkdep == 3:
+                # release-point precipitation series (getfields.f90:141-143)
+                write_precip(Path(self.outdir) / "wetscav_precip.txt",
+                             add_seconds(self.cmd.bdate, tsec), self.releases,
+                             self.grid, eta, first=not self._precip_started)
+                self._precip_started = True
             if self._height is None:
                 self._height = compute_heights(self.grid, eta)
                 # output-grid orography for the netCDF header (ORO var,
@@ -552,8 +584,9 @@ class Simulation:
                     self.writer.nc_meta["oro"] = oro_outgrid(
                         self.geo, eta.oro.cpu().numpy())
             # keep at most 3 buffered fields, evicting the one farthest
-            # from the requested time (the memind rotation of
-            # getfields.f90:93-113)
+            # from the requested time: a backward run retires the later
+            # fields, not the earlier ones it prefetched (the memind
+            # rotation of getfields.f90:93-113 works both ways)
             while len(self._buf) >= 3:
                 farthest = max(self._buf, key=lambda k: abs(k - tsec))
                 del self._buf[farthest]
@@ -621,12 +654,17 @@ class Simulation:
         return base.replace(kernel_possible=kp)
 
     def _fields_for(self, itime: int):
+        """The two wind fields around itime, (z0, z1, t0, t1) with t0 <
+        t1; a backward run on a wind time takes the interval before it."""
         wi = self.wind_interval
+        backward = self.cmd.ldirect < 0
         t0 = (itime // wi) * wi
+        if backward and itime % wi == 0:
+            t0 = itime - wi
         t1 = t0 + wi
         f0, f1 = self._get_field(t0), self._get_field(t1)
         # read the next field in the background while particles advance
-        tn = t1 + wi
+        tn = t0 - wi if backward else t1 + wi
         if abs(tn) <= abs(self.cmd.ideltas) + wi:
             self._prefetch_async(tn)
         return f0, f1, t0, t1
@@ -700,19 +738,23 @@ class Simulation:
             self.particles, rng.Key(self.seed, istep), conv.fmassfrac,
             conv.rlevmass, conv.phconv, conv.sub, conv.uvzlev, conv.pconv,
             conv.tconv, conv.lconv, cmd.lsynctime, itime,
-            nl=self.conv_kernel.nl, nx=self.grid.nx, ny=self.grid.ny, rn=rn)
+            nl=self.conv_kernel.nl, nx=self.grid.nx, ny=self.grid.ny, rn=rn,
+            ldirect=cmd.ldirect)
         self.convection_counts.append(torch.stack(
             [conv.lconv.sum(dtype=torch.int32), moved]))
 
     def _run(self, progress: bool = False):
         cmd = self.cmd
-        lsync = cmd.lsynctime
+        # the run's times are signed: a backward run counts seconds
+        # backwards from bdate (its end)
+        ld = cmd.ldirect
+        lsync = cmd.lsynctime * ld
         ideltas = cmd.ideltas
-        loutnext = cmd.loutstep
-        loutaver = cmd.loutaver
+        loutnext = cmd.loutstep * ld
+        loutaver = cmd.loutaver * ld
         loutstart = loutnext - loutaver // 2
         loutend = loutnext + loutaver // 2
-        loutsample = cmd.loutsample
+        loutsample = cmd.loutsample * ld
 
         nsteps = abs(ideltas) // abs(lsync)
         t_wall0 = _time.perf_counter()
@@ -737,8 +779,8 @@ class Simulation:
 
             # interval since the deposited mass's decay reference time
             # (wetdepo.f90:57-62)
-            if itime <= loutnext:
-                ldeltat = itime - (loutnext - cmd.loutstep)
+            if ld * itime <= ld * loutnext:
+                ldeltat = itime - (loutnext - cmd.loutstep * ld)
             else:
                 ldeltat = itime - loutnext
 
@@ -750,16 +792,17 @@ class Simulation:
                     zw = z0 if abs(mt0 - interp_t) < abs(mt1 - interp_t) \
                         else z1
                     self.particles, wdep = wet_deposition(
-                        self.particles, zw, lsync, ldeltat, self.wet_species,
-                        self.mass_species)
-                    self._scatter_depo(self.acc.wetgridunc, wdep, itime)
+                        self.particles, zw, cmd.lsynctime, ldeltat,
+                        self.wet_species, self.mass_species)
+                    if ld == 1:
+                        self._scatter_depo(self.acc.wetgridunc, wdep, itime)
 
             # radioactive decay of deposited mass on the output grids
             # (timemanager.f90:269-304)
             if self.any_decay and istep > 0:
                 decay_deposition_grids(self.acc.wetgridunc,
                                        self.acc.drygridunc, self._decay_arr,
-                                       lsync)
+                                       cmd.lsynctime)
 
             # releases
             self.particles = activate(self.particles, itime)
@@ -776,13 +819,19 @@ class Simulation:
                                         or itime in self._release_times):
                 self._sort(z0.height)
 
+            # the backward deposition factor of each fresh particle, once
+            # after its release (timemanager.f90:565-598)
+            if self._bkdep_pending:
+                with self.timers.section("bkdep"):
+                    self._assign_bkdep(itime, z0, z1, mt0, mt1)
+
             # convective redistribution (timemanager.f90:258-263)
             if self.conv_kernel is not None:
                 with self.timers.section("convection"):
                     self._convect(istep, itime, mt0, mt1)
 
             # sampling (timemanager.f90:350-365)
-            if (loutstart <= itime <= loutend
+            if (ld * loutstart <= ld * itime <= ld * loutend
                     and (itime - loutstart) % loutsample == 0):
                 weight = 0.5 if itime in (loutstart, loutend) else 1.0
                 with self.timers.section("conccalc"):
@@ -794,7 +843,7 @@ class Simulation:
             if itime == loutend and self._outnum() > 0:
                 with self.timers.section("output"):
                     self._write_output(itime)
-                loutnext = loutnext + cmd.loutstep
+                loutnext = loutnext + cmd.loutstep * ld
                 loutstart = loutnext - loutaver // 2
                 loutend = loutnext + loutaver // 2
                 if itime == loutstart:
@@ -837,10 +886,10 @@ class Simulation:
                 with self.timers.section("drydepo"):
                     vdep = z1.vdep if self.any_drydep else None
                     self.particles, ddep = apply_decay_drydep(
-                        self.particles, vdep, lsync, ldeltat,
+                        self.particles, vdep, cmd.lsynctime, ldeltat,
                         self.mass_species, has_vdep=self.any_drydep,
                         t_below=t_below)
-                    if self.any_drydep:
+                    if self.any_drydep and ld == 1:
                         self._scatter_depo(self.acc.drygridunc, ddep,
                                            itime + lsync)
 
@@ -876,6 +925,22 @@ class Simulation:
             log.info("per-section timings (device-synced):\n%s", report)
             (Path(self.outdir) / "profile.txt").write_text(report + "\n")
         return self.particles
+
+    def _assign_bkdep(self, itime: int, z0, z1, mt0: int, mt1: int) -> None:
+        """WETBKDEP / DRYBKDEP: the scavenging factor of the particles
+        released since the last call; once every released particle has
+        one (a count read from the device), nothing is left pending."""
+        if self.bkdep == 4:
+            self._ensure_vdep_kernel(self._get_eta(mt1))
+            self.particles = assign_drybkdep(self.particles, z1.vdep)
+        else:
+            # the field nearest the middle of the step about to be made
+            interp_t = itime + self.cmd.lsynctime * self.cmd.ldirect // 2
+            zw = z0 if abs(mt0 - interp_t) < abs(mt1 - interp_t) else z1
+            self.particles = assign_wetbkdep(self.particles, zw,
+                                             self.wet_species)
+        if int((self.particles.xscav[:, 0] < 0).sum()) == 0:
+            self._bkdep_pending = False
 
     def _legacy_release_positions(self, sched: dict) -> None:
         """Replace the scheduled release positions with the reference's
@@ -957,7 +1022,11 @@ class Simulation:
         else:
             unc = np.zeros_like(total)
         vol = self.geo.volume  # (nz,ny,nx)
-        factor = 1.0e12 / vol / outnum
+        if self.cmd.ldirect == 1:
+            factor = 1.0e12 / vol / outnum
+        else:
+            # a backward run's residence time (concoutput.f90 factor3d)
+            factor = np.full_like(vol, abs(self.cmd.loutaver) / outnum)
         conc = total * factor[None, None, :, :, :, None]
         unc = unc * factor[None, None, :, :, :, None]
         # reorder to (nspec, npoint, nage, nz, ny, nx)

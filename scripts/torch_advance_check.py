@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""A short first check of the advance kernels on the card.
+"""A short first check of the advance and the backward run's kernels on
+the card.
 
     python3 scripts/torch_advance_check.py [n_particles] [check ...]
 
 Builds every kernel (one nvcc per source, all started together), prints
 the card's name and power limit, the build's seconds and the ptxas
-registers, stack and spills of each instantiation of K4 (advance.cu) and
-K11 (advance_adaptive.cu) (empty where build/kernels/ already held the
-libraries: nvcc did not run), then runs chip_smoke.py's checks of K11's CBL
-instantiation (``cbl``) and K4's NESTS instantiation (``nests``) against
+registers, stack and spills of every kernel's instantiations (empty where
+build/kernels/ already held the libraries: nvcc did not run), then runs
+chip_smoke.py's checks of K11's CBL instantiation (``cbl``) and K4's NESTS
+instantiation (``nests``) against
 their plain versions at ``n_particles`` (default 2**20, a tenth of the
-main path's), each with its times, one JSON line per check.  A failed
-check raises.  This is the quick call to make after changing an advance
-kernel, before a whole chip_smoke.py run.
+main path's), each with its times, one JSON line per check; on request
+also those of a backward run: the advance at ldirect = -1 (``backward``),
+K3's BKDEP and COUNT instantiations (``conccalc_backward``), K9's and
+K10's BKDEP (``bkdep``) and K6 with K7 and its BACKWARD instantiation
+(``convection``).  A failed check raises.  This is the quick call to make
+after changing a kernel, before a whole chip_smoke.py run.
 """
 import json
 import sys
@@ -37,13 +41,19 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all(list(_build.KERNELS))
     print(json.dumps({"build_s": time.perf_counter() - t0}), flush=True)
-    for k in (_build.ADVANCE, _build.ADVANCE_ADAPTIVE):
+    for k in _build.KERNELS:
         print(json.dumps({k.name: cs.ptxas_by_entry(k.build_log)}),
               flush=True)
     cs.N_MAIN = n
     grid = make_grid(**cs.BENCH_GRID)
     device = torch.device("cuda", 0)
-    checks = {"cbl": cs.kernel_advance_cbl, "nests": cs.kernel_advance_nests}
+    checks = {"cbl": cs.kernel_advance_cbl, "nests": cs.kernel_advance_nests,
+              "backward": cs.kernel_advance_backward,
+              "conccalc_backward": cs.kernel_conccalc_backward,
+              "bkdep": cs.kernel_bkdep,
+              "convection": lambda d, g: dict(zip(
+                  ("convection", "redist", "redist.backward"),
+                  cs.kernel_convection(d, g)))}
     for name in which:
         t0 = time.perf_counter()
         r = checks[name](device, grid)

@@ -90,6 +90,27 @@ def test_argtypes_match_the_source(name):
     assert [KINDS[t] for t in k.argtypes] == _signature(k)
 
 
+@pytest.mark.parametrize("entry", [e.name for e in _build.ENTRIES])
+def test_entries_launch_their_instantiations(entry):
+    """Each instantiation of a backward run is an entry of its kernel with
+    a launch count of its own, launched through the kernel's exported
+    function and picked there by one of its arguments, which the source
+    reads."""
+    e = next(x for x in _build.ENTRIES if x.name == entry)
+    assert e.name.split(".")[0] == e.kernel.name and e.launches == 0
+    assert e.kernel in _build.KERNELS
+    text = _strip_comments(e.kernel.source.read_text())
+    pick = {"conccalc.bkdep": "xscav != nullptr ? conccalc_kernel<true, "
+                              "false>",
+            "conccalc.count": "count ? conccalc_kernel<false, true>",
+            "redist.backward": "backward ? redist_kernel<true>",
+            "wetdepo.bkdep": "bkdep ? wetdepo_kernel<true>",
+            "drydepo.bkdep": "bkdep ? drydepo_kernel<false, true>"}[entry]
+    assert pick in text
+    if entry.endswith("bkdep") and entry != "conccalc.bkdep":
+        assert "const bool bkdep = xscav != nullptr;" in text
+
+
 @pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_library_name_follows_source_and_headers(name, tmp_path, monkeypatch):
     csrc = tmp_path / "csrc"

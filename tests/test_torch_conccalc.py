@@ -10,7 +10,10 @@ where the product is exact, so that contraction changes no bit.
 
 Covered: a young plume (single-index path), an old plume with particles
 at the edges and outside the grid (4-point kernel path), ``ind_samp`` 0
-and -1, nspec 2, nage 2, and out-of-range particles, which are dropped.
+and -1, nspec 2, nage 2, and out-of-range particles, which are dropped;
+on both paths, the backward deposition runs' contribution (times
+max(xscav, 0), K3's ``BKDEP`` instantiation on a card) and the particle
+count (1, or the 4-point weight: ``COUNT``), at the same tolerance.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -112,6 +115,49 @@ def test_gridunc_matches_jax(setup, old, ind_samp):
         # live particles outside the grid or above the top were dropped
         live = np.asarray(jp.active) & (np.asarray(jp.itra) == ITIME)
         assert 0.0 < a.sum() < 0.5 * np.asarray(jp.mass)[live].sum()
+
+
+@pytest.mark.parametrize("old", [False, True])
+@pytest.mark.parametrize("mode", ["bkdep", "particle_count_output"])
+def test_bkdep_and_particle_count_match_jax(setup, old, mode):
+    """The ``bkdep`` branch (each species' contribution times max(xscav,
+    0), ``conccalc.py:144-145,178-179`` there) and the
+    ``particle_count_output`` branch (``:140-141,174-175``), on the
+    single-index and the 4-point path, with scavenging factors of which a
+    fifth are negative (sampled as 0)."""
+    grid, jz, tz = setup
+    jgeo = jog.OutputGridGeometry(OG, grid)
+    kw = dict(nxg=jgeo.nxg, nyg=jgeo.nyg, nzg=jgeo.nzg, npointspec=1,
+              nclassunc=2, nage=2, dxout=OG.dxout, dyout=OG.dyout,
+              xoutshift=jgeo.xoutshift, youtshift=jgeo.youtshift,
+              dx_met=grid.dx, dy_met=grid.dy, ind_samp=0,
+              kernel_possible=old, **{mode: True})
+    lage = np.asarray([7200, 999999], np.int32)
+    xscav = np.random.default_rng(5).uniform(-0.5, 2.0, (N, 2)) \
+        .astype(np.float32)
+    jp = _particles(grid, old)._replace(xscav=jnp.asarray(xscav))
+    tp = interop.particles_from_numpy(
+        {k: np.asarray(v) for k, v in jp._asdict().items()}, "cpu")
+    jacc = jcc.make_conccalc(OG.outheights)(
+        jog.zero_accumulators(jgeo, 2, 1, 2, 2), jp, jz, jnp.int32(ITIME),
+        jnp.asarray(lage), jnp.float32(0.5), jcc.ConcConfig(**kw))
+    tacc = tog.zero_accumulators(tog.OutputGridGeometry(OG, make_grid(
+        nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)), 2, 1, 2, 2, device="cpu")
+    tacc = tcc.make_conccalc(OG.outheights)(
+        tacc, tp, tz, ITIME, torch.as_tensor(lage), 0.5,
+        tcc.ConcConfig(**kw))
+    a = tacc.gridunc.numpy()
+    b = np.asarray(jacc.gridunc)
+    assert a.shape == b.shape
+    np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-12)
+    assert b.sum() > 0
+    # the branch did change the sum: not the mass sampling
+    plain = tcc.make_conccalc(OG.outheights)(
+        tog.zero_accumulators(tog.OutputGridGeometry(OG, make_grid(
+            nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)), 2, 1, 2, 2,
+            device="cpu"), tp, tz, ITIME, torch.as_tensor(lage), 0.5,
+        tcc.ConcConfig(**{**kw, mode: False}))
+    assert not np.allclose(plain.gridunc.numpy(), a, rtol=1e-3)
 
 
 def test_out_of_range_is_dropped(setup):

@@ -10,7 +10,8 @@ The same numpy inputs go through both packages on the CPU:
     the whole convection step (profiles, scheme, matrix, heights) for three
     steps;
   * particles in the convecting columns through the redistribution, with
-    JAX's own uniform draws injected.
+    JAX's own uniform draws injected, forward and backward (the transposed
+    matrix).
 
 Tolerances.  Both sides run the same float32 operations, but JAX's
 ``cumsum`` on the CPU is an associative scan and XLA contracts
@@ -267,6 +268,17 @@ def test_redist_with_jax_uniforms_matches_jax(synthetic):
     """Particles spread over the convecting columns at all heights, with
     JAX's uniform draws injected: the same particles move, to the same
     levels, and z agrees."""
+    _redist_against_jax(synthetic, 1)
+
+
+def test_redist_backward_with_jax_uniforms_matches_jax(synthetic):
+    """A backward run (``ldirect=-1``) draws against the transposed matrix
+    (``convection.py:479-480`` there): the same particles as the forward
+    test, the same tolerances."""
+    _redist_against_jax(synthetic, -1)
+
+
+def _redist_against_jax(synthetic, ldirect):
     jg, tg, tk, steps = synthetic
     oj, _ = steps[-1]
     n = 4096
@@ -286,14 +298,14 @@ def test_redist_with_jax_uniforms_matches_jax(synthetic):
     fm, rl, ph, pc, tcv, sub, uvz, lconv, _, _ = oj
     pj, mj = jconv.redist_particles(
         p, key, fm, rl, ph, sub, uvz, pc, tcv, lconv, jnp.int32(900),
-        jnp.int32(0), nl=tk.nl, nx=jg.nx, ny=jg.ny, ldirect=1)
+        jnp.int32(0), nl=tk.nl, nx=jg.nx, ny=jg.ny, ldirect=ldirect)
     rn = torch.as_tensor(np.array(jax.random.uniform(key, (n,))))
     tp = interop.particles_from_numpy(
         {k: np.asarray(v) for k, v in p._asdict().items()}, "cpu")
     f = [_t(a) for a in oj]
     pt, mt = tconv.redist_particles(
         tp, rng.Key(5, 3), f[0], f[1], f[2], f[5], f[6], f[3], f[4], f[7],
-        900, 0, nl=tk.nl, nx=tg.nx, ny=tg.ny, rn=rn)
+        900, 0, nl=tk.nl, nx=tg.nx, ny=tg.ny, rn=rn, ldirect=ldirect)
     assert int(mt) == int(mj) > 0
     zj, zt = np.asarray(pj.z), pt.z.numpy()
     # the level each particle ends in, on the JAX side's half-level heights

@@ -342,3 +342,119 @@ def test_legacy_draws_on_the_card_are_refused(card):
     with pytest.raises(NotImplementedError, match="legacy"):
         adv.advance_all(p, zs[0], zs[1], 900, 0, 10800, key, cfg, prm,
                         leg=leg)
+
+
+BACKWARD_CASES = ("redist_backward", "conccalc_bkdep", "conccalc_count",
+                  "wetbkdep", "drybkdep", "advance_backward")
+
+
+@pytest.mark.parametrize("case", BACKWARD_CASES)
+def test_backward_instantiations_equal_their_plain_versions(card, case):
+    """The instantiations of a backward run against their plain versions,
+    each launched through its own entry (its count goes up by one): K7
+    BACKWARD (z and the moved count), K9 and K10 BKDEP (mass and xscav) and
+    the advance at ldirect = -1 with injected draws, bitwise; K3 BKDEP and
+    COUNT within K3's rtol 1e-5 (float atomics)."""
+    import dataclasses
+    from flexpart_tpu_torch import _build
+    from flexpart_tpu_torch.config import OutGrid, Species
+    from flexpart_tpu_torch.core import advance as adv
+    from flexpart_tpu_torch.core import rng
+    from flexpart_tpu_torch.grid import conccalc as cc
+    from flexpart_tpu_torch.grid.outgrid import (OutputGridGeometry,
+                                                 zero_accumulators)
+    from flexpart_tpu_torch.physics import bkdep as bk
+    from flexpart_tpu_torch.physics import convection as cv
+    from flexpart_tpu_torch.physics import wetdepo as wd
+    p, zs, cfg, tables, a, key, _, gen, grid = _advance_inputs(card, 0)
+    n = p.capacity
+    fresh = torch.rand(n, generator=gen, device=card) < 0.5
+    p = p.replace(xscav=torch.where(fresh[:, None], -1.0, 0.5)
+                  .expand(n, 2).contiguous())
+
+    def same(x, y, what):
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        assert torch.equal(x, y), what
+
+    entry = {"redist_backward": _build.REDIST_BACKWARD,
+             "conccalc_bkdep": _build.CONCCALC_BKDEP,
+             "conccalc_count": _build.CONCCALC_COUNT,
+             "wetbkdep": _build.WETDEPO_BKDEP,
+             "drybkdep": _build.DRYDEPO_BKDEP,
+             "advance_backward": _build.ADVANCE}[case]
+    before = entry.launches
+    if case == "redist_backward":
+        from flexpart_tpu_torch.met import synthetic
+        kern = cv.make_convection_kernel(grid)
+        eta = ("ps", "tth", "qvh", "tt2", "td2")
+        e = synthetic.SyntheticMet(grid).fetch(0.0, card)
+        fields = tuple(getattr(e, f) for f in eta) * 2
+        conv = cv.convection_cuda(kern, fields, 0.75, 0.25, torch.zeros(
+            grid.nx * grid.ny, device=card), 900.0)
+        args = (conv.fmassfrac, conv.rlevmass, conv.phconv, conv.sub,
+                conv.uvzlev, conv.pconv, conv.tconv, conv.lconv, 900, 0,
+                kern.nl, grid.nx, grid.ny)
+        qk, mk = cv.redist_cuda(p, key, *args, ldirect=-1)
+        qp, mp = cv.redist_plain(p, key, *args, ldirect=-1)
+        same(qk.z, qp.z, "z")
+        assert int(mk) == int(mp)
+    elif case.startswith("conccalc"):
+        og = OutGrid(outlon0=-180.0, outlat0=-90.0, numxgrid=90,
+                     numygrid=45, dxout=4.0, dyout=4.0,
+                     outheights=(500.0, 2000.0, 50000.0))
+        geo = OutputGridGeometry(og, grid)
+        flag = "bkdep" if case.endswith("bkdep") else "particle_count_output"
+        ccfg = cc.ConcConfig(
+            nxg=geo.nxg, nyg=geo.nyg, nzg=geo.nzg, npointspec=1,
+            nclassunc=1, nage=1, dxout=og.dxout, dyout=og.dyout,
+            xoutshift=geo.xoutshift, youtshift=geo.youtshift,
+            dx_met=grid.dx, dy_met=grid.dy, ind_samp=0, **{flag: True})
+        lage = torch.tensor([999999999], dtype=torch.int32, device=card)
+        oh = torch.tensor(og.outheights, device=card)
+        for kp in (False, True):
+            gk = zero_accumulators(geo, 2, 1, device=card).gridunc
+            gp = torch.zeros_like(gk)
+            args = (p, 0, lage, oh, 1.0, None,
+                    ccfg.replace(kernel_possible=kp))
+            cc.conccalc_cuda(gk.view(-1, 2), *args)
+            cc.conccalc_plain(gp.view(-1, 2), *args)
+            torch.cuda.synchronize()
+            assert float(gp.sum()) > 0.0
+            assert bool(torch.all((gk - gp).abs() <= 1e-5 * gp.abs()))
+        before += 1                     # two launches
+    elif case == "wetbkdep":
+        wet = tuple(wd.WetSpecies.from_species(s) for s in (
+            Species(crain_aero=1.0, csnow_aero=1.0, ccn_aero=0.9,
+                    in_aero=0.1, dquer=0.4),
+            Species(weta_gas=1e-4, wetb_gas=0.62, henry=1.0e5)))
+        k = bk.assign_wetbkdep_cuda(p, zs[0], wet)
+        q = bk.assign_wetbkdep_plain(p, zs[0], wet)
+        same(k.mass, q.mass, "mass")
+        same(k.xscav, q.xscav, "xscav")
+        assert bool((k.xscav[fresh & p.active] >= 0).all())
+    elif case == "drybkdep":
+        vdep = torch.rand((2, grid.ny, grid.nx), generator=gen,
+                          device=card) * 0.022 - 0.002
+        k = bk.assign_drybkdep_cuda(p, vdep)
+        q = bk.assign_drybkdep_plain(p, vdep)
+        same(k.mass, q.mass, "mass")
+        same(k.xscav, q.xscav, "xscav")
+    else:
+        back = dataclasses.replace(cfg, settling=False, ldirect=-1)
+        prm = adv.StepParams.make(dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0,
+                                  dxconst=grid.dxconst, dyconst=grid.dyconst,
+                                  lsynctime=900, fine=1.0)
+        ab = adv.advance_args(back, prm, -900, -3600, 0)
+        assert ab.ldirf == -1.0
+        q = p.replace(itra=torch.full_like(p.itra, -900))
+        draws = {t: rng.normals(key, (r, n), t, device=card)
+                 for t, r in {**adv.DRAW_ROWS, 2: 1}.items()}
+        (pk, _), (pp, _) = (
+            adv.advance_all_cuda(q, zs[0].height, tables, ab, key, back,
+                                 draws, 0),
+            adv.advance_all_plain(q, zs[0].height, tables, ab, key, back,
+                                  draws, 0))
+        for f in adv.OUT_FIELDS:
+            same(getattr(pk, f), getattr(pp, f), f)
+    assert entry.launches == before + 1

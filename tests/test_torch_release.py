@@ -82,10 +82,16 @@ def test_schedule_equals_jax_bitwise(varying):
 
 
 def test_schedule_refuses_what_is_not_ported():
+    """A capacity below the scheduled particles is refused.  The backward
+    deposition modes are ported: ``bkdep`` builds the JAX package's
+    schedule (tests/test_torch_backward.py holds both modes)."""
     tcmd, trels = _config(tconfig, False)
-    with pytest.raises(NotImplementedError, match="bkdep"):
-        trel.build_release_schedule(trels, tcmd, make_grid(**GRID), bkdep=3,
-                                    device="cpu")
+    jcmd, jrels = _config(jconfig, False)
+    jp = jrel.build_release_schedule(jrels, jcmd, jmet.make_grid(**GRID),
+                                     bkdep=3)
+    tp = trel.build_release_schedule(trels, tcmd, make_grid(**GRID), bkdep=3,
+                                     device="cpu")
+    _assert_bitwise(tp, jp, "bkdep=3")
     with pytest.raises(ValueError, match="capacity"):
         trel.build_release_schedule(trels, tcmd, make_grid(**GRID),
                                     capacity=10, device="cpu")
