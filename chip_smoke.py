@@ -139,7 +139,22 @@ the port's stock forward step on the card, in phases:
                 outside SyntheticMet's convecting bands), where it must
                 move some, as put and in cell order, each timed beside
                 its bound;
-  9. sim_adaptive — Simulation.run at full width with Command(ctl=5.0)
+  8b. sim_npz — the command line, ``python -m flexpart_tpu_torch
+                pathnames``, run in this process through its main() on a
+                job directory the script writes: COMMAND, RELEASES,
+                SPECIES and OUTGRID stating the sim phase's configuration
+                (checked against it), and the sim phase's met as npz
+                archives of the port's save_eta_npz (one per hour over the
+                run and the reader's look-ahead, written from threads and
+                timed apart).  The default Command writes the reference's
+                unformatted files as well.  Run once, timed as the sim
+                phase's run A; every kernel of the sim path launched, the
+                same launch counts as run A, the particles bitwise equal
+                to run A's, the npz files' keys bitwise but the sampled
+                and deposited fields (float atomics: within K3's and K8's
+                rtol, and reported bitwise or not), the header and every
+                grid_conc_ file read back equal to the npz of its step;
+ 9. sim_adaptive — Simulation.run at full width with Command(ctl=5.0)
                 (the adaptive step: K11 every step, K4 never) and two boxes
                 of one species each, so that the aerosol settles: the
                 tracer from 40-42 N and a Cs-137-like aerosol with a density
@@ -1707,8 +1722,10 @@ def kernel_advance_cbl(device, grid) -> dict:
     K11 (TS, the same particles and fields) in both orders.
     Its bound is k11_bound's from the CBL pass body's instructions
     (k11_instructions), whose cheapest path takes the Gaussian side of
-    the zone test: the skewed functions, __noinline__ calls, are counted
-    apart (their cheapest paths, per call) and not charged."""
+    the zone test, plus the skewed functions, __noinline__ calls: each
+    call counted on the same particles (cbl_skewed_calls) is charged the
+    cheapest path through its function (function_paths); the bound
+    without them is reported beside it."""
     import copy
     import torch
     from flexpart_tpu_torch import _build
@@ -1751,6 +1768,21 @@ def kernel_advance_cbl(device, grid) -> dict:
         res["cases"][name] = r
         torch.cuda.empty_cache()
     m = res["cases"]["cell_ordered"]
+    # the skewed functions: each call charged the cheapest path through its
+    # function, cbl_skew's included, on the cell-ordered case's particles
+    paths = function_paths(_build.ADVANCE_ADAPTIVE, "advance_adaptive_kernel",
+                           k11_entry(cfg), ("cbl_skewed_wp", "cbl_skew",
+                                            "cbl_fresh_wp"))
+    calls = cbl_skewed_calls(ordered, z0.height, tables, a, key, cfg, itime)
+    skewed = sum(calls[f] * paths[f]["cheapest"] for f in paths)
+    without = {f: m[f] for f in ("bound_ms", "bound_by",
+                                 "bound_instructions")}
+    m.update(bound(m["bound_bytes"], m["bound_operations"],
+                   m["bound_instructions"] + skewed),
+             bound_without_skewed_calls=without,
+             skewed_calls=calls, skewed_paths=paths,
+             skewed_instructions=skewed)
+    m["share_of_bound"] = m["bound_ms"] / m["ms"]
     check(m["particles_in_the_loop"] > N_MAIN // 2,
           "K11 CBL: fewer than half of the particles took a pass")
     check(0.2 < res["skewed_share"] < 0.8,
@@ -1758,7 +1790,9 @@ def kernel_advance_cbl(device, grid) -> dict:
     res.update({f: m[f] for f in (
         "ms", "stock_k11_ms", "plain_ms", "bound_ms", "bound_by",
         "bound_bytes", "bound_operations", "bound_instructions",
-        "lane_efficiency", "passes_mean", "passes_max", "nan_count")},
+        "bound_without_skewed_calls", "skewed_calls", "skewed_paths",
+        "skewed_instructions", "share_of_bound", "lane_efficiency",
+        "passes_mean", "passes_max", "nan_count")},
         library_ms=None, n=N_MAIN,
         unordered_ms=res["cases"]["as_drawn"]["ms"],
         bitwise=m["bitwise"], max_abs_err=m["max_abs_err"])
@@ -2496,6 +2530,90 @@ def check_depo_scatter(p, deposit, itime: int, lage, ccfg, what: str) -> dict:
     return out
 
 
+def elf_functions(kernel, within: str = "") -> dict:
+    """The functions of a kernel's library from the cubin's symbol table
+    (cuobjdump -elf): {symbol: (first byte, bytes)}, those whose symbol
+    holds ``within`` (an instantiation's copies of its functions)."""
+    import re
+    starts = {}
+    for ln in kernel.cuobjdump("-elf").splitlines():
+        m = re.match(r"\s*0x[0-9a-f]+\s+(0x[0-9a-f]+|0)\s+(0x[0-9a-f]+|0)"
+                     r"\s+\S+\s+\S+\s+\S+\s+(\$\S+)\s*$", ln)
+        if m and int(m.group(2), 16) > 0 and within in m.group(3):
+            starts[m.group(3)] = (int(m.group(1), 16), int(m.group(2), 16))
+    return starts
+
+
+def function_paths(kernel, template: str, flags, functions) -> dict:
+    """The cheapest path (``sass_path``) through each named __noinline__
+    function of one instantiation (sass_instantiation's ``template`` and
+    ``flags``), from its first instruction to the nearest RET it can
+    reach, a CALL on it counted as one instruction; with the function's
+    static instructions and the CALLs in it beside it."""
+    import re
+    name, code = sass_instantiation(kernel, template, flags)
+    starts = elf_functions(kernel, name)
+    out = {}
+    for f in functions:
+        hit = [vs for sym, vs in starts.items()
+               if re.search(r"\d%sE" % f, sym)]
+        check(len(hit) == 1, f"{kernel.name}: function {f} not found once "
+              f"in {name}")
+        lo, size = hit[0]
+        body = [c for c in code if lo <= c[0] < lo + size]
+        paths = []
+        for a, op, _, _, _ in body:
+            if op.startswith("RET"):
+                try:
+                    paths.append(sass_path(code, lo, a))
+                except AssertionError:
+                    pass
+        check(bool(paths), f"{kernel.name}: no RET reached in {f}")
+        out[f] = dict(cheapest=min(paths),
+                      static=sum(1 for c in body if c[1] != "NOP"),
+                      calls=sum(1 for c in body if c[1].startswith("CALL")))
+    return out
+
+
+def cbl_skewed_calls(q, height, tables, a, key, cfg, itime: int) -> dict:
+    """The calls of K11 CBL's skewed functions on these particles, counted
+    on a run of the plain version: cbl_skewed_wp once per substep of a
+    pass (ifine a pass) of a particle in the skewed zone (-h/L > CBL_ZONE)
+    whose pass takes the linear form (dtf / TL_w < 0.5, the turbulence at
+    the pass's start height), each calling cbl_skew once; cbl_fresh_wp
+    once for a fresh particle in the boundary layer and the zone, calling
+    cbl_skew once."""
+    import copy
+    import torch
+    from flexpart_tpu_torch.core import advance
+    h, _, _, _, ol, _ = sample_met(q, height, tables, cfg)
+    zone0 = (-h / ol) > advance.CBL_ZONE
+    fresh = q.active & ((q.itramem == itime) | (itime == 0))
+    n = {"cbl_skewed_wp": 0,
+         "cbl_fresh_wp": int((fresh & ((q.z / h) <= 1.0) & zone0).sum())}
+    inner = advance._pbl_vertical
+
+    def counting(c, z, wp, icbt, h, ust, wst, ol, rho, drhodz, rnd_w, dtf,
+                 **kw):
+        # a pass's particles are those with a step left (dtf > 0)
+        tlw = advance.hanna(z, h, ust, wst, ol).tlw
+        lin = ((dtf > 0.0) & ((dtf / tlw) < 0.5)
+               & ((-h / ol) > advance.CBL_ZONE))
+        n["cbl_skewed_wp"] += int(lin.sum()) * c.ifine
+        return inner(c, z, wp, icbt, h, ust, wst, ol, rho, drhodz, rnd_w,
+                     dtf, **kw)
+
+    advance._pbl_vertical = counting
+    try:
+        advance.advance_all_plain(q, height, tables, copy.copy(a), key, cfg,
+                                  None, 0)
+    finally:
+        advance._pbl_vertical = inner
+    torch.cuda.empty_cache()
+    n["cbl_skew"] = n["cbl_skewed_wp"] + n["cbl_fresh_wp"]
+    return n
+
+
 def sass_paths(kernel, functions, within: str = "") -> dict:
     """Instructions of a kernel's own code and of each of its named
     __noinline__ functions, read from the compiled library: each function's
@@ -2507,12 +2625,7 @@ def sass_paths(kernel, functions, within: str = "") -> dict:
     followed by its own copy of each function, named after it: ``within``
     is the instantiation's mangled name, and only its section is read."""
     import re
-    starts = {}
-    for ln in kernel.cuobjdump("-elf").splitlines():
-        m = re.match(r"\s*0x[0-9a-f]+\s+(0x[0-9a-f]+|0)\s+(0x[0-9a-f]+|0)"
-                     r"\s+\S+\s+\S+\s+\S+\s+(\$\S+)\s*$", ln)
-        if m and int(m.group(2), 16) > 0 and within in m.group(3):
-            starts[m.group(3)] = (int(m.group(1), 16), int(m.group(2), 16))
+    starts = elf_functions(kernel, within)
     sass = kernel.cuobjdump("-sass")
     if within:
         sass = "\n".join(sass_functions(sass)[within])
@@ -3250,6 +3363,26 @@ def sim_species():
                     in_aero=0.1, dquer=0.4, dryvel=1.0e-3))
 
 
+def sim_config():
+    """The sim phase's configuration: the default Command over SIM_HOURS
+    hours from 2020-01-01 00:00 with hourly output, two release boxes over
+    the first hour (sim_setup), the 0.5-degree, 3-layer output grid.
+    Returns (Command, Releases, OutGrid)."""
+    from flexpart_tpu_torch.config import (Command, OutGrid, ReleaseBox,
+                                           Releases)
+    cmd = Command(ibdate=20200101, ibtime=0, iedate=20200101,
+                  ietime=SIM_HOURS * 10000, lsynctime=LSYNC, loutstep=3600,
+                  loutaver=3600, loutsample=900)
+    when = dict(idate1=20200101, itime1=0, idate2=20200101, itime2=10000,
+                z1=50.0, z2=500.0)
+    boxes = (ReleaseBox(lon1=0.0, lon2=2.0, lat1=40.0, lat2=42.0,
+                        mass=(1.0, 1.0), parts=N_MAIN - N_STORM, **when),
+             ReleaseBox(**STORM_BOX, mass=(0.0, 1.0), parts=N_STORM, **when))
+    og = OutGrid(outlon0=-180.0, outlat0=-90.0, numxgrid=720, numygrid=360,
+                 dxout=0.5, dyout=0.5, outheights=(100.0, 1000.0, 50000.0))
+    return cmd, Releases(species=sim_species(), boxes=boxes), og
+
+
 def sim_setup(outdir, device, write_netcdf: bool, **kw):
     """The port's Simulation at full width with the default Command
     (convection and subgrid orography on): 10 x 2**20 particles released
@@ -3261,22 +3394,10 @@ def sim_setup(outdir, device, write_netcdf: bool, **kw):
     advance takes its polar-cap update), hourly output on the main
     phase's 0.5-degree, 3-layer grid, one output per release box."""
     from flexpart_tpu_torch import Simulation, SyntheticMet, make_grid
-    from flexpart_tpu_torch.config import (Command, OutGrid, ReleaseBox,
-                                           Releases)
     grid = make_grid(**SIM_GRID)
-    cmd = Command(ibdate=20200101, ibtime=0, iedate=20200101,
-                  ietime=SIM_HOURS * 10000, lsynctime=LSYNC, loutstep=3600,
-                  loutaver=3600, loutsample=900)
-    when = dict(idate1=20200101, itime1=0, idate2=20200101, itime2=10000,
-                z1=50.0, z2=500.0)
-    boxes = (ReleaseBox(lon1=0.0, lon2=2.0, lat1=40.0, lat2=42.0,
-                        mass=(1.0, 1.0), parts=N_MAIN - N_STORM, **when),
-             ReleaseBox(**STORM_BOX, mass=(0.0, 1.0), parts=N_STORM, **when))
-    og = OutGrid(outlon0=-180.0, outlat0=-90.0, numxgrid=720, numygrid=360,
-                 dxout=0.5, dyout=0.5, outheights=(100.0, 1000.0, 50000.0))
-    return Simulation(cmd=cmd, releases=Releases(species=sim_species(),
-                                                 boxes=boxes),
-                      grid=grid, met_backend=SyntheticMet(grid), outgrid=og,
+    cmd, releases, og = sim_config()
+    return Simulation(cmd=cmd, releases=releases, grid=grid,
+                      met_backend=SyntheticMet(grid), outgrid=og,
                       outdir=str(outdir), device=device,
                       write_netcdf=write_netcdf, **kw)
 
@@ -3758,7 +3879,7 @@ def per_launch_of(rows):
     return device_ms, per_launch
 
 
-def phase_sim(device, kernels) -> dict:
+def phase_sim(device, kernels, held: dict) -> dict:
     """``Simulation.run`` on the card, twice with one seed (run_twice).  Run
     A carries no probe and never waits for the card inside a step: it is
     timed as a whole, and its launch counts are the path's; its files must
@@ -3771,7 +3892,9 @@ def phase_sim(device, kernels) -> dict:
     their left neighbour's, and keeps the ensemble, the met fields
     (processed and raw) and the convective flux memory of one release step
     and of one steady step (kept_steps); then every kernel is held against
-    its plain version on those two (``sim_kernel_checks``)."""
+    its plain version on those two (``sim_kernel_checks``).  Run A's end
+    state (particles, deposition grids) goes into ``held`` and its files
+    stay in SIM_DIR / "a": the sim_npz phase holds its run to them."""
     import shutil
     import numpy as np
     import torch
@@ -3815,6 +3938,9 @@ def phase_sim(device, kernels) -> dict:
         for k in ("wet", "dry"):
             check(last[k].shape == (2, 2, 1, 360, 720)
                   and bool(np.isfinite(last[k]).all()), f"sim: npz {k}")
+        held.update(particles=sim.particles, wet=sim.acc.wetgridunc,
+                    dry=sim.acc.drygridunc, outdir=out, sorts=sim.n_sorts,
+                    nan_count=sim.nan_count)
         return dict(convecting_columns_per_step=[int(c) for c in
                                                  conv_counts[:, 0]],
                     convection_moved_per_step=[int(m) for m in
@@ -3899,6 +4025,303 @@ def phase_sim(device, kernels) -> dict:
         top=[dict(name=k[:60], calls=c, ms=ms) for k, c, ms in rows[:10]],
         kernels_on_sim_inputs=on_sim_inputs)
     del sim
+    shutil.rmtree(SIM_DIR / "b", ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+# -------------------------------------------------- the CLI on npz met --
+
+SIM_NPZ_DIR = ROOT / "build" / "sim_npz_smoke"
+# the met archives: one per hour of the run and one more, the hour the
+# reader reads ahead at the run's end (Simulation._fields_for)
+SIM_NPZ_HOURS = SIM_HOURS + 2
+# the npz keys that sampling and deposition fill through float atomics
+# (K3, K8): two runs with one seed agree within these rtols, not in bits
+NPZ_ATOMIC_RTOL = {"conc": K3_RTOL, "wet": K8_RTOL, "dry": K8_RTOL}
+# Species fields <- the SPECIES file's keys (config/species.py)
+SPECIES_KEYS = {
+    "name": "pspecies", "decay_halflife": "pdecay", "weta_gas": "pweta_gas",
+    "wetb_gas": "pwetb_gas", "crain_aero": "pcrain_aero",
+    "csnow_aero": "pcsnow_aero", "ccn_aero": "pccn_aero",
+    "in_aero": "pin_aero", "density": "pdensity", "dquer": "pdquer",
+    "dsigma": "pdsigma", "dryvel": "pdryvel", "reldiff": "preldiff",
+    "henry": "phenry", "f0": "pf0", "weightmolar": "pweightmolar",
+    "ohcconst": "pohcconst", "ohdconst": "pohdconst",
+    "ohnconst": "pohnconst"}
+
+
+def namelist(group: str, values: dict) -> str:
+    """One namelist group in the reference's layout; floats as their
+    shortest exact decimal (``repr``), so that a parser reads them back
+    bit for bit."""
+    def fmt(v):
+        if isinstance(v, str):
+            return f'"{v}"'
+        if isinstance(v, (tuple, list)):
+            return ",".join(fmt(x) for x in v)
+        return repr(float(v)) if isinstance(v, float) else str(int(v))
+    body = "".join(f" {k.upper()}={fmt(v)},\n" for k, v in values.items())
+    return f"&{group.upper()}\n{body} /\n"
+
+
+def fields_of(obj) -> dict:
+    """Every field of a dataclass instance, by name."""
+    import dataclasses
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def changed(obj) -> dict:
+    """The fields of a dataclass instance that differ from their defaults
+    (what a namelist file must state)."""
+    import dataclasses
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
+            if f.default is dataclasses.MISSING
+            or getattr(obj, f.name) != f.default}
+
+
+def metres_for_microns(um: float) -> float:
+    """The float64 that readspecies' metre -> micron conversion (x 1e6,
+    config/species.py) turns into ``um`` exactly: PDQUER is given in
+    metres, and 0.4e-6 * 1e6 is not 0.4."""
+    import numpy as np
+    m = um * 1e-6
+    for _ in range(64):
+        if m * 1e6 == um:
+            return m
+        m = float(np.nextafter(m, np.inf if m * 1e6 < um else -np.inf))
+    raise ValueError(f"no float64 in metres gives {um} um")
+
+
+def write_sim_npz_job(job: Path, metdir: Path) -> Path:
+    """options/COMMAND, RELEASES, SPECIES/SPECIES_00n and OUTGRID stating
+    sim_config(), and the pathnames file; returns the pathnames path."""
+    cmd, releases, og = sim_config()
+    opts = job / "options"
+    (opts / "SPECIES").mkdir(parents=True)
+    (job / "output").mkdir()
+    (opts / "COMMAND").write_text(namelist("command", changed(cmd)))
+    text = namelist("releases_ctrl", dict(
+        nspec=releases.nspec,
+        specnum_rel=tuple(range(1, releases.nspec + 1))))
+    for box in releases.boxes:
+        text += namelist("release", fields_of(box))
+    (opts / "RELEASES").write_text(text)
+    for k, sp in enumerate(releases.species, 1):
+        vals = {SPECIES_KEYS[f]: v for f, v in changed(sp).items()
+                if f != "specnum"}
+        vals.setdefault("pspecies", sp.name)
+        if "pdquer" in vals:
+            vals["pdquer"] = metres_for_microns(sp.dquer)
+        (opts / "SPECIES" / f"SPECIES_{k:03d}").write_text(
+            namelist("species_params", vals))
+    (opts / "OUTGRID").write_text(namelist("outgrid", fields_of(og)))
+    (job / "pathnames").write_text(
+        f"{opts}/\n{job / 'output'}/\n{metdir}/\n{metdir / 'AVAILABLE'}\n")
+    return job / "pathnames"
+
+
+def write_sim_npz_met(metdir: Path) -> dict:
+    """The sim phase's met (SyntheticMet on SIM_GRID) as npz archives of
+    the port's save_eta_npz, one per hour, and their AVAILABLE index: each
+    archive built and compressed by a thread of its own (numpy and zlib
+    release the interpreter).  Returns the seconds, files and bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+    from flexpart_tpu_torch.met import SyntheticMet, make_grid
+    from flexpart_tpu_torch.met.npzmet import save_eta_npz
+    grid = make_grid(**SIM_GRID)
+    met = SyntheticMet(grid)
+    metdir.mkdir(parents=True)
+    names = [f"EN20200101{h:02d}.npz" for h in range(SIM_NPZ_HOURS)]
+
+    def one(h):
+        save_eta_npz(metdir / names[h], met.fetch(h * 3600.0, "cpu"), grid)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as ex:
+        list(ex.map(one, range(len(names))))
+    seconds = time.perf_counter() - t0
+    (metdir / "AVAILABLE").write_text("\n".join(
+        ["DATE     TIME        FILENAME     SPECIFICATIONS",
+         "YYYYMMDD HHMISS", "________ ______      __________      ______"]
+        + [f"20200101 {h:02d}0000      {n}      ON DISC"
+           for h, n in enumerate(names)]) + "\n")
+    return dict(write_s=seconds, threads=len(names), files=len(names),
+                bytes=sum((metdir / n).stat().st_size for n in names),
+                raw_bytes_per_file=4 * (6 * grid.nlev + 13) * grid.ny
+                * grid.nx)
+
+
+def phase_sim_npz(device, kernels, held: dict, simres: dict) -> dict:
+    """The sim phase's run through the command line on npz met
+    (``python -m flexpart_tpu_torch pathnames``'s main() in this process),
+    once, timed as the sim phase's run A.  The job's files must state the
+    sim phase's configuration; the run must launch every kernel of the
+    sim path as often as run A did, end in run A's particles bit for bit
+    and write run A's npz files (the keys filled through float atomics
+    within K3's and K8's rtol, all others bitwise), and its header and
+    grid_conc_ files must read back to the npz of their step."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import numpy as np
+    import torch
+    from flexpart_tpu_torch import main as cli
+    from flexpart_tpu_torch.core.state import FIELDS
+    from flexpart_tpu_torch.io.fortran_writer import (read_grid_sparse,
+                                                      read_header)
+    shutil.rmtree(SIM_NPZ_DIR, ignore_errors=True)
+    met = write_sim_npz_met(SIM_NPZ_DIR / "metdata")
+    pathnames = write_sim_npz_job(SIM_NPZ_DIR / "job", SIM_NPZ_DIR /
+                                  "metdata")
+    cmd, releases, og = sim_config()
+    caught, times = {}, {}
+    build = cli.build_simulation
+
+    def build_and_time(*args, **kw):
+        # the Simulation the CLI builds, and its run timed as run A's is
+        sim = build(*args, **kw)
+        check(sim.cmd == cmd and sim.outgrid == og and sim.releases
+              .boxes == releases.boxes and tuple(
+                  dataclasses.replace(sp, specnum=0) for sp in
+                  sim.releases.species) == releases.species,
+              "sim_npz: the job files do not state the sim configuration")
+        inner = sim.run
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*a, **k)
+            torch.cuda.synchronize()
+            times["run_s"] = time.perf_counter() - t0
+            return out
+        sim.run = run
+        caught["sim"] = sim
+        return sim
+
+    stdout = io.StringIO()
+    cli.build_simulation = build_and_time
+    try:
+        with contextlib.redirect_stdout(stdout):
+            launches, cli_s = counted_run(kernels, lambda: caught.update(
+                rc=cli.main([str(pathnames), "--device", str(device)])))
+    finally:
+        cli.build_simulation = build
+    said = stdout.getvalue()
+    print(said, end="", flush=True)
+    sim = caught["sim"]
+    check(caught["rc"] == 0 and "CONGRATULATIONS: YOU HAVE SUCCESSFULLY "
+          "COMPLETED A FLEXPART MODEL RUN!" in said
+          and "psteps/s" in said, "sim_npz: no banner")
+    check(sim.write_fortran and not sim.write_netcdf,
+          "sim_npz: the default Command writes the Fortran files")
+    for name in FIXED_PATH_KERNELS:
+        check(launches[name] > 0, f"sim_npz: kernel {name} never launched")
+    check(launches == simres["launches"], f"sim_npz: launches {launches} "
+          f"against run A's {simres['launches']}")
+    check(sim.n_sorts == held["sorts"] and sim.nan_count == held["nan_count"],
+          "sim_npz: sorts or nan counts differ from run A's")
+    check_same_bits(held["particles"], sim.particles,
+                    "sim_npz against sim's run A", FIELDS)
+    depo = {}
+    for k in ("wet", "dry"):
+        ga, gb = held[k], getattr(sim.acc, f"{k}gridunc")
+        depo[k] = dict(bitwise=bool(torch.equal(ga, gb)),
+                       max_abs_diff=float((ga - gb).abs().max()))
+        check(bool(torch.all((ga - gb).abs() <= K8_RTOL * ga.abs())),
+              f"sim_npz: {k} grid against run A's {depo[k]}")
+    # the npz files against run A's
+    out, out_a = Path(sim.outdir), held["outdir"]
+    check((out / "dates").read_text() == (out_a / "dates").read_text(),
+          "sim_npz: dates")
+    npz = sorted(q.name for q in out.glob("grid_conc_*.npz"))
+    check(npz == sorted(q.name for q in out_a.glob("grid_conc_*.npz"))
+          and len(npz) == SIM_HOURS - 1, f"sim_npz: npz {npz}")
+    npz_keys = {}
+    for name in npz:
+        with np.load(out / name) as b, np.load(out_a / name) as a:
+            check(sorted(a.files) == sorted(b.files), f"sim_npz: {name} keys")
+            for k in a.files:
+                same = bool(np.array_equal(a[k], b[k]))
+                diff = float(np.abs(a[k] - b[k]).max()) if a[k].size else 0.0
+                npz_keys.setdefault(k, []).append(dict(bitwise=same,
+                                                       max_abs_diff=diff))
+                if k in NPZ_ATOMIC_RTOL:
+                    check(a[k].dtype == b[k].dtype and bool(np.all(
+                        np.abs(a[k] - b[k])
+                        <= NPZ_ATOMIC_RTOL[k] * np.abs(a[k]))),
+                        f"sim_npz: {name} {k} against run A's ({diff})")
+                else:
+                    check(same, f"sim_npz: {name} {k} differs from run A's")
+    # the reference's files: the header, and per output step and species
+    # grid_conc_ (read back equal to the npz of its step) and grid_pptv_
+    h = read_header(out / "header")
+    check(h["flexversion"] == "flexpart_tpu_torch 1.0"
+          and (h["ibdate"], h["ibtime"]) == (20200101, 0)
+          and (h["numxgrid"], h["numygrid"]) == (720, 360)
+          and h["species"] == [sp.name for sp in releases.species]
+          and [r["npart"] for r in h["releases"]]
+          == [b.parts for b in releases.boxes], f"sim_npz: header {h}")
+    nz = len(og.outheights)
+    fortran = sorted(q.name for q in out.glob("grid_*_00?"))
+    check(len(fortran) == 2 * len(npz) * releases.nspec,
+          f"sim_npz: Fortran files {fortran}")
+    grid_bitwise = []
+    for name in npz:
+        with np.load(out / name) as d:
+            conc, wet, dry = d["conc"], d["wet"], d["dry"]
+        for ks in range(releases.nspec):
+            f = out / f"{name[:-4]}_{ks + 1:03d}"
+            itime, c, w, dr = read_grid_sparse(f, 720, 360, nz,
+                                               npoint=releases.numpoint)
+            check(itime == int(name[-10:-8]) * 3600 + 1800
+                  and bool(np.allclose(c, conc[ks], rtol=2e-6, atol=1e-12))
+                  and bool(np.allclose(w, wet[ks], rtol=2e-6, atol=1e-12))
+                  and bool(np.allclose(dr, dry[ks], rtol=2e-6, atol=1e-12)),
+                  f"sim_npz: {f.name} against {name}")
+            grid_bitwise.append(bool(np.array_equal(
+                c, np.where(conc[ks] > np.finfo(np.float32).tiny,
+                            conc[ks], 0).astype(np.float32))))
+    sec = {k: v for k, v in sim.timings.items() if k != "particle_steps"}
+    a_sec = simres["section_seconds_unsynced"]
+    res = dict(
+        n=N_MAIN, steps=SIM_HOURS * 3600 // LSYNC, met_archives=met,
+        launches=launches, cli_s=cli_s, run_s=times["run_s"],
+        particle_steps=sim.timings["particle_steps"],
+        particle_steps_per_s_whole_run=sim.timings["particle_steps"]
+        / times["run_s"],
+        section_seconds_unsynced=sec,
+        getfields_s=sec.get("getfields", 0.0),
+        getfields_fetch_bg_s=sec.get("getfields_fetch_bg", 0.0),
+        getfields_proc_bg_s=sec.get("getfields_proc_bg", 0.0),
+        output_s=sec.get("output", 0.0),
+        output_fortran_s=sec.get("output_fortran", 0.0),
+        files_bytes=dict(
+            npz=sum((out / n).stat().st_size for n in npz),
+            fortran=sum((out / n).stat().st_size for n in fortran)
+            + (out / "header").stat().st_size),
+        # the same kernels on the same inputs as the sim phase's run B,
+        # whose profile gives their device time
+        device_busy_share=simres["device_ms_all_kernels"] / 1e3
+        / times["run_s"],
+        particles_bitwise_equal_to_sim_a=True,
+        depo_grids_against_sim_a=depo,
+        npz_against_sim_a=npz_keys,
+        grid_conc_files_bitwise_to_npz_float32=grid_bitwise,
+        sim_run_a=dict(
+            run_s=simres["run_s"],
+            particle_steps_per_s_whole_run=simres[
+                "particle_steps_per_s_whole_run"],
+            getfields_s=a_sec.get("getfields", 0.0),
+            getfields_fetch_bg_s=a_sec.get("getfields_fetch_bg", 0.0),
+            getfields_proc_bg_s=a_sec.get("getfields_proc_bg", 0.0),
+            output_s=a_sec.get("output", 0.0),
+            device_busy_share=simres["device_ms_all_kernels"] / 1e3
+            / simres["run_s"]))
+    del sim, caught
+    held.clear()
+    shutil.rmtree(SIM_NPZ_DIR, ignore_errors=True)
     shutil.rmtree(SIM_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     return res
@@ -5115,8 +5538,14 @@ def main() -> int:
     # the launches of the kernels line stay the main phase's; the sim phase
     # resets the counts for its own run and reports them in its line
     t0 = time.perf_counter()
-    simres = phase_sim(device, counted)
+    held = {}
+    simres = phase_sim(device, counted, held)
     emit({"phase": "sim", "seconds": time.perf_counter() - t0, **simres,
+          "device": name, "power_limit": smi})
+
+    t0 = time.perf_counter()
+    npzres = phase_sim_npz(device, counted, held, simres)
+    emit({"phase": "sim_npz", "seconds": time.perf_counter() - t0, **npzres,
           "device": name, "power_limit": smi})
 
     t0 = time.perf_counter()
@@ -5323,6 +5752,7 @@ def main() -> int:
          "replaces": replaces[k.name][0], "tpu_route": replaces[k.name][1],
          "launches": mres["launches"][k.name],
          "launches_sim": simres["launches"][k.name],
+         "launches_sim_npz": npzres["launches"][k.name],
          "launches_sim_adaptive": adres["launches"][k.name],
          **path_launches(k.name),
          **{f: kres[k.name][f] for f in (
@@ -5347,7 +5777,9 @@ def main() -> int:
              "stock_k11_ms", "unordered_ms", "bitwise", "nan_count",
              "lane_efficiency", "passes_mean", "passes_max", "skewed_share",
              "instructions", "bound_bytes", "bound_operations",
-             "bound_instructions")},
+             "bound_instructions", "bound_without_skewed_calls",
+             "skewed_calls", "skewed_paths", "skewed_instructions",
+             "share_of_bound")},
          "sim_cbl_per_call": cblres["device_per_call"]
          ["advance_adaptive_cbl"],
          "sim_cbl_inputs": cblres["kernels_on_sim_cbl_inputs"]},

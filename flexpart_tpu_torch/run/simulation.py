@@ -45,7 +45,9 @@ Per sync interval (timemanager.f90:152-712):
      loutsample cadence with the reference's half-weight edge rule
      (timemanager.f90:350-365);
   5. at averaging-interval end: normalize (factor3d, concoutput.f90:210-221;
-     |loutaver| / outnum backward), copy to host, write, zero the
+     |loutaver| / outnum backward), copy to host, write (npz, netCDF and,
+     with ``write_fortran``, the reference's unformatted ``header`` and
+     sparse ``grid_*`` files, io/fortran_writer.py), zero the
      concentration accumulator;
   6. advance all particles one lsynctime (core/advance.py: K4 for the
      fixed step, K11 for the adaptive step on a CUDA device);
@@ -67,6 +69,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import logging
+import struct
 import time as _time
 from pathlib import Path
 from typing import Any, Callable
@@ -84,6 +87,8 @@ from ..core.state import ITRA_INACTIVE, Particles
 from ..grid.conccalc import ConcConfig, kernel_possible_at, make_conccalc
 from ..grid.outgrid import (Accumulators, OutputGridGeometry,
                             density_outgrid, oro_outgrid, zero_accumulators)
+from ..io.fortran_writer import (_rec, _sparse_block, write_grid_sparse,
+                                 write_header)
 from ..io.writer import OutputWriter
 from ..met.calcpar import calcpar
 from ..met.calcpv import calcpv
@@ -98,7 +103,7 @@ from ..physics.massupdate import (MassSpecies, apply_decay_drydep,
                                   decay_deposition_grids)
 from ..physics.wetdepo import WetSpecies, depo_scatter, wet_deposition
 from ..utils.cpu import warm_vector_math
-from ..utils.dates import add_seconds
+from ..utils.dates import add_seconds, datestamp
 from ..utils.profile import SectionTimers
 from ..validation.depo_oracle import legacy_release
 from ..validation.legacy_rng import MAXRAND, NrandStream, Ran1, make_rannumb
@@ -186,16 +191,13 @@ class Simulation:
                 cmd.itsplit < span,
             "OH reaction species": any(s.ohreact for s in species),
             "distributed": self.distributed is not None,
-            "write_fortran": self.write_fortran,
             "checkpoint_at": self.checkpoint_at is not None,
             "trace_dir": self.trace_dir is not None,
             "use_clwc": self.use_clwc,
         }
         bad = [name for name, on in unported.items() if on]
         if bad:
-            raise NotImplementedError(
-                "not ported yet (outside the port's forward run): "
-                + "; ".join(bad))
+            raise NotImplementedError("not ported yet: " + "; ".join(bad))
 
     def __post_init__(self):
         cmd = self.cmd
@@ -324,6 +326,8 @@ class Simulation:
             write_netcdf=self.write_netcdf, write_npz=self.write_npz,
             nc_meta=self._nc_meta(),
             surf_only=bool(cmd.surf_only))
+        if self.write_fortran:
+            self._write_fortran_header()
 
         self._height = None
         self._buf: dict[int, Any] = {}   # met_time -> (ZFields, EtaFields)
@@ -1059,6 +1063,14 @@ class Simulation:
                                       interop.to_numpy(z1o.f3d[F3_RHO]))
         self.writer.write(when, conc, unc, wet=wet, dry=dry,
                           rho_out=rho_out)
+        if self.write_fortran:
+            # a part of "output", timed apart as well
+            with self.timers.section("output_fortran"):
+                if self.cmd.linversionout == 1:
+                    self._write_fortran_inversion(when, conc)
+                else:
+                    self._write_fortran_grids(when, itime, conc, wet, dry,
+                                              rho_out=rho_out)
         # concentrations reset each output window; deposition grids are
         # cumulative over the run (concoutput.f90 never zeroes wetgridunc)
         zeroed = zero_accumulators(
@@ -1068,3 +1080,85 @@ class Simulation:
                                   drygridunc=self.acc.drygridunc)
         log.info("output written at %s (outnum=%.1f)", when, outnum)
 
+    # ----- the reference's unformatted files (io/fortran_writer.py) -----
+    def _write_fortran_header(self):
+        """Reference-format 'header' file (writeheader.f90): a backward run
+        states its end date and its release times counted back, negated and
+        swapped."""
+        cmd = self.cmd
+        rels = []
+        for b in self.releases.boxes:
+            rt1 = int((b.start - cmd.bdate).total_seconds())
+            rt2 = int((b.end - cmd.bdate).total_seconds())
+            if cmd.ldirect < 0:
+                rt1, rt2 = -rt2, -rt1
+            rels.append(dict(
+                start=rt1, end=rt2, kindz=b.zkind,
+                xp1=b.lon1, yp1=b.lat1, xp2=b.lon2, yp2=b.lat2,
+                zp1=b.z1, zp2=b.z2, npart=b.parts, comment=b.comment,
+                xmass=list(b.mass) + [0.0] * (self.nspec - len(b.mass))))
+        Path(self.outdir).mkdir(parents=True, exist_ok=True)
+        write_header(
+            Path(self.outdir) / "header",
+            ibdate=cmd.ibdate if cmd.ldirect == 1 else cmd.iedate,
+            ibtime=cmd.ibtime if cmd.ldirect == 1 else cmd.ietime,
+            loutstep=cmd.loutstep, loutaver=cmd.loutaver,
+            loutsample=cmd.loutsample,
+            outlon0=self.outgrid.outlon0, outlat0=self.outgrid.outlat0,
+            numxgrid=self.geo.nxg, numygrid=self.geo.nyg,
+            dxout=self.outgrid.dxout, dyout=self.outgrid.dyout,
+            outheights=self.outgrid.outheights,
+            jjjjmmdd=cmd.bdate.year * 10000 + cmd.bdate.month * 100
+            + cmd.bdate.day,
+            ihmmss=cmd.bdate.hour * 10000 + cmd.bdate.minute * 100
+            + cmd.bdate.second,
+            species_names=[s.name for s in self.releases.species],
+            maxpointspec_act=self.conc_cfg.npointspec,
+            releases=rels, method=cmd.method, lsubgrid=cmd.lsubgrid,
+            lconvection=cmd.lconvection, ind_source=cmd.ind_source,
+            ind_receptor=cmd.ind_receptor,
+            nageclass=self.ageclasses.nageclass,
+            lage=self.ageclasses.lage or (999999999,))
+
+    def _write_fortran_grids(self, when, itime, conc, wet, dry,
+                             rho_out=None):
+        """grid_conc_* / grid_time_* sparse files (concoutput.f90) plus
+        the grid_pptv_* mixing-ratio variant for iout=2/3
+        (concoutput.f90:460-600 unitoutgridppt)."""
+        stem = "grid_conc_" if self.cmd.ldirect == 1 else "grid_time_"
+        pfac = self.writer.pptv_factor(rho_out, self.nspec)
+        for ks in range(self.nspec):
+            w = wet[ks] if wet is not None else None
+            d = dry[ks] if dry is not None else None
+            if self.cmd.iout_eff in (1, 3, 5):
+                path = Path(self.outdir) / (stem + datestamp(when)
+                                            + f"_{ks + 1:03d}")
+                write_grid_sparse(path, int(itime), conc[ks], w, d)
+            if self.cmd.iout_eff in (2, 3):
+                path = Path(self.outdir) / ("grid_pptv_" + datestamp(when)
+                                            + f"_{ks + 1:03d}")
+                pk = conc[ks] * pfac[ks][None, None] \
+                    if pfac is not None else conc[ks]
+                write_grid_sparse(path, int(itime), pk, w, d)
+
+    def _write_fortran_inversion(self, when, conc):
+        """Inversion time series (concoutput_inversion.f90:295-545): one
+        file per (release point, species) named by the RELEASE date,
+        appended each output step with (jjjjmmdd, ihmmss) records and the
+        surface-layer sparse concentration block (surf_only rule)."""
+        stem = "grid_conc_" if self.cmd.ldirect == 1 else "grid_time_"
+        nx, ny = self.geo.nxg, self.geo.nyg
+        jjjjmmdd = when.year * 10000 + when.month * 100 + when.day
+        ihmmss = when.hour * 10000 + when.minute * 100 + when.second
+        for ks in range(self.nspec):
+            for kp in range(self.conc_cfg.npointspec):
+                box = self.releases.boxes[min(kp, self.numpoint - 1)]
+                path = Path(self.outdir) / (stem + datestamp(box.start)
+                                            + f"_{ks + 1:03d}")
+                out = (_rec(struct.pack("<i", jjjjmmdd))
+                       + _rec(struct.pack("<i", ihmmss)))
+                for na in range(self.conc_cfg.nage):
+                    out += _sparse_block(conc[ks, kp, na, 0].ravel(),
+                                         index_offset=nx * ny)
+                with open(path, "ab" if path.exists() else "wb") as f:
+                    f.write(out)

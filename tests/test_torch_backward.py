@@ -39,7 +39,13 @@ plain versions on the CPU:
   equal for 98% of them (measured: 2 of 400 differ); the residence times
   within rtol 1e-5 + 1e-5 of the largest cell for all but 0.1% of the
   cells, all within rtol 1e-3 (measured: 2 of 12,150 cells beyond, by
-  1.05e-4), and their sum within 1e-5).
+  1.05e-4), and their sum within 1e-5);
+* the reference's unformatted files (``write_fortran``): the header of a
+  Simulation byte for byte but its version string, forward and backward
+  (backward it states iedate/ietime and the release times counted back
+  from the end, negated and swapped), the ``grid_time_*`` files of the
+  run above and the ``linversionout = 1`` time series of the same run,
+  decoded and held to the residence times' tolerance.
 
 ``tests/test_torch_bkdep_run.py`` runs WETBKDEP and DRYBKDEP through both
 packages; ``tests/test_torch_convection.py`` holds the backward
@@ -48,6 +54,7 @@ particle-count sampling.  Particle counts are multiples of 16 (torch's
 CPU ``pow`` rounds a last partial vector differently).
 """
 import dataclasses
+import struct
 from pathlib import Path
 
 import jax
@@ -78,6 +85,8 @@ from flexpart_tpu_torch.core import reorder  # noqa: E402
 from flexpart_tpu_torch.core import rng as trng  # noqa: E402
 from flexpart_tpu_torch.core.advance import DRAW_ROWS  # noqa: E402
 from flexpart_tpu_torch.core.state import FIELDS  # noqa: E402
+from flexpart_tpu_torch.io.fortran_writer import (  # noqa: E402
+    _RecReader, read_grid_sparse, read_header, sparse_decode)
 from flexpart_tpu_torch.met import SyntheticMet, make_grid  # noqa: E402
 from flexpart_tpu_torch.physics import bkdep as tbk  # noqa: E402
 from flexpart_tpu_torch.physics.wetdepo import WetSpecies  # noqa: E402
@@ -394,7 +403,7 @@ def jax_backward(tmp_path_factory):
     grid = jmet.make_grid(**GRID)
     sim = JaxSimulation(cmd=cmd, releases=rel, grid=grid,
                         met_backend=jmet.SyntheticMet(grid), outgrid=og,
-                        outdir=str(outdir), seed=SEED)
+                        outdir=str(outdir), seed=SEED, write_fortran=True)
     schedule = _numpy(sim.particles)
     sim.run()
     key = jax.random.PRNGKey(SEED)
@@ -413,7 +422,8 @@ def port_backward(jax_backward, tmp_path_factory):
     grid = make_grid(**GRID)
     sim = Simulation(cmd=cmd, releases=rel, grid=grid,
                      met_backend=SyntheticMet(grid), outgrid=og,
-                     outdir=str(outdir), seed=SEED, device="cpu")
+                     outdir=str(outdir), seed=SEED, device="cpu",
+                     write_fortran=True)
     schedule = _numpy(sim.particles)
     sim._draws_hook = lambda istep, origin: {
         t: v[:, origin].contiguous() for t, v in draws[istep].items()}
@@ -497,3 +507,133 @@ def test_backward_simulation_from_jax_carries_the_command(jax_backward,
     a = _numpy(sim.particles)
     for f in FIELDS:
         np.testing.assert_array_equal(a[f], jsched[f], err_msg=f)
+
+
+def _assert_residence_times_close(t, j):
+    """The tolerance of the residence times above: rtol 1e-5 + 1e-5 of the
+    largest cell for all but 0.1% of the cells, all within rtol 1e-3."""
+    assert j.max() > 0 and np.isfinite(t).all()
+    err = np.abs(t - j) - 1e-5 * np.abs(j)
+    assert (err > 1e-5 * j.max()).mean() <= 1e-3
+    np.testing.assert_allclose(t, j, rtol=1e-3, atol=1e-5 * j.max())
+
+
+def test_backward_fortran_files_match_jax(jax_backward, port_backward):
+    """The reference's unformatted files of the backward run: the header
+    byte for byte but the version string (it states the run's end,
+    iedate/ietime, and the release times counted back), the same
+    ``grid_time_*_nnn`` names, each decoded to JAX's residence times
+    within the tolerance above."""
+    jsim, jout, _, _ = jax_backward
+    sim, tout, _ = port_backward
+    j = (Path(jout) / "header").read_bytes()
+    t = (Path(tout) / "header").read_bytes()
+    assert len(t) == len(j) and t[:12] == j[:12] and t[268:] == j[268:]
+    h = read_header(Path(tout) / "header")
+    assert (h["ibdate"], h["ibtime"]) == (20200101, 120000)
+    assert h["releases"][0]["start"] == h["releases"][0]["end"] == 0
+    names = sorted(q.name for q in Path(jout).glob("grid_*_001"))
+    assert names == sorted(q.name for q in Path(tout).glob("grid_*_001"))
+    assert len([n for n in names if n.startswith("grid_time_")]) == 5
+    og = sim.outgrid
+    nx, ny, nz = og.numxgrid, og.numygrid, len(og.outheights)
+    for name in names:
+        jt, jc, _, _ = read_grid_sparse(Path(jout) / name, nx, ny, nz)
+        tt, tc, _, _ = read_grid_sparse(Path(tout) / name, nx, ny, nz)
+        assert tt == jt < 0
+        if name.startswith("grid_time_"):
+            _assert_residence_times_close(tc, jc)
+
+
+@pytest.mark.parametrize("ldirect", [1, -1])
+def test_simulation_header_equals_jax(ldirect, tmp_path):
+    """The header each package's Simulation writes at construction, for a
+    run with two species and two boxes released in its middle: forward
+    from ibdate, backward from iedate with the release times negated and
+    swapped; byte for byte but the version string."""
+    times = (dict(itime1=80000, itime2=93000), dict(itime1=100000,
+                                                    itime2=100000))
+    heads = []
+    for c, S, gridf, met in ((jconfig, JaxSimulation, jmet.make_grid,
+                              jmet.SyntheticMet),
+                             (tconfig, Simulation, make_grid, SyntheticMet)):
+        cmd, _, og = _sim_config(c)
+        cmd = dataclasses.replace(cmd, ldirect=ldirect)
+        boxes = tuple(c.ReleaseBox(idate1=20200101, idate2=20200101,
+                                   lon1=-50.0 + 10 * k, lon2=-48.0 + 10 * k,
+                                   lat1=42.0, lat2=44.0, z1=100.0, z2=500.0,
+                                   mass=(1.0, 0.5 * k), parts=48,
+                                   comment=f"BOX{k}", **tm)
+                      for k, tm in enumerate(times))
+        rel = c.Releases(species=(c.Species(), c.Species(name="SO2")),
+                         boxes=boxes)
+        grid = gridf(**GRID)
+        out = tmp_path / S.__module__.split(".")[0]
+        kw = dict(device="cpu") if S is Simulation else {}
+        sim = S(cmd=cmd, releases=rel, grid=grid, met_backend=met(grid),
+                outgrid=og, outdir=str(out), seed=SEED, write_fortran=True,
+                **kw)
+        sim.close()
+        heads.append((out / "header").read_bytes())
+    j, t = heads
+    assert len(t) == len(j) and t[:12] == j[:12] and t[268:] == j[268:]
+    h = read_header(tmp_path / "flexpart_tpu_torch" / "header")
+    starts = [(r["start"], r["end"]) for r in h["releases"]]
+    if ldirect == 1:
+        assert (h["ibdate"], h["ibtime"]) == (20200101, 60000)
+        assert starts == [(7200, 12600), (14400, 14400)]
+    else:
+        assert (h["ibdate"], h["ibtime"]) == (20200101, 120000)
+        # 08:00-09:30 and 10:00 are 4 h-2.5 h and 2 h before the 12:00 end
+        assert starts == [(9000, 14400), (7200, 7200)]
+
+
+def test_inversion_files_match_jax(jax_backward, tmp_path):
+    """``linversionout = 1`` (the configuration of
+    ``tests/test_modes.py::test_inversion_output`` on this file's run):
+    one file per release and species named by the release date, appended
+    each output step with its date and the surface layer's residence
+    times.  The same records as JAX's; the values within the tolerance
+    above.  The JAX run reuses the compiled advance of this file's run."""
+    _, _, _, draws = jax_backward
+    outs = []
+    for c, S, gridf, met in ((jconfig, JaxSimulation, jmet.make_grid,
+                              jmet.SyntheticMet),
+                             (tconfig, Simulation, make_grid, SyntheticMet)):
+        cmd, rel, og = _sim_config(c)
+        cmd = dataclasses.replace(cmd, linversionout=1)
+        grid = gridf(**GRID)
+        out = tmp_path / S.__module__.split(".")[0]
+        kw = dict(device="cpu") if S is Simulation else {}
+        sim = S(cmd=cmd, releases=rel, grid=grid, met_backend=met(grid),
+                outgrid=og, outdir=str(out), seed=SEED, write_fortran=True,
+                write_netcdf=False, write_npz=False, **kw)
+        if S is Simulation:
+            sim._draws_hook = lambda istep, origin: {
+                t: v[:, origin].contiguous() for t, v in draws[istep].items()}
+        sim.run()
+        outs.append(out)
+    names = sorted(q.name for q in outs[0].glob("grid_*"))
+    assert names == ["grid_time_20200101120000_001"]
+    assert sorted(q.name for q in outs[1].glob("grid_*")) == names
+    og = _sim_config(tconfig)[2]
+    nx, ny = og.numxgrid, og.numygrid
+    recs = []
+    for out in outs:
+        r = _RecReader((out / names[0]).read_bytes())
+        steps = []
+        while not r.eof:
+            date, = struct.unpack("<i", r.rec())
+            hms, = struct.unpack("<i", r.rec())
+            ni, = struct.unpack("<i", r.rec())
+            idx = np.frombuffer(r.rec(), np.int32, ni)
+            nr, = struct.unpack("<i", r.rec())
+            vals = np.frombuffer(r.rec(), np.float32, nr)
+            steps.append((date, hms, sparse_decode(idx, vals, nx * ny,
+                                                   index_offset=nx * ny)))
+        recs.append(steps)
+    j, t = recs
+    assert [s[:2] for s in t] == [s[:2] for s in j]
+    assert len(j) == 5 and j[0][:2] == (20200101, 103000)
+    _assert_residence_times_close(np.stack([s[2] for s in t]),
+                                  np.stack([s[2] for s in j]))

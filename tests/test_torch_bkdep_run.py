@@ -21,6 +21,24 @@ run's (z as a distribution), but for DRYBKDEP's particles, released in
 the 0-30 m layer: 1% of them beyond 1e-4 grid units and 95% of z within
 1 m (measured 0.99% and 96.4%); the residence times within rtol 1e-5 + 1e-5
 of the largest cell for all but 0.1% of the cells, all within rtol 1e-3.
+
+Why DRYBKDEP needs the wider limit: the particles that part are parted by
+XLA:CPU's compiled program, not by the port.  JAX's own advance run op by
+op (``jax.disable_jit()``) on the compiled run's step inputs agrees with the
+port within the forward limits (measured: none beyond 1e-4 grid units,
+99.7% of z within 1 m, 82% of z bitwise), and parts from the compiled run
+on the very particles the port parts from it (3 of 304: 49, 57 and 253).
+The first operations whose compiled result differs from the op-by-op
+result on those three particles, each evaluated on the compiled
+program's own inputs: the quad stencil's four-corner sums
+(``flexpart_tpu/core/interp.py:521-523``, products and sums contracted
+into FMAs), the neutral TL_u of ``flexpart_tpu/core/hanna.py:110``
+(``0.5 * z / sigv_n / (1.0 + 1.5e-3 * corr)``, which XLA's simplifier
+computes as ``a / (b * c)``; particles 49 and 57) and the unstable TL_w of
+``flexpart_tpu/core/hanna.py:41`` (``0.55 - 0.38 * abs(z / ol)``, an FMA;
+particle 253).  An ulp there is amplified by the reflections at the ground
+that the 0-30 m release makes frequent.
+``test_bkdep_positions_match_jax_run_op_by_op`` holds this.
 """
 import dataclasses
 from pathlib import Path
@@ -38,6 +56,7 @@ from flexpart_tpu import config as jconfig  # noqa: E402
 from flexpart_tpu import met as jmet  # noqa: E402
 from flexpart_tpu.core import rng as jrng  # noqa: E402
 from flexpart_tpu.io.netcdf4 import open_nc4  # noqa: E402
+from flexpart_tpu.run import simulation as jsim_module  # noqa: E402
 from flexpart_tpu.run.simulation import Simulation as JaxSimulation  # noqa: E402
 from flexpart_tpu_torch import config as tconfig  # noqa: E402
 from flexpart_tpu_torch import interop  # noqa: E402
@@ -92,7 +111,20 @@ def runs(request, tmp_path_factory):
                          met_backend=jmet.SyntheticMet(grid), outgrid=og,
                          outdir=str(jout), seed=SEED)
     jsched = _numpy(jsim.particles)
-    jsim.run()
+    # the compiled advance's inputs and outputs, step by step
+    steps = []
+    compiled = jsim_module.advance_all
+
+    def recording(*args, **kw):
+        out = compiled(*args, **kw)
+        steps.append((args, kw, out[0]))
+        return out
+
+    jsim_module.advance_all = recording
+    try:
+        jsim.run()
+    finally:
+        jsim_module.advance_all = compiled
     key = jax.random.PRNGKey(SEED)
     rows = {**DRAW_ROWS, 2: 1}
     draws = [{t: torch.as_tensor(np.array(jrng.normals(
@@ -108,11 +140,11 @@ def runs(request, tmp_path_factory):
     sim._draws_hook = lambda istep, origin: {
         t: v[:, origin].contiguous() for t, v in draws[istep].items()}
     sim.run()
-    return mode, jsim, jout, jsched, sim, tout, tsched
+    return mode, jsim, jout, jsched, sim, tout, tsched, steps
 
 
 def test_bkdep_schedule_and_files_equal_jax(runs):
-    mode, jsim, jout, jsched, sim, tout, tsched = runs
+    mode, jsim, jout, jsched, sim, tout, tsched, _ = runs
     assert sim.bkdep == jsim.bkdep == mode
     assert not sim._bkdep_pending
     for f in FIELDS:
@@ -140,7 +172,7 @@ def test_bkdep_schedule_and_files_equal_jax(runs):
 
 
 def test_bkdep_factors_and_mass_match_jax(runs):
-    mode, jsim, jout, jsched, sim, tout, tsched = runs
+    mode, jsim, jout, jsched, sim, tout, tsched, _ = runs
     a = _numpy(reorder.apply_perm(sim.particles, torch.argsort(sim._origin)))
     b = _numpy(jsim.particles)
     np.testing.assert_array_equal(a["active"], b["active"])
@@ -158,7 +190,7 @@ def test_bkdep_factors_and_mass_match_jax(runs):
 
 
 def test_bkdep_positions_and_residence_times_match_jax(runs):
-    mode, jsim, jout, jsched, sim, tout, tsched = runs
+    mode, jsim, jout, jsched, sim, tout, tsched, _ = runs
     a = _numpy(reorder.apply_perm(sim.particles, torch.argsort(sim._origin)))
     b = _numpy(jsim.particles)
     # DRYBKDEP's particles start in the 0-30 m layer, where they reflect
@@ -180,3 +212,56 @@ def test_bkdep_positions_and_residence_times_match_jax(runs):
         err = np.abs(t - j) - 1e-5 * np.abs(j)
         assert (err > 1e-5 * j.max()).mean() <= 1e-3
         np.testing.assert_allclose(t, j, rtol=1e-3, atol=1e-5 * j.max())
+
+
+def _parted(a, b):
+    """The particles whose x or y differ by more than 1e-4 grid units."""
+    return {c: set(np.nonzero(np.abs((a[c + "_hi"] + a[c + "_lo"])
+                                     - (b[c + "_hi"] + b[c + "_lo"]))
+                              > 1e-4)[0].tolist()) for c in ("x", "y")}
+
+
+def test_bkdep_positions_match_jax_run_op_by_op(runs):
+    """JAX's advance replayed op by op (``jax.disable_jit()``) from the
+    compiled run's first step, each step fed what the run changed between
+    advances (release, mass, ``xscav``): the port holds the forward limits
+    against it (0.5% beyond 1e-4 grid units, 98% of z within 1 m), and the
+    particles that part the port from the compiled run are the ones that
+    part JAX's op-by-op run from it (the module docstring names the
+    operations)."""
+    mode, jsim, jout, jsched, sim, tout, tsched, steps = runs
+    state = None
+    for k, (args, kw, compiled_out) in enumerate(steps):
+        p = args[0]
+        if state is not None:
+            prev = _numpy(steps[k - 1][2])
+            now = _numpy(p)
+            # a field the run left alone since the last advance takes the
+            # op-by-op value; a field it changed takes the run's
+            p = p._replace(**{f: jax.numpy.asarray(
+                state[f] if np.array_equal(prev[f], now[f]) else now[f])
+                for f in FIELDS})
+        with jax.disable_jit():
+            state = _numpy(jsim_module.advance_all(p, *args[1:], **kw)[0])
+    compiled = _numpy(steps[-1][2])
+    a = _numpy(reorder.apply_perm(sim.particles, torch.argsort(sim._origin)))
+    for c in ("x", "y"):
+        err = np.abs((a[c + "_hi"] + a[c + "_lo"])
+                     - (state[c + "_hi"] + state[c + "_lo"]))
+        assert (err > 1e-4).mean() <= 0.005, (c, err.max())
+    err_z = np.abs(a["z"] - state["z"])
+    assert np.mean(err_z <= 1.0) >= 0.98, np.mean(err_z <= 1.0)
+    assert _parted(a, compiled) == _parted(state, compiled)
+    # XLA's rewrites on their own: a / b / c as a / (b * c), a * b + c as
+    # one rounding; torch, like numpy, rounds each operation
+    rng = np.random.default_rng(1)
+    u, v, w = (rng.uniform(0.5, 2.0, 4096).astype(np.float32)
+               for _ in range(3))
+    div = np.asarray(jax.jit(lambda u, v, w: u / v / w)(u, v, w))
+    np.testing.assert_array_equal(div, u / (v * w))
+    assert (div != (u / v) / w).any()
+    tu, tv, tw = (torch.from_numpy(q) for q in (u, v, w))
+    np.testing.assert_array_equal((tu / tv / tw).numpy(), (u / v) / w)
+    fma = np.asarray(jax.jit(lambda u, v, w: u * v + w)(u, v, w))
+    assert (fma != u * v + w).any()
+    np.testing.assert_array_equal((tu * tv + tw).numpy(), u * v + w)

@@ -645,6 +645,45 @@ def test_sass_paths_counts_each_function_from_the_symbol_table():
         chip_smoke.sass_paths(Kernel(), ("cloud_water",))
 
 
+def test_function_paths_take_the_cheapest_way_to_a_ret():
+    """K11 CBL's skewed calls are charged the cheapest path through each
+    function of the run's instantiation: from the function's first byte
+    (the cubin's symbol table) to the nearest RET it reaches, a branch of
+    the data on its cheaper side, a CALL one instruction; its static
+    instructions (NOPs aside) and CALLs beside it."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    entry = "_Z23advance_adaptive_kernelILb1ELi2ELb1ELb1EEvv"
+    elf = f""".section .symtab
+ index           value           size      info    other  shndx    name
+ 0x1               0            0x40      0x2     0x10    0xa     {entry}
+ 0x7            0x40            0x70      0x2        0    0xa     ${entry}$_ZN2fp8cbl_skewEff
+"""
+    ops = ["MOV R1, c[0x0][0x28]", "CALL.REL.NOINC 0x40", "EXIT", "NOP",
+           "FMUL R2, R2, R5",            # 0x40: cbl_skew
+           "@P0 BRA 0x90",               # a branch of the data
+           "CALL.REL.NOINC 0x200",       # the dearer side
+           "FADD R2, R2, R3", "RET.REL.NODEC R4 0x0",
+           "FFMA R2, R2, R3, R4",        # 0x90: the cheaper side
+           "RET.REL.NODEC R4 0x0"]
+
+    class Kernel:
+        name = "advance_adaptive"
+
+        def cuobjdump(self, flag):
+            return elf if flag == "-elf" else _sass_function(entry, ops)
+
+    flags = (True, 2, True, True)
+    assert chip_smoke.function_paths(Kernel(), "advance_adaptive_kernel",
+                                     flags, ("cbl_skew",)) == {
+        "cbl_skew": {"cheapest": 4, "static": 7, "calls": 1}}
+    with pytest.raises(AssertionError, match="cbl_fresh_wp"):
+        chip_smoke.function_paths(Kernel(), "advance_adaptive_kernel", flags,
+                                  ("cbl_fresh_wp",))
+
+
 def _sass_function(name, ops):
     lines = ["\t\tFunction : %s" % name]
     lines += ["        /*%04x*/                   %s ;  /* 0x0 */"

@@ -13,7 +13,8 @@ three, is ``tests/test_torch_default_run.py``.
 
 Equal: the release schedule bitwise, the active count, ``dates``, the
 names, shapes and dtypes in the npz files, the variables of the netCDF file
-as ``open_nc4`` reads them.
+as ``open_nc4`` reads them, the reference's unformatted ``header`` byte for
+byte but its version string (both runs write the Fortran files).
 
 With JAX's draws injected through the port's test hook and the slots mapped
 back through the sorts' permutations (``Simulation._origin``): the mask,
@@ -69,6 +70,8 @@ from flexpart_tpu_torch.core import reorder  # noqa: E402
 from flexpart_tpu_torch.core import rng as trng  # noqa: E402
 from flexpart_tpu_torch.core.advance import DRAW_ROWS  # noqa: E402
 from flexpart_tpu_torch.core.state import FIELDS  # noqa: E402
+from flexpart_tpu_torch.io.fortran_writer import (  # noqa: E402
+    read_grid_sparse, read_header)
 
 N = 1008
 SEED = 3
@@ -132,7 +135,7 @@ def jax_run(tmp_path_factory):
     grid = jmet.make_grid(**GRID)
     sim = JaxSimulation(cmd=cmd, releases=rel, grid=grid,
                         met_backend=jmet.SyntheticMet(grid), outgrid=og,
-                        outdir=str(outdir), seed=SEED)
+                        outdir=str(outdir), seed=SEED, write_fortran=True)
     schedule = _numpy_particles(sim.particles)
     sim.run()
     key = jax.random.PRNGKey(SEED)
@@ -147,7 +150,7 @@ def injected_run(jax_run, tmp_path_factory):
     """The port fed JAX's draws, carried along with their particles."""
     _, _, _, draws = jax_run
     outdir = tmp_path_factory.mktemp("port_injected")
-    sim = _port_sim(outdir)
+    sim = _port_sim(outdir, write_fortran=True)
     schedule = _numpy_particles(sim.particles)
     sim._draws_hook = lambda istep, origin: {
         t: v[:, origin].contiguous() for t, v in draws[istep].items()}
@@ -158,7 +161,7 @@ def injected_run(jax_run, tmp_path_factory):
 @pytest.fixture(scope="module")
 def own_stream_run(tmp_path_factory):
     outdir = tmp_path_factory.mktemp("port_own")
-    sim = _port_sim(outdir, profile=True)
+    sim = _port_sim(outdir, profile=True, write_fortran=True)
     sim.run()
     return sim, outdir
 
@@ -177,7 +180,10 @@ def test_active_count_and_output_names_equal_jax(jax_run, injected_run,
     n_jax = int(np.sum(np.asarray(jsim.particles.active)))
     assert n_jax == N
     jnames = sorted(p.name for p in Path(jout).iterdir())
-    assert "dates" in jnames and len(jnames) == 4     # dates, nc, two npz
+    # dates, nc, two npz; the Fortran files: header, and per output step
+    # grid_conc_*_001 and grid_pptv_*_001 (iout=3)
+    assert "dates" in jnames and "header" in jnames and len(jnames) == 9
+    assert len([n for n in jnames if n.endswith("_001")]) == 4
     for sim, out in (injected_run[:2], own_stream_run):
         assert int(sim.particles.active.sum()) == n_jax
         names = sorted(p.name for p in Path(out).iterdir()
@@ -278,6 +284,37 @@ def test_injected_draws_conc_matches_jax(jax_run, injected_run):
         mt = (t[0, 0, 0] * sim.geo.volume).sum()
         assert abs(mt - mj) <= 1e-6 * mj
     np.testing.assert_array_equal(sim.geo.volume, jsim.geo.volume)
+
+
+def test_fortran_files_match_jax(jax_run, injected_run):
+    """The reference's unformatted files: the header byte for byte but the
+    version string, and each sparse grid file decoded to the values of
+    JAX's within the tolerance of ``conc`` above (the mixing ratios of
+    ``grid_pptv_*`` within the netCDF test's rtol 1e-4: the density on the
+    output grid comes from the met fields both packages process), and
+    equal to the port's own npz of the same step."""
+    jsim, jout, _, _ = jax_run
+    sim, tout, _ = injected_run
+    j = (Path(jout) / "header").read_bytes()
+    t = (Path(tout) / "header").read_bytes()
+    assert len(t) == len(j) and t[:12] == j[:12] and t[268:] == j[268:]
+    assert read_header(Path(tout) / "header")["flexversion"] \
+        == "flexpart_tpu_torch 1.0"
+    og = sim.outgrid
+    nx, ny, nz = og.numxgrid, og.numygrid, len(og.outheights)
+    grids = sorted(q.name for q in Path(jout).glob("grid_*_001"))
+    assert len(grids) == 4
+    for name in grids:
+        jt, jc, jw, jd = read_grid_sparse(Path(jout) / name, nx, ny, nz)
+        tt, tc, tw, td = read_grid_sparse(Path(tout) / name, nx, ny, nz)
+        assert tt == jt and jc.max() > 0
+        np.testing.assert_array_equal(tw, jw)
+        np.testing.assert_array_equal(td, jd)
+        rtol = 1e-4 if name.startswith("grid_pptv_") else 1e-5
+        np.testing.assert_allclose(tc, jc, rtol=rtol, atol=1e-5 * jc.max())
+        if name.startswith("grid_conc_"):
+            npz = np.load(Path(tout) / (name[:-4] + ".npz"))["conc"][0]
+            np.testing.assert_allclose(tc, npz, rtol=2e-6, atol=1e-12)
 
 
 def test_own_stream_statistics_match_jax(jax_run, own_stream_run):
@@ -385,8 +422,9 @@ def test_age_classes_terminate_like_jax(tmp_path):
 
 
 # option -> the Simulation's arguments; a case whose refusal names
-# another option says so under "names" (a backward run is ported: its
-# case holds that an option still refused is refused in one too)
+# another option says so under "names" (a backward run and the Fortran
+# files are ported: their cases hold that an option still refused is
+# refused with them too, before the header is written)
 REFUSED = {
     "ldirect": dict(cmd_kw=dict(ldirect=-1, mdomainfill=1),
                     names="mdomainfill"),
@@ -403,7 +441,8 @@ REFUSED = {
     "itsplit": dict(cmd_kw=dict(itsplit=3600)),
     "OH reaction": dict(species=dict(ohcconst=1e-12)),
     "distributed": dict(distributed="dp"),
-    "write_fortran": dict(write_fortran=True),
+    "write_fortran": dict(write_fortran=True, cmd_kw=dict(mdomainfill=1),
+                          names="mdomainfill"),
     "checkpoint_at": dict(checkpoint_at=3600),
     "trace_dir": dict(trace_dir="trace"),
     "use_clwc": dict(use_clwc=True),
