@@ -8,10 +8,12 @@ flexpart_tpu_torch/csrc/ at first use (into build/kernels/) and drives
 the port's stock forward step on the card, in phases:
 
   1. device   — card name and power limit, torch and CUDA versions;
-  2. build    — nvcc for every kernel source, all started together (each
-                one's end in the line), then cuobjdump of the libraries
-                whose compiled code the bounds read, all at once and
-                before any timing (the `disassembly` line);
+  2. build    — nvcc for every kernel source, all started together (K4
+                and K11 in three parts each, one nvcc a part; each
+                kernel's end in the line), and cuobjdump of the libraries
+                whose compiled code the bounds read, each as soon as it is
+                built, all of it before any timing (the `disassembly`
+                line: what is left after the build);
   3. kernels  — each kernel against its plain PyTorch twin on the card, at
                 the main path's shapes, with its time, the twin's, its
                 bound (bytes over 3.35 TB/s or operations over 67 TFLOP/s,
@@ -85,7 +87,16 @@ the port's stock forward step on the card, in phases:
                 half of them fresh; and the advance at ldirect = -1: stock
                 K4 and POLAR on 10 x 2**20 particles with injected draws,
                 K11 and K11 CBL on 2**20 boundary-layer particles, all
-                bitwise, each beside the forward instantiation;
+                bitwise, each beside the forward instantiation; K9's
+                cloud-water instantiations (use_clwc: the in-cloud rule's
+                cloud water from the column cloud water ctwc at the
+                particle's cell): K9 CLWC on the deposition particles, on
+                SyntheticMet's fields classified by their cloud water and
+                on every cloud class with a seeded ctwc, as drawn and in
+                cell order, and K9 BKDEP x CLWC on both in cell order,
+                half the particles fresh, all bitwise, each timed beside
+                K9 (K9 BKDEP) on the same particles with its bound from
+                the compiled CLWC section;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
                 with the same draws; and the advance kernel with its draws
@@ -154,6 +165,29 @@ the port's stock forward step on the card, in phases:
                 and deposited fields (float atomics: within K3's and K8's
                 rtol, and reported bitwise or not), the header and every
                 grid_conc_ file read back equal to the npz of its step;
+ 8c. sim_grib — sim_npz's job on ECMWF-style GRIB2 files of the sim
+                phase's met (the 29 model levels top-down with the hybrid
+                coefficients as pv, the surface set in the accumulations
+                that met/gribmet.py converts; about 190 messages a file,
+                written from threads and timed apart), read by the port's
+                decoder (built from native/gribdec/gribdec.cpp) in the met
+                reader thread: run once through main(), the banner, the
+                sim phase's launch counts, every particle active and
+                finite, the tracer's mass and the aerosol's budget; the
+                fields GribMet.fetch returns written with save_eta_npz,
+                and the same job on those archives must end in the same
+                particles bit for bit; the read split into scan, decode,
+                assembly and the copy to the card;
+ 8d. sim_gfs  — the sim phase's configuration through the command line's
+                build_simulation on GFS-style GRIB2 files (NCEP's
+                1.0-degree grid from 0 E, 26 isobaric levels from 1000 to
+                10 hPa, SyntheticMet interpolated in ln p; a plateau whose
+                levels below ground collapse, cloud water and rain over
+                the storm box), twice with one seed: use_clwc from
+                GfsMet's sumclouds, so K9 CLWC at every step and the stock
+                K9 never; K9 CLWC bitwise against its plain version on the
+                kept steps, the scavenged pairs per rule (the in-cloud
+                rule's above 0), the budget, the below-ground cells;
  9. sim_adaptive — Simulation.run at full width with Command(ctl=5.0)
                 (the adaptive step: K11 every step, K4 never) and two boxes
                 of one species each, so that the aerosol settles: the
@@ -197,11 +231,13 @@ the port's stock forward step on the card, in phases:
                 four steps: every factor assigned after the first step,
                 positive wet factors in the storm band, the dry factor the
                 species' dryvel, wetscav_precip.txt written, K3 BKDEP
-                sampling;
+                sampling; WETBKDEP once more with use_clwc (K9 BKDEP x
+                CLWC);
  14. legacy   — the matched-RNG validation path (Simulation(legacy_rng=
                 True)) has no kernel and runs on the CPU only: on the card
                 the constructor and advance_all must refuse it by name.
-Every sim path (8-12) runs through one two-run check (run_twice): the
+Every sim path but sim_npz and sim_grib (each held to another run
+instead) runs through one two-run check (run_twice): the
 launch counts of run A, each of its kernels launched and K5 once per sort,
 the particles, files and budget, and run B's particles, nan counts and
 sorts bitwise equal to run A's, its grids within the kernels' tolerances.
@@ -318,6 +354,9 @@ K10_OPS_PER_SPECIES = 60
 # rule, the cloud water and the removal
 K9_PATHS = ("lam_below_gas", "lam_below_aerosol", "cloud_water",
             "lam_in_cloud_aerosol", "lam_in_cloud_gas", "wet_removal")
+# K9 CLWC's: the column cloud water in place of the rate's
+K9_CLWC_PATHS = tuple("cloud_water_column" if f == "cloud_water" else f
+                      for f in K9_PATHS)
 # the sim phase holds K9 once more in the storm band where fewer than this
 # share of a kept step's active particles is scavenged
 SIM_MIN_RAINED = 0.01
@@ -436,8 +475,11 @@ def met_fields(kind: str, grid, device, times=(0.0,)):
 
 
 def _met_fields(kind: str, grid, device, times):
+    """``kind``: "synthetic", "synthetic_clwc" (SyntheticMet's fields with
+    the readclouds classification of its cloud water, use_clwc) or
+    "uniform"."""
     from flexpart_tpu_torch.met import calcpar, synthetic, verttransform
-    met = (synthetic.SyntheticMet(grid) if kind == "synthetic"
+    met = (synthetic.SyntheticMet(grid) if kind.startswith("synthetic")
            else synthetic.uniform_wind_met(grid, u=10.0, v=1.0))
     out, height = [], None
     for t in times:
@@ -445,7 +487,7 @@ def _met_fields(kind: str, grid, device, times):
         if height is None:
             height = verttransform.compute_heights(grid, eta)
         out.append(calcpar.calcpar(grid, eta, verttransform.process_eta(
-            grid, eta, height)))
+            grid, eta, height, use_clwc=kind.endswith("_clwc"))))
     return out
 
 
@@ -832,6 +874,7 @@ def phase_kernels(device, grid) -> dict:
         "adaptive", "adaptive_cbl")}
     res.update(part("conccalc_backward", kernel_conccalc_backward))
     res.update(part("bkdep", kernel_bkdep))
+    res.update(part("clwc", kernel_clwc))
     res["seconds_by_part"] = seconds
     return res
 
@@ -2427,15 +2470,17 @@ def bits_or_close(k, p, rtol: float, what: str) -> dict:
     return dict(values_differ=differ, max_abs_err=err)
 
 
-def check_wetdepo(p, zf, wet, msp, ldeltat: int, what: str) -> dict:
-    """K9 against the plain chain (wetscav_all_plain + apply_wetdepo_plain)
-    on the card: the mass and the deposit, bitwise or within K9_RTOL; the
-    share of the active particles that each species scavenges."""
+def check_wetdepo(p, zf, wet, msp, ldeltat: int, what: str,
+                  clwc: bool = False) -> dict:
+    """K9 (``clwc``: K9 CLWC) against the plain chain (wetscav_all_plain +
+    apply_wetdepo_plain, with the column cloud water for ``clwc``) on the
+    card: the mass and the deposit, bitwise or within K9_RTOL; the share of
+    the active particles that each species scavenges."""
     import torch
     from flexpart_tpu_torch.physics import massupdate as mu
     from flexpart_tpu_torch.physics import wetdepo as wd
-    qk, dk = wd.wetdepo_cuda(p, zf, LSYNC, ldeltat, wet, msp)
-    lam, grf = wd.wetscav_all_plain(p, zf, wet, False)
+    qk, dk = wd.wetdepo_cuda(p, zf, LSYNC, ldeltat, wet, msp, clwc)
+    lam, grf = wd.wetscav_all_plain(p, zf, wet, clwc)
     qp, dp = mu.apply_wetdepo_plain(p, lam, grf, LSYNC, ldeltat, msp)
     torch.cuda.synchronize()
     m = bits_or_close(qk.mass, qp.mass, K9_RTOL, f"{what}: K9 mass")
@@ -2646,20 +2691,24 @@ def sass_paths(kernel, functions, within: str = "") -> dict:
     return out
 
 
-def k9_instructions() -> dict:
-    """sass_paths of K9's forward instantiation (its BKDEP one, the
-    backward runs' scavenging factor, has a section of its own)."""
+def k9_instructions(clwc: bool = False) -> dict:
+    """sass_paths of K9's forward instantiation, or of its CLWC one (the
+    BKDEP ones, the backward runs' scavenging factor, have sections of
+    their own)."""
     from flexpart_tpu_torch import _build
-    entry = sass_instantiation(_build.WETDEPO, "wetdepo_kernel", (False,))[0]
-    return sass_paths(_build.WETDEPO, K9_PATHS, within=entry)
+    entry = sass_instantiation(_build.WETDEPO, "wetdepo_kernel",
+                               (False, clwc))[0]
+    return sass_paths(_build.WETDEPO, K9_CLWC_PATHS if clwc else K9_PATHS,
+                      within=entry)
 
 
-def k9_path_calls(p, zf, wet, msp) -> dict:
+def k9_path_calls(p, zf, wet, msp, clwc: bool = False) -> dict:
     """How often K9's paths run on these inputs: the active particles it
     rains on (which read z and their cell), and per function of K9_PATHS
-    the (particle, species) that call it: a scavenged particle (active,
-    raining, in or below a cloud) calls the rule its cell and the species
-    select, then the removal, and in cloud the cloud water once."""
+    (K9_CLWC_PATHS for ``clwc``) the (particle, species) that call it: a
+    scavenged particle (active, raining, in or below a cloud) calls the
+    rule its cell and the species select, then the removal, and in cloud
+    the cloud water once."""
     import torch
     from flexpart_tpu_torch.core.interp import (horiz_weights, interp_2d,
                                                 vert_weights)
@@ -2694,23 +2743,30 @@ def k9_path_calls(p, zf, wet, msp) -> dict:
                                if k.startswith("lam_"))
     if any(specs[s].incloud for s in range(len(wet))):
         calls["cloud_water"] = n_incl
+    if clwc:
+        calls["cloud_water_column"] = calls.pop("cloud_water")
     return dict(active_raining=int(rained.sum()), **calls)
 
 
-def k9_bound(p, zf, wet, msp, instructions) -> dict:
-    """K9's least time on these inputs.  Bytes: positions, active, mass in
-    and out and the deposit out of every particle, z of the active ones it
-    rains on; the four surface planes, the cloud classes, the temperature
-    and the heights.  Operations: ``instructions`` (``sass_paths``) of the
-    kernel's own code for every particle and of each path's function for
-    every call these inputs make (``k9_path_calls``)."""
-    calls = k9_path_calls(p, zf, wet, msp)
+def k9_bound(p, zf, wet, msp, instructions, clwc: bool = False) -> dict:
+    """K9's (``clwc``: K9 CLWC's) least time on these inputs.  Bytes:
+    positions, active, mass in and out and the deposit out of every
+    particle, z of the active ones it rains on, with ``clwc`` the column
+    cloud water of each one in cloud; the four surface planes, the cloud
+    classes, the temperature and the heights.  Operations:
+    ``instructions`` (``sass_paths``) of the kernel's own code for every
+    particle and of each path's function for every call these inputs make
+    (``k9_path_calls``)."""
+    calls = k9_path_calls(p, zf, wet, msp, clwc)
     n, nspec = p.capacity, p.nspec
     nz, ny, nx = zf.clouds.shape
     n_bytes = (n * (17 + 12 * nspec) + 4 * calls["active_raining"]
                + 16 * ny * nx + 5 * nz * ny * nx + 4 * nz)
+    if clwc:
+        n_bytes += 4 * calls["cloud_water_column"]
+    paths = K9_CLWC_PATHS if clwc else K9_PATHS
     n_ops = instructions["kernel"] * n + sum(
-        instructions[f] * calls[f] for f in K9_PATHS)
+        instructions[f] * calls[f] for f in paths)
     return dict(path_calls=calls, **bound(n_bytes, n_ops))
 
 
@@ -4152,41 +4208,38 @@ def write_sim_npz_met(metdir: Path) -> dict:
                 * grid.nx)
 
 
-def phase_sim_npz(device, kernels, held: dict, simres: dict) -> dict:
-    """The sim phase's run through the command line on npz met
-    (``python -m flexpart_tpu_torch pathnames``'s main() in this process),
-    once, timed as the sim phase's run A.  The job's files must state the
-    sim phase's configuration; the run must launch every kernel of the
-    sim path as often as run A did, end in run A's particles bit for bit
-    and write run A's npz files (the keys filled through float atomics
-    within K3's and K8's rtol, all others bitwise), and its header and
-    grid_conc_ files must read back to the npz of their step."""
+BANNER = ("CONGRATULATIONS: YOU HAVE SUCCESSFULLY COMPLETED A FLEXPART "
+          "MODEL RUN!")
+
+
+def cli_run(pathnames: Path, kernels, device, what: str,
+            hook=None) -> tuple:
+    """``python -m flexpart_tpu_torch pathnames --device <device>``'s main()
+    in this process on a job that states sim_config() (checked on the
+    Simulation the CLI builds; ``hook(sim)``, if given, sees it before
+    its run), its launch counts set to 0 just before and read just after,
+    its run timed on the host clock as the sim phase's run A is, its
+    standard output echoed: it must print the psteps line and the success
+    banner.  Returns (the Simulation, the launches, the CLI's seconds, the
+    run's seconds)."""
     import contextlib
     import dataclasses
     import io
-    import shutil
-    import numpy as np
     import torch
     from flexpart_tpu_torch import main as cli
-    from flexpart_tpu_torch.core.state import FIELDS
-    from flexpart_tpu_torch.io.fortran_writer import (read_grid_sparse,
-                                                      read_header)
-    shutil.rmtree(SIM_NPZ_DIR, ignore_errors=True)
-    met = write_sim_npz_met(SIM_NPZ_DIR / "metdata")
-    pathnames = write_sim_npz_job(SIM_NPZ_DIR / "job", SIM_NPZ_DIR /
-                                  "metdata")
     cmd, releases, og = sim_config()
     caught, times = {}, {}
     build = cli.build_simulation
 
     def build_and_time(*args, **kw):
-        # the Simulation the CLI builds, and its run timed as run A's is
         sim = build(*args, **kw)
         check(sim.cmd == cmd and sim.outgrid == og and sim.releases
               .boxes == releases.boxes and tuple(
                   dataclasses.replace(sp, specnum=0) for sp in
                   sim.releases.species) == releases.species,
-              "sim_npz: the job files do not state the sim configuration")
+              f"{what}: the job files do not state the sim configuration")
+        if hook is not None:
+            hook(sim)
         inner = sim.run
 
         def run(*a, **k):
@@ -4210,10 +4263,33 @@ def phase_sim_npz(device, kernels, held: dict, simres: dict) -> dict:
         cli.build_simulation = build
     said = stdout.getvalue()
     print(said, end="", flush=True)
-    sim = caught["sim"]
-    check(caught["rc"] == 0 and "CONGRATULATIONS: YOU HAVE SUCCESSFULLY "
-          "COMPLETED A FLEXPART MODEL RUN!" in said
-          and "psteps/s" in said, "sim_npz: no banner")
+    check(caught["rc"] == 0 and BANNER in said and "psteps/s" in said,
+          f"{what}: no banner")
+    return caught["sim"], launches, cli_s, times["run_s"]
+
+
+def phase_sim_npz(device, kernels, held: dict, simres: dict) -> dict:
+    """The sim phase's run through the command line on npz met
+    (``python -m flexpart_tpu_torch pathnames``'s main() in this process),
+    once, timed as the sim phase's run A.  The job's files must state the
+    sim phase's configuration; the run must launch every kernel of the
+    sim path as often as run A did, end in run A's particles bit for bit
+    and write run A's npz files (the keys filled through float atomics
+    within K3's and K8's rtol, all others bitwise), and its header and
+    grid_conc_ files must read back to the npz of their step."""
+    import shutil
+    import numpy as np
+    import torch
+    from flexpart_tpu_torch.core.state import FIELDS
+    from flexpart_tpu_torch.io.fortran_writer import (read_grid_sparse,
+                                                      read_header)
+    shutil.rmtree(SIM_NPZ_DIR, ignore_errors=True)
+    met = write_sim_npz_met(SIM_NPZ_DIR / "metdata")
+    pathnames = write_sim_npz_job(SIM_NPZ_DIR / "job", SIM_NPZ_DIR /
+                                  "metdata")
+    _, releases, og = sim_config()
+    sim, launches, cli_s, run_s = cli_run(pathnames, kernels, device,
+                                          "sim_npz")
     check(sim.write_fortran and not sim.write_netcdf,
           "sim_npz: the default Command writes the Fortran files")
     for name in FIXED_PATH_KERNELS:
@@ -4287,10 +4363,10 @@ def phase_sim_npz(device, kernels, held: dict, simres: dict) -> dict:
     a_sec = simres["section_seconds_unsynced"]
     res = dict(
         n=N_MAIN, steps=SIM_HOURS * 3600 // LSYNC, met_archives=met,
-        launches=launches, cli_s=cli_s, run_s=times["run_s"],
+        launches=launches, cli_s=cli_s, run_s=run_s,
         particle_steps=sim.timings["particle_steps"],
         particle_steps_per_s_whole_run=sim.timings["particle_steps"]
-        / times["run_s"],
+        / run_s,
         section_seconds_unsynced=sec,
         getfields_s=sec.get("getfields", 0.0),
         getfields_fetch_bg_s=sec.get("getfields_fetch_bg", 0.0),
@@ -4304,7 +4380,7 @@ def phase_sim_npz(device, kernels, held: dict, simres: dict) -> dict:
         # the same kernels on the same inputs as the sim phase's run B,
         # whose profile gives their device time
         device_busy_share=simres["device_ms_all_kernels"] / 1e3
-        / times["run_s"],
+        / run_s,
         particles_bitwise_equal_to_sim_a=True,
         depo_grids_against_sim_a=depo,
         npz_against_sim_a=npz_keys,
@@ -4319,10 +4395,468 @@ def phase_sim_npz(device, kernels, held: dict, simres: dict) -> dict:
             output_s=a_sec.get("output", 0.0),
             device_busy_share=simres["device_ms_all_kernels"] / 1e3
             / simres["run_s"]))
-    del sim, caught
+    del sim
     held.clear()
     shutil.rmtree(SIM_NPZ_DIR, ignore_errors=True)
     shutil.rmtree(SIM_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------------------------ the CLI on GRIB met --
+
+SIM_GRIB_DIR = ROOT / "build" / "sim_grib_smoke"
+SIM_GFS_DIR = ROOT / "build" / "sim_gfs_smoke"
+# NCEP's 1.0-degree pgrb2 files: 26 isobaric levels [hPa]
+GFS_LEVELS_HPA = (1000, 975, 950, 925, 900, 850, 800, 750, 700, 650, 600,
+                  550, 500, 450, 400, 350, 300, 250, 200, 150, 100, 70, 50,
+                  30, 20, 10)
+# sim_gfs: a plateau where ps is cut to 85% (about 850 hPa, so 5-6 of the
+# isobaric levels lie below ground), under the east half of the first
+# release box and the west half of the storm box; cloud water (CLWMR,
+# 1000-700 hPa) and at least 1 mm/h of rain over the storm box
+GFS_PLATEAU = dict(lon1=1.0, lon2=29.0, lat1=30.0, lat2=60.0, ps_share=0.85)
+GFS_CLOUD = dict(lon1=26.0, lon2=32.0, lat1=48.0, lat2=54.0, clwmr=3.0e-4,
+                 top_hpa=700.0, min_mm_h=1.0)
+
+
+def _grib_s16(v: int) -> bytes:
+    import struct
+    return struct.pack(">H", abs(int(v)) | (0x8000 if v < 0 else 0))
+
+
+def _grib_s32(v: int) -> bytes:
+    import struct
+    return struct.pack(">I", abs(int(v)) | (0x80000000 if v < 0 else 0))
+
+
+def grib2_message(field, lat1: float, lon1: float, dlat: float,
+                  dlon: float, disc: int, cat: int, num: int,
+                  level_type: int, level: int, pv=()) -> bytes:
+    """One GRIB2 message, south row first, simple packing in 16 bits:
+    sections 0, 1, 3 (template 3.0), 4 (template 4.0, with ``pv``), 5
+    (template 5.0), 6 (no bitmap), 7; the layout of the repo tests'
+    encoder (tests/test_gribdec.py), the values packed with numpy."""
+    import math
+    import struct
+    import numpy as np
+    field = np.asarray(field, np.float64)
+    ny, nx = field.shape
+    npts = nx * ny
+    fmin = float(field.min())
+    rng = float(field.max()) - fmin
+    e_scale = -int(math.floor(math.log2(65535.0 / rng))) if rng > 0 else 0
+    ints = np.clip(np.round((field.ravel() - fmin) / 2.0 ** e_scale),
+                   0, 65535).astype(">u2")
+
+    def sec(n, payload):
+        return struct.pack(">IB", len(payload) + 5, n) + payload
+
+    s1 = sec(1, struct.pack(">HHBBBHBBBBB", 98, 0, 2, 1, 1, 2020, 1, 1,
+                            0, 0, 0) + b"\x00\x01\x00")
+    g = struct.pack(">BIBBH", 0, npts, 0, 0, 0) + b"\x06" + b"\x00" * 15
+    g += struct.pack(">IIII", nx, ny, 0, 0)
+    g += _grib_s32(round(lat1 * 1e6)) + _grib_s32(round(lon1 * 1e6)) + b"\x30"
+    g += _grib_s32(round((lat1 + (ny - 1) * dlat) * 1e6))
+    g += _grib_s32(round((lon1 + (nx - 1) * dlon) * 1e6))
+    g += struct.pack(">II", round(dlon * 1e6), round(dlat * 1e6)) + b"\x00"
+    p = struct.pack(">HHBBBBBHBB", len(pv), 0, cat, num, 0, 0, 0, 0, 0, 1)
+    p += struct.pack(">IBBIBBI", 0, level_type, 0, level, 255, 0, 0)
+    p += struct.pack(f">{len(pv)}f", *pv)
+    d = struct.pack(">IHf", npts, 0, fmin) + _grib_s16(e_scale) \
+        + _grib_s16(0) + struct.pack(">BB", 16, 0)
+    body = (s1 + sec(3, g) + sec(4, p) + sec(5, d) + sec(6, b"\xff")
+            + sec(7, ints.tobytes()))
+    return (b"GRIB\x00\x00" + bytes([disc, 2])
+            + struct.pack(">Q", 16 + len(body) + 4) + body + b"7777")
+
+
+def ecmwf_grib(eta, grid) -> bytes:
+    """One wind-field time of SyntheticMet as an ECMWF-style GRIB2 file, in
+    the units and accumulations that gribmet.eta_from_grib converts back:
+    the model levels 1 (top) to nlev - 1 (T, U, V, Q, etadot, cloud liquid
+    water), each with the hybrid coefficients as pv (top-down a, then b);
+    the surface pressure, 2 m temperature and dew point, 10 m wind (the
+    artificial ground level), the sensible heat flux and solar radiation
+    in J/m2 over 3600 s, precipitation in m over the hour, cloud cover,
+    snow depth (read times 0.1), geopotential, subgrid orography, land
+    mask and the stress as EWSS in N m-2 s (NSSS 0).  The grid's first
+    nx - 1 columns from lon1 = xlon0, its cyclic column left out."""
+    import numpy as np
+    nxf = grid.nx - 1
+
+    def f(t):
+        return np.asarray(t.cpu().numpy(), np.float64)[..., :nxf]
+
+    def add(field, disc, cat, num, level_type, level, pv=()):
+        out.append(grib2_message(field, grid.ylat0, grid.xlon0, grid.dy,
+                                 grid.dx, disc, cat, num, level_type, level,
+                                 pv))
+
+    pv = [float(v) for v in grid.akm[::-1]] + [float(v)
+                                               for v in grid.bkm[::-1]]
+    out = []
+    nlev_ec = grid.nlev - 1
+    ml = {(0, 0): eta.tth, (2, 2): eta.uuh, (2, 3): eta.vvh, (1, 0): eta.qvh,
+          (2, 32): eta.wwh, (1, 83): eta.clwch}
+    for kz in range(1, nlev_ec + 1):
+        for (cat, num), t in ml.items():
+            add(f(t[kz]), 0, cat, num, 105, nlev_ec - kz + 1, pv)
+    sfc = [(eta.ps, 0, 3, 0, 1), (eta.tt2, 0, 0, 0, 103),
+           (eta.td2, 0, 0, 6, 103), (eta.uuh[0], 0, 2, 2, 103),
+           (eta.vvh[0], 0, 2, 3, 103), (eta.sshf * 3600.0, 0, 0, 11, 1),
+           (eta.ssr * 3600.0, 0, 4, 9, 1), (eta.lsprec / 1000.0, 0, 1, 9, 1),
+           (eta.convprec / 1000.0, 0, 1, 10, 1), (eta.tcc, 0, 6, 1, 1),
+           (eta.sd * 10.0, 0, 1, 11, 1), (eta.oro * 9.80665, 0, 3, 4, 1),
+           (eta.excessoro, 0, 3, 7, 1), (eta.lsm, 2, 0, 0, 1),
+           (eta.surfstr * 3600.0, 0, 2, 38, 1),
+           (eta.surfstr * 0.0, 0, 2, 37, 1)]
+    for t, disc, cat, num, level_type in sfc:
+        add(f(t), disc, cat, num, level_type, 0)
+    return b"".join(out)
+
+
+def write_grib_files(metdir: Path, prefix: str, make) -> dict:
+    """One GRIB file per hour of the run and the reader's look-ahead,
+    ``make(h)`` its bytes, each built and written by a thread of its own
+    (numpy releases the interpreter), and their AVAILABLE index.  Returns
+    the seconds, files and bytes."""
+    from concurrent.futures import ThreadPoolExecutor
+    metdir.mkdir(parents=True)
+    names = [f"{prefix}20200101{h:02d}" for h in range(SIM_NPZ_HOURS)]
+
+    def one(h):
+        (metdir / names[h]).write_bytes(make(h))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as ex:
+        list(ex.map(one, range(len(names))))
+    seconds = time.perf_counter() - t0
+    (metdir / "AVAILABLE").write_text("\n".join(
+        ["DATE     TIME        FILENAME     SPECIFICATIONS",
+         "YYYYMMDD HHMISS", "________ ______      __________      ______"]
+        + [f"20200101 {h:02d}0000      {n}      ON DISC"
+           for h, n in enumerate(names)]) + "\n")
+    return dict(write_s=seconds, threads=len(names), files=len(names),
+                bytes=sum((metdir / n).stat().st_size for n in names))
+
+
+def box_mask(grid_lons, grid_lats, box) -> "np.ndarray":
+    """(ny, nx) mask of the cells inside a lon/lat box."""
+    import numpy as np
+    lon = np.asarray(grid_lons)[None, :]
+    lat = np.asarray(grid_lats)[:, None]
+    return ((lon >= box["lon1"]) & (lon <= box["lon2"])
+            & (lat >= box["lat1"]) & (lat <= box["lat2"]))
+
+
+def gfs_grib(eta, grid) -> bytes:
+    """One wind-field time of SyntheticMet on SIM_GRID as an NCEP
+    GFS-style GRIB2 file on the 1.0-degree grid (360 x 181, 0..359 E,
+    south row first): T, U, V, omega (SyntheticMet's etadot), RH and CLWMR
+    on the 26 isobaric levels of GFS_LEVELS_HPA, interpolated in ln p from
+    the eta levels (held below the lowest and above the top); the surface
+    pressure (cut to GFS_PLATEAU's share on its plateau, so that the
+    levels below it collapse), 2 m temperature and RH, 10 m wind, the
+    lowest sigma level's T, U, V (SyntheticMet's level 1), terrain height,
+    land mask, total and convective precipitation rates in mm/s (at least
+    GFS_CLOUD's rate over the storm box), cloud cover in percent and snow;
+    CLWMR over the storm box raised to GFS_CLOUD's below its top."""
+    import numpy as np
+    from flexpart_tpu_torch.met.pblprofile import _ew
+    nxf = grid.nx - 1
+
+    def f(t):
+        # SIM_GRID's columns run from 180 W; NCEP's from 0 E
+        a = np.asarray(t.cpu().numpy(), np.float64)[..., :nxf]
+        return np.roll(a, -int(round(180.0 / grid.dx)), axis=-1)
+
+    lons = np.arange(nxf) * grid.dx
+    lons = np.where(lons >= 180.0, lons - 360.0, lons)
+    lats = grid.ylat0 + np.arange(grid.ny) * grid.dy
+    ps0 = f(eta.ps)
+    p_eta = (grid.akz[:, None, None] + grid.bkz[:, None, None] * ps0[None])
+    lnp = np.log(p_eta)
+    tth, qvh = f(eta.tth), f(eta.qvh)
+    e = qvh * p_eta / (0.622 + 0.378 * qvh)
+    rh = np.clip(100.0 * e / _ew(tth), 0.0, 100.0)
+    cloud = box_mask(lons, lats, GFS_CLOUD)
+    prof = {"T": tth, "U": f(eta.uuh), "V": f(eta.vvh), "W": f(eta.wwh),
+            "RH": rh, "CLWMR": f(eta.clwch)}
+    roles = {"T": (0, 0, 0), "U": (0, 2, 2), "V": (0, 2, 3), "W": (0, 2, 8),
+             "RH": (0, 1, 1), "CLWMR": (0, 1, 22)}
+    out = []
+
+    def add(field, disc, cat, num, level_type, level):
+        out.append(grib2_message(field, grid.ylat0, 0.0, grid.dy, grid.dx,
+                                 disc, cat, num, level_type, level))
+
+    nlev = grid.nlev
+    for hpa in GFS_LEVELS_HPA:
+        lp = np.log(100.0 * hpa)
+        k = np.clip((p_eta >= 100.0 * hpa).sum(axis=0), 1, nlev - 1)[None]
+        lo = np.take_along_axis(lnp, k - 1, axis=0)[0]
+        hi = np.take_along_axis(lnp, k, axis=0)[0]
+        w = np.clip((lo - lp) / (lo - hi), 0.0, 1.0)
+        for name, a in prof.items():
+            v = (np.take_along_axis(a, k - 1, axis=0)[0] * (1.0 - w)
+                 + np.take_along_axis(a, k, axis=0)[0] * w)
+            if name == "CLWMR":
+                v = np.where(cloud & (hpa >= GFS_CLOUD["top_hpa"]),
+                             np.maximum(v, GFS_CLOUD["clwmr"]), v)
+            add(v, *roles[name], 100, 100 * hpa)
+    plateau = box_mask(lons, lats, GFS_PLATEAU)
+    ps = np.where(plateau, GFS_PLATEAU["ps_share"] * ps0, ps0)
+    tt2, td2 = f(eta.tt2), f(eta.td2)
+    rain = (f(eta.lsprec) + f(eta.convprec)) / 3600.0
+    rain = np.where(cloud, np.maximum(rain, GFS_CLOUD["min_mm_h"] / 3600.0),
+                    rain)
+    topo = f(eta.oro) + np.where(plateau, 8000.0 * np.log(ps0 / ps), 0.0)
+    sfc = [(ps, 0, 3, 0, 1, 0), (tt2, 0, 0, 0, 103, 2),
+           (100.0 * _ew(td2) / _ew(tt2), 0, 1, 1, 103, 2),
+           (f(eta.uuh[0]), 0, 2, 2, 103, 10), (f(eta.vvh[0]), 0, 2, 3, 103, 10),
+           (tth[1], 0, 0, 0, 104, 0), (f(eta.uuh[1]), 0, 2, 2, 104, 0),
+           (f(eta.vvh[1]), 0, 2, 3, 104, 0), (topo, 0, 3, 5, 1, 0),
+           (f(eta.lsm), 2, 0, 0, 1, 0), (rain, 0, 1, 7, 1, 0),
+           (f(eta.convprec) / 3600.0, 0, 1, 196, 1, 0),
+           (100.0 * f(eta.tcc), 0, 6, 1, 1, 0), (f(eta.sd), 0, 1, 13, 1, 0)]
+    for field, disc, cat, num, level_type, level in sfc:
+        add(field, disc, cat, num, level_type, level)
+    return b"".join(out)
+
+
+def read_split(backend, sim) -> dict:
+    """The met read of a GRIB run: getfields (blocked on the step loop's
+    thread), the reader thread's read and processing, and the decoder's
+    parts over every file read (scan, decode inside gribdec_decode,
+    numpy assembly, the copy to the card; ``gribmet.ReadTimes``)."""
+    sec = sim.timings
+    return dict(getfields_s=sec.get("getfields", 0.0),
+                getfields_fetch_bg_s=sec.get("getfields_fetch_bg", 0.0),
+                getfields_proc_bg_s=sec.get("getfields_proc_bg", 0.0),
+                files_read=backend.read_times.files,
+                read_parts_s=dict(backend.read_times.seconds))
+
+
+def phase_sim_grib(device, kernels, simres: dict, npzres: dict) -> dict:
+    """The sim phase's run through the command line on ECMWF-style GRIB2
+    met: SyntheticMet on SIM_GRID (361 x 181 x 30) written as one GRIB2
+    file per hour of the run and the reader's look-ahead (ecmwf_grib:
+    about 190 messages of 65,160 values each), from threads and timed
+    apart; sim_npz's job with its AVAILABLE naming the GRIB files, run once
+    through main(), timed as the sim phase's run A.  It must print the
+    banner, launch every kernel of the sim path as often as run A did, and
+    keep every particle active and finite, the tracer's mass and the
+    aerosol's budget (sim_run_checks).  The fields GribMet.fetch returned
+    in the run (kept on the card) are then written with save_eta_npz and
+    the same job on those archives must end in the same particles, bit for
+    bit: the decode is the only difference between the two runs, and it is
+    taken out."""
+    import shutil
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from flexpart_tpu_torch.core.state import FIELDS
+    from flexpart_tpu_torch.met import SyntheticMet, make_grid
+    from flexpart_tpu_torch.met.gribmet import GribMet
+    from flexpart_tpu_torch.met.npzmet import save_eta_npz
+    shutil.rmtree(SIM_GRIB_DIR, ignore_errors=True)
+    grid = make_grid(**SIM_GRID)
+    met = SyntheticMet(grid)
+    gribdir = SIM_GRIB_DIR / "grib"
+    files = write_grib_files(gribdir, "EN", lambda h: ecmwf_grib(
+        met.fetch(h * 3600.0, "cpu"), grid))
+    pathnames = write_sim_npz_job(SIM_GRIB_DIR / "job", gribdir)
+    fetched = {}
+
+    def keep_fetched(sim):
+        inner = sim.met_backend.fetch
+
+        def fetch(tsec, device):
+            fetched[int(tsec)] = eta = inner(tsec, device)
+            return eta
+        sim.met_backend.fetch = fetch
+
+    sim, launches, cli_s, run_s = cli_run(pathnames, kernels, device,
+                                          "sim_grib", keep_fetched)
+    check(type(sim.met_backend) is GribMet and not sim.use_clwc
+          and (sim.grid.nx, sim.grid.ny, sim.grid.nlev, sim.grid.xlon0)
+          == (361, 181, 30, -180.0), "sim_grib: not the ECMWF GRIB path")
+    check(launches == simres["launches"], f"sim_grib: launches {launches} "
+          f"against the sim phase's run A's {simres['launches']}")
+    checks, _, _ = sim_run_checks(sim, "sim_grib", 2.0)
+    read = read_split(sim.met_backend, sim)
+    particles, grib_grid = sim.particles, sim.grid
+    sec = {k: v for k, v in sim.timings.items() if k != "particle_steps"}
+    psteps = sim.timings["particle_steps"]
+    del sim
+    torch.cuda.empty_cache()
+
+    # the same job on npz archives of what GribMet.fetch returned
+    npzdir = SIM_GRIB_DIR / "npz"
+    npzdir.mkdir()
+    names = {t: f"EN20200101{t // 3600:02d}.npz" for t in sorted(fetched)}
+    check(len(names) == SIM_NPZ_HOURS, f"sim_grib: read {sorted(names)}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as ex:
+        list(ex.map(lambda t: save_eta_npz(npzdir / names[t], fetched[t],
+                                           grib_grid), names))
+    decoded_s = time.perf_counter() - t0
+    fetched.clear()
+    lines = (gribdir / "AVAILABLE").read_text().splitlines()[:3]
+    (npzdir / "AVAILABLE").write_text("\n".join(lines + [
+        f"20200101 {t // 3600:02d}0000      {n}      ON DISC"
+        for t, n in names.items()]) + "\n")
+    again, launches_npz, _, run_npz_s = cli_run(
+        write_sim_npz_job(SIM_GRIB_DIR / "job_npz", npzdir), kernels,
+        device, "sim_grib on its decoded fields")
+    check(launches_npz == launches, "sim_grib: the npz run of the decoded "
+          "fields launched otherwise")
+    check_same_bits(particles, again.particles,
+                    "sim_grib against the npz run of its decoded fields",
+                    FIELDS)
+    del again, particles
+    res = dict(
+        n=N_MAIN, steps=SIM_HOURS * 3600 // LSYNC, grib_files=files,
+        messages_per_file=6 * (grid.nlev - 1) + 16,
+        launches=launches, cli_s=cli_s, run_s=run_s,
+        particle_steps=psteps,
+        particle_steps_per_s_whole_run=psteps / run_s,
+        section_seconds_unsynced=sec, read=read,
+        output_s=sec.get("output", 0.0),
+        # the same kernels on the same inputs as the sim phase's run B,
+        # whose profile gives their device time
+        device_busy_share=simres["device_ms_all_kernels"] / 1e3 / run_s,
+        decoded_npz_write_s=decoded_s,
+        run_on_decoded_npz_s=run_npz_s,
+        particles_bitwise_equal_to_npz_run_of_decoded_fields=True,
+        sim_run_a=dict(run_s=simres["run_s"],
+                       particle_steps_per_s_whole_run=simres[
+                           "particle_steps_per_s_whole_run"]),
+        sim_npz=dict(run_s=npzres["run_s"],
+                     particle_steps_per_s_whole_run=npzres[
+                         "particle_steps_per_s_whole_run"],
+                     getfields_s=npzres["getfields_s"],
+                     getfields_fetch_bg_s=npzres["getfields_fetch_bg_s"]),
+        **checks)
+    shutil.rmtree(SIM_GRIB_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+# the kernels every step of sim_gfs launches: K9 CLWC, not the stock K9
+GFS_PATH_KERNELS = tuple("wetdepo.clwc" if k == "wetdepo" else k
+                         for k in FIXED_PATH_KERNELS)
+# the rules of a scavenged (particle, species) pair (k9_path_calls)
+K9_RULES = ("lam_below_gas", "lam_below_aerosol", "lam_in_cloud_aerosol",
+            "lam_in_cloud_gas")
+
+
+def phase_sim_gfs(device, kernels) -> dict:
+    """The sim phase's configuration through the command line's
+    build_simulation on GFS-style GRIB2 met (gfs_grib: NCEP's 1.0-degree
+    grid, 26 isobaric levels, a plateau whose below-ground levels
+    collapse, cloud water and rain over the storm box), twice with one
+    seed (run_twice): GfsMet's sumclouds turns on use_clwc, so K9 CLWC
+    runs at every step and the stock K9 never.  Per kept step K9 CLWC is
+    held against its plain version on the step's particles and field, and
+    the scavenged (particle, species) pairs are counted per rule; the
+    in-cloud rule must scavenge on one of them at least.  The aerosol's
+    budget within 1e-3 (sim_run_checks)."""
+    import shutil
+    import torch
+    from flexpart_tpu_torch import main as cli
+    from flexpart_tpu_torch.met import SyntheticMet, make_grid
+    from flexpart_tpu_torch.met.gfsmet import GfsMet
+    from flexpart_tpu_torch.physics import massupdate as mu
+    from flexpart_tpu_torch.physics import wetdepo as wd
+    shutil.rmtree(SIM_GFS_DIR, ignore_errors=True)
+    grid = make_grid(**SIM_GRID)
+    met = SyntheticMet(grid)
+    gribdir = SIM_GFS_DIR / "grib"
+    files = write_grib_files(gribdir, "GF", lambda h: gfs_grib(
+        met.fetch(h * 3600.0, "cpu"), grid))
+    nsteps = SIM_HOURS * 3600 // LSYNC
+    keep, snaps, facts = {}, {}, {}
+
+    def setup(run):
+        sim = cli.build_simulation(
+            str(write_sim_npz_job(SIM_GFS_DIR / f"job_{run}", gribdir)),
+            device=str(device), profile=run == "b")
+        keep.update(kept_steps(sim, nsteps, "sim_gfs"))
+        return sim
+
+    def check_a(sim):
+        g = sim.grid
+        check(type(sim.met_backend) is GfsMet and sim.use_clwc
+              and g.pressure_levels and (g.nx, g.ny, g.nlev, g.xlon0)
+              == (361, 181, len(GFS_LEVELS_HPA), -179.0),
+              "sim_gfs: not the GFS path with use_clwc")
+        facts["read"] = read_split(sim.met_backend, sim)
+        # the (level, column) cells below ground in the first file
+        eta = sim.met_backend.fetch(0.0, "cpu")
+        below = torch.as_tensor(g.akm, dtype=torch.float32)[:, None, None] \
+            >= eta.ps[None]
+        facts.update(below_ground_cells=int(below.sum()),
+                     below_ground_columns=int(below.any(0).sum()))
+        check(facts["below_ground_cells"] > 0, "sim_gfs: no level below "
+              "ground")
+        return {}
+
+    def probe_fn(sim):
+        def probe(istep, itime):
+            if istep in keep:
+                z0, z1, mt0, mt1 = sim._fields_for(itime)
+                snaps[keep[istep]] = (istep, itime, sim.particles, z0, z1,
+                                      mt0, mt1)
+        return probe
+
+    # species 2: one unit from each box (Cs-137 decays by 8e-6 in 3 h)
+    sim, rows, a = run_twice(setup, kernels, "sim_gfs", 2.0,
+                             GFS_PATH_KERNELS, check_a, probe_fn)
+    launches = a["launches"]
+    check(launches["wetdepo.clwc"] == nsteps and launches["wetdepo"] == 0,
+          f"sim_gfs: K9 CLWC {launches['wetdepo.clwc']} and K9 "
+          f"{launches['wetdepo']} launches in {nsteps} steps")
+    device_ms, per_launch = per_launch_of(rows)
+    ins = k9_instructions(clwc=True)
+    wet, msp = sim.wet_species, sim.mass_species
+    on_inputs, rule_share = {}, {}
+    for name, (istep, itime, p, z0, z1, mt0, mt1) in snaps.items():
+        t = itime
+        loutnext = 3600 * max(1, -(-t // 3600))
+        ldeltat = t - (loutnext - 3600)
+        interp_t = itime - LSYNC // 2
+        zw = z0 if abs(mt0 - interp_t) < abs(mt1 - interp_t) else z1
+        what = f"sim_gfs {name} {istep}: K9 CLWC"
+        r = check_wetdepo(p, zw, wet, msp, ldeltat, what, clwc=True)
+        r.pop("deposit")
+        check(r["bitwise"], f"{what}: not bitwise")
+        r.update(k9_bound(p, zw, wet, msp, ins, clwc=True))
+        r["ms"] = cuda_ms(lambda: wd.wetdepo_cuda(p, zw, LSYNC, ldeltat,
+                                                  wet, msp, True), 10)
+        r["plain_ms"] = cuda_ms(lambda: mu.apply_wetdepo_plain(
+            p, *wd.wetscav_all_plain(p, zw, wet, True), LSYNC, ldeltat,
+            msp), 3)
+        pairs = max(int(p.active.sum()) * p.nspec, 1)
+        rule_share[name.replace(" ", "_")] = {
+            k: r["path_calls"][k] / pairs for k in K9_RULES}
+        on_inputs[name.replace(" ", "_")] = r
+    check(any(s["lam_in_cloud_aerosol"] + s["lam_in_cloud_gas"] > 0
+              for s in rule_share.values()),
+          f"sim_gfs: the in-cloud rule scavenged nothing: {rule_share}")
+    snaps.clear()
+    res = dict(
+        n=N_MAIN, steps=nsteps, grib_files=files,
+        levels_hpa=list(GFS_LEVELS_HPA), **facts, **a,
+        scavenged_pair_share_by_rule=rule_share,
+        device_per_call={
+            "wetdepo_clwc": per_launch(("wetdepo_kernel",), nsteps),
+            "advance": per_launch(("advance_kernel",), nsteps)},
+        device_ms_all_kernels=device_ms,
+        device_busy_share=device_ms / 1e3 / a["run_s"],
+        kernels_on_sim_gfs_inputs=on_inputs)
+    del sim
+    shutil.rmtree(SIM_GFS_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     return res
 
@@ -5086,7 +5620,8 @@ def kernel_bkdep(device, grid) -> dict:
     # the temperature and the heights; operations: the BKDEP section's own
     # code per particle and each rule's per call
     nz, ny, nx = z0.clouds.shape
-    entry = sass_instantiation(_build.WETDEPO, "wetdepo_kernel", (True,))[0]
+    entry = sass_instantiation(_build.WETDEPO, "wetdepo_kernel",
+                               (True, False))[0]
     paths = tuple(f for f in K9_PATHS if f != "wet_removal")
     ins = sass_paths(_build.WETDEPO, paths, within=entry)
     calls = k9_path_calls(q.replace(active=fresh), z0, wet,
@@ -5123,6 +5658,148 @@ def kernel_bkdep(device, grid) -> dict:
                 # the weights and each species' gather, fresh particles only
                 n_fresh * (K10_OPS_PER_PARTICLE + 10 * 2)))
     return {"wetdepo.bkdep": k9_out, "drydepo.bkdep": k10_out}
+
+
+def clwc_all_classes_met(zf, device, seed: int):
+    """all_classes_met's fields with a column cloud water: ctwc of 0.05-2
+    kg/m2 in every column that holds an in-cloud cell (class 2 or 3), but
+    in a tenth of them, which keep 0 (the plain version's 1e-30 floor of
+    the aerosol rule), from a seed."""
+    import torch
+    from flexpart_tpu_torch.met.fields import F2_CTWC
+    zf = all_classes_met(zf, device, seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+    ny, nx = zf.clouds.shape[1:]
+    incl = ((zf.clouds == 2) | (zf.clouds == 3)).any(dim=0)
+    keep = torch.rand((ny, nx), generator=gen, device=device) >= 0.1
+    water = torch.rand((ny, nx), generator=gen, device=device) * 1.95 + 0.05
+    f2d = zf.f2d.clone()
+    f2d[F2_CTWC] = torch.where(incl & keep, water, torch.zeros_like(water))
+    return zf.replace(f2d=f2d)
+
+
+def kernel_clwc(device, grid) -> dict:
+    """K9's CLWC instantiations against their plain versions on the
+    deposition phase's 10 x 2**20 particles with two species: K9 CLWC
+    (wetscav_all_plain(..., True) + apply_wetdepo_plain) on SyntheticMet's
+    fields classified by their cloud water (use_clwc: the readclouds
+    classes and the column cloud water ctwc) and on every cloud class with
+    a seeded ctwc plane (clwc_all_classes_met), as drawn and in cell order;
+    K9 BKDEP x CLWC (assign_wetbkdep_plain(..., use_clwc=True)) on both in
+    cell order, half the particles fresh: all bitwise.  Each timed beside
+    K9 (K9 BKDEP) on the same particles and fields, with its bound from the
+    compiled CLWC section's instructions; the in-cloud rule must scavenge
+    on both fields."""
+    import torch
+    from flexpart_tpu_torch import _build
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.physics import bkdep as bk
+    from flexpart_tpu_torch.physics import massupdate as mu
+    from flexpart_tpu_torch.physics import wetdepo as wd
+    cfg = step_setup(grid)[0]
+    species = depo_species()
+    wet = tuple(wd.WetSpecies.from_species(s) for s in species)
+    msp = mu.MassSpecies(decay=tuple(s.decay for s in species),
+                         drydep=tuple(s.drydep for s in species))
+    (zc,) = met_fields("synthetic_clwc", grid, device, (3600.0,))
+    fields = {"synthetic_clwc": zc,
+              "all_classes": clwc_all_classes_met(zc, device, 21)}
+    p = depo_particles(N_MAIN, device, 23, grid)
+    orders = {"as_drawn": p,
+              "cell_ordered": reorder.reorder_by_cell_cuda(p, zc.height,
+                                                           cfg)[0]}
+    del p
+    ldeltat = 2700
+    ins = k9_instructions(clwc=True)
+    cases = {}
+    for oname, q in orders.items():
+        for fname, zf in fields.items():
+            what = f"K9 CLWC {fname}, {oname}"
+            r = check_wetdepo(q, zf, wet, msp, ldeltat, what, clwc=True)
+            r.pop("deposit")
+            check(r["bitwise"], f"{what}: not bitwise")
+            r.update(k9_bound(q, zf, wet, msp, ins, clwc=True))
+            calls = r["path_calls"]
+            check(calls["lam_in_cloud_aerosol"] > 0
+                  and calls["cloud_water_column"] > 0,
+                  f"{what}: no in-cloud scavenging: {calls}")
+            r["ms"] = cuda_ms(lambda: wd.wetdepo_cuda(
+                q, zf, LSYNC, ldeltat, wet, msp, True), 10)
+            r["k9_ms_same_particles"] = cuda_ms(lambda: wd.wetdepo_cuda(
+                q, zf, LSYNC, ldeltat, wet, msp), 10)
+            r["plain_ms"] = cuda_ms(lambda: mu.apply_wetdepo_plain(
+                q, *wd.wetscav_all_plain(q, zf, wet, True), LSYNC, ldeltat,
+                msp), 3)
+            cases[f"{fname}_{oname}"] = r
+    main = cases["synthetic_clwc_cell_ordered"]
+    clwc = dict(
+        {f: main[f] for f in ("ms", "plain_ms", "k9_ms_same_particles",
+                              "bound_ms", "bound_by", "bound_bytes",
+                              "bound_operations", "path_calls",
+                              "scavenged_share")},
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        bitwise=True, library_ms=None, ms_case="synthetic_clwc_cell_ordered",
+        unordered_ms=cases["synthetic_clwc_as_drawn"]["ms"],
+        instructions=ins, n=N_MAIN,
+        cases={n: {f: c[f] for f in ("ms", "plain_ms",
+                                     "k9_ms_same_particles", "bound_ms",
+                                     "max_abs_err", "scavenged_share")}
+               for n, c in cases.items()})
+    del orders
+    torch.cuda.empty_cache()
+
+    # BKDEP x CLWC: the scavenging factor of a WETBKDEP run's fresh
+    # particles with the column cloud water, cell order
+    q = bkdep_particles(reorder.reorder_by_cell_cuda(
+        depo_particles(N_MAIN, device, 23, grid), zc.height, cfg)[0],
+        device, 24)
+    fresh = q.active & (q.xscav[:, 0] < 0)
+    bcases = {}
+    for fname, zf in fields.items():
+        what = f"K9 BKDEP x CLWC {fname}"
+        k = bk.assign_wetbkdep_cuda(q, zf, wet, use_clwc=True)
+        pl = bk.assign_wetbkdep_plain(q, zf, wet, use_clwc=True)
+        torch.cuda.synchronize()
+        out = {f: bits_or_close(getattr(k, f), getattr(pl, f), 0.0,
+                                f"{what}: {f}") for f in ("mass", "xscav")}
+        r = dict(max_abs_err=max(v["max_abs_err"] for v in out.values()),
+                 positive=int((fresh[:, None] & (pl.xscav > 0)).sum()),
+                 zeroed=int(((pl.mass == 0) & (q.mass != 0)).any(1).sum()))
+        check(r["positive"] > 0 and r["zeroed"] > 0, f"{what}: {r}")
+        del k, pl
+        r.update(
+            ms=cuda_ms(lambda: bk.assign_wetbkdep_cuda(
+                q, zf, wet, use_clwc=True), 10),
+            k9_bkdep_ms_same_particles=cuda_ms(
+                lambda: bk.assign_wetbkdep_cuda(q, zf, wet), 10),
+            plain_ms=cuda_ms(lambda: bk.assign_wetbkdep_plain(
+                q, zf, wet, use_clwc=True), 3))
+        bcases[fname] = r
+    # bytes: K9 BKDEP's (kernel_bkdep) and the column cloud water of each
+    # fresh particle in cloud; operations: the BKDEP x CLWC section's own
+    # code per particle and each rule's per call
+    nz, ny, nx = zc.clouds.shape
+    entry = sass_instantiation(_build.WETDEPO, "wetdepo_kernel",
+                               (True, True))[0]
+    paths = tuple(f for f in K9_CLWC_PATHS if f != "wet_removal")
+    bins = sass_paths(_build.WETDEPO, paths, within=entry)
+    calls = k9_path_calls(q.replace(active=fresh), zc, wet, msp, clwc=True)
+    n_fresh = int(fresh.sum())
+    bkdep_clwc = dict(
+        bcases["synthetic_clwc"], cases=bcases, instructions=bins,
+        path_calls=calls, n=N_MAIN, fresh=n_fresh, library_ms=None,
+        bitwise=True,
+        max_abs_err=max(c["max_abs_err"] for c in bcases.values()),
+        **bound(N_MAIN * (1 + 16 * 2) + 16 * n_fresh
+                + 4 * calls["active_raining"]
+                + 4 * calls["cloud_water_column"] + 12 * ny * nx
+                + 5 * nz * ny * nx + 4 * nz,
+                bins["kernel"] * N_MAIN + sum(bins[f] * calls[f]
+                                              for f in paths)))
+    del q, fresh
+    torch.cuda.empty_cache()
+    return {"wetdepo.clwc": clwc, "wetdepo.bkdep_clwc": bkdep_clwc}
 
 
 # -------------------------------------------- backward runs: Simulation --
@@ -5322,7 +5999,9 @@ def phase_sim_bkdep(device, kernels) -> dict:
     hour, sim_backward_setup)
     of each of ``ind_receptor`` 3 (WETBKDEP: the full 0-20 km column, the
     factor from K9 BKDEP) and 4 (DRYBKDEP: the 0-30 m layer, K10 BKDEP),
-    the launch counts set to 0 just before each and read just after.
+    and of WETBKDEP once more with ``use_clwc`` (SyntheticMet's cloud
+    water: K9 BKDEP x CLWC), the launch counts set to 0 just before each
+    and read just after.
     After the first step (a probe at the top of the second) every factor
     is assigned (xscav >= 0) and none is pending; WETBKDEP: the aerosol's
     factor positive for some particles (its clouds rain there), the
@@ -5334,12 +6013,13 @@ def phase_sim_bkdep(device, kernels) -> dict:
     import numpy as np
     import torch
     res = {}
-    for mode, name in ((3, "wetbkdep"), (4, "drybkdep")):
+    for mode, name, clwc in ((3, "wetbkdep", False), (4, "drybkdep", False),
+                             (3, "wetbkdep_clwc", True)):
         out = SIM_BKDEP_DIR / name
         shutil.rmtree(out, ignore_errors=True)
         sim = sim_backward_setup(out, device, False, n=N_BKDEP, hours=1,
                                  ind_receptor=mode, release_hours=0,
-                                 lout=1800)
+                                 lout=1800, use_clwc=clwc)
         check(sim.bkdep == mode and sim._bkdep_pending,
               f"sim_bkdep {name}: bkdep {sim.bkdep}")
         after_first = {}
@@ -5352,7 +6032,8 @@ def phase_sim_bkdep(device, kernels) -> dict:
 
         sim._step_probe = probe
         launches, run_s = counted_run(kernels, sim.run)
-        entry = "wetdepo.bkdep" if mode == 3 else "drydepo.bkdep"
+        entry = ("drydepo.bkdep" if mode == 4 else
+                 "wetdepo.bkdep_clwc" if clwc else "wetdepo.bkdep")
         check(launches[entry] == 1 and launches["conccalc.bkdep"] > 0
               and launches["conccalc"] == 0
               and launches["redist.backward"] == BKDEP_STEPS + 1,
@@ -5484,7 +6165,20 @@ def main() -> int:
           "count": torch.cuda.device_count()})
 
     kernels = list(_build.KERNELS)
-    build_s = _build.build_all(kernels)
+    # the disassembly the bounds read (k11_instructions,
+    # settling_instructions, sass_paths): cuobjdump of each library as
+    # soon as it is built, while the others still build, and all of it
+    # before any timing: its processes would take the host's cores from
+    # the launches that a kernel's time includes
+    dis = [(k, flag) for k in (_build.ADVANCE, _build.ADVANCE_ADAPTIVE,
+                               _build.WETDEPO) for flag in ("-sass", "-elf")]
+
+    def disassemble(k):
+        for kd, flag in dis:
+            if kd is k:
+                k.cuobjdump(flag, wait=False)
+
+    build_s = _build.build_all(kernels, on_built=disassemble)
     # every launch count: the kernels' and their instantiations' entries
     counted = kernels + list(_build.ENTRIES)
     ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
@@ -5495,15 +6189,8 @@ def main() -> int:
           "registers": {k.name: ptxas_by_entry(k.build_log)
                         for k in kernels}})
 
-    # the disassembly the bounds read (k11_instructions,
-    # settling_instructions, sass_paths), all at once and before any
-    # timing: cuobjdump's processes would take the host's cores from the
-    # launches that a kernel's time includes
+    # the rest of the disassembly, after the build
     t0 = time.perf_counter()
-    dis = [(k, flag) for k in (_build.ADVANCE, _build.ADVANCE_ADAPTIVE,
-                               _build.WETDEPO) for flag in ("-sass", "-elf")]
-    for k, flag in dis:
-        k.cuobjdump(flag, wait=False)
     for k, flag in dis:
         k.cuobjdump(flag)
     emit({"phase": "disassembly", "seconds": time.perf_counter() - t0})
@@ -5546,6 +6233,16 @@ def main() -> int:
     t0 = time.perf_counter()
     npzres = phase_sim_npz(device, counted, held, simres)
     emit({"phase": "sim_npz", "seconds": time.perf_counter() - t0, **npzres,
+          "device": name, "power_limit": smi})
+
+    t0 = time.perf_counter()
+    grres = phase_sim_grib(device, counted, simres, npzres)
+    emit({"phase": "sim_grib", "seconds": time.perf_counter() - t0, **grres,
+          "device": name, "power_limit": smi})
+
+    t0 = time.perf_counter()
+    gfres = phase_sim_gfs(device, counted)
+    emit({"phase": "sim_gfs", "seconds": time.perf_counter() - t0, **gfres,
           "device": name, "power_limit": smi})
 
     t0 = time.perf_counter()
@@ -5741,9 +6438,11 @@ def main() -> int:
         "redist_backward"]
 
     def path_launches(kname):
-        """A kernel's launches on the backward paths (sim_backward; each
-        of sim_bkdep's runs)."""
-        return {"launches_sim_backward": bres["launches"][kname],
+        """A kernel's launches on the GRIB paths (sim_grib, sim_gfs) and
+        the backward ones (sim_backward; each of sim_bkdep's runs)."""
+        return {"launches_sim_grib": grres["launches"][kname],
+                "launches_sim_gfs": gfres["launches"][kname],
+                "launches_sim_backward": bres["launches"][kname],
                 "launches_sim_bkdep": {m: r["launches"][kname]
                                        for m, r in kres_bk.items()}}
 
@@ -5817,7 +6516,15 @@ def main() -> int:
         "wetdepo.bkdep": ("wetdepo", "flexpart_tpu/physics/bkdep.py:44",
                           kres_bk["wetbkdep"]["launches"]["wetdepo.bkdep"]),
         "drydepo.bkdep": ("drydepo", "flexpart_tpu/physics/bkdep.py:31",
-                          kres_bk["drybkdep"]["launches"]["drydepo.bkdep"])}
+                          kres_bk["drybkdep"]["launches"]["drydepo.bkdep"]),
+        # the cloud-water instantiations: wetscav_all's use_clouds_water
+        # branch (:118-121); K9 CLWC on sim_gfs's path, BKDEP x CLWC on
+        # sim_bkdep's WETBKDEP run with use_clwc
+        "wetdepo.clwc": ("wetdepo", "flexpart_tpu/physics/wetdepo.py:118",
+                         gfres["launches"]["wetdepo.clwc"]),
+        "wetdepo.bkdep_clwc": ("wetdepo", "flexpart_tpu/physics/bkdep.py:44",
+                               kres_bk["wetbkdep_clwc"]["launches"]
+                               ["wetdepo.bkdep_clwc"])}
     for ename, (lib, ref, n_launch) in back.items():
         r = kres[ename]
         line.append(
@@ -5831,10 +6538,20 @@ def main() -> int:
              **{f: r[f] for f in pick},
              **{f: r[f] for f in ("n", "bound_bytes", "bound_operations",
                                   "stock_ms_same_particles",
-                                  "k9_ms_same_particles", "all_convecting_ms",
+                                  "k9_ms_same_particles",
+                                  "k9_bkdep_ms_same_particles",
+                                  "all_convecting_ms",
                                   "all_convecting_bound_ms", "moved",
                                   "instructions", "path_calls", "fresh",
-                                  "zeroed", "positive") if f in r}})
+                                  "zeroed", "positive", "unordered_ms",
+                                  "bitwise", "cases") if f in r}})
+    # K9 CLWC per call in sim_gfs and on its kept steps
+    next(r for r in line if r["name"] == "wetdepo.clwc").update(
+        sim_gfs_per_call=gfres["device_per_call"]["wetdepo_clwc"],
+        sim_gfs_inputs={s: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                              "max_abs_err", "bitwise")}
+                        for s, r in gfres["kernels_on_sim_gfs_inputs"]
+                        .items()})
     emit({"phase": "done", "seconds": time.perf_counter() - t_script})
     emit({"kernels": line})
     print(smi, flush=True)

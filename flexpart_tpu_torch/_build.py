@@ -13,13 +13,23 @@ plain PyTorch twins and XLA compute it (the double-single ``ds_add`` and
 the bitwise table contract depend on it); ``--use_fast_math`` is never
 used, so ``logf``/``cosf``/``sqrtf`` are the accurate versions.
 
+A kernel of many template instantiations can be built in ``parts``: one
+``nvcc`` per part, all started together, each compiling the source with
+``-DFP_PART=<k>`` into a library of its own that holds the part's
+instantiations; the source's launcher returns ``NOT_IN_PART`` (and
+launches nothing) for a configuration another part holds, and ``launch``
+tries the parts in turn.  The instantiations' code is the same as in one
+library; only the build's wall time shrinks (K4 and K11: by table type,
+their ``NESTS`` and ``CBL`` ones apart).
+
 Each ``Kernel`` counts its launches in ``launches`` (a plain integer), so
 a run can show that its main path went through the kernel.  A template
 instantiation that a path launches on its own (K3's ``BKDEP`` and
-``COUNT``, K7's ``BACKWARD``, K9's and K10's ``BKDEP``) is an ``Entry``
-with a count of its own: the kernel's launcher, picked by its arguments
-(``xscav`` given, ``count``, ``backward``), counted in the entry's count
-and not in the kernel's.
+``COUNT``, K7's ``BACKWARD``, K9's and K10's ``BKDEP``, K9's ``CLWC``
+with and without ``BKDEP``) is an ``Entry`` with a count of its own: the
+kernel's launcher, picked by its arguments (``xscav`` given, ``ctwc``
+given, ``count``, ``backward``), counted in the entry's count and not in
+the kernel's.
 """
 
 from __future__ import annotations
@@ -41,6 +51,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+# what a part's launcher returns for a configuration of another part (no
+# cudaError_t has this value)
+NOT_IN_PART = -100
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -60,17 +73,22 @@ def _nvcc() -> str:
 
 
 class Kernel:
-    """One CUDA source, its exported C function and its launch count."""
+    """One CUDA source, its exported C function and its launch count; built
+    as ``parts`` libraries (one unless said)."""
 
-    def __init__(self, name: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, symbol: str, argtypes: list,
+                 parts: int = 1):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
+        self.parts = parts
         self.launches = 0
         self.build_log = ""
-        self.build_s = None   # from build_all's start to its nvcc's end
-        self._lib = None
+        self.build_s = None   # from build_all's start to its last nvcc's end
+        self._lib = None      # the first part's library and function
         self._fn = None
+        self._libs = []
+        self._fns = []
         self._disassembly = {}
 
     @property
@@ -88,24 +106,32 @@ class Kernel:
                     found.append(inc)
         return found
 
-    def _lib_path(self) -> Path:
+    def _part_flags(self, part: int) -> tuple:
+        return (f"-DFP_PART={part}",) if self.parts > 1 else ()
+
+    def _lib_path(self, part: int = 0) -> Path:
         h = hashlib.sha256()
         for f in self.sources():
             h.update(f.read_bytes())
-        h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
+        h.update(" ".join(NVCC_FLAGS + self._part_flags(part)).encode())
+        tag = f"-p{part}" if self.parts > 1 else ""
+        return BUILD_DIR / f"lib{self.name}{tag}-{h.hexdigest()[:16]}.so"
 
-    def _compile_cmd(self, out: Path) -> list[str]:
-        return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out),
-                str(self.source)]
+    def _compile_cmd(self, out: Path, part: int = 0) -> list[str]:
+        return [_nvcc(), *NVCC_FLAGS, *self._part_flags(part), "-I",
+                str(CSRC), "-o", str(out), str(self.source)]
 
-    def _load(self, path: Path) -> None:
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = I
-        self._lib = lib
-        self._fn = fn
+    def _load(self, paths: list) -> None:
+        libs, fns = [], []
+        for path in paths:
+            lib = ctypes.CDLL(str(path))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = I
+            libs.append(lib)
+            fns.append(fn)
+        self._libs, self._fns = libs, fns
+        self._lib, self._fn = libs[0], fns[0]
 
     def query(self, symbol: str, argtypes: list):
         """Another exported function of this kernel's library, one that
@@ -119,22 +145,26 @@ class Kernel:
         return fn
 
     def cuobjdump(self, *flags: str, wait: bool = True) -> str | None:
-        """``cuobjdump`` of this kernel's library (built on first use):
-        ``-sass`` for the instructions the card runs, ``-elf`` for the
-        cubin's symbol table.  Run once per library and flags, in a
-        background thread (a library of many instantiations takes
-        seconds): ``wait=False`` starts it and returns None, and a later
-        call takes its output."""
+        """``cuobjdump`` of this kernel's libraries (built on first use),
+        their outputs in part order: ``-sass`` for the instructions the
+        card runs, ``-elf`` for the cubin's symbol table.  Run once per
+        library and flags, each in a background thread of its own (a
+        library of many instantiations takes seconds): ``wait=False``
+        starts them and returns None, and a later call takes their
+        output."""
         if self._fn is None:
             build_all([self])
-        key = (self._lib._name, flags)
+        jobs = []
         with _DISASSEMBLY_LOCK:
-            job = self._disassembly.get(key)
-            if job is None:
-                job = _disassembler().submit(_cuobjdump, self._lib._name,
-                                             flags)
-                self._disassembly[key] = job
-        return job.result() if wait else None
+            for lib in self._libs:
+                key = (lib._name, flags)
+                job = self._disassembly.get(key)
+                if job is None:
+                    job = _disassembler().submit(_cuobjdump, lib._name,
+                                                 flags)
+                    self._disassembly[key] = job
+                jobs.append(job)
+        return "".join(job.result() for job in jobs) if wait else None
 
     def launch(self, *args) -> None:
         """Launch on the current stream; raise if the launch failed.
@@ -142,7 +172,10 @@ class Kernel:
         does."""
         if self._fn is None:
             build_all([self])
-        err = self._fn(*args)
+        for fn in self._fns:
+            err = fn(*args)
+            if err != NOT_IN_PART:
+                break
         if err != 0:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"cudaError {err}")
@@ -177,7 +210,7 @@ def _disassembler() -> concurrent.futures.ThreadPoolExecutor:
     """The threads that run cuobjdump, made on first use."""
     if not _DISASSEMBLER:
         _DISASSEMBLER.append(concurrent.futures.ThreadPoolExecutor(
-            max_workers=6, thread_name_prefix="cuobjdump"))
+            max_workers=8, thread_name_prefix="cuobjdump"))
     return _DISASSEMBLER[0]
 
 
@@ -187,41 +220,63 @@ def _cuobjdump(lib: str, flags: tuple) -> str:
                           text=True, check=True).stdout
 
 
-def build_all(kernels: list[Kernel]) -> float:
-    """Build (or reuse) every kernel's library, one nvcc per source, all
-    started together (each kernel's ``build_s``: when its nvcc ended).
+def build_all(kernels: list[Kernel], on_built=None) -> float:
+    """Build (or reuse) every kernel's libraries, one nvcc per source and
+    part, all started together (each kernel's ``build_s``: when its last
+    nvcc ended; its ``build_log`` the parts' logs, in order).  A kernel is
+    loaded as soon as all its parts are built, and ``on_built(kernel)``
+    (if given) is then called, while other parts may still be building.
     Returns the wall seconds spent."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pending = []
-    for k in kernels:
-        if k._fn is not None:
-            continue
-        out = k._lib_path()
-        if out.exists():
-            k._load(out)
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(k._compile_cmd(tmp), stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        pending.append((k, proc, tmp, out))
-    def wait(k, proc):
-        k.build_log, _ = proc.communicate()
-        k.build_s = time.perf_counter() - t0
+    todo = [k for k in kernels if k._fn is None]
+    left = {}
+    for k in todo:
+        k.build_log, k.build_s = "", None
+        left[k] = 0
+        for part in range(k.parts):
+            out = k._lib_path(part)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.Popen(k._compile_cmd(tmp, part),
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            pending.append([k, proc, tmp, out, ""])
+            left[k] += 1
+    lock = threading.Lock()
+    failed = []
 
-    waiting = [threading.Thread(target=wait, args=(k, proc))
-               for k, proc, _, _ in pending]
+    def finish(k):
+        k._load([k._lib_path(part) for part in range(k.parts)])
+        if on_built is not None:
+            on_built(k)
+
+    def wait(job):
+        k, proc, tmp, out, _ = job
+        job[4], _ = proc.communicate()
+        with lock:
+            k.build_s = max(k.build_s or 0.0, time.perf_counter() - t0)
+            if proc.returncode != 0:
+                failed.append(f"{k.source.name}:\n{job[4]}")
+                return
+            os.replace(tmp, out)
+            left[k] -= 1
+            done = left[k] == 0
+        if done:
+            finish(k)
+
+    for k in todo:
+        if left[k] == 0:
+            finish(k)
+    waiting = [threading.Thread(target=wait, args=(job,)) for job in pending]
     for t in waiting:
         t.start()
     for t in waiting:
         t.join()
-    failed = []
-    for k, proc, tmp, out in pending:
-        if proc.returncode != 0:
-            failed.append(f"{k.source.name}:\n{k.build_log}")
-            continue
-        os.replace(tmp, out)
-        k._load(out)
+    for job in pending:
+        job[0].build_log += job[4]
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
@@ -268,6 +323,8 @@ CONCCALC = Kernel("conccalc", "fp_conccalc", [
     P,                 # stream
 ])
 
+# K4 in three parts: the stock, POLAR and SETTLING instantiations on f32
+# tables (0) and on bf16 tables (1), and the NESTS ones (2)
 ADVANCE = Kernel("advance", "fp_advance", [
     P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
     P, P,                 # itra, itramem (n,) i32
@@ -284,8 +341,10 @@ ADVANCE = Kernel("advance", "fp_advance", [
     P,                    # counts (2,) i32: active, exited (accumulated into)
     P,                    # AdvanceArgs (host struct, core/advance.py)
     P,                    # stream
-])
+], parts=3)
 
+# K11 in three parts: the HANNA1 and TS instantiations on f32 tables (0)
+# and on bf16 tables (1), and the CBL ones (2)
 ADVANCE_ADAPTIVE = Kernel("advance_adaptive", "fp_advance_adaptive", [
     P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
     P, P,                 # itra, itramem (n,) i32
@@ -306,7 +365,7 @@ ADVANCE_ADAPTIVE = Kernel("advance_adaptive", "fp_advance_adaptive", [
                           # issued (accumulated into)
     P,                    # AdvanceArgs (host struct, core/advance.py)
     P,                    # stream
-])
+], parts=3)
 
 REORDER = Kernel("reorder", "fp_reorder", [
     P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
@@ -368,6 +427,7 @@ WETDEPO = Kernel("wetdepo", "fp_wetdepo", [
     P,                    # mass (n, nspec) f32
     P,                    # xscav (n, nspec) f32 or NULL: given, BKDEP
     P, P, P,              # lsprec, convprec, tcc planes (ny, nx) f32
+    P,                    # ctwc plane (ny, nx) f32 or NULL: given, CLWC
     P,                    # clouds (nz, ny, nx) i8
     P,                    # temperature plane of f3d (nz, ny, nx) f32
     P,                    # height (nz,) f32
@@ -402,9 +462,12 @@ CONCCALC_COUNT = Entry(CONCCALC, "conccalc.count")      # count = 1
 REDIST_BACKWARD = Entry(REDIST, "redist.backward")      # backward = 1
 WETDEPO_BKDEP = Entry(WETDEPO, "wetdepo.bkdep")         # xscav given
 DRYDEPO_BKDEP = Entry(DRYDEPO, "drydepo.bkdep")         # xscav given
+# the cloud-water instantiations of met that carries it (GFS: use_clwc)
+WETDEPO_CLWC = Entry(WETDEPO, "wetdepo.clwc")           # ctwc given
+WETDEPO_BKDEP_CLWC = Entry(WETDEPO, "wetdepo.bkdep_clwc")   # both given
 
 ENTRIES = (CONCCALC_BKDEP, CONCCALC_COUNT, REDIST_BACKWARD, WETDEPO_BKDEP,
-           DRYDEPO_BKDEP)
+           DRYDEPO_BKDEP, WETDEPO_CLWC, WETDEPO_BKDEP_CLWC)
 
 # fp_convection_layout(nl, out): out (4,) i32 gets K6's shared bytes per
 # column, columns per block, resident blocks per SM and registers per thread

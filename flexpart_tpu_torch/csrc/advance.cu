@@ -270,6 +270,14 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
   }
 }
 
+// the part of the instantiations this library holds: -1 all, else a part
+// of _build.Kernel's parts, which returns NOT_IN_PART for the others
+#ifndef FP_PART
+#define FP_PART -1
+#endif
+#define FP_HAS(part) (FP_PART < 0 || FP_PART == (part))
+constexpr int NOT_IN_PART = -100;     // _build.NOT_IN_PART
+
 }  // namespace
 
 extern "C" int fp_advance(
@@ -309,10 +317,20 @@ extern "C" int fp_advance(
   const Draws dr = {{d6, d1, d2, d3, d4}};
   const int threads = 256;
   const unsigned blocks = static_cast<unsigned>((a.n + threads - 1) / threads);
+  auto launch = [&](auto kern) {
+    kern<<<blocks, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
+        in, out, dr, rows, rowsE, height, mass0, tt, rho, counts, a);
+    return static_cast<int>(cudaGetLastError());
+  };
   // the eight (table type, turbswitch, polar) instantiations of the stock
   // step, settling's four (table type, polar) with turbswitch off, and the
-  // nests' eight (table type, polar, settling) with turbswitch off
-  auto nested = a.settling
+  // nests' eight (table type, polar, settling) with turbswitch off; a
+  // library built as one part (FP_PART, _build.Kernel's parts) holds the
+  // first twelve on f32 tables (part 0) or on bf16 tables (part 1), or the
+  // nests' (part 2), and launches nothing for the others' configurations
+  if (a.nnest > 0) {
+#if FP_HAS(2)
+    return launch(a.settling
       ? (a.polar
              ? (a.table_bf16 ? advance_kernel<true, false, true, true, true>
                              : advance_kernel<false, false, true, true, true>)
@@ -322,26 +340,35 @@ extern "C" int fp_advance(
              ? (a.table_bf16 ? advance_kernel<true, false, true, false, true>
                              : advance_kernel<false, false, true, false, true>)
              : (a.table_bf16 ? advance_kernel<true, false, false, false, true>
-                             : advance_kernel<false, false, false, false, true>));
-  auto kern = a.nnest > 0 ? nested
-      : a.settling
-      ? (a.polar
-             ? (a.table_bf16 ? advance_kernel<true, false, true, true, false>
-                             : advance_kernel<false, false, true, true, false>)
-             : (a.table_bf16 ? advance_kernel<true, false, false, true, false>
-                             : advance_kernel<false, false, false, true, false>))
+                             : advance_kernel<false, false, false, false, true>)));
+#else
+    return NOT_IN_PART;
+#endif
+  }
+  if (a.table_bf16) {
+#if FP_HAS(1)
+    return launch(a.settling
+        ? (a.polar ? advance_kernel<true, false, true, true, false>
+                   : advance_kernel<true, false, false, true, false>)
+        : a.polar
+        ? (a.turbswitch ? advance_kernel<true, true, true, false, false>
+                        : advance_kernel<true, false, true, false, false>)
+        : (a.turbswitch ? advance_kernel<true, true, false, false, false>
+                        : advance_kernel<true, false, false, false, false>));
+#else
+    return NOT_IN_PART;
+#endif
+  }
+#if FP_HAS(0)
+  return launch(a.settling
+      ? (a.polar ? advance_kernel<false, false, true, true, false>
+                 : advance_kernel<false, false, false, true, false>)
       : a.polar
-      ? (a.table_bf16
-             ? (a.turbswitch ? advance_kernel<true, true, true, false, false>
-                             : advance_kernel<true, false, true, false, false>)
-             : (a.turbswitch ? advance_kernel<false, true, true, false, false>
-                             : advance_kernel<false, false, true, false, false>))
-      : (a.table_bf16
-             ? (a.turbswitch ? advance_kernel<true, true, false, false, false>
-                             : advance_kernel<true, false, false, false, false>)
-             : (a.turbswitch ? advance_kernel<false, true, false, false, false>
-                             : advance_kernel<false, false, false, false, false>));
-  kern<<<blocks, threads, shmem, static_cast<cudaStream_t>(stream)>>>(
-      in, out, dr, rows, rowsE, height, mass0, tt, rho, counts, a);
-  return static_cast<int>(cudaGetLastError());
+      ? (a.turbswitch ? advance_kernel<false, true, true, false, false>
+                      : advance_kernel<false, false, true, false, false>)
+      : (a.turbswitch ? advance_kernel<false, true, false, false, false>
+                      : advance_kernel<false, false, false, false, false>));
+#else
+  return NOT_IN_PART;
+#endif
 }

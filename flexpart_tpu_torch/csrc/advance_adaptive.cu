@@ -584,6 +584,14 @@ advance_adaptive_kernel(const __grid_constant__ Io io,
   }
 }
 
+// the part of the instantiations this library holds: -1 all, else a part
+// of _build.Kernel's parts, which returns NOT_IN_PART for the others
+#ifndef FP_PART
+#define FP_PART -1
+#endif
+#define FP_HAS(part) (FP_PART < 0 || FP_PART == (part))
+constexpr int NOT_IN_PART = -100;     // _build.NOT_IN_PART
+
 }  // namespace
 
 extern "C" int fp_advance_adaptive(
@@ -627,15 +635,38 @@ extern "C" int fp_advance_adaptive(
         : (a.polar ? advance_adaptive_kernel<B, T, true, false>
                    : advance_adaptive_kernel<B, T, false, false>);
   };
+  const unsigned blocks = static_cast<unsigned>((a.n + THREADS - 1) / THREADS);
+  auto launch = [&](auto kern) {
+    kern<<<blocks, THREADS, shmem, static_cast<cudaStream_t>(stream)>>>(
+        io, counts, work, a);
+    return static_cast<int>(cudaGetLastError());
+  };
   auto by_turb = [&](auto bf16) {
-    return a.cblflag ? pick(bf16, std::integral_constant<int, CBL>{})
-         : a.turbswitch ? pick(bf16, std::integral_constant<int, TS>{})
+    return a.turbswitch ? pick(bf16, std::integral_constant<int, TS>{})
                         : pick(bf16, std::integral_constant<int, HANNA1>{});
   };
-  auto kern = a.table_bf16 ? by_turb(std::true_type{})
-                           : by_turb(std::false_type{});
-  const unsigned blocks = static_cast<unsigned>((a.n + THREADS - 1) / THREADS);
-  kern<<<blocks, THREADS, shmem, static_cast<cudaStream_t>(stream)>>>(
-      io, counts, work, a);
-  return static_cast<int>(cudaGetLastError());
+  // a library built as one part (FP_PART, _build.Kernel's parts) holds
+  // HANNA1 and TS on f32 tables (part 0) or on bf16 tables (part 1), or
+  // the CBL (part 2), and launches nothing for the others' configurations
+  if (a.cblflag) {
+#if FP_HAS(2)
+    using Cbl = std::integral_constant<int, CBL>;
+    return a.table_bf16 ? launch(pick(std::true_type{}, Cbl{}))
+                        : launch(pick(std::false_type{}, Cbl{}));
+#else
+    return NOT_IN_PART;
+#endif
+  }
+  if (a.table_bf16) {
+#if FP_HAS(1)
+    return launch(by_turb(std::true_type{}));
+#else
+    return NOT_IN_PART;
+#endif
+  }
+#if FP_HAS(0)
+  return launch(by_turb(std::false_type{}));
+#else
+  return NOT_IN_PART;
+#endif
 }

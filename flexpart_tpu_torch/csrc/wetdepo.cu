@@ -54,6 +54,18 @@
 // 0), colh the released column's height, and zeroes the mass where that
 // product is not above 0; it removes no mass and writes no deposit.  Every
 // other particle keeps its xscav and its mass.
+//
+// The CLWC instantiation (fp_wetdepo with ctwc given; with or without
+// BKDEP) replaces: flexpart_tpu/physics/wetdepo.py::wetscav_all with
+// use_clouds_water (:118-121), the in-cloud rule of a run on met that
+// carries cloud water (GFS: readwind_gfs.f90:553-570, get_wetscav.f90:
+// 274-290).  The cloud water of the in-cloud rule is the column's total
+// cloud water ctwc at the particle's truncated cell (jy, ix), not
+// interpolated, scaled by the precipitating fraction over the cloud
+// cover: ctwc * (fraction / cc), the division first, as the plain version
+// computes it; everything else is K9's.  Its bound: K9's bytes and 4 B of
+// ctwc per particle in cloud; cloud_water_column's instructions in place
+// of cloud_water's.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -92,6 +104,7 @@ struct In {
   const float* mass;                      // (n, nspec)
   const float* xscav;                     // (n, nspec): BKDEP only
   const float *lsp, *convp, *tcc;         // (ny, nx) planes of f2d
+  const float* ctwc;                      // (ny, nx) plane of f2d: CLWC only
   const int8_t* clouds;                   // (nz, ny, nx)
   const float* tt;                        // (nz, ny, nx) plane of f3d
   const float* height;                    // (nz,)
@@ -132,10 +145,16 @@ __device__ __noinline__ float lam_below_aerosol(float eff, float base,
   return eff * powf(10.0f, base + c5 * sqrtf(prec));
 }
 
-// the cloud water from the rate (the column cloud water of readclouds,
-// use_clwc, is not ported)
+// the cloud water from the rate
 __device__ __noinline__ float cloud_water(float prec) {
   return 0.2f * powf(prec, 0.36f);             // 1e6 * 2e-7
+}
+
+// CLWC: the column cloud water of readclouds at the particle's cell, per
+// precipitating fraction of the cloud cover
+__device__ __noinline__ float cloud_water_column(float ctwc, float grf,
+                                                 float cc) {
+  return ctwc * (grf / cc);
 }
 
 // in cloud, an aerosol: CCN / IN activation by the ice fraction
@@ -175,7 +194,7 @@ __device__ __forceinline__ void bkdep_factor(float lam, const Cfg& c,
   *mass_out = xs_new <= 0.0f ? 0.0f : m;
 }
 
-template <bool BKDEP>
+template <bool BKDEP, bool CLWC>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 wetdepo_kernel(const In in, const Cfg c, const Specs sp,
                float* __restrict__ mass_out, float* __restrict__ deposit,
@@ -228,7 +247,7 @@ wetdepo_kernel(const In in, const Cfg c, const Specs sp,
 
   // the cell, where it matters: the column by truncation, the level below z
   const bool raining = (lsp >= 0.01f) || (convp >= 0.01f);
-  int cell3 = 0, clouds_v = 0;
+  int cell2 = 0, cell3 = 0, clouds_v = 0;
   if (active && raining) {
     const float z = in.z[p];
     int tx = static_cast<int>(x);
@@ -243,6 +262,7 @@ wetdepo_kernel(const In in, const Cfg c, const Specs sp,
     int hz = lo - 1;
     hz = hz < 0 ? 0 : (hz > c.nz - 2 ? c.nz - 2 : hz);
     cell3 = (hz * c.ny + ty) * c.nx + tx;
+    if (CLWC) cell2 = ty * c.nx + tx;
     clouds_v = in.clouds[cell3];
   }
   const bool valid = clouds_v > 1;           // active, raining, in or below a cloud
@@ -302,7 +322,8 @@ wetdepo_kernel(const In in, const Cfg c, const Specs sp,
       }
     } else if (w.incloud != 0) {
       if (!have_cl) {
-        cl = cloud_water(prec);
+        cl = CLWC ? cloud_water_column(in.ctwc[cell2], grf, cc)
+                  : cloud_water(prec);
         have_cl = true;
       }
       lam = w.incloud == 1
@@ -338,13 +359,15 @@ Specs copy_specs(const void* specs_in, int nspec) {
 
 // xscav NULL: the wet pass, the mass and the deposit out; xscav (n, nspec)
 // given: the BKDEP instantiation, xscav in and out and the mass out, with
-// the released column's height colh (ltsample, ldeltat and deposit unused)
+// the released column's height colh (ltsample, ldeltat and deposit unused).
+// ctwc (ny, nx) given: the CLWC instantiation of either
 extern "C" int fp_wetdepo(const float* x_hi, const float* x_lo,
                           const float* y_hi, const float* y_lo,
                           const float* z, const bool* active,
                           const float* mass, const float* xscav,
                           const float* lsp, const float* convp,
-                          const float* tcc, const int8_t* clouds,
+                          const float* tcc, const float* ctwc,
+                          const int8_t* clouds,
                           const float* tt, const float* height, int nz,
                           int ny, int nx, const void* specs_in, int n,
                           int nspec, int ltsample, int ldeltat, float colh,
@@ -352,14 +375,18 @@ extern "C" int fp_wetdepo(const float* x_hi, const float* x_lo,
                           void* stream) {
   if (n <= 0) return 0;
   const bool bkdep = xscav != nullptr;
+  const bool clwc = ctwc != nullptr;
   if (nspec < (bkdep ? 1 : 0) || nspec > MAX_SPECIES || nz < 2 || ny < 2 ||
       nx < 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const In in = {x_hi, x_lo, y_hi, y_lo, z, active, mass, xscav, lsp,
-                 convp, tcc, clouds, tt, height};
+                 convp, tcc, ctwc, clouds, tt, height};
   const Cfg c{nz, ny, nx, n, nspec, ltsample, ldeltat, colh};
   const int blocks = (n + THREADS - 1) / THREADS;
-  auto kern = bkdep ? wetdepo_kernel<true> : wetdepo_kernel<false>;
+  auto kern = bkdep ? (clwc ? wetdepo_kernel<true, true>
+                            : wetdepo_kernel<true, false>)
+                    : (clwc ? wetdepo_kernel<false, true>
+                            : wetdepo_kernel<false, false>);
   kern<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       in, c, copy_specs(specs_in, nspec), mass_out, deposit, xscav_out);
   return static_cast<int>(cudaGetLastError());

@@ -10,9 +10,10 @@ builds the Simulation, runs the time manager, and ends with the
 reference's success banner (FLEXPART.f90:471) so downstream tooling that
 greps for it keeps working.
 
-Met comes from .npz archives (met/npzmet.py) or the built-in synthetic
-atmosphere; an AVAILABLE index of GRIB files raises NotImplementedError
-before anything is written.  What the port's Simulation does not run yet
+Met comes from .npz archives (met/npzmet.py), GRIB files (ECMWF hybrid
+eta, met/gribmet.py; NCEP GFS pressure levels, met/gfsmet.py, whose
+cloud water turns on ``use_clwc``) or the built-in synthetic atmosphere.
+What the port's Simulation does not run yet
 (RECEPTORS, OUTGRID_NEST with NESTED_OUTPUT=1, IPIN=1, OH-reactive
 species, ``--dp``, ``--tiles``, ``--trace-dir``, ...) reaches it and is
 refused there by name, before any file is written.  ``--device`` picks
@@ -33,8 +34,8 @@ log = logging.getLogger("flexpart_tpu_torch")
 
 
 def _met_backend_for(metdata, available, bdate):
-    """AVAILABLE-indexed met backend, chosen by the first file's kind
-    (detectformat.f90): an npz archive; GRIB is not ported yet."""
+    """AVAILABLE-indexed met backend with detectformat.f90-style probing
+    (npz archive / NCEP isobaric GRIB2 / ECMWF hybrid-eta GRIB)."""
     from .config import read_available
 
     entries = read_available(available)
@@ -45,9 +46,11 @@ def _met_backend_for(metdata, available, bdate):
     if str(first).endswith(".npz"):
         from .met.npzmet import NpzMet
         return NpzMet(metdata=metdata, entries=entries, bdate=bdate)
-    raise NotImplementedError(
-        f"GRIB met input (not ported yet): {first} is not "
-        "an .npz archive; convert the met data with save_eta_npz")
+    from .met.gfsmet import GfsMet, looks_like_gfs
+    if looks_like_gfs(first):
+        return GfsMet(metdata=metdata, entries=entries, bdate=bdate)
+    from .met.gribmet import GribMet
+    return GribMet(metdata=metdata, entries=entries, bdate=bdate)
 
 
 class _NestShim:
@@ -143,8 +146,8 @@ def main(argv=None) -> int:
                     help="-v info, -vv debug (FLEXPART.f90 -v/-v2)")
     ap.add_argument("--met", default="auto",
                     choices=("auto", "synthetic"),
-                    help="met backend: AVAILABLE-indexed .npz (auto) or "
-                         "the built-in synthetic atmosphere")
+                    help="met backend: AVAILABLE-indexed .npz or GRIB "
+                         "(auto) or the built-in synthetic atmosphere")
     ap.add_argument("--capacity", type=int, default=None,
                     help="particle slot capacity (default: total released)")
     ap.add_argument("--seed", type=int, default=1234)

@@ -1,8 +1,11 @@
 """Boundary-layer parameters over the whole grid.
 
-Port of ``flexpart_tpu/met/calcpar.py`` for hybrid-eta met, with or
-without subgrid orography (``pressure_levels`` raises, as does a
-dry-deposition ``vdep_kernel``).  Every column runs the same fixed-shape
+Port of ``flexpart_tpu/met/calcpar.py`` for hybrid-eta and isobaric
+(GFS, ``grid.pressure_levels``) met, with or without subgrid orography.
+On isobaric levels every field is first collapsed onto the first level
+above ground, ``llev`` (calcpar.f90:111-123, richardson.f90:77-84), and
+the pressures are capped at the surface pressure, so the scans start
+there as the reference's column loops do.  Every column runs the same fixed-shape
 masked computation; "first True" searches are ``argmax`` over an int
 cast, which returns the first maximal index as ``jnp.argmax`` does.
 """
@@ -55,10 +58,19 @@ def obukhov_length(ps, tt2, td2, tlev, ustar, hf, plev1):
     return torch.clamp(ol, -9999.0, 9999.0)
 
 
-def _col_heights_theta(akz, bkz, ps, tt2, td2, tth, qvh, z0: float):
+def _col_heights_theta(akz, bkz, ps, tt2, td2, tth, qvh, z0: float,
+                       clamp_ps: bool = False):
     """Per-level z (from reference height z0) and virtual potential
-    temperature, whole grid: (z, theta, pint), each (nlev, ny, nx)."""
+    temperature, whole grid: (z, theta, pint), each (nlev, ny, nx).
+
+    clamp_ps (GFS isobaric levels): pressures are capped at the surface
+    pressure so below-ground levels contribute zero thickness, the
+    branch-free analog of the reference's per-column llev loop start
+    (richardson.f90:77-110); callers pass fields already collapsed onto
+    the first above-ground level."""
     pint = akz[:, None, None] + bkz[:, None, None] * ps[None]
+    if clamp_ps:
+        pint = torch.minimum(pint, ps[None])
     tv = tth * (1.0 + 0.608 * qvh)
     tv0 = tt2 * (1.0 + 0.378 * ew(td2) / ps)
     tv = torch.cat([tv0[None], tv[1:]], dim=0)
@@ -72,9 +84,11 @@ def _col_heights_theta(akz, bkz, ps, tt2, td2, tth, qvh, z0: float):
     return z, theta, pint
 
 
-def richardson_hmix(akz, bkz, ps, ustar, tth, qvh, uuh, vvh, sshf, tt2, td2):
+def richardson_hmix(akz, bkz, ps, ustar, tth, qvh, uuh, vvh, sshf, tt2, td2,
+                    clamp_ps: bool = False):
     """richardson.f90: mixing height by bulk Richardson number with the
-    excess-temperature iteration; also w* and hmixplus.
+    excess-temperature iteration; also w* and hmixplus.  clamp_ps: GFS
+    isobaric levels (``_col_heights_theta``).
     Returns (hmix, wstar, hmixplus), each (ny, nx)."""
     nlev = akz.shape[0]
     dev = ps.device
@@ -82,7 +96,8 @@ def richardson_hmix(akz, bkz, ps, ustar, tth, qvh, uuh, vvh, sshf, tt2, td2):
             ).to(torch.float32)[:, None, None]
 
     def one_pass(excess):
-        z, theta, _ = _col_heights_theta(akz, bkz, ps, tt2, td2, tth, qvh, 2.0)
+        z, theta, _ = _col_heights_theta(akz, bkz, ps, tt2, td2, tth, qvh, 2.0,
+                                         clamp_ps=clamp_ps)
         thetaref = theta[0] + excess
         zref = 2.0
         du = uuh - uuh[1][None]
@@ -149,10 +164,15 @@ def richardson_hmix(akz, bkz, ps, ustar, tth, qvh, uuh, vvh, sshf, tt2, td2):
     return h, wst, hplus
 
 
-def tropopause_height(akz, bkz, ps, tt2, td2, tth, qvh, lats):
-    """Hoinka thermal tropopause (calcpar.f90:194-266), whole grid."""
+def tropopause_height(akz, bkz, ps, tt2, td2, tth, qvh, lats,
+                      clamp_ps: bool = False):
+    """Hoinka thermal tropopause (calcpar.f90:194-266), whole grid.
+    clamp_ps: see ``richardson_hmix`` (below-ground levels get z = 0 <
+    altmin and are excluded, as the reference's loop from llev,
+    calcpar.f90:205-229)."""
     nlev = akz.shape[0]
-    z, _, _ = _col_heights_theta(akz, bkz, ps, tt2, td2, tth, qvh, 0.0)
+    z, _, _ = _col_heights_theta(akz, bkz, ps, tt2, td2, tth, qvh, 0.0,
+                                 clamp_ps=clamp_ps)
 
     alat = torch.abs(lats)
     altmin = torch.where(
@@ -184,31 +204,44 @@ def calcpar(grid: MetGrid, eta, z: ZFields, lsubgrid: bool = False,
     ``physics.drydepo`` (``make_vdep_kernel`` or ``constant_vdep_kernel``);
     when given, the per-species vdep field is computed as calcpar.f90:
     170-186 does."""
-    if grid.pressure_levels:
-        raise NotImplementedError(
-            "pressure-level (GFS) met is not ported yet; hybrid eta only")
+    pressure_levels = grid.pressure_levels
     dev = eta.ps.device
     akz = torch.as_tensor(np.asarray(grid.akz, np.float32), device=dev)
     bkz = torch.as_tensor(np.asarray(grid.bkz, np.float32), device=dev)
     lats = torch.as_tensor(np.asarray(grid.lats, np.float32), device=dev)
 
     ustar = ustar_from_stress(eta.ps, eta.tt2, eta.td2, eta.surfstr)
-    plev1 = 0.5 * (akz[1] + akz[2]) + 0.5 * (bkz[1] + bkz[2]) * eta.ps
-    tlev = eta.tth[1]
+    tth, qvh, uuh, vvh = eta.tth, eta.qvh, eta.uuh, eta.vvh
+    if pressure_levels:
+        # isobaric levels can lie below the terrain: collapse every field
+        # onto the first above-ground level llev per column
+        # (calcpar.f90:111-123, richardson.f90:77-84)
+        nlev = akz.shape[0]
+        kidx = torch.arange(nlev, device=dev)[:, None, None]
+        llev = torch.clamp((akz[:, None, None] >= eta.ps[None]).sum(dim=0),
+                           1, nlev - 1)
+        eff = torch.maximum(kidx, llev[None]).expand(tth.shape)
+        tth, qvh, uuh, vvh = (torch.gather(f, 0, eff)
+                              for f in (tth, qvh, uuh, vvh))
+        plev1 = akz[llev]                      # akz(llev), calcpar.f90:121
+    else:
+        plev1 = 0.5 * (akz[1] + akz[2]) + 0.5 * (bkz[1] + bkz[2]) * eta.ps
+    tlev = tth[1]                              # == tth[llev] after collapse
     ol = obukhov_length(eta.ps, eta.tt2, eta.td2, tlev, ustar, eta.sshf, plev1)
     oli = torch.where(ol != 0.0, 1.0 / ol, torch.full_like(ol, 99999.0))
 
-    hmix, wstar, hmixplus = richardson_hmix(akz, bkz, eta.ps, ustar, eta.tth,
-                                            eta.qvh, eta.uuh, eta.vvh, eta.sshf,
-                                            eta.tt2, eta.td2)
+    hmix, wstar, hmixplus = richardson_hmix(akz, bkz, eta.ps, ustar, tth,
+                                            qvh, uuh, vvh, eta.sshf,
+                                            eta.tt2, eta.td2,
+                                            clamp_ps=pressure_levels)
     if lsubgrid:
         # subgrid orography lifts the mixing height by the excess
         # orography, at most by what the kinetic energy allows
         # (richardson.f90's hmixplus)
         hmix = hmix + torch.minimum(eta.excessoro, hmixplus)
     hmix = torch.clamp(hmix, HMIXMIN, HMIXMAX)
-    tropo = tropopause_height(akz, bkz, eta.ps, eta.tt2, eta.td2, eta.tth,
-                              eta.qvh, lats)
+    tropo = tropopause_height(akz, bkz, eta.ps, eta.tt2, eta.td2, tth, qvh,
+                              lats, clamp_ps=pressure_levels)
     f2d = z.f2d.clone()
     f2d[F2_USTAR] = ustar
     f2d[F2_OLI] = oli

@@ -17,7 +17,8 @@ Sampling then multiplies every contribution by max(xscav, 0)
 
 Two versions of each assignment: the plain PyTorch functions of this
 module, which run for CPU tensors, and the ``BKDEP`` instantiations of K9
-(``csrc/wetdepo.cu``: K9's own lambda and fraction path) and K10
+(``csrc/wetdepo.cu``: K9's own lambda and fraction path, with its
+``CLWC`` instantiation's cloud water for ``use_clwc``) and K10
 (``csrc/drydepo.cu``: K10's own ``vdep`` gather, the 4-point
 ``horiz_weights`` sum of the JAX function), which run for CUDA tensors.
 ``assign_wetbkdep`` and ``assign_drybkdep`` pick by device and never fall
@@ -34,7 +35,8 @@ import torch
 from .. import _build
 from ..core.interp import horiz_weights, interp_2d
 from ..core.state import Particles
-from ..met.fields import F2_CONVPREC, F2_LSPREC, F2_TCC, F3_TT, ZFields
+from ..met.fields import (F2_CONVPREC, F2_CTWC, F2_LSPREC, F2_TCC, F3_TT,
+                          ZFields)
 from .massupdate import MAX_SPECIES, MassSpecies
 from .wetdepo import wet_specs, wetscav_all_plain
 
@@ -68,12 +70,13 @@ def assign_drybkdep_plain(p: Particles, vdep_field: torch.Tensor) -> Particles:
 
 
 def assign_wetbkdep_plain(p: Particles, zf: ZFields, species: tuple,
-                          column_height: float = WETBKDEP_COLUMN
-                          ) -> Particles:
+                          column_height: float = WETBKDEP_COLUMN,
+                          use_clwc: bool = False) -> Particles:
     """WETBKDEP factor: lambda * column_height * grfraction of the wet
     scavenging coefficient at the particle (``bkdep.py:44-55`` there), the
-    cloud water from the precipitation rate."""
-    lam, grfrac = wetscav_all_plain(p, zf, species, False)
+    in-cloud cloud water from the precipitation rate or, with
+    ``use_clwc``, from the column cloud water."""
+    lam, grfrac = wetscav_all_plain(p, zf, species, use_clwc)
     xs_new = (lam * float(column_height) * grfrac[None, :]).T
     return _assign(p, _fresh(p), xs_new)
 
@@ -125,10 +128,11 @@ def assign_drybkdep_cuda(p: Particles, vdep_field: torch.Tensor) -> Particles:
 
 
 def assign_wetbkdep_cuda(p: Particles, zf: ZFields, species: tuple,
-                         column_height: float = WETBKDEP_COLUMN
-                         ) -> Particles:
-    """K9's ``BKDEP`` instantiation: one thread per particle, mass and
-    xscav written out of place."""
+                         column_height: float = WETBKDEP_COLUMN,
+                         use_clwc: bool = False) -> Particles:
+    """K9's ``BKDEP`` instantiation (``BKDEP`` x ``CLWC`` with
+    ``use_clwc``): one thread per particle, mass and xscav written out of
+    place."""
     n, nspec, dev = p.capacity, p.nspec, p.device
     _check_particles(p, "K9 BKDEP", ("x_hi", "x_lo", "y_hi", "y_lo", "z",
                                      "active", "mass", "xscav"))
@@ -151,17 +155,19 @@ def assign_wetbkdep_cuda(p: Particles, zf: ZFields, species: tuple,
     specs = wet_specs(species, MassSpecies(decay=(0.0,) * nspec,
                                            drydep=(False,) * nspec))
     mass, xscav = torch.empty_like(p.mass), torch.empty_like(p.xscav)
+    launch = _build.WETDEPO_BKDEP_CLWC if use_clwc else _build.WETDEPO_BKDEP
+    ctwc = zf.f2d[F2_CTWC].data_ptr() if use_clwc else None
     if n:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             # fp_wetdepo with xscav given; ltsample, ldeltat and deposit
             # unused
-            _build.WETDEPO_BKDEP(
+            launch(
                 p.x_hi.data_ptr(), p.x_lo.data_ptr(), p.y_hi.data_ptr(),
                 p.y_lo.data_ptr(), p.z.data_ptr(), p.active.data_ptr(),
                 p.mass.data_ptr(), p.xscav.data_ptr(),
                 zf.f2d[F2_LSPREC].data_ptr(), zf.f2d[F2_CONVPREC].data_ptr(),
-                zf.f2d[F2_TCC].data_ptr(), zf.clouds.data_ptr(),
+                zf.f2d[F2_TCC].data_ptr(), ctwc, zf.clouds.data_ptr(),
                 zf.f3d[F3_TT].data_ptr(), zf.height.data_ptr(), nz, ny, nx,
                 ctypes.addressof(specs), n, nspec, 0, 0,
                 float(np.float32(column_height)), mass.data_ptr(), None,
@@ -188,12 +194,15 @@ def assign_drybkdep(p: Particles, vdep_field: torch.Tensor) -> Particles:
 
 
 def assign_wetbkdep(p: Particles, zf: ZFields, species: tuple,
-                    column_height: float = WETBKDEP_COLUMN) -> Particles:
+                    column_height: float = WETBKDEP_COLUMN,
+                    use_clwc: bool = False) -> Particles:
     """The WETBKDEP factor of every fresh particle from the wind-field time
-    level ``zf``: K9 ``BKDEP`` on a CUDA device, the plain version on the
-    CPU."""
+    level ``zf``, the in-cloud cloud water from the column's with
+    ``use_clwc``: K9 ``BKDEP`` (``BKDEP`` x ``CLWC``) on a CUDA device, the
+    plain version on the CPU."""
     return _pick(p, "WETBKDEP", assign_wetbkdep_cuda,
-                 assign_wetbkdep_plain)(p, zf, species, column_height)
+                 assign_wetbkdep_plain)(p, zf, species, column_height,
+                                        use_clwc)
 
 
 def write_precip(path, when, releases, grid, eta, first: bool) -> None:

@@ -10,7 +10,9 @@ of each computation:
   ``depo_scatter_plain``), which run for CPU tensors;
 * kernel K9 (``csrc/wetdepo.cu``: per particle the precipitation, cloud
   and temperature lookup, the scavenging coefficient of every species, the
-  mass removal and the decay-corrected deposit, in one launch) and kernel
+  mass removal and the decay-corrected deposit, in one launch; its
+  ``CLWC`` instantiation takes the in-cloud rule's cloud water from the
+  column cloud water of met that carries it, ``use_clwc``) and kernel
   K8 (``csrc/depo_scatter.cu``: the 4-point uniform-kernel scatter-add of
   a deposit onto the 2-D wet or dry grid, summed per warp and per block in
   shared memory before its atomics), which run for CUDA tensors.
@@ -261,9 +263,11 @@ def wet_specs(species: tuple, sp: MassSpecies):
 
 
 def wetdepo_cuda(p: Particles, zf: ZFields, ltsample: int, ldeltat: int,
-                 species: tuple, sp: MassSpecies):
+                 species: tuple, sp: MassSpecies, use_clwc: bool = False):
     """K9 launch: one thread per particle; the mass and the deposit
-    (nspec, N) are written out of place."""
+    (nspec, N) are written out of place.  ``use_clwc``: the ``CLWC``
+    instantiation, the in-cloud rule's cloud water from the column cloud
+    water ``F2_CTWC`` (launched and counted through its entry)."""
     n, nspec, dev = p.capacity, p.nspec, p.device
     if nspec > MAX_SPECIES:
         raise ValueError(f"K9 takes at most {MAX_SPECIES} species")
@@ -299,13 +303,15 @@ def wetdepo_cuda(p: Particles, zf: ZFields, ltsample: int, ldeltat: int,
     deposit = torch.empty((nspec, n), dtype=torch.float32, device=dev)
     if n == 0:
         return p.replace(mass=mass), deposit
+    launch = _build.WETDEPO_CLWC if use_clwc else _build.WETDEPO
+    ctwc = zf.f2d[F2_CTWC].data_ptr() if use_clwc else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.WETDEPO(
+        launch(
             p.x_hi.data_ptr(), p.x_lo.data_ptr(), p.y_hi.data_ptr(),
             p.y_lo.data_ptr(), p.z.data_ptr(), p.active.data_ptr(),
             p.mass.data_ptr(), None, zf.f2d[F2_LSPREC].data_ptr(),
-            zf.f2d[F2_CONVPREC].data_ptr(), zf.f2d[F2_TCC].data_ptr(),
+            zf.f2d[F2_CONVPREC].data_ptr(), zf.f2d[F2_TCC].data_ptr(), ctwc,
             zf.clouds.data_ptr(), zf.f3d[F3_TT].data_ptr(),
             zf.height.data_ptr(), nz, ny, nx, ctypes.addressof(specs), n,
             nspec, abs(int(ltsample)), abs(int(ldeltat)), 0.0,
@@ -314,17 +320,17 @@ def wetdepo_cuda(p: Particles, zf: ZFields, ltsample: int, ldeltat: int,
 
 
 def wet_deposition(p: Particles, zf: ZFields, ltsample: int, ldeltat: int,
-                   species: tuple, sp: MassSpecies):
+                   species: tuple, sp: MassSpecies, use_clwc: bool = False):
     """One wet-deposition pass (wetscav_all + apply_wetdepo of the JAX
-    package), the cloud water taken from the precipitation rate (the
-    column cloud water of ``use_clwc`` is refused by the ``Simulation``):
-    K9 on a CUDA device, the plain chain on the CPU.  Returns (particles,
-    deposit (nspec, N))."""
+    package), the in-cloud rule's cloud water from the precipitation rate,
+    or with ``use_clwc`` from the column cloud water of the met: K9 (its
+    ``CLWC`` instantiation) on a CUDA device, the plain chain on the CPU.
+    Returns (particles, deposit (nspec, N))."""
     dev = p.device
     if dev.type == "cuda":
-        return wetdepo_cuda(p, zf, ltsample, ldeltat, species, sp)
+        return wetdepo_cuda(p, zf, ltsample, ldeltat, species, sp, use_clwc)
     if dev.type == "cpu":
-        lam, grfraction = wetscav_all_plain(p, zf, species, False)
+        lam, grfraction = wetscav_all_plain(p, zf, species, use_clwc)
         return apply_wetdepo_plain(p, lam, grfraction, ltsample, ldeltat, sp)
     raise ValueError(f"no wet-deposition backend for device {dev}")
 

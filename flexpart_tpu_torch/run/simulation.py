@@ -193,7 +193,6 @@ class Simulation:
             "distributed": self.distributed is not None,
             "checkpoint_at": self.checkpoint_at is not None,
             "trace_dir": self.trace_dir is not None,
-            "use_clwc": self.use_clwc,
         }
         bad = [name for name, on in unported.items() if on]
         if bad:
@@ -797,7 +796,7 @@ class Simulation:
                         else z1
                     self.particles, wdep = wet_deposition(
                         self.particles, zw, cmd.lsynctime, ldeltat,
-                        self.wet_species, self.mass_species)
+                        self.wet_species, self.mass_species, self.use_clwc)
                     if ld == 1:
                         self._scatter_depo(self.acc.wetgridunc, wdep, itime)
 
@@ -942,7 +941,8 @@ class Simulation:
             interp_t = itime + self.cmd.lsynctime * self.cmd.ldirect // 2
             zw = z0 if abs(mt0 - interp_t) < abs(mt1 - interp_t) else z1
             self.particles = assign_wetbkdep(self.particles, zw,
-                                             self.wet_species)
+                                             self.wet_species,
+                                             use_clwc=self.use_clwc)
         if int((self.particles.xscav[:, 0] < 0).sum()) == 0:
             self._bkdep_pending = False
 

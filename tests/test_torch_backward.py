@@ -361,6 +361,38 @@ def test_assign_wetbkdep_matches_jax(met):
     assert (a["mass"][fresh] == 0).sum() > 10
 
 
+def test_assign_wetbkdep_with_clwc_matches_jax(met):
+    """WETBKDEP with ``use_clwc``: the in-cloud rule's cloud water from the
+    column's, a numpy-seeded ``ctwc`` field in both packages (SyntheticMet
+    processed without ``use_clwc`` leaves it at zero); the factors to the
+    test above's limits, and unlike those of the rate's cloud water."""
+    from flexpart_tpu_torch.met.fields import F2_CTWC
+    grid, (j0, _), (t0, _) = met
+    species = (dict(crain_aero=1.0, csnow_aero=1.0, ccn_aero=0.9,
+                    in_aero=0.1, dquer=0.4),
+               dict(weta_gas=1e-4, wetb_gas=0.8, henry=1.0e5))
+    ctwc = np.random.default_rng(9).uniform(0.0, 2.0, (grid.ny, grid.nx)) \
+        .astype(np.float32)
+    jf2 = np.array(j0.f2d)
+    jf2[F2_CTWC] = ctwc
+    tf2 = t0.f2d.clone()
+    tf2[F2_CTWC] = torch.from_numpy(ctwc)
+    p = _bkdep_particles(grid, seed=5)
+    jq = jbk.assign_wetbkdep(p, j0._replace(f2d=jnp.asarray(jf2)),
+                             jnp.int32(ITIME), jnp.int32(LSYNC),
+                             tuple(JWetSpecies.from_species(
+                                 jconfig.Species(**s)) for s in species),
+                             True, jnp.full(N, 20000.0, jnp.float32))
+    wet = tuple(WetSpecies.from_species(tconfig.Species(**s))
+                for s in species)
+    tq = tbk.assign_wetbkdep(_port(p), t0.replace(f2d=tf2), wet,
+                             use_clwc=True)
+    a, fresh = _assert_assigned_like_jax(tq, jq, p)
+    assert (a["xscav"][fresh] > 0).sum() > 10
+    rate = _numpy(tbk.assign_wetbkdep(_port(p), t0.replace(f2d=tf2), wet))
+    assert not np.array_equal(rate["xscav"], a["xscav"])
+
+
 def test_assign_drybkdep_matches_jax(met):
     """DRYBKDEP: the deposition velocity at the particle, from a field of
     which a tenth is not positive (those particles lose their mass)."""

@@ -5,7 +5,9 @@ The configurations of ``tests/test_modes.py::test_wetbkdep`` and
 released over the full 0-20 km column in SyntheticMet's storm band; 4,
 DRYBKDEP: a species with a dry velocity released in the 0-30 m layer) go
 through the JAX package and the port on the CPU, JAX's draws injected into
-the port through ``Simulation._draws_hook``.  The two JAX runs share one
+the port through ``Simulation._draws_hook``; WETBKDEP once more with
+``use_clwc`` (the in-cloud rule's cloud water from SyntheticMet's column
+cloud water, the readclouds classification).  The three JAX runs share one
 configuration of the advance, so JAX compiles it once.
 
 Equal: the schedule, bitwise (the forced release heights, ``xscav`` = -1);
@@ -70,7 +72,9 @@ GRID = dict(nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)
 N = 304          # the reference test's 300, to a multiple of 16
 SEED = 4
 NSTEPS = 24
-MODES = {3: "wetbkdep", 4: "drybkdep"}
+# run -> (ind_receptor, use_clwc)
+MODES = {"wetbkdep": (3, False), "drybkdep": (4, False),
+         "wetbkdep_clwc": (3, True)}
 
 
 def _config(c, mode):
@@ -99,17 +103,19 @@ def _numpy(p):
     return {f: np.asarray(getattr(p, f)) for f in FIELDS}
 
 
-@pytest.fixture(scope="module", params=list(MODES), ids=MODES.values())
+@pytest.fixture(scope="module", params=list(MODES), ids=list(MODES))
 def runs(request, tmp_path_factory):
-    """(JAX sim, its outdir, its schedule, port sim, its outdir, its
-    schedule) of one mode; the port fed JAX's draws."""
-    mode = request.param
-    jout = tmp_path_factory.mktemp(f"jax_{MODES[mode]}")
+    """(ind_receptor, JAX sim, its outdir, its schedule, port sim, its
+    outdir, its schedule, JAX's advance steps) of one run; the port fed
+    JAX's draws."""
+    name = request.param
+    mode, use_clwc = MODES[name]
+    jout = tmp_path_factory.mktemp(f"jax_{name}")
     cmd, rel, og = _config(jconfig, mode)
     grid = jmet.make_grid(**GRID)
     jsim = JaxSimulation(cmd=cmd, releases=rel, grid=grid,
                          met_backend=jmet.SyntheticMet(grid), outgrid=og,
-                         outdir=str(jout), seed=SEED)
+                         outdir=str(jout), seed=SEED, use_clwc=use_clwc)
     jsched = _numpy(jsim.particles)
     # the compiled advance's inputs and outputs, step by step
     steps = []
@@ -130,12 +136,14 @@ def runs(request, tmp_path_factory):
     draws = [{t: torch.as_tensor(np.array(jrng.normals(
         jax.random.fold_in(key, i), (r, N), tag=t))) for t, r in rows.items()}
         for i in range(NSTEPS)]
-    tout = tmp_path_factory.mktemp(f"port_{MODES[mode]}")
+    tout = tmp_path_factory.mktemp(f"port_{name}")
     cmd, rel, og = _config(tconfig, mode)
     tgrid = make_grid(**GRID)
     sim = Simulation(cmd=cmd, releases=rel, grid=tgrid,
                      met_backend=SyntheticMet(tgrid), outgrid=og,
-                     outdir=str(tout), seed=SEED, device="cpu")
+                     outdir=str(tout), seed=SEED, device="cpu",
+                     use_clwc=use_clwc)
+    assert sim.use_clwc == jsim.use_clwc == use_clwc
     tsched = _numpy(sim.particles)
     sim._draws_hook = lambda istep, origin: {
         t: v[:, origin].contiguous() for t, v in draws[istep].items()}

@@ -92,8 +92,9 @@ def test_argtypes_match_the_source(name):
 
 @pytest.mark.parametrize("entry", [e.name for e in _build.ENTRIES])
 def test_entries_launch_their_instantiations(entry):
-    """Each instantiation of a backward run is an entry of its kernel with
-    a launch count of its own, launched through the kernel's exported
+    """Each instantiation of a backward run, and K9's cloud-water ones, is
+    an entry of its kernel with a launch count of its own, launched
+    through the kernel's exported
     function and picked there by one of its arguments, which the source
     reads."""
     e = next(x for x in _build.ENTRIES if x.name == entry)
@@ -104,11 +105,18 @@ def test_entries_launch_their_instantiations(entry):
                               "false>",
             "conccalc.count": "count ? conccalc_kernel<false, true>",
             "redist.backward": "backward ? redist_kernel<true>",
-            "wetdepo.bkdep": "bkdep ? wetdepo_kernel<true>",
-            "drydepo.bkdep": "bkdep ? drydepo_kernel<false, true>"}[entry]
+            "wetdepo.bkdep": "bkdep ? (clwc ? wetdepo_kernel<true, true>\n"
+                             "                            : "
+                             "wetdepo_kernel<true, false>)",
+            "drydepo.bkdep": "bkdep ? drydepo_kernel<false, true>",
+            "wetdepo.clwc": ": (clwc ? wetdepo_kernel<false, true>",
+            "wetdepo.bkdep_clwc": "bkdep ? (clwc ? wetdepo_kernel<true, "
+                                  "true>"}[entry]
     assert pick in text
     if entry.endswith("bkdep") and entry != "conccalc.bkdep":
         assert "const bool bkdep = xscav != nullptr;" in text
+    if entry.endswith("clwc"):
+        assert "const bool clwc = ctwc != nullptr;" in text
 
 
 @pytest.mark.parametrize("name", KERNEL_NAMES)
@@ -962,3 +970,62 @@ def test_k11_entry_names_the_turbulence_by_int():
     assert chip_smoke.ptxas_by_entry(log) == {
         "advance_adaptive_kernel<1,2,1,1>": dict(
             stack=160, spill_stores=82, spill_loads=84, registers=80)}
+
+
+@pytest.mark.parametrize("name", ["advance", "advance_adaptive"])
+def test_parted_kernels_build_each_part_apart(name, tmp_path, monkeypatch):
+    """K4 and K11 are built as three libraries, one nvcc each with
+    -DFP_PART=<k>: the stock instantiations on f32 tables (0), on bf16
+    tables (1), and the nests' (K4) or the CBL's (K11) (2), named apart;
+    the source's launcher returns the wrapper's NOT_IN_PART for the other
+    parts' configurations, each part's instantiations inside its own
+    preprocessor guard."""
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")    # none on the CPU
+    k = _kernel(name)
+    assert k.parts == 3
+    cmds = [k._compile_cmd(tmp_path / "x.so", part) for part in range(3)]
+    assert [c.count(f"-DFP_PART={p}") for p, c in enumerate(cmds)] == [1] * 3
+    names = {k._lib_path(part).name for part in range(3)}
+    assert len(names) == 3 and all(f"lib{name}-p" in n for n in names)
+    text = _strip_comments(k.source.read_text())
+    m = re.search(r"constexpr int NOT_IN_PART = (-?\d+);", text)
+    assert int(m.group(1)) == _build.NOT_IN_PART
+    assert "#define FP_PART -1" in text
+    assert "#define FP_HAS(part) (FP_PART < 0 || FP_PART == (part))" in text
+    launcher = text[text.index(f'extern "C" int {k.symbol}('):]
+    guarded = [launcher.split(f"#if FP_HAS({part})")[1].split("#else")[0]
+               for part in range(3)]
+    assert all("launch(" in g for g in guarded)
+    if name == "advance":
+        assert all("advance_kernel<" in g for g in guarded)
+        assert "true>" in guarded[2] and "true>" not in "".join(guarded[:2])
+    else:
+        assert "Cbl{}" in guarded[2]
+        assert "std::false_type" in guarded[0] and "true_type" in guarded[1]
+    for other in _build.KERNELS:
+        assert other.parts == (3 if other.name in ("advance",
+                                                   "advance_adaptive") else 1)
+
+
+def test_a_parted_launch_goes_to_the_part_that_holds_it():
+    """``Kernel.launch`` tries the parts in order and stops at the first
+    that does not answer NOT_IN_PART; a failure of that part raises, and
+    one count is taken per launch."""
+    k = _build.Kernel("x", "fp_x", [], parts=2)
+    calls = []
+
+    def part(i, rc):
+        return lambda *a: (calls.append(i), rc)[1]
+
+    k._fns = [part(0, _build.NOT_IN_PART), part(1, 0)]
+    k._fn = k._fns[0]
+    k(1, 2)
+    assert calls == [0, 1] and k.launches == 1
+    k._fns = [part(0, 0), part(1, 0)]
+    calls.clear()
+    k(1, 2)
+    assert calls == [0] and k.launches == 2
+    k._fns = [part(0, _build.NOT_IN_PART), part(1, 700)]
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        k(1, 2)
+    assert k.launches == 2

@@ -6,14 +6,17 @@ end to end, as ``tests/test_cli.py::test_cli_end_to_end`` runs the JAX
 package's, with ``IPOUT=0`` (particle dumps are not ported yet): in a
 fresh interpreter in which ``import jax`` and ``import flexpart_tpu``
 fail, on the CPU (``--device cpu``), to the success banner, with the npz,
-``dates``, ``header`` and ``grid_conc_*_001`` files.
+``dates``, ``header`` and ``grid_conc_*_001`` files.  The same job runs so
+on GRIB met: ECMWF hybrid-eta files (``tests/test_gribdec.py``'s full
+wind field) and NCEP GFS isobaric files (``tests/test_gfs.py``'s).
 
 Against the JAX package: ``build_simulation`` of both on one job
 directory gives the same Command, Releases, OutGrid, met grid and wind
-interval (no JAX run, so nothing is compiled).  The CLI refuses by name,
-before any file is written, what the port does not run yet: RECEPTORS,
-OUTGRID_NEST with NESTED_OUTPUT=1, IPIN=1, ``--dp``, ``--tiles``,
-``--trace-dir`` and an AVAILABLE index of GRIB files; a release outside
+interval (no JAX run, so nothing is compiled); on GRIB met also the same
+``use_clwc``, off for ECMWF and on for GFS (its ``sumclouds``).  The CLI
+refuses by name, before any file is written, what the port does not run
+yet: RECEPTORS, OUTGRID_NEST with NESTED_OUTPUT=1, IPIN=1, ``--dp``,
+``--tiles``, ``--trace-dir``; a release outside
 the run's window fails, as the reference's does; ``--device cuda`` (the
 default) without a card raises and never falls back to the CPU.  Nested
 met from the pathnames file's nest pairs reaches the Simulation.
@@ -95,6 +98,74 @@ def _write_met(met, grid, hours=5):
     (met / "AVAILABLE").write_text("\n".join(lines) + "\n")
 
 
+def _write_grib_met(met, kind, hours=5):
+    """Hourly GRIB files of one kind and their AVAILABLE index."""
+    from test_gfs import make_gfs_file
+    from test_gribdec import _full_windfield_grib
+    met.mkdir(parents=True)
+    lines = ["header"] * 3
+    for h in range(hours):
+        name = f"{'GF' if kind == 'gfs' else 'EN'}20200101{h:02d}"
+        if kind == "gfs":
+            make_gfs_file(met, name=name)
+        else:
+            _full_windfield_grib(met / name, h * 3600)
+        lines.append(f"20200101 {h:02d}0000      {name}      ON DISC")
+    (met / "AVAILABLE").write_text("\n".join(lines) + "\n")
+
+
+@pytest.fixture(scope="module")
+def gribdirs(tmp_path_factory):
+    """ECMWF and GFS GRIB met, each as the mother grid of a job."""
+    root = tmp_path_factory.mktemp("grib")
+    for kind in ("ecmwf", "gfs"):
+        _write_grib_met(root / kind / "mother", kind)
+    return root
+
+
+# the GRIB jobs release at 40-42 E: the ECMWF file's grid starts at 0 E
+# (no nxshift) and a particle's longitude stays in the met grid's frame,
+# so at 50 W (310 E) it would sample past the 180 W output grid's east
+# edge, in both packages
+GRIB_RELEASES = {"RELEASES": RELEASES.replace("LON1=-50.0, LON2=-48.0",
+                                              "LON1=40.0, LON2=42.0")}
+
+
+def _run_cli_without_jax(pathnames, tmp_path):
+    """``python -m flexpart_tpu_torch pathnames --device cpu -v`` in a
+    fresh interpreter in which the JAX package and jax cannot load."""
+    block = tmp_path / "block"
+    for mod in ("jax", "flexpart_tpu"):
+        (block / mod).mkdir(parents=True)
+        (block / mod / "__init__.py").write_text(
+            f"raise ImportError('the port imported {mod}')\n")
+    return subprocess.run(
+        [sys.executable, "-m", "flexpart_tpu_torch", str(pathnames),
+         "--device", "cpu", "-v"],
+        capture_output=True, text=True, timeout=300, cwd=pathnames.parent,
+        env={"PATH": "/usr/bin:/bin", "PYTHONPATH": f"{block}:{ROOT}",
+             "OMP_NUM_THREADS": "2", "HOME": str(tmp_path)})
+
+
+def _assert_job_output(out, npart=800):
+    """The banner's run wrote the npz, dates, header and sparse files."""
+    npz = sorted(out.glob("grid_conc_*.npz"))
+    assert len(npz) >= 2
+    assert (out / "dates").exists() and (out / "header").exists()
+    assert not list(out.glob("*.nc"))                 # LNETCDFOUT=0
+    d = np.load(npz[-1])
+    assert np.isfinite(d["conc"]).all() and d["conc"].max() > 0.0
+    h = read_header(out / "header")
+    assert (h["numxgrid"], h["numygrid"]) == (72, 36)
+    assert h["releases"][0]["npart"] == npart
+    assert h["species"] == ["AIRTRACER"]
+    grids = sorted(out.glob("grid_conc_*_001"))
+    assert [g.name[:-4] for g in grids] == [p.name[:-4] for p in npz]
+    _, conc, _, _ = read_grid_sparse(grids[-1], 72, 36, 3)
+    np.testing.assert_allclose(conc[0, 0], d["conc"][0, 0, 0], rtol=2e-6,
+                               atol=1e-12)
+
+
 @pytest.fixture(scope="module")
 def metdir(tmp_path_factory):
     """npz met of the mother grid of tests/test_cli.py and of a 1-degree
@@ -129,18 +200,7 @@ def _job(base, metdir, command=COMMAND, nests=False, files=None):
 
 def test_cli_end_to_end_on_npz_met(metdir, tmp_path):
     pathnames = _job(tmp_path / "job", metdir)
-    # a fresh interpreter in which the JAX package and jax cannot load
-    block = tmp_path / "block"
-    for mod in ("jax", "flexpart_tpu"):
-        (block / mod).mkdir(parents=True)
-        (block / mod / "__init__.py").write_text(
-            f"raise ImportError('the port imported {mod}')\n")
-    res = subprocess.run(
-        [sys.executable, "-m", "flexpart_tpu_torch", str(pathnames),
-         "--device", "cpu", "-v"],
-        capture_output=True, text=True, timeout=300, cwd=tmp_path / "job",
-        env={"PATH": "/usr/bin:/bin", "PYTHONPATH": f"{block}:{ROOT}",
-             "OMP_NUM_THREADS": "2", "HOME": str(tmp_path)})
+    res = _run_cli_without_jax(pathnames, tmp_path)
     assert res.returncode == 0, res.stderr[-3000:]
     assert BANNER in res.stdout
     assert "particle-steps in" in res.stdout
@@ -160,6 +220,42 @@ def test_cli_end_to_end_on_npz_met(metdir, tmp_path):
     _, conc, _, _ = read_grid_sparse(grids[-1], 72, 36, 3)
     np.testing.assert_allclose(conc[0, 0], d["conc"][0, 0, 0], rtol=2e-6,
                                atol=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["ecmwf", "gfs"])
+def test_cli_end_to_end_on_grib_met(kind, gribdirs, tmp_path):
+    """The job on GRIB met, in a fresh interpreter without JAX: the
+    decoder (built from native/gribdec/gribdec.cpp) reads it in the met
+    reader thread, to the banner and the job's files."""
+    pathnames = _job(tmp_path / "job", gribdirs / kind, files=GRIB_RELEASES)
+    res = _run_cli_without_jax(pathnames, tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert BANNER in res.stdout and "particle-steps in" in res.stdout
+    _assert_job_output(tmp_path / "job" / "output")
+
+
+@pytest.mark.parametrize("kind", ["ecmwf", "gfs"])
+def test_build_simulation_on_grib_equals_jax(kind, gribdirs, tmp_path):
+    """Both packages' build_simulation on one GRIB job: the same Command,
+    met grid (levels and pressure levels included), wind interval and
+    use_clwc (ECMWF off: GribMet has no sumclouds; GFS on)."""
+    pathnames = _job(tmp_path / "job", gribdirs / kind, files=GRIB_RELEASES)
+    jsim = jmain.build_simulation(str(pathnames))
+    jsim.close()
+    shutil.rmtree(tmp_path / "job" / "output")
+    (tmp_path / "job" / "output").mkdir()
+    sim = tmain.build_simulation(str(pathnames), device="cpu")
+    sim.close()
+    assert type(sim.met_backend).__name__ == type(jsim.met_backend).__name__ \
+        == ("GfsMet" if kind == "gfs" else "GribMet")
+    assert sim.cmd == interop.command_from_jax(jsim.cmd)
+    for k in ("nx", "ny", "nlev", "xlon0", "ylat0", "dx", "dy", "xglobal",
+              "pressure_levels"):
+        assert getattr(sim.grid, k) == getattr(jsim.grid, k), k
+    np.testing.assert_array_equal(sim.grid.akm, jsim.grid.akm)
+    np.testing.assert_array_equal(sim.grid.bkm, jsim.grid.bkm)
+    assert sim.wind_interval == jsim.wind_interval == 3600
+    assert sim.use_clwc == jsim.use_clwc == (kind == "gfs")
 
 
 def test_build_simulation_equals_jax(metdir, tmp_path):
@@ -210,21 +306,6 @@ def test_cli_refuses_by_name_before_writing(case, metdir, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported yet") as err:
         tmain.main([str(pathnames), "--device", "cpu", *flags])
     assert name in str(err.value)
-    assert not list((tmp_path / "job" / "output").iterdir())
-
-
-def test_cli_refuses_grib_met_by_name(metdir, tmp_path):
-    pathnames = _job(tmp_path / "job", metdir)
-    grib = tmp_path / "grib"
-    grib.mkdir()
-    (grib / "EN2020010100").write_bytes(b"GRIB" + bytes(60))
-    (grib / "AVAILABLE").write_text(
-        "h\nh\nh\n20200101 000000      EN2020010100      ON DISC\n")
-    lines = pathnames.read_text().splitlines()
-    lines[2:4] = [f"{grib}/", f"{grib / 'AVAILABLE'}"]
-    pathnames.write_text("\n".join(lines) + "\n")
-    with pytest.raises(NotImplementedError, match="GRIB met input"):
-        tmain.main([str(pathnames), "--device", "cpu"])
     assert not list((tmp_path / "job" / "output").iterdir())
 
 

@@ -345,16 +345,19 @@ def test_legacy_draws_on_the_card_are_refused(card):
 
 
 BACKWARD_CASES = ("redist_backward", "conccalc_bkdep", "conccalc_count",
-                  "wetbkdep", "drybkdep", "advance_backward")
+                  "wetbkdep", "drybkdep", "advance_backward", "wetdepo_clwc",
+                  "wetbkdep_clwc")
 
 
 @pytest.mark.parametrize("case", BACKWARD_CASES)
 def test_backward_instantiations_equal_their_plain_versions(card, case):
-    """The instantiations of a backward run against their plain versions,
-    each launched through its own entry (its count goes up by one): K7
-    BACKWARD (z and the moved count), K9 and K10 BKDEP (mass and xscav) and
-    the advance at ldirect = -1 with injected draws, bitwise; K3 BKDEP and
-    COUNT within K3's rtol 1e-5 (float atomics)."""
+    """The instantiations of a backward run, and K9's cloud-water ones,
+    against their plain versions, each launched through its own entry (its
+    count goes up by one): K7 BACKWARD (z and the moved count), K9 and K10
+    BKDEP (mass and xscav), K9 CLWC (mass and deposit) and K9 BKDEP x CLWC
+    on a seeded column cloud water, and the advance at ldirect = -1 with
+    injected draws, bitwise; K3 BKDEP and COUNT within K3's rtol 1e-5
+    (float atomics)."""
     import dataclasses
     from flexpart_tpu_torch import _build
     from flexpart_tpu_torch.config import OutGrid, Species
@@ -382,7 +385,9 @@ def test_backward_instantiations_equal_their_plain_versions(card, case):
              "conccalc_count": _build.CONCCALC_COUNT,
              "wetbkdep": _build.WETDEPO_BKDEP,
              "drybkdep": _build.DRYDEPO_BKDEP,
-             "advance_backward": _build.ADVANCE}[case]
+             "advance_backward": _build.ADVANCE,
+             "wetdepo_clwc": _build.WETDEPO_CLWC,
+             "wetbkdep_clwc": _build.WETDEPO_BKDEP_CLWC}[case]
     before = entry.launches
     if case == "redist_backward":
         from flexpart_tpu_torch.met import synthetic
@@ -423,16 +428,32 @@ def test_backward_instantiations_equal_their_plain_versions(card, case):
             assert float(gp.sum()) > 0.0
             assert bool(torch.all((gk - gp).abs() <= 1e-5 * gp.abs()))
         before += 1                     # two launches
-    elif case == "wetbkdep":
+    elif case in ("wetbkdep", "wetbkdep_clwc", "wetdepo_clwc"):
+        from flexpart_tpu_torch.met.fields import F2_CTWC
+        from flexpart_tpu_torch.physics import massupdate as mu
         wet = tuple(wd.WetSpecies.from_species(s) for s in (
             Species(crain_aero=1.0, csnow_aero=1.0, ccn_aero=0.9,
                     in_aero=0.1, dquer=0.4),
             Species(weta_gas=1e-4, wetb_gas=0.62, henry=1.0e5)))
-        k = bk.assign_wetbkdep_cuda(p, zs[0], wet)
-        q = bk.assign_wetbkdep_plain(p, zs[0], wet)
+        clwc = case.endswith("clwc")
+        zf = zs[0]
+        if clwc:
+            f2d = zf.f2d.clone()
+            f2d[F2_CTWC] = torch.rand(f2d[F2_CTWC].shape, generator=gen,
+                                      device=card) * 2.0
+            zf = zf.replace(f2d=f2d)
+        if case == "wetdepo_clwc":
+            msp = mu.MassSpecies(decay=(1e-6, 0.0), drydep=(False, False))
+            k, dk = wd.wetdepo_cuda(p, zf, 900, 2700, wet, msp, True)
+            q, dq = mu.apply_wetdepo_plain(
+                p, *wd.wetscav_all_plain(p, zf, wet, True), 900, 2700, msp)
+            same(dk, dq, "deposit")
+        else:
+            k = bk.assign_wetbkdep_cuda(p, zf, wet, use_clwc=clwc)
+            q = bk.assign_wetbkdep_plain(p, zf, wet, use_clwc=clwc)
+            same(k.xscav, q.xscav, "xscav")
+            assert bool((k.xscav[fresh & p.active] >= 0).all())
         same(k.mass, q.mass, "mass")
-        same(k.xscav, q.xscav, "xscav")
-        assert bool((k.xscav[fresh & p.active] >= 0).all())
     elif case == "drybkdep":
         vdep = torch.rand((2, grid.ny, grid.nx), generator=gen,
                           device=card) * 0.022 - 0.002

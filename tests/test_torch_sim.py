@@ -445,7 +445,6 @@ REFUSED = {
                           names="mdomainfill"),
     "checkpoint_at": dict(checkpoint_at=3600),
     "trace_dir": dict(trace_dir="trace"),
-    "use_clwc": dict(use_clwc=True),
 }
 
 

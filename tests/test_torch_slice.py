@@ -287,3 +287,44 @@ print("ok")
                             "OMP_NUM_THREADS": "2"})
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().endswith("ok")
+
+
+def test_grib_modules_run_without_jax(tmp_path):
+    """io/gribio.py, met/gribmet.py, met/gfsmet.py and met/pblprofile.py
+    import and read GRIB files (written here by the tests' encoders) in a
+    fresh interpreter with neither jax nor flexpart_tpu loaded, and the
+    pressure-level and cloud-water preprocessing runs there."""
+    from test_gfs import make_gfs_file
+    from test_gribdec import _full_windfield_grib
+    for f in ("io/gribio.py", "met/gribmet.py", "met/gfsmet.py",
+              "met/pblprofile.py"):
+        assert (ROOT / "flexpart_tpu_torch" / f).is_file(), f
+    _full_windfield_grib(tmp_path / "EN", 0)
+    make_gfs_file(tmp_path, name="GF")
+    code = f"""
+import sys
+from pathlib import Path
+from flexpart_tpu_torch.met import calcpar, gfsmet, gribmet, pblprofile
+from flexpart_tpu_torch.met.fields import F2_CTWC
+from flexpart_tpu_torch.met.verttransform import compute_heights, process_eta
+d = Path({str(tmp_path)!r})
+g = gribmet.grid_from_grib(d / "EN")
+eta = gribmet.eta_from_grib(d / "EN", g, device="cpu")
+assert (g.nx, g.nlev) == (37, 9) and float(eta.ps.min()) > 9e4
+assert gfsmet.looks_like_gfs(d / "GF") and not gfsmet.looks_like_gfs(d / "EN")
+gg = gfsmet.grid_from_gfs_grib(d / "GF")
+e = gfsmet.eta_from_gfs_grib(d / "GF", gg, device="cpu")
+z = calcpar.calcpar(gg, e, process_eta(gg, e, compute_heights(gg, e),
+                                       use_clwc=True))
+assert gg.pressure_levels and float(z.f2d[F2_CTWC].max()) > 0.0
+assert pblprofile.R1 == 0.74
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert "flexpart_tpu" not in sys.modules
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT),
+                            "OMP_NUM_THREADS": "2"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("ok")

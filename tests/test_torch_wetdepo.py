@@ -165,6 +165,36 @@ def test_wet_deposition_is_the_plain_chain_on_the_cpu(fields):
         twd.wet_deposition(meta, tz, 900, 2700, tsp, tmu.MassSpecies(**msp))
 
 
+def test_wet_deposition_with_clwc_is_the_plain_chain_on_the_cpu(fields):
+    """``use_clwc``: the in-cloud rules take the column cloud water (the
+    fixture's seeded ``ctwc``); the device dispatch takes the plain chain
+    with it for CPU tensors, and the chain equals the JAX pair with
+    ``use_clouds_water=True``, to the tolerances of the test above.  The
+    in-cloud particles' deposits differ from those of the rate's cloud
+    water."""
+    grid, jz, tz = fields
+    p = _particles(grid, seed=2)
+    msp = dict(decay=(-1.0,) * len(SPECIES), drydep=(False,) * len(SPECIES))
+    jsp = tuple(jwd.WetSpecies.from_species(s) for s in SPECIES.values())
+    tsp = tuple(twd.WetSpecies.from_species(s) for s in SPECIES.values())
+    jlam, jgrf = jwd.wetscav_all(p, jz, jnp.int32(3600), jnp.int32(900),
+                                 jsp, True)
+    jp, jdep = jmu.apply_wetdepo(p, jlam, jgrf, jnp.int32(900),
+                                 jnp.int32(2700), jmu.MassSpecies(**msp))
+    tp, tdep = twd.wet_deposition(_port(p), tz, 900, 2700, tsp,
+                                  tmu.MassSpecies(**msp), use_clwc=True)
+    np.testing.assert_allclose(tp.mass.numpy(), np.asarray(jp.mass),
+                               rtol=1e-6)
+    cancel = 2.0 ** -22 * (np.asarray(p.mass) * np.asarray(jgrf)[:, None]).T
+    err = np.abs(tdep.numpy() - np.asarray(jdep))
+    assert (err <= 1e-5 * np.abs(np.asarray(jdep)) + cancel).all(), err.max()
+    _, rate = twd.wet_deposition(_port(p), tz, 900, 2700, tsp,
+                                 tmu.MassSpecies(**msp))
+    k = list(SPECIES).index("in_cloud_aerosol")
+    assert float(tdep[k].sum()) > 0.0
+    assert not torch.equal(tdep[k], rate[k])
+
+
 def test_below_cloud_constants_fold_like_jax():
     """The aerosol polynomial's base is float64 on the host and float32 in
     the arithmetic, in both packages; the Henry factor likewise."""
