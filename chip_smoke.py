@@ -97,6 +97,17 @@ the port's stock forward step on the card, in phases:
                 half the particles fresh, all bitwise, each timed beside
                 K9 (K9 BKDEP) on the same particles with its bound from
                 the compiled CLWC section;
+  3b. kernels_oh_split — K12, the OH reaction, bitwise against its plain
+                version on the deposition particles (10 x 2**20, two OH
+                species, one with the power N = 2) at a daylight step of
+                the synthetic climatology, as drawn and in cell order, with
+                its layout (shared bytes, blocks per SM, registers); K13, the
+                splitting, bitwise (every field and the counts) on 12 x
+                2**20 slots: half free with a quarter of the live ones due,
+                a quarter free with three quarters due (the capacity
+                guard), and after a cell-order sort with its shuffled
+                origin; its library call torch.cumsum of the two flag
+                arrays, the scan half;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
                 with the same draws; and the advance kernel with its draws
@@ -233,11 +244,26 @@ the port's stock forward step on the card, in phases:
                 species' dryvel, wetscav_precip.txt written, K3 BKDEP
                 sampling; WETBKDEP once more with use_clwc (K9 BKDEP x
                 CLWC);
- 14. legacy   — the matched-RNG validation path (Simulation(legacy_rng=
+ 14. sim_oh_split — particle dumps, warm start, checkpoints, the OH
+                reaction (K12) and particle splitting (K13) through
+                Simulation.run at full width: the sim phase's
+                configuration on 2020-07-01 from 10:00 UTC (daylight, so
+                that the hourly OH is not zero), species 0 the REACT
+                species, capacity 12 x 2**20, itsplit 3600, ipout 2; run A
+                straight through with a checkpoint at 3600 s (timed,
+                launch counts reset: K12 every step, K13 at both outputs,
+                the first hitting the capacity guard); run B resumed from
+                it, its particles bitwise and its partposit_end byte for
+                byte A's, K12 and K13 held bitwise against their plain
+                versions on its own steps (granted = min(due, free), the
+                live mass within rtol 1e-6); run C a warm start (ipin=1)
+                from A's partposit_end for one hour, the dumped particles'
+                count and masses the file's;
+ 15. legacy   — the matched-RNG validation path (Simulation(legacy_rng=
                 True)) has no kernel and runs on the CPU only: on the card
                 the constructor and advance_all must refuse it by name.
-Every sim path but sim_npz and sim_grib (each held to another run
-instead) runs through one two-run check (run_twice): the
+Every sim path but sim_npz, sim_grib and sim_oh_split (each held to
+another run instead) runs through one two-run check (run_twice): the
 launch counts of run A, each of its kernels launched and K5 once per sort,
 the particles, files and budget, and run B's particles, nan counts and
 sorts bitwise equal to run A's, its grids within the kernels' tolerances.
@@ -5804,6 +5830,229 @@ def kernel_clwc(device, grid) -> dict:
 
 # -------------------------------------------- backward runs: Simulation --
 
+# ------------------------------------------------- OH chemistry, splitting --
+
+OH_DATE = (2020, 7, 1)     # the sim_oh_split phase's day: OH at 40 N
+OH_ITIME = 11 * 3600 + 900  # a daylight step at 0-30 E
+
+
+def oh_species():
+    """The OH-reactive species of the kernels phase: the REACT species of
+    the JAX package's own test (tests/test_physics.py:139: C = 1e-11, D =
+    500, N = 0) and one with N = 2, so that the power is taken."""
+    from flexpart_tpu_torch.config import Species
+    return (Species(name="REACT", ohcconst=1.0e-11, ohdconst=500.0,
+                    ohnconst=0.0),
+            Species(name="REACT-N2", ohcconst=1.0e-17, ohdconst=300.0,
+                    ohnconst=2.0))
+
+
+def timed_in_place(make, fn, reps: int = 5) -> float:
+    """Mean device ms of fn(make()) for a function that changes its input:
+    each call on a fresh copy, only the call between the events."""
+    import torch
+    fn(make())
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        x = make()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn(x)
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / reps
+
+
+def kernel_ohreaction(device, grid) -> dict:
+    """K12 against its plain version on the deposition phase's 10 x 2**20
+    particles with the two OH species, at a daylight step of OH_DATE
+    (hourly fields of the synthetic climatology), SyntheticMet's
+    temperature: as drawn and in cell order, bitwise; some mass must be
+    lost.  Its layout (shared bytes, blocks per SM, registers) from
+    fp_ohreaction_layout."""
+    import ctypes
+    from datetime import datetime
+    import torch
+    from flexpart_tpu_torch import _build
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.met.fields import F3_TT
+    from flexpart_tpu_torch.physics import ohchem
+    cfg = step_setup(grid)[0]
+    zf = met_fields("synthetic", grid, device)[0]
+    field = ohchem.synthetic_oh_field()
+    hourly = ohchem.HourlyOH(field, datetime(*OH_DATE), 1, device=device)
+    oh0, oh1, t0, t1 = hourly.fields_for(OH_ITIME)
+    species = oh_species()
+    fn = ohchem.make_ohreaction(field, grid, species, device)
+    g = fn.grid
+    tt = zf.f3d[F3_TT]
+    args = (oh0, oh1, t0, t1, OH_ITIME, tt, zf.height, LSYNC)
+    p = depo_particles(N_MAIN, device, 29, grid, nspec=2)
+    ps, _ = reorder.reorder_by_cell(p, zf.height, cfg)
+    res, cases = {}, {}
+    n = p.capacity
+    for name, q in (("as_drawn", p), ("cell_order", ps)):
+        k = fn(q, *args)
+        pl = ohchem.ohreaction_plain(q, g, *args)
+        check_same_bits(k, pl, f"K12 {name}", ("mass",))
+        lost = (q.mass.double().sum(0) - k.mass.double().sum(0)).tolist()
+        check(lost[0] > 0.0 and lost[1] > 0.0,
+              f"K12 {name}: no OH loss {lost}")
+        cases[name] = dict(
+            ms=cuda_ms(lambda: fn(q, *args)),
+            plain_ms=cuda_ms(lambda: ohchem.ohreaction_plain(q, g, *args),
+                             3),
+            mass_lost=lost, bitwise=True, max_abs_err=0.0)
+    noh = len(g.lon) * len(g.lat) * len(g.alt_top)
+    # bytes: positions, z, active, the mass in and out, one temperature
+    # gather a particle; the two hourly fields and the axes once
+    nbytes = n * (21 + 8 * 2 + 4) + 4 * (2 * noh + 125 + grid.nlev)
+    # operations: the three scans (a subtraction, an absolute value and a
+    # comparison per axis entry) and per species powf, two expf and six
+    # other operations, each counted as one
+    nops = n * (3 * (len(g.lon) + len(g.lat) + len(g.alt_top)) + 2 * 9)
+    out = (ctypes.c_int * 3)()
+    layout_fn = _build.OHREACTION.query("fp_ohreaction_layout",
+                                        _build.OH_LAYOUT)
+    err = layout_fn(len(g.lon), len(g.lat), len(g.alt_top), grid.nlev,
+                    ctypes.addressof(out))
+    check(err == 0, f"fp_ohreaction_layout: cudaError {err}")
+    layout = dict(shared_bytes=out[0], blocks_per_sm=out[1],
+                  registers=out[2])
+    res.update(n=n, oh_grid=[len(g.lon), len(g.lat), len(g.alt_top)],
+               ms=cases["cell_order"]["ms"],
+               plain_ms=cases["cell_order"]["plain_ms"],
+               unordered_ms=cases["as_drawn"]["ms"], max_abs_err=0.0,
+               bitwise=True, library_ms=None, layout=layout,
+               **bound(nbytes, nops), cases=cases)
+    return res
+
+
+def split_case(n: int, device, seed: int, live: float, due: float,
+               future: float = 1.0 / 64):
+    """n slots: a ``live`` share active (released over the last hour, two
+    species), of which a ``due`` share is due to split at OH_ITIME; of the
+    inactive slots a ``future`` share holds a release after it (never a
+    child's slot), the rest free."""
+    import torch
+    from flexpart_tpu_torch.core.state import ITRA_INACTIVE, empty_particles
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def u(lo, hi, shape=(n,)):
+        return torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
+
+    active = u(0.0, 1.0) < live
+    fut = ~active & (u(0.0, 1.0) < future)
+    itramem = u(OH_ITIME - 3600.0, OH_ITIME).to(torch.int32)
+    itramem = torch.where(fut, OH_ITIME + 900, itramem)
+    is_due = u(0.0, 1.0) < due
+    split = torch.where(is_due, itramem + 600, torch.full_like(itramem,
+                                                               10 ** 8))
+    i32 = torch.int32
+    return empty_particles(n, 2, device=device).replace(
+        x_hi=u(0.0, 360.0), x_lo=u(-1e-6, 1e-6), y_hi=u(0.0, 180.0),
+        y_lo=u(-1e-6, 1e-6), z=u(0.0, 3000.0),
+        itra=torch.where(active | fut, torch.where(fut, itramem, OH_ITIME),
+                         torch.full_like(itramem, ITRA_INACTIVE)),
+        itramem=torch.where(active | fut, itramem, torch.zeros_like(itramem)),
+        npoint=(u(0.0, 2.0)).to(i32), nclass=(u(0.0, 5.0)).to(i32),
+        idt=(u(0.0, 900.0)).to(i32),
+        itrasplit=torch.where(active | fut, split,
+                              torch.full_like(split, ITRA_INACTIVE)),
+        up=u(-1.0, 1.0), vp=u(-1.0, 1.0), wp=u(-0.1, 0.1),
+        usig=u(0.0, 1.0), vsig=u(0.0, 1.0), wsig=u(0.0, 0.1),
+        cbt=torch.where(u(0.0, 1.0) < 0.5, 1, -1).to(torch.int8),
+        mass=u(0.5, 1.5, (n, 2)) / n, mass0=u(1.5, 2.0, (n, 2)) / n,
+        xscav=u(0.0, 1.0, (n, 2)), active=active)
+
+
+def clone_particles(p):
+    from flexpart_tpu_torch.core.state import FIELDS, Particles
+    return Particles(**{f: getattr(p, f).clone() for f in FIELDS})
+
+
+def kernel_split(device, grid, n: int) -> dict:
+    """K13 against its plain version on ``n`` slots (the capacity of the
+    sim_oh_split phase): half of them free and a quarter of the live ones
+    due (due_25); a quarter free and three quarters of the live ones due,
+    which the free slots cannot all take (due_75_guard: the reference's
+    maxpart guard); and due_25 after a cell-order sort, ranked through a
+    shuffled origin (sorted_origin).  Every field and the counts bitwise;
+    the granted count min(due, free) from masks of the script's own; the
+    mass kept within rtol 1e-6 (float64 sums); every child in a free slot,
+    every parent halved.  Timed on fresh copies (the split works in
+    place)."""
+    import torch
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.core import split as sp
+    from flexpart_tpu_torch.core.state import FIELDS
+    cfg = step_setup(grid)[0]
+    zf = met_fields("synthetic", grid, device)[0]
+    cases = {}
+    for name, live, due in (("due_25", 0.5, 0.25),
+                            ("due_75_guard", 0.75, 0.75),
+                            ("sorted_origin", 0.5, 0.25)):
+        p = split_case(n, device, 31, live, due)
+        origin = None
+        if name == "sorted_origin":
+            p, perm = reorder.reorder_by_cell(p, zf.height, cfg)
+            origin = perm.long()
+        d, f = sp.due_and_free(p, OH_ITIME, 1)
+        want = [int(d.sum()), int(f.sum())]
+        want.append(min(want))
+        m0 = p.mass[p.active].double().sum(0)
+        k, ck = sp.split_particles(clone_particles(p), OH_ITIME, 1, origin)
+        pl, cp = sp.split_particles_plain(clone_particles(p), OH_ITIME, 1,
+                                          origin)
+        check(ck.tolist() == cp.tolist() == want,
+              f"K13 {name}: counts {ck.tolist()} / {cp.tolist()} / {want}")
+        check_same_bits(k, pl, f"K13 {name}", FIELDS)
+        m1 = k.mass[k.active].double().sum(0)
+        check(bool(torch.all((m1 - m0).abs() <= 1e-6 * m0)),
+              f"K13 {name}: mass {m0.tolist()} -> {m1.tolist()}")
+        born = k.active & ~p.active
+        check(int(born.sum()) == want[2] and bool(torch.all(f[born])),
+              f"K13 {name}: a child outside a free slot")
+        halved = (k.mass != p.mass).any(dim=1) & p.active
+        check(int(halved.sum()) == want[2], f"K13 {name}: parents halved")
+        args = (OH_ITIME, 1, origin)
+        nspec = p.nspec
+        # bytes: active, itra, itramem, itrasplit (and the int64 origin)
+        # of every slot; a granted pair reads its parent's fields, writes
+        # them to the child, and writes the parent's mass and split time
+        per_pair = 2 * (69 + 12 * nspec) + 4 * nspec + 4
+        nbytes = n * (13 + (8 if origin is not None else 0)) \
+            + want[2] * per_pair
+        free_o = torch.zeros(n, dtype=torch.bool, device=device)
+        due_o = torch.zeros(n, dtype=torch.bool, device=device)
+        o = origin if origin is not None else torch.arange(n, device=device)
+        free_o[o] = f
+        due_o[o] = d
+
+        def scan_half():
+            torch.cumsum(free_o, 0)
+            torch.cumsum(due_o, 0)
+        cases[name] = dict(
+            slots=n, due=want[0], free=want[1], granted=want[2],
+            ms=timed_in_place(lambda: clone_particles(p),
+                              lambda q: sp.split_particles(q, *args)),
+            plain_ms=timed_in_place(
+                lambda: clone_particles(p),
+                lambda q: sp.split_particles_plain(q, *args), 3),
+            library_ms=cuda_ms(scan_half), bitwise=True, max_abs_err=0.0,
+            **bound(nbytes, 0))
+    c = cases["sorted_origin"]
+    return dict(n=n, **{f: c[f] for f in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by",
+                                          "max_abs_err", "bitwise")},
+                cases=cases)
+
+
 SIM_BACKWARD_DIR = ROOT / "build" / "sim_backward_smoke"
 SIM_BKDEP_DIR = ROOT / "build" / "sim_bkdep_smoke"
 # the kernels of a backward run's path: K7 takes its BACKWARD
@@ -6080,6 +6329,233 @@ def phase_sim_bkdep(device, kernels) -> dict:
     return res
 
 
+SIM_OH_DIR = ROOT / "build" / "sim_oh_split_smoke"
+# sim's 10 x 2**20 particles with room for 2 x 2**20 children
+OH_CAPACITY = 12 * 2 ** 20
+OH_BDATE = (20200701, 100000)   # 10:00 UTC: daylight over both boxes
+N_WARM_BOX = 2 ** 10            # run C's own release beside the dump
+
+
+def sim_oh_split_setup(outdir, device, hours: int = SIM_HOURS, ipin=0,
+                       parts=None, **kw):
+    """The sim phase's configuration on OH_DATE from 10:00 UTC (its boxes
+    at 0-30 E in daylight, where the hourly OH is not zero; at the sim
+    phase's January midnight there is none), species 0 made the REACT
+    species of the JAX package's test (tests/test_physics.py:139), the
+    Cs-137-like aerosol as species 1; capacity OH_CAPACITY, itsplit =
+    3600, ipout = 2 (partposit_end), no netCDF.  ``parts``: the particles
+    of each box (the sim phase's by default)."""
+    from flexpart_tpu_torch import Simulation, SyntheticMet, make_grid
+    from flexpart_tpu_torch.config import (Command, ReleaseBox, Releases,
+                                           Species)
+    grid = make_grid(**SIM_GRID)
+    _, rel, og = sim_config()
+    day, t0 = OH_BDATE
+    cmd = Command(ibdate=day, ibtime=t0, iedate=day,
+                  ietime=t0 + hours * 10000, lsynctime=LSYNC,
+                  loutstep=3600, loutaver=3600, loutsample=900,
+                  itsplit=3600, ipout=2, ipin=ipin)
+    boxes = tuple(
+        ReleaseBox(**{**{k: getattr(b, k) for k in (
+            "lon1", "lon2", "lat1", "lat2", "z1", "z2", "mass")},
+            "idate1": day, "itime1": t0, "idate2": day,
+            "itime2": t0 + 10000,
+            "parts": b.parts if parts is None else parts})
+        for b in rel.boxes)
+    species = (Species(name="REACT", ohcconst=1.0e-11, ohdconst=500.0,
+                       ohnconst=0.0), rel.species[1])
+    return Simulation(cmd=cmd, releases=Releases(species=species,
+                                                 boxes=boxes),
+                      grid=grid, met_backend=SyntheticMet(grid), outgrid=og,
+                      outdir=str(outdir), device=device, write_netcdf=False,
+                      **kw)
+
+
+def phase_sim_oh_split(device, kernels) -> dict:
+    """Particle dumps, warm start, checkpoints, OH chemistry (K12) and
+    splitting (K13) through ``Simulation.run`` at full width
+    (sim_oh_split_setup), three runs:
+
+    A, straight through with a checkpoint at 3600 s, timed, its launch
+      counts set to 0 just before and read just after: K12 every step
+      but the first, K13 at the two outputs past itsplit (5400 and 9000
+      s: the first grants the 2 x 2**20 free slots to the 5 x 2**20 due,
+      the capacity guard), K5 once per sort (a sort after each split);
+      every particle active and finite, the aerosol's budget within
+      1e-3 (the split halves both masses), the REACT species' airborne
+      mass below its release (OH);
+    B, resumed from A's checkpoint at 3600 s: its final particles bit
+      for bit A's, its partposit_end byte for byte A's; on its steps K12
+      and K13 held against their plain versions on the inputs the run
+      gives them (K12 on the first step's OH, the REACT species losing
+      mass; K13 on both splits: granted = min(due, free), the live mass
+      within rtol 1e-6);
+    C, a warm start (ipin = 1) from A's partposit_end for one hour, with
+      N_WARM_BOX particles of its own: the appended particles equal the
+      file's in count and mass, bit for bit, and all of them live to the
+      end."""
+    import shutil
+    import numpy as np
+    import torch
+    from flexpart_tpu_torch.core import split as sp
+    from flexpart_tpu_torch.core.state import FIELDS
+    from flexpart_tpu_torch.io import partdump
+    from flexpart_tpu_torch.physics import ohchem
+    from flexpart_tpu_torch.run import simulation as simmod
+    shutil.rmtree(SIM_OH_DIR, ignore_errors=True)
+    ck = SIM_OH_DIR / "checkpoint.npz"
+    res = {}
+
+    # run A
+    t0 = time.perf_counter()
+    sim = sim_oh_split_setup(SIM_OH_DIR / "a", device, capacity=OH_CAPACITY,
+                             checkpoint_at=3600, checkpoint_path=str(ck))
+    setup_s = time.perf_counter() - t0
+    launches, run_s = counted_run(kernels, sim.run)
+    nsteps = SIM_HOURS * 3600 // LSYNC
+    counts = [c.tolist() for c in sim.split_counts]
+    check(launches["ohreaction"] == nsteps and launches["split"] == 2
+          and launches["reorder"] == sim.n_sorts
+          and all(launches[k] > 0 for k in FIXED_PATH_KERNELS),
+          f"sim_oh_split A: launches {launches}")
+    check(len(counts) == 2 and all(c[2] == min(c[0], c[1]) for c in counts)
+          and counts[0][0] > counts[0][1] > 0,
+          f"sim_oh_split A: splits (due, free, granted) {counts}")
+    pa = sim.particles
+    n_live = int(pa.active.sum())
+    check(n_live == N_MAIN + sum(c[2] for c in counts) == OH_CAPACITY,
+          f"sim_oh_split A: {n_live} active")
+    for f in ("x_hi", "x_lo", "y_hi", "y_lo", "z", "mass"):
+        check(bool(torch.isfinite(getattr(pa, f)).all()),
+              f"sim_oh_split A: {f} not finite")
+    released = 2.0            # the aerosol: one unit from each box
+    aero = dict(
+        airborne=float(pa.mass[pa.active, 1].sum(dtype=torch.float64)),
+        wet=float(sim.acc.wetgridunc[..., 1].sum(dtype=torch.float64)),
+        dry=float(sim.acc.drygridunc[..., 1].sum(dtype=torch.float64)))
+    aero["sum"] = aero["airborne"] + aero["wet"] + aero["dry"]
+    check(abs(aero["sum"] - released) <= 1e-3 * released,
+          f"sim_oh_split A: aerosol budget {aero}")
+    react = float(pa.mass[pa.active, 0].sum(dtype=torch.float64))
+    react_wet_dry = float(sim.acc.wetgridunc[..., 0].sum()
+                          + sim.acc.drygridunc[..., 0].sum())
+    check(react < 1.0 and react_wet_dry == 0.0,
+          f"sim_oh_split A: REACT airborne {react}, deposits "
+          f"{react_wet_dry}")
+    end_a = (SIM_OH_DIR / "a" / "partposit_end").read_bytes()
+    res["run_a"] = dict(
+        setup_s=setup_s, run_s=run_s, launches=launches,
+        particle_steps=sim.timings["particle_steps"],
+        particle_steps_per_s_whole_run=sim.timings["particle_steps"] / run_s,
+        section_seconds_unsynced={k: v for k, v in sim.timings.items()
+                                  if k != "particle_steps"},
+        splits_due_free_granted=counts, sorts=sim.n_sorts, active=n_live,
+        aerosol_budget=aero, react_airborne=react,
+        react_oh_loss=1.0 - react, partposit_end_bytes=len(end_a),
+        checkpoint_bytes=ck.stat().st_size)
+    pa = {f: getattr(pa, f) for f in FIELDS}
+    del sim
+
+    # run B: resumed, K12 and K13 held on the run's own inputs
+    held = {"ohreaction": [], "split": []}
+    t0 = time.perf_counter()
+    sim = sim_oh_split_setup(SIM_OH_DIR / "b", device, capacity=OH_CAPACITY)
+    start = sim.load_checkpoint(ck)
+    check(start == 3600, f"sim_oh_split B: checkpoint at {start}")
+    load_s = time.perf_counter() - t0
+    oh_kernel = sim._ohreaction
+
+    def oh_held(p, *args):
+        out = oh_kernel(p, *args)
+        if not held["ohreaction"]:
+            pl = ohchem.ohreaction_plain(p, oh_kernel.grid, *args)
+            check_same_bits(out, pl, "sim_oh_split B: K12", ("mass",))
+            lost = float((p.mass[:, 0].double() - out.mass[:, 0].double())
+                         .sum())
+            check(lost > 0.0, f"sim_oh_split B: K12 lost {lost}")
+            held["ohreaction"].append(dict(
+                itime=args[4], react_mass_lost=lost, bitwise=True,
+                ms=cuda_ms(lambda: oh_kernel(p, *args), 3),
+                plain_ms=cuda_ms(lambda: ohchem.ohreaction_plain(
+                    p, oh_kernel.grid, *args), 1)))
+        return out
+
+    inner = simmod.split_particles
+
+    def split_held(p, itime, ldirect, origin):
+        q = clone_particles(p)
+        m0 = p.mass[p.active].double().sum(0)
+        out, counts = inner(p, itime, ldirect, origin)
+        pl, cp = sp.split_particles_plain(q, itime, ldirect, origin)
+        check(counts.tolist() == cp.tolist(),
+              f"sim_oh_split B: K13 counts {counts.tolist()} / "
+              f"{cp.tolist()}")
+        check_same_bits(out, pl, f"sim_oh_split B: K13 at {itime}", FIELDS)
+        c = cp.tolist()
+        m1 = out.mass[out.active].double().sum(0)
+        check(c[2] == min(c[0], c[1])
+              and bool(torch.all((m1 - m0).abs() <= 1e-6 * m0)),
+              f"sim_oh_split B: split at {itime} {c}, mass {m0.tolist()} "
+              f"-> {m1.tolist()}")
+        held["split"].append(dict(itime=itime, due_free_granted=c,
+                                  bitwise=True,
+                                  mass_rel_change=float(
+                                      ((m1 - m0).abs() / m0).max())))
+        return out, counts
+
+    sim._ohreaction = oh_held
+    simmod.split_particles = split_held
+    try:
+        t1 = time.perf_counter()
+        sim.run(start_itime=start)
+        run_b_s = time.perf_counter() - t1
+    finally:
+        simmod.split_particles = inner
+    check(len(held["split"]) == 2 and held["ohreaction"],
+          f"sim_oh_split B: held {held}")
+    for f in FIELDS:
+        a, b = pa[f], getattr(sim.particles, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        check(torch.equal(a, b), f"sim_oh_split B: {f} differs from A's")
+    check((SIM_OH_DIR / "b" / "partposit_end").read_bytes() == end_a,
+          "sim_oh_split B: partposit_end differs from A's")
+    res["run_b"] = dict(load_s=load_s, run_s=run_b_s, start_itime=start,
+                        particles_bitwise_equal_a=True,
+                        partposit_end_equal_a=True, held=held)
+    del sim, pa
+
+    # run C: a warm start from A's partposit_end
+    (SIM_OH_DIR / "c").mkdir(parents=True)
+    shutil.copy(SIM_OH_DIR / "a" / "partposit_end", SIM_OH_DIR / "c")
+    t0 = time.perf_counter()
+    _, dump = partdump.read_partposit(SIM_OH_DIR / "a" / "partposit_end", 2)
+    n_warm = len(dump["z"])
+    sim = sim_oh_split_setup(SIM_OH_DIR / "c", device, hours=1, ipin=1,
+                             parts=N_WARM_BOX // 2)
+    setup_c = time.perf_counter() - t0
+    pc = sim.particles
+    check(pc.capacity == N_WARM_BOX + n_warm == N_WARM_BOX + OH_CAPACITY,
+          f"sim_oh_split C: {pc.capacity} slots for {n_warm} dumped")
+    want = torch.as_tensor(dump["mass"].astype(np.float32), device=device)
+    check(torch.equal(pc.mass[N_WARM_BOX:].view(torch.int32),
+                      want.view(torch.int32)),
+          "sim_oh_split C: the warm particles' masses differ from the file's")
+    t1 = time.perf_counter()
+    sim.run()
+    run_c_s = time.perf_counter() - t1
+    n_c = int(sim.particles.active.sum())
+    check(n_c == N_WARM_BOX + n_warm,
+          f"sim_oh_split C: {n_c} active of {N_WARM_BOX} + {n_warm}")
+    res["run_c"] = dict(setup_s=setup_c, run_s=run_c_s, dumped=n_warm,
+                        active=n_c, masses_equal_file=True)
+    del sim, pc
+    shutil.rmtree(SIM_OH_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    res["launches"] = res["run_a"]["launches"]
+    return res
+
+
 def make_sim_grid():
     from flexpart_tpu_torch.met import make_grid
     return make_grid(**SIM_GRID)
@@ -6203,6 +6679,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    ohk = {"ohreaction": kernel_ohreaction(device, grid),
+           "split": kernel_split(device, grid, OH_CAPACITY)}
+    emit({"phase": "kernels_oh_split", "seconds": time.perf_counter() - t0,
+          **ohk, "power_limit": smi})
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     sres = phase_step(device, grid)
     emit({"phase": "step", "seconds": time.perf_counter() - t0, **sres})
     torch.cuda.empty_cache()
@@ -6269,6 +6752,11 @@ def main() -> int:
     kres_bk = phase_sim_bkdep(device, counted)
     emit({"phase": "sim_bkdep", "seconds": time.perf_counter() - t0,
           **kres_bk, "device": name, "power_limit": smi})
+
+    t0 = time.perf_counter()
+    ohres = phase_sim_oh_split(device, counted)
+    emit({"phase": "sim_oh_split", "seconds": time.perf_counter() - t0,
+          **ohres, "device": name, "power_limit": smi})
 
     t0 = time.perf_counter()
     lres = phase_legacy(device)
@@ -6446,6 +6934,9 @@ def main() -> int:
                 "launches_sim_bkdep": {m: r["launches"][kname]
                                        for m, r in kres_bk.items()}}
 
+    # K12 and K13 run on sim_oh_split's path alone: their launches are its
+    # run A's, and they have rows of their own below
+    slice18 = ("ohreaction", "split")
     line = [
         {"name": k.name, "route": "cuda", "source": src.format(k.name),
          "replaces": replaces[k.name][0], "tpu_route": replaces[k.name][1],
@@ -6457,7 +6948,7 @@ def main() -> int:
          **{f: kres[k.name][f] for f in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")}, **extra.get(k.name, {})}
-        for k in kernels]
+        for k in kernels if k.name not in slice18]
     # the two instantiations of this slice's paths, each with the launches
     # of its own path (its counts set to 0 just before the run)
     cbl, nst = kres["advance_adaptive"]["cbl"], kres["advance"]["nests"]
@@ -6552,6 +7043,20 @@ def main() -> int:
                                               "max_abs_err", "bitwise")}
                         for s, r in gfres["kernels_on_sim_gfs_inputs"]
                         .items()})
+    nsteps_oh = SIM_HOURS * 3600 // LSYNC
+    for kname, ref in (("ohreaction", "flexpart_tpu/physics/ohchem.py:200"),
+                       ("split", "flexpart_tpu/core/split.py:26")):
+        r = ohk[kname]
+        n_launch = ohres["launches"][kname]
+        line.append(
+            {"name": kname, "route": "cuda", "source": src.format(kname),
+             "replaces": ref, "tpu_route": "XLA", "launches": n_launch,
+             "launches_per_step_sim_oh_split": n_launch / nsteps_oh,
+             **{f: r[f] for f in pick},
+             **{f: r[f] for f in ("n", "bitwise", "cases", "bound_bytes",
+                                  "bound_operations", "unordered_ms",
+                                  "layout", "oh_grid") if f in r},
+             "sim_oh_split_held": ohres["run_b"]["held"][kname]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_script})
     emit({"kernels": line})
     print(smi, flush=True)

@@ -456,6 +456,37 @@ DRYDEPO = Kernel("drydepo", "fp_drydepo", [
     P,                    # stream
 ])
 
+OHREACTION = Kernel("ohreaction", "fp_ohreaction", [
+    P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
+    P,                    # active (n,) bool
+    P,                    # mass (n, nspec) f32
+    P, P,                 # tt (nz, ny, nx), height (nz,) f32
+    I, I, I,              # nz, ny, nx
+    F, F, F, F,           # xlon0, ylat0, dx, dy
+    P, I, I, I,           # OH axes: lon, lat, alt_top concatenated, f32; their lengths
+    P, P,                 # oh0, oh1 (nxo, nyo, nzo) f32
+    I, I, I,              # itime, t0, t1
+    P,                    # OHSpec[MAX_SPECIES] (host array, physics/ohchem.py)
+    I, I,                 # n, nspec
+    I,                    # |ltsample|
+    P,                    # out: mass (n, nspec) f32
+    P,                    # stream
+])
+
+SPLIT = Kernel("split", "fp_split", [
+    P,                    # the 22 field pointers of Particles (host array, FIELDS order), in place
+    P,                    # origin (n,) i64, or NULL (the identity)
+    I, I,                 # n, nspec
+    I, I,                 # itime, ldirect
+    P, P,                 # scratch: free and due flags (tiles * 4096,) u8, zeroed
+    P,                    # scratch: slot at each origin (n,) i32
+    P, P,                 # scratch: tile sums of free, due (tiles,) i32
+    P, P,                 # scratch: free and due slots by rank (n,) i32
+    P,                    # out: counts (3,) i32: due, free, granted
+    I,                    # multiprocessors (the copy's grid)
+    P,                    # stream
+])
+
 # the instantiations of the backward runs (ldirect = -1)
 CONCCALC_BKDEP = Entry(CONCCALC, "conccalc.bkdep")      # xscav given
 CONCCALC_COUNT = Entry(CONCCALC, "conccalc.count")      # count = 1
@@ -472,6 +503,10 @@ ENTRIES = (CONCCALC_BKDEP, CONCCALC_COUNT, REDIST_BACKWARD, WETDEPO_BKDEP,
 # fp_convection_layout(nl, out): out (4,) i32 gets K6's shared bytes per
 # column, columns per block, resident blocks per SM and registers per thread
 LAYOUT = [I, P]
+# fp_ohreaction_layout(nxo, nyo, nzo, nz, out): out (3,) i32 gets K12's
+# shared bytes per block, resident blocks per SM and registers per thread
+OH_LAYOUT = [I, I, I, I, P]
 
 KERNELS = (NORMALS, QUAD_TABLES, CONCCALC, ADVANCE, REORDER, CONVECTION,
-           REDIST, DEPO_SCATTER, WETDEPO, DRYDEPO, ADVANCE_ADAPTIVE)
+           REDIST, DEPO_SCATTER, WETDEPO, DRYDEPO, ADVANCE_ADAPTIVE,
+           OHREACTION, SPLIT)

@@ -1,0 +1,156 @@
+"""Particle splitting (timemanager.f90:473-504).
+
+Port of ``flexpart_tpu/core/split.py``.  At every output time with
+ldirect*itime >= ldirect*itsplit, every live particle whose next-split
+time has passed is duplicated: parent and child each get half the
+parent's mass, all other state is copied, and the next-split interval
+doubles (itrasplit = 2*(itrasplit-itramem)+itramem).  Children go into
+free slots of the fixed-capacity state, the r-th due parent into the r-th
+free slot; parents without a free slot keep their full mass (the
+reference's maxpart guard).
+
+The reference ranks free slots and due parents by slot index.  The port
+keeps its particles in met-cell order, so it ranks both by the slot's
+schedule origin (``Simulation._origin``, the reference's slot of the
+particle in each port slot; the identity before the first sort): the same
+parents are granted as in the reference and each child lands in the port
+slot that holds the reference's child slot, so ``_origin`` stays a
+permutation.  Children break the cell order; the run loop sorts after a
+split.
+
+Two versions, both updating the particles' tensors in place (parents and
+children are disjoint slots): ``split_particles_plain`` (cumsum and masked
+``index_copy_``) for CPU tensors, and kernel K13 (``csrc/split.cu``: the
+flags in origin order, a block-wise scan, the copy) for CUDA tensors.
+``split_particles`` picks by device and never falls from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from .state import FIELDS, ITRA_INACTIVE, Particles
+
+# what sizes K13's scratch (csrc/split.cu): origins per tile of its scans
+TILE = 4096
+
+
+def due_and_free(p: Particles, itime: int, ldirect: int):
+    """(due, free) masks: live particles whose split time has passed; slots
+    that are inactive and hold no future release (a scheduled slot still
+    has itra == itramem == its release time)."""
+    due = (p.active & (p.itrasplit != ITRA_INACTIVE)
+           & (ldirect * itime >= ldirect * p.itrasplit.long()))
+    free = (~p.active) & ((p.itra == ITRA_INACTIVE) | (p.itra != p.itramem))
+    return due, free
+
+
+def doubled_interval(itrasplit: torch.Tensor,
+                     itramem: torch.Tensor) -> torch.Tensor:
+    """2 * (itrasplit - itramem) + itramem, the interval clipped before
+    doubling so that the result stays in int32 (split.py:48-50 there)."""
+    dt = torch.clamp(itrasplit.long() - itramem.long(), -499999999,
+                     499999999)
+    return torch.clamp(2 * dt + itramem.long(), -999999998,
+                       999999999).to(torch.int32)
+
+
+def split_particles_plain(p: Particles, itime: int, ldirect: int = 1,
+                          origin: torch.Tensor | None = None):
+    """Plain twin of K13, in place.  Returns (particles, counts): counts is
+    an int32 tensor (due, free, granted)."""
+    n, dev = p.capacity, p.device
+    due, free = due_and_free(p, itime, ldirect)
+    slots = torch.arange(n, device=dev)
+    o = slots if origin is None else origin.long()
+    at_origin = torch.empty(n, dtype=torch.long, device=dev)
+    at_origin.index_copy_(0, o, slots)
+    free_o = torch.zeros(n, dtype=torch.bool, device=dev)
+    free_o.index_copy_(0, o, free)
+    due_o = torch.zeros(n, dtype=torch.bool, device=dev)
+    due_o.index_copy_(0, o, due)
+    free_rank = torch.cumsum(free_o, 0) - 1
+    due_rank = torch.cumsum(due_o, 0) - 1
+    n_free = int(free_rank[-1]) + 1 if n else 0
+    n_due = int(due_rank[-1]) + 1 if n else 0
+    granted = min(n_due, n_free)
+    # the slot of the r-th free origin and of the r-th due one
+    free_slot = torch.empty(n, dtype=torch.long, device=dev)
+    free_slot.index_copy_(0, free_rank[free_o], at_origin[free_o])
+    due_slot = torch.empty(n, dtype=torch.long, device=dev)
+    due_slot.index_copy_(0, due_rank[due_o], at_origin[due_o])
+    parent, child = due_slot[:granted], free_slot[:granted]
+    for name in FIELDS:
+        t = getattr(p, name)
+        if name == "mass":
+            half = t[parent] * 0.5
+            t.index_copy_(0, parent, half)
+            t.index_copy_(0, child, half)
+        elif name == "itrasplit":
+            nxt = doubled_interval(t[parent], p.itramem[parent])
+            t.index_copy_(0, parent, nxt)
+            t.index_copy_(0, child, nxt)
+        elif name == "active":
+            t.index_fill_(0, child, True)
+        else:
+            t.index_copy_(0, child, t[parent])
+    counts = torch.tensor([n_due, n_free, granted], dtype=torch.int32,
+                          device=dev)
+    return p, counts
+
+
+def split_particles_cuda(p: Particles, itime: int, ldirect: int = 1,
+                         origin: torch.Tensor | None = None):
+    """K13 launch, in place; the counts (due, free, granted) stay on the
+    card."""
+    n, dev = p.capacity, p.device
+    if n >= 2 ** 31 - TILE:
+        raise ValueError("K13 indexes particles with int32")
+    for name in FIELDS:
+        t = getattr(p, name)
+        if t.device != dev or t.shape[0] != n or not t.is_contiguous():
+            raise ValueError(f"K13: particle field {name} must be contiguous "
+                             f"({n}, ...) on {dev}")
+    if origin is not None and (origin.device != dev
+                               or origin.dtype != torch.int64
+                               or tuple(origin.shape) != (n,)
+                               or not origin.is_contiguous()):
+        raise ValueError(f"K13: origin must be contiguous int64 ({n},) on "
+                         f"{dev}")
+    counts = torch.zeros(3, dtype=torch.int32, device=dev)
+    if n == 0:
+        return p, counts
+    tiles = -(-n // TILE)
+    flags = torch.zeros((2, tiles * TILE), dtype=torch.uint8, device=dev)
+    ints = torch.empty(3 * n + 2 * tiles, dtype=torch.int32, device=dev)
+    fields = (ctypes.c_void_p * len(FIELDS))(
+        *(getattr(p, f).data_ptr() for f in FIELDS))
+    at = ints.data_ptr()
+    step = ints.element_size()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _build.SPLIT(
+            ctypes.addressof(fields),
+            None if origin is None else origin.data_ptr(), n, p.nspec,
+            int(itime), int(ldirect), flags[0].data_ptr(),
+            flags[1].data_ptr(), at, at + step * n, at + step * (n + tiles),
+            at + step * (n + 2 * tiles), at + step * (2 * n + 2 * tiles),
+            counts.data_ptr(), sms, stream)
+    return p, counts
+
+
+def split_particles(p: Particles, itime: int, ldirect: int = 1,
+                    origin: torch.Tensor | None = None):
+    """Split the particles due at ``itime``, in place; ``origin`` the
+    slots' schedule origins (None: the identity).  K13 on a CUDA device,
+    the plain version on the CPU.  Returns (particles, counts), counts an
+    int32 tensor (due, free, granted) on the particles' device."""
+    run = {"cuda": split_particles_cuda,
+           "cpu": split_particles_plain}.get(p.device.type)
+    if run is None:
+        raise ValueError(f"no splitting backend for device {p.device}")
+    return run(p, itime, ldirect, origin)

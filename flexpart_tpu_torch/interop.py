@@ -163,11 +163,19 @@ def drydep_tables_from_jax(td):
                            for f in dataclasses.fields(DrydepTables)})
 
 
+def oh_field_from_jax(field):
+    """The JAX package's ``OHField`` (numpy arrays) as the port's."""
+    from .physics.ohchem import OHField
+    return OHField(**{f.name: np.array(getattr(field, f.name), copy=True)
+                      for f in dataclasses.fields(OHField)})
+
+
 def simulation_from_jax(sim, device, met_backend=None, outdir=None):
     """The port's ``Simulation`` with the configuration of a JAX one (the
-    deposition fields ``options_dir`` and ``minmass`` among the rest) and
-    its convective flux memory ``cbmf`` (the particles are the port's own
-    release schedule, equal to the JAX one's).  The met backend is not
+    deposition fields ``options_dir`` and ``minmass``, ``capacity``, the OH
+    climatology, ``checkpoint_at`` and ``checkpoint_path`` among the rest)
+    and its convective flux memory ``cbmf`` (the particles are the port's
+    own release schedule, equal to the JAX one's).  The met backend is not
     carried over (its ``fetch`` returns JAX arrays): ``met_backend`` is the
     port's, by default ``SyntheticMet`` on the same grid.  ``outdir``
     defaults to the JAX run's."""
@@ -181,6 +189,8 @@ def simulation_from_jax(sim, device, met_backend=None, outdir=None):
     rest = {f.name: getattr(sim, f.name)
             for f in dataclasses.fields(Simulation)
             if f.name not in own and hasattr(sim, f.name)}
+    if rest.get("oh_field") is not None:
+        rest["oh_field"] = oh_field_from_jax(rest["oh_field"])
     out = Simulation(
         cmd=command_from_jax(sim.cmd),
         releases=releases_from_jax(sim.releases), grid=grid,

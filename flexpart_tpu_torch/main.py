@@ -13,10 +13,11 @@ greps for it keeps working.
 Met comes from .npz archives (met/npzmet.py), GRIB files (ECMWF hybrid
 eta, met/gribmet.py; NCEP GFS pressure levels, met/gfsmet.py, whose
 cloud water turns on ``use_clwc``) or the built-in synthetic atmosphere.
-What the port's Simulation does not run yet
-(RECEPTORS, OUTGRID_NEST with NESTED_OUTPUT=1, IPIN=1, OH-reactive
-species, ``--dp``, ``--tiles``, ``--trace-dir``, ...) reaches it and is
-refused there by name, before any file is written.  ``--device`` picks
+An OH-reactive species takes ``<ohfields_path>/OH_FIELDS/OH_variables.bin``
+(relative paths from options/), else the synthetic climatology.  What the
+port's Simulation does not run yet (RECEPTORS, OUTGRID_NEST with
+NESTED_OUTPUT=1, ``--dp``, ``--tiles``, ``--trace-dir``, ...) reaches it
+and is refused there by name, before any file is written.  ``--device`` picks
 where the run lives: the card (``cuda``, the default; without one the run
 raises) or the CPU.
 """
@@ -115,12 +116,27 @@ def build_simulation(pathnames: str, met: str = "auto",
             _NestShim(_met_backend_for(nmet, navail, cmd.bdate))
             for nmet, navail in pn.nests)
 
-    # an OH-reactive species (FLEXPART.f90:352 readOHfield) is refused by
-    # the Simulation: the port has no OH chemistry yet, so no field is read
+    # OH climatology when any species is OH-reactive
+    # (FLEXPART.f90:352 readOHfield; readOHfield.f90:44-45)
+    oh_field = None
+    if any(sp.ohreact for sp in releases.species):
+        from .physics.ohchem import read_oh_field, synthetic_oh_field
+        oh_bin = (Path(cmd.ohfields_path) / "OH_FIELDS"
+                  / "OH_variables.bin")
+        if not oh_bin.is_absolute():
+            oh_bin = opts / oh_bin
+        if oh_bin.exists():
+            oh_field = read_oh_field(oh_bin)
+        else:
+            log.warning("OH-reactive species but %s missing - using the "
+                        "built-in climatology", oh_bin)
+            oh_field = synthetic_oh_field()
+
     sim = Simulation(
         cmd=cmd, releases=releases, grid=grid, met_backend=backend,
         outgrid=outgrid, ageclasses=ageclasses, outdir=str(pn.output),
         capacity=capacity, seed=seed, wind_interval=wind_interval,
+        oh_field=oh_field,
         use_clwc=bool(getattr(backend, "sumclouds", False)),
         options_dir=str(opts) if (opts / "IGBP_int1.dat").exists() else None,
         receptors=receptors, outgrid_nest=outgrid_nest,

@@ -16,7 +16,13 @@ deposition and sampling stay on the mother grid, as in the reference);
 ``legacy_rng`` is the reference's matched-RNG validation mode (every draw
 of the advance from the rannumb table in the reference's order, release
 positions from its ran1 order, no cell-order sorting; no kernel takes
-it, so it runs with ``device='cpu'`` only).  Every option
+it, so it runs with ``device='cpu'`` only); species may react with OH
+(physics/ohchem.py); particles split at output times once ``itsplit`` has
+passed (core/split.py); the particles are dumped in the reference's
+``partposit_*`` files (``ipout`` 1, 2 and 3, ``mquasilag``), a run may
+start warm from a ``partposit_end`` (``ipin=1``) and write a full
+checkpoint (``checkpoint_at``) from which ``run(start_itime=...)``
+resumes bit for bit (io/partdump.py).  Every option
 outside that path raises ``NotImplementedError`` naming it when the
 ``Simulation`` is built; none is skipped silently.
 
@@ -27,10 +33,12 @@ Per sync interval (timemanager.f90:152-712):
      double buffer; here: backend fetch + process_eta/calcpar, the next
      field read and processed by one background thread; a backward run
      reads the fields before itime);
+  0. at ``checkpoint_at``, the whole state to ``checkpoint_path``;
   1b. wet deposition over the interval ending at itime (physics/wetdepo.py,
      K9 and the deposit scatter K8 on a CUDA device; timemanager.f90:
-     164-169) and the decay of the deposition grids (timemanager.f90:
-     269-304); a backward run removes the mass and grids no deposit;
+     164-169), the OH reaction (physics/ohchem.py, K12) and the decay of
+     the deposition grids (timemanager.f90:269-304); a backward run removes
+     the mass and grids no deposit;
   2. activate scheduled releases (mask flip, core/release.py); in a
      backward deposition run the factor xscav of each fresh particle
      (physics/bkdep.py: K9 or K10 BKDEP on a CUDA device);
@@ -44,19 +52,23 @@ Per sync interval (timemanager.f90:152-712):
   4. sample concentrations into the device accumulator (conccalc) on the
      loutsample cadence with the reference's half-weight edge rule
      (timemanager.f90:350-365);
+  4b. with ``mquasilag``, the compressed dump at the window's centre;
   5. at averaging-interval end: normalize (factor3d, concoutput.f90:210-221;
      |loutaver| / outnum backward), copy to host, write (npz, netCDF and,
      with ``write_fortran``, the reference's unformatted ``header`` and
      sparse ``grid_*`` files, io/fortran_writer.py), zero the
-     concentration accumulator;
+     concentration accumulator; the particle dumps of ``ipout``; the
+     split of the particles due (K13), then a sort;
   6. advance all particles one lsynctime (core/advance.py: K4 for the
      fixed step, K11 for the adaptive step on a CUDA device);
+  6a. with ``ipout=3``, the per-step sums of the averaged dump;
   6b. decay, dry deposition and minmass termination
      (physics/massupdate.py, K10 and K8 on a CUDA device;
      timemanager.f90:643-686); after an adaptive step the dry deposition
      takes the seconds each particle spent below 2 HREF; backward, the
      deposit is not gridded;
   7. terminate particles older than the last age class.
+At the run's end, with ``ipout`` 1 or 2, ``partposit_end``.
 
 On a CUDA device a step that neither samples nor writes never waits for
 the device: the active count is summed on the device and read where a
@@ -83,16 +95,18 @@ from ..core import reorder, rng
 from ..core.advance import StepConfig, StepParams, advance_all
 from ..core.legacy import LegacyRnd
 from ..core.release import activate, release_schedule_arrays
-from ..core.state import ITRA_INACTIVE, Particles
+from ..core.split import split_particles
+from ..core.state import FIELDS, ITRA_INACTIVE, Particles
 from ..grid.conccalc import ConcConfig, kernel_possible_at, make_conccalc
 from ..grid.outgrid import (Accumulators, OutputGridGeometry,
                             density_outgrid, oro_outgrid, zero_accumulators)
+from ..io import partdump
 from ..io.fortran_writer import (_rec, _sparse_block, write_grid_sparse,
                                  write_header)
 from ..io.writer import OutputWriter
 from ..met.calcpar import calcpar
 from ..met.calcpv import calcpv
-from ..met.fields import F3_RHO
+from ..met.fields import F3_RHO, F3_TT
 from ..met.grid import MetGrid
 from ..met.verttransform import compute_heights, process_eta
 from ..physics import setup_drydep
@@ -101,6 +115,7 @@ from ..physics.bkdep import assign_drybkdep, assign_wetbkdep, write_precip
 from ..physics.drydepo import constant_vdep_kernel, make_vdep_kernel
 from ..physics.massupdate import (MassSpecies, apply_decay_drydep,
                                   decay_deposition_grids)
+from ..physics.ohchem import HourlyOH, make_ohreaction, synthetic_oh_field
 from ..physics.wetdepo import WetSpecies, depo_scatter, wet_deposition
 from ..utils.cpu import warm_vector_math
 from ..utils.dates import add_seconds, datestamp
@@ -143,7 +158,10 @@ class Simulation:
     write_npz: bool = True
     options_dir: str | None = None   # dir with IGBP/surfdata/surfdepo files
     minmass: float = 1.0e-4          # termination threshold (par_mod.f90)
-    checkpoint_at: int | None = None
+    oh_field: Any = None             # physics.ohchem.OHField (or None: the
+    #                                  synthetic one, for an OH species)
+    checkpoint_at: int | None = None  # write a full checkpoint at this itime
+    checkpoint_path: str = "checkpoint.npz"
     receptors: tuple = ()
     outgrid_nest: Any = None
     met_nests: tuple = ()
@@ -174,24 +192,15 @@ class Simulation:
     def _refuse_unported(self):
         """Raise for every option whose code is not ported yet."""
         cmd = self.cmd
-        species = self.releases.species
-        span = abs(cmd.ideltas)
         unported = {
             "mdomainfill (domain filling)": cmd.mdomainfill != 0,
-            "ipin=1 (warm start)": cmd.ipin == 1,
             "receptors": bool(self.receptors),
             "outgrid_nest (nested output)": self.outgrid_nest is not None,
             "iflux (gross fluxes)": cmd.iflux != 0,
             "linit_cond (initial-condition sensitivity)":
                 cmd.linit_cond != 0,
-            "ipout (particle dumps)": cmd.ipout != 0,
             "iout=4/5 (plume trajectories)": cmd.iout_eff in (4, 5),
-            "mquasilag (quasi-Lagrangian dumps)": cmd.mquasilag != 0,
-            "itsplit (particle splitting inside the run)":
-                cmd.itsplit < span,
-            "OH reaction species": any(s.ohreact for s in species),
             "distributed": self.distributed is not None,
-            "checkpoint_at": self.checkpoint_at is not None,
             "trace_dir": self.trace_dir is not None,
         }
         bad = [name for name, on in unported.items() if on]
@@ -292,23 +301,40 @@ class Simulation:
             np.asarray(self.ageclasses.lage or (999999999,), np.int32),
             device=dev)
 
+        # warm start (IPIN=1, FLEXPART.f90:322-333): the previous run's
+        # partposit_end in the output directory, appended after the
+        # scheduled releases
+        warm = None
+        if cmd.ipin == 1:
+            dump = Path(self.outdir) / "partposit_end"
+            if not dump.exists():
+                raise FileNotFoundError(
+                    f"IPIN=1 but no {dump} from a previous run "
+                    "(readpartpositions.f90)")
+            _, warm = partdump.read_partposit(dump, self.nspec)
+        n_warm = len(warm["z"]) if warm else 0
         # the whole release schedule, built on the host and moved once;
         # its release times say on which steps `activate` wakes particles
         sched = release_schedule_arrays(
-            self.releases, cmd, self.grid, capacity=self.capacity,
+            self.releases, cmd, self.grid,
+            capacity=None if self.capacity is None
+            else self.capacity - n_warm,
             nclassunc=self.nclassunc, seed=self.seed, bkdep=self.bkdep)
-        self._release_times = frozenset(
-            int(t) for t in np.unique(sched["itra"]) if t != ITRA_INACTIVE)
         if self.legacy_rng:
             self._legacy_release_positions(sched)
+        if n_warm:
+            sched = self._append_warm_start(sched, warm)
+        self._release_times = frozenset(
+            int(t) for t in np.unique(sched["itra"]) if t != ITRA_INACTIVE)
         self.particles: Particles = interop.particles_from_numpy(sched, dev)
         # earliest scheduled release (s since bdate): the sampling kernel
         # (conccalc.f90:171 itage>10800) cannot trigger before
         # first_release + 3 h, so the sampler runs its single-index path
         # until then (grid/conccalc.py kernel_possible_at); None, the
-        # kernel always possible, for a backward run, as the reference
+        # kernel always possible, for a backward run and a warm start, as
+        # the reference
         self._first_release: int | None = None
-        if cmd.ldirect > 0 and self.releases.boxes:
+        if cmd.ldirect > 0 and self.releases.boxes and not n_warm:
             self._first_release = min(
                 int((b.start - cmd.bdate).total_seconds())
                 for b in self.releases.boxes)
@@ -353,12 +379,33 @@ class Simulation:
         self._decay_arr = torch.as_tensor([s.decay for s in species],
                                           dtype=torch.float32, device=dev)
         self._vdep_kernel = None        # built lazily (needs the lsm field)
+        # OH chemistry is switched on by a species (readspecies: ohcconst
+        # > 0)
+        self.any_ohreact = any(s.ohreact for s in species)
+        if self.any_ohreact:
+            if self.oh_field is None:
+                log.warning("OH species present but no OH climatology "
+                            "given; using the synthetic stand-in field")
+                self.oh_field = synthetic_oh_field()
+            self._hourly_oh = HourlyOH(self.oh_field, cmd.bdate, cmd.ldirect,
+                                       device=dev)
+            self._ohreaction = make_ohreaction(self.oh_field, self.grid,
+                                               species, dev)
+        # splitting inside the run (itsplit shorter than the run); its
+        # children take free slots ranked by schedule origin, so the run
+        # keeps ``_origin`` through every sort
+        self._splits = cmd.itsplit < abs(cmd.ideltas)
+        self.split_counts: list[torch.Tensor] = []   # per split (due,
+        #                                             free, granted)
+        self._avg_sums = None            # ipout=3 running sums
+        self._avg_counts = None
         # tests only: `_draws_hook(istep, origin)` returns the advance's
         # injected draws for this step, already in slot order (the
         # adaptive step's tags 1 and 2 with a leading pass axis), and
         # `_redist_hook(istep, origin)` the convective redistribution's
         # uniforms; `origin[k]` is the schedule slot of the particle now in
-        # slot k (kept only while a hook is set)
+        # slot k (kept while a hook is set or the run splits; None is the
+        # identity)
         self._draws_hook: Callable | None = None
         self._redist_hook: Callable | None = None
         self._origin: torch.Tensor | None = None
@@ -581,11 +628,14 @@ class Simulation:
                 self._precip_started = True
             if self._height is None:
                 self._height = compute_heights(self.grid, eta)
-                # output-grid orography for the netCDF header (ORO var,
-                # netcdf_output_mod.f90:528-535 <- outgrid_init.f90:107-181)
-                if self.writer.nc_meta is not None:
-                    self.writer.nc_meta["oro"] = oro_outgrid(
-                        self.geo, eta.oro.cpu().numpy())
+            # output-grid orography for the netCDF header (ORO var,
+            # netcdf_output_mod.f90:528-535 <- outgrid_init.f90:107-181),
+            # from the first field read (a resumed run's height grid comes
+            # from its checkpoint)
+            if self.writer.nc_meta is not None \
+                    and "oro" not in self.writer.nc_meta:
+                self.writer.nc_meta["oro"] = oro_outgrid(
+                    self.geo, eta.oro.cpu().numpy())
             # keep at most 3 buffered fields, evicting the one farthest
             # from the requested time: a backward run retires the later
             # fields, not the earlier ones it prefetched (the memind
@@ -686,12 +736,56 @@ class Simulation:
             self._reader = None
         self.writer.close()
 
+    def _append_warm_start(self, sched: dict, warm: dict) -> dict:
+        """Append partposit_end particles (readpartpositions.f90:100-131)
+        after the scheduled-release slots: itra=0 so they wake at the first
+        step; itramem keeps the original (pre-resume) release time so age
+        classes stay correct; the turbulence memory is drawn by the first
+        advance's fresh-particle block (itime == 0); nclass from the
+        reference's own numpy stream (seed + 101)."""
+        n = len(warm["z"])
+        rng_w = np.random.default_rng(self.seed + 101)
+        x = ((warm["lon"] - self.grid.xlon0) / self.grid.dx) \
+            .astype(np.float32)
+        y = ((warm["lat"] - self.grid.ylat0) / self.grid.dy) \
+            .astype(np.float32)
+        mass = warm["mass"].astype(np.float32)
+        zf = np.zeros(n, np.float32)
+        extra = dict(
+            x_hi=x, x_lo=zf, y_hi=y, y_lo=zf,
+            z=warm["z"].astype(np.float32),
+            itra=np.zeros(n, np.int32),
+            itramem=warm["itramem"].astype(np.int32),
+            npoint=warm["npoint"].astype(np.int32),
+            nclass=rng_w.integers(0, self.nclassunc, size=n)
+            .astype(np.int32),
+            idt=np.zeros(n, np.int32),
+            itrasplit=np.full(n, 999999999, np.int32),
+            up=zf, vp=zf, wp=zf, usig=zf, vsig=zf, wsig=zf,
+            cbt=np.ones(n, np.int8), mass=mass, mass0=mass.copy(),
+            xscav=np.ones((n, self.nspec), np.float32),
+            active=np.zeros(n, np.bool_))
+        log.info("warm start: %d particles resumed from partposit_end", n)
+        return {f: np.concatenate([sched[f], extra[f]]) for f in FIELDS}
+
     # ----- main loop -----
-    def run(self, progress: bool = False):
+    def run(self, progress: bool = False, start_itime: int = 0):
+        """Run to the end; from ``start_itime`` after ``load_checkpoint``,
+        continuing the straight run's steps (the same ``istep``, so the
+        same draws and sorts)."""
         try:
-            return self._run(progress)
+            return self._run(progress, start_itime)
         finally:
             self.close()
+
+    def save_checkpoint(self, path, itime: int | None = None) -> None:
+        partdump.save_checkpoint(path, self, itime if itime is not None
+                                 else getattr(self, "last_itime", 0))
+
+    def load_checkpoint(self, path) -> int:
+        """Restore a checkpoint of a run with this configuration; returns
+        the itime to pass to ``run(start_itime=...)``."""
+        return partdump.load_checkpoint(path, self)
 
     def _sort(self, height):
         """Put the particles in met-cell order.  Slot order means nothing
@@ -704,7 +798,13 @@ class Simulation:
             self.particles, perm = reorder.reorder_by_cell(
                 self.particles, height, self.step_cfg)
         self.n_sorts += 1
-        if self._draws_hook is not None or self._redist_hook is not None:
+        if self._avg_sums is not None:
+            # the averaged dump's running sums follow their particles
+            idx = perm.long()
+            self._avg_sums = self._avg_sums[:, idx]
+            self._avg_counts = self._avg_counts[idx]
+        if self._splits or self._draws_hook is not None \
+                or self._redist_hook is not None:
             idx = perm.long()
             self._origin = idx if self._origin is None else self._origin[idx]
 
@@ -746,7 +846,7 @@ class Simulation:
         self.convection_counts.append(torch.stack(
             [conv.lconv.sum(dtype=torch.int32), moved]))
 
-    def _run(self, progress: bool = False):
+    def _run(self, progress: bool = False, start_itime: int = 0):
         cmd = self.cmd
         # the run's times are signed: a backward run counts seconds
         # backwards from bdate (its end)
@@ -770,14 +870,28 @@ class Simulation:
         max_age = self.ageclasses.max_age
         itime = 0
         if self.legacy_rng:
+            if start_itime != 0:
+                raise ValueError("legacy_rng cannot resume mid-run (the "
+                                 "serial idummy chain has no checkpoint)")
             # one shared ran3 chain feeds the per-particle nrand bases in
             # the reference's order (FLEXPART.f90:56-59, advance.f90:153)
             self._legacy_table = torch.as_tensor(
                 make_rannumb(MAXRAND, self.legacy_seed), device=self.device)
             self._legacy_stream = NrandStream(self.legacy_seed, MAXRAND)
 
-        for istep in range(0, nsteps + 1):
+        first_step = abs(start_itime) // abs(lsync)
+        # the output window of a mid-run resume (the output at
+        # start_itime, if due, happens inside the resumed step)
+        while start_itime != 0 and ld * loutend < ld * start_itime:
+            loutnext = loutnext + cmd.loutstep * ld
+            loutstart = loutnext - loutaver // 2
+            loutend = loutnext + loutaver // 2
+        for istep in range(first_step, nsteps + 1):
             itime = istep * lsync
+            if self.checkpoint_at is not None \
+                    and itime == self.checkpoint_at and start_itime != itime:
+                with self.timers.section("checkpoint"):
+                    self.save_checkpoint(self.checkpoint_path, itime)
             z0, z1, mt0, mt1 = self._fields_for(itime)
 
             # interval since the deposited mass's decay reference time
@@ -799,6 +913,18 @@ class Simulation:
                         self.wet_species, self.mass_species, self.use_clwc)
                     if ld == 1:
                         self._scatter_depo(self.acc.wetgridunc, wdep, itime)
+
+            # OH chemistry (timemanager.f90:171,216: gethourlyOH +
+            # ohreaction), at the wind field nearer the step's middle
+            if self.any_ohreact and istep > 0:
+                with self.timers.section("ohchem"):
+                    interp_t = itime - lsync // 2
+                    zo = z0 if abs(mt0 - interp_t) < abs(mt1 - interp_t) \
+                        else z1
+                    oh0, oh1, to0, to1 = self._hourly_oh.fields_for(itime)
+                    self.particles = self._ohreaction(
+                        self.particles, oh0, oh1, to0, to1, itime,
+                        zo.f3d[F3_TT], zo.height, cmd.lsynctime)
 
             # radioactive decay of deposited mass on the output grids
             # (timemanager.f90:269-304)
@@ -833,6 +959,16 @@ class Simulation:
                 with self.timers.section("convection"):
                     self._convect(istep, itime, mt0, mt1)
 
+            # quasi-Lagrangian compressed dump at the window's centre
+            # (timemanager.f90:368-369)
+            if cmd.mquasilag == 1 and itime == (loutstart + loutend) // 2:
+                with self.timers.section("partdump"):
+                    diag = self._diagnostics(itime, z0, z1, mt0, mt1)
+                    partdump.write_shortposit(
+                        Path(self.outdir) / ("shortposit_" + datestamp(
+                            add_seconds(cmd.bdate, itime))),
+                        itime, self.particles, self.grid, diag[0])
+
             # sampling (timemanager.f90:350-365)
             if (ld * loutstart <= ld * itime <= ld * loutend
                     and (itime - loutstart) % loutsample == 0):
@@ -846,6 +982,29 @@ class Simulation:
             if itime == loutend and self._outnum() > 0:
                 with self.timers.section("output"):
                     self._write_output(itime)
+                # particle dumps (timemanager.f90:453-455,
+                # partoutput_average.f90)
+                if cmd.ipout == 1 and (abs(itime) // abs(cmd.loutstep)) \
+                        % max(cmd.ipoutfac, 1) == 0:
+                    with self.timers.section("partdump"):
+                        self._write_partdump(itime, z0, z1, mt0, mt1)
+                if cmd.ipout == 3 and self._avg_sums is not None:
+                    with self.timers.section("partdump"):
+                        partdump.write_partposit_average(
+                            Path(self.outdir) / (
+                                "partposit_average_" + datestamp(
+                                    add_seconds(cmd.bdate, itime))),
+                            itime, self.particles, self._avg_sums,
+                            self._avg_counts)
+                    self._avg_sums = None
+                # splitting once itime has passed itsplit (timemanager.f90:
+                # 473-504); the children break the cell order
+                if self._splits and abs(itime) >= cmd.itsplit:
+                    with self.timers.section("split"):
+                        self.particles, counts = split_particles(
+                            self.particles, itime, ld, self._origin)
+                    self.split_counts.append(counts)
+                    self._sort(z0.height)
                 loutnext = loutnext + cmd.loutstep * ld
                 loutstart = loutnext - loutaver // 2
                 loutend = loutnext + loutaver // 2
@@ -884,6 +1043,12 @@ class Simulation:
                 self.timings["advance_first_s"] = round(
                     _time.perf_counter() - t0, 2)
 
+            # the per-step sums of the averaged dump (ipout=3,
+            # partpos_average.f90; timemanager.f90:617)
+            if cmd.ipout == 3:
+                with self.timers.section("partdump"):
+                    self._average_sample(itime + lsync, z0, z1, mt0, mt1)
+
             # decay + dry deposition + minmass (timemanager.f90:643-686)
             if self.any_drydep or self.any_decay:
                 with self.timers.section("drydepo"):
@@ -905,6 +1070,10 @@ class Simulation:
             if progress and istep % 10 == 0:
                 log.info("t=%8d s  particles=%8d", itime, int(n_act))
 
+        if cmd.ipout in (1, 2):
+            with self.timers.section("partdump"):
+                z0, z1, mt0, mt1 = self._fields_for(itime)
+                self._write_partdump(itime, z0, z1, mt0, mt1, end=True)
         self.last_itime = itime
         self.nan_count = int(nan_total)
         if self.nan_count > 0:
@@ -928,6 +1097,46 @@ class Simulation:
             log.info("per-section timings (device-synced):\n%s", report)
             (Path(self.outdir) / "profile.txt").write_text(report + "\n")
         return self.particles
+
+    @staticmethod
+    def _time_weights(itime: int, mt0: int, mt1: int):
+        """The float32 weights of the met times mt0 and mt1 at ``itime``
+        (the reference's for its particle dumps)."""
+        dt1 = float(itime - mt0)
+        dt2 = float(mt1 - itime)
+        dtt = 1.0 / max(dt1 + dt2, 1e-9)
+        return float(np.float32(dt2 * dtt)), float(np.float32(dt1 * dtt))
+
+    def _diagnostics(self, itime: int, z0, z1, mt0: int, mt1: int):
+        """The met quantities of the dump record at the particles
+        (io/partdump.py::particle_diagnostics) at ``itime``."""
+        return partdump.particle_diagnostics(
+            self.particles, z0, z1, *self._time_weights(itime, mt0, mt1))
+
+    def _write_partdump(self, itime: int, z0, z1, mt0: int, mt1: int,
+                        end: bool = False) -> None:
+        """partposit_<date> of the particles updated at ``itime``, or
+        partposit_end of every live one (partoutput.f90)."""
+        name = ("partposit_end" if end else "partposit_" + datestamp(
+            add_seconds(self.cmd.bdate, itime)))
+        partdump.write_partposit(
+            Path(self.outdir) / name, itime, self.particles, self.grid,
+            self._diagnostics(itime, z0, z1, mt0, mt1), only_current=not end)
+
+    def _average_sample(self, itime: int, z0, z1, mt0: int, mt1: int) -> None:
+        """Add the particles' sample at ``itime`` (after the advance) to
+        the running sums of the ipout=3 dump."""
+        g = self.grid
+        sample, live = partdump.averaging_sample(
+            self.particles, z0, z1, *self._time_weights(itime, mt0, mt1),
+            g.dx, g.dy, g.xlon0, g.ylat0)
+        inc = live.to(torch.float32)
+        contrib = sample * inc[None, :]
+        if self._avg_sums is None:
+            self._avg_sums, self._avg_counts = contrib, inc
+        else:
+            self._avg_sums = self._avg_sums + contrib
+            self._avg_counts = self._avg_counts + inc
 
     def _assign_bkdep(self, itime: int, z0, z1, mt0: int, mt1: int) -> None:
         """WETBKDEP / DRYBKDEP: the scavenging factor of the particles

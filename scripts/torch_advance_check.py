@@ -15,7 +15,8 @@ main path's), each with its times, one JSON line per check; on request
 also those of a backward run: the advance at ldirect = -1 (``backward``),
 K3's BKDEP and COUNT instantiations (``conccalc_backward``), K9's and
 K10's BKDEP (``bkdep``) and K6 with K7 and its BACKWARD instantiation
-(``convection``).  A failed check raises.  This is the quick call to make
+(``convection``); K12, the OH reaction (``oh``), and K13, the particle
+splitting (``split``).  A failed check raises.  This is the quick call to make
 after changing a kernel, before a whole chip_smoke.py run.
 """
 import json
@@ -51,13 +52,16 @@ def main() -> int:
               "backward": cs.kernel_advance_backward,
               "conccalc_backward": cs.kernel_conccalc_backward,
               "bkdep": cs.kernel_bkdep,
+              "oh": cs.kernel_ohreaction,
+              "split": lambda d, g: cs.kernel_split(d, g, n),
               "convection": lambda d, g: dict(zip(
                   ("convection", "redist", "redist.backward"),
                   cs.kernel_convection(d, g)))}
     for name in which:
         t0 = time.perf_counter()
         r = checks[name](device, grid)
-        r.pop("cases", None)
+        if name not in ("oh", "split"):
+            r.pop("cases", None)
         print(json.dumps({"check": name, "seconds": time.perf_counter() - t0,
                           **r}, default=str), flush=True)
     return 0

@@ -75,11 +75,12 @@ def test_four_kernels():
     """The four kernels of the stock step, the cell-order sort, the two of
     the convection: the columns (K6) and the redistribution (K7), the
     three of deposition: the deposit scatter (K8), the wet pass (K9) and
-    the decay and dry pass (K10), and the adaptive step (K11)."""
+    the decay and dry pass (K10), the adaptive step (K11), the OH
+    reaction (K12) and the particle splitting (K13)."""
     assert KERNEL_NAMES == ["normals", "quad_tables", "conccalc", "advance",
                             "reorder", "convection", "redist",
                             "depo_scatter", "wetdepo", "drydepo",
-                            "advance_adaptive"]
+                            "advance_adaptive", "ohreaction", "split"]
     for k in _build.KERNELS:
         assert k.source.is_file() and k.launches == 0 and k._fn is None
 

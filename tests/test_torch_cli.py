@@ -3,7 +3,7 @@
 A job directory in the reference's layout (pathnames, options/, the
 AVAILABLE index and npz met written by the port's ``save_eta_npz``) is run
 end to end, as ``tests/test_cli.py::test_cli_end_to_end`` runs the JAX
-package's, with ``IPOUT=0`` (particle dumps are not ported yet): in a
+package's, with ``IPOUT=0``: in a
 fresh interpreter in which ``import jax`` and ``import flexpart_tpu``
 fail, on the CPU (``--device cpu``), to the success banner, with the npz,
 ``dates``, ``header`` and ``grid_conc_*_001`` files.  The same job runs so
@@ -15,8 +15,11 @@ directory gives the same Command, Releases, OutGrid, met grid and wind
 interval (no JAX run, so nothing is compiled); on GRIB met also the same
 ``use_clwc``, off for ECMWF and on for GFS (its ``sumclouds``).  The CLI
 refuses by name, before any file is written, what the port does not run
-yet: RECEPTORS, OUTGRID_NEST with NESTED_OUTPUT=1, IPIN=1, ``--dp``,
-``--tiles``, ``--trace-dir``; a release outside
+yet: RECEPTORS, OUTGRID_NEST with NESTED_OUTPUT=1, ``--dp``,
+``--tiles``, ``--trace-dir``; it runs an ``IPOUT=2`` job and then the
+same job with ``IPIN=1`` from its ``partposit_end`` (JAX's
+``build_simulation`` giving the same particles), and an OH-reactive
+species with the reference's ``OH_variables.bin``; a release outside
 the run's window fails, as the reference's does; ``--device cuda`` (the
 default) without a card raises and never falls back to the CPU.  Nested
 met from the pathnames file's nest pairs reaches the Simulation.
@@ -289,7 +292,6 @@ REFUSED = {
                      {"OUTGRID_NEST": "&OUTGRIDN OUTLON0N=-60.0, "
                       "OUTLAT0N=30.0, NUMXGRIDN=20, NUMYGRIDN=20, "
                       "DXOUTN=1.0, DYOUTN=1.0, /\n"}, [], "outgrid_nest"),
-    "ipin": ({"IPIN=0": "IPIN=1"}, {}, [], "ipin=1"),
     "dp": ({}, {}, ["--dp"], "distributed"),
     "tiles": ({}, {}, ["--tiles"], "distributed"),
     "trace_dir": ({}, {}, ["--trace-dir", "trace"], "trace_dir"),
@@ -307,6 +309,67 @@ def test_cli_refuses_by_name_before_writing(case, metdir, tmp_path):
         tmain.main([str(pathnames), "--device", "cpu", *flags])
     assert name in str(err.value)
     assert not list((tmp_path / "job" / "output").iterdir())
+
+
+OH_SPECIES = SPECIES_024.replace(
+    "PWEIGHTMOLAR=29.0,", "PWEIGHTMOLAR=29.0, POHCCONST=1.0E-11, "
+    "POHDCONST=500.0, POHNCONST=0.0,")
+
+
+def _cli_ipin(metdir, tmp_path):
+    """An IPOUT=2 run through main(), then the same job with IPIN=1 from
+    its partposit_end: both packages' build_simulation give the same
+    particles (the schedule's 800 and the dump's), bit for bit, and the
+    port runs them to the end."""
+    from flexpart_tpu_torch.io import partdump
+    job = tmp_path / "job"
+    pathnames = _job(job, metdir, command=COMMAND.replace("IPOUT=0",
+                                                          "IPOUT=2"))
+    assert tmain.main([str(pathnames), "--device", "cpu"]) == 0
+    itime, d = partdump.read_partposit(job / "output" / "partposit_end", 1)
+    assert itime == 10800 and len(d["z"]) == 800
+    (job / "options" / "COMMAND").write_text(COMMAND.replace("IPIN=0",
+                                                             "IPIN=1"))
+    jsim = jmain.build_simulation(str(pathnames))
+    jsim.close()
+    sim = tmain.build_simulation(str(pathnames), device="cpu")
+    assert sim.particles.capacity == 1600
+    a = interop.particles_to_numpy(sim.particles)
+    for f, v in a.items():
+        np.testing.assert_array_equal(v, np.asarray(getattr(jsim.particles,
+                                                            f)), err_msg=f)
+    sim.run()
+    assert int(sim.particles.active.sum()) == 1600
+
+
+def _cli_oh_field(metdir, tmp_path):
+    """An OH-reactive species with OH_FIELDS/OH_variables.bin where the
+    reference looks for it (ohfields_path, relative to options/): both
+    packages' build_simulation read the same climatology, and the port
+    runs the job with its OH chemistry."""
+    from test_torch_ohchem import _write_oh_file
+    job = tmp_path / "job"
+    pathnames = _job(job, metdir, files={})
+    (job / "options" / "SPECIES" / "SPECIES_024").write_text(OH_SPECIES)
+    oh = tmp_path / "flexin" / "OH_FIELDS" / "OH_variables.bin"
+    oh.parent.mkdir(parents=True)
+    _write_oh_file(oh)
+    jsim = jmain.build_simulation(str(pathnames))
+    jsim.close()
+    sim = tmain.build_simulation(str(pathnames), device="cpu")
+    assert sim.any_ohreact and sim.releases.species[0].ohcconst == 1.0e-11
+    for k in ("lon", "lat", "alt", "oh", "lonjr", "latjr", "jrate_avg"):
+        np.testing.assert_array_equal(getattr(sim.oh_field, k),
+                                      getattr(jsim.oh_field, k), err_msg=k)
+    assert sim.oh_field.oh.shape == (8, 6, 3, 12)
+    sim.run()
+    assert "ohchem" in sim.timings
+    assert int(sim.particles.active.sum()) == 800
+
+
+@pytest.mark.parametrize("case", ["ipin", "oh_field"])
+def test_cli_runs_what_it_refused_before(case, metdir, tmp_path):
+    {"ipin": _cli_ipin, "oh_field": _cli_oh_field}[case](metdir, tmp_path)
 
 
 def test_cli_release_outside_window_fails(metdir, tmp_path):

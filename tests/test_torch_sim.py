@@ -429,22 +429,32 @@ REFUSED = {
     "ldirect": dict(cmd_kw=dict(ldirect=-1, mdomainfill=1),
                     names="mdomainfill"),
     "mdomainfill": dict(cmd_kw=dict(mdomainfill=1)),
-    "ipin": dict(cmd_kw=dict(ipin=1)),
     "receptors": dict(receptors=(tconfig.Receptor("r", 1.0, 41.0),)),
     "outgrid_nest": dict(outgrid_nest=tconfig.OutGrid(
         0.0, 40.0, 4, 4, 0.5, 0.5, (100.0,))),
     "iflux": dict(cmd_kw=dict(iflux=1)),
     "linit_cond": dict(cmd_kw=dict(linit_cond=1)),
-    "ipout": dict(cmd_kw=dict(ipout=1)),
     "iout=4/5": dict(cmd_kw=dict(iout=5)),
-    "mquasilag": dict(cmd_kw=dict(mquasilag=1)),
-    "itsplit": dict(cmd_kw=dict(itsplit=3600)),
-    "OH reaction": dict(species=dict(ohcconst=1e-12)),
     "distributed": dict(distributed="dp"),
     "write_fortran": dict(write_fortran=True, cmd_kw=dict(mdomainfill=1),
                           names="mdomainfill"),
-    "checkpoint_at": dict(checkpoint_at=3600),
     "trace_dir": dict(trace_dir="trace"),
+}
+
+# options the port runs since particle dumps, warm start, checkpoints, OH
+# chemistry and splitting were ported (they were cases of REFUSED): the
+# Simulation's arguments, run for one step of 900 s (two for itsplit, which
+# counts only when shorter than the run)
+ONE_STEP = dict(ietime=1500)
+PORTED = {
+    "ipin": dict(cmd_kw=dict(ipin=1, **ONE_STEP)),
+    "ipout": dict(cmd_kw=dict(ipout=2, **ONE_STEP)),
+    "mquasilag": dict(cmd_kw=dict(mquasilag=1, loutstep=900, loutaver=900,
+                                  **ONE_STEP)),
+    "itsplit": dict(cmd_kw=dict(itsplit=900, ietime=3000)),
+    "OH reaction": dict(species=dict(ohcconst=1e-12),
+                        cmd_kw=dict(ONE_STEP)),
+    "checkpoint_at": dict(checkpoint_at=900, cmd_kw=dict(ONE_STEP)),
 }
 
 
@@ -463,6 +473,53 @@ def test_unported_option_is_refused_by_name(option, tmp_path):
     assert name in str(err.value)
     # nothing was written before the refusal
     assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("option", list(PORTED))
+def test_ported_option_runs(option, tmp_path):
+    """What each formerly refused option leaves after its first step."""
+    from flexpart_tpu_torch.io import partdump
+    kw = dict(PORTED[option])
+    species = kw.pop("species", None)
+    if species is not None:
+        cmd, rel, og = _config(tconfig)
+        rel = tconfig.Releases(species=(tconfig.Species(**species),),
+                               boxes=rel.boxes)
+        kw["releases"] = rel
+    if option == "ipin":
+        # a previous run's partposit_end: 16 particles at 10 E, 45 N
+        prev = _port_sim(tmp_path / "prev").particles
+        itra = prev.itra
+        released = int(((itra >= 0) & (itra <= 900)).sum())
+        warm = prev.rows(0, 16).replace(x_hi=torch.full((16,), 19.0),
+                            y_hi=torch.full((16,), 11.5),
+                            active=torch.ones(16, dtype=torch.bool))
+        tmp_path.mkdir(exist_ok=True)
+        diag = tuple(torch.zeros(16) for _ in range(7))
+        partdump.write_partposit(tmp_path / "partposit_end", 0, warm,
+                                 make_grid(**GRID), diag, only_current=False)
+    if option == "checkpoint_at":
+        kw["checkpoint_path"] = str(tmp_path / "ck.npz")
+    sim = _port_sim(tmp_path, **kw)
+    sim.run()
+    n_live = int(sim.particles.active.sum())
+    assert sim.timings["particle_steps"] > 0 and n_live > 0
+    if option == "ipin":
+        # the schedule's releases of the first two steps and the dump's
+        assert sim.particles.capacity == N + 16
+        assert n_live == released + 16
+    elif option == "ipout":
+        _, d = partdump.read_partposit(tmp_path / "partposit_end", 1)
+        assert len(d["z"]) == n_live
+    elif option == "mquasilag":
+        assert list(tmp_path.glob("shortposit_20200101001500"))
+    elif option == "itsplit":
+        assert sim._splits and sim._origin is not None
+    elif option == "OH reaction":
+        assert "ohchem" in sim.timings and sim.any_ohreact
+    else:
+        again = _port_sim(tmp_path / "again")
+        assert again.load_checkpoint(tmp_path / "ck.npz") == 900
 
 
 def test_simulation_from_jax_carries_the_configuration(jax_run, tmp_path):
