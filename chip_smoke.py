@@ -108,6 +108,22 @@ the port's stock forward step on the card, in phases:
                 guard), and after a cell-order sort with its shuffled
                 origin; its library call torch.cumsum of the two flag
                 arrays, the scan half;
+  3c. kernels_domainfill — on the sim_domainfill phase's fill (10 x 2**20
+                particles in 11 x 2**20 slots over the 30 W - 45 E, 30 -
+                75 N window, made once by init_domainfill and timed):
+                K14, the boundary step, bitwise (every field, the
+                accumulator, the counts) with MDOMAINFILL 1 and 2, the
+                particles moved half a cell (some out of the window), in
+                cell order with their origin, the accumulator up to six
+                particle masses a site; its library call torch.cumsum of
+                the free flags; K15, the receptors, bitwise at the 32
+                receptors, its library call torch.mm of the (R, N)
+                weights; K16, the fluxes, on the particles moved up to 1.5
+                cells in the step, and K17, the initial-condition scatter
+                (linit_cond 1) on the deposition particles, a tenth of
+                them ended and all of them, both against the float64 sum
+                of their pairs (K8's rule), their library call index_add_
+                of the pairs;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
                 with the same draws; and the advance kernel with its draws
@@ -259,6 +275,23 @@ the port's stock forward step on the card, in phases:
                 live mass within rtol 1e-6); run C a warm start (ipin=1)
                 from A's partposit_end for one hour, the dumped particles'
                 count and masses the file's;
+ 14b. sim_domainfill — a regional domain fill (MDOMAINFILL=1) through
+                Simulation.run at full width: 10 x 2**20 particles of air
+                over the 30 W - 45 E, 30 - 75 N window in 11 x 2**20 slots,
+                the default Command for three hours on the sim phase's
+                grid, iflux = 1, 32 receptors inside the window, an
+                OUTGRID_NEST at 0.25 degrees over 10 W - 20 E, 40 - 60 N;
+                twice with one seed (run B from a copy of A's fill):
+                K14 every step, K15 and the nest's K3 (conccalc.nest) at
+                every sampling, K16 every step; the filled air mass equal
+                to airmass_total, particles killed and emitted at the
+                boundary, every live one inside the window, the receptor,
+                flux and nest files read back;
+ 14c. sim_initcond — sim_backward's run with linit_cond = 1 and iout = 5
+                (plume trajectories, clustered on the card), twice with
+                one seed: K17 every step and at the end, grid_initial_*
+                holding every particle's mass over its density once,
+                trajectories.txt with a line per output;
  15. legacy   — the matched-RNG validation path (Simulation(legacy_rng=
                 True)) has no kernel and runs on the CPU only: on the card
                 the constructor and advance_all must refuse it by name.
@@ -502,9 +535,11 @@ def met_fields(kind: str, grid, device, times=(0.0,)):
 
 def _met_fields(kind: str, grid, device, times):
     """``kind``: "synthetic", "synthetic_clwc" (SyntheticMet's fields with
-    the readclouds classification of its cloud water, use_clwc) or
-    "uniform"."""
-    from flexpart_tpu_torch.met import calcpar, synthetic, verttransform
+    the readclouds classification of its cloud water, use_clwc),
+    "synthetic_pv" (with the potential vorticity, calcpv, as a Simulation
+    processes them) or "uniform"."""
+    from flexpart_tpu_torch.met import (calcpar, calcpv, synthetic,
+                                        verttransform)
     met = (synthetic.SyntheticMet(grid) if kind.startswith("synthetic")
            else synthetic.uniform_wind_met(grid, u=10.0, v=1.0))
     out, height = [], None
@@ -512,8 +547,9 @@ def _met_fields(kind: str, grid, device, times):
         eta = met.fetch(t, device)
         if height is None:
             height = verttransform.compute_heights(grid, eta)
+        pvh = calcpv.calcpv(grid, eta) if kind.endswith("_pv") else None
         out.append(calcpar.calcpar(grid, eta, verttransform.process_eta(
-            grid, eta, height, use_clwc=kind.endswith("_clwc"))))
+            grid, eta, height, pvh=pvh, use_clwc=kind.endswith("_clwc"))))
     return out
 
 
@@ -3937,6 +3973,7 @@ def run_twice(setup, kernels, what: str, released: float, path_kernels,
     # the device functions of each kernel, as the profiler names them (an
     # instantiation launched through an entry of its own by its template's)
     words = {"reorder": SORT_KERNELS, "depo_scatter": ("depo_grid_kernel",),
+             "domainfill": ("boundary_",), "receptors": ("receptor_",),
              **{k.name: (f"{k.kernel.name}_kernel",) for k in kernels
                 if hasattr(k, "kernel")}}
     for name in path_kernels:
@@ -6053,6 +6090,363 @@ def kernel_split(device, grid, n: int) -> dict:
                 cases=cases)
 
 
+# ------------------------------------------- domain fill, receptors, ... --
+
+# the sim_domainfill phase's regional window (30 W - 45 E, 30 N - 75 N),
+# its slots (the fill's 10 x 2**20 particles and room for the inflow), its
+# output grids (1 degree over the window; the nest 0.25 degree over 10 W -
+# 20 E, 40 N - 60 N) and its 32 receptors (8 x 4 points inside the window)
+DF_BOX = dict(lon1=-30.0, lon2=45.0, lat1=30.0, lat2=75.0)
+DF_CAPACITY = 11 * 2 ** 20
+DF_SEED = 1234                 # Simulation's default seed
+DF_HEIGHTS = (1000.0, 5000.0, 50000.0)
+DF_OUTGRID = dict(outlon0=-30.0, outlat0=30.0, numxgrid=75, numygrid=45,
+                  dxout=1.0, dyout=1.0, outheights=DF_HEIGHTS)
+DF_NEST = dict(outlon0=-10.0, outlat0=40.0, numxgrid=120, numygrid=80,
+               dxout=0.25, dyout=0.25, outheights=DF_HEIGHTS)
+DF_RECEPTORS = tuple((f"R{8 * j + i:02d}", -26.0 + 9.0 * i, 35.0 + 10.0 * j)
+                     for j in range(4) for i in range(8))
+# K16 and K17 against the float64 sum of their pairs: a cell of m pairs
+# within max(m * 2**-24, rtol), as K8 (float atomics, any order)
+K16_RTOL = K8_RTOL
+K17_RTOL = K8_RTOL
+K14_OPS_PER_SITE = 40          # the flux, the accumulator and the count
+K14_OPS_PER_WISH = 120         # a Philox call (about 100) and the position
+K15_OPS_PER_PAIR = 15          # a particle at a receptor: 3 differences,
+#                                3 quotients, the square sum and the kernel
+K16_OPS_PER_PARTICLE = 60      # the cells of both positions and the faces
+K17_OPS_PER_PARTICLE = 80      # the density's weights and gathers, the cell
+
+_FILL = {}
+
+
+def df_window(grid) -> tuple:
+    b = DF_BOX
+    return ((b["lon1"] - grid.xlon0) / grid.dx,
+            (b["lon2"] - grid.xlon0) / grid.dx,
+            (b["lat1"] - grid.ylat0) / grid.dy,
+            (b["lat2"] - grid.ylat0) / grid.dy)
+
+
+def df_fill(grid, device):
+    """The sim_domainfill phase's fill (init_domainfill on SyntheticMet's
+    first field, the window, N_MAIN particles in DF_CAPACITY slots), made
+    once in a run: (the particles as numpy arrays, the air mass, the
+    boundary table as numpy arrays, seconds it took)."""
+    if "fill" not in _FILL:
+        from flexpart_tpu_torch.core import domainfill
+        zf = met_fields("synthetic", grid, device)[0]
+        t0 = time.perf_counter()
+        parts, total, bnd = domainfill.init_domainfill(
+            grid, zf, N_MAIN, 1, seed=DF_SEED, capacity=DF_CAPACITY,
+            window=df_window(grid))
+        _FILL["fill"] = (parts, total, bnd, time.perf_counter() - t0)
+    return _FILL["fill"]
+
+
+def filled_particles(grid, device, seed: int, move: float = 0.0):
+    """The fill's particles on the card, all released at 0 and active, each
+    moved by up to ``move`` grid units in x and y (some out of the
+    window)."""
+    import torch
+    from flexpart_tpu_torch import interop
+    parts = df_fill(grid, device)[0]
+    p = interop.particles_from_numpy(parts, device)
+    live = p.itra == 0
+    if move:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        n = p.capacity
+        p.x_hi += (torch.rand(n, generator=gen, device=device) * 2 - 1) * move
+        p.y_hi += (torch.rand(n, generator=gen, device=device) * 2 - 1) * move
+    return p.replace(active=live)
+
+
+def held_against_f64(flats, lin, contrib, rtol_floor: float, what: str):
+    """Scatter results ``flats`` {who: (rows, nspec) float32} against the
+    float64 sum of the pairs (lin, contrib): a cell of m pairs within
+    max(m * 2**-24, rtol_floor), relatively (check_depo_scatter's rule).
+    Returns the errors and the pair counts."""
+    import torch
+    rows, nspec = next(iter(flats.values())).shape
+    dev = lin.device
+    ref = torch.zeros((rows, nspec), dtype=torch.float64, device=dev)
+    ref.index_add_(0, lin, contrib.double())
+    pairs = torch.zeros(rows, dtype=torch.int64, device=dev)
+    pairs.index_add_(0, lin, torch.ones_like(lin))
+    rtol = torch.clamp(pairs.double() * 2.0 ** -24, min=rtol_floor)[:, None]
+    check(float(ref.sum()) > 0.0, f"{what}: nothing added")
+    out = dict(pairs=int(lin.numel()), cells_hit=int((pairs != 0).sum()),
+               most_pairs_in_a_cell=int(pairs.max()))
+    for who, flat in flats.items():
+        d = (flat.double() - ref).abs()
+        rel = float((d / ref.clamp(min=1e-300)).max())
+        check(bool(torch.all(d <= rtol * ref)),
+              f"{what} {who}: a cell is further from the float64 sum of its "
+              f"pairs than their count allows, max rel {rel}")
+        out[f"{who}_max_rel_err_vs_f64"] = rel
+        if who == "kernel":
+            out["max_abs_err"] = float(d.max())
+    return out
+
+
+def kernel_boundcond(device, grid) -> dict:
+    """K14 against its plain version on the sim_domainfill phase's fill:
+    11 x 2**20 slots, 10 x 2**20 of them filled and moved by up to half a
+    cell (so that some leave the window), in cell order with their origin
+    shuffled by the sort; the site table of the window with an accumulator
+    of up to six particle masses a site (the four-round cap and its carry);
+    a step between SyntheticMet's first two fields, with the port's Philox
+    draws.  MDOMAINFILL 1 and 2: every particle field, the accumulator and
+    the counts bitwise; some particles killed, some emitted.  Its library
+    call: torch.cumsum of the free flags in origin order (the ranking's
+    scan half)."""
+    import torch
+    from flexpart_tpu_torch.core import domainfill as df
+    from flexpart_tpu_torch.core import reorder, rng
+    from flexpart_tpu_torch.core.state import FIELDS, ITRA_INACTIVE
+    cfg = step_setup(grid)[0]
+    z0, z1 = met_fields("synthetic_pv", grid, device, times=(0.0, 3600.0))
+    _, _, bnd, fill_s = df_fill(grid, device)
+    p, perm = reorder.reorder_by_cell(
+        filled_particles(grid, device, 41, move=0.5), z0.height, cfg)
+    origin = perm.long()
+    bs = df.BoundaryState.from_numpy(bnd, device)
+    xpp = bs.limits()[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(43)
+    bs.acc = torch.rand(bs.sites, generator=gen, device=device) * 6.0 * xpp
+    itime, mt0, mt1 = 900, 0, 3600
+    w0, w1 = df.time_weights(itime, mt0, mt1)
+    key = rng.Key(DF_SEED, 3000001)
+    n, s = p.capacity, bs.sites
+    cases = {}
+    for md in (1, 2):
+        args = (bs, z0.f3d, z1.f3d, z0.height, itime, w0, w1, key, LSYNC,
+                499999999, grid.ylat0, grid.dy, md, 1, 1, True, origin)
+        pk, pp = clone_particles(p), clone_particles(p)
+        acc_k, ck = df.boundcond_cuda(pk, *args)
+        acc_p, cp = df.boundcond_plain(pp, *args)
+        what = f"K14 mdomainfill={md}"
+        check(ck.tolist() == cp.tolist(),
+              f"{what}: counts {ck.tolist()} / {cp.tolist()}")
+        check_same_bits(pk, pp, what, FIELDS)
+        check(torch.equal(acc_k.view(torch.int32), acc_p.view(torch.int32)),
+              f"{what}: the accumulators differ")
+        killed, free, wanted, granted = ck.tolist()
+        check(killed > 0 and granted > 0 and granted == min(free, wanted),
+              f"{what}: counts {ck.tolist()}")
+        born = pk.active & (pk.itramem == itime)
+        check(int(born.sum()) == granted, f"{what}: new particles")
+        free_o = torch.zeros(n, dtype=torch.bool, device=device)
+        free_o[origin] = (~p.active) & ((p.itra == ITRA_INACTIVE)
+                                        | (p.itra != p.itramem))
+        # bytes: every slot's active, itra, itramem, x, y and origin; the
+        # sites' table (58 B) and gathers (16, 24 with the PV); the
+        # accumulator written; killed slots' active and itra, and a new
+        # particle's fields
+        nspec = p.nspec
+        nbytes = (n * 33 + s * (58 + 4 * (16 if md == 1 else 24) + 4)
+                  + killed * 5 + granted * (70 + 8 * nspec))
+        nops = s * (K14_OPS_PER_SITE + df.KMAX_EMIT * K14_OPS_PER_WISH)
+        cases[f"mdomainfill_{md}"] = dict(
+            slots=n, sites=s, killed=killed, free=free, wanted=wanted,
+            granted=granted, bitwise=True, max_abs_err=0.0,
+            ms=timed_in_place(lambda: clone_particles(p),
+                              lambda q: df.boundcond_cuda(q, *args)),
+            plain_ms=timed_in_place(lambda: clone_particles(p),
+                                    lambda q: df.boundcond_plain(q, *args),
+                                    3),
+            library_ms=cuda_ms(lambda: torch.cumsum(free_o, 0)),
+            **bound(nbytes, nops))
+    c = cases["mdomainfill_1"]
+    return dict(n=n, sites=s, fill_s=fill_s,
+                **{f: c[f] for f in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by", "max_abs_err",
+                                     "bitwise")}, cases=cases)
+
+
+def df_receptors(grid, device):
+    from flexpart_tpu_torch.config import Receptor
+    from flexpart_tpu_torch.grid import receptors
+    return receptors.build_receptors(
+        tuple(Receptor(*r) for r in DF_RECEPTORS), grid, device)[0]
+
+
+def kernel_receptors(device, grid) -> dict:
+    """K15 against its plain version on the fill's 10 x 2**20 particles
+    (ages up to 3 h, all sampled at 10800 s) at the 32 receptors of the
+    sim_domainfill phase, in cell order, bitwise (both add in the same fixed
+    order); half the receptors at least see some mass.  Its library call:
+    torch.mm of the (R, N) kernel weights, made beforehand, by the mass
+    (the product half of JAX's formulation)."""
+    import torch
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.grid import receptors as rc
+    cfg = step_setup(grid)[0]
+    z0 = met_fields("synthetic", grid, device)[0]
+    p, _ = reorder.reorder_by_cell(filled_particles(grid, device, 47),
+                                   z0.height, cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(53)
+    n = p.capacity
+    itime = 10800
+    p = p.replace(itra=torch.where(p.active, itime, p.itra),
+                  itramem=torch.where(p.active, (torch.rand(
+                      n, generator=gen, device=device) * itime).to(
+                      torch.int32), p.itramem))
+    rec = df_receptors(grid, device)
+    r = rec.x.shape[0]
+    c0 = torch.zeros((r, p.nspec), dtype=torch.float32, device=device)
+    args = (c0, rec, p, itime, 1.0, grid.dx, grid.dy)
+    k = rc.sample_receptors_cuda(*args)
+    pl = rc.sample_receptors_plain(*args)
+    check(torch.equal(k.view(torch.int32), pl.view(torch.int32)),
+          f"K15: kernel and plain differ by {float((k - pl).abs().max())}")
+    seen = int((k[:, 0] > 0).sum())
+    check(seen >= r // 2, f"K15: {r - seen} of {r} receptors see nothing")
+    hx, hy, hz = rc.kernel_widths(p, grid.dx, grid.dy)
+    w = torch.stack([rc.receptor_weights(rec, p, itime, j, hx, hy, hz)
+                     for j in range(r)])
+    inside = int((w > 0).sum())
+    library_ms = cuda_ms(lambda: torch.mm(w, p.mass), 3)
+    del w
+    live = int(p.active.sum())
+    nbytes = n * (29 + 4 * p.nspec)
+    return dict(n=n, receptors=r, receptors_seeing_mass=seen,
+                pairs_inside=inside,
+                ms=cuda_ms(lambda: rc.sample_receptors_cuda(*args)),
+                plain_ms=cuda_ms(lambda: rc.sample_receptors_plain(*args), 2),
+                library_ms=library_ms, bitwise=True, max_abs_err=0.0,
+                **bound(nbytes, live * r * K15_OPS_PER_PAIR))
+
+
+def df_flux_config(grid):
+    from flexpart_tpu_torch.config import OutGrid
+    from flexpart_tpu_torch.grid.fluxes import FluxConfig
+    from flexpart_tpu_torch.grid.outgrid import OutputGridGeometry
+    og = OutGrid(**DF_OUTGRID)
+    geo = OutputGridGeometry(og, grid)
+    return FluxConfig(nxg=geo.nxg, nyg=geo.nyg, nzg=geo.nzg, npointspec=1,
+                      nage=1, dxout=og.dxout, dyout=og.dyout,
+                      xoutshift=geo.xoutshift, youtshift=geo.youtshift,
+                      dx_met=grid.dx, dy_met=grid.dy, nx_met=grid.nx)
+
+
+def kernel_fluxes(device, grid) -> dict:
+    """K16 against the float64 sum of its pairs (and its plain version, to
+    the same rule) on the fill's 10 x 2**20 particles in cell order, each
+    moved in the step by up to 1.5 cells in x, 1 in y and 300 m in z, on
+    the sim_domainfill phase's 1-degree grid over the window.  Its library
+    call: index_add_ of its pairs (the scatter half)."""
+    import numpy as np
+    import torch
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.grid import fluxes as fx
+    cfg = step_setup(grid)[0]
+    z0 = met_fields("synthetic", grid, device)[0]
+    p, _ = reorder.reorder_by_cell(filled_particles(grid, device, 59),
+                                   z0.height, cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(61)
+    n = p.capacity
+
+    def u(lo, hi):
+        return torch.rand(n, generator=gen, device=device) * (hi - lo) + lo
+
+    itime = 900
+    xold, yold, zold = p.x, p.y, p.z.clone()
+    p = p.replace(x_hi=p.x_hi + u(-1.5, 1.5), y_hi=p.y_hi + u(-1.0, 1.0),
+                  z=torch.clamp(p.z + u(-300.0, 300.0), min=0.0),
+                  itra=torch.where(p.active, itime, p.itra))
+    fcfg = df_flux_config(grid)
+    lage = torch.tensor([999999999], dtype=torch.int32, device=device)
+    oh = torch.tensor(DF_HEIGHTS, dtype=torch.float32, device=device)
+    ohh = torch.as_tensor(fx.half_levels(DF_HEIGHTS), device=device)
+    args = (p, xold, yold, zold, itime, lage, oh, ohh, fcfg)
+    fk = fx.zero_flux(fcfg, p.nspec, device)
+    fp = torch.zeros_like(fk)
+    fx.calcfluxes_cuda(fk, *args)
+    fx.calcfluxes_plain(fp, *args)
+    idx, valid = fx.flux_pairs(p, xold, yold, zold, itime, lage, oh, ohh,
+                               fcfg)
+    lin = idx[valid]
+    who = torch.nonzero(valid, as_tuple=True)[0]
+    contrib = p.mass[who]
+    del idx, valid, who
+    res = held_against_f64({"kernel": fk.view(-1, p.nspec),
+                            "plain": fp.view(-1, p.nspec)}, lin, contrib,
+                           K16_RTOL, "K16")
+    flat_l = torch.zeros_like(fk).view(-1, p.nspec)
+    res["library_ms"] = cuda_ms(lambda: flat_l.index_add_(0, lin, contrib), 3)
+    res["faces"] = {f: float(fk[i].sum()) for i, f in enumerate(
+        ("east", "west", "north", "south", "up", "down"))}
+    check(all(v > 0 for v in res["faces"].values()),
+          f"K16: a face direction is never crossed {res['faces']}")
+    nspec = p.nspec
+    nbytes = n * (45 + 4 * nspec) + res["pairs"] * 8 * nspec
+    del flat_l, lin, contrib
+    res.update(n=n, grid=[6, 1, 1, fcfg.nzg, fcfg.nyg, fcfg.nxg, nspec],
+               ms=cuda_ms(lambda: fx.calcfluxes_cuda(fk, *args)),
+               plain_ms=cuda_ms(lambda: fx.calcfluxes_plain(fp, *args), 3),
+               **bound(nbytes, n * K16_OPS_PER_PARTICLE))
+    return res
+
+
+def kernel_initcond(device, grid) -> dict:
+    """K17 against the float64 sum of its pairs (and its plain version, to
+    the same rule) on the deposition particles (10 x 2**20 over the globe,
+    two species), linit_cond = 1 (the density at each particle), on the
+    sim_initcond phase's 720 x 360 x 3 grid: a step's terminated particles
+    (a tenth, ``died``) and the survivors at the run's end (every active
+    one, ``run_end``).  Its library call: index_add_ of its pairs."""
+    import torch
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.grid import initcond as ic
+    cfg, _, og, geo, _ = step_setup(grid)
+    zf = met_fields("synthetic", grid, device)[0]
+    p, _ = reorder.reorder_by_cell(depo_particles(N_MAIN, device, 67, grid),
+                                   zf.height, cfg)
+    icfg = ic.InitCondConfig(
+        nxg=geo.nxg, nyg=geo.nyg, nzg=geo.nzg, npointspec=1,
+        dxout=og.dxout, dyout=og.dyout, xoutshift=geo.xoutshift,
+        youtshift=geo.youtshift, dx_met=grid.dx, dy_met=grid.dy,
+        linit_cond=1)
+    oh = torch.tensor(og.outheights, dtype=torch.float32, device=zf.height.device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(71)
+    n = p.capacity
+    died = p.active & (torch.rand(n, generator=gen, device=device) < 0.1)
+    cases = {}
+    for name, mask in (("died", died), ("run_end", p.active)):
+        gk = ic.zero_init_cond(icfg, p.nspec, device)
+        gp = torch.zeros_like(gk)
+        ic.initcond_cuda(gk, p, mask, zf, oh, icfg)
+        ic.initcond_plain(gp, p, mask, zf, oh, icfg)
+        lin, valid, contrib = ic.initcond_pairs(p, mask, zf, oh, icfg)
+        lin, contrib = lin[valid], contrib[valid]
+        res = held_against_f64({"kernel": gk.view(-1, p.nspec),
+                                "plain": gp.view(-1, p.nspec)}, lin, contrib,
+                               K17_RTOL, f"K17 {name}")
+        flat_l = torch.zeros_like(gk).view(-1, p.nspec)
+        res["library_ms"] = cuda_ms(lambda: flat_l.index_add_(0, lin,
+                                                               contrib), 3)
+        m = int(mask.sum())
+        nspec = p.nspec
+        nbytes = n + m * (24 + 4 * nspec + 32) + res["pairs"] * 8 * nspec
+        del flat_l, lin, contrib, valid
+        res.update(masked=m,
+                   ms=cuda_ms(lambda: ic.initcond_cuda(gk, p, mask, zf, oh,
+                                                      icfg)),
+                   plain_ms=cuda_ms(lambda: ic.initcond_plain(
+                       gp, p, mask, zf, oh, icfg), 3),
+                   **bound(nbytes, m * K17_OPS_PER_PARTICLE))
+        cases[name] = res
+    c = cases["died"]
+    return dict(n=n, **{f: c[f] for f in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by",
+                                         "max_abs_err")}, cases=cases)
+
 SIM_BACKWARD_DIR = ROOT / "build" / "sim_backward_smoke"
 SIM_BKDEP_DIR = ROOT / "build" / "sim_bkdep_smoke"
 # the kernels of a backward run's path: K7 takes its BACKWARD
@@ -6066,7 +6460,8 @@ BKDEP_STEPS = 4
 
 def sim_backward_setup(outdir, device, write_netcdf: bool, n: int = N_MAIN,
                        hours: int = SIM_HOURS, ind_receptor: int = 1,
-                       release_hours: int = 1, lout: int = 3600, **kw):
+                       release_hours: int = 1, lout: int = 3600,
+                       cmd_kw=None, **kw):
     """The port's Simulation of a backward run (``ldirect=-1``) at full
     width: ``n`` = 10 x 2**20 particles released over the last
     ``release_hours`` of the run (0: all at its end, the receptor time)
@@ -6077,7 +6472,7 @@ def sim_backward_setup(outdir, device, write_netcdf: bool, n: int = N_MAIN,
     phase's grid (convection, subgrid orography and the polar caps on),
     output every ``lout`` seconds (hourly) on the 720x360x3 grid.
     ``ind_receptor`` 3 and 4 are the backward deposition modes (WETBKDEP,
-    DRYBKDEP)."""
+    DRYBKDEP); ``cmd_kw`` more of the Command's options."""
     from flexpart_tpu_torch import Simulation, SyntheticMet, make_grid
     from flexpart_tpu_torch.config import (Command, OutGrid, ReleaseBox,
                                            Releases)
@@ -6085,7 +6480,7 @@ def sim_backward_setup(outdir, device, write_netcdf: bool, n: int = N_MAIN,
     cmd = Command(ibdate=20200101, ibtime=0, iedate=20200101,
                   ietime=hours * 10000, ldirect=-1, lsynctime=LSYNC,
                   loutstep=lout, loutaver=lout, loutsample=900,
-                  ind_receptor=ind_receptor)
+                  ind_receptor=ind_receptor, **(cmd_kw or {}))
     box = ReleaseBox(idate1=20200101, itime1=(hours - release_hours) * 10000,
                      idate2=20200101, itime2=hours * 10000, z1=50.0,
                      z2=500.0, mass=(1.0, 1.0), parts=n, **STORM_BOX)
@@ -6240,6 +6635,258 @@ def phase_sim_backward(device, kernels) -> dict:
     torch.cuda.empty_cache()
     return res
 
+
+SIM_DF_DIR = ROOT / "build" / "sim_domainfill_smoke"
+SIM_IC_DIR = ROOT / "build" / "sim_initcond_smoke"
+# the kernels of sim_domainfill's path: the stock step (no deposition: the
+# tracer of a domain fill is air), the nest's sampling, the boundary (K14),
+# the receptors (K15) and the fluxes (K16)
+DF_PATH_KERNELS = ("advance", "quad_tables", "conccalc", "conccalc.nest",
+                   "reorder", "convection", "redist", "domainfill",
+                   "receptors", "fluxes")
+IC_PATH_KERNELS = BACKWARD_PATH_KERNELS + ("initcond",)
+
+
+def sim_domainfill_setup(outdir, device, write_netcdf: bool, **kw):
+    """The port's Simulation of a regional domain fill at full width:
+    MDOMAINFILL=1 over DF_BOX (30 W - 45 E, 30 N - 75 N) with N_MAIN
+    particles in DF_CAPACITY slots (room for the inflow), the default
+    Command (convection, subgrid orography) over SIM_HOURS hours of 900 s
+    steps on the sim phase's grid, hourly output on the 1-degree grid over
+    the window, iflux = 1, an OUTGRID_NEST at 0.25 degrees over 10 W - 20 E,
+    40 N - 60 N and the 32 receptors of DF_RECEPTORS."""
+    from flexpart_tpu_torch import Simulation, SyntheticMet, make_grid
+    from flexpart_tpu_torch.config import (Command, OutGrid, Receptor,
+                                           ReleaseBox, Releases, Species)
+    grid = make_grid(**SIM_GRID)
+    cmd = Command(ibdate=20200101, ibtime=0, iedate=20200101,
+                  ietime=SIM_HOURS * 10000, lsynctime=LSYNC, loutstep=3600,
+                  loutaver=3600, loutsample=900, iflux=1, mdomainfill=1)
+    box = ReleaseBox(idate1=20200101, itime1=0, idate2=20200101, itime2=0,
+                     z1=0.0, z2=50000.0, mass=(1.0,), parts=N_MAIN, **DF_BOX)
+    return Simulation(
+        cmd=cmd, releases=Releases(species=(Species(),), boxes=(box,)),
+        grid=grid, met_backend=SyntheticMet(grid),
+        outgrid=OutGrid(**DF_OUTGRID), outdir=str(outdir), device=device,
+        capacity=DF_CAPACITY, outgrid_nest=OutGrid(**DF_NEST),
+        receptors=tuple(Receptor(*r) for r in DF_RECEPTORS),
+        write_netcdf=write_netcdf, **kw)
+
+
+def sim_domainfill_run_checks(sim, what: str, released: float) -> tuple:
+    """What a regional domain fill holds after its run: particle steps made
+    and the met reader never failed; the filled air mass (the fill's
+    particles, before the first step) equal to airmass_total within 1e-3
+    (the fill's rounding of particles per column), every live particle
+    finite and inside the window; particles killed at the window's edge
+    and emitted at its faces; the receptor, flux and nest files of every
+    output, read back with the port's readers, finite and not negative,
+    each with mass somewhere.  Returns (the numbers, the last file's name,
+    its conc)."""
+    import numpy as np
+    import torch
+    from flexpart_tpu_torch.io.fortran_writer import read_flux, read_receptor
+    check(sim.timings["particle_steps"] > 0 and sim._prefetch_failures == 0,
+          f"{what}: no particle steps, or the met reader failed")
+    filled = sim._filled_mass
+    check(abs(filled - sim.airmass_total) <= 1e-3 * sim.airmass_total,
+          f"{what}: filled {filled} kg of {sim.airmass_total}")
+    pa = sim.particles
+    act = pa.active
+    for f in ("x_hi", "x_lo", "y_hi", "y_lo", "z", "up", "vp", "wp"):
+        check(bool(torch.isfinite(getattr(pa, f)[act]).all()),
+              f"{what}: {f} not finite")
+    _, xlo, xhi, ylo, yhi = sim._boundary.limits()
+    x, y = pa.x[act], pa.y[act]
+    check(bool(((x >= xlo) & (x <= xhi) & (y >= ylo) & (y <= yhi)).all()),
+          f"{what}: a live particle outside the window")
+    counts = torch.stack(sim.boundary_counts).sum(0).tolist()
+    killed, _, wanted, granted = counts
+    check(killed > 0 and granted > 0 and granted == wanted,
+          f"{what}: boundary (killed, free, wanted, granted) {counts}")
+    out = Path(sim.outdir)
+    npz = sorted(q.name for q in out.glob("grid_conc_*.npz"))
+    dates = [n[len("grid_conc_"):-4] for n in npz]
+    check(len(npz) == SIM_HOURS - 1, f"{what}: npz {npz}")
+    names, _, _, steps = read_receptor(out / "receptor_conc", 1)
+    check(len(names) == len(DF_RECEPTORS) and len(steps) == len(npz)
+          and all(np.isfinite(v).all() and (v >= 0).all() for _, v in steps)
+          and max(float(v.max()) for _, v in steps) > 0,
+          f"{what}: receptor_conc")
+    shape = np.load(out / f"grid_flux_{dates[-1]}.npz")["flux"].shape
+    faces = []
+    for d in dates:
+        _, fl = read_flux(out / f"grid_flux_{d}", shape)
+        check(bool(np.isfinite(fl).all() and (fl >= 0).all()),
+              f"{what}: grid_flux_{d}")
+        faces.append(fl.sum(axis=tuple(range(1, fl.ndim))).tolist())
+        nest = np.load(out / "nest" / f"grid_conc_{d}.npz")["conc"]
+        check(bool(np.isfinite(nest).all()) and float(nest.max()) > 0,
+              f"{what}: nest grid_conc_{d}")
+    check(all(v > 0 for v in faces[-1]), f"{what}: fluxes per face {faces}")
+    conc = np.load(out / npz[-1])["conc"]
+    check(bool(np.isfinite(conc).all()) and float(conc.max()) > 0,
+          f"{what}: conc")
+    return dict(airmass_total=sim.airmass_total, filled_mass=filled,
+                fill_s=sim._fill_s, active=int(act.sum()),
+                boundary_killed_free_wanted_granted=counts,
+                sites=sim._boundary.sites,
+                receptor_max=max(float(v.max()) for _, v in steps),
+                flux_ng_m2_s_per_face_and_output=faces), npz[-1], conc
+
+
+def phase_sim_domainfill(device, kernels) -> dict:
+    """A regional domain fill through ``Simulation.run`` at full width
+    (sim_domainfill_setup), twice with one seed (run_twice, with
+    sim_domainfill_run_checks): every kernel of the path launched, K14 once
+    a step, K15 and the nest's K3 at every sampling, K16 once a step; the
+    two runs bitwise equal.  Run A fills the domain itself (the fill timed
+    apart); run B starts from a copy of A's fill."""
+    import shutil
+    import torch
+    from flexpart_tpu_torch.core import domainfill as df
+    try:
+        import h5py  # noqa: F401
+        netcdf = True
+    except ImportError:
+        netcdf = False
+    shutil.rmtree(SIM_DF_DIR, ignore_errors=True)
+    nsteps = SIM_HOURS * 3600 // LSYNC
+    fill = {}
+
+    def setup(run):
+        sim = sim_domainfill_setup(SIM_DF_DIR / run, device,
+                                   netcdf and run == "a", profile=run == "b")
+        own_fill = sim._fill_domain
+
+        def fill_and_keep():
+            t0 = time.perf_counter()
+            if run == "a":
+                own_fill()
+                fill.update(particles=clone_particles(sim.particles),
+                            boundary=sim._boundary.to_numpy(),
+                            total=sim.airmass_total)
+            else:
+                sim.particles = clone_particles(fill["particles"])
+                sim._boundary = df.BoundaryState.from_numpy(
+                    fill["boundary"], device)
+                sim.airmass_total = fill["total"]
+            sim._fill_s = time.perf_counter() - t0
+            sim._filled_mass = float(
+                sim.particles.mass.sum(dtype=torch.float64))
+        sim._fill_domain = fill_and_keep
+        return sim
+
+    sim, rows, a = run_twice(setup, kernels, "sim_domainfill", 0.0,
+                             DF_PATH_KERNELS,
+                             run_checks=sim_domainfill_run_checks)
+    launches = a["launches"]
+    # the mother grid samples once more after each output (the next
+    # window's first sample, flexpart_tpu/run/simulation.py:1248-1253), the
+    # nest and the receptors not, as in the JAX package
+    samplings = launches["conccalc"] - (SIM_HOURS - 1)
+    check(launches["domainfill"] == nsteps + 1
+          and launches["fluxes"] == nsteps
+          and launches["receptors"] == launches["conccalc.nest"] == samplings
+          and launches["advance"] == nsteps,
+          f"sim_domainfill: {launches} launches in {nsteps} steps")
+    device_ms, per_launch = per_launch_of(rows)
+    res = dict(
+        n=N_MAIN, capacity=DF_CAPACITY, steps=nsteps, netcdf=netcdf, **a,
+        device_ms_all_kernels=device_ms,
+        device_per_call={
+            "advance": per_launch(("advance_kernel",), nsteps),
+            "domainfill": per_launch(("boundary_",), nsteps + 1),
+            "receptors": per_launch(("receptor_",), samplings),
+            "fluxes": per_launch(("fluxes_kernel",), nsteps),
+            "conccalc_both_grids": per_launch(
+                ("conccalc_kernel",), launches["conccalc"] + samplings),
+            "reorder": per_launch(SORT_KERNELS, a["sorts"])},
+        top=[dict(name=k[:60], calls=c, ms=ms) for k, c, ms in rows[:10]])
+    del sim, fill
+    shutil.rmtree(SIM_DF_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def sim_initcond_run_checks(sim, what: str, released: float) -> tuple:
+    """sim_backward_run_checks, and the initial-condition sensitivity: with
+    no particle ended (the globe holds them all), the grid is the scatter
+    of every particle once at the run's end: each cell against the float64
+    sum of the pairs of the plain version (held_against_f64, K17's rule),
+    and those pairs, per species, sum to the particles' mass over the
+    density at them within rtol 1e-6 (every particle counted once);
+    grid_initial_001 and _002 written; trajectories.txt with its header
+    and one line per output."""
+    import torch
+    from flexpart_tpu_torch.grid import initcond as ic
+    out, last, conc = sim_backward_run_checks(sim, what, released)
+    pa = sim.particles
+    _, z1, _, _ = sim._fields_for(sim.last_itime)
+    sim.close()                       # the reader that _fields_for woke
+    oh = torch.tensor(sim.outgrid.outheights, dtype=torch.float32,
+                      device=pa.device)
+    lin, valid, contrib = ic.initcond_pairs(pa, pa.active, z1, oh, sim.ic_cfg)
+    lin, contrib = lin[valid], contrib[valid]
+    held = held_against_f64({"kernel": sim.init_cond.view(-1, pa.nspec)},
+                            lin, contrib, K17_RTOL, f"{what} grid_initial")
+    rho = ic.rho_at(pa, z1).double()
+    want = (pa.mass.double() / rho[:, None])[pa.active].sum(0)
+    pairs_sum = contrib.double().sum(0)
+    check(bool(torch.all((pairs_sum - want).abs() <= 1e-6 * want)),
+          f"{what}: the pairs hold {pairs_sum.tolist()}, the particles "
+          f"{want.tolist()}")
+    del lin, contrib, valid
+    d = Path(sim.outdir)
+    files = sorted(q.name for q in d.glob("grid_initial_*"))
+    check(files == ["grid_initial_001", "grid_initial_002"],
+          f"{what}: {files}")
+    lines = (d / "trajectories.txt").read_text().splitlines()
+    outputs = len(list(d.glob("grid_conc_*.npz")))
+    check(len(lines) == 4 + outputs and outputs > 0,
+          f"{what}: trajectories.txt has {len(lines)} lines")
+    out.update(init_cond_sum=sim.init_cond.double().sum(
+        dim=(0, 1, 2, 3)).tolist(), init_cond_particles=want.tolist(),
+        init_cond_held=held, trajectory_lines=lines[4:])
+    return out, last, conc
+
+
+def phase_sim_initcond(device, kernels) -> dict:
+    """The sensitivity to the initial condition of a backward run through
+    ``Simulation.run`` at full width: sim_backward's configuration with
+    linit_cond = 1 and iout = 5 (plume trajectories, clustered on the card),
+    twice with one seed (run_twice, with sim_initcond_run_checks): the
+    backward path's kernels and K17 (once a step on the particles that
+    ended in it, none here, and once at the end on the survivors), the two
+    runs bitwise equal."""
+    import shutil
+    import torch
+    shutil.rmtree(SIM_IC_DIR, ignore_errors=True)
+    nsteps = SIM_HOURS * 3600 // LSYNC
+
+    def setup(run):
+        return sim_backward_setup(SIM_IC_DIR / run, device, False,
+                                  profile=run == "b",
+                                  cmd_kw=dict(linit_cond=1, iout=5))
+
+    sim, rows, a = run_twice(setup, kernels, "sim_initcond", 1.0,
+                             IC_PATH_KERNELS,
+                             run_checks=sim_initcond_run_checks)
+    launches = a["launches"]
+    check(launches["initcond"] == nsteps + 1
+          and launches["advance"] == nsteps,
+          f"sim_initcond: {launches} launches in {nsteps} steps")
+    device_ms, per_launch = per_launch_of(rows)
+    res = dict(
+        n=N_MAIN, steps=nsteps, **a, device_ms_all_kernels=device_ms,
+        device_per_call={
+            "initcond": per_launch(("initcond_kernel",), nsteps + 1),
+            "advance": per_launch(("advance_kernel",), nsteps)},
+        top=[dict(name=k[:60], calls=c, ms=ms) for k, c, ms in rows[:10]])
+    del sim
+    shutil.rmtree(SIM_IC_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
 
 def phase_sim_bkdep(device, kernels) -> dict:
     """The backward deposition modes through ``Simulation.run`` on the
@@ -6686,6 +7333,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
+    dfk = {"domainfill": kernel_boundcond(device, grid),
+           "receptors": kernel_receptors(device, grid),
+           "fluxes": kernel_fluxes(device, grid),
+           "initcond": kernel_initcond(device, grid)}
+    emit({"phase": "kernels_domainfill", "seconds": time.perf_counter() - t0,
+          **dfk, "power_limit": smi})
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
     sres = phase_step(device, grid)
     emit({"phase": "step", "seconds": time.perf_counter() - t0, **sres})
     torch.cuda.empty_cache()
@@ -6757,6 +7413,16 @@ def main() -> int:
     ohres = phase_sim_oh_split(device, counted)
     emit({"phase": "sim_oh_split", "seconds": time.perf_counter() - t0,
           **ohres, "device": name, "power_limit": smi})
+
+    t0 = time.perf_counter()
+    dfres = phase_sim_domainfill(device, counted)
+    emit({"phase": "sim_domainfill", "seconds": time.perf_counter() - t0,
+          **dfres, "device": name, "power_limit": smi})
+
+    t0 = time.perf_counter()
+    icres = phase_sim_initcond(device, counted)
+    emit({"phase": "sim_initcond", "seconds": time.perf_counter() - t0,
+          **icres, "device": name, "power_limit": smi})
 
     t0 = time.perf_counter()
     lres = phase_legacy(device)
@@ -6934,9 +7600,11 @@ def main() -> int:
                 "launches_sim_bkdep": {m: r["launches"][kname]
                                        for m, r in kres_bk.items()}}
 
-    # K12 and K13 run on sim_oh_split's path alone: their launches are its
-    # run A's, and they have rows of their own below
-    slice18 = ("ohreaction", "split")
+    # K12 and K13 run on sim_oh_split's path alone, K14-K16 on
+    # sim_domainfill's and K17 on sim_initcond's: their launches are those
+    # runs' A, and they have rows of their own below
+    slice18 = ("ohreaction", "split", "domainfill", "receptors", "fluxes",
+               "initcond")
     line = [
         {"name": k.name, "route": "cuda", "source": src.format(k.name),
          "replaces": replaces[k.name][0], "tpu_route": replaces[k.name][1],
@@ -6944,6 +7612,8 @@ def main() -> int:
          "launches_sim": simres["launches"][k.name],
          "launches_sim_npz": npzres["launches"][k.name],
          "launches_sim_adaptive": adres["launches"][k.name],
+         "launches_sim_domainfill": dfres["launches"][k.name],
+         "launches_sim_initcond": icres["launches"][k.name],
          **path_launches(k.name),
          **{f: kres[k.name][f] for f in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -7057,6 +7727,45 @@ def main() -> int:
                                   "bound_operations", "unordered_ms",
                                   "layout", "oh_grid") if f in r},
              "sim_oh_split_held": ohres["run_b"]["held"][kname]})
+    # K14-K17: the kernels_domainfill phase's numbers, the launches of the
+    # path that runs each; the nest's sampling is K3's stock instantiation,
+    # counted apart (conccalc.nest), with K3's numbers
+    for kname, ref, path, pres in (
+            ("domainfill", "flexpart_tpu/core/domainfill.py:319",
+             "sim_domainfill", dfres),
+            ("receptors", "flexpart_tpu/grid/receptors.py:52",
+             "sim_domainfill", dfres),
+            ("fluxes", "flexpart_tpu/grid/fluxes.py:46", "sim_domainfill",
+             dfres),
+            ("initcond", "flexpart_tpu/grid/initcond.py:49", "sim_initcond",
+             icres)):
+        r = dfk[kname]
+        n_launch = pres["launches"][kname]
+        line.append(
+            {"name": kname, "route": "cuda", "source": src.format(kname),
+             "replaces": ref, "tpu_route": "XLA", "launches": n_launch,
+             f"launches_per_step_{path}": n_launch / pres["steps"],
+             **{f: r[f] for f in pick},
+             **{f: r[f] for f in ("n", "sites", "fill_s", "receptors",
+                                  "receptors_seeing_mass", "pairs_inside",
+                                  "bitwise", "cases", "bound_bytes",
+                                  "bound_operations", "pairs", "cells_hit",
+                                  "most_pairs_in_a_cell", "grid",
+                                  "kernel_max_rel_err_vs_f64", "faces")
+                if f in r},
+             f"{path}_per_call": pres["device_per_call"][kname]})
+    line.append(
+        {"name": "conccalc.nest", "route": "cuda",
+         "source": src.format("conccalc"),
+         # the nest's conccalc (run/simulation.py:1198-1203 there)
+         "replaces": "flexpart_tpu/grid/conccalc.py:78", "tpu_route": "XLA",
+         "launches": dfres["launches"]["conccalc.nest"],
+         "launches_per_step_sim_domainfill":
+             dfres["launches"]["conccalc.nest"] / dfres["steps"],
+         "numbers_of": "conccalc: the stock instantiation, on the nest's grid",
+         **{f: kres["conccalc"][f] for f in pick},
+         "sim_domainfill_per_call_both_grids":
+             dfres["device_per_call"]["conccalc_both_grids"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_script})
     emit({"kernels": line})
     print(smi, flush=True)

@@ -13,7 +13,8 @@ stock forward step is
 and ``run.simulation.Simulation`` drives it from a configuration
 (``config``) through release (``core.release``), the cell-order sort
 (``core.reorder``) and the writers (``io``): forward or backward, on one
-device, with the fixed or the adaptive step.  ``main`` is the command line,
+device, with the fixed or the adaptive step, or over a domain filled with
+air (``core.domainfill``).  ``main`` is the command line,
 ``python -m flexpart_tpu_torch pathnames``: a job directory in the
 reference's layout with npz met (``met.npzmet``).
 

@@ -29,7 +29,8 @@ instantiation that a path launches on its own (K3's ``BKDEP`` and
 with and without ``BKDEP``) is an ``Entry`` with a count of its own: the
 kernel's launcher, picked by its arguments (``xscav`` given, ``ctwc``
 given, ``count``, ``backward``), counted in the entry's count and not in
-the kernel's.
+the kernel's; the sampling of the nested output grid is K3's stock
+instantiation on the nest's grid, an entry too (``conccalc.nest``).
 """
 
 from __future__ import annotations
@@ -487,6 +488,78 @@ SPLIT = Kernel("split", "fp_split", [
     P,                    # stream
 ])
 
+DOMAINFILL = Kernel("domainfill", "fp_domainfill", [
+    P,                    # the 22 field pointers of Particles (host array, FIELDS order), in place
+    P,                    # origin (n,) i64, or NULL (the identity)
+    I, I,                 # n, nspec
+    P, I,                 # the 15 site pointers (host array, BOUNDARY_FIELDS[:15]), S sites
+    P,                    # out: acc (S,) f32
+    P, P, P,              # f3d0, f3d1 (NF3, nz, ny, nx), height (nz,) f32
+    I, I, I,              # nz, ny, nx
+    F, F, F,              # w0, w1, lsynctime
+    F, F, F, F, F,        # xpp, window x lo, hi, y lo, hi
+    I, I,                 # check_x, mdomainfill
+    F, F,                 # ylat0, dy
+    I, I, I,              # itime, the new particles' itrasplit, nclassunc
+    U32, U32,             # philox key words
+    P, P, P,              # injected u1, u2 (4, S) f32, nclass (4, S) i32, or all NULL
+    P, P, P,              # scratch: free flags (tiles * 4096,) u8 zeroed, slot at origin (n,), tile sums (tiles,) i32
+    P, P, P, P,           # scratch: wishes (wtiles * 4096,) u8 zeroed, tile sums (wtiles,), free slots by rank, classes (4 S,) i32
+    P, P, P, P,           # scratch: the wishes' x, y, z, mass (4 S,) f32
+    P,                    # out: counts (4,) i32 zeroed: killed, free, wanted, granted
+    I,                    # multiprocessors
+    P,                    # stream
+])
+
+RECEPTORS = Kernel("receptors", "fp_receptors", [
+    P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
+    P, P,                 # itra, itramem (n,) i32
+    P,                    # active (n,) bool
+    P,                    # mass (n, nspec) f32
+    P, P, P,              # receptors' x, y, area (R,) f32
+    I, I, I,              # n, nspec, R
+    I,                    # itime
+    F, F,                 # dx, dy
+    F,                    # 2 weight
+    P,                    # creceptor (R, nspec) f32
+    P, I,                 # scratch: block partials (R nspec blocks,) f32, blocks
+    P,                    # out: (R, nspec) f32
+    P,                    # stream
+])
+
+FLUXES = Kernel("fluxes", "fp_fluxes", [
+    P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
+    P, P, P,              # xold, yold, zold (n,) f32
+    P, P, P,              # itra, itramem, npoint (n,) i32
+    P,                    # active (n,) bool
+    P,                    # mass (n, nspec) f32
+    P, I,                 # lage (nage,) i32, nage
+    P, P, I,              # outheight (nzg,), its half levels (nzg + 1,) f32, nzg
+    I, I, I, I, I,        # n, nspec, nxg, nyg, npointspec
+    I,                    # ioutputforeachrelease
+    F, F, F, F, F, F,     # dx_met, dy_met, xoutshift, youtshift, dxout, dyout
+    F,                    # nx_met / 2
+    I,                    # itime
+    P,                    # flux (6, nage, npointspec, nzg, nyg, nxg, nspec) f32, accumulated into
+    P,                    # stream
+])
+
+INITCOND = Kernel("initcond", "fp_initcond", [
+    P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
+    P,                    # npoint (n,) i32
+    P,                    # mass (n, nspec) f32
+    P,                    # mask (n,) bool
+    P, P,                 # rho (nz, ny, nx), height (nz,) f32
+    I, I, I,              # nz, ny, nx
+    I,                    # by_rho: linit_cond == 1
+    P, I,                 # outheight (nzg,) f32, nzg
+    I, I, I, I, I,        # n, nspec, nxg, nyg, npointspec
+    I,                    # ioutputforeachrelease
+    F, F, F, F, F, F,     # dx_met, dy_met, xoutshift, youtshift, dxout, dyout
+    P,                    # grid (npointspec, nzg, nyg, nxg, nspec) f32, accumulated into
+    P,                    # stream
+])
+
 # the instantiations of the backward runs (ldirect = -1)
 CONCCALC_BKDEP = Entry(CONCCALC, "conccalc.bkdep")      # xscav given
 CONCCALC_COUNT = Entry(CONCCALC, "conccalc.count")      # count = 1
@@ -496,9 +569,12 @@ DRYDEPO_BKDEP = Entry(DRYDEPO, "drydepo.bkdep")         # xscav given
 # the cloud-water instantiations of met that carries it (GFS: use_clwc)
 WETDEPO_CLWC = Entry(WETDEPO, "wetdepo.clwc")           # ctwc given
 WETDEPO_BKDEP_CLWC = Entry(WETDEPO, "wetdepo.bkdep_clwc")   # both given
+# the sampling of the nested output grid (OUTGRID_NEST): K3's stock
+# instantiation on the nest's grid, counted apart from the mother grid's
+CONCCALC_NEST = Entry(CONCCALC, "conccalc.nest")
 
 ENTRIES = (CONCCALC_BKDEP, CONCCALC_COUNT, REDIST_BACKWARD, WETDEPO_BKDEP,
-           DRYDEPO_BKDEP, WETDEPO_CLWC, WETDEPO_BKDEP_CLWC)
+           DRYDEPO_BKDEP, WETDEPO_CLWC, WETDEPO_BKDEP_CLWC, CONCCALC_NEST)
 
 # fp_convection_layout(nl, out): out (4,) i32 gets K6's shared bytes per
 # column, columns per block, resident blocks per SM and registers per thread
@@ -509,4 +585,4 @@ OH_LAYOUT = [I, I, I, I, P]
 
 KERNELS = (NORMALS, QUAD_TABLES, CONCCALC, ADVANCE, REORDER, CONVECTION,
            REDIST, DEPO_SCATTER, WETDEPO, DRYDEPO, ADVANCE_ADAPTIVE,
-           OHREACTION, SPLIT)
+           OHREACTION, SPLIT, DOMAINFILL, RECEPTORS, FLUXES, INITCOND)

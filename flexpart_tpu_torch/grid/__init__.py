@@ -1,2 +1,3 @@
-"""Output layer of the port: output-grid geometry, accumulators and
-concentration sampling."""
+"""Output layer of the port: output-grid geometry, accumulators,
+concentration sampling, receptors, gross fluxes, the initial-condition
+sensitivity and plume trajectories."""

@@ -187,10 +187,11 @@ def conccalc_plain(flat: torch.Tensor, p: Particles, itime: int,
 def conccalc_cuda(flat: torch.Tensor, p: Particles, itime: int,
                   lage: torch.Tensor, outheight: torch.Tensor,
                   weight: float, rhoi: torch.Tensor | None,
-                  cfg: ConcConfig) -> None:
+                  cfg: ConcConfig, nest: bool = False) -> None:
     """K3 launch: accumulate into ``flat`` (rows, nspec) in place; its
     ``COUNT`` instantiation for ``particle_count_output``, else its
-    ``BKDEP`` one for ``bkdep``, else the stock one."""
+    ``BKDEP`` one for ``bkdep``, else the stock one, counted as the nested
+    output grid's (``conccalc.nest``) where ``nest``."""
     if p.capacity == 0:
         return
     dev = flat.device
@@ -228,7 +229,8 @@ def conccalc_cuda(flat: torch.Tensor, p: Particles, itime: int,
         return float(np.float32(v))
 
     kernel = (_build.CONCCALC_COUNT if count else
-              _build.CONCCALC_BKDEP if bkdep else _build.CONCCALC)
+              _build.CONCCALC_BKDEP if bkdep else
+              _build.CONCCALC_NEST if nest else _build.CONCCALC)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         kernel(
@@ -249,8 +251,9 @@ def conccalc_cuda(flat: torch.Tensor, p: Particles, itime: int,
 
 def conccalc(acc: Accumulators, p: Particles, zf: ZFields, itime: int,
              lage: torch.Tensor, weight: float, cfg: ConcConfig,
-             outheight: torch.Tensor) -> Accumulators:
-    """One sampling pass: K3 on CUDA, the plain twin on the CPU."""
+             outheight: torch.Tensor, nest: bool = False) -> Accumulators:
+    """One sampling pass: K3 on CUDA (``nest``: the nested output
+    grid's), the plain twin on the CPU."""
     if cfg.ind_samp not in (0, -1):
         raise ValueError(f"ind_samp must be 0 or -1, not {cfg.ind_samp}")
     if lage.shape[0] < cfg.nage:
@@ -260,7 +263,8 @@ def conccalc(acc: Accumulators, p: Particles, zf: ZFields, itime: int,
     flat = acc.gridunc.view(-1, p.nspec)
     dev = flat.device
     if dev.type == "cuda":
-        conccalc_cuda(flat, p, itime, lage, outheight, weight, rhoi, cfg)
+        conccalc_cuda(flat, p, itime, lage, outheight, weight, rhoi, cfg,
+                      nest)
     elif dev.type == "cpu":
         conccalc_plain(flat, p, itime, lage, outheight, weight, rhoi, cfg)
     else:
@@ -268,14 +272,16 @@ def conccalc(acc: Accumulators, p: Particles, zf: ZFields, itime: int,
     return acc.replace(outnum=acc.outnum + weight)
 
 
-def make_conccalc(outheights):
+def make_conccalc(outheights, nest: bool = False):
     """Bind the output level heights, return a sampler
-    ``(acc, particles, zfields, itime, lage, weight, cfg) -> acc``."""
+    ``(acc, particles, zfields, itime, lage, weight, cfg) -> acc``;
+    ``nest``: the nested output grid's (its K3 launches counted apart)."""
     oh = np.asarray(outheights, np.float32)
 
     def run(acc: Accumulators, p: Particles, zf: ZFields, itime: int,
             lage: torch.Tensor, weight: float, cfg: ConcConfig) -> Accumulators:
         outheight = torch.as_tensor(oh, device=acc.gridunc.device)
-        return conccalc(acc, p, zf, itime, lage, weight, cfg, outheight)
+        return conccalc(acc, p, zf, itime, lage, weight, cfg, outheight,
+                        nest)
 
     return run

@@ -1,6 +1,7 @@
 """Output grid geometry (numpy copy of ``flexpart_tpu/grid/outgrid.py``,
-which imports jax: cell areas and volumes, the air density and the mean
-orography on the output grid, all host numpy) and the concentration
+which imports jax: cell areas, wall areas and volumes, the air density on
+the output grid and at receptors and the mean orography on the output
+grid, all host numpy) and the concentration
 accumulators as tensors.
 
 ``gridunc`` is stored (nage, nclass, kp, nzg, nyg, nxg, nspec) with the
@@ -75,6 +76,30 @@ class OutputGridGeometry:
         dz = np.diff(np.concatenate([[0.0], oh]))
         return dz[:, None, None] * self.area[None]
 
+    @functools.cached_property
+    def areaeast(self) -> np.ndarray:
+        """Eastward-facing cell wall area [m2], (nzg, nyg, nxg)
+        (outgrid_init.f90:88-93)."""
+        oh = self.outheight
+        dz = np.diff(np.concatenate([[0.0], oh]))
+        ae = dz * self.og.dyout * R_EARTH * PI / 180.0
+        return np.broadcast_to(ae[:, None, None],
+                               (self.nzg, self.nyg, self.nxg)).copy()
+
+    @functools.cached_property
+    def areanorth(self) -> np.ndarray:
+        """Northward-facing cell wall area [m2], (nzg, nyg, nxg)
+        (outgrid_init.f90:89-95)."""
+        oh = self.outheight
+        dz = np.diff(np.concatenate([[0.0], oh]))
+        ylat = self.og.outlat0 + (np.arange(self.nyg) + 0.5) \
+            * self.og.dyout
+        an = (np.cos(np.deg2rad(ylat))[None] * dz[:, None]
+              * self.og.dxout * R_EARTH * PI / 180.0)
+        return np.broadcast_to(an[:, :, None],
+                               (self.nzg, self.nyg, self.nxg)).copy()
+
+
 
 def density_outgrid(geo: OutputGridGeometry, height, rho) -> np.ndarray:
     """(nzg, nyg, nxg) air density at the output-layer half-heights from
@@ -108,6 +133,17 @@ def density_outgrid(geo: OutputGridGeometry, height, rho) -> np.ndarray:
     return ((cols[kzz] * dz1[:, None, None]
              + cols[kzz - 1] * dz2[:, None, None])
             / dz[:, None, None]).astype(np.float32)
+
+
+def density_receptors(rec_x, rec_y, rho) -> np.ndarray:
+    """Air density at receptor positions, lowest model level, nearest
+    column (concoutput.f90:193-199 densityoutrecept)."""
+    rho = np.asarray(rho)
+    ny, nx = rho.shape[1:]
+    iix = np.clip(np.rint(np.asarray(rec_x)).astype(int), 0, nx - 1)
+    jjy = np.clip(np.rint(np.asarray(rec_y)).astype(int), 0, ny - 1)
+    return rho[0, jjy, iix].astype(np.float32)
+
 
 
 def oro_outgrid(geo: OutputGridGeometry, oro) -> np.ndarray:

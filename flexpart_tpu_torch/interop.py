@@ -170,12 +170,27 @@ def oh_field_from_jax(field):
                       for f in dataclasses.fields(OHField)})
 
 
+def receptors_from_jax(receptors) -> tuple:
+    return tuple(_by_fields(_config.Receptor, r) for r in receptors)
+
+
+def boundary_from_jax(bs, device):
+    """The JAX package's ``BoundaryState`` (numpy leaves, or a dict of
+    them) as the port's."""
+    from .core.domainfill import BoundaryState
+    return BoundaryState.from_numpy(bs, device)
+
+
 def simulation_from_jax(sim, device, met_backend=None, outdir=None):
     """The port's ``Simulation`` with the configuration of a JAX one (the
     deposition fields ``options_dir`` and ``minmass``, ``capacity``, the OH
-    climatology, ``checkpoint_at`` and ``checkpoint_path`` among the rest)
-    and its convective flux memory ``cbmf`` (the particles are the port's
-    own release schedule, equal to the JAX one's).  The met backend is not
+    climatology, ``checkpoint_at`` and ``checkpoint_path``, the receptors
+    and the nested output grid among the rest; the fluxes, the
+    initial-condition sensitivity and the domain fill follow from the
+    ``Command``) and its convective flux memory ``cbmf`` (the particles are
+    the port's own release schedule, equal to the JAX one's).  A JAX
+    domain fill that has been made (its run started) carries its particles,
+    its air mass and its boundary state across.  The met backend is not
     carried over (its ``fetch`` returns JAX arrays): ``met_backend`` is the
     port's, by default ``SyntheticMet`` on the same grid.  ``outdir``
     defaults to the JAX run's."""
@@ -191,6 +206,10 @@ def simulation_from_jax(sim, device, met_backend=None, outdir=None):
             if f.name not in own and hasattr(sim, f.name)}
     if rest.get("oh_field") is not None:
         rest["oh_field"] = oh_field_from_jax(rest["oh_field"])
+    if rest.get("receptors"):
+        rest["receptors"] = receptors_from_jax(rest["receptors"])
+    if rest.get("outgrid_nest") is not None:
+        rest["outgrid_nest"] = outgrid_from_jax(rest["outgrid_nest"])
     out = Simulation(
         cmd=command_from_jax(sim.cmd),
         releases=releases_from_jax(sim.releases), grid=grid,
@@ -200,4 +219,13 @@ def simulation_from_jax(sim, device, met_backend=None, outdir=None):
         **rest)
     if getattr(sim, "cbmf", None) is not None and out.cbmf is not None:
         out.cbmf = to_tensor(np.asarray(sim.cbmf, np.float32), out.device)
+    if out.cmd.mdomainfill >= 1 and sim.particles is not None:
+        out.particles = particles_from_numpy(
+            {f: np.asarray(getattr(sim.particles, f)) for f in FIELDS},
+            out.device)
+        out.airmass_total = sim.airmass_total
+        if getattr(sim, "_boundary", None) is not None:
+            out._boundary = boundary_from_jax(
+                {f: np.asarray(v) for f, v in sim._boundary._asdict()
+                 .items()}, out.device)
     return out

@@ -24,8 +24,9 @@ port's ``Simulation`` writes ``FLEXVERSION`` ("flexpart_tpu_torch 1.0"),
 where the JAX package writes "flexpart_tpu 1.0".  Every other byte of the
 files is the JAX package's on the same arrays.
 
-Not here yet: the gross-flux file (``write_flux``) and the receptor files,
-which come with the port's fluxes and receptors.
+The gross-flux file (``write_flux``, fluxoutput.f90) and the receptor
+files (``write_receptor_header`` / ``append_receptor``, openreceptors.f90 +
+concoutput.f90) follow, with their readers.
 """
 
 from __future__ import annotations
@@ -257,3 +258,147 @@ def read_grid_sparse(path, numxgrid: int, numygrid: int, numzgrid: int,
             conc[kp, na] = block(n2 * numzgrid, offset=n2).reshape(
                 numzgrid, numygrid, numxgrid)
     return itime, conc, wet, dry
+
+
+# ---------------------------------------------------------------------------
+# gross-flux output (fluxoutput.f90:52-268)
+# ---------------------------------------------------------------------------
+
+def write_flux(path, itime: int, flux: np.ndarray, areaeast: np.ndarray,
+               areanorth: np.ndarray, area: np.ndarray, outstep: float):
+    """grid_flux_YYYYMMDDhhmmss in the reference's unformatted layout.
+
+    flux: (6, nage, kp, kz, jy, ix, ks) with faces (0=E,1=W,2=N,3=S,
+    4=up,5=down) [kg]; divided here by face area and averaging interval
+    to ng/m2/s.  Per (spec, pointspec, age) the six faces are written in
+    the reference order E,W,S,N,U,D, each either sparse (one record per
+    non-zero cell: linear index ix+jy*nxg+kz*nxg*nyg with 1-BASED kz,
+    then a (-999, 999.) terminator) or dense (one record of numygrid
+    values per (kz, ix)), chosen by the reference's 2/5-occupancy rule
+    (fluxoutput.f90:98-133)."""
+    _, nage, npnt, nzg, nyg, nxg, nspec = flux.shape
+    ncell = nxg * nyg * nzg
+    # face order E,W,S,N,U,D with per-face area divisor
+    faces = ((0, areaeast), (1, areaeast), (3, areanorth),
+             (2, areanorth), (4, area[None]), (5, area[None]))
+    out = [_rec(struct.pack("<i", itime))]
+    for ks in range(nspec):
+        for kp in range(npnt):
+            for na in range(nage):
+                for f, fa in faces:
+                    g = np.asarray(flux[f, na, kp, :, :, :, ks],
+                                   np.float64)
+                    val = (1.0e12 * g / np.broadcast_to(fa, g.shape)
+                           / outstep).astype(np.float32)
+                    nnz = int((g > 0.0).sum())
+                    if 4 * nnz < ncell:
+                        out.append(_rec(struct.pack("<i", 1)))
+                        kzs, jys, ixs = np.nonzero(g > 0.0)
+                        # Fortran loop order kz,jy,ix is exactly
+                        # C-order of (kz,jy,ix) -> already sorted
+                        lin = (ixs + jys * nxg
+                               + (kzs + 1) * nxg * nyg).astype(np.int32)
+                        v = val[kzs, jys, ixs]
+                        for i in range(len(lin)):
+                            out.append(_rec(struct.pack("<if", lin[i],
+                                                        v[i])))
+                        out.append(_rec(struct.pack("<if", -999, 999.0)))
+                    else:
+                        out.append(_rec(struct.pack("<i", 2)))
+                        for kz in range(nzg):
+                            for ix in range(nxg):
+                                out.append(_rec(
+                                    val[kz, :, ix].tobytes()))
+    with open(path, "wb") as fh:
+        fh.write(b"".join(out))
+
+
+def read_flux(path, shape):
+    """Inverse of write_flux for tests: returns (itime, ng/m2/s array of
+    `shape` = (6, nage, kp, kz, jy, ix, ks))."""
+    buf = open(path, "rb").read()
+    pos = 0
+
+    def rec():
+        nonlocal pos
+        (n,) = struct.unpack_from("<i", buf, pos)
+        payload = buf[pos + 4:pos + 4 + n]
+        pos += 8 + n
+        return payload
+
+    (itime,) = struct.unpack("<i", rec())
+    _, nage, npnt, nzg, nyg, nxg, nspec = shape
+    out = np.zeros(shape, np.float32)
+    order = (0, 1, 3, 2, 4, 5)
+    for ks in range(nspec):
+        for kp in range(npnt):
+            for na in range(nage):
+                for f in order:
+                    (mode,) = struct.unpack("<i", rec())
+                    if mode == 1:
+                        while True:
+                            lin, v = struct.unpack("<if", rec())
+                            if lin == -999:
+                                break
+                            kz = lin // (nxg * nyg) - 1
+                            jy = (lin // nxg) % nyg
+                            ix = lin % nxg
+                            out[f, na, kp, kz, jy, ix, ks] = v
+                    else:
+                        for kz in range(nzg):
+                            for ix in range(nxg):
+                                out[f, na, kp, kz, :, ix, ks] = \
+                                    np.frombuffer(rec(), np.float32)
+    return itime, out
+
+
+# ---------------------------------------------------------------------------
+# receptor output (openreceptors.f90 + concoutput.f90:660-676)
+# ---------------------------------------------------------------------------
+
+def write_receptor_header(path, names, lons, lats):
+    """receptor_conc/receptor_pptv header: one record of 16-char names,
+    one record of interleaved (lon, lat) pairs."""
+    nb = b"".join(_chars(str(n), 16) for n in names)
+    coords = np.empty(2 * len(names), np.float32)
+    coords[0::2] = np.asarray(lons, np.float32)
+    coords[1::2] = np.asarray(lats, np.float32)
+    with open(path, "wb") as fh:
+        fh.write(_rec(nb))
+        fh.write(_rec(coords.tobytes()))
+
+
+def append_receptor(path, itime: int, conc: np.ndarray):
+    """Append one output time: record(itime), then one record of
+    numreceptor values per species.  conc: (numreceptor, nspec)."""
+    with open(path, "ab") as fh:
+        fh.write(_rec(struct.pack("<i", itime)))
+        for ks in range(conc.shape[1]):
+            fh.write(_rec(np.asarray(conc[:, ks],
+                                     np.float32).tobytes()))
+
+
+def read_receptor(path, nspec: int):
+    """Inverse of the receptor writers for tests: returns
+    (names, lons, lats, [(itime, (nrec, nspec) array), ...])."""
+    buf = open(path, "rb").read()
+    pos = 0
+
+    def rec():
+        nonlocal pos
+        (n,) = struct.unpack_from("<i", buf, pos)
+        payload = buf[pos + 4:pos + 4 + n]
+        pos += 8 + n
+        return payload
+
+    nb = rec()
+    names = [nb[i:i + 16].decode().strip()
+             for i in range(0, len(nb), 16)]
+    coords = np.frombuffer(rec(), np.float32)
+    lons, lats = coords[0::2], coords[1::2]
+    steps = []
+    while pos < len(buf):
+        (itime,) = struct.unpack("<i", rec())
+        cols = [np.frombuffer(rec(), np.float32) for _ in range(nspec)]
+        steps.append((itime, np.stack(cols, 1)))
+    return names, lons, lats, steps

@@ -265,9 +265,13 @@ def write_partposit_average(path, itime: int, p: Particles, sums,
 def save_checkpoint(path, sim, itime: int) -> None:
     """The run's whole state at the top of the step at ``itime``: the
     particles in their slot order, the accumulators, the seed, the slots'
-    schedule origins (when the run keeps them), the height grid and the
-    convective flux memory.  Uncompressed: a full-width ensemble is a GB,
-    which zlib would take tens of seconds over."""
+    schedule origins (when the run keeps them), the height grid, the
+    convective flux memory, a regional domain fill's boundary state (the
+    JAX package's ``bnd_*`` keys, the reference's unitboundcond dump,
+    init_domainfill.f90:400-410) and the accumulators of the receptors,
+    the nested output grid, the fluxes and the initial-condition
+    sensitivity.  Uncompressed: a full-width ensemble is a GB, which zlib
+    would take tens of seconds over."""
     state = {"itime": np.int64(itime), "seed": np.int64(sim.seed)}
     for name in FIELDS:
         state["p_" + name] = _np(getattr(sim.particles, name))
@@ -282,7 +286,31 @@ def save_checkpoint(path, sim, itime: int) -> None:
         state["height"] = _np(sim._height)
     if sim._origin is not None:
         state["origin"] = _np(sim._origin)
+    if sim._boundary is not None:
+        for name, a in sim._boundary.to_numpy().items():
+            state["bnd_" + name] = a
+    for key, on, get, _ in _RUN_SUMS:
+        if on(sim):
+            state[key] = _np(get(sim))
     np.savez(path, **state)
+
+
+def _set_acc_n(sim, name, v):
+    sim.acc_n = sim.acc_n.replace(**{name: v})
+
+
+# the accumulators of the run's options: (key, option on, get, set)
+_RUN_SUMS = (
+    ("creceptor", lambda s: s.receptor_set is not None,
+     lambda s: s.creceptor, lambda s, v: setattr(s, "creceptor", v)),
+    ("acc_n_gridunc", lambda s: s.use_nested_output,
+     lambda s: s.acc_n.gridunc, lambda s, v: _set_acc_n(s, "gridunc", v)),
+    ("acc_n_outnum", lambda s: s.use_nested_output,
+     lambda s: s.acc_n.outnum, lambda s, v: _set_acc_n(s, "outnum", v)),
+    ("flux", lambda s: s.use_flux, lambda s: s.flux,
+     lambda s, v: setattr(s, "flux", v)),
+    ("init_cond", lambda s: s.use_initcond, lambda s: s.init_cond,
+     lambda s, v: setattr(s, "init_cond", v)))
 
 
 def load_checkpoint(path, sim) -> int:
@@ -306,4 +334,11 @@ def load_checkpoint(path, sim) -> int:
             sim.cbmf = torch.as_tensor(d["cbmf"], device=dev)
         if "origin" in d:
             sim._origin = torch.as_tensor(d["origin"], device=dev)
+        if "bnd_acc" in d:
+            from ..core.domainfill import BOUNDARY_FIELDS, BoundaryState
+            sim._boundary = BoundaryState.from_numpy(
+                {f: d["bnd_" + f] for f in BOUNDARY_FIELDS}, dev)
+        for key, on, _, put in _RUN_SUMS:
+            if key in d and on(sim):
+                put(sim, torch.as_tensor(d[key], device=dev))
         return int(d["itime"])

@@ -14,10 +14,11 @@ Met comes from .npz archives (met/npzmet.py), GRIB files (ECMWF hybrid
 eta, met/gribmet.py; NCEP GFS pressure levels, met/gfsmet.py, whose
 cloud water turns on ``use_clwc``) or the built-in synthetic atmosphere.
 An OH-reactive species takes ``<ohfields_path>/OH_FIELDS/OH_variables.bin``
-(relative paths from options/), else the synthetic climatology.  What the
-port's Simulation does not run yet (RECEPTORS, OUTGRID_NEST with
-NESTED_OUTPUT=1, ``--dp``, ``--tiles``, ``--trace-dir``, ...) reaches it
-and is refused there by name, before any file is written.  ``--device`` picks
+(relative paths from options/), else the synthetic climatology.  RECEPTORS,
+OUTGRID_NEST (with NESTED_OUTPUT=1) and COMMAND's IFLUX, LINIT_COND and
+MDOMAINFILL run.  What the port's Simulation does not run yet (``--dp``,
+``--tiles``, ``--trace-dir``) reaches it and is refused there by name,
+before any file is written.  ``--device`` picks
 where the run lives: the card (``cuda``, the default; without one the run
 raises) or the CPU.
 """
@@ -202,8 +203,9 @@ def main(argv=None) -> int:
                            profile=args.profile,
                            trace_dir=args.trace_dir,
                            device=args.device)
-    log.info("simulation configured: %d particles, grid %dx%dx%d",
-             sim.particles.capacity, sim.grid.nx, sim.grid.ny,
+    log.info("simulation configured: %s particles, grid %dx%dx%d",
+             "domain-filling" if sim.particles is None
+             else sim.particles.capacity, sim.grid.nx, sim.grid.ny,
              sim.grid.nlev)
     sim.run(progress=args.verbose > 0)
     wall = time.perf_counter() - t0

@@ -22,9 +22,16 @@ passed (core/split.py); the particles are dumped in the reference's
 ``partposit_*`` files (``ipout`` 1, 2 and 3, ``mquasilag``), a run may
 start warm from a ``partposit_end`` (``ipin=1``) and write a full
 checkpoint (``checkpoint_at``) from which ``run(start_itime=...)``
-resumes bit for bit (io/partdump.py).  Every option
-outside that path raises ``NotImplementedError`` naming it when the
-``Simulation`` is built; none is skipped silently.
+resumes bit for bit (io/partdump.py); ``mdomainfill`` 1 and 2 fill the
+domain with air-mass particles, and a regional window emits and destroys
+particles at its boundary (core/domainfill.py, K14); receptors sample the
+particles (grid/receptors.py, K15), ``outgrid_nest`` adds a nested output
+grid (K3 on the nest), ``iflux`` gathers the gross fluxes through the
+output cells' faces (grid/fluxes.py, K16), ``linit_cond`` the sensitivity
+to the initial condition (grid/initcond.py, K17) and ``iout`` 4 and 5 the
+plume trajectories (grid/plumetraj.py).  The distributed modes and
+``trace_dir`` raise ``NotImplementedError`` naming them when the
+``Simulation`` is built; nothing is skipped silently.
 
 Host-side control loop; all per-particle compute stays on the device.
 Per sync interval (timemanager.f90:152-712):
@@ -39,9 +46,10 @@ Per sync interval (timemanager.f90:152-712):
      164-169), the OH reaction (physics/ohchem.py, K12) and the decay of
      the deposition grids (timemanager.f90:269-304); a backward run removes
      the mass and grids no deposit;
-  2. activate scheduled releases (mask flip, core/release.py); in a
-     backward deposition run the factor xscav of each fresh particle
-     (physics/bkdep.py: K9 or K10 BKDEP on a CUDA device);
+  2. activate scheduled releases (mask flip, core/release.py); a regional
+     domain fill's boundary (K14); in a backward deposition run the factor
+     xscav of each fresh particle (physics/bkdep.py: K9 or K10 BKDEP on a
+     CUDA device);
   3. keep the particles in met-cell order (core/reorder.py): a sort every
      ``REORDER_EVERY`` steps and on every step in which a release woke
      particles;
@@ -51,24 +59,30 @@ Per sync interval (timemanager.f90:152-712):
      displacement matrix (K7);
   4. sample concentrations into the device accumulator (conccalc) on the
      loutsample cadence with the reference's half-weight edge rule
-     (timemanager.f90:350-365);
+     (timemanager.f90:350-365), and into the nested grid's and the
+     receptors' (K15);
   4b. with ``mquasilag``, the compressed dump at the window's centre;
   5. at averaging-interval end: normalize (factor3d, concoutput.f90:210-221;
      |loutaver| / outnum backward), copy to host, write (npz, netCDF and,
      with ``write_fortran``, the reference's unformatted ``header`` and
      sparse ``grid_*`` files, io/fortran_writer.py), zero the
-     concentration accumulator; the particle dumps of ``ipout``; the
-     split of the particles due (K13), then a sort;
+     concentration accumulator; the nest's and the receptors' files, the
+     fluxes' and the plume trajectories; the particle dumps of ``ipout``;
+     the split of the particles due (K13), then a sort;
   6. advance all particles one lsynctime (core/advance.py: K4 for the
      fixed step, K11 for the adaptive step on a CUDA device);
-  6a. with ``ipout=3``, the per-step sums of the averaged dump;
+  6a. with ``ipout=3``, the per-step sums of the averaged dump; with
+     ``iflux``, the faces crossed in the step (K16);
   6b. decay, dry deposition and minmass termination
      (physics/massupdate.py, K10 and K8 on a CUDA device;
      timemanager.f90:643-686); after an adaptive step the dry deposition
      takes the seconds each particle spent below 2 HREF; backward, the
      deposit is not gridded;
-  7. terminate particles older than the last age class.
-At the run's end, with ``ipout`` 1 or 2, ``partposit_end``.
+  7. terminate particles older than the last age class; with
+     ``linit_cond``, the particles that ended in the step onto the
+     initial-condition grid (K17).
+At the run's end, with ``linit_cond``, the survivors onto that grid and
+``grid_initial_*``; with ``ipout`` 1 or 2, ``partposit_end``.
 
 On a CUDA device a step that neither samples nor writes never waits for
 the device: the active count is summed on the device and read where a
@@ -91,18 +105,25 @@ import torch
 
 from .. import interop
 from ..config import AgeClasses, Command, OutGrid, Releases
-from ..core import reorder, rng
+from ..core import domainfill, reorder, rng
 from ..core.advance import StepConfig, StepParams, advance_all
 from ..core.legacy import LegacyRnd
 from ..core.release import activate, release_schedule_arrays
 from ..core.split import split_particles
 from ..core.state import FIELDS, ITRA_INACTIVE, Particles
 from ..grid.conccalc import ConcConfig, kernel_possible_at, make_conccalc
+from ..grid.fluxes import FluxConfig, make_calcfluxes, zero_flux
+from ..grid.initcond import (InitCondConfig, make_initcond_scatter,
+                             write_initial_cond, zero_init_cond)
 from ..grid.outgrid import (Accumulators, OutputGridGeometry,
-                            density_outgrid, oro_outgrid, zero_accumulators)
+                            density_outgrid, density_receptors, oro_outgrid,
+                            zero_accumulators)
+from ..grid.plumetraj import PlumeTrajWriter, plume_step
+from ..grid.receptors import build_receptors, sample_receptors
 from ..io import partdump
-from ..io.fortran_writer import (_rec, _sparse_block, write_grid_sparse,
-                                 write_header)
+from ..io.fortran_writer import (_rec, _sparse_block, append_receptor,
+                                 write_flux, write_grid_sparse, write_header,
+                                 write_receptor_header)
 from ..io.writer import OutputWriter
 from ..met.calcpar import calcpar
 from ..met.calcpv import calcpv
@@ -191,15 +212,7 @@ class Simulation:
 
     def _refuse_unported(self):
         """Raise for every option whose code is not ported yet."""
-        cmd = self.cmd
         unported = {
-            "mdomainfill (domain filling)": cmd.mdomainfill != 0,
-            "receptors": bool(self.receptors),
-            "outgrid_nest (nested output)": self.outgrid_nest is not None,
-            "iflux (gross fluxes)": cmd.iflux != 0,
-            "linit_cond (initial-condition sensitivity)":
-                cmd.linit_cond != 0,
-            "iout=4/5 (plume trajectories)": cmd.iout_eff in (4, 5),
             "distributed": self.distributed is not None,
             "trace_dir": self.trace_dir is not None,
         }
@@ -301,43 +314,51 @@ class Simulation:
             np.asarray(self.ageclasses.lage or (999999999,), np.int32),
             device=dev)
 
-        # warm start (IPIN=1, FLEXPART.f90:322-333): the previous run's
-        # partposit_end in the output directory, appended after the
-        # scheduled releases
-        warm = None
-        if cmd.ipin == 1:
-            dump = Path(self.outdir) / "partposit_end"
-            if not dump.exists():
-                raise FileNotFoundError(
-                    f"IPIN=1 but no {dump} from a previous run "
-                    "(readpartpositions.f90)")
-            _, warm = partdump.read_partposit(dump, self.nspec)
-        n_warm = len(warm["z"]) if warm else 0
-        # the whole release schedule, built on the host and moved once;
-        # its release times say on which steps `activate` wakes particles
-        sched = release_schedule_arrays(
-            self.releases, cmd, self.grid,
-            capacity=None if self.capacity is None
-            else self.capacity - n_warm,
-            nclassunc=self.nclassunc, seed=self.seed, bkdep=self.bkdep)
-        if self.legacy_rng:
-            self._legacy_release_positions(sched)
-        if n_warm:
-            sched = self._append_warm_start(sched, warm)
-        self._release_times = frozenset(
-            int(t) for t in np.unique(sched["itra"]) if t != ITRA_INACTIVE)
-        self.particles: Particles = interop.particles_from_numpy(sched, dev)
-        # earliest scheduled release (s since bdate): the sampling kernel
-        # (conccalc.f90:171 itage>10800) cannot trigger before
-        # first_release + 3 h, so the sampler runs its single-index path
-        # until then (grid/conccalc.py kernel_possible_at); None, the
-        # kernel always possible, for a backward run and a warm start, as
-        # the reference
+        # nested output grid (outgrid_init_nest.f90 / concoutput_nest): K3
+        # on the nest's grid at every sampling, its own accumulator and
+        # writer (outdir/nest)
+        self.use_nested_output = self.outgrid_nest is not None
+        if self.use_nested_output:
+            ogn = self.outgrid_nest
+            self.geo_n = OutputGridGeometry(ogn, self.grid)
+            self.conc_cfg_n = ConcConfig(
+                nxg=self.geo_n.nxg, nyg=self.geo_n.nyg, nzg=self.geo_n.nzg,
+                npointspec=self.conc_cfg.npointspec,
+                nclassunc=self.nclassunc, nage=nage,
+                dxout=ogn.dxout, dyout=ogn.dyout,
+                xoutshift=self.geo_n.xoutshift,
+                youtshift=self.geo_n.youtshift,
+                dx_met=self.grid.dx, dy_met=self.grid.dy,
+                ind_samp=cmd.ind_samp,
+                ioutputforeachrelease=bool(cmd.ioutputforeachrelease))
+            self.conccalc_n = make_conccalc(ogn.outheights, nest=True)
+            self.acc_n = zero_accumulators(
+                self.geo_n, self.nspec, self.conc_cfg.npointspec,
+                self.nclassunc, nage, device=dev)
+            self.writer_n = OutputWriter(
+                outdir=self.outdir + "/nest",
+                outlon0=ogn.outlon0, outlat0=ogn.outlat0,
+                dxout=ogn.dxout, dyout=ogn.dyout,
+                outheights=ogn.outheights,
+                species_names=tuple(s.name for s in self.releases.species),
+                start=cmd.bdate, iout=cmd.iout_eff,
+                write_netcdf=self.write_netcdf, write_npz=self.write_npz,
+                nc_meta=self._nc_meta(),
+                surf_only=bool(cmd.surf_only))
+
+        # domain filling (init_domainfill.f90): the particles are made from
+        # the first wind field at the start of run(), all released at 0; a
+        # regional window adds the boundary state (core/domainfill.py)
+        self._boundary: domainfill.BoundaryState | None = None
+        self.airmass_total: float | None = None
+        self.boundary_counts: list[torch.Tensor] = []  # per step (killed,
+        #                                                free, wanted, granted)
         self._first_release: int | None = None
-        if cmd.ldirect > 0 and self.releases.boxes and not n_warm:
-            self._first_release = min(
-                int((b.start - cmd.bdate).total_seconds())
-                for b in self.releases.boxes)
+        if cmd.mdomainfill >= 1:
+            self.particles = None
+            self._release_times = frozenset((0,))
+        else:
+            self._schedule_releases()
         self.acc: Accumulators = zero_accumulators(
             self.geo, self.nspec, self.conc_cfg.npointspec,
             self.nclassunc, nage, device=dev)
@@ -397,17 +418,67 @@ class Simulation:
         self._splits = cmd.itsplit < abs(cmd.ideltas)
         self.split_counts: list[torch.Tensor] = []   # per split (due,
         #                                             free, granted)
+        # receptor sampling (conccalc.f90:430-498; K15)
+        self.receptor_set, self.receptor_names = build_receptors(
+            self.receptors, self.grid, dev)
+        if self.receptor_set is not None:
+            self.creceptor = torch.zeros(
+                (len(self.receptor_names), self.nspec), dtype=torch.float32,
+                device=dev)
+        # gross flux diagnostics (iflux=1, calcfluxes.f90; K16)
+        self.use_flux = cmd.iflux == 1
+        if self.use_flux:
+            self.flux_cfg = FluxConfig(
+                nxg=self.geo.nxg, nyg=self.geo.nyg, nzg=self.geo.nzg,
+                npointspec=self.conc_cfg.npointspec, nage=nage,
+                dxout=self.outgrid.dxout, dyout=self.outgrid.dyout,
+                xoutshift=self.geo.xoutshift, youtshift=self.geo.youtshift,
+                dx_met=self.grid.dx, dy_met=self.grid.dy,
+                nx_met=self.grid.nx)
+            self.flux = zero_flux(self.flux_cfg, self.nspec, dev)
+            self._calcfluxes = make_calcfluxes(self.outgrid.outheights, dev)
+        # plume-centroid trajectories (iout=4/5; plumetraj.f90), clustered
+        # in schedule order
+        self.use_plumetraj = cmd.iout_eff in (4, 5)
+        if self.use_plumetraj:
+            self._plume_writer = PlumeTrajWriter(
+                Path(self.outdir) / "trajectories.txt", self.releases,
+                cmd.bdate)
+        # sensitivity to initial conditions (linit_cond,
+        # initial_cond_calc.f90; K17)
+        self.use_initcond = cmd.linit_cond >= 1
+        if self.use_initcond:
+            self.ic_cfg = InitCondConfig(
+                nxg=self.geo.nxg, nyg=self.geo.nyg, nzg=self.geo.nzg,
+                npointspec=self.conc_cfg.npointspec,
+                dxout=self.outgrid.dxout, dyout=self.outgrid.dyout,
+                xoutshift=self.geo.xoutshift, youtshift=self.geo.youtshift,
+                dx_met=self.grid.dx, dy_met=self.grid.dy,
+                linit_cond=cmd.linit_cond,
+                ioutputforeachrelease=bool(cmd.ioutputforeachrelease))
+            self.init_cond = zero_init_cond(self.ic_cfg, self.nspec, dev)
+            self._ic_scatter = make_initcond_scatter(
+                self.outgrid.outheights, dev)
+            rm = np.zeros((self.conc_cfg.npointspec, self.nspec), np.float32)
+            for b_idx, b in enumerate(self.releases.boxes):
+                kp = b_idx if cmd.ioutputforeachrelease else 0
+                for k in range(self.nspec):
+                    rm[kp, k] += b.mass[k] if k < len(b.mass) else 0.0
+            self._release_mass = rm
         self._avg_sums = None            # ipout=3 running sums
         self._avg_counts = None
         # tests only: `_draws_hook(istep, origin)` returns the advance's
         # injected draws for this step, already in slot order (the
-        # adaptive step's tags 1 and 2 with a leading pass axis), and
+        # adaptive step's tags 1 and 2 with a leading pass axis),
         # `_redist_hook(istep, origin)` the convective redistribution's
-        # uniforms; `origin[k]` is the schedule slot of the particle now in
-        # slot k (kept while a hook is set or the run splits; None is the
-        # identity)
+        # uniforms, and `_boundary_hook(istep)` the boundary's (u1, u2,
+        # nclass), each (KMAX_EMIT, S); `origin[k]` is the schedule slot of
+        # the particle now in slot k (kept while a hook is set, the run
+        # splits, a regional boundary emits or plume trajectories are
+        # clustered; None is the identity)
         self._draws_hook: Callable | None = None
         self._redist_hook: Callable | None = None
+        self._boundary_hook: Callable | None = None
         self._origin: torch.Tensor | None = None
         # measurements only: called with (istep, itime) at the top of each
         # step, after the release and before the sort, to look at the
@@ -735,6 +806,49 @@ class Simulation:
             self._reader.shutdown(wait=True, cancel_futures=True)
             self._reader = None
         self.writer.close()
+        if self.use_nested_output:
+            self.writer_n.close()
+
+    def _schedule_releases(self) -> None:
+        """The particles of the release schedule (and of a warm start) and
+        the steps on which releases wake them."""
+        cmd, dev = self.cmd, self.device
+        # warm start (IPIN=1, FLEXPART.f90:322-333): the previous run's
+        # partposit_end in the output directory, appended after the
+        # scheduled releases
+        warm = None
+        if cmd.ipin == 1:
+            dump = Path(self.outdir) / "partposit_end"
+            if not dump.exists():
+                raise FileNotFoundError(
+                    f"IPIN=1 but no {dump} from a previous run "
+                    "(readpartpositions.f90)")
+            _, warm = partdump.read_partposit(dump, self.nspec)
+        n_warm = len(warm["z"]) if warm else 0
+        # the whole release schedule, built on the host and moved once;
+        # its release times say on which steps `activate` wakes particles
+        sched = release_schedule_arrays(
+            self.releases, cmd, self.grid,
+            capacity=None if self.capacity is None
+            else self.capacity - n_warm,
+            nclassunc=self.nclassunc, seed=self.seed, bkdep=self.bkdep)
+        if self.legacy_rng:
+            self._legacy_release_positions(sched)
+        if n_warm:
+            sched = self._append_warm_start(sched, warm)
+        self._release_times = frozenset(
+            int(t) for t in np.unique(sched["itra"]) if t != ITRA_INACTIVE)
+        self.particles: Particles = interop.particles_from_numpy(sched, dev)
+        # earliest scheduled release (s since bdate): the sampling kernel
+        # (conccalc.f90:171 itage>10800) cannot trigger before
+        # first_release + 3 h, so the sampler runs its single-index path
+        # until then (grid/conccalc.py kernel_possible_at); None, the
+        # kernel always possible, for a backward run and a warm start, as
+        # the reference
+        if cmd.ldirect > 0 and self.releases.boxes and not n_warm:
+            self._first_release = min(
+                int((b.start - cmd.bdate).total_seconds())
+                for b in self.releases.boxes)
 
     def _append_warm_start(self, sched: dict, warm: dict) -> dict:
         """Append partposit_end particles (readpartpositions.f90:100-131)
@@ -803,7 +917,8 @@ class Simulation:
             idx = perm.long()
             self._avg_sums = self._avg_sums[:, idx]
             self._avg_counts = self._avg_counts[idx]
-        if self._splits or self._draws_hook is not None \
+        if self._splits or self._boundary is not None \
+                or self.use_plumetraj or self._draws_hook is not None \
                 or self._redist_hook is not None:
             idx = perm.long()
             self._origin = idx if self._origin is None else self._origin[idx]
@@ -879,6 +994,8 @@ class Simulation:
                 make_rannumb(MAXRAND, self.legacy_seed), device=self.device)
             self._legacy_stream = NrandStream(self.legacy_seed, MAXRAND)
 
+        if self.particles is None:
+            self._fill_domain()
         first_step = abs(start_itime) // abs(lsync)
         # the output window of a mid-run resume (the output at
         # start_itime, if due, happens inside the resumed step)
@@ -936,6 +1053,12 @@ class Simulation:
             # releases
             self.particles = activate(self.particles, itime)
 
+            # the regional domain fill's boundary (timemanager.f90:244-251
+            # -> boundcond_domainfill.f90; K14)
+            if self._boundary is not None:
+                with self.timers.section("boundary"):
+                    self._boundary_step(istep, itime, z0, z1, mt0, mt1)
+
             # cell order: every REORDER_EVERY steps, and when a release
             # has just woken particles (they sit in the last slots, out of
             # cell order).  The release times are known on the host, so
@@ -977,6 +1100,16 @@ class Simulation:
                     self.acc = self.conccalc(
                         self.acc, self.particles, z1, itime, self.lage,
                         weight, self._ccfg_at(itime, self.conc_cfg))
+                    if self.use_nested_output:
+                        self.acc_n = self.conccalc_n(
+                            self.acc_n, self.particles, z1, itime,
+                            self.lage, weight,
+                            self._ccfg_at(itime, self.conc_cfg_n))
+                    if self.receptor_set is not None:
+                        self.creceptor = sample_receptors(
+                            self.creceptor, self.receptor_set,
+                            self.particles, itime, weight, self.grid.dx,
+                            self.grid.dy)
 
             # output (timemanager.f90:376-464)
             if itime == loutend and self._outnum() > 0:
@@ -1016,7 +1149,14 @@ class Simulation:
             if itime == ideltas:
                 break
 
-            # advance
+            # advance; the slot-indexed state that the fluxes and the
+            # initial-condition scan keep across it is taken here, after
+            # the step's sorts
+            if self.use_initcond:
+                prev_active = self.particles.active.clone()
+            if self.use_flux:
+                xold, yold = self.particles.x, self.particles.y
+                zold = self.particles.z.clone()
             t0 = _time.perf_counter()
             draws = None
             if self._draws_hook is not None:
@@ -1049,6 +1189,15 @@ class Simulation:
                 with self.timers.section("partdump"):
                     self._average_sample(itime + lsync, z0, z1, mt0, mt1)
 
+            # gross fluxes across the output cells' faces
+            # (timemanager.f90:617-623; K16)
+            if self.use_flux:
+                with self.timers.section("fluxes"):
+                    self._calcfluxes(self.flux, self.particles, xold, yold,
+                                     zold, itime + lsync, self.lage,
+                                     self.flux_cfg,
+                                     bool(cmd.ioutputforeachrelease))
+
             # decay + dry deposition + minmass (timemanager.f90:643-686)
             if self.any_drydep or self.any_decay:
                 with self.timers.section("drydepo"):
@@ -1067,9 +1216,27 @@ class Simulation:
                 self.particles = self.particles.replace(
                     active=self.particles.active & (age <= max_age))
 
+            # the initial-condition sensitivity of the particles that ended
+            # in this step (timemanager.f90:631,702; K17)
+            if self.use_initcond:
+                with self.timers.section("initcond"):
+                    died = prev_active & ~self.particles.active
+                    self._ic_scatter(self.init_cond, self.particles, died,
+                                     z1, self.ic_cfg)
+
             if progress and istep % 10 == 0:
                 log.info("t=%8d s  particles=%8d", itime, int(n_act))
 
+        # the run's end: the survivors' initial-condition sensitivity, then
+        # grid_initial_* (timemanager.f90:735-747)
+        if self.use_initcond:
+            with self.timers.section("initcond"):
+                _, z1e, _, _ = self._fields_for(itime)
+                self._ic_scatter(self.init_cond, self.particles,
+                                 self.particles.active, z1e, self.ic_cfg)
+                write_initial_cond(self.outdir, itime,
+                                   interop.to_numpy(self.init_cond),
+                                   self._release_mass)
         if cmd.ipout in (1, 2):
             with self.timers.section("partdump"):
                 z0, z1, mt0, mt1 = self._fields_for(itime)
@@ -1097,6 +1264,48 @@ class Simulation:
             log.info("per-section timings (device-synced):\n%s", report)
             (Path(self.outdir) / "profile.txt").write_text(report + "\n")
         return self.particles
+
+    def _fill_domain(self) -> None:
+        """Fill the domain (or the release box's window) with particles of
+        equal air mass from the first wind field (init_domainfill.f90); a
+        window smaller than the domain adds its boundary state."""
+        cmd, g = self.cmd, self.grid
+        zf = self._get_field(0)
+        box = self.releases.boxes[0]
+        window = ((box.lon1 - g.xlon0) / g.dx, (box.lon2 - g.xlon0) / g.dx,
+                  (box.lat1 - g.ylat0) / g.dy, (box.lat2 - g.ylat0) / g.dy)
+        parts, self.airmass_total, bnd = domainfill.init_domainfill(
+            g, zf, box.parts, mdomainfill=cmd.mdomainfill,
+            nclassunc=self.nclassunc, seed=self.seed,
+            capacity=self.capacity, window=window)
+        self.particles = interop.particles_from_numpy(parts, self.device)
+        if bnd is not None:
+            self._boundary = domainfill.BoundaryState.from_numpy(
+                bnd, self.device)
+        log.info("domain-filling: %d particles, total air mass %.3e kg%s",
+                 self.particles.capacity, self.airmass_total,
+                 "" if bnd is None
+                 else " (regional window + boundary conditions)")
+
+    def _boundary_step(self, istep: int, itime: int, z0, z1, mt0: int,
+                       mt1: int) -> None:
+        """One step of the regional boundary (K14 on a CUDA device): the
+        particles outside the window end, the inflow accumulates, new
+        particles take free slots ranked by schedule origin."""
+        cmd, g, bs = self.cmd, self.grid, self._boundary
+        _, _, xhi, _, _ = bs.limits()
+        check_x = not (g.xglobal and xhi == g.nx - 2)
+        draws = (self._boundary_hook(istep)
+                 if self._boundary_hook is not None else None)
+        w0, w1 = domainfill.time_weights(itime, mt0, mt1)
+        bs.acc, counts = domainfill.boundcond(
+            self.particles, bs, z0.f3d, z1.f3d, z0.height, itime, w0, w1,
+            rng.Key(self.seed, 3000000 + istep), cmd.lsynctime,
+            min(cmd.itsplit, 499999999), g.ylat0, g.dy,
+            mdomainfill=cmd.mdomainfill, ldirect=cmd.ldirect,
+            nclassunc=self.nclassunc, check_x=check_x, origin=self._origin,
+            draws=draws)
+        self.boundary_counts.append(counts)
 
     @staticmethod
     def _time_weights(itime: int, mt0: int, mt1: int):
@@ -1265,11 +1474,12 @@ class Simulation:
         when = add_seconds(self.cmd.bdate, itime)
         # air density at output layers for the pptv conversion
         # (concoutput.f90:156-196; newest time level = memind(2))
-        rho_out = None
-        if self.cmd.iout_eff in (2, 3):
+        rho_out = rho_met = None
+        if self.cmd.iout_eff in (2, 3) or self.receptor_set is not None:
             _, z1o, _, _ = self._fields_for(itime)
+            rho_met = interop.to_numpy(z1o.f3d[F3_RHO])
             rho_out = density_outgrid(self.geo, interop.to_numpy(z1o.height),
-                                      interop.to_numpy(z1o.f3d[F3_RHO]))
+                                      rho_met)
         self.writer.write(when, conc, unc, wet=wet, dry=dry,
                           rho_out=rho_out)
         if self.write_fortran:
@@ -1280,6 +1490,29 @@ class Simulation:
                 else:
                     self._write_fortran_grids(when, itime, conc, wet, dry,
                                               rho_out=rho_out)
+        if self.use_nested_output:
+            self._write_nest(when, outnum)
+        if self.receptor_set is not None:
+            self._write_receptors(when, itime, outnum, rho_met)
+        if self.use_flux:
+            # grid_flux (fluxoutput.f90): per face ng/m2/s in the
+            # reference's unformatted layout, and the raw sums as npz;
+            # reset for the next interval (fluxoutput.f90:287-300)
+            flux = interop.to_numpy(self.flux)
+            np.savez_compressed(
+                Path(self.outdir) / f"grid_flux_{datestamp(when)}.npz",
+                flux=flux)
+            write_flux(Path(self.outdir) / f"grid_flux_{datestamp(when)}",
+                       itime, flux, self.geo.areaeast, self.geo.areanorth,
+                       self.geo.area, abs(self.cmd.loutstep))
+            self.flux.zero_()
+        if self.use_plumetraj:
+            z0, z1, mt0, mt1 = self._fields_for(itime)
+            order = (None if self._origin is None
+                     else torch.argsort(self._origin))
+            plume_step(self.particles, self.grid,
+                       self._diagnostics(itime, z0, z1, mt0, mt1), itime,
+                       self.numpoint, self._plume_writer, order=order)
         # concentrations reset each output window; deposition grids are
         # cumulative over the run (concoutput.f90 never zeroes wetgridunc)
         zeroed = zero_accumulators(
@@ -1288,6 +1521,53 @@ class Simulation:
         self.acc = zeroed.replace(wetgridunc=self.acc.wetgridunc,
                                   drygridunc=self.acc.drygridunc)
         log.info("output written at %s (outnum=%.1f)", when, outnum)
+
+    def _write_nest(self, when, outnum: float) -> None:
+        """The nested output grid's concentrations (concoutput_nest.f90),
+        then its accumulator zeroed."""
+        gn = interop.to_numpy(self.acc_n.gridunc)
+        tn = gn.sum(axis=1)
+        voln = self.geo_n.volume
+        if self.cmd.ldirect == 1:
+            fac_n = 1.0e12 / voln / outnum
+        else:
+            fac_n = np.full_like(voln, abs(self.cmd.loutaver) / outnum)
+        concn = tn * fac_n[None, None, :, :, :, None]
+        concn = np.moveaxis(concn, -1, 0).transpose(0, 2, 1, 3, 4, 5)
+        self.writer_n.write(when, concn, np.zeros_like(concn))
+        self.acc_n = zero_accumulators(
+            self.geo_n, self.nspec, self.conc_cfg.npointspec,
+            self.nclassunc, self.ageclasses.nageclass, device=self.device)
+
+    def _write_receptors(self, when, itime: int, outnum: float,
+                         rho_met) -> None:
+        """Receptor concentrations in output units, 1e12 x the mean over
+        the samples (concoutput.f90:670-676): receptor_conc_<date>.npz and
+        the reference's receptor_conc, and receptor_pptv for iout 2 and 3
+        (openreceptors.f90, concoutput.f90:662-667); then zeroed."""
+        rc = interop.to_numpy(self.creceptor) * 1.0e12 / outnum
+        out = Path(self.outdir)
+        np.savez(out / f"receptor_conc_{datestamp(when)}.npz", conc=rc,
+                 names=np.asarray(self.receptor_names))
+        rs = self.receptor_set
+        rx, ry = interop.to_numpy(rs.x), interop.to_numpy(rs.y)
+        lons = rx * self.grid.dx + self.grid.xlon0
+        lats = ry * self.grid.dy + self.grid.ylat0
+        rpath = out / "receptor_conc"
+        if not rpath.exists():
+            write_receptor_header(rpath, self.receptor_names, lons, lats)
+        append_receptor(rpath, itime, rc)
+        if self.cmd.iout_eff in (2, 3):
+            rhor = density_receptors(rx, ry, rho_met)
+            wm = np.asarray([s.weightmolar for s in self.releases.species],
+                            np.float32)
+            wfac = np.where(wm > 0, 28.97 / np.maximum(wm, 1e-30), 1.0)
+            rppt = rc * wfac[None, :] / np.maximum(rhor, 1e-30)[:, None]
+            ppath = out / "receptor_pptv"
+            if not ppath.exists():
+                write_receptor_header(ppath, self.receptor_names, lons, lats)
+            append_receptor(ppath, itime, rppt)
+        self.creceptor.zero_()
 
     # ----- the reference's unformatted files (io/fortran_writer.py) -----
     def _write_fortran_header(self):

@@ -16,7 +16,10 @@ also those of a backward run: the advance at ldirect = -1 (``backward``),
 K3's BKDEP and COUNT instantiations (``conccalc_backward``), K9's and
 K10's BKDEP (``bkdep``) and K6 with K7 and its BACKWARD instantiation
 (``convection``); K12, the OH reaction (``oh``), and K13, the particle
-splitting (``split``).  A failed check raises.  This is the quick call to make
+splitting (``split``); K14-K17 of the sim_domainfill and sim_initcond
+phases (``domainfill``: the boundary, the receptors, the fluxes and the
+initial-condition scatter, on a fill of ``n_particles`` in 1.1 times as
+many slots).  A failed check raises.  This is the quick call to make
 after changing a kernel, before a whole chip_smoke.py run.
 """
 import json
@@ -46,6 +49,7 @@ def main() -> int:
         print(json.dumps({k.name: cs.ptxas_by_entry(k.build_log)}),
               flush=True)
     cs.N_MAIN = n
+    cs.DF_CAPACITY = n + n // 10
     grid = make_grid(**cs.BENCH_GRID)
     device = torch.device("cuda", 0)
     checks = {"cbl": cs.kernel_advance_cbl, "nests": cs.kernel_advance_nests,
@@ -54,13 +58,18 @@ def main() -> int:
               "bkdep": cs.kernel_bkdep,
               "oh": cs.kernel_ohreaction,
               "split": lambda d, g: cs.kernel_split(d, g, n),
+              "domainfill": lambda d, g: {
+                  "boundcond": cs.kernel_boundcond(d, g),
+                  "receptors": cs.kernel_receptors(d, g),
+                  "fluxes": cs.kernel_fluxes(d, g),
+                  "initcond": cs.kernel_initcond(d, g)},
               "convection": lambda d, g: dict(zip(
                   ("convection", "redist", "redist.backward"),
                   cs.kernel_convection(d, g)))}
     for name in which:
         t0 = time.perf_counter()
         r = checks[name](device, grid)
-        if name not in ("oh", "split"):
+        if name not in ("oh", "split", "domainfill"):
             r.pop("cases", None)
         print(json.dumps({"check": name, "seconds": time.perf_counter() - t0,
                           **r}, default=str), flush=True)

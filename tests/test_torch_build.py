@@ -76,11 +76,14 @@ def test_four_kernels():
     the convection: the columns (K6) and the redistribution (K7), the
     three of deposition: the deposit scatter (K8), the wet pass (K9) and
     the decay and dry pass (K10), the adaptive step (K11), the OH
-    reaction (K12) and the particle splitting (K13)."""
+    reaction (K12), the particle splitting (K13), the domain fill's
+    boundary (K14), the receptors (K15), the gross fluxes (K16) and the
+    initial-condition sensitivity (K17)."""
     assert KERNEL_NAMES == ["normals", "quad_tables", "conccalc", "advance",
                             "reorder", "convection", "redist",
                             "depo_scatter", "wetdepo", "drydepo",
-                            "advance_adaptive", "ohreaction", "split"]
+                            "advance_adaptive", "ohreaction", "split",
+                            "domainfill", "receptors", "fluxes", "initcond"]
     for k in _build.KERNELS:
         assert k.source.is_file() and k.launches == 0 and k._fn is None
 
@@ -97,7 +100,8 @@ def test_entries_launch_their_instantiations(entry):
     an entry of its kernel with a launch count of its own, launched
     through the kernel's exported
     function and picked there by one of its arguments, which the source
-    reads."""
+    reads; the nested output grid's sampling is K3's stock instantiation,
+    the one that none of those arguments picks."""
     e = next(x for x in _build.ENTRIES if x.name == entry)
     assert e.name.split(".")[0] == e.kernel.name and e.launches == 0
     assert e.kernel in _build.KERNELS
@@ -112,7 +116,8 @@ def test_entries_launch_their_instantiations(entry):
             "drydepo.bkdep": "bkdep ? drydepo_kernel<false, true>",
             "wetdepo.clwc": ": (clwc ? wetdepo_kernel<false, true>",
             "wetdepo.bkdep_clwc": "bkdep ? (clwc ? wetdepo_kernel<true, "
-                                  "true>"}[entry]
+                                  "true>",
+            "conccalc.nest": ": conccalc_kernel<false, false>)"}[entry]
     assert pick in text
     if entry.endswith("bkdep") and entry != "conccalc.bkdep":
         assert "const bool bkdep = xscav != nullptr;" in text
@@ -1030,3 +1035,40 @@ def test_a_parted_launch_goes_to_the_part_that_holds_it():
     with pytest.raises(RuntimeError, match="cudaError 700"):
         k(1, 2)
     assert k.launches == 2
+
+
+def test_boundary_receptor_flux_constants_match_the_sources():
+    """What the boundary (K14), receptor (K15) and flux (K16) kernels share
+    with their Python sides: the emission rounds, the tile of the origin
+    scans, the met field planes they read, the receptor limits, the
+    candidate faces per direction."""
+    from flexpart_tpu_torch.core import domainfill
+    from flexpart_tpu_torch.grid import fluxes, receptors
+    from flexpart_tpu_torch.met import fields
+
+    def const(kernel, name):
+        text = _strip_comments(_kernel(kernel).source.read_text())
+        m = re.search(r"constexpr (?:int|float) %s = ([^;,]+)[;,]" % name,
+                      text)
+        assert m, (kernel, name)
+        return m.group(1).strip()
+
+    assert int(const("domainfill", "KMAX_EMIT")) == domainfill.KMAX_EMIT
+    assert int(const("domainfill", "THREADS")) \
+        * int(const("domainfill", "ITEMS")) == domainfill.TILE
+    for plane in ("F3_U", "F3_V", "F3_RHO", "F3_PV"):
+        text = _strip_comments(_kernel("domainfill").source.read_text())
+        assert f"{plane} = {getattr(fields, plane)}" in text, plane
+    assert float(const("domainfill", "PVCRIT").rstrip("f")) \
+        == domainfill.PVCRIT
+    assert float(const("domainfill", "OZONESCALE").rstrip("f")) \
+        == domainfill.OZONESCALE
+    assert int(const("receptors", "MAX_RECEPTORS")) \
+        == receptors.MAX_RECEPTORS
+    assert int(const("receptors", "MAX_VALUES")) \
+        == receptors.MAX_RECEPTOR_VALUES
+    assert int(const("receptors", "THREADS")) == receptors.THREADS
+    assert int(const("receptors", "REDUCE_THREADS")) == receptors.THREADS
+    assert float(const("receptors", "EPANECHNIKOV").rstrip("f")) \
+        == receptors.EPANECHNIKOV
+    assert int(const("fluxes", "MAX_SPAN")) == fluxes.MAX_SPAN

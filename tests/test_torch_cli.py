@@ -15,11 +15,13 @@ directory gives the same Command, Releases, OutGrid, met grid and wind
 interval (no JAX run, so nothing is compiled); on GRIB met also the same
 ``use_clwc``, off for ECMWF and on for GFS (its ``sumclouds``).  The CLI
 refuses by name, before any file is written, what the port does not run
-yet: RECEPTORS, OUTGRID_NEST with NESTED_OUTPUT=1, ``--dp``,
-``--tiles``, ``--trace-dir``; it runs an ``IPOUT=2`` job and then the
-same job with ``IPIN=1`` from its ``partposit_end`` (JAX's
-``build_simulation`` giving the same particles), and an OH-reactive
-species with the reference's ``OH_variables.bin``; a release outside
+yet: ``--dp``, ``--tiles``, ``--trace-dir``; it runs an ``IPOUT=2`` job
+and then the same job with ``IPIN=1`` from its ``partposit_end`` (JAX's
+``build_simulation`` giving the same particles), an OH-reactive species
+with the reference's ``OH_variables.bin``, and jobs with RECEPTORS,
+OUTGRID_NEST (NESTED_OUTPUT=1), IFLUX=1, LINIT_COND=1 and MDOMAINFILL=1
+(both packages' ``build_simulation`` giving the same receptors, nest
+grid and Command), each writing its files; a release outside
 the run's window fails, as the reference's does; ``--device cuda`` (the
 default) without a card raises and never falls back to the CPU.  Nested
 met from the pathnames file's nest pairs reaches the Simulation.
@@ -286,12 +288,6 @@ def test_build_simulation_equals_jax(metdir, tmp_path):
 
 # case -> (COMMAND edits, options files, CLI flags, the name refused)
 REFUSED = {
-    "receptors": ({}, {"RECEPTORS": '&RECEPTORS RECEPTOR="A", LON=-40.0, '
-                                    'LAT=43.0, /\n'}, [], "receptors"),
-    "outgrid_nest": ({"NESTED_OUTPUT=0": "NESTED_OUTPUT=1"},
-                     {"OUTGRID_NEST": "&OUTGRIDN OUTLON0N=-60.0, "
-                      "OUTLAT0N=30.0, NUMXGRIDN=20, NUMYGRIDN=20, "
-                      "DXOUTN=1.0, DYOUTN=1.0, /\n"}, [], "outgrid_nest"),
     "dp": ({}, {}, ["--dp"], "distributed"),
     "tiles": ({}, {}, ["--tiles"], "distributed"),
     "trace_dir": ({}, {}, ["--trace-dir", "trace"], "trace_dir"),
@@ -367,9 +363,56 @@ def _cli_oh_field(metdir, tmp_path):
     assert int(sim.particles.active.sum()) == 800
 
 
-@pytest.mark.parametrize("case", ["ipin", "oh_field"])
+# case -> (COMMAND edits, options files, what the run writes in output/)
+OPTIONS = {
+    "receptors": ({}, {"RECEPTORS": '&RECEPTORS RECEPTOR="A", LON=-40.0, '
+                                    'LAT=43.0, /\n'},
+                  ("receptor_conc", "receptor_conc_20200101013000.npz")),
+    "outgrid_nest": ({"NESTED_OUTPUT=0": "NESTED_OUTPUT=1"},
+                     {"OUTGRID_NEST": "&OUTGRIDN OUTLON0N=-60.0, "
+                      "OUTLAT0N=30.0, NUMXGRIDN=20, NUMYGRIDN=20, "
+                      "DXOUTN=1.0, DYOUTN=1.0, /\n"},
+                     ("nest/grid_conc_20200101013000.npz",)),
+    "iflux": ({"IFLUX=0": "IFLUX=1"}, {},
+              ("grid_flux_20200101013000", "grid_flux_20200101013000.npz")),
+    "linit_cond": ({"LINIT_COND=0": "LINIT_COND=1"}, {},
+                   ("grid_initial_001",)),
+    "mdomainfill": ({"MDOMAINFILL=0": "MDOMAINFILL=1"}, {},
+                    ("grid_conc_20200101013000.npz",)),
+}
+
+
+def _cli_option(case, metdir, tmp_path):
+    """A job with a formerly refused option: both packages'
+    build_simulation read the same configuration, and the port runs it
+    through main() to the banner, writing the option's files."""
+    edits, files, wrote = OPTIONS[case]
+    command = COMMAND
+    for a, b in edits.items():
+        command = command.replace(a, b)
+    pathnames = _job(tmp_path / "job", metdir, command=command, files=files)
+    jsim = jmain.build_simulation(str(pathnames))
+    jsim.close()
+    sim = tmain.build_simulation(str(pathnames), device="cpu")
+    sim.close()
+    assert sim.cmd == interop.command_from_jax(jsim.cmd)
+    assert sim.receptors == interop.receptors_from_jax(jsim.receptors)
+    assert (sim.outgrid_nest is None) == (jsim.outgrid_nest is None)
+    if sim.outgrid_nest is not None:
+        assert sim.outgrid_nest == interop.outgrid_from_jax(jsim.outgrid_nest)
+    assert tmain.main([str(pathnames), "--device", "cpu"]) == 0
+    out = tmp_path / "job" / "output"
+    for name in wrote:
+        assert (out / name).exists(), name
+
+
+@pytest.mark.parametrize("case", ["ipin", "oh_field", *OPTIONS])
 def test_cli_runs_what_it_refused_before(case, metdir, tmp_path):
-    {"ipin": _cli_ipin, "oh_field": _cli_oh_field}[case](metdir, tmp_path)
+    if case in OPTIONS:
+        _cli_option(case, metdir, tmp_path)
+    else:
+        {"ipin": _cli_ipin, "oh_field": _cli_oh_field}[case](metdir,
+                                                             tmp_path)
 
 
 def test_cli_release_outside_window_fails(metdir, tmp_path):

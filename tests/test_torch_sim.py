@@ -426,26 +426,23 @@ def test_age_classes_terminate_like_jax(tmp_path):
 # files are ported: their cases hold that an option still refused is
 # refused with them too, before the header is written)
 REFUSED = {
-    "ldirect": dict(cmd_kw=dict(ldirect=-1, mdomainfill=1),
-                    names="mdomainfill"),
-    "mdomainfill": dict(cmd_kw=dict(mdomainfill=1)),
-    "receptors": dict(receptors=(tconfig.Receptor("r", 1.0, 41.0),)),
-    "outgrid_nest": dict(outgrid_nest=tconfig.OutGrid(
-        0.0, 40.0, 4, 4, 0.5, 0.5, (100.0,))),
-    "iflux": dict(cmd_kw=dict(iflux=1)),
-    "linit_cond": dict(cmd_kw=dict(linit_cond=1)),
-    "iout=4/5": dict(cmd_kw=dict(iout=5)),
+    "ldirect": dict(cmd_kw=dict(ldirect=-1), trace_dir="trace",
+                    names="trace_dir"),
     "distributed": dict(distributed="dp"),
-    "write_fortran": dict(write_fortran=True, cmd_kw=dict(mdomainfill=1),
-                          names="mdomainfill"),
+    "write_fortran": dict(write_fortran=True, distributed="dp",
+                          names="distributed"),
     "trace_dir": dict(trace_dir="trace"),
 }
 
-# options the port runs since particle dumps, warm start, checkpoints, OH
-# chemistry and splitting were ported (they were cases of REFUSED): the
-# Simulation's arguments, run for one step of 900 s (two for itsplit, which
-# counts only when shorter than the run)
+# options the port runs since they were ported (they were cases of
+# REFUSED): particle dumps, warm start, checkpoints, OH chemistry and
+# splitting; the domain fill, receptors, the nested output grid, the
+# gross fluxes, the initial-condition sensitivity and the plume
+# trajectories.  The Simulation's arguments, run for one step of 900 s
+# (two for itsplit, which counts only when shorter than the run; three for
+# the options that write at an output time, OUTPUT_AT_2700)
 ONE_STEP = dict(ietime=1500)
+OUTPUT_AT_2700 = dict(ietime=10000, loutstep=1800, loutaver=1800)
 PORTED = {
     "ipin": dict(cmd_kw=dict(ipin=1, **ONE_STEP)),
     "ipout": dict(cmd_kw=dict(ipout=2, **ONE_STEP)),
@@ -455,6 +452,14 @@ PORTED = {
     "OH reaction": dict(species=dict(ohcconst=1e-12),
                         cmd_kw=dict(ONE_STEP)),
     "checkpoint_at": dict(checkpoint_at=900, cmd_kw=dict(ONE_STEP)),
+    "mdomainfill": dict(cmd_kw=dict(mdomainfill=1, **ONE_STEP)),
+    "receptors": dict(receptors=(tconfig.Receptor("r", 1.0, 41.0),),
+                      cmd_kw=dict(OUTPUT_AT_2700)),
+    "outgrid_nest": dict(outgrid_nest=tconfig.OutGrid(
+        0.0, 40.0, 4, 4, 0.5, 0.5, (100.0,)), cmd_kw=dict(OUTPUT_AT_2700)),
+    "iflux": dict(cmd_kw=dict(iflux=1, **OUTPUT_AT_2700)),
+    "linit_cond": dict(cmd_kw=dict(linit_cond=1, **ONE_STEP)),
+    "iout=4/5": dict(cmd_kw=dict(iout=5, **OUTPUT_AT_2700)),
 }
 
 
@@ -517,6 +522,23 @@ def test_ported_option_runs(option, tmp_path):
         assert sim._splits and sim._origin is not None
     elif option == "OH reaction":
         assert "ohchem" in sim.timings and sim.any_ohreact
+    elif option == "mdomainfill":
+        # the release box is the window: a regional fill with a boundary
+        assert sim.airmass_total > 0 and sim._boundary is not None
+        assert len(sim.boundary_counts) == 2
+    elif option == "receptors":
+        assert list(tmp_path.glob("receptor_conc_*.npz"))
+        assert (tmp_path / "receptor_conc").exists()
+    elif option == "outgrid_nest":
+        assert list((tmp_path / "nest").glob("grid_conc_*.npz"))
+    elif option == "iflux":
+        assert list(tmp_path.glob("grid_flux_*"))
+    elif option == "linit_cond":
+        assert (tmp_path / "grid_initial_001").exists()
+        assert float(sim.init_cond.sum()) > 0
+    elif option == "iout=4/5":
+        assert len((tmp_path / "trajectories.txt").read_text()
+                   .splitlines()) == 2 + 2 + 1
     else:
         again = _port_sim(tmp_path / "again")
         assert again.load_checkpoint(tmp_path / "ck.npz") == 900
