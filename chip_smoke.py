@@ -71,7 +71,11 @@ the port's stock forward step on the card, in phases:
                 layer, ifine 11) bitwise against its plain version on 10 x
                 2**20 boundary-layer particles, SyntheticMet's fields with
                 a strong CBL over the eastern half, in cell order (timed
-                as drawn too), beside the stock K11; K4's NESTS
+                as drawn too), beside the stock K11, with its layout
+                (blocks an SM, the register cap, ptxas's registers and
+                spills) and its bound charging the skewed work at the
+                cheapest paths of the CBL part built with the skewed
+                substep as a call (cbl_calls_build); K4's NESTS
                 instantiation with two nested windows, each with its own
                 jet (a third of the particles in the inner one, a third in
                 the outer one only), bitwise against its plain version
@@ -121,8 +125,9 @@ the port's stock forward step on the card, in phases:
                 weights; K16, the fluxes, on the particles moved up to 1.5
                 cells in the step, and K17, the initial-condition scatter
                 (linit_cond 1) on the deposition particles, a tenth of
-                them ended and all of them, both against the float64 sum
-                of their pairs (K8's rule), their library call index_add_
+                them ended, all of them, and a tenth moved into a plume of
+                120 cells, each against the float64 sum of their
+                pairs (K8's rule), their library call index_add_
                 of the pairs;
   4. step     — one full step (tables, advance, sampling) on SyntheticMet
                 at the bench grid, 2**20 particles, kernels against twins
@@ -235,7 +240,9 @@ the port's stock forward step on the card, in phases:
                 budget, the tracer's mass; per step the share of the
                 boundary-layer particles in the skewed zone and K11's lane
                 efficiency; K11 CBL bitwise against its plain version on
-                every 8th particle of a release step and a steady step;
+                every 8th particle of a release step and a steady step,
+                timed on all of them beside its bound there (the kernels
+                phase's count on the step's particles);
  11. sim_nested — the sim phase's run with one SyntheticMet nest of 0.25
                 degrees over 10 W-20 E, 30-60 N with a stronger jet than
                 the mother's (the first box inside it, the storm box
@@ -291,7 +298,10 @@ the port's stock forward step on the card, in phases:
                 (plume trajectories, clustered on the card), twice with
                 one seed: K17 every step and at the end, grid_initial_*
                 holding every particle's mass over its density once,
-                trajectories.txt with a line per output;
+                trajectories.txt with a line per output; K17's bound per
+                call from the particles each call masked and the grid
+                rows their pairs hit, counted in a third run (untimed,
+                unprofiled, bitwise run B);
  15. legacy   — the matched-RNG validation path (Simulation(legacy_rng=
                 True)) has no kernel and runs on the CPU only: on the card
                 the constructor and advance_all must refuse it by name.
@@ -1529,11 +1539,48 @@ def k11_pool_traffic(code, lo: int, hi: int) -> dict:
                 loaded=sorted(loaded))
 
 
+def k11_blocks(kernel) -> dict:
+    """K11's block shape as its source declares it: THREADS threads a
+    block, MIN_BLOCKS blocks an SM must hold of a stock instantiation and
+    MIN_BLOCKS_CBL of a CBL one (its launch bound)."""
+    import re
+    text = kernel.source.read_text()
+    return {n: int(re.search(r"constexpr int %s = (\d+);" % n, text)[1])
+            for n in ("THREADS", "MIN_BLOCKS", "MIN_BLOCKS_CBL")}
+
+
+def k11_cbl_layout(kernel) -> dict:
+    """K11 CBL's occupancy as built: blocks an SM must hold (k11_blocks'
+    MIN_BLOCKS_CBL), the register cap that gives (65,536 a SM), its warps
+    an SM, and each CBL instantiation's registers, stack and spills from
+    ptxas, each within the cap."""
+    shape = k11_blocks(kernel)
+    blocks = shape["MIN_BLOCKS_CBL"]
+    cap = 65536 // (shape["THREADS"] * blocks) // 8 * 8
+    entries = {e: v for e, v in ptxas_by_entry(kernel.build_log).items()
+               if e.startswith("advance_adaptive_kernel<")
+               and e.split(",")[1] == "2"}
+    check(bool(entries) and all(v["registers"] <= cap
+                                for v in entries.values()),
+          f"K11 CBL: registers over the cap {cap}: {entries}")
+    return dict(min_blocks=blocks, register_cap=cap,
+                warps_per_sm=blocks * shape["THREADS"] // 32,
+                entries=entries)
+
+
 def k11_entry(cfg) -> tuple:
     """The template arguments of K11's instantiation for ``cfg``: table
     type, turbulence (0 Hanna1, 1 TS, 2 CBL), polar, settling."""
     return (cfg.met_bf16, 2 if cfg.cblflag else int(cfg.turbswitch),
             cfg.polar, cfg.settling)
+
+
+def local_memory(code, lo: int, hi: int) -> set:
+    """The addresses in [lo, hi] of the stores and loads of local memory
+    (STL, LDL): the registers the compiler spills to the thread's stack and
+    reloads, and the frame a call saves."""
+    return {a for a, op, _, _, _ in code
+            if lo <= a <= hi and op.startswith(("STL", "LDL"))}
 
 
 def k11_instructions(kernel, entry_flags, ifine: int) -> dict:
@@ -1554,8 +1601,11 @@ def k11_instructions(kernel, entry_flags, ifine: int) -> dict:
     the substep loop's cheapest body, Hanna's refresh included, ifine - 1
     times more.  Not counted as pass work: the dealing, a particle's start
     and end, and in the pass body the moves between the pool and the
-    registers (k11_pool_traffic), which are reported beside it.  The
-    dearest path is given too; the toolkit's slow paths are calls."""
+    registers (k11_pool_traffic) and the stores and loads of local memory
+    (the registers the compiler spills to the stack), which the design
+    adds and a pass's own work does not need; both are reported beside
+    it.  The dearest path is given too; the toolkit's slow paths are
+    calls."""
     name, code = sass_instantiation(kernel, "advance_adaptive_kernel",
                                     entry_flags)
     body_end = min((a for a, op, cond, _, _ in code
@@ -1589,12 +1639,15 @@ def k11_instructions(kernel, entry_flags, ifine: int) -> dict:
         return sum(1 for a, op, _, _, _ in code
                    if lo <= a <= hi and op != "NOP")
 
+    local = local_memory(code, first, outer[1])
+
     out = {"entry": name[:80], "kernel": count(0, code[-1][0]),
            "iteration_loop": count(*outer),
            "dealing": count(outer[0], first - 1),
            "pass_body": count(first, outer[1]),
            "substep_loop": count(*sub),
            "pool_moves_in_pass_body": len(pool["addresses"]),
+           "local_memory_in_pass_body": len(local),
            "pool_words_stored": len(pool["stored"]),
            "pool_words_loaded": len(pool["loaded"]),
            "calls_in_pass_body": sum(1 for a, op, _, _, _ in code
@@ -1602,8 +1655,8 @@ def k11_instructions(kernel, entry_flags, ifine: int) -> dict:
                                      and op.startswith("CALL"))}
     head = sum(1 for a, op, _, _, _ in code if a == sub[0] and op != "NOP")
     for tag, pick in (("cheapest", min), ("dearest", max)):
-        for what, free in (("", pool["addresses"]),
-                           ("_with_pool_moves", frozenset())):
+        for what, free in (("", pool["addresses"] | local),
+                           ("_with_pool_moves", local)):
             once = (sass_path(code, first, sub[0], pick, free)
                     + sass_path(code, sub[0], outer[1], pick, free) - head)
             body = sass_path(code, *sub, pick, free)
@@ -1827,10 +1880,12 @@ def kernel_advance_cbl(device, grid) -> dict:
     K11 (TS, the same particles and fields) in both orders.
     Its bound is k11_bound's from the CBL pass body's instructions
     (k11_instructions), whose cheapest path takes the Gaussian side of
-    the zone test, plus the skewed functions, __noinline__ calls: each
-    call counted on the same particles (cbl_skewed_calls) is charged the
-    cheapest path through its function (function_paths); the bound
-    without them is reported beside it."""
+    the zone test, plus the skewed work: each skewed substep and fresh
+    draw counted on the same particles (cbl_skewed_calls) is charged the
+    cheapest path through its function (function_paths), read from the
+    CBL part built with the skewed substep as a call (cbl_calls_build:
+    the kernel inlines it); the bound without them is reported beside
+    it."""
     import copy
     import torch
     from flexpart_tpu_torch import _build
@@ -1850,12 +1905,13 @@ def kernel_advance_cbl(device, grid) -> dict:
                                                       cfg)[0])
     ordered = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
     ins = k11_instructions(_build.ADVANCE_ADAPTIVE, k11_entry(cfg), cfg.ifine)
-    entry = sass_instantiation(_build.ADVANCE_ADAPTIVE,
-                               "advance_adaptive_kernel", k11_entry(cfg))[0]
-    ins["skewed_calls"] = sass_paths(_build.ADVANCE_ADAPTIVE,
-                                     ("cbl_skewed_wp", "cbl_skew",
-                                      "cbl_fresh_wp"), within=entry)
+    calls_build = cbl_calls_build()
+    entry = sass_instantiation(calls_build, "advance_adaptive_kernel",
+                               k11_entry(cfg))[0]
+    ins["skewed_calls"] = sass_paths(calls_build, CBL_SKEWED_FUNCTIONS,
+                                     within=entry)
     res = {"instructions": ins, "cases": {},
+           "layout": k11_cbl_layout(_build.ADVANCE_ADAPTIVE),
            "skewed_share": skewed_share(p, z0.height, tables, cfg)}
     for name, q in (("as_drawn", p), ("cell_ordered", ordered)):
         r = {}
@@ -1873,20 +1929,8 @@ def kernel_advance_cbl(device, grid) -> dict:
         res["cases"][name] = r
         torch.cuda.empty_cache()
     m = res["cases"]["cell_ordered"]
-    # the skewed functions: each call charged the cheapest path through its
-    # function, cbl_skew's included, on the cell-ordered case's particles
-    paths = function_paths(_build.ADVANCE_ADAPTIVE, "advance_adaptive_kernel",
-                           k11_entry(cfg), ("cbl_skewed_wp", "cbl_skew",
-                                            "cbl_fresh_wp"))
-    calls = cbl_skewed_calls(ordered, z0.height, tables, a, key, cfg, itime)
-    skewed = sum(calls[f] * paths[f]["cheapest"] for f in paths)
-    without = {f: m[f] for f in ("bound_ms", "bound_by",
-                                 "bound_instructions")}
-    m.update(bound(m["bound_bytes"], m["bound_operations"],
-                   m["bound_instructions"] + skewed),
-             bound_without_skewed_calls=without,
-             skewed_calls=calls, skewed_paths=paths,
-             skewed_instructions=skewed)
+    m.update(cbl_skewed_bound(m, ordered, z0.height, tables, a, key, cfg,
+                              itime))
     m["share_of_bound"] = m["bound_ms"] / m["ms"]
     check(m["particles_in_the_loop"] > N_MAIN // 2,
           "K11 CBL: fewer than half of the particles took a pass")
@@ -2655,8 +2699,10 @@ def function_paths(kernel, template: str, flags, functions) -> dict:
     """The cheapest path (``sass_path``) through each named __noinline__
     function of one instantiation (sass_instantiation's ``template`` and
     ``flags``), from its first instruction to the nearest RET it can
-    reach, a CALL on it counted as one instruction; with the function's
-    static instructions and the CALLs in it beside it."""
+    reach, a CALL on it counted as one instruction and its stores and
+    loads of local memory (local_memory: spills and the call's frame)
+    not at all; with the function's static instructions, the local-memory
+    ones and the CALLs in it beside it."""
     import re
     name, code = sass_instantiation(kernel, template, flags)
     starts = elf_functions(kernel, name)
@@ -2668,28 +2714,73 @@ def function_paths(kernel, template: str, flags, functions) -> dict:
               f"in {name}")
         lo, size = hit[0]
         body = [c for c in code if lo <= c[0] < lo + size]
+        local = local_memory(code, lo, lo + size - 1)
         paths = []
         for a, op, _, _, _ in body:
             if op.startswith("RET"):
                 try:
-                    paths.append(sass_path(code, lo, a))
+                    paths.append(sass_path(code, lo, a, free=local))
                 except AssertionError:
                     pass
         check(bool(paths), f"{kernel.name}: no RET reached in {f}")
         out[f] = dict(cheapest=min(paths),
                       static=sum(1 for c in body if c[1] != "NOP"),
+                      local_memory=len(local),
                       calls=sum(1 for c in body if c[1].startswith("CALL")))
     return out
 
 
-def cbl_skewed_calls(q, height, tables, a, key, cfg, itime: int) -> dict:
+# the skewed work's functions in cbl_calls_build: the substep in the zone
+# (the bi-Gaussian parameters at the substep's height inlined into it) and
+# a fresh particle's draw (a call in every build)
+CBL_SKEWED_FUNCTIONS = ("cbl_skewed_wp", "cbl_fresh_wp")
+_CBL_CALLS = []
+
+
+def cbl_calls_build():
+    """K11's CBL part (FP_PART=2) built with FP_CBL_CALLS=1, where the
+    skewed substep is a __noinline__ call as the fresh draw is: the same
+    source and arithmetic, which the bound reads the skewed functions'
+    instructions from (function_paths).  Never launched; built once, in
+    the build phase beside the kernels."""
+    from flexpart_tpu_torch import _build
+    if not _CBL_CALLS:
+        k = _build.ADVANCE_ADAPTIVE
+        _CBL_CALLS.append(_build.Kernel(
+            k.name, k.symbol, k.argtypes,
+            defines=("-DFP_PART=2", "-DFP_CBL_CALLS=1")))
+    return _CBL_CALLS[0]
+
+
+def cbl_skewed_bound(k11, q, height, tables, a, key, cfg, itime: int,
+                     settle=None) -> dict:
+    """K11 CBL's bound: ``k11`` (k11_bound's on these particles) with the
+    skewed work added, each call that cbl_skewed_calls counts on them
+    charged the cheapest path through its function in cbl_calls_build
+    (function_paths); k11_bound's own beside it."""
+    paths = function_paths(cbl_calls_build(), "advance_adaptive_kernel",
+                           k11_entry(cfg), CBL_SKEWED_FUNCTIONS)
+    calls = cbl_skewed_calls(q, height, tables, a, key, cfg, itime, settle)
+    skewed = sum(calls[f] * paths[f]["cheapest"] for f in paths)
+    return dict(bound(k11["bound_bytes"], k11["bound_operations"],
+                      k11["bound_instructions"] + skewed),
+                bound_without_skewed_calls={
+                    f: k11[f] for f in ("bound_ms", "bound_by",
+                                        "bound_instructions")},
+                skewed_calls=calls, skewed_paths=paths,
+                skewed_instructions=skewed)
+
+
+def cbl_skewed_calls(q, height, tables, a, key, cfg, itime: int,
+                     settle=None) -> dict:
     """The calls of K11 CBL's skewed functions on these particles, counted
     on a run of the plain version: cbl_skewed_wp once per substep of a
     pass (ifine a pass) of a particle in the skewed zone (-h/L > CBL_ZONE)
     whose pass takes the linear form (dtf / TL_w < 0.5, the turbulence at
-    the pass's start height), each calling cbl_skew once; cbl_fresh_wp
-    once for a fresh particle in the boundary layer and the zone, calling
-    cbl_skew once."""
+    the pass's start height); cbl_fresh_wp once for a fresh particle in
+    the boundary layer and the zone; each computes the bi-Gaussian
+    parameters once (cbl_skew, a function of its own in earlier builds of
+    the kernel)."""
     import copy
     import torch
     from flexpart_tpu_torch.core import advance
@@ -2713,7 +2804,7 @@ def cbl_skewed_calls(q, height, tables, a, key, cfg, itime: int) -> dict:
     advance._pbl_vertical = counting
     try:
         advance.advance_all_plain(q, height, tables, copy.copy(a), key, cfg,
-                                  None, 0)
+                                  None, 0, settle)
     finally:
         advance._pbl_vertical = inner
     torch.cuda.empty_cache()
@@ -5247,6 +5338,9 @@ def phase_sim_cbl(device, kernels) -> dict:
           f"sim_cbl: {launches} launches in {nsteps} steps")
     device_ms, per_launch = per_launch_of(rows)
     on_inputs = {}
+    from flexpart_tpu_torch import _build
+    ins = k11_instructions(_build.ADVANCE_ADAPTIVE, k11_entry(sim.step_cfg),
+                           sim.step_cfg.ifine)
     for name, (istep, itime, p, z0, z1, mt0, mt1) in snaps.items():
         cfg, prm = sim.step_cfg, sim.step_prm
         q = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
@@ -5266,11 +5360,23 @@ def phase_sim_cbl(device, kernels) -> dict:
                      q, z0.height, tables, copy.copy(ka), key, cfg, None, 0,
                      settle), 5))
         del pk, dk, sub
+        # the bound on all of the step's particles (kernel_advance_cbl's)
+        pk, dk = advance.advance_adaptive_cuda(q, z0.height, tables,
+                                               copy.copy(ka), key, cfg, None,
+                                               0, settle)
+        k11 = k11_bound(q, pk, dk.passes, z0.height, cfg, ka, ins)
+        del pk, dk
+        r.update(cbl_skewed_bound(k11, q, z0.height, tables, ka, key, cfg,
+                                  itime, settle))
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
         on_inputs[name.replace(" ", "_")] = {
             f: r[f] for f in ("istep", "checked", "ms", "plain_ms",
                               "max_abs_err", "differing_particles",
                               "bitwise", "nan_count", "lane_efficiency",
-                              "passes_mean", "passes_max")}
+                              "passes_mean", "passes_max", "bound_ms",
+                              "bound_by", "bound_without_skewed_calls",
+                              "skewed_calls", "skewed_instructions",
+                              "share_of_bound")}
     check(len(on_inputs) == 2, f"sim_cbl: kept steps {list(on_inputs)}")
     check(max(shares) > 0.0, "sim_cbl: no boundary-layer particle skewed")
     snaps.clear()
@@ -6117,6 +6223,16 @@ K15_OPS_PER_PAIR = 15          # a particle at a receptor: 3 differences,
 K16_OPS_PER_PARTICLE = 60      # the cells of both positions and the faces
 K17_OPS_PER_PARTICLE = 80      # the density's weights and gathers, the cell
 
+
+def k17_bound(capacity: int, masked: int, nspec: int, cells_hit: int) -> dict:
+    """K17's least time on one call: the mask of every slot, the masked
+    particles' state and density read once, and each grid row (cell) that
+    their pairs hit read and written once, nspec floats (however many
+    pairs share it); the ops of K17_OPS_PER_PARTICLE for each masked
+    particle."""
+    return bound(capacity + masked * (24 + 4 * nspec + 32)
+                 + cells_hit * 8 * nspec, masked * K17_OPS_PER_PARTICLE)
+
 _FILL = {}
 
 
@@ -6393,20 +6509,54 @@ def kernel_fluxes(device, grid) -> dict:
     return res
 
 
+# K17's plume case: a tenth of the particles moved into a box of 3 x 1.5
+# degrees at 0-3 km, whose pairs hit 120 cells of the 0.5-degree grid's
+# three layers (the 4-point kernel reaches the box's neighbours), as
+# sim_initcond's retroplume at its end hits 84
+K17_PLUME_BOX = dict(lon=(28.0, 31.0), lat=(50.0, 51.5), z=(0.0, 3000.0))
+
+
+def initcond_plume(p, device, seed: int, grid):
+    """p with a tenth of its active particles (from a seed) moved into
+    K17_PLUME_BOX, and that tenth's mask."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    n = p.capacity
+
+    def u(lo, hi):
+        return torch.rand(n, generator=gen, device=device) * (hi - lo) + lo
+
+    b = K17_PLUME_BOX
+    sel = p.active & (u(0.0, 1.0) < 0.1)
+    x = u(*((v - grid.xlon0) / grid.dx for v in b["lon"]))
+    y = u(*((v - grid.ylat0) / grid.dy for v in b["lat"]))
+    q = p.replace(x_hi=torch.where(sel, x, p.x_hi),
+                  y_hi=torch.where(sel, y, p.y_hi),
+                  z=torch.where(sel, u(*b["z"]), p.z))
+    return q, sel
+
+
 def kernel_initcond(device, grid) -> dict:
     """K17 against the float64 sum of its pairs (and its plain version, to
     the same rule) on the deposition particles (10 x 2**20 over the globe,
     two species), linit_cond = 1 (the density at each particle), on the
     sim_initcond phase's 720 x 360 x 3 grid: a step's terminated particles
-    (a tenth, ``died``) and the survivors at the run's end (every active
-    one, ``run_end``).  Its library call: index_add_ of its pairs."""
+    (a tenth, ``died``), the survivors at the run's end (every active one,
+    ``run_end``) and a tenth moved into a plume of 120 cells
+    (initcond_plume, ``plume``), each in cell order.  Its library call:
+    index_add_ of its pairs."""
     import torch
     from flexpart_tpu_torch.core import reorder
     from flexpart_tpu_torch.grid import initcond as ic
     cfg, _, og, geo, _ = step_setup(grid)
     zf = met_fields("synthetic", grid, device)[0]
-    p, _ = reorder.reorder_by_cell(depo_particles(N_MAIN, device, 67, grid),
-                                   zf.height, cfg)
+    spread = depo_particles(N_MAIN, device, 67, grid)
+    p, _ = reorder.reorder_by_cell(spread, zf.height, cfg)
+    plume, in_plume = initcond_plume(spread, device, 73, grid)
+    plume, perm = reorder.reorder_by_cell(plume, zf.height, cfg)
+    in_plume = in_plume[perm.long()]
+    del spread
     icfg = ic.InitCondConfig(
         nxg=geo.nxg, nyg=geo.nyg, nzg=geo.nzg, npointspec=1,
         dxout=og.dxout, dyout=og.dyout, xoutshift=geo.xoutshift,
@@ -6418,7 +6568,9 @@ def kernel_initcond(device, grid) -> dict:
     n = p.capacity
     died = p.active & (torch.rand(n, generator=gen, device=device) < 0.1)
     cases = {}
-    for name, mask in (("died", died), ("run_end", p.active)):
+    for name, q, mask in (("died", p, died), ("run_end", p, p.active),
+                          ("plume", plume, in_plume)):
+        p = q
         gk = ic.zero_init_cond(icfg, p.nspec, device)
         gp = torch.zeros_like(gk)
         ic.initcond_cuda(gk, p, mask, zf, oh, icfg)
@@ -6432,17 +6584,17 @@ def kernel_initcond(device, grid) -> dict:
         res["library_ms"] = cuda_ms(lambda: flat_l.index_add_(0, lin,
                                                                contrib), 3)
         m = int(mask.sum())
-        nspec = p.nspec
-        nbytes = n + m * (24 + 4 * nspec + 32) + res["pairs"] * 8 * nspec
         del flat_l, lin, contrib, valid
         res.update(masked=m,
                    ms=cuda_ms(lambda: ic.initcond_cuda(gk, p, mask, zf, oh,
                                                       icfg)),
                    plain_ms=cuda_ms(lambda: ic.initcond_plain(
                        gp, p, mask, zf, oh, icfg), 3),
-                   **bound(nbytes, m * K17_OPS_PER_PARTICLE))
+                   **k17_bound(n, m, p.nspec, res["cells_hit"]))
         cases[name] = res
     c = cases["died"]
+    check(cases["plume"]["cells_hit"] < 200,
+          f"K17 plume: {cases['plume']['cells_hit']} cells")
     return dict(n=n, **{f: c[f] for f in ("ms", "plain_ms", "library_ms",
                                          "bound_ms", "bound_by",
                                          "max_abs_err")}, cases=cases)
@@ -6858,9 +7010,12 @@ def phase_sim_initcond(device, kernels) -> dict:
     twice with one seed (run_twice, with sim_initcond_run_checks): the
     backward path's kernels and K17 (once a step on the particles that
     ended in it, none here, and once at the end on the survivors), the two
-    runs bitwise equal."""
+    runs bitwise equal; a third run, neither timed nor profiled and bitwise
+    run B, counts each K17 call's masked particles and the grid rows their
+    pairs hit, for K17's bound on the path."""
     import shutil
     import torch
+    from flexpart_tpu_torch.grid import initcond as ic
     shutil.rmtree(SIM_IC_DIR, ignore_errors=True)
     nsteps = SIM_HOURS * 3600 // LSYNC
 
@@ -6872,16 +7027,42 @@ def phase_sim_initcond(device, kernels) -> dict:
     sim, rows, a = run_twice(setup, kernels, "sim_initcond", 1.0,
                              IC_PATH_KERNELS,
                              run_checks=sim_initcond_run_checks)
+    # K17's calls counted in a third run, neither timed nor profiled: the
+    # particles each one masked and the grid rows their pairs hit
+    masked, inner = [], ic.initcond_cuda
+
+    def counting(grid, p, mask, zf, oh, cfg):
+        lin, valid, _ = ic.initcond_pairs(p, mask, zf, oh, cfg)
+        masked.append((int(mask.sum()), int(valid.sum()),
+                       int(torch.unique(lin[valid]).numel())))
+        inner(grid, p, mask, zf, oh, cfg)
+
+    sim_c = setup("c")
+    ic.initcond_cuda = counting
+    try:
+        sim_c.run()
+    finally:
+        ic.initcond_cuda = inner
+    check_same_bits(sim.particles, sim_c.particles,
+                    "sim_initcond: the counting run and run B")
+    del sim_c
     launches = a["launches"]
     check(launches["initcond"] == nsteps + 1
-          and launches["advance"] == nsteps,
+          and launches["advance"] == nsteps and len(masked) == nsteps + 1,
           f"sim_initcond: {launches} launches in {nsteps} steps")
     device_ms, per_launch = per_launch_of(rows)
+    # K17's bound on the path (kernel_initcond's count) for each call
+    bounds = [k17_bound(sim.particles.capacity, m, sim.particles.nspec,
+                        cells) for m, _, cells in masked]
     res = dict(
         n=N_MAIN, steps=nsteps, **a, device_ms_all_kernels=device_ms,
         device_per_call={
             "initcond": per_launch(("initcond_kernel",), nsteps + 1),
             "advance": per_launch(("advance_kernel",), nsteps)},
+        initcond_masked_pairs_cells_per_call=masked,
+        initcond_bound_last_call=bounds[-1],
+        initcond_bound_ms_per_call=sum(b["bound_ms"] for b in bounds)
+        / len(bounds),
         top=[dict(name=k[:60], calls=c, ms=ms) for k, c, ms in rows[:10]])
     del sim
     shutil.rmtree(SIM_IC_DIR, ignore_errors=True)
@@ -7294,14 +7475,16 @@ def main() -> int:
     # before any timing: its processes would take the host's cores from
     # the launches that a kernel's time includes
     dis = [(k, flag) for k in (_build.ADVANCE, _build.ADVANCE_ADAPTIVE,
-                               _build.WETDEPO) for flag in ("-sass", "-elf")]
+                               _build.WETDEPO, cbl_calls_build())
+           for flag in ("-sass", "-elf")]
 
     def disassemble(k):
         for kd, flag in dis:
             if kd is k:
                 k.cuobjdump(flag, wait=False)
 
-    build_s = _build.build_all(kernels, on_built=disassemble)
+    build_s = _build.build_all(kernels + [cbl_calls_build()],
+                               on_built=disassemble)
     # every launch count: the kernels' and their instantiations' entries
     counted = kernels + list(_build.ENTRIES)
     ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
@@ -7634,7 +7817,7 @@ def main() -> int:
          **path_launches("advance_adaptive"),
          **{f: cbl[f] for f in pick},
          **{f: cbl[f] for f in (
-             "stock_k11_ms", "unordered_ms", "bitwise", "nan_count",
+             "layout", "stock_k11_ms", "unordered_ms", "bitwise", "nan_count",
              "lane_efficiency", "passes_mean", "passes_max", "skewed_share",
              "instructions", "bound_bytes", "bound_operations",
              "bound_instructions", "bound_without_skewed_calls",
@@ -7753,7 +7936,10 @@ def main() -> int:
                                   "most_pairs_in_a_cell", "grid",
                                   "kernel_max_rel_err_vs_f64", "faces")
                 if f in r},
-             f"{path}_per_call": pres["device_per_call"][kname]})
+             f"{path}_per_call": pres["device_per_call"][kname],
+             **{f: pres[f] for f in (
+                 "initcond_bound_ms_per_call", "initcond_bound_last_call",
+                 "initcond_masked_pairs_cells_per_call") if f in pres}})
     line.append(
         {"name": "conccalc.nest", "route": "cuda",
          "source": src.format("conccalc"),

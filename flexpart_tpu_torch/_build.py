@@ -78,11 +78,12 @@ class Kernel:
     as ``parts`` libraries (one unless said)."""
 
     def __init__(self, name: str, symbol: str, argtypes: list,
-                 parts: int = 1):
+                 parts: int = 1, defines: tuple = ()):
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.parts = parts
+        self.defines = tuple(defines)   # -D flags of every part's nvcc
         self.launches = 0
         self.build_log = ""
         self.build_s = None   # from build_all's start to its last nvcc's end
@@ -108,7 +109,8 @@ class Kernel:
         return found
 
     def _part_flags(self, part: int) -> tuple:
-        return (f"-DFP_PART={part}",) if self.parts > 1 else ()
+        return self.defines + ((f"-DFP_PART={part}",) if self.parts > 1
+                               else ())
 
     def _lib_path(self, part: int = 0) -> Path:
         h = hashlib.sha256()
@@ -557,6 +559,7 @@ INITCOND = Kernel("initcond", "fp_initcond", [
     I,                    # ioutputforeachrelease
     F, F, F, F, F, F,     # dx_met, dy_met, xoutshift, youtshift, dxout, dyout
     P,                    # grid (npointspec, nzg, nyg, nxg, nspec) f32, accumulated into
+    I, I, I,              # plan (grid/initcond.py::k17_plan): blocks, span, slots
     P,                    # stream
 ])
 

@@ -64,7 +64,7 @@ from ..constants import (D_STRAT, D_TROP, GA, PI, PI180, R_EARTH,
 from ..met.fields import F3_RHO, F3_TT, ZFields
 from . import rng
 from .cbl import CBL_ZONE, init_cbl_wp, legacy_reinit_wp, reinit_wp
-from .cbl import cbl_terms
+from .cbl import cbl_terms, skew_column
 from .hanna import hanna, hanna1
 from .legacy import (LegacyRnd, interp_wind_legacy, interp_wind_short,
                      legacy_draws, sample_met_legacy, vert_wind_legacy, wrap)
@@ -538,10 +538,13 @@ def _pbl_vertical(cfg: StepConfig, z, wp, icbt, h, ust, wst, ol, rho, drhodz,
     if legacy_cbl is not None:
         tab, nrand = legacy_cbl
         rtab = tab.shape[0] - 1
+    # the skewed scheme's column constants and zone (-h/L > CBL_ZONE), once
+    # for the substeps, as K11 computes them once a pass
+    col = skew_column(h, wst, ol) if cbl else None
     for i in range(cfg.ifine):
         icbtf = icbt.to(torch.float32)
         if cbl:
-            zone = (-h / ol) > CBL_ZONE
+            zone = col.zone
             if tab is not None:
                 # advance.f90:411/426: nrand = nrand + 1, then read, on the
                 # dtftlw < 0.5 path only
@@ -551,7 +554,7 @@ def _pbl_vertical(cfg: StepConfig, z, wp, icbt, h, ust, wst, ol, rho, drhodz,
                 dmain = rnd_w[i]
             ath_c, bth_c, rein = cbl_terms(
                 wp, z, wst, h, rho, drhodz, turb.sigw, turb.dsigwdz,
-                turb.tlw, ol, cfg.ldirect)
+                turb.tlw, ol, cfg.ldirect, col)
             wp_c = (wp + ath_c * dtf + bth_c * dmain * _sqrt_dtf(dtf)) \
                 * icbtf
             if tab is not None:

@@ -23,6 +23,7 @@ first and selects, as JAX does, so a NaN on the side not taken stays out.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -45,21 +46,42 @@ def _cuberoot(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
 
 
-def _skew_params(z, h, wst, sigw, dsigwdz, ol):
-    """The bi-Gaussian parameters shared by the drift, the redraw and the
-    fresh draw (cbl.f90:70-170, re_initialize_particle.f90:40-60): (alu,
-    blu, dalu, dblu, sa, sb, dsa, dsb, wa, wb, dwa, dwb), all (N,)."""
-    zeta = z / h
+class SkewColumn(NamedTuple):
+    """The column's part of the bi-Gaussian parameters: it depends only on
+    a particle's h, wst and L, which a pass of the adaptive step holds
+    fixed, so K11 computes it once a pass (``csrc/advance_common.cuh``'s
+    ``skew_column``)."""
+    transition: torch.Tensor    # the skewness's taper below -h/L = 15
+    wst3: torch.Tensor          # wst ** 3
+    zone: torch.Tensor          # -h/L > CBL_ZONE: the skewed scheme applies
+
+
+def skew_column(h, wst, ol) -> SkewColumn:
+    """The part of ``_skew_params`` that does not depend on the height."""
     mhol = -h / ol
     taper = torch.sin((mhol + 10.0) / torch.full_like(mhol, 10.0) * math.pi) \
         / torch.full_like(mhol, 2.0) + 0.5
     transition = torch.where(mhol < SKEW_TRANSITION, taper,
                              torch.ones_like(taper))
+    return SkewColumn(transition, wst * wst * wst, mhol > CBL_ZONE)
+
+
+def _skew_params(z, h, wst, sigw, dsigwdz, ol):
+    """The bi-Gaussian parameters shared by the drift, the redraw and the
+    fresh draw (cbl.f90:70-170, re_initialize_particle.f90:40-60): (alu,
+    blu, dalu, dblu, sa, sb, dsa, dsb, wa, wb, dwa, dwb), all (N,)."""
+    return skew_at(z, h, sigw, dsigwdz, skew_column(h, wst, ol))
+
+
+def skew_at(z, h, sigw, dsigwdz, col: SkewColumn):
+    """``_skew_params`` at height z in a column whose ``skew_column`` is
+    ``col``: the part computed at every substep."""
+    transition, wst3 = col.transition, col.wst3
+    zeta = z / h
     w2 = sigw * sigw
     dw2 = 2.0 * sigw * dsigwdz
     omz = torch.clamp(1.0 - zeta, min=0.0)
     omz15 = torch.pow(omz, 1.5)
-    wst3 = wst * wst * wst
     w3 = ((1.2 * zeta * omz15) + EPS_C) * wst3 * transition
     dw3 = (1.2 * (omz15 - zeta * 1.5 * torch.sqrt(omz))) * wst3 / h \
         * transition
@@ -131,13 +153,17 @@ def _skew_params(z, h, wst, sigw, dsigwdz, ol):
 
 
 def cbl_terms(wp, z, wst, h, rhoa, rhograd, sigw, dsigwdz, tlw, ol,
-              ldirect: int):
+              ldirect: int, col: SkewColumn | None = None):
     """Drift and diffusion of the skewed scheme (cbl.f90): (ath, bth,
     flagrein), flagrein where the velocity lies more than six sigma from
-    both Gaussians (the particle is redrawn)."""
+    both Gaussians (the particle is redrawn).  ``col``: the column's
+    ``skew_column(h, wst, ol)``, computed once for the substeps of a pass
+    (the same values), else here."""
     timedir = float(ldirect)
+    if col is None:
+        col = skew_column(h, wst, ol)
     (alu, blu, dalu, dblu, sa, sb, dsa, dsb, wa, wb, dwa,
-     dwb) = _skew_params(z, h, wst, sigw, dsigwdz, ol)
+     dwb) = skew_at(z, h, sigw, dsigwdz, col)
     dens, ddens = rhoa, rhograd
     alfa = 2.0 * sigw * sigw / (C0 * tlw)
     wold = timedir * wp

@@ -87,13 +87,21 @@
 // pass, its sign kept), the Gaussian drift on the raw velocity outside it,
 // and redraws a non-finite velocity from the substep's normal; each such
 // pass counts one NaN redraw, summed per block beside the passes (work[2]:
-// StepDiag.nan_count).  The bi-Gaussian parameters hold some sixty values
-// at once, so they and the drift are __noinline__ device functions
-// (advance_common.cuh: cbl_skew, cbl_skewed_wp, cbl_fresh_wp) called from
-// the pass body with a dozen arguments: the pool stays 36 words a particle
-// (raw wp in the wp word) and the stock instantiations do not see them.
+// StepDiag.nan_count).  A CBL pass is lane_pass_cbl: it reads the pool
+// and writes what it changes besides its height and velocity before the
+// substeps, computes the skewed scheme's column constants once
+// (skew_column: -h/L, its sine taper, wst^3, the zone test), and runs
+// cbl_substeps, into which the skewed substep (cbl_skewed_wp) is inlined.
+// Measured before (PERF.md, section 6): the same arithmetic as __noinline__
+// calls of a dozen arguments each substep, with the column constants
+// recomputed in each, at 3 blocks an SM: 80 registers, 152-160 B of stack
+// and 78-82 B spilled, the skewed work at about a fifth of the
+// instruction rate.  The pool stays 36 words a particle (raw wp in the wp
+// word) and the stock instantiations do not see the CBL.
 // Bound: chip_smoke.py reads the CBL pass body's instructions as it reads
-// K11's, the calls into the three functions included.
+// K11's, and charges each skewed substep and fresh draw the cheapest path
+// through cbl_skewed_wp and cbl_fresh_wp, read from the CBL part built
+// with FP_CBL_CALLS=1, where they are calls.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
@@ -108,10 +116,13 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 // Blocks an SM must hold (at most 64 registers a thread): 32 warps.  The
-// CBL's instantiations hold 3 (at most 85 registers): its skewed
-// functions are calls, across which the pass keeps its state.
+// CBL's instantiations hold as many: their skewed substep, some sixty
+// values at once, then spills some 100 B, but the pass is bound by the
+// latency of its chains of dependent operations, and 2 blocks (128
+// registers, no spill) or 3 (80, no spill) run it slower (PERF.md,
+// section 6).  chip_smoke.py's k11_blocks reads THREADS and these two.
 constexpr int MIN_BLOCKS = 4;
-constexpr int MIN_BLOCKS_CBL = 3;
+constexpr int MIN_BLOCKS_CBL = 4;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
 // What a kernel reads and writes besides the run scalars.
@@ -312,13 +323,11 @@ __device__ __forceinline__ bool lane_start(const AdvanceArgs& a, const Io& io,
   return pbl && L.remaining > 0.0f && L.zc <= L.h;
 }
 
-// One pass of the boundary layer (advance.f90:276-620).  Returns whether
-// the particle takes another; `nan` is set if the CBL redrew a non-finite
-// velocity in it.
+// One pass of the boundary layer (advance.f90:276-620), HANNA1 or TS.
+// Returns whether the particle takes another.
 template <bool BF16, int TURB, bool SETTLING>
 __device__ __forceinline__ bool lane_pass(const AdvanceArgs& a, const Io& io,
-                                          const float* sh_height, Lane& L,
-                                          bool& nan) {
+                                          const float* sh_height, Lane& L) {
   constexpr bool TS = TURB != HANNA1;
   const float htop = sh_height[a.nz - 1] - a.htop_eps;
   const float hm = L.h - F(1e-9);
@@ -354,7 +363,7 @@ __device__ __forceinline__ bool lane_pass(const AdvanceArgs& a, const Io& io,
   const Turb t = pbl_substeps<TURB>(a, nullptr, false, L.i, L.k, t0,
                                     drho / rhoa, dt_i * a.fine, d2, d2_odd,
                                     pw, L.h, L.ust, L.wst, L.ol, zz, L.wp,
-                                    L.cbt, rhoa, drho, &nan);
+                                    L.cbt);
   const float ldt2 = ldt_formula<TS>(a, t, L.wp, L.h, false);
   const float w_eff =
       SETTLING ? w + settle_at(a, L.st, io.tt3, io.rho3, sh_height, L.zc) : w;
@@ -379,6 +388,121 @@ __device__ __forceinline__ bool lane_pass(const AdvanceArgs& a, const Io& io,
   L.dys = L.dys + v * dt_i;
   ++L.k;
   return L.remaining > 0.0f && L.zc <= L.h;
+}
+
+// One pass of the skewed CBL (TURB == CBL): lane_pass's arithmetic, read
+// from and written to the pool directly, so that the substeps hold only
+// what they use.  What the pass changes besides its height, velocity and
+// next step (the horizontal velocities, the winds, the displacements, the
+// time left and the pass count) is stored before the substeps; the column
+// constants of the skewed scheme (skew_column) are computed once here.
+// lane_pass with cbl_substeps in place of pbl_substeps, which holds the
+// whole Lane across them, spills 166-182 B and runs 1.5% slower on the
+// kernels case and 4.6% in sim_cbl (PERF.md, section 6).
+// Returns whether the particle takes another pass.
+template <bool BF16, bool SETTLING>
+__device__ __forceinline__ bool lane_pass_cbl(const AdvanceArgs& a,
+                                              const Io& io,
+                                              const float* sh_height, Pool& s,
+                                              int p, int i, bool& nan) {
+  float zc, ldt, remaining, h, ust, wst, ol;
+  uint32_t k;
+  int cbt;
+  Horiz hw;
+  get(s, ROW_ZC, p, zc);
+  get(s, ROW_LDT, p, ldt);
+  get(s, ROW_REMAINING, p, remaining);
+  get(s, ROW_K, p, k);
+  get(s, ROW_IX, p, hw.ix);
+  get(s, ROW_JY, p, hw.jy);
+  get(s, ROW_P4_0, p, hw.p4[0]);
+  get(s, ROW_P4_1, p, hw.p4[1]);
+  get(s, ROW_P4_2, p, hw.p4[2]);
+  get(s, ROW_P4_3, p, hw.p4[3]);
+  get(s, ROW_H, p, h);
+  get(s, ROW_UST, p, ust);
+  get(s, ROW_WST, p, wst);
+  get(s, ROW_OL, p, ol);
+  const float dt_i = tmin(ldt, remaining);
+  int iz;
+  float dz;
+  vert_weights(sh_height, a.nz, zc, iz, dz);
+  const size_t rk = fp::cell_row(iz, hw.jy, hw.ix, a.ny, a.nx);
+  float gk[40];
+#pragma unroll
+  for (int q = 0; q < 5; ++q) load8<BF16, 64>(io.rows, rk, q, &gk[8 * q]);
+  const float u = field2(gk, 0, hw.p4, dz);
+  const float v = field2(gk, 1, hw.p4, dz);
+  const float w = field2(gk, 2, hw.p4, dz);
+  const float rhoa = field2(gk, 3, hw.p4, dz);
+  const float drho = field2(gk, 4, hw.p4, dz);
+  const Turb t0 = hanna<true>(zc, h, ust, wst, ol);
+
+  // the pass's draws, as lane_pass
+  float d0, d1, d2, d2_odd;
+  uint32_t pw[4];
+  site_words(pw, a, 1, i, 0u, k);
+  fp::normal_pair(pw[0], pw[1], d0, d1);
+  site_words(pw, a, 2, i, 0u, k);
+  fp::normal_pair(pw[0], pw[1], d2, d2_odd);
+  {
+    float up, vp, daw, dcw, dxs, dys;
+    get(s, ROW_UP, p, up);
+    get(s, ROW_VP, p, vp);
+    const float up2 = ou_update(up, d0, t0.sigu, dt_i / t0.tlu);
+    const float vp2 = ou_update(vp, d1, t0.sigv, dt_i / t0.tlv);
+    get(s, ROW_DAW, p, daw);
+    get(s, ROW_DCW, p, dcw);
+    get(s, ROW_DXS, p, dxs);
+    get(s, ROW_DYS, p, dys);
+    put(s, ROW_UP, p, up2);
+    put(s, ROW_VP, p, vp2);
+    put(s, ROW_U_L, p, u);
+    put(s, ROW_V_L, p, v);
+    put(s, ROW_DAW, p, daw + up2 * dt_i);
+    put(s, ROW_DCW, p, dcw + vp2 * dt_i);
+    put(s, ROW_DXS, p, dxs + u * dt_i);
+    put(s, ROW_DYS, p, dys + v * dt_i);
+    put(s, ROW_K, p, k + 1u);
+  }
+  remaining = clamp_min(remaining - dt_i, 0.0f);
+  put(s, ROW_REMAINING, p, remaining);
+  float w_eff = w;
+  if (SETTLING) {
+    Settle st;
+    get(s, ROW_ST_COL, p, st.col);
+    get(s, ROW_ST_SP, p, st.sp);
+    w_eff = w + settle_at(a, st, io.tt3, io.rho3, sh_height, zc);
+  }
+  put(s, ROW_W_L, p, w_eff);
+
+  // the ifine substeps over dt_i, the skewed scheme's column constants
+  // computed once
+  float zz = zc, wp;
+  get(s, ROW_WP, p, wp);
+  get(s, ROW_CBT, p, cbt);
+  const Turb t = cbl_substeps(a, i, k, t0, dt_i * a.fine, d2, d2_odd, pw, h,
+                              ust, wst, ol, skew_column(h, wst, ol), rhoa,
+                              drho, zz, wp, cbt, nan);
+  put(s, ROW_LDT, p, ldt_formula<true>(a, t, wp, h, false));
+  put(s, ROW_WP, p, wp);
+  put(s, ROW_CBT, p, cbt);
+  // w_eff and the time left were stored before the substeps
+  get(s, ROW_W_L, p, w_eff);
+  get(s, ROW_REMAINING, p, remaining);
+  const float htop = sh_height[a.nz - 1] - a.htop_eps;
+  float z3 = zz + (w_eff * dt_i) * a.ldirf;
+  z3 = tmin(z3, htop);
+  // the deposition window: after the vertical update, before the ground
+  // reflection
+  if (z3 < TWO_HREF) {
+    float t_below;
+    get(s, ROW_T_BELOW, p, t_below);
+    put(s, ROW_T_BELOW, p, t_below + dt_i);
+  }
+  z3 = reflect_ground(z3, h - F(1e-9));
+  put(s, ROW_ZC, p, z3);
+  return remaining > 0.0f && z3 <= h;
 }
 
 // The end of a particle: the free troposphere for the time left
@@ -547,14 +671,20 @@ advance_adaptive_kernel(const __grid_constant__ Io io,
     __syncthreads();
     if (t < total) {
       const int p = order[t];
-      Lane L;
       const long long ip = static_cast<long long>(blockIdx.x) * THREADS + p;
-      load_lane(pool, p, static_cast<int>(ip), L);
-      bool nan = false;
-      in_loop[p] = lane_pass<BF16, TURB, SETTLING>(a, io, sh_height, L, nan)
-                       ? 1 : 0;
-      if (TURB == CBL && nan) ++nans;
-      store_pass(pool, p, L);
+      bool more;
+      if constexpr (TURB == CBL) {
+        bool nan = false;
+        more = lane_pass_cbl<BF16, SETTLING>(a, io, sh_height, pool, p,
+                                             static_cast<int>(ip), nan);
+        if (nan) ++nans;
+      } else {
+        Lane L;
+        load_lane(pool, p, static_cast<int>(ip), L);
+        more = lane_pass<BF16, TURB, SETTLING>(a, io, sh_height, L);
+        store_pass(pool, p, L);
+      }
+      in_loop[p] = more ? 1 : 0;
     }
   }
 

@@ -608,13 +608,48 @@ __device__ __forceinline__ void sample_nests(const AdvanceArgs& a,
 // re_initialize_particle.f90, initialize_cbl_vel.f90), K11's CBL
 // instantiations.  Each line is core/cbl.py's expression with its
 // left-to-right order made explicit; an integer power is products, the
-// others powf with the float exponent, a division a true division.  They
-// are __noinline__: the bi-Gaussian parameters hold some sixty values at
-// once, which inlined into the pass loop would take K11's registers.
+// others powf with the float exponent, a division a true division.
+//
+// The bi-Gaussian parameters are split as core/cbl.py splits them: the
+// column's part (skew_column: -h/L, the taper of the skewness and wst^3,
+// and the zone test), which depends only on the particle's h, wst and L and
+// is computed once a pass, and the part at the substep's height
+// (cbl_skew).  The skewed substep (cbl_skewed_wp) is inlined into the
+// substep loop (cbl_substeps): the parameters hold some sixty values at
+// once, and as a call across which the pass kept its state they went
+// through the stack in local memory.  Built with FP_CBL_CALLS=1 it is a
+// __noinline__ call again, which the bound reads its instructions from
+// (chip_smoke.py's cbl_skewed_calls and function_paths).  A fresh
+// particle's draw (cbl_fresh_wp) is a call in every build: it runs once
+// per particle, at its start, outside the loop of passes.
+
+#if defined(FP_CBL_CALLS) && FP_CBL_CALLS
+#define FP_CBL_SUBSTEP __noinline__
+#else
+#define FP_CBL_SUBSTEP __forceinline__
+#endif
 
 struct Skew {
   float alu, blu, dalu, dblu, sa, sb, dsa, dsb, wa, wb, dwa, dwb;
 };
+
+// The column's part of the parameters (core/cbl.py::skew_column).
+struct SkewColumn {
+  float transition;   // the skewness's taper below -h/L = 15
+  float wst3;         // wst^3
+  bool zone;          // -h/L > CBL_ZONE: the skewed scheme applies
+};
+
+__device__ __forceinline__ SkewColumn skew_column(float h, float wst,
+                                                  float ol) {
+  const float mhol = (-h) / ol;
+  const float taper = sinf(((mhol + 10.0f) / 10.0f) * F(PI)) / 2.0f + 0.5f;
+  SkewColumn c;
+  c.transition = mhol < 15.0f ? taper : 1.0f;
+  c.wst3 = (wst * wst) * wst;
+  c.zone = mhol > CBL_ZONE;
+  return c;
+}
 
 // torch.sign(x) * |x| ** (1/3)
 __device__ __forceinline__ float cuberoot(float x) {
@@ -622,18 +657,16 @@ __device__ __forceinline__ float cuberoot(float x) {
   return sg * powf(fabsf(x), F(1.0 / 3.0));
 }
 
-// The bi-Gaussian parameters (core/cbl.py::_skew_params).
-__device__ __noinline__ Skew cbl_skew(float z, float h, float wst, float sigw,
-                                      float dsigwdz, float ol) {
+// The parameters at height z (core/cbl.py::skew_at) in a column whose
+// skew_column gave transition and wst3.
+__device__ __forceinline__ Skew cbl_skew(float z, float h, float sigw,
+                                         float dsigwdz, float transition,
+                                         float wst3) {
   const float zeta = z / h;
-  const float mhol = (-h) / ol;
-  const float taper = sinf(((mhol + 10.0f) / 10.0f) * F(PI)) / 2.0f + 0.5f;
-  const float transition = mhol < 15.0f ? taper : 1.0f;
   const float w2 = sigw * sigw;
   const float dw2 = (2.0f * sigw) * dsigwdz;
   const float omz = clamp_min(1.0f - zeta, 0.0f);
   const float omz15 = powf(omz, 1.5f);
-  const float wst3 = (wst * wst) * wst;
   const float w3 = ((((F(1.2) * zeta) * omz15) + F(1e-6)) * wst3) * transition;
   const float dw3 =
       (((F(1.2) * (omz15 - (zeta * 1.5f) * sqrtf(omz))) * wst3) / h) * transition;
@@ -711,16 +744,13 @@ __device__ __noinline__ Skew cbl_skew(float z, float h, float wst, float sigw,
 // the drift and diffusion from the raw wp; a particle more than six sigma
 // from both Gaussians is redrawn with its sign kept
 // (core/cbl.py::reinit_wp), from the two normals of tag 40 + s, words
-// (k0, k1), at `pass`.
-__device__ __noinline__ float cbl_skewed_wp(float wp, float z, float wst,
-                                            float h, float rho, float drhodz,
-                                            float sigw, float dsigwdz,
-                                            float tlw, float ol, float timedir,
-                                            float dtf, float rnd, float icbtf,
-                                            uint32_t k0, uint32_t k1,
-                                            long long global_index,
-                                            uint32_t pass) {
-  const Skew k = cbl_skew(z, h, wst, sigw, dsigwdz, ol);
+// (k0, k1), at `pass`.  transition and wst3: the column's skew_column.
+__device__ FP_CBL_SUBSTEP float cbl_skewed_wp(
+    float wp, float z, float h, float rho, float drhodz, float sigw,
+    float dsigwdz, float tlw, float transition, float wst3, float timedir,
+    float dtf, float rnd, float icbtf, uint32_t k0, uint32_t k1,
+    long long global_index, uint32_t pass) {
+  const Skew k = cbl_skew(z, h, sigw, dsigwdz, transition, wst3);
   const float dens = rho, ddens = drhodz;
   const float alfa = ((2.0f * sigw) * sigw) / (3.0f * tlw);
   const float wold = timedir * wp;
@@ -782,7 +812,8 @@ __device__ __noinline__ float cbl_skewed_wp(float wp, float z, float wst,
 __device__ __noinline__ float cbl_fresh_wp(const AdvanceArgs& a, long long i,
                                            float z, float h, float wst,
                                            float sigw, float dsigwdz, float ol) {
-  const Skew k = cbl_skew(z, h, wst, sigw, dsigwdz, ol);
+  const SkewColumn c = skew_column(h, wst, ol);
+  const Skew k = cbl_skew(z, h, sigw, dsigwdz, c.transition, c.wst3);
   uint32_t w[4];
   fp::normal_words(w, a.key_fresh[0], a.key_fresh[1], a.offset + i, 0u);
   const float dcas = fp::uniform24(w[0]);
@@ -849,28 +880,52 @@ __device__ __forceinline__ void fresh_state(const AdvanceArgs& a,
   cbt = 1;
 }
 
+// The draw of substep s > 0 of a pass (tag 2 row s at `pass`): an odd row
+// was made with the even row before it (d2_odd); every fourth row starts a
+// new Philox call into pw, which holds the words of row 0's call.
+// `injected` reads row s from d2in instead (K4's parity mode).
+__device__ __forceinline__ float substep_draw(const AdvanceArgs& a,
+                                              const float* d2in,
+                                              bool injected, long long i,
+                                              uint32_t pass, int s,
+                                              float& d2_odd, uint32_t pw[4]) {
+  if (injected) return injected_at(d2in, a, i, s);
+  if (s % fp::ROWS_PER_PAIR) return d2_odd;
+  if (s % fp::ROWS_PER_BLOCK == 0)
+    site_words(pw, a, 2, i, static_cast<uint32_t>(s / fp::ROWS_PER_BLOCK),
+               pass);
+  const bool hi = (s % fp::ROWS_PER_BLOCK) != 0;
+  float rnd;
+  fp::normal_pair(hi ? pw[2] : pw[0], hi ? pw[3] : pw[1], rnd, d2_odd);
+  return rnd;
+}
+
+// A substep's move of zz by delz with the ground/hmix reflection and the
+// forbidden-state flag (advance.f90:476-491).
+__device__ __forceinline__ void reflect_substep(float delz, float h,
+                                                float& zz, int& cbt) {
+  if (fabsf(delz) > h) delz = fmodf(delz, h);
+  const bool below = delz < -zz;
+  const bool above = delz > (h - zz);
+  zz = below ? (-zz - delz)
+             : (above ? ((-zz - delz) + 2.0f * h) : (zz + delz));
+  cbt = (below || above) ? -1 : 1;
+}
+
 // The ifine vertical Langevin substeps of the boundary layer
 // (advance.f90:396-498) over dtf = dt / ifine each, from the turbulence t
 // at the start height and the density gradient term rhoaux: zz, wp and cbt
-// are advanced in place with the ground/hmix reflection.  Tag 2 row s of
-// pass `pass` is the substep's draw: row 0 is d2; an odd row was made with
-// the even row before it (d2_odd); every fourth row starts a new Philox
-// call into pw, which holds the words of row 0's call.  `injected` reads
-// row s from d2in instead (K4's parity mode).  Hanna is refreshed at zz
-// between substeps, not after the last; that last refresh is returned
-// (the adaptive step's next ldt reads it).  With the CBL (K11 only) wp is
-// raw and, where dtftlw < 0.5, the skewed scheme runs in the zone -h/L > 5
-// (cbl_skewed_wp, with rho and drhodz) and the Gaussian drift on the raw
-// velocity outside it; a non-finite result is redrawn from the substep's
-// normal and sets `nan`; where dtftlw >= 0.5 the turbswitch form's exact
-// update runs on the raw wp (the reference's quirk).
+// are advanced in place with the ground/hmix reflection.  Row 0 of tag 2
+// at pass `pass` is d2, row s the substep's draw (substep_draw).  Hanna is
+// refreshed at zz between substeps, not after the last; that last refresh
+// is returned (the adaptive step's next ldt reads it).  TURB is HANNA1 or
+// TS; the CBL's substeps are cbl_substeps.
 template <int TURB>
 __device__ __forceinline__ Turb pbl_substeps(
     const AdvanceArgs& a, const float* d2in, bool injected, long long i,
     uint32_t pass, Turb t, float rhoaux, float dtf, float d2, float d2_odd,
     uint32_t pw[4], float h, float ust, float wst, float ol, float& zz,
-    float& wp, int& cbt, float rho = 0.0f, float drhodz = 0.0f,
-    bool* nan = nullptr) {
+    float& wp, int& cbt) {
   constexpr bool TSH = TURB != HANNA1;   // Hanna's turbswitch form
   const float dtftlw = dtf / t.tlw;
   const float rw = expf(-dtftlw);
@@ -878,77 +933,94 @@ __device__ __forceinline__ Turb pbl_substeps(
   const float rnd_lin = sqrtf(2.0f * dtftlw);
   const bool use_lin = dtftlw < 0.5f;
   for (int s = 0;; ++s) {
-    float rnd = d2;
-    if (s > 0) {
-      if (injected) {
-        rnd = injected_at(d2in, a, i, s);
-      } else if (s % fp::ROWS_PER_PAIR) {
-        rnd = d2_odd;
-      } else {
-        if (s % fp::ROWS_PER_BLOCK == 0)
-          site_words(pw, a, 2, i, static_cast<uint32_t>(s / fp::ROWS_PER_BLOCK),
-                     pass);
-        const bool hi = (s % fp::ROWS_PER_BLOCK) != 0;
-        fp::normal_pair(hi ? pw[2] : pw[0], hi ? pw[3] : pw[1], rnd, d2_odd);
-      }
-    }
+    const float rnd =
+        s > 0 ? substep_draw(a, d2in, injected, i, pass, s, d2_odd, pw) : d2;
     const float icbtf = static_cast<float>(cbt);
     float wp_new, delz;
-    bool skewed = false;   // the CBL's update took this substep
-    if constexpr (TURB == CBL) {
-      if (use_lin) {
-        float wpn;
-        if (((-h) / ol) > CBL_ZONE) {
-          wpn = cbl_skewed_wp(wp, zz, wst, h, rho, drhodz, t.sigw, t.dsigwdz,
-                              t.tlw, ol, a.ldirf, dtf, rnd, icbtf,
-                              a.key_cbl[2 * s], a.key_cbl[2 * s + 1],
-                              a.offset + i, pass);
-        } else {
-          const float sig = clamp_min(t.sigw, F(1e-6));
-          const float ath_g = (((-wp) / t.tlw + sig * t.dsigwdz)
-                               + ((wp * wp) / sig) * t.dsigwdz)
-                              + ((sig * sig) / rho) * drhodz;
-          wpn = ((wp + ath_g * dtf) + (sig * rnd) * rnd_lin) * icbtf;
-        }
-        if (!isfinite(wpn)) {
-          *nan = true;
-          wpn = clamp_min(t.sigw, F(1e-6)) * rnd;
-        }
-        wp_new = wpn;
-        delz = wp_new * dtf;
-        skewed = true;
-      }
-    }
-    if (!skewed) {
-      if (TSH) {
-        const float drift = t.dsigwdz + rhoaux * t.sigw;
-        const float sel = use_lin
-            ? ((1.0f - dtftlw) * wp + rnd * rnd_lin) + dtf * drift
-            : (rw * wp + rnd * rnd_exact) + (t.tlw * (1.0f - rw)) * drift;
-        wp_new = sel * icbtf;
-        delz = (wp_new * t.sigw) * dtf;
-      } else {
-        wp_new = ((rw * wp + (rnd * rnd_exact) * t.sigw)
-                  + (t.tlw * (1.0f - rw))
-                        * (t.dsigw2dz + rhoaux * (t.sigw * t.sigw)))
-                 * icbtf;
-        delz = wp_new * dtf;
-      }
+    if (TSH) {
+      const float drift = t.dsigwdz + rhoaux * t.sigw;
+      const float sel = use_lin
+          ? ((1.0f - dtftlw) * wp + rnd * rnd_lin) + dtf * drift
+          : (rw * wp + rnd * rnd_exact) + (t.tlw * (1.0f - rw)) * drift;
+      wp_new = sel * icbtf;
+      delz = (wp_new * t.sigw) * dtf;
+    } else {
+      wp_new = ((rw * wp + (rnd * rnd_exact) * t.sigw)
+                + (t.tlw * (1.0f - rw))
+                      * (t.dsigw2dz + rhoaux * (t.sigw * t.sigw)))
+               * icbtf;
+      delz = wp_new * dtf;
     }
     if (a.turboff) {
       wp_new = 0.0f;
       delz = 0.0f;
     }
-    // ground/hmix reflection and forbidden-state flag (advance.f90:476-491)
-    if (fabsf(delz) > h) delz = fmodf(delz, h);
-    const bool below = delz < -zz;
-    const bool above = delz > (h - zz);
-    zz = below ? (-zz - delz)
-               : (above ? ((-zz - delz) + 2.0f * h) : (zz + delz));
-    cbt = (below || above) ? -1 : 1;
+    reflect_substep(delz, h, zz, cbt);
     wp = wp_new;
     if (s == a.ifine - 1) break;
     t = hanna<TSH>(zz, h, ust, wst, ol);
+  }
+  return t;
+}
+
+// The CBL's ifine substeps (K11's CBL instantiations): pbl_substeps with
+// the raw wp.  Where dtftlw < 0.5 (from the pass's start turbulence, so
+// the same for every substep) the skewed scheme runs in the column's zone
+// (cbl_skewed_wp, with rho and drhodz) and the Gaussian drift on the raw
+// velocity outside it, a non-finite result redrawn from the substep's
+// normal, which sets `nan`; where dtftlw >= 0.5 the turbswitch form's
+// exact update runs on the raw wp (the reference's quirk).  `col` is the
+// particle's skew_column, computed once a pass.
+__device__ __forceinline__ Turb cbl_substeps(
+    const AdvanceArgs& a, long long i, uint32_t pass, Turb t, float dtf,
+    float d2, float d2_odd, uint32_t pw[4], float h, float ust, float wst,
+    float ol, SkewColumn col, float rho, float drhodz, float& zz, float& wp,
+    int& cbt, bool& nan) {
+  // what depends on dtftlw alone is computed where it is used (the exact
+  // form's in every substep that takes it): fewer values held across the
+  // substeps, the same values
+  const float dtftlw = dtf / t.tlw;
+  const float rnd_lin = sqrtf(2.0f * dtftlw);
+  const bool use_lin = dtftlw < 0.5f;
+  for (int s = 0;; ++s) {
+    const float rnd =
+        s > 0 ? substep_draw(a, nullptr, false, i, pass, s, d2_odd, pw) : d2;
+    const float icbtf = static_cast<float>(cbt);
+    float wp_new, delz;
+    if (use_lin) {
+      if (col.zone) {
+        wp_new = cbl_skewed_wp(wp, zz, h, rho, drhodz, t.sigw, t.dsigwdz,
+                               t.tlw, col.transition, col.wst3, a.ldirf, dtf,
+                               rnd, icbtf, a.key_cbl[2 * s],
+                               a.key_cbl[2 * s + 1], a.offset + i, pass);
+      } else {
+        const float sig = clamp_min(t.sigw, F(1e-6));
+        const float ath_g = (((-wp) / t.tlw + sig * t.dsigwdz)
+                             + ((wp * wp) / sig) * t.dsigwdz)
+                            + ((sig * sig) / rho) * drhodz;
+        wp_new = ((wp + ath_g * dtf) + (sig * rnd) * rnd_lin) * icbtf;
+      }
+      if (!isfinite(wp_new)) {
+        nan = true;
+        wp_new = clamp_min(t.sigw, F(1e-6)) * rnd;
+      }
+      delz = wp_new * dtf;
+    } else {
+      const float rw = expf(-dtftlw);
+      const float rnd_exact = sqrtf(clamp_min(1.0f - rw * rw, 0.0f));
+      const float drift = t.dsigwdz + (drhodz / rho) * t.sigw;
+      wp_new = ((rw * wp + rnd * rnd_exact) + (t.tlw * (1.0f - rw)) * drift)
+               * icbtf;
+      delz = (wp_new * t.sigw) * dtf;
+    }
+    if (a.turboff) {
+      wp_new = 0.0f;
+      delz = 0.0f;
+    }
+    reflect_substep(delz, h, zz, cbt);
+    wp = wp_new;
+    if (s == a.ifine - 1) break;
+    t = hanna<true>(zz, h, ust, wst, ol);
   }
   return t;
 }

@@ -11,9 +11,11 @@ sparse format with empty wet and dry blocks.
 
 ``InitCondConfig``, ``zero_init_cond`` and ``write_initial_cond`` are the
 JAX package's, copied.  The scatter is kernel K17 (``csrc/initcond.cu``:
-one thread per masked particle, the density gather and four float atomics
-per species) on CUDA tensors and ``initcond_plain`` (``index_add_`` of
-``initcond_pairs``) on CPU tensors; ``initcond_scatter`` picks by device.
+warps walk spans of slots, take the masked particles 32 at a time, and
+sum the pairs of a plume in per-warp tables in shared memory keyed by
+grid row, as K8 does; ``k17_plan`` makes its launch) on CUDA tensors and
+``initcond_plain`` (``index_add_`` of ``initcond_pairs``) on CPU tensors;
+``initcond_scatter`` picks by device.
 Both add into the grid in place.
 
 The mask of the particles that died in a step is the active mask before
@@ -36,6 +38,45 @@ from ..io.fortran_writer import _rec, _sparse_block
 from ..met.fields import F3_RHO, ZFields
 
 _BIG = float(2 ** 30)
+
+# K17's launch plan (csrc/initcond.cu's constants): blocks of K17_THREADS
+# threads, K17_MIN_BLOCKS of them resident per SM, K17_WAVES times as many
+# blocks as stay resident (so that the blocks whose span a plume fills are
+# spread over the card as others end), each warp walking a span of slots
+# (a multiple of K17_ROUND, the slots whose mask a warp reads in a round)
+# with a table in shared memory of a power of two slots, at least
+# K17_MIN_SLOTS, each a key and nspec values, within about K17_TABLE_BYTES
+K17_THREADS = 256
+K17_WARPS = K17_THREADS // 32
+K17_MIN_BLOCKS = 4
+K17_WAVES = 4
+K17_ROUND = 128
+K17_TABLE_BYTES = 3072
+K17_MIN_SLOTS = 64
+K17_MAX_SPECIES = 32
+# K17 matches grid rows on 32 bits, below the key of an empty slot
+K17_MAX_ROWS = 0xFFFFFFFF - 32
+
+
+class K17Plan(NamedTuple):
+    blocks: int
+    span: int          # slots a warp walks
+    slots: int         # slots of a warp's table
+
+
+def k17_plan(n: int, nspec: int, sms: int,
+             waves: int = K17_WAVES) -> K17Plan:
+    """K17's launch on a card of ``sms`` SMs: ``waves`` times as many
+    blocks as stay resident, each warp a contiguous span of the ``n``
+    slots."""
+    slots = K17_MIN_SLOTS
+    while 2 * slots * (4 + 4 * nspec) <= K17_TABLE_BYTES:
+        slots *= 2
+    warps = sms * K17_MIN_BLOCKS * K17_WARPS * waves
+    span = -(-n // warps)
+    span = max(K17_ROUND, -(-span // K17_ROUND) * K17_ROUND)
+    blocks = -(-n // (span * K17_WARPS))
+    return K17Plan(blocks, span, slots)
 
 
 class InitCondConfig(NamedTuple):
@@ -130,6 +171,16 @@ def initcond_plain(grid: torch.Tensor, p: Particles, mask: torch.Tensor,
     grid.view(-1, p.nspec).index_add_(0, lin[valid], contrib[valid])
 
 
+_SMS = {}
+
+
+def _sm_count(dev) -> int:
+    """The card's SMs, read once per device (k17_plan's input)."""
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
 def initcond_cuda(grid: torch.Tensor, p: Particles, mask: torch.Tensor,
                   zf: ZFields, outheight: torch.Tensor,
                   cfg: InitCondConfig) -> None:
@@ -158,7 +209,16 @@ def initcond_cuda(grid: torch.Tensor, p: Particles, mask: torch.Tensor,
         raise ValueError("K17: grid does not match the configuration")
     if n >= 2 ** 31 - 256:
         raise ValueError("K17 indexes particles with int32")
+    if not 1 <= p.nspec <= K17_MAX_SPECIES:
+        raise ValueError(f"K17 takes 1 to {K17_MAX_SPECIES} species")
+    if grid.numel() // p.nspec > K17_MAX_ROWS:
+        raise ValueError(f"K17 matches grid rows by a 32-bit index: "
+                         f"{grid.numel() // p.nspec} rows exceed "
+                         f"{K17_MAX_ROWS}")
+    if mask.data_ptr() % 4:
+        mask = mask.clone()            # K17 reads four bytes of it at once
     nz, ny, nx = rho.shape
+    plan = k17_plan(n, p.nspec, _sm_count(dev))
 
     def c(v):
         return float(np.float32(v))
@@ -173,7 +233,7 @@ def initcond_cuda(grid: torch.Tensor, p: Particles, mask: torch.Tensor,
             outheight.data_ptr(), cfg.nzg, n, p.nspec, cfg.nxg, cfg.nyg,
             cfg.npointspec, int(cfg.ioutputforeachrelease), c(cfg.dx_met),
             c(cfg.dy_met), c(cfg.xoutshift), c(cfg.youtshift),
-            c(cfg.dxout), c(cfg.dyout), grid.data_ptr(), stream)
+            c(cfg.dxout), c(cfg.dyout), grid.data_ptr(), *plan, stream)
 
 
 def initcond_scatter(grid: torch.Tensor, p: Particles, mask: torch.Tensor,

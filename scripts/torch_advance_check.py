@@ -19,7 +19,7 @@ K10's BKDEP (``bkdep``) and K6 with K7 and its BACKWARD instantiation
 splitting (``split``); K14-K17 of the sim_domainfill and sim_initcond
 phases (``domainfill``: the boundary, the receptors, the fluxes and the
 initial-condition scatter, on a fill of ``n_particles`` in 1.1 times as
-many slots).  A failed check raises.  This is the quick call to make
+many slots), or K17 alone (``initcond``).  A failed check raises.  This is the quick call to make
 after changing a kernel, before a whole chip_smoke.py run.
 """
 import json
@@ -58,6 +58,7 @@ def main() -> int:
               "bkdep": cs.kernel_bkdep,
               "oh": cs.kernel_ohreaction,
               "split": lambda d, g: cs.kernel_split(d, g, n),
+              "initcond": cs.kernel_initcond,
               "domainfill": lambda d, g: {
                   "boundcond": cs.kernel_boundcond(d, g),
                   "receptors": cs.kernel_receptors(d, g),
@@ -69,7 +70,7 @@ def main() -> int:
     for name in which:
         t0 = time.perf_counter()
         r = checks[name](device, grid)
-        if name not in ("oh", "split", "domainfill"):
+        if name not in ("oh", "split", "domainfill", "initcond"):
             r.pop("cases", None)
         print(json.dumps({"check": name, "seconds": time.perf_counter() - t0,
                           **r}, default=str), flush=True)

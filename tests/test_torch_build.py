@@ -664,7 +664,8 @@ def test_function_paths_take_the_cheapest_way_to_a_ret():
     function of the run's instantiation: from the function's first byte
     (the cubin's symbol table) to the nearest RET it reaches, a branch of
     the data on its cheaper side, a CALL one instruction; its static
-    instructions (NOPs aside) and CALLs beside it."""
+    instructions (NOPs aside), its stores and loads of local memory (none
+    here) and CALLs beside it."""
     import sys
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -692,7 +693,8 @@ def test_function_paths_take_the_cheapest_way_to_a_ret():
     flags = (True, 2, True, True)
     assert chip_smoke.function_paths(Kernel(), "advance_adaptive_kernel",
                                      flags, ("cbl_skew",)) == {
-        "cbl_skew": {"cheapest": 4, "static": 7, "calls": 1}}
+        "cbl_skew": {"cheapest": 4, "static": 7, "local_memory": 0,
+                     "calls": 1}}
     with pytest.raises(AssertionError, match="cbl_fresh_wp"):
         chip_smoke.function_paths(Kernel(), "advance_adaptive_kernel", flags,
                                   ("cbl_fresh_wp",))
@@ -703,6 +705,68 @@ def _sass_function(name, ops):
     lines += ["        /*%04x*/                   %s ;  /* 0x0 */"
               % (16 * i, op) for i, op in enumerate(ops)]
     return "\n".join(lines)
+
+
+_K11_OPS = ["MOV R1, c[0x0][0x28]", "S2R R0, SR_TID.X",
+            "BAR.SYNC.DEFER_BLOCKING 0x0",   # 0x20: the loop of iterations
+            "VOTE.ANY R2, PT, P0",      # the particles still in the loop
+            "BAR.SYNC.DEFER_BLOCKING 0x0",
+            "@P1 BRA 0x270",            # none left: to the ends
+            "@P2 BRA 0x80",             # a branch of the dealing
+            "STS.U16 [R3], R0",         # the order
+            "BAR.SYNC.DEFER_BLOCKING 0x0",
+            "@!P3 VIADD R9, R9, 0x1",   # thread 0's sums
+            "@P4 BRA 0x250",            # a thread past the count: no pass
+            "LDS.U16 R8, [R8]",         # 0xb0, the pass body: order[t]
+            "PRMT R8, R8, 0x9910, RZ",
+            "IMAD R6, R8, 0x4, R7",     # the slot's row in the pool
+            "LDS R10, [R6]",            # its first word
+            "LDS R12, [R13+0x4]",       # a height
+            "LDS R11, [R6+0x400]",      # its second word
+            "BRA.DIV UR4, 0x290",       # taken only by a diverged warp
+            "@P6 BRA 0x140",            # a branch of the data
+            "FMUL R10, R10, R11",
+            "FADD R10, R10, R11",       # 0x140: the substep loop
+            "@P0 BRA 0x1d0",            # the last substep leaves it
+            "MUFU.EX2 R4, R4", "FMUL R4, R4, R2",
+            "@P1 BRA 0x1a0",            # a branch of the data
+            "FADD R4, R4, R2",
+            "FMUL R4, R4, R4", "NOP",
+            "BRA 0x140",                # 0x1c0: the substeps' back edge
+            "FADD R5, R5, R3",
+            "MOV R6, R12",              # no longer the slot's row
+            "LDS R15, [R6]",            # a height
+            "LEA R16, R8, R7, 0x2",
+            "STS [R16], R10",           # the words a pass changes
+            "STS [R16+0x400], R5",
+            "STS.U8 [R8+UR5], R4",      # in the loop or not
+            "NOP", "BSYNC B0",
+            "BRA 0x20",                 # 0x260: the loop's back edge
+            "REDG.E.ADD.STRONG.GPU [R4.64], R5",   # the ends, the counts
+            "EXIT",
+            "WARPSYNC.COLLECTIVE R22, 0x2c0",   # 0x290: a slow path
+            "VOTE.ANY R2, PT, P4", "ENDCOLLECTIVE",
+            "BRA 0x10"]                 # 0x2c0: wider than the loop
+_K11_OTHER = ["MOV R1, c[0x0][0x28]", "BRA 0x0", "EXIT"]
+_K11_PRE = "_ZN52_GLOBAL__N__x_advance_adaptive_cu_y23advance_adaptive_kernel"
+
+
+def _k11_sass(ops):
+    """A K11 library of two instantiations: a stock one (_K11_OTHER) and
+    the one the tests read (``ops``)."""
+    return "\n".join([
+        _sass_function(_K11_PRE + "ILb1ELb0ELb1ELb1EEvN_2IoEPiPyN_11Advance"
+                       "ArgsE", _K11_OTHER),
+        _sass_function(_K11_PRE + "ILb1ELb1ELb1ELb1EEvN_2IoEPiPyN_11Advance"
+                       "ArgsE", ops)])
+
+
+class _K11Kernel:
+    name = "advance_adaptive"
+    sass = _k11_sass(_K11_OPS)
+
+    def cuobjdump(self, flag):
+        return self.sass
 
 
 def test_k11_instructions_count_the_cheapest_pass():
@@ -724,63 +788,7 @@ def test_k11_instructions_count_the_cheapest_pass():
     from pathlib import Path
     sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import chip_smoke
-    ops = ["MOV R1, c[0x0][0x28]", "S2R R0, SR_TID.X",
-           "BAR.SYNC.DEFER_BLOCKING 0x0",   # 0x20: the loop of iterations
-           "VOTE.ANY R2, PT, P0",      # the particles still in the loop
-           "BAR.SYNC.DEFER_BLOCKING 0x0",
-           "@P1 BRA 0x270",            # none left: to the ends
-           "@P2 BRA 0x80",             # a branch of the dealing
-           "STS.U16 [R3], R0",         # the order
-           "BAR.SYNC.DEFER_BLOCKING 0x0",
-           "@!P3 VIADD R9, R9, 0x1",   # thread 0's sums
-           "@P4 BRA 0x250",            # a thread past the count: no pass
-           "LDS.U16 R8, [R8]",         # 0xb0, the pass body: order[t]
-           "PRMT R8, R8, 0x9910, RZ",
-           "IMAD R6, R8, 0x4, R7",     # the slot's row in the pool
-           "LDS R10, [R6]",            # its first word
-           "LDS R12, [R13+0x4]",       # a height
-           "LDS R11, [R6+0x400]",      # its second word
-           "BRA.DIV UR4, 0x290",       # taken only by a diverged warp
-           "@P6 BRA 0x140",            # a branch of the data
-           "FMUL R10, R10, R11",
-           "FADD R10, R10, R11",       # 0x140: the substep loop
-           "@P0 BRA 0x1d0",            # the last substep leaves it
-           "MUFU.EX2 R4, R4", "FMUL R4, R4, R2",
-           "@P1 BRA 0x1a0",            # a branch of the data
-           "FADD R4, R4, R2",
-           "FMUL R4, R4, R4", "NOP",
-           "BRA 0x140",                # 0x1c0: the substeps' back edge
-           "FADD R5, R5, R3",
-           "MOV R6, R12",              # no longer the slot's row
-           "LDS R15, [R6]",            # a height
-           "LEA R16, R8, R7, 0x2",
-           "STS [R16], R10",           # the words a pass changes
-           "STS [R16+0x400], R5",
-           "STS.U8 [R8+UR5], R4",      # in the loop or not
-           "NOP", "BSYNC B0",
-           "BRA 0x20",                 # 0x260: the loop's back edge
-           "REDG.E.ADD.STRONG.GPU [R4.64], R5",   # the ends, the counts
-           "EXIT",
-           "WARPSYNC.COLLECTIVE R22, 0x2c0",   # 0x290: a slow path
-           "VOTE.ANY R2, PT, P4", "ENDCOLLECTIVE",
-           "BRA 0x10"]                 # 0x2c0: wider than the loop
-    other = ["MOV R1, c[0x0][0x28]", "BRA 0x0", "EXIT"]
-    pre = "_ZN52_GLOBAL__N__x_advance_adaptive_cu_y23advance_adaptive_kernel"
-
-    def sass_of(ops):
-        return "\n".join([
-            _sass_function(pre + "ILb1ELb0ELb1ELb1EEvN_2IoEPiPyN_11Advance"
-                           "ArgsE", other),
-            _sass_function(pre + "ILb1ELb1ELb1ELb1EEvN_2IoEPiPyN_11Advance"
-                           "ArgsE", ops)])
-
-    class Kernel:
-        name = "advance_adaptive"
-        sass = sass_of(ops)
-
-        def cuobjdump(self, flag):
-            return self.sass
-
+    ops, Kernel, sass_of = _K11_OPS, _K11Kernel, _k11_sass
     flags = (True, True, True, True)
     _, code = chip_smoke.sass_instantiation(
         Kernel(), "advance_adaptive_kernel", flags)
@@ -808,6 +816,7 @@ def test_k11_instructions_count_the_cheapest_pass():
     k.sass = sass_of([o.replace("[R16+0x400]", "[R16+0x404]") for o in ops])
     with pytest.raises(AssertionError, match="off a row"):
         chip_smoke.k11_instructions(k, flags, 4)
+
     # without the ballot no particle is dealt before the pass body
     k.sass = sass_of([o.replace("VOTE.ANY R2, PT, P0", "MOV R2, R0")
                       for o in ops])
@@ -817,6 +826,36 @@ def test_k11_instructions_count_the_cheapest_pass():
     k.sass = sass_of([o.replace("@P4 BRA 0x250", "MOV R9, R9") for o in ops])
     with pytest.raises(AssertionError, match="past the pass body"):
         chip_smoke.k11_instructions(k, flags, 4)
+
+
+def test_k11_instructions_leave_the_stack_out():
+    """The stores and loads of local memory in K11's pass body (STL, LDL:
+    the registers the compiler spills to the stack and reloads) count on
+    a pass's paths as NOPs do, as the pool's moves do not count, and are
+    reported beside them: a spill in the substep loop and its reload after
+    the substeps read the same per-pass counts as NOPs there."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    spilled = list(_K11_OPS)
+    assert spilled[27] == spilled[36] == "NOP"
+    spilled[27] = "STL [R1+0x8], R4"     # 0x1b0: in the substep loop
+    spilled[36] = "LDL R4, [R1+0x8]"     # 0x240: after the substeps
+    k = _K11Kernel()
+    k.sass = _k11_sass(spilled)
+    flags = (True, True, True, True)
+    base = chip_smoke.k11_instructions(_K11Kernel(), flags, 4)
+    got = chip_smoke.k11_instructions(k, flags, 4)
+    assert (base["local_memory_in_pass_body"],
+            got["local_memory_in_pass_body"]) == (0, 2)
+    assert (got["pass_body"], got["substep_loop"]) == (
+        base["pass_body"] + 2, base["substep_loop"] + 1)
+    for key in ("per_pass_cheapest", "per_pass_dearest",
+                "per_pass_cheapest_with_pool_moves",
+                "per_pass_dearest_with_pool_moves", "substep_cheapest",
+                "substep_dearest"):
+        assert got[key] == base[key], key
 
 
 def test_k11_work_counters_and_pool_match_the_source():
@@ -1072,3 +1111,192 @@ def test_boundary_receptor_flux_constants_match_the_sources():
     assert float(const("receptors", "EPANECHNIKOV").rstrip("f")) \
         == receptors.EPANECHNIKOV
     assert int(const("fluxes", "MAX_SPAN")) == fluxes.MAX_SPAN
+
+
+def test_k11_cbl_blocks_and_pass_rows_match_the_source():
+    """K11's blocks per SM: the source's THREADS, MIN_BLOCKS (the stock
+    instantiations') and MIN_BLOCKS_CBL (the CBL's, 4) are what
+    chip_smoke.k11_blocks reads, from which k11_cbl_layout makes the
+    register cap it checks, and the CBL takes its own launch bound.  A CBL
+    pass (lane_pass_cbl) writes to the pool exactly the rows of
+    PASS_FIELDS, the first ones, as a stock pass stores them back: the
+    pool keeps NWORDS words a particle, no row of its own for the CBL, and
+    chip_smoke's pool-traffic reader finds the pass's stores on the first
+    rows."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    text = _strip_comments(_build.ADVANCE_ADAPTIVE.source.read_text())
+    shape = chip_smoke.k11_blocks(_build.ADVANCE_ADAPTIVE)
+    assert shape == {"THREADS": 256, "MIN_BLOCKS": 4, "MIN_BLOCKS_CBL": 4}
+    for name in shape:
+        assert len(re.findall(r"constexpr int %s = (\d+);" % name,
+                              text)) == 1
+    assert "__launch_bounds__(THREADS" in text
+    assert "TURB == CBL ? MIN_BLOCKS_CBL : MIN_BLOCKS" in text
+    body = re.search(r"bool lane_pass_cbl\(.*?\n}\n", text, re.S).group(0)
+    flat = text.replace("\\\n", "\n")
+    pass_rows = re.findall(r"X\((\w+), ", re.search(
+        r"#define PASS_FIELDS\(X\)(.*?)\n(?!\s*X\()", flat, re.S).group(1))
+    stored = set(re.findall(r"put\(s, ROW_(\w+), p,", body))
+    assert stored == set(pass_rows)
+    loaded = set(re.findall(r"get\(s, ROW_(\w+), p,", body))
+    held = re.findall(r"X\((\w+), ", re.search(
+        r"#define HELD_FIELDS\(X\)(.*?)\n(?!\s*X\()", flat, re.S).group(1))
+    assert loaded <= set(pass_rows) | set(held)
+    # the CBL's pass runs its own substeps, with the column hoisted
+    assert "skew_column(h, wst, ol)" in body and "cbl_substeps(" in body
+
+
+def test_cbl_skewed_substep_is_inlined_and_a_call_only_in_the_calls_build():
+    """The skewed substep (cbl_skewed_wp) is inlined into the CBL's
+    substep loop unless FP_CBL_CALLS is set, and the fresh draw
+    (cbl_fresh_wp) is a call in every build; the bound reads both from
+    chip_smoke.cbl_calls_build, the CBL part (FP_PART 2) built with
+    FP_CBL_CALLS=1; the bi-Gaussian parameters (cbl_skew) are inlined into
+    both, the column's part (skew_column) computed once a pass."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    common = _strip_comments(
+        (_build.CSRC / "advance_common.cuh").read_text())
+    assert re.search(r"#if defined\(FP_CBL_CALLS\) && FP_CBL_CALLS\s*\n"
+                     r"#define FP_CBL_SUBSTEP __noinline__\s*\n#else\s*\n"
+                     r"#define FP_CBL_SUBSTEP __forceinline__", common)
+    assert "__device__ FP_CBL_SUBSTEP float cbl_skewed_wp(" in common
+    assert "__device__ __noinline__ float cbl_fresh_wp(" in common
+    assert "__device__ __forceinline__ Skew cbl_skew(" in common
+    assert "__device__ __forceinline__ SkewColumn skew_column(" in common
+    k = chip_smoke.cbl_calls_build()
+    assert k is chip_smoke.cbl_calls_build()
+    assert k.source == _build.ADVANCE_ADAPTIVE.source and k.parts == 1
+    assert set(k.defines) == {"-DFP_PART=2", "-DFP_CBL_CALLS=1"}
+    assert k._lib_path() != _build.ADVANCE_ADAPTIVE._lib_path(2)
+    assert chip_smoke.CBL_SKEWED_FUNCTIONS == ("cbl_skewed_wp",
+                                               "cbl_fresh_wp")
+
+
+def test_cbl_bound_reader_finds_the_skewed_work_or_refuses():
+    """The CBL bound's reader (function_paths over CBL_SKEWED_FUNCTIONS) in
+    a listing shaped like cbl_calls_build's: cbl_skewed_wp a function whose
+    cheapest path holds the inlined parameters, cbl_fresh_wp one of its
+    own, each found by its symbol, its spills and reloads (STL, LDL) not
+    counted on its path.  In a listing shaped like the kernel
+    that runs (cbl_skewed_wp inlined, only cbl_fresh_wp a function) it
+    refuses by name instead of dropping the skewed work."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    entry = "_Z23advance_adaptive_kernelILb1ELi2ELb1ELb1EEvv"
+    calls_elf = f""".section .symtab
+ index           value           size      info    other  shndx    name
+ 0x1               0            0x40      0x2     0x10    0xa     {entry}
+ 0x7            0x40            0x80      0x2        0    0xa     ${entry}$_ZN2fp13cbl_skewed_wpEfff
+ 0x8            0xc0            0x30      0x2        0    0xa     ${entry}$_ZN2fp12cbl_fresh_wpEfff
+"""
+    ops = ["MOV R1, c[0x0][0x28]", "CALL.REL.NOINC 0x40", "EXIT", "NOP",
+           "FMUL R2, R2, R5",            # 0x40: cbl_skewed_wp, cbl_skew in it
+           "STL [R1+0x4], R2",           # a spill: not counted
+           "MUFU.RSQ R3, R2",
+           "@P0 BRA 0xb0",               # the redraw
+           "LDL R2, [R1+0x4]",           # its reload: not counted
+           "FADD R2, R2, R3",
+           "RET.REL.NODEC R4 0x0",
+           "FFMA R2, R2, R3, R4",        # 0xb0
+           "FMUL R2, R2, R5",            # 0xc0: cbl_fresh_wp
+           "FADD R2, R2, R3",
+           "RET.REL.NODEC R4 0x0"]
+    inline_elf = "\n".join(ln for ln in calls_elf.splitlines()
+                           if "cbl_skewed_wp" not in ln) + "\n"
+
+    class Kernel:
+        name = "advance_adaptive"
+        elf = calls_elf
+
+        def cuobjdump(self, flag):
+            return self.elf if flag == "-elf" else _sass_function(entry, ops)
+
+    flags = (True, 2, True, True)
+    paths = chip_smoke.function_paths(Kernel(), "advance_adaptive_kernel",
+                                      flags, chip_smoke.CBL_SKEWED_FUNCTIONS)
+    assert paths == {"cbl_skewed_wp": {"cheapest": 5, "static": 8,
+                                       "local_memory": 2, "calls": 0},
+                     "cbl_fresh_wp": {"cheapest": 3, "static": 3,
+                                      "local_memory": 0, "calls": 0}}
+    k = Kernel()
+    k.elf = inline_elf
+    with pytest.raises(AssertionError, match="cbl_skewed_wp"):
+        chip_smoke.function_paths(k, "advance_adaptive_kernel", flags,
+                                  chip_smoke.CBL_SKEWED_FUNCTIONS)
+
+
+def test_k17_plan_matches_the_source():
+    """K17's launch plan (grid/initcond.py::k17_plan) is made from
+    csrc/initcond.cu's constants: blocks of THREADS threads, MIN_BLOCKS of
+    them resident an SM, each warp a span of slots that is a multiple of
+    ROUND (the mask of 128 slots a round, four bytes a lane), its queue
+    room for 31 left over and a round; a warp table of a power of two
+    slots, at least MIN_SLOTS, within TABLE_BYTES where that allows; the
+    species and row limits refused by the wrapper as by the launcher; the
+    plan covers every slot."""
+    from flexpart_tpu_torch.grid import initcond as ic
+    text = _strip_comments(_build.INITCOND.source.read_text())
+
+    def const(name):
+        return int(re.search(r"constexpr int %s = (\d+);" % name, text)[1])
+
+    assert const("THREADS") == ic.K17_THREADS
+    assert re.search(r"constexpr int WARPS = THREADS / 32;", text)
+    assert const("MIN_BLOCKS") == ic.K17_MIN_BLOCKS
+    assert "__launch_bounds__(THREADS, MIN_BLOCKS)" in text
+    assert const("ROUND") == ic.K17_ROUND == 4 * 32
+    assert const("QUEUE") >= 31 + ic.K17_ROUND
+    assert const("TABLE_BYTES") == ic.K17_TABLE_BYTES
+    assert const("MIN_SLOTS") == ic.K17_MIN_SLOTS
+    assert const("MAX_SPECIES") == ic.K17_MAX_SPECIES
+    m = re.search(r"MAX_ROWS = (0x[0-9A-F]+)ll - (\d+);", text)
+    assert int(m.group(1), 16) - int(m.group(2)) == ic.K17_MAX_ROWS
+    assert "rows > MAX_ROWS" in text and "nspec > MAX_SPECIES" in text
+    assert "span % ROUND != 0" in text and "(1 << log2s) != slots" in text
+    assert "static_cast<long long>(blocks) * WARPS * span < n" in text
+    assert "__match_any_sync(FULL, valid ? row : EMPTY)" in text
+    for nspec, slots in ((1, 256), (2, 256), (3, 128), (32, 64)):
+        for n, sms in ((10 * 2 ** 20, 132), (1000, 132), (1, 8)):
+            plan = ic.k17_plan(n, nspec, sms)
+            assert plan.slots == slots
+            assert plan.span % ic.K17_ROUND == 0 and plan.span >= ic.K17_ROUND
+            assert plan.blocks * ic.K17_WARPS * plan.span >= n
+            assert (plan.blocks - 1) * ic.K17_WARPS * plan.span < n
+            assert plan.blocks <= max(
+                1, sms * ic.K17_MIN_BLOCKS * ic.K17_WAVES)
+    # the launcher takes the plan after the grid, as _build passes it
+    sig = re.search(r'extern\s+"C"\s+int\s+fp_initcond\s*\((.*?)\)', text,
+                    re.S).group(1)
+    assert [d.split()[-1] for d in sig.split(",")][-5:] == [
+        "grid", "blocks", "span", "slots", "stream"]
+
+
+def test_k17_bound_charges_each_cell_hit_once():
+    """K17's bound (chip_smoke.k17_bound, on the kernels cases and on each
+    call of sim_initcond) reads the mask of every slot and each masked
+    particle's state and density once, and reads and writes each grid row
+    its pairs hit once (8 bytes a species), however many pairs pile onto
+    it: a plume of a million particles in 120 cells moves 120 rows."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    cap, m, nspec = 10 * 2 ** 20, 1_000_000, 2
+    plume = chip_smoke.k17_bound(cap, m, nspec, 120)
+    assert plume["bound_bytes"] == cap + m * (24 + 4 * nspec + 32) \
+        + 120 * 8 * nspec
+    assert plume["bound_operations"] == m * chip_smoke.K17_OPS_PER_PARTICLE
+    spread = chip_smoke.k17_bound(cap, m, nspec, 760_000)
+    assert spread["bound_bytes"] - plume["bound_bytes"] \
+        == (760_000 - 120) * 8 * nspec
+    assert spread["bound_ms"] > plume["bound_ms"]
+    empty = chip_smoke.k17_bound(cap, 0, nspec, 0)
+    assert (empty["bound_bytes"], empty["bound_operations"]) == (cap, 0)

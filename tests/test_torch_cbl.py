@@ -149,6 +149,132 @@ def test_cbl_functions_match_jax(fn):
         np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
 
 
+def _skew_params_unsplit(z, h, wst, sigw, dsigwdz, ol):
+    """The bi-Gaussian parameters in one function, core/cbl.py's code
+    before the column's part (skew_column) was split off: -h/L, the taper
+    and wst**3 computed at every call."""
+    zeta = z / h
+    mhol = -h / ol
+    taper = torch.sin((mhol + 10.0) / torch.full_like(mhol, 10.0) * np.pi) \
+        / torch.full_like(mhol, 2.0) + 0.5
+    transition = torch.where(mhol < tcbl.SKEW_TRANSITION, taper,
+                             torch.ones_like(taper))
+    w2 = sigw * sigw
+    dw2 = 2.0 * sigw * dsigwdz
+    omz = torch.clamp(1.0 - zeta, min=0.0)
+    omz15 = torch.pow(omz, 1.5)
+    wst3 = wst * wst * wst
+    w3 = ((1.2 * zeta * omz15) + tcbl.EPS_C) * wst3 * transition
+    dw3 = (1.2 * (omz15 - zeta * 1.5 * torch.sqrt(omz))) * wst3 / h \
+        * transition
+    w2_15 = torch.pow(w2, 1.5)
+    skew = w3 / w2_15
+    skew2 = skew * skew
+    dskew = (dw3 * w2_15 - w3 * 1.5 * torch.sqrt(w2) * dw2) / (w2 * w2 * w2)
+    radw2 = torch.sqrt(w2)
+    dradw2 = 0.5 * dw2 / torch.sqrt(w2)
+    fluarw = tcbl.COSTLUAR4 * tcbl._cuberoot(skew)
+    fluarw2 = fluarw * fluarw
+    nz = skew != 0.0
+    one = torch.ones_like(skew)
+    zero = torch.zeros_like(skew)
+    safe = torch.where(nz, skew, one)
+    dfluarw = torch.where(
+        nz, tcbl.COSTLUAR4 / 3.0 * tcbl._cuberoot(tcbl._div(1.0, safe * safe)) * dskew, zero)
+    f2p1 = 1.0 + fluarw2
+    f2p3 = 3.0 + fluarw2
+    fl_s = torch.where(nz, fluarw, one)
+    f2p1_3 = f2p1 * f2p1 * f2p1
+    f2p3_2 = f2p3 * f2p3
+    f2p1_15 = torch.pow(f2p1, 1.5)
+    rluarw = torch.where(nz, f2p1_3 * skew2 / (f2p3_2 * fluarw2), zero)
+    xluarw = torch.where(nz, f2p1_15 * skew / (f2p3 * fl_s), zero)
+    den_r = f2p3_2 * fluarw2
+    drluarw = torch.where(nz, (
+        ((3.0 * (f2p1 * f2p1) * (2.0 * fluarw * dfluarw) * skew2)
+         + f2p1_3 * 2.0 * skew * dskew) * f2p3_2 * fluarw2
+        - f2p1_3 * skew2
+        * ((2.0 * f2p3 * (2.0 * fluarw * dfluarw) * fluarw2)
+           + f2p3_2 * 2.0 * fluarw * dfluarw))
+        / torch.clamp(den_r * den_r, min=1e-30), zero)
+    den_x = f2p3 * fl_s
+    dxluarw = torch.where(nz, (
+        ((1.5 * torch.sqrt(f2p1) * (2.0 * fluarw * dfluarw) * skew)
+         + f2p1_15 * dskew) * f2p3 * fl_s
+        - f2p1_15 * skew * (3.0 * dfluarw + 3.0 * fluarw2 * dfluarw))
+        / torch.clamp(den_x * den_x, min=1e-30), zero)
+
+    s4r = torch.sqrt(4.0 + rluarw)
+    aluarw = 0.5 * (1.0 - xluarw / s4r)
+    bluarw = 1.0 - aluarw
+    daluarw = -0.5 * ((dxluarw * s4r) - (0.5 * xluarw * drluarw / s4r)) \
+        / (4.0 + rluarw)
+    dbluarw = -daluarw
+    al_s = torch.clamp(aluarw, min=1e-6)
+    bl_s = torch.clamp(bluarw, min=1e-6)
+    af = al_s * f2p1
+    bf = bl_s * f2p1
+    qa = torch.sqrt(bl_s / af)
+    qb = torch.sqrt(al_s / bf)
+    sigmawa = radw2 * qa
+    sigmawb = radw2 * qb
+    dsigmawa = dradw2 * qa + radw2 * (
+        tcbl._div(0.5, qa)
+        * ((dbluarw * af - bl_s * (daluarw * f2p1 + al_s * 2.0 * fluarw
+                                   * dfluarw)) / (af * af)))
+    dsigmawb = dradw2 * qb + radw2 * (
+        tcbl._div(0.5, qb)
+        * ((daluarw * bf - al_s * (dbluarw * f2p1 + bl_s * 2.0 * fluarw
+                                   * dfluarw)) / (bf * bf)))
+    wa = fluarw * sigmawa
+    wb = fluarw * sigmawb
+    dwa = dfluarw * sigmawa + fluarw * dsigmawa
+    dwb = dfluarw * sigmawb + fluarw * dsigmawb
+    return (aluarw, bluarw, daluarw, dbluarw, sigmawa, sigmawb,
+            dsigmawa, dsigmawb, wa, wb, dwa, dwb)
+
+
+@pytest.mark.parametrize("half", ["column", "at_height"])
+def test_skew_split_is_the_unsplit_form_bitwise(half):
+    """The plain version splits the bi-Gaussian parameters as K11 does:
+    the column's part (skew_column: the taper, wst**3 and the zone test,
+    from h, w* and L only, once a pass) and the part at the substep's
+    height (skew_at).  Composed they are the unsplit parameters bit for
+    bit, the column once for many heights as the substeps of a pass take
+    it; and the drift with the column handed in equals the drift that
+    computes it (cbl_terms), bitwise.  Against JAX: as
+    test_cbl_functions_match_jax."""
+    d = _inputs()
+    t = {k: _t(v) for k, v in d.items()}
+    col = tcbl.skew_column(t["h"], t["wst"], t["ol"])
+    if half == "column":
+        mhol = -t["h"] / t["ol"]
+        assert torch.equal(col.zone, mhol > tcbl.CBL_ZONE)
+        assert torch.equal(col.wst3, t["wst"] * t["wst"] * t["wst"])
+        order = ("wp", "z", "wst", "h", "rho", "drho", "sigw", "dsig",
+                 "tlw", "ol")
+        whole = tcbl.cbl_terms(*(t[k] for k in order), 1)
+        split = tcbl.cbl_terms(*(t[k] for k in order), 1, col)
+        for a, b in zip(whole, split):
+            assert torch.equal(a, b)
+        ja = jcbl.cbl_terms(*(_j(d[k]) for k in order), 1)
+        _close(split[0], ja[0], "ath")
+        _close(split[1], ja[1], "bth")
+        return
+    # the same column at heights through the layer, as a pass's substeps
+    for frac in (0.05, 0.3, 0.6, 0.95):
+        z = (t["h"] * frac).to(torch.float32)
+        got = tcbl.skew_at(z, t["h"], t["sigw"], t["dsig"], col)
+        want = _skew_params_unsplit(z, t["h"], t["wst"], t["sigw"],
+                                    t["dsig"], t["ol"])
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        jo = jcbl._skew_params(_j(z.numpy()), *(_j(d[k]) for k in (
+            "h", "wst", "sigw", "dsig", "ol")))
+        for i, (a, b) in enumerate(zip(got, jo)):
+            _close(a, b, f"skew parameter {i} at {frac} h")
+
+
 def test_zero_velocity_sign_conventions():
     """A particle at wp = 0 is a downdraft to ``reinit_wp`` (jnp.sign(0) *
     timedir > 0 is false) and an updraft to the legacy redraw (Fortran's

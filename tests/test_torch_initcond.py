@@ -189,6 +189,64 @@ def test_scatter_twin_equals_jax(linit_cond, jax_run):
     np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-5 * j.max())
 
 
+@pytest.mark.parametrize("linit_cond", [1, 2])
+def test_scatter_twin_on_a_plume_equals_jax_and_the_f64_sum(linit_cond,
+                                                            jax_run):
+    """A plume, the shape K17's tables are for: most of the masked
+    particles in a box of about one output cell, so that a few cells take
+    hundreds of pairs each (sim_initcond's retroplume at its end, cut to a
+    few thousand particles).  The plain version against JAX (the same
+    cells hit; the sums as test_scatter_twin_equals_jax) and against the
+    float64 sum of its own pairs within K8's rule (a cell of m pairs within
+    max(m * 2**-24, 1e-5) relatively: chip_smoke.held_against_f64, which
+    holds K17 on the card to the same)."""
+    jsim = jax_run[0]
+    zf = jsim._get_field(0)
+    pop, _ = _population(6000, 10 + linit_cond)
+    rs = np.random.default_rng(20 + linit_cond)
+    mask = rs.random(6000) < 0.8
+    f32 = np.float32
+    # most of the masked ones within about one 4-degree cell, a few spread
+    plume = mask & (rs.random(6000) < 0.9)
+    pop["x_hi"] = np.where(plume, rs.uniform(14.05, 14.3, 6000),
+                           pop["x_hi"]).astype(f32)
+    pop["y_hi"] = np.where(plume, rs.uniform(8.05, 8.3, 6000),
+                           pop["y_hi"]).astype(f32)
+    pop["z"] = np.where(plume, rs.uniform(0.0, 3000.0, 6000),
+                        pop["z"]).astype(f32)
+
+    def cfg(c):
+        return c.InitCondConfig(
+            nxg=30, nyg=20, nzg=3, npointspec=2, dxout=4.0, dyout=4.0,
+            xoutshift=jsim.geo.xoutshift, youtshift=jsim.geo.youtshift,
+            dx_met=10.0, dy_met=10.0, linit_cond=linit_cond)
+
+    j = np.asarray(jic.make_initcond_scatter(HEIGHTS)(
+        jic.zero_init_cond(cfg(jic), 2),
+        JParticles(**{k: jnp.asarray(v) for k, v in pop.items()}),
+        jnp.asarray(mask), zf, cfg(jic)))
+    zt = interop.zfields_from_numpy(zf, "cpu")
+    tp = interop.particles_from_numpy(pop, "cpu")
+    t = tic.zero_init_cond(cfg(tic), 2)
+    tic.make_initcond_scatter(HEIGHTS, "cpu")(
+        t, tp, torch.as_tensor(mask), zt, cfg(tic))
+    # the plume: few cells, hundreds of pairs in each of the fullest
+    lin, valid, contrib = tic.initcond_pairs(
+        tp, torch.as_tensor(mask), zt,
+        torch.tensor(HEIGHTS, dtype=torch.float32), cfg(tic))
+    lin, contrib = lin[valid], contrib[valid]
+    pairs = torch.bincount(lin, minlength=t[..., 0].numel())
+    assert int(pairs.max()) > 500 and int((pairs > 100).sum()) <= 48
+    ref = torch.zeros(t.numel() // 2, 2, dtype=torch.float64)
+    ref.index_add_(0, lin, contrib.double())
+    got = t.view(-1, 2).double()
+    rtol = torch.clamp(pairs.double() * 2.0 ** -24, min=1e-5)[:, None]
+    assert bool(torch.all((got - ref).abs() <= rtol * ref))
+    t = t.numpy()
+    np.testing.assert_array_equal(t != 0, j != 0)
+    np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-5 * j.max())
+
+
 def test_initcond_in_simulation_equals_jax(jax_run, port_run):
     jsim, sim = jax_run[0], port_run
     jout, tout = Path(jsim.outdir), Path(sim.outdir)
