@@ -6010,6 +6010,233 @@ def timed_in_place(make, fn, reps: int = 5) -> float:
     return total / reps
 
 
+def graph_in_place_ms(restore, fn, reps: int = 10) -> float:
+    """Device ms of fn() for a function that changes its input: ``reps``
+    times (restore(); fn()) captured into one CUDA graph and replayed, less
+    ``reps`` restore() alone replayed, per call (the two graphs timed
+    alone, both, both, alone).  The host never stands between the
+    launches."""
+    import torch
+    restore()
+    fn()
+    torch.cuda.synchronize()
+    both, alone = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    # thread_local: a Simulation's met reader thread may use the card
+    # while the graph is captured
+    with torch.cuda.graph(both, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            restore()
+            fn()
+    with torch.cuda.graph(alone, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            restore()
+    t = [cuda_ms(g.replay, 3) for g in (alone, both, both, alone)]
+    restore()
+    del both, alone
+    return ((t[1] + t[2]) - (t[0] + t[3])) / (2 * reps)
+
+
+def kernel_rows(prof, reps: int) -> dict:
+    """A profile's device rows per call: {kernel (its namespace and
+    arguments left out): {launches, ms}}."""
+    out = {}
+    for key, calls, ms in device_rows(prof):
+        name = key.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].strip() or key
+        name = name[len("void "):] if name.startswith("void ") else name
+        row = out.setdefault(name, dict(launches=0.0, ms=0.0))
+        row["launches"] += calls / reps
+        row["ms"] += ms / reps
+    return out
+
+
+def profiled_in_place(make, fn, reps: int = 3) -> dict:
+    """The device time of fn(x) by torch.profiler, each x = make() made
+    before the profiled window (so its copies are not counted), after a
+    warm-up call inside a discarded first step of the profiler (whose
+    first events can be lost): ms per call over every kernel and memset
+    fn launches, and per kernel its launches and ms per call.  Device
+    times to compare come from graph_in_place_ms; this is the breakdown."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn(make())
+    torch.cuda.synchronize()
+    # a window that lost events (a kernel's launches not a whole number a
+    # call, or none) is taken again, up to three times
+    for _ in range(3):
+        xs = [make() for _ in range(reps + 1)]
+        torch.cuda.synchronize()
+        # the active step ends with the window, which keeps its events (a
+        # step() at its end would clear them)
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            fn(xs[0])
+            torch.cuda.synchronize()
+            prof.step()
+            for x in xs[1:]:
+                fn(x)
+            torch.cuda.synchronize()
+        per = kernel_rows(prof, reps)
+        del xs, prof
+        if per and all(r["launches"] == round(r["launches"])
+                       for r in per.values()):
+            break
+    return dict(device_ms=sum(r["ms"] for r in per.values()),
+                launches_per_call=sum(r["launches"] for r in per.values()),
+                per_launch=per)
+
+
+def graph_on_copy_ms(p, fn, reps: int = 10) -> float:
+    """graph_in_place_ms of fn(q) for a function that changes the
+    particles q in place: q a working copy of ``p``, restored from ``p``
+    (every field copied) before each call."""
+    from flexpart_tpu_torch.core.state import FIELDS
+    work = clone_particles(p)
+
+    def restore():
+        for f in FIELDS:
+            getattr(work, f).copy_(getattr(p, f))
+
+    ms = graph_in_place_ms(restore, lambda: fn(work), reps)
+    del work
+    return ms
+
+
+def sectors(idx, width: int) -> int:
+    """The 32-byte sectors that the elements ``idx`` of an array of
+    ``width``-byte elements lie in (an element may straddle two)."""
+    import torch
+    first = idx.long() * width
+    return int(torch.unique(torch.cat((first // 32,
+                                       (first + width - 1) // 32))).numel())
+
+
+def sector_bound(coalesced_bytes: float, n_sectors: int) -> dict:
+    """The least time by sectors: the bytes read or written in order once,
+    every scattered access a 32-byte sector of its own (each sector of an
+    access set once), over the memory rate."""
+    n = coalesced_bytes + 32 * n_sectors
+    return dict(bound_sectors_ms=n / HBM_BYTES_PER_S * 1e3,
+                bound_sector_bytes=int(n))
+
+
+def slot_reads(p, needs) -> tuple:
+    """The bytes and the 32-byte sectors of the reads of particle slots
+    that a function needs: ``needs`` holds (mask, widths), the widths of
+    the fields read at the slots of the mask.  Returns (bytes, sectors),
+    each access set by its distinct sectors."""
+    import torch
+    n_bytes = n_sectors = 0
+    for mask, widths in needs:
+        idx = torch.nonzero(mask).flatten()
+        for w in widths:
+            n_bytes += w * int(idx.numel())
+            n_sectors += sectors(idx, w)
+    return n_bytes, n_sectors
+
+
+def k13_bounds(p, itime: int, ldirect: int, origin_given: bool, parents,
+               children) -> dict:
+    """K13's least time on one call on the particles ``p``, by bytes and by
+    sectors.  Of the slots it needs every active flag (in order), a live
+    one's itrasplit, a dead one's itra and, where that is scheduled, its
+    itramem, and the int64 origin of a due or free one (where an origin
+    is given).  A granted pair reads its parent's fields, writes them to
+    the child, and writes the parent's mass and split time.  Sectors: the
+    active flags' bytes once; per access set of the slots and of the pairs
+    (``parents``, ``children``: slot indices) its distinct sectors: the
+    parents' 17 four-byte fields, cbt and three rows read, mass and
+    itrasplit written; the children's 17 four-byte fields, cbt, active and
+    three rows written (45 a pair where each lies alone)."""
+    from flexpart_tpu_torch.core import split as sp
+    from flexpart_tpu_torch.core.state import ITRA_INACTIVE
+    due, free = sp.due_and_free(p, itime, ldirect)
+    n, nspec = p.capacity, p.nspec
+    dead = ~p.active
+    read_b, read_s = slot_reads(p, (
+        (p.active, (4,)), (dead, (4,)),
+        (dead & (p.itra != ITRA_INACTIVE), (4,)),
+        *(((due | free, (8,)),) if origin_given else ())))
+    granted = int(parents.numel())
+    per_pair = 2 * (69 + 12 * nspec) + 4 * nspec + 4
+    row = 4 * nspec
+    s4p, s1p, srp = (sectors(parents, w) for w in (4, 1, row))
+    s4c, s1c, src = (sectors(children, w) for w in (4, 1, row))
+    n_sectors = (17 * s4p + s1p + 3 * srp + srp + s4p
+                 + 17 * s4c + 2 * s1c + 3 * src)
+    return {**bound(n + read_b + granted * per_pair, 0),
+            **sector_bound(n, read_s + n_sectors)}
+
+
+def k14_bounds(p, origin_given: bool, bs, nz: int, nyx: int, md: int,
+               check_x: bool, killed, born) -> dict:
+    """K14's least time on one call on the particles ``p``, by bytes and by
+    sectors.  Of the slots it needs every active flag (in order), a live
+    one's y (and x where the window is checked in x; hi and lo each), a
+    dead one's itra and, where that is scheduled, its itramem, and the
+    int64 origin of a free one, the killed ones included (where an origin
+    is given); it writes a killed slot's active and itra.  Of the sites
+    their 15 table entries (58 B) and accumulator, read and written once;
+    the gathers of the wind and density at both met times (16; the PV's
+    8 more with MDOMAINFILL 2); a new particle's fields (70 + 8 nspec B).
+    Sectors: the active flags and the sites' table once; per access set
+    of the slots, of the gathers and of the killed and the new particles
+    (``killed``, ``born``: slot indices: their 17 four-byte fields, cbt,
+    active, mass and mass0 rows) its distinct sectors (the PV's gathers by
+    their bytes)."""
+    import torch
+    from flexpart_tpu_torch.core import domainfill as df
+    from flexpart_tpu_torch.core.state import ITRA_INACTIVE
+    n, nspec, s = p.capacity, p.nspec, bs.sites
+    dead = ~p.active
+    freed = dead & ((p.itra == ITRA_INACTIVE) | (p.itra != p.itramem))
+    freed[killed] = True
+    read_b, read_s = slot_reads(p, (
+        (p.active, (4, 4, 4, 4) if check_x else (4, 4)), (dead, (4,)),
+        (dead & (p.itra != ITRA_INACTIVE), (4,)),
+        *(((freed, (8,)),) if origin_given else ())))
+    fidx = torch.where(bs.is_we, df.F3_U, df.F3_V).long()
+    kz = bs.kz.long()
+    col = bs.col_flat.long()
+    gathers = torch.cat([(f * nz + kz + dk) * nyx + col
+                         for f in (fidx, torch.full_like(fidx, df.F3_RHO))
+                         for dk in (0, 1)])
+    row = 4 * nspec
+    n_killed, granted = int(killed.numel()), int(born.numel())
+    pv = s * 32 if md == 2 else 0
+    n_sectors = (read_s + 2 * sectors(gathers, 4)
+                 + sectors(killed, 1) + sectors(killed, 4)
+                 + 17 * sectors(born, 4) + 2 * sectors(born, 1)
+                 + 2 * sectors(born, row))
+    n_bytes = (n + read_b + s * (58 + 4 * 16 + 4) + pv + n_killed * 5
+               + granted * (70 + 8 * nspec))
+    return {**bound(n_bytes, s * (K14_OPS_PER_SITE
+                                  + df.KMAX_EMIT * K14_OPS_PER_WISH)),
+            **sector_bound(n + s * (58 + 4) + pv, n_sectors)}
+
+
+def boundcond_call_bounds(before, after, args) -> dict:
+    """k14_bounds of one boundcond call from the particles ``before`` it to
+    those ``after`` it, ``args`` its arguments after the particles (bs, f0,
+    f1, height, itime, ..., mdomainfill, ldirect, nclassunc, check_x,
+    origin): the killed slots those live ones outside the window, the new
+    particles those live after it in a dead or killed slot."""
+    import torch
+    bs, f0 = args[0], args[1]
+    md, check_x, origin = args[12], args[15], args[16]
+    _, xlo, xhi, ylo, yhi = bs.limits()
+    x, y = before.x, before.y
+    outside = (y < ylo) | (y > yhi)
+    if check_x:
+        outside = outside | (x < xlo) | (x > xhi)
+    killed = before.active & outside
+    born = after.active & (~before.active | killed)
+    return k14_bounds(before, origin is not None, bs, f0.shape[1],
+                      f0.shape[2] * f0.shape[3], md, check_x,
+                      torch.nonzero(killed).flatten(),
+                      torch.nonzero(born).flatten())
+
+
 def kernel_ohreaction(device, grid) -> dict:
     """K12 against its plain version on the deposition phase's 10 x 2**20
     particles with the two OH species, at a daylight step of OH_DATE
@@ -6119,6 +6346,72 @@ def clone_particles(p):
     return Particles(**{f: getattr(p, f).clone() for f in FIELDS})
 
 
+SPLIT_CASES = (("due_25", 0.5, 0.25), ("due_75_guard", 0.75, 0.75),
+               ("sorted_origin", 0.5, 0.25))
+# the edge cases of K13 and K14: sizes around a warp, a 4096 tile and the
+# origin bitmaps' 131,072-flag scan tile
+EDGE_SIZES = (1, 31, 33, 4095, 4097, 2 ** 20 + 1)
+
+
+def split_inputs(device, grid, n: int):
+    """kernel_split's cases: (name, particles, origin or None)."""
+    from flexpart_tpu_torch.core import reorder
+    cfg = step_setup(grid)[0]
+    zf = met_fields("synthetic", grid, device)[0]
+    for name, live, due in SPLIT_CASES:
+        p = split_case(n, device, 31, live, due)
+        origin = None
+        if name == "sorted_origin":
+            p, perm = reorder.reorder_by_cell(p, zf.height, cfg)
+            origin = perm.long()
+        yield name, p, origin
+
+
+def split_edge_inputs(device):
+    """K13's edge cases at EDGE_SIZES: half live and half of them due, in
+    slot order and through a shuffled origin; every slot live (no free
+    slot); none due.  (name, particles, origin or None)."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(37)
+    for n in EDGE_SIZES:
+        shuffled = torch.randperm(n, generator=gen, device=device)
+        for name, live, due, origin in (
+                ("identity", 0.5, 0.5, None),
+                ("shuffled", 0.5, 0.5, shuffled),
+                ("no_free", 1.0, 0.5, shuffled),
+                ("none_due", 0.5, 0.0, None)):
+            yield f"n{n}_{name}", split_case(n, device, n, live, due), origin
+
+
+def held_split(p, origin, what: str, itime: int = OH_ITIME):
+    """K13 and its plain version on copies of ``p``: every field and the
+    counts bitwise, the counts those of the script's own masks.  Returns
+    (the kernel's particles, the counts)."""
+    from flexpart_tpu_torch.core import split as sp
+    from flexpart_tpu_torch.core.state import FIELDS
+    d, f = sp.due_and_free(p, itime, 1)
+    want = [int(d.sum()), int(f.sum())]
+    want.append(min(want))
+    k, ck = sp.split_particles(clone_particles(p), itime, 1, origin)
+    pl, cp = sp.split_particles_plain(clone_particles(p), itime, 1, origin)
+    check(ck.tolist() == cp.tolist() == want,
+          f"{what}: counts {ck.tolist()} / {cp.tolist()} / {want}")
+    check_same_bits(k, pl, what, FIELDS)
+    return k, want
+
+
+def split_pairs(p, k):
+    """The parents (slots whose split time doubled or mass halved) and
+    the children (slots made live) of a split of ``p`` into ``k``."""
+    import torch
+    parents = p.active & ((k.itrasplit != p.itrasplit)
+                          | (k.mass != p.mass).any(dim=1))
+    children = k.active & ~p.active
+    return (torch.nonzero(parents).flatten(),
+            torch.nonzero(children).flatten())
+
+
 def kernel_split(device, grid, n: int) -> dict:
     """K13 against its plain version on ``n`` slots (the capacity of the
     sim_oh_split phase): half of them free and a quarter of the live ones
@@ -6128,49 +6421,32 @@ def kernel_split(device, grid, n: int) -> dict:
     shuffled origin (sorted_origin).  Every field and the counts bitwise;
     the granted count min(due, free) from masks of the script's own; the
     mass kept within rtol 1e-6 (float64 sums); every child in a free slot,
-    every parent halved.  Timed on fresh copies (the split works in
-    place)."""
+    every parent halved.  ``ms``: the device time of a call on a fresh
+    copy (graph_on_copy_ms: CUDA graphs, the copies' own time taken out);
+    ``profiled_ms`` and ``per_launch``: the same by the profiler, its
+    kernels and memsets; ``ms_with_host``: CUDA events around the
+    wrapper.  Bounds by bytes and
+    by 32-byte sectors (k13_bounds).  Then the edge cases
+    (split_edge_inputs), bitwise, untimed."""
     import torch
-    from flexpart_tpu_torch.core import reorder
     from flexpart_tpu_torch.core import split as sp
-    from flexpart_tpu_torch.core.state import FIELDS
-    cfg = step_setup(grid)[0]
-    zf = met_fields("synthetic", grid, device)[0]
     cases = {}
-    for name, live, due in (("due_25", 0.5, 0.25),
-                            ("due_75_guard", 0.75, 0.75),
-                            ("sorted_origin", 0.5, 0.25)):
-        p = split_case(n, device, 31, live, due)
-        origin = None
-        if name == "sorted_origin":
-            p, perm = reorder.reorder_by_cell(p, zf.height, cfg)
-            origin = perm.long()
+    for name, p, origin in split_inputs(device, grid, n):
+        what = f"K13 {name}"
         d, f = sp.due_and_free(p, OH_ITIME, 1)
-        want = [int(d.sum()), int(f.sum())]
-        want.append(min(want))
         m0 = p.mass[p.active].double().sum(0)
-        k, ck = sp.split_particles(clone_particles(p), OH_ITIME, 1, origin)
-        pl, cp = sp.split_particles_plain(clone_particles(p), OH_ITIME, 1,
-                                          origin)
-        check(ck.tolist() == cp.tolist() == want,
-              f"K13 {name}: counts {ck.tolist()} / {cp.tolist()} / {want}")
-        check_same_bits(k, pl, f"K13 {name}", FIELDS)
+        k, want = held_split(p, origin, what)
         m1 = k.mass[k.active].double().sum(0)
         check(bool(torch.all((m1 - m0).abs() <= 1e-6 * m0)),
-              f"K13 {name}: mass {m0.tolist()} -> {m1.tolist()}")
+              f"{what}: mass {m0.tolist()} -> {m1.tolist()}")
         born = k.active & ~p.active
         check(int(born.sum()) == want[2] and bool(torch.all(f[born])),
-              f"K13 {name}: a child outside a free slot")
+              f"{what}: a child outside a free slot")
         halved = (k.mass != p.mass).any(dim=1) & p.active
-        check(int(halved.sum()) == want[2], f"K13 {name}: parents halved")
+        check(int(halved.sum()) == want[2], f"{what}: parents halved")
+        parents, children = split_pairs(p, k)
+        del k
         args = (OH_ITIME, 1, origin)
-        nspec = p.nspec
-        # bytes: active, itra, itramem, itrasplit (and the int64 origin)
-        # of every slot; a granted pair reads its parent's fields, writes
-        # them to the child, and writes the parent's mass and split time
-        per_pair = 2 * (69 + 12 * nspec) + 4 * nspec + 4
-        nbytes = n * (13 + (8 if origin is not None else 0)) \
-            + want[2] * per_pair
         free_o = torch.zeros(n, dtype=torch.bool, device=device)
         due_o = torch.zeros(n, dtype=torch.bool, device=device)
         o = origin if origin is not None else torch.arange(n, device=device)
@@ -6180,20 +6456,35 @@ def kernel_split(device, grid, n: int) -> dict:
         def scan_half():
             torch.cumsum(free_o, 0)
             torch.cumsum(due_o, 0)
+        prof = profiled_in_place(lambda: clone_particles(p),
+                                 lambda q: sp.split_particles(q, *args))
         cases[name] = dict(
             slots=n, due=want[0], free=want[1], granted=want[2],
-            ms=timed_in_place(lambda: clone_particles(p),
-                              lambda q: sp.split_particles(q, *args)),
+            ms=graph_on_copy_ms(p, lambda q: sp.split_particles(q, *args)),
+            profiled_ms=prof["device_ms"],
+            ms_with_host=timed_in_place(
+                lambda: clone_particles(p),
+                lambda q: sp.split_particles(q, *args)),
+            launches_per_call=prof["launches_per_call"],
+            per_launch=prof["per_launch"],
             plain_ms=timed_in_place(
                 lambda: clone_particles(p),
                 lambda q: sp.split_particles_plain(q, *args), 3),
             library_ms=cuda_ms(scan_half), bitwise=True, max_abs_err=0.0,
-            **bound(nbytes, 0))
+            **k13_bounds(p, OH_ITIME, 1, origin is not None, parents,
+                         children))
+        del p, free_o, due_o
+    t0 = time.perf_counter()
+    edges = {}
+    for name, p, origin in split_edge_inputs(device):
+        edges[name] = held_split(p, origin, f"K13 edge {name}")[1]
     c = cases["sorted_origin"]
-    return dict(n=n, **{f: c[f] for f in ("ms", "plain_ms", "library_ms",
-                                          "bound_ms", "bound_by",
+    return dict(n=n, **{f: c[f] for f in ("ms", "ms_with_host", "plain_ms",
+                                          "library_ms", "bound_ms",
+                                          "bound_by", "bound_sectors_ms",
                                           "max_abs_err", "bitwise")},
-                cases=cases)
+                cases=cases, edge_cases_due_free_granted=edges,
+                edge_cases_s=time.perf_counter() - t0)
 
 
 # ------------------------------------------- domain fill, receptors, ... --
@@ -6306,27 +6597,18 @@ def held_against_f64(flats, lin, contrib, rtol_floor: float, what: str):
     return out
 
 
-def kernel_boundcond(device, grid) -> dict:
-    """K14 against its plain version on the sim_domainfill phase's fill:
-    11 x 2**20 slots, 10 x 2**20 of them filled and moved by up to half a
-    cell (so that some leave the window), in cell order with their origin
-    shuffled by the sort; the site table of the window with an accumulator
-    of up to six particle masses a site (the four-round cap and its carry);
-    a step between SyntheticMet's first two fields, with the port's Philox
-    draws.  MDOMAINFILL 1 and 2: every particle field, the accumulator and
-    the counts bitwise; some particles killed, some emitted.  Its library
-    call: torch.cumsum of the free flags in origin order (the ranking's
-    scan half)."""
+def boundcond_inputs(device, grid):
+    """kernel_boundcond's step: (particles, their origin, the boundary
+    state, the step's arguments of boundcond after the state, less
+    mdomainfill and what follows it)."""
     import torch
     from flexpart_tpu_torch.core import domainfill as df
     from flexpart_tpu_torch.core import reorder, rng
-    from flexpart_tpu_torch.core.state import FIELDS, ITRA_INACTIVE
     cfg = step_setup(grid)[0]
     z0, z1 = met_fields("synthetic_pv", grid, device, times=(0.0, 3600.0))
-    _, _, bnd, fill_s = df_fill(grid, device)
+    bnd = df_fill(grid, device)[2]
     p, perm = reorder.reorder_by_cell(
         filled_particles(grid, device, 41, move=0.5), z0.height, cfg)
-    origin = perm.long()
     bs = df.BoundaryState.from_numpy(bnd, device)
     xpp = bs.limits()[0]
     gen = torch.Generator(device=device)
@@ -6335,51 +6617,164 @@ def kernel_boundcond(device, grid) -> dict:
     itime, mt0, mt1 = 900, 0, 3600
     w0, w1 = df.time_weights(itime, mt0, mt1)
     key = rng.Key(DF_SEED, 3000001)
+    step = (z0.f3d, z1.f3d, z0.height, itime, w0, w1, key, LSYNC, 499999999,
+            grid.ylat0, grid.dy)
+    return p, perm.long(), bs, step
+
+
+def held_boundcond(p, bs, step, md: int, origin, what: str):
+    """K14 and its plain version on copies of ``p``: every field, the
+    accumulator and the counts bitwise.  Returns (the kernel's particles,
+    the counts)."""
+    import torch
+    from flexpart_tpu_torch.core import domainfill as df
+    from flexpart_tpu_torch.core.state import FIELDS
+    args = (bs, *step, md, 1, 1, True, origin)
+    pk, pp = clone_particles(p), clone_particles(p)
+    acc_k, ck = df.boundcond_cuda(pk, *args)
+    acc_p, cp = df.boundcond_plain(pp, *args)
+    check(ck.tolist() == cp.tolist(),
+          f"{what}: counts {ck.tolist()} / {cp.tolist()}")
+    check_same_bits(pk, pp, what, FIELDS)
+    check(torch.equal(acc_k.view(torch.int32), acc_p.view(torch.int32)),
+          f"{what}: the accumulators differ")
+    return pk, ck.tolist()
+
+
+def boundcond_edge_inputs(p, bs, window, device):
+    """K14's edge cases at EDGE_SIZES, slots drawn from the kernels case's
+    ``p`` (its boundary state ``bs``): in slot order and through a
+    shuffled origin; every slot live and inside the window (no free slot);
+    an empty accumulator (no wish); no boundary site at all, with half the
+    slots live outside the window (the kill alone).  (name, particles,
+    origin or None, boundary state)."""
+    import torch
+    from flexpart_tpu_torch.core.domainfill import BOUNDARY_FIELDS
+    from flexpart_tpu_torch.core.state import FIELDS, Particles
+    xlo, xhi, ylo, yhi = window
+    x, y = p.x, p.y
+    inside = (x >= xlo) & (x <= xhi) & (y >= ylo) & (y <= yhi)
+    dry = bs.replace(acc=torch.zeros_like(bs.acc))
+    no_site = bs.replace(**{f: getattr(bs, f)[:0]
+                            for f in BOUNDARY_FIELDS[:15]})
+    gen = torch.Generator(device=device)
+    gen.manual_seed(47)
+    pool = {"all": torch.arange(p.capacity, device=device),
+            "inside": torch.nonzero(p.active & inside).flatten(),
+            "outside": torch.nonzero(p.active & ~inside).flatten()}
+
+    def pick(kind, n):
+        src = pool[kind]
+        return src[torch.randperm(src.numel(), generator=gen,
+                                  device=device)[:n]]
+
+    def take(kind, n):
+        if kind == "half_outside":
+            # the first half live outside the window (drawn again where
+            # there are fewer), the rest from every slot
+            out = pool["outside"]
+            idx = torch.cat((out[torch.randint(out.numel(), ((n + 1) // 2,),
+                                               generator=gen,
+                                               device=device)],
+                             pick("all", n // 2)))
+        else:
+            idx = pick(kind, n)
+        return Particles(**{f: getattr(p, f)[idx].contiguous()
+                            for f in FIELDS})
+
+    for n in EDGE_SIZES:
+        shuffled = torch.randperm(n, generator=gen, device=device)
+        for name, kind, origin, b in (
+                ("identity", "all", None, bs),
+                ("shuffled", "all", shuffled, bs),
+                ("no_free", "inside", shuffled, bs),
+                ("no_wish", "all", None, dry),
+                ("no_site", "half_outside", shuffled, no_site)):
+            yield f"n{n}_{name}", take(kind, n), origin, b
+
+
+def kernel_boundcond(device, grid) -> dict:
+    """K14 against its plain version on the sim_domainfill phase's fill:
+    11 x 2**20 slots, 10 x 2**20 of them filled and moved by up to half a
+    cell (so that some leave the window), in cell order with their origin
+    shuffled by the sort; the site table of the window with an accumulator
+    of up to six particle masses a site (the four-round cap and its carry);
+    a step between SyntheticMet's first two fields, with the port's Philox
+    draws.  MDOMAINFILL 1 and 2: every particle field, the accumulator and
+    the counts bitwise; some particles killed, some emitted.  ``ms``: the
+    device time of a call on a fresh copy (graph_on_copy_ms);
+    ``profiled_ms`` and ``per_launch``: the same by the profiler, its
+    kernels and memsets; ``ms_with_host``: CUDA events around the
+    wrapper.  Bounds by bytes and by 32-byte sectors (k14_bounds).  Its
+    library call: torch.cumsum of the free flags in origin order (the
+    ranking's scan half).  Then the edge cases (boundcond_edge_inputs),
+    MDOMAINFILL 1, bitwise, untimed."""
+    import torch
+    from flexpart_tpu_torch.core import domainfill as df
+    from flexpart_tpu_torch.core.state import ITRA_INACTIVE
+    fill_s = df_fill(grid, device)[3]
+    p, origin, bs, step = boundcond_inputs(device, grid)
+    f3d = step[0]
     n, s = p.capacity, bs.sites
+    _, xlo, xhi, ylo, yhi = bs.limits()
+    x, y = p.x, p.y
+    outside = (y < ylo) | (y > yhi) | (x < xlo) | (x > xhi)
+    killed_idx = torch.nonzero(p.active & outside).flatten()
     cases = {}
     for md in (1, 2):
-        args = (bs, z0.f3d, z1.f3d, z0.height, itime, w0, w1, key, LSYNC,
-                499999999, grid.ylat0, grid.dy, md, 1, 1, True, origin)
-        pk, pp = clone_particles(p), clone_particles(p)
-        acc_k, ck = df.boundcond_cuda(pk, *args)
-        acc_p, cp = df.boundcond_plain(pp, *args)
         what = f"K14 mdomainfill={md}"
-        check(ck.tolist() == cp.tolist(),
-              f"{what}: counts {ck.tolist()} / {cp.tolist()}")
-        check_same_bits(pk, pp, what, FIELDS)
-        check(torch.equal(acc_k.view(torch.int32), acc_p.view(torch.int32)),
-              f"{what}: the accumulators differ")
-        killed, free, wanted, granted = ck.tolist()
-        check(killed > 0 and granted > 0 and granted == min(free, wanted),
-              f"{what}: counts {ck.tolist()}")
-        born = pk.active & (pk.itramem == itime)
+        args = (bs, *step, md, 1, 1, True, origin)
+        pk, counts = held_boundcond(p, bs, step, md, origin, what)
+        killed, free, wanted, granted = counts
+        check(killed > 0 and granted > 0 and granted == min(free, wanted)
+              and killed == killed_idx.numel(),
+              f"{what}: counts {counts}")
+        born = pk.active & (pk.itramem == step[3])
         check(int(born.sum()) == granted, f"{what}: new particles")
+        born_idx = torch.nonzero(born).flatten()
+        del pk
         free_o = torch.zeros(n, dtype=torch.bool, device=device)
         free_o[origin] = (~p.active) & ((p.itra == ITRA_INACTIVE)
                                         | (p.itra != p.itramem))
-        # bytes: every slot's active, itra, itramem, x, y and origin; the
-        # sites' table (58 B) and gathers (16, 24 with the PV); the
-        # accumulator written; killed slots' active and itra, and a new
-        # particle's fields
-        nspec = p.nspec
-        nbytes = (n * 33 + s * (58 + 4 * (16 if md == 1 else 24) + 4)
-                  + killed * 5 + granted * (70 + 8 * nspec))
-        nops = s * (K14_OPS_PER_SITE + df.KMAX_EMIT * K14_OPS_PER_WISH)
+        prof = profiled_in_place(lambda: clone_particles(p),
+                                 lambda q: df.boundcond_cuda(q, *args))
         cases[f"mdomainfill_{md}"] = dict(
             slots=n, sites=s, killed=killed, free=free, wanted=wanted,
             granted=granted, bitwise=True, max_abs_err=0.0,
-            ms=timed_in_place(lambda: clone_particles(p),
-                              lambda q: df.boundcond_cuda(q, *args)),
+            ms=graph_on_copy_ms(p, lambda q: df.boundcond_cuda(q, *args)),
+            profiled_ms=prof["device_ms"],
+            ms_with_host=timed_in_place(
+                lambda: clone_particles(p),
+                lambda q: df.boundcond_cuda(q, *args)),
+            launches_per_call=prof["launches_per_call"],
+            per_launch=prof["per_launch"],
             plain_ms=timed_in_place(lambda: clone_particles(p),
                                     lambda q: df.boundcond_plain(q, *args),
                                     3),
             library_ms=cuda_ms(lambda: torch.cumsum(free_o, 0)),
-            **bound(nbytes, nops))
+            **k14_bounds(p, True, bs, f3d.shape[1],
+                         f3d.shape[2] * f3d.shape[3], md, True, killed_idx,
+                         born_idx))
+        del free_o
+    t0 = time.perf_counter()
+    edges = {}
+    for name, q, o, b in boundcond_edge_inputs(p, bs, (xlo, xhi, ylo, yhi),
+                                               device):
+        edges[name] = held_boundcond(q, b, step, 1, o,
+                                     f"K14 edge {name}")[1]
+        if name.endswith(("no_free", "no_wish", "no_site")):
+            check(edges[name][3] == 0, f"K14 edge {name}: {edges[name]}")
+        if name.endswith("no_site"):
+            check(edges[name][0] >= (q.capacity + 1) // 2,
+                  f"K14 edge {name}: {edges[name]}")
     c = cases["mdomainfill_1"]
     return dict(n=n, sites=s, fill_s=fill_s,
-                **{f: c[f] for f in ("ms", "plain_ms", "library_ms",
-                                     "bound_ms", "bound_by", "max_abs_err",
-                                     "bitwise")}, cases=cases)
+                **{f: c[f] for f in ("ms", "ms_with_host", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by",
+                                     "bound_sectors_ms", "max_abs_err",
+                                     "bitwise")}, cases=cases,
+                edge_cases_killed_free_wanted_granted=edges,
+                edge_cases_s=time.perf_counter() - t0)
 
 
 def df_receptors(grid, device):
@@ -6943,12 +7338,45 @@ def phase_sim_domainfill(device, kernels) -> dict:
           and launches["advance"] == nsteps,
           f"sim_domainfill: {launches} launches in {nsteps} steps")
     device_ms, per_launch = per_launch_of(rows)
+    calls = [c.tolist() for c in sim.boundary_counts]
+    # K14's least time per call (boundcond_call_bounds: the slots each
+    # call needs, its killed and new particles), counted in a third run,
+    # neither timed nor profiled and bitwise run B
+    bounds, inner = [], df.boundcond_cuda
+
+    def counting(p, *args):
+        before = clone_particles(p)
+        out = inner(p, *args)
+        bounds.append(boundcond_call_bounds(before, p, args))
+        del before
+        return out
+
+    sim_c = setup("c")
+    df.boundcond_cuda = counting
+    try:
+        sim_c.run()
+    finally:
+        df.boundcond_cuda = inner
+    check_same_bits(sim.particles, sim_c.particles,
+                    "sim_domainfill: the counting run and run B")
+    check(len(bounds) == nsteps + 1
+          and [c.tolist() for c in sim_c.boundary_counts] == calls,
+          f"sim_domainfill: {len(bounds)} calls counted")
+    del sim_c
     res = dict(
         n=N_MAIN, capacity=DF_CAPACITY, steps=nsteps, netcdf=netcdf, **a,
         device_ms_all_kernels=device_ms,
+        domainfill_bound_ms_per_call=sum(b["bound_ms"] for b in bounds)
+        / len(bounds),
+        domainfill_bound_sectors_ms_per_call=sum(
+            b["bound_sectors_ms"] for b in bounds) / len(bounds),
+        domainfill_killed_free_wanted_granted_per_call=calls,
         device_per_call={
             "advance": per_launch(("advance_kernel",), nsteps),
             "domainfill": per_launch(("boundary_",), nsteps + 1),
+            # K14's memset of its bitmaps (no other kernel of the path
+            # calls cudaMemsetAsync)
+            "domainfill_memsets": per_launch(("Memset",), nsteps + 1),
             "receptors": per_launch(("receptor_",), samplings),
             "fluxes": per_launch(("fluxes_kernel",), nsteps),
             "conccalc_both_grids": per_launch(
@@ -7314,7 +7742,8 @@ def phase_sim_oh_split(device, kernels) -> dict:
         q = clone_particles(p)
         m0 = p.mass[p.active].double().sum(0)
         out, counts = inner(p, itime, ldirect, origin)
-        pl, cp = sp.split_particles_plain(q, itime, ldirect, origin)
+        pl, cp = sp.split_particles_plain(clone_particles(q), itime,
+                                          ldirect, origin)
         check(counts.tolist() == cp.tolist(),
               f"sim_oh_split B: K13 counts {counts.tolist()} / "
               f"{cp.tolist()}")
@@ -7325,10 +7754,18 @@ def phase_sim_oh_split(device, kernels) -> dict:
               and bool(torch.all((m1 - m0).abs() <= 1e-6 * m0)),
               f"sim_oh_split B: split at {itime} {c}, mass {m0.tolist()} "
               f"-> {m1.tolist()}")
-        held["split"].append(dict(itime=itime, due_free_granted=c,
-                                  bitwise=True,
-                                  mass_rel_change=float(
-                                      ((m1 - m0).abs() / m0).max())))
+        parents, children = split_pairs(q, out)
+        prof = profiled_in_place(
+            lambda: clone_particles(q),
+            lambda x: sp.split_particles(x, itime, ldirect, origin))
+        held["split"].append(dict(
+            itime=itime, due_free_granted=c, bitwise=True,
+            mass_rel_change=float(((m1 - m0).abs() / m0).max()),
+            ms=graph_on_copy_ms(q, lambda x: sp.split_particles(
+                x, itime, ldirect, origin)),
+            profiled_ms=prof["device_ms"], per_launch=prof["per_launch"],
+            **k13_bounds(q, itime, ldirect, origin is not None, parents,
+                         children)))
         return out, counts
 
     sim._ohreaction = oh_held
@@ -7908,7 +8345,10 @@ def main() -> int:
              **{f: r[f] for f in pick},
              **{f: r[f] for f in ("n", "bitwise", "cases", "bound_bytes",
                                   "bound_operations", "unordered_ms",
-                                  "layout", "oh_grid") if f in r},
+                                  "layout", "oh_grid", "ms_with_host",
+                                  "bound_sectors_ms",
+                                  "edge_cases_due_free_granted",
+                                  "edge_cases_s") if f in r},
              "sim_oh_split_held": ohres["run_b"]["held"][kname]})
     # K14-K17: the kernels_domainfill phase's numbers, the launches of the
     # path that runs each; the nest's sampling is K3's stock instantiation,
@@ -7934,12 +8374,23 @@ def main() -> int:
                                   "bitwise", "cases", "bound_bytes",
                                   "bound_operations", "pairs", "cells_hit",
                                   "most_pairs_in_a_cell", "grid",
-                                  "kernel_max_rel_err_vs_f64", "faces")
+                                  "kernel_max_rel_err_vs_f64", "faces",
+                                  "ms_with_host", "bound_sectors_ms",
+                                  "edge_cases_killed_free_wanted_granted",
+                                  "edge_cases_s")
                 if f in r},
              f"{path}_per_call": pres["device_per_call"][kname],
              **{f: pres[f] for f in (
                  "initcond_bound_ms_per_call", "initcond_bound_last_call",
-                 "initcond_masked_pairs_cells_per_call") if f in pres}})
+                 "initcond_masked_pairs_cells_per_call")
+                if f in pres and kname == "initcond"},
+             **({"sim_domainfill_bound_ms_per_call":
+                 pres["domainfill_bound_ms_per_call"],
+                 "sim_domainfill_bound_sectors_ms_per_call":
+                 pres["domainfill_bound_sectors_ms_per_call"],
+                 "sim_domainfill_memsets_per_call":
+                 pres["device_per_call"]["domainfill_memsets"]}
+                if kname == "domainfill" else {})})
     line.append(
         {"name": "conccalc.nest", "route": "cuda",
          "source": src.format("conccalc"),

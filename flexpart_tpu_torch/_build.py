@@ -481,10 +481,11 @@ SPLIT = Kernel("split", "fp_split", [
     P,                    # origin (n,) i64, or NULL (the identity)
     I, I,                 # n, nspec
     I, I,                 # itime, ldirect
-    P, P,                 # scratch: free and due flags (tiles * 4096,) u8, zeroed
-    P,                    # scratch: slot at each origin (n,) i32
-    P, P,                 # scratch: tile sums of free, due (tiles,) i32
-    P, P,                 # scratch: free and due slots by rank (n,) i32
+    P, P,                 # scratch (core/origin_rank.py::rank_plan): free then due bits, their word prefixes
+    P, P,                 # scratch: tile states (tiles,) u64, ticket
+    I64, I,               # bytes zeroed from the bits on, scan tiles of each bitmap
+    P,                    # scratch: the slots free or due, bits in slot order
+    P, P,                 # scratch: free and due slots by rank (n / 2 + 1,) i32
     P,                    # out: counts (3,) i32: due, free, granted
     I,                    # multiprocessors (the copy's grid)
     P,                    # stream
@@ -505,11 +506,13 @@ DOMAINFILL = Kernel("domainfill", "fp_domainfill", [
     I, I, I,              # itime, the new particles' itrasplit, nclassunc
     U32, U32,             # philox key words
     P, P, P,              # injected u1, u2 (4, S) f32, nclass (4, S) i32, or all NULL
-    P, P, P,              # scratch: free flags (tiles * 4096,) u8 zeroed, slot at origin (n,), tile sums (tiles,) i32
-    P, P, P, P,           # scratch: wishes (wtiles * 4096,) u8 zeroed, tile sums (wtiles,), free slots by rank, classes (4 S,) i32
-    P, P, P, P,           # scratch: the wishes' x, y, z, mass (4 S,) f32
-    P,                    # out: counts (4,) i32 zeroed: killed, free, wanted, granted
-    I,                    # multiprocessors
+    P, P,                 # scratch (core/origin_rank.py::rank_plan): free then wish bits, their word prefixes
+    P, P, P,              # scratch: tile states (tiles,) u64, ticket, killed count
+    I64, I, I,            # bytes zeroed from the bits on, scan tiles of the free bits, of both
+    P,                    # scratch: the free slots, bits in slot order
+    P,                    # scratch: free slots by rank (4 S,) i32
+    P, P, P, P, P,        # scratch: the wishes' class (4 S,) i32, x, y, z, mass (4 S,) f32
+    P,                    # out: counts (4,) i32: killed, free, wanted, granted
     P,                    # stream
 ])
 

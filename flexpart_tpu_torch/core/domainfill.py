@@ -17,7 +17,9 @@ site (one layer of one boundary column; its geometry fixed at the fill,
 ``BoundaryState``) is accumulated each step, and whenever a site has
 gathered one particle mass, a particle is created on its face, at most
 ``KMAX_EMIT`` a site and step (the rest stays in the accumulator).  The
-step is kernel K14 (``csrc/domainfill.cu``) on CUDA tensors and
+step is kernel K14 (``csrc/domainfill.cu``: the free slots and the wishes
+as bits, ranked as K13 ranks, ``csrc/origin_rank.cuh``; its scratch
+laid out by ``boundary_plan``) on CUDA tensors and
 ``boundcond_plain``, its twin, on CPU tensors; ``boundcond`` picks by
 device and never falls from one to the other.  Both update the particles
 in place and return the new accumulator.
@@ -53,6 +55,7 @@ from ..constants import GA, PI, PI180, R_AIR, R_EARTH
 from ..met.fields import F3_PV, F3_RHO, F3_TT, F3_U, F3_V
 from . import rng
 from .interp import true_div
+from .origin_rank import MAX_FLAGS, pointers, rank_plan, rank_scratch
 from .state import FIELDS, ITRA_INACTIVE, Particles, empty_particles
 
 PVCRIT = 2.0           # par_mod pvcrit [pvu]
@@ -60,8 +63,6 @@ OZONESCALE = 60.0      # ng O3 / m3 / pvu (par_mod)
 M_PER_DEG = 111198.5   # metres per degree latitude (boundcond:77-81)
 KMAX_EMIT = 4          # max particles emitted per site per step
 BOUNDARY_TAG = 14      # the Philox tag of the boundary's draws
-# K14's scratch (csrc/domainfill.cu): origins per tile of its free scan
-TILE = 4096
 
 
 def _np(a) -> np.ndarray:
@@ -562,6 +563,15 @@ def boundcond_plain(p: Particles, bs: BoundaryState, f0, f1, height,
     return acc, counts
 
 
+def boundary_plan(n: int, sites: int):
+    """K14's scratch at ``n`` slots and ``sites`` sites
+    (origin_rank.rank_plan): the free bitmap and the wishes' (KMAX_EMIT a
+    site), the free slots by rank (at most min(free, wanted)), the free
+    slots in slot order, and the wishes' class, x, y, z and mass."""
+    wishes = KMAX_EMIT * sites
+    return rank_plan(n, wishes, (wishes, 0), n, 5 * wishes)
+
+
 def boundcond_cuda(p: Particles, bs: BoundaryState, f0, f1, height,
                    itime: int, w0: float, w1: float, key: "rng.Key",
                    lsynctime: float, itsplit: int, ylat0: float, dy: float,
@@ -572,8 +582,11 @@ def boundcond_cuda(p: Particles, bs: BoundaryState, f0, f1, height,
     granted) stay on the card."""
     n, dev = p.capacity, p.device
     s = bs.sites
-    if n >= 2 ** 31 - TILE:
+    if n >= MAX_FLAGS:
         raise ValueError("K14 indexes particles with int32")
+    if KMAX_EMIT * s >= MAX_FLAGS:
+        raise ValueError("K14 indexes its wishes (KMAX_EMIT per site) with "
+                         "int32")
     for name in FIELDS:
         t = getattr(p, name)
         if t.device != dev or t.shape[0] != n or not t.is_contiguous():
@@ -606,24 +619,20 @@ def boundcond_cuda(p: Particles, bs: BoundaryState, f0, f1, height,
                                  f"({KMAX_EMIT}, {s}) on {dev}")
     xpp, xlo, xhi, ylo, yhi = bs.limits()
     acc = torch.empty_like(bs.acc)
-    counts = torch.zeros(4, dtype=torch.int32, device=dev)
     if n == 0:
-        return acc.copy_(bs.acc), counts
-    tiles = -(-n // TILE)
+        return acc.copy_(bs.acc), torch.zeros(4, dtype=torch.int32,
+                                               device=dev)
+    counts = torch.empty(4, dtype=torch.int32, device=dev)
+    plan = boundary_plan(n, s)
     wishes = KMAX_EMIT * s
-    wtiles = -(-wishes // TILE)
-    free_o = torch.zeros(tiles * TILE, dtype=torch.uint8, device=dev)
-    want = torch.zeros(wtiles * TILE, dtype=torch.uint8, device=dev)
-    ints = torch.empty(n + tiles + wtiles + 2 * wishes, dtype=torch.int32,
-                       device=dev)
-    cand = torch.empty(4 * wishes, dtype=torch.float32, device=dev)
+    scratch = rank_scratch(plan, dev)
+    at = pointers(scratch, plan)
+    cand = at["extra"]
     fields = (ctypes.c_void_p * len(FIELDS))(
         *(getattr(p, f).data_ptr() for f in FIELDS))
     table = (ctypes.c_void_p * 15)(
         *(getattr(bs, f).data_ptr() for f in BOUNDARY_FIELDS[:15]))
     nz, ny, nx = f0.shape[1:]
-    at, step = ints.data_ptr(), ints.element_size()
-    cat, cstep = cand.data_ptr(), cand.element_size()
     k0, k1 = key.philox_key(BOUNDARY_TAG)
 
     def c(v):
@@ -631,7 +640,6 @@ def boundcond_cuda(p: Particles, bs: BoundaryState, f0, f1, height,
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         _build.DOMAINFILL(
             ctypes.addressof(fields),
             None if origin is None else origin.data_ptr(), n, p.nspec,
@@ -644,12 +652,11 @@ def boundcond_cuda(p: Particles, bs: BoundaryState, f0, f1, height,
             *((None, None, None) if draws is None
               else (draws[0].data_ptr(), draws[1].data_ptr(),
                     draws[2].data_ptr())),
-            free_o.data_ptr(), at, at + step * n, want.data_ptr(),
-            at + step * (n + tiles), at + step * (n + tiles + wtiles),
-            at + step * (n + tiles + wtiles + wishes), cat,
-            cat + cstep * wishes,
-            cat + 2 * cstep * wishes, cat + 3 * cstep * wishes,
-            counts.data_ptr(), sms, stream)
+            at["bits"], at["prefix"], at["status"], at["ticket"],
+            at["counter"], 4 * plan.zero, plan.tiles_a, plan.tiles,
+            at["flagged"], at["list_a"], cand, *(
+                cand + 4 * wishes * j for j in range(1, 5)),
+            counts.data_ptr(), stream)
     return acc, counts
 
 

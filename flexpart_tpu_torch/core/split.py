@@ -21,8 +21,10 @@ split.
 Two versions, both updating the particles' tensors in place (parents and
 children are disjoint slots): ``split_particles_plain`` (cumsum and masked
 ``index_copy_``) for CPU tensors, and kernel K13 (``csrc/split.cu``: the
-flags in origin order, a block-wise scan, the copy) for CUDA tensors.
-``split_particles`` picks by device and never falls from one to the other.
+flags as bits in origin order, one scan of their words, each slot's rank
+from its word, the copy; its scratch laid out by ``split_plan``) for
+CUDA tensors.  ``split_particles`` picks by device and never
+falls from one to the other.
 """
 
 from __future__ import annotations
@@ -32,10 +34,9 @@ import ctypes
 import torch
 
 from .. import _build
+from .origin_rank import (MAX_FLAGS, pointers, rank_plan, rank_scratch,
+                          sm_count)
 from .state import FIELDS, ITRA_INACTIVE, Particles
-
-# what sizes K13's scratch (csrc/split.cu): origins per tile of its scans
-TILE = 4096
 
 
 def due_and_free(p: Particles, itime: int, ldirect: int):
@@ -102,12 +103,19 @@ def split_particles_plain(p: Particles, itime: int, ldirect: int = 1,
     return p, counts
 
 
+def split_plan(n: int):
+    """K13's scratch at ``n`` slots (origin_rank.rank_plan): the free and
+    the due bitmaps, the free and due slots by rank, at most min(due,
+    free) <= n // 2 of each, and the slots free or due in slot order."""
+    return rank_plan(n, n, (n // 2 + 1, n // 2 + 1), n)
+
+
 def split_particles_cuda(p: Particles, itime: int, ldirect: int = 1,
                          origin: torch.Tensor | None = None):
     """K13 launch, in place; the counts (due, free, granted) stay on the
     card."""
     n, dev = p.capacity, p.device
-    if n >= 2 ** 31 - TILE:
+    if n >= MAX_FLAGS:
         raise ValueError("K13 indexes particles with int32")
     for name in FIELDS:
         t = getattr(p, name)
@@ -120,26 +128,24 @@ def split_particles_cuda(p: Particles, itime: int, ldirect: int = 1,
                                or not origin.is_contiguous()):
         raise ValueError(f"K13: origin must be contiguous int64 ({n},) on "
                          f"{dev}")
-    counts = torch.zeros(3, dtype=torch.int32, device=dev)
     if n == 0:
-        return p, counts
-    tiles = -(-n // TILE)
-    flags = torch.zeros((2, tiles * TILE), dtype=torch.uint8, device=dev)
-    ints = torch.empty(3 * n + 2 * tiles, dtype=torch.int32, device=dev)
+        return p, torch.zeros(3, dtype=torch.int32, device=dev)
+    counts = torch.empty(3, dtype=torch.int32, device=dev)
+    plan = split_plan(n)
+    scratch = rank_scratch(plan, dev)
+    at = pointers(scratch, plan)
     fields = (ctypes.c_void_p * len(FIELDS))(
         *(getattr(p, f).data_ptr() for f in FIELDS))
-    at = ints.data_ptr()
-    step = ints.element_size()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         _build.SPLIT(
             ctypes.addressof(fields),
             None if origin is None else origin.data_ptr(), n, p.nspec,
-            int(itime), int(ldirect), flags[0].data_ptr(),
-            flags[1].data_ptr(), at, at + step * n, at + step * (n + tiles),
-            at + step * (n + 2 * tiles), at + step * (2 * n + 2 * tiles),
-            counts.data_ptr(), sms, stream)
+            int(itime), int(ldirect), at["bits"], at["prefix"],
+            at["status"], at["ticket"], 4 * plan.zero, plan.tiles_a,
+            at["flagged"], at["list_a"], at["list_b"], counts.data_ptr(),
+            sm_count(dev),
+            stream)
     return p, counts
 
 

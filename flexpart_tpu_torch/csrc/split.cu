@@ -16,51 +16,52 @@
 // itra unscheduled or not its release time); a particle is due if active,
 // its itrasplit scheduled and ldirect * itime >= ldirect * itrasplit.
 //
-// Passes (no CUB or Thrust):
-//  1. flags: per slot, its free and due flags (bytes) and its slot number
-//     written at its origin, into origin order;
-//  2. tile sums: per tile of 4096 origins, the free and the due count;
-//  3. tile scan: one block scans the tile counts (exclusive, in place) and
-//     writes the totals: due, free and granted = min(due, free);
-//  4. ranks: per tile, each origin's rank among the free and among the
-//     due ones (a block-wide exclusive scan plus its tile's offset); the
-//     slot of the r-th free origin and of the r-th due one, for r <
-//     granted, are written to two lists;
-//  5. copy: one thread per granted rank copies every field of the r-th
-//     due particle into the r-th free slot, halves both masses, sets both
-//     split times to 2 * (itrasplit - itramem) + itramem (clipped into
-//     int32 as the reference clips) and the child active.
+// Design (origin_rank.cuh): the free and the due flags are two bitmaps in
+// origin order (3 MB at 12 x 2**20 slots, in L2), zeroed by one memset.
+//  1. flags: per slot, in slot order, its free and due bits set at its
+//     origin (atomicOr; a warp's ballot where the origin is the identity);
+//  2. scan: the bitmaps' words, one pass with a decoupled look-back; the
+//     last tile writes the counts: due, free, granted = min(due, free);
+//  3. ranks: per flagged slot (the flags pass's bitmap in slot order), in
+//     slot order, its rank among the free and among the due ones from its
+//     word (prefix + popcount below); the r-th free slot and the r-th due
+//     one, r < granted, into two lists;
+//  4. copy: one thread per granted rank (a grid-stride loop over a
+//     resident grid) copies every field of the r-th due particle into the
+//     r-th free slot, halves both masses, sets both split times to 2 *
+//     (itrasplit - itramem) + itramem (clipped into int32 as the reference
+//     clips) and the child active.  Walking the parents in slot order
+//     instead, each finding its rank again, measured 1.70x slower after a
+//     sort (12 x 2**20 slots, NVIDIA H100).
 // The particle fields are updated in place: parents and children are
 // disjoint (active, inactive), so no slot is read and written by two
-// threads.  The counts (due, free, granted) stay on the card.
+// threads.  The counts stay on the card.
 //
 // Arithmetic: integer ranks and copies; the halved mass is one float
 // multiplication, so the kernel and its plain version agree bit for bit.
 //
-// Bound on the H100: the flags read 21 B a slot (active, itra, itramem,
-// itrasplit, the int64 origin): 0.08 ms for 12 x 2**20 slots, and each
-// granted pair reads its parent's 70 + 12 nspec B and writes them to the
-// child, with the parent's mass and split time.
+// Bound on the H100: by 32 B sectors, what the split needs of the slots
+// (every active flag; a live slot's itrasplit; a dead one's itra, and its
+// itramem where itra is scheduled; a due or free one's origin) and, per
+// access set of the pairs, its distinct sectors: a parent's 21 fields
+// read and 2 written, a child's 22 written, 45 sectors a pair where
+// parents and children lie apart; at 12 x 2**20 slots with 1.3 to 3.1 M
+// pairs 0.23-0.53 ms (0.64 ms were each access a sector of its own), by
+// bytes 0.10-0.20 ms (chip_smoke.k13_bounds).  The copy, whose pairs lie
+// at random after a sort, takes most of the time.
 //
-// Design: the flags are bytes in origin order, read by passes 2 and 4 as
-// one 16-byte load a thread (16 origins), so that the scans touch 2 B an
-// origin; pass 4 rereads the flags rather than storing per-origin ranks
-// (reduce, then scan).
+// The first K13: flags as bytes and each slot's number scattered
+// into origin order (three scattered writes a slot), tile sums, a
+// one-block scan, a rank pass walking 16 origins a thread, the copy.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "block_scan.cuh"
+#include "origin_rank.cuh"
 
 namespace {
 
-using fp::block_scan2;
-using fp::byte_sum;
-
 constexpr int THREADS = 256;
-constexpr int ITEMS = 16;                  // origins per thread: one uint4
-constexpr int TILE = THREADS * ITEMS;      // origins per tile
-constexpr int SCAN_THREADS = 1024;
-constexpr int COPY_THREADS = 256;
+constexpr int COPY_BLOCKS_PER_SM = 8;      // the copy's resident grid
 constexpr int ITRA_INACTIVE = -999999999;
 
 struct Fields {
@@ -72,173 +73,137 @@ struct Fields {
   bool* active;
 };
 
-struct Scratch {
-  uint8_t *free_o, *due_o;                 // (tiles * TILE,) zeroed
-  int* slot_at_origin;                     // (n,)
-  int *tile_free, *tile_due;               // (tiles,)
-  int *free_slot, *due_slot;               // (n,): by rank
-  int* counts;                             // (3,): due, free, granted
-};
-
 __global__ void __launch_bounds__(THREADS)
-flags_kernel(const Fields f, const long long* __restrict__ origin, int n,
-             int itime, int ldirect, Scratch s) {
+split_flags_kernel(const Fields f, const long long* __restrict__ origin,
+                   int n, int itime, int ldirect, fp::Ranking r,
+                   long long due_base, uint32_t* __restrict__ flagged) {
   const int k = blockIdx.x * THREADS + threadIdx.x;
-  if (k >= n) return;
-  const long long o = origin == nullptr ? k : origin[k];
-  if (o < 0 || o >= n) return;
-  const bool active = f.active[k];
-  const int itra = f.itra[k];
-  const int split = f.itrasplit[k];
-  const bool due = active && split != ITRA_INACTIVE &&
-                   static_cast<long long>(ldirect) * itime >=
-                       static_cast<long long>(ldirect) * split;
-  const bool is_free =
-      !active && (itra == ITRA_INACTIVE || itra != f.itramem[k]);
-  s.free_o[o] = is_free ? 1 : 0;
-  s.due_o[o] = due ? 1 : 0;
-  s.slot_at_origin[o] = k;
+  bool due = false, is_free = false;
+  long long o = -1;
+  if (k < n) {
+    // every slot's origin, active, itra and split time loaded at once:
+    // loading the origin only for a due or free slot, and the split time
+    // or itra only for a live or dead one, chains two or three loads and
+    // measured 13-24% slower in this pass (NVIDIA H100)
+    o = fp::origin_of(origin, k, n);
+    const bool active = f.active[k];
+    const int itra = f.itra[k];
+    const int split = f.itrasplit[k];
+    due = o >= 0 && active && split != ITRA_INACTIVE &&
+          static_cast<long long>(ldirect) * itime >=
+              static_cast<long long>(ldirect) * split;
+    is_free = o >= 0 && !active &&
+              (itra == ITRA_INACTIVE || itra != f.itramem[k]);
+  }
+  if (origin == nullptr) {                 // uniform over the grid
+    fp::write_warp_word(r.bits, k >> 5, is_free);
+    fp::write_warp_word(r.bits + due_base, k >> 5, due);
+  } else {
+    fp::set_flag(r.bits, o, is_free);
+    fp::set_flag(r.bits + due_base, o, due);
+  }
+  fp::write_warp_word(flagged, k >> 5, is_free || due);
+}
+
+__global__ void __launch_bounds__(fp::RANK_THREADS)
+split_scan_kernel(const fp::Ranking r, int* counts) {
+  int n_free, n_due;
+  if (fp::rank_scan_tile(r, &n_free, &n_due)) {
+    counts[0] = n_due;
+    counts[1] = n_free;
+    counts[2] = n_due < n_free ? n_due : n_free;   // granted
+  }
+}
+
+// per slot free or due, its rank among the free and among the due ones;
+// the r-th of each, r < granted, into its list
+__global__ void __launch_bounds__(fp::RANK_THREADS)
+split_ranks_kernel(const long long* __restrict__ origin, int n,
+                   const fp::Ranking r, long long due_base,
+                   const uint32_t* __restrict__ flagged,
+                   int* __restrict__ free_slot, int* __restrict__ due_slot,
+                   const int* __restrict__ counts) {
+  const int granted = counts[2];
+  if (granted == 0) return;
+  fp::rank_flagged_slots(origin, n, flagged, [&](int k, long long o) {
+    fp::list_by_rank(r, 0, o, k, granted, free_slot);
+    fp::list_by_rank(r, due_base, o, k, granted, due_slot);
+  });
+}
+
+// parent p's fields into child c, both masses halved, both split times
+// doubled.  Each load next to its store: issuing every load first needs
+// 64 registers, half the warps an SM holds, and ran 9% slower after a sort.
+__device__ __forceinline__ void copy_pair(const Fields& f, int nspec, int p,
+                                          int c) {
+  f.x_hi[c] = f.x_hi[p];
+  f.x_lo[c] = f.x_lo[p];
+  f.y_hi[c] = f.y_hi[p];
+  f.y_lo[c] = f.y_lo[p];
+  f.z[c] = f.z[p];
+  f.itra[c] = f.itra[p];
+  const int itramem = f.itramem[p];
+  f.itramem[c] = itramem;
+  f.npoint[c] = f.npoint[p];
+  f.nclass[c] = f.nclass[p];
+  f.idt[c] = f.idt[p];
+  f.up[c] = f.up[p];
+  f.vp[c] = f.vp[p];
+  f.wp[c] = f.wp[p];
+  f.usig[c] = f.usig[p];
+  f.vsig[c] = f.vsig[p];
+  f.wsig[c] = f.wsig[p];
+  f.cbt[c] = f.cbt[p];
+  f.active[c] = true;
+  // the doubled interval, clipped before doubling so that 2 dt + itramem
+  // stays in int32 (split.py:48-50)
+  long long dt = static_cast<long long>(f.itrasplit[p]) - itramem;
+  dt = dt < -499999999LL ? -499999999LL : (dt > 499999999LL ? 499999999LL : dt);
+  long long next = 2 * dt + itramem;
+  next = next < -999999998LL ? -999999998LL
+                             : (next > 999999999LL ? 999999999LL : next);
+  f.itrasplit[p] = f.itrasplit[c] = static_cast<int>(next);
+  const long long rp = static_cast<long long>(p) * nspec;
+  const long long rc = static_cast<long long>(c) * nspec;
+  for (int k = 0; k < nspec; ++k) {
+    const float half = f.mass[rp + k] * 0.5f;
+    f.mass[rp + k] = half;
+    f.mass[rc + k] = half;
+    f.mass0[rc + k] = f.mass0[rp + k];
+    f.xscav[rc + k] = f.xscav[rp + k];
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
-tile_sums_kernel(Scratch s) {
-  __shared__ int part[2][THREADS / 32];
-  const size_t at = static_cast<size_t>(blockIdx.x) * TILE +
-                    static_cast<size_t>(threadIdx.x) * ITEMS;
-  int a = byte_sum(*reinterpret_cast<const uint4*>(s.free_o + at));
-  int b = byte_sum(*reinterpret_cast<const uint4*>(s.due_o + at));
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_down_sync(0xffffffffu, a, off);
-    b += __shfl_down_sync(0xffffffffu, b, off);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    part[0][warp] = a;
-    part[1][warp] = b;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int ta = 0, tb = 0;
-    for (int i = 0; i < THREADS / 32; ++i) {
-      ta += part[0][i];
-      tb += part[1][i];
-    }
-    s.tile_free[blockIdx.x] = ta;
-    s.tile_due[blockIdx.x] = tb;
-  }
-}
-
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_tiles_kernel(Scratch s, int tiles) {
-  int carry_a = 0, carry_b = 0;
-  for (int base = 0; base < tiles; base += SCAN_THREADS) {
-    const int i = base + threadIdx.x;
-    int a = i < tiles ? s.tile_free[i] : 0;
-    int b = i < tiles ? s.tile_due[i] : 0;
-    int ta, tb;
-    block_scan2<SCAN_THREADS>(a, b, &ta, &tb);
-    if (i < tiles) {
-      s.tile_free[i] = carry_a + a;
-      s.tile_due[i] = carry_b + b;
-    }
-    carry_a += ta;
-    carry_b += tb;
-  }
-  if (threadIdx.x == 0) {
-    s.counts[0] = carry_b;                 // due
-    s.counts[1] = carry_a;                 // free
-    s.counts[2] = carry_b < carry_a ? carry_b : carry_a;   // granted
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-ranks_kernel(Scratch s) {
-  const size_t at = static_cast<size_t>(blockIdx.x) * TILE +
-                    static_cast<size_t>(threadIdx.x) * ITEMS;
-  const uint4 fv = *reinterpret_cast<const uint4*>(s.free_o + at);
-  const uint4 dv = *reinterpret_cast<const uint4*>(s.due_o + at);
-  int a = byte_sum(fv), b = byte_sum(dv);
-  int ta, tb;
-  block_scan2<THREADS>(a, b, &ta, &tb);
-  if (ta == 0 && tb == 0) return;
-  const int granted = s.counts[2];
-  int rf = s.tile_free[blockIdx.x] + a;
-  int rd = s.tile_due[blockIdx.x] + b;
-  const uint8_t* fb = reinterpret_cast<const uint8_t*>(&fv);
-  const uint8_t* db = reinterpret_cast<const uint8_t*>(&dv);
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    if (fb[i]) {
-      if (rf < granted) s.free_slot[rf] = s.slot_at_origin[at + i];
-      ++rf;
-    }
-    if (db[i]) {
-      if (rd < granted) s.due_slot[rd] = s.slot_at_origin[at + i];
-      ++rd;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(COPY_THREADS)
-copy_kernel(Fields f, int nspec, Scratch s) {
-  const int granted = s.counts[2];
-  for (int r = blockIdx.x * COPY_THREADS + threadIdx.x; r < granted;
-       r += gridDim.x * COPY_THREADS) {
-    const int p = s.due_slot[r];
-    const int c = s.free_slot[r];
-    f.x_hi[c] = f.x_hi[p];
-    f.x_lo[c] = f.x_lo[p];
-    f.y_hi[c] = f.y_hi[p];
-    f.y_lo[c] = f.y_lo[p];
-    f.z[c] = f.z[p];
-    f.itra[c] = f.itra[p];
-    const int itramem = f.itramem[p];
-    f.itramem[c] = itramem;
-    f.npoint[c] = f.npoint[p];
-    f.nclass[c] = f.nclass[p];
-    f.idt[c] = f.idt[p];
-    f.up[c] = f.up[p];
-    f.vp[c] = f.vp[p];
-    f.wp[c] = f.wp[p];
-    f.usig[c] = f.usig[p];
-    f.vsig[c] = f.vsig[p];
-    f.wsig[c] = f.wsig[p];
-    f.cbt[c] = f.cbt[p];
-    f.active[c] = true;
-    // the doubled interval, clipped before doubling so that 2 dt + itramem
-    // stays in int32 (split.py:48-50)
-    long long dt = static_cast<long long>(f.itrasplit[p]) - itramem;
-    dt = dt < -499999999LL ? -499999999LL : (dt > 499999999LL ? 499999999LL : dt);
-    long long next = 2 * dt + itramem;
-    next = next < -999999998LL ? -999999998LL
-                               : (next > 999999999LL ? 999999999LL : next);
-    f.itrasplit[p] = f.itrasplit[c] = static_cast<int>(next);
-    const long long rp = static_cast<long long>(p) * nspec;
-    const long long rc = static_cast<long long>(c) * nspec;
-    for (int k = 0; k < nspec; ++k) {
-      const float half = f.mass[rp + k] * 0.5f;
-      f.mass[rp + k] = half;
-      f.mass[rc + k] = half;
-      f.mass0[rc + k] = f.mass0[rp + k];
-      f.xscav[rc + k] = f.xscav[rp + k];
-    }
-  }
+split_copy_kernel(Fields f, int nspec, const int* __restrict__ free_slot,
+                  const int* __restrict__ due_slot,
+                  const int* __restrict__ counts) {
+  const int granted = counts[2];
+  for (int q = blockIdx.x * THREADS + threadIdx.x; q < granted;
+       q += gridDim.x * THREADS)
+    copy_pair(f, nspec, due_slot[q], free_slot[q]);
 }
 
 }  // namespace
 
 // fields: the 22 pointers of Particles in core/state.py FIELDS order, each
 // updated in place; origin (n,) int64, a permutation of 0..n-1, or NULL
-// (the identity); scratch: free_o and due_o (tiles * 4096,) uint8 zeroed,
-// slot_at_origin, free_slot, due_slot (n,) int32, tile_free, tile_due
-// (tiles,) int32, counts (3,) int32 out (due, free, granted)
+// (the identity); scratch (core/origin_rank.py::rank_plan, with flags n
+// and n): bits and prefix (2 tiles * RANK_TILE_WORDS,) each, status
+// (2 tiles,) u64, ticket, zero_bytes from bits on zeroed here (the bits,
+// status and ticket), flagged (ceil(n / 256) * 8,) u32 (per slot in slot
+// order, free or due), free_slot and due_slot (n / 2 + 1,) i32; counts
+// (3,) i32 out (due, free, granted)
 extern "C" int fp_split(void* const* fields, const long long* origin, int n,
-                        int nspec, int itime, int ldirect, uint8_t* free_o,
-                        uint8_t* due_o, int* slot_at_origin, int* tile_free,
-                        int* tile_due, int* free_slot, int* due_slot,
-                        int* counts, int sms, void* stream) {
+                        int nspec, int itime, int ldirect, uint32_t* bits,
+                        int* prefix, unsigned long long* status, int* ticket,
+                        long long zero_bytes, int tiles, uint32_t* flagged,
+                        int* free_slot, int* due_slot, int* counts, int sms,
+                        void* stream) {
   if (n <= 0) return 0;
-  if (nspec < 1 || sms < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (nspec < 1 || sms < 1 || tiles < 1 ||
+      static_cast<long long>(tiles) * fp::RANK_TILE_WORDS * 32 < n)
+    return static_cast<int>(cudaErrorInvalidValue);
   Fields f;
   f.x_hi = static_cast<float*>(fields[0]);
   f.x_lo = static_cast<float*>(fields[1]);
@@ -262,15 +227,20 @@ extern "C" int fp_split(void* const* fields, const long long* origin, int n,
   f.mass0 = static_cast<float*>(fields[19]);
   f.xscav = static_cast<float*>(fields[20]);
   f.active = static_cast<bool*>(fields[21]);
-  const Scratch s = {free_o, due_o, slot_at_origin, tile_free, tile_due,
-                     free_slot, due_slot, counts};
-  const int tiles = (n + TILE - 1) / TILE;
+  const fp::Ranking r = {bits, prefix, status, ticket, tiles, 2 * tiles};
+  const long long due_base = static_cast<long long>(tiles) *
+                             fp::RANK_TILE_WORDS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  flags_kernel<<<(n + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-      f, origin, n, itime, ldirect, s);
-  tile_sums_kernel<<<tiles, THREADS, 0, st>>>(s);
-  scan_tiles_kernel<<<1, SCAN_THREADS, 0, st>>>(s, tiles);
-  ranks_kernel<<<tiles, THREADS, 0, st>>>(s);
-  copy_kernel<<<sms * 8, COPY_THREADS, 0, st>>>(f, nspec, s);
+  cudaError_t err = cudaMemsetAsync(bits, 0, static_cast<size_t>(zero_bytes),
+                                    st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int slot_blocks = (n + THREADS - 1) / THREADS;
+  split_flags_kernel<<<slot_blocks, THREADS, 0, st>>>(
+      f, origin, n, itime, ldirect, r, due_base, flagged);
+  split_scan_kernel<<<2 * tiles, fp::RANK_THREADS, 0, st>>>(r, counts);
+  split_ranks_kernel<<<fp::rank_blocks(n), fp::RANK_THREADS, 0, st>>>(
+      origin, n, r, due_base, flagged, free_slot, due_slot, counts);
+  split_copy_kernel<<<sms * COPY_BLOCKS_PER_SM, THREADS, 0, st>>>(
+      f, nspec, free_slot, due_slot, counts);
   return static_cast<int>(cudaGetLastError());
 }

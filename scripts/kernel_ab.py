@@ -26,6 +26,17 @@ def source_kernel(kernel, src: Path, argtypes=None):
         def source(self) -> Path:
             return src
 
+        def sources(self) -> list[Path]:
+            """As the Kernel's, a header beside ``src`` before csrc/'s."""
+            found = [src]
+            for f in found:
+                for name in _build._INCLUDE.findall(f.read_text()):
+                    inc = src.parent / name
+                    inc = inc if inc.exists() else _build.CSRC / name
+                    if inc not in found:
+                        found.append(inc)
+            return found
+
     return SourceKernel(kernel.name, kernel.symbol,
                         kernel.argtypes if argtypes is None else argtypes,
                         kernel.parts, kernel.defines)

@@ -1079,22 +1079,29 @@ def test_a_parted_launch_goes_to_the_part_that_holds_it():
 def test_boundary_receptor_flux_constants_match_the_sources():
     """What the boundary (K14), receptor (K15) and flux (K16) kernels share
     with their Python sides: the emission rounds, the tile of the origin
-    scans, the met field planes they read, the receptor limits, the
-    candidate faces per direction."""
-    from flexpart_tpu_torch.core import domainfill
+    scans (K13's and K14's header), the met field planes they read, the
+    receptor limits, the candidate faces per direction."""
+    from flexpart_tpu_torch.core import domainfill, origin_rank
     from flexpart_tpu_torch.grid import fluxes, receptors
     from flexpart_tpu_torch.met import fields
 
     def const(kernel, name):
-        text = _strip_comments(_kernel(kernel).source.read_text())
+        text = _all_sources(_kernel(kernel))
         m = re.search(r"constexpr (?:int|float) %s = ([^;,]+)[;,]" % name,
                       text)
         assert m, (kernel, name)
         return m.group(1).strip()
 
     assert int(const("domainfill", "KMAX_EMIT")) == domainfill.KMAX_EMIT
-    assert int(const("domainfill", "THREADS")) \
-        * int(const("domainfill", "ITEMS")) == domainfill.TILE
+    for kernel in ("domainfill", "split"):
+        assert _build.CSRC / "origin_rank.cuh" in _kernel(kernel).sources()
+        assert int(const(kernel, "RANK_THREADS")) \
+            == origin_rank.RANK_THREADS
+        assert int(const(kernel, "RANK_ITEMS")) == origin_rank.RANK_ITEMS
+        assert const(kernel, "RANK_TILE_WORDS") \
+            == "RANK_THREADS * RANK_ITEMS"
+        # the slot launches' blocks, which size the slot-order bitmap
+        assert int(const(kernel, "THREADS")) == origin_rank.RANK_THREADS
     for plane in ("F3_U", "F3_V", "F3_RHO", "F3_PV"):
         text = _strip_comments(_kernel("domainfill").source.read_text())
         assert f"{plane} = {getattr(fields, plane)}" in text, plane

@@ -479,3 +479,69 @@ def test_backward_instantiations_equal_their_plain_versions(card, case):
         for f in adv.OUT_FIELDS:
             same(getattr(pk, f), getattr(pp, f), f)
     assert entry.launches == before + 1
+
+
+def _chip_smoke():
+    """chip_smoke.py, beside tests/: its K13 and K14 cases."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    return chip_smoke
+
+
+EDGE_SIZES = (1, 31, 33, 4095, 4097, 2 ** 20 + 1)
+
+
+@pytest.mark.parametrize("n", EDGE_SIZES)
+def test_k13_edge_cases_equal_the_plain_version(card, n):
+    """K13 at sizes around a warp, a 4096 tile and the origin bitmaps'
+    131,072-flag scan tile: half live and half of them due, through the
+    identity and a shuffled origin; no free slot; none due.  Every field
+    and the counts bitwise (chip_smoke.held_split)."""
+    cs = _chip_smoke()
+    seen = 0
+    for name, p, origin in cs.split_edge_inputs(card):
+        if name.startswith(f"n{n}_"):
+            counts = cs.held_split(p, origin, f"K13 {name}")[1]
+            if name.endswith(("no_free", "none_due")):
+                assert counts[2] == 0, (name, counts)
+            seen += 1
+    torch.cuda.synchronize()
+    assert seen == 4
+
+
+@pytest.fixture(scope="module")
+def boundcond_case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K14 has no CPU mode")
+    cs = _chip_smoke()
+    from flexpart_tpu_torch.met.synthetic import make_grid
+    device = torch.device("cuda")
+    return cs.boundcond_inputs(device, make_grid(**cs.BENCH_GRID))
+
+
+@pytest.mark.parametrize("n", EDGE_SIZES)
+def test_k14_edge_cases_equal_the_plain_version(card, boundcond_case, n):
+    """K14 at the sizes of K13's edge cases, slots drawn from
+    chip_smoke.py's boundary case (its 694,479 sites): through the identity
+    and a shuffled origin; every slot live inside the window (no free
+    slot); an empty accumulator (no wish); no site, half the slots live
+    outside the window (the kill alone).  Every field, the accumulator
+    and the counts bitwise (chip_smoke.held_boundcond)."""
+    cs = _chip_smoke()
+    p, _, bs, step = boundcond_case
+    _, xlo, xhi, ylo, yhi = bs.limits()
+    seen = 0
+    for name, q, origin, b in cs.boundcond_edge_inputs(
+            p, bs, (xlo, xhi, ylo, yhi), card):
+        if name.startswith(f"n{n}_"):
+            counts = cs.held_boundcond(q, b, step, 1, origin,
+                                       f"K14 {name}")[1]
+            if name.endswith(("no_free", "no_wish", "no_site")):
+                assert counts[3] == 0, (name, counts)
+            if name.endswith("no_site"):
+                assert counts[0] >= (n + 1) // 2, (name, counts)
+            seen += 1
+    torch.cuda.synchronize()
+    assert seen == 5

@@ -231,6 +231,59 @@ def test_boundary_step_equals_jax(md, tmp_path):
         assert wanted > 0 and (j["mass"][born] == np.float32(xpp)).all()
 
 
+def test_boundary_step_without_sites_equals_jax(tmp_path):
+    """A boundary step whose table holds no site: both packages kill the
+    particles outside the window and emit none; the port's slots shuffled
+    and ranked through their origin."""
+    jgrid, zf = _jax_field(tmp_path)
+    jp, _, jbs = jdf.init_domainfill(jgrid, zf, 6000, seed=SEED,
+                                     capacity=8192,
+                                     window=_window(jgrid, WINDOW))
+    jbs = jbs._replace(**{f: getattr(jbs, f)[:0]
+                          for f in tdf.BOUNDARY_FIELDS[:15]})
+    rs = np.random.default_rng(7)
+    n = jp.capacity
+    f = {k: np.asarray(getattr(jp, k)).copy() for k in FIELDS}
+    live = f["z"] > 0
+    f["active"] = live
+    f["x_hi"] = (f["x_hi"] + rs.uniform(-2.0, 2.0, n)).astype(np.float32)
+    f["y_hi"] = (f["y_hi"] + rs.uniform(-2.0, 2.0, n)).astype(np.float32)
+    key = jax.random.fold_in(jax.random.PRNGKey(SEED), 3000006)
+    itime, mt0, mt1 = 900, 0, 3600
+    jout, jbs2 = jdf.boundcond_domainfill(
+        JParticles(**{k: jnp.asarray(v) for k, v in f.items()}), jbs, zf, zf,
+        jnp.int32(itime), jnp.int32(mt0), jnp.int32(mt1), key,
+        jnp.int32(900), jnp.int32(499999999), jnp.float32(jgrid.ylat0),
+        jnp.float32(jgrid.dy))
+    origin = rs.permutation(n)
+    p = interop.particles_from_numpy({k: v[origin] for k, v in f.items()},
+                                     "cpu")
+    bs = interop.boundary_from_jax(
+        {k: np.asarray(v) for k, v in jbs._asdict().items()}, "cpu")
+    assert bs.sites == 0
+    f3d = torch.as_tensor(np.array(zf.f3d))
+    height = torch.as_tensor(np.array(zf.height))
+    w0, w1 = tdf.time_weights(itime, mt0, mt1)
+    acc, counts = tdf.boundcond(
+        p, bs, f3d, f3d, height, itime, w0, w1, rng.Key(SEED, 6), 900,
+        499999999, jgrid.ylat0, jgrid.dy, origin=torch.as_tensor(origin),
+        draws=_jax_draws(key, 0))
+    back = np.argsort(origin)
+    t = {k: v[back] for k, v in interop.particles_to_numpy(p).items()}
+    j = {k: np.asarray(getattr(jout, k)) for k in FIELDS}
+    for k in FIELDS:
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+    assert acc.shape == (0,) and np.asarray(jbs2.acc).shape == (0,)
+    killed, free, wanted, granted = counts.tolist()
+    x = f["x_hi"] + f["x_lo"]
+    y = f["y_hi"] + f["y_lo"]
+    xl, yl = np.asarray(jbs.xlim), np.asarray(jbs.ylim)
+    out = (x < xl[0]) | (x > xl[1]) | (y < yl[0]) | (y > yl[1])
+    assert killed == int((live & out).sum()) > 0
+    assert wanted == granted == 0
+    assert free == int((~j["active"]).sum())
+
+
 @pytest.fixture(scope="module")
 def jax_run(tmp_path_factory):
     """The regional fill of tests/test_domainfill.py in a uniform

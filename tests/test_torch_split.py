@@ -153,6 +153,30 @@ def test_split_with_a_shuffled_origin_grants_what_jax_grants(n_live):
     assert counts == [due, free, min(due, free)]
 
 
+@pytest.mark.parametrize("shuffled", [False, True],
+                         ids=["identity", "shuffled"])
+@pytest.mark.parametrize("n", [1, 31, 33, 4097])
+def test_split_at_the_edges_of_warps_and_tiles_equals_jax(n, shuffled):
+    """Sizes around a warp's 32 flags and a 4096 tile, the sizes K13's
+    bitmaps and scan tiles break at: half the slots live, every other live
+    one due (a single slot: due with no free slot, the guard), a future
+    release among the free slots; the identity and a shuffled origin.
+    JAX's split of the particles in origin order, bitwise, and the
+    counts."""
+    n_live = (n + 1) // 2
+    pop = make_pop(n=n, n_live=n_live, nspec=2, seed=n)
+    pop["itrasplit"][1:n_live:2] = 999999999
+    future = n > n_live
+    if future:
+        pop["itra"][n - 1] = pop["itramem"][n - 1] = 10800
+    origin = np.random.default_rng(n).permutation(n) if shuffled else None
+    j, t, counts = both(pop, origin=origin)
+    assert_equal(j, t)
+    due = (n_live + 1) // 2
+    free = n - n_live - int(future)
+    assert counts == [due, free, min(due, free)]
+
+
 def test_kernel_and_plain_versions_pick_by_device():
     """A CPU tensor takes the plain version; the wrapper passes the origin
     and itime through."""
