@@ -121,9 +121,14 @@ the port's stock forward step on the card, in phases:
                 cell order with their origin, the accumulator up to six
                 particle masses a site; its library call torch.cumsum of
                 the free flags; K15, the receptors, bitwise at the 32
-                receptors, its library call torch.mm of the (R, N)
-                weights; K16, the fluxes, on the particles moved up to 1.5
-                cells in the step, and K17, the initial-condition scatter
+                receptors on the fill, with every live particle at 0-100
+                m (surface) and with a tenth within half a kernel width
+                of a receptor (at_receptors), its library call torch.mm
+                of the (R, N) weights; K16, the fluxes, on the particles
+                moved up to 1.5 cells in the step (K15 and K16 timed by
+                CUDA graphs, per launch by the profiler, bounds by need,
+                edge cases of 1 to 2**20 + 1 slots untimed), and K17, the
+                initial-condition scatter
                 (linit_cond 1) on the deposition particles, a tenth of
                 them ended, all of them, and a tenth moved into a plume of
                 120 cells, each against the float64 sum of their
@@ -293,7 +298,9 @@ the port's stock forward step on the card, in phases:
                 every sampling, K16 every step; the filled air mass equal
                 to airmass_total, particles killed and emitted at the
                 boundary, every live one inside the window, the receptor,
-                flux and nest files read back;
+                flux and nest files read back; in a third run (bitwise
+                run B) K15 and K16 held against their plain versions on
+                every call, with each call's bound by need;
  14c. sim_initcond — sim_backward's run with linit_cond = 1 and iout = 5
                 (plume trajectories, clustered on the card), twice with
                 one seed: K17 every step and at the end, grid_initial_*
@@ -498,12 +505,14 @@ def cuda_ms(fn, reps: int = 10) -> float:
 def cuda_graph_ms(fn, reps: int = 50) -> float:
     """Mean device time of fn() in ms when ``reps`` calls are captured into
     one CUDA graph and replayed: for a kernel shorter than the host takes to
-    launch it, which event timing around a Python loop cannot see."""
+    launch it, which event timing around a Python loop cannot see.  The
+    capture is thread_local: a Simulation's met reader thread may use the
+    card meanwhile (a call intercepted in a run)."""
     import torch
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         for _ in range(reps):
             fn()
     return cuda_ms(graph.replay, 5) / reps
@@ -6784,13 +6793,28 @@ def df_receptors(grid, device):
         tuple(Receptor(*r) for r in DF_RECEPTORS), grid, device)[0]
 
 
-def kernel_receptors(device, grid) -> dict:
-    """K15 against its plain version on the fill's 10 x 2**20 particles
-    (ages up to 3 h, all sampled at 10800 s) at the 32 receptors of the
-    sim_domainfill phase, in cell order, bitwise (both add in the same fixed
-    order); half the receptors at least see some mass.  Its library call:
-    torch.mm of the (R, N) kernel weights, made beforehand, by the mass
-    (the product half of JAX's formulation)."""
+# K15's and K16's edge cases: one slot, a warp less one, a warp and one
+# more, a block of 2**20 slots and one more
+K1516_EDGE_SIZES = (1, 31, 33, 2 ** 20 + 1)
+K15_ITIME = 10800              # the kernels cases' sampling time
+
+
+def take_slots(p, idx):
+    """The particles of ``p`` at the slots ``idx``, contiguous."""
+    from flexpart_tpu_torch.core.state import FIELDS, Particles
+    return Particles(**{f: getattr(p, f)[idx].contiguous() for f in FIELDS})
+
+
+def receptor_inputs(device, grid):
+    """K15's cases at the 32 receptors of the sim_domainfill phase, each in
+    cell order and every active particle sampled at K15_ITIME with an age
+    of up to 3 h: the fill's 10 x 2**20 particles (``fill``: the domain's
+    air through the whole column, so nearly every warp ends at the height
+    gate); the same with every live particle's z drawn in 0-100 m
+    (``surface``: every warp passes the gate and the horizontal tests
+    decide); the fill with a tenth of the particles moved to within half a
+    kernel width of a receptor at 0-100 m (``at_receptors``: the divisions
+    and the shuffle trees).  Yields (name, particles)."""
     import torch
     from flexpart_tpu_torch.core import reorder
     from flexpart_tpu_torch.grid import receptors as rc
@@ -6801,35 +6825,193 @@ def kernel_receptors(device, grid) -> dict:
     gen = torch.Generator(device=device)
     gen.manual_seed(53)
     n = p.capacity
-    itime = 10800
-    p = p.replace(itra=torch.where(p.active, itime, p.itra),
-                  itramem=torch.where(p.active, (torch.rand(
-                      n, generator=gen, device=device) * itime).to(
+
+    def u(lo, hi):
+        return torch.rand(n, generator=gen, device=device) * (hi - lo) + lo
+
+    p = p.replace(itra=torch.where(p.active, K15_ITIME, p.itra),
+                  itramem=torch.where(p.active, (u(0.0, 1.0) * K15_ITIME).to(
                       torch.int32), p.itramem))
+    yield "fill", p
+    surface = p.replace(z=torch.where(p.active, u(0.0, 100.0), p.z))
+    yield "surface", reorder.reorder_by_cell(surface, z0.height, cfg)[0]
+    del surface
     rec = df_receptors(grid, device)
     r = rec.x.shape[0]
-    c0 = torch.zeros((r, p.nspec), dtype=torch.float32, device=device)
-    args = (c0, rec, p, itime, 1.0, grid.dx, grid.dy)
-    k = rc.sample_receptors_cuda(*args)
+    hx, hy, _ = rc.kernel_widths(p, grid.dx, grid.dy)
+    sel = p.active & (u(0.0, 1.0) < 0.1)
+    j = torch.clamp((u(0.0, 1.0) * r).long(), max=r - 1)
+    zero = torch.zeros_like(p.x_lo)
+    moved = p.replace(
+        x_hi=torch.where(sel, rec.x[j] + u(-0.5, 0.5) * hx, p.x_hi),
+        x_lo=torch.where(sel, zero, p.x_lo),
+        y_hi=torch.where(sel, rec.y[j] + u(-0.5, 0.5) * hy, p.y_hi),
+        y_lo=torch.where(sel, zero, p.y_lo),
+        z=torch.where(sel, u(0.0, 100.0), p.z))
+    yield "at_receptors", reorder.reorder_by_cell(moved, z0.height, cfg)[0]
+
+
+def on_kernel_boundary(q, rec, itime: int, dx: float, dy: float):
+    """``q`` live at ``itime``, particle i at receptor i mod R, on or a
+    float inside the edge of its kernel by i mod 4: 0, x the first float
+    with x - rx at or beyond hx (y = ry, z = 0); 1, z = hz (x = rx, y =
+    ry); 2, x the float below case 0's; 3, z the float below hz."""
+    import torch
+    from flexpart_tpu_torch.grid import receptors as rc
+    n, dev = q.capacity, q.device
+    q = q.replace(active=torch.ones_like(q.active),
+                  itra=torch.full_like(q.itra, itime))
+    hx, _, hz = rc.kernel_widths(q, dx, dy)
+    i = torch.arange(n, device=dev)
+    j = i % rec.x.shape[0]
+    rx, ry = rec.x[j], rec.y[j]
+    x0 = rx + hx
+    x0 = torch.where(x0 - rx < hx, torch.nextafter(
+        x0, torch.full_like(x0, float("inf"))), x0)
+    kind = i % 4
+    down = torch.full_like(x0, float("-inf"))
+    x = torch.where(kind == 0, x0, torch.where(
+        kind == 2, torch.nextafter(x0, down), rx))
+    z = torch.where(kind == 1, hz, torch.where(
+        kind == 3, torch.nextafter(hz, torch.zeros_like(hz)),
+        torch.zeros_like(hz)))
+    zero = torch.zeros_like(x)
+    return q.replace(x_hi=x, x_lo=zero, y_hi=ry.clone(), y_lo=zero, z=z)
+
+
+def receptor_edge_inputs(p, rec, itime: int, dx: float, dy: float,
+                         device):
+    """K15's edge cases at K1516_EDGE_SIZES, slots drawn from the fill
+    case ``p``: as drawn; no live particle; every particle on the edge of
+    its receptor's kernel or a float inside it (on_kernel_boundary).
+    Yields (name, particles)."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(59)
+    for n in K1516_EDGE_SIZES:
+        idx = torch.randperm(p.capacity, generator=gen, device=device)[:n]
+        q = take_slots(p, idx)
+        yield f"n{n}_drawn", q
+        yield f"n{n}_no_live", q.replace(active=torch.zeros_like(q.active))
+        yield f"n{n}_boundary", on_kernel_boundary(q, rec, itime, dx, dy)
+
+
+def held_receptors(c0, rec, p, itime: int, dx: float, dy: float,
+                   what: str, cuda=None):
+    """K15 (``cuda``: its wrapper, sample_receptors_cuda unless given) and
+    its plain version on the same inputs, bitwise.  Returns the kernel's
+    result."""
+    import torch
+    from flexpart_tpu_torch.grid import receptors as rc
+    args = (c0, rec, p, itime, 1.0, dx, dy)
+    k = (cuda or rc.sample_receptors_cuda)(*args)
     pl = rc.sample_receptors_plain(*args)
     check(torch.equal(k.view(torch.int32), pl.view(torch.int32)),
-          f"K15: kernel and plain differ by {float((k - pl).abs().max())}")
-    seen = int((k[:, 0] > 0).sum())
-    check(seen >= r // 2, f"K15: {r - seen} of {r} receptors see nothing")
-    hx, hy, hz = rc.kernel_widths(p, grid.dx, grid.dy)
-    w = torch.stack([rc.receptor_weights(rec, p, itime, j, hx, hy, hz)
-                     for j in range(r)])
-    inside = int((w > 0).sum())
-    library_ms = cuda_ms(lambda: torch.mm(w, p.mass), 3)
-    del w
-    live = int(p.active.sum())
-    nbytes = n * (29 + 4 * p.nspec)
-    return dict(n=n, receptors=r, receptors_seeing_mass=seen,
-                pairs_inside=inside,
-                ms=cuda_ms(lambda: rc.sample_receptors_cuda(*args)),
-                plain_ms=cuda_ms(lambda: rc.sample_receptors_plain(*args), 2),
-                library_ms=library_ms, bitwise=True, max_abs_err=0.0,
-                **bound(nbytes, live * r * K15_OPS_PER_PAIR))
+          f"{what}: kernel and plain differ by {float((k - pl).abs().max())}")
+    return k
+
+
+def k15_bounds(p, rec, itime: int, dx: float, dy: float) -> dict:
+    """K15's least time on one call, by what the sampling needs: every
+    slot's active and itra, a live one's z, its itramem where |z| < HZMAX
+    (hz is at most HZMAX), a near one's (live, |z| < hz) x and y, hi and
+    lo, the mass of a particle inside some receptor's kernel, and each
+    block's partial of every (receptor, species) once; the operations of
+    K15_OPS_PER_PAIR for each pair past the gate (may_be_inside), which
+    must hold every pair inside.  ``bound_all_slots_ms``: the first K15's
+    bound, every slot charged 29 + 4 nspec B."""
+    import torch
+    from flexpart_tpu_torch.grid import receptors as rc
+    n, nspec, r = p.capacity, p.nspec, rec.x.shape[0]
+    live = p.active & (p.itra == itime)
+    hx, hy, hz = rc.kernel_widths(p, dx, dy)
+    low = live & (p.z.abs() < rc.HZMAX)
+    near = live & (p.z.abs() < hz)
+    hit = torch.zeros_like(live)
+    gated = inside = 0
+    for j in range(r):
+        gate = rc.may_be_inside(rec, p, itime, j, hx, hy, hz)
+        ins = live & (rc.receptor_r2(rec, p, j, hx, hy, hz) < 1.0)
+        check(not bool((ins & ~gate).any()),
+              f"K15 gate: receptor {j} drops a pair inside")
+        gated += int(gate.sum())
+        inside += int(ins.sum())
+        hit |= ins
+    blocks = max(-(-n // rc.THREADS), 1)
+    n_live = int(live.sum())
+    nbytes = (5 * n + 4 * n_live + 4 * int(low.sum()) + 16 * int(near.sum())
+              + 4 * nspec * int(hit.sum()) + 4 * r * nspec * blocks)
+    return dict(**bound(nbytes, gated * K15_OPS_PER_PAIR),
+                bound_all_slots_ms=bound(
+                    n * (29 + 4 * nspec),
+                    n_live * r * K15_OPS_PER_PAIR)["bound_ms"],
+                live=n_live, near=int(near.sum()), pairs_past_gate=gated,
+                pairs_inside=inside, particles_inside=int(hit.sum()))
+
+
+def kernel_receptors(device, grid) -> dict:
+    """K15 against its plain version, bitwise (both add in the same fixed
+    order), on receptor_inputs' cases (fill, surface, at_receptors) at the
+    32 receptors of the sim_domainfill phase; on the fill half the
+    receptors at least see some mass, at_receptors all of them.  ``ms``
+    (the fill case's, as every case's): device time, calls captured into a
+    CUDA graph and replayed; ``ms_with_host``: CUDA events around the
+    wrapper; ``per_launch``: the profiler's two launches.  Bounds by need
+    (k15_bounds).  Its library call: torch.mm of the (R, N) kernel weights,
+    made beforehand, by the mass (the product half of JAX's formulation),
+    by graphs too.  Then the edge cases (receptor_edge_inputs), bitwise,
+    untimed."""
+    import torch
+    from flexpart_tpu_torch.grid import receptors as rc
+    rec = df_receptors(grid, device)
+    r = rec.x.shape[0]
+    itime, dx, dy = K15_ITIME, grid.dx, grid.dy
+    cases = {}
+    fill = None
+    for name, p in receptor_inputs(device, grid):
+        c0 = torch.zeros((r, p.nspec), dtype=torch.float32, device=device)
+        args = (c0, rec, p, itime, 1.0, dx, dy)
+        k = held_receptors(c0, rec, p, itime, dx, dy, f"K15 {name}")
+        seen = int((k[:, 0] > 0).sum())
+        check(seen >= (r // 2 if name == "fill" else
+                       r if name == "at_receptors" else 0),
+              f"K15 {name}: {r - seen} of {r} receptors see nothing")
+        hx, hy, hz = rc.kernel_widths(p, dx, dy)
+        w = torch.stack([rc.receptor_weights(rec, p, itime, j, hx, hy, hz)
+                         for j in range(r)])
+        library_ms = cuda_graph_ms(lambda: torch.mm(w, p.mass), 10)
+        del w, hx, hy, hz
+        prof = profiled_in_place(lambda: p,
+                                 lambda q: rc.sample_receptors_cuda(
+                                     c0, rec, q, itime, 1.0, dx, dy))
+        cases[name] = dict(
+            n=p.capacity, receptors_seeing_mass=seen, bitwise=True,
+            max_abs_err=0.0,
+            ms=cuda_graph_ms(lambda: rc.sample_receptors_cuda(*args)),
+            ms_with_host=cuda_ms(lambda: rc.sample_receptors_cuda(*args)),
+            profiled_ms=prof["device_ms"],
+            launches_per_call=prof["launches_per_call"],
+            per_launch=prof["per_launch"],
+            plain_ms=cuda_ms(lambda: rc.sample_receptors_plain(*args), 2),
+            library_ms=library_ms,
+            **k15_bounds(p, rec, itime, dx, dy))
+        if name == "fill":
+            fill = p
+        del p
+    t0 = time.perf_counter()
+    edges = {}
+    for name, q in receptor_edge_inputs(fill, rec, itime, dx, dy, device):
+        c0 = torch.zeros((r, q.nspec), dtype=torch.float32, device=device)
+        k = held_receptors(c0, rec, q, itime, dx, dy, f"K15 edge {name}")
+        if name.endswith("no_live"):
+            check(not bool(k.any()), f"K15 edge {name}: {k}")
+        edges[name] = float(k.sum())
+    c = cases["fill"]
+    return dict(receptors=r, **{f: c[f] for f in (
+        "n", "receptors_seeing_mass", "pairs_inside", "ms", "ms_with_host",
+        "per_launch", "plain_ms", "library_ms", "bound_ms", "bound_by", "bound_bytes", "bound_operations",
+        "bound_all_slots_ms", "bitwise", "max_abs_err")}, cases=cases,
+        edge_cases_sum=edges, edge_cases_s=time.perf_counter() - t0)
 
 
 def df_flux_config(grid):
@@ -6844,13 +7026,12 @@ def df_flux_config(grid):
                       dx_met=grid.dx, dy_met=grid.dy, nx_met=grid.nx)
 
 
-def kernel_fluxes(device, grid) -> dict:
-    """K16 against the float64 sum of its pairs (and its plain version, to
-    the same rule) on the fill's 10 x 2**20 particles in cell order, each
+def flux_inputs(device, grid):
+    """K16's case: the fill's 10 x 2**20 particles in cell order, each
     moved in the step by up to 1.5 cells in x, 1 in y and 300 m in z, on
-    the sim_domainfill phase's 1-degree grid over the window.  Its library
-    call: index_add_ of its pairs (the scatter half)."""
-    import numpy as np
+    the sim_domainfill phase's 1-degree grid over the window.  Returns
+    calcfluxes' arguments after the flux: (particles, xold, yold, zold,
+    itime, lage, outheight, its half levels, config)."""
     import torch
     from flexpart_tpu_torch.core import reorder
     from flexpart_tpu_torch.grid import fluxes as fx
@@ -6870,37 +7051,119 @@ def kernel_fluxes(device, grid) -> dict:
     p = p.replace(x_hi=p.x_hi + u(-1.5, 1.5), y_hi=p.y_hi + u(-1.0, 1.0),
                   z=torch.clamp(p.z + u(-300.0, 300.0), min=0.0),
                   itra=torch.where(p.active, itime, p.itra))
-    fcfg = df_flux_config(grid)
     lage = torch.tensor([999999999], dtype=torch.int32, device=device)
     oh = torch.tensor(DF_HEIGHTS, dtype=torch.float32, device=device)
     ohh = torch.as_tensor(fx.half_levels(DF_HEIGHTS), device=device)
-    args = (p, xold, yold, zold, itime, lage, oh, ohh, fcfg)
-    fk = fx.zero_flux(fcfg, p.nspec, device)
+    return (p, xold, yold, zold, itime, lage, oh, ohh, df_flux_config(grid))
+
+
+def flux_edge_inputs(args, device):
+    """K16's edge cases at K1516_EDGE_SIZES, slots drawn from its case
+    (``args``: calcfluxes' arguments after the flux): as drawn; no live
+    particle.  Yields (name, arguments)."""
+    import torch
+    p, xold, yold, zold = args[:4]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(67)
+    for n in K1516_EDGE_SIZES:
+        idx = torch.randperm(p.capacity, generator=gen, device=device)[:n]
+        q = take_slots(p, idx)
+        old = tuple(v[idx].contiguous() for v in (xold, yold, zold))
+        yield f"n{n}_drawn", (q, *old, *args[4:])
+        yield f"n{n}_no_live", (q.replace(active=torch.zeros_like(q.active)),
+                                *old, *args[4:])
+
+
+def k16_bound(p, itime: int, per_release: bool, cells_hit: int) -> dict:
+    """K16's least time on one call, by what the step needs: every slot's
+    active and itra, a live one's x and y (hi and lo), z, the old x, y and
+    z, itramem, npoint (where the flux is per release) and mass, and each
+    flux row its crossings hit read and written once (8 nspec B), however
+    many crossings share it (K17's rule); the operations of
+    K16_OPS_PER_PARTICLE for each live particle."""
+    n_live = int((p.active & (p.itra == itime)).sum())
+    per_live = 36 + (4 if per_release else 0) + 4 * p.nspec
+    return bound(5 * p.capacity + n_live * per_live
+                 + cells_hit * 8 * p.nspec, n_live * K16_OPS_PER_PARTICLE)
+
+
+def held_fluxes(args, what: str, ioutputforeachrelease: bool = True,
+                cuda=None):
+    """K16 (``cuda``: its wrapper, calcfluxes_cuda unless given) and its
+    plain version on zero flux arrays, each against the float64 sum of the
+    pairs (flux_pairs; K8's rule), or both all zero where there is no
+    crossing.  Returns held_against_f64's numbers, the kernel's flux, the
+    pairs and their contributions."""
+    import torch
+    from flexpart_tpu_torch.grid import fluxes as fx
+    p, cfg = args[0], args[-1]
+    fk = fx.zero_flux(cfg, p.nspec, p.device)
     fp = torch.zeros_like(fk)
-    fx.calcfluxes_cuda(fk, *args)
-    fx.calcfluxes_plain(fp, *args)
-    idx, valid = fx.flux_pairs(p, xold, yold, zold, itime, lage, oh, ohh,
-                               fcfg)
+    (cuda or fx.calcfluxes_cuda)(fk, *args, ioutputforeachrelease)
+    fx.calcfluxes_plain(fp, *args, ioutputforeachrelease)
+    idx, valid = fx.flux_pairs(*args, ioutputforeachrelease)
     lin = idx[valid]
-    who = torch.nonzero(valid, as_tuple=True)[0]
-    contrib = p.mass[who]
-    del idx, valid, who
-    res = held_against_f64({"kernel": fk.view(-1, p.nspec),
-                            "plain": fp.view(-1, p.nspec)}, lin, contrib,
-                           K16_RTOL, "K16")
+    contrib = p.mass[torch.nonzero(valid, as_tuple=True)[0]]
+    del idx, valid
+    if lin.numel() == 0:
+        check(not bool(fk.any()) and not bool(fp.any()),
+              f"{what}: a crossing added where there is none")
+        res = dict(pairs=0, cells_hit=0, most_pairs_in_a_cell=0,
+                   max_abs_err=0.0)
+    else:
+        res = held_against_f64({"kernel": fk.view(-1, p.nspec),
+                                "plain": fp.view(-1, p.nspec)}, lin,
+                               contrib, K16_RTOL, what)
+    del fp
+    return res, fk, lin, contrib
+
+
+def kernel_fluxes(device, grid) -> dict:
+    """K16 against the float64 sum of its pairs (and its plain version, to
+    the same rule) on flux_inputs' case.  ``ms``: device time, calls (which
+    add into one flux array) captured into a CUDA graph and replayed;
+    ``ms_with_host``: CUDA events around the wrapper; ``per_launch``: by
+    the profiler.  Its bound by need (k16_bound: each flux row once) and
+    the first K16's (8 nspec B a crossing) beside it.  Its library call:
+    index_add_ of its pairs (the scatter half), by graphs too.  Then the
+    edge cases (flux_edge_inputs), untimed."""
+    import torch
+    from flexpart_tpu_torch.grid import fluxes as fx
+    args = flux_inputs(device, grid)
+    p, itime, fcfg = args[0], args[4], args[-1]
+    res, fk, lin, contrib = held_fluxes(args, "K16")
     flat_l = torch.zeros_like(fk).view(-1, p.nspec)
-    res["library_ms"] = cuda_ms(lambda: flat_l.index_add_(0, lin, contrib), 3)
+    res["library_ms"] = cuda_graph_ms(
+        lambda: flat_l.index_add_(0, lin, contrib), 10)
     res["faces"] = {f: float(fk[i].sum()) for i, f in enumerate(
         ("east", "west", "north", "south", "up", "down"))}
     check(all(v > 0 for v in res["faces"].values()),
           f"K16: a face direction is never crossed {res['faces']}")
-    nspec = p.nspec
-    nbytes = n * (45 + 4 * nspec) + res["pairs"] * 8 * nspec
+    nspec, n = p.nspec, p.capacity
     del flat_l, lin, contrib
+    prof = profiled_in_place(lambda: fk,
+                             lambda f: fx.calcfluxes_cuda(f, *args))
     res.update(n=n, grid=[6, 1, 1, fcfg.nzg, fcfg.nyg, fcfg.nxg, nspec],
-               ms=cuda_ms(lambda: fx.calcfluxes_cuda(fk, *args)),
-               plain_ms=cuda_ms(lambda: fx.calcfluxes_plain(fp, *args), 3),
-               **bound(nbytes, n * K16_OPS_PER_PARTICLE))
+               ms=cuda_graph_ms(lambda: fx.calcfluxes_cuda(fk, *args)),
+               ms_with_host=cuda_ms(lambda: fx.calcfluxes_cuda(fk, *args)),
+               profiled_ms=prof["device_ms"],
+               launches_per_call=prof["launches_per_call"],
+               per_launch=prof["per_launch"],
+               plain_ms=cuda_ms(lambda: fx.calcfluxes_plain(
+                   torch.zeros_like(fk), *args), 3),
+               bound_per_crossing_ms=bound(
+                   n * (45 + 4 * nspec) + res["pairs"] * 8 * nspec,
+                   n * K16_OPS_PER_PARTICLE)["bound_ms"],
+               **k16_bound(p, itime, True, res["cells_hit"]))
+    del fk
+    t0 = time.perf_counter()
+    edges = {}
+    for name, a in flux_edge_inputs(args, device):
+        r, _, _, _ = held_fluxes(a, f"K16 edge {name}")
+        if name.endswith("no_live"):
+            check(r["pairs"] == 0, f"K16 edge {name}: {r}")
+        edges[name] = r["pairs"]
+    res.update(edge_cases_pairs=edges, edge_cases_s=time.perf_counter() - t0)
     return res
 
 
@@ -7292,6 +7555,8 @@ def phase_sim_domainfill(device, kernels) -> dict:
     import shutil
     import torch
     from flexpart_tpu_torch.core import domainfill as df
+    from flexpart_tpu_torch.grid import fluxes as fx
+    from flexpart_tpu_torch.grid import receptors as rc
     try:
         import h5py  # noqa: F401
         netcdf = True
@@ -7339,10 +7604,15 @@ def phase_sim_domainfill(device, kernels) -> dict:
           f"sim_domainfill: {launches} launches in {nsteps} steps")
     device_ms, per_launch = per_launch_of(rows)
     calls = [c.tolist() for c in sim.boundary_counts]
-    # K14's least time per call (boundcond_call_bounds: the slots each
-    # call needs, its killed and new particles), counted in a third run,
-    # neither timed nor profiled and bitwise run B
+    # K14's, K15's and K16's least time per call (boundcond_call_bounds:
+    # the slots each call needs, its killed and new particles; k15_bounds;
+    # k16_bound: each flux row a call's crossings hit), counted in a third
+    # run, neither timed nor profiled and bitwise run B; K15 and K16 held
+    # there against their plain versions on every call's inputs (K15
+    # bitwise, K16 by K8's rule), each on copies of what it adds into
     bounds, inner = [], df.boundcond_cuda
+    rc_inner, fx_inner = rc.sample_receptors_cuda, fx.calcfluxes_cuda
+    held = {"receptors": [], "fluxes": []}
 
     def counting(p, *args):
         before = clone_particles(p)
@@ -7351,17 +7621,46 @@ def phase_sim_domainfill(device, kernels) -> dict:
         del before
         return out
 
+    def held_sampling(creceptor, rec, p, itime, weight, dx, dy):
+        what = f"sim_domainfill K15 call {len(held['receptors'])}"
+        held_receptors(torch.zeros_like(creceptor), rec, p, itime, dx, dy,
+                       what, rc_inner)
+        b = k15_bounds(p, rec, itime, dx, dy)
+        held["receptors"].append({f: b[f] for f in (
+            "bound_ms", "bound_by", "bound_all_slots_ms", "live", "near",
+            "pairs_past_gate", "pairs_inside")})
+        return rc_inner(creceptor, rec, p, itime, weight, dx, dy)
+
+    def held_fluxes_call(flux, p, *args):
+        what = f"sim_domainfill K16 call {len(held['fluxes'])}"
+        per_release = args[-1] if len(args) > 8 else True
+        r = held_fluxes((p, *args[:8]), what, per_release, fx_inner)[0]
+        held["fluxes"].append(dict(
+            **{f: r[f] for f in ("pairs", "cells_hit", "max_abs_err")},
+            **{f: v for f, v in k16_bound(p, args[3], per_release,
+                                          r["cells_hit"]).items()
+               if f in ("bound_ms", "bound_by")}))
+        return fx_inner(flux, p, *args)
+
     sim_c = setup("c")
     df.boundcond_cuda = counting
+    rc.sample_receptors_cuda = held_sampling
+    fx.calcfluxes_cuda = held_fluxes_call
     try:
         sim_c.run()
     finally:
         df.boundcond_cuda = inner
+        rc.sample_receptors_cuda = rc_inner
+        fx.calcfluxes_cuda = fx_inner
     check_same_bits(sim.particles, sim_c.particles,
                     "sim_domainfill: the counting run and run B")
     check(len(bounds) == nsteps + 1
           and [c.tolist() for c in sim_c.boundary_counts] == calls,
           f"sim_domainfill: {len(bounds)} calls counted")
+    check(len(held["receptors"]) == samplings
+          and len(held["fluxes"]) == nsteps,
+          f"sim_domainfill: K15 and K16 held on "
+          f"{len(held['receptors'])} and {len(held['fluxes'])} calls")
     del sim_c
     res = dict(
         n=N_MAIN, capacity=DF_CAPACITY, steps=nsteps, netcdf=netcdf, **a,
@@ -7371,6 +7670,11 @@ def phase_sim_domainfill(device, kernels) -> dict:
         domainfill_bound_sectors_ms_per_call=sum(
             b["bound_sectors_ms"] for b in bounds) / len(bounds),
         domainfill_killed_free_wanted_granted_per_call=calls,
+        receptors_held=held["receptors"], fluxes_held=held["fluxes"],
+        receptors_bound_ms_per_call=sum(
+            b["bound_ms"] for b in held["receptors"]) / samplings,
+        fluxes_bound_ms_per_call=sum(
+            b["bound_ms"] for b in held["fluxes"]) / nsteps,
         device_per_call={
             "advance": per_launch(("advance_kernel",), nsteps),
             "domainfill": per_launch(("boundary_",), nsteps + 1),
@@ -7378,6 +7682,9 @@ def phase_sim_domainfill(device, kernels) -> dict:
             # calls cudaMemsetAsync)
             "domainfill_memsets": per_launch(("Memset",), nsteps + 1),
             "receptors": per_launch(("receptor_",), samplings),
+            "receptors_partials": per_launch(("receptor_partials",),
+                                             samplings),
+            "receptors_reduce": per_launch(("receptor_reduce",), samplings),
             "fluxes": per_launch(("fluxes_kernel",), nsteps),
             "conccalc_both_grids": per_launch(
                 ("conccalc_kernel",), launches["conccalc"] + samplings),
@@ -8376,7 +8683,10 @@ def main() -> int:
                                   "most_pairs_in_a_cell", "grid",
                                   "kernel_max_rel_err_vs_f64", "faces",
                                   "ms_with_host", "bound_sectors_ms",
+                                  "per_launch", "bound_all_slots_ms",
+                                  "bound_per_crossing_ms",
                                   "edge_cases_killed_free_wanted_granted",
+                                  "edge_cases_sum", "edge_cases_pairs",
                                   "edge_cases_s")
                 if f in r},
              f"{path}_per_call": pres["device_per_call"][kname],
@@ -8390,7 +8700,17 @@ def main() -> int:
                  pres["domainfill_bound_sectors_ms_per_call"],
                  "sim_domainfill_memsets_per_call":
                  pres["device_per_call"]["domainfill_memsets"]}
-                if kname == "domainfill" else {})})
+                if kname == "domainfill" else {}),
+             # K15 and K16 per call of sim_domainfill's counting run: the
+             # bound by need, each call held against the plain version
+             **({"sim_domainfill_bound_ms_per_call":
+                 pres[f"{kname}_bound_ms_per_call"],
+                 "sim_domainfill_held": pres[f"{kname}_held"]}
+                if kname in ("receptors", "fluxes") else {}),
+             **({f"sim_domainfill_per_call_{part}":
+                 pres["device_per_call"][f"receptors_{part}"]
+                 for part in ("partials", "reduce")}
+                if kname == "receptors" else {})})
     line.append(
         {"name": "conccalc.nest", "route": "cuda",
          "source": src.format("conccalc"),

@@ -49,27 +49,28 @@
 // and a sum that is exactly 0 is not sent: the grid starts at +0 and only
 // ever receives non-negative terms, and g + 0 == g for every such g, so
 // skipping it changes no bit.  The row is matched on 32 bits, so the grid
-// may have at most MAX_ROWS rows; a larger one is refused.  The sums are
+// may have at most MAX_ROWS rows; a larger one is refused.  The groups'
+// and the table's helpers are in warp_groups.cuh, shared with K16 and K17.  The sums are
 // ordered by the atomics, differently in every run: the kernel agrees with
 // the float64 sum of its pairs to a relative tolerance, not bitwise.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "warp_groups.cuh"
+
 namespace {
+
+// the warp groups and the table (FULL, EMPTY, HASH, MAX_ROWS: K3's row
+// limit, group_sums, send, send_row, find_slot, flush_table)
+using namespace fp;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr unsigned FULL = 0xFFFFFFFFu;
-// K3's row limit; a row stays below EMPTY, the key of a lane without a
-// pair and of a free slot in a table
-constexpr long long MAX_ROWS = 0xFFFFFFFFll - 32;
-constexpr unsigned EMPTY = 0xFFFFFFFFu;
 constexpr int MAX_SPECIES = 32;
 // a warp's table takes about TABLE_BYTES of shared memory, and at least
 // MIN_SLOTS slots (a power of two)
 constexpr int TABLE_BYTES = 3072;
 constexpr int MIN_SLOTS = 64;
-constexpr unsigned HASH = 0x9E3779B1u;
 // resident blocks per SM that the registers must allow: 40 registers (at
 // 32 the kernel spills)
 constexpr int MIN_BLOCKS = 6;
@@ -97,75 +98,6 @@ struct PIn {
   const float* deposit;   // (nspec, n)
   const int* lage;
 };
-
-// The sums of a and b over the lanes of `peers` on the group's first lane,
-// by pointer jumping along the group's lanes: each lane adds the partial
-// sums of the next member and takes that member's next, so that after
-// ceil(log2(most)) rounds every lane holds the sum from itself to the
-// group's end.  `most` is the size of the warp's largest group.  All 32
-// lanes call.
-__device__ __forceinline__ void group_sums(unsigned peers, int most,
-                                           unsigned lane, float& a, float& b) {
-  const unsigned after = peers & ~((2u << lane) - 1u);
-  int next = after ? __ffs(after) - 1 : 32;   // 32: the group's last lane
-  for (int span = 1; span < most; span *= 2) {
-    const int from = next < 32 ? next : static_cast<int>(lane);
-    const float oa = __shfl_sync(FULL, a, from);
-    const float ob = __shfl_sync(FULL, b, from);
-    const int on = __shfl_sync(FULL, next, from);
-    if (next < 32) {
-      a += oa;
-      b += ob;
-      next = on;
-    }
-  }
-}
-
-// Add the sums a (species s) and, where step is 2, b (species s + 1) of
-// a row into the grid, skipping every exact zero: one float2 atomic where
-// both are non-zero.
-__device__ __forceinline__ void send(float* g, int step, float a, float b) {
-  if (step == 2 && a != 0.0f && b != 0.0f)
-    atomicAdd(reinterpret_cast<float2*>(g), make_float2(a, b));
-  else {
-    if (a != 0.0f) atomicAdd(g, a);
-    if (step == 2 && b != 0.0f) atomicAdd(g + 1, b);
-  }
-}
-
-__device__ void send_row(float* grid, unsigned row, const float* v,
-                         const Cfg& c) {
-  float* g = grid + static_cast<long long>(row) * c.nspec;
-  for (int s = 0; s < c.nspec; s += c.step)
-    send(g + s, c.step, v[s], c.step == 2 ? v[s + 1] : 0.0f);
-}
-
-// The slot of `row` in a table, or -1.  The table is never full.
-__device__ __forceinline__ int find_slot(const unsigned* keys, const Cfg& c,
-                                         unsigned row) {
-  int h = static_cast<int>((row * HASH) >> c.shift);
-  for (;;) {
-    const unsigned k = keys[h];
-    if (k == row) return h;
-    if (k == EMPTY) return -1;
-    h = (h + 1) & (c.slots - 1);
-  }
-}
-
-// The warp sends its table to the grid and empties it.  All 32 lanes call.
-__device__ __forceinline__ void flush_table(unsigned* keys, float* vals,
-                                            const Cfg& c, float* grid,
-                                            unsigned lane) {
-  for (int i = lane; i < c.slots; i += 32) {
-    const unsigned key = keys[i];
-    if (key == EMPTY) continue;
-    float* v = vals + i * c.nspec;
-    send_row(grid, key, v, c);
-    for (int s = 0; s < c.nspec; ++s) v[s] = 0.0f;
-    keys[i] = EMPTY;
-  }
-  __syncwarp();
-}
 
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 depo_grid_kernel(const PIn in, const Cfg c, float* __restrict__ grid) {

@@ -50,8 +50,9 @@
 // not sent (g + 0 == g).  A block whose warps used no table, as on a call
 // whose mask is empty, ends without reading shared memory.  The row is
 // matched on 32 bits, so the grid has at most MAX_ROWS rows; a larger one
-// is refused.  The helpers are K8's, copied (group_sums, send, find_slot,
-// flush_table), with the species of a particle in a row of its mass.
+// is refused.  The helpers are K8's, from warp_groups.cuh (group_sums,
+// send, send_row, find_slot, flush_table), with the species of a particle
+// in a row of its mass.
 //
 // The launch plan (blocks, the span of a warp, the table's slots) is made
 // by the wrapper (grid/initcond.py::k17_plan) from this file's constants.
@@ -63,24 +64,24 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "warp_groups.cuh"
+
 namespace {
+
+// K8's warp groups and table (FULL, EMPTY, HASH, MAX_ROWS, group_sums,
+// send, send_row, find_slot, flush_table)
+using namespace fp;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int MAX_LEVELS = 64;
 constexpr int MAX_MET_LEVELS = 256;
 constexpr float BIG = 1073741824.0f;      // 2**30: floats clamped before a cast
-// a row stays below EMPTY, the key of a lane without a pair and of a free
-// slot in a table
-constexpr long long MAX_ROWS = 0xFFFFFFFFll - 32;
-constexpr unsigned EMPTY = 0xFFFFFFFFu;
 constexpr int MAX_SPECIES = 32;
 // a warp's table takes about TABLE_BYTES of shared memory, and at least
 // MIN_SLOTS slots (a power of two)
 constexpr int TABLE_BYTES = 3072;
 constexpr int MIN_SLOTS = 64;
-constexpr unsigned HASH = 0x9E3779B1u;
 // resident blocks per SM that the registers must allow (64 registers)
 constexpr int MIN_BLOCKS = 4;
 // slots whose mask a warp reads in a round: four bytes a lane; it loads
@@ -129,71 +130,6 @@ __device__ __forceinline__ long long floor_int(float v) {
 
 __device__ __forceinline__ float clamp01(float v) {
   return fminf(fmaxf(v, 0.0f), 1.0f);
-}
-
-// The sums of a and b over the lanes of `peers` on the group's first lane,
-// by pointer jumping along the group's lanes (K8's group_sums).  `most` is
-// the size of the warp's largest group.  All 32 lanes call.
-__device__ __forceinline__ void group_sums(unsigned peers, int most,
-                                           unsigned lane, float& a, float& b) {
-  const unsigned after = peers & ~((2u << lane) - 1u);
-  int next = after ? __ffs(after) - 1 : 32;   // 32: the group's last lane
-  for (int span = 1; span < most; span *= 2) {
-    const int from = next < 32 ? next : static_cast<int>(lane);
-    const float oa = __shfl_sync(FULL, a, from);
-    const float ob = __shfl_sync(FULL, b, from);
-    const int on = __shfl_sync(FULL, next, from);
-    if (next < 32) {
-      a += oa;
-      b += ob;
-      next = on;
-    }
-  }
-}
-
-// Add the sums a (species s) and, where step is 2, b (species s + 1) of
-// a row into the grid, skipping every exact zero.
-__device__ __forceinline__ void send(float* g, int step, float a, float b) {
-  if (step == 2 && a != 0.0f && b != 0.0f)
-    atomicAdd(reinterpret_cast<float2*>(g), make_float2(a, b));
-  else {
-    if (a != 0.0f) atomicAdd(g, a);
-    if (step == 2 && b != 0.0f) atomicAdd(g + 1, b);
-  }
-}
-
-__device__ void send_row(float* grid, unsigned row, const float* v,
-                         const Plan& c) {
-  float* g = grid + static_cast<long long>(row) * c.nspec;
-  for (int s = 0; s < c.nspec; s += c.step)
-    send(g + s, c.step, v[s], c.step == 2 ? v[s + 1] : 0.0f);
-}
-
-// The slot of `row` in a table, or -1.  The table is never full.
-__device__ __forceinline__ int find_slot(const unsigned* keys, const Plan& c,
-                                         unsigned row) {
-  int h = static_cast<int>((row * HASH) >> c.shift);
-  for (;;) {
-    const unsigned k = keys[h];
-    if (k == row) return h;
-    if (k == EMPTY) return -1;
-    h = (h + 1) & (c.slots - 1);
-  }
-}
-
-// The warp sends its table to the grid and empties it.  All 32 lanes call.
-__device__ __forceinline__ void flush_table(unsigned* keys, float* vals,
-                                            const Plan& c, float* grid,
-                                            unsigned lane) {
-  for (int i = lane; i < c.slots; i += 32) {
-    const unsigned key = keys[i];
-    if (key == EMPTY) continue;
-    float* v = vals + i * c.nspec;
-    send_row(grid, key, v, c);
-    for (int s = 0; s < c.nspec; ++s) v[s] = 0.0f;
-    keys[i] = EMPTY;
-  }
-  __syncwarp();
 }
 
 // The first row of particle k's output cell (its release, its layer) and

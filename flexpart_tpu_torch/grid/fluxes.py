@@ -9,11 +9,14 @@ particle (a particle moves a few output cells per sync step at most);
 ``flux_pairs`` names each particle's candidates and their validity.
 
 The scatter-add is kernel K16 (``csrc/fluxes.cu``: one thread per
-particle, a float atomic per crossing, every index masked before it is
-used) on CUDA tensors and ``calcfluxes_plain`` (``index_add_`` of the
-valid pairs) on CPU tensors; ``calcfluxes`` picks by device.  Both add into
-``flux`` in place (JAX returns a new array).  Float atomics add in another
-order on every run: K16 is held against the float64 sum of its pairs.
+particle, every index masked before it is used, the crossings of a warp
+grouped by flux row and each group's sum sent by one float atomic) on CUDA
+tensors and ``calcfluxes_plain`` (``index_add_`` of the valid pairs) on
+CPU tensors; ``calcfluxes`` picks by device.  Both add into ``flux`` in
+place (JAX returns a new array).  Float atomics add in another order on
+every run: K16 is held against the float64 sum of its pairs.  K16 matches
+rows on 32 bits, so it refuses a flux array of more than
+``K16_MAX_ROWS`` rows, as K3, K8 and K17 refuse their grids.
 
 The old positions are the particles' before the advance, taken after the
 step's sort (a snapshot taken before a sort belongs to other slots).
@@ -32,6 +35,7 @@ from ..core.state import Particles
 
 MAX_SPAN = 6   # max output-cell faces crossed per step per direction
 _BIG = float(2 ** 30)   # float bound before an int cast (XLA saturates)
+K16_MAX_ROWS = 0xFFFFFFFF - 32     # MAX_ROWS of csrc/warp_groups.cuh
 
 
 class FluxConfig(NamedTuple):
@@ -47,6 +51,12 @@ class FluxConfig(NamedTuple):
     dx_met: float
     dy_met: float
     nx_met: int
+
+
+def flux_rows(cfg: FluxConfig) -> int:
+    """The rows of ``flux.view(-1, nspec)``: 6 faces x nage x npointspec x
+    nzg x nyg x nxg."""
+    return 6 * cfg.nage * cfg.npointspec * cfg.nzg * cfg.nyg * cfg.nxg
 
 
 def zero_flux(cfg: FluxConfig, nspec: int, device="cpu") -> torch.Tensor:
@@ -163,6 +173,10 @@ def calcfluxes_cuda(flux: torch.Tensor, p: Particles, xold, yold, zold,
                     ohhalf: torch.Tensor, cfg: FluxConfig,
                     ioutputforeachrelease: bool = True) -> None:
     """K16 launch: add the step's crossings into ``flux`` in place."""
+    if flux_rows(cfg) > K16_MAX_ROWS:
+        raise ValueError(f"K16 matches flux rows by a 32-bit index: "
+                         f"{flux_rows(cfg)} rows exceed K16_MAX_ROWS = "
+                         f"{K16_MAX_ROWS}")
     dev = flux.device
     n = p.capacity
     f32, i32 = torch.float32, torch.int32

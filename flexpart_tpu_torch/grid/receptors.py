@@ -16,6 +16,11 @@ second launch, 256 threads each adding every 256th partial in block order
 and a shared-memory tree over the 256.  The twin adds in exactly that
 order, so the two agree bit for bit; both differ from JAX's product by
 rounding only.
+
+K15 divides only where a pair can be inside: ``may_be_inside`` is its gate
+in torch (live, |z| < hz, |x - rx| < |hx|, |y - ry| < |hy|, each with the
+float difference the division takes), which no inside pair fails, because
+a quotient of magnitude at least 1 makes r2 at least 1 after rounding.
 """
 
 from __future__ import annotations
@@ -97,18 +102,36 @@ def kernel_widths(p: Particles, dx: float, dy: float):
     return hx, hy, hz
 
 
+def receptor_r2(rec: ReceptorSet, p: Particles, r: int, hx, hy,
+                hz) -> torch.Tensor:
+    """(N,) r2 = ((x - rx) / hx)**2 + ((y - ry) / hy)**2 + (z / hz)**2 of
+    each particle at receptor ``r``: inside where r2 < 1."""
+    zd = p.z / hz
+    xd = (p.x - rec.x[r]) / hx
+    yd = (p.y - rec.y[r]) / hy
+    return xd * xd + yd * yd + zd * zd
+
+
 def receptor_weights(rec: ReceptorSet, p: Particles, itime: int, r: int,
                      hx, hy, hz) -> torch.Tensor:
     """(N,) the kernel weight of each particle at receptor ``r``: 0 where
     it is not live or not inside."""
     live = p.active & (p.itra == itime)
-    zd = p.z / hz
-    xd = (p.x - rec.x[r]) / hx
-    yd = (p.y - rec.y[r]) / hy
-    r2 = xd * xd + yd * yd + zd * zd
+    r2 = receptor_r2(rec, p, r, hx, hy, hz)
     inside = (r2 < 1.0) & live
     xkern = EPANECHNIKOV * (1.0 - r2) / (hx * hy * hz)
     return torch.where(inside, xkern, torch.zeros_like(xkern))
+
+
+def may_be_inside(rec: ReceptorSet, p: Particles, itime: int, r: int, hx,
+                  hy, hz) -> torch.Tensor:
+    """(N,) K15's gate at receptor ``r``: False where the pair cannot be
+    inside, so the kernel skips its divisions.  |x - rx| >= |hx| (the float
+    difference) gives |fl((x - rx) / hx)| >= 1, so r2 >= 1, and so do y
+    against hy and |z| >= hz; a NaN fails every test, as it fails r2 < 1."""
+    live = p.active & (p.itra == itime)
+    return (live & (p.z.abs() < hz) & ((p.x - rec.x[r]).abs() < hx.abs())
+            & ((p.y - rec.y[r]).abs() < hy.abs()))
 
 
 def ordered_sum(v: torch.Tensor) -> torch.Tensor:

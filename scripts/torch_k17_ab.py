@@ -3,11 +3,13 @@
 built from another source file, on the same inputs, in one process on one
 CUDA card:
 
-    python3 scripts/torch_k17_ab.py OTHER.cu [--waves W,...]
+    python3 scripts/torch_k17_ab.py OTHER.cu [--waves W,...] [--other-plan]
 
 OTHER.cu exports ``fp_initcond`` with the arguments of the first K17 (one
 thread per particle: no launch plan after the grid), e.g. ``git show
-<commit>:flexpart_tpu_torch/csrc/initcond.cu > build/k17_old/initcond.cu``.
+<commit>:flexpart_tpu_torch/csrc/initcond.cu > build/k17_old/initcond.cu``;
+with ``--other-plan``, with this checkout's arguments (the launch plan
+after the grid: a later K17, launched through this checkout's wrapper).
 The inputs are those of ``chip_smoke.py``: the kernels phase's cases (10 x
 2**20 deposition particles in cell order, a tenth masked, all, and a tenth
 moved into a plume of 120 cells) and every K17 call of the
@@ -54,6 +56,7 @@ def main() -> int:
         at = argv.index("--waves")
         waves = [int(w) for w in argv[at + 1].split(",")]
         del argv[at:at + 2]
+    other_plan = "--other-plan" in argv
     args = [a for a in argv if not a.startswith("--")]
     if len(args) != 1 or not torch.cuda.is_available():
         raise SystemExit(__doc__)
@@ -62,8 +65,9 @@ def main() -> int:
     other_src = Path(args[0]).resolve()
     this = _build.INITCOND
     # the first K17's arguments: this one's without the plan's three ints
-    other = kernel_ab.source_kernel(this, other_src,
-                                    this.argtypes[:-4] + this.argtypes[-1:])
+    other = kernel_ab.source_kernel(
+        this, other_src,
+        None if other_plan else this.argtypes[:-4] + this.argtypes[-1:])
     _build.build_all([this, other])
     device = torch.device("cuda", 0)
     smi = cs.nvidia_smi_line()
@@ -77,8 +81,9 @@ def main() -> int:
             finally:
                 ic.k17_plan = plan
             return
-        if name == "this":
-            with kernel_ab.swapped("INITCOND", this):
+        if name == "this" or other_plan:
+            with kernel_ab.swapped("INITCOND",
+                                   this if name == "this" else other):
                 ic.initcond_cuda(grid, p, mask, zf, oh, cfg)
             return
         # the older launcher: initcond_cuda's arguments without the plan

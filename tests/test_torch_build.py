@@ -538,8 +538,10 @@ def test_depo_scatter_rows_corners_and_limits_match_the_wrapper():
     corners and weights in its order, and takes at most the wrapper's
     ``MAX_SPECIES`` species (its tables in shared memory hold nspec values
     a row); the key of a free slot and of a lane without a pair lies above
-    every row."""
-    text = _strip_comments(_build.DEPO_SCATTER.source.read_text())
+    every row.  The row limit and the keys are in ``warp_groups.cuh``, the
+    header that K8, K16 and K17 include."""
+    assert _build.CSRC / "warp_groups.cuh" in _build.DEPO_SCATTER.sources()
+    text = _all_sources(_build.DEPO_SCATTER)
     assert "__match_any_sync(FULL, valid ? row : EMPTY)" in text
     assert "const unsigned row = static_cast<unsigned>(lin);" in text
     m = re.search(r"MAX_ROWS = (0x[0-9A-F]+)ll - (\d+);", text)
@@ -1117,7 +1119,15 @@ def test_boundary_receptor_flux_constants_match_the_sources():
     assert int(const("receptors", "REDUCE_THREADS")) == receptors.THREADS
     assert float(const("receptors", "EPANECHNIKOV").rstrip("f")) \
         == receptors.EPANECHNIKOV
+    assert float(const("receptors", "HZMAX").rstrip("f")) \
+        == receptors.HZMAX
     assert int(const("fluxes", "MAX_SPAN")) == fluxes.MAX_SPAN
+    # K16 groups the lanes of a warp by their 32-bit flux row, K8's helpers
+    flux_text = _all_sources(_build.FLUXES)
+    assert _build.CSRC / "warp_groups.cuh" in _build.FLUXES.sources()
+    assert "__match_any_sync(FULL, valid ? row : EMPTY)" in flux_text
+    m = re.search(r"MAX_ROWS = (0x[0-9A-F]+)ll - (\d+);", flux_text)
+    assert int(m.group(1), 16) - int(m.group(2)) == fluxes.K16_MAX_ROWS
 
 
 def test_k11_cbl_blocks_and_pass_rows_match_the_source():
@@ -1250,7 +1260,9 @@ def test_k17_plan_matches_the_source():
     species and row limits refused by the wrapper as by the launcher; the
     plan covers every slot."""
     from flexpart_tpu_torch.grid import initcond as ic
-    text = _strip_comments(_build.INITCOND.source.read_text())
+    # the row limit and the warp groups from warp_groups.cuh
+    assert _build.CSRC / "warp_groups.cuh" in _build.INITCOND.sources()
+    text = _all_sources(_build.INITCOND)
 
     def const(name):
         return int(re.search(r"constexpr int %s = (\d+);" % name, text)[1])

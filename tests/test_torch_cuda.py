@@ -545,3 +545,66 @@ def test_k14_edge_cases_equal_the_plain_version(card, boundcond_case, n):
             seen += 1
     torch.cuda.synchronize()
     assert seen == 5
+
+
+K1516_EDGE_SIZES = (1, 31, 33, 2 ** 20 + 1)
+
+
+@pytest.fixture(scope="module")
+def receptor_case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K15 has no CPU mode")
+    cs = _chip_smoke()
+    from flexpart_tpu_torch.met.synthetic import make_grid
+    device = torch.device("cuda")
+    grid = make_grid(**cs.BENCH_GRID)
+    fill = next(cs.receptor_inputs(device, grid))[1]
+    return fill, cs.df_receptors(grid, device), grid
+
+
+@pytest.mark.parametrize("n", K1516_EDGE_SIZES)
+def test_k15_edge_cases_equal_the_plain_version(card, receptor_case, n):
+    """K15 on slots drawn from chip_smoke.py's fill case (its 32
+    receptors): as drawn; no live particle (every sum +0); every particle
+    on the edge of its receptor's kernel (|x - rx| at hx, |z| = hz) or a
+    float inside it.  Bitwise (chip_smoke.held_receptors)."""
+    cs = _chip_smoke()
+    p, rec, grid = receptor_case
+    seen = 0
+    for name, q in cs.receptor_edge_inputs(p, rec, cs.K15_ITIME, grid.dx,
+                                           grid.dy, card):
+        if name.startswith(f"n{n}_"):
+            c0 = torch.zeros((rec.x.shape[0], q.nspec), device=card)
+            k = cs.held_receptors(c0, rec, q, cs.K15_ITIME, grid.dx,
+                                  grid.dy, f"K15 {name}")
+            if name.endswith("no_live"):
+                assert not bool(k.any()), name
+            seen += 1
+    torch.cuda.synchronize()
+    assert seen == 3
+
+
+@pytest.fixture(scope="module")
+def flux_case():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K16 has no CPU mode")
+    cs = _chip_smoke()
+    from flexpart_tpu_torch.met.synthetic import make_grid
+    return cs.flux_inputs(torch.device("cuda"), make_grid(**cs.BENCH_GRID))
+
+
+@pytest.mark.parametrize("n", K1516_EDGE_SIZES)
+def test_k16_edge_cases_hold_k8s_rule(card, flux_case, n):
+    """K16 on slots drawn from chip_smoke.py's flux case: as drawn, and
+    with no live particle (nothing added).  Against the float64 sum of the
+    pairs by K8's rule, as its plain version (chip_smoke.held_fluxes)."""
+    cs = _chip_smoke()
+    seen = 0
+    for name, a in cs.flux_edge_inputs(flux_case, card):
+        if name.startswith(f"n{n}_"):
+            r = cs.held_fluxes(a, f"K16 {name}")[0]
+            if name.endswith("no_live"):
+                assert r["pairs"] == 0, name
+            seen += 1
+    torch.cuda.synchronize()
+    assert seen == 2

@@ -207,3 +207,39 @@ def test_fluxes_in_simulation_equal_jax(jax_run, port_run):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-3 * b.max())
     # SyntheticMet's westerlies: every face but the west one is crossed
     assert crossed[0] > crossed[1] and (np.delete(crossed, 1) > 0).all()
+
+
+def test_flux_rows_above_the_limit_are_refused_by_name():
+    """K16 matches flux rows on 32 bits (csrc/warp_groups.cuh's MAX_ROWS,
+    K3's, K8's and K17's limit): its wrapper refuses a flux array of more
+    rows by name before it touches the card; one at the limit passes that
+    check."""
+    import re
+    from flexpart_tpu_torch import _build
+    text = (_build.CSRC / "warp_groups.cuh").read_text()
+    m = re.search(r"MAX_ROWS = (0x[0-9A-F]+)ll - (\d+);", text)
+    assert int(m.group(1), 16) - int(m.group(2)) == tflux.K16_MAX_ROWS \
+        == 2 ** 32 - 33
+    assert "MAX_ROWS" in _build.FLUXES.source.read_text()
+    big = _flux_config(tflux)._replace(nxg=7200, nyg=3600, nzg=30)
+    assert tflux.flux_rows(big) > tflux.K16_MAX_ROWS
+    pop, xold, yold, zold = _pairs(64, 5, 10800)
+    p = interop.particles_from_numpy(pop, "cpu")
+    lage = torch.as_tensor(np.asarray([3600, 7200], np.int32))
+    oh = torch.as_tensor(np.asarray(HEIGHTS, np.float32))
+    ohh = torch.as_tensor(tflux.half_levels(HEIGHTS))
+    with pytest.raises(ValueError, match="K16_MAX_ROWS"):
+        tflux.calcfluxes_cuda(torch.zeros(1), p, torch.as_tensor(xold),
+                              torch.as_tensor(yold), torch.as_tensor(zold),
+                              10800, lage, oh, ohh, big)
+    # at the limit the row check passes: the wrapper then refuses the
+    # placeholder flux array, not the rows
+    edge = big._replace(nxg=1, nyg=1, nzg=1, npointspec=1,
+                        nage=tflux.K16_MAX_ROWS // 6)
+    assert tflux.flux_rows(edge) <= tflux.K16_MAX_ROWS
+    with pytest.raises(ValueError, match="flux does not match") as err:
+        tflux.calcfluxes_cuda(torch.zeros(1), p, torch.as_tensor(xold),
+                              torch.as_tensor(yold), torch.as_tensor(zold),
+                              10800, lage, oh, ohh, edge)
+    assert "K16_MAX_ROWS" not in str(err.value)
+

@@ -241,3 +241,142 @@ def test_nested_output_equals_jax(jax_run, port_run):
                                    (jc * vol).sum(), rtol=1e-5)
         err = np.abs(t["conc"] - jc) - 1e-5 * np.abs(jc)
         assert err.max() <= 0.03 * jc.max()
+
+
+GATE_N = 4096
+
+
+def _steps(v, k):
+    """v moved k floats (float32) up (k > 0) or down, elementwise."""
+    v = v.astype(np.float32)
+    for i in range(int(np.abs(k).max(initial=0))):
+        go = np.abs(k) > i
+        v = np.where(go, np.nextafter(v, np.where(k > 0, np.inf, -np.inf)
+                                      .astype(np.float32)), v)
+    return v.astype(np.float32)
+
+
+def _gate_particles(kind, seed):
+    """GATE_N live particles, particle i at receptor i mod 2 of RECEPTORS
+    (in grid units), on and around the edges of its kernel: ``x``, ``y``:
+    x - rx (y - ry) within 4 floats of +-hx (+-hy), the other two
+    coordinates at the centre or a random share of the way out; ``z``: z
+    within 4 floats of +-hz; ``corner``: the three quotients on a sphere of
+    radius 1 +- 1e-6; ``special``: NaN, +-0, +-inf and exact edges in each
+    coordinate.  Returns (particles, receptor set, receptor of each)."""
+    grid = make_grid(**GRID)
+    rec, _ = trec.build_receptors(_receptors(tconfig), grid)
+    rs = np.random.default_rng(seed)
+    n, f32 = GATE_N, np.float32
+    pop = _particles(n, 1, seed, 10800)
+    pop.update(active=np.ones(n, bool), itra=np.full(n, 10800, np.int32),
+               x_lo=np.zeros(n, f32), y_lo=np.zeros(n, f32))
+    p = interop.particles_from_numpy(pop, "cpu")
+    hx, hy, hz = (t.numpy() for t in trec.kernel_widths(p, grid.dx, grid.dy))
+    j = np.arange(n) % 2
+    rx, ry = rec.x.numpy()[j], rec.y.numpy()[j]
+    side = np.where(rs.random(n) < 0.5, -1.0, 1.0).astype(f32)
+    ulps = rs.integers(-4, 5, n)
+    share = rs.random(n).astype(f32) * (rs.random(n) < 0.5)
+    x, y, z = rx.copy(), ry.copy(), np.zeros(n, f32)
+    if kind == "x":
+        x = _steps((rx + side * hx).astype(f32), ulps)
+        y = (ry + share * hy * side).astype(f32)
+        z = (share * hz).astype(f32)
+    elif kind == "y":
+        y = _steps((ry + side * hy).astype(f32), ulps)
+        x = (rx + share * hx).astype(f32)
+    elif kind == "z":
+        z = _steps((side * hz).astype(f32), ulps)
+        x = (rx + share * hx * side).astype(f32)
+    elif kind == "corner":
+        u = rs.normal(size=(3, n))
+        u *= (1.0 + rs.uniform(-1e-6, 1e-6, n)) / np.linalg.norm(u, axis=0)
+        x = (rx + u[0] * hx).astype(f32)
+        y = (ry + u[1] * hy).astype(f32)
+        z = (u[2] * hz).astype(f32)
+    else:
+        picks = np.array([np.nan, 0.0, -0.0, np.inf, -np.inf, 1.0], f32)
+        c = rs.integers(0, len(picks), (3, n))
+        x = np.where(c[0] == 5, rx + hx, rx + picks[c[0]] * (c[0] > 2))
+        x = np.where(c[0] == 0, np.nan, x).astype(f32)
+        y = np.where(c[1] == 5, ry - hy, ry + picks[c[1]] * (c[1] > 2))
+        y = np.where(c[1] == 0, np.nan, y).astype(f32)
+        z = np.where(c[2] == 5, hz, picks[c[2]]).astype(f32)
+    pop.update(x_hi=x, y_hi=y, z=z)
+    return interop.particles_from_numpy(pop, "cpu"), rec, j
+
+
+@pytest.mark.parametrize("kind", ["x", "y", "z", "corner", "special"])
+def test_gate_drops_no_inside_pair(kind):
+    """K15 divides only where ``may_be_inside`` holds: every pair inside
+    (r2 < 1, float32 on the CPU, as the kernel computes it) passes the
+    gate, elementwise, on particles a few floats either side of each edge
+    of the kernel, and NaN, +-0 and +-inf."""
+    p, rec, j = _gate_particles(kind, {"x": 1, "y": 2, "z": 3, "corner": 4,
+                                       "special": 5}[kind])
+    grid = make_grid(**GRID)
+    hx, hy, hz = trec.kernel_widths(p, grid.dx, grid.dy)
+    own = torch.as_tensor(j)
+    for r in range(2):
+        r2 = trec.receptor_r2(rec, p, r, hx, hy, hz)
+        inside = (r2 < 1.0) & p.active
+        gate = trec.may_be_inside(rec, p, 10800, r, hx, hy, hz)
+        assert not bool((inside & ~gate).any()), (kind, r)
+        assert bool((gate & ~inside).any()) or kind == "special", (kind, r)
+        mine = own == r
+        assert bool((inside & mine).any()), (kind, r)
+        if kind in ("x", "y", "z"):
+            # the edge itself is crossed: pairs on both sides of it
+            assert bool((~inside & mine).any()), (kind, r)
+
+
+def _warp_box_reach(p, rec, itime, hx, hy, hz):
+    """(warps, R) csrc/receptors.cu's box test, float32 on the CPU: the
+    near lanes' x and y extents (a NaN left out, as fminf / fmaxf leave
+    it), their widest |hx| and |hy|, against each receptor."""
+    n = p.capacity
+    w = -(-n // 32) * 32
+    live = p.active & (p.itra == itime)
+    near = live & (p.z.abs() < hz)
+    inf = torch.tensor(float("inf"))
+
+    def lanes(v, fill):
+        out = torch.full((w,), float(fill), dtype=torch.float32)
+        out[:n] = torch.where(near & ~torch.isnan(v), v, fill)
+        return out.view(-1, 32)
+
+    x, y = p.x, p.y
+    xmin, xmax = lanes(x, inf).amin(1), lanes(x, -inf).amax(1)
+    ymin, ymax = lanes(y, inf).amin(1), lanes(y, -inf).amax(1)
+    hxm, hym = lanes(hx.abs(), 0.0).amax(1), lanes(hy.abs(), 0.0).amax(1)
+    reach = [(xmin - rec.x[r] < hxm) & (xmax - rec.x[r] > -hxm)
+             & (ymin - rec.y[r] < hym) & (ymax - rec.y[r] > -hym)
+             for r in range(rec.x.shape[0])]
+    return torch.stack(reach, dim=1)
+
+
+@pytest.mark.parametrize("kind", ["x", "corner", "special", "spread"])
+def test_warp_box_keeps_every_candidate(kind):
+    """K15's warp box (csrc/receptors.cu) passes every (warp, receptor)
+    with a lane past the gate: fl(x - rx) is monotone in x, so a box whose
+    nearest edge is at least the widest half width away holds no
+    candidate.  On the gate cases' particles in warps of 32, grouped by
+    receptor (as cell order groups them), and shuffled (``spread``: the
+    ``x`` case's particles in random order)."""
+    p, rec, j = _gate_particles("x" if kind == "spread" else kind, 7)
+    order = (np.random.default_rng(8).permutation(GATE_N) if kind == "spread"
+             else np.argsort(j, kind="stable"))
+    perm = torch.as_tensor(order)
+    p = p.replace(**{f: getattr(p, f)[perm] for f in ("x_hi", "y_hi", "z",
+                                                      "itramem")})
+    grid = make_grid(**GRID)
+    hx, hy, hz = trec.kernel_widths(p, grid.dx, grid.dy)
+    reach = _warp_box_reach(p, rec, 10800, hx, hy, hz)
+    for r in range(2):
+        gate = trec.may_be_inside(rec, p, 10800, r, hx, hy, hz)
+        cand = gate.view(-1, 32).any(1)
+        assert bool(cand.any()), (kind, r)
+        assert not bool((cand & ~reach[:, r]).any()), (kind, r)
+    # grouped by receptor, the box turns each warp away from the other
+    assert bool(reach.all()) == (kind == "spread")
