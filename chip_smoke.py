@@ -731,13 +731,15 @@ def branch_counts(p, p_out, height, tables, cfg, itime: int) -> dict:
     return {k: int(v.sum()) for k, v in masks.items()}
 
 
-def unique_rows(p, height, cfg) -> int:
-    """Table rows that the particles' cells name (each needs reading once)."""
+def unique_rows(p, height, cfg, mask=None) -> int:
+    """Table rows that the particles' cells name (each needs reading once):
+    the active ones', or those of ``mask``."""
     import torch
     from flexpart_tpu_torch.core import interp
     hw = interp.horiz_weights(p.x, p.y, cfg.nx, cfg.ny, cfg.xglobal)
     indz, _ = interp.vert_weights(p.z, height)
-    rows = interp._cell_rowid(hw, indz, cfg.nx, cfg.ny)[p.active]
+    rows = interp._cell_rowid(hw, indz, cfg.nx, cfg.ny)[
+        p.active if mask is None else mask]
     return int(torch.unique(rows).numel())
 
 
@@ -2037,6 +2039,67 @@ def nest_rows(p, height, cfg, a, k: int, end: bool = False) -> int:
     return int(torch.unique(rows).numel())
 
 
+NEST_ITIME, NEST_MEM1 = 3600, 10800   # the K4 NESTS cases' step
+
+
+def nests_inputs(device, grid, specs, jets, key_tag: int, particles) -> dict:
+    """A K4 NESTS case (sim_nested's configuration: the stock step, the
+    polar caps) on the kernels phase's SyntheticMet: nests of ``specs`` on
+    the mother's levels, each with its jet of ``jets``, their quad tables
+    at NEST_ITIME, and the particles ``particles(a, nests)`` (``a`` the
+    AdvanceArgs) as drawn and in cell order.  Returns cfg, the stock cfg
+    (no nests) and both AdvanceArgs, key, height, tables, tables_n,
+    drawn, p, nests."""
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    from flexpart_tpu_torch.run.simulation import nest_windows
+    from flexpart_tpu_torch.met import synthetic, verttransform
+    z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
+    height = verttransform.compute_heights(
+        grid, synthetic.SyntheticMet(grid).fetch(0.0, device))
+    nests = tuple(nest_grid(grid, spec) for spec in specs)
+    zn = [nest_fields(g, height, device, (0.0, 10800.0), jet)
+          for g, jet in zip(nests, jets)]
+    cfg, _, *_ = step_setup(grid, polar=True,
+                            nests=tuple((g.nx, g.ny) for g in nests))
+    prm = advance.StepParams.make(
+        dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0, dxconst=grid.dxconst,
+        dyconst=grid.dyconst, lsynctime=LSYNC, fine=1.0 / cfg.ifine,
+        **nest_windows(grid, nests))
+    stock = advance.StepConfig(**{**cfg.__dict__, "nests": ()})
+    tw = advance._time_weights(NEST_ITIME, 0, NEST_MEM1, prm, cfg)[:4]
+    a = advance.advance_args(cfg, prm, NEST_ITIME, 0, NEST_MEM1)
+    drawn = particles(a, nests)
+    return dict(
+        cfg=cfg, stock=stock, a=a, nests=nests,
+        a_stock=advance.advance_args(stock, prm, NEST_ITIME, 0, NEST_MEM1),
+        key=rng.Key(4321, key_tag), height=z0.height,
+        tables=interp.build_step_tables_quad(z0, z1, *tw,
+                                             dtype=cfg.table_dtype),
+        tables_n=tuple(interp.build_step_tables_quad(
+            zk[0], zk[1], *tw, dtype=cfg.table_dtype) for zk in zn),
+        drawn=drawn,
+        p=reorder.reorder_by_cell_cuda(drawn, z0.height, cfg)[0])
+
+
+def nests_two_inputs(device, grid) -> dict:
+    """nests_inputs of kernel_advance_nests: NEST_OUTER and NEST_INNER on
+    10 x 2**20 nested_particles."""
+    return nests_inputs(
+        device, grid, (NEST_OUTER, NEST_INNER),
+        (NEST_U_JET["outer"], NEST_U_JET["inner"]), 19,
+        lambda a, nests: nested_particles(N_MAIN, device, 47, grid,
+                                          NEST_ITIME, nests))
+
+
+def nests_overlap_inputs(device, grid, n: int) -> dict:
+    """nests_inputs of nests_overlap_case: the windows of NEST_OVERLAP on
+    ``n`` overlap_particles."""
+    return nests_inputs(
+        device, grid, NEST_OVERLAP, NEST_OVERLAP_JETS, 23,
+        lambda a, nests: overlap_particles(n, device, 53, grid, NEST_ITIME,
+                                           a, len(nests)))
+
+
 def kernel_advance_nests(device, grid) -> dict:
     """K4's NESTS instantiation (sim_nested's configuration: the stock
     step, the polar caps) with two nested windows, 0.5 degrees over
@@ -2047,42 +2110,25 @@ def kernel_advance_nests(device, grid) -> dict:
     K4 tolerances reported beside), in cell order, timed beside the stock
     K4 on the same particles, whose positions must differ from K4
     NESTS's for nearly every particle in a nest (the nests' winds are
-    used).  Bound: K4's bytes plus each nest row its particles name, 128 B
-    of the start table and 48 B of the end table."""
+    used).  Bound: K4's state bytes and each row its particles name, 128 B
+    of a start table and 48 B of an end table, in the grid that holds
+    each particle.  Then nests_overlap_case: three windows that overlap
+    without nesting, N_OVERLAP particles."""
     import torch
-    from flexpart_tpu_torch.core import advance, interp, reorder, rng
-    from flexpart_tpu_torch.run.simulation import nest_windows
-    from flexpart_tpu_torch.met import synthetic, verttransform
-    z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
-    height = verttransform.compute_heights(
-        grid, synthetic.SyntheticMet(grid).fetch(0.0, device))
-    nests = (nest_grid(grid, NEST_OUTER), nest_grid(grid, NEST_INNER))
-    zn = [nest_fields(g, height, device, (0.0, 10800.0), NEST_U_JET[w])
-          for g, w in zip(nests, ("outer", "inner"))]
-    itime, mem1 = 3600, 10800
-    key = rng.Key(4321, 19)
-    cfg, _, *_ = step_setup(grid, polar=True,
-                            nests=tuple((g.nx, g.ny) for g in nests))
-    prm = advance.StepParams.make(
-        dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0, dxconst=grid.dxconst,
-        dyconst=grid.dyconst, lsynctime=LSYNC, fine=1.0 / cfg.ifine,
-        **nest_windows(grid, nests))
-    stock = advance.StepConfig(**{**cfg.__dict__, "nests": ()})
-    tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
-    tables = interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
-    tables_n = tuple(interp.build_step_tables_quad(
-        zk[0], zk[1], *tw, dtype=cfg.table_dtype) for zk in zn)
-    a = advance.advance_args(cfg, prm, itime, 0, mem1)
-    a_stock = advance.advance_args(stock, prm, itime, 0, mem1)
-    drawn = nested_particles(N_MAIN, device, 47, grid, itime, nests)
-    p = reorder.reorder_by_cell_cuda(drawn, z0.height, cfg)[0]
+    from flexpart_tpu_torch.core import advance, rng
+    c = nests_two_inputs(device, grid)
+    cfg, stock, a, a_stock, key = (c[k] for k in ("cfg", "stock", "a",
+                                                  "a_stock", "key"))
+    tables, tables_n, drawn, p = (c[k] for k in ("tables", "tables_n",
+                                                 "drawn", "p"))
+    nests, height = c["nests"], c["height"]
     idx = advance.nest_index(cfg, a, p.x, p.y)
     share = {"inner": int((idx == 1).sum()) / N_MAIN,
              "outer_only": int((idx == 0).sum()) / N_MAIN}
     check(min(share.values()) > 0.25, f"K4 NESTS: nest shares {share}")
     draws = {tag: rng.normals(key, (rows, N_MAIN), tag, 0, device=device)
              for tag, rows in advance.draw_tags(cfg).items()}
-    args = (p, z0.height, tables, a, key, cfg)
+    args = (p, height, tables, a, key, cfg)
     pk, dk = advance.advance_all_cuda(*args, draws, 0, tables_n=tables_n)
     pp, dp = advance.advance_all_plain(*args, draws, 0, tables_n=tables_n)
     torch.cuda.synchronize()
@@ -2092,7 +2138,7 @@ def kernel_advance_nests(device, grid) -> dict:
           f"{differ} particles")
     # the same draws through the stock K4: a particle a nest holds moves
     # with the nest's winds, so its position differs
-    ps = advance.advance_all_cuda(p, z0.height, tables, a_stock, key, stock,
+    ps = advance.advance_all_cuda(p, height, tables, a_stock, key, stock,
                                   draws, 0)[0]
     held = p.active & (idx >= 0)
     moved = (pk.x != ps.x) | (pk.y != ps.y)
@@ -2109,33 +2155,160 @@ def kernel_advance_nests(device, grid) -> dict:
                     advance.advance_all_cuda(*args, None, 0,
                                              tables_n=tables_n)[0],
                     "K4 NESTS: twice")
-    rows = {"start": sum(nest_rows(p, z0.height, cfg, a, k)
+    rows = {"start": sum(nest_rows(p, height, cfg, a, k)
                          for k in range(len(nests))),
-            "end": sum(nest_rows(pk, z0.height, cfg, a, k)
+            "end": sum(nest_rows(pk, height, cfg, a, k)
                        for k in range(len(nests)))}
     row_b = 128 if cfg.met_bf16 else 256
-    rows0 = unique_rows(p, z0.height, cfg)
-    rows1 = unique_rows(pk, z0.height, cfg)
+    # the mother's rows that the particles outside every nest name;
+    # bound_all_mother_rows_ms charges every particle's mother row too
+    rows0 = unique_rows(p, height, cfg, p.active & (idx < 0))
+    rows1 = unique_rows(pk, height, cfg, pk.active & (
+        advance.nest_index(cfg, a, pk.x, pk.y) < 0))
+    all_rows = (unique_rows(p, height, cfg), unique_rows(pk, height,
+                                                             cfg))
+    all_mother = bound(104 * N_MAIN + row_b * (all_rows[0] + rows["start"])
+                       + row_b * 3 // 8 * (all_rows[1] + rows["end"]), 0)
     del pk, pp, draws
     torch.cuda.empty_cache()
     res.update(
         ms=cuda_ms(lambda: advance.advance_all_cuda(
             *args, None, 0, tables_n=tables_n), 10),
         stock_k4_ms=cuda_ms(lambda: advance.advance_all_cuda(
-            p, z0.height, tables, a_stock, key, stock, None, 0), 10),
+            p, height, tables, a_stock, key, stock, None, 0), 10),
         # what K5's mother-cell order is worth to the nests' gathers: the
         # same particles as drawn
         unordered_ms=cuda_ms(lambda: advance.advance_all_cuda(
-            drawn, z0.height, tables, a, key, cfg, None, 0,
+            drawn, height, tables, a, key, cfg, None, 0,
             tables_n=tables_n), 10),
         stock_k4_unordered_ms=cuda_ms(lambda: advance.advance_all_cuda(
-            drawn, z0.height, tables, a_stock, key, stock, None, 0), 10),
+            drawn, height, tables, a_stock, key, stock, None, 0), 10),
         plain_ms=cuda_ms(lambda: advance.advance_all_plain(
             *args, None, 0, tables_n=tables_n), 2),
         library_ms=None, nest_rows=rows,
+        mother_rows={"start": rows0, "end": rows1},
+        bound_all_mother_rows_ms=all_mother["bound_ms"],
         **bound(104 * N_MAIN + row_b * (rows0 + rows["start"])
                 + row_b * 3 // 8 * (rows1 + rows["end"]),
                 K4_OPS_PER_PARTICLE * N_MAIN))
+    res["overlapping"] = nests_overlap_case(device, grid, N_OVERLAP)
+    return res
+
+
+# three nests whose windows overlap without nesting (each a part of the
+# next's or the last's outside the other two): 20 W-20 E, 20-50 N; 0-40 E,
+# 35-65 N; 10-30 E, 10-45 N, the last partly outside both; each with a jet
+# of its own
+NEST_OVERLAP = (dict(dx=0.5, dy=0.5, xlon0=-20.0, ylat0=20.0, nx=81, ny=61),
+                dict(dx=0.5, dy=0.5, xlon0=0.0, ylat0=35.0, nx=81, ny=61),
+                dict(dx=0.25, dy=0.25, xlon0=10.0, ylat0=10.0, nx=81,
+                     ny=141))
+NEST_OVERLAP_JETS = (30.0, 40.0, 50.0)
+N_OVERLAP = 2 ** 20
+# particles at each window edge: the edge's threshold and a float on
+# either side of it, this many at each (fewer in a case under 2**19)
+EDGE_PARTICLES = 2048
+
+
+def overlap_particles(n: int, device, seed: int, grid, itime: int, a,
+                      nnest: int):
+    """nested_particles' fields on ``n`` particles: each window's four
+    edges (AdvanceArgs' thresholds, fl(xln + eps) and fl(xrn - eps), and
+    the float on either side: EDGE_PARTICLES each, n / 256 where fewer,
+    spread along the edge), the rest over the windows' union and 5 cells
+    around it."""
+    import numpy as np
+    import torch
+    p = bench_particles(n, device, seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 9)
+
+    def u(lo, hi, m=n):
+        return torch.rand(m, generator=gen, device=device) * (hi - lo) + lo
+
+    f32 = np.float32
+    eps = f32(a.eps_nest)
+    lo_x, hi_x = min(a.xln[:nnest]) - 5.0, max(a.xrn[:nnest]) + 5.0
+    lo_y, hi_y = min(a.yln[:nnest]) - 5.0, max(a.yrn[:nnest]) + 5.0
+    x, y = u(lo_x, hi_x), u(lo_y, hi_y)
+    at, m = 0, min(EDGE_PARTICLES, n // 256)
+    for k in range(nnest):
+        xl, xr = f32(f32(a.xln[k]) + eps), f32(f32(a.xrn[k]) - eps)
+        yl, yr = f32(f32(a.yln[k]) + eps), f32(f32(a.yrn[k]) - eps)
+        for edge, along, span in ((xl, y, (yl, yr)), (xr, y, (yl, yr)),
+                                  (yl, x, (xl, xr)), (yr, x, (xl, xr))):
+            across = x if along is y else y
+            for v in (np.nextafter(edge, f32(-np.inf)), edge,
+                      np.nextafter(edge, f32(np.inf))):
+                across[at:at + m] = float(v)
+                along[at:at + m] = u(float(span[0]), float(span[1]), m)
+                at += m
+    check(at <= n // 4, f"overlap_particles: {at} edge particles of {n}")
+    fresh = u(0.0, 1.0) < 0.5
+    return p.replace(
+        x_hi=x, y_hi=y, z=u(10.0, 3000.0),
+        itramem=torch.where(fresh, itime, itime - 7200).to(torch.int32),
+        itra=torch.full_like(p.itra, itime),
+        up=u(-1.0, 1.0), vp=u(-1.0, 1.0), wp=u(-1.0, 1.0),
+        usig=u(-0.3, 0.3), vsig=u(-0.3, 0.3), wsig=u(-0.01, 0.01))
+
+
+def nests_overlap_case(device, grid, n: int) -> dict:
+    """K4 NESTS (sim_nested's configuration: the stock step, the polar
+    caps) with the three overlapping windows of NEST_OVERLAP on ``n``
+    particles (overlap_particles), in cell order: against the plain
+    advance with K1's draws injected, every output bitwise, and its draws
+    in registers against the injected ones.  The particles that two or
+    three windows hold take the last (nest_index, the reference's scan),
+    and every window holds some particles that no later one holds."""
+    import torch
+    from flexpart_tpu_torch.core import advance, rng
+    c = nests_overlap_inputs(device, grid, n)
+    cfg, a, key, p = c["cfg"], c["a"], c["key"], c["p"]
+    tables, tables_n, nests = c["tables"], c["tables_n"], c["nests"]
+    height = c["height"]
+    del c
+    held = torch.stack([advance._in_nest(a, k, p.x, p.y)
+                        for k in range(len(nests))])
+    idx = advance.nest_index(cfg, a, p.x, p.y)
+    several = held.sum(0) >= 2
+    last = torch.where(held[2], 2, torch.where(held[1], 1, torch.where(
+        held[0], 0, -1))).to(idx.dtype)
+    check(torch.equal(idx, last), "K4 NESTS overlapping: nest_index is not "
+          "the last window that holds a particle")
+    only = {k: int((held[k] & (held.sum(0) == 1)).sum())
+            for k in range(len(nests))}
+    shares = {"in_several": int(several.sum()) / n,
+              "mother": int((idx < 0).sum()) / n,
+              **{f"only_{k}": m / n for k, m in only.items()},
+              **{f"nest_{k}": int((idx == k).sum()) / n
+                 for k in range(len(nests))}}
+    check(min(only.values()) > 0 and int((held[0] & held[1]).sum()) > 0
+          and int((held[2] & ~held[0] & ~held[1]).sum()) > 0
+          and int((held.sum(0) == 3).sum()) > 0,
+          f"K4 NESTS overlapping: shares {shares}")
+    draws = {tag: rng.normals(key, (rows, n), tag, 0, device=device)
+             for tag, rows in advance.draw_tags(cfg).items()}
+    args = (p, height, tables, a, key, cfg)
+    pk, _ = advance.advance_all_cuda(*args, draws, 0, tables_n=tables_n)
+    pp, _ = advance.advance_all_plain(*args, draws, 0, tables_n=tables_n)
+    torch.cuda.synchronize()
+    res = compare_particles(pk, pp, "K4 NESTS overlapping", float(grid.nx - 1))
+    differ = differing_particles(pk, pp, advance.OUT_FIELDS)
+    check(differ == 0, f"K4 NESTS overlapping differs from its plain version "
+          f"in {differ} particles")
+    check_same_bits(advance.advance_all_cuda(*args, None, 0,
+                                             tables_n=tables_n)[0], pk,
+                    "K4 NESTS overlapping, draws in registers vs injected")
+    del pk, pp, draws
+    res.update(n=n, windows=NEST_OVERLAP, bitwise=True,
+               differing_particles=differ,
+               max_abs_err=max(res["max_dx"], res["max_dy"]),
+               edge_particles=3 * 4 * len(nests) * min(EDGE_PARTICLES,
+                                                       n // 256),
+               shares=shares,
+               ms=cuda_ms(lambda: advance.advance_all_cuda(
+                   *args, None, 0, tables_n=tables_n), 10))
     return res
 
 
@@ -5986,6 +6159,7 @@ def kernel_clwc(device, grid) -> dict:
 
 OH_DATE = (2020, 7, 1)     # the sim_oh_split phase's day: OH at 40 N
 OH_ITIME = 11 * 3600 + 900  # a daylight step at 0-30 E
+N_OH_EDGE = 2 ** 20         # K12's edge case (oh_edge_particles)
 
 
 def oh_species():
@@ -6246,38 +6420,145 @@ def boundcond_call_bounds(before, after, args) -> dict:
                       torch.nonzero(born).flatten())
 
 
+def k12_bound(n: int, active: int, nspec: int, noh: int, nlev: int) -> dict:
+    """K12's least time on ``n`` slots of which ``active`` are active, by
+    what it needs: an active particle's positions, z, active flag, mass in
+    and out and one temperature gather (41 B at two species), an inactive
+    slot's flag and mass in and out; the two hourly fields and the axes
+    once.  Operations (the function's work, not the search's), per active
+    particle: the three scans (a subtraction, an absolute value and a
+    comparison per axis entry of the 72 x 46 x 7 grid) and per species
+    powf, two expf and six other operations, each counted as one."""
+    return bound(active * (21 + 8 * nspec + 4)
+                 + (n - active) * (1 + 8 * nspec)
+                 + 4 * (2 * noh + 125 + nlev),
+                 active * (3 * 125 + nspec * 9))
+
+
+def oh_edge_particles(n: int, device, seed: int, grid, g):
+    """depo_particles (1/32 inactive) put where K12's nearest-cell search
+    has its edges, on the OH grid ``g``: longitudes, latitudes and layer
+    tops at the midpoints between two entries (ties, the first winning),
+    at an entry and a float on either side of it, beyond both ends; x at
+    180 (longitude +0), y at 90 (latitude 0), z at +-0, below the ground,
+    +-inf and NaN.  Particle i takes the (i mod X)-th x value, the (i / 7
+    mod Y)-th y value and the (i / 49 mod Z)-th z value."""
+    import numpy as np
+    import torch
+    f32 = np.float32
+
+    def around(axis):
+        a = np.asarray(axis, f32)
+        mids = ((a[:-1].astype(np.float64) + a[1:]) / 2.0).astype(f32)
+        return np.concatenate([mids, a, np.nextafter(a, f32(np.inf)),
+                               np.nextafter(a, f32(-np.inf))])
+
+    # the met grid's coordinates of OH longitudes (x * dx + xlon0, less 360
+    # above 180) and latitudes
+    xs = (around(g.lon).astype(np.float64) - grid.xlon0) / grid.dx
+    xs = np.concatenate([xs, [0.0, grid.nx - 1.0, (180.0 - grid.xlon0)
+                              / grid.dx]]).astype(f32)
+    ys = (around(g.lat).astype(np.float64) - grid.ylat0) / grid.dy
+    ys = np.concatenate([ys, [0.0, grid.ny - 1.0, -grid.ylat0 / grid.dy]])
+    ys = np.clip(ys, 0.0, grid.ny - 1.0).astype(f32)
+    zs = np.concatenate([around(g.alt_top), [0.0, -0.0, -10.0, 1.0e6, 1.0e30,
+                                             np.inf, -np.inf, np.nan]])
+    zs = zs.astype(f32)
+    k = np.arange(n)
+    pick = {"x": xs[k % len(xs)], "y": ys[(k // 7) % len(ys)],
+            "z": zs[(k // 49) % len(zs)]}
+    p = depo_particles(n, device, seed, grid)
+    zero = torch.zeros(n, dtype=torch.float32, device=device)
+    return p.replace(x_hi=torch.as_tensor(pick["x"], device=device),
+                     y_hi=torch.as_tensor(pick["y"], device=device),
+                     z=torch.as_tensor(pick["z"], device=device),
+                     x_lo=zero, y_lo=zero.clone())
+
+
+def oh_unsorted_field():
+    """The synthetic climatology with its longitudes in descending order
+    (the fields reversed with them): an axis K12 does not search, so its
+    SCAN instantiation runs."""
+    import dataclasses
+    from flexpart_tpu_torch.physics import ohchem
+    f = ohchem.synthetic_oh_field()
+    return dataclasses.replace(f, lon=f.lon[::-1].copy(),
+                               oh=f.oh[::-1].copy())
+
+
+def held_ohreaction(g, p, args, what: str):
+    """K12 (its search, or SCAN where ``g.scan``) against its plain version
+    on the particles ``p``: the mass bitwise.  Returns K12's particles."""
+    from flexpart_tpu_torch.physics import ohchem
+    k = ohchem.ohreaction_cuda(p, g, *args)
+    check_same_bits(k, ohchem.ohreaction_plain(p, g, *args), what, ("mass",))
+    return k
+
+
+def oh_layout(g, nlev: int, scan: bool) -> dict:
+    """K12's layout on the OH grid ``g`` (fp_ohreaction_layout): shared
+    bytes a block, blocks an SM, registers, threads a block, and the warps
+    an SM holds."""
+    import ctypes
+    from flexpart_tpu_torch import _build
+    out = (ctypes.c_int * 4)()
+    layout_fn = _build.OHREACTION.query("fp_ohreaction_layout",
+                                        _build.OH_LAYOUT)
+    err = layout_fn(len(g.lon), len(g.lat), len(g.alt_top), nlev, int(scan),
+                    ctypes.addressof(out))
+    check(err == 0, f"fp_ohreaction_layout: cudaError {err}")
+    return dict(shared_bytes=out[0], blocks_per_sm=out[1], registers=out[2],
+                threads=out[3], warps_per_sm=out[1] * out[3] // 32)
+
+
+def oh_fields(field, device, grid):
+    """K12 of ``field`` on the kernels phase's SyntheticMet: (the function
+    make_ohreaction returns, its OHGrid, its arguments after the particles
+    at OH_ITIME of OH_DATE: the hourly fields of the day, SyntheticMet's
+    temperature and heights, LSYNC)."""
+    from datetime import datetime
+    from flexpart_tpu_torch.met.fields import F3_TT
+    from flexpart_tpu_torch.physics import ohchem
+    zf = met_fields("synthetic", grid, device)[0]
+    hourly = ohchem.HourlyOH(field, datetime(*OH_DATE), 1, device=device)
+    oh0, oh1, t0, t1 = hourly.fields_for(OH_ITIME)
+    fn = ohchem.make_ohreaction(field, grid, oh_species(), device)
+    return fn, fn.grid, (oh0, oh1, t0, t1, OH_ITIME, zf.f3d[F3_TT],
+                         zf.height, LSYNC)
+
+
+def oh_inputs(device, grid):
+    """K12's kernels case: oh_fields of the synthetic climatology and the
+    deposition phase's 10 x 2**20 particles with the two OH species, as
+    drawn and in cell order: (fn, OHGrid, arguments, p, p in cell
+    order)."""
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.physics import ohchem
+    fn, g, args = oh_fields(ohchem.synthetic_oh_field(), device, grid)
+    p = depo_particles(N_MAIN, device, 29, grid, nspec=2)
+    ps, _ = reorder.reorder_by_cell(p, args[6], step_setup(grid)[0])
+    return fn, g, args, p, ps
+
+
 def kernel_ohreaction(device, grid) -> dict:
     """K12 against its plain version on the deposition phase's 10 x 2**20
     particles with the two OH species, at a daylight step of OH_DATE
     (hourly fields of the synthetic climatology), SyntheticMet's
     temperature: as drawn and in cell order, bitwise; some mass must be
-    lost.  Its layout (shared bytes, blocks per SM, registers) from
-    fp_ohreaction_layout."""
-    import ctypes
-    from datetime import datetime
-    import torch
-    from flexpart_tpu_torch import _build
-    from flexpart_tpu_torch.core import reorder
-    from flexpart_tpu_torch.met.fields import F3_TT
+    lost.  On N_OH_EDGE particles at the search's edges (oh_edge_particles)
+    through the search and through the SCAN instantiation, and on the
+    deposition particles with the longitudes in descending order
+    (oh_unsorted_field: SCAN), bitwise.  Its layout (shared bytes, blocks
+    per SM, registers, threads) from fp_ohreaction_layout, of both
+    instantiations."""
+    import dataclasses
     from flexpart_tpu_torch.physics import ohchem
-    cfg = step_setup(grid)[0]
-    zf = met_fields("synthetic", grid, device)[0]
-    field = ohchem.synthetic_oh_field()
-    hourly = ohchem.HourlyOH(field, datetime(*OH_DATE), 1, device=device)
-    oh0, oh1, t0, t1 = hourly.fields_for(OH_ITIME)
-    species = oh_species()
-    fn = ohchem.make_ohreaction(field, grid, species, device)
-    g = fn.grid
-    tt = zf.f3d[F3_TT]
-    args = (oh0, oh1, t0, t1, OH_ITIME, tt, zf.height, LSYNC)
-    p = depo_particles(N_MAIN, device, 29, grid, nspec=2)
-    ps, _ = reorder.reorder_by_cell(p, zf.height, cfg)
+    fn, g, args, p, ps = oh_inputs(device, grid)
+    check(not g.scan, "K12: the synthetic climatology's axes are not sorted")
     res, cases = {}, {}
     n = p.capacity
     for name, q in (("as_drawn", p), ("cell_order", ps)):
-        k = fn(q, *args)
-        pl = ohchem.ohreaction_plain(q, g, *args)
-        check_same_bits(k, pl, f"K12 {name}", ("mass",))
+        k = held_ohreaction(g, q, args, f"K12 {name}")
         lost = (q.mass.double().sum(0) - k.mass.double().sum(0)).tolist()
         check(lost[0] > 0.0 and lost[1] > 0.0,
               f"K12 {name}: no OH loss {lost}")
@@ -6286,28 +6567,30 @@ def kernel_ohreaction(device, grid) -> dict:
             plain_ms=cuda_ms(lambda: ohchem.ohreaction_plain(q, g, *args),
                              3),
             mass_lost=lost, bitwise=True, max_abs_err=0.0)
+    del p
+    # the search's edges, through both instantiations
+    edge = oh_edge_particles(N_OH_EDGE, device, 31, grid, g)
+    g_scan = dataclasses.replace(g, scan=True)
+    for name, gg in (("edges", g), ("edges_scan", g_scan)):
+        held_ohreaction(gg, edge, args, f"K12 {name}")
+        cases[name] = dict(n=N_OH_EDGE, bitwise=True, scan=gg.scan)
+    del edge
+    # an OH grid K12 does not search: the longitudes in descending order
+    unsorted, g_u, args_u = oh_fields(oh_unsorted_field(), device, grid)
+    check(g_u.scan, "K12: descending longitudes were searched")
+    held_ohreaction(g_u, ps, args_u, "K12 unsorted (SCAN)")
+    cases["unsorted_scan"] = dict(
+        ms=cuda_ms(lambda: unsorted(ps, *args_u)), bitwise=True, scan=True)
     noh = len(g.lon) * len(g.lat) * len(g.alt_top)
-    # bytes: positions, z, active, the mass in and out, one temperature
-    # gather a particle; the two hourly fields and the axes once
-    nbytes = n * (21 + 8 * 2 + 4) + 4 * (2 * noh + 125 + grid.nlev)
-    # operations: the three scans (a subtraction, an absolute value and a
-    # comparison per axis entry) and per species powf, two expf and six
-    # other operations, each counted as one
-    nops = n * (3 * (len(g.lon) + len(g.lat) + len(g.alt_top)) + 2 * 9)
-    out = (ctypes.c_int * 3)()
-    layout_fn = _build.OHREACTION.query("fp_ohreaction_layout",
-                                        _build.OH_LAYOUT)
-    err = layout_fn(len(g.lon), len(g.lat), len(g.alt_top), grid.nlev,
-                    ctypes.addressof(out))
-    check(err == 0, f"fp_ohreaction_layout: cudaError {err}")
-    layout = dict(shared_bytes=out[0], blocks_per_sm=out[1],
-                  registers=out[2])
     res.update(n=n, oh_grid=[len(g.lon), len(g.lat), len(g.alt_top)],
                ms=cases["cell_order"]["ms"],
                plain_ms=cases["cell_order"]["plain_ms"],
                unordered_ms=cases["as_drawn"]["ms"], max_abs_err=0.0,
-               bitwise=True, library_ms=None, layout=layout,
-               **bound(nbytes, nops), cases=cases)
+               bitwise=True, library_ms=None,
+               layout=oh_layout(g, grid.nlev, False),
+               layout_scan=oh_layout(g, grid.nlev, True),
+               **k12_bound(n, int(ps.active.sum()), 2, noh, grid.nlev),
+               cases=cases)
     return res
 
 
@@ -8028,10 +8311,13 @@ def phase_sim_oh_split(device, kernels) -> dict:
     load_s = time.perf_counter() - t0
     oh_kernel = sim._ohreaction
 
+    oh_calls = []
+
     def oh_held(p, *args):
         out = oh_kernel(p, *args)
+        g = oh_kernel.grid
         if not held["ohreaction"]:
-            pl = ohchem.ohreaction_plain(p, oh_kernel.grid, *args)
+            pl = ohchem.ohreaction_plain(p, g, *args)
             check_same_bits(out, pl, "sim_oh_split B: K12", ("mass",))
             lost = float((p.mass[:, 0].double() - out.mass[:, 0].double())
                          .sum())
@@ -8040,7 +8326,17 @@ def phase_sim_oh_split(device, kernels) -> dict:
                 itime=args[4], react_mass_lost=lost, bitwise=True,
                 ms=cuda_ms(lambda: oh_kernel(p, *args), 3),
                 plain_ms=cuda_ms(lambda: ohchem.ohreaction_plain(
-                    p, oh_kernel.grid, *args), 1)))
+                    p, g, *args), 1)))
+        # every call: K12's device time by the profiler, with its bound
+        prof = profiled_in_place(lambda: None,
+                                 lambda _: oh_kernel(p, *args))
+        oh_calls.append(dict(
+            itime=args[4], active=int(p.active.sum()),
+            ms=sum(r["ms"] for k, r in prof["per_launch"].items()
+                   if "ohreaction_kernel" in k),
+            **k12_bound(p.capacity, int(p.active.sum()), p.nspec,
+                        len(g.lon) * len(g.lat) * len(g.alt_top),
+                        args[6].shape[0])))
         return out
 
     inner = simmod.split_particles
@@ -8092,9 +8388,19 @@ def phase_sim_oh_split(device, kernels) -> dict:
         check(torch.equal(a, b), f"sim_oh_split B: {f} differs from A's")
     check((SIM_OH_DIR / "b" / "partposit_end").read_bytes() == end_a,
           "sim_oh_split B: partposit_end differs from A's")
+    # run B's steps from the checkpoint's time to the end, both included
+    check(len(oh_calls) == nsteps - start // LSYNC + 1,
+          f"sim_oh_split B: {len(oh_calls)} K12 calls profiled")
+    per_call = sum(c["ms"] for c in oh_calls) / len(oh_calls)
+    bound_per_call = sum(c["bound_ms"] for c in oh_calls) / len(oh_calls)
     res["run_b"] = dict(load_s=load_s, run_s=run_b_s, start_itime=start,
                         particles_bitwise_equal_a=True,
-                        partposit_end_equal_a=True, held=held)
+                        partposit_end_equal_a=True, held=held,
+                        ohreaction_per_call=dict(
+                            calls=len(oh_calls), ms_per_call=per_call,
+                            bound_ms_per_call=bound_per_call,
+                            share_of_bound=bound_per_call / per_call,
+                            each=oh_calls))
     del sim, pa
 
     # run C: a warm start from A's partposit_end
@@ -8580,7 +8886,8 @@ def main() -> int:
          **{f: nst[f] for f in (
              "stock_k4_ms", "unordered_ms", "stock_k4_unordered_ms",
              "bitwise", "differing_particles", "nest_share", "nest_rows",
-             "nest_particles_moved_otherwise_share", "bound_bytes")},
+             "nest_particles_moved_otherwise_share", "bound_bytes",
+             "mother_rows", "bound_all_mother_rows_ms", "overlapping")},
          "sim_nested_per_call": nres["device_per_call"]["advance_nests"],
          "quad_tables_sim_nested_per_call":
              nres["device_per_call"]["quad_tables"],
@@ -8652,11 +8959,16 @@ def main() -> int:
              **{f: r[f] for f in pick},
              **{f: r[f] for f in ("n", "bitwise", "cases", "bound_bytes",
                                   "bound_operations", "unordered_ms",
-                                  "layout", "oh_grid", "ms_with_host",
-                                  "bound_sectors_ms",
+                                  "layout", "layout_scan", "oh_grid",
+                                  "ms_with_host", "bound_sectors_ms",
                                   "edge_cases_due_free_granted",
                                   "edge_cases_s") if f in r},
              "sim_oh_split_held": ohres["run_b"]["held"][kname]})
+    # K12's device time per call over every call of sim_oh_split's run B
+    next(r for r in line if r["name"] == "ohreaction").update(
+        sim_oh_split_per_call={
+            f: v for f, v in ohres["run_b"]["ohreaction_per_call"].items()
+            if f != "each"})
     # K14-K17: the kernels_domainfill phase's numbers, the launches of the
     # path that runs each; the nest's sampling is K3's stock instantiation,
     # counted apart (conccalc.nest), with K3's numbers

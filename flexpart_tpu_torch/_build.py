@@ -472,6 +472,7 @@ OHREACTION = Kernel("ohreaction", "fp_ohreaction", [
     P,                    # OHSpec[MAX_SPECIES] (host array, physics/ohchem.py)
     I, I,                 # n, nspec
     I,                    # |ltsample|
+    I,                    # scan: an OH axis not finite and nondecreasing
     P,                    # out: mass (n, nspec) f32
     P,                    # stream
 ])
@@ -585,9 +586,11 @@ ENTRIES = (CONCCALC_BKDEP, CONCCALC_COUNT, REDIST_BACKWARD, WETDEPO_BKDEP,
 # fp_convection_layout(nl, out): out (4,) i32 gets K6's shared bytes per
 # column, columns per block, resident blocks per SM and registers per thread
 LAYOUT = [I, P]
-# fp_ohreaction_layout(nxo, nyo, nzo, nz, out): out (3,) i32 gets K12's
-# shared bytes per block, resident blocks per SM and registers per thread
-OH_LAYOUT = [I, I, I, I, P]
+# fp_ohreaction_layout(nxo, nyo, nzo, nz, scan, out): out (4,) i32 gets
+# K12's shared bytes per block, resident blocks per SM, registers per
+# thread and threads per block, of its search (scan 0) or SCAN (scan 1)
+# instantiation
+OH_LAYOUT = [I, I, I, I, I, P]
 
 KERNELS = (NORMALS, QUAD_TABLES, CONCCALC, ADVANCE, REORDER, CONVECTION,
            REDIST, DEPO_SCATTER, WETDEPO, DRYDEPO, ADVANCE_ADAPTIVE,

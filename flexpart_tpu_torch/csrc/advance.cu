@@ -91,20 +91,25 @@
 // of it and keeps its registers.
 //
 // Nested met grids (the NESTS instantiations, turbswitch off as every
-// fixed step; flexpart_tpu/core/advance.py:841-866 and :1176-1189): for
-// each nest, outermost first, whose window (shrunk by nx / 3e5) holds the
-// particle, a second row gather from the nest's (R_n, 64) quad table at
-// the particle's nest coordinates (clamped to n - 1.001) replaces h, the
-// tropopause, u*, w*, L, the winds, density and sigmas of the start, so
-// the innermost nest that holds it wins; the corrector's end-time wind
-// comes likewise from the nest's (R_n, 32) table at the predicted
-// position.  The nests' tables and windows ride in AdvanceArgs (at most
-// MAX_NESTS, unrolled with constant indices).  Every nest is on the
-// mother's height grid, so the level and its weight are the mother's.
-// Bound: the stock one plus, per particle in a nest, one 128 B row of its
-// table and 48 B of its end-time row.  The particles stay in mother-cell
-// order (K5): a warp's particles are close in the mother grid, so they are
-// close in the nest too, and its nest rows are few and neighbouring.
+// fixed step; flexpart_tpu/core/advance.py:841-866 and :1176-1189): a
+// particle samples the innermost nest whose window (shrunk by nx / 3e5)
+// holds it, the last such nest of the outermost-first list, or the mother.
+// The grid is chosen first, by the window tests alone (nest_select), and
+// its table, shape and the particle's coordinates there (the nest's
+// clamped to n - 1.001) by selects over the unrolled nests (nest_pick);
+// then ONE row gather from the chosen (R, 64) table gives h, the
+// tropopause, u*, w*, L, the winds, density and sigmas of the start, and
+// the corrector likewise takes ONE 48 B gather of the chosen (R, 32)
+// end-time table at the predicted position.  So a particle reads one start
+// row and at most one end row, wherever it lies, and only one Start is
+// live at a time; lanes of a warp on both sides of a window's edge issue
+// one gather with their own addresses.  The nests' tables and windows ride
+// in AdvanceArgs (at most MAX_NESTS).  Every nest is on the mother's
+// height grid, so the level and its weight are the mother's.  Bound: the
+// stock one, each particle's start and end rows taken from the grid that
+// holds it.  The particles stay in mother-cell order (K5): a warp's
+// particles are close in the mother grid, so they are close in the nest
+// too, and its nest rows are few and neighbouring.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -144,8 +149,8 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
       const float x = x_hi + x_lo;
       const float y = y_hi + y_lo;
       const float z = z_new;
-      Start s = step_start<BF16>(a, rows, sh_height, x, y, z);
-      if (NESTS) sample_nests<BF16>(a, sh_height, x, y, z, s);
+      const Start s = NESTS ? nest_start<BF16>(a, rows, sh_height, x, y, z)
+                            : step_start<BF16>(a, rows, sh_height, x, y, z);
       const float h = s.h;
 
       const float dt = a.dt;

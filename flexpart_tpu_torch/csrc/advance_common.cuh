@@ -565,43 +565,81 @@ __device__ __forceinline__ Start step_start(const AdvanceArgs& a,
   return sample_start<BF16>(rows, sh_height, a.nz, a.nx, a.ny, x, y, z);
 }
 
-// Inside nest k's window shrunk by eps_nest, and the nest's coordinates of
-// (x, y) clamped to [0, n - 1.001] (core/advance.py::_in_nest and
-// _nest_coords).  k is a constant of an unrolled loop.
+// Inside nest k's window shrunk by eps_nest (core/advance.py::_in_nest).
+// k is a constant of an unrolled loop.
 __device__ __forceinline__ bool in_nest(const AdvanceArgs& a, int k, float x,
                                         float y) {
   return (x > a.xln[k] + a.eps_nest) && (x < a.xrn[k] - a.eps_nest) &&
          (y > a.yln[k] + a.eps_nest) && (y < a.yrn[k] - a.eps_nest);
 }
 
-__device__ __forceinline__ void nest_coords(const AdvanceArgs& a, int k,
-                                            float x, float y, float& xt,
-                                            float& yt) {
-  xt = clamp((x - a.xln[k]) * a.xresoln[k], 0.0f, a.nest_xmax[k]);
-  yt = clamp((y - a.yln[k]) * a.yresoln[k], 0.0f, a.nest_ymax[k]);
+// The innermost nest that holds (x, y): the last k < nnest whose shrunk
+// window holds it, -1 for the mother (advance.f90:167-175 scanning
+// j=numbnests,1,-1; core/advance.py::nest_index).  Only the windows are
+// tested, so windows that overlap without nesting are taken as the
+// reference takes them.
+__device__ __forceinline__ int nest_select(const AdvanceArgs& a, float x,
+                                           float y) {
+  int sel = -1;
+#pragma unroll
+  for (int k = 0; k < MAX_NESTS; ++k)
+    if (k < a.nnest && in_nest(a, k, x, y)) sel = k;
+  return sel;
 }
 
-// The nests' met at the particle (core/advance.py::_sample_nests): for
-// each nest, outermost first, that holds (x, y), a second row gather from
-// its (R_n, 64) table replaces everything the start read but the mother's
-// stencil, so that the innermost nest that holds the particle wins.
-template <bool BF16>
-__device__ __forceinline__ void sample_nests(const AdvanceArgs& a,
-                                             const float* sh_height, float x,
-                                             float y, float z, Start& s) {
+// The grid a particle samples: its table (the start's, or the end-time one
+// where END), shape and the particle's coordinates there: the mother's
+// (x, y), or nest sel's, clamped to [0, n - 1.001]
+// (core/advance.py::_nest_coords).  Picked by selects over the unrolled
+// nests with constant indices: a runtime index into AdvanceArgs' arrays
+// would put the parameters into local memory.
+struct Pick {
+  const void* table;
+  int nx, ny;
+  float x, y;
+};
+
+template <bool END>
+__device__ __forceinline__ Pick nest_pick(const AdvanceArgs& a, int sel,
+                                          const void* mother, float x,
+                                          float y) {
+  Pick p{mother, a.nx, a.ny, x, y};
+  float xln = 0.0f, yln = 0.0f, xres = 1.0f, yres = 1.0f;
+  float xmax = 0.0f, ymax = 0.0f;
 #pragma unroll
   for (int k = 0; k < MAX_NESTS; ++k) {
-    if (k < a.nnest && in_nest(a, k, x, y)) {
-      float xt, yt;
-      nest_coords(a, k, x, y, xt, yt);
-      const Start n = sample_start<BF16>(a.nest_rows[k], sh_height, a.nz,
-                                         a.nest_nx[k], a.nest_ny[k], xt, yt,
-                                         z);
-      const Horiz hw = s.hw;
-      s = n;
-      s.hw = hw;
+    if (sel == k) {
+      p.table = END ? a.nest_rows_e[k] : a.nest_rows[k];
+      p.nx = a.nest_nx[k];
+      p.ny = a.nest_ny[k];
+      xln = a.xln[k];
+      yln = a.yln[k];
+      xres = a.xresoln[k];
+      yres = a.yresoln[k];
+      xmax = a.nest_xmax[k];
+      ymax = a.nest_ymax[k];
     }
   }
+  if (sel >= 0) {
+    p.x = clamp((x - xln) * xres, 0.0f, xmax);
+    p.y = clamp((y - yln) * yres, 0.0f, ymax);
+  }
+  return p;
+}
+
+// The start of a step with nests (core/advance.py::_sample_nests): the
+// grid chosen first, then ONE row gather from its (R, 64) table, so the
+// innermost nest that holds the particle supplies everything the start
+// reads, its stencil's weights (Start::hw) too: nothing after the start
+// reads those.
+template <bool BF16>
+__device__ __forceinline__ Start nest_start(const AdvanceArgs& a,
+                                            const void* __restrict__ rows,
+                                            const float* sh_height, float x,
+                                            float y, float z) {
+  const Pick p = nest_pick<false>(a, nest_select(a, x, y), rows, x, y);
+  return sample_start<BF16>(p.table, sh_height, a.nz, p.nx, p.ny, p.x, p.y,
+                            z);
 }
 
 // ---- The skewed convective boundary layer (core/cbl.py; cbl.f90,
@@ -1123,40 +1161,34 @@ __device__ __forceinline__ bool finish_step(
   if (a.can_pett && !exited && pett_gate) {
     const float xn = x_hi + x_lo;
     const float yn = y_hi + y_lo;
-    const Horiz hw2 = horiz_weights(xn, yn, a.nx, a.ny);
-    int indz2;
-    float dz2;
-    vert_weights(sh_height, a.nz, z_new, indz2, dz2);
-    const size_t row2 = fp::cell_row(indz2, hw2.jy, hw2.ix, a.ny, a.nx);
-    float e[24];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) load8<BF16, 32>(rowsE, row2, k, &e[8 * k]);
     float du, dv, w2;
     if (NESTS) {
       // the corrector's end-time wind from the innermost nest that holds
-      // the predicted position (core/advance.py, the nests' rowsE)
-      float u2 = field2(e, 0, hw2.p4, dz2);
-      float v2 = field2(e, 1, hw2.p4, dz2);
-      w2 = field2(e, 2, hw2.p4, dz2);
+      // the predicted position: the grid chosen first, then ONE 48 B
+      // gather of its (R, 32) end-time table (core/advance.py, the nests'
+      // rowsE; every nest is on the mother's height grid)
+      const Pick pk = nest_pick<true>(a, nest_select(a, xn, yn), rowsE, xn,
+                                      yn);
+      const Horiz hn = horiz_weights(pk.x, pk.y, pk.nx, pk.ny);
+      int indz2;
+      float dz2;
+      vert_weights(sh_height, a.nz, z_new, indz2, dz2);
+      const size_t rn = fp::cell_row(indz2, hn.jy, hn.ix, pk.ny, pk.nx);
+      float e[24];
 #pragma unroll
-      for (int k = 0; k < MAX_NESTS; ++k) {
-        if (k < a.nnest && in_nest(a, k, xn, yn)) {
-          float xt, yt;
-          nest_coords(a, k, xn, yn, xt, yt);
-          const Horiz hn = horiz_weights(xt, yt, a.nest_nx[k], a.nest_ny[k]);
-          const size_t rn = fp::cell_row(indz2, hn.jy, hn.ix, a.nest_ny[k],
-                                         a.nest_nx[k]);
-#pragma unroll
-          for (int q = 0; q < 3; ++q)
-            load8<BF16, 32>(a.nest_rows_e[k], rn, q, &e[8 * q]);
-          u2 = field2(e, 0, hn.p4, dz2);
-          v2 = field2(e, 1, hn.p4, dz2);
-          w2 = field2(e, 2, hn.p4, dz2);
-        }
-      }
-      du = (u2 - u) / 2.0f;
-      dv = (v2 - v) / 2.0f;
+      for (int q = 0; q < 3; ++q) load8<BF16, 32>(pk.table, rn, q, &e[8 * q]);
+      du = (field2(e, 0, hn.p4, dz2) - u) / 2.0f;
+      dv = (field2(e, 1, hn.p4, dz2) - v) / 2.0f;
+      w2 = field2(e, 2, hn.p4, dz2);
     } else {
+      const Horiz hw2 = horiz_weights(xn, yn, a.nx, a.ny);
+      int indz2;
+      float dz2;
+      vert_weights(sh_height, a.nz, z_new, indz2, dz2);
+      const size_t row2 = fp::cell_row(indz2, hw2.jy, hw2.ix, a.ny, a.nx);
+      float e[24];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) load8<BF16, 32>(rowsE, row2, k, &e[8 * k]);
       du = (field2(e, 0, hw2.p4, dz2) - u) / 2.0f;
       dv = (field2(e, 1, hw2.p4, dz2) - v) / 2.0f;
       w2 = field2(e, 2, hw2.p4, dz2);

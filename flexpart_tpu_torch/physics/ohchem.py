@@ -12,7 +12,12 @@ device).  The per-particle reaction has two versions:
 * kernel K12 (``csrc/ohreaction.cu``: per particle the cell-centre
   temperature of the nearer wind field, the nearest OH cell, the hourly
   interpolation, the Arrhenius rate and the mass decay of every
-  OH-reactive species, in one launch), which runs for CUDA tensors.
+  OH-reactive species, in one launch), which runs for CUDA tensors.  It
+  blends the two hourly fields once per OH cell and finds the nearest
+  cell by binary search where every axis is finite and nondecreasing
+  (``sorted_axis``, checked once per grid: ``OHGrid.scan`` is False), by a
+  scan of every entry otherwise; ``nearest_sorted`` is the search in plain
+  torch, which the tests hold equal to ``_nearest``.
 
 ``make_ohreaction`` returns the function that picks by device and never
 falls from one to the other.
@@ -217,8 +222,10 @@ class HourlyOH:
 class OHGrid:
     """What the per-particle reaction reads besides the particles: the OH
     grid's axes (float32; ``axes`` the three concatenated on the run's
-    device, made once), the met grid's origin and spacing, and the
-    constants (c, d, n) of every species, None where it does not react."""
+    device, made once), the met grid's origin and spacing, the constants
+    (c, d, n) of every species, None where it does not react, and ``scan``:
+    an axis is not finite and nondecreasing, so K12 takes its SCAN
+    instantiation."""
     lon: np.ndarray
     lat: np.ndarray
     alt_top: np.ndarray
@@ -230,6 +237,7 @@ class OHGrid:
     nx: int
     ny: int
     consts: tuple
+    scan: bool = False
 
 
 def hourly_weight(itime: int, t0: int, t1: int) -> float:
@@ -258,6 +266,50 @@ def _nearest(axis: torch.Tensor, v: torch.Tensor,
         d = torch.abs(axis[None, :] - v[a:a + chunk, None])
         out[a:a + chunk] = torch.argmin(d, dim=1)
     return out
+
+
+def sorted_axis(axis: np.ndarray) -> bool:
+    """The axis is finite and nondecreasing in float32: the condition under
+    which K12's search finds ``_nearest``'s index."""
+    a = np.asarray(axis, np.float32)
+    return bool(np.all(np.isfinite(a)) and np.all(a[1:] >= a[:-1]))
+
+
+def _first_at_least(axis: torch.Tensor, lo, hi, v, t):
+    """Per element the first i in [lo, hi) with fl(axis[i] - v) >= t, hi
+    where none: K12's binary search (``first_at_least``), every step on
+    every element (an element whose range is empty stays)."""
+    last = axis.shape[0] - 1
+    n = hi - lo
+    for _ in range(axis.shape[0].bit_length()):
+        half = n >> 1
+        probe = axis[torch.clamp(lo + half, 0, last)] - v
+        live = n > 0
+        up = live & ~(probe >= t)
+        lo = torch.where(up, lo + half + 1, lo)
+        n = torch.where(up, n - half - 1, torch.where(live, half, n))
+    return lo
+
+
+def nearest_sorted(axis: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``_nearest`` on a finite nondecreasing axis by K12's search
+    (``nearest_sorted`` of csrc/ohreaction.cu), in plain torch for the
+    tests: fl(axis[i] - v) is nondecreasing in i, so the least distance
+    lies at j, the first i with a difference >= 0, or at j - 1 (a tie to
+    j - 1), and where j - 1 wins, at the first index of its difference; v
+    NaN gives 0."""
+    size = axis.shape[0]
+    zero = torch.zeros(v.shape, dtype=torch.int64, device=v.device)
+    j = _first_at_least(axis, zero, torch.full_like(zero, size), v,
+                        torch.zeros_like(v))
+    below = axis[torch.clamp(j - 1, 0, size - 1)] - v
+    above = axis[torch.clamp(j, 0, size - 1)] - v
+    take_j = (j < size) & (above < -below)
+    plateau = (j >= 2) & (axis[torch.clamp(j - 2, 0, size - 1)] - v == below)
+    first = _first_at_least(axis, zero, torch.clamp(j - 1, 0, size), v,
+                            below)
+    out = torch.where(take_j, j, torch.where(plateau, first, j - 1))
+    return torch.where((j == 0) | torch.isnan(v), zero, out)
 
 
 def ohreaction_plain(p: Particles, g: OHGrid, oh0, oh1, t0: int, t1: int,
@@ -301,9 +353,11 @@ class OHSpec(ctypes.Structure):
                 ("n", ctypes.c_float), ("on", ctypes.c_int)]
 
 
-def ohreaction_cuda(p: Particles, g: OHGrid, oh0, oh1, t0: int, t1: int,
-                    itime: int, tt, height, ltsample: int) -> Particles:
-    """K12 launch: one thread per particle, the mass written out of place."""
+def k12_arguments(p: Particles, g: OHGrid, oh0, oh1, t0: int, t1: int,
+                  itime: int, tt, height, ltsample: int):
+    """K12's checks and its C arguments up to ``|ltsample|`` (the scan
+    flag, the output and the stream follow): (the arguments, the OHSpec
+    array they point into, which must live through the launch)."""
     n, nspec, dev = p.capacity, p.nspec, p.device
     if nspec > MAX_SPECIES:
         raise ValueError(f"K12 takes at most {MAX_SPECIES} species")
@@ -346,21 +400,30 @@ def ohreaction_cuda(p: Particles, g: OHGrid, oh0, oh1, t0: int, t1: int,
         if cst is not None:
             specs[k].c, specs[k].d, specs[k].n = (float(v) for v in cst)
             specs[k].on = 1
-    mass = torch.empty_like(p.mass)
-    if n == 0:
-        return p.replace(mass=mass)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.OHREACTION(
-            p.x_hi.data_ptr(), p.x_lo.data_ptr(), p.y_hi.data_ptr(),
+    args = (p.x_hi.data_ptr(), p.x_lo.data_ptr(), p.y_hi.data_ptr(),
             p.y_lo.data_ptr(), p.z.data_ptr(), p.active.data_ptr(),
             p.mass.data_ptr(), tt.data_ptr(), height.data_ptr(), nz, g.ny,
             g.nx, float(np.float32(g.xlon0)), float(np.float32(g.ylat0)),
             float(np.float32(g.dx)), float(np.float32(g.dy)),
-            g.axes.data_ptr(), *noh,
-            oh0.data_ptr(), oh1.data_ptr(), int(itime), int(t0), int(t1),
-            ctypes.addressof(specs), n, nspec, abs(int(ltsample)),
-            mass.data_ptr(), stream)
+            g.axes.data_ptr(), *noh, oh0.data_ptr(), oh1.data_ptr(),
+            int(itime), int(t0), int(t1), ctypes.addressof(specs), n, nspec,
+            abs(int(ltsample)))
+    return args, specs
+
+
+def ohreaction_cuda(p: Particles, g: OHGrid, oh0, oh1, t0: int, t1: int,
+                    itime: int, tt, height, ltsample: int) -> Particles:
+    """K12 launch: one thread per particle, the mass written out of place;
+    its search instantiation, or SCAN where ``g.scan``."""
+    # _specs: the OHSpec array the arguments point into, alive to the call
+    args, _specs = k12_arguments(p, g, oh0, oh1, t0, t1, itime, tt, height,
+                                 ltsample)
+    mass = torch.empty_like(p.mass)
+    if p.capacity == 0:
+        return p.replace(mass=mass)
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        _build.OHREACTION(*args, int(g.scan), mass.data_ptr(), stream)
     return p.replace(mass=mass)
 
 
@@ -369,7 +432,9 @@ def make_ohreaction(field: OHField, grid, species, device):
     ``ohreaction(p, oh0, oh1, t0, t1, itime, tt, height, ltsample)`` with
     ``tt`` the (nz, ny, nx) temperature of the nearer wind field and
     ``height`` its levels.  K12 on a CUDA device, the plain version on the
-    CPU."""
+    CPU.  The axes are checked here, once: K12 searches them where all
+    three are finite and nondecreasing (``sorted_axis``) and scans them
+    otherwise."""
     lon = np.array(field.lon, np.float32)
     lat = np.array(field.lat, np.float32)
     alt_top = np.array(field.alt_top, np.float32)
@@ -380,7 +445,8 @@ def make_ohreaction(field: OHField, grid, species, device):
         xlon0=grid.xlon0, ylat0=grid.ylat0, dx=grid.dx, dy=grid.dy,
         nx=grid.nx, ny=grid.ny,
         consts=tuple((s.ohcconst, s.ohdconst, s.ohnconst)
-                     if s.ohcconst > 0 else None for s in species))
+                     if s.ohcconst > 0 else None for s in species),
+        scan=not all(sorted_axis(a) for a in (lon, lat, alt_top)))
     run = {"cuda": ohreaction_cuda,
            "cpu": ohreaction_plain}.get(torch.device(device).type)
     if run is None:

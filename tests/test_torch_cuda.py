@@ -608,3 +608,67 @@ def test_k16_edge_cases_hold_k8s_rule(card, flux_case, n):
             seen += 1
     torch.cuda.synchronize()
     assert seen == 2
+
+
+@pytest.fixture(scope="module")
+def oh_case():
+    """K12 on chip_smoke.py's bench grid: (the grid, field -> (OHGrid, its
+    arguments after the particles)), chip_smoke.oh_fields: SyntheticMet's
+    temperature, the field's hourly fields at a daylight step, the two OH
+    species."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K12 has no CPU mode")
+    from flexpart_tpu_torch.met.synthetic import make_grid
+    cs = _chip_smoke()
+    grid = make_grid(**cs.BENCH_GRID)
+    return grid, lambda field: cs.oh_fields(field, torch.device("cuda"),
+                                            grid)[1:]
+
+
+@pytest.mark.parametrize("scan", [False, True])
+def test_k12_edge_cases_equal_the_plain_version(card, oh_case, scan):
+    """K12 on 2**16 particles where its nearest-cell search has its edges
+    (chip_smoke.oh_edge_particles: midpoints, entries and a float from
+    them, beyond both ends, +-0, z of +-inf and NaN; 1/32 inactive),
+    through the search and through the SCAN instantiation: the mass
+    bitwise (chip_smoke.held_ohreaction)."""
+    import dataclasses
+    cs = _chip_smoke()
+    from flexpart_tpu_torch.physics import ohchem
+    grid, case = oh_case
+    g, args = case(ohchem.synthetic_oh_field())
+    assert not g.scan
+    p = cs.oh_edge_particles(2 ** 16, card, 31, grid, g)
+    assert bool(torch.isnan(p.z).any()) and bool(torch.isinf(p.z).any())
+    cs.held_ohreaction(dataclasses.replace(g, scan=scan), p, args,
+                       f"K12 edges, scan={scan}")
+    torch.cuda.synchronize()
+
+
+def test_k12_unsorted_axis_takes_scan(card, oh_case):
+    """An OH grid with its longitudes in descending order
+    (chip_smoke.oh_unsorted_field) is not searched: K12's SCAN
+    instantiation runs and equals the plain version bitwise, on the
+    deposition particles and on the edge particles."""
+    cs = _chip_smoke()
+    grid, case = oh_case
+    g, args = case(cs.oh_unsorted_field())
+    assert g.scan
+    for name, p in (("spread", cs.depo_particles(2 ** 16, card, 29, grid)),
+                    ("edges", cs.oh_edge_particles(2 ** 16, card, 31, grid,
+                                                   g))):
+        cs.held_ohreaction(g, p, args, f"K12 unsorted {name}")
+    torch.cuda.synchronize()
+
+
+def test_k4_nests_overlapping_windows(card):
+    """K4 NESTS with three windows that overlap without nesting
+    (chip_smoke.NEST_OVERLAP) on 2**18 particles, a float inside and
+    outside each window's edges among them: every output bitwise against
+    ``advance_all_plain``, the draws in registers too; the particles that
+    several windows hold take the last (chip_smoke.nests_overlap_case)."""
+    cs = _chip_smoke()
+    from flexpart_tpu_torch.met.synthetic import make_grid
+    res = cs.nests_overlap_case(card, make_grid(**cs.BENCH_GRID), 2 ** 18)
+    assert res["bitwise"] and res["differing_particles"] == 0
+    assert res["shares"]["in_several"] > 0.05

@@ -278,3 +278,185 @@ def test_nests_refused_with_adaptive_step_and_legacy(nested_met):
         Simulation(**kw, legacy_rng=True)
     with pytest.raises(ValueError, match="nested"):
         Simulation(**{**kw, "cmd": Command(**{**cmd.__dict__, "ctl": 5.0})})
+
+
+# three windows that overlap without nesting: 5 degrees over 40 W-20 E,
+# 10-50 N; 5 degrees over 0-60 E, 30-70 N; 2.5 degrees over 10-40 E,
+# 0-40 N, the last partly outside both
+OVERLAP = (dict(nx=13, ny=9, dx=5.0, dy=5.0, xlon0=-40.0, ylat0=10.0),
+           dict(nx=13, ny=9, dx=5.0, dy=5.0, xlon0=0.0, ylat0=30.0),
+           dict(nx=13, ny=17, dx=2.5, dy=2.5, xlon0=10.0, ylat0=0.0))
+
+
+@pytest.fixture(scope="module")
+def overlap_met(nested_met):
+    """The nested_met mother and three SyntheticMet nests of OVERLAP on its
+    levels, each with a jet of its own."""
+    grid, _, jz, _ = nested_met
+    height = jz["mother"][0].height
+    nests = tuple(jmet.make_grid(nlev=15, xglobal=False, **spec)
+                  for spec in OVERLAP)
+    zn = []
+    for k, g in enumerate(nests):
+        m = jmet.SyntheticMet(g, u_jet=30.0 + 10.0 * k)
+        zn.append([jmet.calcpar(g, m.fetch(t), jmet.process_eta(
+            g, m.fetch(t), height)) for t in (0.0, float(MEM1))])
+    tzn = [[interop.zfields_from_numpy(
+        {f: np.asarray(v) for f, v in z._asdict().items()}, "cpu")
+        for z in zs] for zs in zn]
+    jcfg = jadv.StepConfig(nx=grid.nx, ny=grid.ny, nz=grid.nlev,
+                           xglobal=True, ldirect=1, turbswitch=False,
+                           ifine=1, method=0, met_bf16=False,
+                           nests=tuple((g.nx, g.ny) for g in nests))
+    windows = nest_windows(_to_port_grid(grid),
+                           tuple(_to_port_grid(g) for g in nests))
+    jprm = jadv.StepParams.make(dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0,
+                                dxconst=grid.dxconst, dyconst=grid.dyconst,
+                                lsynctime=LSYNC, fine=1.0, **windows)
+    return jcfg, jprm, zn, tzn
+
+
+def _edge_coords(a, k: int):
+    """Nest k's four window thresholds as AdvanceArgs holds them,
+    fl(xln + eps), fl(xrn - eps), fl(yln + eps), fl(yrn - eps), each with
+    the float below and above it."""
+    f32 = np.float32
+    eps = f32(a.eps_nest)
+    out = []
+    for base, sign in ((a.xln[k], 1), (a.xrn[k], -1), (a.yln[k], 1),
+                       (a.yrn[k], -1)):
+        th = f32(f32(base) + f32(sign) * eps)
+        out.append(np.array([np.nextafter(th, f32(-np.inf)), th,
+                             np.nextafter(th, f32(np.inf))], f32))
+    return out
+
+
+def _jax_nest_index(jcfg, jprm, x, y):
+    """JAX's selection, the where chain of its advance_all
+    (core/advance.py:843-866): the last window that holds the particle."""
+    eps_n = jnp.float32(jcfg.nx / 3.0e5)
+    x, y = jnp.asarray(x), jnp.asarray(y)
+    idx = jnp.full(x.shape, -1, jnp.int32)
+    for k in range(len(jcfg.nests)):
+        inn = ((x > jprm.xln[k] + eps_n) & (x < jprm.xrn[k] - eps_n)
+               & (y > jprm.yln[k] + eps_n) & (y < jprm.yrn[k] - eps_n))
+        idx = jnp.where(inn, k, idx)
+    return np.asarray(idx)
+
+
+def test_nest_index_a_float_from_each_edge(nested_met, overlap_met):
+    """``nest_index`` (the grid K4 NESTS's nest_select picks) on each
+    overlapping window's edges, at the threshold and a float on either
+    side, across the other windows: JAX's where chain bit for bit; the
+    threshold itself is outside (strict comparisons), the float inside it
+    inside."""
+    jcfg, jprm, _, _ = overlap_met
+    tcfg = interop.step_config_from_jax(jcfg)
+    a = tadv.advance_args(tcfg, interop.step_params_from_numpy(jprm), LSYNC,
+                          0, MEM1)
+    xs, ys = [], []
+    for k in range(3):
+        ex = np.concatenate(_edge_coords(a, k)[:2])
+        ey = np.concatenate(_edge_coords(a, k)[2:])
+        span_y = np.linspace(a.yln[k], a.yrn[k], 17, dtype=np.float32)
+        span_x = np.linspace(a.xln[k], a.xrn[k], 17, dtype=np.float32)
+        xs += [np.repeat(ex, 17), np.tile(span_x, 6)]
+        ys += [np.tile(span_y, 6), np.repeat(ey, 17)]
+    x, y = np.concatenate(xs), np.concatenate(ys)
+    got = tadv.nest_index(tcfg, a, torch.as_tensor(x),
+                          torch.as_tensor(y)).numpy()
+    np.testing.assert_array_equal(got, _jax_nest_index(jcfg, jprm, x, y))
+    # each window's left threshold: out at it, in a float above it (where
+    # no later window holds the point, the index is the window's own)
+    for k in range(3):
+        th = _edge_coords(a, k)[0]
+        mid_y = np.float32((a.yln[k] + a.yrn[k]) / 2.0)
+        held = [tadv._in_nest(a, k, torch.tensor([v]), torch.tensor([mid_y]))
+                for v in th]
+        assert [bool(h) for h in held] == [False, False, True]
+    assert set(np.unique(got)) == {-1, 0, 1, 2}
+
+
+def test_overlapping_nests_match_jax(nested_met, overlap_met):
+    """The port's plain advance with the three overlapping windows against
+    JAX's ``advance_all`` with the same nests and JAX's draws injected, on
+    2048 particles: a third over the windows' union, a third at their
+    edges (a float from each threshold), a third anywhere;
+    ``test_two_nests_match_jax``'s tolerances.  Particles in two or three
+    windows take the last (``nest_index``, JAX's where chain), and those
+    the last window holds move otherwise than with the mother's met."""
+    grid, _, jz, tz = nested_met
+    jcfg, jprm, zn, tzn = overlap_met
+    tcfg = interop.step_config_from_jax(jcfg)
+    tprm = interop.step_params_from_numpy(jprm)
+    a = tadv.advance_args(tcfg, tprm, LSYNC, 0, MEM1)
+    rs = np.random.default_rng(12)
+    third = rs.integers(0, 3, N)
+    # the union of the windows is x 14-22, y 9-16 in mother units
+    x = np.where(third == 0, rs.uniform(14.0, 22.0, N),
+                 rs.uniform(0.0, grid.nx - 1.0, N)).astype(np.float32)
+    y = np.where(third == 0, rs.uniform(9.0, 16.0, N),
+                 rs.uniform(0.3, grid.ny - 1.3, N)).astype(np.float32)
+    edges = np.flatnonzero(third == 1)
+    for j, i in enumerate(edges):
+        k, side = j % 3, (j // 3) % 4
+        v = _edge_coords(a, k)[side][(j // 12) % 3]
+        if side < 2:
+            x[i] = v
+            y[i] = rs.uniform(a.yln[k], a.yrn[k])
+        else:
+            y[i] = v
+            x[i] = rs.uniform(a.xln[k], a.xrn[k])
+    p = jstate.empty_particles(N)
+    p = p._replace(
+        x_hi=jnp.asarray(x), y_hi=jnp.asarray(y),
+        z=jnp.asarray(rs.uniform(5.0, 6000.0, N), jnp.float32),
+        active=jnp.asarray(rs.uniform(size=N) < 0.97),
+        itra=jnp.zeros(N, jnp.int32),
+        itramem=jnp.asarray(np.where(rs.uniform(size=N) < 0.5, LSYNC, -3600),
+                            jnp.int32),
+        mass=jnp.full((N, 1), 1.0 / N, jnp.float32))
+    key = jax.random.PRNGKey(5)
+    draws = {t: torch.from_numpy(np.array(jrng.normals(key, (r, N), tag=t)))
+             for t, r in ((6, 6), (1, 2), (2, 1), (3, 3), (4, 3))}
+    j0, j1 = jz["mother"]
+    jp, jd = jadv.advance_all(p, j0, j1, jnp.int32(LSYNC), jnp.int32(0),
+                              jnp.int32(MEM1), key, jcfg, jprm,
+                              tuple(z[0] for z in zn),
+                              tuple(z[1] for z in zn))
+    tp0 = interop.particles_from_numpy(
+        {k: np.asarray(v) for k, v in p._asdict().items()}, "cpu")
+    tp, td = tadv.advance_all(
+        tp0, tz["mother"][0], tz["mother"][1], LSYNC, 0, MEM1,
+        trng.Key(1, 0), tcfg, tprm, draws=draws,
+        z0n=tuple(z[0] for z in tzn), z1n=tuple(z[1] for z in tzn))
+    got = interop.particles_to_numpy(tp)
+    want = {k: np.asarray(v) for k, v in jp._asdict().items()}
+    np.testing.assert_allclose(got["x_hi"] + got["x_lo"],
+                               want["x_hi"] + want["x_lo"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["y_hi"] + got["y_lo"],
+                               want["y_hi"] + want["y_lo"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got["z"], want["z"], rtol=1e-4, atol=1e-2)
+    for f in ("up", "vp", "wp", "usig", "vsig", "wsig"):
+        np.testing.assert_allclose(got[f], want[f], rtol=1e-4, atol=1e-5,
+                                   err_msg=f)
+    for f in ("cbt", "active", "itra"):
+        np.testing.assert_array_equal(got[f], want[f], err_msg=f)
+    for f in ("n_active", "n_exited"):
+        assert int(getattr(td, f)) == int(getattr(jd, f)), f
+    idx = tadv.nest_index(tcfg, a, tp0.x, tp0.y).numpy()
+    np.testing.assert_array_equal(idx, _jax_nest_index(jcfg, jprm, x, y))
+    held = np.stack([tadv._in_nest(a, k, tp0.x, tp0.y).numpy()
+                     for k in range(3)])
+    several = held.sum(0) >= 2
+    assert several.sum() > 50 and (held.sum(0) == 3).sum() > 10
+    last = np.where(held[2], 2, np.where(held[1], 1, np.where(held[0], 0,
+                                                              -1)))
+    np.testing.assert_array_equal(idx, last)
+    # the last window's particles move with its jet, not the mother's
+    mother_cfg = type(tcfg)(**{**tcfg.__dict__, "nests": ()})
+    tm, _ = tadv.advance_all(tp0, tz["mother"][0], tz["mother"][1], LSYNC, 0,
+                             MEM1, trng.Key(1, 0), mother_cfg, tprm,
+                             draws=draws)
+    moved = tm.x.numpy() != tp.x.numpy()
+    assert moved[(idx == 2) & several].mean() > 0.9

@@ -37,6 +37,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from hypothesis.extra import numpy as hnp
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
@@ -322,3 +325,89 @@ def test_simulation_from_jax_carries_the_oh_field_and_checkpoint(runs,
         jsim.checkpoint_at, jsim.checkpoint_path = None, "checkpoint.npz"
     assert (sim.checkpoint_at, sim.checkpoint_path) == (3600,
                                                         str(tmp_path / "c"))
+
+
+# ---- K12's nearest-cell search: its plain mirror against the argmin ----
+
+F32 = np.float32
+SEARCH_AXES = {
+    "lon": toh.synthetic_oh_field().lon,
+    "lat": toh.synthetic_oh_field().lat,
+    "alt_top": toh.synthetic_oh_field().alt_top,
+    # repeated entries: plateaus of equal distances
+    "plateaus": np.array([-5.0, -5.0, -5.0, 0.0, 0.0, 1.0, 7.5, 7.5, 30.0]),
+    "one_entry": np.array([3.0]),
+    # differences that are subnormal or zero of either sign
+    "subnormal": np.array([-0.0, 0.0, 1e-45, 2e-45, 1e-38]),
+    "wide": np.array([-3.0e38, -1.0, 0.0, 1.0, 3.0e38]),
+}
+
+
+def _edge_values(axis):
+    """What the search has edges at: the midpoints between two entries,
+    each entry and a float on either side of it, beyond both ends, +-0,
+    +-inf, NaN, the largest floats and subnormals."""
+    a = np.asarray(axis, F32)
+    mids = ((a[:-1].astype(np.float64) + a[1:]) / 2.0).astype(F32)
+    return np.concatenate([
+        mids, a, np.nextafter(a, F32(np.inf)), np.nextafter(a, F32(-np.inf)),
+        np.nextafter(mids, F32(np.inf)), np.nextafter(mids, F32(-np.inf)),
+        [a.min() - 1000.0, a.max() + 1000.0, 0.0, -0.0, np.inf, -np.inf,
+         np.nan, 3.0e38, -3.0e38, 1e-45, -1e-45, 1.0e30, -1.0e30]]).astype(F32)
+
+
+def _argmins(axis, v):
+    """(_nearest's index, the search mirror's).  JAX's argmin is not a
+    reference here: XLA on the CPU flushes subnormal differences to zero,
+    torch and the card do not."""
+    at, vt = torch.as_tensor(axis), torch.as_tensor(v)
+    return toh._nearest(at, vt).numpy(), toh.nearest_sorted(at, vt).numpy()
+
+
+@pytest.mark.parametrize("name", sorted(SEARCH_AXES))
+def test_nearest_sorted_equals_argmin_on_edges(name):
+    """K12's search (``nearest_sorted``, the kernel's in plain torch) finds
+    the argmin's index, the first of equal distances, on the search's edge
+    values: ties, entries and a float from them, beyond the ends, +-0,
+    +-inf, NaN, subnormal differences, plateaus of repeated entries."""
+    axis = np.asarray(SEARCH_AXES[name], F32)
+    assert toh.sorted_axis(axis)
+    ref, got = _argmins(axis, _edge_values(axis))
+    np.testing.assert_array_equal(got, ref)
+    if name == "plateaus":
+        # a plateau's first entry wins: never the second of two equal ones
+        assert not np.isin(got, [1, 2, 4, 7]).any()
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
+@given(axis=hnp.arrays(F32, st.integers(1, 80),
+                       elements=st.floats(-1e6, 1e6, width=32)),
+       v=hnp.arrays(F32, 64, elements=st.floats(width=32)))
+def test_nearest_sorted_equals_argmin_drawn(axis, v):
+    """The same on drawn axes (sorted, so repeated entries come up) and
+    drawn values, NaN and +-inf among them."""
+    axis = np.sort(axis)
+    ref, got = _argmins(axis, np.concatenate([v, _edge_values(axis)]))
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_host_check_sends_unsorted_axes_to_scan():
+    """``make_ohreaction`` checks the axes once: the synthetic and a file's
+    climatology (sorted, repeated entries allowed) take the search; an
+    axis in descending order, with a NaN or an infinity takes K12's SCAN
+    instantiation."""
+    assert toh.sorted_axis(np.array([1.0, 1.0, 2.0]))
+    for bad in ([2.0, 1.0], [0.0, np.nan], [0.0, np.inf], [-np.inf, 0.0]):
+        assert not toh.sorted_axis(np.array(bad))
+    grid = make_grid(**GRID)
+    sp = [tconfig.Species(**REACT)]
+    f = toh.synthetic_oh_field()
+    assert not toh.make_ohreaction(f, grid, sp, "cpu").grid.scan
+    import dataclasses
+    for changed in (dict(lon=f.lon[::-1].copy()),
+                    dict(lat=np.where(np.arange(len(f.lat)) == 3, np.nan,
+                                      f.lat)),
+                    dict(alt=f.alt[::-1].copy())):
+        g = toh.make_ohreaction(dataclasses.replace(f, **changed), grid, sp,
+                                "cpu").grid
+        assert g.scan, list(changed)
