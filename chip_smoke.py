@@ -84,11 +84,18 @@ the port's stock forward step on the card, in phases:
                 (times max(xscav, 0)) and COUNT instantiations within
                 K3's tolerance on 10 x 2**20 old particles with two
                 species, both paths, beside the stock K3 and index_add_
-                of their pairs; K7's BACKWARD instantiation (the
+                of their pairs, and K3's BKDEP body on the plume a
+                backward deposition run samples (10 x 2**20 particles in
+                sim_bkdep's receptor box, young on the single-index and
+                on the 4-point path, aged past 3 h), held with its twin
+                to K8's rule of the float64 sum of its pairs, each case
+                with its bound by need; K7's BACKWARD instantiation (the
                 transposed matrix) bitwise on both convection cases; K9's
                 and K10's BKDEP instantiations (the scavenging factor of
                 a fresh particle) bitwise on the deposition particles,
-                half of them fresh; and the advance at ldirect = -1: stock
+                half of them fresh (K10's also all fresh, sim_bkdep's
+                call, with its bound by need); and the advance at
+                ldirect = -1: stock
                 K4 and POLAR on 10 x 2**20 particles with injected draws,
                 K11 and K11 CBL on 2**20 boundary-layer particles, all
                 bitwise, each beside the forward instantiation; K9's
@@ -202,6 +209,15 @@ the port's stock forward step on the card, in phases:
                 and deposited fields (float atomics: within K3's and K8's
                 rtol, and reported bitwise or not), the header and every
                 grid_conc_ file read back equal to the npz of its step;
+ 8b'. service — the port's service layer on sim_npz's job: a job directory
+                built by flexpart_tpu_torch.service from the job's options
+                and met archives and a site's runtime configuration given
+                rendered (no YAML: the run's window, IPOUT=2), its job
+                script run as a subprocess on the card (python -m
+                flexpart_tpu_torch), its output uploaded to a LocalStore
+                under build/ and each object checked against its file
+                byte for byte, its partposit_end's particles bitwise
+                sim_npz's (sim's run A's);
  8c. sim_grib — sim_npz's job on ECMWF-style GRIB2 files of the sim
                 phase's met (the 29 model levels top-down with the hybrid
                 coefficients as pv, the surface set in the accumulations
@@ -271,7 +287,13 @@ the port's stock forward step on the card, in phases:
                 positive wet factors in the storm band, the dry factor the
                 species' dryvel, wetscav_precip.txt written, K3 BKDEP
                 sampling; WETBKDEP once more with use_clwc (K9 BKDEP x
-                CLWC);
+                CLWC); every K3 BKDEP and K10 BKDEP call of the three runs
+                recorded and held against its plain version, timed by CUDA
+                graphs and per launch by torch.profiler, K3's beside
+                index_add_ of its pairs, each with its bound by need; and
+                the DRYBKDEP run once more with trace_dir (untimed): the
+                trace must be written, parse and name every hand-written
+                kernel that the run's launch counts show launched;
  14. sim_oh_split — particle dumps, warm start, checkpoints, the OH
                 reaction (K12) and particle splitting (K13) through
                 Simulation.run at full width: the sim phase's
@@ -4732,9 +4754,146 @@ def phase_sim_npz(device, kernels, held: dict, simres: dict) -> dict:
             device_busy_share=simres["device_ms_all_kernels"] / 1e3
             / simres["run_s"]))
     del sim
+    # the service phase runs this job again from its job directory: it
+    # takes run A's particles and the met archives
+    particles = held["particles"]
     held.clear()
-    shutil.rmtree(SIM_NPZ_DIR, ignore_errors=True)
+    held["particles"] = particles
+    shutil.rmtree(SIM_NPZ_DIR / "job", ignore_errors=True)
     shutil.rmtree(SIM_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+SERVICE_DIR = ROOT / "build" / "service_smoke"
+SERVICE_SITE = "SIM"
+
+
+def service_site(env) -> dict:
+    """The sim_npz job's runtime configuration for one release site, as
+    the service's template would render it (no YAML): COMMAND's run window
+    from the environment's times, with IPOUT=2 (partposit_end at the run's
+    end), and RELEASES' emission window."""
+    tv = env.template_vars()
+
+    def day(k):
+        return f"{tv[k + '_YYYY']}{tv[k + '_MM']}{tv[k + '_DD']}"
+    return {"command": {"IBDATE": day("EMISSION_START"),
+                        "IBTIME": f"{tv['EMISSION_START_ZZ']}0000",
+                        "IEDATE": day("SIMULATION_END"),
+                        "IETIME": f"{tv['SIMULATION_END_ZZ']}0000",
+                        "IPOUT": 2},
+            "releases": {"IDATE1": day("EMISSION_START"),
+                         "ITIME1": f"{tv['EMISSION_START_ZZ']}0000",
+                         "IDATE2": day("EMISSION_END"),
+                         "ITIME2": f"{tv['EMISSION_END_ZZ']}0000"}}
+
+
+def phase_service(device, held: dict) -> dict:
+    """The port's service layer (flexpart_tpu_torch.service) on sim_npz's
+    job: its options (COMMAND stating IPOUT=0) and met archives made into a
+    job directory by build_job_directory, from a site's configuration
+    rendered without YAML (service_site: the run's and the release's
+    window from EnvironmentParameters, IPOUT=2); the job's ``job`` script
+    run as a subprocess (``python -m flexpart_tpu_torch pathnames``, on the
+    card); its output uploaded to a LocalStore under build/, every object
+    equal to its file byte for byte and one downloaded back; the job's
+    particles (its partposit_end: positions as longitude and latitude,
+    height, release time, release point and masses) bitwise those of
+    sim_npz's run, which ended in sim's run A's (``held``)."""
+    import datetime
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from flexpart_tpu_torch.io import partdump
+    from flexpart_tpu_torch.met import make_grid
+    from flexpart_tpu_torch.service import (EnvironmentParameters,
+                                            LocalStore, build_job_directory,
+                                            download_keys, upload_output)
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    metdir = SIM_NPZ_DIR / "metdata"
+    src = SERVICE_DIR / "options_src"
+    write_sim_npz_job(src, metdir)
+    (src / "options" / "COMMAND").write_text(
+        namelist("command", {**changed(sim_config()[0]), "ipout": 0}))
+    t0 = datetime.datetime(2020, 1, 1, 0)
+    env = EnvironmentParameters(
+        emission_start=t0, emission_end=t0 + datetime.timedelta(hours=1),
+        simulation_end=t0 + datetime.timedelta(hours=SIM_HOURS))
+    job = build_job_directory(SERVICE_DIR / "jobs", src / "options", metdir,
+                              SERVICE_SITE, service_site(env), env,
+                              met_glob="*.npz")
+    avail = (job / "AVAILABLE").read_text().splitlines()
+    check(len(avail) == 3 + SIM_NPZ_HOURS,
+          f"service: AVAILABLE {avail}")
+    script = (job / "job").read_text().splitlines()
+    check(script[-1] == f"python -m flexpart_tpu_torch {job / 'pathnames'}",
+          f"service: job script {script}")
+    # the job script's python is this interpreter (a wrapper that runs it
+    # by its own path: a link elsewhere would lose its virtual environment),
+    # its package this checkout
+    bindir = SERVICE_DIR / "bin"
+    bindir.mkdir()
+    (bindir / "python").write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    (bindir / "python").chmod(0o755)
+    env_run = dict(os.environ, PYTHONPATH=str(ROOT),
+                   PATH=f"{bindir}{os.pathsep}{os.environ.get('PATH', '')}")
+    t1 = time.perf_counter()
+    run = subprocess.run(["bash", str(job / "job")], cwd=str(job),
+                         env=env_run, capture_output=True, text=True,
+                         timeout=900)
+    job_s = time.perf_counter() - t1
+    print(run.stdout[-2000:], run.stderr[-4000:], sep="\n", flush=True)
+    check(run.returncode == 0 and BANNER in run.stdout
+          and "psteps/s" in run.stdout,
+          f"service: the job script failed ({run.returncode})")
+    out = job / "output"
+    # the job's particles against sim_npz's (sim run A's), bitwise
+    pa = held["particles"]
+    itime, d = partdump.read_partposit(out / "partposit_end", pa.nspec)
+    idx = torch.nonzero(pa.active).flatten()
+    lon, lat = partdump._lonlat(pa, make_grid(**SIM_GRID))
+    idx_np = idx.cpu().numpy()
+    want = dict(lon=lon[idx_np], lat=lat[idx_np],
+                z=pa.z[idx].cpu().numpy(), mass=pa.mass[idx].cpu().numpy(),
+                itramem=pa.itramem[idx].cpu().numpy(),
+                npoint=pa.npoint[idx].cpu().numpy())
+    check(itime == SIM_HOURS * 3600 and len(d["z"]) == len(idx_np),
+          f"service: partposit_end at {itime} with {len(d['z'])} particles")
+    for f, w in want.items():
+        got = d[f].astype(w.dtype)
+        check(np.array_equal(got.view(np.uint8), w.view(np.uint8)),
+              f"service: partposit_end {f} differs from sim_npz's particles")
+    # the output through an object store and back
+    store = LocalStore(SERVICE_DIR / "store")
+    n_up = upload_output(store, job, "results", prefix=SERVICE_SITE)
+    keys = store.list_objects("results", f"{SERVICE_SITE}/")
+    files = sorted(f for f in out.rglob("*") if f.is_file())
+    check(n_up == len(keys) == len(files) > 0,
+          f"service: {n_up} uploaded, {len(keys)} objects, {len(files)} files")
+    n_bytes = 0
+    for f in files:
+        key = f"{SERVICE_SITE}/{f.relative_to(out)}"
+        data = (store.root / "results" / key).read_bytes()
+        check(key in keys and data == f.read_bytes(),
+              f"service: object {key} differs from its file")
+        n_bytes += len(data)
+    back = download_keys(store, "results", [f"{SERVICE_SITE}/dates"],
+                         SERVICE_DIR / "download")
+    check(back[0].read_bytes() == (out / "dates").read_bytes(),
+          "service: the downloaded dates differ")
+    res = dict(job_files=sorted(
+                   str(f.relative_to(job)) for f in job.rglob("*")
+                   if f.relative_to(job).parts[0] != "data" and f.is_file()),
+               job_script=script, available_lines=len(avail),
+               job_s=job_s, job_stdout_tail=run.stdout.splitlines()[-2:],
+               objects=len(keys), object_bytes=n_bytes,
+               partposit_end_particles=len(idx_np),
+               particles_bitwise_equal_to_sim_npz=True)
+    held.clear()
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    shutil.rmtree(SIM_NPZ_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     return res
 
@@ -5833,14 +5992,108 @@ def backward_conccalc_particles(device, nspec: int = 2):
     return p
 
 
+# K3 BKDEP's plumes: particles of a backward deposition run released at
+# the receptor time from sim_bkdep's receptor box (STORM_BOX, 50-500 m)
+BKDEP_PLUME_Z = (50.0, 500.0)
+BKDEP_ITIME = 14400
+# K3 BKDEP's plume cases: (name, aged past 3 h, kernel_possible).  A
+# backward run's sampler always has kernel_possible (the reference bounds
+# the particles' age only in a forward run: Simulation._first_release), so
+# sim_bkdep's calls take the 4-point path with every particle young, one
+# target each: plume_young_kp is their shape at full width
+BKDEP_PLUMES = (("plume_young", False, False),
+                ("plume_young_kp", False, True),
+                ("plume_aged", True, True))
+
+
+def bkdep_plume_particles(device, grid, aged: bool, n: int | None = None,
+                          nspec: int = 2, seed: int = 81):
+    """n particles of a backward deposition run's plume in cell order: in
+    sim_bkdep's receptor box (STORM_BOX, 50-500 m: some 44 cells of the
+    0.5-degree, 3-layer output grid, 72 for the 4-point kernel, 2-6 x 10**5
+    particles a cell at 10 x 2**20), all live at BKDEP_ITIME, under an hour
+    old (one target each, on either path) or, ``aged``, past 3 h (the
+    4-point kernel's four); masses of 0.5-1.5 / n and factors in [-0.5, 2)
+    (a fifth not above 0, which sampling takes as 0)."""
+    import torch
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.core.state import empty_particles
+    n = N_MAIN if n is None else n
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def u(lo, hi, shape=(n,)):
+        return torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
+
+    b = STORM_BOX
+    age = u(0.0, 3600.0) + (10800.0 if aged else 0.0)
+    p = empty_particles(n, nspec, device=device).replace(
+        x_hi=u((b["lon1"] - grid.xlon0) / grid.dx,
+               (b["lon2"] - grid.xlon0) / grid.dx),
+        y_hi=u((b["lat1"] - grid.ylat0) / grid.dy,
+               (b["lat2"] - grid.ylat0) / grid.dy),
+        x_lo=u(-1e-6, 1e-6), y_lo=u(-1e-6, 1e-6), z=u(*BKDEP_PLUME_Z),
+        itra=torch.full((n,), BKDEP_ITIME, dtype=torch.int32, device=device),
+        itramem=(BKDEP_ITIME - age).to(torch.int32),
+        active=torch.ones(n, dtype=torch.bool, device=device),
+        mass=u(0.5, 1.5, (n, nspec)) / n,
+        xscav=u(-0.5, 2.0, (n, nspec)))
+    cfg = step_setup(grid)[0]
+    (z0,) = met_fields("synthetic", grid, device)
+    return reorder.reorder_by_cell_cuda(p.replace(mass0=p.mass.clone()),
+                                        z0.height, cfg)[0]
+
+
+def k3_bound(p, itime: int, lin_valid, nspec: int, bkdep: bool,
+             rhoi: bool = False) -> dict:
+    """K3's least time on one call, by need: every slot's active flag, an
+    active slot's itra, a live slot's (itra == itime) positions, z,
+    itramem, npoint and nclass (32 B), its mass (and BKDEP's xscav: 4 B a
+    species each) and its density where given, and each gridunc row that
+    the call's valid pairs ``lin_valid`` hit read and written once (8 B a
+    species), however many pairs share it; K3_OPS_PER_PARTICLE for each
+    live slot."""
+    import torch
+    active = p.active
+    live = int((active & (p.itra == itime)).sum())
+    rows = int(torch.unique(lin_valid).numel())
+    per_live = 32 + 4 * nspec * (2 if bkdep else 1) + (4 if rhoi else 0)
+    return dict(bound(p.capacity + 4 * int(active.sum()) + per_live * live
+                      + 8 * nspec * rows, K3_OPS_PER_PARTICLE * live),
+                live=live, rows_hit=rows)
+
+
+def held_k3(gk, gp, lin, contrib, plume: bool, what: str) -> dict:
+    """K3's grid ``gk`` against the plain twin's ``gp`` (both (rows,
+    nspec)) and the call's valid pairs: on a spread ensemble within K3_RTOL
+    of the twin; on a plume (10**4-10**6 equal terms a cell) both within
+    K8's rule of the float64 sum of the pairs (held_against_f64): a plume
+    is never held to another float32 sum at rtol 1e-5."""
+    import torch
+    if plume:
+        return held_against_f64({"kernel": gk, "plain": gp}, lin, contrib,
+                                K8_RTOL, what)
+    d = (gk - gp).abs()
+    check(bool(torch.all(d <= K3_RTOL * gp.abs())),
+          f"{what} exceeds rtol {K3_RTOL}: max abs {float(d.max())}")
+    check(float(gp.sum()) > 0.0, f"{what}: nothing sampled")
+    return dict(max_abs_err=float(d.max()), pairs=int(lin.numel()))
+
+
 def kernel_conccalc_backward(device, grid) -> dict:
-    """K3's BKDEP instantiation (each species' value times max(xscav, 0))
-    and its COUNT instantiation (the particle count: 1, or the 4-point
-    weight) against conccalc_plain on 10 x 2**20 old particles with two
-    species in cell order, both sampling paths, within K3_RTOL (float
-    atomics); timed on the steady step's path (4-point) beside the stock
-    instantiation on the same particles, with index_add_ of each one's own
-    valid pairs as the library call (the scatter half)."""
+    """K3's BKDEP body (each species' value times max(xscav, 0)) and its
+    COUNT instantiation (the particle count: 1, or the 4-point weight)
+    against conccalc_plain on 10 x 2**20 old particles with two species in
+    cell order, both sampling paths, within K3_RTOL (float atomics); BKDEP
+    also on the plume that sim_bkdep samples, at full width
+    (bkdep_plume_particles, BKDEP_PLUMES: young on the single-index path;
+    young on the 4-point path, sim_bkdep's calls; aged past 3 h, the
+    4-point path), each held with the twin to K8's rule of the float64 sum
+    of its pairs.  Each case timed beside the stock instantiation on
+    the same particles and index_add_ of its own valid pairs (the library
+    call: the scatter half), with its bound by need (k3_bound).  BKDEP's
+    ``ms`` is plume_young_kp's, sim_bkdep's case; COUNT's the 4-point
+    path's."""
     import torch
     from flexpart_tpu_torch.core import reorder
     from flexpart_tpu_torch.grid import conccalc as cc
@@ -5848,60 +6101,78 @@ def kernel_conccalc_backward(device, grid) -> dict:
     cfg, _, og, geo, ccfg = step_setup(grid)
     (z0,) = met_fields("synthetic", grid, device)
     nspec = 2
-    p = reorder.reorder_by_cell_cuda(backward_conccalc_particles(device,
-                                                                 nspec),
-                                     z0.height, cfg)[0]
+    spread = reorder.reorder_by_cell_cuda(backward_conccalc_particles(
+        device, nspec), z0.height, cfg)[0]
     lage = torch.tensor([999999999], dtype=torch.int32, device=device)
     oh = torch.tensor(og.outheights, dtype=torch.float32, device=device)
     gk = zero_accumulators(geo, nspec, 1, device=device).gridunc
     gp = torch.zeros_like(gk)
     rows = gk.numel() // nspec
-    res = {}
-    for name, flags in (("conccalc.bkdep", dict(bkdep=True)),
-                        ("conccalc.count", dict(particle_count_output=True))):
-        cases = {}
-        for kp in (False, True):
-            c = ccfg.replace(kernel_possible=kp, **flags)
-            args = (p, 14400, lage, oh, 1.0, None, c)
-            what = f"K3 {name} {'4-point' if kp else 'single-index'} path"
-            gk.zero_()
-            gp.zero_()
-            cc.conccalc_cuda(gk.view(-1, nspec), *args)
-            cc.conccalc_plain(gp.view(-1, nspec), *args)
-            d = (gk - gp).abs()
-            check(bool(torch.all(d <= K3_RTOL * gp.abs())),
-                  f"{what} exceeds rtol {K3_RTOL}: max abs {float(d.max())}")
-            check(float(gp.sum()) > 0.0, f"{what}: nothing sampled")
-            lin, valid, contrib = cc.conccalc_pairs(rows, *args)
-            lin_v, con_v = lin[valid], contrib[valid]
-            del lin, valid, contrib
-            flat_l = torch.zeros_like(gk.view(-1, nspec))
-            case = dict(max_abs_err=float(d.max()), pairs=int(lin_v.numel()),
-                        library_ms=cuda_ms(
-                            lambda: flat_l.index_add_(0, lin_v, con_v), 10),
-                        ms=cuda_ms(lambda: cc.conccalc_cuda(
-                            gk.view(-1, nspec), *args), 10),
-                        stock_ms_same_particles=cuda_ms(
-                            lambda: cc.conccalc_cuda(
-                                gk.view(-1, nspec), *args[:-1],
-                                c.replace(bkdep=False,
+    fk, fp_ = gk.view(-1, nspec), gp.view(-1, nspec)
+
+    def case(p, kp, flags, what, plume=False):
+        c = ccfg.replace(kernel_possible=kp, **flags)
+        args = (p, BKDEP_ITIME, lage, oh, 1.0, None, c)
+        gk.zero_()
+        gp.zero_()
+        cc.conccalc_cuda(fk, *args)
+        cc.conccalc_plain(fp_, *args)
+        lin, valid, contrib = cc.conccalc_pairs(rows, *args)
+        lin_v, con_v = lin[valid], contrib[valid]
+        del lin, valid, contrib
+        torch.cuda.synchronize()
+        out = held_k3(fk, fp_, lin_v, con_v, plume, what)
+        flat_l = torch.zeros_like(fk)
+        out.update(
+            library_ms=cuda_ms(lambda: flat_l.index_add_(0, lin_v, con_v),
+                               10),
+            ms=cuda_ms(lambda: cc.conccalc_cuda(fk, *args), 10),
+            stock_ms_same_particles=cuda_ms(lambda: cc.conccalc_cuda(
+                fk, *args[:-1], c.replace(bkdep=False,
                                           particle_count_output=False)), 10),
-                        plain_ms=cuda_ms(lambda: cc.conccalc_plain(
-                            gp.view(-1, nspec), *args), 3))
-            del lin_v, con_v, flat_l
-            cases["kernel" if kp else "single"] = case
-        m = cases["kernel"]
-        # 37 B of particle state and the mass (4 B a species) in, BKDEP's
-        # xscav (4 B a species); COUNT reads no mass; the grid read and
-        # written once (atomics on top are not counted)
-        per = 37 + (8 * nspec if name.endswith("bkdep") else 0)
-        res[name] = dict(
-            {f: m[f] for f in ("ms", "plain_ms", "library_ms",
-                               "stock_ms_same_particles")},
-            max_abs_err=max(c["max_abs_err"] for c in cases.values()),
-            cases=cases, n=N_MAIN, nspec=nspec,
-            **bound(per * N_MAIN + 2 * 4 * gk.numel(),
-                    K3_OPS_PER_PARTICLE * N_MAIN))
+            plain_ms=cuda_ms(lambda: cc.conccalc_plain(fp_, *args), 3),
+            **k3_bound(p, BKDEP_ITIME, lin_v, nspec,
+                       bkdep=flags.get("bkdep", False)))
+        del lin_v, con_v, flat_l
+        return out
+
+    res = {}
+    cases = {}
+    for kp in (False, True):
+        what = f"K3 conccalc.bkdep {'4-point' if kp else 'single-index'} path"
+        cases["kernel" if kp else "single"] = case(spread, kp,
+                                                   dict(bkdep=True), what)
+    for name, aged, kp in BKDEP_PLUMES:
+        p = bkdep_plume_particles(device, grid, aged)
+        cases[name] = case(p, kp, dict(bkdep=True),
+                           f"K3 conccalc.bkdep {name}", plume=True)
+        check(cases[name]["cells_hit"] < 200,
+              f"K3 BKDEP {name}: {cases[name]['cells_hit']} cells")
+        del p
+        torch.cuda.empty_cache()
+    m = cases["plume_young_kp"]
+    res["conccalc.bkdep"] = dict(
+        {f: m[f] for f in ("ms", "plain_ms", "library_ms",
+                           "stock_ms_same_particles", "bound_ms", "bound_by",
+                           "bound_bytes", "bound_operations")},
+        ms_case="plume_young_kp",
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        cases=cases, n=N_MAIN, nspec=nspec)
+    cases = {}
+    for kp in (False, True):
+        what = f"K3 conccalc.count {'4-point' if kp else 'single-index'} path"
+        cases["kernel" if kp else "single"] = case(
+            spread, kp, dict(particle_count_output=True), what)
+    m = cases["kernel"]
+    # COUNT reads no mass: 37 B of particle state, the grid read and
+    # written once (atomics on top are not counted)
+    res["conccalc.count"] = dict(
+        {f: m[f] for f in ("ms", "plain_ms", "library_ms",
+                           "stock_ms_same_particles")},
+        max_abs_err=max(c["max_abs_err"] for c in cases.values()),
+        cases=cases, n=N_MAIN, nspec=nspec,
+        **bound(37 * N_MAIN + 2 * 4 * gk.numel(),
+                K3_OPS_PER_PARTICLE * N_MAIN))
     return res
 
 
@@ -5916,6 +6187,41 @@ def bkdep_particles(p, device, seed: int):
     return p.replace(xscav=xs.contiguous())
 
 
+def held_bkdep(k, pl, q, what: str) -> dict:
+    """A BKDEP assignment's particles ``k`` against the plain version's
+    ``pl`` on the input ``q``: mass and xscav bitwise (bits_or_close with
+    no tolerance); the particles whose mass it zeroed, and the fresh
+    (particle, species) pairs given a positive factor."""
+    fresh = q.active & (q.xscav[:, 0] < 0)
+    out = {f: bits_or_close(getattr(k, f), getattr(pl, f), 0.0,
+                            f"{what}: {f}") for f in ("mass", "xscav")}
+    return dict(max_abs_err=max(v["max_abs_err"] for v in out.values()),
+                zeroed=int(((pl.mass == 0) & (q.mass != 0)).any(1).sum()),
+                positive=int((fresh[:, None] & (pl.xscav > 0)).sum()),
+                fresh=int(fresh.sum()))
+
+
+def k10_bkdep_bound(q, vdep) -> dict:
+    """K10 BKDEP's least time on one call, by need: every slot's active
+    flag and its mass and xscav rows read and written (16 B a species), a
+    fresh slot's positions (16 B) and each velocity cell that a fresh
+    slot's corners name, once (4 B a species); operations: the weights
+    and each species' gather, fresh slots only."""
+    import torch
+    from flexpart_tpu_torch.core.interp import horiz_weights
+    nspec, ny, nx = vdep.shape
+    fresh = q.active & (q.xscav[:, 0] < 0)
+    nf = int(fresh.sum())
+    cells = 0
+    if nf:
+        hw = horiz_weights(q.x[fresh], q.y[fresh], nx, ny, False)
+        cells = int(torch.unique(hw.idx4).numel())
+    return dict(bound(q.capacity * (1 + 16 * nspec) + 16 * nf
+                      + 4 * nspec * cells,
+                      nf * (K10_OPS_PER_PARTICLE + 10 * nspec)),
+                velocity_cells=cells)
+
+
 def kernel_bkdep(device, grid) -> dict:
     """K9's and K10's BKDEP instantiations (the scavenging factor of a
     backward deposition run's fresh particles) against their plain
@@ -5923,7 +6229,10 @@ def kernel_bkdep(device, grid) -> dict:
     species, half of them fresh, in cell order: mass and xscav bitwise.
     K9 BKDEP on SyntheticMet's fields and with every cloud class (some
     factors must be positive, some masses zeroed); K10 BKDEP on a velocity
-    field of which a tenth is not positive (some masses zeroed)."""
+    field of which a tenth is not positive (some masses zeroed), half the
+    slots fresh and every slot fresh (sim_bkdep's call), each timed by
+    events and by CUDA graphs beside its bound by need
+    (k10_bkdep_bound)."""
     import torch
     from flexpart_tpu_torch import _build
     from flexpart_tpu_torch.core import reorder
@@ -5939,22 +6248,13 @@ def kernel_bkdep(device, grid) -> dict:
     del p
     fresh = q.active & (q.xscav[:, 0] < 0)
     n_fresh = int(fresh.sum())
-
-    def held(k, pl, what):
-        # bitwise: bits_or_close with no tolerance
-        out = {f: bits_or_close(getattr(k, f), getattr(pl, f), 0.0,
-                                f"{what}: {f}") for f in ("mass", "xscav")}
-        return dict(max_abs_err=max(v["max_abs_err"] for v in out.values()),
-                    zeroed=int(((pl.mass == 0) & (q.mass != 0)).any(1).sum()),
-                    positive=int((fresh[:, None] & (pl.xscav > 0)).sum()))
-
     k9 = {}
     for fname, zf in fields.items():
         what = f"K9 BKDEP {fname}"
         k, pl = (bk.assign_wetbkdep_cuda(q, zf, wet),
                  bk.assign_wetbkdep_plain(q, zf, wet))
         torch.cuda.synchronize()
-        r = held(k, pl, what)
+        r = held_bkdep(k, pl, q, what)
         check(bool((k.xscav[fresh] >= 0).all()), f"{what}: a factor < 0")
         check(r["positive"] > 0 and r["zeroed"] > 0, f"{what}: {r}")
         r.update(ms=cuda_ms(lambda: bk.assign_wetbkdep_cuda(q, zf, wet), 10),
@@ -5991,23 +6291,29 @@ def kernel_bkdep(device, grid) -> dict:
     gen.manual_seed(25)
     vdep = torch.rand((2, grid.ny, grid.nx), generator=gen,
                       device=device) * 0.022 - 0.002
-    what = "K10 BKDEP"
-    k, pl = (bk.assign_drybkdep_cuda(q, vdep),
-             bk.assign_drybkdep_plain(q, vdep))
-    torch.cuda.synchronize()
-    r = held(k, pl, what)
-    check(r["positive"] > 0 and r["zeroed"] > 0, f"{what}: {r}")
-    del k, pl
-    k10_out = dict(
-        r, n=N_MAIN, fresh=n_fresh, library_ms=None, bitwise=True,
-        ms=cuda_ms(lambda: bk.assign_drybkdep_cuda(q, vdep), 10),
-        plain_ms=cuda_ms(lambda: bk.assign_drybkdep_plain(q, vdep), 3),
-        # active, mass and xscav in and out, the positions of the fresh
-        # particles; the velocities
-        **bound(N_MAIN * (1 + 16 * 2) + 16 * n_fresh
-                + 4 * 2 * grid.ny * grid.nx,
-                # the weights and each species' gather, fresh particles only
-                n_fresh * (K10_OPS_PER_PARTICLE + 10 * 2)))
+    k10 = {}
+    # half the slots fresh (the kernels case), and every one (sim_bkdep's
+    # call, where all its particles are fresh)
+    all_fresh = q.replace(xscav=torch.full_like(q.xscav, -1.0))
+    for name, qq in (("half_fresh", q), ("all_fresh", all_fresh)):
+        what = f"K10 BKDEP {name}"
+        k, pl = (bk.assign_drybkdep_cuda(qq, vdep),
+                 bk.assign_drybkdep_plain(qq, vdep))
+        torch.cuda.synchronize()
+        r = held_bkdep(k, pl, qq, what)
+        check(r["positive"] > 0 and r["zeroed"] > 0, f"{what}: {r}")
+        del k, pl
+        r.update(ms=cuda_ms(lambda: bk.assign_drybkdep_cuda(qq, vdep), 10),
+                 graph_ms=cuda_graph_ms(
+                     lambda: bk.assign_drybkdep_cuda(qq, vdep), 20),
+                 plain_ms=cuda_ms(lambda: bk.assign_drybkdep_plain(qq, vdep),
+                                  3),
+                 **k10_bkdep_bound(qq, vdep))
+        k10[name] = r
+    del all_fresh
+    k10_out = dict(k10["half_fresh"], n=N_MAIN, library_ms=None,
+                   bitwise=True, ms_case="half_fresh", cases=k10,
+                   max_abs_err=max(c["max_abs_err"] for c in k10.values()))
     return {"wetdepo.bkdep": k9_out, "drydepo.bkdep": k10_out}
 
 
@@ -8087,6 +8393,127 @@ def phase_sim_initcond(device, kernels) -> dict:
     torch.cuda.empty_cache()
     return res
 
+
+# each kernel's (and instantiation's) functions on the card, as a profile
+# or a trace names them
+DEVICE_FUNCTIONS = {
+    "normals": ("normals_kernel",), "quad_tables": ("quad_tables_kernel",),
+    "conccalc": ("conccalc_kernel",), "conccalc.count": ("conccalc_kernel",),
+    "conccalc.nest": ("conccalc_kernel",),
+    "conccalc.bkdep": ("conccalc_bkdep_kernel",),
+    "advance": ("advance_kernel",), "reorder": SORT_KERNELS,
+    "convection": ("convection_kernel",), "redist": ("redist_kernel",),
+    "redist.backward": ("redist_kernel",),
+    "depo_scatter": ("depo_grid_kernel",), "wetdepo": ("wetdepo_kernel",),
+    "wetdepo.bkdep": ("wetdepo_kernel",), "wetdepo.clwc": ("wetdepo_kernel",),
+    "wetdepo.bkdep_clwc": ("wetdepo_kernel",),
+    "drydepo": ("drydepo_kernel",), "drydepo.bkdep": ("drydepo_kernel",),
+    "advance_adaptive": ("advance_adaptive_kernel",),
+    "ohreaction": ("ohreaction_kernel",), "split": ("split_",),
+    "domainfill": ("boundary_",), "receptors": ("receptor_",),
+    "fluxes": ("fluxes_kernel",), "initcond": ("initcond_kernel",)}
+
+
+class BkdepCalls:
+    """Inside the block, every K3 BKDEP launch (conccalc_cuda with
+    ``cfg.bkdep``) and every K10 BKDEP call (assign_drybkdep_cuda) of a
+    run records its inputs, the particles cloned, before it runs:
+    ``k3`` holds (particles, the gridunc rows and species, the sampler's
+    other arguments), ``k10`` (particles, velocities)."""
+
+    def __init__(self):
+        self.k3, self.k10 = [], []
+
+    def __enter__(self):
+        from flexpart_tpu_torch.grid import conccalc as cc
+        from flexpart_tpu_torch.physics import bkdep as bk
+        self._cc, self._bk = cc.conccalc_cuda, bk.assign_drybkdep_cuda
+        inner_cc, inner_bk = self._cc, self._bk
+
+        def k3(flat, p, itime, lage, outheight, weight, rhoi, cfg,
+               nest=False):
+            if cfg.bkdep and not cfg.particle_count_output:
+                self.k3.append((clone_particles(p), tuple(flat.shape),
+                                (itime, lage.clone(), outheight.clone(),
+                                 weight, None if rhoi is None
+                                 else rhoi.clone(), cfg)))
+            return inner_cc(flat, p, itime, lage, outheight, weight, rhoi,
+                            cfg, nest)
+
+        def k10(p, vdep_field):
+            self.k10.append((clone_particles(p), vdep_field.clone()))
+            return inner_bk(p, vdep_field)
+
+        cc.conccalc_cuda, bk.assign_drybkdep_cuda = k3, k10
+        return self
+
+    def __exit__(self, *exc):
+        from flexpart_tpu_torch.grid import conccalc as cc
+        from flexpart_tpu_torch.physics import bkdep as bk
+        cc.conccalc_cuda, bk.assign_drybkdep_cuda = self._cc, self._bk
+        return False
+
+
+def held_k3_call(call, what: str) -> dict:
+    """One recorded K3 BKDEP call of sim_bkdep (BkdepCalls): the kernel
+    and the plain twin on zeroed grids, both within K8's rule of the
+    float64 sum of its pairs (the call samples a plume); its device time
+    by CUDA graphs and, per launch, by the profiler; index_add_ of its
+    pairs by graphs; its bound by need."""
+    import torch
+    from flexpart_tpu_torch.grid import conccalc as cc
+    p, shape, args = call
+    fk = torch.zeros(shape, dtype=torch.float32, device=p.device)
+    fp_ = torch.zeros_like(fk)
+    cc.conccalc_cuda(fk, p, *args)
+    cc.conccalc_plain(fp_, p, *args)
+    lin, valid, contrib = cc.conccalc_pairs(shape[0], p, *args)
+    lin, contrib = lin[valid], contrib[valid]
+    del valid
+    torch.cuda.synchronize()
+    out = held_k3(fk, fp_, lin, contrib, True, what)
+    flat_l = torch.zeros_like(fk)
+    prof = profiled_in_place(lambda: None,
+                             lambda _: cc.conccalc_cuda(fk, p, *args))
+    out.update(
+        kernel_possible=args[-1].kernel_possible,
+        ms=cuda_graph_ms(lambda: cc.conccalc_cuda(fk, p, *args), 20),
+        profiled_ms=prof["device_ms"], per_launch=prof["per_launch"],
+        library_ms=cuda_graph_ms(lambda: flat_l.index_add_(0, lin, contrib),
+                                 20),
+        **k3_bound(p, args[0], lin, shape[1], True, args[4] is not None))
+    return out
+
+
+def held_k10_call(call, what: str) -> dict:
+    """One recorded K10 BKDEP call (BkdepCalls): bitwise against the
+    plain version, its device time by CUDA graphs and by the profiler,
+    its bound by need."""
+    import torch
+    from flexpart_tpu_torch.physics import bkdep as bk
+    q, vdep = call
+    k, pl = bk.assign_drybkdep_cuda(q, vdep), bk.assign_drybkdep_plain(q, vdep)
+    torch.cuda.synchronize()
+    out = held_bkdep(k, pl, q, what)
+    del k, pl
+    prof = profiled_in_place(lambda: None,
+                             lambda _: bk.assign_drybkdep_cuda(q, vdep))
+    out.update(ms=cuda_graph_ms(lambda: bk.assign_drybkdep_cuda(q, vdep), 20),
+               profiled_ms=prof["device_ms"], per_launch=prof["per_launch"],
+               **k10_bkdep_bound(q, vdep))
+    return out
+
+
+def trace_kernels(trace_dir: Path) -> tuple:
+    """The torch.profiler trace that a Simulation(trace_dir=...) wrote:
+    (its file, the names of its device kernels, its events)."""
+    files = sorted(Path(trace_dir).glob("*.pt.trace.json"))
+    check(len(files) == 1, f"trace: {[f.name for f in files]} in {trace_dir}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    return files[0], names, len(events)
+
+
 def phase_sim_bkdep(device, kernels) -> dict:
     """The backward deposition modes through ``Simulation.run`` on the
     card: one short run (BKDEP_STEPS steps of 900 s, N_BKDEP particles
@@ -8103,11 +8530,16 @@ def phase_sim_bkdep(device, kernels) -> dict:
     tracer's 0 (it is not scavenged) and its mass zeroed, and
     wetscav_precip.txt holds one line per met time read; DRYBKDEP: the
     aerosol's factor its dryvel within rtol 1e-5; both sample through
-    K3 BKDEP into finite, non-negative residence times."""
+    K3 BKDEP into finite, non-negative residence times.  Every K3 BKDEP
+    and K10 BKDEP call of the three runs is recorded (BkdepCalls: the runs'
+    ``run_s`` include the copies) and afterwards held against its plain
+    version and timed (held_k3_call, held_k10_call); the DRYBKDEP run is
+    then traced once more (traced_bkdep_run)."""
     import shutil
     import numpy as np
     import torch
     res = {}
+    calls = BkdepCalls()
     for mode, name, clwc in ((3, "wetbkdep", False), (4, "drybkdep", False),
                              (3, "wetbkdep_clwc", True)):
         out = SIM_BKDEP_DIR / name
@@ -8126,7 +8558,13 @@ def phase_sim_bkdep(device, kernels) -> dict:
                             pending=s._bkdep_pending)
 
         sim._step_probe = probe
-        launches, run_s = counted_run(kernels, sim.run)
+        n_k3, n_k10 = len(calls.k3), len(calls.k10)
+        with calls:
+            launches, run_s = counted_run(kernels, sim.run)
+        check(len(calls.k3) - n_k3 == launches["conccalc.bkdep"]
+              and len(calls.k10) - n_k10 == launches["drydepo.bkdep"],
+              f"sim_bkdep {name}: {len(calls.k3) - n_k3} K3 BKDEP and "
+              f"{len(calls.k10) - n_k10} K10 BKDEP calls recorded")
         entry = ("drydepo.bkdep" if mode == 4 else
                  "wetdepo.bkdep_clwc" if clwc else "wetdepo.bkdep")
         check(launches[entry] == 1 and launches["conccalc.bkdep"] > 0
@@ -8172,6 +8610,55 @@ def phase_sim_bkdep(device, kernels) -> dict:
         del sim, p, xs
         shutil.rmtree(out, ignore_errors=True)
         torch.cuda.empty_cache()
+    # both kernels held against their twins on every call of the three
+    # runs, each call timed beside index_add_ of its pairs and its bound
+    k3 = [held_k3_call(c, f"sim_bkdep K3 BKDEP call {i}")
+          for i, c in enumerate(calls.k3)]
+    k10 = [held_k10_call(c, f"sim_bkdep K10 BKDEP call {i}")
+           for i, c in enumerate(calls.k10)]
+    calls.k3.clear()
+    calls.k10.clear()
+    torch.cuda.empty_cache()
+
+    def mean(rows, f):
+        return sum(r[f] for r in rows) / len(rows)
+
+    res["conccalc_bkdep_calls"] = dict(
+        calls=len(k3), **{f"{f}_per_call": mean(k3, f) for f in (
+            "ms", "profiled_ms", "library_ms", "bound_ms")}, each=k3)
+    res["drydepo_bkdep_calls"] = dict(
+        calls=len(k10), **{f"{f}_per_call": mean(k10, f) for f in (
+            "ms", "profiled_ms", "bound_ms")}, each=k10)
+    res["traced"] = traced_bkdep_run(device, kernels)
+    return res
+
+
+def traced_bkdep_run(device, kernels) -> dict:
+    """sim_bkdep's DRYBKDEP run once more with ``trace_dir`` (untimed):
+    the trace must be written and parse, and name every hand-written
+    kernel that the run's launch counts show launched."""
+    import shutil
+    import torch
+    out = SIM_BKDEP_DIR / "traced"
+    shutil.rmtree(out, ignore_errors=True)
+    trace_dir = out / "trace"
+    sim = sim_backward_setup(out, device, False, n=N_BKDEP, hours=1,
+                             ind_receptor=4, release_hours=0, lout=1800,
+                             trace_dir=str(trace_dir))
+    launches, _ = counted_run(kernels, sim.run)
+    path, names, n_events = trace_kernels(trace_dir)
+    launched = sorted(k for k, n in launches.items() if n > 0)
+    missing = [k for k in launched
+               if not any(f in name for f in DEVICE_FUNCTIONS[k]
+                          for name in names)]
+    check(launched and not missing,
+          f"sim_bkdep traced: launched {launched}, not in the trace "
+          f"{missing}")
+    res = dict(launched=launched, trace_bytes=path.stat().st_size,
+               trace_events=n_events, device_kernel_names=len(names))
+    del sim
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
     return res
 
 
@@ -8608,6 +9095,11 @@ def main() -> int:
           "device": name, "power_limit": smi})
 
     t0 = time.perf_counter()
+    svres = phase_service(device, held)
+    emit({"phase": "service", "seconds": time.perf_counter() - t0, **svres,
+          "device": name, "power_limit": smi})
+
+    t0 = time.perf_counter()
     grres = phase_sim_grib(device, counted, simres, npzres)
     emit({"phase": "sim_grib", "seconds": time.perf_counter() - t0, **grres,
           "device": name, "power_limit": smi})
@@ -8824,6 +9316,10 @@ def main() -> int:
     extra["redist"]["sim_backward_per_call"] = bres["device_per_call"][
         "redist_backward"]
 
+    # sim_bkdep's three runs (its line also holds the per-call numbers of
+    # K3 BKDEP and K10 BKDEP and the traced run)
+    bk_runs = {m: r for m, r in kres_bk.items() if "launches" in r}
+
     def path_launches(kname):
         """A kernel's launches on the GRIB paths (sim_grib, sim_gfs) and
         the backward ones (sim_backward; each of sim_bkdep's runs)."""
@@ -8831,7 +9327,7 @@ def main() -> int:
                 "launches_sim_gfs": gfres["launches"][kname],
                 "launches_sim_backward": bres["launches"][kname],
                 "launches_sim_bkdep": {m: r["launches"][kname]
-                                       for m, r in kres_bk.items()}}
+                                       for m, r in bk_runs.items()}}
 
     # K12 and K13 run on sim_oh_split's path alone, K14-K16 on
     # sim_domainfill's and K17 on sim_initcond's: their launches are those
@@ -8905,7 +9401,7 @@ def main() -> int:
                             bres["launches"]["redist.backward"]),
         "conccalc.bkdep": ("conccalc", "flexpart_tpu/grid/conccalc.py:144",
                            sum(r["launches"]["conccalc.bkdep"]
-                               for r in kres_bk.values())),
+                               for r in bk_runs.values())),
         "conccalc.count": ("conccalc", "flexpart_tpu/grid/conccalc.py:140",
                            mres["launches"]["conccalc.count"]),
         "wetdepo.bkdep": ("wetdepo", "flexpart_tpu/physics/bkdep.py:44",
@@ -8932,7 +9428,7 @@ def main() -> int:
                 else {}),
              **{f: r[f] for f in pick},
              **{f: r[f] for f in ("n", "bound_bytes", "bound_operations",
-                                  "stock_ms_same_particles",
+                                  "ms_case", "stock_ms_same_particles",
                                   "k9_ms_same_particles",
                                   "k9_bkdep_ms_same_particles",
                                   "all_convecting_ms",
@@ -8940,6 +9436,14 @@ def main() -> int:
                                   "instructions", "path_calls", "fresh",
                                   "zeroed", "positive", "unordered_ms",
                                   "bitwise", "cases") if f in r}})
+    # K3 BKDEP and K10 BKDEP on every call of sim_bkdep's runs: per call
+    # by graphs and the profiler, index_add_ of the pairs, the bound
+    for ename, key in (("conccalc.bkdep", "conccalc_bkdep_calls"),
+                       ("drydepo.bkdep", "drydepo_bkdep_calls")):
+        next(r for r in line if r["name"] == ename)["sim_bkdep_per_call"] = \
+            {f: v for f, v in kres_bk[key].items() if f != "each"} | {
+                "each": [{f: c[f] for f in c if f != "per_launch"}
+                         for c in kres_bk[key]["each"]]}
     # K9 CLWC per call in sim_gfs and on its kept steps
     next(r for r in line if r["name"] == "wetdepo.clwc").update(
         sim_gfs_per_call=gfres["device_per_call"]["wetdepo_clwc"],

@@ -34,7 +34,13 @@
 // 43-61): the same vdep gather, for every species of a fresh particle
 // (active, xscav < 0), writes xscav = max(vdep, 0) and zeroes the mass
 // where vdep is not above 0; every other particle keeps its xscav and its
-// mass.  It applies no decay and no deposition.
+// mass.  It applies no decay and no deposition.  Its bytes by need: every
+// slot's active flag and its mass and xscav rows in and out, and a fresh
+// slot's positions; so it reads active and the first factor first, and
+// loads the positions, builds the stencil and gathers the velocities only
+// for a fresh slot (bkdep_row); a row moves as float2 pairs where nspec is
+// even and the rows are 8-byte aligned (Cfg.pairs), else as scalars, and a
+// row that is not fresh is a straight copy.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -68,10 +74,83 @@ struct In {
 struct Cfg {
   int ny, nx, n, nspec, lsynctime, ldeltat;
   float minmass;
+  int pairs;      // BKDEP: nspec even and the mass and xscav rows 8-byte
+                  // aligned, so a row moves as float2 pairs
 };
 
 __device__ __forceinline__ float clamp01(float v) {
   return v < 0.0f ? 0.0f : (v > 1.0f ? 1.0f : v);
+}
+
+// The BKDEP instantiation's slot p: a fresh slot (active, its first
+// factor below 0) takes max(vdep, 0) for every species and its mass zeroed
+// where vdep is not above 0; any other slot's row is copied.
+__device__ __forceinline__ void bkdep_row(const In& in, const Cfg& c, int p,
+                                          float* __restrict__ mass_out,
+                                          float* __restrict__ xscav_out) {
+  const long long row = static_cast<long long>(p) * c.nspec;
+  const bool active = in.active[p];
+  float2 xs = c.pairs ? *reinterpret_cast<const float2*>(in.xscav + row)
+                      : make_float2(in.xscav[row], 0.0f);
+  if (!(active && xs.x < 0.0f)) {
+    if (c.pairs) {
+      for (int s = 0; s < c.nspec; s += 2) {
+        if (s > 0) xs = *reinterpret_cast<const float2*>(in.xscav + row + s);
+        *reinterpret_cast<float2*>(xscav_out + row + s) = xs;
+        *reinterpret_cast<float2*>(mass_out + row + s) =
+            *reinterpret_cast<const float2*>(in.mass + row + s);
+      }
+    } else {
+      for (int s = 0; s < c.nspec; ++s) {
+        xscav_out[row + s] = s == 0 ? xs.x : in.xscav[row + s];
+        mass_out[row + s] = in.mass[row + s];
+      }
+    }
+    return;
+  }
+  // horiz_weights(x, y, nx, ny, xglobal=False)
+  const float x = in.x_hi[p] + in.x_lo[p];
+  const float y = in.y_hi[p] + in.y_lo[p];
+  const int ix = static_cast<int>(fminf(fmaxf(floorf(x), 0.0f),
+                                        static_cast<float>(c.nx - 2)));
+  const int jy = static_cast<int>(fminf(fmaxf(floorf(y), 0.0f),
+                                        static_cast<float>(c.ny - 2)));
+  const float ddx = clamp01(x - static_cast<float>(ix));
+  const float ddy = clamp01(y - static_cast<float>(jy));
+  const float rddx = 1.0f - ddx;
+  const float rddy = 1.0f - ddy;
+  const float p0 = rddx * rddy, p1 = ddx * rddy, p2 = rddx * ddy,
+              p3 = ddx * ddy;
+  const int jyp = jy + 1 < c.ny - 1 ? jy + 1 : c.ny - 1;
+  const int i0 = jy * c.nx + ix, i2 = jyp * c.nx + ix;
+  const long long plane = static_cast<long long>(c.ny) * c.nx;
+  for (int s = 0; s < c.nspec; s += c.pairs ? 2 : 1) {
+    const int k = c.pairs ? 2 : 1;
+    float vd[2], m[2];
+    if (c.pairs) {
+      const float2 mm = *reinterpret_cast<const float2*>(in.mass + row + s);
+      m[0] = mm.x;
+      m[1] = mm.y;
+    } else {
+      m[0] = in.mass[row + s];
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (q >= k) break;
+      const float* f = in.vdep + (s + q) * plane;
+      vd[q] = ((f[i0] * p0 + f[i0 + 1] * p1) + f[i2] * p2) + f[i2 + 1] * p3;
+    }
+    if (c.pairs) {
+      *reinterpret_cast<float2*>(xscav_out + row + s) =
+          make_float2(fp::at_least_zero(vd[0]), fp::at_least_zero(vd[1]));
+      *reinterpret_cast<float2*>(mass_out + row + s) =
+          make_float2(vd[0] <= 0.0f ? 0.0f : m[0],
+                      vd[1] <= 0.0f ? 0.0f : m[1]);
+    } else {
+      xscav_out[row + s] = fp::at_least_zero(vd[0]);
+      mass_out[row + s] = vd[0] <= 0.0f ? 0.0f : m[0];
+    }
+  }
 }
 
 template <bool T_BELOW, bool BKDEP>
@@ -81,6 +160,10 @@ drydepo_kernel(const In in, const Cfg c, const Specs sp,
                float* __restrict__ deposit, float* __restrict__ xscav_out) {
   const int p = blockIdx.x * THREADS + threadIdx.x;
   if (p >= c.n) return;
+  if constexpr (BKDEP) {
+    bkdep_row(in, c, p, mass_out, xscav_out);
+    return;
+  }
   const bool active = in.active[p];
 
   // horiz_weights(x, y, nx, ny, xglobal=False), when there is a field
@@ -108,25 +191,6 @@ drydepo_kernel(const In in, const Cfg c, const Specs sp,
     idx[3] = jyp * c.nx + ix + 1;
   }
   const long long plane = static_cast<long long>(c.ny) * c.nx;
-
-  if constexpr (BKDEP) {
-    const long long row = static_cast<long long>(p) * c.nspec;
-    const bool fresh = active && in.xscav[row] < 0.0f;
-    for (int s = 0; s < c.nspec; ++s) {
-      const float m = in.mass[row + s];
-      if (!fresh) {
-        mass_out[row + s] = m;
-        xscav_out[row + s] = in.xscav[row + s];
-        continue;
-      }
-      const float* f = in.vdep + s * plane;
-      const float vd = ((f[idx[0]] * p4[0] + f[idx[1]] * p4[1]) +
-                        f[idx[2]] * p4[2]) + f[idx[3]] * p4[3];
-      xscav_out[row + s] = fp::at_least_zero(vd);
-      mass_out[row + s] = vd <= 0.0f ? 0.0f : m;
-    }
-    return;
-  }
 
   const float z = in.z[p];
   const float dt = static_cast<float>(c.lsynctime);
@@ -188,7 +252,13 @@ extern "C" int fp_drydepo(const float* x_hi, const float* x_lo,
     for (int s = 0; s < nspec; ++s) sp.s[s] = specs[s];
   const In in = {x_hi, x_lo, y_hi, y_lo, z, active, mass, mass0, vdep,
                  t_below, xscav};
-  const Cfg c{ny, nx, n, nspec, lsynctime, ldeltat, minmass};
+  const bool pairs =
+      bkdep && nspec % 2 == 0 &&
+      reinterpret_cast<uintptr_t>(mass) % 8 == 0 &&
+      reinterpret_cast<uintptr_t>(xscav) % 8 == 0 &&
+      reinterpret_cast<uintptr_t>(mass_out) % 8 == 0 &&
+      reinterpret_cast<uintptr_t>(xscav_out) % 8 == 0;
+  const Cfg c{ny, nx, n, nspec, lsynctime, ldeltat, minmass, pairs ? 1 : 0};
   const int blocks = (n + THREADS - 1) / THREADS;
   auto kern = bkdep ? drydepo_kernel<false, true>
                     : (t_below != nullptr ? drydepo_kernel<true, false>

@@ -16,9 +16,10 @@ cloud water turns on ``use_clwc``) or the built-in synthetic atmosphere.
 An OH-reactive species takes ``<ohfields_path>/OH_FIELDS/OH_variables.bin``
 (relative paths from options/), else the synthetic climatology.  RECEPTORS,
 OUTGRID_NEST (with NESTED_OUTPUT=1) and COMMAND's IFLUX, LINIT_COND and
-MDOMAINFILL run.  What the port's Simulation does not run yet (``--dp``,
-``--tiles``, ``--trace-dir``) reaches it and is refused there by name,
-before any file is written.  ``--device`` picks
+MDOMAINFILL run.  ``--trace-dir`` writes a ``torch.profiler`` trace of
+the run there.  What the port's Simulation does not run yet (``--dp``,
+``--tiles``) reaches it and is refused there by name, before any file is
+written.  ``--device`` picks
 where the run lives: the card (``cuda``, the default; without one the run
 raises) or the CPU.
 """
@@ -185,8 +186,8 @@ def main(argv=None) -> int:
                          "(the mpif_mtime instrumentation analog); "
                          "written to <output>/profile.txt")
     ap.add_argument("--trace-dir", default=None,
-                    help="capture a profiler trace of the run here "
-                         "(not ported yet: refused)")
+                    help="capture a torch.profiler trace of the run "
+                         "here (TensorBoard's *.pt.trace.json)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(

@@ -29,8 +29,10 @@ particles (grid/receptors.py, K15), ``outgrid_nest`` adds a nested output
 grid (K3 on the nest), ``iflux`` gathers the gross fluxes through the
 output cells' faces (grid/fluxes.py, K16), ``linit_cond`` the sensitivity
 to the initial condition (grid/initcond.py, K17) and ``iout`` 4 and 5 the
-plume trajectories (grid/plumetraj.py).  The distributed modes and
-``trace_dir`` raise ``NotImplementedError`` naming them when the
+plume trajectories (grid/plumetraj.py).  ``trace_dir`` takes a
+``torch.profiler`` trace of the run there (the host, and the card where
+the run lives on one), as the reference takes its JAX trace.  The
+distributed modes raise ``NotImplementedError`` naming them when the
 ``Simulation`` is built; nothing is skipped silently.
 
 Host-side control loop; all per-particle compute stays on the device.
@@ -193,7 +195,8 @@ class Simulation:
     #                                  tables (StepConfig.met_bf16)
     profile: bool = False            # named-section device timing table
     #                                  (mpif_mtime analog; utils/profile)
-    trace_dir: str | None = None
+    trace_dir: str | None = None     # a torch.profiler trace of the run
+    #                                  here (TensorBoard's *.pt.trace.json)
     legacy_rng: bool = False         # matched-RNG validation mode: every
     #                                  draw of the advance from the
     #                                  reference's rannumb table through the
@@ -214,7 +217,6 @@ class Simulation:
         """Raise for every option whose code is not ported yet."""
         unported = {
             "distributed": self.distributed is not None,
-            "trace_dir": self.trace_dir is not None,
         }
         bad = [name for name, on in unported.items() if on]
         if bad:
@@ -888,9 +890,26 @@ class Simulation:
         continuing the straight run's steps (the same ``istep``, so the
         same draws and sorts)."""
         try:
+            if self.trace_dir:
+                with self._tracer():
+                    return self._run(progress, start_itime)
             return self._run(progress, start_itime)
         finally:
             self.close()
+
+    def _tracer(self):
+        """A torch.profiler window over the run that writes its trace into
+        ``trace_dir`` when it closes: the host's ops, and the card's
+        kernels and copies where the run lives on one."""
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        Path(self.trace_dir).mkdir(parents=True, exist_ok=True)
+        return profile(activities=acts,
+                       on_trace_ready=tensorboard_trace_handler(
+                           str(self.trace_dir)))
 
     def save_checkpoint(self, path, itime: int | None = None) -> None:
         partdump.save_checkpoint(path, self, itime if itime is not None

@@ -15,8 +15,10 @@ main path's), each with its times, one JSON line per check; on request
 also those of a backward run: the advance at ldirect = -1 (``backward``),
 K3's BKDEP and COUNT instantiations (``conccalc_backward``), K9's and
 K10's BKDEP (``bkdep``) and K6 with K7 and its BACKWARD instantiation
-(``convection``); K12, the OH reaction (``oh``), and K13, the particle
-splitting (``split``); K14-K17 of the sim_domainfill and sim_initcond
+(``convection``), and chip_smoke.py's sim_bkdep phase (``sim_bkdep``:
+its three runs at 2**20 particles whatever ``n_particles``, K3 BKDEP and
+K10 BKDEP held on every call, the traced run); K12, the OH reaction
+(``oh``), and K13, the particle splitting (``split``); K14-K17 of the sim_domainfill and sim_initcond
 phases (``domainfill``: the boundary, the receptors, the fluxes and the
 initial-condition scatter, on a fill of ``n_particles`` in 1.1 times as
 many slots), or K17 alone (``initcond``).  A failed check raises.  This is the quick call to make
@@ -56,6 +58,8 @@ def main() -> int:
               "backward": cs.kernel_advance_backward,
               "conccalc_backward": cs.kernel_conccalc_backward,
               "bkdep": cs.kernel_bkdep,
+              "sim_bkdep": lambda d, g: cs.phase_sim_bkdep(
+                  d, list(_build.KERNELS) + list(_build.ENTRIES)),
               "oh": cs.kernel_ohreaction,
               "split": lambda d, g: cs.kernel_split(d, g, n),
               "initcond": cs.kernel_initcond,

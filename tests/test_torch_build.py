@@ -106,9 +106,9 @@ def test_entries_launch_their_instantiations(entry):
     assert e.name.split(".")[0] == e.kernel.name and e.launches == 0
     assert e.kernel in _build.KERNELS
     text = _strip_comments(e.kernel.source.read_text())
-    pick = {"conccalc.bkdep": "xscav != nullptr ? conccalc_kernel<true, "
-                              "false>",
-            "conccalc.count": "count ? conccalc_kernel<false, true>",
+    pick = {"conccalc.bkdep": "if (!count && xscav != nullptr)\n"
+                              "    return launch_bkdep(",
+            "conccalc.count": "count ? conccalc_kernel<true>",
             "redist.backward": "backward ? redist_kernel<true>",
             "wetdepo.bkdep": "bkdep ? (clwc ? wetdepo_kernel<true, true>\n"
                              "                            : "
@@ -117,7 +117,7 @@ def test_entries_launch_their_instantiations(entry):
             "wetdepo.clwc": ": (clwc ? wetdepo_kernel<false, true>",
             "wetdepo.bkdep_clwc": "bkdep ? (clwc ? wetdepo_kernel<true, "
                                   "true>",
-            "conccalc.nest": ": conccalc_kernel<false, false>)"}[entry]
+            "conccalc.nest": ": conccalc_kernel<false>;"}[entry]
     assert pick in text
     if entry.endswith("bkdep") and entry != "conccalc.bkdep":
         assert "const bool bkdep = xscav != nullptr;" in text
@@ -308,21 +308,26 @@ def test_philox_lane_layout_matches_the_plain_version():
 def test_conccalc_sums_per_warp():
     """K3 sums the pairs of one warp before its global atomics: one thread
     per particle, so ``K3_GROUP`` consecutive particles, which is what the
-    count of (warp, target) pairs on the card assumes."""
-    text = _strip_comments(_build.CONCCALC.source.read_text())
+    count of (warp, target) pairs on the card assumes.  That is the stock
+    and COUNT body's design; the BKDEP body after it groups by warp too,
+    over K8's tables in shared memory (warp_groups.cuh)."""
+    whole = _strip_comments(_build.CONCCALC.source.read_text())
+    text, bkdep = whole.split("constexpr int WARPS = THREADS / 32;")
+    assert "__shared__" in bkdep and "fp::group_sums(" in bkdep
+    assert "launch_bkdep(" in whole
     assert conccalc.K3_GROUP == 32
     threads = int(re.search(r"constexpr\s+int\s+THREADS\s*=\s*(\d+)\s*;",
                             text).group(1))
     assert threads % conccalc.K3_GROUP == 0
     assert "blockIdx.x) * THREADS + threadIdx.x" in text
-    assert "(n + THREADS - 1) / THREADS" in text
+    assert "(n + THREADS - 1) / THREADS" in whole
     assert "threadIdx.x & %du" % (conccalc.K3_GROUP - 1) in text
     assert "__match_any_sync(" in text and "__shfl_sync(" in text
     assert "__shared__" not in text
     assert "MAX_ROWS = 0x%Xll - 32;" % 0xFFFFFFFF in text
     assert conccalc.K3_MAX_ROWS == 0xFFFFFFFF - 32
-    assert "rows > MAX_ROWS" in text
-    assert text.count("atomicAdd(") == 1
+    assert "rows > MAX_ROWS" in whole
+    assert whole.count("atomicAdd(") == 1
 
 
 def test_advance_args_struct_matches_the_source():

@@ -15,7 +15,8 @@ directory gives the same Command, Releases, OutGrid, met grid and wind
 interval (no JAX run, so nothing is compiled); on GRIB met also the same
 ``use_clwc``, off for ECMWF and on for GFS (its ``sumclouds``).  The CLI
 refuses by name, before any file is written, what the port does not run
-yet: ``--dp``, ``--tiles``, ``--trace-dir``; it runs an ``IPOUT=2`` job
+yet: ``--dp``, ``--tiles`` (with ``--trace-dir`` too, and then writes no
+trace); it runs an ``IPOUT=2`` job
 and then the same job with ``IPIN=1`` from its ``partposit_end`` (JAX's
 ``build_simulation`` giving the same particles), an OH-reactive species
 with the reference's ``OH_variables.bin``, and jobs with RECEPTORS,
@@ -286,11 +287,14 @@ def test_build_simulation_equals_jax(metdir, tmp_path):
     assert sim.particles.capacity == jsim.particles.capacity == 800
 
 
-# case -> (COMMAND edits, options files, CLI flags, the name refused)
+# case -> (COMMAND edits, options files, CLI flags, the name refused); a
+# trace directory is ported, so its case holds that a job with it and an
+# option still refused is refused before anything, the trace too, is
+# written
 REFUSED = {
     "dp": ({}, {}, ["--dp"], "distributed"),
     "tiles": ({}, {}, ["--tiles"], "distributed"),
-    "trace_dir": ({}, {}, ["--trace-dir", "trace"], "trace_dir"),
+    "trace_dir": ({}, {}, ["--trace-dir", "trace", "--dp"], "distributed"),
 }
 
 
@@ -301,10 +305,12 @@ def test_cli_refuses_by_name_before_writing(case, metdir, tmp_path):
     for a, b in edits.items():
         command = command.replace(a, b)
     pathnames = _job(tmp_path / "job", metdir, command=command, files=files)
+    flags = [str(tmp_path / f) if f == "trace" else f for f in flags]
     with pytest.raises(NotImplementedError, match="not ported yet") as err:
         tmain.main([str(pathnames), "--device", "cpu", *flags])
     assert name in str(err.value)
     assert not list((tmp_path / "job" / "output").iterdir())
+    assert not (tmp_path / "trace").exists()
 
 
 OH_SPECIES = SPECIES_024.replace(

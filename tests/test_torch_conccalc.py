@@ -13,7 +13,10 @@ at the edges and outside the grid (4-point kernel path), ``ind_samp`` 0
 and -1, nspec 2, nage 2, and out-of-range particles, which are dropped;
 on both paths, the backward deposition runs' contribution (times
 max(xscav, 0), K3's ``BKDEP`` instantiation on a card) and the particle
-count (1, or the 4-point weight: ``COUNT``), at the same tolerance.
+count (1, or the 4-point weight: ``COUNT``), at the same tolerance; and
+a backward deposition run's plume (thousands of pairs a cell), where the
+twin and JAX are each held to K8's rule against the float64 sum of the
+pairs, the rule that K3's BKDEP body is held to on the card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -158,6 +161,72 @@ def test_bkdep_and_particle_count_match_jax(setup, old, mode):
             device="cpu"), tp, tz, ITIME, torch.as_tensor(lage), 0.5,
         tcc.ConcConfig(**{**kw, mode: False}))
     assert not np.allclose(plain.gridunc.numpy(), a, rtol=1e-3)
+
+
+@pytest.mark.parametrize("old", [False, True])
+def test_bkdep_plume_holds_k8s_rule_against_f64_and_jax(setup, old):
+    """The ``bkdep`` branch on what a backward deposition run samples: a
+    plume, 8192 live particles in one 2.5 x 2 degree output cell's
+    neighbourhood at 300-2000 m (a few cells, thousands of pairs each),
+    young (one target) or past 3 h (the 4-point kernel), factors of which
+    a fifth are negative.  The plain twin (``index_add_``, the CPU's
+    float32 sum) and JAX's ``_conccalc_impl`` (XLA's scatter) are each
+    held to K8's rule against the float64 sum of the pairs
+    (``conccalc_pairs``): a cell of m pairs within max(m x 2**-24, 1e-5),
+    relatively, as the kernel (K3's BKDEP body) is held on the card; a
+    plume is never held to another float32 sum at rtol 1e-5."""
+    grid, jz, tz = setup
+    jgeo = jog.OutputGridGeometry(OG, grid)
+    kw = dict(nxg=jgeo.nxg, nyg=jgeo.nyg, nzg=jgeo.nzg, npointspec=1,
+              nclassunc=1, nage=1, dxout=OG.dxout, dyout=OG.dyout,
+              xoutshift=jgeo.xoutshift, youtshift=jgeo.youtshift,
+              dx_met=grid.dx, dy_met=grid.dy, ind_samp=0,
+              kernel_possible=True, bkdep=True)
+    n = 8192
+    rs = np.random.default_rng(11)
+    lon = rs.uniform(0.0, 2.5, n)
+    lat = rs.uniform(10.0, 12.0, n)
+    x = (np.round((lon - grid.xlon0) / grid.dx * 4096) / 4096).astype(
+        np.float32)
+    y = (np.round((lat - grid.ylat0) / grid.dy * 4096) / 4096).astype(
+        np.float32)
+    p = jstate.empty_particles(n, nspec=2)
+    jp = p._replace(
+        x_hi=jnp.asarray(x), y_hi=jnp.asarray(y),
+        z=jnp.asarray(rs.uniform(300.0, 2000.0, n).astype(np.float32)),
+        itra=jnp.full(n, ITIME, jnp.int32),
+        itramem=jnp.full(n, ITIME - (14400 if old else 3600), jnp.int32),
+        active=jnp.ones(n, bool),
+        mass=jnp.asarray(rs.uniform(0.5, 1.5, (n, 2)).astype(np.float32)),
+        xscav=jnp.asarray(rs.uniform(-0.5, 2.0, (n, 2)).astype(np.float32)))
+    tp = interop.particles_from_numpy(
+        {k: np.asarray(v) for k, v in jp._asdict().items()}, "cpu")
+    lage = np.asarray([999999], np.int32)
+    jacc = jcc.make_conccalc(OG.outheights)(
+        jog.zero_accumulators(jgeo, 2, 1), jp, jz, jnp.int32(ITIME),
+        jnp.asarray(lage), jnp.float32(0.5), jcc.ConcConfig(**kw))
+    tgeo = tog.OutputGridGeometry(OG, make_grid(nx=37, ny=19, nlev=15,
+                                                dx=10.0, dy=10.0))
+    tacc = tcc.make_conccalc(OG.outheights)(
+        tog.zero_accumulators(tgeo, 2, 1, device="cpu"), tp, tz, ITIME,
+        torch.as_tensor(lage), 0.5, tcc.ConcConfig(**kw))
+    flat = tacc.gridunc.view(-1, 2)
+    lin, valid, contrib = tcc.conccalc_pairs(
+        flat.shape[0], tp, ITIME, torch.as_tensor(lage),
+        torch.as_tensor(np.asarray(OG.outheights, np.float32)), 0.5, None,
+        tcc.ConcConfig(**kw))
+    lin, contrib = lin[valid], contrib[valid]
+    ref = torch.zeros(flat.shape, dtype=torch.float64)
+    ref.index_add_(0, lin, contrib.double())
+    pairs = torch.zeros(flat.shape[0], dtype=torch.int64)
+    pairs.index_add_(0, lin, torch.ones_like(lin))
+    assert int((pairs > 0).sum()) <= 24 and int(pairs.max()) >= 1000
+    rtol = torch.clamp(pairs.double() * 2.0 ** -24, min=1e-5)[:, None]
+    assert float(ref.sum()) > 0.0
+    for who, got in (("plain twin", flat.double()),
+                     ("jax", torch.as_tensor(np.array(jacc.gridunc))
+                      .reshape(flat.shape).double())):
+        assert bool(torch.all((got - ref).abs() <= rtol * ref)), who
 
 
 def test_out_of_range_is_dropped(setup):

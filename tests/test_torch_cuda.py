@@ -481,6 +481,103 @@ def test_backward_instantiations_equal_their_plain_versions(card, case):
     assert entry.launches == before + 1
 
 
+def _plume(card, n: int, nspec: int, aged: bool, seed: int = 9):
+    """n particles of a backward deposition run's plume on SyntheticMet's
+    37 x 19 x 15 grid: one 2-degree box at 50-500 m, all live at itime
+    0, under an hour old (the single-index path) or, ``aged``, past 3 h
+    (the 4-point path), with factors in [-0.5, 2) (a fifth sampled as 0);
+    and the sampler's configuration on a 1-degree, 3-layer grid."""
+    from flexpart_tpu_torch.config import OutGrid
+    from flexpart_tpu_torch.core.state import empty_particles
+    from flexpart_tpu_torch.grid import conccalc as cc
+    from flexpart_tpu_torch.grid.outgrid import OutputGridGeometry
+    from flexpart_tpu_torch.met import synthetic
+    grid = synthetic.make_grid(nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)
+    gen = torch.Generator(device=card).manual_seed(seed)
+
+    def u(lo, hi, shape=(n,)):
+        return torch.rand(shape, generator=gen, device=card) * (hi - lo) + lo
+
+    age = u(0.0, 3600.0) + (10800.0 if aged else 0.0)
+    p = empty_particles(n, nspec, device=card).replace(
+        x_hi=u(20.0, 20.2), y_hi=u(13.0, 13.2), z=u(50.0, 500.0),
+        itra=torch.zeros(n, dtype=torch.int32, device=card),
+        itramem=(-age).to(torch.int32),
+        active=torch.ones(n, dtype=torch.bool, device=card),
+        mass=u(0.5, 1.5, (n, nspec)) / n, xscav=u(-0.5, 2.0, (n, nspec)))
+    og = OutGrid(outlon0=-180.0, outlat0=-90.0, numxgrid=360, numygrid=180,
+                 dxout=1.0, dyout=1.0, outheights=(100.0, 1000.0, 50000.0))
+    geo = OutputGridGeometry(og, grid)
+    ccfg = cc.ConcConfig(
+        nxg=geo.nxg, nyg=geo.nyg, nzg=geo.nzg, npointspec=1, nclassunc=1,
+        nage=1, dxout=og.dxout, dyout=og.dyout, xoutshift=geo.xoutshift,
+        youtshift=geo.youtshift, dx_met=grid.dx, dy_met=grid.dy, ind_samp=0,
+        bkdep=True, kernel_possible=aged)
+    return p, ccfg, og, geo
+
+
+@pytest.mark.parametrize("nspec", [1, 2, 3])
+@pytest.mark.parametrize("aged", [False, True])
+def test_k3_bkdep_plume_holds_k8s_rule(card, aged, nspec):
+    """K3's BKDEP body on a plume of 2**18 particles in some 20 cells (its
+    warp tables fill with repeats; one and three species take one species
+    an atomic, two a float2), both paths: within max(pairs in the cell x
+    2**-24, 1e-5) of the float64 sum of its pairs, relatively, the K8 rule
+    that a plume is held to; launched through its entry."""
+    from flexpart_tpu_torch import _build
+    from flexpart_tpu_torch.grid import conccalc as cc
+    from flexpart_tpu_torch.grid.outgrid import zero_accumulators
+    p, ccfg, og, geo = _plume(card, 2 ** 18, nspec, aged)
+    lage = torch.tensor([999999999], dtype=torch.int32, device=card)
+    oh = torch.tensor(og.outheights, device=card)
+    gk = zero_accumulators(geo, nspec, 1, device=card).gridunc
+    flat = gk.view(-1, nspec)
+    args = (p, 0, lage, oh, 1.0, None, ccfg)
+    before = _build.CONCCALC_BKDEP.launches
+    cc.conccalc_cuda(flat, *args)
+    assert _build.CONCCALC_BKDEP.launches == before + 1
+    lin, valid, contrib = cc.conccalc_pairs(flat.shape[0], *args)
+    lin, contrib = lin[valid], contrib[valid]
+    ref = torch.zeros(flat.shape, dtype=torch.float64, device=card)
+    ref.index_add_(0, lin, contrib.double())
+    pairs = torch.zeros(flat.shape[0], dtype=torch.int64, device=card)
+    pairs.index_add_(0, lin, torch.ones_like(lin))
+    torch.cuda.synchronize()
+    assert int((pairs > 0).sum()) < 100 and int(pairs.max()) > 1000
+    rtol = torch.clamp(pairs.double() * 2.0 ** -24, min=1e-5)[:, None]
+    assert float(ref.sum()) > 0.0
+    assert bool(torch.all((flat.double() - ref).abs() <= rtol * ref))
+
+
+@pytest.mark.parametrize("nspec", [1, 2, 3])
+def test_k10_bkdep_all_fresh_equals_the_plain_version(card, nspec):
+    """K10's BKDEP instantiation where every slot is fresh (a sim_bkdep
+    call) and where a third is, with one, two (float2 rows) and three
+    species, the particles spread over the grid (a tenth of the velocity
+    field is not positive: some masses are zeroed): mass and xscav
+    bitwise."""
+    from flexpart_tpu_torch.physics import bkdep as bk
+    p, _, _, _ = _plume(card, 2 ** 16 + 5, nspec, False)
+    gen = torch.Generator(device=card).manual_seed(3)
+    p = p.replace(x_hi=torch.rand(p.capacity, generator=gen, device=card)
+                  * 36.0,
+                  y_hi=torch.rand(p.capacity, generator=gen, device=card)
+                  * 18.0)
+    vdep = torch.rand((nspec, 19, 37), generator=gen,
+                      device=card) * 0.022 - 0.002
+    third = torch.rand(p.capacity, generator=gen, device=card) < 1 / 3
+    for q in (p.replace(xscav=torch.full_like(p.xscav, -1.0)),
+              p.replace(xscav=torch.where(third[:, None], -1.0, 0.5)
+                        .expand(-1, nspec).contiguous())):
+        k = bk.assign_drybkdep_cuda(q, vdep)
+        pl = bk.assign_drybkdep_plain(q, vdep)
+        torch.cuda.synchronize()
+        for f in ("mass", "xscav"):
+            assert torch.equal(getattr(k, f).view(torch.int32),
+                               getattr(pl, f).view(torch.int32)), f
+        assert bool((pl.mass == 0).any()) and bool((pl.xscav > 0).any())
+
+
 def _chip_smoke():
     """chip_smoke.py, beside tests/: its K13 and K14 cases."""
     import sys

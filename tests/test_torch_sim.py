@@ -44,6 +44,7 @@ every step against one that sorts only when a release forces it, with the
 same injected draws carried along with their particles.
 """
 import dataclasses
+import json
 import logging
 import subprocess
 import sys
@@ -426,19 +427,18 @@ def test_age_classes_terminate_like_jax(tmp_path):
 # files are ported: their cases hold that an option still refused is
 # refused with them too, before the header is written)
 REFUSED = {
-    "ldirect": dict(cmd_kw=dict(ldirect=-1), trace_dir="trace",
-                    names="trace_dir"),
+    "ldirect": dict(cmd_kw=dict(ldirect=-1), distributed="dp",
+                    names="distributed"),
     "distributed": dict(distributed="dp"),
     "write_fortran": dict(write_fortran=True, distributed="dp",
                           names="distributed"),
-    "trace_dir": dict(trace_dir="trace"),
 }
 
 # options the port runs since they were ported (they were cases of
 # REFUSED): particle dumps, warm start, checkpoints, OH chemistry and
 # splitting; the domain fill, receptors, the nested output grid, the
 # gross fluxes, the initial-condition sensitivity and the plume
-# trajectories.  The Simulation's arguments, run for one step of 900 s
+# trajectories; the profiler trace (trace_dir, under the outdir).  The Simulation's arguments, run for one step of 900 s
 # (two for itsplit, which counts only when shorter than the run; three for
 # the options that write at an output time, OUTPUT_AT_2700)
 ONE_STEP = dict(ietime=1500)
@@ -460,6 +460,7 @@ PORTED = {
     "iflux": dict(cmd_kw=dict(iflux=1, **OUTPUT_AT_2700)),
     "linit_cond": dict(cmd_kw=dict(linit_cond=1, **ONE_STEP)),
     "iout=4/5": dict(cmd_kw=dict(iout=5, **OUTPUT_AT_2700)),
+    "trace_dir": dict(cmd_kw=dict(ONE_STEP)),
 }
 
 
@@ -505,6 +506,8 @@ def test_ported_option_runs(option, tmp_path):
                                  make_grid(**GRID), diag, only_current=False)
     if option == "checkpoint_at":
         kw["checkpoint_path"] = str(tmp_path / "ck.npz")
+    if option == "trace_dir":
+        kw["trace_dir"] = str(tmp_path / "trace")
     sim = _port_sim(tmp_path, **kw)
     sim.run()
     n_live = int(sim.particles.active.sum())
@@ -539,6 +542,10 @@ def test_ported_option_runs(option, tmp_path):
     elif option == "iout=4/5":
         assert len((tmp_path / "trajectories.txt").read_text()
                    .splitlines()) == 2 + 2 + 1
+    elif option == "trace_dir":
+        (trace,) = (tmp_path / "trace").glob("*.pt.trace.json")
+        events = json.loads(trace.read_text())["traceEvents"]
+        assert any(e.get("ph") == "X" for e in events)
     else:
         again = _port_sim(tmp_path / "again")
         assert again.load_checkpoint(tmp_path / "ck.npz") == 900
