@@ -209,6 +209,22 @@ the port's stock forward step on the card, in phases:
                 and deposited fields (float atomics: within K3's and K8's
                 rtol, and reported bitwise or not), the header and every
                 grid_conc_ file read back equal to the npz of its step;
+                then its end's particles as IPOUT=2 writes them
+                (partposit_end, for sim_dp);
+ 8b''. sim_dp — particle data-parallelism: sim_npz's job with IPOUT=2
+                through ``python -m flexpart_tpu_torch pathnames --dp``
+                as a subprocess (parallel/launch.py, NCCL, one rank a
+                card: one here), its partposit_end byte for byte
+                sim_npz's, the sim path's launch counts sim_npz's, the
+                npz files sim_npz's by its rule; the world size, backend,
+                NCCL version, the run's time beside sim_npz's and each
+                collective's calls, bytes and seconds in the line; then
+                dp_shards, the only check on the card of what ranks
+                beyond the first run: the full-width step split by hand
+                into 2 and 4 shards (advance bitwise, K3 and K8 partials
+                summed within K8's rule, K13 and K14 with the shares and
+                first free ranks an all_gather gives, bitwise the unsplit
+                calls, timed);
  8b'. service — the port's service layer on sim_npz's job: a job directory
                 built by flexpart_tpu_torch.service from the job's options
                 and met archives and a site's runtime configuration given
@@ -4753,16 +4769,367 @@ def phase_sim_npz(device, kernels, held: dict, simres: dict) -> dict:
             output_s=a_sec.get("output", 0.0),
             device_busy_share=simres["device_ms_all_kernels"] / 1e3
             / simres["run_s"]))
+    # the particles of its end as IPOUT=2 writes them, for sim_dp (which
+    # runs this job and removes its directory)
+    write_end_dump(sim, SIM_NPZ_END)
     del sim
     # the service phase runs this job again from its job directory: it
     # takes run A's particles and the met archives
     particles = held["particles"]
     held.clear()
     held["particles"] = particles
-    shutil.rmtree(SIM_NPZ_DIR / "job", ignore_errors=True)
     shutil.rmtree(SIM_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
     return res
+
+
+# ------------------------------------------------------------ sim_dp --
+
+SIM_DP_DIR = ROOT / "build" / "sim_dp_smoke"
+SIM_NPZ_END = SIM_NPZ_DIR / "serial_end" / "partposit_end"
+DP_SHARDS = (2, 4)         # the worlds that dp_shards splits a step into
+
+
+def write_end_dump(sim, path: Path) -> None:
+    """``partposit_end`` of a finished Simulation, as its run writes it
+    with IPOUT=2 (the end of Simulation._run): every live particle with
+    its diagnostics at the run's last time."""
+    from flexpart_tpu_torch.io import partdump
+    itime = sim.last_itime
+    z0, z1, mt0, mt1 = sim._fields_for(itime)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    partdump.write_partposit(path, itime, sim.particles, sim.grid,
+                             sim._diagnostics(itime, z0, z1, mt0, mt1),
+                             only_current=False)
+    sim.close()
+
+
+def cli_dp_run(pathnames: Path, what: str) -> tuple:
+    """``python -m flexpart_tpu_torch pathnames --dp -v`` in a process of
+    its own (parallel/launch.py spawns one rank a card under NCCL; a rank
+    that fails fails the command), its standard output echoed: the psteps
+    line, the banner and the ``dp:`` line of rank 0 (world, backend, NCCL
+    version, the run's seconds, the collectives, the launches).  Returns
+    (that line as a dict, the command's seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "flexpart_tpu_torch",
+                        str(pathnames), "--dp", "-v"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    print(r.stdout, end="", flush=True)
+    check(r.returncode == 0, f"{what}: exit {r.returncode}: "
+          f"{r.stderr[-4000:]}")
+    check(BANNER in r.stdout and "psteps/s" in r.stdout, f"{what}: no banner")
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("dp: ")]
+    check(len(line) == 1, f"{what}: no dp line")
+    return json.loads(line[0][4:]), seconds
+
+
+def shard_rows(p, world: int, r: int):
+    """Rank r's rows of ``p`` padded to a multiple of ``world`` (a copy):
+    the global slots [r L, (r + 1) L)."""
+    from flexpart_tpu_torch.parallel.sharding import Layout, pad_particles
+    p = pad_particles(p, world)
+    first, per = Layout(world, r).rows(p.capacity)
+    return clone_particles(p.rows(first, first + per))
+
+
+def held_split_shares(p, world: int, what: str, itime: int | None = None):
+    """K13 over ``world`` shards of ``p`` in one process, as the ranks of a
+    group run it: each shard's (due, free) counts as an all_gather gives
+    them, each rank's Share (parallel/sharding.py::split_shares), K13 with
+    it, the children that cross ranks packed, handed over in rank order
+    and written into the takers' free slots.  Held bitwise against K13 on
+    the whole of ``p``: every field and the group's counts; each shard's
+    K13 against its plain twin with the same share: every field, the
+    counts and both lists (at ``itime``, default OH_ITIME).  Returns (the
+    shares, the crossings, the shards before the split)."""
+    import torch
+    from flexpart_tpu_torch.core import split as sp
+    from flexpart_tpu_torch.core.state import FIELDS, Particles
+    from flexpart_tpu_torch.parallel import sharding as sh
+    itime = OH_ITIME if itime is None else itime
+    whole, cw = sp.split_particles_cuda(
+        clone_particles(sh.pad_particles(p, world)), itime, 1)
+    before = [shard_rows(p, world, r) for r in range(world)]
+    counts = [[int(m.sum()) for m in sp.due_and_free(q, itime, 1)]
+              for q in before]
+    shares, moves = sh.split_shares(counts)
+    shards, sent, into = [], [], []
+    for r, q in enumerate(before):
+        k = clone_particles(q)
+        _, ck, parents, takers = sp.split_particles_cuda(k, itime, 1, None,
+                                                         shares[r])
+        pl = clone_particles(q)
+        _, cp, pp, tp = sp.split_particles_plain(pl, itime, 1, None,
+                                                 shares[r])
+        check(ck.tolist() == cp.tolist() and torch.equal(parents.long(), pp)
+              and torch.equal(takers.long(), tp),
+              f"{what}: rank {r}'s share: K13 and its plain twin differ")
+        check_same_bits(k, pl, f"{what} rank {r}", FIELDS)
+        away, arrive = sh.crossing_slots(shares[r], parents, takers)
+        sent.append(torch.split(sh.pack_rows(k, away), moves[r].tolist()))
+        into.append(arrive)
+        shards.append(k)
+    for t in range(world):
+        sh.unpack_rows(shards[t], into[t],
+                       torch.cat([sent[s][t] for s in range(world)]))
+    check_same_bits(Particles.cat(shards), whole, f"{what}: the shards",
+                    FIELDS)
+    tot = [sum(c[0] for c in counts), sum(c[1] for c in counts),
+           shares[0].granted]
+    check(tot == cw.tolist(), f"{what}: counts {tot} against {cw.tolist()}")
+    check(int(moves.sum()) > 0, f"{what}: no child crosses ranks")
+    return shares, moves, before
+
+
+def held_boundcond_shards(raw, bs, step, height, cfg, world: int, what: str):
+    """K14 over ``world`` shards of ``raw`` in one process: each shard
+    sorted by cell on its own (its local origins, as a rank sorts), its
+    first free rank from the free counts after the kill of the ranks
+    before it (parallel/sharding.py::free_after_kill, what the group's
+    all_gather gives), K14 with it.  Held bitwise against K14 on the
+    shards laid end to end with their global origins: every field, the
+    accumulator, and the counts (killed, free and granted summed, wanted
+    every rank's); rank 1's shard against the plain twin with its first
+    free rank.  Returns (the shards sorted, their origins, their first
+    free ranks)."""
+    import torch
+    from flexpart_tpu_torch.core import domainfill as df
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.core.state import FIELDS, Particles
+    from flexpart_tpu_torch.parallel import sharding as sh
+    sorted_, origins = [], []
+    for r in range(world):
+        q, perm = reorder.reorder_by_cell(shard_rows(raw, world, r), height,
+                                          cfg)
+        sorted_.append(clone_particles(q))
+        origins.append(perm.long())
+    per = sorted_[0].capacity
+    whole = Particles.cat(sorted_)
+    gorigin = torch.cat([o + r * per for r, o in enumerate(origins)])
+    unsplit = clone_particles(whole)
+    acc_w, cw = df.boundcond_cuda(unsplit, bs, *step, 1, 1, 1, True, gorigin)
+    free = [sh.free_after_kill(q, bs, True) for q in sorted_]
+    bases = [sum(free[:r], torch.zeros(1, dtype=torch.int64,
+                                       device=raw.device))
+             for r in range(world)]
+    out, counts = [], []
+    for r, q in enumerate(sorted_):
+        k = clone_particles(q)
+        acc, c = df.boundcond_cuda(k, bs, *step, 1, 1, 1, True, origins[r],
+                                   None, bases[r])
+        check(torch.equal(acc.view(torch.int32), acc_w.view(torch.int32)),
+              f"{what}: rank {r}'s accumulator")
+        check(int(c[1]) == int(free[r]), f"{what}: rank {r}'s free count")
+        if r == 1:
+            pl = clone_particles(q)
+            _, cp = df.boundcond_plain(pl, bs, *step, 1, 1, 1, True,
+                                       origins[r], None, bases[r])
+            check(c.tolist() == cp.tolist(), f"{what}: rank 1's counts "
+                  f"{c.tolist()} / plain {cp.tolist()}")
+            check_same_bits(k, pl, f"{what}: rank 1 against its plain twin",
+                            FIELDS)
+        out.append(k)
+        counts.append(c.tolist())
+    check_same_bits(Particles.cat(out), unsplit, f"{what}: the shards",
+                    FIELDS)
+    tot = [sum(c[0] for c in counts), sum(c[1] for c in counts),
+           counts[0][2], sum(c[3] for c in counts)]
+    check(tot == cw.tolist() and tot[3] > 0 and tot[0] > 0,
+          f"{what}: counts {tot} against {cw.tolist()}")
+    return sorted_, origins, bases
+
+
+def dp_shards(device, grid) -> dict:
+    """The only check on the card of the code that ranks beyond the first
+    reach (the card here holds one rank): the full-width step split by
+    hand into 2 and 4 shards in one process.  N_MAIN particles on the
+    361 x 181 x 30 grid: each shard advanced (K4, K1 inside it) with its
+    offset r L, bitwise the unsplit advance; sampled (K3) and given a
+    deposit (K8) into its own partial grid on the 720 x 360 x 3 output
+    grid, the partials summed in rank order and the unsplit grid both
+    within K8's rule of the float64 sum of the pairs (held_against_f64);
+    a split (K13, due > free) with the shares an all_gather of the counts
+    gives, bitwise the unsplit split (held_split_shares); the domain
+    fill's boundary (K14) on its 11 x 2**20 slots with each rank's first
+    free rank, bitwise the unsplit step (held_boundcond_shards).  K13's
+    and K14's times at these arguments (rank 0's and rank 1's shard)
+    beside the unsplit call's, by CUDA graphs (graph_on_copy_ms)."""
+    import torch
+    from flexpart_tpu_torch.core import advance, rng
+    from flexpart_tpu_torch.core import domainfill as df
+    from flexpart_tpu_torch.core import split as sp
+    from flexpart_tpu_torch.core.state import FIELDS, Particles
+    from flexpart_tpu_torch.grid import conccalc as cc
+    from flexpart_tpu_torch.physics import wetdepo as wd
+    t_start = time.perf_counter()
+    cfg, prm, og, geo, ccfg = step_setup(grid)
+    ccfg = ccfg.replace(kernel_possible=False)
+    z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
+    n = N_MAIN
+    p = bench_particles(n, device, seed=53)
+    key = rng.Key(77, 1)
+    itime, mem1 = 3600, 10800
+    oh = torch.tensor(og.outheights, dtype=torch.float32, device=device)
+    lage = torch.tensor([999999999], dtype=torch.int32, device=device)
+    rows = ccfg.nage * ccfg.nclassunc * ccfg.npointspec * geo.nyg * geo.nxg
+    whole, dw = advance.advance_all(clone_particles(p), z0, z1, itime, 0,
+                                    mem1, key, cfg, prm)
+    ts = itime + LSYNC
+    g3 = torch.zeros((rows * geo.nzg, 1), dtype=torch.float32, device=device)
+    cc.conccalc_cuda(g3, whole, ts, lage, oh, 1.0, None, ccfg)
+    lin3, valid3, contrib3 = cc.conccalc_pairs(rows * geo.nzg, whole, ts,
+                                               lage, oh, 1.0, None, ccfg)
+    lin3, contrib3 = lin3[valid3], contrib3[valid3]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(59)
+    deposit = torch.rand((1, n), generator=gen, device=device) / n
+    g8 = torch.zeros((rows, 1), dtype=torch.float32, device=device)
+    wd.depo_scatter_cuda(g8, deposit, whole, ts, lage, ccfg)
+    nage_idx = wd.depo_age_class(whole, ts, lage, ccfg.nage)
+    lin8, valid8, contrib8 = wd.depo_pairs(rows, deposit, whole, nage_idx,
+                                           whole.npoint.long(), ccfg)
+    lin8, contrib8 = lin8[valid8], contrib8[valid8]
+    res = dict(n=n, worlds=list(DP_SHARDS))
+    for world in DP_SHARDS:
+        what = f"dp_shards {world}"
+        per = n // world
+        parts, s3, s8, act = [], None, None, 0
+        for r in range(world):
+            q, d = advance.advance_all(shard_rows(p, world, r), z0, z1,
+                                       itime, 0, mem1, key, cfg, prm,
+                                       offset=r * per)
+            act += int(d.n_active)
+            f3 = torch.zeros_like(g3)
+            cc.conccalc_cuda(f3, q, ts, lage, oh, 1.0, None, ccfg)
+            f8 = torch.zeros_like(g8)
+            wd.depo_scatter_cuda(f8, deposit[:, r * per:(r + 1) * per]
+                                 .contiguous(), q, ts, lage, ccfg)
+            s3 = f3 if s3 is None else s3 + f3
+            s8 = f8 if s8 is None else s8 + f8
+            parts.append(q)
+        check_same_bits(Particles.cat(parts), whole, f"{what}: the advance",
+                        FIELDS)
+        check(act == int(dw.n_active), f"{what}: active {act} against "
+              f"{int(dw.n_active)}")
+        del parts
+        res[f"k3_{world}"] = held_against_f64(
+            {"kernel": g3, "shards": s3}, lin3, contrib3, K8_RTOL,
+            f"{what}: K3")
+        res[f"k8_{world}"] = held_against_f64(
+            {"kernel": g8, "shards": s8}, lin8, contrib8, K8_RTOL,
+            f"{what}: K8")
+        del s3, s8
+    del whole, lin3, contrib3, lin8, contrib8, g3, g8
+    # K13: a quarter of the slots free, three quarters of the live ones due
+    ps = split_case(n, device, 61, 0.75, 0.75)
+    res["k13_unsplit_ms"] = graph_on_copy_ms(
+        ps, lambda q: sp.split_particles_cuda(q, OH_ITIME, 1))
+    for world in DP_SHARDS:
+        shares, moves, before = held_split_shares(ps, world,
+                                                  f"dp_shards {world}: K13")
+        res[f"k13_{world}"] = dict(
+            shares=[list(s) for s in shares], crossing=int(moves.sum()),
+            rank0_ms=graph_on_copy_ms(
+                before[0], lambda q: sp.split_particles_cuda(
+                    q, OH_ITIME, 1, None, shares[0])))
+    del ps, before
+    # K14: the sim_domainfill phase's fill and boundary (boundcond_inputs)
+    _, _, bs, step = boundcond_inputs(device, grid)
+    raw = filled_particles(grid, device, 41, move=0.5)
+    zf = met_fields("synthetic_pv", grid, device, times=(0.0, 3600.0))[0]
+    for world in DP_SHARDS:
+        sorted_, origins, bases = held_boundcond_shards(
+            raw, bs, step, zf.height, cfg, world, f"dp_shards {world}: K14")
+        res[f"k14_{world}"] = dict(
+            slots=raw.capacity, first_free=[int(b) for b in bases],
+            rank1_ms=graph_on_copy_ms(sorted_[1], lambda q: df.boundcond_cuda(
+                q, bs, *step, 1, 1, 1, True, origins[1], None, bases[1])))
+        if world == DP_SHARDS[0]:
+            whole = Particles.cat(sorted_)
+            gorigin = torch.cat([o + r * sorted_[0].capacity
+                                 for r, o in enumerate(origins)])
+            res["k14_unsplit_ms"] = graph_on_copy_ms(
+                whole, lambda q: df.boundcond_cuda(q, bs, *step, 1, 1, 1,
+                                                   True, gorigin))
+            del whole
+        del sorted_, origins
+    res["seconds"] = time.perf_counter() - t_start
+    res["note"] = ("the only check on the card of the code that ranks "
+                   "beyond the first reach; no number here is of more than "
+                   "one rank")
+    return res
+
+
+def phase_sim_dp(device, grid, npzres: dict) -> dict:
+    """Particle data-parallelism on the card.  The sim_npz phase's job
+    (its met archives; IPOUT=2, so that the run writes ``partposit_end``)
+    through ``python -m flexpart_tpu_torch pathnames --dp``: the launcher,
+    NCCL, one rank a card (torch.cuda.device_count(), one here).  At a
+    world size of one the shard is the whole array: the launches of the
+    sim path's kernels are sim_npz's, ``partposit_end`` is byte for byte
+    the one sim_npz's run ends in (SIM_NPZ_END) and the npz files are
+    sim_npz's by its own rule (the keys filled through float atomics, K3
+    and K8, within their rtol: two runs of one seed differ there; every
+    other key bitwise).  Then dp_shards.  Reports the world size, the
+    backend, the NCCL version, the run's time and sections beside
+    sim_npz's, and each collective's calls, bytes and seconds."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    shutil.rmtree(SIM_DP_DIR, ignore_errors=True)
+    job = SIM_DP_DIR / "job"
+    pathnames = write_sim_npz_job(job, SIM_NPZ_DIR / "metdata")
+    cmd = dataclasses.replace(sim_config()[0], ipout=2)
+    (job / "options" / "COMMAND").write_text(namelist("command",
+                                                      changed(cmd)))
+    torch.cuda.empty_cache()
+    dp, cli_s = cli_dp_run(pathnames, "sim_dp")
+    check(dp["world"] == torch.cuda.device_count() == 1
+          and dp["backend"] == "nccl" and dp["device"] == "cuda:0",
+          f"sim_dp: world {dp['world']} on {dp['device']} over "
+          f"{dp['backend']}")
+    for name in FIXED_PATH_KERNELS:
+        check(dp["launches"][name] == npzres["launches"][name] > 0,
+              f"sim_dp: {name} launched {dp['launches'][name]} times, "
+              f"sim_npz {npzres['launches'][name]}")
+    out, out_a = job / "output", SIM_NPZ_DIR / "job" / "output"
+    end = (out / "partposit_end").read_bytes()
+    check(end == SIM_NPZ_END.read_bytes(),
+          "sim_dp: partposit_end differs from sim_npz's run's")
+    names = {q.name for q in out.iterdir()}
+    check(names == {q.name for q in out_a.iterdir()} | {"partposit_end"},
+          f"sim_dp: files {sorted(names)}")
+    npz_keys = {}
+    for q in sorted(out.glob("grid_conc_*.npz")):
+        with np.load(q) as b, np.load(out_a / q.name) as a:
+            for k in a.files:
+                same = bool(np.array_equal(a[k], b[k]))
+                npz_keys.setdefault(k, []).append(same)
+                if k in NPZ_ATOMIC_RTOL:
+                    check(bool(np.all(np.abs(a[k] - b[k])
+                                      <= NPZ_ATOMIC_RTOL[k] * np.abs(a[k]))),
+                          f"sim_dp: {q.name} {k} against sim_npz's")
+                else:
+                    check(same, f"sim_dp: {q.name} {k} differs from "
+                          "sim_npz's")
+    shutil.rmtree(SIM_NPZ_DIR / "job", ignore_errors=True)
+    shutil.rmtree(SIM_DP_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    shards = dp_shards(device, grid)
+    torch.cuda.empty_cache()
+    return dict(
+        world=dp["world"], backend=dp["backend"], nccl=dp["nccl"],
+        run_s=dp["run_s"], cli_s=cli_s, sim_npz_run_s=npzres["run_s"],
+        sim_npz_cli_s=npzres["cli_s"],
+        section_seconds_unsynced=dp["timings"],
+        sim_npz_section_seconds_unsynced=npzres["section_seconds_unsynced"],
+        collectives=dp["collectives"],
+        launches=dp["launches"], partposit_end_bytes=len(end),
+        partposit_end_bytewise_equal_to_sim_npz=True,
+        npz_bitwise_against_sim_npz=npz_keys, dp_shards=shards)
 
 
 SERVICE_DIR = ROOT / "build" / "service_smoke"
@@ -9092,6 +9459,11 @@ def main() -> int:
     t0 = time.perf_counter()
     npzres = phase_sim_npz(device, counted, held, simres)
     emit({"phase": "sim_npz", "seconds": time.perf_counter() - t0, **npzres,
+          "device": name, "power_limit": smi})
+
+    t0 = time.perf_counter()
+    dpres = phase_sim_dp(device, grid, npzres)
+    emit({"phase": "sim_dp", "seconds": time.perf_counter() - t0, **dpres,
           "device": name, "power_limit": smi})
 
     t0 = time.perf_counter()

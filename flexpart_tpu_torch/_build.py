@@ -404,6 +404,7 @@ REDIST = Kernel("redist", "fp_redist", [
     I, I, I, I, I,        # n, nx, ny, L1, itime
     F,                    # lsynctime
     U32, U32,             # philox key words
+    I64,                  # offset: the global slot of particle 0 (the draws' counter)
     I,                    # backward: 1, the BACKWARD instantiation
     P,                    # out: z (n,) f32
     P,                    # moved count (1,) i32, accumulated into
@@ -486,7 +487,8 @@ SPLIT = Kernel("split", "fp_split", [
     P, P,                 # scratch: tile states (tiles,) u64, ticket
     I64, I,               # bytes zeroed from the bits on, scan tiles of each bitmap
     P,                    # scratch: the slots free or due, bits in slot order
-    P, P,                 # scratch: free and due slots by rank (n / 2 + 1,) i32
+    P, P,                 # scratch: free and due slots by rank (n / 2 + 1,) i32; (n,) in a share
+    I64, I64, I64,        # a rank's share of a group's split: due base, free base, granted (-1: alone)
     P,                    # out: counts (3,) i32: due, free, granted
     I,                    # multiprocessors (the copy's grid)
     P,                    # stream
@@ -513,6 +515,7 @@ DOMAINFILL = Kernel("domainfill", "fp_domainfill", [
     P,                    # scratch: the free slots, bits in slot order
     P,                    # scratch: free slots by rank (4 S,) i32
     P, P, P, P, P,        # scratch: the wishes' class (4 S,) i32, x, y, z, mass (4 S,) f32
+    P,                    # a rank's first free rank (1,) i64, or NULL (0)
     P,                    # out: counts (4,) i32: killed, free, wanted, granted
     P,                    # stream
 ])

@@ -497,11 +497,15 @@ def boundcond_plain(p: Particles, bs: BoundaryState, f0, f1, height,
                     lsynctime: float, itsplit: int, ylat0: float, dy: float,
                     mdomainfill: int = 1, ldirect: int = 1,
                     nclassunc: int = 1, check_x: bool = True,
-                    origin: torch.Tensor | None = None, draws=None):
+                    origin: torch.Tensor | None = None, draws=None,
+                    free_base: torch.Tensor | None = None):
     """Plain twin of K14, in place on ``p``.  ``f0``, ``f1``: the two met
     times' f3d; ``draws``: (u1, u2, nclass), each (KMAX_EMIT, S), or None
-    (the port's Philox).  Returns (the new accumulator, counts): counts is
-    an int32 tensor (killed, free, wanted, granted)."""
+    (the port's Philox); ``free_base``: a (1,) int64 tensor, the group's
+    free rank of this rank's first free slot in a data-parallel run (the
+    rank writes the wishes of ranks free_base .. free_base + free - 1), or
+    None (0).  Returns (the new accumulator, counts): counts is an int32
+    tensor (killed, free, wanted, granted)."""
     n, dev = p.capacity, p.device
     _, xlo, xhi, ylo, yhi = bs.limits()
     x, y = p.x, p.y
@@ -529,8 +533,9 @@ def boundcond_plain(p: Particles, bs: BoundaryState, f0, f1, height,
     free_slots = at_origin[free_o]
     wish = want.reshape(-1)
     n_free, n_want = int(free_slots.shape[0]), int(wish.sum())
-    granted = min(n_free, n_want)
-    pick = torch.nonzero(wish, as_tuple=True)[0][:granted]
+    first = 0 if free_base is None else int(free_base.reshape(()))
+    granted = min(max(n_want - first, 0), n_free)
+    pick = torch.nonzero(wish, as_tuple=True)[0][first:first + granted]
     slot = free_slots[:granted]
     iti = int(itime)
 
@@ -577,9 +582,10 @@ def boundcond_cuda(p: Particles, bs: BoundaryState, f0, f1, height,
                    lsynctime: float, itsplit: int, ylat0: float, dy: float,
                    mdomainfill: int = 1, ldirect: int = 1,
                    nclassunc: int = 1, check_x: bool = True,
-                   origin: torch.Tensor | None = None, draws=None):
+                   origin: torch.Tensor | None = None, draws=None,
+                   free_base: torch.Tensor | None = None):
     """K14 launch, in place on ``p``; the counts (killed, free, wanted,
-    granted) stay on the card."""
+    granted) stay on the card; ``free_base`` as the plain twin's."""
     n, dev = p.capacity, p.device
     s = bs.sites
     if n >= MAX_FLAGS:
@@ -617,6 +623,10 @@ def boundcond_cuda(p: Particles, bs: BoundaryState, f0, f1, height,
                     or not t.is_contiguous():
                 raise ValueError(f"K14: injected draws must be contiguous "
                                  f"({KMAX_EMIT}, {s}) on {dev}")
+    if free_base is not None and (free_base.device != dev
+                                  or free_base.dtype != torch.int64
+                                  or free_base.numel() != 1):
+        raise ValueError(f"K14: free_base must be one int64 on {dev}")
     xpp, xlo, xhi, ylo, yhi = bs.limits()
     acc = torch.empty_like(bs.acc)
     if n == 0:
@@ -656,6 +666,7 @@ def boundcond_cuda(p: Particles, bs: BoundaryState, f0, f1, height,
             at["counter"], 4 * plan.zero, plan.tiles_a, plan.tiles,
             at["flagged"], at["list_a"], cand, *(
                 cand + 4 * wishes * j for j in range(1, 5)),
+            None if free_base is None else free_base.data_ptr(),
             counts.data_ptr(), stream)
     return acc, counts
 
@@ -664,14 +675,17 @@ def boundcond(p: Particles, bs: BoundaryState, f0, f1, height, itime: int,
               w0: float, w1: float, key: "rng.Key", lsynctime: float,
               itsplit: int, ylat0: float, dy: float, mdomainfill: int = 1,
               ldirect: int = 1, nclassunc: int = 1, check_x: bool = True,
-              origin: torch.Tensor | None = None, draws=None):
+              origin: torch.Tensor | None = None, draws=None,
+              free_base: torch.Tensor | None = None):
     """One boundary-condition step (boundcond_domainfill.f90), in place on
-    the particles: K14 on CUDA, the plain twin on the CPU.  Returns (the
-    new accumulator, counts (killed, free, wanted, granted))."""
+    the particles: K14 on CUDA, the plain twin on the CPU.  ``free_base``:
+    a data-parallel rank's first free rank in the group (one int64 on the
+    particles' device; None: 0).  Returns (the new accumulator, counts
+    (killed, free, wanted, granted))."""
     run = {"cuda": boundcond_cuda,
            "cpu": boundcond_plain}.get(p.device.type)
     if run is None:
         raise ValueError(f"no boundary backend for device {p.device}")
     return run(p, bs, f0, f1, height, itime, w0, w1, key, lsynctime,
                itsplit, ylat0, dy, mdomainfill, ldirect, nclassunc, check_x,
-               origin, draws)
+               origin, draws, free_base)

@@ -24,12 +24,15 @@ children are disjoint slots): ``split_particles_plain`` (cumsum and masked
 flags as bits in origin order, one scan of their words, each slot's rank
 from its word, the copy; its scratch laid out by ``split_plan``) for
 CUDA tensors.  ``split_particles`` picks by device and never
-falls from one to the other.
+falls from one to the other.  A rank of a data-parallel run splits its
+``Share`` of the group's split (both versions; parallel/sharding.py sends
+the children that land on other ranks).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -59,10 +62,40 @@ def doubled_interval(itrasplit: torch.Tensor,
                        999999999).to(torch.int32)
 
 
+class Share(NamedTuple):
+    """A rank's share of a split over a process group (a data-parallel
+    run, ``parallel/sharding.py::split_sharded``): the group's due rank of
+    the rank's first due particle and free rank of its first free slot (in
+    the group's origin order, rank-major), the group's granted count
+    min(due, free), and the rank's own due and free counts.  The rank's due
+    particle j is the group's due particle ``due_base + j``; its child takes
+    the group's free slot of that rank, on this rank its free slot
+    ``j + due_base - free_base`` where that lies in 0 .. free - 1."""
+    due_base: int
+    free_base: int
+    granted: int
+    due: int
+    free: int
+
+    def limits(self) -> tuple:
+        """(parents, takers, lo, hi): the due particles granted a child,
+        the free slots that take one, and the due ranks [lo, hi) whose
+        child lands on this rank (K13's ``share_limits``)."""
+        parents = min(max(self.granted - self.due_base, 0), self.due)
+        takers = min(max(self.granted - self.free_base, 0), self.free)
+        shift = self.due_base - self.free_base
+        lo = min(max(-shift, 0), parents)
+        hi = max(min(max(takers - shift, 0), parents), lo)
+        return parents, takers, lo, hi
+
+
 def split_particles_plain(p: Particles, itime: int, ldirect: int = 1,
-                          origin: torch.Tensor | None = None):
+                          origin: torch.Tensor | None = None,
+                          share: Share | None = None):
     """Plain twin of K13, in place.  Returns (particles, counts): counts is
-    an int32 tensor (due, free, granted)."""
+    an int32 tensor (due, free, granted); with a ``share``, (particles,
+    counts, the slots of the parents granted a child, the free slots that
+    take one), granted then the rank's parents."""
     n, dev = p.capacity, p.device
     due, free = due_and_free(p, itime, ldirect)
     slots = torch.arange(n, device=dev)
@@ -77,43 +110,60 @@ def split_particles_plain(p: Particles, itime: int, ldirect: int = 1,
     due_rank = torch.cumsum(due_o, 0) - 1
     n_free = int(free_rank[-1]) + 1 if n else 0
     n_due = int(due_rank[-1]) + 1 if n else 0
-    granted = min(n_due, n_free)
+    if share is None:
+        granted = min(n_due, n_free)
+        parents, takers, lo, hi = granted, granted, 0, granted
+    else:
+        if (share.due, share.free) != (n_due, n_free):
+            raise ValueError(f"K13 share counts {share.due, share.free} "
+                             f"against the slots' {n_due, n_free}")
+        parents, takers, lo, hi = share.limits()
+    shift = 0 if share is None else share.due_base - share.free_base
     # the slot of the r-th free origin and of the r-th due one
     free_slot = torch.empty(n, dtype=torch.long, device=dev)
     free_slot.index_copy_(0, free_rank[free_o], at_origin[free_o])
     due_slot = torch.empty(n, dtype=torch.long, device=dev)
     due_slot.index_copy_(0, due_rank[due_o], at_origin[due_o])
-    parent, child = due_slot[:granted], free_slot[:granted]
+    parent = due_slot[:parents]
+    pair = parent[lo:hi]
+    child = free_slot[lo + shift:hi + shift]
     for name in FIELDS:
         t = getattr(p, name)
         if name == "mass":
             half = t[parent] * 0.5
             t.index_copy_(0, parent, half)
-            t.index_copy_(0, child, half)
+            t.index_copy_(0, child, half[lo:hi])
         elif name == "itrasplit":
             nxt = doubled_interval(t[parent], p.itramem[parent])
             t.index_copy_(0, parent, nxt)
-            t.index_copy_(0, child, nxt)
+            t.index_copy_(0, child, nxt[lo:hi])
         elif name == "active":
             t.index_fill_(0, child, True)
         else:
-            t.index_copy_(0, child, t[parent])
-    counts = torch.tensor([n_due, n_free, granted], dtype=torch.int32,
+            t.index_copy_(0, child, t[pair])
+    counts = torch.tensor([n_due, n_free, parents], dtype=torch.int32,
                           device=dev)
-    return p, counts
+    if share is None:
+        return p, counts
+    return p, counts, parent, free_slot[:takers]
 
 
-def split_plan(n: int):
+def split_plan(n: int, share: bool = False):
     """K13's scratch at ``n`` slots (origin_rank.rank_plan): the free and
     the due bitmaps, the free and due slots by rank, at most min(due,
-    free) <= n // 2 of each, and the slots free or due in slot order."""
-    return rank_plan(n, n, (n // 2 + 1, n // 2 + 1), n)
+    free) <= n // 2 of each (in a share up to n of each: a rank may give
+    all its free slots to other ranks' parents), and the slots free or due
+    in slot order."""
+    m = n if share else n // 2 + 1
+    return rank_plan(n, n, (m, m), n)
 
 
 def split_particles_cuda(p: Particles, itime: int, ldirect: int = 1,
-                         origin: torch.Tensor | None = None):
+                         origin: torch.Tensor | None = None,
+                         share: Share | None = None):
     """K13 launch, in place; the counts (due, free, granted) stay on the
-    card."""
+    card.  With a ``share``, also the slots of the parents granted a child
+    and the free slots that take one (views of the scratch, by rank)."""
     n, dev = p.capacity, p.device
     if n >= MAX_FLAGS:
         raise ValueError("K13 indexes particles with int32")
@@ -129,9 +179,13 @@ def split_particles_cuda(p: Particles, itime: int, ldirect: int = 1,
         raise ValueError(f"K13: origin must be contiguous int64 ({n},) on "
                          f"{dev}")
     if n == 0:
-        return p, torch.zeros(3, dtype=torch.int32, device=dev)
+        counts = torch.zeros(3, dtype=torch.int32, device=dev)
+        if share is None:
+            return p, counts
+        none = torch.zeros(0, dtype=torch.int32, device=dev)
+        return p, counts, none, none
     counts = torch.empty(3, dtype=torch.int32, device=dev)
-    plan = split_plan(n)
+    plan = split_plan(n, share is not None)
     scratch = rank_scratch(plan, dev)
     at = pointers(scratch, plan)
     fields = (ctypes.c_void_p * len(FIELDS))(
@@ -143,20 +197,28 @@ def split_particles_cuda(p: Particles, itime: int, ldirect: int = 1,
             None if origin is None else origin.data_ptr(), n, p.nspec,
             int(itime), int(ldirect), at["bits"], at["prefix"],
             at["status"], at["ticket"], 4 * plan.zero, plan.tiles_a,
-            at["flagged"], at["list_a"], at["list_b"], counts.data_ptr(),
-            sm_count(dev),
-            stream)
-    return p, counts
+            at["flagged"], at["list_a"], at["list_b"],
+            *((0, 0, -1) if share is None
+              else (share.due_base, share.free_base, share.granted)),
+            counts.data_ptr(), sm_count(dev), stream)
+    if share is None:
+        return p, counts
+    parents, takers, _, _ = share.limits()
+    return (p, counts, scratch[plan.list_b:plan.list_b + parents],
+            scratch[plan.list_a:plan.list_a + takers])
 
 
 def split_particles(p: Particles, itime: int, ldirect: int = 1,
-                    origin: torch.Tensor | None = None):
+                    origin: torch.Tensor | None = None,
+                    share: Share | None = None):
     """Split the particles due at ``itime``, in place; ``origin`` the
     slots' schedule origins (None: the identity).  K13 on a CUDA device,
     the plain version on the CPU.  Returns (particles, counts), counts an
-    int32 tensor (due, free, granted) on the particles' device."""
+    int32 tensor (due, free, granted) on the particles' device; with a
+    rank's ``share`` of a group's split, also the slots of its parents
+    granted a child and its free slots that take one, each by rank."""
     run = {"cuda": split_particles_cuda,
            "cpu": split_particles_plain}.get(p.device.type)
     if run is None:
         raise ValueError(f"no splitting backend for device {p.device}")
-    return run(p, itime, ldirect, origin)
+    return run(p, itime, ldirect, origin, share)

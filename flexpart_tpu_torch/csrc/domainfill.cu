@@ -47,6 +47,12 @@
 //     rank listed by pass 3) measured 1.20x slower with 993,289 new
 //     particles (NVIDIA H100).
 //
+// A rank of a data-parallel run holds the group's free slots of ranks
+// free_base .. free_base + free - 1 (the ranks before it hold the lower
+// ones) and the same sites and draws as every rank: it writes the wishes
+// whose rank falls there, each into its free slot of rank (wish rank -
+// free_base).  Alone free_base is 0 and the step is the one above.
+//
 // Arithmetic: the plain version's float32 operations in its order
 // (-fmad=false); the ranking is integer.  So the kernel and its plain
 // version agree bit for bit, and two runs of one seed do.
@@ -126,7 +132,14 @@ struct Scratch {
   int* cand_ncls;                          // (KMAX_EMIT * S,)
   float *cand_x, *cand_y, *cand_z, *cand_m;
   int* counts;                             // killed, free, wanted, granted
+  const long long* free_base;              // a rank's first free rank, or NULL
 };
+
+// the group's free rank of this rank's first free slot (a data-parallel
+// run: the free slots of the ranks before it; alone 0)
+__device__ __forceinline__ long long first_free(const Scratch& s) {
+  return s.free_base == nullptr ? 0 : *s.free_base;
+}
 
 // per slot of block b: the kill, the free bit at its origin, the killed
 // count
@@ -296,7 +309,11 @@ boundary_scan_kernel(Scratch s) {
     s.counts[0] = *s.killed;
     s.counts[1] = n_free;
     s.counts[2] = n_want;
-    s.counts[3] = n_want < n_free ? n_want : n_free;   // granted
+    // granted: the wishes that land in this rank's free slots, the group's
+    // wishes first_free .. first_free + free - 1 (alone min(free, wanted))
+    const long long left = n_want - first_free(s);
+    s.counts[3] = left < 0 ? 0 : (left < n_free ? static_cast<int>(left)
+                                                : n_free);
   }
 }
 
@@ -349,7 +366,10 @@ boundary_emit_kernel(Fields f, int nspec, int wishes, const Step st,
   const int w = blockIdx.x * THREADS + threadIdx.x;
   if (w >= wishes) return;
   const int rw = fp::flag_rank(s.r, s.want_base, w);
-  if (rw >= 0 && rw < granted) emit_into(f, nspec, w, s.free_slot[rw], st, s);
+  if (rw < 0) return;
+  const long long local = rw - first_free(s);
+  if (local >= 0 && local < granted)
+    emit_into(f, nspec, w, s.free_slot[local], st, s);
 }
 
 }  // namespace
@@ -365,7 +385,10 @@ boundary_emit_kernel(Fields f, int nspec, int wishes, const Step st,
 // bits on zeroed here (the bits, status, ticket and killed), free_at_slot
 // (ceil(n / 256) * 8,) u32 (the free bits in slot order), free_slot,
 // cand_ncls (4 S,) i32, cand_x, cand_y, cand_z, cand_m (4 S,)
-// f32; counts (4,) i32 out (killed, free, wanted, granted)
+// f32; free_base (1,) i64, the group's free rank of this rank's first
+// free slot (a data-parallel run's rank; parallel/sharding.py), or NULL
+// (0: the slots alone); counts (4,) i32 out (killed, free, wanted,
+// granted: the new particles written here)
 extern "C" int fp_domainfill(
     void* const* fields, const long long* origin, int n, int nspec,
     void* const* table, int sites, float* acc_out, const float* f3d0,
@@ -377,7 +400,8 @@ extern "C" int fp_domainfill(
     int* prefix, unsigned long long* status, int* ticket, int* killed,
     long long zero_bytes, int tiles_a, int tiles, uint32_t* free_at_slot,
     int* free_slot, int* cand_ncls, float* cand_x, float* cand_y,
-    float* cand_z, float* cand_m, int* counts, void* stream) {
+    float* cand_z, float* cand_m, const long long* free_base, int* counts,
+    void* stream) {
   if (n <= 0) return 0;
   const long long wishes = static_cast<long long>(KMAX_EMIT) * sites;
   const long long flags_a = static_cast<long long>(tiles_a) *
@@ -436,7 +460,7 @@ extern "C" int fp_domainfill(
   const Scratch s = {r, static_cast<long long>(tiles_a) *
                             fp::RANK_TILE_WORDS,
                      killed, free_at_slot, free_slot, cand_ncls, cand_x,
-                     cand_y, cand_z, cand_m, counts};
+                     cand_y, cand_z, cand_m, counts, free_base};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(bits, 0, static_cast<size_t>(zero_bytes),
                                     cs);

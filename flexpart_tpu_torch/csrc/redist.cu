@@ -15,7 +15,8 @@
 // the particle's level from the column's half-level heights, and, for a
 // particle that is scheduled now, sits in a convecting column and below
 // its top: a uniform draw (Philox4x32-10 of philox_normal.cuh under its
-// own key, counter = the particle's slot, top 24 bits of word 0, as
+// own key, counter = the particle's global slot (offset + slot: a rank's
+// first slot in a data-parallel run), top 24 bits of word 0, as
 // core/rng.py::uniforms_plain makes it; or an injected array) against the
 // cumulative row of the column's fmassfrac, summed in level order; the
 // first level whose cumulative fraction reaches the draw is the new level,
@@ -99,8 +100,8 @@ template <bool BACKWARD>
 __global__ void __launch_bounds__(256)
 redist_kernel(const PIn in, const Conv cv, const float* __restrict__ rn_in,
               int n, int nx, int ny, int L1, int itime, float lsync,
-              uint32_t k0, uint32_t k1, float* __restrict__ z_out,
-              int* __restrict__ moved_count) {
+              uint32_t k0, uint32_t k1, long long offset,
+              float* __restrict__ z_out, int* __restrict__ moved_count) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   bool moved = false;
   if (i < n) {
@@ -129,7 +130,7 @@ redist_kernel(const PIn in, const Conv cv, const float* __restrict__ rn_in,
           rn = rn_in[i];
         } else {
           uint32_t w[4];
-          fp::normal_words(w, k0, k1, i, 0u);
+          fp::normal_words(w, k0, k1, offset + i, 0u);
           rn = fp::uniform24(w[0]);
         }
         // the cumulative row, in level order; the first level it reaches
@@ -195,7 +196,7 @@ extern "C" int fp_redist(
     const float* sub, const float* uvzlev, const float* pconv,
     const float* tconv, const uint8_t* lconv, const float* rn, int n, int nx,
     int ny, int L1, int itime, float lsync, uint32_t k0, uint32_t k1,
-    int backward, float* z_out, int* moved, void* stream) {
+    long long offset, int backward, float* z_out, int* moved, void* stream) {
   if (n <= 0) return 0;
   if (L1 < 2 || nx < 1 || ny < 1) return static_cast<int>(cudaErrorInvalidValue);
   const PIn in = {x_hi, x_lo, y_hi, y_lo, z, itra, active};
@@ -207,6 +208,6 @@ extern "C" int fp_redist(
   const unsigned blocks = static_cast<unsigned>((n + threads - 1) / threads);
   auto kern = backward ? redist_kernel<true> : redist_kernel<false>;
   kern<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      in, cv, rn, n, nx, ny, L1, itime, lsync, k0, k1, z_out, moved);
+      in, cv, rn, n, nx, ny, L1, itime, lsync, k0, k1, offset, z_out, moved);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,6 +33,11 @@
 //     clips) and the child active.  Walking the parents in slot order
 //     instead, each finding its rank again, measured 1.70x slower after a
 //     sort (12 x 2**20 slots, NVIDIA H100).
+// A rank of a data-parallel run splits its share of the group's split
+// (Share): its due particles and free slots keep their ranks, offset by the
+// group's counts on the ranks before it; a parent whose child lands on
+// another rank is updated here and its row sent by the caller.  Alone
+// (granted -1) both offsets are 0 and the kernel is the split above.
 // The particle fields are updated in place: parents and children are
 // disjoint (active, inactive), so no slot is read and written by two
 // threads.  The counts stay on the card.
@@ -76,7 +81,7 @@ struct Fields {
 __global__ void __launch_bounds__(THREADS)
 split_flags_kernel(const Fields f, const long long* __restrict__ origin,
                    int n, int itime, int ldirect, fp::Ranking r,
-                   long long due_base, uint32_t* __restrict__ flagged) {
+                   long long due_words, uint32_t* __restrict__ flagged) {
   const int k = blockIdx.x * THREADS + threadIdx.x;
   bool due = false, is_free = false;
   long long o = -1;
@@ -97,37 +102,81 @@ split_flags_kernel(const Fields f, const long long* __restrict__ origin,
   }
   if (origin == nullptr) {                 // uniform over the grid
     fp::write_warp_word(r.bits, k >> 5, is_free);
-    fp::write_warp_word(r.bits + due_base, k >> 5, due);
+    fp::write_warp_word(r.bits + due_words, k >> 5, due);
   } else {
     fp::set_flag(r.bits, o, is_free);
-    fp::set_flag(r.bits + due_base, o, due);
+    fp::set_flag(r.bits + due_words, o, due);
   }
   fp::write_warp_word(flagged, k >> 5, is_free || due);
 }
 
+// A rank's share of a split over a process group (a data-parallel run;
+// parallel/sharding.py::split_sharded): the global due rank of its first
+// due particle and the global free rank of its first free slot, in the
+// group's origin order (rank-major), and the group's granted count.  The
+// rank's due particle j is the group's due particle due_base + j; its child
+// goes to the group's free slot of that rank, which lies on this rank as
+// its free slot j + due_base - free_base where that falls in 0 .. free - 1,
+// else on another rank (its row sent there by the caller).  granted < 0 is
+// a split of this rank alone: both bases 0 and granted = min(due, free).
+struct Share {
+  long long due_base, free_base, granted;
+};
+
+// from the counts of the scan: the due particles granted a child, the free
+// slots that take one, and the due ranks [lo, hi) whose child lands here
+struct Limits {
+  int parents, takers, lo, hi;
+};
+
+__device__ __forceinline__ long long clamp_to(long long v, long long hi) {
+  return v < 0 ? 0 : (v > hi ? hi : v);
+}
+
+__device__ __forceinline__ Limits share_limits(const Share& sh,
+                                               const int* counts) {
+  const int due = counts[0], n_free = counts[1];
+  Limits l;
+  if (sh.granted < 0) {
+    l.parents = l.takers = l.hi = due < n_free ? due : n_free;
+    l.lo = 0;
+    return l;
+  }
+  l.parents = static_cast<int>(clamp_to(sh.granted - sh.due_base, due));
+  l.takers = static_cast<int>(clamp_to(sh.granted - sh.free_base, n_free));
+  const long long shift = sh.due_base - sh.free_base;
+  l.lo = static_cast<int>(clamp_to(-shift, l.parents));
+  l.hi = static_cast<int>(clamp_to(l.takers - shift, l.parents));
+  if (l.hi < l.lo) l.hi = l.lo;
+  return l;
+}
+
 __global__ void __launch_bounds__(fp::RANK_THREADS)
-split_scan_kernel(const fp::Ranking r, int* counts) {
+split_scan_kernel(const fp::Ranking r, const Share sh, int* counts) {
   int n_free, n_due;
   if (fp::rank_scan_tile(r, &n_free, &n_due)) {
     counts[0] = n_due;
     counts[1] = n_free;
-    counts[2] = n_due < n_free ? n_due : n_free;   // granted
+    // granted: the parents that get a child (a share's, wherever the child
+    // lands)
+    counts[2] = share_limits(sh, counts).parents;
   }
 }
 
 // per slot free or due, its rank among the free and among the due ones;
-// the r-th of each, r < granted, into its list
+// the free slots that take a child and the due particles granted one into
+// their lists, by rank
 __global__ void __launch_bounds__(fp::RANK_THREADS)
 split_ranks_kernel(const long long* __restrict__ origin, int n,
-                   const fp::Ranking r, long long due_base,
+                   const fp::Ranking r, long long due_words,
                    const uint32_t* __restrict__ flagged,
                    int* __restrict__ free_slot, int* __restrict__ due_slot,
-                   const int* __restrict__ counts) {
-  const int granted = counts[2];
-  if (granted == 0) return;
+                   const Share sh, const int* __restrict__ counts) {
+  const Limits l = share_limits(sh, counts);
+  if (l.parents == 0 && l.takers == 0) return;
   fp::rank_flagged_slots(origin, n, flagged, [&](int k, long long o) {
-    fp::list_by_rank(r, 0, o, k, granted, free_slot);
-    fp::list_by_rank(r, due_base, o, k, granted, due_slot);
+    fp::list_by_rank(r, 0, o, k, l.takers, free_slot);
+    fp::list_by_rank(r, due_words, o, k, l.parents, due_slot);
   });
 }
 
@@ -174,14 +223,34 @@ __device__ __forceinline__ void copy_pair(const Fields& f, int nspec, int p,
   }
 }
 
+// a parent whose child lands on another rank: both masses halved and the
+// split time doubled here, the child's row taken from it by the caller
+__device__ __forceinline__ void update_parent(const Fields& f, int nspec,
+                                              int p) {
+  const int itramem = f.itramem[p];
+  long long dt = static_cast<long long>(f.itrasplit[p]) - itramem;
+  dt = dt < -499999999LL ? -499999999LL : (dt > 499999999LL ? 499999999LL : dt);
+  long long next = 2 * dt + itramem;
+  next = next < -999999998LL ? -999999998LL
+                             : (next > 999999999LL ? 999999999LL : next);
+  f.itrasplit[p] = static_cast<int>(next);
+  const long long rp = static_cast<long long>(p) * nspec;
+  for (int k = 0; k < nspec; ++k) f.mass[rp + k] = f.mass[rp + k] * 0.5f;
+}
+
 __global__ void __launch_bounds__(THREADS)
 split_copy_kernel(Fields f, int nspec, const int* __restrict__ free_slot,
-                  const int* __restrict__ due_slot,
+                  const int* __restrict__ due_slot, const Share sh,
                   const int* __restrict__ counts) {
-  const int granted = counts[2];
-  for (int q = blockIdx.x * THREADS + threadIdx.x; q < granted;
-       q += gridDim.x * THREADS)
-    copy_pair(f, nspec, due_slot[q], free_slot[q]);
+  const Limits l = share_limits(sh, counts);
+  const long long shift = sh.granted < 0 ? 0 : sh.due_base - sh.free_base;
+  for (int q = blockIdx.x * THREADS + threadIdx.x; q < l.parents;
+       q += gridDim.x * THREADS) {
+    if (q >= l.lo && q < l.hi)
+      copy_pair(f, nspec, due_slot[q], free_slot[static_cast<int>(q + shift)]);
+    else
+      update_parent(f, nspec, due_slot[q]);
+  }
 }
 
 }  // namespace
@@ -192,14 +261,18 @@ split_copy_kernel(Fields f, int nspec, const int* __restrict__ free_slot,
 // and n): bits and prefix (2 tiles * RANK_TILE_WORDS,) each, status
 // (2 tiles,) u64, ticket, zero_bytes from bits on zeroed here (the bits,
 // status and ticket), flagged (ceil(n / 256) * 8,) u32 (per slot in slot
-// order, free or due), free_slot and due_slot (n / 2 + 1,) i32; counts
-// (3,) i32 out (due, free, granted)
+// order, free or due), free_slot and due_slot, i32, by rank (n / 2 + 1,)
+// each alone, (n,) each in a share; due_base, free_base, granted: the
+// rank's share of a group's split (Share; granted -1: the split of these
+// slots alone); counts (3,) i32 out (due, free, granted: the parents
+// granted a child)
 extern "C" int fp_split(void* const* fields, const long long* origin, int n,
                         int nspec, int itime, int ldirect, uint32_t* bits,
                         int* prefix, unsigned long long* status, int* ticket,
                         long long zero_bytes, int tiles, uint32_t* flagged,
-                        int* free_slot, int* due_slot, int* counts, int sms,
-                        void* stream) {
+                        int* free_slot, int* due_slot, long long due_base,
+                        long long free_base, long long granted, int* counts,
+                        int sms, void* stream) {
   if (n <= 0) return 0;
   if (nspec < 1 || sms < 1 || tiles < 1 ||
       static_cast<long long>(tiles) * fp::RANK_TILE_WORDS * 32 < n)
@@ -227,20 +300,23 @@ extern "C" int fp_split(void* const* fields, const long long* origin, int n,
   f.mass0 = static_cast<float*>(fields[19]);
   f.xscav = static_cast<float*>(fields[20]);
   f.active = static_cast<bool*>(fields[21]);
+  if (granted >= 0 && (due_base < 0 || free_base < 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Share sh = {due_base, free_base, granted};
   const fp::Ranking r = {bits, prefix, status, ticket, tiles, 2 * tiles};
-  const long long due_base = static_cast<long long>(tiles) *
-                             fp::RANK_TILE_WORDS;
+  const long long due_words = static_cast<long long>(tiles) *
+                              fp::RANK_TILE_WORDS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(bits, 0, static_cast<size_t>(zero_bytes),
                                     st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int slot_blocks = (n + THREADS - 1) / THREADS;
   split_flags_kernel<<<slot_blocks, THREADS, 0, st>>>(
-      f, origin, n, itime, ldirect, r, due_base, flagged);
-  split_scan_kernel<<<2 * tiles, fp::RANK_THREADS, 0, st>>>(r, counts);
+      f, origin, n, itime, ldirect, r, due_words, flagged);
+  split_scan_kernel<<<2 * tiles, fp::RANK_THREADS, 0, st>>>(r, sh, counts);
   split_ranks_kernel<<<fp::rank_blocks(n), fp::RANK_THREADS, 0, st>>>(
-      origin, n, r, due_base, flagged, free_slot, due_slot, counts);
+      origin, n, r, due_words, flagged, free_slot, due_slot, sh, counts);
   split_copy_kernel<<<sms * COPY_BLOCKS_PER_SM, THREADS, 0, st>>>(
-      f, nspec, free_slot, due_slot, counts);
+      f, nspec, free_slot, due_slot, sh, counts);
   return static_cast<int>(cudaGetLastError());
 }

@@ -65,6 +65,20 @@ def particles_to_numpy(p: Particles) -> dict[str, np.ndarray]:
     return {f: to_numpy(getattr(p, f)) for f in FIELDS}
 
 
+def rank_rows_from_numpy(p, world: int, rank: int) -> dict[str, np.ndarray]:
+    """A data-parallel rank's rows of a global particle state (a JAX
+    ``Particles`` with numpy leaves, or a dict), as numpy by field: the
+    capacity padded with empty slots to a multiple of ``world``, then the
+    contiguous rows ``[rank * L, (rank + 1) * L)`` (the JAX package's
+    ``P("p")`` sharding; parallel/sharding.py)."""
+    from .parallel.sharding import pad_particles
+    rows = pad_particles({f: np.asarray(_get(p, f)).astype(
+        _PARTICLE_DTYPES.get(f, np.float32), copy=False) for f in FIELDS},
+        world)
+    per = len(rows["z"]) // world
+    return {f: a[rank * per:(rank + 1) * per] for f, a in rows.items()}
+
+
 def zfields_from_numpy(z, device) -> ZFields:
     return ZFields(
         f3d=to_tensor(np.asarray(_get(z, "f3d"), np.float32), device),

@@ -270,13 +270,18 @@ def save_checkpoint(path, sim, itime: int) -> None:
     JAX package's ``bnd_*`` keys, the reference's unitboundcond dump,
     init_domainfill.f90:400-410) and the accumulators of the receptors,
     the nested output grid, the fluxes and the initial-condition
-    sensitivity.  Uncompressed: a full-width ensemble is a GB, which zlib
-    would take tens of seconds over."""
+    sensitivity.  A data-parallel run's ranks gather their rows in global
+    slot order and sum their partial grids, and rank 0 writes once, with
+    the world size (``dp_world``).  Uncompressed: a full-width ensemble is
+    a GB, which zlib would take tens of seconds over."""
+    p, _ = sim._gathered()
     state = {"itime": np.int64(itime), "seed": np.int64(sim.seed)}
     for name in FIELDS:
-        state["p_" + name] = _np(getattr(sim.particles, name))
+        state["p_" + name] = _np(getattr(p, name))
     for f in dataclasses.fields(Accumulators):
-        state["acc_" + f.name] = _np(getattr(sim.acc, f.name))
+        t = getattr(sim.acc, f.name)
+        state["acc_" + f.name] = _np(t if f.name == "outnum"
+                                     else sim._summed(t))
     if sim.cbmf is not None:
         state["cbmf"] = _np(sim.cbmf)
     if sim._height is not None:
@@ -284,61 +289,105 @@ def save_checkpoint(path, sim, itime: int) -> None:
         # (verttransform_ecmwf.f90:153-165); a resumed run interpolates on
         # the same one
         state["height"] = _np(sim._height)
-    if sim._origin is not None:
-        state["origin"] = _np(sim._origin)
+    origin = sim.global_origin()
+    if origin is not None:
+        state["origin"] = _np(origin)
     if sim._boundary is not None:
         for name, a in sim._boundary.to_numpy().items():
             state["bnd_" + name] = a
-    for key, on, get, _ in _RUN_SUMS:
+    for key, on, get, _, summed in _RUN_SUMS:
         if on(sim):
-            state[key] = _np(get(sim))
-    np.savez(path, **state)
+            state[key] = _np(sim._summed(get(sim)) if summed else get(sim))
+    if sim._group is not None:
+        state["dp_world"] = np.int64(sim._group.world)
+    if sim._writes:
+        np.savez(path, **state)
 
 
 def _set_acc_n(sim, name, v):
     sim.acc_n = sim.acc_n.replace(**{name: v})
 
 
-# the accumulators of the run's options: (key, option on, get, set)
+# the accumulators of the run's options: (key, option on, get, set, summed
+# over a data-parallel group: a partial grid, not every rank's whole sum)
 _RUN_SUMS = (
     ("creceptor", lambda s: s.receptor_set is not None,
-     lambda s: s.creceptor, lambda s, v: setattr(s, "creceptor", v)),
+     lambda s: s.creceptor, lambda s, v: setattr(s, "creceptor", v), False),
     ("acc_n_gridunc", lambda s: s.use_nested_output,
-     lambda s: s.acc_n.gridunc, lambda s, v: _set_acc_n(s, "gridunc", v)),
+     lambda s: s.acc_n.gridunc, lambda s, v: _set_acc_n(s, "gridunc", v),
+     True),
     ("acc_n_outnum", lambda s: s.use_nested_output,
-     lambda s: s.acc_n.outnum, lambda s, v: _set_acc_n(s, "outnum", v)),
+     lambda s: s.acc_n.outnum, lambda s, v: _set_acc_n(s, "outnum", v),
+     False),
     ("flux", lambda s: s.use_flux, lambda s: s.flux,
-     lambda s, v: setattr(s, "flux", v)),
+     lambda s, v: setattr(s, "flux", v), True),
     ("init_cond", lambda s: s.use_initcond, lambda s: s.init_cond,
-     lambda s, v: setattr(s, "init_cond", v)))
+     lambda s, v: setattr(s, "init_cond", v), True))
+
+
+def _rank_share(d, sim) -> tuple:
+    """(this process's rows of the checkpoint's particles, as numpy by
+    field; their local origins or None).  Alone: every row.  A rank of a
+    data-parallel run of the checkpoint's world size keeps its rows and
+    their origins; of another world size it takes its rows of the
+    particles put in origin order (their origins then the identity)."""
+    rows = {name: d["p_" + name] for name in FIELDS}
+    origin = d["origin"] if "origin" in d else None
+    g = sim._group
+    if g is None:
+        return rows, origin
+    from ..parallel.sharding import pad_particles
+    saved = int(d["dp_world"]) if "dp_world" in d else 1
+    if saved != g.world or len(rows["z"]) % g.world:
+        if origin is not None:
+            at = np.argsort(origin, kind="stable")
+            rows = {f: a[at] for f, a in rows.items()}
+            origin = None
+        rows = pad_particles(rows, g.world)
+    first, per = g.rows(len(rows["z"]))
+    sim._first = first
+    rows = {f: a[first:first + per] for f, a in rows.items()}
+    if origin is not None:
+        origin = origin[first:first + per] - first
+    return rows, origin
 
 
 def load_checkpoint(path, sim) -> int:
     """Restore a checkpoint into a Simulation built with the same
-    configuration; returns the itime to resume at."""
+    configuration; returns the itime to resume at.  A data-parallel rank
+    takes its rows (``_rank_share``); rank 0 takes the summed grids and
+    the other ranks zeros, every rank the sample counts and the
+    receptors' sums."""
     dev = sim.device
+    whole = sim._group is None or sim._group.rank == 0
     with np.load(path) as d:
         if int(d["seed"]) != sim.seed:
             raise ValueError(f"checkpoint {path} was written with seed "
                              f"{int(d['seed'])}, the run has {sim.seed}")
+        rows, origin = _rank_share(d, sim)
         sim.particles = Particles(**{
-            name: torch.as_tensor(d["p_" + name], device=dev)
+            name: torch.as_tensor(rows[name], device=dev)
             for name in FIELDS})
+
+        def grid(key, summed=True):
+            a = torch.as_tensor(d[key], device=dev)
+            return a if whole or not summed else torch.zeros_like(a)
+
         sim.acc = Accumulators(**{
-            f.name: torch.as_tensor(d["acc_" + f.name], device=dev)
+            f.name: grid("acc_" + f.name, f.name != "outnum")
             for f in dataclasses.fields(Accumulators)})
         if "height" in d:
             sim._height = np.array(d["height"])   # host numpy, as
             #                                       compute_heights gives
         if "cbmf" in d and sim.cbmf is not None:
             sim.cbmf = torch.as_tensor(d["cbmf"], device=dev)
-        if "origin" in d:
-            sim._origin = torch.as_tensor(d["origin"], device=dev)
+        sim._origin = (None if origin is None
+                       else torch.as_tensor(origin, device=dev))
         if "bnd_acc" in d:
             from ..core.domainfill import BOUNDARY_FIELDS, BoundaryState
             sim._boundary = BoundaryState.from_numpy(
                 {f: d["bnd_" + f] for f in BOUNDARY_FIELDS}, dev)
-        for key, on, _, put in _RUN_SUMS:
+        for key, on, _, put, summed in _RUN_SUMS:
             if key in d and on(sim):
-                put(sim, torch.as_tensor(d[key], device=dev))
+                put(sim, grid(key, summed))
         return int(d["itime"])

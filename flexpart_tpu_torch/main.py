@@ -17,9 +17,12 @@ An OH-reactive species takes ``<ohfields_path>/OH_FIELDS/OH_variables.bin``
 (relative paths from options/), else the synthetic climatology.  RECEPTORS,
 OUTGRID_NEST (with NESTED_OUTPUT=1) and COMMAND's IFLUX, LINIT_COND and
 MDOMAINFILL run.  ``--trace-dir`` writes a ``torch.profiler`` trace of
-the run there.  What the port's Simulation does not run yet (``--dp``,
-``--tiles``) reaches it and is refused there by name, before any file is
-written.  ``--device`` picks
+the run there (one file a rank with ``--dp``).  ``--dp`` runs the particles
+data-parallel (parallel/launch.py): ``min(--devices, cards present)``
+ranks, one a card, over NCCL; with ``--device cpu``, ``--devices`` ranks
+over gloo (required there: a CPU has no device count to default to).
+What the port's Simulation does not run yet (``--tiles``) reaches it and
+is refused there by name, before any file is written.  ``--device`` picks
 where the run lives: the card (``cuda``, the default; without one the run
 raises) or the CPU.
 """
@@ -28,7 +31,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
+import os
 import sys
 import time
 from pathlib import Path
@@ -176,8 +181,13 @@ def main(argv=None) -> int:
                     help="torch device of the run: cuda (default; raises "
                          "without a card) or cpu")
     ap.add_argument("--dp", action="store_true",
-                    help="distribute particles over all local devices "
-                         "(not ported yet: refused)")
+                    help="distribute the particles over the local devices, "
+                         "one process a device (NCCL on the cards, gloo "
+                         "with --device cpu)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="ranks of a --dp run: at most this many cards "
+                         "(default: every card present); with --device "
+                         "cpu, required")
     ap.add_argument("--tiles", action="store_true",
                     help="domain-decompose the met fields over the "
                          "devices (not ported yet: refused)")
@@ -191,32 +201,117 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     logging.basicConfig(
-        level=(logging.DEBUG if args.verbose > 1
-               else logging.INFO if args.verbose else logging.WARNING),
+        level=_log_level(args.verbose),
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
 
     t0 = time.perf_counter()
-    sim = build_simulation(args.pathnames, met=args.met,
-                           capacity=args.capacity, seed=args.seed,
-                           write_fortran=args.write_fortran,
-                           distributed=("tiles" if args.tiles
-                                        else "dp" if args.dp else None),
-                           profile=args.profile,
-                           trace_dir=args.trace_dir,
-                           device=args.device)
+    if args.dp and not args.tiles:
+        return _main_dp(args, t0)
+    sim = _build_from_args(args, "tiles" if args.tiles else None)
     log.info("simulation configured: %s particles, grid %dx%dx%d",
              "domain-filling" if sim.particles is None
              else sim.particles.capacity, sim.grid.nx, sim.grid.ny,
              sim.grid.nlev)
     sim.run(progress=args.verbose > 0)
-    wall = time.perf_counter() - t0
-    psteps = sim.timings.get("particle_steps", 0)
-    print(f"Simulated {abs(sim.cmd.ideltas)} s, "
+    _report(abs(sim.cmd.ideltas), sim.timings.get("particle_steps", 0),
+            time.perf_counter() - t0)
+    return 0
+
+
+def _log_level(verbose: int) -> int:
+    return (logging.DEBUG if verbose > 1
+            else logging.INFO if verbose else logging.WARNING)
+
+
+def _build_from_args(args, distributed):
+    return build_simulation(args.pathnames, met=args.met,
+                            capacity=args.capacity, seed=args.seed,
+                            write_fortran=args.write_fortran,
+                            distributed=distributed, profile=args.profile,
+                            trace_dir=args.trace_dir, device=args.device)
+
+
+def _report(seconds: int, psteps: int, wall: float) -> None:
+    print(f"Simulated {seconds} s, "
           f"{psteps} particle-steps in {wall:.1f} s wall "
           f"({psteps / max(wall, 1e-9):,.0f} psteps/s)")
     print("CONGRATULATIONS: YOU HAVE SUCCESSFULLY COMPLETED A FLEXPART "
           "MODEL RUN!")
+
+
+def dp_ranks(device: str, devices: int | None) -> int:
+    """The ranks of a ``--dp`` run: on the cards min(``devices``, cards
+    present), one a card; on the CPU ``devices``, which must be given."""
+    import torch
+    kind = torch.device(device).type
+    if devices is not None and devices < 1:
+        raise ValueError(f"--devices {devices}: at least one")
+    if kind == "cpu":
+        if devices is None:
+            raise ValueError("--dp with --device cpu needs --devices: a CPU "
+                             "has no device count to default to")
+        return devices
+    if kind != "cuda":
+        raise ValueError(f"--dp runs on cuda or cpu, not {device}")
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards == 0:
+        raise RuntimeError("--dp on cuda: no CUDA device found; pass "
+                           "--device cpu --devices n to run on the CPU")
+    return cards if devices is None else min(devices, cards)
+
+
+def _main_dp(args, t0: float) -> int:
+    """``--dp``: the ranks of parallel/launch.py, each building and running
+    the job's Simulation with distributed='dp'; rank 0's summary printed."""
+    from .parallel.launch import launch
+    import torch
+    n = dp_ranks(args.device, args.devices)
+    kind = torch.device(args.device).type
+    threads = (max(1, (os.cpu_count() or 1) // n) if kind == "cpu"
+               else None)
+    out = launch(_dp_rank, n, kind, args=(vars(args),), threads=threads)[0]
+    _report(out["seconds"], out["particle_steps"], time.perf_counter() - t0)
+    if args.verbose:
+        print("dp: " + json.dumps(out["dp"]))
     return 0
+
+
+def _dp_rank(options: dict) -> dict:
+    """One rank of a ``--dp`` run (inside its process group): build, run,
+    and return what rank 0 reports: the run's seconds and particle steps,
+    the world size, backend, NCCL version, the run's host seconds and
+    sections (``Simulation.timings``), its collectives (calls, bytes,
+    seconds) and this rank's kernel launches."""
+    import torch
+    from . import _build
+    logging.basicConfig(
+        level=_log_level(options["verbose"]),
+        format="%(asctime)s rank %(process)d %(name)s %(levelname)s "
+               "%(message)s")
+    args = argparse.Namespace(**options)
+    sim = _build_from_args(args, "dp")
+    g = sim._group
+    cuda = sim.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(sim.device)
+    t0 = time.perf_counter()
+    sim.run(progress=args.verbose > 0)
+    if cuda:
+        torch.cuda.synchronize(sim.device)
+    run_s = time.perf_counter() - t0
+    nccl = None
+    if g.backend == "nccl":
+        v = torch.cuda.nccl.version()
+        nccl = ".".join(str(x) for x in v) if isinstance(v, tuple) else v
+    return dict(
+        seconds=abs(sim.cmd.ideltas),
+        particle_steps=sim.timings.get("particle_steps", 0),
+        dp=dict(world=g.world, rank=g.rank, backend=g.backend, nccl=nccl,
+                device=str(sim.device), run_s=run_s, timings=sim.timings,
+                capacity=sim.particles.capacity * g.world,
+                collectives=g.stats,
+                launches={k.name: k.launches for k in
+                          list(_build.KERNELS) + list(_build.ENTRIES)}))
 
 
 if __name__ == "__main__":

@@ -630,7 +630,8 @@ def convection_cuda(kern: ConvectionKernel, fields, tw0: float, tw1: float,
 def redist_particles(p: Particles, key: rng.Key, fmassfrac, rlevmass,
                      phconv_hpa, sub, uvzlev, pconv_hpa, tconv, lconv,
                      lsynctime: int, itime: int, nl: int, nx: int, ny: int,
-                     rn: torch.Tensor | None = None, ldirect: int = 1):
+                     rn: torch.Tensor | None = None, ldirect: int = 1,
+                     offset: int = 0):
     """redist.f90: the categorical draw of each live particle's destination
     level from its column's matrix row (a backward run, ``ldirect`` < 0,
     from the transposed matrix's: the column of its level), and
@@ -638,20 +639,20 @@ def redist_particles(p: Particles, key: rng.Key, fmassfrac, rlevmass,
     device (its ``BACKWARD`` instantiation backward), the plain version on
     the CPU.  ``rn`` (n,) injects the uniform draws; without it they come
     from the Philox stream of ``key`` under ``REDIST_TAG`` (counter: the
-    slot).  Returns (particles, moved count as a () int32 tensor on the
-    device)."""
+    global slot, ``offset`` + slot).  Returns (particles, moved count as a
+    () int32 tensor on the device)."""
     dev = p.device
     run = {"cuda": redist_cuda, "cpu": redist_plain}.get(dev.type)
     if run is None:
         raise ValueError(f"no redistribution backend for device {dev}")
     return run(p, key, fmassfrac, rlevmass, phconv_hpa, sub, uvzlev,
                pconv_hpa, tconv, lconv, lsynctime, itime, nl, nx, ny, rn,
-               ldirect)
+               ldirect, offset)
 
 
 def redist_plain(p, key, fmassfrac, rlevmass, phconv_hpa, sub, uvzlev,
                  pconv_hpa, tconv, lconv, lsynctime, itime, nl, nx, ny,
-                 rn=None, ldirect: int = 1):
+                 rn=None, ldirect: int = 1, offset: int = 0):
     """The plain PyTorch version of K7 (the JAX function, with the level
     sums in level order and the gathers clamped where JAX clamps)."""
     L1 = nl + 1
@@ -683,7 +684,7 @@ def redist_plain(p, key, fmassfrac, rlevmass, phconv_hpa, sub, uvzlev,
     frac = _seq_cumsum(row / totmass[:, None], 1)
     if rn is None:
         k0, k1 = key.philox_key(REDIST_TAG)
-        rn = rng.uniforms_plain(n, k0, k1, dev)
+        rn = rng.uniforms_plain(n, k0, k1, dev, offset)
     hit = frac >= rn[:, None]
     levnew = torch.where(hit.any(dim=1),
                          torch.argmax(hit.to(torch.int32), dim=1), levold)
@@ -751,7 +752,7 @@ def redist_plain(p, key, fmassfrac, rlevmass, phconv_hpa, sub, uvzlev,
 
 def redist_cuda(p, key, fmassfrac, rlevmass, phconv_hpa, sub, uvzlev,
                 pconv_hpa, tconv, lconv, lsynctime, itime, nl, nx, ny,
-                rn=None, ldirect: int = 1):
+                rn=None, ldirect: int = 1, offset: int = 0):
     """K7 launch: one thread per particle, z written out of place, the
     moved count summed by one ballot and one atomic per warp; its
     ``BACKWARD`` instantiation for ``ldirect`` < 0."""
@@ -804,5 +805,6 @@ def redist_cuda(p, key, fmassfrac, rlevmass, phconv_hpa, sub, uvzlev,
                 "tconv", "lconv")),
             None if held is None else held.data_ptr(),
             n, nx, ny, L1, itime, float(np.float32(lsynctime)), k0, k1,
-            int(backward), z_out.data_ptr(), moved.data_ptr(), stream)
+            int(offset), int(backward), z_out.data_ptr(), moved.data_ptr(),
+            stream)
     return p.replace(z=z_out), moved[0]

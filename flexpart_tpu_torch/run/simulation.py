@@ -31,9 +31,19 @@ output cells' faces (grid/fluxes.py, K16), ``linit_cond`` the sensitivity
 to the initial condition (grid/initcond.py, K17) and ``iout`` 4 and 5 the
 plume trajectories (grid/plumetraj.py).  ``trace_dir`` takes a
 ``torch.profiler`` trace of the run there (the host, and the card where
-the run lives on one), as the reference takes its JAX trace.  The
-distributed modes raise ``NotImplementedError`` naming them when the
-``Simulation`` is built; nothing is skipped silently.
+the run lives on one), as the reference takes its JAX trace.
+``distributed="dp"`` runs the particles data-parallel, one process a
+device inside an initialised ``torch.distributed`` group
+(parallel/sharding.py; parallel/launch.py starts the ranks): each rank
+holds the contiguous global slots ``[rank * L, (rank + 1) * L)`` of the
+capacity padded to a multiple of the world size, reads and processes the
+met fields itself, draws by the global slot, samples and deposits into
+partial grids that are summed in rank order at output, splits and fills
+the domain's boundary over the group, and rank 0 writes every file (the
+dumps and checkpoints gather the rows to it).  ``_origin`` holds a rank's
+local origins (the global one is ``rank * L`` more).  ``"tiles"`` raises
+``NotImplementedError`` naming it when the ``Simulation`` is built;
+nothing is skipped silently.
 
 Host-side control loop; all per-particle compute stays on the device.
 Per sync interval (timemanager.f90:152-712):
@@ -96,6 +106,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import logging
 import struct
 import time as _time
@@ -105,7 +116,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .. import interop
+from .. import interop, parallel
 from ..config import AgeClasses, Command, OutGrid, Releases
 from ..core import domainfill, reorder, rng
 from ..core.advance import StepConfig, StepParams, advance_all
@@ -189,7 +200,10 @@ class Simulation:
     outgrid_nest: Any = None
     met_nests: tuple = ()
     write_fortran: bool = False
-    distributed: str | None = None
+    distributed: str | None = None   # None or "dp" (particle
+    #                                  data-parallelism over the process
+    #                                  group; "tiles" is not ported)
+    n_devices: int | None = None     # dp: the group's size, checked
     turboff: bool = False
     met_bf16: bool = True            # bfloat16 per-step interpolation
     #                                  tables (StepConfig.met_bf16)
@@ -216,7 +230,7 @@ class Simulation:
     def _refuse_unported(self):
         """Raise for every option whose code is not ported yet."""
         unported = {
-            "distributed": self.distributed is not None,
+            "distributed='tiles'": self.distributed == "tiles",
         }
         bad = [name for name, on in unported.items() if on]
         if bad:
@@ -225,7 +239,28 @@ class Simulation:
     def __post_init__(self):
         cmd = self.cmd
         self._refuse_unported()
+        if self.distributed not in (None, "dp", "tiles"):
+            raise ValueError(f"distributed={self.distributed!r}: None, 'dp' "
+                             "or 'tiles'")
         self.device = torch.device(self.device)
+        if self.device.type == "cuda" and self.device.index is None \
+                and torch.cuda.is_available():
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        # particle data-parallelism: this rank's place in the group
+        self._group = None
+        self._first = 0                  # the rank's first global slot
+        if self.distributed == "dp":
+            if self.legacy_rng:
+                raise ValueError("legacy_rng is single-device only")
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError("Simulation(device='cuda') needs a CUDA "
+                                   "device; pass device='cpu' to run on the "
+                                   "CPU")
+            self._group = parallel.particle_mesh(self.n_devices, self.device)
+        elif self.n_devices is not None:
+            raise ValueError("n_devices is the size of a distributed='dp' "
+                             "group")
+        self._writes = self._group is None or self._group.rank == 0
         if self.legacy_rng and self.device.type == "cuda":
             raise NotImplementedError(
                 "legacy_rng on a CUDA device: the legacy-RNG validation path "
@@ -374,7 +409,7 @@ class Simulation:
             write_netcdf=self.write_netcdf, write_npz=self.write_npz,
             nc_meta=self._nc_meta(),
             surf_only=bool(cmd.surf_only))
-        if self.write_fortran:
+        if self.write_fortran and self._writes:
             self._write_fortran_header()
 
         self._height = None
@@ -442,7 +477,8 @@ class Simulation:
         # plume-centroid trajectories (iout=4/5; plumetraj.f90), clustered
         # in schedule order
         self.use_plumetraj = cmd.iout_eff in (4, 5)
-        if self.use_plumetraj:
+        self._plume_writer = None
+        if self.use_plumetraj and self._writes:
             self._plume_writer = PlumeTrajWriter(
                 Path(self.outdir) / "trajectories.txt", self.releases,
                 cmd.bdate)
@@ -478,6 +514,9 @@ class Simulation:
         # the particle now in slot k (kept while a hook is set, the run
         # splits, a regional boundary emits or plume trajectories are
         # clustered; None is the identity)
+        self._sharded_advance = (
+            None if self._group is None
+            else parallel.make_sharded_advance(self._group, self.step_cfg))
         self._draws_hook: Callable | None = None
         self._redist_hook: Callable | None = None
         self._boundary_hook: Callable | None = None
@@ -693,7 +732,7 @@ class Simulation:
             else:
                 raw = self._fetch_raw(tsec)
             eta = raw[0]
-            if self.bkdep == 3:
+            if self.bkdep == 3 and self._writes:
                 # release-point precipitation series (getfields.f90:141-143)
                 write_precip(Path(self.outdir) / "wetscav_precip.txt",
                              add_seconds(self.cmd.bdate, tsec), self.releases,
@@ -840,7 +879,8 @@ class Simulation:
             sched = self._append_warm_start(sched, warm)
         self._release_times = frozenset(
             int(t) for t in np.unique(sched["itra"]) if t != ITRA_INACTIVE)
-        self.particles: Particles = interop.particles_from_numpy(sched, dev)
+        self.particles: Particles = interop.particles_from_numpy(
+            self._rank_rows(sched), dev)
         # earliest scheduled release (s since bdate): the sampling kernel
         # (conccalc.f90:171 itage>10800) cannot trigger before
         # first_release + 3 h, so the sampler runs its single-index path
@@ -851,6 +891,16 @@ class Simulation:
             self._first_release = min(
                 int((b.start - cmd.bdate).total_seconds())
                 for b in self.releases.boxes)
+
+    def _rank_rows(self, arrays: dict) -> dict:
+        """The rows of a global particle array (numpy, by field) that this
+        process holds: all of them alone; in a data-parallel run the
+        rank's rows of the array padded to a multiple of the world size."""
+        if self._group is None:
+            return arrays
+        arrays = parallel.pad_particles(arrays, self._group.world)
+        self._first = self._group.rows(len(arrays["z"]))[0]
+        return parallel.shard_particles(arrays, self._group)
 
     def _append_warm_start(self, sched: dict, warm: dict) -> dict:
         """Append partposit_end particles (readpartpositions.f90:100-131)
@@ -907,9 +957,12 @@ class Simulation:
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
         Path(self.trace_dir).mkdir(parents=True, exist_ok=True)
+        # a data-parallel run's ranks write a file each, named by rank
+        worker = (None if self._group is None
+                  else f"rank{self._group.rank}")
         return profile(activities=acts,
                        on_trace_ready=tensorboard_trace_handler(
-                           str(self.trace_dir)))
+                           str(self.trace_dir), worker_name=worker))
 
     def save_checkpoint(self, path, itime: int | None = None) -> None:
         partdump.save_checkpoint(path, self, itime if itime is not None
@@ -943,11 +996,13 @@ class Simulation:
             self._origin = idx if self._origin is None else self._origin[idx]
 
     def _slot_origin(self) -> torch.Tensor:
-        """The schedule slot of the particle in each slot (tests' hooks)."""
+        """The schedule slot of the particle in each slot (tests' hooks):
+        the global slot in a data-parallel run."""
         if self._origin is None:
             self._origin = torch.arange(self.particles.capacity,
                                         device=self.device)
-        return self._origin
+        return self._origin if self._first == 0 \
+            else self._origin + self._first
 
     def _convect(self, istep: int, itime: int, mt0: int, mt1: int):
         """Convective redistribution (timemanager.f90:258-263 -> convmix,
@@ -976,7 +1031,7 @@ class Simulation:
             conv.rlevmass, conv.phconv, conv.sub, conv.uvzlev, conv.pconv,
             conv.tconv, conv.lconv, cmd.lsynctime, itime,
             nl=self.conv_kernel.nl, nx=self.grid.nx, ny=self.grid.ny, rn=rn,
-            ldirect=cmd.ldirect)
+            ldirect=cmd.ldirect, offset=self._first)
         self.convection_counts.append(torch.stack(
             [conv.lconv.sum(dtype=torch.int32), moved]))
 
@@ -1106,10 +1161,12 @@ class Simulation:
             if cmd.mquasilag == 1 and itime == (loutstart + loutend) // 2:
                 with self.timers.section("partdump"):
                     diag = self._diagnostics(itime, z0, z1, mt0, mt1)
-                    partdump.write_shortposit(
-                        Path(self.outdir) / ("shortposit_" + datestamp(
-                            add_seconds(cmd.bdate, itime))),
-                        itime, self.particles, self.grid, diag[0])
+                    p, (topo,) = self._gathered(diag[:1])
+                    if self._writes:
+                        partdump.write_shortposit(
+                            Path(self.outdir) / ("shortposit_" + datestamp(
+                                add_seconds(cmd.bdate, itime))),
+                            itime, p, self.grid, topo)
 
             # sampling (timemanager.f90:350-365)
             if (ld * loutstart <= ld * itime <= ld * loutend
@@ -1125,10 +1182,7 @@ class Simulation:
                             self.lage, weight,
                             self._ccfg_at(itime, self.conc_cfg_n))
                     if self.receptor_set is not None:
-                        self.creceptor = sample_receptors(
-                            self.creceptor, self.receptor_set,
-                            self.particles, itime, weight, self.grid.dx,
-                            self.grid.dy)
+                        self._sample_receptors(itime, weight)
 
             # output (timemanager.f90:376-464)
             if itime == loutend and self._outnum() > 0:
@@ -1142,19 +1196,26 @@ class Simulation:
                         self._write_partdump(itime, z0, z1, mt0, mt1)
                 if cmd.ipout == 3 and self._avg_sums is not None:
                     with self.timers.section("partdump"):
-                        partdump.write_partposit_average(
-                            Path(self.outdir) / (
-                                "partposit_average_" + datestamp(
-                                    add_seconds(cmd.bdate, itime))),
-                            itime, self.particles, self._avg_sums,
-                            self._avg_counts)
+                        p, (sums, counts) = self._gathered(
+                            (self._avg_sums, self._avg_counts), (1, 0))
+                        if self._writes:
+                            partdump.write_partposit_average(
+                                Path(self.outdir) / (
+                                    "partposit_average_" + datestamp(
+                                        add_seconds(cmd.bdate, itime))),
+                                itime, p, sums, counts)
                     self._avg_sums = None
                 # splitting once itime has passed itsplit (timemanager.f90:
                 # 473-504); the children break the cell order
                 if self._splits and abs(itime) >= cmd.itsplit:
                     with self.timers.section("split"):
-                        self.particles, counts = split_particles(
-                            self.particles, itime, ld, self._origin)
+                        if self._group is None:
+                            self.particles, counts = split_particles(
+                                self.particles, itime, ld, self._origin)
+                        else:
+                            counts = parallel.split_sharded(
+                                self._group, self.particles, itime, ld,
+                                self._origin)
                     self.split_counts.append(counts)
                     self._sort(z0.height)
                 loutnext = loutnext + cmd.loutstep * ld
@@ -1185,10 +1246,17 @@ class Simulation:
                 z0n, z1n = self._get_nest(mt0), self._get_nest(mt1)
             leg = self._legacy_bases(itime) if self.legacy_rng else None
             with self.timers.section("advance"):
-                self.particles, diag = advance_all(
-                    self.particles, z0, z1, itime, mt0, mt1,
-                    rng.Key(self.seed, istep), self.step_cfg,
-                    self.step_prm, draws=draws, z0n=z0n, z1n=z1n, leg=leg)
+                if self._group is None:
+                    self.particles, diag = advance_all(
+                        self.particles, z0, z1, itime, mt0, mt1,
+                        rng.Key(self.seed, istep), self.step_cfg,
+                        self.step_prm, draws=draws, z0n=z0n, z1n=z1n,
+                        leg=leg)
+                else:
+                    self.particles, diag = self._sharded_advance(
+                        self.particles, z0, z1, itime, mt0, mt1,
+                        rng.Key(self.seed, istep), self.step_prm,
+                        offset=self._first, draws=draws, z0n=z0n, z1n=z1n)
             nan_total += diag.nan_count
             # the adaptive step's dry-deposition window; no sort runs
             # between the advance and the dry deposition, so its slots are
@@ -1253,9 +1321,11 @@ class Simulation:
                 _, z1e, _, _ = self._fields_for(itime)
                 self._ic_scatter(self.init_cond, self.particles,
                                  self.particles.active, z1e, self.ic_cfg)
-                write_initial_cond(self.outdir, itime,
-                                   interop.to_numpy(self.init_cond),
-                                   self._release_mass)
+                ic = self._summed(self.init_cond)
+                if self._writes:
+                    write_initial_cond(self.outdir, itime,
+                                       interop.to_numpy(ic),
+                                       self._release_mass)
         if cmd.ipout in (1, 2):
             with self.timers.section("partdump"):
                 z0, z1, mt0, mt1 = self._fields_for(itime)
@@ -1271,8 +1341,8 @@ class Simulation:
         self.timings.update(self.timers.seconds)
         self.timings["particle_steps"] = int(particle_steps)
         if self.convection_counts:
-            self.timings["convection_moved"] = int(
-                torch.stack(self.convection_counts)[:, 1].sum())
+            self.timings["convection_moved"] = int(self._summed(
+                torch.stack(self.convection_counts)[:, 1].sum()))
         self.timings["wall"] = _time.perf_counter() - t_wall0
         if self.profile:
             report = self.timers.report(extra={
@@ -1281,7 +1351,8 @@ class Simulation:
                 "prefetch_failures": self._prefetch_failures,
                 "advance_first_s": self.timings.get("advance_first_s", 0.0)})
             log.info("per-section timings (device-synced):\n%s", report)
-            (Path(self.outdir) / "profile.txt").write_text(report + "\n")
+            if self._writes:
+                (Path(self.outdir) / "profile.txt").write_text(report + "\n")
         return self.particles
 
     def _fill_domain(self) -> None:
@@ -1297,7 +1368,8 @@ class Simulation:
             g, zf, box.parts, mdomainfill=cmd.mdomainfill,
             nclassunc=self.nclassunc, seed=self.seed,
             capacity=self.capacity, window=window)
-        self.particles = interop.particles_from_numpy(parts, self.device)
+        self.particles = interop.particles_from_numpy(
+            self._rank_rows(parts), self.device)
         if bnd is not None:
             self._boundary = domainfill.BoundaryState.from_numpy(
                 bnd, self.device)
@@ -1317,7 +1389,10 @@ class Simulation:
         draws = (self._boundary_hook(istep)
                  if self._boundary_hook is not None else None)
         w0, w1 = domainfill.time_weights(itime, mt0, mt1)
-        bs.acc, counts = domainfill.boundcond(
+        step = (domainfill.boundcond if self._group is None
+                else functools.partial(parallel.boundcond_sharded,
+                                       self._group))
+        bs.acc, counts = step(
             self.particles, bs, z0.f3d, z1.f3d, z0.height, itime, w0, w1,
             rng.Key(self.seed, 3000000 + istep), cmd.lsynctime,
             min(cmd.itsplit, 499999999), g.ylat0, g.dy,
@@ -1347,9 +1422,33 @@ class Simulation:
         partposit_end of every live one (partoutput.f90)."""
         name = ("partposit_end" if end else "partposit_" + datestamp(
             add_seconds(self.cmd.bdate, itime)))
-        partdump.write_partposit(
-            Path(self.outdir) / name, itime, self.particles, self.grid,
-            self._diagnostics(itime, z0, z1, mt0, mt1), only_current=not end)
+        p, diag = self._gathered(self._diagnostics(itime, z0, z1, mt0, mt1))
+        if self._writes:
+            partdump.write_partposit(Path(self.outdir) / name, itime, p,
+                                     self.grid, diag, only_current=not end)
+
+    def _gathered(self, rows=(), dims=None):
+        """The particles and per-particle ``rows`` (tensors with a
+        particle axis, ``dims`` each, default 0) of the whole run: this
+        process's alone; in a data-parallel run every rank's in global
+        slot order, gathered (rank 0 writes them)."""
+        if self._group is None:
+            return self.particles, tuple(rows)
+        dims = dims or (0,) * len(rows)
+        g = self._group
+        return (parallel.gather_particles(g, self.particles),
+                tuple(g.cat_rows(r, "gather", dim=d)
+                      for r, d in zip(rows, dims)))
+
+    def global_origin(self) -> torch.Tensor | None:
+        """The schedule slot of the particle in each slot of the whole run
+        (``_gathered``'s order), or None where the run keeps no origins
+        (the identity)."""
+        if self._origin is None:
+            return None
+        if self._group is None:
+            return self._origin
+        return self._group.cat_rows(self._origin + self._first, "gather")
 
     def _average_sample(self, itime: int, z0, z1, mt0: int, mt1: int) -> None:
         """Add the particles' sample at ``itime`` (after the advance) to
@@ -1438,6 +1537,24 @@ class Simulation:
                          nrand_init=torch.as_tensor(ni, device=dev),
                          nrand=torch.as_tensor(na, device=dev))
 
+    def _summed(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` itself; in a data-parallel run the ranks' partials summed
+        in rank order."""
+        return t if self._group is None else self._group.sum(t, "reduce")
+
+    def _sample_receptors(self, itime: int, weight: float) -> None:
+        """The receptors' sample of this step (K15); a data-parallel rank
+        samples its particles into zeros and adds the group's sum, so that
+        every rank holds the whole sum."""
+        rs, g = self.receptor_set, self.grid
+        if self._group is None:
+            self.creceptor = sample_receptors(
+                self.creceptor, rs, self.particles, itime, weight, g.dx, g.dy)
+            return
+        part = sample_receptors(torch.zeros_like(self.creceptor), rs,
+                                self.particles, itime, weight, g.dx, g.dy)
+        self.creceptor = self.creceptor + self._group.sum(part, "receptors")
+
     def _scatter_depo(self, grid: torch.Tensor, deposit: torch.Tensor,
                       itime: int) -> None:
         """Kernel scatter of per-particle deposits onto a deposition grid,
@@ -1453,7 +1570,50 @@ class Simulation:
         return float(self.acc.outnum)
 
     def _write_output(self, itime: int):
-        acc = interop.accumulators_to_numpy(self.acc)
+        """The output of the averaging window ending at ``itime``, then its
+        accumulators zeroed.  In a data-parallel run every rank takes part
+        in the reductions and gathers first; rank 0 writes."""
+        whole = (self.acc if self._group is None
+                 else parallel.reduce_acc_partials(self._group, self.acc))
+        nest = (self._summed(self.acc_n.gridunc)
+                if self.use_nested_output else None)
+        flux = self._summed(self.flux) if self.use_flux else None
+        plume = self._plume_inputs(itime) if self.use_plumetraj else None
+        if self._writes:
+            self._write_grids(itime, whole, nest, flux, plume)
+        # concentrations reset each output window; deposition grids are
+        # cumulative over the run (concoutput.f90 never zeroes wetgridunc)
+        zeroed = zero_accumulators(
+            self.geo, self.nspec, self.conc_cfg.npointspec,
+            self.nclassunc, self.ageclasses.nageclass, device=self.device)
+        self.acc = zeroed.replace(wetgridunc=self.acc.wetgridunc,
+                                  drygridunc=self.acc.drygridunc)
+        if self.use_nested_output:
+            self.acc_n = zero_accumulators(
+                self.geo_n, self.nspec, self.conc_cfg.npointspec,
+                self.nclassunc, self.ageclasses.nageclass, device=self.device)
+        if self.receptor_set is not None:
+            self.creceptor.zero_()
+        if self.use_flux:
+            self.flux.zero_()
+        log.info("output written at %s (outnum=%.1f)",
+                 add_seconds(self.cmd.bdate, itime), float(whole.outnum))
+
+    def _plume_inputs(self, itime: int):
+        """What plume_step clusters: the particles, their diagnostics and
+        the slots in schedule order (gathered in a data-parallel run)."""
+        z0, z1, mt0, mt1 = self._fields_for(itime)
+        p, diag = self._gathered(self._diagnostics(itime, z0, z1, mt0, mt1))
+        origin = self.global_origin()
+        order = None if origin is None else torch.argsort(origin)
+        return p, diag, order
+
+    def _write_grids(self, itime: int, whole: Accumulators, nest, flux,
+                     plume) -> None:
+        """Write the window's files from the whole run's sums: the grids,
+        the nest's, the receptors', the fluxes' and the plume
+        trajectories."""
+        acc = interop.accumulators_to_numpy(whole)
         outnum = float(acc["outnum"])
         g = acc["gridunc"]  # (nage,nclass,kp,nz,ny,nx,ks)
         # sum over uncertainty classes = total; std over classes = uncertainty
@@ -1509,42 +1669,30 @@ class Simulation:
                 else:
                     self._write_fortran_grids(when, itime, conc, wet, dry,
                                               rho_out=rho_out)
-        if self.use_nested_output:
-            self._write_nest(when, outnum)
+        if nest is not None:
+            self._write_nest(when, outnum, nest)
         if self.receptor_set is not None:
             self._write_receptors(when, itime, outnum, rho_met)
-        if self.use_flux:
+        if flux is not None:
             # grid_flux (fluxoutput.f90): per face ng/m2/s in the
             # reference's unformatted layout, and the raw sums as npz;
             # reset for the next interval (fluxoutput.f90:287-300)
-            flux = interop.to_numpy(self.flux)
+            flux = interop.to_numpy(flux)
             np.savez_compressed(
                 Path(self.outdir) / f"grid_flux_{datestamp(when)}.npz",
                 flux=flux)
             write_flux(Path(self.outdir) / f"grid_flux_{datestamp(when)}",
                        itime, flux, self.geo.areaeast, self.geo.areanorth,
                        self.geo.area, abs(self.cmd.loutstep))
-            self.flux.zero_()
-        if self.use_plumetraj:
-            z0, z1, mt0, mt1 = self._fields_for(itime)
-            order = (None if self._origin is None
-                     else torch.argsort(self._origin))
-            plume_step(self.particles, self.grid,
-                       self._diagnostics(itime, z0, z1, mt0, mt1), itime,
-                       self.numpoint, self._plume_writer, order=order)
-        # concentrations reset each output window; deposition grids are
-        # cumulative over the run (concoutput.f90 never zeroes wetgridunc)
-        zeroed = zero_accumulators(
-            self.geo, self.nspec, self.conc_cfg.npointspec,
-            self.nclassunc, self.ageclasses.nageclass, device=self.device)
-        self.acc = zeroed.replace(wetgridunc=self.acc.wetgridunc,
-                                  drygridunc=self.acc.drygridunc)
-        log.info("output written at %s (outnum=%.1f)", when, outnum)
+        if plume is not None:
+            p, diag, order = plume
+            plume_step(p, self.grid, diag, itime, self.numpoint,
+                       self._plume_writer, order=order)
 
-    def _write_nest(self, when, outnum: float) -> None:
-        """The nested output grid's concentrations (concoutput_nest.f90),
-        then its accumulator zeroed."""
-        gn = interop.to_numpy(self.acc_n.gridunc)
+    def _write_nest(self, when, outnum: float, gridunc) -> None:
+        """The nested output grid's concentrations (concoutput_nest.f90)
+        from the whole run's ``gridunc``."""
+        gn = interop.to_numpy(gridunc)
         tn = gn.sum(axis=1)
         voln = self.geo_n.volume
         if self.cmd.ldirect == 1:
@@ -1554,16 +1702,13 @@ class Simulation:
         concn = tn * fac_n[None, None, :, :, :, None]
         concn = np.moveaxis(concn, -1, 0).transpose(0, 2, 1, 3, 4, 5)
         self.writer_n.write(when, concn, np.zeros_like(concn))
-        self.acc_n = zero_accumulators(
-            self.geo_n, self.nspec, self.conc_cfg.npointspec,
-            self.nclassunc, self.ageclasses.nageclass, device=self.device)
 
     def _write_receptors(self, when, itime: int, outnum: float,
                          rho_met) -> None:
         """Receptor concentrations in output units, 1e12 x the mean over
         the samples (concoutput.f90:670-676): receptor_conc_<date>.npz and
         the reference's receptor_conc, and receptor_pptv for iout 2 and 3
-        (openreceptors.f90, concoutput.f90:662-667); then zeroed."""
+        (openreceptors.f90, concoutput.f90:662-667)."""
         rc = interop.to_numpy(self.creceptor) * 1.0e12 / outnum
         out = Path(self.outdir)
         np.savez(out / f"receptor_conc_{datestamp(when)}.npz", conc=rc,
@@ -1586,7 +1731,6 @@ class Simulation:
             if not ppath.exists():
                 write_receptor_header(ppath, self.receptor_names, lons, lats)
             append_receptor(ppath, itime, rppt)
-        self.creceptor.zero_()
 
     # ----- the reference's unformatted files (io/fortran_writer.py) -----
     def _write_fortran_header(self):

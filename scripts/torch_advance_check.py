@@ -21,7 +21,9 @@ K10 BKDEP held on every call, the traced run); K12, the OH reaction
 (``oh``), and K13, the particle splitting (``split``); K14-K17 of the sim_domainfill and sim_initcond
 phases (``domainfill``: the boundary, the receptors, the fluxes and the
 initial-condition scatter, on a fill of ``n_particles`` in 1.1 times as
-many slots), or K17 alone (``initcond``).  A failed check raises.  This is the quick call to make
+many slots), or K17 alone (``initcond``); the sim_dp phase's shards
+(``dp_shards``: a step of ``n_particles`` split into 2 and 4 shards, K13
+and K14 with a rank's offsets).  A failed check raises.  This is the quick call to make
 after changing a kernel, before a whole chip_smoke.py run.
 """
 import json
@@ -68,6 +70,7 @@ def main() -> int:
                   "receptors": cs.kernel_receptors(d, g),
                   "fluxes": cs.kernel_fluxes(d, g),
                   "initcond": cs.kernel_initcond(d, g)},
+              "dp_shards": cs.dp_shards,
               "convection": lambda d, g: dict(zip(
                   ("convection", "redist", "redist.backward"),
                   cs.kernel_convection(d, g)))}

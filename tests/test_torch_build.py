@@ -479,13 +479,14 @@ def test_k6_shared_cap_is_set_in_one_place(entry):
 def test_redist_rounds_half_to_even_and_draws_word_zero():
     """K7 rounds a position to its column as ``jnp.round``/``torch.round``
     do (``rintf``, never ``roundf``), and its uniform is ``fp::uniform24``
-    of word 0 of the particle's Philox call, as ``rng.uniforms_plain``
-    makes it; ``philox_normal.cuh`` holds the one definition."""
+    of word 0 of the particle's Philox call at its global slot (``offset``
+    + slot), as ``rng.uniforms_plain`` makes it; ``philox_normal.cuh``
+    holds the one definition."""
     k7 = _kernel("redist")
     assert _build.CSRC / "philox_normal.cuh" in k7.sources()
     text = _strip_comments(k7.source.read_text())
     assert "rintf(" in text and "roundf(" not in text
-    assert "fp::normal_words(w, k0, k1, i, 0u);" in text
+    assert "fp::normal_words(w, k0, k1, offset + i, 0u);" in text
     assert "rn = fp::uniform24(w[0]);" in text
     header = _strip_comments((_build.CSRC / "philox_normal.cuh").read_text())
     assert re.search(r"uniform24\(uint32_t w\) \{\s*return "

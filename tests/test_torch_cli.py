@@ -15,8 +15,8 @@ directory gives the same Command, Releases, OutGrid, met grid and wind
 interval (no JAX run, so nothing is compiled); on GRIB met also the same
 ``use_clwc``, off for ECMWF and on for GFS (its ``sumclouds``).  The CLI
 refuses by name, before any file is written, what the port does not run
-yet: ``--dp``, ``--tiles`` (with ``--trace-dir`` too, and then writes no
-trace); it runs an ``IPOUT=2`` job
+yet: ``--tiles`` (with ``--trace-dir`` too, and then writes no trace),
+and ``--dp`` on the CPU without ``--devices``; it runs an ``IPOUT=2`` job
 and then the same job with ``IPIN=1`` from its ``partposit_end`` (JAX's
 ``build_simulation`` giving the same particles), an OH-reactive species
 with the reference's ``OH_variables.bin``, and jobs with RECEPTORS,
@@ -287,26 +287,30 @@ def test_build_simulation_equals_jax(metdir, tmp_path):
     assert sim.particles.capacity == jsim.particles.capacity == 800
 
 
-# case -> (COMMAND edits, options files, CLI flags, the name refused); a
-# trace directory is ported, so its case holds that a job with it and an
-# option still refused is refused before anything, the trace too, is
-# written
+# case -> (COMMAND edits, options files, CLI flags, the name refused, the
+# error and its words); a trace directory is ported, so its case holds
+# that a job with it and an option still refused is refused before
+# anything, the trace too, is written.  ``--dp`` runs (tests/
+# test_torch_dp_run.py); on the CPU without ``--devices`` it is refused by
+# that name
 REFUSED = {
-    "dp": ({}, {}, ["--dp"], "distributed"),
-    "tiles": ({}, {}, ["--tiles"], "distributed"),
-    "trace_dir": ({}, {}, ["--trace-dir", "trace", "--dp"], "distributed"),
+    "dp": ({}, {}, ["--dp"], "--devices", ValueError, "no device count"),
+    "tiles": ({}, {}, ["--tiles"], "distributed", NotImplementedError,
+              "not ported yet"),
+    "trace_dir": ({}, {}, ["--trace-dir", "trace", "--tiles"], "distributed",
+                  NotImplementedError, "not ported yet"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_cli_refuses_by_name_before_writing(case, metdir, tmp_path):
-    edits, files, flags, name = REFUSED[case]
+    edits, files, flags, name, error, words = REFUSED[case]
     command = COMMAND
     for a, b in edits.items():
         command = command.replace(a, b)
     pathnames = _job(tmp_path / "job", metdir, command=command, files=files)
     flags = [str(tmp_path / f) if f == "trace" else f for f in flags]
-    with pytest.raises(NotImplementedError, match="not ported yet") as err:
+    with pytest.raises(error, match=words) as err:
         tmain.main([str(pathnames), "--device", "cpu", *flags])
     assert name in str(err.value)
     assert not list((tmp_path / "job" / "output").iterdir())

@@ -644,6 +644,71 @@ def test_k14_edge_cases_equal_the_plain_version(card, boundcond_case, n):
     assert seen == 5
 
 
+DP_WORLDS = (2, 3, 4)
+DP_SLOTS = 12 * 2 ** 16       # a multiple of 2, 3 and 4
+
+
+@pytest.mark.parametrize("world", DP_WORLDS)
+def test_k13_shares_equal_the_unsplit_split(card, world):
+    """K13 over 2, 3 and 4 shards with each rank's share of the group's
+    split (a quarter of the slots free, three quarters of the live ones
+    due: children cross ranks), the crossing rows handed over in rank
+    order: bitwise K13 on the whole, and each shard's K13 bitwise its
+    plain twin with the same share (chip_smoke.held_split_shares)."""
+    cs = _chip_smoke()
+    p = cs.split_case(DP_SLOTS, card, 61, 0.75, 0.75)
+    shares, moves, _ = cs.held_split_shares(p, world, f"K13 x{world}")
+    assert moves.sum() > 0 and sum(s.due for s in shares) > shares[0].granted
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("world", DP_WORLDS)
+def test_k14_first_free_ranks_equal_the_unsplit_step(card, boundcond_case,
+                                                     world):
+    """K14 over 2, 3 and 4 shards of slots drawn from chip_smoke.py's
+    boundary case, each sorted on its own, with each rank's first free
+    rank: bitwise K14 on the shards laid end to end with their global
+    origins, rank 1 bitwise its plain twin
+    (chip_smoke.held_boundcond_shards)."""
+    cs = _chip_smoke()
+    from flexpart_tpu_torch.core.state import FIELDS, Particles
+    from flexpart_tpu_torch.met.synthetic import make_grid
+    p, _, bs, step = boundcond_case
+    raw = Particles(**{f: getattr(p, f)[:DP_SLOTS].contiguous()
+                       for f in FIELDS})
+    cfg = cs.step_setup(make_grid(**cs.BENCH_GRID))[0]
+    cs.held_boundcond_shards(raw, bs, step, step[2], cfg, world,
+                             f"K14 x{world}")
+    torch.cuda.synchronize()
+
+
+def test_dp_world_size_one_is_the_serial_run_on_the_card(card, tmp_path):
+    """``Simulation(distributed="dp")`` in a group of one rank on the card
+    (parallel.launch: NCCL, spawned): tests/torch_dp_ranks.py's run with
+    the turbulence on ends in the serial run's particles on the card, bit
+    for bit in slot order (the shard is the whole array), with its split
+    counts; its grids within K3's and K8's rtol of the serial run's."""
+    import glob
+    import numpy as np
+    import torch_dp_ranks as dr
+    from flexpart_tpu_torch.parallel import launch
+    res = launch.launch(dr.rank_mini, 1, "cuda",
+                        args=(str(tmp_path / "dp"), False, "cuda"))[0]
+    sim = dr.port_mini(tmp_path / "serial", turboff=False, device="cuda")
+    sim.run()
+    s = dr.ended(sim)
+    assert res["world"] == 1 and res["split_counts"] == s["split_counts"]
+    for f, a in s["particles"].items():
+        np.testing.assert_array_equal(res["particles"][f], a, err_msg=f)
+    files = sorted(glob.glob(str(tmp_path / "serial" / "grid_conc_*.npz")))
+    assert len(files) >= 2
+    for fa in files:
+        a = np.load(fa)
+        b = np.load(tmp_path / "dp" / fa.rsplit("/", 1)[1])
+        for k in ("conc", "wet", "dry"):
+            assert np.all(np.abs(a[k] - b[k]) <= 1e-5 * np.abs(a[k])), k
+
+
 K1516_EDGE_SIZES = (1, 31, 33, 2 ** 20 + 1)
 
 

@@ -427,10 +427,10 @@ def test_age_classes_terminate_like_jax(tmp_path):
 # files are ported: their cases hold that an option still refused is
 # refused with them too, before the header is written)
 REFUSED = {
-    "ldirect": dict(cmd_kw=dict(ldirect=-1), distributed="dp",
+    "ldirect": dict(cmd_kw=dict(ldirect=-1), distributed="tiles",
                     names="distributed"),
-    "distributed": dict(distributed="dp"),
-    "write_fortran": dict(write_fortran=True, distributed="dp",
+    "distributed": dict(distributed="tiles"),
+    "write_fortran": dict(write_fortran=True, distributed="tiles",
                           names="distributed"),
 }
 

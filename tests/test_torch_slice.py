@@ -289,6 +289,56 @@ print("ok")
     assert r.stdout.strip().endswith("ok")
 
 
+def test_parallel_modules_run_without_jax():
+    """parallel/ (sharding.py, launch.py) imports and shards in a fresh
+    interpreter with neither jax nor flexpart_tpu loaded: a capacity of 100
+    padded over 3 ranks, a rank's rows, a split's shares over them, and a
+    Simulation(distributed='dp') outside a process group refused by what
+    it needs."""
+    for f in ("parallel/__init__.py", "parallel/sharding.py",
+              "parallel/launch.py"):
+        assert (ROOT / "flexpart_tpu_torch" / f).is_file(), f
+    code = """
+import sys, torch
+from flexpart_tpu_torch import parallel
+from flexpart_tpu_torch.parallel import launch, sharding
+from flexpart_tpu_torch.core.state import empty_particles
+p = sharding.pad_particles(empty_particles(100, device="cpu"), 3)
+assert p.capacity == 102
+rows = sharding.shard_particles(p, sharding.Layout(3, 1))
+assert rows.capacity == 34
+shares, moves = sharding.split_shares([[10, 0], [5, 2], [0, 20]])
+assert [s.limits()[0] for s in shares] == [10, 5, 0]
+assert moves.tolist() == [[0, 2, 8], [0, 0, 5], [0, 0, 0]]
+from flexpart_tpu_torch.config import (Command, OutGrid, ReleaseBox, Releases,
+                                       Species)
+from flexpart_tpu_torch.met import SyntheticMet, make_grid
+from flexpart_tpu_torch.run.simulation import Simulation
+g = make_grid(nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)
+box = ReleaseBox(idate1=20200101, itime1=0, idate2=20200101, itime2=0,
+                 lon1=0.0, lon2=2.0, lat1=40.0, lat2=42.0, z1=50.0,
+                 z2=500.0, mass=(1.0,), parts=10)
+try:
+    Simulation(cmd=Command(), releases=Releases(species=(Species(),),
+                                                boxes=(box,)), grid=g,
+               met_backend=SyntheticMet(g),
+               outgrid=OutGrid(-180.0, -90.0, 36, 18, 10.0, 10.0, (100.0,)),
+               distributed="dp", device="cpu")
+    raise SystemExit("not refused")
+except RuntimeError as e:
+    assert "process group" in str(e), e
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert "flexpart_tpu" not in sys.modules
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT),
+                            "OMP_NUM_THREADS": "2"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("ok")
+
+
 def test_grib_modules_run_without_jax(tmp_path):
     """io/gribio.py, met/gribmet.py, met/gfsmet.py and met/pblprofile.py
     import and read GRIB files (written here by the tests' encoders) in a
