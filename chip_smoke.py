@@ -107,7 +107,15 @@ the port's stock forward step on the card, in phases:
                 cell order, and K9 BKDEP x CLWC on both in cell order,
                 half the particles fresh, all bitwise, each timed beside
                 K9 (K9 BKDEP) on the same particles with its bound from
-                the compiled CLWC section;
+                the compiled CLWC section; K4 TILE and K11 TILE (a tile's
+                instantiations: global positions, the gathers' corners in
+                the tile, the boundary conditions after the corrector)
+                bitwise against their plain versions on a 1 x 1 tile (a
+                tiles run at world size 1) at the main path's and K11's
+                shapes, each beside the stock kernel on the same
+                particles (bitwise but where the step wraps, mirrors or
+                caps), and K4 TILE's POLAR x SETTLING instantiation on
+                tile 0 of a 2 x 2 split with injected draws;
   3b. kernels_oh_split — K12, the OH reaction, bitwise against its plain
                 version on the deposition particles (10 x 2**20, two OH
                 species, one with the power N = 2) at a daylight step of
@@ -225,6 +233,23 @@ the port's stock forward step on the card, in phases:
                 summed within K8's rule, K13 and K14 with the shares and
                 first free ranks an all_gather gives, bitwise the unsplit
                 calls, timed);
+ 8b'''. sim_tiles - met-field domain decomposition: sim_npz's job with
+                convection off (not ported on tiles), IPOUT=2 and 2 h through
+                ``python -m flexpart_tpu_torch pathnames --tiles`` (NCCL,
+                one tile a card: 1 x 1 here), twice (partposit_end byte for
+                byte, the npz files by sim_npz's rule), against the serial
+                CLI run of the same job (every particle within the
+                reference's tiles tolerance, the records equal counted,
+                the grids within its rtol), K4 TILE on the path and stock
+                K4 never; sim_tiles_adaptive, sim_adaptive's job on tiles
+                at world size 1 in this process (K11 TILE's path) against
+                its serial run; then tile_shards, the only check on the
+                card of what tiles beyond the first run: the full-width
+                step split by hand into 2 x 2 tiles (K2 per tile, K4 TILE
+                and K11 TILE bitwise the unsplit step for every particle it
+                neither wraps, mirrors nor caps, the migration in process,
+                K3 partials summed within K8's rule, each tile's K2 and K4
+                (K11) time beside the unsplit call's);
  8b'. service — the port's service layer on sim_npz's job: a job directory
                 built by flexpart_tpu_torch.service from the job's options
                 and met archives and a site's runtime configuration given
@@ -365,6 +390,7 @@ and when run from a directory that holds nothing else of the repo.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -996,6 +1022,11 @@ def phase_kernels(device, grid) -> dict:
     res.update(part("conccalc_backward", kernel_conccalc_backward))
     res.update(part("bkdep", kernel_bkdep))
     res.update(part("clwc", kernel_clwc))
+    # a tile's instantiations, K4 TILE and K11 TILE
+    tile = part("advance_tile", kernel_advance_tile)
+    res["advance.tile"] = {**tile["advance"], "halo": tile["halo"]}
+    res["advance_adaptive.tile"] = {**tile["advance_adaptive"],
+                                    "halo": tile["halo"]}
     res["seconds_by_part"] = seconds
     return res
 
@@ -4804,25 +4835,28 @@ def write_end_dump(sim, path: Path) -> None:
     sim.close()
 
 
-def cli_dp_run(pathnames: Path, what: str) -> tuple:
-    """``python -m flexpart_tpu_torch pathnames --dp -v`` in a process of
-    its own (parallel/launch.py spawns one rank a card under NCCL; a rank
-    that fails fails the command), its standard output echoed: the psteps
-    line, the banner and the ``dp:`` line of rank 0 (world, backend, NCCL
-    version, the run's seconds, the collectives, the launches).  Returns
-    (that line as a dict, the command's seconds)."""
+def cli_dp_run(pathnames: Path, what: str, mode: str = "dp") -> tuple:
+    """``python -m flexpart_tpu_torch pathnames --dp -v`` (``mode`` "tiles":
+    ``--tiles``) in a process of its own (parallel/launch.py spawns one
+    rank a card under NCCL; a rank that fails fails the command), its
+    standard output echoed: the psteps line, the banner and the ``dp:``
+    (``tiles:``) line of rank 0 (world, backend, NCCL version, the run's
+    seconds, the collectives, the launches; the tiles' mesh, halo, slots
+    and migrations).  Returns (that line as a dict, the command's
+    seconds)."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "flexpart_tpu_torch",
-                        str(pathnames), "--dp", "-v"], cwd=ROOT,
+                        str(pathnames), f"--{mode}", "-v"], cwd=ROOT,
                        capture_output=True, text=True, timeout=900)
     seconds = time.perf_counter() - t0
     print(r.stdout, end="", flush=True)
     check(r.returncode == 0, f"{what}: exit {r.returncode}: "
           f"{r.stderr[-4000:]}")
     check(BANNER in r.stdout and "psteps/s" in r.stdout, f"{what}: no banner")
-    line = [ln for ln in r.stdout.splitlines() if ln.startswith("dp: ")]
-    check(len(line) == 1, f"{what}: no dp line")
-    return json.loads(line[0][4:]), seconds
+    head = f"{mode}: "
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith(head)]
+    check(len(line) == 1, f"{what}: no {mode} line")
+    return json.loads(line[0][len(head):]), seconds
 
 
 def shard_rows(p, world: int, r: int):
@@ -5130,6 +5164,702 @@ def phase_sim_dp(device, grid, npzres: dict) -> dict:
         launches=dp["launches"], partposit_end_bytes=len(end),
         partposit_end_bytewise_equal_to_sim_npz=True,
         npz_bitwise_against_sim_npz=npz_keys, dp_shards=shards)
+
+
+# ------------------------------------------------------------------ tiles --
+
+TILE_MESH = (2, 2)         # the tiles that tile_shards splits a step into
+SIM_TILES_DIR = ROOT / "build" / "sim_tiles_smoke"
+TILES_GRID_RTOL = 2e-3     # the reference's tiles tolerances
+TILES_ENS_RTOL, TILES_ENS_ATOL = 2e-4, 1e-4
+SIM_TILES_HOURS = 2        # sim_tiles' job: the sim phase's, cut to 2 h
+
+
+def tiles_halo(grid, z0) -> int:
+    """A tiles run's halo for fields ``z0``: the CFL width of their largest
+    |u|, |v| with a quarter's margin (Simulation._setup_tiles' rule on the
+    processed winds)."""
+    import torch
+    from flexpart_tpu_torch.met.fields import F3_U, F3_V
+    from flexpart_tpu_torch.parallel.domain import halo_for
+    umax = 1.25 * float(torch.maximum(z0.f3d[F3_U].abs().max(),
+                                      z0.f3d[F3_V].abs().max()))
+    return halo_for(umax, LSYNC, grid.dx)
+
+
+def tile_engines(cfg, grid, mesh, halo: int) -> list:
+    """The TiledEngine of every rank of a ``mesh`` (nty, ntx), in one
+    process (each over a sharding.Layout instead of a process group)."""
+    from flexpart_tpu_torch.parallel.sharding import Layout
+    from flexpart_tpu_torch.parallel.tiles import TiledEngine
+    nty, ntx = mesh
+    return [TiledEngine(Layout(nty * ntx, r), cfg, grid, nty, ntx, halo)
+            for r in range(nty * ntx)]
+
+
+def tile_inputs(engs, z0, z1, tw, cfg):
+    """Each tile's fields, K2's tables on them and the settling fields, and
+    each tile's AdvanceArgs maker: [(zt0, zt1, tables, settle), ...]."""
+    from flexpart_tpu_torch.core import advance, interp
+    out = []
+    for e in engs:
+        zt0, zt1 = e.decompose(z0), e.decompose(z1)
+        tables = interp.build_step_tables_quad(zt0, zt1, *tw,
+                                               dtype=cfg.table_dtype)
+        out.append((zt0, zt1, tables, advance.settle_met(zt0, e.cfg)))
+    return out
+
+
+def place_on_tiles(p, engs, height, cfg):
+    """``p`` placed on the tiles as a run places its schedule
+    (TiledEngine.shard_initial), each tile's shard put in cell order (K5)
+    with its origins.  Returns (shards, origins, the unsplit array: the
+    shards laid end to end, so that a slot's global index is the tile's
+    offset plus its slot and the unsplit step draws what the tiles draw)."""
+    import torch
+    from flexpart_tpu_torch import interop
+    from flexpart_tpu_torch.core import reorder
+    from flexpart_tpu_torch.core.state import Particles
+    from flexpart_tpu_torch.parallel.tiles import (plan_tile_capacity,
+                                                   shard_by_tile_scheduled)
+    sched = interop.particles_to_numpy(p)
+    e0 = engs[0]
+    cap = plan_tile_capacity(sched["x_hi"], sched["y_hi"], e0.ntx, e0.nty,
+                             e0.tx, e0.ty)
+    for e in engs:
+        e.local_cap = cap
+    tiled, placed = shard_by_tile_scheduled(sched, e0.field_tiles(), cap)
+    del sched
+    shards, origins = [], []
+    for e in engs:
+        lo = e.index * cap
+        rows = {f: a[lo:lo + cap] for f, a in tiled.items()}
+        origin = placed[lo:lo + cap]
+        q = interop.particles_from_numpy(rows, p.device)
+        q, perm = reorder.reorder_by_cell_cuda(q, height, cfg)
+        shards.append(clone_particles(q))
+        origins.append(torch.as_tensor(origin, device=p.device)[perm.long()])
+    return shards, origins, clone_particles(Particles.cat(shards))
+
+
+def step_caps(before, after, grid):
+    """The particles that a step moves by the caps' update or mirrors at a
+    pole (within a degree of 75 before or after it)."""
+    lat0 = before.y * grid.dy + grid.ylat0
+    lat1 = after.y * grid.dy + grid.ylat0
+    return (lat0.abs() > 74.0) | (lat1.abs() > 74.0)
+
+
+def step_specials(before, after, grid):
+    """The particles that a step may wrap at the seam (within a cell of it
+    before or after: the serial step wraps, or clamps within nx / 3e5 of
+    the seam, at the predictor too), mirrors at a pole, kills or moves by
+    the caps' update: where a tile's step may differ from the serial
+    one."""
+    nxm = float(grid.nx - 1)
+
+    def near_seam(p):
+        return (p.x < 1.0) | (p.x > nxm - 1.0)
+    wrapped = ((after.x - before.x).abs() > nxm / 2) | near_seam(before) \
+        | near_seam(after)
+    return (wrapped | step_caps(before, after, grid)
+            | (before.active & ~after.active))
+
+
+def held_tiles_against_unsplit(tiled, unsplit, before, grid, what: str,
+                               fields) -> dict:
+    """The tiles' step (shards laid end to end) against the unsplit step:
+    every particle the step neither wraps, mirrors, kills nor moves by the
+    caps' update bitwise in ``fields``; the wrapped ones within the
+    reference's tiled tolerance (x, y 2e-3 cells, z 0.5 m:
+    tests/test_domain_decomp.py:557-560), the capped ones within its cap
+    tolerance (the tile skips their corrector: y 0.35 cells, z 1 m,
+    :674-675).  Returns the counts."""
+    import torch
+    special = step_specials(before, unsplit, grid)
+    bad = torch.zeros_like(special)
+    for f in fields:
+        a, b = getattr(tiled, f), getattr(unsplit, f)
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        d = a != b
+        bad |= d.reshape(d.shape[0], -1).any(dim=1)
+    plain = before.active & ~special
+    odd = torch.nonzero(bad & plain).flatten()[:4]
+    check(not bool((bad & plain).any()), f"{what}: {int((bad & plain).sum())}"
+          " particles the step neither wraps, mirrors nor caps differ; x, y "
+          f"before {before.x[odd].tolist()}, {before.y[odd].tolist()}, "
+          f"tiles {tiled.x[odd].tolist()}, {tiled.y[odd].tolist()}, "
+          f"unsplit {unsplit.x[odd].tolist()}, {unsplit.y[odd].tolist()}")
+    caps = step_caps(before, unsplit, grid)
+    nxm = float(grid.nx - 1)
+
+    def worst(t, m):
+        return float(t[m].max()) if bool(m.any()) else 0.0
+    both = tiled.active & unsplit.active & special
+    wrap = both & ~caps
+    ddx = (tiled.x - unsplit.x).abs()
+    dx = worst(torch.minimum(ddx, nxm - ddx), wrap)
+    dy = worst((tiled.y - unsplit.y).abs(), wrap)
+    dz = worst((tiled.z - unsplit.z).abs(), wrap)
+    check(dx <= 2e-3 and dy <= 2e-3 and dz <= 0.5,
+          f"{what}: the wrapped particles differ by {dx}, {dy} cells, "
+          f"{dz} m")
+    cy = worst((tiled.y - unsplit.y).abs(), both & caps)
+    cz = worst((tiled.z - unsplit.z).abs(), both & caps)
+    check(cy <= 0.35 and cz <= 1.0,
+          f"{what}: the capped particles differ by {cy} cells, {cz} m")
+    check(torch.equal(tiled.active, unsplit.active),
+          f"{what}: active differs")
+    return dict(bitwise=int((plain & ~bad).sum()),
+                special=int((before.active & special).sum()),
+                capped=int((before.active & caps).sum()),
+                special_differing=int((bad & special).sum()),
+                wrapped_max_dx=dx, wrapped_max_dy=dy, wrapped_max_dz=dz,
+                capped_max_dy=cy, capped_max_dz=cz)
+
+
+def owner_counts(shards, engs) -> tuple:
+    """(live particles, those not on the tile that owns them)."""
+    from flexpart_tpu_torch.parallel.domain import tile_of
+    live = away = 0
+    for q, e in zip(shards, engs):
+        a = q.active
+        live += int(a.sum())
+        away += int((tile_of(q.x[a], q.y[a], e.field_tiles())
+                     != e.index).sum())
+    return live, away
+
+
+def tile_shards(device, grid) -> dict:
+    """The only check on the card of the code that tiles beyond the first
+    reach (the card here holds one rank): the main path's full-width step
+    split by hand into 2 x 2 tiles in one process.  N_MAIN particles on the
+    361 x 181 x 30 grid placed on the tiles as a run places them (each
+    tile's shard in cell order), the unsplit array the shards laid end to
+    end (so its slots draw what the tiles' do): K2 on each tile's fields,
+    K4 TILE on each tile, bitwise the unsplit stock step for every particle
+    the step neither wraps, mirrors nor caps (the crossers, which leave
+    their tile, included and counted), the others within the reference's
+    tolerance; the migration through domain.migrate_in_process (rows and
+    bytes moved, nothing lost, every particle on its owner after it); K3 of
+    each tile into a partial of the 720 x 360 x 3 grid, summed in tile
+    order, and the unsplit K3 both within K8's rule of the float64 sum of
+    the pairs.  The same for K11 TILE on K11's kernels case (bitwise with
+    idt, t_below and the passes).  Each tile's K2 and K4 (K11) time beside
+    the unsplit call's."""
+    import copy
+    import torch
+    from flexpart_tpu_torch.core import advance, interp, rng
+    from flexpart_tpu_torch.core.state import Particles
+    from flexpart_tpu_torch.grid import conccalc as cc
+    from flexpart_tpu_torch.parallel import domain
+    t_start = time.perf_counter()
+    z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
+    itime, mem1 = 3600, 10800
+    halo = tiles_halo(grid, z0)
+    res = dict(n=N_MAIN, mesh=list(TILE_MESH), halo=halo)
+    nxm = float(grid.nx - 1)
+
+    def one(kind: str) -> dict:
+        if kind == "k4":
+            cfg, prm, og, geo, ccfg = step_setup(grid)
+            key = rng.Key(77, 1)
+            p = bench_particles(N_MAIN, device, seed=53, old_fraction=1.0)
+            fields = advance.OUT_FIELDS
+        else:
+            cfg, prm = settling_params(grid, turbswitch=True, ifine=4,
+                                       method=1, settling=True, polar=True)
+            _, _, og, geo, ccfg = step_setup(grid)
+            key = rng.Key(4321, 9)
+            tw_ = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+            t_ = interp.build_step_tables_quad(z0, z1, *tw_,
+                                               dtype=cfg.table_dtype)
+            p = boundary_layer_particles(N_MAIN, device, 41, grid, itime,
+                                         lambda q: sample_met(
+                                             q, z0.height, t_, cfg)[0])
+            del t_
+            fields = advance.ADAPTIVE_OUT_FIELDS
+        engs = tile_engines(cfg, grid, TILE_MESH, halo)
+        tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+        shards, origins, unsplit = place_on_tiles(p, engs, z0.height, cfg)
+        cap = engs[0].local_cap
+        del p
+        out = dict(local_cap=cap, particles_per_tile=[
+            int(q.active.sum()) for q in shards])
+        tins = tile_inputs(engs, z0, z1, tw, cfg)
+        tables = interp.build_step_tables_quad(z0, z1, *tw,
+                                               dtype=cfg.table_dtype)
+        settle = advance.settle_met(z0, cfg)
+        a = advance.advance_args(cfg, prm, itime, 0, mem1)
+        run = (advance.advance_all_cuda if kind == "k4"
+               else advance.advance_adaptive_cuda)
+
+        def unsplit_step():
+            return run(unsplit, z0.height, tables, copy.copy(a), key, cfg,
+                       None, 0, settle)
+
+        def tile_step(r):
+            e, (zt0, _, tt, st) = engs[r], tins[r]
+            at = advance.advance_args(e.cfg, prm, itime, 0, mem1, e.tile)
+            return run(shards[r], zt0.height, tt, at, key, e.cfg, None,
+                       r * cap, st)
+
+        qu, du = unsplit_step()
+        steps = [tile_step(r) for r in range(len(engs))]
+        torch.cuda.synchronize()
+        tiled = Particles.cat([q for q, _ in steps])
+        out["held"] = held_tiles_against_unsplit(
+            tiled, qu, unsplit, grid, f"tile_shards {kind}", fields)
+        if kind == "k11":
+            tb = torch.cat([d.t_below for _, d in steps])
+            ps = torch.cat([d.passes for _, d in steps])
+            plain = unsplit.active & ~step_specials(unsplit, qu, grid)
+            check(torch.equal(tb[plain].view(torch.int32),
+                              du.t_below[plain].view(torch.int32))
+                  and torch.equal(ps[plain], du.passes[plain]),
+                  "tile_shards k11: t_below or passes differ")
+        # the crossers: particles the step took out of their tile
+        crossers = 0
+        for r, (q, _) in enumerate(steps):
+            own = domain.tile_of(q.x[q.active], q.y[q.active],
+                                 engs[r].field_tiles())
+            crossers += int((own != r).sum())
+        out["crossers"] = crossers
+        check(crossers > 0, f"tile_shards {kind}: no particle crossed")
+        out["unsplit_k2_ms"] = cuda_ms(lambda: interp.build_step_tables_quad(
+            z0, z1, *tw, dtype=cfg.table_dtype), 5)
+        out["k2_ms_per_tile"] = [cuda_ms(
+            lambda zt0=zt0, zt1=zt1: interp.build_step_tables_quad(
+                zt0, zt1, *tw, dtype=cfg.table_dtype), 5)
+            for zt0, zt1, _, _ in tins]
+        out["unsplit_ms"] = cuda_ms(unsplit_step, 5)
+        out["ms_per_tile"] = [cuda_ms(lambda r=r: tile_step(r), 5)
+                              for r in range(len(engs))]
+        # the migration, through the run's functions
+        after = [q for q, _ in steps]
+        live0 = sum(int(q.active.sum()) for q in after)
+        mig = domain.migrate_in_process(engs[0].layout, after, origins)
+        live, away = owner_counts(after, engs)
+        check(live == live0 == int(du.n_active),
+              f"tile_shards {kind}: {live} live after the migration, "
+              f"{live0} before, {int(du.n_active)} unsplit")
+        check(away == 0 and mig["deferred"] == 0,
+              f"tile_shards {kind}: {away} particles off their tile, "
+              f"{mig['deferred']} deferred")
+        o = torch.cat(origins)
+        check(bool((torch.sort(o[o >= 0]).values == torch.arange(
+            int((o >= 0).sum()), device=device)).all()),
+            f"tile_shards {kind}: the origins are not the schedule's")
+        out["migrated_rows"] = mig["moved"]
+        out["migrated_bytes"] = mig["bytes"]
+        del steps, tins, tables
+        torch.cuda.empty_cache()
+        if kind == "k4":
+            # K3: each tile's particles into its partial grid, summed in tile
+            # order, and the unsplit step's, against the pairs' float64 sum
+            ts = itime + LSYNC
+            ccfg = ccfg.replace(kernel_possible=False)
+            oh = torch.tensor(og.outheights, dtype=torch.float32,
+                              device=device)
+            lage = torch.tensor([999999999], dtype=torch.int32, device=device)
+            rows = (ccfg.nage * ccfg.nclassunc * ccfg.npointspec * geo.nyg
+                    * geo.nxg * geo.nzg)
+            g3 = torch.zeros((rows, 1), dtype=torch.float32, device=device)
+            cc.conccalc_cuda(g3, qu, ts, lage, oh, 1.0, None, ccfg)
+            s3 = None
+            for q in after:
+                f3 = torch.zeros_like(g3)
+                cc.conccalc_cuda(f3, q, ts, lage, oh, 1.0, None, ccfg)
+                s3 = f3 if s3 is None else s3 + f3
+            lin, valid, contrib = cc.conccalc_pairs(rows, qu, ts, lage, oh,
+                                                    1.0, None, ccfg)
+            out["k3"] = held_against_f64({"kernel": g3, "tiles": s3},
+                                         lin[valid], contrib[valid], K8_RTOL,
+                                         "tile_shards: K3")
+            del g3, s3, lin, valid, contrib
+        del after, qu, unsplit, shards, origins
+        torch.cuda.empty_cache()
+        return out
+
+    res["k4"] = one("k4")
+    res["k11"] = one("k11")
+    res["seconds"] = time.perf_counter() - t_start
+    res["note"] = ("the only check on the card of the code that tiles "
+                   "beyond the first reach; no number here is of more than "
+                   "one rank")
+    return res
+
+
+def kernel_advance_tile(device, grid) -> dict:
+    """K4 TILE and K11 TILE against their plain versions on the card,
+    bitwise, and each beside the stock kernel on the same particles.  K4
+    TILE: the main path's configuration on a 1 x 1 tile (a tiles run at
+    world size 1: the whole grid with its halo) on N_MAIN old particles in
+    cell order, its draws in registers; and, with injected draws, its POLAR
+    x SETTLING instantiation on tile 0 of a 2 x 2 split with
+    edge_particles (poles, date line, every branch; some out of the tile's
+    reach).  K11 TILE: K11's kernels case (sim_adaptive's configuration)
+    on a 1 x 1 tile.  Bounds: the stock kernels' (the same bytes)."""
+    import copy
+    import torch
+    from flexpart_tpu_torch import _build
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
+    itime, mem1 = 3600, 10800
+    halo = tiles_halo(grid, z0)
+    nxm = float(grid.nx - 1)
+    res = {"halo": halo}
+
+    # K4 TILE, the main path's configuration, 1 x 1
+    cfg, prm, *_ = step_setup(grid)
+    key = rng.Key(4321, 4)
+    tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+    eng = tile_engines(cfg, grid, (1, 1), halo)[0]
+    zt0, zt1, tt, _ = tile_inputs([eng], z0, z1, tw, cfg)[0]
+    tables = interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
+    a = advance.advance_args(cfg, prm, itime, 0, mem1)
+    at = advance.advance_args(eng.cfg, prm, itime, 0, mem1, eng.tile)
+    p = bench_particles(N_MAIN, device, seed=3, old_fraction=1.0)
+    p = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
+
+    def k4_tile():
+        return advance.advance_all_cuda(p, zt0.height, tt, copy.copy(at), key,
+                                        eng.cfg, None, 0)
+
+    def k4_plain():
+        return advance.advance_all_plain(p, zt0.height, tt, copy.copy(at),
+                                         key, eng.cfg, None, 0)
+
+    def k4_stock():
+        return advance.advance_all_cuda(p, z0.height, tables, copy.copy(a),
+                                        key, cfg, None, 0)
+    (pk, dk), (pp, dp) = k4_tile(), k4_plain()
+    torch.cuda.synchronize()
+    full = compare_particles(pk, pp, "K4 TILE", nxm)
+    differ = differing_particles(pk, pp, advance.OUT_FIELDS)
+    check(differ == 0, f"K4 TILE differs from its plain version in {differ} "
+          "particles")
+    check(int(dk.n_active) == int(dp.n_active)
+          and int(dk.n_exited) == int(dp.n_exited), "K4 TILE counts differ")
+    qs, _ = k4_stock()
+    against_stock = held_tiles_against_unsplit(
+        pk, qs, p, grid, "K4 TILE against stock K4", advance.OUT_FIELDS)
+    row_b = 128 if cfg.met_bf16 else 256
+    rows0 = unique_rows(p, z0.height, cfg)
+    rows1 = unique_rows(pk, z0.height, cfg)
+    del pp, qs
+    res["advance"] = dict(
+        n=N_MAIN, bitwise=True, differing_particles=differ,
+        max_abs_err=max(full["max_dx"], full["max_dy"]),
+        against_stock_k4=against_stock,
+        tile=dict(ox=eng.tile.ox, oy=eng.tile.oy, nx=eng.tile.nx,
+                  ny=eng.tile.ny),
+        ms=cuda_ms(k4_tile, 10), stock_ms_same_particles=cuda_ms(k4_stock, 10),
+        plain_ms=cuda_ms(k4_plain, 2), library_ms=None,
+        **bound(104 * N_MAIN + row_b * rows0 + row_b * 3 // 8 * rows1,
+                K4_OPS_PER_PARTICLE * N_MAIN))
+    del p, pk, zt0, zt1, tt, tables
+    torch.cuda.empty_cache()
+
+    # K4 TILE POLAR x SETTLING on tile 0 of 2 x 2, injected draws
+    cfg, prm = settling_params(grid, polar=True, settling=True)
+    tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+    eng = tile_engines(cfg, grid, TILE_MESH, halo)[0]
+    zt0, zt1, tt, st = tile_inputs([eng], z0, z1, tw, cfg)[0]
+    t_full = interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
+    q = edge_particles(CHUNK, device, 21, itime, lambda r: sample_met(
+        r, z0.height, t_full, cfg)[0])
+    q = with_species(q, device, 22, 1.0 / 3)
+    del t_full
+    draws = {tag: rng.normals(key, (rows, CHUNK), tag, 0, device=device)
+             for tag, rows in {**advance.DRAW_ROWS, 2: cfg.ifine}.items()}
+    at = advance.advance_args(eng.cfg, prm, itime, 0, mem1, eng.tile)
+    (pk, dk) = advance.advance_all_cuda(q, zt0.height, tt, copy.copy(at), key,
+                                        eng.cfg, draws, 0, st)
+    (pp, dp) = advance.advance_all_plain(q, zt0.height, tt, copy.copy(at),
+                                         key, eng.cfg, draws, 0, st)
+    torch.cuda.synchronize()
+    differ = differing_particles(pk, pp, advance.OUT_FIELDS)
+    check(differ == 0, f"K4 TILE POLAR SETTLING differs from its plain "
+          f"version in {differ} particles")
+    check(int(dk.n_exited) == int(dp.n_exited), "K4 TILE POLAR: exits differ")
+    res["advance"]["polar_settling_tile0"] = dict(
+        n=CHUNK, bitwise=True, exited=int(dk.n_exited),
+        tile=dict(ox=eng.tile.ox, oy=eng.tile.oy, nx=eng.tile.nx,
+                  ny=eng.tile.ny))
+    del q, pk, pp, draws, zt0, zt1, tt, st
+    torch.cuda.empty_cache()
+
+    # K11 TILE, K11's kernels case, 1 x 1
+    key = rng.Key(4321, 9)
+    cfg, prm = settling_params(grid, turbswitch=True, ifine=4, method=1,
+                               settling=True, polar=True)
+    tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
+    settle = advance.settle_met(z0, cfg)
+    a = advance.advance_args(cfg, prm, itime, 0, mem1)
+    p = boundary_layer_particles(N_MAIN, device, 41, grid, itime,
+                                 lambda q: sample_met(q, z0.height, tables,
+                                                      cfg)[0])
+    p = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
+    eng = tile_engines(cfg, grid, (1, 1), halo)[0]
+    zt0, zt1, tt, st = tile_inputs([eng], z0, z1, tw, cfg)[0]
+    at = advance.advance_args(eng.cfg, prm, itime, 0, mem1, eng.tile)
+    r, pk, dk = check_adaptive(p, zt0.height, tt, at, key, eng.cfg, st,
+                               "K11 TILE", time_plain=True)
+    qs, ds = advance.advance_adaptive_cuda(p, z0.height, tables, copy.copy(a),
+                                           key, cfg, None, 0, settle)
+    r["against_stock_k11"] = held_tiles_against_unsplit(
+        pk, qs, p, grid, "K11 TILE against stock K11",
+        advance.ADAPTIVE_OUT_FIELDS)
+    ins = k11_instructions(_build.ADVANCE_ADAPTIVE, k11_entry(cfg), cfg.ifine)
+    r.update(k11_bound(p, qs, ds.passes, z0.height, cfg, a, ins))
+    del pk, qs
+    r["ms"] = cuda_ms(lambda: advance.advance_adaptive_cuda(
+        p, zt0.height, tt, copy.copy(at), key, eng.cfg, None, 0, st), 10)
+    r["stock_ms_same_particles"] = cuda_ms(
+        lambda: advance.advance_adaptive_cuda(
+            p, z0.height, tables, copy.copy(a), key, cfg, None, 0, settle),
+        10)
+    r.update(n=N_MAIN, library_ms=None, tile=dict(
+        ox=eng.tile.ox, oy=eng.tile.oy, nx=eng.tile.nx, ny=eng.tile.ny))
+    res["advance_adaptive"] = r
+    del p, tables, zt0, zt1, tt, st
+    torch.cuda.empty_cache()
+    return res
+
+
+def sim_tiles_job(job: Path) -> Path:
+    """sim_npz's job files with convection off (convection on tiles is not
+    ported), IPOUT=2 (``partposit_end``) and SIM_TILES_HOURS hours."""
+    import dataclasses
+    pathnames = write_sim_npz_job(job, SIM_NPZ_DIR / "metdata")
+    cmd = dataclasses.replace(sim_config()[0], ipout=2, lconvection=0,
+                              ietime=SIM_TILES_HOURS * 10000)
+    (job / "options" / "COMMAND").write_text(namelist("command",
+                                                      changed(cmd)))
+    return pathnames
+
+
+def held_dumps(a: Path, b: Path, nspec: int, what: str, device) -> dict:
+    """Two ``partposit_end`` of the same particles in other orders: each
+    put in (npoint, lon, lat, z) order (stable sorts on the card), every
+    record within the reference's tiled tolerance (positions 2e-3 degrees
+    on this 1-degree grid, z 0.5 m, masses rtol 2e-4); the records equal
+    in every value counted."""
+    import torch
+    from flexpart_tpu_torch.io import partdump
+    ta, da = partdump.read_partposit(a, nspec)
+    tb, db = partdump.read_partposit(b, nspec)
+    check(ta == tb and len(da["z"]) == len(db["z"]) > 0,
+          f"{what}: {len(da.get('z', ()))} against {len(db.get('z', ()))} "
+          "particles")
+    da = {f: torch.as_tensor(v, device=device) for f, v in da.items()}
+    db = {f: torch.as_tensor(v, device=device) for f, v in db.items()}
+
+    def order(d):
+        at = torch.arange(len(d["z"]), device=device)
+        for f in ("z", "lat", "lon", "npoint"):     # the last key first
+            at = at[torch.sort(d[f][at], stable=True).indices]
+        return at
+    oa, ob = order(da), order(db)
+    same = torch.ones(len(oa), dtype=torch.bool, device=device)
+    worst = {}
+    for f in da:
+        x, y = da[f][oa], db[f][ob]
+        same &= (x == y).reshape(len(oa), -1).all(dim=1)
+        if x.dtype.is_floating_point:
+            worst[f] = float((x - y).abs().max())
+    check(torch.equal(da["npoint"][oa], db["npoint"][ob])
+          and torch.equal(da["itramem"][oa], db["itramem"][ob]),
+          f"{what}: the particles' release points or times differ")
+    dl = (da["lon"][oa] - db["lon"][ob]).abs()
+    dl = torch.minimum(dl, 360.0 - dl)
+    check(float(dl.max()) <= 2e-3
+          and float((da["lat"][oa] - db["lat"][ob]).abs().max()) <= 2e-3
+          and float((da["z"][oa] - db["z"][ob]).abs().max()) <= 0.5,
+          f"{what}: positions differ by {worst}")
+    ma, mb = da["mass"][oa], db["mass"][ob]
+    check(bool(torch.all((ma - mb).abs() <= TILES_ENS_RTOL * ma.abs()
+                         + 1e-12)), f"{what}: masses differ by {worst}")
+    return dict(particles=int(len(oa)), records_equal=int(same.sum()),
+                max_abs_diff=worst)
+
+
+def held_npz(a_dir: Path, b_dir: Path, rtol: dict, what: str) -> dict:
+    """The npz files of two runs: the keys of ``rtol`` within it per cell
+    (relative), every other key bitwise.  Returns per key whether every
+    file was bitwise."""
+    import numpy as np
+    keys = {}
+    files = sorted(q.name for q in a_dir.glob("grid_conc_*.npz"))
+    check(files and files == sorted(q.name for q in
+                                    b_dir.glob("grid_conc_*.npz")),
+          f"{what}: npz files {files}")
+    for name in files:
+        with np.load(a_dir / name) as x, np.load(b_dir / name) as y:
+            for k in x.files:
+                same = bool(np.array_equal(x[k], y[k]))
+                keys.setdefault(k, []).append(same)
+                if k in rtol:
+                    check(bool(np.all(np.abs(x[k] - y[k])
+                                      <= rtol[k] * np.abs(x[k]))),
+                          f"{what}: {name} {k} beyond rtol {rtol[k]}")
+                else:
+                    check(same, f"{what}: {name} {k} differs")
+    return keys
+
+
+@contextlib.contextmanager
+def group_of_one(base: Path):
+    """This process as a torch.distributed group of one rank over NCCL (a
+    FileStore under ``base``), ended on leaving."""
+    import torch.distributed as dist
+    base.mkdir(parents=True, exist_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(base / "store"),
+                                                         1),
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def sim_tiles_adaptive(device, kernels) -> dict:
+    """K11 TILE on a tiles run's path: sim_adaptive's job with convection
+    off, distributed='tiles' at world size 1 (inside group_of_one), its
+    launches counted (K11 TILE every step, stock K11 never), held by
+    sim_run_checks (every particle live and finite, the tracer's mass, the
+    aerosol's budget within 1e-3, its deposits)."""
+    import torch
+    sim = sim_adaptive_setup(SIM_TILES_DIR / "adaptive", device, False,
+                             cmd_kw=dict(lconvection=0), distributed="tiles")
+    launches, seconds = counted_run(kernels, sim.run)
+    check(launches["advance_adaptive.tile"] > 0
+          and launches["advance_adaptive"] == 0,
+          f"sim_tiles_adaptive: launches {launches}")
+    checks, _, _ = sim_run_checks(sim, "sim_tiles_adaptive", 1.0)
+    check(not bool(sim.particles.active[N_MAIN:].any()),
+          "sim_tiles_adaptive: an empty slot of the tile came alive")
+    out = dict(launches=launches, run_s=seconds,
+               local_cap=sim._tiles.local_cap, halo=sim._tiles.halo,
+               collectives=dict(sim._group.stats), **checks)
+    sim.close()
+    del sim
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sim_tiles(device, grid, kernels) -> dict:
+    """Tiles on the card.  The sim phase's job (sim_npz's met archives)
+    with convection off, IPOUT=2 and SIM_TILES_HOURS hours: run A through ``python -m
+    flexpart_tpu_torch pathnames --tiles`` (the launcher, NCCL, one rank a
+    card: one here, one tile, 1 x 1, with its halo), run B the same job
+    built by the command line's build_simulation with distributed='tiles'
+    in this process's group of one, and the serial run of the job through
+    the command line's main() in this process.  A and B bitwise
+    (``partposit_end`` byte for byte; the npz keys filled through float
+    atomics, K3 and K8, within their rtol, every other key bitwise) with
+    the same launches; A against the serial run: every particle within
+    the reference's tolerance and the records equal counted, the grids
+    within its rtol.  K4 TILE launched on the path, never stock K4.  Then
+    sim_tiles_adaptive (K11 TILE's path) and tile_shards."""
+    import contextlib as ctx
+    import io
+    import shutil
+    import torch
+    from flexpart_tpu_torch import main as cli
+    shutil.rmtree(SIM_TILES_DIR, ignore_errors=True)
+    jobs = {name: sim_tiles_job(SIM_TILES_DIR / name)
+            for name in ("serial", "a", "b")}
+    torch.cuda.empty_cache()
+    seconds = {}
+    stdout = io.StringIO()
+    build = cli.build_simulation
+
+    def build_timed(*a, **k):
+        sim = build(*a, **k)
+        inner = sim.run
+
+        def run(*ra, **rk):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner(*ra, **rk)
+            torch.cuda.synchronize()
+            seconds["serial_run"] = time.perf_counter() - t
+            return out
+        sim.run = run
+        return sim
+    t0 = time.perf_counter()
+    cli.build_simulation = build_timed
+    try:
+        with ctx.redirect_stdout(stdout):
+            rc = cli.main([str(jobs["serial"])])
+    finally:
+        cli.build_simulation = build
+    seconds["serial_main"] = time.perf_counter() - t0
+    check(rc == 0 and BANNER in stdout.getvalue(), "sim_tiles serial: no "
+          "banner")
+    torch.cuda.empty_cache()
+    ta, seconds["cli_a"] = cli_dp_run(jobs["a"], "sim_tiles a", "tiles")
+    check(ta["world"] == torch.cuda.device_count() == 1
+          and ta["backend"] == "nccl" and ta["tiles"]["mesh"] == [1, 1],
+          f"sim_tiles: world {ta['world']} over {ta['backend']}, mesh "
+          f"{ta['tiles']['mesh']}")
+    for name in ("quad_tables", "conccalc", "reorder", "wetdepo",
+                 "drydepo", "depo_scatter", "advance.tile"):
+        check(ta["launches"][name] > 0,
+              f"sim_tiles: {name} launched {ta['launches'][name]} times")
+    check(ta["launches"]["advance"] == 0,
+          "sim_tiles: stock K4 launched on the tiles path")
+    torch.cuda.empty_cache()
+    with group_of_one(SIM_TILES_DIR / "group"):
+        built = {}
+
+        def run_b():
+            built["sim"] = cli.build_simulation(str(jobs["b"]),
+                                                distributed="tiles")
+            built["sim"].run()
+        b_launches, seconds["build_and_run_b"] = counted_run(kernels, run_b)
+        built.pop("sim").close()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        adaptive = sim_tiles_adaptive(device, kernels)
+        seconds["adaptive"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    check({k: v for k, v in b_launches.items() if v}
+          == {k: v for k, v in ta["launches"].items() if v},
+          f"sim_tiles: run B's launches {b_launches} against A's "
+          f"{ta['launches']}")
+    out = {q: SIM_TILES_DIR / q / "output" for q in jobs}
+    end_a = (out["a"] / "partposit_end").read_bytes()
+    check(end_a == (out["b"] / "partposit_end").read_bytes(),
+          "sim_tiles: two runs' partposit_end differ")
+    check({q.name for q in out["a"].iterdir()}
+          == {q.name for q in out["serial"].iterdir()},
+          "sim_tiles: files differ from the serial run's")
+    twice = held_npz(out["a"], out["b"], NPZ_ATOMIC_RTOL, "sim_tiles twice")
+    nspec = len(sim_config()[1].species)
+    dumps = held_dumps(out["serial"] / "partposit_end",
+                       out["a"] / "partposit_end", nspec, "sim_tiles", device)
+    grids = held_npz(out["serial"], out["a"],
+                     {"conc": TILES_GRID_RTOL, "wet": TILES_GRID_RTOL,
+                      "dry": TILES_GRID_RTOL}, "sim_tiles against serial")
+    shutil.rmtree(SIM_TILES_DIR, ignore_errors=True)
+    seconds["checks"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    shards = tile_shards(device, grid)
+    torch.cuda.empty_cache()
+    return dict(
+        world=ta["world"], backend=ta["backend"], nccl=ta["nccl"],
+        tiles=ta["tiles"], hours=SIM_TILES_HOURS, run_s=ta["run_s"],
+        seconds_by_part=seconds,
+        section_seconds_unsynced=ta["timings"], collectives=ta["collectives"],
+        launches=ta["launches"], partposit_end_bytes=len(end_a),
+        partposit_end_bytewise_twice=True, npz_bitwise_twice=twice,
+        against_serial=dict(dumps=dumps, npz_bitwise=grids),
+        sim_tiles_adaptive=adaptive, tile_shards=shards)
 
 
 SERVICE_DIR = ROOT / "build" / "service_smoke"
@@ -7608,8 +8338,9 @@ def held_boundcond(p, bs, step, md: int, origin, what: str):
 
 def boundcond_edge_inputs(p, bs, window, device):
     """K14's edge cases at EDGE_SIZES, slots drawn from the kernels case's
-    ``p`` (its boundary state ``bs``): in slot order and through a
-    shuffled origin; every slot live and inside the window (no free slot);
+    ``p`` (its boundary state ``bs``; with replacement where its pool is
+    shorter than the case): in slot order and through a shuffled origin;
+    every slot live and inside the window (no free slot);
     an empty accumulator (no wish); no boundary site at all, with half the
     slots live outside the window (the kill alone).  (name, particles,
     origin or None, boundary state)."""
@@ -7630,6 +8361,11 @@ def boundcond_edge_inputs(p, bs, window, device):
 
     def pick(kind, n):
         src = pool[kind]
+        if n > src.numel():
+            # a pool shorter than the case (the inside ones of a smaller
+            # run): drawn again, as half_outside draws
+            return src[torch.randint(src.numel(), (n,), generator=gen,
+                                     device=device)]
         return src[torch.randperm(src.numel(), generator=gen,
                                   device=device)[:n]]
 
@@ -9467,6 +10203,11 @@ def main() -> int:
           "device": name, "power_limit": smi})
 
     t0 = time.perf_counter()
+    tires = phase_sim_tiles(device, grid, counted)
+    emit({"phase": "sim_tiles", "seconds": time.perf_counter() - t0,
+          **tires, "device": name, "power_limit": smi})
+
+    t0 = time.perf_counter()
     svres = phase_service(device, held)
     emit({"phase": "service", "seconds": time.perf_counter() - t0, **svres,
           "device": name, "power_limit": smi})
@@ -9911,6 +10652,35 @@ def main() -> int:
          **{f: kres["conccalc"][f] for f in pick},
          "sim_domainfill_per_call_both_grids":
              dfres["device_per_call"]["conccalc_both_grids"]})
+    # a tile's instantiations: K4 TILE on sim_tiles' path, K11 TILE on
+    # sim_tiles_adaptive's (each path's counts set to 0 just before it)
+    shards = tires["tile_shards"]
+    for ename, ref, n_launch, path, case in (
+            ("advance.tile", "flexpart_tpu/parallel/domain.py:377",
+             tires["launches"]["advance.tile"], "sim_tiles", "k4"),
+            ("advance_adaptive.tile", "flexpart_tpu/parallel/domain.py:377",
+             tires["sim_tiles_adaptive"]["launches"]
+             ["advance_adaptive.tile"], "sim_tiles_adaptive", "k11")):
+        r = kres[ename]
+        line.append(
+            {"name": ename, "route": "cuda",
+             "source": src.format(ename.split(".")[0]),
+             # make_tiled_advance: advance_all with tile_mode
+             # (flexpart_tpu/core/advance.py:1156-1163, :1319-1322)
+             "replaces": ref, "tpu_route": "XLA", "launches": n_launch,
+             "launches_path": path,
+             **{f: r[f] for f in pick},
+             **{f: r[f] for f in ("n", "bitwise", "stock_ms_same_particles",
+                                  "tile", "halo", "against_stock_k4",
+                                  "against_stock_k11",
+                                  "polar_settling_tile0", "bound_bytes",
+                                  "bound_operations", "bound_instructions",
+                                  "lane_efficiency", "passes_mean")
+                if f in r},
+             "tile_shards_2x2": {f: shards[case][f] for f in (
+                 "local_cap", "particles_per_tile", "held", "crossers",
+                 "unsplit_ms", "ms_per_tile", "unsplit_k2_ms",
+                 "k2_ms_per_tile", "migrated_rows", "migrated_bytes")}})
     emit({"phase": "done", "seconds": time.perf_counter() - t_script})
     emit({"kernels": line})
     print(smi, flush=True)

@@ -12,8 +12,19 @@ polar-stereographic update inside the polar caps, cyclic and pole boundary
 conditions and the Petterssen corrector.  The adaptive step runs the
 boundary layer in a loop of passes of per-particle length
 (``_adaptive_interval_plain``) and returns the seconds each particle spent
-below 2 HREF (``StepDiag.t_below``).  Tile mode raises
-``NotImplementedError``.
+below 2 HREF (``StepDiag.t_below``).
+
+Tile mode (``StepConfig.tile_mode``, a rank of a tiles run,
+parallel/domain.py): the tables are a tile's (``Tile``: their first cell's
+global column and row, and their dims), the positions stay global, and only
+the corner of each gather moves by the tile's origin, clamped to the tile
+(``interp.tile_weights``); the cyclic, pole and exit boundary conditions
+run once, after the corrector, with the global grid's arguments, and with
+the polar caps a particle that took the cap's update at the predictor
+skips the corrector (its end may lie outside the tile).  So a particle
+that the step neither wraps, mirrors, kills nor moves by the caps' update
+takes the serial step bit for bit.  K4 ``TILE`` and K11 ``TILE`` are its
+kernels (``_build.ADVANCE_TILE``, ``_build.ADVANCE_ADAPTIVE_TILE``).
 
 Two versions of the same function: ``advance_all_plain``, plain PyTorch
 ops, runs for CPU tensors; for CUDA tensors ``advance_all_cuda`` launches
@@ -70,8 +81,8 @@ from .legacy import (LegacyRnd, interp_wind_legacy, interp_wind_short,
                      legacy_draws, sample_met_legacy, vert_wind_legacy, wrap)
 from .interp import (ROWS_E_LANES, ROWS_LANES, HorizWeights, StepTablesQuad,
                      _cell_rowid, build_step_tables_quad, horiz_weights,
-                     interp_wind_short_quad, sample_all_quad, true_div,
-                     vert_weights, wind10_quad)
+                     interp_wind_short_quad, sample_all_quad, tile_weights,
+                     true_div, vert_weights, wind10_quad)
 from .state import Particles, ds_add
 
 f32 = np.float32
@@ -105,13 +116,18 @@ class StepConfig:
     mintime: float = 1.0        # minimum adaptive substep [s] (par_mod)
     nests: tuple = ()
     polar: bool = False
-    tile_mode: bool = False
+    tile_mode: bool = False     # a tile of a tiles run: advance_all's tile
     met_bf16: bool = True
 
     def check(self) -> None:
-        if self.tile_mode:
+        if self.tile_mode and self.nests:
+            raise ValueError("tile_mode with nested met grids is not "
+                             "supported (the reference refuses nests on "
+                             "tiles)")
+        if self.tile_mode and self.cblflag:
             raise NotImplementedError(
-                "not ported yet (outside the port's advance): tile_mode")
+                "not ported yet under tile_mode: cblflag (the skewed CBL "
+                "on tiles)")
         if self.method == 1 and self.nests:
             raise ValueError("adaptive stepping (method=1) with nested met "
                              "grids is not supported; use CTL<0 or the "
@@ -131,6 +147,17 @@ class StepConfig:
 SPECIES_PARAMS = ("sp_density", "sp_dquer", "sp_cunningham", "sp_vsetaver")
 # the nest windows in mother-grid units, one per nest, outermost first
 NEST_PARAMS = ("xln", "yln", "xrn", "yrn", "xresoln", "yresoln")
+
+
+@dataclasses.dataclass(frozen=True)
+class Tile:
+    """A rank's tile of a tiles run as the advance sees it: the global
+    column and row of its tables' first cell, (x0 - halo, y0 - halo), and
+    the tables' dims, (tx + 2 halo, ty + 2 halo)."""
+    ox: int
+    oy: int
+    nx: int
+    ny: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -301,6 +328,11 @@ class AdvanceArgs(ctypes.Structure):
         ("nest_ymax", ctypes.c_float * MAX_NESTS),
         ("nest_rows", ctypes.c_void_p * MAX_NESTS),
         ("nest_rows_e", ctypes.c_void_p * MAX_NESTS),
+        ("tile", ctypes.c_int),
+        ("tile_ox", ctypes.c_int),
+        ("tile_oy", ctypes.c_int),
+        ("tile_nx", ctypes.c_int),
+        ("tile_ny", ctypes.c_int),
     ]
 
     def __copy__(self) -> "AdvanceArgs":
@@ -328,11 +360,20 @@ def _time_weights(itime: int, memtime0: int, memtime1: int,
 
 
 def advance_args(cfg: StepConfig, prm: StepParams, itime: int, memtime0: int,
-                 memtime1: int) -> AdvanceArgs:
+                 memtime1: int, tile: Tile | None = None) -> AdvanceArgs:
     """The run scalars of one advance, each rounded to float32 once, on
     the host, from the double or float32 expression the reference uses;
     both versions of the advance read them from here.  ``n``, ``offset``
-    and ``key`` are left 0 for the launcher to fill."""
+    and ``key`` are left 0 for the launcher to fill.  ``tile``: the tables'
+    origin and dims in tile mode (without it the grid's: origin 0)."""
+    if cfg.tile_mode != (tile is not None):
+        raise ValueError("tile_mode takes a Tile, and a Tile tile_mode")
+    if tile is not None and (tile.nx < 2 or tile.ny < 2):
+        raise ValueError(f"a tile of {tile.ny} x {tile.nx} cells")
+    tdims = dict(tile=0, tile_ox=0, tile_oy=0, tile_nx=cfg.nx,
+                 tile_ny=cfg.ny) if tile is None else dict(
+        tile=1, tile_ox=tile.ox, tile_oy=tile.oy, tile_nx=tile.nx,
+        tile_ny=tile.ny)
     dt = f32(prm.lsynctime)
     endtime = _time_weights(itime, memtime0, memtime1, prm, cfg)[4]
     c_trop = f32(2.0 * D_TROP) / dt
@@ -387,7 +428,8 @@ def advance_args(cfg: StepConfig, prm: StepParams, itime: int, memtime0: int,
         mintime=float(f32(cfg.mintime)),
         two_d_trop=float(f32(2.0 * D_TROP)),
         two_d_strat=float(f32(2.0 * D_STRAT)), **sp,
-        cblflag=int(cfg.cblflag), nnest=nnest, eps_nest=float(eps), **nest)
+        cblflag=int(cfg.cblflag), nnest=nnest, eps_nest=float(eps), **nest,
+        **tdims)
 
 
 def _scalar_div(a: float, b: torch.Tensor) -> torch.Tensor:
@@ -477,10 +519,13 @@ def _settle_fn(cfg: StepConfig, a: "AdvanceArgs", x, y, height, tt, rho,
     the temperature and air density of the interval's first met time,
     unblended (advance.py:966-981 of the JAX package; get_settling is
     called with the un-updated position)."""
-    nix = torch.clamp(torch.round(x).to(torch.int32), 0, cfg.nx - 1).long()
-    njy = torch.clamp(torch.round(y).to(torch.int32), 0, cfg.ny - 1).long()
-    plane = cfg.ny * cfg.nx
-    col = njy * cfg.nx + nix
+    tnx, tny = a.tile_nx, a.tile_ny      # a tile's fields in tile mode
+    nix = torch.clamp(torch.round(x).to(torch.int32) - a.tile_ox, 0,
+                      tnx - 1).long()
+    njy = torch.clamp(torch.round(y).to(torch.int32) - a.tile_oy, 0,
+                      tny - 1).long()
+    plane = tny * tnx
+    col = njy * tnx + nix
     tt_f, rho_f = tt.reshape(-1), rho.reshape(-1)
 
     def fn(zc):
@@ -761,14 +806,15 @@ def _polar_update(a: AdvanceArgs, x, y, dxsave, dysave):
 def _apply_polar(cfg: StepConfig, a: AdvanceArgs, x, y, dxs, dys, x_hi, x_lo,
                  y_hi, y_lo):
     """The position of a particle inside a polar cap from ``_polar_update``
-    (low parts zeroed), every other particle's untouched."""
+    (low parts zeroed), every other particle's untouched; and the mask of
+    the particles the update moved (None without the caps)."""
     if not cfg.polar:
-        return x_hi, x_lo, y_hi, y_lo
+        return x_hi, x_lo, y_hi, y_lo, None
     xg, yg, north, south = _polar_update(a, x, y, dxs, dys)
     pol = north | south
     zero = torch.zeros_like(x_lo)
     return (torch.where(pol, xg, x_hi), torch.where(pol, zero, x_lo),
-            torch.where(pol, yg, y_hi), torch.where(pol, zero, y_lo))
+            torch.where(pol, yg, y_hi), torch.where(pol, zero, y_lo), pol)
 
 
 def _check_draws(draws: dict | None, n: int, device, cfg: StepConfig) -> int:
@@ -817,7 +863,7 @@ def advance_all(p: Particles, z0: ZFields, z1: ZFields, itime: int,
                 tables: StepTablesQuad | None = None,
                 draws: dict | None = None, offset: int = 0,
                 z0n=None, z1n=None, tables_n=None,
-                leg: LegacyRnd | None = None):
+                leg: LegacyRnd | None = None, tile: Tile | None = None):
     """Advance every scheduled particle by one lsynctime interval: K4 (the
     fixed step) or K11 (the adaptive step) for particles on a CUDA device,
     the plain version for particles on the CPU.
@@ -828,8 +874,9 @@ def advance_all(p: Particles, z0: ZFields, z1: ZFields, itime: int,
     ``cfg.nests`` entry, outermost first (``tables_n`` their quad tables,
     built here when absent: K2 once per nest).  ``leg``: the legacy-RNG
     validation draws (``core/legacy.py``), which no kernel takes: CPU
-    tensors only.  Returns (particles, StepDiag); exited particles get
-    active=False."""
+    tensors only.  ``tile``: with ``cfg.tile_mode``, the rank's tile, whose
+    fields ``z0``, ``z1`` are (K4 ``TILE``, K11 ``TILE``).  Returns
+    (particles, StepDiag); exited particles get active=False."""
     cfg.check()
     dev = p.device
     if dev.type not in ("cuda", "cpu"):
@@ -840,14 +887,15 @@ def advance_all(p: Particles, z0: ZFields, z1: ZFields, itime: int,
                          f"{len(zn0)} and {len(zn1)} given")
     tw0, tw1, ew0, ew1, _ = _time_weights(itime, memtime0, memtime1, prm,
                                           cfg)
-    a = advance_args(cfg, prm, itime, memtime0, memtime1)
+    a = advance_args(cfg, prm, itime, memtime0, memtime1, tile)
     if leg is not None:
         if dev.type == "cuda":
             raise NotImplementedError(
                 "the legacy-RNG validation path (leg) has no kernel: run it "
                 "on CPU tensors (Simulation(legacy_rng=True, device='cpu'))")
-        if cfg.nests:
-            raise ValueError("legacy RNG mode does not support nests")
+        if cfg.nests or cfg.tile_mode:
+            raise ValueError("legacy RNG mode does not support nests or "
+                             "tiles")
         if cfg.cblflag and cfg.method == 1:
             raise NotImplementedError(
                 "matched-RNG CBL validation is fixed-step only (the "
@@ -876,7 +924,7 @@ def advance_all(p: Particles, z0: ZFields, z1: ZFields, itime: int,
 
 
 def _check_inputs(p: Particles, height, tables, cfg: StepConfig, settle,
-                  fields, what: str) -> None:
+                  fields, what: str, a: "AdvanceArgs") -> None:
     """The kernels' inputs: contiguous tensors of the right type and shape
     on the particles' device."""
     n = p.capacity
@@ -891,7 +939,8 @@ def _check_inputs(p: Particles, height, tables, cfg: StepConfig, settle,
                 or t.shape != (n,):
             raise ValueError(f"{what}: particle field {name} must be "
                              f"contiguous {dt} ({n},) on {dev}")
-    r = (cfg.nz - 1) * cfg.ny * cfg.nx
+    tny, tnx = a.tile_ny, a.tile_nx       # the grid's, or the tile's
+    r = (cfg.nz - 1) * tny * tnx
     for name, lanes in (("rows", ROWS_LANES), ("rowsE", ROWS_E_LANES)):
         t = getattr(tables, name)
         if t.device != dev or t.dtype != cfg.table_dtype \
@@ -910,11 +959,11 @@ def _check_inputs(p: Particles, height, tables, cfg: StepConfig, settle,
                              "density fields (settle_met)")
         for t in settle:
             if t.device != dev or t.dtype != torch.float32 \
-                    or t.shape != (cfg.nz, cfg.ny, cfg.nx) \
+                    or t.shape != (cfg.nz, tny, tnx) \
                     or not t.is_contiguous():
                 raise ValueError(f"{what}: settling fields must be "
-                                 f"contiguous float32 ({cfg.nz}, {cfg.ny}, "
-                                 f"{cfg.nx}) on {dev}")
+                                 f"contiguous float32 ({cfg.nz}, {tny}, "
+                                 f"{tnx}) on {dev}")
         m0 = p.mass0
         if m0.device != dev or m0.dtype != torch.float32 \
                 or not m0.is_contiguous() or m0.dim() != 2 \
@@ -985,7 +1034,7 @@ def advance_all_cuda(p: Particles, height: torch.Tensor,
     if cfg.settling and cfg.turbswitch:
         raise ValueError("K4 settles with turbswitch off only (a fixed step "
                          "has ctl <= 0, so turbswitch is off in every run)")
-    _check_inputs(p, height, tables, cfg, settle, _IN_FIELDS, "K4")
+    _check_inputs(p, height, tables, cfg, settle, _IN_FIELDS, "K4", a)
     _check_nest_tables(tables_n, cfg, dev, "K4")
     _check_draws(draws, n, dev, cfg)
     zero = torch.zeros((), dtype=i32, device=dev)
@@ -1008,7 +1057,8 @@ def advance_all_cuda(p: Particles, height: torch.Tensor,
     counts = torch.zeros(2, dtype=i32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.ADVANCE(*(getattr(p, f).data_ptr() for f in _IN_FIELDS),
+        kernel = _build.ADVANCE_TILE if cfg.tile_mode else _build.ADVANCE
+        kernel(*(getattr(p, f).data_ptr() for f in _IN_FIELDS),
                        *(out[f].data_ptr() for f in OUT_FIELDS),
                        *injected, tables.rows.data_ptr(),
                        tables.rowsE.data_ptr(), height.data_ptr(),
@@ -1071,7 +1121,8 @@ def advance_adaptive_cuda(p: Particles, height: torch.Tensor,
     i32 = torch.int32
     if n >= 2 ** 31:
         raise ValueError("K11 indexes particles with int32")
-    _check_inputs(p, height, tables, cfg, settle, ADAPTIVE_IN_FIELDS, "K11")
+    _check_inputs(p, height, tables, cfg, settle, ADAPTIVE_IN_FIELDS, "K11",
+                  a)
     zero = torch.zeros((), dtype=i32, device=dev)
     out = {f: torch.empty_like(getattr(p, f)) for f in ADAPTIVE_OUT_FIELDS}
     t_below = torch.empty(n, dtype=torch.float32, device=dev)
@@ -1090,7 +1141,9 @@ def advance_adaptive_cuda(p: Particles, height: torch.Tensor,
     work = torch.zeros(K11_WORK_WORDS, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _build.ADVANCE_ADAPTIVE(
+        kernel = (_build.ADVANCE_ADAPTIVE_TILE if cfg.tile_mode
+                  else _build.ADVANCE_ADAPTIVE)
+        kernel(
             *(getattr(p, f).data_ptr() for f in ADAPTIVE_IN_FIELDS),
             *(out[f].data_ptr() for f in ADAPTIVE_OUT_FIELDS),
             t_below.data_ptr(), passes.data_ptr(),
@@ -1144,7 +1197,8 @@ def _adaptive_interval_plain(cfg: StepConfig, a: AdvanceArgs, tables, hw,
     else:
         def vert_wind(zc):
             indz, dz1 = vert_weights(zc, height)
-            return wind10_quad(tables.rows, hw, indz, dz1, cfg.nx, cfg.ny)
+            return wind10_quad(tables.rows, hw, indz, dz1, a.tile_nx,
+                               a.tile_ny)
     st = dict(remaining=torch.where(pbl0, lsync, zero),
               ldt=torch.clamp(idt.to(f32t), min=a.mintime),
               z=z, up=up, vp=vp, wp=wp, icbt=icbt,
@@ -1263,8 +1317,8 @@ def _adaptive_interval_plain(cfg: StepConfig, a: AdvanceArgs, tables, hw,
         mb = wrap(nrand, 2, rtab)
         rnd_m = torch.stack([tab[mb], tab[mb + 1], tab[mb + 2]], 0)
     else:
-        g = tables.rows[_cell_rowid(hw, indz_f, cfg.nx, cfg.ny)][:, 60:63] \
-            .to(f32t)
+        rowid = _cell_rowid(hw, indz_f, a.tile_nx, a.tile_ny)
+        g = tables.rows[rowid][:, 60:63].to(f32t)
         sig = [g[:, 0], g[:, 1], g[:, 2]]
     return dict(z=zc, up=st["up"], vp=st["vp"],
                 wp=torch.where(ft, wp_ft, st["wp"]), icbt=st["icbt"],
@@ -1330,6 +1384,14 @@ def _sample_nests(cfg: StepConfig, a: AdvanceArgs, tables_n, x, y, indz,
     return h, tropop, ust, wst, ol, wind
 
 
+def _weights(cfg: StepConfig, a: AdvanceArgs, x, y) -> HorizWeights:
+    """The corner and weights of a gather: the grid's, or in tile mode the
+    tile's corner of the global position (``tile_weights``)."""
+    if cfg.tile_mode:
+        return tile_weights(x, y, a.tile_ox, a.tile_oy, a.tile_nx, a.tile_ny)
+    return horiz_weights(x, y, cfg.nx, cfg.ny, cfg.xglobal)
+
+
 def advance_all_plain(p: Particles, height: torch.Tensor,
                       tables: StepTablesQuad, a: AdvanceArgs, key: rng.Key,
                       cfg: StepConfig, draws: dict | None, offset: int,
@@ -1368,7 +1430,7 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
     x = p.x
     y = p.y
     z = p.z
-    hw = horiz_weights(x, y, cfg.nx, cfg.ny, cfg.xglobal)
+    hw = _weights(cfg, a, x, y)
     indz, dz1 = vert_weights(z, height)
     leg = None
     if legacy is not None:
@@ -1377,7 +1439,7 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
             lz0, lz1, tw0, tw1, x, y, hw, indz, dz1)
     else:
         h, tropop, ust, wst, ol, wind = sample_all_quad(
-            tables, hw, indz, dz1, x, y, cfg.nx, cfg.ny)
+            tables, hw, indz, dz1, x, y, a.tile_nx, a.tile_ny)
         if cfg.nests:
             h, tropop, ust, wst, ol, wind = _sample_nests(
                 cfg, a, tables_n, x, y, indz, dz1,
@@ -1586,26 +1648,34 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
     x_hi, x_lo = ds_add(p.x_hi, p.x_lo, dxsave * cosfact * ldirf)
     y_hi, y_lo = ds_add(p.y_hi, p.y_lo, dysave * a.dyconst * ldirf)
     # stereographic update inside the polar caps (advance.f90:754-778)
-    x_hi, x_lo, y_hi, y_lo = _apply_polar(cfg, a, x, y, dxsave, dysave,
-                                          x_hi, x_lo, y_hi, y_lo)
+    x_hi, x_lo, y_hi, y_lo, pol = _apply_polar(cfg, a, x, y, dxsave, dysave,
+                                               x_hi, x_lo, y_hi, y_lo)
 
-    x_hi, x_lo, y_hi, y_lo, exited = _apply_bcs(cfg, a, x_hi, x_lo,
-                                                y_hi, y_lo)
+    if cfg.tile_mode:
+        # the boundary conditions run once, after the corrector
+        exited = torch.zeros_like(scheduled)
+    else:
+        x_hi, x_lo, y_hi, y_lo, exited = _apply_bcs(cfg, a, x_hi, x_lo,
+                                                    y_hi, y_lo)
     z_new = torch.minimum(z_new, htop)
 
     # ---------------- Petterssen corrector (advance.f90:816-986) ------------
     can_pett = (~exited) if a.can_pett else torch.zeros_like(exited)
     if pett_gate is not None:
         can_pett = can_pett & pett_gate
+    if cfg.tile_mode and pol is not None:
+        # a particle the caps' update moved may end outside the tile's
+        # halo: no corrector (flexpart_tpu/core/advance.py:1156-1163)
+        can_pett = can_pett & ~pol
     xn = x_hi + x_lo
     yn = y_hi + y_lo
-    hw2 = horiz_weights(xn, yn, cfg.nx, cfg.ny, cfg.xglobal)
+    hw2 = _weights(cfg, a, xn, yn)
     indz2, dz1_2 = vert_weights(z_new, height)
     if leg is not None:
         u2, v2, w2 = interp_wind_short(lz0, lz1, hw2, indz2, dz1_2, ew0, ew1)
     else:
         u2, v2, w2 = interp_wind_short_quad(tables.rowsE, hw2, indz2, dz1_2,
-                                            cfg.nx, cfg.ny)
+                                            a.tile_nx, a.tile_ny)
     for k, (nnx, nny) in enumerate(cfg.nests):
         inn2 = _in_nest(a, k, xn, yn)
         xt2, yt2 = _nest_coords(a, k, xn, yn)
@@ -1628,18 +1698,25 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
                            torch.cos((yn * a.dy + a.ylat0) * a.pi180))
     xc_hi, xc_lo = ds_add(x_hi, x_lo, du * cosfact2 * dtl * ldirf)
     yc_hi, yc_lo = ds_add(y_hi, y_lo, dv * a.dyconst * dtl * ldirf)
-    xc_hi, xc_lo, yc_hi, yc_lo = _apply_polar(cfg, a, xn, yn, du * dtl,
-                                              dv * dtl, xc_hi, xc_lo, yc_hi,
-                                              yc_lo)
-    xc_hi, xc_lo, yc_hi, yc_lo, exited2 = _apply_bcs(cfg, a, xc_hi, xc_lo,
-                                                     yc_hi, yc_lo)
+    xc_hi, xc_lo, yc_hi, yc_lo, _ = _apply_polar(cfg, a, xn, yn, du * dtl,
+                                                 dv * dtl, xc_hi, xc_lo,
+                                                 yc_hi, yc_lo)
+    if not cfg.tile_mode:
+        xc_hi, xc_lo, yc_hi, yc_lo, exited2 = _apply_bcs(cfg, a, xc_hi,
+                                                         xc_lo, yc_hi, yc_lo)
 
     x_hi = torch.where(can_pett, xc_hi, x_hi)
     x_lo = torch.where(can_pett, xc_lo, x_lo)
     y_hi = torch.where(can_pett, yc_hi, y_hi)
     y_lo = torch.where(can_pett, yc_lo, y_lo)
     z_new = torch.where(can_pett, z_corr, z_new)
-    exited = exited | (can_pett & exited2)
+    if cfg.tile_mode:
+        # wrap, mirror and exit once, on the global grid
+        # (flexpart_tpu/parallel/domain.py:430-437)
+        x_hi, x_lo, y_hi, y_lo, exited = _apply_bcs(cfg, a, x_hi, x_lo,
+                                                    y_hi, y_lo)
+    else:
+        exited = exited | (can_pett & exited2)
     z_new = torch.minimum(z_new, htop)
 
     # ---------------- write back (masked on scheduled) ----------------

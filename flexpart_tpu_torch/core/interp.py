@@ -34,6 +34,8 @@ class HorizWeights:
     jy: torch.Tensor
     idx4: torch.Tensor  # (4, N) i64 flattened corner indices into (ny*nx)
     p4: torch.Tensor    # (4, N) f32 bilinear weights (corner-major)
+    ox: int = 0         # a tile's origin in global cells (tile_weights):
+    oy: int = 0         # the corner (ix, jy) is the tile's, positions global
 
 
 def _floor_index(x: torch.Tensor, hi: int) -> torch.Tensor:
@@ -60,6 +62,34 @@ def horiz_weights(x, y, nx: int, ny: int, xglobal: bool) -> HorizWeights:
     basep = jyp.long() * nx
     idx4 = torch.stack([base + ix, base + ixp, basep + ix, basep + ixp], dim=0)
     return HorizWeights(ix=ix, jy=jy, idx4=idx4, p4=p4)
+
+
+def _tile_floor(x: torch.Tensor, origin: int, hi: int) -> torch.Tensor:
+    """int32 floor(x) - origin clipped to [0, hi], total for any float
+    input (the difference of two integers below 2**24 is exact)."""
+    i = torch.clamp(torch.floor(x) - float(origin), 0.0, float(hi))
+    return torch.clamp(i.to(torch.int32), 0, hi)
+
+
+def tile_weights(x, y, ox: int, oy: int, nx: int, ny: int) -> HorizWeights:
+    """``horiz_weights`` of global positions in a tile's tables of
+    (ny, nx) cells whose first cell is the global cell (ox, oy): the
+    corner moved by the origin and clamped to the tile, as the reference's
+    tile-local stencil (``horiz_weights(..., xglobal=False)`` of the local
+    position), the weights from the global position, so that a particle in
+    reach takes the serial step's weights bit for bit."""
+    ix = _tile_floor(x, ox, nx - 2)
+    jy = _tile_floor(y, oy, ny - 2)
+    ddx = torch.clamp(x - (ix + ox).to(torch.float32), 0.0, 1.0)
+    ddy = torch.clamp(y - (jy + oy).to(torch.float32), 0.0, 1.0)
+    rddx = 1.0 - ddx
+    rddy = 1.0 - ddy
+    p4 = torch.stack([rddx * rddy, ddx * rddy, rddx * ddy, ddx * ddy], dim=0)
+    base = jy.long() * nx
+    basep = torch.clamp(jy + 1, max=ny - 1).long() * nx
+    idx4 = torch.stack([base + ix, base + ix + 1, basep + ix, basep + ix + 1],
+                       dim=0)
+    return HorizWeights(ix=ix, jy=jy, idx4=idx4, p4=p4, ox=ox, oy=oy)
 
 
 def vert_weights(z, height):
@@ -241,8 +271,8 @@ def _reduce_stencil15(g, hw: HorizWeights, dz1, x, y):
                       wsig=g[:, 62])
     hq = g[:, 40:44]
     h = torch.clamp(torch.amax(hq, dim=1), min=1.0)
-    ix_n = (x - hw.ix) >= 0.5
-    iy_n = (y - hw.jy) >= 0.5
+    ix_n = (x - (hw.ix + hw.ox)) >= 0.5
+    iy_n = (y - (hw.jy + hw.oy)) >= 0.5
     tropop = torch.where(iy_n, torch.where(ix_n, g[:, 47], g[:, 46]),
                          torch.where(ix_n, g[:, 45], g[:, 44]))
     ust = _dot4(g, 48, p4)

@@ -110,6 +110,21 @@
 // holds it.  The particles stay in mother-cell order (K5): a warp's
 // particles are close in the mother grid, so they are close in the nest
 // too, and its nest rows are few and neighbouring.
+//
+// A tile of a tiles run (advance_tile_kernel, the TILE instantiations: table
+// type x POLAR x SETTLING, turbswitch off as every fixed step;
+// flexpart_tpu/core/advance.py's tile_mode and parallel/domain.py:377-437):
+// the tables are the tile's, built by K2 from the tile's field stack, and
+// the positions stay global.  Only the corner of each gather moves by the
+// tile's origin (AdvanceArgs.tile_ox, tile_oy), clamped to the tile's
+// tables as the reference's tile-local stencil is; the weights, the
+// latitude, cosfact, the double-single update and the polar update run
+// on the serial step's floats.  The boundary conditions run once, after
+// the corrector, with the global grid's arguments (a particle that exits
+// is killed there), and with POLAR a particle that took the caps' update
+// skips the corrector.  So a tile's particle takes the serial step bit for
+// bit unless the step wraps, mirrors, kills it or moves it by the caps'
+// update.  Bound: the stock one (the same bytes).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -119,14 +134,13 @@
 
 namespace {
 
-template <bool BF16, bool TS, bool POLAR, bool SETTLING, bool NESTS>
-__global__ void __launch_bounds__(256)
-advance_kernel(const PIn in, const POut out, const Draws dr,
-               const void* __restrict__ rows, const void* __restrict__ rowsE,
-               const float* __restrict__ height,
-               const float* __restrict__ mass0, const float* __restrict__ tt3,
-               const float* __restrict__ rho3, int* __restrict__ counts,
-               const AdvanceArgs a) {
+template <bool BF16, bool TS, bool POLAR, bool SETTLING, bool NESTS, bool TILE>
+__device__ __forceinline__ void advance_body(
+    const PIn& in, const POut& out, const Draws& dr,
+    const void* __restrict__ rows, const void* __restrict__ rowsE,
+    const float* __restrict__ height, const float* __restrict__ mass0,
+    const float* __restrict__ tt3, const float* __restrict__ rho3,
+    int* __restrict__ counts, const AdvanceArgs& a) {
   extern __shared__ float sh_height[];
   for (int k = threadIdx.x; k < a.nz; k += blockDim.x) sh_height[k] = height[k];
   __syncthreads();
@@ -150,7 +164,8 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
       const float y = y_hi + y_lo;
       const float z = z_new;
       const Start s = NESTS ? nest_start<BF16>(a, rows, sh_height, x, y, z)
-                            : step_start<BF16>(a, rows, sh_height, x, y, z);
+                            : step_start<BF16, TILE>(a, rows, sh_height, x, y,
+                                                     z);
       const float h = s.h;
 
       const float dt = a.dt;
@@ -161,8 +176,8 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
       // troposphere and at the corrector
       float settl = 0.0f;
       if (SETTLING)
-        settl = settle_at(a, settle_setup(a, mass0, i, x, y), tt3, rho3,
-                          sh_height, z);
+        settl = settle_at<TILE>(a, settle_setup<TILE>(a, mass0, i, x, y), tt3,
+                                rho3, sh_height, z);
       const float w_eff = SETTLING ? s.w + settl : s.w;
 
       Turb t0;
@@ -244,7 +259,7 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
       // mesoscale fluctuations (advance.f90:720-738)
       float m0, m1, m2;
       meso_draws(a, dr, injected, i, m0, m1, m2);
-      exited = finish_step<BF16, POLAR, SETTLING, NESTS>(
+      exited = finish_step<BF16, POLAR, SETTLING, NESTS, TILE>(
           a, rowsE, sh_height, x, y, x_hi, x_lo, y_hi, y_lo, z_new, dxsave,
           dysave, dawsave, dcwsave, s.u, s.v, w_eff, settl, usig, vsig, wsig,
           s.usig_m, s.vsig_m, s.wsig_m, m0, m1, m2, hm, htop, true);
@@ -273,6 +288,33 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
     if (kept) atomicAdd(&counts[0], __popc(kept));
     if (gone) atomicAdd(&counts[1], __popc(gone));
   }
+}
+
+template <bool BF16, bool TS, bool POLAR, bool SETTLING, bool NESTS>
+__global__ void __launch_bounds__(256)
+advance_kernel(const PIn in, const POut out, const Draws dr,
+               const void* __restrict__ rows, const void* __restrict__ rowsE,
+               const float* __restrict__ height,
+               const float* __restrict__ mass0, const float* __restrict__ tt3,
+               const float* __restrict__ rho3, int* __restrict__ counts,
+               const AdvanceArgs a) {
+  advance_body<BF16, TS, POLAR, SETTLING, NESTS, false>(
+      in, out, dr, rows, rowsE, height, mass0, tt3, rho3, counts, a);
+}
+
+// K4 TILE: a tile's step (turbswitch off, no nests)
+template <bool BF16, bool POLAR, bool SETTLING>
+__global__ void __launch_bounds__(256)
+advance_tile_kernel(const PIn in, const POut out, const Draws dr,
+                    const void* __restrict__ rows,
+                    const void* __restrict__ rowsE,
+                    const float* __restrict__ height,
+                    const float* __restrict__ mass0,
+                    const float* __restrict__ tt3,
+                    const float* __restrict__ rho3, int* __restrict__ counts,
+                    const AdvanceArgs a) {
+  advance_body<BF16, false, POLAR, SETTLING, false, true>(
+      in, out, dr, rows, rowsE, height, mass0, tt3, rho3, counts, a);
 }
 
 // the part of the instantiations this library holds: -1 all, else a part
@@ -311,6 +353,11 @@ extern "C" int fp_advance(
   if (a.cblflag || a.nnest < 0 || a.nnest > MAX_NESTS ||
       (a.nnest > 0 && a.turbswitch))
     return static_cast<int>(cudaErrorInvalidValue);
+  // a tile: turbswitch off (every fixed step), no nests, tables of 2 x 2
+  // cells at least
+  if (a.tile && (a.turbswitch || a.nnest > 0 || a.tile_nx < 2 ||
+                 a.tile_ny < 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   for (int k = 0; k < a.nnest; ++k)
     if (a.nest_rows[k] == nullptr || a.nest_rows_e[k] == nullptr ||
         a.nest_nx[k] < 2 || a.nest_ny[k] < 2)
@@ -328,11 +375,30 @@ extern "C" int fp_advance(
     return static_cast<int>(cudaGetLastError());
   };
   // the eight (table type, turbswitch, polar) instantiations of the stock
-  // step, settling's four (table type, polar) with turbswitch off, and the
-  // nests' eight (table type, polar, settling) with turbswitch off; a
+  // step, settling's four (table type, polar) with turbswitch off, the
+  // nests' eight (table type, polar, settling) with turbswitch off and the
+  // tile's eight (table type, polar, settling) with turbswitch off; a
   // library built as one part (FP_PART, _build.Kernel's parts) holds the
-  // first twelve on f32 tables (part 0) or on bf16 tables (part 1), or the
-  // nests' (part 2), and launches nothing for the others' configurations
+  // first twelve on f32 tables (part 0) or on bf16 tables (part 1), the
+  // nests' (part 2) or the tile's (part 3), and launches nothing for the
+  // others' configurations
+  if (a.tile) {
+#if FP_HAS(3)
+    return launch(a.settling
+      ? (a.polar
+             ? (a.table_bf16 ? advance_tile_kernel<true, true, true>
+                             : advance_tile_kernel<false, true, true>)
+             : (a.table_bf16 ? advance_tile_kernel<true, false, true>
+                             : advance_tile_kernel<false, false, true>))
+      : (a.polar
+             ? (a.table_bf16 ? advance_tile_kernel<true, true, false>
+                             : advance_tile_kernel<false, true, false>)
+             : (a.table_bf16 ? advance_tile_kernel<true, false, false>
+                             : advance_tile_kernel<false, false, false>)));
+#else
+    return NOT_IN_PART;
+#endif
+  }
   if (a.nnest > 0) {
 #if FP_HAS(2)
     return launch(a.settling

@@ -73,7 +73,7 @@
 // The turbulence is a template value of three (HANNA1, TS, CBL), so an
 // instantiation holds one form of Hanna and of the substep; turboff is a
 // runtime field (a uniform branch); the instantiations are (table type,
-// turbulence, polar, settling), 24.  The arithmetic is the plain
+// turbulence, polar, settling), 24, and the tile's 16 (no CBL).  The arithmetic is the plain
 // version's, operation for operation, built with -fmad=false.
 //
 // The skewed convective boundary layer (the CBL instantiations; cblflag,
@@ -102,6 +102,14 @@
 // K11's, and charges each skewed substep and fresh draw the cheapest path
 // through cbl_skewed_wp and cbl_fresh_wp, read from the CBL part built
 // with FP_CBL_CALLS=1, where they are calls.
+//
+// A tile of a tiles run (advance_adaptive_tile_kernel, the TILE
+// instantiations: table type x HANNA1 and TS x POLAR x SETTLING; K4
+// TILE's design, advance.cu): positions global, the start's corner, each
+// pass's and the end's rows and the settling column the tile's, no
+// boundary conditions inside the loop of passes and the global ones once
+// at the end, after the corrector.  The CBL on tiles is refused by the
+// wrapper (core/advance.py::StepConfig.check), so it has none.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
@@ -269,7 +277,7 @@ __device__ __forceinline__ void copy_through(const Io& io, int i) {
 // and :155-162,191 for a fresh one).  Returns whether it takes a pass.  A
 // particle outside the boundary layer keeps the whole interval in
 // `remaining`, which its end spends in the free troposphere.
-template <bool BF16, int TURB, bool SETTLING>
+template <bool BF16, int TURB, bool SETTLING, bool TILE = false>
 __device__ __forceinline__ bool lane_start(const AdvanceArgs& a, const Io& io,
                                            const float* sh_height, int i,
                                            Lane& L) {
@@ -290,7 +298,7 @@ __device__ __forceinline__ bool lane_start(const AdvanceArgs& a, const Io& io,
   const float x = L.x_hi + L.x_lo;
   const float y = L.y_hi + L.y_lo;
   const float z = io.in.z[i];
-  const Start s = step_start<BF16>(a, io.rows, sh_height, x, y, z);
+  const Start s = step_start<BF16, TILE>(a, io.rows, sh_height, x, y, z);
   L.hw = s.hw;
   L.h = s.h;
   L.tropop = s.tropop;
@@ -298,7 +306,7 @@ __device__ __forceinline__ bool lane_start(const AdvanceArgs& a, const Io& io,
   L.wst = s.wst;
   L.ol = s.ol;
   const bool pbl = (z / s.h) <= 1.0f;
-  L.st = SETTLING ? settle_setup(a, io.mass0, i, x, y) : Settle{0, 0};
+  L.st = SETTLING ? settle_setup<TILE>(a, io.mass0, i, x, y) : Settle{0, 0};
   const bool fresh = (io.in.itramem[i] == a.itime) || (a.itime == 0);
   if (fresh) {
     constexpr bool TS = TURB != HANNA1;
@@ -325,7 +333,7 @@ __device__ __forceinline__ bool lane_start(const AdvanceArgs& a, const Io& io,
 
 // One pass of the boundary layer (advance.f90:276-620), HANNA1 or TS.
 // Returns whether the particle takes another.
-template <bool BF16, int TURB, bool SETTLING>
+template <bool BF16, int TURB, bool SETTLING, bool TILE = false>
 __device__ __forceinline__ bool lane_pass(const AdvanceArgs& a, const Io& io,
                                           const float* sh_height, Lane& L) {
   constexpr bool TS = TURB != HANNA1;
@@ -335,7 +343,8 @@ __device__ __forceinline__ bool lane_pass(const AdvanceArgs& a, const Io& io,
   int iz;
   float dz;
   vert_weights(sh_height, a.nz, L.zc, iz, dz);
-  const size_t rk = fp::cell_row(iz, L.hw.jy, L.hw.ix, a.ny, a.nx);
+  const size_t rk = fp::cell_row(iz, L.hw.jy, L.hw.ix, table_ny<TILE>(a),
+                                 table_nx<TILE>(a));
   float gk[40];
 #pragma unroll
   for (int q = 0; q < 5; ++q) load8<BF16, 64>(io.rows, rk, q, &gk[8 * q]);
@@ -366,7 +375,8 @@ __device__ __forceinline__ bool lane_pass(const AdvanceArgs& a, const Io& io,
                                     L.cbt);
   const float ldt2 = ldt_formula<TS>(a, t, L.wp, L.h, false);
   const float w_eff =
-      SETTLING ? w + settle_at(a, L.st, io.tt3, io.rho3, sh_height, L.zc) : w;
+      SETTLING ? w + settle_at<TILE>(a, L.st, io.tt3, io.rho3, sh_height, L.zc)
+               : w;
   float z3 = zz + (w_eff * dt_i) * a.ldirf;
   z3 = tmin(z3, htop);
   // the deposition window (advance.f90:582-599): after the vertical
@@ -508,7 +518,7 @@ __device__ __forceinline__ bool lane_pass_cbl(const AdvanceArgs& a,
 // The end of a particle: the free troposphere for the time left
 // (advance.f90:629-708), the mesoscale sigmas of the final cell
 // (:601-605), K4's end of the step, and its outputs.  Returns exited.
-template <bool BF16, bool POLAR, bool SETTLING>
+template <bool BF16, bool POLAR, bool SETTLING, bool TILE = false>
 __device__ __forceinline__ bool lane_end(const AdvanceArgs& a, const Io& io,
                                          const float* sh_height, Lane& L) {
   const Draws in_registers = {{nullptr, nullptr, nullptr, nullptr, nullptr}};
@@ -525,7 +535,8 @@ __device__ __forceinline__ bool lane_end(const AdvanceArgs& a, const Io& io,
     int iz;
     float dz;
     vert_weights(sh_height, a.nz, zc, iz, dz);
-    const size_t rf = fp::cell_row(iz, L.hw.jy, L.hw.ix, a.ny, a.nx);
+    const size_t rf = fp::cell_row(iz, L.hw.jy, L.hw.ix, table_ny<TILE>(a),
+                                   table_nx<TILE>(a));
     float gf[24];
 #pragma unroll
     for (int q = 0; q < 3; ++q) load8<BF16, 64>(io.rows, rf, q, &gf[8 * q]);
@@ -547,7 +558,8 @@ __device__ __forceinline__ bool lane_end(const AdvanceArgs& a, const Io& io,
     free_trop_terms(a, in_trop, in_trans, zc, L.tropop, f0, f1, f2, c_trop,
                     c_strat, sqrtf(c_trop), sqrtf(c_strat), ux, vy, wp_ft);
     const float w_eff_f =
-        SETTLING ? w_f + settle_at(a, L.st, io.tt3, io.rho3, sh_height, zc) : w_f;
+        SETTLING ? w_f + settle_at<TILE>(a, L.st, io.tt3, io.rho3, sh_height, zc)
+                 : w_f;
     dxs = dxs + (u_f + ux) * dt_ft;
     dys = dys + (v_f + vy) * dt_ft;
     zc = reflect_ground(zc + ((w_eff_f + wp_ft) * dt_ft) * a.ldirf, hm);
@@ -563,8 +575,9 @@ __device__ __forceinline__ bool lane_end(const AdvanceArgs& a, const Io& io,
   float dze;
   vert_weights(sh_height, a.nz, zc, ize, dze);
   float ge[8];
-  load8<BF16, 64>(io.rows, fp::cell_row(ize, L.hw.jy, L.hw.ix, a.ny, a.nx), 7,
-                  ge);
+  load8<BF16, 64>(io.rows, fp::cell_row(ize, L.hw.jy, L.hw.ix, table_ny<TILE>(a),
+                                       table_nx<TILE>(a)),
+                  7, ge);
   const int idt = __float2int_rz(ldt);
   float z_new = tmin(zc, htop);
   float up = L.up, vp = L.vp, daw = L.daw, dcw = L.dcw;
@@ -575,7 +588,8 @@ __device__ __forceinline__ bool lane_end(const AdvanceArgs& a, const Io& io,
     dcw = 0.0f;
   }
   const float settl =
-      SETTLING ? settle_at(a, L.st, io.tt3, io.rho3, sh_height, z_new) : 0.0f;
+      SETTLING ? settle_at<TILE>(a, L.st, io.tt3, io.rho3, sh_height, z_new)
+               : 0.0f;
 
   float m0, m1, m2;
   meso_draws(a, in_registers, false, i, m0, m1, m2);
@@ -583,7 +597,7 @@ __device__ __forceinline__ bool lane_end(const AdvanceArgs& a, const Io& io,
   float usig = L.usig, vsig = L.vsig, wsig = L.wsig;
   // only a step of the whole interval takes the corrector
   // (advance.f90:829)
-  const bool exited = finish_step<BF16, POLAR, SETTLING>(
+  const bool exited = finish_step<BF16, POLAR, SETTLING, false, TILE>(
       a, io.rowsE, sh_height, L.x_hi + L.x_lo, L.y_hi + L.y_lo, x_hi, x_lo,
       y_hi, y_lo, z_new, dxs, dys, daw, dcw, u_l, v_l, w_l, settl, usig, vsig,
       wsig, ge[4], ge[5], ge[6], m0, m1, m2, hm, htop,
@@ -611,13 +625,10 @@ __device__ __forceinline__ bool lane_end(const AdvanceArgs& a, const Io& io,
 // counts: [0] += particles still active, [1] += particles that exited.
 // work: [0] += passes executed, [1] += lane iterations issued, [2] +=
 // passes in which the CBL redrew a non-finite velocity.
-template <bool BF16, int TURB, bool POLAR, bool SETTLING>
-__global__ void __launch_bounds__(THREADS,
-                                  TURB == CBL ? MIN_BLOCKS_CBL : MIN_BLOCKS)
-advance_adaptive_kernel(const __grid_constant__ Io io,
-                        int* __restrict__ counts,
-                        unsigned long long* __restrict__ work,
-                        const __grid_constant__ AdvanceArgs a) {
+template <bool BF16, int TURB, bool POLAR, bool SETTLING, bool TILE>
+__device__ __forceinline__ void adaptive_body(
+    const Io& io, int* __restrict__ counts,
+    unsigned long long* __restrict__ work, const AdvanceArgs& a) {
   extern __shared__ float sh_height[];
   __shared__ Pool pool;
   __shared__ unsigned char in_loop[THREADS];
@@ -638,8 +649,8 @@ advance_adaptive_kernel(const __grid_constant__ Io io,
       copy_through(io, static_cast<int>(i));
     } else {
       Lane L;
-      looping = lane_start<BF16, TURB, SETTLING>(a, io, sh_height,
-                                                 static_cast<int>(i), L);
+      looping = lane_start<BF16, TURB, SETTLING, TILE>(a, io, sh_height,
+                                                       static_cast<int>(i), L);
       store_lane(pool, t, L);
       holding = true;
     }
@@ -681,7 +692,7 @@ advance_adaptive_kernel(const __grid_constant__ Io io,
       } else {
         Lane L;
         load_lane(pool, p, static_cast<int>(ip), L);
-        more = lane_pass<BF16, TURB, SETTLING>(a, io, sh_height, L);
+        more = lane_pass<BF16, TURB, SETTLING, TILE>(a, io, sh_height, L);
         store_pass(pool, p, L);
       }
       in_loop[p] = more ? 1 : 0;
@@ -693,7 +704,8 @@ advance_adaptive_kernel(const __grid_constant__ Io io,
   if (holding) {
     Lane L;
     load_lane(pool, t, static_cast<int>(i), L);
-    const bool exited = lane_end<BF16, POLAR, SETTLING>(a, io, sh_height, L);
+    const bool exited = lane_end<BF16, POLAR, SETTLING, TILE>(a, io, sh_height,
+                                                              L);
     kept = exited ? 0 : 1;
     gone = exited ? 1 : 0;
   }
@@ -712,6 +724,27 @@ advance_adaptive_kernel(const __grid_constant__ Io io,
     if (lane == 0 && nans)
       atomicAdd(&work[2], static_cast<unsigned long long>(nans));
   }
+}
+
+template <bool BF16, int TURB, bool POLAR, bool SETTLING>
+__global__ void __launch_bounds__(THREADS,
+                                  TURB == CBL ? MIN_BLOCKS_CBL : MIN_BLOCKS)
+advance_adaptive_kernel(const __grid_constant__ Io io,
+                        int* __restrict__ counts,
+                        unsigned long long* __restrict__ work,
+                        const __grid_constant__ AdvanceArgs a) {
+  adaptive_body<BF16, TURB, POLAR, SETTLING, false>(io, counts, work, a);
+}
+
+// K11 TILE: a tile's adaptive step (HANNA1 or TS)
+template <bool BF16, int TURB, bool POLAR, bool SETTLING>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+advance_adaptive_tile_kernel(const __grid_constant__ Io io,
+                             int* __restrict__ counts,
+                             unsigned long long* __restrict__ work,
+                             const __grid_constant__ AdvanceArgs a) {
+  static_assert(TURB != CBL, "the CBL on tiles is refused");
+  adaptive_body<BF16, TURB, POLAR, SETTLING, true>(io, counts, work, a);
 }
 
 // the part of the instantiations this library holds: -1 all, else a part
@@ -755,6 +788,9 @@ extern "C" int fp_advance_adaptive(
   // the CBL's substeps draw with their own keys; it runs with turbswitch
   if (a.cblflag && (!a.turbswitch || a.ifine > MAX_CBL_SUBSTEPS))
     return static_cast<int>(cudaErrorInvalidValue);
+  // a tile: no CBL, no nests, tables of 2 x 2 cells at least
+  if (a.tile && (a.cblflag || a.nnest > 0 || a.tile_nx < 2 || a.tile_ny < 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   // the (table type, turbulence, polar, settling) instantiations
   auto pick = [&](auto bf16, auto turb) {
     constexpr bool B = decltype(bf16)::value;
@@ -775,9 +811,40 @@ extern "C" int fp_advance_adaptive(
     return a.turbswitch ? pick(bf16, std::integral_constant<int, TS>{})
                         : pick(bf16, std::integral_constant<int, HANNA1>{});
   };
+  // the tile's (table type, turbulence, polar, settling) instantiations
+  auto pick_tile = [&](auto bf16, auto turb) {
+    constexpr bool B = decltype(bf16)::value;
+    constexpr int T = decltype(turb)::value;
+    return a.settling
+        ? (a.polar ? advance_adaptive_tile_kernel<B, T, true, true>
+                   : advance_adaptive_tile_kernel<B, T, false, true>)
+        : (a.polar ? advance_adaptive_tile_kernel<B, T, true, false>
+                   : advance_adaptive_tile_kernel<B, T, false, false>);
+  };
+  auto tile_by_turb = [&](auto bf16) {
+    return a.turbswitch
+        ? pick_tile(bf16, std::integral_constant<int, TS>{})
+        : pick_tile(bf16, std::integral_constant<int, HANNA1>{});
+  };
   // a library built as one part (FP_PART, _build.Kernel's parts) holds
-  // HANNA1 and TS on f32 tables (part 0) or on bf16 tables (part 1), or
-  // the CBL (part 2), and launches nothing for the others' configurations
+  // HANNA1 and TS on f32 tables (part 0) or on bf16 tables (part 1), the
+  // CBL (part 2), or the tile's HANNA1 and TS on f32 tables (part 3) or on
+  // bf16 tables (part 4), and launches nothing for the others'
+  // configurations
+  if (a.tile) {
+    if (a.table_bf16) {
+#if FP_HAS(4)
+      return launch(tile_by_turb(std::true_type{}));
+#else
+      return NOT_IN_PART;
+#endif
+    }
+#if FP_HAS(3)
+    return launch(tile_by_turb(std::false_type{}));
+#else
+    return NOT_IN_PART;
+#endif
+  }
   if (a.cblflag) {
 #if FP_HAS(2)
     using Cbl = std::integral_constant<int, CBL>;

@@ -9,8 +9,11 @@
 // mesoscale draws and the end of the step (mesoscale memory, windalign,
 // the double-single position update, the polar caps, the boundary
 // conditions and the Petterssen corrector), the nests' sampling (K4's
-// NESTS instantiation) and the skewed convective boundary layer (K11's
-// CBL instantiation, core/cbl.py).  Each is the plain version's arithmetic
+// NESTS instantiation), the skewed convective boundary layer (K11's
+// CBL instantiation, core/cbl.py) and a tile's gathers (the TILE
+// instantiations of K4 and K11: positions global, each gather's corner
+// moved by the tile's origin into the tile's tables, the boundary
+// conditions once after the corrector).  Each is the plain version's arithmetic
 // in its order (core/advance.py, core/cbl.py, core/hanna.py,
 // core/interp.py); the kernels build with -fmad=false.
 #pragma once
@@ -92,6 +95,11 @@ struct AdvanceArgs {
   float nest_ymax[4];
   const void* nest_rows[4];     // and its quad tables
   const void* nest_rows_e[4];
+  int tile;                 // a tile of a tiles run (the TILE instantiations):
+  int tile_ox;              // the global column and row of its tables'
+  int tile_oy;              // first cell (x0 - halo, y0 - halo),
+  int tile_nx;              // and the tables' dims (tx + 2 halo, ty + 2
+  int tile_ny;              // halo); without a tile 0, 0, nx, ny
 };
 
 constexpr int MAX_SPECIES = 32;       // the arrays of AdvanceArgs
@@ -166,6 +174,46 @@ __device__ __forceinline__ void ds_add(float& hi, float& lo, float d) {
   const float hi2 = __fadd_rn(s, lo2);
   lo = __fsub_rn(lo2, __fsub_rn(hi2, s));
   hi = hi2;
+}
+
+// The dims of the tables a step gathers from: the tile's in the TILE
+// instantiations, the grid's in the others.
+template <bool TILE>
+__device__ __forceinline__ int table_nx(const AdvanceArgs& a) {
+  return TILE ? a.tile_nx : a.nx;
+}
+template <bool TILE>
+__device__ __forceinline__ int table_ny(const AdvanceArgs& a) {
+  return TILE ? a.tile_ny : a.ny;
+}
+
+// int floor(x) - origin clipped to [0, hi], total for any float input
+// (core/interp.py::_tile_floor; two integers below 2^24 subtract exactly).
+__device__ __forceinline__ int tile_floor(float x, int origin, int hi) {
+  const float f = fminf(fmaxf(floorf(x) - static_cast<float>(origin), 0.0f),
+                        static_cast<float>(hi));
+  return min(max(static_cast<int>(f), 0), hi);
+}
+
+// The corner and bilinear weights of a gather at the global position
+// (x, y): the grid's, or in the TILE instantiations the tile's corner
+// (core/interp.py::tile_weights), with the weights of the global position.
+template <bool TILE>
+__device__ __forceinline__ Horiz cell_weights(const AdvanceArgs& a, float x,
+                                              float y) {
+  if (!TILE) return horiz_weights(x, y, a.nx, a.ny);
+  Horiz hw;
+  hw.ix = tile_floor(x, a.tile_ox, a.tile_nx - 2);
+  hw.jy = tile_floor(y, a.tile_oy, a.tile_ny - 2);
+  const float ddx = clamp(x - static_cast<float>(hw.ix + a.tile_ox), 0.0f, 1.0f);
+  const float ddy = clamp(y - static_cast<float>(hw.jy + a.tile_oy), 0.0f, 1.0f);
+  const float rddx = 1.0f - ddx;
+  const float rddy = 1.0f - ddy;
+  hw.p4[0] = rddx * rddy;
+  hw.p4[1] = ddx * rddy;
+  hw.p4[2] = rddx * ddy;
+  hw.p4[3] = ddx * ddy;
+  return hw;
 }
 
 // Lanes 8*group .. 8*group+7 of one row of a table of LANES lanes, as f32.
@@ -374,6 +422,13 @@ __device__ __forceinline__ bool apply_bcs(const AdvanceArgs& a, float& x_hi,
   return (xw < 0.0f) || (xw >= a.nxm) || (yw < 0.0f) || (yw > a.nym);
 }
 
+// Whether a particle at row y lies poleward of +-75 degrees (where
+// polar_update moves it).
+__device__ __forceinline__ bool in_cap(const AdvanceArgs& a, float y) {
+  const float lat = (a.ylat0 + y * a.dy) * a.pi180;
+  return lat > F(SWITCHNORTH * PI180) || lat < F(SWITCHSOUTH * PI180);
+}
+
 // Polar-stereographic position update inside the caps (advance.f90:754-778;
 // core/advance.py::_polar_update): a particle at (x, y) poleward of +-75
 // degrees that moved (dxs, dys) metres east and north is moved on the
@@ -464,13 +519,21 @@ struct Settle {
   int sp;
 };
 
+template <bool TILE = false>
 __device__ __forceinline__ Settle settle_setup(const AdvanceArgs& a,
                                                const float* mass0, long long i,
                                                float x, float y) {
   Settle s;
-  const int nix = min(max(__float2int_rn(x), 0), a.nx - 1);
-  const int njy = min(max(__float2int_rn(y), 0), a.ny - 1);
-  s.col = njy * a.nx + nix;
+  if (TILE) {
+    // the nearest global column in the tile's fields
+    const int nix = min(max(__float2int_rn(x) - a.tile_ox, 0), a.tile_nx - 1);
+    const int njy = min(max(__float2int_rn(y) - a.tile_oy, 0), a.tile_ny - 1);
+    s.col = njy * a.tile_nx + nix;
+  } else {
+    const int nix = min(max(__float2int_rn(x), 0), a.nx - 1);
+    const int njy = min(max(__float2int_rn(y), 0), a.ny - 1);
+    s.col = njy * a.nx + nix;
+  }
   s.sp = 0;
   for (int k = 0; k < a.nspec; ++k) {
     if (mass0[i * a.nspec + k] > F(1e-30)) { s.sp = k; break; }
@@ -480,6 +543,7 @@ __device__ __forceinline__ Settle settle_setup(const AdvanceArgs& a,
 
 // The settling velocity at height zc in the particle's column: temperature
 // and density of the interval's first met time, linear in z.
+template <bool TILE = false>
 __device__ __forceinline__ float settle_at(const AdvanceArgs& a, const Settle& s,
                                            const float* __restrict__ tt,
                                            const float* __restrict__ rho,
@@ -487,7 +551,7 @@ __device__ __forceinline__ float settle_at(const AdvanceArgs& a, const Settle& s
   int indz;
   float dz1;
   vert_weights(sh_height, a.nz, zc, indz, dz1);
-  const size_t plane = static_cast<size_t>(a.ny) * a.nx;
+  const size_t plane = static_cast<size_t>(table_ny<TILE>(a)) * table_nx<TILE>(a);
   const size_t lin = static_cast<size_t>(indz) * plane + s.col;
   const float temp = __ldg(tt + lin) * (1.0f - dz1) + __ldg(tt + lin + plane) * dz1;
   const float rhoa = __ldg(rho + lin) * (1.0f - dz1) + __ldg(rho + lin + plane) * dz1;
@@ -523,13 +587,16 @@ struct Start {
   float h, tropop, ust, wst, ol;
 };
 
+// The start's gather at the corner hw of (ny, nx) tables whose first cell
+// is the global cell (ox, oy): 0, 0 but for a tile.
 template <bool BF16>
-__device__ __forceinline__ Start sample_start(const void* __restrict__ rows,
-                                              const float* sh_height, int nz,
-                                              int nx, int ny, float x, float y,
-                                              float z) {
+__device__ __forceinline__ Start sample_cell(const void* __restrict__ rows,
+                                             const float* sh_height, int nz,
+                                             int nx, int ny, const Horiz& hw,
+                                             int ox, int oy, float x, float y,
+                                             float z) {
   Start s;
-  s.hw = horiz_weights(x, y, nx, ny);
+  s.hw = hw;
   int indz;
   float dz1;
   vert_weights(sh_height, nz, z, indz, dz1);
@@ -547,8 +614,8 @@ __device__ __forceinline__ Start sample_start(const void* __restrict__ rows,
   s.vsig_m = g[61];
   s.wsig_m = g[62];
   s.h = clamp_min(tmax(tmax(tmax(g[40], g[41]), g[42]), g[43]), 1.0f);
-  const bool ix_n = (x - static_cast<float>(s.hw.ix)) >= 0.5f;
-  const bool iy_n = (y - static_cast<float>(s.hw.jy)) >= 0.5f;
+  const bool ix_n = (x - static_cast<float>(s.hw.ix + ox)) >= 0.5f;
+  const bool iy_n = (y - static_cast<float>(s.hw.jy + oy)) >= 0.5f;
   s.tropop = iy_n ? (ix_n ? g[47] : g[46]) : (ix_n ? g[45] : g[44]);
   s.ust = dot4(g, 48, s.hw.p4);
   s.wst = dot4(g, 52, s.hw.p4);
@@ -558,10 +625,23 @@ __device__ __forceinline__ Start sample_start(const void* __restrict__ rows,
 }
 
 template <bool BF16>
+__device__ __forceinline__ Start sample_start(const void* __restrict__ rows,
+                                              const float* sh_height, int nz,
+                                              int nx, int ny, float x, float y,
+                                              float z) {
+  return sample_cell<BF16>(rows, sh_height, nz, nx, ny,
+                           horiz_weights(x, y, nx, ny), 0, 0, x, y, z);
+}
+
+template <bool BF16, bool TILE = false>
 __device__ __forceinline__ Start step_start(const AdvanceArgs& a,
                                             const void* __restrict__ rows,
                                             const float* sh_height, float x,
                                             float y, float z) {
+  if (TILE)
+    return sample_cell<BF16>(rows, sh_height, a.nz, a.tile_nx, a.tile_ny,
+                             cell_weights<true>(a, x, y), a.tile_ox,
+                             a.tile_oy, x, y, z);
   return sample_start<BF16>(rows, sh_height, a.nz, a.nx, a.ny, x, y, z);
 }
 
@@ -1120,8 +1200,13 @@ __device__ __forceinline__ void meso_draws(const AdvanceArgs& a,
 // boundary conditions and the Petterssen corrector with the end-time
 // table, whose vertical wind takes `settl_pett` in the SETTLING
 // instantiations (the corrector runs where the interval ends in the met
-// window, the particle stayed and `pett_gate`).  Returns exited.
-template <bool BF16, bool POLAR, bool SETTLING, bool NESTS = false>
+// window, the particle stayed and `pett_gate`).  Returns exited.  In the
+// TILE instantiations the gathers are the tile's, the boundary conditions
+// run once after the corrector (flexpart_tpu/parallel/domain.py:430-437),
+// and with POLAR a particle that the caps' update moved at the predictor
+// skips the corrector (flexpart_tpu/core/advance.py:1156-1163).
+template <bool BF16, bool POLAR, bool SETTLING, bool NESTS = false,
+          bool TILE = false>
 __device__ __forceinline__ bool finish_step(
     const AdvanceArgs& a, const void* __restrict__ rowsE, const float* sh_height,
     float x, float y, float& x_hi, float& x_lo, float& y_hi, float& y_lo,
@@ -1154,11 +1239,13 @@ __device__ __forceinline__ bool finish_step(
   ds_add(x_hi, x_lo, (dxsave * cosfact) * a.ldirf);
   ds_add(y_hi, y_lo, (dysave * a.dyconst) * a.ldirf);
   if (POLAR) polar_update(a, x, y, dxsave, dysave, x_hi, x_lo, y_hi, y_lo);
-  bool exited = apply_bcs(a, x_hi, x_lo, y_hi, y_lo);
+  bool exited = false;
+  if (!TILE) exited = apply_bcs(a, x_hi, x_lo, y_hi, y_lo);
   z_new = tmin(z_new, htop);
+  const bool capped = POLAR && TILE && in_cap(a, y);
 
   // Petterssen corrector (advance.f90:816-986)
-  if (a.can_pett && !exited && pett_gate) {
+  if (a.can_pett && !exited && pett_gate && !capped) {
     const float xn = x_hi + x_lo;
     const float yn = y_hi + y_lo;
     float du, dv, w2;
@@ -1181,11 +1268,12 @@ __device__ __forceinline__ bool finish_step(
       dv = (field2(e, 1, hn.p4, dz2) - v) / 2.0f;
       w2 = field2(e, 2, hn.p4, dz2);
     } else {
-      const Horiz hw2 = horiz_weights(xn, yn, a.nx, a.ny);
+      const Horiz hw2 = cell_weights<TILE>(a, xn, yn);
       int indz2;
       float dz2;
       vert_weights(sh_height, a.nz, z_new, indz2, dz2);
-      const size_t row2 = fp::cell_row(indz2, hw2.jy, hw2.ix, a.ny, a.nx);
+      const size_t row2 = fp::cell_row(indz2, hw2.jy, hw2.ix, table_ny<TILE>(a),
+                                       table_nx<TILE>(a));
       float e[24];
 #pragma unroll
       for (int k = 0; k < 3; ++k) load8<BF16, 32>(rowsE, row2, k, &e[8 * k]);
@@ -1200,9 +1288,11 @@ __device__ __forceinline__ bool finish_step(
     ds_add(x_hi, x_lo, ((du * cosfact2) * dt) * a.ldirf);
     ds_add(y_hi, y_lo, ((dv * a.dyconst) * dt) * a.ldirf);
     if (POLAR) polar_update(a, xn, yn, du * dt, dv * dt, x_hi, x_lo, y_hi, y_lo);
-    exited = apply_bcs(a, x_hi, x_lo, y_hi, y_lo);
+    if (!TILE) exited = apply_bcs(a, x_hi, x_lo, y_hi, y_lo);
     z_new = tmin(z_corr, htop);
   }
+  // a tile's wrap, mirror and exit, once, on the global grid
+  if (TILE) exited = apply_bcs(a, x_hi, x_lo, y_hi, y_lo);
   return exited;
 }
 

@@ -251,15 +251,19 @@ def conccalc_cuda(flat: torch.Tensor, p: Particles, itime: int,
 
 def conccalc(acc: Accumulators, p: Particles, zf: ZFields, itime: int,
              lage: torch.Tensor, weight: float, cfg: ConcConfig,
-             outheight: torch.Tensor, nest: bool = False) -> Accumulators:
+             outheight: torch.Tensor, nest: bool = False,
+             rho_at: Particles | None = None) -> Accumulators:
     """One sampling pass: K3 on CUDA (``nest``: the nested output
-    grid's), the plain twin on the CPU."""
+    grid's), the plain twin on the CPU.  ``rho_at``: the particles at the
+    positions in ``zf``'s frame where the ``ind_samp = -1`` density is
+    gathered (a tile's: parallel/tiles.py), ``p`` itself when None."""
     if cfg.ind_samp not in (0, -1):
         raise ValueError(f"ind_samp must be 0 or -1, not {cfg.ind_samp}")
     if lage.shape[0] < cfg.nage:
         raise ValueError("lage has fewer entries than nage")
     weight = float(np.float32(weight))
-    rhoi = _rho_at_particles(p, zf) if cfg.ind_samp == -1 else None
+    rhoi = (_rho_at_particles(p if rho_at is None else rho_at, zf)
+            if cfg.ind_samp == -1 else None)
     flat = acc.gridunc.view(-1, p.nspec)
     dev = flat.device
     if dev.type == "cuda":
@@ -279,9 +283,10 @@ def make_conccalc(outheights, nest: bool = False):
     oh = np.asarray(outheights, np.float32)
 
     def run(acc: Accumulators, p: Particles, zf: ZFields, itime: int,
-            lage: torch.Tensor, weight: float, cfg: ConcConfig) -> Accumulators:
+            lage: torch.Tensor, weight: float, cfg: ConcConfig,
+            rho_at: Particles | None = None) -> Accumulators:
         outheight = torch.as_tensor(oh, device=acc.gridunc.device)
         return conccalc(acc, p, zf, itime, lage, weight, cfg, outheight,
-                        nest)
+                        nest, rho_at)
 
     return run

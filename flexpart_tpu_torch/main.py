@@ -21,8 +21,10 @@ the run there (one file a rank with ``--dp``).  ``--dp`` runs the particles
 data-parallel (parallel/launch.py): ``min(--devices, cards present)``
 ranks, one a card, over NCCL; with ``--device cpu``, ``--devices`` ranks
 over gloo (required there: a CPU has no device count to default to).
-What the port's Simulation does not run yet (``--tiles``) reaches it and
-is refused there by name, before any file is written.  ``--device`` picks
+``--tiles`` decomposes the met fields over such ranks, one tile a rank
+(parallel/tiles.py); at one rank it runs one tile, 1 x 1.  What a tiles
+run does not run yet reaches the ranks' Simulation and is refused there by
+name, before any file is written.  ``--device`` picks
 where the run lives: the card (``cuda``, the default; without one the run
 raises) or the CPU.
 """
@@ -185,12 +187,13 @@ def main(argv=None) -> int:
                          "one process a device (NCCL on the cards, gloo "
                          "with --device cpu)")
     ap.add_argument("--devices", type=int, default=None,
-                    help="ranks of a --dp run: at most this many cards "
-                         "(default: every card present); with --device "
-                         "cpu, required")
+                    help="ranks of a --dp or --tiles run: at most this "
+                         "many cards (default: every card present); with "
+                         "--device cpu, required")
     ap.add_argument("--tiles", action="store_true",
                     help="domain-decompose the met fields over the "
-                         "devices (not ported yet: refused)")
+                         "devices, one process and one tile a device "
+                         "(NCCL on the cards, gloo with --device cpu)")
     ap.add_argument("--profile", action="store_true",
                     help="per-section device timing table at run end "
                          "(the mpif_mtime instrumentation analog); "
@@ -205,9 +208,11 @@ def main(argv=None) -> int:
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
 
     t0 = time.perf_counter()
-    if args.dp and not args.tiles:
-        return _main_dp(args, t0)
-    sim = _build_from_args(args, "tiles" if args.tiles else None)
+    if args.dp and args.tiles:
+        raise ValueError("--dp and --tiles: pick one")
+    if args.dp or args.tiles:
+        return _main_dp(args, t0, "tiles" if args.tiles else "dp")
+    sim = _build_from_args(args, None)
     log.info("simulation configured: %s particles, grid %dx%dx%d",
              "domain-filling" if sim.particles is None
              else sim.particles.capacity, sim.grid.nx, sim.grid.ny,
@@ -240,16 +245,18 @@ def _report(seconds: int, psteps: int, wall: float) -> None:
 
 
 def dp_ranks(device: str, devices: int | None) -> int:
-    """The ranks of a ``--dp`` run: on the cards min(``devices``, cards
-    present), one a card; on the CPU ``devices``, which must be given."""
+    """The ranks of a ``--dp`` or ``--tiles`` run: on the cards
+    min(``devices``, cards present), one a card; on the CPU ``devices``,
+    which must be given."""
     import torch
     kind = torch.device(device).type
     if devices is not None and devices < 1:
         raise ValueError(f"--devices {devices}: at least one")
     if kind == "cpu":
         if devices is None:
-            raise ValueError("--dp with --device cpu needs --devices: a CPU "
-                             "has no device count to default to")
+            raise ValueError("--dp or --tiles with --device cpu needs "
+                             "--devices: a CPU has no device count to "
+                             "default to")
         return devices
     if kind != "cuda":
         raise ValueError(f"--dp runs on cuda or cpu, not {device}")
@@ -260,28 +267,31 @@ def dp_ranks(device: str, devices: int | None) -> int:
     return cards if devices is None else min(devices, cards)
 
 
-def _main_dp(args, t0: float) -> int:
-    """``--dp``: the ranks of parallel/launch.py, each building and running
-    the job's Simulation with distributed='dp'; rank 0's summary printed."""
+def _main_dp(args, t0: float, mode: str = "dp") -> int:
+    """``--dp`` or ``--tiles``: the ranks of parallel/launch.py, each
+    building and running the job's Simulation with distributed=``mode``;
+    rank 0's summary printed (``-v``: as the ``dp:`` or ``tiles:`` line)."""
     from .parallel.launch import launch
     import torch
     n = dp_ranks(args.device, args.devices)
     kind = torch.device(args.device).type
     threads = (max(1, (os.cpu_count() or 1) // n) if kind == "cpu"
                else None)
-    out = launch(_dp_rank, n, kind, args=(vars(args),), threads=threads)[0]
+    out = launch(_dp_rank, n, kind, args=(vars(args), mode),
+                 threads=threads)[0]
     _report(out["seconds"], out["particle_steps"], time.perf_counter() - t0)
     if args.verbose:
-        print("dp: " + json.dumps(out["dp"]))
+        print(f"{mode}: " + json.dumps(out["dp"]))
     return 0
 
 
-def _dp_rank(options: dict) -> dict:
-    """One rank of a ``--dp`` run (inside its process group): build, run,
-    and return what rank 0 reports: the run's seconds and particle steps,
-    the world size, backend, NCCL version, the run's host seconds and
-    sections (``Simulation.timings``), its collectives (calls, bytes,
-    seconds) and this rank's kernel launches."""
+def _dp_rank(options: dict, mode: str = "dp") -> dict:
+    """One rank of a ``--dp`` or ``--tiles`` run (inside its process
+    group): build, run, and return what rank 0 reports: the run's seconds
+    and particle steps, the world size, backend, NCCL version, the run's
+    host seconds and sections (``Simulation.timings``), its collectives
+    (calls, bytes, seconds), this rank's kernel launches and, for tiles,
+    the mesh, halo, tile slots and migrations."""
     import torch
     from . import _build
     logging.basicConfig(
@@ -289,7 +299,7 @@ def _dp_rank(options: dict) -> dict:
         format="%(asctime)s rank %(process)d %(name)s %(levelname)s "
                "%(message)s")
     args = argparse.Namespace(**options)
-    sim = _build_from_args(args, "dp")
+    sim = _build_from_args(args, mode)
     g = sim._group
     cuda = sim.device.type == "cuda"
     if cuda:
@@ -311,7 +321,11 @@ def _dp_rank(options: dict) -> dict:
                 capacity=sim.particles.capacity * g.world,
                 collectives=g.stats,
                 launches={k.name: k.launches for k in
-                          list(_build.KERNELS) + list(_build.ENTRIES)}))
+                          list(_build.KERNELS) + list(_build.ENTRIES)},
+                **({} if sim._tiles is None else {"tiles": dict(
+                    mesh=[sim._tiles.nty, sim._tiles.ntx],
+                    halo=sim._tiles.halo, local_cap=sim._tiles.local_cap,
+                    **sim._tiles.stats)})))
 
 
 if __name__ == "__main__":

@@ -85,10 +85,11 @@ class Group(Layout):
     def __init__(self, device, n_devices: int | None = None):
         if not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError(
-                "distributed='dp' needs an initialised torch.distributed "
-                "process group, one process a device: start the run with "
-                "flexpart_tpu_torch.parallel.launch (python -m "
-                "flexpart_tpu_torch pathnames --dp) or torchrun")
+                "distributed='dp' or 'tiles' needs an initialised "
+                "torch.distributed process group, one process a device: "
+                "start the run with flexpart_tpu_torch.parallel.launch "
+                "(python -m flexpart_tpu_torch pathnames --dp or --tiles) "
+                "or torchrun")
         self.device = torch.device(device)
         self.world = dist.get_world_size()
         self.rank = dist.get_rank()

@@ -41,9 +41,22 @@ met fields itself, draws by the global slot, samples and deposits into
 partial grids that are summed in rank order at output, splits and fills
 the domain's boundary over the group, and rank 0 writes every file (the
 dumps and checkpoints gather the rows to it).  ``_origin`` holds a rank's
-local origins (the global one is ``rank * L`` more).  ``"tiles"`` raises
-``NotImplementedError`` naming it when the ``Simulation`` is built;
-nothing is skipped silently.
+local origins (the global one is ``rank * L`` more).
+``distributed="tiles"`` decomposes the met fields over the ranks of such a
+group, one haloed tile a rank (parallel/domain.py, parallel/tiles.py):
+a rank holds the particles in its tile (``tile_local_cap`` slots, or as
+many as the release schedule's fullest tile needs with head-room), keeps
+their schedule origins in ``_origin``, advances them on its tile (K4
+``TILE``, K11 ``TILE``) and migrates those that left to the owning tiles
+after each step, deposits them with its tile's fields and samples them
+into partial grids summed at output; the halo is sized from the first
+wind field and every field read later is checked against the wind it
+supports.  What tiles do not run yet (splitting, domain filling,
+convection, OH, receptors, fluxes, the initial condition, the skewed CBL,
+warm starts, checkpoints, the rebalance of a hot tile) raises
+``NotImplementedError`` naming it when the ``Simulation`` is built or the
+run meets it; nested met and backward deposition raise ``ValueError``, as
+the reference.  Nothing is skipped silently.
 
 Host-side control loop; all per-particle compute stays on the device.
 Per sync interval (timemanager.f90:152-712):
@@ -117,6 +130,8 @@ import numpy as np
 import torch
 
 from .. import interop, parallel
+from ..parallel import domain as pdomain
+from ..parallel import tiles as ptiles
 from ..config import AgeClasses, Command, OutGrid, Releases
 from ..core import domainfill, reorder, rng
 from ..core.advance import StepConfig, StepParams, advance_all
@@ -200,10 +215,13 @@ class Simulation:
     outgrid_nest: Any = None
     met_nests: tuple = ()
     write_fortran: bool = False
-    distributed: str | None = None   # None or "dp" (particle
+    distributed: str | None = None   # None, "dp" (particle
     #                                  data-parallelism over the process
-    #                                  group; "tiles" is not ported)
-    n_devices: int | None = None     # dp: the group's size, checked
+    #                                  group) or "tiles" (the met fields
+    #                                  decomposed over it)
+    n_devices: int | None = None     # dp, tiles: the group's size, checked
+    tile_local_cap: int | None = None  # tiles: the slots of a tile (None:
+    #                                    planned from the release schedule)
     turboff: bool = False
     met_bf16: bool = True            # bfloat16 per-step interpolation
     #                                  tables (StepConfig.met_bf16)
@@ -228,13 +246,39 @@ class Simulation:
     #                                  and the accumulators live
 
     def _refuse_unported(self):
-        """Raise for every option whose code is not ported yet."""
+        """Raise for every option whose code is not ported yet: under
+        ``distributed="tiles"``, what tiles do not run yet, each by name;
+        nested met and backward deposition as the reference refuses them."""
+        if self.distributed != "tiles":
+            return
+        cmd = self.cmd
+        refused = [n for n, on in (
+            ("nested met grids", bool(self.met_nests)),
+            ("backward deposition modes",
+             cmd.ldirect < 0 and cmd.ind_receptor in (3, 4))) if on]
+        if refused:
+            raise ValueError("distributed='tiles' does not support: "
+                             + ", ".join(refused)
+                             + " (use distributed='dp' for these)")
+        if self.legacy_rng:
+            raise ValueError("legacy_rng is single-device only")
         unported = {
-            "distributed='tiles'": self.distributed == "tiles",
+            "splitting (itsplit)": cmd.itsplit < abs(cmd.ideltas),
+            "domain filling (mdomainfill)": cmd.mdomainfill >= 1,
+            "convection (lconvection=1)": cmd.lconvection == 1,
+            "OH species": any(s.ohreact for s in self.releases.species),
+            "receptors": bool(self.receptors),
+            "gross fluxes (iflux)": cmd.iflux == 1,
+            "the initial condition (linit_cond)": cmd.linit_cond >= 1,
+            "the skewed CBL (cblflag)": cmd.cblflag == 1,
+            "a warm start (ipin=1)": cmd.ipin == 1,
+            "checkpoints (checkpoint_at)": self.checkpoint_at is not None,
         }
         bad = [name for name, on in unported.items() if on]
         if bad:
-            raise NotImplementedError("not ported yet: " + "; ".join(bad))
+            raise NotImplementedError(
+                "not ported yet under distributed='tiles': "
+                + "; ".join(bad))
 
     def __post_init__(self):
         cmd = self.cmd
@@ -246,10 +290,14 @@ class Simulation:
         if self.device.type == "cuda" and self.device.index is None \
                 and torch.cuda.is_available():
             self.device = torch.device("cuda", torch.cuda.current_device())
-        # particle data-parallelism: this rank's place in the group
+        # particle data-parallelism and tiles: this rank's place in the
+        # group
         self._group = None
         self._first = 0                  # the rank's first global slot
-        if self.distributed == "dp":
+        self._tiles = None               # tiles: the rank's TiledEngine
+        self._tile_defer_streak = 0
+        self._placed_origin = None       # tiles: the placed slots' origins
+        if self.distributed in ("dp", "tiles"):
             if self.legacy_rng:
                 raise ValueError("legacy_rng is single-device only")
             if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -259,7 +307,7 @@ class Simulation:
             self._group = parallel.particle_mesh(self.n_devices, self.device)
         elif self.n_devices is not None:
             raise ValueError("n_devices is the size of a distributed='dp' "
-                             "group")
+                             "or 'tiles' group")
         self._writes = self._group is None or self._group.rank == 0
         if self.legacy_rng and self.device.type == "cuda":
             raise NotImplementedError(
@@ -312,6 +360,8 @@ class Simulation:
             polar=bool(self.grid.xglobal
                        and (top_lat > 75.0 or self.grid.ylat0 < -75.0)))
         self.step_cfg.check()
+        if self.distributed == "tiles":
+            self._setup_tiles()
         self.step_prm = StepParams.make(
             dx=self.grid.dx, dy=self.grid.dy, ylat0=self.grid.ylat0,
             dxconst=self.grid.dxconst, dyconst=self.grid.dyconst,
@@ -346,7 +396,10 @@ class Simulation:
             ind_samp=cmd.ind_samp,
             ioutputforeachrelease=bool(cmd.ioutputforeachrelease),
             bkdep=self.bkdep != 0)
-        self.conccalc = make_conccalc(self.outgrid.outheights)
+        self.conccalc = (
+            make_conccalc(self.outgrid.outheights) if self._tiles is None
+            else ptiles.make_tiled_conccalc(self.outgrid.outheights,
+                                            self._tiles.tile))
         self.lage = torch.as_tensor(
             np.asarray(self.ageclasses.lage or (999999999,), np.int32),
             device=dev)
@@ -368,7 +421,11 @@ class Simulation:
                 dx_met=self.grid.dx, dy_met=self.grid.dy,
                 ind_samp=cmd.ind_samp,
                 ioutputforeachrelease=bool(cmd.ioutputforeachrelease))
-            self.conccalc_n = make_conccalc(ogn.outheights, nest=True)
+            self.conccalc_n = (
+                make_conccalc(ogn.outheights, nest=True)
+                if self._tiles is None
+                else ptiles.make_tiled_conccalc(
+                    ogn.outheights, self._tiles.tile, nest=True))
             self.acc_n = zero_accumulators(
                 self.geo_n, self.nspec, self.conc_cfg.npointspec,
                 self.nclassunc, nage, device=dev)
@@ -415,6 +472,14 @@ class Simulation:
         self._height = None
         self._buf: dict[int, Any] = {}   # met_time -> (ZFields, EtaFields)
         self._prefetch: dict[int, Any] = {}  # met_time -> Future
+        if self._tiles is not None:
+            # the met read that sized the halo, kept as a completed
+            # prefetch so that the first _get_field reuses it
+            t_probe, raw = self._halo_probe
+            fut = concurrent.futures.Future()
+            fut.set_result(("raw", raw))
+            self._prefetch[t_probe] = fut
+            self._halo_probe = None
         self._reader = None              # lazy background reader thread
         self._met_stream = None          # the reader's CUDA stream
         self._prefetch_failures = 0      # dead-reader visibility counter
@@ -515,17 +580,46 @@ class Simulation:
         # splits, a regional boundary emits or plume trajectories are
         # clustered; None is the identity)
         self._sharded_advance = (
-            None if self._group is None
+            None if self._group is None or self._tiles is not None
             else parallel.make_sharded_advance(self._group, self.step_cfg))
         self._draws_hook: Callable | None = None
         self._redist_hook: Callable | None = None
         self._boundary_hook: Callable | None = None
-        self._origin: torch.Tensor | None = None
+        # tiles: the schedule origins of the rank's placed slots (global;
+        # -1 for an empty slot), kept through every sort and migration
+        self._origin: torch.Tensor | None = self._placed_origin
         # measurements only: called with (istep, itime) at the top of each
         # step, after the release and before the sort, to look at the
         # ensemble and the fields the step meets.  A probe may wait for the
         # card; a run that is timed as one that never does sets none.
         self._step_probe: Callable | None = None
+
+    def _setup_tiles(self) -> None:
+        """The tiles of a tiles run: the mesh over the group's ranks, the
+        halo from the first wind field's largest wind (with a quarter's
+        margin; its read is kept for the run), the rank's TiledEngine."""
+        cmd, grid = self.cmd, self.grid
+        nty, ntx = ptiles.choose_tile_mesh(self._group.world, grid.ny,
+                                           grid.nxfield)
+        t0 = 0 if cmd.ldirect > 0 else -self.wind_interval
+        raw = self._fetch_raw(t0)
+        eta = raw[0]
+        umax = 1.25 * float(torch.maximum(eta.uuh.abs().max(),
+                                          eta.vvh.abs().max()))
+        tx = -(-grid.nxfield // ntx)
+        ty = -(-grid.ny // nty)
+        halo = max(2, min(pdomain.halo_for(umax, cmd.lsynctime, grid.dx),
+                          tx - 1, ty - 1))
+        self._halo_probe = (t0, raw)
+        self._tiles = ptiles.TiledEngine(self._group, self.step_cfg, grid,
+                                         nty, ntx, halo)
+        log.info("distributed tiles: %dx%d mesh, %dx%d-cell tiles, halo %d",
+                 nty, ntx, self._tiles.ty, self._tiles.tx, halo)
+
+    def _get_tiles(self, tsec: int):
+        """This rank's tile of the processed fields at a met time."""
+        self._get_field(tsec)
+        return self._buf[tsec][3]
 
     def _nc_meta(self) -> dict:
         """Reference-layout netCDF-4 metadata (netcdf_output_mod.f90:
@@ -697,6 +791,8 @@ class Simulation:
         here = torch.cuda.current_stream(self.device)
 
         def adopt(obj):
+            if obj is None:
+                return
             if isinstance(obj, (tuple, list)):
                 for o in obj:
                     adopt(o)
@@ -766,12 +862,18 @@ class Simulation:
     def _process_field(self, tsec: int, eta, etan=()):
         """Device-side processing of one fetched met time: calcpv +
         verttransform + calcpar, of the mother and of each nest (onto the
-        mother's height grid, the verttransform_nests.f90 contract).
-        Returns the (z, eta, nests' z) buffer entry (the convection reads
-        the raw eta-level profiles, convmix.f90:168-189).  Safe to call
-        from the prefetch worker thread once the height grid and the vdep
-        kernel exist."""
+        mother's height grid, the verttransform_nests.f90 contract), and in
+        a tiles run the rank's tile of it (its wind checked against the
+        halo).  Returns the (z, eta, nests' z, tile or None) buffer entry
+        (the convection reads the raw eta-level profiles,
+        convmix.f90:168-189).  Safe to call from the prefetch worker thread
+        once the height grid and the vdep kernel exist."""
         self._ensure_vdep_kernel(eta)
+        if self._tiles is not None:
+            pdomain.check_halo(float(torch.maximum(eta.uuh.abs().max(),
+                                                   eta.vvh.abs().max())),
+                               self._tiles.halo, self.cmd.lsynctime,
+                               self.grid.dx)
         z = process_eta(self.grid, eta, self._height,
                         pvh=calcpv(self.grid, eta), use_clwc=self.use_clwc)
         z = calcpar(self.grid, eta, z, lsubgrid=bool(self.cmd.lsubgrid),
@@ -781,7 +883,8 @@ class Simulation:
                                       use_clwc=self.use_clwc),
                     lsubgrid=bool(self.cmd.lsubgrid))
             for g, e in zip(self.nest_grids, etan))
-        return (z, eta, zn)
+        zt = None if self._tiles is None else self._tiles.decompose(z)
+        return (z, eta, zn, zt)
 
     def _ensure_vdep_kernel(self, eta):
         """The dry-deposition velocity function of the run, built at the
@@ -895,9 +998,18 @@ class Simulation:
     def _rank_rows(self, arrays: dict) -> dict:
         """The rows of a global particle array (numpy, by field) that this
         process holds: all of them alone; in a data-parallel run the
-        rank's rows of the array padded to a multiple of the world size."""
+        rank's rows of the array padded to a multiple of the world size; in
+        a tiles run the slots of the rank's tile (``_placed_origin``: their
+        schedule origins)."""
         if self._group is None:
             return arrays
+        if self._tiles is not None:
+            rows, origin = self._tiles.shard_initial(arrays,
+                                                     self.tile_local_cap)
+            self._first = self._tiles.index * self._tiles.local_cap
+            self._placed_origin = torch.as_tensor(origin,
+                                                  device=self.device)
+            return rows
         arrays = parallel.pad_particles(arrays, self._group.world)
         self._first = self._group.rows(len(arrays["z"]))[0]
         return parallel.shard_particles(arrays, self._group)
@@ -971,6 +1083,10 @@ class Simulation:
     def load_checkpoint(self, path) -> int:
         """Restore a checkpoint of a run with this configuration; returns
         the itime to pass to ``run(start_itime=...)``."""
+        if self._tiles is not None:
+            raise NotImplementedError("not ported yet under "
+                                      "distributed='tiles': checkpoint "
+                                      "resume")
         return partdump.load_checkpoint(path, self)
 
     def _sort(self, height):
@@ -991,7 +1107,7 @@ class Simulation:
             self._avg_counts = self._avg_counts[idx]
         if self._splits or self._boundary is not None \
                 or self.use_plumetraj or self._draws_hook is not None \
-                or self._redist_hook is not None:
+                or self._redist_hook is not None or self._tiles is not None:
             idx = perm.long()
             self._origin = idx if self._origin is None else self._origin[idx]
 
@@ -1001,7 +1117,7 @@ class Simulation:
         if self._origin is None:
             self._origin = torch.arange(self.particles.capacity,
                                         device=self.device)
-        return self._origin if self._first == 0 \
+        return self._origin if self._first == 0 or self._tiles is not None \
             else self._origin + self._first
 
     def _convect(self, istep: int, itime: int, mt0: int, mt1: int):
@@ -1097,11 +1213,18 @@ class Simulation:
             if self.any_wetdep and istep > 0:
                 with self.timers.section("wetdepo"):
                     interp_t = itime - lsync // 2
-                    zw = z0 if abs(mt0 - interp_t) < abs(mt1 - interp_t) \
-                        else z1
-                    self.particles, wdep = wet_deposition(
-                        self.particles, zw, cmd.lsynctime, ldeltat,
-                        self.wet_species, self.mass_species, self.use_clwc)
+                    near0 = abs(mt0 - interp_t) < abs(mt1 - interp_t)
+                    zw = z0 if near0 else z1
+                    wet_args = (cmd.lsynctime, ldeltat, self.wet_species,
+                                self.mass_species, self.use_clwc)
+                    if self._tiles is None:
+                        self.particles, wdep = wet_deposition(
+                            self.particles, zw, *wet_args)
+                    else:
+                        self.particles, wdep = ptiles.tiled_wet_deposition(
+                            self.particles,
+                            self._get_tiles(mt0 if near0 else mt1),
+                            self._tiles.tile, *wet_args)
                     if ld == 1:
                         self._scatter_depo(self.acc.wetgridunc, wdep, itime)
 
@@ -1172,13 +1295,15 @@ class Simulation:
             if (ld * loutstart <= ld * itime <= ld * loutend
                     and (itime - loutstart) % loutsample == 0):
                 weight = 0.5 if itime in (loutstart, loutend) else 1.0
+                # a tiles run's density of ind_samp=-1: the rank's tile
+                z1s = z1 if self._tiles is None else self._get_tiles(mt1)
                 with self.timers.section("conccalc"):
                     self.acc = self.conccalc(
-                        self.acc, self.particles, z1, itime, self.lage,
+                        self.acc, self.particles, z1s, itime, self.lage,
                         weight, self._ccfg_at(itime, self.conc_cfg))
                     if self.use_nested_output:
                         self.acc_n = self.conccalc_n(
-                            self.acc_n, self.particles, z1, itime,
+                            self.acc_n, self.particles, z1s, itime,
                             self.lage, weight,
                             self._ccfg_at(itime, self.conc_cfg_n))
                     if self.receptor_set is not None:
@@ -1223,8 +1348,10 @@ class Simulation:
                 loutend = loutnext + loutaver // 2
                 if itime == loutstart:
                     self.acc = self.conccalc(
-                        self.acc, self.particles, z1, itime, self.lage,
-                        0.5, self._ccfg_at(itime, self.conc_cfg))
+                        self.acc, self.particles,
+                        z1 if self._tiles is None else self._get_tiles(mt1),
+                        itime, self.lage, 0.5,
+                        self._ccfg_at(itime, self.conc_cfg))
 
             if itime == ideltas:
                 break
@@ -1246,7 +1373,10 @@ class Simulation:
                 z0n, z1n = self._get_nest(mt0), self._get_nest(mt1)
             leg = self._legacy_bases(itime) if self.legacy_rng else None
             with self.timers.section("advance"):
-                if self._group is None:
+                if self._tiles is not None:
+                    self.particles, diag = self._tile_step(
+                        istep, itime, mt0, mt1, draws)
+                elif self._group is None:
                     self.particles, diag = advance_all(
                         self.particles, z0, z1, itime, mt0, mt1,
                         rng.Key(self.seed, istep), self.step_cfg,
@@ -1288,11 +1418,18 @@ class Simulation:
             # decay + dry deposition + minmass (timemanager.f90:643-686)
             if self.any_drydep or self.any_decay:
                 with self.timers.section("drydepo"):
-                    vdep = z1.vdep if self.any_drydep else None
-                    self.particles, ddep = apply_decay_drydep(
-                        self.particles, vdep, cmd.lsynctime, ldeltat,
-                        self.mass_species, has_vdep=self.any_drydep,
-                        t_below=t_below)
+                    dry_args = (cmd.lsynctime, ldeltat, self.mass_species)
+                    dry_kw = dict(has_vdep=self.any_drydep, t_below=t_below)
+                    if self._tiles is None:
+                        vdep = z1.vdep if self.any_drydep else None
+                        self.particles, ddep = apply_decay_drydep(
+                            self.particles, vdep, *dry_args, **dry_kw)
+                    else:
+                        vdep = (self._get_tiles(mt1).vdep
+                                if self.any_drydep else None)
+                        self.particles, ddep = ptiles.tiled_decay_drydep(
+                            self.particles, vdep, self._tiles.tile,
+                            *dry_args, **dry_kw)
                     if self.any_drydep and ld == 1:
                         self._scatter_depo(self.acc.drygridunc, ddep,
                                            itime + lsync)
@@ -1354,6 +1491,32 @@ class Simulation:
             if self._writes:
                 (Path(self.outdir) / "profile.txt").write_text(report + "\n")
         return self.particles
+
+    def _tile_step(self, istep: int, itime: int, mt0: int, mt1: int,
+                   draws):
+        """A tiles run's advance: the rank's tile step and the migration
+        (parallel/tiles.py), the group's deferrals counted.  A particle
+        that its full target tile denies stays in the halo and retries
+        next step; a second step in a row that defers any is the hot tile
+        the reference regroups (simulation.py:1286-1294 there), which is
+        not ported."""
+        eng = self._tiles
+        p, diag, deferred = eng.advance(
+            self.particles, self._get_tiles(mt0), self._get_tiles(mt1),
+            itime, mt0, mt1, rng.Key(self.seed, istep), self.step_prm,
+            self._origin, draws=draws)
+        if deferred:
+            self._tile_defer_streak += 1
+            log.warning("tile migration deferred %d particles (a tile near "
+                        "its capacity %d)", deferred, eng.local_cap)
+            if self._tile_defer_streak >= 2:
+                raise NotImplementedError(
+                    "tile rebalance (regroup): not ported yet; a tile "
+                    f"deferred particles two steps in a row at its capacity "
+                    f"{eng.local_cap} (raise tile_local_cap)")
+        else:
+            self._tile_defer_streak = 0
+        return p, diag
 
     def _fill_domain(self) -> None:
         """Fill the domain (or the release box's window) with particles of
@@ -1436,9 +1599,22 @@ class Simulation:
             return self.particles, tuple(rows)
         dims = dims or (0,) * len(rows)
         g = self._group
-        return (parallel.gather_particles(g, self.particles),
-                tuple(g.cat_rows(r, "gather", dim=d)
-                      for r, d in zip(rows, dims)))
+        p = parallel.gather_particles(g, self.particles)
+        rows = tuple(g.cat_rows(r, "gather", dim=d)
+                     for r, d in zip(rows, dims))
+        if self._tiles is None:
+            return p, rows
+        # a tiles run's placed particles, in schedule-origin order
+        at = self._origin_order()
+        return (Particles(**{f: getattr(p, f)[at] for f in FIELDS}),
+                tuple(r.index_select(d, at) for r, d in zip(rows, dims)))
+
+    def _origin_order(self) -> torch.Tensor:
+        """Tiles: the gathered slots that hold a placed particle, in
+        schedule-origin order."""
+        origin = self._group.cat_rows(self._origin, "gather")
+        keep = torch.nonzero(origin >= 0).flatten()
+        return keep[torch.argsort(origin[keep])]
 
     def global_origin(self) -> torch.Tensor | None:
         """The schedule slot of the particle in each slot of the whole run
@@ -1448,6 +1624,9 @@ class Simulation:
             return None
         if self._group is None:
             return self._origin
+        if self._tiles is not None:
+            origin = self._group.cat_rows(self._origin, "gather")
+            return origin[self._origin_order()]
         return self._group.cat_rows(self._origin + self._first, "gather")
 
     def _average_sample(self, itime: int, z0, z1, mt0: int, mt1: int) -> None:

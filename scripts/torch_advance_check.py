@@ -23,7 +23,10 @@ phases (``domainfill``: the boundary, the receptors, the fluxes and the
 initial-condition scatter, on a fill of ``n_particles`` in 1.1 times as
 many slots), or K17 alone (``initcond``); the sim_dp phase's shards
 (``dp_shards``: a step of ``n_particles`` split into 2 and 4 shards, K13
-and K14 with a rank's offsets).  A failed check raises.  This is the quick call to make
+and K14 with a rank's offsets); K4 TILE and K11 TILE against their plain
+versions (``tile``), the sim_tiles phase's step split into 2 x 2 tiles
+(``tile_shards``) and its adaptive tiles run at world size 1
+(``sim_tiles_adaptive``, 10 x 2**20 particles whatever ``n_particles``).  A failed check raises.  This is the quick call to make
 after changing a kernel, before a whole chip_smoke.py run.
 """
 import json
@@ -33,6 +36,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+
+def tiles_adaptive(cs, device) -> dict:
+    """chip_smoke.sim_tiles_adaptive in this process's group of one."""
+    from flexpart_tpu_torch import _build
+    with cs.group_of_one(cs.SIM_TILES_DIR / "group"):
+        return cs.sim_tiles_adaptive(
+            device, list(_build.KERNELS) + list(_build.ENTRIES))
 
 
 def main() -> int:
@@ -71,6 +82,9 @@ def main() -> int:
                   "fluxes": cs.kernel_fluxes(d, g),
                   "initcond": cs.kernel_initcond(d, g)},
               "dp_shards": cs.dp_shards,
+              "tile": cs.kernel_advance_tile,
+              "tile_shards": cs.tile_shards,
+              "sim_tiles_adaptive": lambda d, g: tiles_adaptive(cs, d),
               "convection": lambda d, g: dict(zip(
                   ("convection", "redist", "redist.backward"),
                   cs.kernel_convection(d, g)))}

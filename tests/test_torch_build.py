@@ -117,7 +117,11 @@ def test_entries_launch_their_instantiations(entry):
             "wetdepo.clwc": ": (clwc ? wetdepo_kernel<false, true>",
             "wetdepo.bkdep_clwc": "bkdep ? (clwc ? wetdepo_kernel<true, "
                                   "true>",
-            "conccalc.nest": ": conccalc_kernel<false>;"}[entry]
+            "conccalc.nest": ": conccalc_kernel<false>;",
+            "advance.tile": "if (a.tile) {\n#if FP_HAS(3)\n    return "
+                            "launch(a.settling",
+            "advance_adaptive.tile": "if (a.tile) {\n    if (a.table_bf16) "
+                                     "{\n#if FP_HAS(4)"}[entry]
     assert pick in text
     if entry.endswith("bkdep") and entry != "conccalc.bkdep":
         assert "const bool bkdep = xscav != nullptr;" in text
@@ -201,7 +205,7 @@ def test_table_strides_match_the_sources():
     # five fields), lanes 0-23 for the free troposphere, group 7 (lanes
     # 56-63, the sigmas 60-62) at the end, and K4's corrector
     k11 = _all_sources(_build.ADVANCE_ADAPTIVE)
-    assert "step_start<BF16>(a, io.rows, sh_height, x, y, z)" in k11
+    assert "step_start<BF16, TILE>(a, io.rows, sh_height, x, y, z)" in k11
     assert re.search(r"for \(int k = 0; k < 8; \+\+k\) load8<BF16, 64>"
                      r"\(rows, row, k,", k11)
     assert re.search(r"for \(int q = 0; q < 5; \+\+q\) load8<BF16, 64>"
@@ -209,10 +213,10 @@ def test_table_strides_match_the_sources():
     assert re.search(r"for \(int q = 0; q < 3; \+\+q\) load8<BF16, 64>"
                      r"\(io\.rows, rf, q,", k11)
     assert re.search(r"load8<BF16, 64>\(io\.rows, fp::cell_row\(ize, "
-                     r"L\.hw\.jy, L\.hw\.ix, a\.ny, a\.nx\), 7,\s+ge\);",
-                     k11)
+                     r"L\.hw\.jy, L\.hw\.ix, table_ny<TILE>\(a\),\s+"
+                     r"table_nx<TILE>\(a\)\),\s+7, ge\);", k11)
     assert re.search(r"ge\[4\], ge\[5\],\s+ge\[6\],", k11)
-    assert "finish_step<BF16, POLAR, SETTLING>(" in k11
+    assert "finish_step<BF16, POLAR, SETTLING, false, TILE>(" in k11
 
 
 def test_reorder_fields_struct_matches_the_source():
@@ -1027,19 +1031,22 @@ def test_k11_entry_names_the_turbulence_by_int():
 
 @pytest.mark.parametrize("name", ["advance", "advance_adaptive"])
 def test_parted_kernels_build_each_part_apart(name, tmp_path, monkeypatch):
-    """K4 and K11 are built as three libraries, one nvcc each with
+    """K4 and K11 are built as libraries of parts, one nvcc each with
     -DFP_PART=<k>: the stock instantiations on f32 tables (0), on bf16
-    tables (1), and the nests' (K4) or the CBL's (K11) (2), named apart;
-    the source's launcher returns the wrapper's NOT_IN_PART for the other
+    tables (1), the nests' (K4) or the CBL's (K11) (2), and the tile's
+    (K4: 3; K11: 3 on f32 tables, 4 on bf16 tables), named apart; the
+    source's launcher returns the wrapper's NOT_IN_PART for the other
     parts' configurations, each part's instantiations inside its own
     preprocessor guard."""
     monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")    # none on the CPU
     k = _kernel(name)
-    assert k.parts == 3
-    cmds = [k._compile_cmd(tmp_path / "x.so", part) for part in range(3)]
-    assert [c.count(f"-DFP_PART={p}") for p, c in enumerate(cmds)] == [1] * 3
-    names = {k._lib_path(part).name for part in range(3)}
-    assert len(names) == 3 and all(f"lib{name}-p" in n for n in names)
+    assert k.parts == (4 if name == "advance" else 5)
+    cmds = [k._compile_cmd(tmp_path / "x.so", part)
+            for part in range(k.parts)]
+    assert [c.count(f"-DFP_PART={p}") for p, c in enumerate(cmds)] == \
+        [1] * k.parts
+    names = {k._lib_path(part).name for part in range(k.parts)}
+    assert len(names) == k.parts and all(f"lib{name}-p" in n for n in names)
     text = _strip_comments(k.source.read_text())
     m = re.search(r"constexpr int NOT_IN_PART = (-?\d+);", text)
     assert int(m.group(1)) == _build.NOT_IN_PART
@@ -1047,17 +1054,21 @@ def test_parted_kernels_build_each_part_apart(name, tmp_path, monkeypatch):
     assert "#define FP_HAS(part) (FP_PART < 0 || FP_PART == (part))" in text
     launcher = text[text.index(f'extern "C" int {k.symbol}('):]
     guarded = [launcher.split(f"#if FP_HAS({part})")[1].split("#else")[0]
-               for part in range(3)]
+               for part in range(k.parts)]
     assert all("launch(" in g for g in guarded)
     if name == "advance":
-        assert all("advance_kernel<" in g for g in guarded)
+        assert all("advance_kernel<" in g for g in guarded[:3])
         assert "true>" in guarded[2] and "true>" not in "".join(guarded[:2])
+        assert "advance_tile_kernel<" in guarded[3]
+        assert "advance_tile_kernel<" not in "".join(guarded[:3])
     else:
         assert "Cbl{}" in guarded[2]
         assert "std::false_type" in guarded[0] and "true_type" in guarded[1]
+        assert "tile_by_turb(std::false_type{})" in guarded[3]
+        assert "tile_by_turb(std::true_type{})" in guarded[4]
     for other in _build.KERNELS:
-        assert other.parts == (3 if other.name in ("advance",
-                                                   "advance_adaptive") else 1)
+        assert other.parts == {"advance": 4, "advance_adaptive": 5}.get(
+            other.name, 1)
 
 
 def test_a_parted_launch_goes_to_the_part_that_holds_it():

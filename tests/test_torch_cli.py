@@ -15,8 +15,9 @@ directory gives the same Command, Releases, OutGrid, met grid and wind
 interval (no JAX run, so nothing is compiled); on GRIB met also the same
 ``use_clwc``, off for ECMWF and on for GFS (its ``sumclouds``).  The CLI
 refuses by name, before any file is written, what the port does not run
-yet: ``--tiles`` (with ``--trace-dir`` too, and then writes no trace),
-and ``--dp`` on the CPU without ``--devices``; it runs an ``IPOUT=2`` job
+yet: ``--tiles`` on a job with convection (with ``--trace-dir`` too, and
+then writes no trace), and ``--dp`` or ``--tiles`` on the CPU without
+``--devices``; it runs an ``IPOUT=2`` job
 and then the same job with ``IPIN=1`` from its ``partposit_end`` (JAX's
 ``build_simulation`` giving the same particles), an OH-reactive species
 with the reference's ``OH_variables.bin``, and jobs with RECEPTORS,
@@ -43,6 +44,7 @@ warm_vector_math()
 from flexpart_tpu import main as jmain  # noqa: E402
 from flexpart_tpu_torch import interop  # noqa: E402
 from flexpart_tpu_torch import main as tmain  # noqa: E402
+from flexpart_tpu_torch.parallel.launch import RankFailed  # noqa: E402
 from flexpart_tpu_torch.io.fortran_writer import (  # noqa: E402
     read_grid_sparse, read_header)
 from flexpart_tpu_torch.met import SyntheticMet, make_grid  # noqa: E402
@@ -290,15 +292,22 @@ def test_build_simulation_equals_jax(metdir, tmp_path):
 # case -> (COMMAND edits, options files, CLI flags, the name refused, the
 # error and its words); a trace directory is ported, so its case holds
 # that a job with it and an option still refused is refused before
-# anything, the trace too, is written.  ``--dp`` runs (tests/
-# test_torch_dp_run.py); on the CPU without ``--devices`` it is refused by
-# that name
+# anything, the trace too, is written.  ``--dp`` and ``--tiles`` run
+# (tests/test_torch_dp_run.py, test_torch_tiles_run.py); on the CPU
+# without ``--devices`` each is refused by that name, and a tiles run
+# refuses this job's convection by name in its rank (the launcher's
+# RankFailed carries the rank's error)
 REFUSED = {
     "dp": ({}, {}, ["--dp"], "--devices", ValueError, "no device count"),
-    "tiles": ({}, {}, ["--tiles"], "distributed", NotImplementedError,
-              "not ported yet"),
-    "trace_dir": ({}, {}, ["--trace-dir", "trace", "--tiles"], "distributed",
-                  NotImplementedError, "not ported yet"),
+    "tiles": ({}, {}, ["--tiles", "--devices", "1"], "lconvection=1",
+              RankFailed, "NotImplementedError: not ported yet under "
+              "distributed='tiles'"),
+    "trace_dir": ({}, {}, ["--trace-dir", "trace", "--tiles", "--devices",
+                           "1"], "lconvection=1", RankFailed,
+                  "NotImplementedError: not ported yet under "
+                  "distributed='tiles'"),
+    "tiles_devices": ({}, {}, ["--tiles"], "--devices", ValueError,
+                      "no device count"),
 }
 
 

@@ -423,15 +423,16 @@ def test_age_classes_terminate_like_jax(tmp_path):
 
 
 # option -> the Simulation's arguments; a case whose refusal names
-# another option says so under "names" (a backward run and the Fortran
-# files are ported: their cases hold that an option still refused is
+# another option says so under "names" (a backward run, the Fortran files
+# and distributed="tiles" are ported: their cases hold that an option
+# still refused under tiles, convection or the initial condition, is
 # refused with them too, before the header is written)
 REFUSED = {
-    "ldirect": dict(cmd_kw=dict(ldirect=-1), distributed="tiles",
-                    names="distributed"),
-    "distributed": dict(distributed="tiles"),
+    "ldirect": dict(cmd_kw=dict(ldirect=-1, linit_cond=1),
+                    distributed="tiles", names="linit_cond"),
+    "distributed": dict(distributed="tiles", cmd_kw=dict(lconvection=1)),
     "write_fortran": dict(write_fortran=True, distributed="tiles",
-                          names="distributed"),
+                          cmd_kw=dict(lconvection=1), names="lconvection"),
 }
 
 # options the port runs since they were ported (they were cases of

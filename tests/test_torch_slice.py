@@ -378,3 +378,71 @@ print("ok")
                             "OMP_NUM_THREADS": "2"})
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().endswith("ok")
+
+
+def test_tiles_modules_run_without_jax():
+    """parallel/domain.py and parallel/tiles.py import and run in a fresh
+    interpreter with neither jax nor flexpart_tpu loaded: a 2 x 2 layout
+    of a global grid, every rank's tiled step in one process (each tile's
+    plain advance on its tile of the fields, then the migration), nothing
+    lost; the tiles entry points default to the card (Simulation's device
+    and the CLI's --device)."""
+    for f in ("parallel/domain.py", "parallel/tiles.py"):
+        assert (ROOT / "flexpart_tpu_torch" / f).is_file(), f
+    code = r"""
+import dataclasses, sys, torch
+from flexpart_tpu_torch.core import advance, rng, state
+from flexpart_tpu_torch.met import calcpar, synthetic, verttransform
+from flexpart_tpu_torch.parallel import domain, tiles
+from flexpart_tpu_torch.parallel.sharding import Layout
+from flexpart_tpu_torch.run.simulation import Simulation
+from flexpart_tpu_torch import main
+g = synthetic.make_grid(nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)
+eta = synthetic.SyntheticMet(g).fetch(0.0, "cpu")
+z0 = calcpar.calcpar(g, eta, verttransform.process_eta(
+    g, eta, verttransform.compute_heights(g, eta)))
+cfg = advance.StepConfig(nx=g.nx, ny=g.ny, nz=g.nlev, xglobal=True, ldirect=1,
+                         turbswitch=False, ifine=1, method=0, polar=True)
+prm = advance.StepParams.make(g.dx, g.dy, g.ylat0, g.dxconst, g.dyconst, 900, 1.0)
+assert tiles.choose_tile_mesh(4, g.ny, g.nxfield) == (1, 4)
+nty, ntx = 2, 2
+engs = [tiles.TiledEngine(Layout(4, r), cfg, g, nty, ntx, 3) for r in range(4)]
+gen = torch.Generator().manual_seed(0)
+n = 256
+p = state.empty_particles(n, device="cpu")
+p = p.replace(x_hi=torch.rand(n, generator=gen) * 35,
+              y_hi=torch.rand(n, generator=gen) * 17,
+              z=torch.rand(n, generator=gen) * 5000,
+              active=torch.ones(n, dtype=torch.bool),
+              itra=torch.zeros(n, dtype=torch.int32),
+              itramem=torch.zeros(n, dtype=torch.int32))
+sched = {f: getattr(p, f).numpy() for f in state.FIELDS}
+placed = [e.shard_initial(sched) for e in engs]
+from flexpart_tpu_torch import interop
+shards = [interop.particles_from_numpy(a, "cpu") for a, _ in placed]
+origins = [torch.as_tensor(o) for _, o in placed]
+for i in range(3):
+    diags, mig = tiles.step_in_process(engs, shards, origins, z0, z0, i * 900,
+                                       0, 86400, rng.Key(0, i), prm)
+    assert mig["deferred"] == 0
+live = sum(int(q.active.sum()) for q in shards)
+assert live == n, live
+o = torch.cat(origins)
+assert sorted(o[o >= 0].tolist()) == list(range(n))
+for q, e in zip(shards, engs):
+    own = domain.tile_of(q.x[q.active], q.y[q.active], e.field_tiles())
+    assert (own == e.index).all()
+import inspect
+assert inspect.signature(Simulation).parameters["device"].default == "cuda"
+ap_src = inspect.getsource(main.main)
+assert 'ap.add_argument("--device", default="cuda"' in ap_src
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+assert "flexpart_tpu" not in sys.modules
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env={"PATH": "/usr/bin:/bin", "PYTHONPATH": str(ROOT),
+                            "OMP_NUM_THREADS": "2"})
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip().endswith("ok")
