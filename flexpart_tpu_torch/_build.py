@@ -20,13 +20,15 @@ instantiations; the source's launcher returns ``NOT_IN_PART`` (and
 launches nothing) for a configuration another part holds, and ``launch``
 tries the parts in turn.  The instantiations' code is the same as in one
 library; only the build's wall time shrinks (K4 and K11: by table type,
-their ``NESTS`` and ``CBL`` ones apart, and their ``TILE`` ones).
+their ``NESTS`` and ``CBL`` ones apart, their ``TILE`` ones, and K11's
+``TILE`` x ``CBL`` ones).
 
 Each ``Kernel`` counts its launches in ``launches`` (a plain integer), so
 a run can show that its main path went through the kernel.  A template
 instantiation that a path launches on its own (K3's ``BKDEP`` and
 ``COUNT``, K7's ``BACKWARD``, K9's and K10's ``BKDEP``, K9's ``CLWC``
-with and without ``BKDEP``, K4's and K11's ``TILE``) is an ``Entry`` with a
+with and without ``BKDEP``, K4's and K11's ``TILE``, K11's ``TILE`` x
+``CBL``) is an ``Entry`` with a
 count of its own: the kernel's launcher, picked by its arguments
 (``xscav`` given, ``ctwc`` given, ``count``, ``backward``,
 ``AdvanceArgs.tile``), counted in the entry's count and not in the
@@ -348,9 +350,9 @@ ADVANCE = Kernel("advance", "fp_advance", [
     P,                    # stream
 ], parts=4)
 
-# K11 in five parts: the HANNA1 and TS instantiations on f32 tables (0)
-# and on bf16 tables (1), the CBL ones (2), and the TILE ones on f32
-# tables (3) and on bf16 tables (4)
+# K11 in six parts: the HANNA1 and TS instantiations on f32 tables (0)
+# and on bf16 tables (1), the CBL ones (2), the TILE ones on f32 tables
+# (3) and on bf16 tables (4), and the TILE x CBL ones (5)
 ADVANCE_ADAPTIVE = Kernel("advance_adaptive", "fp_advance_adaptive", [
     P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
     P, P,                 # itra, itramem (n,) i32
@@ -371,7 +373,7 @@ ADVANCE_ADAPTIVE = Kernel("advance_adaptive", "fp_advance_adaptive", [
                           # issued (accumulated into)
     P,                    # AdvanceArgs (host struct, core/advance.py)
     P,                    # stream
-], parts=5)
+], parts=6)
 
 REORDER = Kernel("reorder", "fp_reorder", [
     P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
@@ -585,13 +587,16 @@ WETDEPO_BKDEP_CLWC = Entry(WETDEPO, "wetdepo.bkdep_clwc")   # both given
 # the sampling of the nested output grid (OUTGRID_NEST): K3's stock
 # instantiation on the nest's grid, counted apart from the mother grid's
 CONCCALC_NEST = Entry(CONCCALC, "conccalc.nest")
-# a tile's advance in a tiles run (AdvanceArgs.tile): K4 TILE, K11 TILE
+# a tile's advance in a tiles run (AdvanceArgs.tile): K4 TILE, K11 TILE,
+# and K11 TILE x CBL (AdvanceArgs.tile and cblflag)
 ADVANCE_TILE = Entry(ADVANCE, "advance.tile")
 ADVANCE_ADAPTIVE_TILE = Entry(ADVANCE_ADAPTIVE, "advance_adaptive.tile")
+ADVANCE_ADAPTIVE_TILE_CBL = Entry(ADVANCE_ADAPTIVE,
+                                  "advance_adaptive.tile_cbl")
 
 ENTRIES = (CONCCALC_BKDEP, CONCCALC_COUNT, REDIST_BACKWARD, WETDEPO_BKDEP,
            DRYDEPO_BKDEP, WETDEPO_CLWC, WETDEPO_BKDEP_CLWC, CONCCALC_NEST,
-           ADVANCE_TILE, ADVANCE_ADAPTIVE_TILE)
+           ADVANCE_TILE, ADVANCE_ADAPTIVE_TILE, ADVANCE_ADAPTIVE_TILE_CBL)
 
 # fp_convection_layout(nl, out): out (4,) i32 gets K6's shared bytes per
 # column, columns per block, resident blocks per SM and registers per thread

@@ -24,7 +24,9 @@ the polar caps a particle that took the cap's update at the predictor
 skips the corrector (its end may lie outside the tile).  So a particle
 that the step neither wraps, mirrors, kills nor moves by the caps' update
 takes the serial step bit for bit.  K4 ``TILE`` and K11 ``TILE`` are its
-kernels (``_build.ADVANCE_TILE``, ``_build.ADVANCE_ADAPTIVE_TILE``).
+kernels (``_build.ADVANCE_TILE``, ``_build.ADVANCE_ADAPTIVE_TILE``), and
+with the skewed CBL K11 ``TILE`` x ``CBL``
+(``_build.ADVANCE_ADAPTIVE_TILE_CBL``).
 
 Two versions of the same function: ``advance_all_plain``, plain PyTorch
 ops, runs for CPU tensors; for CUDA tensors ``advance_all_cuda`` launches
@@ -124,10 +126,6 @@ class StepConfig:
             raise ValueError("tile_mode with nested met grids is not "
                              "supported (the reference refuses nests on "
                              "tiles)")
-        if self.tile_mode and self.cblflag:
-            raise NotImplementedError(
-                "not ported yet under tile_mode: cblflag (the skewed CBL "
-                "on tiles)")
         if self.method == 1 and self.nests:
             raise ValueError("adaptive stepping (method=1) with nested met "
                              "grids is not supported; use CTL<0 or the "
@@ -1141,8 +1139,9 @@ def advance_adaptive_cuda(p: Particles, height: torch.Tensor,
     work = torch.zeros(K11_WORK_WORDS, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        kernel = (_build.ADVANCE_ADAPTIVE_TILE if cfg.tile_mode
-                  else _build.ADVANCE_ADAPTIVE)
+        kernel = (_build.ADVANCE_ADAPTIVE if not cfg.tile_mode
+                  else _build.ADVANCE_ADAPTIVE_TILE_CBL if cfg.cblflag
+                  else _build.ADVANCE_ADAPTIVE_TILE)
         kernel(
             *(getattr(p, f).data_ptr() for f in ADAPTIVE_IN_FIELDS),
             *(out[f].data_ptr() for f in ADAPTIVE_OUT_FIELDS),

@@ -73,8 +73,9 @@
 // The turbulence is a template value of three (HANNA1, TS, CBL), so an
 // instantiation holds one form of Hanna and of the substep; turboff is a
 // runtime field (a uniform branch); the instantiations are (table type,
-// turbulence, polar, settling), 24, and the tile's 16 (no CBL).  The arithmetic is the plain
-// version's, operation for operation, built with -fmad=false.
+// turbulence, polar, settling), 24, and the tile's 24 (its CBL ones a part
+// of their own).  The arithmetic is the plain version's, operation for
+// operation, built with -fmad=false.
 //
 // The skewed convective boundary layer (the CBL instantiations; cblflag,
 // which forces turbswitch and the adaptive step;
@@ -104,12 +105,13 @@
 // with FP_CBL_CALLS=1, where they are calls.
 //
 // A tile of a tiles run (advance_adaptive_tile_kernel, the TILE
-// instantiations: table type x HANNA1 and TS x POLAR x SETTLING; K4
+// instantiations: table type x HANNA1, TS and CBL x POLAR x SETTLING; K4
 // TILE's design, advance.cu): positions global, the start's corner, each
 // pass's and the end's rows and the settling column the tile's, no
 // boundary conditions inside the loop of passes and the global ones once
-// at the end, after the corrector.  The CBL on tiles is refused by the
-// wrapper (core/advance.py::StepConfig.check), so it has none.
+// at the end, after the corrector.  The CBL's pass (lane_pass_cbl) takes
+// the same TILE flag: its row and settling column are the tile's, the
+// rest is the stock CBL pass.
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <type_traits>
@@ -410,7 +412,7 @@ __device__ __forceinline__ bool lane_pass(const AdvanceArgs& a, const Io& io,
 // whole Lane across them, spills 166-182 B and runs 1.5% slower on the
 // kernels case and 4.6% in sim_cbl (PERF.md, section 6).
 // Returns whether the particle takes another pass.
-template <bool BF16, bool SETTLING>
+template <bool BF16, bool SETTLING, bool TILE = false>
 __device__ __forceinline__ bool lane_pass_cbl(const AdvanceArgs& a,
                                               const Io& io,
                                               const float* sh_height, Pool& s,
@@ -437,7 +439,8 @@ __device__ __forceinline__ bool lane_pass_cbl(const AdvanceArgs& a,
   int iz;
   float dz;
   vert_weights(sh_height, a.nz, zc, iz, dz);
-  const size_t rk = fp::cell_row(iz, hw.jy, hw.ix, a.ny, a.nx);
+  const size_t rk = fp::cell_row(iz, hw.jy, hw.ix, table_ny<TILE>(a),
+                                 table_nx<TILE>(a));
   float gk[40];
 #pragma unroll
   for (int q = 0; q < 5; ++q) load8<BF16, 64>(io.rows, rk, q, &gk[8 * q]);
@@ -482,7 +485,7 @@ __device__ __forceinline__ bool lane_pass_cbl(const AdvanceArgs& a,
     Settle st;
     get(s, ROW_ST_COL, p, st.col);
     get(s, ROW_ST_SP, p, st.sp);
-    w_eff = w + settle_at(a, st, io.tt3, io.rho3, sh_height, zc);
+    w_eff = w + settle_at<TILE>(a, st, io.tt3, io.rho3, sh_height, zc);
   }
   put(s, ROW_W_L, p, w_eff);
 
@@ -686,8 +689,9 @@ __device__ __forceinline__ void adaptive_body(
       bool more;
       if constexpr (TURB == CBL) {
         bool nan = false;
-        more = lane_pass_cbl<BF16, SETTLING>(a, io, sh_height, pool, p,
-                                             static_cast<int>(ip), nan);
+        more = lane_pass_cbl<BF16, SETTLING, TILE>(a, io, sh_height, pool,
+                                                   p, static_cast<int>(ip),
+                                                   nan);
         if (nan) ++nans;
       } else {
         Lane L;
@@ -736,14 +740,14 @@ advance_adaptive_kernel(const __grid_constant__ Io io,
   adaptive_body<BF16, TURB, POLAR, SETTLING, false>(io, counts, work, a);
 }
 
-// K11 TILE: a tile's adaptive step (HANNA1 or TS)
+// K11 TILE: a tile's adaptive step (HANNA1, TS or CBL)
 template <bool BF16, int TURB, bool POLAR, bool SETTLING>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS,
+                                  TURB == CBL ? MIN_BLOCKS_CBL : MIN_BLOCKS)
 advance_adaptive_tile_kernel(const __grid_constant__ Io io,
                              int* __restrict__ counts,
                              unsigned long long* __restrict__ work,
                              const __grid_constant__ AdvanceArgs a) {
-  static_assert(TURB != CBL, "the CBL on tiles is refused");
   adaptive_body<BF16, TURB, POLAR, SETTLING, true>(io, counts, work, a);
 }
 
@@ -788,8 +792,8 @@ extern "C" int fp_advance_adaptive(
   // the CBL's substeps draw with their own keys; it runs with turbswitch
   if (a.cblflag && (!a.turbswitch || a.ifine > MAX_CBL_SUBSTEPS))
     return static_cast<int>(cudaErrorInvalidValue);
-  // a tile: no CBL, no nests, tables of 2 x 2 cells at least
-  if (a.tile && (a.cblflag || a.nnest > 0 || a.tile_nx < 2 || a.tile_ny < 2))
+  // a tile: no nests, tables of 2 x 2 cells at least
+  if (a.tile && (a.nnest > 0 || a.tile_nx < 2 || a.tile_ny < 2))
     return static_cast<int>(cudaErrorInvalidValue);
   // the (table type, turbulence, polar, settling) instantiations
   auto pick = [&](auto bf16, auto turb) {
@@ -828,9 +832,18 @@ extern "C" int fp_advance_adaptive(
   };
   // a library built as one part (FP_PART, _build.Kernel's parts) holds
   // HANNA1 and TS on f32 tables (part 0) or on bf16 tables (part 1), the
-  // CBL (part 2), or the tile's HANNA1 and TS on f32 tables (part 3) or on
-  // bf16 tables (part 4), and launches nothing for the others'
-  // configurations
+  // CBL (part 2), the tile's HANNA1 and TS on f32 tables (part 3) or on
+  // bf16 tables (part 4), or the tile's CBL (part 5), and launches nothing
+  // for the others' configurations
+  if (a.tile && a.cblflag) {
+#if FP_HAS(5)
+    using Cbl = std::integral_constant<int, CBL>;
+    return a.table_bf16 ? launch(pick_tile(std::true_type{}, Cbl{}))
+                        : launch(pick_tile(std::false_type{}, Cbl{}));
+#else
+    return NOT_IN_PART;
+#endif
+  }
   if (a.tile) {
     if (a.table_bf16) {
 #if FP_HAS(4)

@@ -272,16 +272,30 @@ def save_checkpoint(path, sim, itime: int) -> None:
     the nested output grid, the fluxes and the initial-condition
     sensitivity.  A data-parallel run's ranks gather their rows in global
     slot order and sum their partial grids, and rank 0 writes once, with
-    the world size (``dp_world``).  Uncompressed: a full-width ensemble is
-    a GB, which zlib would take tens of seconds over."""
-    p, _ = sim._gathered()
+    the world size (``dp_world``).  A tiles run's ranks gather every slot
+    of every tile, tile-major (the empty ones too), with their origins,
+    and their partial grids stacked by rank, with the tile mesh, the tile
+    capacity, the next fresh origin and the deferral streak (``tiles_*``),
+    so that each rank of a resumed run takes its own slots and partials
+    back (``_tiles_share``).  Uncompressed: a full-width ensemble is a GB,
+    which zlib would take tens of seconds over."""
+    tiles = sim._tiles
+    if tiles is None:
+        p, _ = sim._gathered()
+        summed = sim._summed
+    else:
+        from ..parallel.sharding import gather_particles
+        p = gather_particles(sim._group, sim.particles)
+
+        def summed(t):
+            return torch.stack(sim._group.all_gather(t, "checkpoint"))
     state = {"itime": np.int64(itime), "seed": np.int64(sim.seed)}
     for name in FIELDS:
         state["p_" + name] = _np(getattr(p, name))
     for f in dataclasses.fields(Accumulators):
         t = getattr(sim.acc, f.name)
         state["acc_" + f.name] = _np(t if f.name == "outnum"
-                                     else sim._summed(t))
+                                     else summed(t))
     if sim.cbmf is not None:
         state["cbmf"] = _np(sim.cbmf)
     if sim._height is not None:
@@ -289,16 +303,30 @@ def save_checkpoint(path, sim, itime: int) -> None:
         # (verttransform_ecmwf.f90:153-165); a resumed run interpolates on
         # the same one
         state["height"] = _np(sim._height)
-    origin = sim.global_origin()
+    origin = (sim.global_origin() if tiles is None
+              else sim._group.cat_rows(sim._origin, "checkpoint"))
     if origin is not None:
         state["origin"] = _np(origin)
     if sim._boundary is not None:
-        for name, a in sim._boundary.to_numpy().items():
+        bnd = sim._boundary
+        if tiles is not None:
+            # every site is one rank's: its validity and its accumulator
+            # are that rank's (false and zero on the others)
+            g = sim._group
+            bnd = bnd.replace(
+                valid=g.sum(bnd.valid.to(torch.int32), "checkpoint") > 0,
+                acc=g.sum(bnd.acc, "checkpoint"))
+        for name, a in bnd.to_numpy().items():
             state["bnd_" + name] = a
-    for key, on, get, _, summed in _RUN_SUMS:
+    for key, on, get, _, part in _RUN_SUMS:
         if on(sim):
-            state[key] = _np(sim._summed(get(sim)) if summed else get(sim))
-    if sim._group is not None:
+            state[key] = _np(summed(get(sim)) if part else get(sim))
+    if tiles is not None:
+        state.update(tiles_mesh=np.array([tiles.nty, tiles.ntx], np.int64),
+                     tiles_local_cap=np.int64(tiles.local_cap),
+                     tiles_next_origin=np.int64(sim._next_origin),
+                     tiles_defer_streak=np.int64(sim._tile_defer_streak))
+    elif sim._group is not None:
         state["dp_world"] = np.int64(sim._group.world)
     if sim._writes:
         np.savez(path, **state)
@@ -352,25 +380,62 @@ def _rank_share(d, sim) -> tuple:
     return rows, origin
 
 
+def _tiles_share(d, sim) -> tuple:
+    """A tiles run's rank of a tiles checkpoint: the checkpoint's mesh
+    must be the run's, and its tile capacity the one the run asked for
+    (``tile_local_cap``) or that doubled by regroups; a run that asked for
+    none takes the checkpoint's.  The rank takes its tile's slots
+    (tile-major) and their origins, the next fresh origin and the
+    deferral streak."""
+    tiles = sim._tiles
+    if ("tiles_mesh" in d) != (tiles is not None):
+        raise ValueError("a tiles checkpoint resumes a distributed='tiles' "
+                         "run only, and a tiles run resumes a tiles "
+                         "checkpoint only")
+    mesh = tuple(int(v) for v in d["tiles_mesh"])
+    if mesh != (tiles.nty, tiles.ntx):
+        raise ValueError(f"the checkpoint's tile mesh {mesh} is not the "
+                         f"run's {(tiles.nty, tiles.ntx)}")
+    cap = int(d["tiles_local_cap"])
+    mine = sim.tile_local_cap
+    if mine is not None and not (cap % mine == 0
+                                 and (cap // mine) & (cap // mine - 1) == 0):
+        raise ValueError(f"the checkpoint's tile capacity (tile_local_cap) "
+                         f"{cap} is not the run's {mine} nor that doubled "
+                         f"by regroups")
+    tiles.local_cap = cap
+    lo = tiles.index * cap
+    rows = {name: d["p_" + name][lo:lo + cap] for name in FIELDS}
+    sim._first = lo
+    sim._next_origin = int(d["tiles_next_origin"])
+    sim._tile_defer_streak = int(d["tiles_defer_streak"])
+    return rows, d["origin"][lo:lo + cap]
+
+
 def load_checkpoint(path, sim) -> int:
     """Restore a checkpoint into a Simulation built with the same
     configuration; returns the itime to resume at.  A data-parallel rank
     takes its rows (``_rank_share``); rank 0 takes the summed grids and
     the other ranks zeros, every rank the sample counts and the
-    receptors' sums."""
+    receptors' sums.  A tiles rank takes its tile's slots and its own
+    partial grids (``_tiles_share``), and the regional boundary's sites
+    of its tile."""
     dev = sim.device
     whole = sim._group is None or sim._group.rank == 0
     with np.load(path) as d:
         if int(d["seed"]) != sim.seed:
             raise ValueError(f"checkpoint {path} was written with seed "
                              f"{int(d['seed'])}, the run has {sim.seed}")
-        rows, origin = _rank_share(d, sim)
+        tiles = sim._tiles is not None or "tiles_mesh" in d
+        rows, origin = _tiles_share(d, sim) if tiles else _rank_share(d, sim)
         sim.particles = Particles(**{
             name: torch.as_tensor(rows[name], device=dev)
             for name in FIELDS})
 
         def grid(key, summed=True):
             a = torch.as_tensor(d[key], device=dev)
+            if tiles and summed:
+                return a[sim._group.rank].clone()
             return a if whole or not summed else torch.zeros_like(a)
 
         sim.acc = Accumulators(**{
@@ -385,8 +450,8 @@ def load_checkpoint(path, sim) -> int:
                        else torch.as_tensor(origin, device=dev))
         if "bnd_acc" in d:
             from ..core.domainfill import BOUNDARY_FIELDS, BoundaryState
-            sim._boundary = BoundaryState.from_numpy(
-                {f: d["bnd_" + f] for f in BOUNDARY_FIELDS}, dev)
+            sim._boundary = sim._own_boundary(BoundaryState.from_numpy(
+                {f: d["bnd_" + f] for f in BOUNDARY_FIELDS}, dev))
         for key, on, _, put, summed in _RUN_SUMS:
             if key in d and on(sim):
                 put(sim, grid(key, summed))

@@ -355,10 +355,9 @@ def split_sharded(group: Group, p: Particles, itime: int, ldirect: int,
 
 # ---------------------------------------------------- domain-fill bc --
 
-def free_after_kill(p: Particles, bs, check_x: bool) -> torch.Tensor:
+def free_after_kill_mask(p: Particles, bs, check_x: bool) -> torch.Tensor:
     """The slots that K14's kill pass leaves free: inactive and not a
-    future release, or live outside the window (they are destroyed), as
-    one int64 count on the particles' device."""
+    future release, or live outside the window (they are destroyed)."""
     _, xlo, xhi, ylo, yhi = bs.limits()
     y = p.y
     outside = (y < ylo) | (y > yhi)
@@ -366,7 +365,14 @@ def free_after_kill(p: Particles, bs, check_x: bool) -> torch.Tensor:
         x = p.x
         outside = outside | (x < xlo) | (x > xhi)
     free = (~p.active) & ((p.itra == ITRA_INACTIVE) | (p.itra != p.itramem))
-    return (free | (p.active & outside)).sum().to(torch.int64).reshape(1)
+    return free | (p.active & outside)
+
+
+def free_after_kill(p: Particles, bs, check_x: bool) -> torch.Tensor:
+    """``free_after_kill_mask``'s slots as one int64 count on the
+    particles' device."""
+    return free_after_kill_mask(p, bs, check_x).sum().to(
+        torch.int64).reshape(1)
 
 
 def boundcond_sharded(group: Group, p: Particles, bs, f0, f1, height,

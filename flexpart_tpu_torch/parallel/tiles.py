@@ -2,7 +2,7 @@
 decomposed over the ranks, one tile a rank, and the particles owned by
 the tile they are in.
 
-Port of the first part of ``flexpart_tpu/parallel/tiles.py``.  Each rank
+Port of ``flexpart_tpu/parallel/tiles.py``.  Each rank
 is a process of its own over dp's ``Group`` (parallel/sharding.py: NCCL on
 the cards, gloo on the CPU).  It holds the haloed tile of every processed
 wind field (``TiledEngine.decompose``, parallel/domain.py) and the slots of
@@ -23,7 +23,21 @@ between the phases:
 * the sampling (K3) and the deposit scatters (K8) add global positions
   into the rank's own partial grids, summed in rank order at output
   (``sharding.reduce_acc_partials``); the density of ``ind_samp = -1`` is
-  gathered from the tile at the tile-frame positions.
+  gathered from the tile at the tile-frame positions;
+* the fluxes (K16) and the initial condition's scan of the particles that
+  ended in the advance (K17) read the state after the advance and before
+  the migration (between ``TiledEngine.step`` and ``TiledEngine.migrate``),
+  in the slots of the state before the step;
+* the rebalance of a hot tile (``TiledEngine.regroup``) gathers every
+  schedulable slot and places it again at a larger ``local_cap``;
+* a regional domain fill's boundary runs on every rank over the whole site
+  table, each rank's sites those whose column its tile owns
+  (``owned_sites``, the reference's ``partition_boundary`` rule).
+
+Convection (K6 over the whole grid, K7 at global positions), the OH
+reaction (K12) and the receptors (K15) run on the whole fields, which every
+rank keeps beside its tile, as the reference runs them on its replicated
+fields.
 
 Each particle carries its schedule origin through every sort and
 migration, so that the end dump and the tests can put a tiles run's
@@ -38,7 +52,7 @@ import numpy as np
 import torch
 
 from ..core.advance import StepConfig, Tile, advance_all
-from ..core.state import Particles
+from ..core.state import FIELDS, ITRA_INACTIVE, Particles
 from ..grid.conccalc import make_conccalc
 from ..met.fields import ZFields
 from ..physics.massupdate import apply_decay_drydep
@@ -103,6 +117,34 @@ def shard_by_tile_scheduled(p_np: dict, ft, local_cap: int) -> tuple:
         "planned capacity (raise tile_local_cap: a release hot spot)")
 
 
+def regroup_rows(whole: dict, origin: np.ndarray, riders, ft,
+                 new_cap: int) -> tuple:
+    """Host side of a regroup: the schedulable slots (itra not
+    ITRA_INACTIVE) of every tile laid end to end (``whole``, numpy by
+    field; ``origin`` their origins, ``riders`` per-slot arrays) put in
+    origin order and placed again by the tile that owns their position
+    now (x_hi + x_lo, as the migration sees it) at ``new_cap`` slots a
+    tile, tile-major (``shard_by_tile_scheduled``'s rule).  Returns (the
+    arrays by field, the slots' origins, -1 for an empty one, the riders,
+    0 in an empty slot); raises where a tile cannot hold its slots."""
+    at = np.nonzero(np.asarray(whole["itra"]) != ITRA_INACTIVE)[0]
+    at = at[np.argsort(origin[at], kind="stable")]
+    if (origin[at] < 0).any():
+        raise RuntimeError("regroup: a schedulable slot without an origin")
+    sel = {f: np.asarray(a)[at] for f, a in whole.items()}
+    x = torch.as_tensor(sel["x_hi"]) + torch.as_tensor(sel["x_lo"])
+    y = torch.as_tensor(sel["y_hi"]) + torch.as_tensor(sel["y_lo"])
+    tiled, src = domain._group_by_tile(
+        sel, x.numpy(), y.numpy(), np.ones(at.size, bool), ft, new_cap,
+        ("itra", "itrasplit"), "regrouped capacity")
+    placed = src >= 0
+    pick = at[np.maximum(src, 0)]
+    new_origin = np.where(placed, origin[pick], -1)
+    moved = [np.where(placed, np.asarray(r)[pick], 0).astype(
+        np.asarray(r).dtype) for r in riders]
+    return tiled, new_origin, moved
+
+
 def to_local(p: Particles, tile: Tile) -> Particles:
     """A copy of ``p`` with tile-frame positions: (x_hi + x_lo) - ox with a
     zero low part, y likewise (an exact subtraction of an integer below
@@ -145,6 +187,18 @@ def make_tiled_conccalc(outheights, tile: Tile, nest: bool = False):
     return tiled
 
 
+def end_exits(p: Particles, q: Particles) -> Particles:
+    """``q`` (a tile's step of ``p``) with the particles that left the
+    domain in it gone for good, as in the reference's tiled step
+    (flexpart_tpu/parallel/domain.py:430-437): their schedule time
+    cleared, so that no release wakes them again and their slots are
+    free.  (A serial run keeps the time, and the next step's release
+    wakes such a particle outside the domain, to end again.)"""
+    gone = p.active & ~q.active
+    return q.replace(itra=torch.where(
+        gone, torch.full_like(q.itra, ITRA_INACTIVE), q.itra))
+
+
 def step_in_process(engines: list, shards: list, origins: list, z0: ZFields,
                     z1: ZFields, itime: int, mt0: int, mt1: int, key, prm,
                     draws: list | None = None) -> tuple:
@@ -161,7 +215,7 @@ def step_in_process(engines: list, shards: list, origins: list, z0: ZFields,
                            itime, mt0, mt1, key, eng.cfg, prm,
                            draws=None if draws is None else draws[r],
                            offset=eng.index * eng.local_cap, tile=eng.tile)
-        shards[r] = q
+        shards[r] = end_exits(shards[r], q)
         diags.append(d)
     mig = domain.migrate_in_process(engines[0].layout, shards, origins)
     return diags, mig
@@ -200,7 +254,8 @@ class TiledEngine:
             rounds_x=ntx // 2 if cfg.polar else 1,
             rounds_y=max(nty // 2, 1) if cfg.polar else 1)
         self.local_cap: int | None = None
-        self.stats = {"migrations": 0, "sent": 0, "deferred": 0}
+        self.stats = {"migrations": 0, "sent": 0, "deferred": 0,
+                      "regroups": 0}
 
     def field_tiles(self) -> domain.FieldTiles:
         """The layout as a FieldTiles without fields."""
@@ -237,22 +292,29 @@ class TiledEngine:
         return ({f: a[lo:lo + local_cap] for f, a in tiled.items()},
                 origin[lo:lo + local_cap])
 
-    def advance(self, p: Particles, z0t: ZFields, z1t: ZFields, itime: int,
-                mt0: int, mt1: int, key, prm, origin: torch.Tensor,
-                draws: dict | None = None):
-        """The rank's step: K4 or K11 ``TILE`` on its tile (draws by the
-        tile rank's slot), the boundary conditions inside, then the
-        migration, in place on the result and on ``origin``.  Returns
-        (particles, the group's StepDiag after the migration: its t_below
-        in the particles' new slots, its passes in the old ones; the
-        group's deferred particles)."""
+    def step(self, p: Particles, z0t: ZFields, z1t: ZFields, itime: int,
+             mt0: int, mt1: int, key, prm, draws: dict | None = None):
+        """The rank's step before the migration: K4 or K11 ``TILE`` on its
+        tile (draws by the tile rank's slot), the boundary conditions
+        inside, the particles that left the domain ended (``end_exits``).
+        Returns (the advanced particles in the slots of ``p``: the
+        reference's ``return_pre``; the rank's StepDiag)."""
         q, diag = advance_all(p, z0t, z1t, itime, mt0, mt1, key, self.cfg,
                               prm, draws=draws,
                               offset=self.index * self.local_cap,
                               tile=self.tile)
+        return end_exits(p, q), diag
+
+    def migrate(self, q: Particles, diag, origin: torch.Tensor, riders=()):
+        """The migration after ``step``, in place on ``q`` and on
+        ``origin``; ``riders``: per-slot tensors that move with their
+        particles, in place.  Returns (particles, the group's StepDiag
+        after the migration: its t_below in the particles' new slots, its
+        passes in the old ones; the group's deferred particles)."""
         # the adaptive step's time below 2 HREF goes with its particle to
         # the dry deposition after the migration
-        riders = () if diag.t_below is None else (diag.t_below,)
+        riders = ((() if diag.t_below is None else (diag.t_below,))
+                  + tuple(riders))
         mig = domain.migrate_local(self.group, self.layout, q, origin,
                                    riders)
         self.stats["migrations"] += 1
@@ -267,3 +329,40 @@ class TiledEngine:
         return q, dataclasses.replace(diag, n_active=tot[0],
                                       n_exited=tot[1],
                                       nan_count=tot[2]), mig["deferred"]
+
+    def regroup(self, p: Particles, origin: torch.Tensor, new_cap: int,
+                riders=()):
+        """The rebalance of a hot tile (the reference's ``regroup``,
+        mpif_calculate_part_redist, mpi_mod.f90:566-658): every slot of the
+        group with its origin and ``riders`` (per-slot tensors) gathered
+        onto every rank and placed again by ``regroup_rows`` at ``new_cap``
+        slots a tile; this rank takes its block, and ``local_cap`` (so the
+        draws' offset) becomes ``new_cap``.  Returns (particles, origins,
+        riders) of the rank."""
+        g, dev = self.group, p.device
+        whole = {f: g.cat_rows(getattr(p, f), "regroup").cpu().numpy()
+                 for f in FIELDS}
+        o = g.cat_rows(origin, "regroup").cpu().numpy()
+        rd = [g.cat_rows(r, "regroup").cpu().numpy() for r in riders]
+        tiled, new_origin, moved = regroup_rows(whole, o, rd,
+                                                self.field_tiles(), new_cap)
+        lo = self.index * new_cap
+        q = Particles(**{f: torch.as_tensor(a[lo:lo + new_cap], device=dev)
+                         for f, a in tiled.items()})
+        self.local_cap = new_cap
+        self.stats["regroups"] += 1
+        return (q, torch.as_tensor(new_origin[lo:lo + new_cap], device=dev),
+                [torch.as_tensor(r[lo:lo + new_cap], device=dev)
+                 for r in moved])
+
+    def owned_sites(self, col_flat: torch.Tensor, nx: int) -> torch.Tensor:
+        """The regional boundary's sites whose column this rank's tile
+        owns (the reference's ``partition_boundary``, tiles.py:392-441):
+        ``col_flat`` the sites' flat columns of the (ny, nx) met grid."""
+        jy = torch.div(col_flat, nx, rounding_mode="floor")
+        ix = col_flat - jy * nx
+        it = torch.clamp(torch.div(ix, self.tx, rounding_mode="floor"), 0,
+                         self.ntx - 1)
+        jt = torch.clamp(torch.div(jy, self.ty, rounding_mode="floor"), 0,
+                         self.nty - 1)
+        return (jt * self.ntx + it) == self.index

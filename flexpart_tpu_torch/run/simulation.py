@@ -46,17 +46,23 @@ local origins (the global one is ``rank * L`` more).
 group, one haloed tile a rank (parallel/domain.py, parallel/tiles.py):
 a rank holds the particles in its tile (``tile_local_cap`` slots, or as
 many as the release schedule's fullest tile needs with head-room), keeps
-their schedule origins in ``_origin``, advances them on its tile (K4
-``TILE``, K11 ``TILE``) and migrates those that left to the owning tiles
-after each step, deposits them with its tile's fields and samples them
-into partial grids summed at output; the halo is sized from the first
-wind field and every field read later is checked against the wind it
-supports.  What tiles do not run yet (splitting, domain filling,
-convection, OH, receptors, fluxes, the initial condition, the skewed CBL,
-warm starts, checkpoints, the rebalance of a hot tile) raises
-``NotImplementedError`` naming it when the ``Simulation`` is built or the
-run meets it; nested met and backward deposition raise ``ValueError``, as
-the reference.  Nothing is skipped silently.
+their origins in ``_origin`` (the schedule's; a split's child or a
+particle the regional boundary emits takes a fresh one, unique over the
+group, from ``_next_origin``), advances them on its tile (K4 ``TILE``,
+K11 ``TILE``, K11 ``TILE`` x ``CBL``) and migrates those that left to the
+owning tiles after each step, deposits them with its tile's fields and
+samples them into partial grids summed at output; the halo is sized from
+the first wind field and every field read later is checked against the
+wind it supports.  Convection, the OH reaction and the receptors run on
+the whole fields at the particles' global positions; the fluxes and the
+initial condition's scan of the advance's ends read the state before the
+migration; a split and the regional boundary fill the rank's own slots
+(the boundary's sites those whose column the rank's tile owns, drawn by
+their global site); a warm start and a domain fill are placed by tile as
+the schedule is; a checkpoint keeps every rank's slots and partial grids;
+a second step in a row whose migration defers particles regroups the
+group at twice the tile capacity.  Nested met and backward deposition
+raise ``ValueError``, as the reference, and so does ``legacy_rng``.
 
 Host-side control loop; all per-particle compute stays on the device.
 Per sync interval (timemanager.f90:152-712):
@@ -137,7 +143,7 @@ from ..core import domainfill, reorder, rng
 from ..core.advance import StepConfig, StepParams, advance_all
 from ..core.legacy import LegacyRnd
 from ..core.release import activate, release_schedule_arrays
-from ..core.split import split_particles
+from ..core.split import due_and_free, split_particles
 from ..core.state import FIELDS, ITRA_INACTIVE, Particles
 from ..grid.conccalc import ConcConfig, kernel_possible_at, make_conccalc
 from ..grid.fluxes import FluxConfig, make_calcfluxes, zero_flux
@@ -245,10 +251,10 @@ class Simulation:
     device: Any = "cuda"             # where the particles, the met fields
     #                                  and the accumulators live
 
-    def _refuse_unported(self):
-        """Raise for every option whose code is not ported yet: under
-        ``distributed="tiles"``, what tiles do not run yet, each by name;
-        nested met and backward deposition as the reference refuses them."""
+    def _refuse_on_tiles(self):
+        """Under ``distributed="tiles"``, raise for what the reference's
+        tiles mode refuses, by name: nested met and backward deposition,
+        and ``legacy_rng``."""
         if self.distributed != "tiles":
             return
         cmd = self.cmd
@@ -262,27 +268,10 @@ class Simulation:
                              + " (use distributed='dp' for these)")
         if self.legacy_rng:
             raise ValueError("legacy_rng is single-device only")
-        unported = {
-            "splitting (itsplit)": cmd.itsplit < abs(cmd.ideltas),
-            "domain filling (mdomainfill)": cmd.mdomainfill >= 1,
-            "convection (lconvection=1)": cmd.lconvection == 1,
-            "OH species": any(s.ohreact for s in self.releases.species),
-            "receptors": bool(self.receptors),
-            "gross fluxes (iflux)": cmd.iflux == 1,
-            "the initial condition (linit_cond)": cmd.linit_cond >= 1,
-            "the skewed CBL (cblflag)": cmd.cblflag == 1,
-            "a warm start (ipin=1)": cmd.ipin == 1,
-            "checkpoints (checkpoint_at)": self.checkpoint_at is not None,
-        }
-        bad = [name for name, on in unported.items() if on]
-        if bad:
-            raise NotImplementedError(
-                "not ported yet under distributed='tiles': "
-                + "; ".join(bad))
 
     def __post_init__(self):
         cmd = self.cmd
-        self._refuse_unported()
+        self._refuse_on_tiles()
         if self.distributed not in (None, "dp", "tiles"):
             raise ValueError(f"distributed={self.distributed!r}: None, 'dp' "
                              "or 'tiles'")
@@ -297,6 +286,7 @@ class Simulation:
         self._tiles = None               # tiles: the rank's TiledEngine
         self._tile_defer_streak = 0
         self._placed_origin = None       # tiles: the placed slots' origins
+        self._next_origin = None         # tiles: the next fresh origin
         if self.distributed in ("dp", "tiles"):
             if self.legacy_rng:
                 raise ValueError("legacy_rng is single-device only")
@@ -1000,7 +990,7 @@ class Simulation:
         process holds: all of them alone; in a data-parallel run the
         rank's rows of the array padded to a multiple of the world size; in
         a tiles run the slots of the rank's tile (``_placed_origin``: their
-        schedule origins)."""
+        schedule origins; the fresh ones start after the array's)."""
         if self._group is None:
             return arrays
         if self._tiles is not None:
@@ -1009,6 +999,7 @@ class Simulation:
             self._first = self._tiles.index * self._tiles.local_cap
             self._placed_origin = torch.as_tensor(origin,
                                                   device=self.device)
+            self._next_origin = len(arrays["z"])
             return rows
         arrays = parallel.pad_particles(arrays, self._group.world)
         self._first = self._group.rows(len(arrays["z"]))[0]
@@ -1083,10 +1074,6 @@ class Simulation:
     def load_checkpoint(self, path) -> int:
         """Restore a checkpoint of a run with this configuration; returns
         the itime to pass to ``run(start_itime=...)``."""
-        if self._tiles is not None:
-            raise NotImplementedError("not ported yet under "
-                                      "distributed='tiles': checkpoint "
-                                      "resume")
         return partdump.load_checkpoint(path, self)
 
     def _sort(self, height):
@@ -1337,6 +1324,8 @@ class Simulation:
                         if self._group is None:
                             self.particles, counts = split_particles(
                                 self.particles, itime, ld, self._origin)
+                        elif self._tiles is not None:
+                            counts = self._tile_split(itime, ld)
                         else:
                             counts = parallel.split_sharded(
                                 self._group, self.particles, itime, ld,
@@ -1361,6 +1350,7 @@ class Simulation:
             # the step's sorts
             if self.use_initcond:
                 prev_active = self.particles.active.clone()
+            xold = yold = zold = None
             if self.use_flux:
                 xold, yold = self.particles.x, self.particles.y
                 zold = self.particles.z.clone()
@@ -1372,21 +1362,34 @@ class Simulation:
             if self.nest_grids:
                 z0n, z1n = self._get_nest(mt0), self._get_nest(mt1)
             leg = self._legacy_bases(itime) if self.legacy_rng else None
-            with self.timers.section("advance"):
-                if self._tiles is not None:
-                    self.particles, diag = self._tile_step(
-                        istep, itime, mt0, mt1, draws)
-                elif self._group is None:
-                    self.particles, diag = advance_all(
-                        self.particles, z0, z1, itime, mt0, mt1,
-                        rng.Key(self.seed, istep), self.step_cfg,
-                        self.step_prm, draws=draws, z0n=z0n, z1n=z1n,
-                        leg=leg)
-                else:
-                    self.particles, diag = self._sharded_advance(
-                        self.particles, z0, z1, itime, mt0, mt1,
-                        rng.Key(self.seed, istep), self.step_prm,
-                        offset=self._first, draws=draws, z0n=z0n, z1n=z1n)
+            if self._tiles is not None:
+                # its sections of its own: the advance, the fluxes and the
+                # initial condition before the migration, the migration
+                pre = None
+                if self.use_flux or self.use_initcond:
+                    pre = functools.partial(
+                        self._before_migration, itime + lsync, xold, yold,
+                        zold, prev_active if self.use_initcond else None, z1)
+                self.particles, diag = self._tile_step(
+                    istep, itime, mt0, mt1, draws, pre)
+                if self.use_initcond:
+                    # the ends of the dry deposition and the age limit are
+                    # scanned against the slots after the migration
+                    prev_active = self.particles.active.clone()
+            else:
+                with self.timers.section("advance"):
+                    if self._group is None:
+                        self.particles, diag = advance_all(
+                            self.particles, z0, z1, itime, mt0, mt1,
+                            rng.Key(self.seed, istep), self.step_cfg,
+                            self.step_prm, draws=draws, z0n=z0n, z1n=z1n,
+                            leg=leg)
+                    else:
+                        self.particles, diag = self._sharded_advance(
+                            self.particles, z0, z1, itime, mt0, mt1,
+                            rng.Key(self.seed, istep), self.step_prm,
+                            offset=self._first, draws=draws, z0n=z0n,
+                            z1n=z1n)
             nan_total += diag.nan_count
             # the adaptive step's dry-deposition window; no sort runs
             # between the advance and the dry deposition, so its slots are
@@ -1407,8 +1410,9 @@ class Simulation:
                     self._average_sample(itime + lsync, z0, z1, mt0, mt1)
 
             # gross fluxes across the output cells' faces
-            # (timemanager.f90:617-623; K16)
-            if self.use_flux:
+            # (timemanager.f90:617-623; K16); a tiles run's before the
+            # migration (_before_migration)
+            if self.use_flux and self._tiles is None:
                 with self.timers.section("fluxes"):
                     self._calcfluxes(self.flux, self.particles, xold, yold,
                                      zold, itime + lsync, self.lage,
@@ -1493,30 +1497,85 @@ class Simulation:
         return self.particles
 
     def _tile_step(self, istep: int, itime: int, mt0: int, mt1: int,
-                   draws):
-        """A tiles run's advance: the rank's tile step and the migration
-        (parallel/tiles.py), the group's deferrals counted.  A particle
-        that its full target tile denies stays in the halo and retries
-        next step; a second step in a row that defers any is the hot tile
-        the reference regroups (simulation.py:1286-1294 there), which is
-        not ported."""
+                   draws, pre=None):
+        """A tiles run's advance: the rank's tile step (timed as
+        ``advance``) and the migration (``migrate``; parallel/tiles.py),
+        ``pre`` called on the state between them (its own sections), the
+        group's deferrals counted (the same count on every rank).  A
+        particle that its full target tile denies stays in the halo and
+        retries next step; a second step in a row that defers any is a hot
+        tile, and the group regroups at twice the tile capacity (the
+        reference's simulation.py:1286-1294): every schedulable slot placed
+        again by its owner, the draws' offset with the new capacity."""
         eng = self._tiles
-        p, diag, deferred = eng.advance(
-            self.particles, self._get_tiles(mt0), self._get_tiles(mt1),
-            itime, mt0, mt1, rng.Key(self.seed, istep), self.step_prm,
-            self._origin, draws=draws)
-        if deferred:
-            self._tile_defer_streak += 1
-            log.warning("tile migration deferred %d particles (a tile near "
-                        "its capacity %d)", deferred, eng.local_cap)
-            if self._tile_defer_streak >= 2:
-                raise NotImplementedError(
-                    "tile rebalance (regroup): not ported yet; a tile "
-                    f"deferred particles two steps in a row at its capacity "
-                    f"{eng.local_cap} (raise tile_local_cap)")
-        else:
+        # the averaged dump's per-slot sums travel with their particles
+        avg = (() if self._avg_sums is None
+               else (*self._avg_sums.unbind(0), self._avg_counts))
+        with self.timers.section("advance"):
+            q, diag = eng.step(
+                self.particles, self._get_tiles(mt0), self._get_tiles(mt1),
+                itime, mt0, mt1, rng.Key(self.seed, istep), self.step_prm,
+                draws=draws)
+        if pre is not None:
+            pre(q)
+        with self.timers.section("migrate"):
+            return self._migrate(q, diag, avg)
+
+    def _migrate(self, q, diag, avg):
+        """``_tile_step``'s migration, and the regroup of a hot tile."""
+        eng = self._tiles
+        p, diag, deferred = eng.migrate(q, diag, self._origin, avg)
+        if not deferred:
             self._tile_defer_streak = 0
-        return p, diag
+            return p, diag
+        self._tile_defer_streak += 1
+        log.warning("tile migration deferred %d particles (a tile near its "
+                    "capacity %d)", deferred, eng.local_cap)
+        if self._tile_defer_streak < 2:
+            return p, diag
+        new_cap = 2 * eng.local_cap
+        log.warning("tile rebalance: regrouping at a tile capacity of %d",
+                    new_cap)
+        t_below = () if diag.t_below is None else (diag.t_below,)
+        p, self._origin, moved = eng.regroup(p, self._origin, new_cap,
+                                             t_below + avg)
+        self._first = eng.index * eng.local_cap
+        self._tile_defer_streak = 0
+        if avg:
+            self._avg_sums = torch.stack(moved[len(t_below):-1])
+            self._avg_counts = moved[-1]
+        return p, dataclasses.replace(
+            diag, t_below=moved[0] if t_below else None)
+
+    def _before_migration(self, itime: int, xold, yold, zold, prev_active,
+                          z1, q) -> None:
+        """Tiles: what reads the state after the advance and before the
+        migration (the reference's ``return_pre``), in the slots of the
+        state before the step: the fluxes across the output cells' faces
+        (K16, into the rank's partial flux grid) and the initial
+        condition's scan of the particles that ended in the advance (K17,
+        into the rank's partial grid)."""
+        if self.use_flux:
+            with self.timers.section("fluxes"):
+                self._calcfluxes(self.flux, q, xold, yold, zold, itime,
+                                 self.lage, self.flux_cfg,
+                                 bool(self.cmd.ioutputforeachrelease))
+        if prev_active is not None:
+            with self.timers.section("initcond"):
+                self._ic_scatter(self.init_cond, q, prev_active & ~q.active,
+                                 z1, self.ic_cfg)
+
+    def _tile_split(self, itime: int, ldirect: int) -> torch.Tensor:
+        """Tiles: K13 alone on the rank's slots (no ``Share``), the free
+        slots ranked in slot order, so that every child stays on its
+        parent's tile (the reference's ``make_tiled_split``); each child
+        takes a fresh origin.  Returns the group's counts (due, free,
+        granted)."""
+        _, free = due_and_free(self.particles, itime, ldirect)
+        self.particles, counts = split_particles(self.particles, itime,
+                                                 ldirect)
+        return self._fresh_origins(free & self.particles.active, counts, 2,
+                                   "split_counts")
 
     def _fill_domain(self) -> None:
         """Fill the domain (or the release box's window) with particles of
@@ -1533,36 +1592,83 @@ class Simulation:
             capacity=self.capacity, window=window)
         self.particles = interop.particles_from_numpy(
             self._rank_rows(parts), self.device)
+        if self._tiles is not None:
+            # the fill's origins (the constructor, before the fill, took
+            # none)
+            self._origin = self._placed_origin
         if bnd is not None:
-            self._boundary = domainfill.BoundaryState.from_numpy(
-                bnd, self.device)
+            self._boundary = self._own_boundary(
+                domainfill.BoundaryState.from_numpy(bnd, self.device))
         log.info("domain-filling: %d particles, total air mass %.3e kg%s",
                  self.particles.capacity, self.airmass_total,
                  "" if bnd is None
                  else " (regional window + boundary conditions)")
 
+    def _own_boundary(self, bs):
+        """A regional boundary's state as this process runs it: whole
+        alone and in a data-parallel run; in a tiles run every site kept
+        (so that each draws by its global index) but valid only where the
+        rank's tile owns its column, its accumulator zero elsewhere (the
+        sites' validities and accumulators then sum over the group
+        exactly)."""
+        if self._tiles is None:
+            return bs
+        valid = bs.valid & self._tiles.owned_sites(bs.col_flat.long(),
+                                                   self.grid.nx)
+        return bs.replace(valid=valid, acc=torch.where(
+            valid, bs.acc, torch.zeros_like(bs.acc)))
+
     def _boundary_step(self, istep: int, itime: int, z0, z1, mt0: int,
                        mt1: int) -> None:
         """One step of the regional boundary (K14 on a CUDA device): the
         particles outside the window end, the inflow accumulates, new
-        particles take free slots ranked by schedule origin."""
+        particles take free slots ranked by schedule origin (in a tiles
+        run by slot, each a fresh origin)."""
         cmd, g, bs = self.cmd, self.grid, self._boundary
         _, _, xhi, _, _ = bs.limits()
         check_x = not (g.xglobal and xhi == g.nx - 2)
         draws = (self._boundary_hook(istep)
                  if self._boundary_hook is not None else None)
         w0, w1 = domainfill.time_weights(itime, mt0, mt1)
-        step = (domainfill.boundcond if self._group is None
+        step = (domainfill.boundcond
+                if self._group is None or self._tiles is not None
                 else functools.partial(parallel.boundcond_sharded,
                                        self._group))
+        free = (None if self._tiles is None
+                else parallel.free_after_kill_mask(self.particles, bs,
+                                                   check_x))
         bs.acc, counts = step(
             self.particles, bs, z0.f3d, z1.f3d, z0.height, itime, w0, w1,
             rng.Key(self.seed, 3000000 + istep), cmd.lsynctime,
             min(cmd.itsplit, 499999999), g.ylat0, g.dy,
             mdomainfill=cmd.mdomainfill, ldirect=cmd.ldirect,
-            nclassunc=self.nclassunc, check_x=check_x, origin=self._origin,
+            nclassunc=self.nclassunc, check_x=check_x,
+            origin=None if self._tiles is not None else self._origin,
             draws=draws)
+        if free is not None:
+            # the emitted particles: the slots free after the kill that
+            # are live now (granted, the counts' last)
+            counts = self._fresh_origins(free & self.particles.active,
+                                         counts, 3, "boundary")
         self.boundary_counts.append(counts)
+
+    def _fresh_origins(self, new: torch.Tensor, counts: torch.Tensor,
+                       col: int, what: str) -> torch.Tensor:
+        """Tiles: origins for the particles new in this rank's slots
+        ``new`` (a split's children, the boundary's emissions), unique
+        over the group: ``_next_origin`` plus the group's new particles of
+        the ranks before this one, in slot order; ``counts[col]`` is this
+        rank's count of them.  Returns the group's ``counts`` summed (one
+        ``all_gather``, read by the host)."""
+        every = torch.stack(self._group.all_gather(counts, what)) \
+            .cpu().numpy().astype(np.int64)
+        rank = self._group.rank
+        base = self._next_origin + int(every[:rank, col].sum())
+        order = torch.cumsum(new.to(torch.int64), 0) - 1
+        self._origin = torch.where(new, base + order, self._origin)
+        self._next_origin += int(every[:, col].sum())
+        return torch.as_tensor(every.sum(0), dtype=counts.dtype,
+                               device=counts.device)
 
     @staticmethod
     def _time_weights(itime: int, mt0: int, mt1: int):

@@ -8,7 +8,7 @@ Builds every kernel (one nvcc per source, all started together), prints
 the card's name and power limit, the build's seconds and the ptxas
 registers, stack and spills of every kernel's instantiations (empty where
 build/kernels/ already held the libraries: nvcc did not run), then runs
-chip_smoke.py's checks of K11's CBL instantiation (``cbl``) and K4's NESTS
+chip_smoke.py's checks of K11's CBL instantiation (``cbl``, with K11 TILE x CBL) and K4's NESTS
 instantiation (``nests``) against
 their plain versions at ``n_particles`` (default 2**20, a tenth of the
 main path's), each with its times, one JSON line per check; on request
@@ -25,8 +25,12 @@ many slots), or K17 alone (``initcond``); the sim_dp phase's shards
 (``dp_shards``: a step of ``n_particles`` split into 2 and 4 shards, K13
 and K14 with a rank's offsets); K4 TILE and K11 TILE against their plain
 versions (``tile``), the sim_tiles phase's step split into 2 x 2 tiles
-(``tile_shards``) and its adaptive tiles run at world size 1
-(``sim_tiles_adaptive``, 10 x 2**20 particles whatever ``n_particles``).  A failed check raises.  This is the quick call to make
+(``tile_shards``, with a regroup by hand) and its adaptive tiles run at
+world size 1 (``sim_tiles_adaptive``, 10 x 2**20 particles whatever
+``n_particles``), and its tiles runs of the options at world size 1
+(``sim_tiles_options``: the skewed CBL, the regional domain fill, OH with
+splitting and a checkpoint's resume; ``n_particles`` should be the main
+path's 10 x 2**20, which those runs' checks expect).  A failed check raises.  This is the quick call to make
 after changing a kernel, before a whole chip_smoke.py run.
 """
 import json
@@ -44,6 +48,25 @@ def tiles_adaptive(cs, device) -> dict:
     with cs.group_of_one(cs.SIM_TILES_DIR / "group"):
         return cs.sim_tiles_adaptive(
             device, list(_build.KERNELS) + list(_build.ENTRIES))
+
+
+def tiles_options(cs, device, which=("cbl", "domainfill", "oh_split")
+                  ) -> dict:
+    """chip_smoke.py's tiles runs of the options in this process's group
+    of one: sim_tiles_cbl, sim_tiles_domainfill, sim_tiles_oh_split (or
+    those of ``which``)."""
+    from flexpart_tpu_torch import _build
+    kernels = list(_build.KERNELS) + list(_build.ENTRIES)
+    runs = {"cbl": lambda: cs.sim_tiles_adaptive(device, kernels, cbl=True),
+            "domainfill": lambda: cs.sim_tiles_domainfill(device, kernels),
+            "oh_split": lambda: cs.sim_tiles_oh_split(device, kernels)}
+    out = {}
+    with cs.group_of_one(cs.SIM_TILES_DIR / "group"):
+        for name in which:
+            t0 = time.perf_counter()
+            out["sim_tiles_" + name] = runs[name]()
+            out["sim_tiles_" + name]["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def main() -> int:
@@ -85,6 +108,11 @@ def main() -> int:
               "tile": cs.kernel_advance_tile,
               "tile_shards": cs.tile_shards,
               "sim_tiles_adaptive": lambda d, g: tiles_adaptive(cs, d),
+              "sim_tiles_options": lambda d, g: tiles_options(cs, d),
+              "sim_tiles_domainfill": lambda d, g: tiles_options(
+                  cs, d, ("domainfill",)),
+              "sim_tiles_oh_split": lambda d, g: tiles_options(
+                  cs, d, ("oh_split",)),
               "convection": lambda d, g: dict(zip(
                   ("convection", "redist", "redist.backward"),
                   cs.kernel_convection(d, g)))}

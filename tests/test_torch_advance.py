@@ -176,7 +176,7 @@ def test_chunking_does_not_change_the_port(setup):
 
 def test_outside_slice_raises(setup):
     """What the port's advance does not take raises by name: tile mode
-    with the CBL or with nests, or without its tile (``StepConfig.check``,
+    with nests, or without its tile (``StepConfig.check``,
     ``advance_args``), the fixed step with the CBL on a CUDA tensor (K4 has
     no CBL; ``advance_all_cuda`` refuses it before it looks at the
     tensors), and nests with the adaptive step (as the reference)."""
@@ -186,8 +186,8 @@ def test_outside_slice_raises(setup):
     cfg.check()
     with pytest.raises(ValueError, match="Tile"):
         tadv.advance_args(cfg, tprm, 0, 0, 3600)
-    with pytest.raises(NotImplementedError, match="tile_mode: cblflag"):
-        type(tcfg)(**{**cfg.__dict__, "cblflag": True}).check()
+    # the skewed CBL on a tile is K11 TILE x CBL's (the adaptive step)
+    type(tcfg)(**{**cfg.__dict__, "cblflag": True, "method": 1}).check()
     with pytest.raises(ValueError, match="nested"):
         type(tcfg)(**{**cfg.__dict__, "nests": ((5, 5),)}).check()
     cbl = type(tcfg)(**{**tcfg.__dict__, "cblflag": True})

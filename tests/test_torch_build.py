@@ -121,7 +121,9 @@ def test_entries_launch_their_instantiations(entry):
             "advance.tile": "if (a.tile) {\n#if FP_HAS(3)\n    return "
                             "launch(a.settling",
             "advance_adaptive.tile": "if (a.tile) {\n    if (a.table_bf16) "
-                                     "{\n#if FP_HAS(4)"}[entry]
+                                     "{\n#if FP_HAS(4)",
+            "advance_adaptive.tile_cbl": "if (a.tile && a.cblflag) {\n"
+                                         "#if FP_HAS(5)"}[entry]
     assert pick in text
     if entry.endswith("bkdep") and entry != "conccalc.bkdep":
         assert "const bool bkdep = xscav != nullptr;" in text
@@ -1034,13 +1036,14 @@ def test_parted_kernels_build_each_part_apart(name, tmp_path, monkeypatch):
     """K4 and K11 are built as libraries of parts, one nvcc each with
     -DFP_PART=<k>: the stock instantiations on f32 tables (0), on bf16
     tables (1), the nests' (K4) or the CBL's (K11) (2), and the tile's
-    (K4: 3; K11: 3 on f32 tables, 4 on bf16 tables), named apart; the
+    (K4: 3; K11: 3 on f32 tables, 4 on bf16 tables, 5 its CBL), named
+    apart; the
     source's launcher returns the wrapper's NOT_IN_PART for the other
     parts' configurations, each part's instantiations inside its own
     preprocessor guard."""
     monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")    # none on the CPU
     k = _kernel(name)
-    assert k.parts == (4 if name == "advance" else 5)
+    assert k.parts == (4 if name == "advance" else 6)
     cmds = [k._compile_cmd(tmp_path / "x.so", part)
             for part in range(k.parts)]
     assert [c.count(f"-DFP_PART={p}") for p, c in enumerate(cmds)] == \
@@ -1066,8 +1069,10 @@ def test_parted_kernels_build_each_part_apart(name, tmp_path, monkeypatch):
         assert "std::false_type" in guarded[0] and "true_type" in guarded[1]
         assert "tile_by_turb(std::false_type{})" in guarded[3]
         assert "tile_by_turb(std::true_type{})" in guarded[4]
+        assert "pick_tile(std::true_type{}, Cbl{})" in guarded[5]
+        assert "pick_tile(std::false_type{}, Cbl{})" in guarded[5]
     for other in _build.KERNELS:
-        assert other.parts == {"advance": 4, "advance_adaptive": 5}.get(
+        assert other.parts == {"advance": 4, "advance_adaptive": 6}.get(
             other.name, 1)
 
 

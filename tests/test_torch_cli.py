@@ -295,17 +295,18 @@ def test_build_simulation_equals_jax(metdir, tmp_path):
 # anything, the trace too, is written.  ``--dp`` and ``--tiles`` run
 # (tests/test_torch_dp_run.py, test_torch_tiles_run.py); on the CPU
 # without ``--devices`` each is refused by that name, and a tiles run
-# refuses this job's convection by name in its rank (the launcher's
-# RankFailed carries the rank's error)
+# refuses backward deposition by name in its rank, as the reference does
+# (the launcher's RankFailed carries the rank's error)
+BKDEP = {"LDIRECT=1,": "LDIRECT=-1,", "IND_RECEPTOR=1,": "IND_RECEPTOR=4,"}
 REFUSED = {
     "dp": ({}, {}, ["--dp"], "--devices", ValueError, "no device count"),
-    "tiles": ({}, {}, ["--tiles", "--devices", "1"], "lconvection=1",
-              RankFailed, "NotImplementedError: not ported yet under "
-              "distributed='tiles'"),
-    "trace_dir": ({}, {}, ["--trace-dir", "trace", "--tiles", "--devices",
-                           "1"], "lconvection=1", RankFailed,
-                  "NotImplementedError: not ported yet under "
-                  "distributed='tiles'"),
+    "tiles": (BKDEP, {}, ["--tiles", "--devices", "1"],
+              "backward deposition", RankFailed,
+              "ValueError: distributed='tiles' does not support"),
+    "trace_dir": (BKDEP, {}, ["--trace-dir", "trace", "--tiles",
+                              "--devices", "1"], "backward deposition",
+                  RankFailed,
+                  "ValueError: distributed='tiles' does not support"),
     "tiles_devices": ({}, {}, ["--tiles"], "--devices", ValueError,
                       "no device count"),
 }

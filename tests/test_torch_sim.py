@@ -423,16 +423,21 @@ def test_age_classes_terminate_like_jax(tmp_path):
 
 
 # option -> the Simulation's arguments; a case whose refusal names
-# another option says so under "names" (a backward run, the Fortran files
-# and distributed="tiles" are ported: their cases hold that an option
-# still refused under tiles, convection or the initial condition, is
-# refused with them too, before the header is written)
+# another option says so under "names", and one whose refusal is not a
+# NotImplementedError names its error under "error" (a backward run, the
+# Fortran files and distributed="tiles" with every option are ported:
+# their cases hold that what the reference's tiles mode refuses, backward
+# deposition, nested met and legacy_rng, is refused with them too, as the
+# reference refuses it, before the header is written)
 REFUSED = {
-    "ldirect": dict(cmd_kw=dict(ldirect=-1, linit_cond=1),
-                    distributed="tiles", names="linit_cond"),
-    "distributed": dict(distributed="tiles", cmd_kw=dict(lconvection=1)),
+    "ldirect": dict(cmd_kw=dict(ldirect=-1, ind_receptor=4),
+                    distributed="tiles", names="backward deposition",
+                    error=ValueError),
+    "distributed": dict(distributed="tiles", met_nests="nest",
+                        names="nested met", error=ValueError),
     "write_fortran": dict(write_fortran=True, distributed="tiles",
-                          cmd_kw=dict(lconvection=1), names="lconvection"),
+                          legacy_rng=True, names="legacy_rng",
+                          error=ValueError),
 }
 
 # options the port runs since they were ported (they were cases of
@@ -469,13 +474,18 @@ PORTED = {
 def test_unported_option_is_refused_by_name(option, tmp_path):
     kw = dict(REFUSED[option])
     name = kw.pop("names", option)
+    error = kw.pop("error", NotImplementedError)
     species = kw.pop("species", None)
     if species is not None:
         cmd, rel, og = _config(tconfig)
         rel = tconfig.Releases(species=(tconfig.Species(**species),),
                                boxes=rel.boxes)
         kw["releases"] = rel
-    with pytest.raises(NotImplementedError) as err:
+    if kw.get("met_nests") == "nest":
+        nest = make_grid(nx=21, ny=11, nlev=GRID["nlev"], dx=2.0, dy=2.0,
+                         xlon0=-30.0, ylat0=20.0, xglobal=False)
+        kw["met_nests"] = (SyntheticMet(nest),)
+    with pytest.raises(error) as err:
         _port_sim(tmp_path, **kw)
     assert name in str(err.value)
     # nothing was written before the refusal

@@ -20,9 +20,12 @@
   tiles: every particle that the step neither wraps, mirrors, kills nor
   moves by the caps' update bitwise, the others within the reference's
   tolerance.
-* Every refusal of ``distributed="tiles"`` by name, and the halo check.
+* Every option that tiles part 1 refused, run in a one-rank gloo group
+  against the serial run; the refusals left (nested met, backward
+  deposition, ``legacy_rng``) by name, and the halo check.
 """
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -47,7 +50,7 @@ from flexpart_tpu.parallel import tiles as jtiles  # noqa: E402
 from flexpart_tpu_torch import interop  # noqa: E402
 from flexpart_tpu_torch.core import advance as tadv  # noqa: E402
 from flexpart_tpu_torch.core import rng  # noqa: E402
-from flexpart_tpu_torch.core.state import FIELDS  # noqa: E402
+from flexpart_tpu_torch.core.state import FIELDS, ITRA_INACTIVE  # noqa: E402
 from flexpart_tpu_torch.parallel import domain as tdom  # noqa: E402
 from flexpart_tpu_torch.parallel import tiles as ttiles  # noqa: E402
 from flexpart_tpu_torch.parallel.sharding import Layout  # noqa: E402
@@ -577,6 +580,78 @@ def test_tiled_advance_is_the_serial_advance(mesh, halo, polar):
         assert moved > 0
 
 
+def test_tiled_cbl_advance_matches_jax():
+    """K11 TILE x CBL's twin, the plain adaptive step with the skewed CBL
+    on each tile of a 2 x 2 split (``step_in_process``: each tile's step,
+    then the migration), against the JAX package's adaptive step with
+    ``cblflag``: tests/test_torch_cbl.py's convective met (a strongly
+    convective east, -h/L = 60) and boundary-layer particles, one step
+    (ifine 4), each particle drawing JAX's draws of its schedule slot.
+    ``make_tiled_advance`` itself cannot trace the adaptive step under the
+    installed JAX (its loop of passes inside ``shard_map`` is refused: the
+    carry's varying axes differ), so the reference here is its tile's
+    body, the JAX adaptive step, on the whole grid.  Held to
+    tests/test_torch_cbl.py::test_cbl_adaptive_step_matches_jax's
+    tolerances on the particles whose next step agrees: x, y within 1e-4
+    cells, z within 1e-2 m + 1e-4 z for 99% of them; every particle kept,
+    on its owner; the active and NaN-redraw counts equal."""
+    import test_torch_cbl as tc
+    from flexpart_tpu import met as jmet
+    from flexpart_tpu.core import advance as jadv
+    grid = jmet.make_grid(nx=37, ny=19, nlev=15, dx=10.0, dy=10.0)
+    m = jmet.SyntheticMet(grid)
+    zs = []
+    for t in (0.0, float(tc.MEM1)):
+        eta = m.fetch(t)
+        zs.append(tc._convective(jmet.calcpar(grid, eta, jmet.process_eta(
+            grid, eta, jmet.compute_heights(grid, eta))), grid.nx // 2))
+    tz = [interop.zfields_from_numpy(_np(z), "cpu") for z in zs]
+    jcfg, jprm, tcfg, tprm = tc._cfgs(grid, 1, tc.ADAPTIVE_IFINE)
+    nty, ntx, halo, cap = 2, 2, 3, tc.N
+    rs = np.random.default_rng(21)
+    n = tc.N
+    jp = tc._particles(grid, seed=21)._replace(
+        x_hi=jnp.asarray(rs.uniform(1.0, 34.9, n), jnp.float32),
+        y_hi=jnp.asarray(rs.uniform(1.5, 16.5, n), jnp.float32),
+        active=jnp.ones(n, bool))
+    key = jax.random.PRNGKey(4)
+    jq, jd = jadv.advance_all(jp, zs[0], zs[1], jnp.int32(tc.LSYNC),
+                              jnp.int32(0), jnp.int32(tc.MEM1), key, jcfg,
+                              jprm)
+    jt = _np(jq)
+    jdraws = tc._jax_draws(key, tc.ADAPTIVE_IFINE, 1)
+    d = _np(jp)
+    engs = _engines(tcfg, grid, nty, ntx, halo, cap)
+    placed, origin = ttiles.shard_by_tile_scheduled(d, engs[0].field_tiles(),
+                                                    cap)
+    shards = _shards(placed, 4, cap)
+    origins = [torch.as_tensor(origin[r * cap:(r + 1) * cap])
+               for r in range(4)]
+    # each slot draws its particle's draws (an empty slot the first's)
+    draws = [{t: v[..., o.clamp(min=0)] for t, v in jdraws.items()}
+             for o in origins]
+    diags, mig = ttiles.step_in_process(engs, shards, origins, tz[0], tz[1],
+                                        tc.LSYNC, 0, tc.MEM1, rng.Key(0, 0),
+                                        tprm, draws)
+    assert mig["deferred"] == 0
+    out = {f: np.concatenate([getattr(q, f).numpy() for q in shards])
+           for f in FIELDS}
+    t = _by_id(out, np.concatenate([o.numpy() for o in origins]), n)
+    assert t["active"].sum() == int(jd.n_active) == n
+    assert sum(int(dg.nan_count) for dg in diags) == int(jd.nan_count)
+    assert tc._skewed(jp, (grid,)) > 0.3
+    same = t["idt"] == jt["idt"]
+    assert same.mean() >= 0.98
+    for f in ("x", "y"):
+        np.testing.assert_allclose((t[f + "_hi"] + t[f + "_lo"])[same],
+                                   (jt[f + "_hi"] + jt[f + "_lo"])[same],
+                                   rtol=0, atol=1e-4)
+    dz = np.abs(t["z"] - jt["z"])[same]
+    assert np.mean(dz <= 1e-2 + 1e-4 * np.abs(jt["z"][same])) >= 0.99
+    for f in ("x_hi", "y_hi", "z", "wp"):
+        assert np.isfinite(t[f]).all(), f
+
+
 def _refusal_sim(tmp_path, **kw):
     import torch_tiles_ranks as tr
     from flexpart_tpu_torch import Simulation, SyntheticMet, make_grid
@@ -594,36 +669,127 @@ def _refusal_sim(tmp_path, **kw):
                       device="cpu", **kw)
 
 
-REFUSED = {
-    "splitting (itsplit)": dict(cmd=dict(itsplit=3600)),
-    "domain filling (mdomainfill)": dict(cmd=dict(mdomainfill=1)),
-    "convection (lconvection=1)": dict(cmd=dict(lconvection=1)),
-    "OH species": dict(species="OH"),
-    "receptors": dict(receptors="R"),
-    "gross fluxes (iflux)": dict(cmd=dict(iflux=1)),
-    "the initial condition (linit_cond)": dict(cmd=dict(linit_cond=1,
-                                                        ldirect=-1)),
-    "the skewed CBL (cblflag)": dict(cmd=dict(cblflag=1)),
-    "a warm start (ipin=1)": dict(cmd=dict(ipin=1)),
-    "checkpoints (checkpoint_at)": dict(checkpoint_at=3600),
+# each option that tiles part 1 refused, as it runs now: (the Command's
+# changes, the Simulation's, how the run is held against the serial run)
+# in a one-rank gloo group.  "slots": every slot bitwise (world size 1 with
+# the serial capacity as the tile's keeps the slots, so the draws); "rows":
+# the live particles' rows bitwise (a split's children and the boundary's
+# emissions take the tile's free slots in slot order, the serial run's in
+# origin order, so other slots)
+OPTIONS = {
+    "splitting (itsplit)": (dict(itsplit=3600), {}, "rows"),
+    "domain filling (mdomainfill)": (dict(mdomainfill=1), {}, "rows"),
+    "convection (lconvection=1)": (dict(lconvection=1), {}, "slots"),
+    "OH species": ({}, dict(ohreact=True), "slots"),
+    "receptors": ({}, dict(receptors="R"), "slots"),
+    "gross fluxes (iflux)": (dict(iflux=1), {}, "slots"),
+    "the initial condition (linit_cond)": (dict(linit_cond=1, ldirect=-1),
+                                           {}, "slots"),
+    "the skewed CBL (cblflag)": (dict(cblflag=1, ctl=5.0),
+                                 dict(turboff=False), "slots"),
+    "a warm start (ipin=1)": (dict(ipin=1), {}, "slots"),
+    "checkpoints (checkpoint_at)": ({}, dict(checkpoint_at=3600), "slots"),
 }
 
 
-@pytest.mark.parametrize("name", list(REFUSED))
-def test_tiles_refuses_what_it_does_not_run_by_name(tmp_path, name):
-    """What tiles do not run yet raises NotImplementedError naming it,
-    before any process group is needed."""
+def _option_run(out, distributed, cmd_kw, kw):
+    import torch_tiles_ranks as tr
     from flexpart_tpu_torch import config as tconfig
-    kw = {k: (dict(v) if isinstance(v, dict) else v)
-          for k, v in REFUSED[name].items()}
-    if kw.get("species") == "OH":
-        kw["species"] = tconfig.Species(name="REACT", ohcconst=1e-11,
-                                        ohdconst=500.0, ohnconst=0.0)
+    kw = dict(kw)
     if kw.get("receptors") == "R":
         kw["receptors"] = (tconfig.Receptor("R", 0.0, 40.0),)
-    with pytest.raises(NotImplementedError, match=name.replace(
-            "(", r"\(").replace(")", r"\)")):
-        _refusal_sim(tmp_path, **kw)
+    if "checkpoint_at" in kw:
+        kw["checkpoint_path"] = str(out / "checkpoint.npz")
+    cap = 16 * 4
+    tile = {"tile_local_cap": cap} if distributed else {}
+    if cmd_kw.get("mdomainfill"):
+        sim = tr.port_domainfill(out, distributed, parts=600, capacity=1024,
+                                 **({"tile_local_cap": 1024}
+                                    if distributed else {}))
+    else:
+        sim = tr.port_full(out, distributed, parts=16, hours=2,
+                           cmd_kw=cmd_kw, capacity=cap, **tile, **kw)
+    sim.run()
+    return sim
+
+
+@pytest.mark.parametrize("name", list(OPTIONS))
+def test_tiles_refuses_what_it_does_not_run_by_name(tmp_path, name):
+    """Each option that a tiles run refused by name before runs now: two
+    hours of the reference's ``_sim_full`` job with it, in a one-rank
+    gloo group, against the serial run (turboff but for the CBL; the
+    tile's capacity the serial run's).  Held bitwise: every slot where
+    world size 1 keeps the slots and so the draws, the live particles'
+    rows where the option fills free slots (in the tile's slot order, not
+    the serial run's origin order), and the grids, fluxes, receptors,
+    initial-condition grids and counts of each option; a fresh origin for
+    every child and emitted particle, each once."""
+    import torch_tiles_ranks as tr
+    cmd_kw, kw, how = OPTIONS[name]
+    if name.startswith("a warm start"):
+        # the dump of a run before (IPOUT=2) in both output directories
+        prev = _option_run(tmp_path / "prev", None, dict(ipout=2), {})
+        for d in ("s", "t"):
+            (tmp_path / d).mkdir()
+            (tmp_path / d / "partposit_end").write_bytes(
+                (Path(prev.outdir) / "partposit_end").read_bytes())
+    serial = _option_run(tmp_path / "s", None, cmd_kw, kw)
+    with tr.group_of_one(tmp_path / "g"):
+        tiles = _option_run(tmp_path / "t", "tiles", cmd_kw, kw)
+        got, want = tr.summary(tiles), tr.summary(serial)
+        if name.startswith("checkpoints"):
+            again = tr.port_full(tmp_path / "r", "tiles", parts=16, hours=2,
+                                 capacity=64, tile_local_cap=64)
+            again.run(start_itime=again.load_checkpoint(
+                tmp_path / "t" / "checkpoint.npz"))
+            for f in FIELDS:
+                assert torch.equal(getattr(again.particles, f),
+                                   getattr(tiles.particles, f)), f
+    a, b = want["particles"], got["particles"]
+    if how == "slots":
+        # an empty slot of a tile holds zeros, the serial run's the
+        # empty particle's values: the slots in use held
+        used = serial.particles.itra.numpy() != ITRA_INACTIVE
+        for f in FIELDS:
+            np.testing.assert_array_equal(
+                getattr(tiles.particles, f).numpy()[used],
+                getattr(serial.particles, f).numpy()[used], err_msg=f)
+        np.testing.assert_array_equal(tiles.particles.itra.numpy(),
+                                      serial.particles.itra.numpy())
+    else:
+        np.testing.assert_array_equal(got["ensemble"], want["ensemble"])
+        origin = got["origin"]
+        assert len(np.unique(origin)) == len(origin)
+        # the fresh origins follow the schedule's 64, one per new particle
+        # (a later one may take a dead particle's slot and origin)
+        first = 1024 if name.startswith("domain") else 64
+        fresh = (origin >= first).sum()
+        assert 0 < fresh <= got["next_origin"] - first
+    assert b["active"].sum() == int(serial.particles.active.sum()) > 0
+    for key in ("split_counts", "boundary_counts"):
+        assert len(got[key]) == len(want[key])
+        for x, y in zip(got[key], want[key]):
+            np.testing.assert_array_equal(x, y, err_msg=key)
+    if name.startswith("splitting"):
+        assert got["split_counts"] and got["split_counts"][0][2] > 0
+    if name.startswith("domain"):
+        np.testing.assert_array_equal(got["boundary_acc"],
+                                      want["boundary_acc"])
+        assert sum(int(c[3]) for c in got["boundary_counts"]) > 0
+    if name == "receptors":
+        np.testing.assert_array_equal(got["creceptor"], want["creceptor"])
+    if name.startswith("convection"):
+        assert got["convection_moved"] == want["convection_moved"]
+    files = sorted(q.name for q in Path(serial.outdir).iterdir()
+                   if q.suffix == ".npz" and not q.name.startswith("check"))
+    assert files and files == sorted(
+        q.name for q in Path(tiles.outdir).iterdir()
+        if q.suffix == ".npz" and not q.name.startswith("check"))
+    for fname in files:
+        da = np.load(Path(serial.outdir) / fname)
+        db = np.load(Path(tiles.outdir) / fname)
+        for k in da.files:
+            np.testing.assert_array_equal(db[k], da[k], err_msg=fname + k)
 
 
 def test_tiles_refuses_nests_and_backward_deposition_as_the_reference(
