@@ -9,7 +9,7 @@ the port's stock forward step on the card, in phases:
 
   1. device   — card name and power limit, torch and CUDA versions;
   2. build    — nvcc for every kernel source, all started together (K4
-                and K11 in four and six parts, one nvcc a part; each
+                and K11 in nine and six parts, one nvcc a part; each
                 kernel's end in the line), and cuobjdump of the libraries
                 whose compiled code the bounds read, each as soon as it is
                 built, all of it before any timing (the `disassembly`
@@ -119,7 +119,19 @@ the port's stock forward step on the card, in phases:
                 TILE x CBL (a tile's skewed CBL) on K11 CBL's case on a 1 x
                 1 tile, bitwise against its plain version and, but where
                 the step wraps, mirrors or caps, against stock K11 CBL,
-                timed beside it, and on tile 0 of a 2 x 2 split;
+                timed beside it, and on tile 0 of a 2 x 2 split; and the fixed
+                step's crosses: K4's CBL instantiation (the fixed step with
+                the skewed CBL, ifine 11, the polar caps) bitwise against
+                its plain version, nan_count too, on 10 x 2**20
+                boundary-layer particles on K11 CBL's fields, as drawn and
+                in cell order, beside stock K4 TS and K11 CBL on the same
+                particles, with the shares of its substeps' branches (the
+                skewed zone, the linear form) and its bound (the substep
+                loop's and the skewed functions' instructions read from
+                its part built with FP_CBL_CALLS=1); K4 TILE x CBL on a 1 x
+                1 tile and on tile 0 of 2 x 2; K4 with turbswitch and
+                settling, with two nests and on a tile; and K11 CBL with
+                turbswitch off, each at 2**20 particles, bitwise;
   3b. kernels_oh_split — K12, the OH reaction, bitwise against its plain
                 version on the deposition particles (10 x 2**20, two OH
                 species, one with the power N = 2) at a daylight step of
@@ -173,6 +185,16 @@ the port's stock forward step on the card, in phases:
   7. profile  — REORDER_EVERY more steady steps (one sort among them)
                 under torch.profiler: CUDA launches per step, device time
                 by kernel with the sort's share, device busy share;
+  7b. fixed_cbl — main's stock step with cblflag (the fixed step's skewed
+                CBL, turbswitch, ifine 11, the polar caps) at full width: 10
+                x 2**20 boundary-layer particles on SyntheticMet with a
+                strong CBL over the eastern half, 8 steps through
+                advance_chunked (K2 each step, K4 CBL one launch a step,
+                the cell-order sort on the first), K3 into the 720x360x3
+                grid; launch counts reset just before and read just after;
+                particle-steps/s, the NaN redraws per step, and on the last
+                step's particles K4 CBL's time per call beside stock K4 TS
+                and K11 CBL, its bound and the shares of its branches;
   8. sim      — the port's Simulation.run at full width with the default
                 Command (convection and subgrid orography on) and two
                 species, the default tracer and a Cs-137-like aerosol that
@@ -542,9 +564,11 @@ def nvidia_smi_line() -> str:
 def ptxas_by_entry(build_log: str) -> dict:
     """{kernel entry: registers, stack frame, spill stores and loads in
     bytes} from nvcc's -Xptxas -v lines; a template instantiation is named
-    by its bool and int arguments (advance_kernel<1,0,1,0,0> is BF16, not
-    TS, POLAR, not SETTLING, not NESTS; K11's second argument is the
-    turbulence, 0 Hanna1, 1 TS, 2 CBL)."""
+    by its bool and int arguments (advance_kernel<1,0,1,0,0> is BF16,
+    Hanna1, POLAR, not SETTLING, not NESTS; K4's and K11's second argument
+    is the turbulence, 0 Hanna1, 1 TS, 2 CBL; K4's CBL kernel
+    advance_cbl_kernel<1,1,0,0,0> is BF16, POLAR, not SETTLING, not NESTS,
+    not TILE)."""
     import re
     out, entry, props = {}, None, None
     for ln in build_log.splitlines():
@@ -1033,6 +1057,9 @@ def phase_kernels(device, grid) -> dict:
     res["advance_adaptive"]["cbl"] = part("advance_adaptive_cbl",
                                           kernel_advance_cbl)
     res["advance"]["nests"] = part("advance_nests", kernel_advance_nests)
+    # the fixed step's crosses: K4 CBL, K4 TILE x CBL, K4's turbswitch
+    # crosses, K11 CBL with turbswitch off
+    res["advance.cbl"] = part("advance_fixed_cbl", kernel_advance_fixed_cbl)
     res["convection"], res["redist"], res["redist.backward"] = part(
         "convection_redist", kernel_convection)
     res.update(part("deposition", kernel_deposition))
@@ -1778,7 +1805,7 @@ def settling_instructions(kernel, bf16: bool, polar: bool) -> dict:
     n = {}
     for settle in (False, True):
         _, code = sass_instantiation(kernel, "advance_kernel",
-                                     (bf16, False, polar, settle, False))
+                                     (bf16, 0, polar, settle, False))
         n[settle] = sum(1 for _, op, _, _, _ in code if op != "NOP")
     return dict(stock=n[False], settling=n[True],
                 per_particle=n[True] - n[False])
@@ -2112,6 +2139,572 @@ def kernel_advance_tile_cbl(grid, z0, z1, tw, cfg, prm, key, ordered,
                   ny=eng.tile.ny))
     del q, pk, dk, zt0, tt
     return r
+
+
+# ------------------------------------------- the fixed step's crosses --
+#
+# The fixed step (K4) with the skewed CBL (its CBL instantiations) and with
+# turbswitch crossed with settling, nests and a tile; K11's CBL with
+# turbswitch off.  Command never makes these (cblflag forces the adaptive
+# step and turbswitch), the Python API does (advance_all with any
+# StepConfig the reference's step takes).
+
+FIXED_CBL_STEPS = 8         # the fixed_cbl path's steps
+FIXED_CBL_ITIME = 3600      # its first step's time, in the met window
+N_CROSS = 2 ** 20           # the crosses' checks against the plain version
+
+
+def fixed_cbl_params(grid, **cfg_kw):
+    """(cfg, prm) of the fixed step with the skewed CBL: main's stock step
+    with cblflag, turbswitch, ifine 11 (CBL_IFINE, a substep of 82 s) and
+    the polar caps, no settling."""
+    return settling_params(grid, **{
+        "turbswitch": True, "ifine": CBL_IFINE, "method": 0,
+        "settling": False, "polar": True, "cblflag": True, **cfg_kw})
+
+
+def fixed_cbl_inputs(device, grid, n: int, itime: int, seed: int = 43):
+    """The fixed_cbl case: convective_met's SyntheticMet fields, (cfg, prm),
+    K2's tables of the step at ``itime``, its AdvanceArgs and ``n``
+    boundary_layer_particles, one species."""
+    import torch
+    from flexpart_tpu_torch.core import advance, interp
+    z0, z1 = (convective_met(z, grid.nx // 2) for z in
+              met_fields("synthetic", grid, device, (0.0, 10800.0)))
+    cfg, prm = fixed_cbl_params(grid)
+    tw = advance._time_weights(itime, 0, 10800, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
+    p = boundary_layer_particles(n, device, seed, grid, itime,
+                                 lambda q: sample_met(q, z0.height, tables,
+                                                      cfg)[0])
+    m = torch.full((n, 1), 1.0 / n, dtype=torch.float32, device=device)
+    return dict(z0=z0, z1=z1, cfg=cfg, prm=prm, tw=tw, tables=tables,
+                a=advance.advance_args(cfg, prm, itime, 0, 10800),
+                p=p.replace(mass=m, mass0=m.clone()))
+
+
+def fixed_cbl_shares(p, height, tables, cfg, a, itime: int) -> dict:
+    """What K4 CBL's substeps take on these particles, from the plain
+    version's functions at the step's start (dtftlw is taken once, from
+    the start's turbulence in Hanna's turbswitch form): the scheduled
+    boundary-layer particles, the share of them in the skewed zone
+    (-h/L > 5), the share whose substeps take the linear form (dtf / TL_w
+    < 0.5: the skewed scheme in the zone, the Gaussian drift on the raw
+    velocity outside it; the others the exact normalised update, the
+    reference's quirk) and the share that take both; and the calls of the
+    skewed functions: cbl_skewed_wp ifine times for each particle that
+    takes both, cbl_fresh_wp once for a fresh one in the zone."""
+    from flexpart_tpu_torch.core import advance, hanna
+    h, _, ust, wst, ol, _ = sample_met(p, height, tables, cfg)
+    pbl = p.active & ((p.z / h) <= 1.0)
+    zone = pbl & ((-h / ol) > advance.CBL_ZONE)
+    tlw = hanna.hanna(p.z, h, ust, wst, ol).tlw
+    lin = pbl & (advance._scalar_div(a.dtf, tlw) < 0.5)
+    fresh = pbl & ((p.itramem == itime) | (itime == 0))
+    n = max(int(pbl.sum()), 1)
+    return dict(pbl_particles=int(pbl.sum()),
+                skewed_share=int(zone.sum()) / n,
+                use_lin_share=int(lin.sum()) / n,
+                skewed_use_lin_share=int((zone & lin).sum()) / n,
+                exact_share=int((pbl & ~lin).sum()) / n,
+                calls={"cbl_skewed_wp": int((zone & lin).sum()) * cfg.ifine,
+                       "cbl_fresh_wp": int((fresh & zone).sum())})
+
+
+_K4_CBL_CALLS = []
+
+
+def k4_cbl_calls_build():
+    """K4's CBL part (FP_PART=6) built with FP_CBL_CALLS=1, where the skewed
+    substep is a __noinline__ call as the fresh draw is (cbl_calls_build's
+    build of K4): what K4 CBL's bound reads the substep loop's and the
+    skewed functions' instructions from.  Never launched; built once, in
+    the build phase beside the kernels."""
+    from flexpart_tpu_torch import _build
+    if not _K4_CBL_CALLS:
+        k = _build.ADVANCE
+        _K4_CBL_CALLS.append(_build.Kernel(
+            k.name, k.symbol, k.argtypes,
+            defines=("-DFP_PART=6", "-DFP_CBL_CALLS=1")))
+    return _K4_CBL_CALLS[0]
+
+
+def k4_template(cfg) -> tuple:
+    """K4's kernel template for ``cfg`` and its template arguments:
+    advance_kernel's table type, turbulence (0 Hanna1, 1 TS), polar,
+    settling, nests; with the CBL advance_cbl_kernel's table type, polar,
+    settling, nests, tile."""
+    if cfg.cblflag:
+        return "advance_cbl_kernel", (cfg.met_bf16, cfg.polar, cfg.settling,
+                                      bool(cfg.nests), cfg.tile_mode)
+    return "advance_kernel", (cfg.met_bf16, int(cfg.turbswitch), cfg.polar,
+                              cfg.settling, bool(cfg.nests))
+
+
+def k4_cbl_instructions(cfg) -> dict:
+    """K4 CBL's substep, read from k4_cbl_calls_build: in the SASS of the
+    instantiation for ``cfg``, the substep loop is the widest backward
+    branch of the kernel's body (up to its first unconditional EXIT), and
+    a substep the cheapest path (sass_path) through it, the call of the
+    skewed substep counted as one instruction and the stores and loads of
+    local memory not at all; the cheapest paths through the skewed
+    functions (function_paths) beside it."""
+    kernel = k4_cbl_calls_build()
+    name, code = sass_instantiation(kernel, *k4_template(cfg))
+    body_end = min((a for a, op, cond, _, _ in code
+                    if op.startswith("EXIT") and not cond),
+                   default=code[-1][0])
+    back = [(t, a) for a, op, _, t, _ in code
+            if op.startswith("BRA") and t is not None and t < a <= body_end]
+    check(bool(back), "K4 CBL: no loop found in the compiled kernel")
+    sub = max(back, key=lambda b: b[1] - b[0])
+    local = local_memory(code, *sub)
+    return dict(entry=name[:80],
+                substep_loop=sum(1 for a, op, _, _, _ in code
+                                 if sub[0] <= a <= sub[1] and op != "NOP"),
+                substep_cheapest=sass_path(code, *sub, min, local),
+                calls_in_substep_loop=sum(
+                    1 for a, op, _, _, _ in code
+                    if sub[0] <= a <= sub[1] and op.startswith("CALL")),
+                skewed_paths=function_paths(kernel, *k4_template(cfg),
+                                            CBL_SKEWED_FUNCTIONS))
+
+
+def fixed_cbl_bound(p, pk, height, cfg, shares, ins) -> dict:
+    """K4 CBL's least time on these inputs.  Bytes: stock K4's (54 B of
+    state in, 50 B out, each start row and end row that a particle names
+    once).  Operations: stock K4's per particle (one substep), and as K11
+    CBL's are counted, the compiled kernel's instructions
+    (k4_cbl_instructions) for the other ifine - 1 substeps of each
+    boundary-layer particle at the substep's cheapest path, and for each
+    skewed call (fixed_cbl_shares) at the cheapest path through its
+    function."""
+    row_b = 128 if cfg.met_bf16 else 256
+    n = p.capacity
+    rows0 = unique_rows(p, height, cfg)
+    rows1 = unique_rows(pk, height, cfg)
+    skewed = sum(shares["calls"][f] * ins["skewed_paths"][f]["cheapest"]
+                 for f in CBL_SKEWED_FUNCTIONS)
+    substeps = (cfg.ifine - 1) * shares["pbl_particles"]
+    return dict(skewed_instructions=skewed,
+                substep_instructions=substeps * ins["substep_cheapest"],
+                **bound(104 * n + row_b * rows0 + row_b * 3 // 8 * rows1,
+                        K4_OPS_PER_PARTICLE * n,
+                        substeps * ins["substep_cheapest"] + skewed))
+
+
+def k4_stock_bound(q, pk, height, cfg) -> dict:
+    """Stock K4's bound on these particles (kernel_advance's: 54 B of state
+    in, 50 B out, each start row and end row that a particle names once,
+    K4_OPS_PER_PARTICLE each): a floor for a cross, whose settling, nests
+    or extra substeps it does not charge."""
+    row_b = 128 if cfg.met_bf16 else 256
+    return bound(104 * q.capacity + row_b * unique_rows(q, height, cfg)
+                 + row_b * 3 // 8 * unique_rows(pk, height, cfg),
+                 K4_OPS_PER_PARTICLE * q.capacity)
+
+
+def check_fixed(q, height, tables, a, key, cfg, settle, what: str,
+                tables_n=(), time_plain: bool = False):
+    """K4 against the plain advance on the card with the same key (K4's
+    draws made in registers, the plain version's by K1): every output, the
+    counts and nan_count, bitwise.  ``time_plain``: the plain run is timed
+    by CUDA events (one run, no warm-up)."""
+    import copy
+    import torch
+    from flexpart_tpu_torch.core import advance
+    pk, dk = advance.advance_all_cuda(q, height, tables, copy.copy(a), key,
+                                      cfg, None, 0, settle, tables_n)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    pp, dp = advance.advance_all_plain(q, height, tables, copy.copy(a), key,
+                                       cfg, None, 0, settle, tables_n)
+    stop.record()
+    torch.cuda.synchronize()
+    differ = differing_particles(pk, pp, advance.OUT_FIELDS)
+    check(differ == 0, f"{what}: K4 differs from its plain version in "
+          f"{differ} particles")
+    for f in ("n_active", "n_exited", "nan_count"):
+        check(int(getattr(dk, f)) == int(getattr(dp, f)),
+              f"{what}: {f} {int(getattr(dk, f))} against "
+              f"{int(getattr(dp, f))}")
+    res = dict(n=q.capacity, bitwise=True, differing_particles=differ,
+               n_active=int(dk.n_active), nan_count=int(dk.nan_count),
+               max_abs_err=0.0)
+    if time_plain:
+        res["plain_ms"] = start.elapsed_time(stop)
+    return res, pk, dk
+
+
+def kernel_advance_fixed_cbl(device, grid) -> dict:
+    """K4 CBL (fixed_cbl's configuration: the fixed step with the skewed
+    CBL, turbswitch, ifine 11, the polar caps) on 10 x 2**20
+    boundary-layer particles on convective_met's fields: against its plain
+    version (check_fixed: every output and nan_count bitwise) as drawn and
+    in cell order, timed in both orders beside stock K4 TS (cblflag off)
+    and K11 CBL (the adaptive step, ctl 5) on the same particles, the
+    shares of its substeps' branches and its bound (fixed_cbl_bound).  Then
+    at N_CROSS particles, each against its plain version, bitwise: K4 TILE
+    x CBL on a 1 x 1 tile and on tile 0 of 2 x 2; K4 with turbswitch and
+    settling, with two nests and on a 1 x 1 tile; and K11 CBL with
+    turbswitch off, beside K11 CBL with it."""
+    import copy
+    import torch
+    from flexpart_tpu_torch.core import advance, reorder, rng
+    itime = FIXED_CBL_ITIME
+    c = fixed_cbl_inputs(device, grid, N_MAIN, itime)
+    z0, z1, cfg, prm, tables, a = (c[k] for k in (
+        "z0", "z1", "cfg", "prm", "tables", "a"))
+    height = z0.height
+    key = rng.Key(4321, 17)
+    p = c["p"]
+    ordered = reorder.reorder_by_cell_cuda(p, height, cfg)[0]
+    ts = advance.StepConfig(**{**cfg.__dict__, "cblflag": False})
+    a_ts = advance.advance_args(ts, prm, itime, 0, 10800)
+    k11, k11_prm = cbl_params(grid)
+    a11 = advance.advance_args(k11, k11_prm, itime, 0, 10800)
+    res = {"cases": {}, "instructions": k4_cbl_instructions(cfg),
+           **fixed_cbl_shares(ordered, height, tables, cfg, a, itime)}
+    check(0.2 < res["skewed_share"] < 0.8,
+          f"K4 CBL: {res['skewed_share']} of the boundary layer skewed")
+    check(0.05 < res["use_lin_share"] < 0.95,
+          f"K4 CBL: {res['use_lin_share']} of the boundary layer takes the "
+          "linear form: one of the substeps' branches has no real share")
+    for name, q in (("as_drawn", p), ("cell_ordered", ordered)):
+        r, pk, dk = check_fixed(q, height, tables, a, key, cfg, None,
+                                f"K4 CBL {name}",
+                                time_plain=name == "cell_ordered")
+        if name == "cell_ordered":
+            r.update(fixed_cbl_bound(q, pk, height, cfg, res, res[
+                "instructions"]))
+        del pk, dk
+        r["ms"] = cuda_ms(lambda: advance.advance_all_cuda(
+            q, height, tables, copy.copy(a), key, cfg, None, 0), 10)
+        r["stock_k4_ts_ms"] = cuda_ms(lambda: advance.advance_all_cuda(
+            q, height, tables, copy.copy(a_ts), key, ts, None, 0), 10)
+        r["k11_cbl_ms"] = cuda_ms(lambda: advance.advance_adaptive_cuda(
+            q, height, tables, copy.copy(a11), key, k11, None, 0), 5)
+        res["cases"][name] = r
+        torch.cuda.empty_cache()
+    m = res["cases"]["cell_ordered"]
+    m["share_of_bound"] = m["bound_ms"] / m["ms"]
+    res.update({f: m[f] for f in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
+        "bound_operations", "bound_instructions", "substep_instructions",
+        "skewed_instructions", "share_of_bound", "stock_k4_ts_ms",
+        "k11_cbl_ms", "nan_count")},
+        library_ms=None, n=N_MAIN, max_abs_err=0.0,
+        unordered_ms=res["cases"]["as_drawn"]["ms"],
+        bitwise=all(r["bitwise"] for r in res["cases"].values()))
+    res["tile_cbl"] = fixed_cbl_tile(grid, c, key, ordered, m)
+    del p, ordered
+    torch.cuda.empty_cache()
+    res["ts_crosses"] = fixed_ts_crosses(device, grid)
+    res["k11_cbl_turbswitch_off"] = k11_cbl_turbswitch_off(device, grid)
+    return res
+
+
+def fixed_cbl_tile(grid, c, key, ordered, stock) -> dict:
+    """K4 TILE x CBL on kernel_advance_fixed_cbl's case: every tenth of its
+    particles in cell order on a 1 x 1 tile (a tiles run at world size 1)
+    against its plain version and, but where the step wraps, mirrors or
+    caps, against stock K4 CBL on the same particles, timed beside it; and
+    every 16th on tile 0 of 2 x 2 against its plain version, bitwise.  Its
+    bound is stock K4 CBL's (``stock``, on the ten times as many particles,
+    scaled: the same work a particle)."""
+    import copy
+    from flexpart_tpu_torch.core import advance
+    z0, z1, cfg, prm, tw = (c[k] for k in ("z0", "z1", "cfg", "prm", "tw"))
+    q = every_kth(ordered, 10)
+    halo = tiles_halo(grid, z0)
+    out = {"halo": halo}
+    for what, mesh, qq in (("1x1", (1, 1), q),
+                           ("tile0_of_2x2", TILE_MESH, every_kth(ordered,
+                                                                 16))):
+        eng = tile_engines(cfg, grid, mesh, halo)[0]
+        zt0, _, tt, _ = tile_inputs([eng], z0, z1, tw, cfg)[0]
+        at = advance.advance_args(eng.cfg, prm, FIXED_CBL_ITIME, 0, 10800,
+                                  eng.tile)
+        r, pk, dk = check_fixed(qq, zt0.height, tt, at, key, eng.cfg, None,
+                                f"K4 TILE x CBL {what}",
+                                time_plain=what == "1x1")
+        r["tile"] = dict(ox=eng.tile.ox, oy=eng.tile.oy, nx=eng.tile.nx,
+                         ny=eng.tile.ny)
+        if what == "1x1":
+            qs, _ = advance.advance_all_cuda(qq, z0.height, c["tables"],
+                                             copy.copy(c["a"]), key, cfg,
+                                             None, 0)
+            r["against_stock_cbl"] = held_tiles_against_unsplit(
+                pk, qs, qq, grid, "K4 TILE x CBL against stock K4 CBL",
+                advance.OUT_FIELDS, hold_special=False)
+            r["ms"] = cuda_ms(lambda: advance.advance_all_cuda(
+                qq, zt0.height, tt, copy.copy(at), key, eng.cfg, None, 0), 10)
+            r["stock_ms_same_particles"] = cuda_ms(
+                lambda: advance.advance_all_cuda(
+                    qq, z0.height, c["tables"], copy.copy(c["a"]), key, cfg,
+                    None, 0), 10)
+            scale = qq.capacity / stock["n"]
+            r.update(bound(stock["bound_bytes"] * scale,
+                           stock["bound_operations"] * scale,
+                           stock["bound_instructions"] * scale),
+                     library_ms=None)
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            del qs
+        out[what] = r
+        del pk, dk, zt0, tt
+    out.update({f: out["1x1"][f] for f in (
+        "n", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "max_abs_err", "stock_ms_same_particles", "share_of_bound",
+        "nan_count")}, bitwise=True)
+    return out
+
+
+def stock_turbulence(cfg, prm):
+    """(cfg, prm) with the stock step's turbulence: turbswitch off, ifine
+    1."""
+    from flexpart_tpu_torch.core import advance
+    return (advance.StepConfig(**{**cfg.__dict__, "turbswitch": False,
+                                  "ifine": 1}),
+            advance.StepParams(**{**prm.__dict__, "fine": 1.0}))
+
+
+def fixed_ts_crosses(device, grid) -> dict:
+    """K4 with turbswitch (ifine 4, the polar caps) crossed with settling
+    (aerosol_species, a third of boundary_layer_particles an aerosol), with
+    NEST_OUTER and NEST_INNER (nested_particles) and on a 1 x 1 tile, each
+    on N_CROSS particles in cell order against its plain version with the
+    same key, bitwise, timed beside the same configuration with turbswitch
+    off (stock K4 SETTLING, NESTS, TILE)."""
+    import copy
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    from flexpart_tpu_torch.run.simulation import nest_windows
+    z0, z1 = met_fields("synthetic", grid, device, (0.0, 10800.0))
+    itime, mem1 = 3600, 10800
+    key = rng.Key(4321, 29)
+    ts = dict(turbswitch=True, ifine=4, polar=True)
+    out = {}
+
+    # settling
+    cfg, prm = settling_params(grid, settling=True, **ts)
+    tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
+    p = boundary_layer_particles(N_CROSS, device, 59, grid, itime,
+                                 lambda q: sample_met(q, z0.height, tables,
+                                                      cfg)[0])
+    q = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
+    settle = advance.settle_met(z0, cfg)
+    a = advance.advance_args(cfg, prm, itime, 0, mem1)
+    r, pk, _ = check_fixed(q, z0.height, tables, a, key, cfg, settle,
+                           "K4 TS x SETTLING", time_plain=True)
+    r.update(k4_stock_bound(q, pk, z0.height, cfg))
+    off, prm_off = stock_turbulence(cfg, prm)
+    a_off = advance.advance_args(off, prm_off, itime, 0, mem1)
+    r["ms"] = cuda_ms(lambda: advance.advance_all_cuda(
+        q, z0.height, tables, copy.copy(a), key, cfg, None, 0, settle), 10)
+    r["turbswitch_off_ms"] = cuda_ms(lambda: advance.advance_all_cuda(
+        q, z0.height, tables, copy.copy(a_off), key, off, None, 0, settle),
+        10)
+    out["settling"] = r
+
+    # nests
+    ni = nests_inputs(device, grid, (NEST_OUTER, NEST_INNER),
+                      (NEST_U_JET["outer"], NEST_U_JET["inner"]), 31,
+                      lambda a, nests: nested_particles(
+                          N_CROSS, device, 61, grid, NEST_ITIME, nests))
+    cfg = advance.StepConfig(**{**ni["cfg"].__dict__, **ts})
+    prm = advance.StepParams.make(
+        dx=grid.dx, dy=grid.dy, ylat0=grid.ylat0, dxconst=grid.dxconst,
+        dyconst=grid.dyconst, lsynctime=LSYNC, fine=1.0 / cfg.ifine,
+        **nest_windows(grid, ni["nests"]))
+    a = advance.advance_args(cfg, prm, NEST_ITIME, 0, NEST_MEM1)
+    r, pk, _ = check_fixed(ni["p"], ni["height"], ni["tables"], a, key,
+                           cfg, None, "K4 TS x NESTS", ni["tables_n"],
+                           time_plain=True)
+    r.update(k4_stock_bound(ni["p"], pk, ni["height"], cfg))
+    r["ms"] = cuda_ms(lambda: advance.advance_all_cuda(
+        ni["p"], ni["height"], ni["tables"], copy.copy(a), key, cfg, None, 0,
+        None, ni["tables_n"]), 10)
+    r["turbswitch_off_ms"] = cuda_ms(lambda: advance.advance_all_cuda(
+        ni["p"], ni["height"], ni["tables"], copy.copy(ni["a"]), key,
+        ni["cfg"], None, 0, None, ni["tables_n"]), 10)
+    out["nests"] = r
+    del ni
+
+    # a 1 x 1 tile
+    cfg, prm, *_ = step_setup(grid, **ts)
+    tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+    halo = tiles_halo(grid, z0)
+    eng = tile_engines(cfg, grid, (1, 1), halo)[0]
+    zt0, _, tt, _ = tile_inputs([eng], z0, z1, tw, cfg)[0]
+    at = advance.advance_args(eng.cfg, prm, itime, 0, mem1, eng.tile)
+    p = bench_particles(N_CROSS, device, seed=67, old_fraction=0.5)
+    q = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
+    r, pk, _ = check_fixed(q, zt0.height, tt, at, key, eng.cfg, None,
+                           "K4 TS x TILE", time_plain=True)
+    r.update(k4_stock_bound(q, pk, z0.height, cfg))
+    off, prm_off = stock_turbulence(eng.cfg, prm)
+    a_off = advance.advance_args(off, prm_off, itime, 0, mem1, eng.tile)
+    r["ms"] = cuda_ms(lambda: advance.advance_all_cuda(
+        q, zt0.height, tt, copy.copy(at), key, eng.cfg, None, 0), 10)
+    r["turbswitch_off_ms"] = cuda_ms(lambda: advance.advance_all_cuda(
+        q, zt0.height, tt, copy.copy(a_off), key, off, None, 0), 10)
+    r["halo"] = halo
+    out["tile"] = r
+    del pk
+    out.update(n=N_CROSS, bitwise=True, max_abs_err=0.0, library_ms=None,
+               **{f: out["settling"][f] for f in (
+                   "ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
+                   "bound_operations")})
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
+
+
+def k11_cbl_turbswitch_off(device, grid) -> dict:
+    """K11 CBL with turbswitch off (kernel_advance_cbl's configuration
+    otherwise: ctl 5, ifine 11, the polar caps) on N_CROSS
+    boundary-layer particles on convective_met's fields, in cell order:
+    against its plain version (check_adaptive: every output, idt, t_below,
+    the passes, the counts and nan_count, bitwise), timed beside K11 CBL
+    with turbswitch on the same particles."""
+    import copy
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    z0, z1 = (convective_met(z, grid.nx // 2) for z in
+              met_fields("synthetic", grid, device, (0.0, 10800.0)))
+    itime, mem1 = 3600, 10800
+    key = rng.Key(4321, 37)
+    cfg, prm = cbl_params(grid, turbswitch=False)
+    on = advance.StepConfig(**{**cfg.__dict__, "turbswitch": True})
+    tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
+    a = advance.advance_args(cfg, prm, itime, 0, mem1)
+    a_on = advance.advance_args(on, prm, itime, 0, mem1)
+    p = boundary_layer_particles(N_CROSS, device, 71, grid, itime,
+                                 lambda q: sample_met(q, z0.height, tables,
+                                                      cfg)[0])
+    q = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
+    r, _, dk = check_adaptive(q, z0.height, tables, a, key, cfg, None,
+                              "K11 CBL turbswitch off", time_plain=True)
+    r.update(n=N_CROSS, nan_count=int(dk.nan_count),
+             skewed_share=skewed_share(q, z0.height, tables, cfg),
+             ms=cuda_ms(lambda: advance.advance_adaptive_cuda(
+                 q, z0.height, tables, copy.copy(a), key, cfg, None, 0), 5),
+             turbswitch_on_ms=cuda_ms(lambda: advance.advance_adaptive_cuda(
+                 q, z0.height, tables, copy.copy(a_on), key, on, None, 0), 5),
+             library_ms=None)
+    check(r["particles_in_the_loop"] > N_CROSS // 2,
+          "K11 CBL turbswitch off: fewer than half of the particles took a "
+          "pass")
+    return r
+
+
+def phase_fixed_cbl(device, grid, kernels) -> dict:
+    """fixed_cbl: main's stock step with cblflag (the fixed step's skewed
+    CBL: turbswitch, ifine 11, the polar caps) at full width: 10 x 2**20
+    boundary_layer_particles over the sphere, convective_met's fields
+    (SyntheticMet with a strong CBL over the eastern half), FIXED_CBL_STEPS
+    steps of 900 s through advance_chunked (K2 each step, K4 CBL one launch
+    a step), sorted by cell on the first step and every REORDER_EVERY,
+    sampled by K3 into the 720 x 360 x 3 grid; launch counts reset just
+    before and read just after.  The NaN redraws per step and particle-steps
+    per second over the steps after the first; then on the last step's
+    particles K4 CBL's device time per call beside stock K4 TS and K11 CBL
+    on the same particles, the shares of its substeps' branches and its
+    bound (fixed_cbl_bound)."""
+    import copy
+    import torch
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    from flexpart_tpu_torch.grid import conccalc as cc
+    from flexpart_tpu_torch.grid.outgrid import zero_accumulators
+    _, _, og, geo, ccfg = step_setup(grid)
+    c = fixed_cbl_inputs(device, grid, N_MAIN, FIXED_CBL_ITIME, seed=73)
+    z0, z1, cfg, prm = (c[k] for k in ("z0", "z1", "cfg", "prm"))
+    p = c["p"]
+    del c
+    every = reorder.REORDER_EVERY
+    conc = cc.make_conccalc(og.outheights)
+    acc = zero_accumulators(geo, 1, 1, device=device)
+    lage = torch.tensor([999999999], dtype=torch.int32, device=device)
+    finite = torch.ones((), dtype=torch.bool, device=device)
+    diags, step_s = [], []
+    last = {}
+
+    def steps():
+        nonlocal p, acc, finite
+        for i in range(FIXED_CBL_STEPS):
+            t0 = time.perf_counter()
+            it = FIXED_CBL_ITIME + i * LSYNC
+            if i % every == 0:
+                p, _ = reorder.reorder_by_cell(p, z0.height, cfg)
+            if i == FIXED_CBL_STEPS - 1:
+                last.update(p=p, itime=it)
+            p, diag = advance.advance_chunked(p, z0, z1, it, 0, 10800,
+                                              rng.Key(5, i), cfg, prm, 1)
+            cf = ccfg.replace(kernel_possible=cc.kernel_possible_at(
+                it + LSYNC, 0))
+            acc = conc(acc, p, z0, it + LSYNC, lage, 1.0, cf)
+            finite &= (torch.isfinite(p.x).all() & torch.isfinite(p.y).all()
+                       & torch.isfinite(p.z).all()
+                       & torch.isfinite(p.wp).all())
+            diags.append(diag)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+
+    launches, wall = counted_run(kernels, steps)
+    for i, d in enumerate(diags):
+        check(int(d.n_active) == N_MAIN,
+              f"fixed_cbl step {i}: n_active {int(d.n_active)}")
+    check(bool(finite), "fixed_cbl: non-finite positions or velocities")
+    total = float(acc.gridunc.sum(dtype=torch.float64))
+    check(abs(total - FIXED_CBL_STEPS) <= 1e-3 * FIXED_CBL_STEPS,
+          f"fixed_cbl: sampled mass {total} != {FIXED_CBL_STEPS}")
+    check(launches["advance.cbl"] == FIXED_CBL_STEPS,
+          f"fixed_cbl: {launches['advance.cbl']} K4 CBL launches in "
+          f"{FIXED_CBL_STEPS} steps")
+    for name in ("quad_tables", "conccalc", "reorder"):
+        check(launches[name] > 0, f"fixed_cbl: kernel {name} was never "
+              "launched")
+    check(launches["advance"] == 0 and launches["advance_adaptive"] == 0,
+          f"fixed_cbl: stock K4 or K11 launched: {launches}")
+    check(launches["reorder"] == len(range(0, FIXED_CBL_STEPS, every)),
+          f"fixed_cbl: {launches['reorder']} sorts")
+    steady = step_s[1:]
+    res = dict(n=N_MAIN, steps=FIXED_CBL_STEPS, reorder_every=every,
+               wall_s=wall, first_step_s=step_s[0],
+               steady_step_s=sum(steady) / len(steady),
+               steady_step_min_s=min(steady), steady_step_max_s=max(steady),
+               particle_steps_per_s=N_MAIN * len(steady) / sum(steady),
+               sampled_mass=total,
+               nan_redraws_per_step=[int(d.nan_count) for d in diags],
+               launches=launches)
+
+    # the last step's inputs: K4 CBL, stock K4 TS, K11 CBL per call
+    q, it = last["p"], last["itime"]
+    key = rng.Key(5, FIXED_CBL_STEPS - 1)
+    tw = advance._time_weights(it, 0, 10800, prm, cfg)[:4]
+    tables = interp.build_step_tables_quad(z0, z1, *tw, dtype=cfg.table_dtype)
+    a = advance.advance_args(cfg, prm, it, 0, 10800)
+    ts = advance.StepConfig(**{**cfg.__dict__, "cblflag": False})
+    a_ts = advance.advance_args(ts, prm, it, 0, 10800)
+    k11, k11_prm = cbl_params(grid)
+    a11 = advance.advance_args(k11, k11_prm, it, 0, 10800)
+    shares = fixed_cbl_shares(q, z0.height, tables, cfg, a, it)
+    pk, _ = advance.advance_all_cuda(q, z0.height, tables, copy.copy(a), key,
+                                     cfg, None, 0)
+    res.update(
+        shares,
+        k4_cbl_ms=cuda_ms(lambda: advance.advance_all_cuda(
+            q, z0.height, tables, copy.copy(a), key, cfg, None, 0), 10),
+        stock_k4_ts_ms=cuda_ms(lambda: advance.advance_all_cuda(
+            q, z0.height, tables, copy.copy(a_ts), key, ts, None, 0), 10),
+        k11_cbl_ms=cuda_ms(lambda: advance.advance_adaptive_cuda(
+            q, z0.height, tables, copy.copy(a11), key, k11, None, 0), 5),
+        **fixed_cbl_bound(q, pk, z0.height, cfg, shares,
+                          k4_cbl_instructions(cfg)))
+    res["share_of_bound"] = res["bound_ms"] / res["k4_cbl_ms"]
+    del pk, q, last
+    torch.cuda.empty_cache()
+    return res
 
 
 NEST_OUTER = dict(dx=0.5, dy=0.5, xlon0=-20.0, ylat0=20.0, nx=121, ny=101)
@@ -10564,7 +11157,8 @@ def main() -> int:
     # before any timing: its processes would take the host's cores from
     # the launches that a kernel's time includes
     dis = [(k, flag) for k in (_build.ADVANCE, _build.ADVANCE_ADAPTIVE,
-                               _build.WETDEPO, cbl_calls_build())
+                               _build.WETDEPO, cbl_calls_build(),
+                               k4_cbl_calls_build())
            for flag in ("-sass", "-elf")]
 
     def disassemble(k):
@@ -10572,7 +11166,8 @@ def main() -> int:
             if kd is k:
                 k.cuobjdump(flag, wait=False)
 
-    build_s = _build.build_all(kernels + [cbl_calls_build()],
+    build_s = _build.build_all(kernels + [cbl_calls_build(),
+                                          k4_cbl_calls_build()],
                                on_built=disassemble)
     # every launch count: the kernels' and their instantiations' entries
     counted = kernels + list(_build.ENTRIES)
@@ -10580,6 +11175,9 @@ def main() -> int:
                       if "registers" in ln] for k in kernels}
     emit({"phase": "build", "seconds": build_s,
           "nvcc_ended_s": {k.name: k.build_s for k in kernels},
+          "nvcc_ended_s_calls_builds": {
+              "advance_adaptive_cbl_calls": cbl_calls_build().build_s,
+              "advance_cbl_calls": k4_cbl_calls_build().build_s},
           "ptxas": ptxas,
           "registers": {k.name: ptxas_by_entry(k.build_log)
                         for k in kernels}})
@@ -10631,6 +11229,12 @@ def main() -> int:
           "device": name, "power_limit": smi})
     emit({"phase": "profile", **pres, "device": name, "power_limit": smi})
     del pres
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    fcres = phase_fixed_cbl(device, grid, counted)
+    emit({"phase": "fixed_cbl", "seconds": time.perf_counter() - t0, **fcres,
+          "device": name, "power_limit": smi})
     torch.cuda.empty_cache()
 
     # the launches of the kernels line stay the main phase's; the sim phase
@@ -11151,6 +11755,54 @@ def main() -> int:
              "bound_operations", "bound_instructions", "share_of_bound",
              "lane_efficiency", "passes_mean", "nan_count")
             if f in tcbl}})
+    # K11 CBL with turbswitch off: the CBL instantiation's uniform branch
+    off = kres["advance.cbl"]["k11_cbl_turbswitch_off"]
+    next(r for r in line if r["name"] == "advance_adaptive.cbl")[
+        "turbswitch_off"] = {f: off[f] for f in (
+            "n", "bitwise", "ms", "plain_ms", "turbswitch_on_ms", "nan_count",
+            "skewed_share", "lane_efficiency", "passes_mean", "passes_max")}
+    # the fixed step's crosses: K4 CBL on fixed_cbl's path (one launch a
+    # step); K4 TILE x CBL and the turbswitch crosses on no path (Command
+    # makes no such fixed step), held in the kernels phase
+    fx = kres["advance.cbl"]
+    crosses = (
+        ("advance.cbl", fx, "flexpart_tpu/core/advance.py:321", (
+            "n", "bitwise", "unordered_ms", "stock_k4_ts_ms", "k11_cbl_ms",
+            "nan_count", "skewed_share", "use_lin_share",
+            "skewed_use_lin_share", "exact_share", "calls", "instructions",
+            "bound_bytes", "bound_operations", "bound_instructions",
+            "substep_instructions", "skewed_instructions",
+            "share_of_bound")),
+        ("advance.tile_cbl", fx["tile_cbl"],
+         "flexpart_tpu/parallel/domain.py:377", (
+             "n", "bitwise", "stock_ms_same_particles", "share_of_bound",
+             "nan_count", "halo", "1x1", "tile0_of_2x2")),
+        ("advance.ts_cross", fx["ts_crosses"],
+         "flexpart_tpu/core/advance.py:1016", (
+             "n", "bitwise", "bound_bytes", "bound_operations",
+             "share_of_bound", "settling", "nests", "tile")))
+    for ename, r, ref, more in crosses:
+        line.append(
+            {"name": ename, "route": "cuda", "source": src.format("advance"),
+             # the fixed step with cblflag (_pbl_vertical's CBL branch
+             # :321-381, the fresh particle's draw :904-916), on a tile
+             # (make_tiled_advance), and with turbswitch and settling,
+             # nests or a tile (advance_all's fixed-step branch)
+             "replaces": ref, "tpu_route": "XLA",
+             "launches": fcres["launches"][ename],
+             "launches_path": "fixed_cbl",
+             **({} if ename == "advance.cbl" else {
+                 "on_a_path": "none: Command makes no fixed step with "
+                 "cblflag or turbswitch; advance_all with such a "
+                 "StepConfig on a CUDA tensor launches it"}),
+             **path_launches(ename),
+             **{f: r[f] for f in pick},
+             **{f: r[f] for f in more if f in r}})
+    next(r for r in line if r["name"] == "advance.cbl")[
+        "fixed_cbl_per_call"] = {f: fcres[f] for f in (
+            "k4_cbl_ms", "stock_k4_ts_ms", "k11_cbl_ms", "bound_ms",
+            "bound_by", "share_of_bound", "skewed_share", "use_lin_share",
+            "nan_redraws_per_step", "particle_steps_per_s")}
     emit({"phase": "done", "seconds": time.perf_counter() - t_script})
     emit({"kernels": line})
     print(smi, flush=True)

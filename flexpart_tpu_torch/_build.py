@@ -20,19 +20,20 @@ instantiations; the source's launcher returns ``NOT_IN_PART`` (and
 launches nothing) for a configuration another part holds, and ``launch``
 tries the parts in turn.  The instantiations' code is the same as in one
 library; only the build's wall time shrinks (K4 and K11: by table type,
-their ``NESTS`` and ``CBL`` ones apart, their ``TILE`` ones, and K11's
-``TILE`` x ``CBL`` ones).
+their ``NESTS`` and ``CBL`` ones apart, their ``TILE`` ones, K11's
+``TILE`` x ``CBL`` ones, and K4's turbswitch crosses, ``CBL``, ``CBL`` x
+``NESTS`` and ``TILE`` x ``CBL`` ones).
 
 Each ``Kernel`` counts its launches in ``launches`` (a plain integer), so
 a run can show that its main path went through the kernel.  A template
 instantiation that a path launches on its own (K3's ``BKDEP`` and
 ``COUNT``, K7's ``BACKWARD``, K9's and K10's ``BKDEP``, K9's ``CLWC``
 with and without ``BKDEP``, K4's and K11's ``TILE``, K11's ``TILE`` x
-``CBL``) is an ``Entry`` with a
-count of its own: the kernel's launcher, picked by its arguments
-(``xscav`` given, ``ctwc`` given, ``count``, ``backward``,
-``AdvanceArgs.tile``), counted in the entry's count and not in the
-kernel's; the sampling of the nested output grid is K3's stock
+``CBL``, K4's ``CBL``, ``TILE`` x ``CBL`` and its turbswitch crosses) is
+an ``Entry`` with a count of its own: the kernel's launcher, picked by its
+arguments (``xscav`` given, ``ctwc`` given, ``count``, ``backward``,
+``AdvanceArgs.tile``, ``cblflag``, ``turbswitch``), counted in the entry's
+count and not in the kernel's; the sampling of the nested output grid is K3's stock
 instantiation on the nest's grid, an entry too (``conccalc.nest``).
 """
 
@@ -329,9 +330,10 @@ CONCCALC = Kernel("conccalc", "fp_conccalc", [
     P,                 # stream
 ])
 
-# K4 in four parts: the stock, POLAR and SETTLING instantiations on f32
+# K4 in nine parts: the stock, POLAR and SETTLING instantiations on f32
 # tables (0) and on bf16 tables (1), the NESTS ones (2) and the TILE ones
-# (3)
+# (3), turbswitch off but in the stock step; TS with SETTLING or NESTS (4)
+# and on a tile (5); the CBL (6), the CBL with NESTS (7) and on a tile (8)
 ADVANCE = Kernel("advance", "fp_advance", [
     P, P, P, P, P,        # x_hi, x_lo, y_hi, y_lo, z (n,) f32
     P, P,                 # itra, itramem (n,) i32
@@ -345,10 +347,11 @@ ADVANCE = Kernel("advance", "fp_advance", [
     P, P,                 # rows (R, 64), rowsE (R, 32) bf16 or f32
     P,                    # height (nz,) f32
     P, P, P,              # settling: mass0 (n, nspec), tt, rho (nz, ny, nx) f32, or NULL
-    P,                    # counts (2,) i32: active, exited (accumulated into)
+    P,                    # counts (3,) i32: active, exited, the CBL's NaN
+                          # redraws (accumulated into)
     P,                    # AdvanceArgs (host struct, core/advance.py)
     P,                    # stream
-], parts=4)
+], parts=9)
 
 # K11 in six parts: the HANNA1 and TS instantiations on f32 tables (0)
 # and on bf16 tables (1), the CBL ones (2), the TILE ones on f32 tables
@@ -593,10 +596,17 @@ ADVANCE_TILE = Entry(ADVANCE, "advance.tile")
 ADVANCE_ADAPTIVE_TILE = Entry(ADVANCE_ADAPTIVE, "advance_adaptive.tile")
 ADVANCE_ADAPTIVE_TILE_CBL = Entry(ADVANCE_ADAPTIVE,
                                   "advance_adaptive.tile_cbl")
+# the fixed step's crosses (AdvanceArgs.cblflag, turbswitch): K4 CBL (with
+# or without settling, nests), K4 TILE x CBL, and K4 TS with SETTLING,
+# NESTS or TILE
+ADVANCE_CBL = Entry(ADVANCE, "advance.cbl")
+ADVANCE_TILE_CBL = Entry(ADVANCE, "advance.tile_cbl")
+ADVANCE_TS_CROSS = Entry(ADVANCE, "advance.ts_cross")
 
 ENTRIES = (CONCCALC_BKDEP, CONCCALC_COUNT, REDIST_BACKWARD, WETDEPO_BKDEP,
            DRYDEPO_BKDEP, WETDEPO_CLWC, WETDEPO_BKDEP_CLWC, CONCCALC_NEST,
-           ADVANCE_TILE, ADVANCE_ADAPTIVE_TILE, ADVANCE_ADAPTIVE_TILE_CBL)
+           ADVANCE_TILE, ADVANCE_ADAPTIVE_TILE, ADVANCE_ADAPTIVE_TILE_CBL,
+           ADVANCE_CBL, ADVANCE_TILE_CBL, ADVANCE_TS_CROSS)
 
 # fp_convection_layout(nl, out): out (4,) i32 gets K6's shared bytes per
 # column, columns per block, resident blocks per SM and registers per thread

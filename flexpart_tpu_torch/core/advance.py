@@ -31,18 +31,24 @@ with the skewed CBL K11 ``TILE`` x ``CBL``
 Two versions of the same function: ``advance_all_plain``, plain PyTorch
 ops, runs for CPU tensors; for CUDA tensors ``advance_all_cuda`` launches
 kernel K4 (``csrc/advance.cu``, the fixed step; its ``NESTS``
-instantiation with nests) and ``advance_adaptive_cuda`` kernel K11
-(``csrc/advance_adaptive.cu``, the adaptive step; its ``CBL``
-instantiation with the skewed boundary layer), one launch for all
-particles.  ``advance_all`` picks by the device of the particles and never
-falls from one to the other.  The fixed step with the CBL (which
-``Command`` never makes: ``cblflag`` forces the adaptive step) runs in the
-plain version only; on a CUDA tensor it raises.
+instantiation with nests, its ``CBL`` one with the skewed boundary layer)
+and ``advance_adaptive_cuda`` kernel K11 (``csrc/advance_adaptive.cu``,
+the adaptive step; its ``CBL`` instantiation with the skewed boundary
+layer), one launch for all particles.  ``advance_all`` picks by the device
+of the particles and never falls from one to the other.  Every
+``StepConfig`` the reference's step takes runs on a CUDA tensor: any
+turbulence (turbswitch on or off, the CBL) with settling, nests, a tile,
+the polar caps and either table type (the fixed step with the CBL, which
+``Command`` never makes, included); what a kernel does not take (injected
+draws or more than ``MAX_CBL_SUBSTEPS`` substeps with the CBL) is refused
+by name with ValueError.
 
 The legacy-RNG validation path (``leg``, ``core/legacy.py``) draws from
-the reference's rannumb table and interpolates per time level; it is the
-reference's matched-stream mode, has no kernel, and runs on CPU tensors
-only: ``advance_all`` raises for it on a CUDA tensor.
+the reference's rannumb table and interpolates per time level, or with
+``StepConfig.legacy_quad`` samples the quad tables as the production path
+does; it is the reference's matched-stream mode, has no kernel, and runs
+on CPU tensors only: ``advance_all`` raises NotImplementedError for it on
+a CUDA tensor.
 
 Scalars (time weights, the interval, grid constants) are float32 values
 computed with numpy ``float32`` arithmetic on the host and held in Python
@@ -102,8 +108,11 @@ CBL_TAG0 = 40        # the redraw of substep i draws tag 40 + i
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """Static configuration of the advance (the JAX fields; what the port
-    does not have yet is refused by ``check``)."""
+    """Static configuration of the advance: the JAX StepConfig's fields
+    but ``maxsubsteps`` (unused there), ``nspec`` (the port takes the
+    species from the mass array) and the single nest's ``nest_nx``,
+    ``nest_ny`` (``nests`` holds it; ``interop.step_config_from_jax``
+    maps them)."""
     nx: int
     ny: int
     nz: int
@@ -120,6 +129,11 @@ class StepConfig:
     polar: bool = False
     tile_mode: bool = False     # a tile of a tiles run: advance_all's tile
     met_bf16: bool = True
+    #: the legacy-RNG path (``leg``) with the production interpolation:
+    #: the draws still from the rannumb table in reference order, every met
+    #: sample from the quad tables (built at ``table_dtype``) in place of
+    #: the per-time-level interpolation
+    legacy_quad: bool = False
 
     def check(self) -> None:
         if self.tile_mode and self.nests:
@@ -901,9 +915,13 @@ def advance_all(p: Particles, z0: ZFields, z1: ZFields, itime: int,
         if draws is not None:
             raise ValueError("the legacy path draws from its table; "
                              "injected draws do not apply")
+        # legacy_quad: the production interpolation, through K2's tables
+        if cfg.legacy_quad and tables is None:
+            tables = build_step_tables_quad(z0, z1, tw0, tw1, ew0, ew1,
+                                            dtype=cfg.table_dtype)
         return advance_all_plain(
-            p, z0.height, None, a, key, cfg, None, offset,
-            settle_met(z0, cfg),
+            p, z0.height, tables if cfg.legacy_quad else None, a, key, cfg,
+            None, offset, settle_met(z0, cfg),
             legacy=(leg, z0, z1, (tw0, tw1, ew0, ew1)))
     if tables is None:
         tables = build_step_tables_quad(z0, z1, tw0, tw1, ew0, ew1,
@@ -1008,30 +1026,22 @@ def advance_all_cuda(p: Particles, height: torch.Tensor,
     (rows, n) arrays.  ``settle``: ``settle_met``'s fields (K4's
     ``SETTLING`` instantiation).  ``tables_n``: the nests' quad tables,
     outermost first (K4's ``NESTS`` instantiation, at most
-    ``MAX_NESTS``)."""
+    ``MAX_NESTS``).  With ``cfg.cblflag`` K4's ``CBL`` instantiation runs
+    the skewed boundary layer (turbswitch on or off) and counts its NaN
+    redraws; it makes its draws in registers only.  Any turbulence takes
+    settling, nests or a tile (``_build.ENTRIES`` counts each cross)."""
     if cfg.method != 0:
         raise ValueError("K4 is the fixed step; the adaptive step is K11 "
                          "(advance_adaptive_cuda)")
-    if cfg.cblflag:
-        raise NotImplementedError(
-            "the fixed step with cblflag runs in the plain version only "
-            "(particles on the CPU, or the legacy path): K4 has no CBL; "
-            "Command's cblflag forces the adaptive step, K11's CBL")
+    _check_cbl(cfg, draws, "K4")
     if len(cfg.nests) > MAX_NESTS:
         raise ValueError(f"K4 takes at most MAX_NESTS = {MAX_NESTS} nests, "
                          f"not {len(cfg.nests)}")
-    if cfg.nests and cfg.turbswitch:
-        raise ValueError("K4 takes nests with turbswitch off only (a fixed "
-                         "step has ctl <= 0, so turbswitch is off in every "
-                         "run)")
     n = p.capacity
     dev = p.device
     i32 = torch.int32
     if n >= 2 ** 31:
         raise ValueError("K4 indexes particles with int32")
-    if cfg.settling and cfg.turbswitch:
-        raise ValueError("K4 settles with turbswitch off only (a fixed step "
-                         "has ctl <= 0, so turbswitch is off in every run)")
     _check_inputs(p, height, tables, cfg, settle, _IN_FIELDS, "K4", a)
     _check_nest_tables(tables_n, cfg, dev, "K4")
     _check_draws(draws, n, dev, cfg)
@@ -1043,6 +1053,7 @@ def advance_all_cuda(p: Particles, height: torch.Tensor,
     a.offset = offset
     for s, tag in enumerate(DRAW_TAGS):
         a.key[2 * s], a.key[2 * s + 1] = key.philox_key(tag)
+    set_cbl_keys(a, key, cfg)
     for k, t in enumerate(tables_n):
         a.nest_rows[k] = t.rows.data_ptr()
         a.nest_rows_e[k] = t.rowsE.data_ptr()
@@ -1052,19 +1063,45 @@ def advance_all_cuda(p: Particles, height: torch.Tensor,
         held = [draws[tag].contiguous() for tag in DRAW_TAGS]
         injected = [d.data_ptr() for d in held]
     out = {f: torch.empty_like(getattr(p, f)) for f in OUT_FIELDS}
-    counts = torch.zeros(2, dtype=i32, device=dev)
+    # active, exited and the CBL's NaN redraws
+    counts = torch.zeros(3, dtype=i32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        kernel = _build.ADVANCE_TILE if cfg.tile_mode else _build.ADVANCE
-        kernel(*(getattr(p, f).data_ptr() for f in _IN_FIELDS),
-                       *(out[f].data_ptr() for f in OUT_FIELDS),
-                       *injected, tables.rows.data_ptr(),
-                       tables.rowsE.data_ptr(), height.data_ptr(),
-                       *_settle_ptrs(p, a, settle),
-                       counts.data_ptr(), ctypes.addressof(a), stream)
-    # only the CBL (never in K4) can produce a non-finite wp
+        k4_entry(cfg)(*(getattr(p, f).data_ptr() for f in _IN_FIELDS),
+                      *(out[f].data_ptr() for f in OUT_FIELDS),
+                      *injected, tables.rows.data_ptr(),
+                      tables.rowsE.data_ptr(), height.data_ptr(),
+                      *_settle_ptrs(p, a, settle),
+                      counts.data_ptr(), ctypes.addressof(a), stream)
     return p.replace(**out), StepDiag(n_active=counts[0], n_exited=counts[1],
-                                      nan_count=zero)
+                                      nan_count=counts[2])
+
+
+def k4_entry(cfg: StepConfig):
+    """What counts a K4 launch of ``cfg``: the entry of its cross (K4 CBL,
+    K4 TILE x CBL, K4 TS with settling, nests or a tile, K4 TILE), else
+    the kernel."""
+    if cfg.cblflag:
+        return _build.ADVANCE_TILE_CBL if cfg.tile_mode else _build.ADVANCE_CBL
+    if cfg.turbswitch and (cfg.tile_mode or cfg.settling or cfg.nests):
+        return _build.ADVANCE_TS_CROSS
+    return _build.ADVANCE_TILE if cfg.tile_mode else _build.ADVANCE
+
+
+def _check_cbl(cfg: StepConfig, draws: dict | None, what: str) -> None:
+    """What K4's and K11's CBL refuse, before any tensor is read: injected
+    draws (its substeps make theirs in registers; the plain version, on
+    CPU tensors, takes them) and more than MAX_CBL_SUBSTEPS substeps."""
+    if not cfg.cblflag:
+        return
+    if draws is not None:
+        raise ValueError(f"{what} with cblflag makes its draws in "
+                         "registers: injected draws are read by the plain "
+                         "version (particles on the CPU)")
+    if cfg.ifine > MAX_CBL_SUBSTEPS:
+        raise ValueError(f"{what} with cblflag takes at most "
+                         f"MAX_CBL_SUBSTEPS = {MAX_CBL_SUBSTEPS} substeps, "
+                         f"not ifine = {cfg.ifine}")
 
 
 # K11's particle fields: K4's and the adaptive step memory idt
@@ -1075,12 +1112,11 @@ K11_WORK_WORDS = 3        # K11's work counters, unsigned 64-bit words
 
 def set_cbl_keys(a: AdvanceArgs, key: rng.Key, cfg: StepConfig) -> None:
     """The Philox keys of the CBL's draws: tags 7 and 8 (a fresh particle's
-    uniform and normal) and 40 + i (the redraw of substep i)."""
+    uniform and normal) and 40 + i (the redraw of substep i), for K4's and
+    K11's CBL (their wrappers refuse more than MAX_CBL_SUBSTEPS substeps
+    first, ``_check_cbl``)."""
     if not cfg.cblflag:
         return
-    if cfg.ifine > MAX_CBL_SUBSTEPS:
-        raise ValueError(f"K11's CBL takes at most MAX_CBL_SUBSTEPS = "
-                         f"{MAX_CBL_SUBSTEPS} substeps, not {cfg.ifine}")
     for s, tag in enumerate(CBL_FRESH_TAGS):
         a.key_fresh[2 * s], a.key_fresh[2 * s + 1] = key.philox_key(tag)
     for i in range(cfg.ifine):
@@ -1099,17 +1135,17 @@ def advance_adaptive_cuda(p: Particles, height: torch.Tensor,
     are made in registers (the per-pass tags with the pass in the Philox
     counter).  With ``cfg.cblflag`` K11's ``CBL`` instantiation runs the
     skewed boundary layer (turbswitch on, as ``Command`` sets it) and
-    counts its NaN redraws.  K11 reads no injected draws: ``draws`` must be
-    None (the plain version takes them)."""
+    counts its NaN redraws, with turbswitch on (as ``Command`` sets it) or
+    off (a uniform branch: hanna1 for the fresh state and the first step,
+    hanna1's step formula).  K11 reads no injected draws: ``draws`` must
+    be None (the plain version takes them)."""
     if cfg.method != 1:
         raise ValueError("K11 is the adaptive step; the fixed step is K4 "
                          "(advance_all_cuda)")
     if tables_n:
         raise ValueError("K11 takes no nests (the adaptive step refuses "
                          "them)")
-    if cfg.cblflag and not cfg.turbswitch:
-        raise ValueError("K11's CBL runs with turbswitch on (cblflag forces "
-                         "it in Command)")
+    _check_cbl(cfg, draws, "K11")
     if draws is not None:
         raise ValueError("K11 makes its draws in registers; injected draws "
                          "are read by the plain version (particles on the "
@@ -1176,7 +1212,8 @@ def _adaptive_interval_plain(cfg: StepConfig, a: AdvanceArgs, tables, hw,
     ``legacy`` = (LegacyRnd, z0, z1, tw0, tw1): the matched-RNG path, whose
     draws come from the table through a per-particle cursor (the wrap
     checks of advance.f90 included) and whose met is interpolated per time
-    level.  Returns a dict of the interval's results, ``nan_count`` the
+    level, or with ``cfg.legacy_quad`` sampled from the quad tables as the
+    production path samples it.  Returns a dict of the interval's results, ``nan_count`` the
     CBL's NaN redraws of active particles summed over the passes."""
     n = z.shape[0]
     dev = z.device
@@ -1184,12 +1221,13 @@ def _adaptive_interval_plain(cfg: StepConfig, a: AdvanceArgs, tables, hw,
     f32t = torch.float32
     lsync = torch.full((n,), a.dt, dtype=f32t, device=dev)
     zero = torch.zeros(n, dtype=f32t, device=dev)
+    legacy_interp = legacy is not None and not cfg.legacy_quad
     if legacy is not None:
         leg, lz0, lz1, ltw0, ltw1 = legacy
         tab = leg.table
         rtab = tab.shape[0] - 1
         nrand = leg.nrand.to(torch.int64)
-
+    if legacy_interp:
         def vert_wind(zc):
             indz, dz1 = vert_weights(zc, height)
             return vert_wind_legacy(lz0, lz1, hw, indz, dz1, ltw0, ltw1)
@@ -1308,17 +1346,18 @@ def _adaptive_interval_plain(cfg: StepConfig, a: AdvanceArgs, tables, hw,
     # in the legacy path, the mesoscale draws from the cursor
     indz_f, dz1_f = vert_weights(zc, height)
     rnd_m = None
-    if legacy is not None:
+    if legacy_interp:
         wind_e, sig16 = interp_wind_legacy(lz0, lz1, hw, indz_f, dz1_f,
                                            ltw0, ltw1)
         sig = [torch.where(ft, s16, s8) for s16, s8 in
                zip(sig16, (wind_e.usig, wind_e.vsig, wind_e.wsig))]
-        mb = wrap(nrand, 2, rtab)
-        rnd_m = torch.stack([tab[mb], tab[mb + 1], tab[mb + 2]], 0)
     else:
         rowid = _cell_rowid(hw, indz_f, a.tile_nx, a.tile_ny)
         g = tables.rows[rowid][:, 60:63].to(f32t)
         sig = [g[:, 0], g[:, 1], g[:, 2]]
+    if legacy is not None:
+        mb = wrap(nrand, 2, rtab)
+        rnd_m = torch.stack([tab[mb], tab[mb + 1], tab[mb + 2]], 0)
     return dict(z=zc, up=st["up"], vp=st["vp"],
                 wp=torch.where(ft, wp_ft, st["wp"]), icbt=st["icbt"],
                 idt=_f32_to_i32(ldt), dxs=dxs, dys=dys, daw=st["daw"],
@@ -1399,7 +1438,10 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
     tensor ops, both sides of every branch computed and selected.
     ``tables_n``: the nests' quad tables.  ``legacy`` = (LegacyRnd, z0, z1,
     (tw0, tw1, ew0, ew1)): the matched-RNG validation path
-    (``core/legacy.py``), on the particles' device, CPU or card."""
+    (``core/legacy.py``), on the particles' device, CPU or card: its draws
+    from the rannumb table, its met interpolated per time level, or with
+    ``cfg.legacy_quad`` from ``tables`` as the production path samples it
+    (the reference's ``legacy`` and ``legacy_interp``)."""
     n = p.capacity
     dev = p.device
     scheduled = p.active
@@ -1432,8 +1474,10 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
     hw = _weights(cfg, a, x, y)
     indz, dz1 = vert_weights(z, height)
     leg = None
+    legacy_interp = legacy is not None and not cfg.legacy_quad
     if legacy is not None:
         leg, lz0, lz1, (tw0, tw1, ew0, ew1) = legacy
+    if legacy_interp:
         h, tropop, ust, wst, ol, wind, sig16 = sample_met_legacy(
             lz0, lz1, tw0, tw1, x, y, hw, indz, dz1)
     else:
@@ -1459,6 +1503,7 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
     if leg is not None:
         legacy_d, (l_b2, l_ft_meso) = legacy_draws(leg, cfg.ifine, pbl,
                                                     in_trop, in_trans)
+    if legacy_interp:
         # the 16-sample sigmas above the boundary layer
         # (interpol_wind.f90 against interpol_all.f90)
         usig_w = torch.where(pbl, usig_w, sig16[0])
@@ -1670,7 +1715,7 @@ def advance_all_plain(p: Particles, height: torch.Tensor,
     yn = y_hi + y_lo
     hw2 = _weights(cfg, a, xn, yn)
     indz2, dz1_2 = vert_weights(z_new, height)
-    if leg is not None:
+    if legacy_interp:
         u2, v2, w2 = interp_wind_short(lz0, lz1, hw2, indz2, dz1_2, ew0, ew1)
     else:
         u2, v2, w2 = interp_wind_short_quad(tables.rowsE, hw2, indz2, dz1_2,

@@ -29,15 +29,34 @@
 // shares: the start, a fresh particle's velocities, the substeps, the free
 // troposphere's terms, the mesoscale draws and the end of the step.
 //
-// Settling (the SETTLING instantiations, for a turbswitch-off step, which
-// is every fixed step of a run: a fixed step has ctl <= 0, and turbswitch is
-// ctl >= 0.1): the velocity of the particle's first species with mass, from
-// the temperature and air density of the first met time at its nearest
-// column and its start height, is added to w in the boundary layer, in the
-// free troposphere and to the corrector's end-time w (advance.py:966-983,
-// :1036-1038, :1190 of the JAX package).  turboff is a runtime field: a
-// uniform branch that zeroes the fresh velocities, the horizontal OU, the
-// vertical substeps, the free troposphere's terms and the mesoscale memory.
+// Settling (the SETTLING instantiations, with any turbulence): the velocity
+// of the particle's first species with mass, from the temperature and air
+// density of the first met time at its nearest column and its start height,
+// is added to w in the boundary layer, in the free troposphere and to the
+// corrector's end-time w (advance.py:966-983, :1036-1038, :1190 of the JAX
+// package).  turboff is a runtime field: a uniform branch that zeroes the
+// fresh velocities, the horizontal OU, the vertical substeps, the free
+// troposphere's terms and the mesoscale memory.
+//
+// The turbulence is a template int, as K11's (HANNA1, TS, CBL of
+// advance_common.cuh): HANNA1 and TS in advance_kernel and
+// advance_tile_kernel; the skewed convective boundary layer in
+// advance_cbl_kernel (the CBL instantiations; cblflag, with turbswitch on
+// or off; flexpart_tpu/core/advance.py:321-381, :904-916): wp is the raw
+// vertical velocity, a fresh boundary-layer particle in the zone -h/L > 5
+// draws it from the skewed pdf (cbl_fresh_wp: tags 7 and 8), elsewhere
+// row 2 of tag 6 times sigw; the ifine substeps are K11's cbl_substeps over
+// dtf = lsynctime / ifine with dtftlw from the turbulence at the interval's
+// start, the column's constants (skew_column) once a particle, the redraws
+// tags 40 + s of the unfolded stream (pass 0: the plain version's
+// rng.normals of those tags), the particles with a NaN redraw counted in
+// counts[2] (StepDiag.nan_count).  Without turbswitch the fresh state and
+// the horizontal OU take hanna1 and the substeps Hanna's turbswitch form,
+// as the reference (:308, :900, :1020): a uniform branch on a.turbswitch.
+// The CBL makes its draws in registers only (the launcher refuses injected
+// draws) and its kernel takes the run scalars as a __grid_constant__
+// parameter: the substeps index the redraws' keys by the substep, for which
+// a by-value parameter is copied whole to the thread's stack.
 //
 // Bound on the H100: bytes.  Per particle 54 B of state read and 50 B
 // written, and each table row that some particle names read once: one
@@ -90,8 +109,8 @@
 // thread computes its own cap only.  The stock instantiation compiles none
 // of it and keeps its registers.
 //
-// Nested met grids (the NESTS instantiations, turbswitch off as every
-// fixed step; flexpart_tpu/core/advance.py:841-866 and :1176-1189): a
+// Nested met grids (the NESTS instantiations, with any turbulence;
+// flexpart_tpu/core/advance.py:841-866 and :1176-1189): a
 // particle samples the innermost nest whose window (shrunk by nx / 3e5)
 // holds it, the last such nest of the outermost-first list, or the mother.
 // The grid is chosen first, by the window tests alone (nest_select), and
@@ -111,8 +130,8 @@
 // particles are close in the mother grid, so they are close in the nest
 // too, and its nest rows are few and neighbouring.
 //
-// A tile of a tiles run (advance_tile_kernel, the TILE instantiations: table
-// type x POLAR x SETTLING, turbswitch off as every fixed step;
+// A tile of a tiles run (advance_tile_kernel and advance_cbl_kernel's TILE
+// instantiations: table type x turbulence x POLAR x SETTLING;
 // flexpart_tpu/core/advance.py's tile_mode and parallel/domain.py:377-437):
 // the tables are the tile's, built by K2 from the tile's field stack, and
 // the positions stay global.  Only the corner of each gather moves by the
@@ -127,6 +146,7 @@
 // update.  Bound: the stock one (the same bytes).
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "cell_index.cuh"
 #include "advance_common.cuh"
@@ -134,7 +154,8 @@
 
 namespace {
 
-template <bool BF16, bool TS, bool POLAR, bool SETTLING, bool NESTS, bool TILE>
+template <bool BF16, int TURB, bool POLAR, bool SETTLING, bool NESTS,
+          bool TILE>
 __device__ __forceinline__ void advance_body(
     const PIn& in, const POut& out, const Draws& dr,
     const void* __restrict__ rows, const void* __restrict__ rowsE,
@@ -146,10 +167,12 @@ __device__ __forceinline__ void advance_body(
   __syncthreads();
 
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  // parity mode: all five draw pointers are given, or none
-  const bool injected = dr.d[0] != nullptr;
+  // parity mode: all five draw pointers are given, or none (the CBL's
+  // substeps read no injected draws: the launcher refuses them)
+  const bool injected = TURB != CBL && dr.d[0] != nullptr;
   bool keep = false;
   bool exited = false;
+  bool nan = false;     // the CBL redrew a non-finite velocity
   if (i < a.n) {
     float x_hi = in.x_hi[i], x_lo = in.x_lo[i];
     float y_hi = in.y_hi[i], y_lo = in.y_lo[i];
@@ -180,14 +203,23 @@ __device__ __forceinline__ void advance_body(
                                 rho3, sh_height, z);
       const float w_eff = SETTLING ? s.w + settl : s.w;
 
+      // the turbulence of the fresh state and the horizontal OU update:
+      // with the CBL, Hanna's turbswitch form or without turbswitch hanna1
+      // (flexpart_tpu/core/advance.py:900, :1020)
       Turb t0;
-      if (pbl) t0 = hanna<TS>(z, h, s.ust, s.wst, s.ol);
+      if (pbl) {
+        if constexpr (TURB == CBL)
+          t0 = a.turbswitch ? hanna<true>(z, h, s.ust, s.wst, s.ol)
+                            : hanna<false>(z, h, s.ust, s.wst, s.ol);
+        else
+          t0 = hanna<TURB == TS>(z, h, s.ust, s.wst, s.ol);
+      }
 
       // newly released particles (initialize.f90:110-219)
       const bool fresh = (in.itramem[i] == a.itime) || (a.itime == 0);
       if (fresh)
-        fresh_state<TS>(a, dr, injected, i, pbl, t0, s, z, up, vp, wp, usig,
-                        vsig, wsig, cbt);
+        fresh_state<TURB>(a, dr, injected, i, pbl, t0, s, z, up, vp, wp,
+                          usig, vsig, wsig, cbt);
 
       // Every particle takes up to three draws here: in the PBL tag 1 rows
       // 0, 1 and tag 2 row 0; above it tag 3 rows 0, 1 (below the
@@ -232,9 +264,21 @@ __device__ __forceinline__ void advance_body(
         // the ifine vertical substeps; dtftlw and what derives from it
         // come from the interval start
         float zz = z;
-        pbl_substeps<TS>(a, dr.d[2], injected, i, 0u, t0, s.drhodz / s.rho,
-                         a.dtf, d2, d2_odd, pw, h, s.ust, s.wst, s.ol, zz, wp,
-                         cbt);
+        if constexpr (TURB == CBL) {
+          // the skewed CBL's substeps take Hanna's turbswitch form whatever
+          // turbswitch (flexpart_tpu/core/advance.py:308, :493), their
+          // redraws tag 40 + s of the unfolded stream (pass 0) and the
+          // column's constants once
+          const Turb tw = a.turbswitch ? t0
+                                       : hanna<true>(z, h, s.ust, s.wst, s.ol);
+          cbl_substeps(a, i, 0u, tw, a.dtf, d2, d2_odd, pw, h, s.ust, s.wst,
+                       s.ol, skew_column(h, s.wst, s.ol), s.rho, s.drhodz, zz,
+                       wp, cbt, nan);
+        } else {
+          pbl_substeps<TURB>(a, dr.d[2], injected, i, 0u, t0,
+                             s.drhodz / s.rho, a.dtf, d2, d2_odd, pw, h,
+                             s.ust, s.wst, s.ol, zz, wp, cbt);
+        }
         dawsave = up * dt;
         dcwsave = vp * dt;
         dxsave = s.u * dt;
@@ -281,16 +325,21 @@ __device__ __forceinline__ void advance_body(
     out.cbt[i] = static_cast<int8_t>(cbt);
     out.active[i] = keep ? 1 : 0;
   }
-  // counts[0] += particles still active, counts[1] += particles that exited
+  // counts[0] += particles still active, counts[1] += particles that
+  // exited, and with the CBL counts[2] += particles with a NaN redraw
   const unsigned kept = __ballot_sync(0xFFFFFFFFu, keep);
   const unsigned gone = __ballot_sync(0xFFFFFFFFu, exited);
   if ((threadIdx.x & 31) == 0) {
     if (kept) atomicAdd(&counts[0], __popc(kept));
     if (gone) atomicAdd(&counts[1], __popc(gone));
   }
+  if constexpr (TURB == CBL) {
+    const unsigned nans = __ballot_sync(0xFFFFFFFFu, nan);
+    if ((threadIdx.x & 31) == 0 && nans) atomicAdd(&counts[2], __popc(nans));
+  }
 }
 
-template <bool BF16, bool TS, bool POLAR, bool SETTLING, bool NESTS>
+template <bool BF16, int TURB, bool POLAR, bool SETTLING, bool NESTS>
 __global__ void __launch_bounds__(256)
 advance_kernel(const PIn in, const POut out, const Draws dr,
                const void* __restrict__ rows, const void* __restrict__ rowsE,
@@ -298,12 +347,12 @@ advance_kernel(const PIn in, const POut out, const Draws dr,
                const float* __restrict__ mass0, const float* __restrict__ tt3,
                const float* __restrict__ rho3, int* __restrict__ counts,
                const AdvanceArgs a) {
-  advance_body<BF16, TS, POLAR, SETTLING, NESTS, false>(
+  advance_body<BF16, TURB, POLAR, SETTLING, NESTS, false>(
       in, out, dr, rows, rowsE, height, mass0, tt3, rho3, counts, a);
 }
 
-// K4 TILE: a tile's step (turbswitch off, no nests)
-template <bool BF16, bool POLAR, bool SETTLING>
+// K4 TILE: a tile's step (no nests), HANNA1 or TS
+template <bool BF16, int TURB, bool POLAR, bool SETTLING>
 __global__ void __launch_bounds__(256)
 advance_tile_kernel(const PIn in, const POut out, const Draws dr,
                     const void* __restrict__ rows,
@@ -313,7 +362,26 @@ advance_tile_kernel(const PIn in, const POut out, const Draws dr,
                     const float* __restrict__ tt3,
                     const float* __restrict__ rho3, int* __restrict__ counts,
                     const AdvanceArgs a) {
-  advance_body<BF16, false, POLAR, SETTLING, false, true>(
+  advance_body<BF16, TURB, POLAR, SETTLING, false, true>(
+      in, out, dr, rows, rowsE, height, mass0, tt3, rho3, counts, a);
+}
+
+// K4 CBL, on the grid or a tile: advance_body with TURB == CBL, the run
+// scalars a __grid_constant__ parameter read in place (as K11's): the
+// substeps index the redraws' keys (key_cbl) by the substep, for which a
+// by-value parameter is first copied whole to the thread's stack (1336 B
+// a thread, ptxas' stack frame)
+template <bool BF16, bool POLAR, bool SETTLING, bool NESTS, bool TILE>
+__global__ void __launch_bounds__(256)
+advance_cbl_kernel(const PIn in, const POut out, const Draws dr,
+                   const void* __restrict__ rows,
+                   const void* __restrict__ rowsE,
+                   const float* __restrict__ height,
+                   const float* __restrict__ mass0,
+                   const float* __restrict__ tt3,
+                   const float* __restrict__ rho3, int* __restrict__ counts,
+                   const __grid_constant__ AdvanceArgs a) {
+  advance_body<BF16, CBL, POLAR, SETTLING, NESTS, TILE>(
       in, out, dr, rows, rowsE, height, mass0, tt3, rho3, counts, a);
 }
 
@@ -344,19 +412,18 @@ extern "C" int fp_advance(
   const size_t shmem = static_cast<size_t>(a.nz) * sizeof(float);
   if (a.nz < 2 || shmem > 48 * 1024 || a.ifine < 1 || a.method != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // settling is instantiated for the turbswitch-off step only (every fixed
-  // step of a run), with the species' parameters and the two fields
-  if (a.settling && (a.turbswitch || a.nspec < 1 || a.nspec > MAX_SPECIES ||
+  // settling with the species' parameters and the two fields
+  if (a.settling && (a.nspec < 1 || a.nspec > MAX_SPECIES ||
                      mass0 == nullptr || tt == nullptr || rho == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  // nests with turbswitch off only (every fixed step), each with its tables
-  if (a.cblflag || a.nnest < 0 || a.nnest > MAX_NESTS ||
-      (a.nnest > 0 && a.turbswitch))
+  // nests, each with its tables
+  if (a.nnest < 0 || a.nnest > MAX_NESTS)
     return static_cast<int>(cudaErrorInvalidValue);
-  // a tile: turbswitch off (every fixed step), no nests, tables of 2 x 2
-  // cells at least
-  if (a.tile && (a.turbswitch || a.nnest > 0 || a.tile_nx < 2 ||
-                 a.tile_ny < 2))
+  // a tile: no nests, tables of 2 x 2 cells at least
+  if (a.tile && (a.nnest > 0 || a.tile_nx < 2 || a.tile_ny < 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the CBL: its substeps draw with their own keys, in registers only
+  if (a.cblflag && (a.ifine > MAX_CBL_SUBSTEPS || d6 != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int k = 0; k < a.nnest; ++k)
     if (a.nest_rows[k] == nullptr || a.nest_rows_e[k] == nullptr ||
@@ -374,27 +441,109 @@ extern "C" int fp_advance(
         in, out, dr, rows, rowsE, height, mass0, tt, rho, counts, a);
     return static_cast<int>(cudaGetLastError());
   };
+  // The crosses of the turbulence with settling, nests and a tile: K4 CBL
+  // (the skewed CBL, turbswitch on or off: a uniform branch) and TS with
+  // settling, nests or a tile, each by (table type, polar, settling).  A
+  // library built as one part (FP_PART, _build.Kernel's parts) holds TS
+  // with settling or nests (part 4), TS on a tile (part 5), the CBL (part
+  // 6), the CBL with nests (part 7) or the CBL on a tile (part 8).
+  using Yes = std::true_type;
+  using No = std::false_type;
+  auto ts_nests = [&](auto bf16) {
+    constexpr bool B = decltype(bf16)::value;
+    return a.settling
+        ? (a.polar ? advance_kernel<B, TS, true, true, true>
+                   : advance_kernel<B, TS, false, true, true>)
+        : (a.polar ? advance_kernel<B, TS, true, false, true>
+                   : advance_kernel<B, TS, false, false, true>);
+  };
+  auto ts_tile = [&](auto bf16) {
+    constexpr bool B = decltype(bf16)::value;
+    return a.settling
+        ? (a.polar ? advance_tile_kernel<B, TS, true, true>
+                   : advance_tile_kernel<B, TS, false, true>)
+        : (a.polar ? advance_tile_kernel<B, TS, true, false>
+                   : advance_tile_kernel<B, TS, false, false>);
+  };
+  auto cbl = [&](auto bf16, auto nests, auto on_tile) {
+    constexpr bool B = decltype(bf16)::value;
+    constexpr bool N = decltype(nests)::value;
+    constexpr bool T = decltype(on_tile)::value;
+    return a.settling
+        ? (a.polar ? advance_cbl_kernel<B, true, true, N, T>
+                   : advance_cbl_kernel<B, false, true, N, T>)
+        : (a.polar ? advance_cbl_kernel<B, true, false, N, T>
+                   : advance_cbl_kernel<B, false, false, N, T>);
+  };
+  if (a.cblflag) {
+    if (a.tile) {
+#if FP_HAS(8)
+      return a.table_bf16 ? launch(cbl(Yes{}, No{}, Yes{}))
+                          : launch(cbl(No{}, No{}, Yes{}));
+#else
+      return NOT_IN_PART;
+#endif
+    }
+    if (a.nnest > 0) {
+#if FP_HAS(7)
+      return a.table_bf16 ? launch(cbl(Yes{}, Yes{}, No{}))
+                          : launch(cbl(No{}, Yes{}, No{}));
+#else
+      return NOT_IN_PART;
+#endif
+    }
+#if FP_HAS(6)
+    return a.table_bf16 ? launch(cbl(Yes{}, No{}, No{}))
+                        : launch(cbl(No{}, No{}, No{}));
+#else
+    return NOT_IN_PART;
+#endif
+  }
+  if (a.turbswitch && a.tile) {
+#if FP_HAS(5)
+    return a.table_bf16 ? launch(ts_tile(Yes{})) : launch(ts_tile(No{}));
+#else
+    return NOT_IN_PART;
+#endif
+  }
+  if (a.turbswitch && a.nnest > 0) {
+#if FP_HAS(4)
+    return a.table_bf16 ? launch(ts_nests(Yes{})) : launch(ts_nests(No{}));
+#else
+    return NOT_IN_PART;
+#endif
+  }
+  if (a.turbswitch && a.settling) {
+#if FP_HAS(4)
+    return launch(a.table_bf16
+        ? (a.polar ? advance_kernel<true, TS, true, true, false>
+                   : advance_kernel<true, TS, false, true, false>)
+        : (a.polar ? advance_kernel<false, TS, true, true, false>
+                   : advance_kernel<false, TS, false, true, false>));
+#else
+    return NOT_IN_PART;
+#endif
+  }
   // the eight (table type, turbswitch, polar) instantiations of the stock
   // step, settling's four (table type, polar) with turbswitch off, the
   // nests' eight (table type, polar, settling) with turbswitch off and the
   // tile's eight (table type, polar, settling) with turbswitch off; a
-  // library built as one part (FP_PART, _build.Kernel's parts) holds the
-  // first twelve on f32 tables (part 0) or on bf16 tables (part 1), the
-  // nests' (part 2) or the tile's (part 3), and launches nothing for the
-  // others' configurations
+  // library built as one part holds the first twelve on f32 tables (part
+  // 0) or on bf16 tables (part 1), the nests' (part 2) or the tile's (part
+  // 3), and launches nothing for the others' configurations
   if (a.tile) {
 #if FP_HAS(3)
     return launch(a.settling
       ? (a.polar
-             ? (a.table_bf16 ? advance_tile_kernel<true, true, true>
-                             : advance_tile_kernel<false, true, true>)
-             : (a.table_bf16 ? advance_tile_kernel<true, false, true>
-                             : advance_tile_kernel<false, false, true>))
+             ? (a.table_bf16 ? advance_tile_kernel<true, HANNA1, true, true>
+                             : advance_tile_kernel<false, HANNA1, true, true>)
+             : (a.table_bf16 ? advance_tile_kernel<true, HANNA1, false, true>
+                             : advance_tile_kernel<false, HANNA1, false, true>))
       : (a.polar
-             ? (a.table_bf16 ? advance_tile_kernel<true, true, false>
-                             : advance_tile_kernel<false, true, false>)
-             : (a.table_bf16 ? advance_tile_kernel<true, false, false>
-                             : advance_tile_kernel<false, false, false>)));
+             ? (a.table_bf16 ? advance_tile_kernel<true, HANNA1, true, false>
+                             : advance_tile_kernel<false, HANNA1, true, false>)
+             : (a.table_bf16 ? advance_tile_kernel<true, HANNA1, false, false>
+                             : advance_tile_kernel<false, HANNA1, false, false>)));
 #else
     return NOT_IN_PART;
 #endif
@@ -403,15 +552,15 @@ extern "C" int fp_advance(
 #if FP_HAS(2)
     return launch(a.settling
       ? (a.polar
-             ? (a.table_bf16 ? advance_kernel<true, false, true, true, true>
-                             : advance_kernel<false, false, true, true, true>)
-             : (a.table_bf16 ? advance_kernel<true, false, false, true, true>
-                             : advance_kernel<false, false, false, true, true>))
+             ? (a.table_bf16 ? advance_kernel<true, HANNA1, true, true, true>
+                             : advance_kernel<false, HANNA1, true, true, true>)
+             : (a.table_bf16 ? advance_kernel<true, HANNA1, false, true, true>
+                             : advance_kernel<false, HANNA1, false, true, true>))
       : (a.polar
-             ? (a.table_bf16 ? advance_kernel<true, false, true, false, true>
-                             : advance_kernel<false, false, true, false, true>)
-             : (a.table_bf16 ? advance_kernel<true, false, false, false, true>
-                             : advance_kernel<false, false, false, false, true>)));
+             ? (a.table_bf16 ? advance_kernel<true, HANNA1, true, false, true>
+                             : advance_kernel<false, HANNA1, true, false, true>)
+             : (a.table_bf16 ? advance_kernel<true, HANNA1, false, false, true>
+                             : advance_kernel<false, HANNA1, false, false, true>)));
 #else
     return NOT_IN_PART;
 #endif
@@ -419,26 +568,26 @@ extern "C" int fp_advance(
   if (a.table_bf16) {
 #if FP_HAS(1)
     return launch(a.settling
-        ? (a.polar ? advance_kernel<true, false, true, true, false>
-                   : advance_kernel<true, false, false, true, false>)
+        ? (a.polar ? advance_kernel<true, HANNA1, true, true, false>
+                   : advance_kernel<true, HANNA1, false, true, false>)
         : a.polar
-        ? (a.turbswitch ? advance_kernel<true, true, true, false, false>
-                        : advance_kernel<true, false, true, false, false>)
-        : (a.turbswitch ? advance_kernel<true, true, false, false, false>
-                        : advance_kernel<true, false, false, false, false>));
+        ? (a.turbswitch ? advance_kernel<true, TS, true, false, false>
+                        : advance_kernel<true, HANNA1, true, false, false>)
+        : (a.turbswitch ? advance_kernel<true, TS, false, false, false>
+                        : advance_kernel<true, HANNA1, false, false, false>));
 #else
     return NOT_IN_PART;
 #endif
   }
 #if FP_HAS(0)
   return launch(a.settling
-      ? (a.polar ? advance_kernel<false, false, true, true, false>
-                 : advance_kernel<false, false, false, true, false>)
+      ? (a.polar ? advance_kernel<false, HANNA1, true, true, false>
+                 : advance_kernel<false, HANNA1, false, true, false>)
       : a.polar
-      ? (a.turbswitch ? advance_kernel<false, true, true, false, false>
-                      : advance_kernel<false, false, true, false, false>)
-      : (a.turbswitch ? advance_kernel<false, true, false, false, false>
-                      : advance_kernel<false, false, false, false, false>));
+      ? (a.turbswitch ? advance_kernel<false, TS, true, false, false>
+                      : advance_kernel<false, HANNA1, true, false, false>)
+      : (a.turbswitch ? advance_kernel<false, TS, false, false, false>
+                      : advance_kernel<false, HANNA1, false, false, false>));
 #else
   return NOT_IN_PART;
 #endif

@@ -78,7 +78,10 @@
 // operation, built with -fmad=false.
 //
 // The skewed convective boundary layer (the CBL instantiations; cblflag,
-// which forces turbswitch and the adaptive step;
+// which Command runs with turbswitch and the adaptive step, and which the
+// Python API also runs without turbswitch: then the fresh state and the
+// first step take hanna1, each next step hanna1's formula, and the passes
+// Hanna's turbswitch form, a uniform branch on a.turbswitch;
 // flexpart_tpu/core/advance.py:321-381 and :904-916, core/cbl.py:31-200):
 // wp is the raw vertical velocity.  A fresh boundary-layer particle where
 // -h/L > 5 takes its wp from the skewed pdf with a uniform (tag 7) and a
@@ -313,10 +316,27 @@ __device__ __forceinline__ bool lane_start(const AdvanceArgs& a, const Io& io,
   if (fresh) {
     constexpr bool TS = TURB != HANNA1;
     Turb t0;
-    if (pbl) t0 = hanna<TS>(z, s.h, s.ust, s.wst, s.ol);
-    fresh_state<TURB>(a, in_registers, false, i, pbl, t0, s, z, L.up, L.vp,
-                      L.wp, L.usig, L.vsig, L.wsig, L.cbt);
-    idt = __float2int_rz(pbl ? ldt_formula<TS>(a, t0, L.wp, s.h, true) : a.dt);
+    float ldt0 = a.dt;
+    if constexpr (TURB == CBL) {
+      // the CBL without turbswitch starts a particle from hanna1 and its
+      // first step from hanna1's formula (flexpart_tpu/core/advance.py:900,
+      // :939)
+      if (pbl)
+        t0 = a.turbswitch ? hanna<true>(z, s.h, s.ust, s.wst, s.ol)
+                          : hanna<false>(z, s.h, s.ust, s.wst, s.ol);
+      fresh_state<TURB>(a, in_registers, false, i, pbl, t0, s, z, L.up,
+                        L.vp, L.wp, L.usig, L.vsig, L.wsig, L.cbt);
+      if (pbl)
+        ldt0 = a.turbswitch ? ldt_formula<true>(a, t0, L.wp, s.h, true)
+                            : ldt_formula<false>(a, t0, L.wp, s.h, true);
+      idt = __float2int_rz(ldt0);
+    } else {
+      if (pbl) t0 = hanna<TS>(z, s.h, s.ust, s.wst, s.ol);
+      fresh_state<TURB>(a, in_registers, false, i, pbl, t0, s, z, L.up, L.vp,
+                        L.wp, L.usig, L.vsig, L.wsig, L.cbt);
+      idt = __float2int_rz(pbl ? ldt_formula<TS>(a, t0, L.wp, s.h, true)
+                               : a.dt);
+    }
   }
   L.remaining = a.dt;
   L.ldt = clamp_min(static_cast<float>(idt), a.mintime);
@@ -497,7 +517,10 @@ __device__ __forceinline__ bool lane_pass_cbl(const AdvanceArgs& a,
   const Turb t = cbl_substeps(a, i, k, t0, dt_i * a.fine, d2, d2_odd, pw, h,
                               ust, wst, ol, skew_column(h, wst, ol), rhoa,
                               drho, zz, wp, cbt, nan);
-  put(s, ROW_LDT, p, ldt_formula<true>(a, t, wp, h, false));
+  // the next step by turbswitch's formula (hanna1's without it), from the
+  // substeps' Hanna, which the CBL takes in its turbswitch form
+  put(s, ROW_LDT, p, a.turbswitch ? ldt_formula<true>(a, t, wp, h, false)
+                                  : ldt_formula<false>(a, t, wp, h, false));
   put(s, ROW_WP, p, wp);
   put(s, ROW_CBT, p, cbt);
   // w_eff and the time left were stored before the substeps
@@ -789,8 +812,8 @@ extern "C" int fp_advance_adaptive(
                  {o_x_hi, o_x_lo, o_y_hi, o_y_lo, o_z, o_itra, o_up, o_vp,
                   o_wp, o_usig, o_vsig, o_wsig, o_cbt, o_active},
                  o_idt, t_below, passes, rows, rowsE, height, mass0, tt, rho};
-  // the CBL's substeps draw with their own keys; it runs with turbswitch
-  if (a.cblflag && (!a.turbswitch || a.ifine > MAX_CBL_SUBSTEPS))
+  // the CBL's substeps draw with their own keys
+  if (a.cblflag && a.ifine > MAX_CBL_SUBSTEPS)
     return static_cast<int>(cudaErrorInvalidValue);
   // a tile: no nests, tables of 2 x 2 cells at least
   if (a.tile && (a.nnest > 0 || a.tile_nx < 2 || a.tile_ny < 2))

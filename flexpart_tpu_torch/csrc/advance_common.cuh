@@ -9,8 +9,8 @@
 // mesoscale draws and the end of the step (mesoscale memory, windalign,
 // the double-single position update, the polar caps, the boundary
 // conditions and the Petterssen corrector), the nests' sampling (K4's
-// NESTS instantiation), the skewed convective boundary layer (K11's
-// CBL instantiation, core/cbl.py) and a tile's gathers (the TILE
+// NESTS instantiation), the skewed convective boundary layer (K4's and
+// K11's CBL instantiations, core/cbl.py) and a tile's gathers (the TILE
 // instantiations of K4 and K11: positions global, each gather's corner
 // moved by the tile's origin into the tile's tables, the boundary
 // conditions once after the corrector).  Each is the plain version's arithmetic
@@ -723,7 +723,7 @@ __device__ __forceinline__ Start nest_start(const AdvanceArgs& a,
 }
 
 // ---- The skewed convective boundary layer (core/cbl.py; cbl.f90,
-// re_initialize_particle.f90, initialize_cbl_vel.f90), K11's CBL
+// re_initialize_particle.f90, initialize_cbl_vel.f90), K4's and K11's CBL
 // instantiations.  Each line is core/cbl.py's expression with its
 // left-to-right order made explicit; an integer power is products, the
 // others powf with the float exponent, a division a true division.
@@ -1081,7 +1081,8 @@ __device__ __forceinline__ Turb pbl_substeps(
   return t;
 }
 
-// The CBL's ifine substeps (K11's CBL instantiations): pbl_substeps with
+// The CBL's ifine substeps (K4's and K11's CBL instantiations; K4's at
+// pass 0, its redraws the unfolded stream of tags 40 + s): pbl_substeps with
 // the raw wp.  Where dtftlw < 0.5 (from the pass's start turbulence, so
 // the same for every substep) the skewed scheme runs in the column's zone
 // (cbl_skewed_wp, with rho and drhodz) and the Gaussian drift on the raw

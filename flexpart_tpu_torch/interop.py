@@ -111,11 +111,28 @@ def step_params_from_numpy(prm) -> StepParams:
     return StepParams(**out)
 
 
+# the JAX StepConfig's fields that the port maps onto one of its own: the
+# single nest's shape (superseded by ``nests`` when that is set)
+_STEP_CONFIG_MAPPED = ("nest_nx", "nest_ny")
+# and those it knows and ignores: ``maxsubsteps`` is unused in the JAX
+# package, and the port takes the species from the mass array's shape
+_STEP_CONFIG_IGNORED = ("maxsubsteps", "nspec")
+
+
 def step_config_from_jax(cfg) -> StepConfig:
-    """The JAX StepConfig (a plain NamedTuple) -> the port's StepConfig."""
+    """The JAX StepConfig (a plain NamedTuple, or a dict) -> the port's
+    StepConfig.  Every JAX field is carried, mapped or on the list of those
+    known and ignored; any other raises ValueError by name, so that a
+    converted config never computes something its JAX twin does not."""
     names = [f.name for f in dataclasses.fields(StepConfig)]
-    kw = {k: _get(cfg, k) for k in names}
-    if not kw["nests"] and _get(cfg, "nest_nx"):
+    given = list(cfg) if isinstance(cfg, dict) else list(cfg._fields)
+    unknown = [k for k in given if k not in names
+               and k not in _STEP_CONFIG_MAPPED + _STEP_CONFIG_IGNORED]
+    if unknown:
+        raise ValueError(f"StepConfig fields the port neither carries nor "
+                         f"maps: {', '.join(unknown)}")
+    kw = {k: _get(cfg, k) for k in names if k in given}
+    if not kw.get("nests") and "nest_nx" in given and _get(cfg, "nest_nx"):
         kw["nests"] = ((_get(cfg, "nest_nx"), _get(cfg, "nest_ny")),)
     return StepConfig(**kw)
 

@@ -30,7 +30,11 @@ world size 1 (``sim_tiles_adaptive``, 10 x 2**20 particles whatever
 ``n_particles``), and its tiles runs of the options at world size 1
 (``sim_tiles_options``: the skewed CBL, the regional domain fill, OH with
 splitting and a checkpoint's resume; ``n_particles`` should be the main
-path's 10 x 2**20, which those runs' checks expect).  A failed check raises.  This is the quick call to make
+path's 10 x 2**20, which those runs' checks expect); the fixed step's
+crosses (``fixed_cbl``: K4 CBL against its plain version at
+``n_particles``, with K4 TILE x CBL, K4's turbswitch crosses and K11 CBL
+with turbswitch off at 2**20) and the fixed_cbl path at ``n_particles``
+(``fixed_cbl_path``).  A failed check raises.  This is the quick call to make
 after changing a kernel, before a whole chip_smoke.py run.
 """
 import json
@@ -105,6 +109,9 @@ def main() -> int:
                   "fluxes": cs.kernel_fluxes(d, g),
                   "initcond": cs.kernel_initcond(d, g)},
               "dp_shards": cs.dp_shards,
+              "fixed_cbl": cs.kernel_advance_fixed_cbl,
+              "fixed_cbl_path": lambda d, g: cs.phase_fixed_cbl(
+                  d, g, list(_build.KERNELS) + list(_build.ENTRIES)),
               "tile": cs.kernel_advance_tile,
               "tile_shards": cs.tile_shards,
               "sim_tiles_adaptive": lambda d, g: tiles_adaptive(cs, d),

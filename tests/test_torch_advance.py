@@ -177,9 +177,10 @@ def test_chunking_does_not_change_the_port(setup):
 def test_outside_slice_raises(setup):
     """What the port's advance does not take raises by name: tile mode
     with nests, or without its tile (``StepConfig.check``,
-    ``advance_args``), the fixed step with the CBL on a CUDA tensor (K4 has
-    no CBL; ``advance_all_cuda`` refuses it before it looks at the
-    tensors), and nests with the adaptive step (as the reference)."""
+    ``advance_args``), injected draws with the CBL on a CUDA tensor (K4's
+    CBL makes its draws in registers; ``advance_all_cuda`` refuses them
+    before it looks at the tensors), and nests with the adaptive step (as
+    the reference)."""
     grid = setup[0]
     _, _, tcfg, tprm = _cfgs(grid, CONFIGS["stock"])
     cfg = type(tcfg)(**{**tcfg.__dict__, "tile_mode": True})
@@ -192,8 +193,8 @@ def test_outside_slice_raises(setup):
         type(tcfg)(**{**cfg.__dict__, "nests": ((5, 5),)}).check()
     cbl = type(tcfg)(**{**tcfg.__dict__, "cblflag": True})
     cbl.check()
-    with pytest.raises(NotImplementedError, match="cblflag"):
-        tadv.advance_all_cuda(None, None, None, None, None, cbl, None, 0)
+    with pytest.raises(ValueError, match="cblflag"):
+        tadv.advance_all_cuda(None, None, None, None, None, cbl, {}, 0)
     nested = type(tcfg)(**{**tcfg.__dict__, "nests": ((5, 5),)})
     nested.check()
     with pytest.raises(ValueError, match="nested"):

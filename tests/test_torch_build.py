@@ -123,7 +123,14 @@ def test_entries_launch_their_instantiations(entry):
             "advance_adaptive.tile": "if (a.tile) {\n    if (a.table_bf16) "
                                      "{\n#if FP_HAS(4)",
             "advance_adaptive.tile_cbl": "if (a.tile && a.cblflag) {\n"
-                                         "#if FP_HAS(5)"}[entry]
+                                         "#if FP_HAS(5)",
+            "advance.cbl": "#if FP_HAS(6)\n    return a.table_bf16 ? "
+                           "launch(cbl(Yes{}, No{}, No{}))",
+            "advance.tile_cbl": "if (a.cblflag) {\n    if (a.tile) {\n"
+                                "#if FP_HAS(8)",
+            "advance.ts_cross": "if (a.turbswitch && a.tile) {\n"
+                                "#if FP_HAS(5)\n    return a.table_bf16 ? "
+                                "launch(ts_tile(Yes{}))"}[entry]
     assert pick in text
     if entry.endswith("bkdep") and entry != "conccalc.bkdep":
         assert "const bool bkdep = xscav != nullptr;" in text
@@ -385,25 +392,37 @@ def test_advance_polar_is_an_instantiation_of_its_own():
     """The polar-cap update is compiled only into the ``POLAR``
     instantiations of K4, at the predictor and at the corrector, and the
     launcher picks them by ``AdvanceArgs.polar``; the update calls the
-    six functions of the plain version's torch ops."""
+    six functions of the plain version's torch ops.  K4's turbulence is a
+    template int (0 HANNA1, 1 TS, 2 CBL), as K11's."""
     text = _all_sources(_build.ADVANCE)
-    assert ("template <bool BF16, bool TS, bool POLAR, bool SETTLING, "
+    assert ("template <bool BF16, int TURB, bool POLAR, bool SETTLING, "
             "bool NESTS>") in text
     assert text.count("if (POLAR) polar_update(") == 2
     assert "if (POLAR) polar_update(a, x, y, dxsave, dysave," in text
     assert "if (POLAR) polar_update(a, xn, yn, du * dt, dv * dt," in text
     assert "a.polar" in text
-    # the four (table type, turbswitch) instantiations of the stock step
-    # with and without, settling's two table types with and without, and
-    # the nests' (table type, settling) with and without
     inst = re.findall(r"advance_kernel<(\w+), (\w+), (\w+), (\w+), (\w+)>",
                       text)
-    assert len(set(inst)) == len(inst) == 20
+    assert len(set(inst)) == len(inst)
+    # named: the four (table type, turbulence) instantiations of the stock
+    # step with and without the caps, settling's two table types with and
+    # without, the nests' (table type, settling) with and without, HANNA1
+    # all but the stock step's TS and the turbswitch crosses' settling
+    # ones (part 4)
+    named = [i for i in inst if i[0] in ("true", "false")]
+    assert len(named) == 24
     for polar in ("true", "false"):
-        assert sum(i[2] == polar for i in inst) == 10
-    # settling and nests only with turbswitch off: every fixed step of a run
-    assert all(i[1] == "false" for i in inst if "true" in (i[3], i[4]))
-    assert sum(i[4] == "true" for i in inst) == 8
+        assert sum(i[2] == polar for i in named) == 12
+    assert {i[1] for i in named} == {"HANNA1", "TS"}
+    assert sum(i[1] == "TS" for i in named if "true" in (i[3], i[4])) == 4
+    assert sum(i[4] == "true" for i in named) == 8
+    # the turbswitch crosses' pick with nests (ts_nests): every (polar,
+    # settling) for the table type its caller gives
+    generic = [i for i in inst if i[0] == "B"]
+    assert sorted(i[2:4] for i in generic) == [
+        ("false", "false"), ("false", "true"), ("true", "false"),
+        ("true", "true")]
+    assert all(i[1] == "TS" and i[4] == "true" for i in generic)
     body = re.search(r"void polar_update\((.*?)\n}\n", text, re.S).group(1)
     for fn in ("sinf(", "cosf(", "tanf(", "hypotf(", "atanf(", "atan2f("):
         assert fn in body, fn
@@ -929,14 +948,14 @@ def test_settling_instructions_are_the_instantiations_difference():
     import chip_smoke
     pre = "_ZN52_GLOBAL__N__x_advance_cu_y14advance_kernel"
     sass = "\n".join([
-        _sass_function(pre + "ILb1ELb0ELb1ELb0ELb0EEvN_3PInE",
+        _sass_function(pre + "ILb1ELi0ELb1ELb0ELb0EEvN_3PInE",
                        ["MOV R1, R2", "NOP", "EXIT"]),
-        _sass_function(pre + "ILb1ELb0ELb1ELb1ELb0EEvN_3PInE",
+        _sass_function(pre + "ILb1ELi0ELb1ELb1ELb0EEvN_3PInE",
                        ["MOV R1, R2", "MUFU.LG2 R3, R3", "FMUL R3, R3, R4",
                         "NOP", "EXIT"]),
-        _sass_function(pre + "ILb0ELb0ELb1ELb1ELb0EEvN_3PInE",
+        _sass_function(pre + "ILb0ELi0ELb1ELb1ELb0EEvN_3PInE",
                        ["MOV R1, R2", "EXIT"]),
-        _sass_function(pre + "ILb1ELb0ELb1ELb1ELb1EEvN_3PInE",
+        _sass_function(pre + "ILb1ELi0ELb1ELb1ELb1EEvN_3PInE",
                        ["MOV R1, R2", "LDG R3, [R4]", "EXIT"])])
 
     class Kernel:
@@ -1036,14 +1055,15 @@ def test_parted_kernels_build_each_part_apart(name, tmp_path, monkeypatch):
     """K4 and K11 are built as libraries of parts, one nvcc each with
     -DFP_PART=<k>: the stock instantiations on f32 tables (0), on bf16
     tables (1), the nests' (K4) or the CBL's (K11) (2), and the tile's
-    (K4: 3; K11: 3 on f32 tables, 4 on bf16 tables, 5 its CBL), named
-    apart; the
+    (K4: 3; K11: 3 on f32 tables, 4 on bf16 tables, 5 its CBL), and K4's
+    crosses: TS with settling or nests (4), TS on a tile (5), the CBL (6),
+    the CBL with nests (7) and on a tile (8), named apart; the
     source's launcher returns the wrapper's NOT_IN_PART for the other
     parts' configurations, each part's instantiations inside its own
     preprocessor guard."""
     monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")    # none on the CPU
     k = _kernel(name)
-    assert k.parts == (4 if name == "advance" else 6)
+    assert k.parts == (9 if name == "advance" else 6)
     cmds = [k._compile_cmd(tmp_path / "x.so", part)
             for part in range(k.parts)]
     assert [c.count(f"-DFP_PART={p}") for p, c in enumerate(cmds)] == \
@@ -1064,6 +1084,15 @@ def test_parted_kernels_build_each_part_apart(name, tmp_path, monkeypatch):
         assert "true>" in guarded[2] and "true>" not in "".join(guarded[:2])
         assert "advance_tile_kernel<" in guarded[3]
         assert "advance_tile_kernel<" not in "".join(guarded[:3])
+        assert all("HANNA1" in g for g in guarded[:4])
+        assert "launch(ts_nests(Yes{}))" in guarded[4]
+        assert "TS, true, true, false>" in launcher.split(
+            "#if FP_HAS(4)")[2].split("#else")[0]
+        assert "launch(ts_tile(Yes{}))" in guarded[5]
+        assert "cbl(Yes{}, No{}, No{})" in guarded[6]
+        assert "cbl(Yes{}, Yes{}, No{})" in guarded[7]
+        assert "cbl(Yes{}, No{}, Yes{})" in guarded[8]
+        assert "cbl(" not in "".join(guarded[:6])
     else:
         assert "Cbl{}" in guarded[2]
         assert "std::false_type" in guarded[0] and "true_type" in guarded[1]
@@ -1072,7 +1101,7 @@ def test_parted_kernels_build_each_part_apart(name, tmp_path, monkeypatch):
         assert "pick_tile(std::true_type{}, Cbl{})" in guarded[5]
         assert "pick_tile(std::false_type{}, Cbl{})" in guarded[5]
     for other in _build.KERNELS:
-        assert other.parts == {"advance": 4, "advance_adaptive": 6}.get(
+        assert other.parts == {"advance": 9, "advance_adaptive": 6}.get(
             other.name, 1)
 
 
@@ -1341,3 +1370,27 @@ def test_k17_bound_charges_each_cell_hit_once():
     assert spread["bound_ms"] > plume["bound_ms"]
     empty = chip_smoke.k17_bound(cap, 0, nspec, 0)
     assert (empty["bound_bytes"], empty["bound_operations"]) == (cap, 0)
+
+
+def test_advance_cbl_is_a_kernel_of_its_own():
+    """K4's CBL instantiations are advance_cbl_kernel's: advance_body with
+    TURB == CBL, the run scalars a __grid_constant__ parameter (its
+    substeps index key_cbl by the substep; a by-value parameter would be
+    copied to the thread's stack), the NaN redraws counted in counts[2],
+    injected draws and more than MAX_CBL_SUBSTEPS substeps refused by the
+    launcher; the stock and TILE kernels keep their by-value parameter."""
+    text = _strip_comments(_build.ADVANCE.source.read_text())
+    body = re.search(r"advance_cbl_kernel\(.*?\n}\n", text, re.S).group(0)
+    assert "const __grid_constant__ AdvanceArgs a)" in body
+    assert "advance_body<BF16, CBL, POLAR, SETTLING, NESTS, TILE>(" in body
+    for k in ("advance_kernel(", "advance_tile_kernel("):
+        sig = re.search(re.escape(k) + r"[^)]*\)", text).group(0)
+        assert "const AdvanceArgs a)" in sig and "__grid_constant__" not in sig
+    assert "atomicAdd(&counts[2], __popc(nans))" in text
+    assert ("a.cblflag && (a.ifine > MAX_CBL_SUBSTEPS || d6 != nullptr)"
+            in text)
+    assert "const bool injected = TURB != CBL && dr.d[0] != nullptr;" in text
+    common = _strip_comments((_build.CSRC / "advance_common.cuh").read_text())
+    assert "a.key_cbl[2 * s]" in common
+    assert advance.MAX_CBL_SUBSTEPS == int(re.search(
+        r"constexpr int MAX_CBL_SUBSTEPS = (\d+);", common).group(1))

@@ -17,6 +17,7 @@ One case sorts the port's particles by met cell before every step
 particles: the sort is a layout step, so every particle must end where
 JAX puts it, to the same tolerances, once the slots are mapped back.
 """
+import dataclasses
 import pathlib
 import re
 import subprocess
@@ -446,3 +447,35 @@ print("ok")
                             "OMP_NUM_THREADS": "2"})
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().endswith("ok")
+
+
+def test_step_config_from_jax_drops_no_field():
+    """``interop.step_config_from_jax`` carries every JAX StepConfig field
+    the port has (``legacy_quad`` among them), maps the single nest's
+    ``nest_nx``/``nest_ny`` onto ``nests``, ignores by name ``maxsubsteps``
+    and ``nspec``, and raises ValueError naming any other field, from a
+    NamedTuple or a dict."""
+    from flexpart_tpu_torch import interop
+    from flexpart_tpu_torch.core.advance import StepConfig
+    jcfg = jadv.StepConfig(nx=9, ny=7, nz=5, xglobal=False, ldirect=-1,
+                           turbswitch=True, ifine=3, method=0, turboff=True,
+                           nspec=2, settling=True, cblflag=True,
+                           maxsubsteps=4, mintime=2.0, nest_nx=5, nest_ny=4,
+                           polar=True, tile_mode=True, met_bf16=False,
+                           legacy_quad=True)
+    t = interop.step_config_from_jax(jcfg)
+    for f in dataclasses.fields(StepConfig):
+        if f.name != "nests":
+            assert getattr(t, f.name) == getattr(jcfg, f.name), f.name
+    assert t.nests == ((5, 4),)
+    assert interop.step_config_from_jax(
+        jcfg._replace(nests=((6, 6), (3, 3)))).nests == ((6, 6), (3, 3))
+    # every field of either side is accounted for
+    known = ({f.name for f in dataclasses.fields(StepConfig)}
+             | set(interop._STEP_CONFIG_MAPPED)
+             | set(interop._STEP_CONFIG_IGNORED))
+    assert set(jadv.StepConfig._fields) <= known
+    d = jcfg._asdict()
+    assert interop.step_config_from_jax(d) == t
+    with pytest.raises(ValueError, match="unknown_flag"):
+        interop.step_config_from_jax({**d, "unknown_flag": True})
