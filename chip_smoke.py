@@ -120,18 +120,26 @@ the port's stock forward step on the card, in phases:
                 1 tile, bitwise against its plain version and, but where
                 the step wraps, mirrors or caps, against stock K11 CBL,
                 timed beside it, and on tile 0 of a 2 x 2 split; and the fixed
-                step's crosses: K4's CBL instantiation (the fixed step with
-                the skewed CBL, ifine 11, the polar caps) bitwise against
-                its plain version, nan_count too, on 10 x 2**20
+                step's crosses: K4 CBL (the fixed step with the skewed
+                CBL, ifine 11, the polar caps; three launches a call: the
+                start, the skewed substeps of the particles it queued, their
+                end) bitwise against its plain version, nan_count too, its
+                queue's length against the plain rule, on 10 x 2**20
                 boundary-layer particles on K11 CBL's fields, as drawn and
                 in cell order, beside stock K4 TS and K11 CBL on the same
                 particles, with the shares of its substeps' branches (the
-                skewed zone, the linear form) and its bound (the substep
-                loop's and the skewed functions' instructions read from
-                its part built with FP_CBL_CALLS=1); K4 TILE x CBL on a 1 x
-                1 tile and on tile 0 of 2 x 2; K4 with turbswitch and
-                settling, with two nests and on a tile; and K11 CBL with
-                turbswitch off, each at 2**20 particles, bitwise;
+                skewed zone, the linear form), the skewed substeps' lane
+                efficiency (its part built with FP_CBL_LANES=1), its
+                kernels' ptxas lines and resident warps an SM (the
+                occupancy query), and its bound (the substep loop's and the
+                skewed functions' instructions read from its part built
+                with FP_CBL_CALLS=1, each no more than the one-thread
+                design's); every one of its
+                24 instantiations, turbswitch on and off, at 2**16; K4 TILE
+                x CBL on a 1 x 1 tile and on tile 0 of 2 x 2; K4 with
+                turbswitch and settling, with two nests and on a tile, each
+                with its bound; and K11 CBL with turbswitch off with its
+                bound, each at 2**20 particles, bitwise;
   3b. kernels_oh_split — K12, the OH reaction, bitwise against its plain
                 version on the deposition particles (10 x 2**20, two OH
                 species, one with the power N = 2) at a daylight step of
@@ -189,12 +197,16 @@ the port's stock forward step on the card, in phases:
                 CBL, turbswitch, ifine 11, the polar caps) at full width: 10
                 x 2**20 boundary-layer particles on SyntheticMet with a
                 strong CBL over the eastern half, 8 steps through
-                advance_chunked (K2 each step, K4 CBL one launch a step,
+                advance_chunked (K2 each step, K4 CBL one call a step,
                 the cell-order sort on the first), K3 into the 720x360x3
                 grid; launch counts reset just before and read just after;
                 particle-steps/s, the NaN redraws per step, and on the last
                 step's particles K4 CBL's time per call beside stock K4 TS
-                and K11 CBL, its bound and the shares of its branches;
+                and K11 CBL, its bound, the shares of its branches, its
+                queue's length against the plain rule, the skewed lane
+                efficiency, the step's device busy share and K4 CBL's
+                kernels a call (the profiler over 4 more calls of the last
+                step, each of its three kernels once a call);
   8. sim      — the port's Simulation.run at full width with the default
                 Command (convection and subgrid orography on) and two
                 species, the default tracer and a Cs-137-like aerosol that
@@ -1513,7 +1525,9 @@ def sass_instantiation(kernel, template: str, flags) -> tuple:
     want = "".join(f"Lb{int(f)}E" if isinstance(f, bool) else f"Li{f}E"
                    for f in flags)
     funcs = sass_functions(kernel.cuobjdump("-sass"))
-    hit = [f for f in funcs if re.search(r"\d%sI%sE" % (template, want), f)]
+    # no flags: a kernel that is no template
+    args = f"I{want}E" if flags else "E"
+    hit = [f for f in funcs if re.search(r"\d%s%s" % (template, args), f)]
     check(len(hit) == 1, f"{kernel.name}: instantiation {want} of "
           f"{template} not found once in {sorted(funcs)}")
     code, labels, pending = [], {}, []
@@ -2229,6 +2243,116 @@ def k4_cbl_calls_build():
     return _K4_CBL_CALLS[0]
 
 
+_K4_CBL_LANES = []
+
+
+def k4_cbl_lanes_build():
+    """K4's CBL part (FP_PART=6) built with FP_CBL_LANES=1, where each warp
+    that enters the skewed substep adds itself and its active lanes to two
+    counters (advance_common.cuh's count_cbl_lanes, read and zeroed by
+    fp_cbl_lanes): what the skewed substeps' lane efficiency is read from.
+    No path launches it; built once, in the build phase beside the
+    kernels."""
+    from flexpart_tpu_torch import _build
+    if not _K4_CBL_LANES:
+        k = _build.ADVANCE
+        _K4_CBL_LANES.append(_build.Kernel(
+            k.name, k.symbol, k.argtypes,
+            defines=("-DFP_PART=6", "-DFP_CBL_LANES=1")))
+    return _K4_CBL_LANES[0]
+
+
+def k4_cbl_lane_efficiency(q, height, tables, a, key, cfg,
+                           kernel=None) -> dict:
+    """K4 CBL's skewed substeps on these inputs, from one launch of
+    ``kernel`` (k4_cbl_lanes_build unless given: a build with
+    FP_CBL_LANES=1 of the part that holds ``cfg``) in place of K4 (its
+    outputs dropped, no launch counted): the warps' entries into the
+    skewed substep, their active lanes, and active / (32 entries), the
+    lane efficiency."""
+    import copy
+    import ctypes
+    import torch
+    from flexpart_tpu_torch.core import advance
+    k = k4_cbl_lanes_build() if kernel is None else kernel
+    read = k.query("fp_cbl_lanes", [ctypes.c_void_p])
+    buf = (ctypes.c_ulonglong * 2)()
+    entry = advance.k4_entry(cfg)
+    saved, launches = entry.kernel, entry.launches
+    torch.cuda.synchronize()
+    check(read(ctypes.addressof(buf)) == 0, "fp_cbl_lanes failed")
+    entry.kernel = k
+    try:
+        advance.advance_all_cuda(q, height, tables, copy.copy(a), key, cfg,
+                                 None, 0)
+        torch.cuda.synchronize()
+    finally:
+        entry.kernel, entry.launches = saved, launches
+    check(read(ctypes.addressof(buf)) == 0, "fp_cbl_lanes failed")
+    entries, active = int(buf[0]), int(buf[1])
+    return dict(warp_entries=entries, active_lanes=active,
+                lane_efficiency=active / (32 * entries) if entries else None)
+
+
+def k4_cbl_occupancy(nz: int) -> dict:
+    """K4 CBL's resident blocks and warps an SM on this card for each of
+    its 24 instantiations (table type, polar, settling, with nests or on a
+    tile), read by fp_advance_cbl_layout
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor of its start, its
+    skewed launch and its end, with ``nz`` levels of shared memory)."""
+    import ctypes
+    from flexpart_tpu_torch import _build
+    from flexpart_tpu_torch.core import advance
+    query = _build.ADVANCE.query("fp_advance_cbl_layout",
+                                 [ctypes.c_void_p, ctypes.c_void_p])
+    out = {}
+    for bf16 in (0, 1):
+        for polar in (0, 1):
+            for settling in (0, 1):
+                for where in ("grid", "nests", "tile"):
+                    a = advance.AdvanceArgs()
+                    a.nz, a.table_bf16, a.polar, a.settling = (
+                        nz, bf16, polar, settling)
+                    a.cblflag = 1
+                    a.nnest = 1 if where == "nests" else 0
+                    a.tile = 1 if where == "tile" else 0
+                    blocks = (ctypes.c_int * 3)()
+                    err = query(ctypes.addressof(a), ctypes.addressof(blocks))
+                    check(err == 0, f"fp_advance_cbl_layout: cudaError {err}")
+                    out[f"{where} bf16={bf16} polar={polar} "
+                        f"settling={settling}"] = {
+                        k: dict(blocks_per_sm=b, warps_per_sm=b * 256 // 32)
+                        for k, b in zip(K4_CBL_KERNELS, blocks)}
+    return out
+
+
+# K4 CBL's kernels: the start, the skewed substeps, the deferred
+# particles' end (csrc/advance.cu)
+K4_CBL_KERNELS = ("advance_cbl_kernel", "advance_cbl_skewed_kernel",
+                  "advance_cbl_finish_kernel")
+
+
+def k4_cbl_layout(kernel, nz: int) -> dict:
+    """K4 CBL's kernels in ``kernel``'s build log, each entry's ptxas line
+    (registers, stack, spills), and their resident warps an SM on this
+    card (k4_cbl_occupancy); per kernel the range of each over its
+    instantiations."""
+    entries = {e: v for e, v in ptxas_by_entry(kernel.build_log).items()
+               if e.startswith("advance_cbl")}
+    occupancy = k4_cbl_occupancy(nz)
+    ranges = {}
+    for name in K4_CBL_KERNELS:
+        lines = [v for e, v in entries.items() if e.split("<")[0] == name]
+        warps = [o[name]["warps_per_sm"] for o in occupancy.values()]
+        ranges[name] = dict(
+            instantiations=len(lines),
+            registers=[min(v["registers"] for v in lines),
+                       max(v["registers"] for v in lines)],
+            warps_per_sm=[min(warps), max(warps)],
+            spill_stores_max=max(v.get("spill_stores", 0) for v in lines))
+    return dict(by_kernel=ranges, entries=entries, occupancy=occupancy)
+
+
 def k4_template(cfg) -> tuple:
     """K4's kernel template for ``cfg`` and its template arguments:
     advance_kernel's table type, turbulence (0 Hanna1, 1 TS), polar,
@@ -2242,13 +2366,14 @@ def k4_template(cfg) -> tuple:
 
 
 def k4_cbl_instructions(cfg) -> dict:
-    """K4 CBL's substep, read from k4_cbl_calls_build: in the SASS of the
-    instantiation for ``cfg``, the substep loop is the widest backward
-    branch of the kernel's body (up to its first unconditional EXIT), and
-    a substep the cheapest path (sass_path) through it, the call of the
-    skewed substep counted as one instruction and the stores and loads of
-    local memory not at all; the cheapest paths through the skewed
-    functions (function_paths) beside it."""
+    """K4 CBL's substeps, read from k4_cbl_calls_build: in the SASS of its
+    start's instantiation for ``cfg`` (advance_cbl_kernel), the substep
+    loop of the particles the start keeps is the widest backward branch of
+    the kernel's body (up to its first unconditional EXIT), and a substep
+    the cheapest path (sass_path) through it, the stores and loads of local
+    memory not counted; the cheapest paths through the skewed functions
+    (function_paths) beside it: the skewed substep in the skewed launch
+    (advance_cbl_skewed_kernel), a fresh particle's draw in the start."""
     kernel = k4_cbl_calls_build()
     name, code = sass_instantiation(kernel, *k4_template(cfg))
     body_end = min((a for a, op, cond, _, _ in code
@@ -2259,6 +2384,7 @@ def k4_cbl_instructions(cfg) -> dict:
     check(bool(back), "K4 CBL: no loop found in the compiled kernel")
     sub = max(back, key=lambda b: b[1] - b[0])
     local = local_memory(code, *sub)
+    skewed, fresh = CBL_SKEWED_FUNCTIONS
     return dict(entry=name[:80],
                 substep_loop=sum(1 for a, op, _, _, _ in code
                                  if sub[0] <= a <= sub[1] and op != "NOP"),
@@ -2266,31 +2392,56 @@ def k4_cbl_instructions(cfg) -> dict:
                 calls_in_substep_loop=sum(
                     1 for a, op, _, _, _ in code
                     if sub[0] <= a <= sub[1] and op.startswith("CALL")),
-                skewed_paths=function_paths(kernel, *k4_template(cfg),
-                                            CBL_SKEWED_FUNCTIONS))
+                skewed_paths={
+                    **function_paths(kernel, "advance_cbl_skewed_kernel", (),
+                                     (skewed,)),
+                    **function_paths(kernel, *k4_template(cfg), (fresh,))})
+
+
+# K4 CBL's instructions as the one-thread design (a thread runs each
+# particle's whole step, skewed substeps included; commit cf5d7a4) compiled
+# them on the H100, in its part built with FP_CBL_CALLS=1: a further
+# substep at its cheapest path, and the cheapest path through each skewed
+# function
+K4_CBL_ONE_THREAD_INSTRUCTIONS = {"substep": 120, "cbl_skewed_wp": 499,
+                                  "cbl_fresh_wp": 403}
+
+
+def k4_cbl_counted(ins) -> dict:
+    """The instructions K4 CBL's bound counts a further substep and a call
+    of each skewed function: the fewer of this build's (``ins``,
+    k4_cbl_instructions) and K4_CBL_ONE_THREAD_INSTRUCTIONS, since both
+    compute the same function and a design's own code must not raise its
+    bound."""
+    mine = {"substep": ins["substep_cheapest"],
+            **{f: ins["skewed_paths"][f]["cheapest"]
+               for f in CBL_SKEWED_FUNCTIONS}}
+    return {f: min(v, K4_CBL_ONE_THREAD_INSTRUCTIONS[f])
+            for f, v in mine.items()}
 
 
 def fixed_cbl_bound(p, pk, height, cfg, shares, ins) -> dict:
     """K4 CBL's least time on these inputs.  Bytes: stock K4's (54 B of
     state in, 50 B out, each start row and end row that a particle names
     once).  Operations: stock K4's per particle (one substep), and as K11
-    CBL's are counted, the compiled kernel's instructions
-    (k4_cbl_instructions) for the other ifine - 1 substeps of each
-    boundary-layer particle at the substep's cheapest path, and for each
-    skewed call (fixed_cbl_shares) at the cheapest path through its
-    function."""
+    CBL's are counted, instructions (k4_cbl_counted) for the other ifine -
+    1 substeps of each boundary-layer particle at the substep's cheapest
+    path, and for each skewed call (fixed_cbl_shares) at the cheapest path
+    through its function."""
     row_b = 128 if cfg.met_bf16 else 256
     n = p.capacity
     rows0 = unique_rows(p, height, cfg)
     rows1 = unique_rows(pk, height, cfg)
-    skewed = sum(shares["calls"][f] * ins["skewed_paths"][f]["cheapest"]
+    counted = k4_cbl_counted(ins)
+    skewed = sum(shares["calls"][f] * counted[f]
                  for f in CBL_SKEWED_FUNCTIONS)
     substeps = (cfg.ifine - 1) * shares["pbl_particles"]
     return dict(skewed_instructions=skewed,
-                substep_instructions=substeps * ins["substep_cheapest"],
+                substep_instructions=substeps * counted["substep"],
+                instructions_counted=counted,
                 **bound(104 * n + row_b * rows0 + row_b * 3 // 8 * rows1,
                         K4_OPS_PER_PARTICLE * n,
-                        substeps * ins["substep_cheapest"] + skewed))
+                        substeps * counted["substep"] + skewed))
 
 
 def k4_stock_bound(q, pk, height, cfg) -> dict:
@@ -2337,6 +2488,109 @@ def check_fixed(q, height, tables, a, key, cfg, settle, what: str,
     return res, pk, dk
 
 
+def k4_cbl_deferred_held(dk, q, height, tables, cfg, a, what: str) -> dict:
+    """K4 CBL's queue length (StepDiag.deferred) against the plain rule of
+    the skewed branch on these particles (advance.k4_cbl_deferred),
+    equal."""
+    from flexpart_tpu_torch.core import advance
+    rule = int(advance.k4_cbl_deferred(q, height, tables, cfg, a).sum())
+    check(int(dk.deferred) == rule, f"{what}: K4 CBL deferred "
+          f"{int(dk.deferred)} particles, the plain rule {rule}")
+    return dict(deferred=rule)
+
+
+def k4_cbl_instantiations(device, grid, n: int = 2 ** 16) -> dict:
+    """Every instantiation of K4 CBL against its plain version, bitwise
+    (check_fixed: every output, the counts and nan_count), turbswitch on
+    and off: table type x POLAR x SETTLING on the grid (on
+    convective_met's fields), with NEST_OUTER and NEST_INNER (the mother
+    convective, the nests SyntheticMet with their jets) and on a 1 x 1
+    tile, each on ``n`` boundary-layer particles in cell order, a third of
+    them the aerosol; the queue's length held against the plain rule on
+    the grid's.  48 checks."""
+    import dataclasses
+    import numpy as np
+    from flexpart_tpu_torch.core import advance, interp, reorder, rng
+    from flexpart_tpu_torch.met import synthetic, verttransform
+    from flexpart_tpu_torch.run.simulation import nest_windows
+    itime, mem1 = FIXED_CBL_ITIME, 10800
+    z0, z1 = (convective_met(z, grid.nx // 2) for z in
+              met_fields("synthetic", grid, device, (0.0, 10800.0)))
+    height = z0.height
+    key = rng.Key(4321, 41)
+    # the nests on the mother's height grid (nests_inputs' fields)
+    nests = (nest_grid(grid, NEST_OUTER), nest_grid(grid, NEST_INNER))
+    levels = verttransform.compute_heights(
+        grid, synthetic.SyntheticMet(grid).fetch(0.0, device))
+    zn = [nest_fields(g, levels, device, (0.0, 10800.0), NEST_U_JET[w])
+          for g, w in zip(nests, ("outer", "inner"))]
+    halo = tiles_halo(grid, z0)
+    out, seen = {}, set()
+    for bf16 in (False, True):
+        for polar in (False, True):
+            for settling in (False, True):
+                for ts in (True, False):
+                    cfg, prm = fixed_cbl_params(
+                        grid, met_bf16=bf16, polar=polar, settling=settling,
+                        turbswitch=ts)
+                    tw = advance._time_weights(itime, 0, mem1, prm, cfg)[:4]
+                    tables = interp.build_step_tables_quad(
+                        z0, z1, *tw, dtype=cfg.table_dtype)
+                    p = boundary_layer_particles(
+                        n, device, 83, grid, itime,
+                        lambda q: sample_met(q, height, tables, cfg)[0])
+                    q = reorder.reorder_by_cell_cuda(p, height, cfg)[0]
+                    settle = advance.settle_met(z0, cfg) if settling else None
+                    a = advance.advance_args(cfg, prm, itime, 0, mem1)
+                    tag = (f"bf16={int(bf16)} polar={int(polar)} "
+                           f"settling={int(settling)} turbswitch={int(ts)}")
+                    r, _, dk = check_fixed(q, height, tables, a, key, cfg,
+                                           settle, f"K4 CBL {tag}")
+                    k4_cbl_deferred_held(dk, q, height, tables, cfg, a, tag)
+                    out[f"grid {tag}"] = dict(
+                        nan_count=r["nan_count"], deferred=int(dk.deferred))
+                    seen.add(k4_template(cfg))
+                    # with the two nests
+                    cn = advance.StepConfig(**{
+                        **cfg.__dict__,
+                        "nests": tuple((g.nx, g.ny) for g in nests)})
+                    pn = dataclasses.replace(prm, **{
+                        f: tuple(float(np.float32(x)) for x in v)
+                        for f, v in nest_windows(grid, nests).items()})
+                    tn = tuple(interp.build_step_tables_quad(
+                        zk[0], zk[1], *tw, dtype=cfg.table_dtype)
+                        for zk in zn)
+                    qn = reorder.reorder_by_cell_cuda(
+                        nested_particles(n, device, 89, grid, itime, nests)
+                        if not settling else with_species(
+                            nested_particles(n, device, 89, grid, itime,
+                                             nests), device, 91, 1.0 / 3),
+                        height, cn)[0]
+                    an = advance.advance_args(cn, pn, itime, 0, mem1)
+                    r, _, dk = check_fixed(qn, height, tables, an, key, cn,
+                                           settle, f"K4 CBL NESTS {tag}", tn)
+                    out[f"nests {tag}"] = dict(
+                        nan_count=r["nan_count"], deferred=int(dk.deferred))
+                    seen.add(k4_template(cn))
+                    # on a 1 x 1 tile
+                    eng = tile_engines(cfg, grid, (1, 1), halo)[0]
+                    zt0, _, tt, settle_t = tile_inputs([eng], z0, z1, tw,
+                                                       cfg)[0]
+                    at = advance.advance_args(eng.cfg, prm, itime, 0, mem1,
+                                              eng.tile)
+                    r, _, dk = check_fixed(q, zt0.height, tt, at, key,
+                                           eng.cfg,
+                                           settle_t if settling else None,
+                                           f"K4 TILE x CBL {tag}")
+                    out[f"tile {tag}"] = dict(
+                        nan_count=r["nan_count"], deferred=int(dk.deferred))
+                    seen.add(k4_template(eng.cfg))
+    check(len(seen) == 24, f"K4 CBL: {len(seen)} instantiations held, "
+          "not 24")
+    return dict(n=n, instantiations=len(seen), checks=len(out),
+                bitwise=True, cases=out)
+
+
 def kernel_advance_fixed_cbl(device, grid) -> dict:
     """K4 CBL (fixed_cbl's configuration: the fixed step with the skewed
     CBL, turbswitch, ifine 11, the polar caps) on 10 x 2**20
@@ -2351,6 +2605,7 @@ def kernel_advance_fixed_cbl(device, grid) -> dict:
     turbswitch off, beside K11 CBL with it."""
     import copy
     import torch
+    from flexpart_tpu_torch import _build
     from flexpart_tpu_torch.core import advance, reorder, rng
     itime = FIXED_CBL_ITIME
     c = fixed_cbl_inputs(device, grid, N_MAIN, itime)
@@ -2375,6 +2630,9 @@ def kernel_advance_fixed_cbl(device, grid) -> dict:
         r, pk, dk = check_fixed(q, height, tables, a, key, cfg, None,
                                 f"K4 CBL {name}",
                                 time_plain=name == "cell_ordered")
+        r.update(k4_cbl_deferred_held(dk, q, height, tables, cfg, a,
+                                      f"K4 CBL {name}"),
+                 **k4_cbl_lane_efficiency(q, height, tables, a, key, cfg))
         if name == "cell_ordered":
             r.update(fixed_cbl_bound(q, pk, height, cfg, res, res[
                 "instructions"]))
@@ -2392,14 +2650,18 @@ def kernel_advance_fixed_cbl(device, grid) -> dict:
     res.update({f: m[f] for f in (
         "ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
         "bound_operations", "bound_instructions", "substep_instructions",
-        "skewed_instructions", "share_of_bound", "stock_k4_ts_ms",
-        "k11_cbl_ms", "nan_count")},
+        "skewed_instructions", "instructions_counted", "share_of_bound",
+        "stock_k4_ts_ms", "k11_cbl_ms", "nan_count", "deferred")},
         library_ms=None, n=N_MAIN, max_abs_err=0.0,
         unordered_ms=res["cases"]["as_drawn"]["ms"],
-        bitwise=all(r["bitwise"] for r in res["cases"].values()))
+        bitwise=all(r["bitwise"] for r in res["cases"].values()),
+        lane_efficiency={n: res["cases"][n]["lane_efficiency"]
+                         for n in res["cases"]},
+        layout=k4_cbl_layout(_build.ADVANCE, grid.nlev))
     res["tile_cbl"] = fixed_cbl_tile(grid, c, key, ordered, m)
     del p, ordered
     torch.cuda.empty_cache()
+    res["instantiations"] = k4_cbl_instantiations(device, grid)
     res["ts_crosses"] = fixed_ts_crosses(device, grid)
     res["k11_cbl_turbswitch_off"] = k11_cbl_turbswitch_off(device, grid)
     return res
@@ -2552,6 +2814,8 @@ def fixed_ts_crosses(device, grid) -> dict:
     r["halo"] = halo
     out["tile"] = r
     del pk
+    for r in (out["settling"], out["nests"], out["tile"]):
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
     out.update(n=N_CROSS, bitwise=True, max_abs_err=0.0, library_ms=None,
                **{f: out["settling"][f] for f in (
                    "ms", "plain_ms", "bound_ms", "bound_by", "bound_bytes",
@@ -2568,6 +2832,7 @@ def k11_cbl_turbswitch_off(device, grid) -> dict:
     the passes, the counts and nan_count, bitwise), timed beside K11 CBL
     with turbswitch on the same particles."""
     import copy
+    from flexpart_tpu_torch import _build
     from flexpart_tpu_torch.core import advance, interp, reorder, rng
     z0, z1 = (convective_met(z, grid.nx // 2) for z in
               met_fields("synthetic", grid, device, (0.0, 10800.0)))
@@ -2583,8 +2848,15 @@ def k11_cbl_turbswitch_off(device, grid) -> dict:
                                  lambda q: sample_met(q, z0.height, tables,
                                                       cfg)[0])
     q = reorder.reorder_by_cell_cuda(p, z0.height, cfg)[0]
-    r, _, dk = check_adaptive(q, z0.height, tables, a, key, cfg, None,
-                              "K11 CBL turbswitch off", time_plain=True)
+    r, pk, dk = check_adaptive(q, z0.height, tables, a, key, cfg, None,
+                               "K11 CBL turbswitch off", time_plain=True)
+    # its bound as K11 CBL's (kernel_advance_cbl): k11_bound from the CBL
+    # pass body's instructions and the skewed calls on these particles
+    ins = k11_instructions(_build.ADVANCE_ADAPTIVE, k11_entry(cfg),
+                           cfg.ifine)
+    r.update(k11_bound(q, pk, dk.passes, z0.height, cfg, a, ins))
+    r.update(cbl_skewed_bound(r, q, z0.height, tables, a, key, cfg, itime))
+    del pk
     r.update(n=N_CROSS, nan_count=int(dk.nan_count),
              skewed_share=skewed_share(q, z0.height, tables, cfg),
              ms=cuda_ms(lambda: advance.advance_adaptive_cuda(
@@ -2595,6 +2867,7 @@ def k11_cbl_turbswitch_off(device, grid) -> dict:
     check(r["particles_in_the_loop"] > N_CROSS // 2,
           "K11 CBL turbswitch off: fewer than half of the particles took a "
           "pass")
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
     return r
 
 
@@ -2689,10 +2962,13 @@ def phase_fixed_cbl(device, grid, kernels) -> dict:
     k11, k11_prm = cbl_params(grid)
     a11 = advance.advance_args(k11, k11_prm, it, 0, 10800)
     shares = fixed_cbl_shares(q, z0.height, tables, cfg, a, it)
-    pk, _ = advance.advance_all_cuda(q, z0.height, tables, copy.copy(a), key,
-                                     cfg, None, 0)
+    pk, dk = advance.advance_all_cuda(q, z0.height, tables, copy.copy(a),
+                                      key, cfg, None, 0)
     res.update(
         shares,
+        **k4_cbl_deferred_held(dk, q, z0.height, tables, cfg, a,
+                               "fixed_cbl's last step"),
+        **k4_cbl_lane_efficiency(q, z0.height, tables, a, key, cfg),
         k4_cbl_ms=cuda_ms(lambda: advance.advance_all_cuda(
             q, z0.height, tables, copy.copy(a), key, cfg, None, 0), 10),
         stock_k4_ts_ms=cuda_ms(lambda: advance.advance_all_cuda(
@@ -2702,7 +2978,26 @@ def phase_fixed_cbl(device, grid, kernels) -> dict:
         **fixed_cbl_bound(q, pk, z0.height, cfg, shares,
                           k4_cbl_instructions(cfg)))
     res["share_of_bound"] = res["bound_ms"] / res["k4_cbl_ms"]
-    del pk, q, last
+    del pk, dk
+
+    # the device's busy share: the last step again, its tables, K4 CBL and
+    # the sampling, under the profiler and then without it
+    acc2 = zero_accumulators(geo, 1, 1, device=device)
+    cf = ccfg.replace(kernel_possible=cc.kernel_possible_at(it + LSYNC, 0))
+
+    def again(first: int, count: int):
+        for _ in range(count):
+            qa, _ = advance.advance_chunked(q, z0, z1, it, 0, 10800, key, cfg,
+                                            prm, 1)
+            conc(acc2, qa, z0, it + LSYNC, lage, 1.0, cf)
+            torch.cuda.synchronize()
+    res["profile"] = profile_steps(again, 0, 4, K4_CBL_KERNELS)
+    # a step is one K4 CBL call: its kernels launched a step, each once
+    calls = res["profile"]["calls_per_step"]
+    check(all(c == 1 for c in calls.values()),
+          f"fixed_cbl: K4 CBL's kernels a call {calls}")
+    res["launches_per_call"] = sum(calls.values())
+    del q, last, acc2
     torch.cuda.empty_cache()
     return res
 
@@ -4455,10 +4750,11 @@ def device_rows(prof) -> list:
     return rows
 
 
-def profile_steps(steps, first: int, count: int) -> dict:
+def profile_steps(steps, first: int, count: int, names=()) -> dict:
     """``count`` more steady steps under torch.profiler: CUDA kernels per
-    step, device time by kernel (the sort's kernels also summed) and the
-    share of the window the card was busy."""
+    step, device time by kernel (the sort's kernels also summed), the
+    share of the window the card was busy, and the launches a step of the
+    kernels whose names hold each of ``names``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         steps(first, count)
@@ -4474,6 +4770,8 @@ def profile_steps(steps, first: int, count: int) -> dict:
                 device_busy_share=device_ms / 1e3 / unprofiled,
                 sort_kernels_per_step=sum(r[1] for r in sort) / count,
                 sort_ms_per_step=sum(r[2] for r in sort) / count,
+                calls_per_step={n: sum(c for k, c, _ in rows if n in k)
+                                / count for n in names},
                 top=[dict(name=k[:60], calls=c / count, ms=ms / count)
                      for k, c, ms in rows[:12]])
 
@@ -11167,7 +11465,8 @@ def main() -> int:
                 k.cuobjdump(flag, wait=False)
 
     build_s = _build.build_all(kernels + [cbl_calls_build(),
-                                          k4_cbl_calls_build()],
+                                          k4_cbl_calls_build(),
+                                          k4_cbl_lanes_build()],
                                on_built=disassemble)
     # every launch count: the kernels' and their instantiations' entries
     counted = kernels + list(_build.ENTRIES)
@@ -11177,7 +11476,8 @@ def main() -> int:
           "nvcc_ended_s": {k.name: k.build_s for k in kernels},
           "nvcc_ended_s_calls_builds": {
               "advance_adaptive_cbl_calls": cbl_calls_build().build_s,
-              "advance_cbl_calls": k4_cbl_calls_build().build_s},
+              "advance_cbl_calls": k4_cbl_calls_build().build_s,
+              "advance_cbl_lanes": k4_cbl_lanes_build().build_s},
           "ptxas": ptxas,
           "registers": {k.name: ptxas_by_entry(k.build_log)
                         for k in kernels}})
@@ -11760,7 +12060,8 @@ def main() -> int:
     next(r for r in line if r["name"] == "advance_adaptive.cbl")[
         "turbswitch_off"] = {f: off[f] for f in (
             "n", "bitwise", "ms", "plain_ms", "turbswitch_on_ms", "nan_count",
-            "skewed_share", "lane_efficiency", "passes_mean", "passes_max")}
+            "skewed_share", "lane_efficiency", "passes_mean", "passes_max",
+            "bound_ms", "bound_by", "share_of_bound")}
     # the fixed step's crosses: K4 CBL on fixed_cbl's path (one launch a
     # step); K4 TILE x CBL and the turbswitch crosses on no path (Command
     # makes no such fixed step), held in the kernels phase
@@ -11772,7 +12073,8 @@ def main() -> int:
             "skewed_use_lin_share", "exact_share", "calls", "instructions",
             "bound_bytes", "bound_operations", "bound_instructions",
             "substep_instructions", "skewed_instructions",
-            "share_of_bound")),
+            "share_of_bound", "deferred", "lane_efficiency",
+            "instructions_counted")),
         ("advance.tile_cbl", fx["tile_cbl"],
          "flexpart_tpu/parallel/domain.py:377", (
              "n", "bitwise", "stock_ms_same_particles", "share_of_bound",
@@ -11798,11 +12100,19 @@ def main() -> int:
              **path_launches(ename),
              **{f: r[f] for f in pick},
              **{f: r[f] for f in more if f in r}})
-    next(r for r in line if r["name"] == "advance.cbl")[
-        "fixed_cbl_per_call"] = {f: fcres[f] for f in (
-            "k4_cbl_ms", "stock_k4_ts_ms", "k11_cbl_ms", "bound_ms",
-            "bound_by", "share_of_bound", "skewed_share", "use_lin_share",
-            "nan_redraws_per_step", "particle_steps_per_s")}
+    row = next(r for r in line if r["name"] == "advance.cbl")
+    row["fixed_cbl_per_call"] = {f: fcres[f] for f in (
+        "k4_cbl_ms", "stock_k4_ts_ms", "k11_cbl_ms", "bound_ms",
+        "bound_by", "share_of_bound", "skewed_share", "use_lin_share",
+        "nan_redraws_per_step", "particle_steps_per_s", "deferred",
+        "lane_efficiency")}
+    row["fixed_cbl_per_call"]["device_busy_share"] = fcres["profile"][
+        "device_busy_share"]
+    row["launches_per_call"] = fcres["launches_per_call"]
+    row["kernels_per_call"] = fcres["profile"]["calls_per_step"]
+    row["layout"] = fx["layout"]["by_kernel"]
+    row["instantiations_held"] = {f: fx["instantiations"][f] for f in (
+        "n", "instantiations", "checks", "bitwise")}
     emit({"phase": "done", "seconds": time.perf_counter() - t_script})
     emit({"kernels": line})
     print(smi, flush=True)

@@ -143,13 +143,25 @@ class Kernel:
     def query(self, symbol: str, argtypes: list):
         """Another exported function of this kernel's library, one that
         launches nothing (a layout or occupancy query): built on first
-        use, not counted as a launch."""
+        use, not counted as a launch.  Of a kernel built in parts, each
+        part's in turn, up to the first that does not answer
+        NOT_IN_PART."""
         if self._fn is None:
             build_all([self])
-        fn = getattr(self._lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = I
-        return fn
+        fns = []
+        for lib in self._libs:
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = I
+            fns.append(fn)
+
+        def call(*args) -> int:
+            for fn in fns:
+                err = fn(*args)
+                if err != NOT_IN_PART:
+                    break
+            return err
+        return call
 
     def cuobjdump(self, *flags: str, wait: bool = True) -> str | None:
         """``cuobjdump`` of this kernel's libraries (built on first use),
@@ -347,9 +359,10 @@ ADVANCE = Kernel("advance", "fp_advance", [
     P, P,                 # rows (R, 64), rowsE (R, 32) bf16 or f32
     P,                    # height (nz,) f32
     P, P, P,              # settling: mass0 (n, nspec), tt, rho (nz, ny, nx) f32, or NULL
-    P,                    # counts (3,) i32: active, exited, the CBL's NaN
-                          # redraws (accumulated into)
+    P,                    # counts (4,) i32: active, exited, the CBL's NaN
+                          # redraws (accumulated into), the CBL's queue length
     P,                    # AdvanceArgs (host struct, core/advance.py)
+    P,                    # the CBL's queue (K4_CBL_QUEUE_WORDS, n) f32 or NULL
     P,                    # stream
 ], parts=9)
 

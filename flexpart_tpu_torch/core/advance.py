@@ -237,6 +237,9 @@ class StepDiag:
     #: int64; the ratio of the first two is the lane efficiency of its
     #: refilled lanes, the third is ``nan_count``
     lane_work: torch.Tensor | None = None
+    #: K4 CBL only: () int32, the particles its start deferred to the
+    #: skewed launch (``k4_cbl_deferred``'s count)
+    deferred: torch.Tensor | None = None
 
 
 DRAW_ROWS = {6: 6, 1: 2, 3: 3, 4: 3}     # tag 2 has ifine rows
@@ -1063,8 +1066,9 @@ def advance_all_cuda(p: Particles, height: torch.Tensor,
         held = [draws[tag].contiguous() for tag in DRAW_TAGS]
         injected = [d.data_ptr() for d in held]
     out = {f: torch.empty_like(getattr(p, f)) for f in OUT_FIELDS}
-    # active, exited and the CBL's NaN redraws
-    counts = torch.zeros(3, dtype=i32, device=dev)
+    # active, exited, the CBL's NaN redraws and its queue's length
+    counts = torch.zeros(K4_COUNT_WORDS, dtype=i32, device=dev)
+    queue = k4_cbl_queue(n, dev) if cfg.cblflag else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         k4_entry(cfg)(*(getattr(p, f).data_ptr() for f in _IN_FIELDS),
@@ -1072,9 +1076,48 @@ def advance_all_cuda(p: Particles, height: torch.Tensor,
                       *injected, tables.rows.data_ptr(),
                       tables.rowsE.data_ptr(), height.data_ptr(),
                       *_settle_ptrs(p, a, settle),
-                      counts.data_ptr(), ctypes.addressof(a), stream)
-    return p.replace(**out), StepDiag(n_active=counts[0], n_exited=counts[1],
-                                      nan_count=counts[2])
+                      counts.data_ptr(), ctypes.addressof(a),
+                      None if queue is None else queue.data_ptr(), stream)
+    return p.replace(**out), StepDiag(
+        n_active=counts[0], n_exited=counts[1], nan_count=counts[2],
+        deferred=counts[3] if cfg.cblflag else None)
+
+
+# K4's counts (int32): active, exited, the CBL's NaN redraws, the CBL's
+# queue length
+K4_COUNT_WORDS = 4
+# the words of an entry of K4 CBL's queue (csrc/advance.cu's QUEUE_WORDS)
+K4_CBL_QUEUE_WORDS = 11
+
+
+def k4_cbl_queue(n: int, device) -> torch.Tensor:
+    """K4 CBL's scratch: the queue of the particles whose substeps take the
+    skewed branch (in the skewed zone, -h/L > CBL_ZONE, with dtf / TL_w <
+    0.5 from the start's turbulence), K4_CBL_QUEUE_WORDS rows of ``n``
+    words: room for every particle, since which of them go is known only
+    on the card."""
+    return torch.empty((K4_CBL_QUEUE_WORDS, n), dtype=torch.float32,
+                       device=device)
+
+
+def k4_cbl_deferred(p: Particles, height: torch.Tensor,
+                    tables: StepTablesQuad, cfg: StepConfig,
+                    a: AdvanceArgs) -> torch.Tensor:
+    """(n,) bool: the particles whose substeps take the skewed branch, which
+    K4 CBL's start defers to its skewed launch, by the plain rule of that
+    branch (flexpart_tpu/core/advance.py:321-381): scheduled, in the
+    boundary layer (z / h <= 1), in the skewed zone (-h/L > CBL_ZONE) and
+    on the linear form (dtf / TL_w < 0.5, TL_w of the start's turbulence in
+    Hanna's turbswitch form, whatever turbswitch).  The grid's own tables:
+    no nests, no tile."""
+    hw = horiz_weights(p.x, p.y, cfg.nx, cfg.ny, cfg.xglobal)
+    indz, dz1 = vert_weights(p.z, height)
+    h, _, ust, wst, ol, _ = sample_all_quad(tables, hw, indz, dz1, p.x, p.y,
+                                            cfg.nx, cfg.ny)
+    pbl = p.active & ((p.z / h) <= 1.0)
+    zone = (-h / ol) > CBL_ZONE
+    lin = _scalar_div(a.dtf, hanna(p.z, h, ust, wst, ol).tlw) < 0.5
+    return pbl & zone & lin
 
 
 def k4_entry(cfg: StepConfig):

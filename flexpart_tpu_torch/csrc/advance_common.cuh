@@ -747,6 +747,23 @@ __device__ __forceinline__ Start nest_start(const AdvanceArgs& a,
 #define FP_CBL_SUBSTEP __forceinline__
 #endif
 
+// The skewed substeps' lane efficiency, in a measurement build of its own
+// (FP_CBL_LANES=1; no path launches it): each warp that enters the
+// skewed substep adds one to cbl_lanes[0] and its active lanes to
+// cbl_lanes[1] (advance.cu's fp_cbl_lanes reads and zeroes them).
+#if defined(FP_CBL_LANES) && FP_CBL_LANES
+__device__ unsigned long long cbl_lanes[2];
+__device__ __forceinline__ void count_cbl_lanes() {
+  const unsigned m = __activemask();
+  if ((threadIdx.x & 31) == static_cast<unsigned>(__ffs(m) - 1)) {
+    atomicAdd(&cbl_lanes[0], 1ull);
+    atomicAdd(&cbl_lanes[1], static_cast<unsigned long long>(__popc(m)));
+  }
+}
+#else
+__device__ __forceinline__ void count_cbl_lanes() {}
+#endif
+
 struct Skew {
   float alu, blu, dalu, dblu, sa, sb, dsa, dsb, wa, wb, dwa, dwb;
 };
@@ -1090,6 +1107,9 @@ __device__ __forceinline__ Turb pbl_substeps(
 // normal, which sets `nan`; where dtftlw >= 0.5 the turbswitch form's
 // exact update runs on the raw wp (the reference's quirk).  `col` is the
 // particle's skew_column, computed once a pass.
+// SKEWED false (K4 CBL's start, advance.cu, which defers every particle
+// that would take the skewed branch) compiles no skewed substep.
+template <bool SKEWED = true>
 __device__ __forceinline__ Turb cbl_substeps(
     const AdvanceArgs& a, long long i, uint32_t pass, Turb t, float dtf,
     float d2, float d2_odd, uint32_t pw[4], float h, float ust, float wst,
@@ -1107,7 +1127,8 @@ __device__ __forceinline__ Turb cbl_substeps(
     const float icbtf = static_cast<float>(cbt);
     float wp_new, delz;
     if (use_lin) {
-      if (col.zone) {
+      if (SKEWED && col.zone) {
+        count_cbl_lanes();
         wp_new = cbl_skewed_wp(wp, zz, h, rho, drhodz, t.sigw, t.dsigwdz,
                                t.tlw, col.transition, col.wst3, a.ldirf, dtf,
                                rnd, icbtf, a.key_cbl[2 * s],

@@ -32,8 +32,9 @@ world size 1 (``sim_tiles_adaptive``, 10 x 2**20 particles whatever
 splitting and a checkpoint's resume; ``n_particles`` should be the main
 path's 10 x 2**20, which those runs' checks expect); the fixed step's
 crosses (``fixed_cbl``: K4 CBL against its plain version at
-``n_particles``, with K4 TILE x CBL, K4's turbswitch crosses and K11 CBL
-with turbswitch off at 2**20) and the fixed_cbl path at ``n_particles``
+``n_particles`` with its queue's length, skewed lane efficiency and
+layout, every K4 CBL instantiation at 2**16, K4 TILE x CBL, K4's
+turbswitch crosses and K11 CBL with turbswitch off at 2**20) and the fixed_cbl path at ``n_particles``
 (``fixed_cbl_path``).  A failed check raises.  This is the quick call to make
 after changing a kernel, before a whole chip_smoke.py run.
 """

@@ -124,10 +124,10 @@ def test_entries_launch_their_instantiations(entry):
                                      "{\n#if FP_HAS(4)",
             "advance_adaptive.tile_cbl": "if (a.tile && a.cblflag) {\n"
                                          "#if FP_HAS(5)",
-            "advance.cbl": "#if FP_HAS(6)\n    return a.table_bf16 ? "
-                           "launch(cbl(Yes{}, No{}, No{}))",
-            "advance.tile_cbl": "if (a.cblflag) {\n    if (a.tile) {\n"
-                                "#if FP_HAS(8)",
+            "advance.cbl": "#if FP_HAS(6)\n  return a.table_bf16 ? "
+                           "by(Yes{}, No{}, No{})",
+            "advance.tile_cbl": "if (a.tile) {\n#if FP_HAS(8)\n    return "
+                                "a.table_bf16 ? by(Yes{}, No{}, Yes{})",
             "advance.ts_cross": "if (a.turbswitch && a.tile) {\n"
                                 "#if FP_HAS(5)\n    return a.table_bf16 ? "
                                 "launch(ts_tile(Yes{}))"}[entry]
@@ -1076,9 +1076,14 @@ def test_parted_kernels_build_each_part_apart(name, tmp_path, monkeypatch):
     assert "#define FP_PART -1" in text
     assert "#define FP_HAS(part) (FP_PART < 0 || FP_PART == (part))" in text
     launcher = text[text.index(f'extern "C" int {k.symbol}('):]
+    if name == "advance":
+        # K4 CBL's parts (6-8) are picked by with_cbl, which the launcher
+        # calls, before it
+        launcher = text[text.index("int with_cbl("):]
     guarded = [launcher.split(f"#if FP_HAS({part})")[1].split("#else")[0]
                for part in range(k.parts)]
-    assert all("launch(" in g for g in guarded)
+    assert all(("by(" if name == "advance" and part >= 6 else "launch(") in g
+               for part, g in enumerate(guarded))
     if name == "advance":
         assert all("advance_kernel<" in g for g in guarded[:3])
         assert "true>" in guarded[2] and "true>" not in "".join(guarded[:2])
@@ -1089,10 +1094,11 @@ def test_parted_kernels_build_each_part_apart(name, tmp_path, monkeypatch):
         assert "TS, true, true, false>" in launcher.split(
             "#if FP_HAS(4)")[2].split("#else")[0]
         assert "launch(ts_tile(Yes{}))" in guarded[5]
-        assert "cbl(Yes{}, No{}, No{})" in guarded[6]
-        assert "cbl(Yes{}, Yes{}, No{})" in guarded[7]
-        assert "cbl(Yes{}, No{}, Yes{})" in guarded[8]
-        assert "cbl(" not in "".join(guarded[:6])
+        assert "by(Yes{}, No{}, No{})" in guarded[6]
+        assert "by(Yes{}, Yes{}, No{})" in guarded[7]
+        assert "by(Yes{}, No{}, Yes{})" in guarded[8]
+        assert "by(" not in "".join(guarded[:6])
+        assert "return with_cbl(a, [&](auto k) -> int {" in launcher
     else:
         assert "Cbl{}" in guarded[2]
         assert "std::false_type" in guarded[0] and "true_type" in guarded[1]
@@ -1373,23 +1379,35 @@ def test_k17_bound_charges_each_cell_hit_once():
 
 
 def test_advance_cbl_is_a_kernel_of_its_own():
-    """K4's CBL instantiations are advance_cbl_kernel's: advance_body with
-    TURB == CBL, the run scalars a __grid_constant__ parameter (its
-    substeps index key_cbl by the substep; a by-value parameter would be
-    copied to the thread's stack), the NaN redraws counted in counts[2],
-    injected draws and more than MAX_CBL_SUBSTEPS substeps refused by the
-    launcher; the stock and TILE kernels keep their by-value parameter."""
+    """K4's CBL instantiations are three kernels of their own: the start
+    (advance_cbl_kernel: cbl_one's START stage), the
+    skewed substeps (advance_cbl_skewed_kernel, one for all) and the
+    deferred particles' end (advance_cbl_finish_kernel: the FINISH stage),
+    each with the run scalars a __grid_constant__ parameter (the substeps
+    index key_cbl by the substep; a by-value parameter would be copied to
+    the thread's stack), the NaN redraws counted in counts[2], injected
+    draws and more than MAX_CBL_SUBSTEPS substeps refused by the launcher;
+    the stock and TILE kernels keep their by-value parameter."""
     text = _strip_comments(_build.ADVANCE.source.read_text())
-    body = re.search(r"advance_cbl_kernel\(.*?\n}\n", text, re.S).group(0)
-    assert "const __grid_constant__ AdvanceArgs a)" in body
-    assert "advance_body<BF16, CBL, POLAR, SETTLING, NESTS, TILE>(" in body
+    for kernel, call in (
+            ("advance_cbl_kernel", "cbl_one<BF16, POLAR, SETTLING, NESTS, "
+                                   "TILE, START>("),
+            ("advance_cbl_skewed_kernel", "skewed_substeps(q, k, a)"),
+            ("advance_cbl_finish_kernel", "cbl_one<BF16, POLAR, SETTLING, "
+                                          "NESTS, TILE, FINISH>(")):
+        body = re.search(r"\b%s\(.*?\n}\n" % kernel, text, re.S).group(0)
+        assert "const __grid_constant__ AdvanceArgs a)" in body, kernel
+        assert call in body, kernel
     for k in ("advance_kernel(", "advance_tile_kernel("):
         sig = re.search(re.escape(k) + r"[^)]*\)", text).group(0)
         assert "const AdvanceArgs a)" in sig and "__grid_constant__" not in sig
     assert "atomicAdd(&counts[2], __popc(nans))" in text
     assert ("a.cblflag && (a.ifine > MAX_CBL_SUBSTEPS || d6 != nullptr)"
             in text)
-    assert "const bool injected = TURB != CBL && dr.d[0] != nullptr;" in text
+    # the stock body reads injected draws, the CBL's draws none
+    assert "const bool injected = dr.d[0] != nullptr;" in text
+    assert "fresh_state<CBL>(a, dr, false, i," in text
+    assert "meso_draws(a, dr, false, i, m0, m1, m2);" in text
     common = _strip_comments((_build.CSRC / "advance_common.cuh").read_text())
     assert "a.key_cbl[2 * s]" in common
     assert advance.MAX_CBL_SUBSTEPS == int(re.search(
